@@ -12,14 +12,16 @@ Phases, each of which raises on failure (exit code not 0):
               False.
  2. build   — compiles the port's CUDA kernels from csrc/ (one nvcc per
               source, in parallel) and prints the seconds it took.
- 3. kernels — each kernel wrapper against its plain PyTorch version on
-              the card at the serving path's shapes (plus bf16 and a
-              ragged edge case), TF32 off: max errors against stated
+ 3. kernels — each kernel wrapper (the three forwards and the two
+              LRN backwards) against its plain PyTorch version on the card
+              at the serving (b8) and training (b32) shapes, f32 and bf16,
+              plus a ragged edge case: max errors against stated
               limits, median kernel time over CUDA events with the L2
               flushed between launches, the bound (bytes over 3.35 TB/s
               or f32 operations over 67 TFLOP/s, whichever is larger), the
               plain version's time and, where one PyTorch call computes the
-              same function, that call's time.
+              same function, that call's time (for the LRN backward:
+              torch.autograd.grad of F.local_response_norm).
  4. serve   — full-width GoogLeNet (224x224, 1000 classes) with seeded
               random weights, written as a snapshot by the port's writer
               and served by the port's serve_http: requests of 1, 3, 8 and
@@ -32,8 +34,23 @@ Phases, each of which raises on failure (exit code not 0):
               request latency are printed beside the card's name, then
               a torch.profiler window over bucket-8 forwards: device time
               by kernel group and the device's busy share.
- 5. the kernel table as one JSON line, the nvidia-smi line, and as the
-    last line {"ok": true, "device": {...}}.
+ 5. train   — full-width GoogLeNet train net (both aux heads, batch 32)
+              with bvlc_googlenet's solver values: `python -m
+              sparknet_tpu_torch train` for 24 iterations with snapshots,
+              then `--resume auto` to 32 (the counter must continue); in
+              process, 20 steps of the port's Solver on one fixed batch
+              (the loss must fall; the LRN and fused-epilogue kernels,
+              forward and backward, launch at least once per step) and 2
+              under SPARKNET_EPILOGUE=on (bias_relu launches); the train
+              step time (CUDA events) and images/s; a torch.profiler
+              window (device time by group, busy share); and card against
+              CPU: 2 steps at batch 4, dropout 0, from one snapshot, TF32
+              left to the Solver, weights read by their change; controls:
+              the CPU on one thread (must pass), a zeroed LRN backward at
+              each site and TF32 on (each must fail the same reading).
+ 6. the kernel table as one JSON line (launches from the serving path
+    for the forwards, from the training path for the backwards), the
+    nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -102,13 +119,14 @@ def phase_build():
 # -- phase 3 --------------------------------------------------------------
 
 class Timer:
-    """Median time of ``fn`` over CUDA events, the L2 cache (50 MB)
-    flushed by a 96 MB write before every launch."""
+    """Median time of ``fn`` over CUDA events; with ``flush`` the L2
+    cache (50 MB) is flushed by a 96 MB write before every launch."""
 
-    def __init__(self, torch, reps=30):
+    def __init__(self, torch, reps=30, flush=True):
         self.torch = torch
         self.reps = reps
-        self.flush = torch.empty(96 * 2 ** 20 // 4, device="cuda")
+        self.flush = torch.empty(96 * 2 ** 20 // 4, device="cuda") \
+            if flush else None
 
     def __call__(self, fn):
         torch = self.torch
@@ -116,7 +134,8 @@ class Timer:
             fn()
         times = []
         for _ in range(self.reps):
-            self.flush.zero_()
+            if self.flush is not None:
+                self.flush.zero_()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -127,69 +146,130 @@ class Timer:
         return statistics.median(times)
 
 
-def _errors(torch, got, ref):
+def _errors(torch, got, ref, floor=None):
+    """Max errors and the verdict against the limit: f32 1e-5 relative,
+    bf16 one bf16 ulp, of |ref| per element, or of ``floor`` where that
+    is larger (the backward kernels: see phase_kernels)."""
     g, r = got.float(), ref.float()
     diff = (g - r).abs()
+    scale = r.abs() if floor is None else torch.maximum(r.abs(), floor)
     if ref.dtype == torch.bfloat16:
-        # one bf16 ulp of the reference: 2^(floor(log2|r|) - 7)
-        ulp = torch.exp2(torch.floor(torch.log2(r.abs())) - 7)
-        limit = torch.where(r == 0, torch.zeros_like(ulp), ulp)
+        # one bf16 ulp: 2^(floor(log2 scale) - 7)
+        ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+        limit = torch.where(scale == 0, torch.zeros_like(ulp), ulp)
         what = "1 bf16 ulp"
     else:
-        limit = 1e-5 * r.abs()
+        limit = 1e-5 * scale
         what = "1e-5 relative"
+    if floor is not None:
+        what += " of max(|ref|, |g| k^-beta)"
     ok = bool((diff <= limit).all())
     rel = float((diff / r.abs().clamp_min(1e-30)).max())
     return float(diff.max()), rel, ok, what
 
 
 def phase_kernels(torch):
+    """Each kernel against its plain version at the serving shapes (b8)
+    and the training shapes (b32), f32 and bf16, plus a ragged edge case.
+
+    The backward dx = g*s^-beta - c*x*sum(...) is a difference of two
+    terms, so where they cancel its value is far smaller than the
+    rounding of either; its limit is therefore taken of the larger of
+    |dx| and |g|*k^-beta, which bounds the first term (s >= k)."""
     import torch.nn.functional as F
     from sparknet_tpu_torch.ops import cuda_epilogue as ce
     from sparknet_tpu_torch.ops import cuda_lrn as cl
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     timer = Timer(torch)
     lrn_p = dict(size=5, alpha=1e-4, beta=0.75, k=1.0)   # GoogLeNet's LRNs
+    edge = dict(size=4, alpha=1e-2, beta=0.6, k=2.0)
 
     def randn(shape, dtype=torch.float32, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device="cuda")
                 ).to(dtype)
 
+    def lrn_lib_fwd(x, p):
+        return lambda: F.local_response_norm(x, p["size"], p["alpha"],
+                                             p["beta"], p["k"])
+
+    def lrn_lib_bwd(x, g, p):
+        """torch.autograd.grad of F.local_response_norm: the backward
+        pass alone, over a graph built once."""
+        with torch.enable_grad():
+            xl = x.detach().clone().requires_grad_()
+            y = F.local_response_norm(xl, p["size"], p["alpha"], p["beta"],
+                                      p["k"])
+
+        def run():
+            with torch.enable_grad():
+                return torch.autograd.grad(y, xl, g, retain_graph=True)[0]
+        return run
+
+    def floor(g, p):
+        return g.abs().float() * p["k"] ** -p["beta"]
+
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        x = randn((8, 64, 56, 56), dtype)
+
+    def lrn_fwd(x, p, row=False, edge_case=False):
         cases.append(dict(
-            name="lrn_across", shape=tuple(x.shape), dtype=dtype,
-            kernel=lambda x=x: cl.lrn_across(x, **lrn_p),
-            plain=lambda x=x: cl.lrn_across_plain(x, **lrn_p),
-            library=lambda x=x: F.local_response_norm(
-                x, lrn_p["size"], lrn_p["alpha"], lrn_p["beta"],
-                lrn_p["k"]),
-            inputs=[x], ops_per_elem=2 * lrn_p["size"] + 4))
-    edge = dict(size=4, alpha=1e-2, beta=0.6, k=2.0)
-    xe = randn((3, 3, 17, 19), scale=3.0)     # C < n, H*W = 323 ragged
-    cases.append(dict(
-        name="lrn_across", shape=tuple(xe.shape), dtype=torch.float32,
-        kernel=lambda: cl.lrn_across(xe, **edge),
-        plain=lambda: cl.lrn_across_plain(xe, **edge), library=None,
-        inputs=[xe], ops_per_elem=2 * edge["size"] + 4, edge=True))
+            name="lrn_across", x=x, dtype=x.dtype,
+            kernel=lambda: cl.lrn_across(x, **p),
+            plain=lambda: cl.lrn_across_plain(x, **p),
+            library=None if edge_case else lrn_lib_fwd(x, p),
+            inputs=[x], ops_per_elem=2 * p["size"] + 4, row=row,
+            edge=edge_case))
+
+    def brl_fwd(x, b, p, row=False):
+        cases.append(dict(
+            name="bias_relu_lrn", x=x, dtype=x.dtype,
+            kernel=lambda: ce.bias_relu_lrn(x, b, **p),
+            plain=lambda: ce.bias_relu_lrn_plain(x, b, **p), library=None,
+            inputs=[x, b], ops_per_elem=2 * p["size"] + 6, row=row))
+
+    def lrn_bwd(x, g, p, row=False, edge_case=False):
+        cases.append(dict(
+            name="lrn_across_bwd", x=x, dtype=x.dtype,
+            kernel=lambda: cl.lrn_across_bwd(x, g, **p),
+            plain=lambda: cl.lrn_across_bwd_plain(x, g, **p),
+            library=None if edge_case else lrn_lib_bwd(x, g, p),
+            inputs=[x, g], ops_per_elem=3 * p["size"] + 10, row=row,
+            edge=edge_case, floor=floor(g, p)))
+
+    def brl_bwd(x, b, g, p, row=False, edge_case=False):
+        cases.append(dict(
+            name="bias_relu_lrn_bwd", x=x, dtype=x.dtype,
+            kernel=lambda: ce.bias_relu_lrn_bwd(x, b, g, **p)[0],
+            plain=lambda: ce.bias_relu_lrn_bwd_plain(x, b, g, **p)[0],
+            library=None, inputs=[x, b, g],
+            ops_per_elem=3 * p["size"] + 12, row=row, edge=edge_case,
+            floor=floor(g, p)))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        lrn_fwd(randn((8, 64, 56, 56), dtype), lrn_p, row=f32)   # serving
+        lrn_fwd(randn((32, 64, 56, 56), dtype), lrn_p)           # training
+        x, g = randn((32, 64, 56, 56), dtype), randn((32, 64, 56, 56), dtype)
+        lrn_bwd(x, g, lrn_p, row=f32)
+        x2, b2 = randn((32, 192, 56, 56), dtype), randn((192,), scale=0.5)
+        g2 = randn((32, 192, 56, 56), dtype)
+        brl_bwd(x2, b2, g2, lrn_p, row=f32)
+    xe, ge = randn((3, 3, 17, 19), scale=3.0), randn((3, 3, 17, 19))
+    be = randn((3,), scale=0.5)
+    lrn_fwd(xe, edge, edge_case=True)        # C < n, H*W = 323 ragged
+    lrn_bwd(xe, ge, edge, edge_case=True)
+    brl_bwd(xe, be, ge, edge, edge_case=True)
     x2, b2 = randn((8, 192, 56, 56)), randn((192,), scale=0.5)
-    cases.append(dict(
-        name="bias_relu_lrn", shape=tuple(x2.shape), dtype=torch.float32,
-        kernel=lambda: ce.bias_relu_lrn(x2, b2, **lrn_p),
-        plain=lambda: ce.bias_relu_lrn_plain(x2, b2, **lrn_p), library=None,
-        inputs=[x2, b2], ops_per_elem=2 * lrn_p["size"] + 6))
+    brl_fwd(x2, b2, lrn_p, row=True)                        # serving
+    brl_fwd(randn((32, 192, 56, 56)), b2, lrn_p)            # training
     x1, b1 = randn((8, 64, 112, 112)), randn((64,), scale=0.5)
     cases.append(dict(
-        name="bias_relu", shape=tuple(x1.shape), dtype=torch.float32,
+        name="bias_relu", x=x1, dtype=torch.float32,
         kernel=lambda: ce.bias_relu(x1, b1),
         plain=lambda: ce.bias_relu_plain(x1, b1), library=None,
-        inputs=[x1, b1], ops_per_elem=2))
+        inputs=[x1, b1], ops_per_elem=2, row=True))
 
     results = []
-    with torch.inference_mode():
+    with torch.no_grad():
         for c in cases:
             got = c["kernel"]()
             torch.cuda.synchronize()
@@ -199,7 +279,8 @@ def phase_kernels(torch):
                   f"{ref.shape} {ref.dtype}")
             check(bool(torch.isfinite(got).all()),
                   f"{c['name']}: non-finite output")
-            abs_err, rel_err, ok, limit = _errors(torch, got, ref)
+            abs_err, rel_err, ok, limit = _errors(torch, got, ref,
+                                                  c.get("floor"))
             out_bytes = got.numel() * got.element_size()
             in_bytes = sum(t.numel() * t.element_size() for t in c["inputs"])
             nbytes = in_bytes + out_bytes
@@ -207,14 +288,14 @@ def phase_kernels(torch):
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / F32_OPS_PER_S * 1e3
             r = dict(
-                name=c["name"], shape=list(c["shape"]),
+                name=c["name"], shape=list(c["x"].shape),
                 dtype=str(c["dtype"]).replace("torch.", ""),
                 max_abs_err=abs_err, max_rel_err=rel_err, limit=limit,
                 ms=timer(c["kernel"]), plain_ms=timer(c["plain"]),
                 library_ms=timer(c["library"]) if c["library"] else None,
                 bytes=nbytes, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                edge=c.get("edge", False))
+                edge=c.get("edge", False), row=c["row"])
             print(f"[kernels] {r['name']} {r['shape']} {r['dtype']}: "
                   f"max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} "
                   f"(limit {limit}: {'ok' if ok else 'FAIL'}) | kernel "
@@ -262,8 +343,7 @@ def _serve_requests(url, inputs, reference, path):
 def phase_serve(torch, card):
     from sparknet_tpu_torch.graph import CompiledNet, TEST
     from sparknet_tpu_torch.models import zoo
-    from sparknet_tpu_torch.ops import cuda_epilogue as ce
-    from sparknet_tpu_torch.ops import cuda_lrn as cl
+    from sparknet_tpu_torch.ops import KERNEL_WRAPPERS, kernel_launches
     from sparknet_tpu_torch.resilience import save_model_snapshot
     from sparknet_tpu_torch.serve import (Batcher, ServeEngine,
                                           deploy_net_param, serve_http)
@@ -314,7 +394,6 @@ def phase_serve(torch, card):
     server.start()
     check(listening.wait(120), "server did not start listening")
     url = urls[0]
-    counters = (cl.lrn_across, ce.bias_relu_lrn, ce.bias_relu)
     launches = {}
     latencies = []
     for path, mode in (("auto", None), ("on", "on")):
@@ -322,11 +401,11 @@ def phase_serve(torch, card):
             os.environ.pop("SPARKNET_EPILOGUE", None)
         else:
             os.environ["SPARKNET_EPILOGUE"] = mode
-        for fn in counters:
+        for fn in KERNEL_WRAPPERS:
             fn.launches = 0
         lat = _serve_requests(url, inputs, reference,
                               f"SPARKNET_EPILOGUE={path}")
-        counts = {fn.__name__: fn.launches for fn in counters}
+        counts = kernel_launches()
         print(f"[serve] SPARKNET_EPILOGUE={path}: launches during the "
               f"requests {counts}")
         launches[path] = counts
@@ -360,65 +439,88 @@ def phase_serve(torch, card):
     print(f"[serve] bucket 8: {ips:.1f} images/s; request round trip p50 "
           f"{p50:.1f} ms over {len(latencies)} requests (JSON encode and "
           f"parse included; {card})")
-    profile = _profile_bucket(torch, engine, 8, card)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    feeds = {"data": torch.randn(8, 3, 224, 224, generator=gen,
+                                 device="cuda")}
+    profile = _profile(torch, lambda: engine.run_bucket(8, feeds), 10,
+                       _serve_group, "bucket 8 forward", card)
     return {"auto": launches["auto"], "on": launches["on"],
             "per_bucket_ms": per_bucket, "images_per_s_b8": ips,
             "p50_ms": p50, "profile_b8": profile}
 
 
-def _profile_bucket(torch, engine, b, card, reps=10):
-    """Device time by kernel over ``reps`` forwards of bucket ``b`` under
-    torch.profiler, and the device's busy share of the window's wall
-    time (host clock around synchronized work)."""
+def _device_events(prof, reps):
+    """[(ms per rep, count per rep, name)] of the events that ran on the
+    card (kernels, copies, memsets); the host-side ops, whose device
+    time repeats their kernels', are left out."""
+    from torch.autograd import DeviceType
+    out = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            out.append((us / 1e3 / reps, e.count // reps, e.key))
+    return out
+
+
+_CONV = ("conv", "cudnn", "xmma", "gemm", "sm90", "implicit", "fft",
+         "complex", "winograd", "fprop")
+
+
+def _serve_group(name):
+    if "channel_walk" in name:
+        return "port kernels (channel_walk)"
+    if any(s in name for s in _CONV):
+        return "convolution (cuDNN)"
+    return "pooling" if "pool" in name else "other"
+
+
+def _train_group(name):
+    if "channel_walk" in name:
+        return "port kernels (channel_walk)"
+    if any(s in name for s in ("dgrad", "wgrad", "bprop", "backward",
+                               "bwd")):
+        return "convolution backward (cuDNN)" if any(
+            s in name for s in _CONV + ("dgrad", "wgrad")) else "other"
+    if any(s in name for s in _CONV):
+        return "convolution forward (cuDNN)"
+    return "other"
+
+
+def _profile(torch, fn, reps, classify, label, card, top=8):
+    """Device time by group (``classify(lowercase kernel name)``) over
+    ``reps`` calls of ``fn`` under torch.profiler, after one call
+    outside the window, and the device's busy share of the window's
+    wall time (host clock around synchronized work). None when the
+    profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    feeds = {"data": torch.randn(b, 3, 224, 224, generator=gen,
-                                 device="cuda")}
-    for _ in range(3):
-        engine.run_bucket(b, feeds)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            engine.run_bucket(b, feeds)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"port kernels (channel_walk)": 0.0, "convolution (cuDNN)": 0.0,
-              "pooling": 0.0, "other": 0.0}
-    kernels = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us <= 0 or e.key.startswith(("aten::", "cuda", "Memcpy",
-                                        "Memset")):
-            continue
-        name = e.key.lower()
-        if "channel_walk" in name:
-            g = "port kernels (channel_walk)"
-        elif any(s in name for s in ("conv", "cudnn", "xmma", "gemm",
-                                     "sm90", "implicit", "fft", "complex",
-                                     "winograd")):
-            g = "convolution (cuDNN)"
-        elif "pool" in name:
-            g = "pooling"
-        else:
-            g = "other"
-        groups[g] += us / 1e3 / reps
-        kernels.append((us / 1e3 / reps, e.count // reps, e.key[:70]))
+    kernels = _device_events(prof, reps)
+    groups = {}
+    for ms, n, key in kernels:
+        g = classify(key.lower())
+        groups[g] = groups.get(g, 0.0) + ms
     busy = sum(groups.values())
-    out = {"wall_ms_per_forward": wall_ms / reps,
-           "device_ms_per_forward": busy,
-           "busy_share": busy * reps / wall_ms,
-           "groups_ms": groups}
-    print(f"[profile] bucket {b}: wall {out['wall_ms_per_forward']:.3f} ms "
-          f"per forward, device busy {busy:.3f} ms "
+    out = {"wall_ms_per_call": wall_ms / reps, "device_ms_per_call": busy,
+           "busy_share": busy * reps / wall_ms, "groups_ms": groups}
+    print(f"[profile] {label}: wall {out['wall_ms_per_call']:.3f} ms per "
+          f"call, device busy {busy:.3f} ms "
           f"({100 * out['busy_share']:.1f}%); {card}")
-    for g, ms in groups.items():
-        print(f"[profile]   {g}: {ms:.4f} ms per forward")
-    for ms, n, key in sorted(kernels, reverse=True)[:8]:
-        print(f"[profile]   {ms:.4f} ms x{n}  {key}")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {g}: {ms:.4f} ms per call")
+    for ms, n, key in sorted(kernels, reverse=True)[:top]:
+        print(f"[profile]   {ms:.4f} ms x{n}  {key[:80]}")
     if busy <= 0:        # a profiler without device access records none
         print("[profile] the profiler recorded no device time; the CUDA "
               "event times above stand")
@@ -426,13 +528,267 @@ def _profile_bucket(torch, engine, b, card, reps=10):
     return out
 
 
+# -- phase 5 --------------------------------------------------------------
+
+def _googlenet_solver(batch, prefix, dropout=True):
+    """bvlc_googlenet's solver (SGD, base_lr 0.01, step policy with gamma
+    0.96, momentum 0.9, weight_decay 0.0002) over an inline
+    zoo.googlenet(batch_size=batch) train net with both aux heads."""
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.proto import Message
+    sp = Message("SolverParameter", base_lr=0.01, lr_policy="step",
+                 gamma=0.96, stepsize=320000, momentum=0.9,
+                 weight_decay=0.0002, display=8, average_loss=8,
+                 snapshot=12, snapshot_prefix=prefix, random_seed=SEED)
+    sp.net_param = zoo.googlenet(batch_size=batch)
+    if not dropout:
+        for lp in sp.net_param.layer:
+            if lp.type == "Dropout":
+                lp.dropout_param.dropout_ratio = 0.0
+    return sp
+
+
+def _batch(rs, n):
+    return {"data": np.round(rs.randn(n, 3, 224, 224), 3).astype(np.float32),
+            "label": rs.randint(0, 1000, n).astype(np.int32)}
+
+
+def _train_cli(args, timeout=600):
+    """``python -m sparknet_tpu_torch train`` in a child process that
+    ends (or is killed at ``timeout``) before this returns."""
+    cmd = [sys.executable, "-m", "sparknet_tpu_torch", "train", *args]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=timeout)
+    for line in out.stdout.strip().splitlines():
+        print(f"[train-cli] {line}")
+    check(out.returncode == 0,
+          f"{' '.join(cmd)} exited {out.returncode}: {out.stderr[-4000:]}")
+    print(f"[train-cli] exited 0 in {time.perf_counter() - t0:.1f} s")
+    return out.stdout
+
+
+def _check_cli_launches(out, iterations):
+    """The train verb's last line counts its kernels' launches: each of
+    the four kernels of the ``auto`` path must have launched at least
+    once per iteration of that run."""
+    last = out.strip().splitlines()[-1]
+    check(last.startswith("Kernel launches: "),
+          f"the train verb's last line is not its launch counts: {last}")
+    counts = json.loads(last[len("Kernel launches: "):])
+    for name in ("lrn_across", "lrn_across_bwd", "bias_relu_lrn",
+                 "bias_relu_lrn_bwd"):
+        check(counts[name] >= iterations,
+              f"train verb: {name} launched {counts[name]} times in "
+              f"{iterations} iterations, want at least one per iteration")
+    return counts
+
+
+def phase_train_cli(tmp, batch=32):
+    """The train verb at full width: 24 iterations with a snapshot every
+    12, then --resume auto to 32; the counter must continue from 24, and
+    each run's launch counts show the kernels ran in every iteration."""
+    from sparknet_tpu_torch.proto import text_format
+    path = os.path.join(tmp, "googlenet_solver.prototxt")
+    prefix = os.path.join(tmp, "googlenet_train")
+    text_format.dump(_googlenet_solver(batch, prefix), path)
+    out = _train_cli(["--solver", path, "--iterations", "24"])
+    check("Optimization done, iter=24" in out, "train did not reach 24")
+    launches = [_check_cli_launches(out, 24)]
+    for it in (12, 24):
+        check(os.path.exists(f"{prefix}_iter_{it}.solverstate"),
+              f"no snapshot at iteration {it}")
+    out = _train_cli(["--solver", path, "--iterations", "32", "--resume",
+                      "auto"])
+    check("resume auto: restored iter 24" in out,
+          "--resume auto did not pick up the iteration-24 snapshot")
+    check("Iteration 24, loss" in out and "Iteration 0," not in out,
+          "the resumed run did not continue from iteration 24")
+    check("Optimization done, iter=32" in out, "resumed run did not reach 32")
+    launches.append(_check_cli_launches(out, 8))
+    losses = [float(l.split("loss = ")[1].split(",")[0])
+              for l in out.splitlines() if "loss = " in l]
+    check(losses and all(np.isfinite(losses)), f"losses {losses}")
+    return {"resumed_losses": losses, "cli_launches": launches}
+
+
+def phase_train(torch, card, tmp, batch=32, steps=20):
+    """In-process training through the port's Solver at full width:
+    a fixed batch for ``steps`` steps under SPARKNET_EPILOGUE=auto (the
+    loss must fall; launches counted), 2 steps under =on, the train step
+    time and a profiler window; then card against CPU at batch 4."""
+    from sparknet_tpu_torch.ops import KERNEL_WRAPPERS, kernel_launches
+    from sparknet_tpu_torch.solver import Solver
+    os.environ.pop("SPARKNET_EPILOGUE", None)
+    rs = np.random.RandomState(SEED)
+    solver = Solver(_googlenet_solver(batch, os.path.join(tmp, "fixed")),
+                    device="cuda", log_fn=None)
+    feed = {k: torch.as_tensor(v).cuda() for k, v in _batch(rs, batch).items()}
+    float(solver.train_step(feed))              # warm-up: cuDNN plans
+    launches = {}
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+    losses = [float(solver.train_step(feed)) for _ in range(steps)]
+    launches["auto"] = kernel_launches()
+    print(f"[train] fixed batch, {steps} steps: losses "
+          f"{[round(l, 4) for l in losses]}")
+    print(f"[train] SPARKNET_EPILOGUE=auto: launches in {steps} steps "
+          f"{launches['auto']}")
+    check(all(np.isfinite(losses)), "non-finite training loss")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    check(last < first, f"loss did not fall on a fixed batch: mean of the "
+                        f"first 5 steps {first:.4f}, of the last 5 "
+                        f"{last:.4f}")
+    for name in ("lrn_across", "lrn_across_bwd", "bias_relu_lrn",
+                 "bias_relu_lrn_bwd"):
+        check(launches["auto"][name] >= steps,
+              f"{name}: {launches['auto'][name]} launches in {steps} "
+              "training steps, want at least one per step")
+    os.environ["SPARKNET_EPILOGUE"] = "on"
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+    for _ in range(2):
+        float(solver.train_step(feed))
+    launches["on"] = kernel_launches()
+    os.environ.pop("SPARKNET_EPILOGUE", None)
+    print(f"[train] SPARKNET_EPILOGUE=on: launches in 2 steps "
+          f"{launches['on']}")
+    check(launches["on"]["bias_relu"] >= 2,
+          "bias_relu never launched on the SPARKNET_EPILOGUE=on train path")
+
+    # step time: CUDA events around train_step on a device-resident batch
+    step_ms = Timer(torch, reps=10, flush=False)(
+        lambda: solver.train_step(feed))
+    ips = batch / (step_ms / 1e3)
+    print(f"[train] GoogLeNet b{batch} fp32 (TF32 off) train step "
+          f"{step_ms:.3f} ms (median of 10, CUDA events), {ips:.1f} "
+          f"images/s; {card}")
+    profile = _profile(torch, lambda: solver.train_step(feed), 3,
+                       _train_group, "b32 train step", card, top=14)
+    parity = _card_vs_cpu(torch, tmp)
+    return {"launches": launches, "fixed_batch_losses": losses,
+            "step_ms": step_ms, "images_per_s": ips, "profile": profile,
+            "card_vs_cpu": parity}
+
+
+# Between the sound readings (1.5e-2 at most: the gradients of a
+# randomly initialised GoogLeNet cancel so much that a change of
+# summation order alone moves them by that much) and the controls (TF32
+# on 0.28, a zeroed LRN backward 1.0); see PERF.md.
+WEIGHT_CHANGE_LIMIT = 5e-2
+
+
+def _card_vs_cpu(torch, tmp, batch=4, steps=2):
+    """Two SGD steps at full width, batch 4, dropout ratio 0, from one
+    snapshot, on the card and on the CPU (the kernels' plain versions).
+
+    Both TF32 settings are turned on first (cuDNN's is on by PyTorch's
+    default), so the check fails unless the card's Solver turns them
+    off itself. Losses must agree within 1e-4 relative. The weights are
+    read by their change over the steps: for each blob, max |dw - dw_cpu|
+    / max |dw_cpu| with dw = w - w_snapshot, worst blob, which must stay
+    within WEIGHT_CHANGE_LIMIT. Controls from the same snapshot and
+    batches: the CPU again on one thread (only the summation order
+    changes: must read within the limit), and on the card the norm1 LRN
+    backward zeroed, the conv2/norm2 fused backward zeroed, and TF32
+    turned back on after the Solver is built (each must read above the
+    limit: the check catches a dropped gradient and a lost precision
+    setting)."""
+    from sparknet_tpu_torch.ops import cuda_epilogue as ce
+    from sparknet_tpu_torch.ops import cuda_lrn as cl
+    from sparknet_tpu_torch.solver import Solver
+    tf32 = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    for f in tf32:
+        f.allow_tf32 = True
+    prefix = os.path.join(tmp, "parity")
+    sp = _googlenet_solver(batch, prefix, dropout=False)
+    cpu = Solver(sp, device="cpu", log_fn=None)
+    _, state = cpu.snapshot(prefix)
+    w0 = {n: [p.detach().double().clone() for p in blobs]
+          for n, blobs in cpu.params.items()}
+    rs = np.random.RandomState(SEED + 1)
+    batches = [_batch(rs, batch) for _ in range(steps)]
+    cpu_losses = [float(cpu.train_step(b)) for b in batches]
+    dw_cpu = {n: [p.detach().double() - w for p, w in zip(blobs, w0[n])]
+              for n, blobs in cpu.params.items()}
+
+    def run(label, device="cuda", tf32_after_build=False):
+        solver = Solver(sp, device=device, log_fn=None)
+        solver.restore(state)
+        if tf32_after_build:
+            for f in tf32:
+                f.allow_tf32 = True
+        losses = [float(solver.train_step(b)) for b in batches]
+        for f in tf32:
+            f.allow_tf32 = False
+        worst, where = 0.0, None
+        for name, dcs in dw_cpu.items():
+            for i, dc in enumerate(dcs):
+                dw = solver.params[name][i].detach().cpu().double() \
+                    - w0[name][i]
+                e = float((dw - dc).abs().max()
+                          / dc.abs().max().clamp_min(1e-30))
+                if e > worst:
+                    worst, where = e, f"{name}[{i}]"
+        print(f"[parity] {label}: weight change max |dw - dw_cpu| / max "
+              f"|dw_cpu| = {worst:.3e} at {where} (limit "
+              f"{WEIGHT_CHANGE_LIMIT:g})")
+        return losses, worst, where
+
+    losses, worst_w, where = run("card")
+    worst_loss = 0.0
+    for lg, lc in zip(losses, cpu_losses):
+        err = abs(lg - lc) / abs(lc)
+        worst_loss = max(worst_loss, err)
+        print(f"[parity] loss card {lg:.7f} cpu {lc:.7f} (relative "
+              f"{err:.3e}, limit 1e-4)")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        reorder = run("control, CPU on one thread", device="cpu")[1]
+    finally:
+        torch.set_num_threads(threads)
+    faults = {}
+    lrn_bwd, brl_bwd = cl.lrn_across_bwd, ce.bias_relu_lrn_bwd
+    try:
+        cl.lrn_across_bwd = lambda x, g, *a: torch.zeros_like(g)
+        faults["norm1 backward zeroed"] = run(
+            "control, norm1 backward zeroed")[1]
+        cl.lrn_across_bwd = lrn_bwd
+        ce.bias_relu_lrn_bwd = lambda x, b, g, *a: (torch.zeros_like(g),
+                                                    torch.zeros_like(b))
+        faults["norm2 backward zeroed"] = run(
+            "control, conv2/norm2 backward zeroed")[1]
+    finally:
+        cl.lrn_across_bwd, ce.bias_relu_lrn_bwd = lrn_bwd, brl_bwd
+    faults["TF32 on"] = run("control, TF32 on", tf32_after_build=True)[1]
+    check(worst_loss <= 1e-4,
+          f"card and CPU losses differ by {worst_loss:.3e}")
+    check(worst_w <= WEIGHT_CHANGE_LIMIT,
+          f"card and CPU weight changes differ by {worst_w:.3e} at {where}")
+    check(reorder <= WEIGHT_CHANGE_LIMIT,
+          f"the CPU on one thread reads {reorder:.3e}: the limit does not "
+          "admit a change of summation order")
+    for name, e in faults.items():
+        check(e > WEIGHT_CHANGE_LIMIT,
+              f"control '{name}' reads {e:.3e}, within the limit: the "
+              "check would not catch it")
+    return {"loss_rel": worst_loss, "weight_change_rel": worst_w,
+            "reorder_control": reorder, "fault_controls": faults}
+
+
 KERNELS = {
+    # name: (source, replaces, path whose launches the row reports)
     "lrn_across": ("sparknet_tpu_torch/csrc/lrn.cu",
-                   "sparknet_tpu/ops/pallas_lrn.py:52", "auto"),
+                   "sparknet_tpu/ops/pallas_lrn.py:52", "serve auto"),
     "bias_relu_lrn": ("sparknet_tpu_torch/csrc/epilogue.cu",
-                      "sparknet_tpu/ops/pallas_epilogue.py:58", "auto"),
+                      "sparknet_tpu/ops/pallas_epilogue.py:58", "serve auto"),
     "bias_relu": ("sparknet_tpu_torch/csrc/epilogue.cu",
-                  "sparknet_tpu/ops/pallas_epilogue.py:52", "on"),
+                  "sparknet_tpu/ops/pallas_epilogue.py:52", "serve on"),
+    "lrn_across_bwd": ("sparknet_tpu_torch/csrc/lrn_bwd.cu",
+                       "sparknet_tpu/ops/pallas_lrn.py:59", "train auto"),
+    "bias_relu_lrn_bwd": ("sparknet_tpu_torch/csrc/lrn_bwd.cu",
+                          "sparknet_tpu/ops/pallas_lrn.py:59", "train auto"),
 }
 
 
@@ -443,14 +799,20 @@ def main():
     phase_build()
     results = phase_kernels(torch)
     served = phase_serve(torch, card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    trained_cli = phase_train_cli(tmp)
+    trained = phase_train(torch, card, tmp)
+    paths = {"serve auto": served["auto"], "serve on": served["on"],
+             "train auto": trained["launches"]["auto"],
+             "train on": trained["launches"]["on"]}
     table = []
     for name, (source, replaces, path) in KERNELS.items():
-        r = next(r for r in results if r["name"] == name and not r["edge"]
-                 and r["dtype"] == "float32")
+        r = next(r for r in results if r["name"] == name and r["row"])
         table.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": served[path][name],
-            "launches_path": f"SPARKNET_EPILOGUE={path}",
+            "replaces": replaces, "launches": paths[path][name],
+            "launches_path": path,
+            "launches_train": trained["launches"]["auto"][name],
             "shape": r["shape"], "dtype": r["dtype"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -458,7 +820,10 @@ def main():
     print("[details] " + json.dumps({
         "card": card, "cases": results,
         "serve": {k: served[k] for k in ("per_bucket_ms", "images_per_s_b8",
-                                         "p50_ms", "profile_b8")}}))
+                                         "p50_ms", "profile_b8")},
+        "train": {**{k: trained[k] for k in (
+            "launches", "fixed_batch_losses", "step_ms", "images_per_s",
+            "profile", "card_vs_cpu")}, **trained_cli}}))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

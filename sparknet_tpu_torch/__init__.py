@@ -8,15 +8,20 @@ zoo) is a copy of its own.
 
 Layer map:
   proto/       prototxt + binaryproto codecs (copied verbatim)
-  graph/       NetParameter -> TEST-phase CompiledNet, upgrades, fillers,
-               weight carry-over from the JAX package (weights.py)
-  ops/         layers on PyTorch tensors; cross-channel LRN and the fused
-               conv epilogue as CUDA kernels (cuda_lrn.py,
+  graph/       NetParameter -> CompiledNet (TEST and TRAIN phases, loss
+               weights), net and solver upgrades, fillers, weight and
+               solver-history carry-over from the JAX package (weights.py)
+  ops/         layers and losses on PyTorch tensors; cross-channel LRN
+               and the fused conv epilogue, forward and backward, as
+               CUDA kernels behind autograd Functions (cuda_lrn.py,
                cuda_epilogue.py, built from csrc/ by cuda_build.py)
   models/      the NetParam DSL + model zoo (copied verbatim)
-  resilience/  snapshot manifests: weights-only load, snapshot writer
+  solver/      lr policies, Caffe's update rules, the one-device Solver
+  resilience/  snapshot manifests: crash-safe commit, resume, weights-only
+               load
   serve/       engine, batcher, HTTP server
-  cli.py       ``python -m sparknet_tpu_torch serve --prefix <ckpt>``
+  cli.py       ``python -m sparknet_tpu_torch train --solver <prototxt>``
+               and ``serve --prefix <ckpt>``
 
 Entry points run on the card unless the caller asks for the CPU.
 """

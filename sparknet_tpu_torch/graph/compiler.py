@@ -1,18 +1,18 @@
-"""NetParameter -> a TEST-phase net over PyTorch tensors: the graph compiler.
+"""NetParameter -> a net over PyTorch tensors: the graph compiler.
 
-The port of sparknet_tpu/graph/compiler.py for serving (Caffe net.cpp:
-FilterNet :287, AppendTop/Bottom :385/:444, param ownership & sharing,
-ForwardFromTo :565):
+The port of sparknet_tpu/graph/compiler.py (Caffe net.cpp: FilterNet
+:287, AppendTop/Bottom :385/:444, param ownership & sharing,
+ForwardFromTo :565, loss weights):
 
   * Data layers are feeds (ops/feed.py): ``apply`` takes a ``batch`` dict;
     nothing inside the graph performs IO.
   * In-place ops (ReLU with top == bottom) rebind the blob name.
   * The forward runs eagerly, layer by layer, on the device the net was
-    built for. Conv + bias + ReLU (+ cross-channel LRN) tails can run as
-    one fused CUDA kernel (``_epilogue_plan``, SPARKNET_EPILOGUE).
-
-Training (TRAIN-phase forwards, gradients, the solver) is a later slice
-of the port; ``apply`` refuses ``train=True``.
+    built for, TEST or TRAIN phase; gradients come from autograd
+    (``loss_fn`` + ``backward()``). Conv + bias + ReLU (+ cross-channel
+    LRN) tails can run as one fused CUDA kernel, forward and backward
+    (``_epilogue_plan``, SPARKNET_EPILOGUE).
+  * Remat, scan-over-layers and fission are not ported.
 """
 
 import os
@@ -23,7 +23,7 @@ import torch
 from ..device import resolve_device
 from ..proto.message import Message
 from . import fillers as F
-from .registry import get as get_layer, inference_only, V1_TYPE_MAP
+from .registry import get as get_layer, V1_TYPE_MAP
 
 # import for registration side effects
 from .. import ops as _ops  # noqa: F401
@@ -133,7 +133,9 @@ class CompiledNet:
     AppendParam).
 
       init(generator)                    -> (params, state)
-      apply(params, state, batch)        -> (blobs, new_state)
+      apply(params, state, batch, train, generator) -> (blobs, new_state)
+      loss_fn(params, state, batch, generator)
+                                         -> (loss, (blobs, new_state))
 
     params:  {layer_name: [tensors]}   (owning layers only)
     state:   {layer_name: [tensors]}
@@ -359,17 +361,35 @@ class CompiledNet:
             value = torch.from_numpy(value)
         return torch.as_tensor(value).to(self.device)
 
-    def apply(self, params, state, batch, train=None):
-        """Run the TEST-phase forward; callers wrap it in
-        ``torch.inference_mode()``. The epilogue policy is read once per
-        call. A fused bias+ReLU+LRN site leaves its pre-LRN blob absent
-        from the returned dict (never stale); keep SPARKNET_EPILOGUE=off
-        to inspect every blob."""
+    def _layer_generators(self, generator):
+        """One torch.Generator per rng-consuming layer for this forward,
+        all derived from a single draw of ``generator`` (a CPU generator;
+        None means one seeded with 0): the stand-in for the JAX package's
+        fold_in(rng, layer_index)."""
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        base = int(torch.randint(0, 2 ** 62, (), generator=gen))
+        out = {}
+        for li, (lp, impl, bottoms, tops) in enumerate(self.layers):
+            if impl.needs_rng:
+                g = torch.Generator(device=self.device)
+                g.manual_seed((base ^ (li * 0x9E3779B97F4A7C15)) % 2 ** 63)
+                out[li] = g
+        return out
+
+    def apply(self, params, state, batch, train=None, generator=None):
+        """Run the forward. TEST-phase callers wrap it in
+        ``torch.inference_mode()``; a TRAIN-phase forward records the
+        autograd graph (``train`` defaults to the net's phase).
+        ``generator`` seeds the per-layer randomness (TRAIN dropout). The
+        epilogue policy is read once per call. A fused bias+ReLU+LRN site
+        leaves its pre-LRN blob absent from the returned dict (never
+        stale); keep SPARKNET_EPILOGUE=off to inspect every blob."""
         if train is None:
             train = self.phase == TRAIN
-        inference_only(f"net {self.name!r}", train)
         from ..ops import cuda_epilogue as ce
         ep = self._active_epilogue()
+        rngs = self._layer_generators(generator) if train else {}
         blobs = {n: self._feed(batch[n]) for n in self.net_inputs}
         new_state = dict(state)
         skip = set()
@@ -400,9 +420,31 @@ class CompiledNet:
                     # absent, never stale (the plan proved no consumer)
                     blobs.pop(tops[0], None)
                 continue
-            for t, v in zip(tops, impl.apply(lparams, bvals, train)):
+            if impl.needs_rng:
+                tvals = impl.apply(lparams, bvals, train, rngs.get(li))
+            else:
+                tvals = impl.apply(lparams, bvals, train)
+            for t, v in zip(tops, tvals):
                 blobs[t] = v
         return blobs, new_state
+
+    def total_loss(self, blobs):
+        """Weighted sum of the loss tops, in f32 (Caffe net.cpp
+        ForwardFromTo's loss accumulation via loss_weight)."""
+        total = None
+        for lp, impl, bottoms, tops in self.layers:
+            for t, w in zip(tops, self.loss_weights[lp.name]):
+                if w:
+                    term = w * blobs[t].sum().float()
+                    total = term if total is None else total + term
+        if total is None:
+            return torch.zeros((), dtype=torch.float32, device=self.device)
+        return total
+
+    def loss_fn(self, params, state, batch, generator=None):
+        blobs, new_state = self.apply(params, state, batch,
+                                      generator=generator)
+        return self.total_loss(blobs), (blobs, new_state)
 
     # -- weight io ---------------------------------------------------------
     def params_to_netproto(self, params, state=None):

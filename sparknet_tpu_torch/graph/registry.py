@@ -2,9 +2,10 @@
 
 The analog of Caffe's string-keyed layer factory (layer_factory.cpp
 REGISTER_LAYER_CLASS). A layer implementation is a small Python class
-whose ``apply`` runs PyTorch ops on tensors; the two kernels the port
-writes by hand (ops/cuda_lrn.py, ops/cuda_epilogue.py) sit behind plain
-wrapper functions that the layers and the compiler call.
+whose ``apply`` runs PyTorch ops on tensors, differentiable by autograd;
+the kernels the port writes by hand (ops/cuda_lrn.py,
+ops/cuda_epilogue.py) sit behind autograd-aware wrapper functions that
+the layers and the compiler call.
 """
 
 _REGISTRY = {}
@@ -68,12 +69,14 @@ class Layer:
       apply(params, bottoms, train) -> [tops]       # tensors in, tensors out
 
     ``loss_like`` marks layers whose top[0] joins the objective with default
-    loss_weight 1 (Caffe: any *Loss layer).
+    loss_weight 1 (Caffe: any *Loss layer). ``needs_rng`` layers take a
+    fourth argument, ``rng``: a torch.Generator of their own per forward.
     """
 
     type_name = None
     loss_like = False
     has_state = False
+    needs_rng = False
 
     def __init__(self, lp, bottom_shapes, phase):
         self.lp = lp
@@ -96,12 +99,3 @@ class Layer:
     def canonical_axis(self, axis, ndim=None):
         ndim = ndim if ndim is not None else len(self.bottom_shapes[0])
         return axis + ndim if axis < 0 else axis
-
-
-def inference_only(what, train):
-    """Raise for a TRAIN-phase forward of ``what``: the port serves only."""
-    if train:
-        raise NotImplementedError(
-            f"{what}: the PyTorch port runs TEST-phase forwards only; "
-            "training (solver, backward kernels) is a later slice of the "
-            "port")

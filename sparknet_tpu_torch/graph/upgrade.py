@@ -251,11 +251,32 @@ def upgrade_data_transform(net_param):
     return out
 
 
+def solver_needs_type_upgrade(solver_param):
+    """True when the deprecated SolverType enum field is set
+    (upgrade_proto.cpp SolverNeedsTypeUpgrade :940-946)."""
+    return solver_param.has("solver_type")
+
+
+def upgrade_solver(solver_param):
+    """Deprecated `solver_type` enum -> `type` string
+    (upgrade_proto.cpp UpgradeSolverType :948-990). Returns a new
+    SolverParameter; raises if both old and new fields are set."""
+    from ..solver.updates import SOLVER_TYPES
+    out = solver_param.copy()
+    if out.has("solver_type"):
+        if out.has("type"):
+            raise ValueError(
+                "old solver_type field (enum) and new type field (string) "
+                "cannot both be set")
+        out.type = SOLVER_TYPES[int(out.solver_type)]
+        out.clear("solver_type")
+    return out
+
+
 def upgrade_net(net_param):
     """Chain every upgrade so any prototxt vintage loads:
     V0 layer connections -> V1 typed layers -> deprecated data-transform
-    fields -> V2 `layer` list (compiler.upgrade_v1). Solver-type upgrades
-    belong to the solver, which a later slice of the port brings."""
+    fields -> V2 `layer` list (compiler.upgrade_v1)."""
     from .compiler import upgrade_v1
     if needs_v0_upgrade(net_param):
         net_param = upgrade_v0(net_param)

@@ -1,8 +1,8 @@
-"""Neuron layers on the serving path: ReLU and (TEST-phase) Dropout."""
+"""Neuron layers: ReLU and Dropout."""
 
 import torch
 
-from ..graph.registry import Layer, inference_only, register
+from ..graph.registry import Layer, register
 
 
 class _Elementwise(Layer):
@@ -25,11 +25,22 @@ class ReLU(_Elementwise):
 
 @register
 class Dropout(_Elementwise):
-    """Inverted dropout (Caffe dropout_layer.cpp): TEST is the identity.
-    TRAIN arrives with the training slice of the port."""
+    """Inverted dropout (Caffe dropout_layer.cpp): TRAIN keeps each unit
+    with probability 1 - ratio and scales the kept ones by 1/(1 - ratio);
+    TEST is the identity. The mask is drawn from the torch.Generator the
+    compiler hands the layer (``rng``); it cannot match the JAX package's
+    bits, only their distribution."""
 
     type_name = "Dropout"
+    needs_rng = True
 
-    def apply(self, params, bottoms, train):
-        inference_only(f"layer {self.lp.name!r}", train)
-        return [bottoms[0]]
+    def apply(self, params, bottoms, train, rng=None):
+        x = bottoms[0]
+        if not train:
+            return [x]
+        if rng is None:
+            raise ValueError(f"layer {self.lp.name!r}: a TRAIN-phase "
+                             "dropout needs a generator")
+        keep = 1.0 - float(self.lp.dropout_param.dropout_ratio)
+        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        return [torch.where(mask, x / keep, torch.zeros_like(x))]

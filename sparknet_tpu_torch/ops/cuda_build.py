@@ -24,7 +24,7 @@ import torch
 PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PACKAGE, "csrc")
 BUILD_DIR = os.path.join(PACKAGE, "_build")
-SOURCES = ("lrn", "epilogue")
+SOURCES = ("lrn", "epilogue", "lrn_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 
@@ -126,20 +126,17 @@ def stream_handle(device):
 # storage types the kernels are instantiated for -> their C dtype code
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_Y = 65535
-MAX_WINDOW = 227 * 1024 // (256 * 4)   # ring of size x 256 f32 in 227 KB
+SMEM_FLOATS = 227 * 1024 // (256 * 4)  # f32 slots per thread in 227 KB
+MAX_WINDOW = SMEM_FLOATS                # forward: one ring of size slots
+# backward: rings of size, size and (size - 1) // 2 + 1 slots
+MAX_WINDOW_BWD = max(s for s in range(1, SMEM_FLOATS)
+                     if 2 * s + (s - 1) // 2 + 1 <= SMEM_FLOATS)
 
 
-def no_backward(what, arg):
-    return (f"{what}: {arg} requires grad, but the port has no backward "
-            "kernel yet; gradients arrive with the training slice of the "
-            "port (run the forward under torch.inference_mode())")
-
-
-def check_cuda_input(x, what, size=None):
+def check_cuda_input(x, what, size=None, max_window=MAX_WINDOW):
     """Raise on a tensor the channel-window kernels do not take: not on
-    a CUDA device, not 4-D NCHW contiguous, not f32/bf16, requiring
-    grad (no backward kernel yet), or a batch / window beyond the
-    launch geometry."""
+    a CUDA device, not 4-D NCHW contiguous, not f32/bf16, or a batch /
+    window beyond the launch geometry."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: tensor on {x.device}, want cuda")
     if x.dim() != 4:
@@ -150,11 +147,9 @@ def check_cuda_input(x, what, size=None):
                         "(float32, bfloat16)")
     if not x.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous NCHW")
-    if x.requires_grad:
-        raise RuntimeError(no_backward(what, "input"))
     if x.shape[0] > MAX_GRID_Y:
         raise ValueError(f"{what}: batch {x.shape[0]} > {MAX_GRID_Y}")
-    if size is not None and not 1 <= int(size) <= MAX_WINDOW:
+    if size is not None and not 1 <= int(size) <= max_window:
         raise ValueError(f"{what}: local_size {size} outside "
-                         f"[1, {MAX_WINDOW}]")
+                         f"[1, {max_window}]")
     return DTYPE_CODES[x.dtype]

@@ -1,8 +1,10 @@
-"""Snapshot manifests: weights-only loading for serving, and a
-solver-free snapshot writer in the same format."""
+"""Snapshot manifests: the crash-safe snapshot commit for training,
+resume, and weights-only loading for serving."""
 
-from .checkpoint import (load_manifest, load_model_only, manifest_path,
-                         save_model_snapshot)
+from .checkpoint import (WorldMismatch, check_restorable, find_resumable,
+                         load_manifest, load_model_only, manifest_path,
+                         resume_auto, save_model_snapshot, save_snapshot)
 
-__all__ = ["load_manifest", "load_model_only", "manifest_path",
-           "save_model_snapshot"]
+__all__ = ["WorldMismatch", "check_restorable", "find_resumable",
+           "load_manifest", "load_model_only", "manifest_path",
+           "resume_auto", "save_model_snapshot", "save_snapshot"]

@@ -1,4 +1,4 @@
-"""Crash-safe snapshot manifests: the serving half.
+"""Crash-safe snapshot manifests for training and serving.
 
 The format is the JAX package's (sparknet_tpu/resilience/checkpoint.py):
 a snapshot is a ``<prefix>_iter_<N>.caffemodel`` binaryproto NetParameter
@@ -7,12 +7,20 @@ plus a ``.solverstate``, both committed by atomic rename, and
 is written last (temp + fsync + rename), so a crash at any earlier point
 leaves the previous manifest pointing at the previous complete snapshot.
 
-``load_model_only`` is what serving reads; ``save_model_snapshot`` writes
-the same files and manifest entry as the training side's
-``save_snapshot`` without needing a solver, so each package serves a
-prefix the other wrote.
+  save_snapshot        a Solver's pair
+  save_model_snapshot  the same files and entry without a solver
+  find_resumable       the newest manifested pair that verifies, with
+                       the reason every newer one was refused
+  check_restorable     the guard of an explicit restore
+  resume_auto          ``--resume auto``
+  load_model_only      what serving reads
+
+The port trains on one device in one process, so its world stamp is
+``{"processes": 1}``: the JAX package's single-device Solver stamps the
+same, and snapshots restore in both directions.
 """
 
+import glob
 import hashlib
 import itertools
 import json
@@ -110,28 +118,57 @@ def load_manifest(prefix):
     return man if isinstance(man, dict) else None
 
 
-def save_model_snapshot(net, params, prefix, iter=0, state=None):
-    """Write ``<prefix>_iter_<iter>.caffemodel`` (the binaryproto
-    NetParameter of ``net`` with ``params``/``state`` as blobs) and a
-    ``.solverstate`` holding only the iteration and the model's path,
-    then commit both to the manifest exactly as the training side's
-    save_snapshot does. Returns (model_path, state_path)."""
-    from ..proto import Message, wire
-    model_path = f"{prefix}_iter_{int(iter)}.caffemodel"
-    state_path = f"{prefix}_iter_{int(iter)}.solverstate"
+class WorldMismatch(RuntimeError):
+    """A snapshot written by a different world (process count or mesh
+    shape) than the one restoring it. Not a ValueError, as in the JAX
+    package: a damaged snapshot is one file's fault, a world mismatch
+    damns every snapshot under the prefix."""
+
+
+def world_signature():
+    """The world a snapshot is resumable in: the port trains in one
+    process on one device."""
+    return {"processes": 1}
+
+
+def check_world(entry, state_path):
+    """Raise WorldMismatch when manifest ``entry`` carries a world stamp
+    that disagrees with this one's. Entries without a stamp pass."""
+    want = entry.get("world") if isinstance(entry, dict) else None
+    world = world_signature()
+    if not want:
+        return
+    mismatches = []
+    if want.get("processes") is not None and \
+            int(want["processes"]) != world["processes"]:
+        mismatches.append(f"process count {want['processes']} vs "
+                          f"{world['processes']}")
+    if want.get("mesh"):
+        mismatches.append(f"mesh {want['mesh']}")
+    if mismatches:
+        raise WorldMismatch(
+            f"snapshot {state_path} was written by a different world: "
+            f"snapshot world {want} vs this run's world {world} "
+            f"({'; '.join(mismatches)}); the port restores only "
+            "single-process, single-device snapshots")
+
+
+def _commit(prefix, model_path, state_path, write_files, iter_):
+    """Write a binaryproto (model, state) pair through
+    ``write_files(tmp_model, tmp_state)`` under temp names, fsync,
+    checksum, rename both, then commit the manifest. Returns
+    (model_path, state_path)."""
     d = os.path.dirname(model_path)
     if d:
         os.makedirs(d, exist_ok=True)
     tag = f"{_TMP_TAG}{os.getpid()}"
     tmp_model, tmp_state = model_path + tag, state_path + tag
     try:
-        wire.dump(net.params_to_netproto(params, state), tmp_model)
-        wire.dump(Message("SolverState", iter=int(iter),
-                          learned_net=model_path, current_step=0), tmp_state)
+        write_files(tmp_model, tmp_state)
         for p in (tmp_model, tmp_state):
             _fsync_file(p)
         entry = {
-            "iter": int(iter),
+            "iter": int(iter_),
             "format": "binaryproto",
             "model": os.path.basename(model_path),
             "state": os.path.basename(state_path),
@@ -140,7 +177,7 @@ def save_model_snapshot(net, params, prefix, iter=0, state=None):
             "bytes": {"model": os.path.getsize(tmp_model),
                       "state": os.path.getsize(tmp_state)},
             "time": round(time.time(), 3),
-            "world": {"processes": 1},
+            "world": world_signature(),
         }
         os.replace(tmp_model, model_path)
         os.replace(tmp_state, state_path)
@@ -163,6 +200,53 @@ def save_model_snapshot(net, params, prefix, iter=0, state=None):
                       {"version": 1, "latest": entry, "snapshots": snaps},
                       indent=1, sort_keys=True, fsync_dir=True)
     return model_path, state_path
+
+
+def save_snapshot(solver, prefix):
+    """Atomically write one (model, state) snapshot pair for ``solver``
+    and commit it to the manifest; returns the final paths. The state
+    file names the FINAL model path (SolverState.learned_net)."""
+    model_path, state_path = solver._snapshot_paths(prefix)
+    return _commit(
+        prefix, model_path, state_path,
+        lambda tm, ts: solver._write_snapshot_files(
+            tm, ts, learned_net=model_path),
+        solver.iter)
+
+
+def save_model_snapshot(net, params, prefix, iter=0, state=None):
+    """Write ``<prefix>_iter_<iter>.caffemodel`` (the binaryproto
+    NetParameter of ``net`` with ``params``/``state`` as blobs) and a
+    ``.solverstate`` holding only the iteration and the model's path,
+    then commit both to the manifest exactly as save_snapshot does.
+    Returns (model_path, state_path)."""
+    from ..proto import Message, wire
+    model_path = f"{prefix}_iter_{int(iter)}.caffemodel"
+    state_path = f"{prefix}_iter_{int(iter)}.solverstate"
+
+    def write(tmp_model, tmp_state):
+        wire.dump(net.params_to_netproto(params, state), tmp_model)
+        wire.dump(Message("SolverState", iter=int(iter),
+                          learned_net=model_path, current_step=0), tmp_state)
+    return _commit(prefix, model_path, state_path, write, iter)
+
+
+def _verify_entry(d, entry):
+    """Reason string this manifest entry is not restorable, or None."""
+    for k in ("model", "state"):
+        name = entry.get(k)
+        if not name:
+            return f"manifest entry has no {k} file recorded"
+        path = os.path.join(d, name)
+        if not os.path.exists(path):
+            return f"{k} file {name} is missing"
+        if os.path.getsize(path) == 0:
+            return f"{k} file {name} is empty"
+        want = (entry.get("sha256") or {}).get(k)
+        if want and _sha256(path) != want:
+            return f"{k} file {name} fails its sha256 check " \
+                   "(truncated or corrupt)"
+    return None
 
 
 def _verify_model_entry(d, entry):
@@ -222,3 +306,73 @@ def load_model_only(prefix, log_fn=None):
         or "manifest records no snapshots"
     raise ValueError(
         f"manifest {man_path} has no servable model blob ({detail})")
+
+
+def find_resumable(prefix, log_fn=None):
+    """Newest manifested snapshot for ``prefix`` whose pair verifies ->
+    (state_path, skipped).
+
+    skipped is [(state_path, reason), ...] for every newer snapshot that
+    was refused (partial write, checksum mismatch, missing pair file).
+    Returns (None, skipped) when nothing valid exists. The port writes
+    every snapshot through the manifest, as the JAX package does, so
+    only manifested snapshots are candidates."""
+    log = log_fn or (lambda *a: None)
+    state, skipped = None, []
+    d = os.path.dirname(prefix)
+    man = load_manifest(prefix)
+    for entry in reversed((man or {}).get("snapshots", [])):
+        if not isinstance(entry, dict):
+            continue
+        path = os.path.join(d, entry.get("state") or "?")
+        reason = _verify_entry(d, entry)
+        if reason is None:
+            state = path
+            break
+        skipped.append((path, reason))
+    for s, r in skipped:
+        log(f"refusing snapshot {s}: {r}")
+    return state, skipped
+
+
+def check_restorable(state_path):
+    """Guard an explicit restore(): if a manifest in the snapshot's
+    directory covers this state file, verify the whole pair and raise
+    ValueError naming the snapshot and the reason when it fails; raise
+    WorldMismatch when its stamp names another world.
+    Temp files from torn writes are always refused. Returns the matched
+    manifest entry, or None for an un-manifested snapshot."""
+    if _TMP_TAG in os.path.basename(state_path):
+        raise ValueError(f"refusing snapshot {state_path}: temp file from "
+                         "an interrupted snapshot write")
+    d = os.path.dirname(state_path)
+    base = os.path.basename(state_path)
+    for man_file in glob.glob(os.path.join(glob.escape(d) if d else ".",
+                                           "*" + MANIFEST_SUFFIX)):
+        man = load_manifest(man_file[:-len(MANIFEST_SUFFIX)])
+        for entry in (man or {}).get("snapshots", []):
+            if isinstance(entry, dict) and entry.get("state") == base:
+                reason = _verify_entry(d, entry)
+                if reason is not None:
+                    raise ValueError(
+                        f"refusing snapshot {state_path}: {reason}")
+                check_world(entry, state_path)
+                return entry
+    return None
+
+
+def resume_auto(solver, prefix, log_fn=None):
+    """``--resume auto``: restore ``solver`` from the newest valid
+    snapshot under ``prefix``; returns the state path used, or None
+    (fresh start). Every refused snapshot is logged with its reason; a
+    restore that fails after the check raises, as does WorldMismatch."""
+    log = log_fn or (lambda *a: None)
+    state, skipped = find_resumable(prefix, log_fn=log)
+    if state is None:
+        log(f"resume auto: no resumable snapshot under {prefix!r}"
+            + (f" ({len(skipped)} refused)" if skipped else "")
+            + "; starting fresh")
+        return None
+    solver.restore(state)
+    log(f"resume auto: restored iter {solver.iter} from {state}")
+    return state

@@ -81,19 +81,13 @@ class ServeEngine:
 
     ``device`` defaults to the card; with no card it raises unless the
     caller passes ``device="cpu"``. Serving computes in float32, the JAX
-    package's default precision: on the card the engine turns TF32 off
-    for cuDNN convolutions and for matmuls
-    (``torch.backends.cudnn.allow_tf32`` and
-    ``torch.backends.cuda.matmul.allow_tf32``, both process-wide
-    settings) when it is built."""
+    package's default precision: resolve_device turns TF32 off on the
+    card."""
 
     def __init__(self, prefix, net_param=None, max_batch=8, device="cuda",
                  log_fn=print):
         self.prefix = prefix
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
         self.max_batch = int(max_batch)
         self.buckets = bucket_sizes(self.max_batch)
         self.log = log_fn or (lambda *a: None)

@@ -22,7 +22,7 @@ import torch
 from sparknet_tpu.graph.compiler import CompiledNet as JNet
 from sparknet_tpu.models import dsl as jdsl, zoo as jzoo
 from sparknet_tpu.proto import wire as jwire
-from sparknet_tpu_torch.graph import TEST, CompiledNet as TNet
+from sparknet_tpu_torch.graph import TEST, TRAIN, CompiledNet as TNet
 from sparknet_tpu_torch.graph import params_from_numpy
 from sparknet_tpu_torch.models import dsl as tdsl, zoo as tzoo
 from sparknet_tpu_torch.proto import wire as twire
@@ -182,10 +182,46 @@ def test_params_from_numpy_checks_names_and_shapes(nets):
         params_from_numpy(tnet, short)
 
 
-def test_train_phase_forward_is_refused(nets):
-    tnet, tparams, batch = nets[1], nets[3], nets[4]
-    with pytest.raises(NotImplementedError, match="training"):
-        tnet.apply(tparams, {}, batch, train=True)
+@pytest.mark.parametrize("mode", ["off", "on"])
+def test_train_phase_forward_is_refused(monkeypatch, mode):
+    """A TRAIN-phase forward of the mini-GoogLeNet
+    with its loss (dropout at ratio 0) matches the JAX compiler's, blobs,
+    loss and every param's gradient, with the epilogue fused (on) or
+    not (off)."""
+    monkeypatch.setenv("SPARKNET_EPILOGUE", mode)
+    jp, tp = (mini_googlenet(d, z, with_loss=True)
+              for d, z in ((jdsl, jzoo), (tdsl, tzoo)))
+    for net in (jp, tp):
+        next(lp for lp in net.layer
+             if lp.type == "Dropout").dropout_param.dropout_ratio = 0.0
+    jnet = JNet(jp, TRAIN)
+    tnet = TNet(tp, TRAIN, device="cpu")
+    jparams, _ = jnet.init(jax.random.PRNGKey(5))
+    tparams, _ = params_from_numpy(
+        tnet, {k: [np.asarray(a) for a in v] for k, v in jparams.items()})
+    rs = np.random.RandomState(1)
+    batch = {"data": rs.randn(BATCH, 3, 32, 32).astype(np.float32),
+             "label": rs.randint(0, 10, BATCH).astype(np.int32)}
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, (jblobs, _)), jgrads = jax.value_and_grad(
+        lambda p: jnet.loss_fn(p, {}, jb, jax.random.PRNGKey(0)),
+        has_aux=True)(jparams)
+    leaves = [t.requires_grad_() for v in tparams.values() for t in v]
+    loss, (blobs, _) = tnet.loss_fn(tparams, {}, batch,
+                                    torch.Generator().manual_seed(0))
+    _assert_blobs_close({k: v.detach().numpy() for k, v in blobs.items()},
+                        {k: np.asarray(v) for k, v in jblobs.items()})
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               rtol=1e-5)
+    loss.backward()
+    assert all(t.grad is not None for t in leaves)
+    for name, ts in tparams.items():
+        for t, jg in zip(ts, jgrads[name]):
+            jg = np.asarray(jg)
+            assert np.abs(jg).max() > 0, name
+            np.testing.assert_allclose(
+                t.grad.numpy(), jg, rtol=1e-4,
+                atol=1e-5 * float(np.abs(jg).max()), err_msg=name)
 
 
 def test_entry_points_default_to_the_card():

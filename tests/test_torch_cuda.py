@@ -1,0 +1,161 @@
+"""The port's CUDA kernels against their plain PyTorch versions, and a
+training step, on the card. These tests import no JAX (the card's
+machine has none) and skip without a card; on the card, from the repo
+root:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+(tests/conftest.py imports JAX, hence --noconftest). The case lists are
+shared with test_torch_kernels.py, which holds the plain versions
+against the JAX package's Pallas kernels on the CPU.
+
+Tolerance: rtol=1e-5, atol=1e-6 (f32 on both sides); the biases'
+gradients, sums over N*H*W elements, atol=1e-5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sparknet_tpu_torch.ops import cuda_build
+from sparknet_tpu_torch.ops import cuda_epilogue as ce
+from sparknet_tpu_torch.ops import cuda_lrn as cl
+
+LRN_CASES = [
+    # (shape, local_size, alpha, beta, k): tests/test_pallas_lrn.py's
+    # cases plus an even window
+    pytest.param((2, 96, 9, 11), 5, 1e-4, 0.75, 1.0, id="caffenet-norm1ish"),
+    pytest.param((1, 64, 8, 8), 5, 5e-5, 0.75, 2.0, id="k-not-1"),
+    pytest.param((2, 32, 6, 130), 3, 1e-3, 0.5, 1.0, id="size3-wide-spatial"),
+    pytest.param((2, 13, 5, 7), 4, 1e-2, 0.6, 1.5, id="size4-even"),
+]
+BWD_CASES = LRN_CASES + [
+    # C < n, ragged H*W = 323, odd and even windows
+    pytest.param((3, 3, 17, 19), 4, 1e-2, 0.6, 2.0, id="size4-C3-ragged"),
+    pytest.param((2, 2, 3, 5), 5, 1e-1, 0.75, 1.0, id="size5-C2"),
+]
+EPI_SHAPES = [
+    # tests/test_pallas_epilogue.py's shapes
+    pytest.param((2, 96, 9, 11), id="caffenet-conv-ish"),
+    pytest.param((1, 64, 8, 8), id="pow2"),
+    pytest.param((2, 32, 6, 130), id="wide-spatial-multi-block"),
+]
+
+
+def _x(shape, seed, scale=1.0):
+    return (scale * np.random.RandomState(seed).randn(*shape)
+            ).astype(np.float32)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,size,alpha,beta,k", LRN_CASES)
+def test_lrn_kernel_matches_plain_on_card(cuda, shape, size, alpha, beta, k):
+    x = torch.from_numpy(_x(shape, 5, scale=3.0)).cuda()
+    n0 = cl.lrn_across.launches
+    got = cl.lrn_across(x, size, alpha, beta, k)
+    assert cl.lrn_across.launches == n0 + 1
+    torch.testing.assert_close(got, cl.lrn_across_plain(x, size, alpha,
+                                                        beta, k),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EPI_SHAPES)
+def test_epilogue_kernels_match_plain_on_card(cuda, shape):
+    x = torch.from_numpy(_x(shape, 13, scale=3.0)).cuda()
+    b = torch.from_numpy(_x(shape[1:2], 14)).cuda()
+    torch.testing.assert_close(ce.bias_relu(x, b), ce.bias_relu_plain(x, b),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(
+        ce.bias_relu_lrn(x, b, 5, 1e-4, 0.75, 1.0),
+        ce.bias_relu_lrn_plain(x, b, 5, 1e-4, 0.75, 1.0),
+        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_card_wrappers_refuse_grad_and_bad_layouts(cuda):
+    # a tensor that requires grad is taken and tracked; layouts the
+    # kernels do not take are refused
+    x = torch.randn(2, 8, 4, 4, device="cuda")
+    assert cl.lrn_across(x.clone().requires_grad_(), 5, 1e-4, 0.75,
+                         1.0).requires_grad
+    with pytest.raises(ValueError, match="contiguous"):
+        cl.lrn_across(x.transpose(2, 3), 5, 1e-4, 0.75, 1.0)
+    with pytest.raises(TypeError):
+        cl.lrn_across(x.half(), 5, 1e-4, 0.75, 1.0)
+    with pytest.raises(ValueError, match="bias"):
+        ce.bias_relu(x, torch.zeros(3, device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        cl.lrn_across_bwd(x.transpose(2, 3), x, 5, 1e-4, 0.75, 1.0)
+    with pytest.raises(ValueError, match="gradient"):
+        cl.lrn_across_bwd(x, x[:1], 5, 1e-4, 0.75, 1.0)
+    with pytest.raises(ValueError, match="local_size"):
+        cl.lrn_across_bwd(x, x, cuda_build.MAX_WINDOW_BWD + 1, 1e-4, 0.75,
+                          1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,size,alpha,beta,k", BWD_CASES)
+def test_backward_kernels_match_plain_on_card(cuda, shape, size, alpha, beta,
+                                              k):
+    x = torch.from_numpy(_x(shape, 21, scale=3.0)).cuda()
+    g = torch.from_numpy(_x(shape, 22)).cuda()
+    b = torch.from_numpy(_x(shape[1:2], 26)).cuda()
+    n0 = (cl.lrn_across_bwd.launches, ce.bias_relu_lrn_bwd.launches)
+    got = cl.lrn_across_bwd(x, g, size, alpha, beta, k)
+    dx, db = ce.bias_relu_lrn_bwd(x, b, g, size, alpha, beta, k)
+    assert (cl.lrn_across_bwd.launches, ce.bias_relu_lrn_bwd.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    torch.testing.assert_close(
+        got, cl.lrn_across_bwd_plain(x, g, size, alpha, beta, k),
+        rtol=1e-5, atol=1e-6)
+    rdx, rdb = ce.bias_relu_lrn_bwd_plain(x, b, g, size, alpha, beta, k)
+    torch.testing.assert_close(dx, rdx, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(db, rdb, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_train_steps_on_card_match_cpu(cuda):
+    """Two SGD steps of a small net with both LRN sites, on the card
+    (kernels) and on the CPU (plain versions), from the same weights."""
+    from sparknet_tpu_torch.models import dsl, zoo
+    from sparknet_tpu_torch.proto import Message
+    from sparknet_tpu_torch.solver import Solver
+    torch.backends.cudnn.allow_tf32 = True       # PyTorch's default
+    net = dsl.NetParam(
+        "CardNet", dsl.RDDLayer("data", [2, 3, 12, 12]),
+        dsl.RDDLayer("label", [2]),
+        zoo._gconv("conv1", "data", 8, 3, pad=1),
+        dsl.ReLULayer("relu1", ["conv1"], tops=["conv1"]),
+        dsl.PoolingLayer("pool1", ["conv1"], "MAX", (2, 2), (2, 2)),
+        dsl.LRNLayer("norm1", ["pool1"], local_size=5, alpha=0.1,
+                     beta=0.75),
+        zoo._gconv("conv2", "norm1", 12, 3, pad=1),
+        dsl.ReLULayer("relu2", ["conv2"], tops=["conv2"]),
+        dsl.LRNLayer("norm2", ["conv2"], local_size=5, alpha=0.1,
+                     beta=0.75),
+        zoo._fc("fc", "norm2", 10, w_type="xavier"),
+        dsl.SoftmaxWithLoss("loss", ["fc", "label"]))
+    sp = Message("SolverParameter", base_lr=0.05, lr_policy="fixed",
+                 momentum=0.9, weight_decay=5e-4, random_seed=2)
+    cpu = Solver(sp, net_param=net, device="cpu", log_fn=None)
+    card = Solver(sp, net_param=net, device="cuda", log_fn=None)
+    rs = np.random.RandomState(0)
+    n0 = (cl.lrn_across_bwd.launches, ce.bias_relu_lrn_bwd.launches)
+    for _ in range(2):
+        b = {"data": rs.randn(2, 3, 12, 12).astype(np.float32),
+             "label": rs.randint(0, 10, 2).astype(np.int32)}
+        np.testing.assert_allclose(float(card.train_step(b)),
+                                   float(cpu.train_step(b)), rtol=1e-5)
+    assert cl.lrn_across_bwd.launches == n0[0] + 2
+    assert ce.bias_relu_lrn_bwd.launches == n0[1] + 2
+    for name, blobs in cpu.params.items():
+        for c, g in zip(blobs, card.params[name]):
+            torch.testing.assert_close(g.detach().cpu(), c.detach(),
+                                       rtol=1e-4, atol=1e-5)

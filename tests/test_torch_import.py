@@ -19,8 +19,12 @@ MODULES = [
     "sparknet_tpu_torch.graph.compiler", "sparknet_tpu_torch.graph.weights",
     "sparknet_tpu_torch.models", "sparknet_tpu_torch.ops",
     "sparknet_tpu_torch.ops.cuda_build", "sparknet_tpu_torch.ops.cuda_lrn",
-    "sparknet_tpu_torch.ops.cuda_epilogue", "sparknet_tpu_torch.resilience",
-    "sparknet_tpu_torch.serve",
+    "sparknet_tpu_torch.ops.cuda_epilogue", "sparknet_tpu_torch.ops.losses",
+    "sparknet_tpu_torch.graph.upgrade", "sparknet_tpu_torch.resilience",
+    "sparknet_tpu_torch.resilience.checkpoint", "sparknet_tpu_torch.serve",
+    "sparknet_tpu_torch.solver", "sparknet_tpu_torch.solver.solver",
+    "sparknet_tpu_torch.solver.updates", "sparknet_tpu_torch.solver.lr_policy",
+    "sparknet_tpu_torch.solver.hdf5_io",
 ]
 
 
@@ -63,9 +67,9 @@ def test_port_sources_name_no_jax_import():
 
 def test_kernel_sources_ship_with_the_package():
     csrc = os.path.join(PORT, "csrc")
-    assert {"lrn.cu", "epilogue.cu", "channel_walk.cuh"} <= \
+    assert {"lrn.cu", "epilogue.cu", "lrn_bwd.cu", "channel_walk.cuh"} <= \
         set(os.listdir(csrc))
-    for fn in ("lrn.cu", "epilogue.cu"):
+    for fn in ("lrn.cu", "epilogue.cu", "lrn_bwd.cu"):
         with open(os.path.join(csrc, fn)) as f:
             head = f.read(2000)
         # each kernel names the TPU kernel it replaces and its bound
