@@ -48,9 +48,39 @@ Phases, each of which raises on failure (exit code not 0):
               left to the Solver, weights read by their change; controls:
               the CPU on one thread (must pass), a zeroed LRN backward at
               each site and TF32 on (each must fail the same reading).
- 6. the kernel table as one JSON line (launches from the serving path
-    for the forwards, from the training path for the backwards), the
-    nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
+ 6. flash   — the three flash-attention kernels (forward, dQ, dK/dV)
+              against their plain versions: f32 at (2, 4, 1024, 64),
+              causal and not, and bf16 at the LM's full width (4, 8, 4096,
+              128), causal; each output's worst 64-row tile against
+              f32 1e-4 and bf16 2e-3 of that tile's norm (a measure that
+              does not shrink along the sequence as causal outputs do),
+              with two planted faults that must fail it, f32 also against
+              2e-5 (forward) and 5e-4 (backward) of the largest reference
+              element, LSE and delta against 2e-5 of theirs; median times
+              over CUDA events with the L2 flushed;
+              the bound (the larger of bytes over 3.35 TB/s and FLOPs over
+              67 TFLOP/s f32 or 989 TFLOP/s dense bf16 tensor); the library
+              call (F.scaled_dot_product_attention forward, and
+              torch.autograd.grad through it for dq, dk, dv together).
+ 7. lm      — the transformer LM at the full width of bench.py's larger
+              row (vocab 8192, S 4096, batch 4, d 1024, 12 layers, 8
+              heads, bf16 activations over f32 masters, Adam): `python -m
+              sparknet_tpu_torch lm` for 3 steps with a snapshot, then
+              --resume to 5 (the counter continues, each kernel launches
+              exactly 12 times per step in both runs, the loss falls from
+              about ln 8192); in process, the train step time (CUDA
+              events) and tokens/s, launches per step, and a profiler
+              window (port attention kernels, cuBLAS GEMMs, other; busy
+              share); and card against CPU for a small LM (2 layers, d
+              256, 4 heads, S 256, batch 2, f32): the first step's
+              gradients under the lm verb's Solver, and two Adam steps
+              from one snapshot (losses and weight changes), with controls
+              (the CPU on one thread must pass; the dQ kernel's output
+              zeroed and the dK/dV kernel's output zeroed must fail).
+ 8. the kernel table as one JSON line (launches from the serving path
+    for the GoogLeNet forwards, the training path for their backwards,
+    the lm verb's first run for the flash kernels), the nvidia-smi line,
+    and as the last line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -67,6 +97,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 SEED = 1234
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -777,6 +808,499 @@ def _card_vs_cpu(torch, tmp, batch=4, steps=2):
             "reorder_control": reorder, "fault_controls": faults}
 
 
+# -- phase 6 --------------------------------------------------------------
+
+# The flash kernels' limits against their plain versions. f32: O within
+# 2e-5 and dQ, dK, dV within 5e-4 of the largest reference element
+# (tests/test_flash.py's limits). Every dtype: each output's worst
+# 64-row tile (_tile_err) within FLASH_TILE_LIMIT, set between the sound
+# readings (f32 5.5e-7 at most, bf16 at the LM's width 1.5e-4 to 2.4e-4)
+# and those of the planted faults (_planted: 1e-2 and 1e-1); see
+# PERF.md. LSE and delta within ROW_LIMIT of their largest reference
+# element (they read 1.4e-7 at most).
+FLASH_TILE_LIMIT = {"float32": 1e-4, "bfloat16": 2e-3}
+ROW_LIMIT = 2e-5
+
+
+def _rel_err(got, ref):
+    """max |got - ref| over max |ref|, both read as f32."""
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp_min(1e-30))
+
+
+def _tile_err(torch, got, ref, rows=64):
+    """The worst tile's ||got - ref|| / ||ref||, over tiles of ``rows``
+    rows along S in each (b, h), the ragged last one included. The
+    kernels give each CTA one 64-row tile, and a tile is held to its own
+    size: causal O, dQ, dK and dV shrink along the sequence, so an error
+    taken of the largest element (row 0's) lets most of the rows be
+    wrong by as much as they are large."""
+    b, h, s, d = ref.shape
+    pad = (-s) % rows
+
+    def tiles(t):
+        return torch.nn.functional.pad(t.float(), (0, 0, 0, pad)).reshape(
+            b * h, -1, rows * d)
+    r = tiles(ref)
+    return float(((tiles(got) - r).norm(dim=-1)
+                  / r.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def _planted(torch, t):
+    """Two wrong kernels planted on a kernel's output ``t`` (B, H, S, D),
+    in f32: the last 64-row tile of the last (b, h) 1% off, and every
+    row past S/8 10% off."""
+    s = t.shape[2]
+    last, late = (t.to(torch.float32, copy=True) for _ in range(2))
+    last[-1, -1, -64:] *= 1.01
+    late[:, :, s // 8:] *= 1.1
+    return {"last tile 1% off": last, "rows past S/8 10% off": late}
+
+
+def phase_flash_kernels(torch):
+    """The forward, dQ and dK/dV kernels against their plain versions on
+    the same inputs (the backward kernels take the kernel forward's O and
+    LSE, dK/dV the dQ kernel's delta), the planted faults, times, bounds
+    and the library call."""
+    import torch.nn.functional as F
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    timer = Timer(torch)
+    results = []
+    for shape, dtype, causal, row in (
+            ((2, 4, 1024, 64), torch.float32, False, False),
+            ((2, 4, 1024, 64), torch.float32, True, False),
+            ((4, 8, 4096, 128), torch.bfloat16, True, True)):
+        q, k, v, do = ((0.5 * torch.randn(shape, generator=gen,
+                                          device="cuda")).to(dtype)
+                       for _ in range(4))
+        b, h, s, d = shape
+        f32 = dtype == torch.float32
+        dname = str(dtype).replace("torch.", "")
+        what = f"{list(shape)} {dname} causal={causal}"
+        peak = F32_OPS_PER_S if f32 else BF16_TENSOR_OPS_PER_S
+        tile_tol = FLASH_TILE_LIMIT[dname]
+        pairs = b * h * s * s * (0.5 if causal else 1.0)
+        item = q.element_size() * q.numel()        # one (B, H, S, D) tensor
+        rows = 4 * b * h * s                        # one f32 (B*H, S)
+        readings = {}
+        with torch.no_grad():
+            o, lse = ca.flash_attention_fwd(q, k, v, causal)
+            dq, delta = ca.flash_attention_dq(q, k, v, o, lse, do, causal)
+            dk, dv = ca.flash_attention_dkv(q, k, v, do, lse, delta, causal)
+            torch.cuda.synchronize()
+            ro, rlse = ca.flash_attention_fwd_plain(q, k, v, causal)
+            rdq, rdelta = ca.flash_attention_dq_plain(q, k, v, o, lse, do,
+                                                      causal)
+            rdk, rdv = ca.flash_attention_dkv_plain(q, k, v, do, lse, delta,
+                                                    causal)
+            outputs = {"flash_attention": (("O", o, ro),),
+                       "flash_attention_dq": (("dQ", dq, rdq),),
+                       "flash_attention_dkv": (("dK", dk, rdk),
+                                               ("dV", dv, rdv))}
+            for name, outs in outputs.items():
+                el_tol = None if not f32 else \
+                    2e-5 if name == "flash_attention" else 5e-4
+                rd = readings[name] = {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                       "tile_err": 0.0, "planted": {}}
+                for label, got, ref in outs:
+                    check(bool(torch.isfinite(got).all()),
+                          f"flash: non-finite {label} at {what}")
+                    rel, tile = _rel_err(got, ref), _tile_err(torch, got, ref)
+                    rd["max_abs_err"] = max(rd["max_abs_err"], float(
+                        (got.float() - ref.float()).abs().max()))
+                    rd["max_rel_err"] = max(rd["max_rel_err"], rel)
+                    rd["tile_err"] = max(rd["tile_err"], tile)
+                    print(f"[flash] {label} {what}: worst 64-row tile "
+                          f"{tile:.3e} (limit {tile_tol:g}), of the largest "
+                          f"element {rel:.3e}"
+                          + (f" (limit {el_tol:g})" if el_tol else ""))
+                    for fault, bad in _planted(torch, got).items():
+                        ptile, prel = (_tile_err(torch, bad, ref),
+                                       _rel_err(bad, ref))
+                        rd["planted"][f"{label} {fault}"] = {
+                            "tile_err": ptile, "max_rel_err": prel}
+                        print(f"[flash]   planted, {label} {fault}: worst "
+                              f"tile {ptile:.3e}, of the largest element "
+                              f"{prel:.3e}")
+                        check(ptile > tile_tol,
+                              f"planted fault '{label} {fault}' at {what} "
+                              f"reads {ptile:.3e}, within the limit "
+                              f"{tile_tol:g}: the check would not catch it")
+                    check(tile <= tile_tol,
+                          f"{label} at {what} disagrees with the plain "
+                          f"version: worst tile {tile:.3e} > {tile_tol:g}")
+                    if el_tol is not None:
+                        check(rel <= el_tol,
+                              f"{label} at {what} disagrees with the plain "
+                              f"version: {rel:.3e} of the largest element "
+                              f"> {el_tol:g}")
+            for label, got, ref in (("LSE", lse, rlse),
+                                    ("delta", delta, rdelta)):
+                rel = _rel_err(got, ref)
+                print(f"[flash] {label} {what}: of the largest element "
+                      f"{rel:.3e} (limit {ROW_LIMIT:g})")
+                check(rel <= ROW_LIMIT, f"{label} at {what} disagrees with "
+                      f"the plain version: {rel:.3e} > {ROW_LIMIT:g}")
+            readings["flash_attention"]["lse_rel_err"] = _rel_err(lse, rlse)
+            readings["flash_attention_dq"]["delta_rel_err"] = _rel_err(
+                delta, rdelta)
+            del ro, rlse, rdq, rdelta, rdk, rdv, outputs
+        with torch.enable_grad():
+            ql, kl, vl = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            out = F.scaled_dot_product_attention(ql, kl, vl,
+                                                 is_causal=causal)
+
+        def lib_bwd():
+            with torch.enable_grad():
+                return torch.autograd.grad(out, (ql, kl, vl), do,
+                                           retain_graph=True)
+        with torch.no_grad():
+            lib_bwd_ms = timer(lib_bwd)
+            cases = (
+                ("flash_attention", lambda: ca.flash_attention_fwd(
+                    q, k, v, causal),
+                 lambda: ca.flash_attention_fwd_plain(q, k, v, causal),
+                 lambda: F.scaled_dot_product_attention(q, k, v,
+                                                        is_causal=causal),
+                 3 * item + item + rows, 4 * pairs * d),
+                ("flash_attention_dq", lambda: ca.flash_attention_dq(
+                    q, k, v, o, lse, do, causal),
+                 lambda: ca.flash_attention_dq_plain(q, k, v, o, lse, do,
+                                                     causal),
+                 None, 5 * item + rows + item + rows, 6 * pairs * d),
+                ("flash_attention_dkv", lambda: ca.flash_attention_dkv(
+                    q, k, v, do, lse, delta, causal),
+                 lambda: ca.flash_attention_dkv_plain(q, k, v, do, lse,
+                                                      delta, causal),
+                 None, 4 * item + 2 * rows + 2 * item, 8 * pairs * d))
+            for name, kernel, plain, library, nbytes, flops in cases:
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / peak * 1e3
+                r = dict(
+                    name=name, shape=list(shape), dtype=dname, causal=causal,
+                    **readings[name],
+                    limit=f"worst 64-row tile {tile_tol:g}" + (
+                        f"; {2e-5 if name == 'flash_attention' else 5e-4:g}"
+                        " of the largest element" if f32 else ""),
+                    ms=timer(kernel), plain_ms=timer(plain),
+                    library_ms=timer(library) if library else lib_bwd_ms,
+                    library="F.scaled_dot_product_attention" if library
+                    else "torch.autograd.grad of F.scaled_dot_product_"
+                         "attention (dq, dk, dv together)",
+                    bytes=nbytes, flops=flops,
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    row=row)
+                print(f"[flash] {name} {what}: kernel {r['ms']:.4f} ms, "
+                      f"plain {r['plain_ms']:.4f} ms, library "
+                      f"{r['library_ms']:.4f} ms ({r['library']}), bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
+                      f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+                results.append(r)
+        del q, k, v, do, o, lse, dq, delta, dk, dv, out, ql, kl, vl
+        torch.cuda.empty_cache()
+    return results
+
+
+# -- phase 7 --------------------------------------------------------------
+
+LM_FULL = dict(vocab=8192, seq_len=4096, batch=4, d_model=1024, layers=12,
+               heads=8)
+FLASH_KERNELS = ("flash_attention", "flash_attention_dq",
+                 "flash_attention_dkv")
+
+
+def _lm_cli(args, timeout=600):
+    """``python -m sparknet_tpu_torch lm`` at full width, bf16, in a child
+    process that ends (or is killed at ``timeout``) before this
+    returns; -> (stdout, its launch counts)."""
+    f = LM_FULL
+    cmd = [sys.executable, "-m", "sparknet_tpu_torch", "lm",
+           "--vocab", str(f["vocab"]), "--seq-len", str(f["seq_len"]),
+           "--batch", str(f["batch"]), "--d-model", str(f["d_model"]),
+           "--layers", str(f["layers"]), "--heads", str(f["heads"]),
+           "--dtype", "bf16", "--display", "1", *args]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=timeout)
+    for line in out.stdout.strip().splitlines():
+        print(f"[lm-cli] {line}")
+    check(out.returncode == 0,
+          f"{' '.join(cmd)} exited {out.returncode}: {out.stderr[-4000:]}")
+    print(f"[lm-cli] exited 0 in {time.perf_counter() - t0:.1f} s")
+    last = out.stdout.strip().splitlines()[-1]
+    check(last.startswith("Kernel launches: "),
+          f"the lm verb's last line is not its launch counts: {last}")
+    return out.stdout, json.loads(last[len("Kernel launches: "):])
+
+
+def _losses(out):
+    return {int(l.split()[1].rstrip(",")): float(
+        l.split("loss = ")[1].split(",")[0])
+        for l in out.splitlines() if l.startswith("Iteration ")}
+
+
+def phase_lm_cli(tmp):
+    """The lm verb at full width: 3 steps with a snapshot at 3, then
+    --resume from it to 5. Each flash kernel must launch exactly
+    ``layers`` times per step in each run, the resumed run must start
+    at iteration 3, and the loss must fall from about ln(vocab)."""
+    prefix = os.path.join(tmp, "lm")
+    layers = LM_FULL["layers"]
+    out1, counts1 = _lm_cli(["--steps", "3", "--snapshot-every", "3",
+                             "--snapshot-prefix", prefix])
+    check(os.path.exists(f"{prefix}_iter_3.solverstate"),
+          "no lm snapshot at iteration 3")
+    out2, counts2 = _lm_cli(["--steps", "5", "--resume",
+                             f"{prefix}_iter_3.solverstate"])
+    for out, counts, steps in ((out1, counts1, 3), (out2, counts2, 2)):
+        check(f"done: {steps} steps, " in out, f"lm verb: not {steps} steps")
+        for name in FLASH_KERNELS:
+            check(counts[name] == layers * steps,
+                  f"lm verb: {name} launched {counts[name]} times in "
+                  f"{steps} steps of a {layers}-layer net, want "
+                  f"{layers * steps}")
+    first, second = _losses(out1), _losses(out2)
+    check(sorted(first) == [0, 1, 2] and sorted(second) == [3, 4],
+          f"iterations {sorted(first)} then {sorted(second)}: the resumed "
+          "run did not continue from 3")
+    ln_v = float(np.log(LM_FULL["vocab"]))
+    check(abs(first[0] - ln_v) < 1.5,
+          f"first loss {first[0]:.4f} is not about ln(vocab) = {ln_v:.4f}")
+    check(second[4] < first[0], f"loss did not fall: {first[0]:.4f} at "
+                                f"iteration 0, {second[4]:.4f} at 4")
+    rates = [float(l.split("steps, ")[1].split(" tokens/s")[0]
+                   .replace(",", ""))
+             for l in (out1 + out2).splitlines() if l.startswith("done: ")]
+    return {"losses": {**first, **second}, "launches": counts1,
+            "launches_resumed": counts2, "tokens_per_s_wall": rates}
+
+
+def _lm_group(name):
+    if "flash_" in name:
+        return "port attention kernels (flash_*)"
+    if any(s in name for s in ("gemm", "cutlass", "nvjet", "cublas",
+                               "sm90_xmma")):
+        return "cuBLAS GEMMs"
+    return "other"
+
+
+def phase_lm_step(torch, card, steps=3):
+    """In process at full width: launches per step, the train step time
+    (median of 5, CUDA events, device-resident batch), tokens/s and a
+    profiler window."""
+    from sparknet_tpu_torch.data import lm_batch_stream
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.ops import KERNEL_WRAPPERS, kernel_launches
+    from sparknet_tpu_torch.proto import Message
+    from sparknet_tpu_torch.solver import Solver
+    f = LM_FULL
+    sp = Message("SolverParameter", base_lr=3e-4, lr_policy="fixed",
+                 type="Adam", random_seed=SEED, display=0)
+    net = zoo.transformer_lm(vocab_size=f["vocab"], seq_len=f["seq_len"],
+                             batch_size=f["batch"], d_model=f["d_model"],
+                             num_layers=f["layers"], num_heads=f["heads"])
+    solver = Solver(sp, net_param=net, device="cuda", log_fn=None,
+                    compute_dtype=torch.bfloat16)
+    n_params = sum(p.numel() for v in solver.params.values() for p in v)
+    stream, _ = lm_batch_stream(f["vocab"], f["batch"], f["seq_len"],
+                                seed=SEED)
+    feed = {k: torch.as_tensor(v).cuda() for k, v in next(stream).items()}
+    float(solver.train_step(feed))              # warm-up: cuBLAS plans
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+    losses = [float(solver.train_step(feed)) for _ in range(steps)]
+    launches = kernel_launches()
+    print(f"[lm] in process, {steps} steps on one batch: losses "
+          f"{[round(l, 4) for l in losses]}, launches {launches}")
+    for name in FLASH_KERNELS:
+        check(launches[name] == f["layers"] * steps,
+              f"{name}: {launches[name]} launches in {steps} steps, want "
+              f"{f['layers'] * steps}")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = Timer(torch, reps=5, flush=False)(
+        lambda: solver.train_step(feed))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tps = f["batch"] * f["seq_len"] / (step_ms / 1e3)
+    print(f"[lm] transformer LM {n_params / 1e6:.1f}M params, b{f['batch']} "
+          f"S{f['seq_len']} bf16 train step {step_ms:.3f} ms (median of 5, "
+          f"CUDA events), {tps:,.0f} tokens/s, peak memory {peak_gb:.1f} GB; "
+          f"{card}")
+    profile = _profile(torch, lambda: solver.train_step(feed), 2, _lm_group,
+                       "full-width LM train step", card, top=12)
+    del solver, feed
+    torch.cuda.empty_cache()
+    return {"params": n_params, "launches": launches, "losses": losses,
+            "step_ms": step_ms, "tokens_per_s": tps, "peak_gb": peak_gb,
+            "profile": profile}
+
+
+def _weight_change_error(params, w0, dw_ref):
+    """Worst blob's max |dw - dw_ref| / max |dw_ref| with dw = w - w0,
+    and the blob. The attention's key bias is left out: it adds q.b_k to
+    every score of a row, which the softmax cancels, so its gradient is
+    zero up to rounding, and Adam scales that noise up to steps of about
+    lr whatever computes it."""
+    worst, where = 0.0, None
+    for name, refs in dw_ref.items():
+        for i, dr in enumerate(refs):
+            dw = params[name][i].detach().cpu().double() - w0[name][i]
+            if name.endswith("/attn") and i == 1:
+                keep = dr.new_ones(dr.shape[0]).bool()
+                keep[dr.shape[0] // 3:2 * dr.shape[0] // 3] = False
+                dw, dr = dw[keep], dr[keep]
+            e = float((dw - dr).abs().max() / dr.abs().max().clamp_min(1e-30))
+            if e > worst:
+                worst, where = e, f"{name}[{i}]"
+    return worst, where
+
+
+# Between the sound readings (card 1.2e-4, the CPU on one thread 5.3e-5)
+# and the controls (dQ zeroed 1.85, dK/dV zeroed 1.99); see PERF.md.
+LM_WEIGHT_CHANGE_LIMIT = 1e-2
+# Between the sound readings of the first step's gradients (card 9.7e-7,
+# the CPU on one thread 6.1e-8) and the controls' (dQ zeroed 0.51, dK/dV
+# zeroed 1.03); see PERF.md.
+LM_GRAD_LIMIT = 1e-4
+
+
+def _grad_error(params, g_ref):
+    """Worst blob's max |g - g_ref| / max |g_ref| over the params'
+    gradients, and the blob."""
+    worst, where = 0.0, None
+    for name, refs in g_ref.items():
+        for i, gr in enumerate(refs):
+            g = params[name][i].grad.detach().cpu().double()
+            e = float((g - gr).abs().max() / gr.abs().max().clamp_min(1e-30))
+            if e > worst:
+                worst, where = e, f"{name}[{i}]"
+    return worst, where
+
+
+def phase_lm_card_vs_cpu(torch, tmp, steps=2):
+    """A small LM (vocab 512, 2 layers, d 256, 4 heads, S 256, batch 2,
+    f32, TF32 off) from one snapshot on the card (the flash kernels) and
+    on the CPU (their plain versions), read two ways:
+
+    - the first step's gradients under the lm verb's own Solver (Adam,
+      Caffe's delta 1e-8): each blob's within LM_GRAD_LIMIT of the CPU's
+      largest in that blob;
+    - two Adam steps with delta 1e-6: losses within 1e-5 relative and
+      each blob's weight change within LM_WEIGHT_CHANGE_LIMIT of the
+      CPU's largest change in that blob.
+
+    Controls from the same snapshot and batches, read both ways: the CPU
+    on one thread (must pass), and on the card the dQ kernel's output
+    zeroed and the dK/dV kernel's output zeroed (each must fail).
+
+    The weight changes take delta 1e-6, not 1e-8: Adam divides each
+    gradient by its own RMS, so an element whose gradient lies within
+    rounding of zero takes a step of about lr in a sign set by rounding,
+    and with delta 1e-8 one such element in 80,000 decides the reading
+    (a card run read 1.13 at tok_embed while every gradient agreed with
+    the CPU's within 1.1e-6 of its blob's largest). With 1e-6, gradients
+    below ~3e-5 take steps in proportion to their size; a dropped
+    gradient still reads about 1. The gradients themselves come before
+    any update and read the main path's setting as it is."""
+    from sparknet_tpu_torch.data import lm_batch_stream
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    from sparknet_tpu_torch.proto import Message
+    from sparknet_tpu_torch.solver import Solver
+    sp_verb = Message("SolverParameter", base_lr=1e-3, lr_policy="fixed",
+                      type="Adam", random_seed=SEED, display=0)
+    sp = sp_verb.copy()
+    sp.delta = 1e-6
+    net = zoo.transformer_lm(vocab_size=512, seq_len=256, batch_size=2,
+                             d_model=256, num_layers=2, num_heads=4)
+    cpu = Solver(sp, net_param=net, device="cpu", log_fn=None)
+    _, state = cpu.snapshot(os.path.join(tmp, "lm_parity"))
+    w0 = {n: [p.detach().double().clone() for p in blobs]
+          for n, blobs in cpu.params.items()}
+    stream, _ = lm_batch_stream(512, 2, 256, seed=SEED + 1)
+    batches = [next(stream) for _ in range(steps)]
+    first = Solver(sp_verb, net_param=net, device="cpu", log_fn=None)
+    first.restore(state)
+    first.train_step(batches[0])
+    g_cpu = {n: [p.grad.detach().double() for p in blobs]
+             for n, blobs in first.params.items()}
+    cpu_losses = [float(cpu.train_step(b)) for b in batches]
+    dw_cpu = {n: [p.detach().double() - w for p, w in zip(blobs, w0[n])]
+              for n, blobs in cpu.params.items()}
+
+    def run(label, device="cuda"):
+        solver = Solver(sp_verb, net_param=net, device=device, log_fn=None)
+        solver.restore(state)
+        solver.train_step(batches[0])
+        g_err, g_where = _grad_error(solver.params, g_cpu)
+        solver = Solver(sp, net_param=net, device=device, log_fn=None)
+        solver.restore(state)
+        losses = [float(solver.train_step(b)) for b in batches]
+        worst, where = _weight_change_error(solver.params, w0, dw_cpu)
+        print(f"[lm-parity] {label}: first-step gradients max |g - g_cpu| "
+              f"/ max |g_cpu| = {g_err:.3e} at {g_where} (limit "
+              f"{LM_GRAD_LIMIT:g}); weight change max |dw - dw_cpu| / max "
+              f"|dw_cpu| = {worst:.3e} at {where} (limit "
+              f"{LM_WEIGHT_CHANGE_LIMIT:g})")
+        return {"losses": losses, "grad_rel": g_err, "grad_where": g_where,
+                "weight_change_rel": worst, "where": where}
+
+    for f in (torch.backends.cudnn, torch.backends.cuda.matmul):
+        f.allow_tf32 = True           # the Solver must turn them off
+    card = run("card")
+    worst_loss = max(abs(a - b) / abs(b)
+                     for a, b in zip(card["losses"], cpu_losses))
+    for a, b in zip(card["losses"], cpu_losses):
+        print(f"[lm-parity] loss card {a:.7f} cpu {b:.7f} (relative "
+              f"{abs(a - b) / abs(b):.3e}, limit 1e-5)")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        reorder = run("control, CPU on one thread", device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    faults = {}
+    dq_fn, dkv_fn = ca.flash_attention_dq, ca.flash_attention_dkv
+
+    def dq_zeroed(*a):
+        dq, delta = dq_fn(*a)
+        return torch.zeros_like(dq), delta
+
+    def dkv_zeroed(*a):
+        return tuple(torch.zeros_like(t) for t in dkv_fn(*a))
+    # the wrappers count through their module-level names
+    dq_zeroed.launches = dkv_zeroed.launches = 0
+    try:
+        ca.flash_attention_dq = dq_zeroed
+        faults["dQ kernel output zeroed"] = run("control, dQ zeroed")
+        ca.flash_attention_dq = dq_fn
+        ca.flash_attention_dkv = dkv_zeroed
+        faults["dK/dV kernel output zeroed"] = run("control, dK/dV zeroed")
+    finally:
+        ca.flash_attention_dq, ca.flash_attention_dkv = dq_fn, dkv_fn
+    check(worst_loss <= 1e-5, f"card and CPU LM losses differ by "
+                              f"{worst_loss:.3e}")
+    for key, limit in (("grad_rel", LM_GRAD_LIMIT),
+                       ("weight_change_rel", LM_WEIGHT_CHANGE_LIMIT)):
+        check(card[key] <= limit,
+              f"card and CPU LM {key} {card[key]:.3e} > {limit:g}")
+        check(reorder[key] <= limit,
+              f"the CPU on one thread reads {key} {reorder[key]:.3e}: the "
+              "limit does not admit a change of summation order")
+        for name, r in faults.items():
+            check(r[key] > limit,
+                  f"control '{name}' reads {key} {r[key]:.3e}, within the "
+                  "limit: the check would not catch it")
+    return {"loss_rel": worst_loss, **{k: card[k] for k in (
+        "grad_rel", "grad_where", "weight_change_rel", "where")},
+        "reorder_control": {k: reorder[k] for k in (
+            "grad_rel", "weight_change_rel")},
+        "fault_controls": {n: {k: r[k] for k in (
+            "grad_rel", "weight_change_rel")} for n, r in faults.items()}}
+
+
 KERNELS = {
     # name: (source, replaces, path whose launches the row reports)
     "lrn_across": ("sparknet_tpu_torch/csrc/lrn.cu",
@@ -789,6 +1313,14 @@ KERNELS = {
                        "sparknet_tpu/ops/pallas_lrn.py:59", "train auto"),
     "bias_relu_lrn_bwd": ("sparknet_tpu_torch/csrc/lrn_bwd.cu",
                           "sparknet_tpu/ops/pallas_lrn.py:59", "train auto"),
+    "flash_attention": ("sparknet_tpu_torch/csrc/flash_fwd.cu",
+                        "sparknet_tpu/ops/pallas_attention.py:38", "lm verb"),
+    "flash_attention_dq": ("sparknet_tpu_torch/csrc/flash_bwd.cu",
+                           "sparknet_tpu/ops/pallas_attention.py:144",
+                           "lm verb"),
+    "flash_attention_dkv": ("sparknet_tpu_torch/csrc/flash_bwd.cu",
+                            "sparknet_tpu/ops/pallas_attention.py:187",
+                            "lm verb"),
 }
 
 
@@ -802,28 +1334,36 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     trained_cli = phase_train_cli(tmp)
     trained = phase_train(torch, card, tmp)
+    torch.cuda.empty_cache()
+    flash = phase_flash_kernels(torch)
+    lm_cli = phase_lm_cli(tmp)
+    lm_step = phase_lm_step(torch, card)
+    lm_parity = phase_lm_card_vs_cpu(torch, tmp)
     paths = {"serve auto": served["auto"], "serve on": served["on"],
              "train auto": trained["launches"]["auto"],
-             "train on": trained["launches"]["on"]}
+             "train on": trained["launches"]["on"],
+             "lm verb": lm_cli["launches"]}
     table = []
     for name, (source, replaces, path) in KERNELS.items():
-        r = next(r for r in results if r["name"] == name and r["row"])
+        r = next(r for r in results + flash if r["name"] == name and r["row"])
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": paths[path][name],
             "launches_path": path,
             "launches_train": trained["launches"]["auto"][name],
+            "launches_lm_step": lm_step["launches"][name],
             "shape": r["shape"], "dtype": r["dtype"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print("[details] " + json.dumps({
-        "card": card, "cases": results,
+        "card": card, "cases": results, "flash_cases": flash,
         "serve": {k: served[k] for k in ("per_bucket_ms", "images_per_s_b8",
                                          "p50_ms", "profile_b8")},
         "train": {**{k: trained[k] for k in (
             "launches", "fixed_batch_losses", "step_ms", "images_per_s",
-            "profile", "card_vs_cpu")}, **trained_cli}}))
+            "profile", "card_vs_cpu")}, **trained_cli},
+        "lm": {"cli": lm_cli, "step": lm_step, "card_vs_cpu": lm_parity}}))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,12 @@
           snapshots, graceful SIGTERM/SIGINT drain (exit 0); exit 3 when
           the checkpoint has no servable model blob, before the socket
           opens.
+  lm      train the transformer LM (models/zoo.py transformer_lm) on the
+          synthetic bigram corpus with the single-device Solver: the
+          corpus floor first, optional --metrics JSONL, snapshots and
+          --resume, and as the last line each CUDA kernel's launches.
 
-Both run on the card (``--device cuda``, the default) unless
+All run on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given.
 """
 
@@ -112,6 +116,74 @@ def cmd_train(args):
     return 0
 
 
+def cmd_lm(args):
+    """The JAX package's ``lm`` verb, single-device branch
+    (sparknet_tpu/cli.py cmd_lm): Solver over zoo.transformer_lm on the
+    bigram stream. ``--dtype bf16`` is mixed precision: f32 master
+    params, bf16 activations cast at the embedding."""
+    import time
+    import torch
+    from .data import lm_batch_stream
+    from .models import zoo
+    from .ops import kernel_launches
+    from .proto import Message
+    from .solver import Solver
+    from .utils import MetricsLogger
+
+    if args.snapshot_every and not args.snapshot_prefix:
+        raise SystemExit("--snapshot-every needs --snapshot-prefix")
+    sp = Message("SolverParameter", base_lr=args.lr, lr_policy="fixed",
+                 display=args.display, type=args.solver_type,
+                 random_seed=args.seed, snapshot=args.snapshot_every or 0)
+    if args.snapshot_prefix:
+        sp.snapshot_prefix = args.snapshot_prefix
+    metrics = MetricsLogger(args.metrics) if args.metrics else None
+    compute_dtype = torch.bfloat16 if args.dtype == "bf16" else None
+    stream, floor = lm_batch_stream(args.vocab, args.batch, args.seq_len,
+                                    seed=args.seed)
+    if metrics:
+        metrics.log("config", loss_floor_nats=round(floor, 4),
+                    d_model=args.d_model, layers=args.layers,
+                    seq_len=args.seq_len, batch=args.batch,
+                    dtype=args.dtype,
+                    precision=os.environ.get("SPARKNET_PRECISION",
+                                             "fp32") or "fp32",
+                    device=args.device)
+    print(f"bigram corpus floor: {floor:.4f} nats/token "
+          f"(untrained: {np.log(args.vocab):.4f})")
+    net = zoo.transformer_lm(vocab_size=args.vocab, seq_len=args.seq_len,
+                             batch_size=args.batch, d_model=args.d_model,
+                             num_layers=args.layers, num_heads=args.heads,
+                             flash=not args.no_flash)
+    solver = Solver(sp, net_param=net, device=args.device, metrics=metrics,
+                    compute_dtype=compute_dtype)
+    if args.resume:
+        solver.restore(args.resume)
+    start_iter = solver.iter
+    t0 = time.time()
+    solver.step(args.steps - solver.iter, stream)
+    if solver.device.type == "cuda":
+        torch.cuda.synchronize(solver.device)
+    dt = time.time() - t0
+    executed = solver.iter - start_iter
+    toks = executed * args.batch * args.seq_len
+    final = solver.smoothed_loss()
+    # a final snapshot unless the cadence already wrote this iteration
+    if args.snapshot_prefix and not (args.snapshot_every and executed and
+                                     solver.iter % args.snapshot_every == 0):
+        solver.snapshot(args.snapshot_prefix)
+    rate = toks / dt if dt > 0 else 0
+    print(f"done: {executed} steps, {rate:,.0f} tokens/s wall, "
+          f"final loss {final}")
+    if metrics:
+        metrics.log("summary", steps=executed,
+                    tokens_per_sec=round(rate, 1),
+                    final_loss=final, loss_floor_nats=round(floor, 4))
+        metrics.close()
+    print(f"Kernel launches: {json.dumps(kernel_launches())}")
+    return 0
+
+
 def cmd_serve(args):
     from .serve import Batcher, ServeEngine, serve_http
     net_param = None
@@ -200,5 +272,31 @@ def main(argv=None):
                     help="torch device to serve on (default cuda; the "
                          "CPU runs only when asked: --device cpu)")
     sv.set_defaults(fn=cmd_serve)
+    lm = sub.add_parser("lm", help="train the transformer LM on the "
+                                   "synthetic bigram corpus")
+    lm.add_argument("--vocab", type=int, default=512)
+    lm.add_argument("--seq-len", type=int, default=256)
+    lm.add_argument("--batch", type=int, default=8)
+    lm.add_argument("--d-model", type=int, default=256)
+    lm.add_argument("--layers", type=int, default=4)
+    lm.add_argument("--heads", type=int, default=8)
+    lm.add_argument("--steps", type=int, default=500,
+                    help="train until this iteration")
+    lm.add_argument("--lr", type=float, default=3e-4)
+    lm.add_argument("--solver-type", default="Adam")
+    lm.add_argument("--seed", type=int, default=0)
+    lm.add_argument("--display", type=int, default=50)
+    lm.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
+                    help="bf16: bf16 activations over f32 master params")
+    lm.add_argument("--no-flash", action="store_true",
+                    help="dense attention instead of the flash kernels")
+    lm.add_argument("--metrics", help="JSONL loss-curve output path")
+    lm.add_argument("--snapshot-every", type=int, default=0)
+    lm.add_argument("--snapshot-prefix")
+    lm.add_argument("--resume", help=".solverstate to resume from")
+    lm.add_argument("--device", default="cuda",
+                    help="torch device to train on (default cuda; the "
+                         "CPU runs only when asked: --device cpu)")
+    lm.set_defaults(fn=cmd_lm)
     args = p.parse_args(argv)
     return args.fn(args)

@@ -12,6 +12,9 @@ ForwardFromTo :565, loss weights):
     (``loss_fn`` + ``backward()``). Conv + bias + ReLU (+ cross-channel
     LRN) tails can run as one fused CUDA kernel, forward and backward
     (``_epilogue_plan``, SPARKNET_EPILOGUE).
+  * Mixed precision as in the JAX package: params stay f32 masters and
+    each layer casts them to its input's dtype, so activations take
+    ``compute_dtype`` where they are born from params alone (Embed).
   * Remat, scan-over-layers and fission are not ported.
 """
 
@@ -143,14 +146,19 @@ class CompiledNet:
 
     ``device`` defaults to the card and raises when there is none; pass
     ``device="cpu"`` to run on the CPU (the kernels' plain versions).
+
+    ``compute_dtype`` (e.g. torch.bfloat16) is the activations' dtype
+    over f32 params; None keeps them f32. The layers get this argument
+    and nothing else, so SPARKNET_PRECISION alone leaves a net's
+    activations in f32, as the JAX package's layers do.
     """
 
     def __init__(self, net_param, phase=TEST, feed_shapes=None, level=0,
-                 stages=(), device="cuda"):
+                 stages=(), device="cuda", compute_dtype=None):
         from .upgrade import upgrade_net
         net_param = upgrade_net(net_param)
         self.phase = phase
-        self.dtype = torch.float32     # params and activations: fp32 serving
+        self.dtype = torch.float32     # params (the f32 masters)
         self.device = resolve_device(device)
         self.net_param = filter_net(net_param, phase, level, stages)
         self.name = net_param.name
@@ -191,6 +199,7 @@ class CompiledNet:
                 impl = cls(lp, bshapes, phase, feed_shapes=feed_shapes)
             else:
                 impl = cls(lp, bshapes, phase)
+            impl.compute_dtype = compute_dtype
             tshapes = impl.out_shapes()
             if len(tops) < len(tshapes) and impl.loss_like:
                 # Caffe auto-top (net.cpp AppendTop): a LOSS layer may

@@ -1,0 +1,246 @@
+"""Flash attention: the hand-written CUDA kernels and their plain
+versions, forward and backward.
+
+The port of sparknet_tpu/ops/pallas_attention.py (flash_attention
+:286, _flash_forward :109, _flash_backward :237), on (B, H, S, D)
+tensors in float32 or bfloat16 with f32 arithmetic:
+
+    O      = softmax(scale * Q K^T [causal mask]) V,   LSE = m + log l
+    P_ij   = exp(scale * Q_i K_j^T - LSE_i)            (recomputed)
+    delta_i = rowsum(dO_i * O_i)
+    dS_ij  = P_ij * (dO_i V_j^T - delta_i)
+    dQ = scale * dS K,  dK = scale * dS^T Q,  dV = P^T dO
+
+Masked scores are -1e30 (never -inf) and l is floored at 1e-30, as in
+the JAX kernels; the forward scales Q before QK^T and the backward
+scales the product, as they do. LSE is stored (B*H, S), not
+lane-replicated. The backward computes delta once, in the dQ kernel,
+and hands it to the dK/dV kernel.
+
+``flash_attention`` is differentiable: for CUDA tensors its forward is
+csrc/flash_fwd.cu and its backward the two kernels of csrc/flash_bwd.cu
+(``flash_attention_dq``, then ``flash_attention_dkv``); for CPU tensors
+the plain versions below. Nothing else picks between them, and nothing
+falls back. ``flash_attention.launches``, ``flash_attention_dq.launches``
+and ``flash_attention_dkv.launches`` count kernel launches.
+"""
+
+import ctypes
+import math
+
+import torch
+
+from . import cuda_build
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)     # the head_dims the kernels are built for
+
+
+def default_scale(q, scale=None):
+    return scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+
+
+def _above_diagonal(s, device):
+    return torch.ones(s, s, dtype=torch.bool, device=device).triu(1)
+
+
+def flash_attention_fwd_plain(q, k, v, causal=False, scale=None):
+    """Plain PyTorch forward: (O in q.dtype, LSE (B*H, S) f32)."""
+    b, h, s, _ = q.shape
+    scale = default_scale(q, scale)
+    sc = (q.float() * scale) @ k.float().transpose(-1, -2)
+    if causal:
+        sc = sc.masked_fill(_above_diagonal(s, q.device), NEG_INF)
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = (p @ v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l)).reshape(b * h, s)
+
+
+def _probs(q, k, lse, causal, scale):
+    """P = exp(scale * Q K^T - LSE) in f32, masked entries exactly 0."""
+    b, h, s, _ = q.shape
+    sc = scale * (q.float() @ k.float().transpose(-1, -2))
+    if causal:
+        sc = sc.masked_fill(_above_diagonal(s, q.device), NEG_INF)
+    return torch.exp(sc - lse.reshape(b, h, s, 1))
+
+
+def flash_attention_dq_plain(q, k, v, o, lse, do, causal=False, scale=None):
+    """Plain PyTorch dQ: (dq in q.dtype, delta (B*H, S) f32)."""
+    b, h, s, _ = q.shape
+    scale = default_scale(q, scale)
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1)
+    ds = _probs(q, k, lse, causal, scale) * (
+        dof @ v.float().transpose(-1, -2) - delta[..., None])
+    return (scale * (ds @ k.float())).to(q.dtype), delta.reshape(b * h, s)
+
+
+def flash_attention_dkv_plain(q, k, v, do, lse, delta, causal=False,
+                              scale=None):
+    """Plain PyTorch dK and dV from delta (the dQ step's): (dk, dv)."""
+    b, h, s, _ = q.shape
+    scale = default_scale(q, scale)
+    dof = do.float()
+    p = _probs(q, k, lse, causal, scale)
+    dv = p.transpose(-1, -2) @ dof
+    ds = p * (dof @ v.float().transpose(-1, -2) - delta.reshape(b, h, s, 1))
+    dk = scale * (ds.transpose(-1, -2) @ q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None):
+    """Plain PyTorch backward, the FlashAttention-2 formulas with P
+    recomputed from the saved LSE: (dq, dk, dv)."""
+    dq, delta = flash_attention_dq_plain(q, k, v, o, lse, do, causal, scale)
+    dk, dv = flash_attention_dkv_plain(q, k, v, do, lse, delta, causal,
+                                       scale)
+    return dq, dk, dv
+
+
+# sparknet_flash_forward(q, k, v, o, lse, dtype, bh, seq, head_dim, scale,
+#                        causal, stream) in csrc/flash_fwd.cu
+_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# sparknet_flash_backward_dq(q, k, v, o, dout, lse, dq, delta, dtype, bh,
+#                            seq, head_dim, scale, causal, stream) and
+# sparknet_flash_backward_dkv(q, k, v, dout, lse, delta, dk, dv, ...)
+# in csrc/flash_bwd.cu
+_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def check_cuda_inputs(what, rows=(), **tensors):
+    """Raise ValueError on what the kernels do not take: tensors not on
+    one CUDA device, not 4-D (B, H, S, D) of one shape and dtype, not
+    contiguous, a dtype they were not built for (float32, bfloat16), a
+    head_dim outside HEAD_DIMS, more than 65535 (batch, head) pairs; and
+    per-row tensors ``rows`` (LSE, delta) not contiguous f32 (B*H, S)."""
+    ref = next(iter(tensors.values()))
+    for name, t in tensors.items():
+        if t.device.type != "cuda" or t.device != ref.device:
+            raise ValueError(f"{what}: {name} on {t.device}, want one cuda "
+                             "device")
+        if t.dim() != 4 or t.shape != ref.shape or t.dtype != ref.dtype:
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} {t.dtype}, "
+                             f"want (B, H, S, D) {tuple(ref.shape)} "
+                             f"{ref.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous (B, H, S, D)")
+    if ref.dtype not in cuda_build.DTYPE_CODES:
+        raise ValueError(f"{what}: dtype {ref.dtype} not built "
+                         "(float32, bfloat16)")
+    b, h, s, d = ref.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {d} not built {HEAD_DIMS}")
+    if b * h > cuda_build.MAX_GRID_Y:
+        raise ValueError(f"{what}: B*H = {b * h} > {cuda_build.MAX_GRID_Y}")
+    for t in rows:
+        if t.device != ref.device or t.dtype != torch.float32 \
+                or t.shape != (b * h, s) or not t.is_contiguous():
+            raise ValueError(f"{what}: per-row tensor {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}, want contiguous "
+                             f"float32 ({b * h}, {s}) on {ref.device}")
+
+
+def _launch(what, source, symbol, argtypes, ref, pointers, scale, causal):
+    b, h, s, d = ref.shape
+    fn = cuda_build.function(source, symbol, argtypes)
+    with torch.cuda.device(ref.device):
+        err = fn(*(t.data_ptr() for t in pointers),
+                 cuda_build.DTYPE_CODES[ref.dtype], b * h, s, d, scale,
+                 int(causal), cuda_build.stream_handle(ref.device))
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+
+def flash_attention_fwd(q, k, v, causal=False, scale=None):
+    """The forward on its own: (O, LSE) from the kernel for CUDA tensors,
+    from the plain version for CPU tensors."""
+    scale = default_scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, causal, scale)
+    check_cuda_inputs("flash_attention", q=q, k=k, v=v)
+    b, h, s, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(b * h, s, dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return o, lse
+    _launch("flash_attention", "flash_fwd", "sparknet_flash_forward",
+            _FWD_ARGTYPES, q, (q, k, v, o, lse), scale, causal)
+    flash_attention.launches += 1
+    return o, lse
+
+
+def flash_attention_dq(q, k, v, o, lse, do, causal=False, scale=None):
+    """dQ and delta: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    scale = default_scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_attention_dq_plain(q, k, v, o, lse, do, causal, scale)
+    check_cuda_inputs("flash_attention_dq", rows=(lse,), q=q, k=k, v=v, o=o,
+                      do=do)
+    b, h, s, _ = q.shape
+    dq = torch.empty_like(q)
+    delta = torch.empty(b * h, s, dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return dq, delta
+    _launch("flash_attention_dq", "flash_bwd", "sparknet_flash_backward_dq",
+            _BWD_ARGTYPES, q, (q, k, v, o, do, lse, dq, delta), scale, causal)
+    flash_attention_dq.launches += 1
+    return dq, delta
+
+
+def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
+    """dK and dV from delta (flash_attention_dq's): the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    scale = default_scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_attention_dkv_plain(q, k, v, do, lse, delta, causal,
+                                         scale)
+    check_cuda_inputs("flash_attention_dkv", rows=(lse, delta), q=q, k=k,
+                      v=v, do=do)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dk, dv
+    _launch("flash_attention_dkv", "flash_bwd", "sparknet_flash_backward_dkv",
+            _BWD_ARGTYPES, q, (q, k, v, do, lse, delta, dk, dv), scale,
+            causal)
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward saves q, k, v, O and LSE; the backward recomputes P
+    from LSE, as the JAX package's custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.flash = (causal, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, scale = ctx.flash
+        g = g.to(q.dtype).contiguous()
+        dq, delta = flash_attention_dq(q, k, v, o, lse, g, causal, scale)
+        dk, dv = flash_attention_dkv(q, k, v, g, lse, delta, causal, scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal=False, scale=None):
+    """Flash attention (B, H, S, D) -> (B, H, S, D), differentiable; scale
+    defaults to 1/sqrt(D). CUDA kernels on CUDA tensors, the plain
+    versions on CPU tensors."""
+    return _FlashAttention.apply(q, k, v, bool(causal),
+                                 float(default_scale(q, scale)))
+
+
+flash_attention.launches = 0
+flash_attention_dq.launches = 0
+flash_attention_dkv.launches = 0

@@ -24,7 +24,7 @@ import torch
 PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PACKAGE, "csrc")
 BUILD_DIR = os.path.join(PACKAGE, "_build")
-SOURCES = ("lrn", "epilogue", "lrn_bwd")
+SOURCES = ("lrn", "epilogue", "lrn_bwd", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,4 +1,4 @@
-"""Shape/structure layers on the serving path: Softmax, Concat, Flatten."""
+"""Shape/structure layers: Softmax, Concat, Flatten, Eltwise."""
 
 import numpy as np
 import torch
@@ -59,3 +59,42 @@ class Flatten(Layer):
 
     def apply(self, params, bottoms, train):
         return [bottoms[0].reshape(self.out_shapes()[0])]
+
+
+@register
+class Eltwise(Layer):
+    """Caffe eltwise_layer.cpp: PROD, SUM with per-bottom coeff (default
+    1), MAX."""
+
+    type_name = "Eltwise"
+
+    PROD, SUM, MAX = 0, 1, 2
+
+    def __init__(self, lp, bottom_shapes, phase):
+        super().__init__(lp, bottom_shapes, phase)
+        ep = lp.eltwise_param
+        self.op = int(ep.operation)
+        coeff = list(ep.coeff)
+        if coeff and len(coeff) != len(bottom_shapes):
+            raise ValueError("eltwise coeff count must equal bottom count")
+        self.coeff = coeff or [1.0] * len(bottom_shapes)
+
+    def out_shapes(self):
+        return [self.bottom_shapes[0]]
+
+    def apply(self, params, bottoms, train):
+        y = bottoms[0]
+        if self.op == self.PROD:
+            for b in bottoms[1:]:
+                y = y * b
+        elif self.op == self.SUM:
+            # a coefficient of 1 is exact: skip the multiply
+            terms = [b if c == 1.0 else c * b
+                     for c, b in zip(self.coeff, bottoms)]
+            y = terms[0]
+            for t in terms[1:]:
+                y = y + t
+        else:
+            for b in bottoms[1:]:
+                y = torch.maximum(y, b)
+        return [y]

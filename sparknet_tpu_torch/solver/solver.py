@@ -10,9 +10,11 @@ are Caffe's binaryproto .caffemodel + .solverstate pair under the
 crash-safe manifest of resilience/checkpoint.py, readable by the JAX
 package and back.
 
-Not ported (ROADMAP A5): the observability hooks, chaos, elastic,
-heartbeat, watchdog and staleness machinery, remat and scan knobs,
-debug_info and HDF5 snapshots.
+With ``metrics`` (a utils/metrics.py MetricsLogger) it writes the JAX
+Solver's "train" events at display points. Not ported (ROADMAP A6): its
+"test" events and other observability hooks, chaos, elastic, heartbeat,
+watchdog and staleness machinery, remat and scan knobs, debug_info and
+HDF5 snapshots.
 """
 
 import collections
@@ -70,15 +72,18 @@ class Solver:
     CompiledNet.feed_blobs() for the keys. ``device`` defaults to the
     card and raises when there is none; pass ``device="cpu"`` to train
     on the CPU (the kernels' plain versions). On the card it trains in
-    float32: resolve_device turns TF32 off."""
+    float32 (resolve_device turns TF32 off) unless ``compute_dtype``
+    (torch.bfloat16) asks for mixed precision: f32 master params, bf16
+    activations from the embedding on."""
 
     def __init__(self, solver_param, net_param=None, feed_shapes=None,
                  test_feed_shapes=None, base_dir="", device="cuda",
-                 log_fn=print):
+                 log_fn=print, metrics=None, compute_dtype=None):
         if solver_needs_type_upgrade(solver_param):
             solver_param = upgrade_solver(solver_param)
         self.param = solver_param
         self.log = log_fn or (lambda *a: None)
+        self.metrics = metrics
         self.device = resolve_device(device)
         train_np, test_np = resolve_nets(solver_param, base_dir, net_param)
         # NetState from the solver (Caffe solver.cpp InitTrainNet /
@@ -88,7 +93,8 @@ class Solver:
         self.net = CompiledNet(train_np, TRAIN, feed_shapes=feed_shapes,
                                level=int(ts.level) if ts else 0,
                                stages=tuple(ts.stage) if ts else (),
-                               device=self.device)
+                               device=self.device,
+                               compute_dtype=compute_dtype)
         self.test_net = None
         if test_np is not None:
             es = solver_param.test_state[0] \
@@ -99,7 +105,7 @@ class Solver:
                     feed_shapes=test_feed_shapes or feed_shapes,
                     level=int(es.level) if es else 0,
                     stages=tuple(es.stage) if es else (),
-                    device=self.device)
+                    device=self.device, compute_dtype=compute_dtype)
             except ValueError:
                 # a shared `net` whose data layer is TRAIN-only has no
                 # TEST-phase graph; without a test schedule Caffe never
@@ -190,12 +196,14 @@ class Solver:
         a fresh test batch iterator) and snapshot on the cadence."""
         sp = self.param
         iter_size = int(sp.iter_size)
+        t_last, it_last = time.time(), self.iter
         for _ in range(num_iters):
             if sp.test_interval and self.iter % sp.test_interval == 0 and \
                     (self.iter > 0 or sp.test_initialization) and \
                     self.test_net is not None and test_data_fn is not None:
                 for k, v in self.test(test_data_fn()).items():
                     self.log(f"    Test net output: {k} = {v}")
+                t_last, it_last = time.time(), self.iter
             if iter_size == 1:
                 batch = next(data_iter)
             else:
@@ -204,9 +212,18 @@ class Solver:
                          for k in micros[0]}
             self._smoothed.append(self.train_step(batch))
             if sp.display and (self.iter - 1) % sp.display == 0:
-                self.log(f"Iteration {self.iter - 1}, loss = "
-                         f"{self.smoothed_loss():.6g}, lr = "
-                         f"{self.lr_fn(self.iter - 1):.6g}")
+                sm, lr = self.smoothed_loss(), self.lr_fn(self.iter - 1)
+                self.log(f"Iteration {self.iter - 1}, loss = {sm:.6g}, "
+                         f"lr = {lr:.6g}")
+                if self.metrics:
+                    dt = time.time() - t_last
+                    bsz = next(iter(self.net.feed_shapes().values()), (0,))
+                    self.metrics.log(
+                        "train", iter=self.iter - 1, loss=sm, lr=lr,
+                        images_per_sec=round((self.iter - it_last)
+                                             * iter_size * bsz[0] / dt, 2)
+                        if dt > 0 and bsz else None)
+                    t_last, it_last = time.time(), self.iter
             if sp.snapshot and self.iter % sp.snapshot == 0 and \
                     sp.has("snapshot_prefix"):
                 self.snapshot()

@@ -10,13 +10,20 @@ shared with test_torch_kernels.py, which holds the plain versions
 against the JAX package's Pallas kernels on the CPU.
 
 Tolerance: rtol=1e-5, atol=1e-6 (f32 on both sides); the biases'
-gradients, sums over N*H*W elements, atol=1e-5.
+gradients, sums over N*H*W elements, atol=1e-5. Flash attention, of the
+largest reference element: f32 2e-5 forward and 5e-4 backward
+(tests/test_flash.py's limits), bf16 1e-2 (about 2.5 bf16 ulps at the
+top: both sides compute in f32 and round the outputs once, in another
+summation order); and, because causal outputs shrink along the sequence
+where that measure does not, each output's worst 64-row tile within
+FLASH_TILE_TOL of its own norm (chip_smoke.py's limits).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from sparknet_tpu_torch.ops import cuda_attention as ca
 from sparknet_tpu_torch.ops import cuda_build
 from sparknet_tpu_torch.ops import cuda_epilogue as ce
 from sparknet_tpu_torch.ops import cuda_lrn as cl
@@ -118,6 +125,105 @@ def test_backward_kernels_match_plain_on_card(cuda, shape, size, alpha, beta,
     rdx, rdb = ce.bias_relu_lrn_bwd_plain(x, b, g, size, alpha, beta, k)
     torch.testing.assert_close(dx, rdx, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(db, rdb, rtol=1e-5, atol=1e-5)
+
+
+FLASH_CASES = [
+    # (B, H, S, D): one tile, several, ragged last tiles, every head_dim
+    pytest.param((1, 2, 128, 64), id="S128-one-q-tile-pair"),
+    pytest.param((2, 3, 256, 16), id="D16"),
+    pytest.param((1, 2, 200, 128), id="D128-ragged-S200"),
+    pytest.param((2, 1, 77, 32), id="D32-ragged-S77"),
+    pytest.param((1, 1, 1, 64), id="S1"),
+]
+
+
+def _worst(got, ref):
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp_min(1e-30))
+
+
+FLASH_TILE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
+
+
+def _worst_tile(got, ref, rows=64):
+    """The worst tile's ||got - ref|| / ||ref|| over tiles of ``rows``
+    rows along S in each (b, h), the ragged last one included."""
+    b, h, s, d = ref.shape
+    pad = (-s) % rows
+
+    def tiles(t):
+        return torch.nn.functional.pad(t.float(), (0, 0, 0, pad)).reshape(
+            b * h, -1, rows * d)
+    r = tiles(ref)
+    return float(((tiles(got) - r).norm(dim=-1)
+                  / r.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", FLASH_CASES)
+def test_flash_kernels_match_plain_on_card(cuda, shape, causal, dtype):
+    rs = np.random.RandomState(31)
+    q, k, v, do = (torch.from_numpy(0.5 * rs.randn(*shape).astype(
+        np.float32)).to("cuda", dtype) for _ in range(4))
+    n0 = (ca.flash_attention.launches, ca.flash_attention_dq.launches,
+          ca.flash_attention_dkv.launches)
+    o, lse = ca.flash_attention_fwd(q, k, v, causal)
+    dq, delta = ca.flash_attention_dq(q, k, v, o, lse, do, causal)
+    dk, dv = ca.flash_attention_dkv(q, k, v, do, lse, delta, causal)
+    assert (ca.flash_attention.launches, ca.flash_attention_dq.launches,
+            ca.flash_attention_dkv.launches) == tuple(n + 1 for n in n0)
+    ro, rlse = ca.flash_attention_fwd_plain(q, k, v, causal)
+    rdq, rdelta = ca.flash_attention_dq_plain(q, k, v, o, lse, do, causal)
+    rdk, rdv = ca.flash_attention_dkv_plain(q, k, v, do, lse, rdelta, causal)
+    f32 = dtype == torch.float32
+    fwd_tol, bwd_tol = (2e-5, 5e-4) if f32 else (1e-2, 1e-2)
+    assert o.dtype == dtype and dq.dtype == dk.dtype == dv.dtype == dtype
+    assert _worst(o, ro) <= fwd_tol
+    assert _worst(lse, rlse) <= 2e-5
+    assert _worst(delta, rdelta) <= 2e-5
+    for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert bool(torch.isfinite(got).all())
+        assert _worst(got, ref) <= bwd_tol
+    if shape[2] > 1:       # at S = 1, P = 1 and dQ, dK are rounding noise
+        for got, ref in ((o, ro), (dq, rdq), (dk, rdk), (dv, rdv)):
+            assert _worst_tile(got, ref) <= FLASH_TILE_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_flash_autograd_on_card_matches_cpu(cuda):
+    rs = np.random.RandomState(32)
+    arrays = [0.5 * rs.randn(2, 2, 256, 64).astype(np.float32)
+              for _ in range(4)]
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        q, k, v, g = (torch.from_numpy(a).to(dev) for a in arrays)
+        for t in (q, k, v):
+            t.requires_grad_()
+        ca.flash_attention(q, k, v, True).backward(g)
+        grads[dev] = [t.grad.cpu() for t in (q, k, v)]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert _worst(a, b) <= 5e-4
+
+
+@pytest.mark.cuda
+def test_flash_refuses_what_it_was_not_built_for(cuda):
+    x = torch.randn(1, 2, 128, 64, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 96"):
+        y = torch.randn(1, 2, 128, 96, device="cuda")
+        ca.flash_attention_fwd(y, y, y)
+    with pytest.raises(ValueError, match="contiguous"):
+        ca.flash_attention_fwd(x.transpose(1, 2), x.transpose(1, 2),
+                               x.transpose(1, 2))
+    with pytest.raises(ValueError, match="not built"):
+        ca.flash_attention_fwd(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError, match="cuda"):
+        ca.flash_attention_fwd(x, x.cpu(), x)
+    o, lse = ca.flash_attention_fwd(x, x, x)
+    with pytest.raises(ValueError, match="per-row"):
+        ca.flash_attention_dq(x, x, x, o, lse[:1], x)
 
 
 @pytest.mark.cuda

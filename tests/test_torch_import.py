@@ -24,7 +24,10 @@ MODULES = [
     "sparknet_tpu_torch.resilience.checkpoint", "sparknet_tpu_torch.serve",
     "sparknet_tpu_torch.solver", "sparknet_tpu_torch.solver.solver",
     "sparknet_tpu_torch.solver.updates", "sparknet_tpu_torch.solver.lr_policy",
-    "sparknet_tpu_torch.solver.hdf5_io",
+    "sparknet_tpu_torch.solver.hdf5_io", "sparknet_tpu_torch.ops.attention",
+    "sparknet_tpu_torch.ops.cuda_attention",
+    "sparknet_tpu_torch.ops.normalization", "sparknet_tpu_torch.data",
+    "sparknet_tpu_torch.utils",
 ]
 
 
@@ -67,10 +70,13 @@ def test_port_sources_name_no_jax_import():
 
 def test_kernel_sources_ship_with_the_package():
     csrc = os.path.join(PORT, "csrc")
-    assert {"lrn.cu", "epilogue.cu", "lrn_bwd.cu", "channel_walk.cuh"} <= \
+    assert {"lrn.cu", "epilogue.cu", "lrn_bwd.cu", "channel_walk.cuh",
+            "flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"} <= \
         set(os.listdir(csrc))
-    for fn in ("lrn.cu", "epilogue.cu", "lrn_bwd.cu"):
+    for fn, bound in (("lrn.cu", "memory"), ("epilogue.cu", "memory"),
+                      ("lrn_bwd.cu", "memory"), ("flash_fwd.cu", "operations"),
+                      ("flash_bwd.cu", "operations")):
         with open(os.path.join(csrc, fn)) as f:
-            head = f.read(2000)
+            head = f.read(2500)
         # each kernel names the TPU kernel it replaces and its bound
-        assert "sparknet_tpu/ops/pallas_" in head and "memory" in head
+        assert "sparknet_tpu/ops/pallas_" in head and bound in head, fn

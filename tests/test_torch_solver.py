@@ -305,7 +305,8 @@ def test_cli_train_snapshots_and_resumes(tmp_path, capsys):
     assert last.startswith("Kernel launches: ")
     counts = json.loads(last[len("Kernel launches: "):])
     assert set(counts) == {"lrn_across", "lrn_across_bwd", "bias_relu_lrn",
-                           "bias_relu_lrn_bwd", "bias_relu"}
+                           "bias_relu_lrn_bwd", "bias_relu", "flash_attention",
+                           "flash_attention_dq", "flash_attention_dkv"}
     assert not any(counts.values())
 
 
