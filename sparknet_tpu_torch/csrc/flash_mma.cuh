@@ -1,0 +1,191 @@
+// Tensor-core building blocks of the bf16 flash-attention backward
+// (flash_bwd.cu): cp.async copies into bf16 shared-memory tiles, ldmatrix
+// fragment loads and the m16n8k16 bf16 mma with f32 accumulation.
+//
+// Tiles: 64 rows of D bf16 with a row stride of D + 8 (16 bytes of pad),
+// so the 8 rows an ldmatrix phase reads start on 8 distinct 16-byte bank
+// groups for every D in 16, 32, 64, 128: no bank conflicts.
+//
+// Fragments of mma.m16n8k16 (lane = 4 g + t, g in 0..7, t in 0..3):
+//   A (16x16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+//                         a3 (g+8, 2t+8..)
+//   B (16x8, k x n):      b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)
+//   C (16x8, f32):        c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
+// Two neighbouring C tiles (n 0-7, 8-15) packed to bf16 pairs are one A
+// fragment over k 0-15, which is how P and dS go from the accumulators
+// of one product straight into the next product.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace sparknet_flash {
+
+constexpr int kMmaThreads = 128;   // 4 warps, each 16 rows of the CTA's 64
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; src_bytes 0 writes zeros and
+// reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a b, one m16n8k16 product in bf16 with f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 -> one register of bf16 (round to nearest even), lo in the low
+// half: the element with the lower column index, as the fragments want
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Fragment addresses inside a tile of row stride LD (bf16 elements), for
+// this lane of an ldmatrix.x4:
+//  - a_frag: the A fragment of the 16x16 block at (r0, c0) of a row-major
+//    matrix;
+//  - b_frag: the B fragments of two n8 tiles (n0, n0 + 8) over k0..k0+15
+//    from a matrix stored [n][k] (regs 0, 1: n0; regs 2, 3: n0 + 8);
+//  - bt_frag: the same from a matrix stored [k][n], for ldmatrix .trans.
+template <int LD>
+__device__ __forceinline__ const __nv_bfloat16* a_frag(
+    const __nv_bfloat16* tile, int r0, int c0, int lane) {
+  return tile + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
+}
+
+template <int LD>
+__device__ __forceinline__ const __nv_bfloat16* b_frag(
+    const __nv_bfloat16* tile, int n0, int k0, int lane) {
+  return tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + k0 +
+         ((lane >> 3) & 1) * 8;
+}
+
+template <int LD>
+__device__ __forceinline__ const __nv_bfloat16* bt_frag(
+    const __nv_bfloat16* tile, int k0, int n0, int lane) {
+  return tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 +
+         (lane >> 4) * 8;
+}
+
+// Rows [row0, row0 + 64) of a (seq, D) bf16 matrix into a tile of row
+// stride D + 8 by 16-byte cp.async copies; rows at or past seq are
+// zero-filled. Every thread of the CTA takes part; the caller commits.
+template <int D>
+__device__ __forceinline__ void cp_async_tile(__nv_bfloat16* dst,
+                                              const __nv_bfloat16* src,
+                                              int row0, int seq) {
+  constexpr int kChunks = D / 8;           // 16-byte chunks per row
+  static_assert(64 * kChunks % kMmaThreads == 0, "D a multiple of 16");
+#pragma unroll
+  for (int it = 0; it < 64 * kChunks / kMmaThreads; ++it) {
+    const int i = threadIdx.x + it * kMmaThreads;
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const int g = row0 + r;
+    const bool in = g < seq;
+    cp_async16(dst + r * (D + 8) + c,
+               src + (in ? static_cast<long long>(g) * D + c : 0),
+               in ? 16 : 0);
+  }
+}
+
+// 64 f32 values [row0, row0 + 64) of a per-row vector; past seq: zeros
+__device__ __forceinline__ void cp_async_rows(float* dst, const float* src,
+                                              int row0, int seq) {
+  if (threadIdx.x < 64) {
+    const int g = row0 + threadIdx.x;
+    const bool in = g < seq;
+    cp_async4(dst + threadIdx.x, src + (in ? g : 0), in ? 4 : 0);
+  }
+}
+
+// sum of the products of 8 bf16 pairs, in f32
+__device__ __forceinline__ float dot8_bf16(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), v = __bfloat1622float2(y[i]);
+    s = fmaf(u.x, v.x, s);
+    s = fmaf(u.y, v.y, s);
+  }
+  return s;
+}
+
+// Opt the kernel in to `bytes` of dynamic shared memory with the largest
+// shared-memory carveout (so two CTAs of ~105 KB fit on an SM), launch it
+// on a (bh, ceil(seq / 64)) grid of kMmaThreads threads, and return the
+// launch's error code. The tile index is the slow grid axis, so every
+// (b, h) starts its tile 0 before any starts tile 1.
+template <typename Kernel, typename... Args>
+int launch_mma(Kernel kernel, int bh, int seq, size_t bytes,
+               cudaStream_t stream, Args... args) {
+  const int tiles = (seq + 63) / 64;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, tiles);
+  kernel<<<grid, kMmaThreads, bytes, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+}  // namespace sparknet_flash

@@ -3,7 +3,7 @@ versions, forward and backward.
 
 The port of sparknet_tpu/ops/pallas_attention.py (flash_attention
 :286, _flash_forward :109, _flash_backward :237), on (B, H, S, D)
-tensors in float32 or bfloat16 with f32 arithmetic:
+tensors in float32 or bfloat16:
 
     O      = softmax(scale * Q K^T [causal mask]) V,   LSE = m + log l
     P_ij   = exp(scale * Q_i K_j^T - LSE_i)            (recomputed)
@@ -16,6 +16,12 @@ the JAX kernels; the forward scales Q before QK^T and the backward
 scales the product, as they do. LSE is stored (B*H, S), not
 lane-replicated. The backward computes delta once, in the dQ kernel,
 and hands it to the dK/dV kernel.
+
+Arithmetic is f32 throughout, with one exception: for bfloat16 tensors
+the backward kernels run their products on the tensor cores and round P
+and dS to bfloat16 before the second products (dV = P^T dO, dQ = dS K,
+dK = dS^T Q), as the JAX kernels' default-precision dots do on the TPU;
+the plain versions keep them in f32 (csrc/flash_bwd.cu).
 
 ``flash_attention`` is differentiable: for CUDA tensors its forward is
 csrc/flash_fwd.cu and its backward the two kernels of csrc/flash_bwd.cu
@@ -115,9 +121,10 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
 def check_cuda_inputs(what, rows=(), **tensors):
     """Raise ValueError on what the kernels do not take: tensors not on
     one CUDA device, not 4-D (B, H, S, D) of one shape and dtype, not
-    contiguous, a dtype they were not built for (float32, bfloat16), a
-    head_dim outside HEAD_DIMS, more than 65535 (batch, head) pairs; and
-    per-row tensors ``rows`` (LSE, delta) not contiguous f32 (B*H, S)."""
+    contiguous or not 16-byte aligned, a dtype they were not built for
+    (float32, bfloat16), a head_dim outside HEAD_DIMS, more than 65535
+    (batch, head) pairs or 64-row tiles; and per-row tensors ``rows``
+    (LSE, delta) not contiguous f32 (B*H, S)."""
     ref = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != ref.device:
@@ -129,6 +136,9 @@ def check_cuda_inputs(what, rows=(), **tensors):
                              f"{ref.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous (B, H, S, D)")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start 16-byte aligned "
+                             "(the kernels copy 16-byte chunks)")
     if ref.dtype not in cuda_build.DTYPE_CODES:
         raise ValueError(f"{what}: dtype {ref.dtype} not built "
                          "(float32, bfloat16)")
@@ -137,6 +147,8 @@ def check_cuda_inputs(what, rows=(), **tensors):
         raise ValueError(f"{what}: head_dim {d} not built {HEAD_DIMS}")
     if b * h > cuda_build.MAX_GRID_Y:
         raise ValueError(f"{what}: B*H = {b * h} > {cuda_build.MAX_GRID_Y}")
+    if s > 64 * cuda_build.MAX_GRID_Y:
+        raise ValueError(f"{what}: S = {s} > {64 * cuda_build.MAX_GRID_Y}")
     for t in rows:
         if t.device != ref.device or t.dtype != torch.float32 \
                 or t.shape != (b * h, s) or not t.is_contiguous():

@@ -71,7 +71,8 @@ def test_port_sources_name_no_jax_import():
 def test_kernel_sources_ship_with_the_package():
     csrc = os.path.join(PORT, "csrc")
     assert {"lrn.cu", "epilogue.cu", "lrn_bwd.cu", "channel_walk.cuh",
-            "flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"} <= \
+            "flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh",
+            "flash_mma.cuh"} <= \
         set(os.listdir(csrc))
     for fn, bound in (("lrn.cu", "memory"), ("epilogue.cu", "memory"),
                       ("lrn_bwd.cu", "memory"), ("flash_fwd.cu", "operations"),
