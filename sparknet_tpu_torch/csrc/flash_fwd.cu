@@ -5,34 +5,71 @@
 //   O   = softmax(scale * Q K^T [causal mask]) V
 //   LSE = m + log(max(l, 1e-30))        per query row, f32
 // by the online-softmax recurrence: a running max m, denominator l and
-// unnormalised accumulator over 64-key tiles; Q is scaled as it is
-// staged (before QK^T, as the TPU kernel does); masked scores are -1e30;
-// O = acc / max(l, 1e-30). Storage f32 or bf16 (read into f32, only O
-// rounded back), head_dim 16, 32, 64 or 128, any sequence length (the
-// last tile is ragged and masked).
+// unnormalised accumulator over tiles of keys; masked scores are -1e30;
+// O = acc / max(l, 1e-30). Storage f32 or bf16, head_dim 16, 32, 64 or
+// 128, any sequence length (the last tile is ragged and masked).
 //
 // Bound on the H100: operations. One (b, h) at S = 4096, D = 128 causal
 // does 2 * 2 * S^2 * D / 2 = 4.3 GFLOP on 4 MB of bf16 q, k, v, o: ~1000
 // operations per byte, far above the card's balance.
 //
-// What the design does about it, for now: a CTA owns 64 query rows, keeps
-// Q in shared memory for its whole walk over the keys and streams K and V
-// through shared memory one 64-row tile at a time, so device memory sees
-// each K/V tile once per query tile and the (S, S) scores never leave the
-// SM; causal tiles above the diagonal are skipped. Each thread computes a
-// 4x4 block of scores and a 4 x D/16 block of O from shared memory on
-// the CUDA cores in f32. Known gap, left for a later change: no tensor
-// cores (wgmma), no TMA or pipelining of the next K/V tile, at most two
-// CTAs per SM at D = 128 (the tiles take 113 KB of shared memory).
+// bf16 storage (flash_fwd_wgmma_kernel): both products on the tensor
+// cores through wgmma (flash_wgmma.cuh). A CTA of two warpgroups owns 128
+// query rows of one (b, h), 64 per warpgroup (one m64 tile).
+//  - Loads: one thread issues TMA copies through 3-D tensor maps
+//    (D, S, B*H), so rows past S of one (b, h) arrive as zeros and never
+//    as the next head's rows. Q lands once; K and V follow in 128-key
+//    tiles through a ring of two stages, each completing on an mbarrier,
+//    so tile j + 1 is in flight while tile j is computed. 128-, 64- or
+//    32-byte swizzle (D = 64 and 128, 32, 16). Shared memory at D = 128:
+//    Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB, one CTA per SM.
+//  - S = Q K^T: m64n128k16 wgmma with both operands in shared memory
+//    (K-major: K stored [key][d] is already the B operand). S stays in
+//    f32 registers and is scaled there, by scale * log2(e) for exp2f: the
+//    TPU kernel scales Q in f32 before the product, which rounding
+//    scale * Q back to bf16 would not reproduce.
+//  - Online softmax in registers: a row's 128 scores sit in the 4 lanes of
+//    a quad, so its max is two shuffles; l sums the f32 p before any
+//    rounding, per lane, and the quad's parts are added at the end.
+//  - O += P V: m64nDk16 wgmma with P from registers, packed to bf16 A
+//    fragments straight from S's accumulators, and V stored [key][d] as
+//    the MN-major B operand (imm-trans-b = 1). P is rounded to bf16 here,
+//    as any tensor-core forward does; O is rounded once, at the end.
+//  - Causal: key tiles past the diagonal are skipped and the mask runs
+//    only on the tile that crosses it or S; the query tile is the slow
+//    grid axis, last tile first, so the longest CTAs start first.
+//  - Not yet: a producer warp with setmaxnreg (warp specialisation), the
+//    ping-pong of two warpgroups that puts one's softmax under the
+//    other's products, a persistent grid, and a TMA store of O. Both
+//    warpgroups wait at one barrier per key tile before its stage is
+//    refilled, so the tensor cores idle while both do their softmax.
+//  - Registers a thread, shared memory and CTAs per SM, as the runtime
+//    reports them on the H100 (sparknet_flash_forward_info, printed and
+//    checked by chip_smoke.py phase 6); no instantiation spills:
+//        D      16           32           64           128
+//               130 21 KB 1  138 42 KB 1  154 83 KB 1  186 161 KB 1
+//    At the LM's (4, 8, 4096, 128) causal: 0.39-0.40 ms, 341-351 TFLOP/s,
+//    1.2-1.5x F.scaled_dot_product_attention's time (PERF.md).
+//
+// f32 storage (flash_fwd_kernel) keeps CUDA-core products in f32 (the f32
+// limits, 2e-5 of the largest element, need f32 products): a CTA of 256
+// threads owns 64 query rows, Q scaled as it is staged in f32 shared
+// memory (row stride D + 1), K and V streamed one 64-row tile at a time,
+// a 4x4 block of scores and a 4 x D/16 block of O per thread. The storage
+// type picks the kernel and nothing else does.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
+#include "flash_wgmma.cuh"
 
 namespace sparknet_flash {
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int seq, float scale,
                      int causal) {
   extern __shared__ float smem[];
@@ -50,7 +87,7 @@ __global__ void __launch_bounds__(kThreads)
   o += base;
   lse += static_cast<long long>(blockIdx.y) * seq;
 
-  load_tile<T, D>(qs, q, q0, seq, scale);
+  load_tile<float, D>(qs, q, q0, seq, scale);
   float acc[4][NJ], m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -63,8 +100,8 @@ __global__ void __launch_bounds__(kThreads)
   const int k_end = causal ? min(seq, q0 + kBlockQ) : seq;
   for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
     __syncthreads();                 // the last tile's readers are done
-    load_tile<T, D>(ks, k, k0, seq, 1.f);
-    load_tile<T, D>(vs, v, k0, seq, 1.f);
+    load_tile<float, D>(ks, k, k0, seq, 1.f);
+    load_tile<float, D>(vs, v, k0, seq, 1.f);
     __syncthreads();
     float s[4][4] = {};
     tile_dot<D>(s, qs, ks, ty, tx);
@@ -103,11 +140,179 @@ __global__ void __launch_bounds__(kThreads)
     const float lc = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      o[static_cast<long long>(r) * D + tx + 16 * j] =
-          from_f32<T>(acc[i][j] / lc);
+      o[static_cast<long long>(r) * D + tx + 16 * j] = acc[i][j] / lc;
     if (tx == 0) lse[r] = m[i] + logf(lc);
   }
 }
+
+// bf16 storage: the tensor-core kernel (the note at the top).
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWgRows = 128;       // query rows per CTA, 64 per warpgroup
+constexpr int kWgKeys = 128;       // keys per tile
+constexpr int kWgThreads = 256;    // two warpgroups
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Shared-memory geometry at head_dim D (bytes; flash_wgmma.cuh)
+template <int D>
+struct WgTiles {
+  static constexpr int W = D < 64 ? D : 64;   // columns of a swizzle block
+  static constexpr int RB = 2 * W;            // its row: the swizzle bytes
+  static constexpr int BLOCK = 128 * RB;      // one block of a 128-row tile
+  static constexpr int TILE = 128 * D * 2;    // a 128-row tile of Q, K or V
+  static constexpr int SBO = 8 * RB;          // 8 rows
+  // Q, two stages of K and V, three mbarriers, 1024-byte alignment
+  static constexpr size_t kSmem = 5 * TILE + 64 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           bf16* __restrict__ o, float* __restrict__ lse,
+                           int seq, float scale, int causal) {
+  using L = WgTiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle atoms repeat every 1024 bytes: tiles start on that
+  const uint32_t qs = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t kv = qs + L::TILE;   // stage st: K at kv + 2 st TILE, V after
+  const uint32_t bars = kv + 4 * L::TILE;   // Q, stage 0, stage 1
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // causal: longest CTAs first
+  const int q0 = qt * kWgRows;
+  const int n_k = causal ? qt + 1 : gridDim.y;   // key tiles to walk
+
+  const CUtensorMap *mq = &tm_q, *mk = &tm_k, *mv = &tm_v;
+  auto load = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                  int row0) {
+#pragma unroll
+    for (int c = 0; c < D / L::W; ++c)
+      tma_load_3d(dst + c * L::BLOCK, map, bar, c * L::W, row0, bh);
+  };
+  auto load_kv = [&](int j) {
+    const uint32_t bar = bars + 8 + 8 * (j & 1);
+    const uint32_t dst = kv + (j & 1) * 2 * L::TILE;
+    mbar_expect_tx(bar, 2 * L::TILE);
+    load(dst, mk, bar, j * kWgKeys);
+    load(dst + L::TILE, mv, bar, j * kWgKeys);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bars, L::TILE);
+    load(qs, mq, bars, q0);
+    load_kv(0);
+    if (n_k > 1) load_kv(1);
+  }
+
+  const float sl2 = scale * kLog2e;
+  const int row = wg * 64 + warp * 16 + g;   // this thread's rows of the
+                                             // CTA's 128: row, row + 8
+  float acc[D / 2];                          // O, unnormalised
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // m in log2 units
+  mbar_wait(bars, 0);                        // Q has landed
+
+  for (int j = 0; j < n_k; ++j) {
+    const uint32_t ks = kv + (j & 1) * 2 * L::TILE, vs = ks + L::TILE;
+    mbar_wait(bars + 8 + 8 * (j & 1), (j >> 1) & 1);   // K, V of tile j
+    float s[64];                             // S: 64 rows x 128 keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16, blk = (c / L::W) * L::BLOCK, in = (c % L::W) * 2;
+      wgmma_ss_n128(
+          s, wgmma_desc(qs + blk + wg * 64 * L::RB + in, 16, L::SBO, L::RB),
+          wgmma_desc(ks + blk + in, 16, L::SBO, L::RB), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+
+    const int k0 = j * kWgKeys;
+    const bool edge = (causal && j == qt) || k0 + kWgKeys > seq;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int e = 0; e < 64; ++e) {
+      const int i = (e >> 1) & 1;
+      float x = s[e] * sl2;
+      if (edge) {
+        // a query row past seq is never stored: only keys are masked
+        const int c = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        if (c >= seq || (causal && c > q0 + row + 8 * i)) x = kNegInf;
+      }
+      s[e] = x;
+      mx[i] = fmaxf(mx[i], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 64; ++e) {
+      const int i = (e >> 1) & 1;
+      s[e] = exp2f(s[e] - m[i]);
+      sum[i] += s[e];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+    uint32_t pf[8][4];                       // P as A fragments, keys 16 kk..
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      pf[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_rs_tb<D>(
+          acc, pf[kk],
+          wgmma_desc(vs + kk * 16 * L::RB, L::BLOCK, L::SBO, L::RB));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    __syncthreads();                         // stage j & 1 is free
+    if (tid == 0 && j + 2 < n_k) load_kv(j + 2);
+  }
+
+  const long long r0 = static_cast<long long>(bh) * seq;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float lt = l[i] + __shfl_xor_sync(0xffffffffu, l[i], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int r = q0 + row + 8 * i;
+    if (r >= seq) continue;
+    const float lc = fmaxf(lt, 1e-30f);
+    bf16* orow = o + (r0 + r) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) =
+          pack_bf16(acc[4 * n + 2 * i] / lc, acc[4 * n + 2 * i + 1] / lc);
+    if (t == 0) lse[r0 + r] = m[i] * kLn2 + logf(lc);
+  }
+}
+
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, bf16>::value;
 
 struct ForwardLaunch {
   const void *q, *k, *v;
@@ -119,20 +324,87 @@ struct ForwardLaunch {
   cudaStream_t stream;
 
   template <typename T, int D>
+  static auto kernel() {
+    if constexpr (kTensorCores<T>)
+      return flash_fwd_wgmma_kernel<D>;
+    else
+      return flash_fwd_kernel<D>;
+  }
+
+  template <typename T, int D>
+  static size_t smem() {
+    if constexpr (kTensorCores<T>)
+      return WgTiles<D>::kSmem;
+    else
+      return sizeof(float) * ((kBlockQ + 2 * kBlockK) * (D + 1) +
+                              kBlockQ * kLP);
+  }
+
+  template <typename T, int D>
   int run() const {
-    const size_t bytes =
-        sizeof(float) * ((kBlockQ + 2 * kBlockK) * (D + 1) + kBlockQ * kLP);
-    return launch_tiles(flash_fwd_kernel<T, D>, bh, seq, bytes, stream,
-                        static_cast<const T*>(q), static_cast<const T*>(k),
-                        static_cast<const T*>(v), static_cast<T*>(o), lse,
-                        seq, scale, causal);
+    if constexpr (kTensorCores<T>) {
+      const int tiles = (seq + kWgRows - 1) / kWgRows;
+      if (tiles > 65535) return cudaErrorInvalidValue;
+      CUtensorMap maps[3];
+      const void* src[3] = {q, k, v};
+      for (int i = 0; i < 3; ++i) {
+        const cudaError_t err = rows_map(&maps[i], src[i], D, seq, bh, 128);
+        if (err != cudaSuccess) return err;
+      }
+      const auto fn = kernel<T, D>();
+      const size_t bytes = smem<T, D>();
+      const cudaError_t err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(bytes));
+      if (err != cudaSuccess) return err;
+      fn<<<dim3(bh, tiles), kWgThreads, bytes, stream>>>(
+          maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, seq, scale,
+          causal);
+      return cudaGetLastError();
+    } else {
+      return launch_tiles(kernel<T, D>(), bh, seq, smem<T, D>(), stream,
+                          static_cast<const float*>(q),
+                          static_cast<const float*>(k),
+                          static_cast<const float*>(v), static_cast<float*>(o),
+                          lse, seq, scale, causal);
+    }
+  }
+};
+
+// What the runtime says of the forward kernel for (dtype, head_dim):
+// registers a thread, local memory a thread (spills), dynamic shared
+// memory and resident CTAs per SM, into out[0..3].
+struct ForwardInfo {
+  int* out;
+
+  template <typename T, int D>
+  int run() const {
+    const auto fn = ForwardLaunch::kernel<T, D>();
+    const size_t bytes = ForwardLaunch::smem<T, D>();
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fn,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(bytes));
+    int ctas = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &ctas, fn, kTensorCores<T> ? kWgThreads : kThreads, bytes);
+    if (err != cudaSuccess) return err;
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.localSizeBytes);
+    out[2] = static_cast<int>(bytes);
+    out[3] = ctas;
+    return cudaSuccess;
   }
 };
 
 }  // namespace sparknet_flash
 
-// q, k, v, o: (bh, seq, head_dim) contiguous, dtype 0 = f32, 1 = bf16;
-// lse: (bh, seq) f32. Returns the CUDA error code of the launch.
+// q, k, v, o: (bh, seq, head_dim) contiguous, dtype 0 = f32, 1 = bf16
+// (16-byte aligned); lse: (bh, seq) f32. Returns the CUDA error code of
+// the launch.
 extern "C" int sparknet_flash_forward(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int dtype, int bh, int seq,
@@ -142,4 +414,13 @@ extern "C" int sparknet_flash_forward(const void* q, const void* k,
       q, k, v, o, static_cast<float*>(lse), bh, seq, scale, causal,
       static_cast<cudaStream_t>(stream)};
   return sparknet_flash::dispatch(dtype, head_dim, launch);
+}
+
+// The forward kernel for (dtype, head_dim): out[0] registers a thread,
+// out[1] local memory bytes a thread (spills), out[2] dynamic shared
+// memory bytes, out[3] resident CTAs per SM.
+extern "C" int sparknet_flash_forward_info(int dtype, int head_dim,
+                                           int* out) {
+  const sparknet_flash::ForwardInfo query{out};
+  return sparknet_flash::dispatch(dtype, head_dim, query);
 }

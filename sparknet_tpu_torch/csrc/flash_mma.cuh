@@ -1,6 +1,7 @@
 // Tensor-core building blocks of the bf16 flash-attention backward
 // (flash_bwd.cu): cp.async copies into bf16 shared-memory tiles, ldmatrix
-// fragment loads and the m16n8k16 bf16 mma with f32 accumulation.
+// fragment loads and the m16n8k16 bf16 mma with f32 accumulation. The
+// forward (flash_fwd.cu) takes smem_addr, pack_bf16 and kLog2e from here.
 //
 // Tiles: 64 rows of D bf16 with a row stride of D + 8 (16 bytes of pad),
 // so the 8 rows an ldmatrix phase reads start on 8 distinct 16-byte bank

@@ -17,11 +17,13 @@ scales the product, as they do. LSE is stored (B*H, S), not
 lane-replicated. The backward computes delta once, in the dQ kernel,
 and hands it to the dK/dV kernel.
 
-Arithmetic is f32 throughout, with one exception: for bfloat16 tensors
-the backward kernels run their products on the tensor cores and round P
-and dS to bfloat16 before the second products (dV = P^T dO, dQ = dS K,
-dK = dS^T Q), as the JAX kernels' default-precision dots do on the TPU;
-the plain versions keep them in f32 (csrc/flash_bwd.cu).
+For float32 tensors every kernel computes in f32 on the CUDA cores. For
+bfloat16 tensors every kernel runs its products on the tensor cores,
+with f32 sums, and rounds to bfloat16 what feeds a second product: P
+before O = P V in the forward (csrc/flash_fwd.cu, wgmma), P and dS
+before dV = P^T dO, dQ = dS K and dK = dS^T Q in the backward
+(csrc/flash_bwd.cu, mma.sync), as the JAX kernels' default-precision
+dots do on the TPU. The plain versions keep them in f32.
 
 ``flash_attention`` is differentiable: for CUDA tensors its forward is
 csrc/flash_fwd.cu and its backward the two kernels of csrc/flash_bwd.cu

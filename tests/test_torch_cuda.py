@@ -13,13 +13,12 @@ Tolerance: rtol=1e-5, atol=1e-6 (f32 on both sides); the biases'
 gradients, sums over N*H*W elements, atol=1e-5. Flash attention, of the
 largest reference element: f32 2e-5 forward and 5e-4 backward
 (tests/test_flash.py's limits), bf16 1e-2 (about 2.5 bf16 ulps at the
-top: the forward computes in f32 and rounds O once; the bf16 backward
-also rounds P and dS to bf16 before its second products); and, because
-causal outputs shrink along the sequence where that measure does not,
-each output's worst 64-row tile within FLASH_TILE_TOL (O) or
-FLASH_BWD_TILE_TOL (dQ, dK, dV) of its own norm (chip_smoke.py's
-limits; the bf16 backward's 5e-3 is sized in
-tests/test_torch_flash_rounding.py).
+top: the bf16 forward rounds P to bf16 before P V, the backward P and
+dS before its second products, and both round their outputs once);
+and, because causal outputs shrink along the sequence where that
+measure does not, each output's worst 64-row tile within FLASH_TILE_TOL
+(O) or FLASH_BWD_TILE_TOL (dQ, dK, dV) of its own norm (chip_smoke.py's
+limits; the bf16 5e-3 is sized in tests/test_torch_flash_rounding.py).
 """
 
 import numpy as np
@@ -138,6 +137,11 @@ FLASH_CASES = [
     pytest.param((1, 2, 512, 128), id="D128-S512-eight-tiles"),
     pytest.param((2, 1, 77, 32), id="D32-ragged-S77"),
     pytest.param((1, 1, 1, 64), id="S1"),
+] + [
+    # S = 1000 at every head_dim: the bf16 forward's last 128-row query
+    # and key tiles are 104 rows, the rest of the TMA box zero-filled
+    pytest.param((1, 2, 1000, d), id=f"D{d}-ragged-S1000")
+    for d in ca.HEAD_DIMS
 ]
 
 
@@ -146,7 +150,7 @@ def _worst(got, ref):
                  / ref.float().abs().max().clamp_min(1e-30))
 
 
-FLASH_TILE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}        # O
+FLASH_TILE_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}        # O
 FLASH_BWD_TILE_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}    # dQ..
 
 
@@ -228,6 +232,18 @@ def test_flash_bf16_backward_is_deterministic_on_card(cuda, causal):
         dk, dv = ca.flash_attention_dkv(q, k, v, do, lse, delta, causal)
         runs.append((dq, delta, dk, dv))
     for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_bf16_forward_is_deterministic_on_card(cuda, causal):
+    # no atomics: each O element and LSE row is summed by one warpgroup in
+    # a fixed order over the key tiles, launch after launch
+    q, k, v, _ = _flash_inputs((2, 4, 512, 128), torch.bfloat16, 35)
+    first = ca.flash_attention_fwd(q, k, v, causal)
+    second = ca.flash_attention_fwd(q, k, v, causal)
+    for a, b in zip(first, second):
         assert torch.equal(a, b)
 
 

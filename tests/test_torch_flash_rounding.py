@@ -1,17 +1,26 @@
-"""The rounding budget of the bf16 tensor-core flash backward, on the CPU.
+"""The rounding budget of the bf16 tensor-core flash kernels, on the CPU.
 
-csrc/flash_bwd.cu's bf16 kernels take bf16 q, k, v, dO; accumulate S and
-dP in f32; round P and dS to bf16 before the three second products
-(dV = P^T dO, dQ = scale dS K, dK = scale dS^T Q), which sum in f32; and
-round dQ, dK, dV to bf16 once. That is emulated here in plain PyTorch (f32
-products of bf16 values are exact, so f32 matmuls stand for the tensor
-cores up to summation order) and held against the plain versions
-(ops/cuda_attention.py, f32 throughout, outputs rounded once) at the
-measure chip_smoke.py holds the kernels to: each output's worst 64-row
-tile, as a share of that tile's norm. Every reading must lie under the
-card's limit of 5e-3 and above 1e-3 (the rounding of P and dS is real:
-rounding only the outputs reads ~2e-4), and both planted faults of
-chip_smoke.py must read above the limit.
+The backward: csrc/flash_bwd.cu's bf16 kernels take bf16 q, k, v, dO;
+accumulate S and dP in f32; round P and dS to bf16 before the three
+second products (dV = P^T dO, dQ = scale dS K, dK = scale dS^T Q), which
+sum in f32; and round dQ, dK, dV to bf16 once. That is emulated here in
+plain PyTorch (f32 products of bf16 values are exact, so f32 matmuls
+stand for the tensor cores up to summation order) and held against the
+plain versions (ops/cuda_attention.py, f32 throughout, outputs rounded
+once) at the measure chip_smoke.py holds the kernels to: each output's
+worst 64-row tile, as a share of that tile's norm. Every reading must
+lie under the card's limit of 5e-3 and above 1e-3 (the rounding of P and
+dS is real: rounding only the outputs reads ~2e-4), and both planted
+faults of chip_smoke.py must read above the limit.
+
+The forward: csrc/flash_fwd.cu's bf16 kernel computes S = Q K^T in f32
+from bf16 q, k; walks the keys in tiles of 128 with the online softmax
+(p = exp(s - m) in f32, summed unrounded into l); rounds P to bf16
+before O += P V, which sums in f32; and rounds O = acc / l to bf16 once.
+Emulated the same way, O's worst 64-row tile must lie under the card's
+limit of 5e-3 and above 1e-3 (rounding only O reads ~2e-4, since the
+plain version rounds O too), and both planted faults must read above
+the limit.
 """
 
 import numpy as np
@@ -21,6 +30,9 @@ import torch
 from sparknet_tpu_torch.ops import cuda_attention as ca
 
 BWD_TILE_LIMIT = 5e-3     # chip_smoke.FLASH_BWD_TILE_LIMIT["bfloat16"]
+FWD_TILE_LIMIT = 5e-3     # chip_smoke.FLASH_TILE_LIMIT["bfloat16"]
+SHAPES = [pytest.param((1, 2, 512, 128), id="S512-D128"),
+          pytest.param((2, 3, 256, 64), id="S256-D64")]
 
 
 def _worst_tile(got, ref, rows=64):
@@ -64,10 +76,48 @@ def _emulated_backward(q, k, v, o, lse, do, causal):
     return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
 
 
+def _emulated_forward(q, k, v, causal, tile=128):
+    """O with the bf16 forward kernel's rounding points, key tile by key
+    tile as the kernel walks them."""
+    b, h, s, d = q.shape
+    scale = ca.default_scale(q)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    m = torch.full((b, h, s, 1), ca.NEG_INF)
+    l = torch.zeros(b, h, s, 1)
+    acc = torch.zeros(b, h, s, d)
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, s, tile):
+        sc = scale * (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2))
+        if causal:
+            cols = torch.arange(k0, min(k0 + tile, s))[None, :]
+            sc = sc.masked_fill(cols > rows, ca.NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)                          # f32 p
+        l = l * alpha + p.sum(-1, keepdim=True)            # unrounded
+        pb = p.to(torch.bfloat16).float()                  # P rounded
+        acc = acc * alpha + pb @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_tensor_core_forward_rounding_fits_the_bf16_tile_limit(shape, causal):
+    rs = np.random.RandomState(43)
+    q, k, v = (torch.from_numpy(0.5 * rs.randn(*shape).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(3))
+    ro, _ = ca.flash_attention_fwd_plain(q, k, v, causal)
+    got = _emulated_forward(q, k, v, causal)
+    reading = _worst_tile(got, ro)
+    assert 1e-3 < reading < FWD_TILE_LIMIT, reading
+    for bad in _planted(got):
+        assert _worst_tile(bad, ro) > FWD_TILE_LIMIT
+
+
 @pytest.mark.parametrize("output", ["dq", "dk", "dv"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("shape", [(1, 2, 512, 128), (2, 3, 256, 64)],
-                         ids=["S512-D128", "S256-D64"])
+@pytest.mark.parametrize("shape", SHAPES)
 def test_tensor_core_rounding_fits_the_bf16_tile_limit(shape, causal, output):
     rs = np.random.RandomState(41)
     q, k, v, do = (torch.from_numpy(0.5 * rs.randn(*shape).astype(
