@@ -16,13 +16,20 @@ Phases, each of which raises on failure (exit code not 0):
  3. kernels — each kernel wrapper (the three forwards and the two
               LRN backwards) against its plain PyTorch version on the card
               at the serving (b8) and training (b32) shapes, f32 and bf16,
-              plus a ragged edge case: max errors against stated
-              limits, median kernel time over CUDA events with the L2
-              flushed between launches, the bound (bytes over 3.35 TB/s
-              or f32 operations over 67 TFLOP/s, whichever is larger), the
-              plain version's time and, where one PyTorch call computes the
-              same function, that call's time (for the LRN backward:
-              torch.autograd.grad of F.local_response_norm).
+              at CaffeNet's norm1 (256, 96, 27, 27) and norm2 (256, 256,
+              13, 13), and at the edge geometry of the tiled kernels (one
+              channel, 31 and 33 channels about a CTA's chunk of 32, H*W
+              = 323 and 729, the largest windows taken, a view at an odd
+              offset): max errors against stated limits, median kernel
+              time over CUDA events with the L2 flushed between launches
+              (the fused backward's without the wrapper's dbias sum),
+              the bound (bytes over 3.35 TB/s or f32 operations over 67
+              TFLOP/s, whichever is larger) and the kernel's share of it,
+              the plain version's time and, where one PyTorch call
+              computes the same function, that call's time (for the LRN
+              backward: torch.autograd.grad of F.local_response_norm);
+              and each launch's chunk and span, 16-byte or 4-byte path,
+              registers, shared memory and CTAs per SM (walk_info).
  4. serve   — full-width GoogLeNet (224x224, 1000 classes) with seeded
               random weights, written as a snapshot by the port's writer
               and served by the port's serve_http: requests of 1, 3, 8 and
@@ -55,8 +62,10 @@ Phases, each of which raises on failure (exit code not 0):
               two CTAs per SM at head_dim 128); then the three
               flash-attention kernels (forward, dQ, dK/dV) against their
               plain versions: f32 at (2, 4, 1024, 64), causal and not,
-              bf16 at (2, 4, 1024, 128) full and (2, 4, 1024, 64) causal,
-              and bf16 at the LM's full width (4, 8, 4096, 128), causal;
+              bf16 at (2, 4, 1024, 128) full, (2, 4, 1024, 64) causal
+              and (2, 4, 1024, 96) causal (a head_dim that is not built,
+              zero-padded to 128), and bf16 at the LM's full width (4, 8,
+              4096, 128), causal;
               each output's worst 64-row tile against f32 1e-4 and bf16
               5e-3 of that tile's norm (a measure that does not shrink
               along the sequence as causal outputs do; the bf16 kernels
@@ -85,10 +94,11 @@ Phases, each of which raises on failure (exit code not 0):
               from one snapshot (losses and weight changes), with controls
               (the CPU on one thread must pass; the dQ kernel's output
               zeroed and the dK/dV kernel's output zeroed must fail).
- 8. the kernel table as one JSON line (launches from the serving path
-    for the GoogLeNet forwards, the training path for their backwards,
-    the lm verb's first run for the flash kernels), the nvidia-smi line,
-    and as the last line {"ok": true, "device": {...}}.
+ 8. the kernel table as one JSON line, an entry for every timed f32
+    row of phase 3 and the LM's flash row of phase 6 (launches from the
+    serving path for the GoogLeNet forwards, the training path for their
+    backwards, the lm verb's first run for the flash kernels), the
+    nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -159,7 +169,10 @@ def phase_build():
 
 class Timer:
     """Median time of ``fn`` over CUDA events; with ``flush`` the L2
-    cache (50 MB) is flushed by a 96 MB write before every launch."""
+    cache (50 MB) is flushed by a 96 MB write before every launch, and
+    the card then spins ~0.3 ms (torch.cuda._sleep) so that it is still
+    busy while the host enqueues the start event and ``fn``'s kernels:
+    the time is the device's, not the host's launch path."""
 
     def __init__(self, torch, reps=30, flush=True):
         self.torch = torch
@@ -175,6 +188,7 @@ class Timer:
         for _ in range(self.reps):
             if self.flush is not None:
                 self.flush.zero_()
+                torch.cuda._sleep(500_000)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -207,6 +221,12 @@ def _errors(torch, got, ref, floor=None):
     return float(diff.max()), rel, ok, what
 
 
+# each channel-walk wrapper -> (csrc/<source>.cu, the entry's variant flag)
+WALKS = {"lrn_across": ("lrn", 0), "bias_relu": ("epilogue", 0),
+         "bias_relu_lrn": ("epilogue", 1), "lrn_across_bwd": ("lrn_bwd", 0),
+         "bias_relu_lrn_bwd": ("lrn_bwd", 1)}
+
+
 def phase_kernels(torch):
     """Each kernel against its plain version at the serving shapes (b8)
     and the training shapes (b32), f32 and bf16, plus a ragged edge case.
@@ -216,6 +236,7 @@ def phase_kernels(torch):
     rounding of either; its limit is therefore taken of the larger of
     |dx| and |g|*k^-beta, which bounds the first term (s >= k)."""
     import torch.nn.functional as F
+    from sparknet_tpu_torch.ops import cuda_build
     from sparknet_tpu_torch.ops import cuda_epilogue as ce
     from sparknet_tpu_torch.ops import cuda_lrn as cl
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -226,6 +247,9 @@ def phase_kernels(torch):
     def randn(shape, dtype=torch.float32, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device="cuda")
                 ).to(dtype)
+
+    def floor(g, p):
+        return g.abs().float() * p["k"] ** -p["beta"]
 
     def lrn_lib_fwd(x, p):
         return lambda: F.local_response_norm(x, p["size"], p["alpha"],
@@ -244,9 +268,6 @@ def phase_kernels(torch):
                 return torch.autograd.grad(y, xl, g, retain_graph=True)[0]
         return run
 
-    def floor(g, p):
-        return g.abs().float() * p["k"] ** -p["beta"]
-
     cases = []
 
     def lrn_fwd(x, p, row=False, edge_case=False):
@@ -256,14 +277,15 @@ def phase_kernels(torch):
             plain=lambda: cl.lrn_across_plain(x, **p),
             library=None if edge_case else lrn_lib_fwd(x, p),
             inputs=[x], ops_per_elem=2 * p["size"] + 4, row=row,
-            edge=edge_case))
+            edge=edge_case, size=p["size"]))
 
-    def brl_fwd(x, b, p, row=False):
+    def brl_fwd(x, b, p, row=False, edge_case=False):
         cases.append(dict(
             name="bias_relu_lrn", x=x, dtype=x.dtype,
             kernel=lambda: ce.bias_relu_lrn(x, b, **p),
             plain=lambda: ce.bias_relu_lrn_plain(x, b, **p), library=None,
-            inputs=[x, b], ops_per_elem=2 * p["size"] + 6, row=row))
+            inputs=[x, b], ops_per_elem=2 * p["size"] + 6, row=row,
+            edge=edge_case, size=p["size"]))
 
     def lrn_bwd(x, g, p, row=False, edge_case=False):
         cases.append(dict(
@@ -272,40 +294,80 @@ def phase_kernels(torch):
             plain=lambda: cl.lrn_across_bwd_plain(x, g, **p),
             library=None if edge_case else lrn_lib_bwd(x, g, p),
             inputs=[x, g], ops_per_elem=3 * p["size"] + 10, row=row,
-            edge=edge_case, floor=floor(g, p)))
+            edge=edge_case, floor=floor(g, p), size=p["size"]))
 
     def brl_bwd(x, b, g, p, row=False, edge_case=False):
+        bk = b.to(x.dtype).contiguous()     # as the wrapper passes it
         cases.append(dict(
             name="bias_relu_lrn_bwd", x=x, dtype=x.dtype,
             kernel=lambda: ce.bias_relu_lrn_bwd(x, b, g, **p)[0],
+            # timed: dx alone, without the wrapper's dbias sum
+            timed=lambda: cl.launch_lrn_backward(
+                x, bk, g, p["size"], p["alpha"], p["beta"], p["k"],
+                "bias_relu_lrn_bwd"),
             plain=lambda: ce.bias_relu_lrn_bwd_plain(x, b, g, **p)[0],
             library=None, inputs=[x, b, g],
             ops_per_elem=3 * p["size"] + 12, row=row, edge=edge_case,
-            floor=floor(g, p)))
+            floor=floor(g, p), size=p["size"]))
+
+    def bias_relu(x, b, row=False, edge_case=False):
+        cases.append(dict(
+            name="bias_relu", x=x, dtype=x.dtype,
+            kernel=lambda: ce.bias_relu(x, b),
+            plain=lambda: ce.bias_relu_plain(x, b), library=None,
+            inputs=[x, b], ops_per_elem=2, row=row, edge=edge_case))
+
+    def at_offset(t):
+        """a contiguous view of t one element into a larger buffer: its
+        rows are not 16-byte aligned"""
+        buf = torch.empty(t.numel() + 1, device="cuda", dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
 
     for dtype in (torch.float32, torch.bfloat16):
         f32 = dtype == torch.float32
         lrn_fwd(randn((8, 64, 56, 56), dtype), lrn_p, row=f32)   # serving
-        lrn_fwd(randn((32, 64, 56, 56), dtype), lrn_p)           # training
+        lrn_fwd(randn((32, 64, 56, 56), dtype), lrn_p, row=f32)  # training
         x, g = randn((32, 64, 56, 56), dtype), randn((32, 64, 56, 56), dtype)
         lrn_bwd(x, g, lrn_p, row=f32)
         x2, b2 = randn((32, 192, 56, 56), dtype), randn((192,), scale=0.5)
         g2 = randn((32, 192, 56, 56), dtype)
         brl_bwd(x2, b2, g2, lrn_p, row=f32)
-    xe, ge = randn((3, 3, 17, 19), scale=3.0), randn((3, 3, 17, 19))
-    be = randn((3,), scale=0.5)
-    lrn_fwd(xe, edge, edge_case=True)        # C < n, H*W = 323 ragged
-    lrn_bwd(xe, ge, edge, edge_case=True)
-    brl_bwd(xe, be, ge, edge, edge_case=True)
+        # CaffeNet's norm1 and norm2 at the ImageNet app's batch (256):
+        # H*W = 729 and 169 take the kernels' scalar path
+        for shape in ((256, 96, 27, 27), (256, 256, 13, 13)):
+            x3 = randn(shape, dtype)
+            lrn_fwd(x3, lrn_p, row=f32)
+            if f32:
+                lrn_bwd(x3, randn(shape, dtype), lrn_p, row=True)
+        # the edge geometry: one channel, a CTA's 32-channel chunk less and
+        # more one, H*W not a multiple of 4 (323, 729), the largest windows
+        # taken, and a contiguous view at an odd offset
+        for shape, p in (((3, 3, 17, 19), edge), ((4, 1, 56, 56), lrn_p),
+                         ((4, 31, 28, 28), lrn_p), ((4, 33, 27, 27), edge)):
+            xe, ge = randn(shape, dtype, 3.0), randn(shape, dtype)
+            be = randn(shape[1:2], scale=0.5)
+            lrn_fwd(xe, p, edge_case=True)
+            lrn_bwd(xe, ge, p, edge_case=True)
+            brl_fwd(xe, be, p, edge_case=True)
+            brl_bwd(xe, be, ge, p, edge_case=True)
+        xe, ge = randn((2, 8, 13, 13), dtype, 3.0), randn((2, 8, 13, 13), dtype)
+        lrn_fwd(xe, dict(edge, size=cuda_build.MAX_WINDOW), edge_case=True)
+        lrn_bwd(xe, ge, dict(edge, size=cuda_build.MAX_WINDOW_BWD),
+                edge_case=True)
+        xe = at_offset(randn((4, 40, 56, 56), dtype, 3.0))
+        ge = at_offset(randn((4, 40, 56, 56), dtype))
+        be = randn((40,), scale=0.5)
+        lrn_fwd(xe, edge, edge_case=True)
+        lrn_bwd(xe, ge, edge, edge_case=True)
+        brl_fwd(xe, be, edge, edge_case=True)
+        brl_bwd(xe, be, ge, edge, edge_case=True)
+        bias_relu(xe, be, edge_case=True)
     x2, b2 = randn((8, 192, 56, 56)), randn((192,), scale=0.5)
     brl_fwd(x2, b2, lrn_p, row=True)                        # serving
-    brl_fwd(randn((32, 192, 56, 56)), b2, lrn_p)            # training
-    x1, b1 = randn((8, 64, 112, 112)), randn((64,), scale=0.5)
-    cases.append(dict(
-        name="bias_relu", x=x1, dtype=torch.float32,
-        kernel=lambda: ce.bias_relu(x1, b1),
-        plain=lambda: ce.bias_relu_plain(x1, b1), library=None,
-        inputs=[x1, b1], ops_per_elem=2, row=True))
+    brl_fwd(randn((32, 192, 56, 56)), b2, lrn_p, row=True)  # training
+    bias_relu(randn((8, 64, 112, 112)), randn((64,), scale=0.5), row=True)
 
     results = []
     with torch.no_grad():
@@ -320,6 +382,12 @@ def phase_kernels(torch):
                   f"{c['name']}: non-finite output")
             abs_err, rel_err, ok, limit = _errors(torch, got, ref,
                                                   c.get("floor"))
+            source, variant = WALKS[c["name"]]
+            aligned = all(t.data_ptr() % 16 == 0 for t in c["inputs"]
+                          if t.dim() == 4)
+            walk = cuda_build.walk_info(
+                source, c["dtype"], variant, c["x"].shape[1],
+                c["x"].shape[2] * c["x"].shape[3], c.get("size", 1), aligned)
             out_bytes = got.numel() * got.element_size()
             in_bytes = sum(t.numel() * t.element_size() for t in c["inputs"])
             nbytes = in_bytes + out_bytes
@@ -330,17 +398,27 @@ def phase_kernels(torch):
                 name=c["name"], shape=list(c["x"].shape),
                 dtype=str(c["dtype"]).replace("torch.", ""),
                 max_abs_err=abs_err, max_rel_err=rel_err, limit=limit,
-                ms=timer(c["kernel"]), plain_ms=timer(c["plain"]),
+                ms=timer(c.get("timed", c["kernel"])),
+                plain_ms=timer(c["plain"]),
                 library_ms=timer(c["library"]) if c["library"] else None,
                 bytes=nbytes, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                edge=c.get("edge", False), row=c["row"])
-            print(f"[kernels] {r['name']} {r['shape']} {r['dtype']}: "
+                edge=c.get("edge", False), row=c["row"], size=c.get("size"),
+                aligned=aligned, **walk)
+            r["bound_share"] = r["bound_ms"] / r["ms"]
+            print(f"[kernels] {r['name']} {r['shape']} {r['dtype']} size "
+                  f"{r['size']}{'' if aligned else ' (unaligned)'}: "
                   f"max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} "
                   f"(limit {limit}: {'ok' if ok else 'FAIL'}) | kernel "
                   f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
                   f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}, {nbytes / 1e6:.1f} MB)")
+                  f"({r['bound_by']}, {nbytes / 1e6:.1f} MB; "
+                  f"{100 * r['bound_share']:.1f}% of it) | chunk "
+                  f"{walk['chunk']} x {walk['chunks']}, span {walk['span']} "
+                  f"x {walk['spans']}, {'16-byte' if walk['vec'] else '4-byte'}"
+                  f" path, {walk['registers']} registers, "
+                  f"{walk['smem_bytes']} B shared, {walk['ctas_per_sm']} CTAs "
+                  f"per SM, {walk['local_bytes']} B spilled")
             check(ok, f"{c['name']} {r['shape']} {r['dtype']} disagrees "
                       f"with its plain version beyond {limit}")
             results.append(r)
@@ -938,6 +1016,8 @@ def phase_flash_kernels(torch):
             ((2, 4, 1024, 64), torch.float32, True, False),
             ((2, 4, 1024, 128), torch.bfloat16, False, False),
             ((2, 4, 1024, 64), torch.bfloat16, True, False),
+            # head_dim 96 is not built: zero-padded to 128
+            ((2, 4, 1024, 96), torch.bfloat16, True, False),
             ((4, 8, 4096, 128), torch.bfloat16, True, True)):
         q, k, v, do = ((0.5 * torch.randn(shape, generator=gen,
                                           device="cuda")).to(dtype)
@@ -1432,19 +1512,22 @@ def main():
              "lm verb": lm_cli["launches"]}
     table = []
     for name, (source, replaces, path) in KERNELS.items():
-        r = next(r for r in results + flash if r["name"] == name and r["row"])
-        table.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": paths[path][name],
-            "launches_path": path,
-            "launches_train": trained["launches"]["auto"][name],
-            "launches_lm_step": lm_step["launches"][name],
-            "shape": r["shape"], "dtype": r["dtype"],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("tflops", "registers", "smem_bytes",
-                                 "ctas_per_sm") if k in r}})
+        rows = [r for r in results + flash if r["name"] == name and r["row"]]
+        check(rows, f"no timed row of {name}")
+        for r in rows:          # one entry per timed shape of the kernel
+            table.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": paths[path][name],
+                "launches_path": path,
+                "launches_train": trained["launches"]["auto"][name],
+                "launches_lm_step": lm_step["launches"][name],
+                "shape": r["shape"], "dtype": r["dtype"],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                **{k: r[k] for k in ("tflops", "registers", "smem_bytes",
+                                     "ctas_per_sm", "bound_share")
+                   if k in r}})
     print("[details] " + json.dumps({
         "card": card, "cases": results, "flash_cases": flash,
         "serve": {k: served[k] for k in ("per_bucket_ms", "images_per_s_b8",

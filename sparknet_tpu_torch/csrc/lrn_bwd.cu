@@ -8,7 +8,7 @@
 //   dv    = g * scale^-beta
 //         - (2*alpha*beta/size) * v * sum_{mirrored window} g*v*scale^(-beta-1)
 // recomputing scale from v instead of reading a saved one. One template,
-// channel_walk_bwd<T, kBiasRelu> in channel_walk.cuh, gives both
+// channel_walk_bwd<T, kBiasRelu, kVec> in channel_walk.cuh, gives both
 // instantiations:
 //   (a) kBiasRelu false: v = x; writes dx = dv             (_call_bwd)
 //   (b) kBiasRelu true:  v = y = max(x + b, 0), rounded to the storage type
@@ -23,14 +23,38 @@
 // 77.1 MB, 0.023 ms at 3.35 TB/s; conv2/norm2's fused site,
 // (32, 192, 56, 56), moves 231.2 MB, 0.069 ms (the bias is C values).
 //
-// What the design does about it: one thread per (n, h*w) column walks the
-// channels, so every warp access is one coalesced line along H*W and each
-// element of x and g is read once; the windows of v, t and g*scale^-beta
-// live in per-thread shared-memory rings (channel_walk.cuh). Known gaps,
-// left for a later change: no vector loads or TMA, and no channel split,
-// so small H*W at small batch under-fills the 132 SMs.
+// What the design does about it (channel_walk.cuh): a CTA owns up to 32
+// output channels of one image over up to 128 columns. It stages v with a
+// halo of size - 1 rows on each side and g with the mirrored window's,
+// all in flight at once through cp.async (16-byte copies wherever the
+// addresses allow it), then makes two passes over shared memory: scale,
+// one power (p = scale^-beta as exp2(-beta log2 scale) on the special
+// function unit, scale^(-beta-1) = p / scale) and t for every g row, then
+// dx for its own channels, stored 16 bytes a thread on the vector path.
+// At size 5 the halo is 8 + 4 extra rows for 32 (19% more reads, most of
+// them L2 hits). The tiles (74 KB at f32, size 5) allow three CTAs an
+// SM and one tile each in flight; the persistent grid keeps them busy.
+// No atomics: two launches give the same bits.
 
 #include "channel_walk.cuh"
+
+namespace {
+
+template <typename T>
+int lrn_backward(const void* x, const void* bias, const void* g, void* dx,
+                 int bias_relu, int n, int channels, long long hw, int size,
+                 float alpha_over_size, float beta, float k, float coeff,
+                 cudaStream_t s, int aligned = -1, int* info = nullptr) {
+  return bias_relu
+             ? sparknet::channel_walk_bwd_entry<T, true>(
+                   x, bias, g, dx, n, channels, hw, size, alpha_over_size,
+                   beta, k, coeff, s, aligned, info)
+             : sparknet::channel_walk_bwd_entry<T, false>(
+                   x, bias, g, dx, n, channels, hw, size, alpha_over_size,
+                   beta, k, coeff, s, aligned, info);
+}
+
+}  // namespace
 
 extern "C" int sparknet_lrn_backward(const void* x, const void* bias,
                                      const void* g, void* dx, int dtype,
@@ -40,20 +64,28 @@ extern "C" int sparknet_lrn_backward(const void* x, const void* bias,
                                      float k, float coeff, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return bias_relu
-               ? sparknet::launch_channel_walk_bwd<float, true>(
-                     x, bias, g, dx, n, channels, hw, size, alpha_over_size,
-                     beta, k, coeff, s)
-               : sparknet::launch_channel_walk_bwd<float, false>(
-                     x, bias, g, dx, n, channels, hw, size, alpha_over_size,
-                     beta, k, coeff, s);
+    return lrn_backward<float>(x, bias, g, dx, bias_relu, n, channels, hw,
+                               size, alpha_over_size, beta, k, coeff, s);
   if (dtype == 1)
-    return bias_relu
-               ? sparknet::launch_channel_walk_bwd<__nv_bfloat16, true>(
-                     x, bias, g, dx, n, channels, hw, size, alpha_over_size,
-                     beta, k, coeff, s)
-               : sparknet::launch_channel_walk_bwd<__nv_bfloat16, false>(
-                     x, bias, g, dx, n, channels, hw, size, alpha_over_size,
-                     beta, k, coeff, s);
+    return lrn_backward<__nv_bfloat16>(x, bias, g, dx, bias_relu, n,
+                                       channels, hw, size, alpha_over_size,
+                                       beta, k, coeff, s);
+  return cudaErrorInvalidValue;
+}
+
+// The geometry, registers, shared memory and CTAs per SM of the launch
+// above for this shape, on the vector path or not (walk_info). variant:
+// bias_relu.
+extern "C" int sparknet_lrn_bwd_info(int dtype, int variant, int channels,
+                                     long long hw, int size, int aligned,
+                                     int* out) {
+  if (dtype == 0)
+    return lrn_backward<float>(nullptr, nullptr, nullptr, nullptr, variant, 1,
+                               channels, hw, size, 0.f, 0.f, 0.f, 0.f,
+                               nullptr, aligned, out);
+  if (dtype == 1)
+    return lrn_backward<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr,
+                                       variant, 1, channels, hw, size, 0.f,
+                                       0.f, 0.f, 0.f, nullptr, aligned, out);
   return cudaErrorInvalidValue;
 }

@@ -25,6 +25,12 @@ before dV = P^T dO, dQ = dS K and dK = dS^T Q in the backward
 (csrc/flash_bwd.cu, mma.sync), as the JAX kernels' default-precision
 dots do on the TPU. The plain versions keep them in f32.
 
+A head_dim D <= 128 that the kernels were not built for (``HEAD_DIMS``)
+runs through the next built one: Q, K, V (and O, dO) are zero-padded to
+it and the outputs sliced back. That is exact: zero columns add nothing
+to Q K^T or to rowsum(dO * O), and give zero columns of O, dQ, dK and dV.
+The scale stays 1/sqrt(D) of the true D.
+
 ``flash_attention`` is differentiable: for CUDA tensors its forward is
 csrc/flash_fwd.cu and its backward the two kernels of csrc/flash_bwd.cu
 (``flash_attention_dq``, then ``flash_attention_dkv``); for CPU tensors
@@ -46,6 +52,22 @@ HEAD_DIMS = (16, 32, 64, 128)     # the head_dims the kernels are built for
 
 def default_scale(q, scale=None):
     return scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+
+
+def built_head_dim(d):
+    """The head_dim of the kernels that take D = ``d``: the smallest of
+    ``HEAD_DIMS`` at least ``d``."""
+    for b in HEAD_DIMS:
+        if d <= b:
+            return b
+    raise ValueError(f"head_dim {d} > {HEAD_DIMS[-1]}: not built "
+                     f"{HEAD_DIMS}")
+
+
+def pad_head_dim(tensors, d):
+    """Each of ``tensors`` zero-padded along its last dim to ``d``."""
+    return [t if t.shape[-1] == d else
+            torch.nn.functional.pad(t, (0, d - t.shape[-1])) for t in tensors]
 
 
 def _above_diagonal(s, device):
@@ -124,9 +146,9 @@ def check_cuda_inputs(what, rows=(), **tensors):
     """Raise ValueError on what the kernels do not take: tensors not on
     one CUDA device, not 4-D (B, H, S, D) of one shape and dtype, not
     contiguous or not 16-byte aligned, a dtype they were not built for
-    (float32, bfloat16), a head_dim outside HEAD_DIMS, more than 65535
-    (batch, head) pairs or 64-row tiles; and per-row tensors ``rows``
-    (LSE, delta) not contiguous f32 (B*H, S)."""
+    (float32, bfloat16), a head_dim above 128, more than 65535 (batch,
+    head) pairs or 64-row tiles; and per-row tensors ``rows`` (LSE,
+    delta) not contiguous f32 (B*H, S)."""
     ref = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != ref.device:
@@ -145,8 +167,9 @@ def check_cuda_inputs(what, rows=(), **tensors):
         raise ValueError(f"{what}: dtype {ref.dtype} not built "
                          "(float32, bfloat16)")
     b, h, s, d = ref.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {d} not built {HEAD_DIMS}")
+    if d > HEAD_DIMS[-1]:
+        raise ValueError(f"{what}: head_dim {d} > {HEAD_DIMS[-1]}: not "
+                         f"built {HEAD_DIMS}")
     if b * h > cuda_build.MAX_GRID_Y:
         raise ValueError(f"{what}: B*H = {b * h} > {cuda_build.MAX_GRID_Y}")
     if s > 64 * cuda_build.MAX_GRID_Y:
@@ -160,6 +183,7 @@ def check_cuda_inputs(what, rows=(), **tensors):
 
 
 def _launch(what, source, symbol, argtypes, ref, pointers, scale, causal):
+    """Launch on tensors already padded to a built head_dim."""
     b, h, s, d = ref.shape
     fn = cuda_build.function(source, symbol, argtypes)
     with torch.cuda.device(ref.device):
@@ -177,15 +201,16 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, scale)
     check_cuda_inputs("flash_attention", q=q, k=k, v=v)
-    b, h, s, _ = q.shape
-    o = torch.empty_like(q)
+    b, h, s, d = q.shape
     lse = torch.empty(b * h, s, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
-        return o, lse
+        return torch.empty_like(q), lse
+    q, k, v = pad_head_dim((q, k, v), built_head_dim(d))
+    o = torch.empty_like(q)
     _launch("flash_attention", "flash_fwd", "sparknet_flash_forward",
             _FWD_ARGTYPES, q, (q, k, v, o, lse), scale, causal)
     flash_attention.launches += 1
-    return o, lse
+    return o[..., :d].contiguous(), lse
 
 
 def flash_attention_dq(q, k, v, o, lse, do, causal=False, scale=None):
@@ -196,15 +221,16 @@ def flash_attention_dq(q, k, v, o, lse, do, causal=False, scale=None):
         return flash_attention_dq_plain(q, k, v, o, lse, do, causal, scale)
     check_cuda_inputs("flash_attention_dq", rows=(lse,), q=q, k=k, v=v, o=o,
                       do=do)
-    b, h, s, _ = q.shape
-    dq = torch.empty_like(q)
+    b, h, s, d = q.shape
     delta = torch.empty(b * h, s, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
-        return dq, delta
+        return torch.empty_like(q), delta
+    q, k, v, o, do = pad_head_dim((q, k, v, o, do), built_head_dim(d))
+    dq = torch.empty_like(q)
     _launch("flash_attention_dq", "flash_bwd", "sparknet_flash_backward_dq",
             _BWD_ARGTYPES, q, (q, k, v, o, do, lse, dq, delta), scale, causal)
     flash_attention_dq.launches += 1
-    return dq, delta
+    return dq[..., :d].contiguous(), delta
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
@@ -216,14 +242,16 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
                                          scale)
     check_cuda_inputs("flash_attention_dkv", rows=(lse, delta), q=q, k=k,
                       v=v, do=do)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    d = q.shape[-1]
     if q.numel() == 0:
-        return dk, dv
+        return torch.empty_like(k), torch.empty_like(v)
+    q, k, v, do = pad_head_dim((q, k, v, do), built_head_dim(d))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attention_dkv", "flash_bwd", "sparknet_flash_backward_dkv",
             _BWD_ARGTYPES, q, (q, k, v, do, lse, delta, dk, dv), scale,
             causal)
     flash_attention_dkv.launches += 1
-    return dk, dv
+    return dk[..., :d].contiguous(), dv[..., :d].contiguous()
 
 
 class _FlashAttention(torch.autograd.Function):

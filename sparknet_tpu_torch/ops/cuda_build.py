@@ -126,11 +126,38 @@ def stream_handle(device):
 # storage types the kernels are instantiated for -> their C dtype code
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_Y = 65535
-SMEM_FLOATS = 227 * 1024 // (256 * 4)  # f32 slots per thread in 227 KB
-MAX_WINDOW = SMEM_FLOATS                # forward: one ring of size slots
-# backward: rings of size, size and (size - 1) // 2 + 1 slots
-MAX_WINDOW_BWD = max(s for s in range(1, SMEM_FLOATS)
-                     if 2 * s + (s - 1) // 2 + 1 <= SMEM_FLOATS)
+# The largest LRN windows the channel-walk wrappers take (the limits of
+# the kernels' earlier per-thread rings, kept). A CTA's tiles
+# (csrc/channel_walk.cuh, walk_geometry) narrow their span of columns as
+# the window grows, and fit in shared memory well beyond these.
+MAX_WINDOW = 227
+MAX_WINDOW_BWD = 90
+
+# What sparknet_<source>_info(dtype, variant, channels, hw, size, aligned,
+# out) of csrc/lrn.cu, epilogue.cu and lrn_bwd.cu writes to out
+WALK_INFO_FIELDS = ("chunk", "chunks", "span", "spans", "vec", "smem_bytes",
+                    "registers", "ctas_per_sm", "local_bytes")
+
+
+def walk_info(source, dtype, variant, channels, hw, size, aligned=True):
+    """The launch that csrc/<source>.cu ("lrn", "epilogue" or "lrn_bwd")
+    makes for a (N, channels, hw) tensor of ``dtype`` with LRN window
+    ``size``: its geometry (``chunk`` output channels a CTA over
+    ``chunks``, ``span`` columns over ``spans``, the 16-byte path ``vec``
+    where the base pointers are ``aligned`` and H*W allows it), dynamic
+    shared memory, registers, resident CTAs per SM and spills.
+    ``variant`` is the entry point's flag (epilogue: with_lrn; lrn_bwd:
+    bias_relu; lrn: 0). Needs the card."""
+    fn = function(source, f"sparknet_{source}_info",
+                  [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p])
+    out = (ctypes.c_int * len(WALK_INFO_FIELDS))()
+    err = fn(DTYPE_CODES[dtype], int(variant), int(channels), int(hw),
+             int(size), int(aligned), ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"sparknet_{source}_info: cudaError {err}")
+    return dict(zip(WALK_INFO_FIELDS, out))
 
 
 def check_cuda_input(x, what, size=None, max_window=MAX_WINDOW):

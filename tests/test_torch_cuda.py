@@ -30,6 +30,16 @@ from sparknet_tpu_torch.ops import cuda_build
 from sparknet_tpu_torch.ops import cuda_epilogue as ce
 from sparknet_tpu_torch.ops import cuda_lrn as cl
 
+# The channel-walk kernels' edge geometry (csrc/channel_walk.cuh): one
+# channel, 32 channels to a CTA's chunk give or take one, H*W not a
+# multiple of 4 (the scalar path), CaffeNet's 27x27 and 13x13 planes.
+_EDGE = [
+    pytest.param((2, 1, 7, 9), 5, 1e-1, 0.75, 1.0, id="C1-ragged"),
+    pytest.param((2, 31, 5, 5), 5, 1e-2, 0.75, 1.0, id="C31-chunk-less-1"),
+    pytest.param((2, 33, 4, 8), 3, 1e-2, 0.6, 2.0, id="C33-chunk-plus-1"),
+    pytest.param((1, 8, 27, 27), 6, 1e-2, 0.75, 1.0, id="27x27-size6"),
+    pytest.param((2, 40, 13, 13), 5, 1e-4, 0.75, 1.0, id="13x13"),
+]
 LRN_CASES = [
     # (shape, local_size, alpha, beta, k): tests/test_pallas_lrn.py's
     # cases plus an even window
@@ -37,18 +47,28 @@ LRN_CASES = [
     pytest.param((1, 64, 8, 8), 5, 5e-5, 0.75, 2.0, id="k-not-1"),
     pytest.param((2, 32, 6, 130), 3, 1e-3, 0.5, 1.0, id="size3-wide-spatial"),
     pytest.param((2, 13, 5, 7), 4, 1e-2, 0.6, 1.5, id="size4-even"),
+] + _EDGE + [
+    pytest.param((1, 3, 4, 5), cuda_build.MAX_WINDOW, 1e-2, 0.75, 2.0,
+                 id="largest-window"),
 ]
-BWD_CASES = LRN_CASES + [
+BWD_CASES = LRN_CASES[:4] + _EDGE + [
     # C < n, ragged H*W = 323, odd and even windows
     pytest.param((3, 3, 17, 19), 4, 1e-2, 0.6, 2.0, id="size4-C3-ragged"),
     pytest.param((2, 2, 3, 5), 5, 1e-1, 0.75, 1.0, id="size5-C2"),
+    pytest.param((1, 3, 4, 5), cuda_build.MAX_WINDOW_BWD, 1e-2, 0.75, 2.0,
+                 id="largest-window"),
 ]
 EPI_SHAPES = [
-    # tests/test_pallas_epilogue.py's shapes
+    # tests/test_pallas_epilogue.py's shapes, then the edge geometry
     pytest.param((2, 96, 9, 11), id="caffenet-conv-ish"),
     pytest.param((1, 64, 8, 8), id="pow2"),
     pytest.param((2, 32, 6, 130), id="wide-spatial-multi-block"),
+    pytest.param((2, 1, 7, 9), id="C1-ragged"),
+    pytest.param((2, 33, 5, 5), id="C33-ragged"),
+    pytest.param((1, 8, 27, 27), id="27x27"),
 ]
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                 ids=["f32", "bf16"])
 
 
 def _x(shape, seed, scale=1.0):
@@ -62,29 +82,56 @@ def cuda():
         pytest.skip("needs a CUDA card (run on the chip)")
 
 
+def _card(a, dtype, offset=False):
+    """``a`` on the card in ``dtype``; with ``offset``, a contiguous view
+    one element into a larger buffer (not 16-byte aligned)."""
+    t = torch.from_numpy(a).to("cuda", dtype)
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + 1, device="cuda", dtype=dtype)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _assert_matches(got, ref, floor=None):
+    """The channel-walk kernels' limits against their plain versions
+    (chip_smoke.py's): f32 rtol 1e-5, atol 1e-6; bf16 one bf16 ulp per
+    element of |ref|, or of ``floor`` where that is larger (the
+    backward's |g| k^-beta: its two terms cancel)."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if ref.dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+        return
+    r = ref.float().abs()
+    if floor is not None:
+        r = torch.maximum(r, floor)
+    ulp = torch.where(r == 0, torch.zeros_like(r),
+                      torch.exp2(torch.floor(torch.log2(r)) - 7))
+    assert bool(((got.float() - ref.float()).abs() <= ulp).all())
+
+
 @pytest.mark.cuda
+@DTYPES
 @pytest.mark.parametrize("shape,size,alpha,beta,k", LRN_CASES)
-def test_lrn_kernel_matches_plain_on_card(cuda, shape, size, alpha, beta, k):
-    x = torch.from_numpy(_x(shape, 5, scale=3.0)).cuda()
+def test_lrn_kernel_matches_plain_on_card(cuda, shape, size, alpha, beta, k,
+                                          dtype):
+    x = _card(_x(shape, 5, scale=3.0), dtype)
     n0 = cl.lrn_across.launches
     got = cl.lrn_across(x, size, alpha, beta, k)
     assert cl.lrn_across.launches == n0 + 1
-    torch.testing.assert_close(got, cl.lrn_across_plain(x, size, alpha,
-                                                        beta, k),
-                               rtol=1e-5, atol=1e-6)
+    _assert_matches(got, cl.lrn_across_plain(x, size, alpha, beta, k))
 
 
 @pytest.mark.cuda
+@DTYPES
 @pytest.mark.parametrize("shape", EPI_SHAPES)
-def test_epilogue_kernels_match_plain_on_card(cuda, shape):
-    x = torch.from_numpy(_x(shape, 13, scale=3.0)).cuda()
+def test_epilogue_kernels_match_plain_on_card(cuda, shape, dtype):
+    x = _card(_x(shape, 13, scale=3.0), dtype)
     b = torch.from_numpy(_x(shape[1:2], 14)).cuda()
-    torch.testing.assert_close(ce.bias_relu(x, b), ce.bias_relu_plain(x, b),
-                               rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(
-        ce.bias_relu_lrn(x, b, 5, 1e-4, 0.75, 1.0),
-        ce.bias_relu_lrn_plain(x, b, 5, 1e-4, 0.75, 1.0),
-        rtol=1e-5, atol=1e-6)
+    _assert_matches(ce.bias_relu(x, b), ce.bias_relu_plain(x, b))
+    _assert_matches(ce.bias_relu_lrn(x, b, 5, 1e-4, 0.75, 1.0),
+                    ce.bias_relu_lrn_plain(x, b, 5, 1e-4, 0.75, 1.0))
 
 
 @pytest.mark.cuda
@@ -110,23 +157,121 @@ def test_card_wrappers_refuse_grad_and_bad_layouts(cuda):
 
 
 @pytest.mark.cuda
+@DTYPES
 @pytest.mark.parametrize("shape,size,alpha,beta,k", BWD_CASES)
 def test_backward_kernels_match_plain_on_card(cuda, shape, size, alpha, beta,
-                                              k):
-    x = torch.from_numpy(_x(shape, 21, scale=3.0)).cuda()
-    g = torch.from_numpy(_x(shape, 22)).cuda()
+                                              k, dtype):
+    x = _card(_x(shape, 21, scale=3.0), dtype)
+    g = _card(_x(shape, 22), dtype)
     b = torch.from_numpy(_x(shape[1:2], 26)).cuda()
     n0 = (cl.lrn_across_bwd.launches, ce.bias_relu_lrn_bwd.launches)
     got = cl.lrn_across_bwd(x, g, size, alpha, beta, k)
     dx, db = ce.bias_relu_lrn_bwd(x, b, g, size, alpha, beta, k)
     assert (cl.lrn_across_bwd.launches, ce.bias_relu_lrn_bwd.launches) == \
         (n0[0] + 1, n0[1] + 1)
-    torch.testing.assert_close(
-        got, cl.lrn_across_bwd_plain(x, g, size, alpha, beta, k),
-        rtol=1e-5, atol=1e-6)
+    floor = g.abs().float() * k ** -beta
+    _assert_matches(got, cl.lrn_across_bwd_plain(x, g, size, alpha, beta, k),
+                    floor)
     rdx, rdb = ce.bias_relu_lrn_bwd_plain(x, b, g, size, alpha, beta, k)
-    torch.testing.assert_close(dx, rdx, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(db, rdb, rtol=1e-5, atol=1e-5)
+    _assert_matches(dx, rdx, floor)
+    if dtype == torch.float32:
+        torch.testing.assert_close(db, rdb, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@DTYPES
+def test_channel_walk_kernels_take_views_at_an_odd_offset(cuda, dtype):
+    # contiguous views one element into a buffer: no row is 16-byte
+    # aligned though H*W = 56*56 would allow it, so the kernels take the
+    # scalar path (4-byte copies; a bf16 row starts mid-word)
+    shape = (2, 40, 56, 56)
+    x = _card(_x(shape, 41, scale=3.0), dtype, offset=True)
+    g = _card(_x(shape, 42), dtype, offset=True)
+    b = torch.from_numpy(_x(shape[1:2], 43)).cuda()
+    assert x.is_contiguous() and x.data_ptr() % 16
+    p = (5, 1e-2, 0.75, 1.0)
+    floor = g.abs().float()
+    _assert_matches(cl.lrn_across(x, *p), cl.lrn_across_plain(x, *p))
+    _assert_matches(ce.bias_relu(x, b), ce.bias_relu_plain(x, b))
+    _assert_matches(ce.bias_relu_lrn(x, b, *p),
+                    ce.bias_relu_lrn_plain(x, b, *p))
+    _assert_matches(cl.lrn_across_bwd(x, g, *p),
+                    cl.lrn_across_bwd_plain(x, g, *p), floor)
+    _assert_matches(ce.bias_relu_lrn_bwd(x, b, g, *p)[0],
+                    ce.bias_relu_lrn_bwd_plain(x, b, g, *p)[0], floor)
+
+
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("shape", [(4, 64, 56, 56), (2, 96, 27, 27)],
+                         ids=["vector-path", "scalar-path"])
+def test_channel_walk_kernels_are_deterministic_on_card(cuda, shape, dtype):
+    # no atomics: every output is summed by one thread in a fixed order
+    x = _card(_x(shape, 44, scale=3.0), dtype)
+    g = _card(_x(shape, 45), dtype)
+    b = torch.from_numpy(_x(shape[1:2], 46)).cuda()
+    p = (5, 1e-4, 0.75, 1.0)
+    for run in (lambda: cl.lrn_across(x, *p),
+                lambda: ce.bias_relu(x, b),
+                lambda: ce.bias_relu_lrn(x, b, *p),
+                lambda: cl.lrn_across_bwd(x, g, *p),
+                lambda: ce.bias_relu_lrn_bwd(x, b, g, *p)[0]):
+        assert torch.equal(run(), run())
+
+
+# (source, variant) of each channel-walk launch: csrc/<source>.cu
+WALKS = [("lrn", 0), ("epilogue", 0), ("epilogue", 1), ("lrn_bwd", 0),
+         ("lrn_bwd", 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_channel_walk_geometry_covers_every_shape(cuda, dtype):
+    # the launchers' chunks tile [0, C) and their spans [0, H*W), each CTA
+    # fits the card, nothing spills, at GoogLeNet's, CaffeNet's and the
+    # edge shapes and at the largest windows taken
+    bwd_max = cuda_build.MAX_WINDOW_BWD
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    for c, hw in ((1, 1), (1, 63), (31, 25), (33, 32), (64, 3136),
+                  (192, 3136), (96, 729), (256, 169), (480, 196),
+                  (3, 12544)):
+        for aligned in (True, False):
+            for source, variant in WALKS:
+                sizes = (1, 2, 5, bwd_max) if source == "lrn_bwd" else \
+                    (1, 5, cuda_build.MAX_WINDOW)
+                for size in sizes:
+                    w = cuda_build.walk_info(source, dtype, variant, c, hw,
+                                             size, aligned)
+                    assert 1 <= w["chunk"] <= 32
+                    assert w["chunk"] * (w["chunks"] - 1) < c <= \
+                        w["chunk"] * w["chunks"]
+                    assert w["span"] * (w["spans"] - 1) < hw <= \
+                        w["span"] * w["spans"]
+                    assert w["vec"] == (aligned and hw % vec == 0)
+                    if w["vec"]:
+                        assert w["span"] % vec == 0
+                    assert 0 < w["smem_bytes"] <= 227 * 1024
+                    assert w["ctas_per_sm"] >= 1 and w["local_bytes"] == 0
+                    assert w["chunks"] * w["spans"] < 2 ** 31
+
+
+@pytest.mark.cuda
+def test_channel_walk_kernels_take_the_largest_batch(cuda):
+    # the largest batch check_cuda_input takes, 65535 images of one
+    # channel and 2x2 columns: the persistent grid walks all its tiles
+    x = _card(_x((cuda_build.MAX_GRID_Y, 1, 2, 2), 47), torch.float32)
+    g = _card(_x(x.shape, 48), torch.float32)
+    b = torch.zeros(1, device="cuda")
+    p = (3, 1e-1, 0.75, 1.0)
+    _assert_matches(cl.lrn_across(x, *p), cl.lrn_across_plain(x, *p))
+    _assert_matches(ce.bias_relu_lrn(x, b, *p),
+                    ce.bias_relu_lrn_plain(x, b, *p))
+    _assert_matches(cl.lrn_across_bwd(x, g, *p),
+                    cl.lrn_across_bwd_plain(x, g, *p))
+    with pytest.raises(ValueError, match="batch"):
+        cl.lrn_across(torch.zeros(cuda_build.MAX_GRID_Y + 1, 1, 1, 1,
+                                  device="cuda"), *p)
 
 
 FLASH_CASES = [
@@ -284,10 +429,43 @@ def test_flash_autograd_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [8, 48, 96])
+def test_flash_kernels_take_unbuilt_head_dims_on_card(cuda, d, causal, dtype):
+    # D outside HEAD_DIMS runs through the next built D, zero-padded;
+    # held to chip_smoke.py's phase-6 limits against the plain versions
+    rs = np.random.RandomState(50 + d)
+    q, k, v, do = (torch.from_numpy(0.5 * rs.randn(2, 2, 300, d).astype(
+        np.float32)).to("cuda", dtype) for _ in range(4))
+    o, lse = ca.flash_attention_fwd(q, k, v, causal)
+    dq, delta = ca.flash_attention_dq(q, k, v, o, lse, do, causal)
+    dk, dv = ca.flash_attention_dkv(q, k, v, do, lse, delta, causal)
+    ro, rlse = ca.flash_attention_fwd_plain(q, k, v, causal)
+    rdq, rdelta = ca.flash_attention_dq_plain(q, k, v, o, lse, do, causal)
+    rdk, rdv = ca.flash_attention_dkv_plain(q, k, v, do, lse, rdelta, causal)
+    for t in (o, dq, dk, dv):
+        assert t.shape == q.shape and t.dtype == dtype and t.is_contiguous()
+    assert _worst(lse, rlse) <= 2e-5 and _worst(delta, rdelta) <= 2e-5
+    assert _worst_tile(o, ro) <= FLASH_TILE_TOL[dtype]
+    for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert _worst_tile(got, ref) <= FLASH_BWD_TILE_TOL[dtype]
+    if dtype == torch.float32:
+        assert _worst(o, ro) <= 2e-5
+        for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+            assert _worst(got, ref) <= 5e-4
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    ca.flash_attention(ql, kl, vl, causal).backward(do)
+    for t, ref in ((ql, dq), (kl, dk), (vl, dv)):
+        assert torch.equal(t.grad, ref)
+
+
+@pytest.mark.cuda
 def test_flash_refuses_what_it_was_not_built_for(cuda):
     x = torch.randn(1, 2, 128, 64, device="cuda")
-    with pytest.raises(ValueError, match="head_dim 96"):
-        y = torch.randn(1, 2, 128, 96, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 160"):
+        y = torch.randn(1, 2, 128, 160, device="cuda")
         ca.flash_attention_fwd(y, y, y)
     with pytest.raises(ValueError, match="contiguous"):
         ca.flash_attention_fwd(x.transpose(1, 2), x.transpose(1, 2),

@@ -132,3 +132,37 @@ def test_tensor_core_rounding_fits_the_bf16_tile_limit(shape, causal, output):
     assert 1e-3 < reading < BWD_TILE_LIMIT, reading
     for bad in _planted(got[output]):
         assert _worst_tile(bad, ref) > BWD_TILE_LIMIT
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [8, 48, 96])
+def test_zero_padded_head_dim_is_exact(d, causal):
+    # a head_dim the kernels were not built for runs through the next
+    # built one, its inputs zero-padded (ops/cuda_attention.py): the plain
+    # versions on the padded inputs, sliced back, equal them on the
+    # unpadded ones up to the summation order of the longer products
+    rs = np.random.RandomState(40 + d)
+    q, k, v, do = (torch.from_numpy(0.5 * rs.randn(2, 2, 96, d).astype(
+        np.float32)) for _ in range(4))
+    dp = ca.built_head_dim(d)
+    assert dp in ca.HEAD_DIMS and dp > d
+    scale = ca.default_scale(q)                 # 1/sqrt(d), the true D
+    o, lse = ca.flash_attention_fwd_plain(q, k, v, causal, scale)
+    dq, dk, dv = ca.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                              scale)
+    qp, kp, vp, op, dop = ca.pad_head_dim((q, k, v, o, do), dp)
+    po, plse = ca.flash_attention_fwd_plain(qp, kp, vp, causal, scale)
+    pdq, pdk, pdv = ca.flash_attention_bwd_plain(qp, kp, vp, op, plse, dop,
+                                                 causal, scale)
+    for full, ref in ((po, o), (pdq, dq), (pdk, dk), (pdv, dv)):
+        assert full.shape[-1] == dp
+        assert torch.equal(full[..., d:], torch.zeros_like(full[..., d:]))
+        torch.testing.assert_close(full[..., :d], ref, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(plse, lse, rtol=1e-6, atol=1e-7)
+
+
+def test_built_head_dim():
+    assert [ca.built_head_dim(d) for d in (1, 16, 17, 33, 64, 65, 128)] == \
+        [16, 16, 32, 64, 64, 128, 128]
+    with pytest.raises(ValueError, match="head_dim 129"):
+        ca.built_head_dim(129)
