@@ -94,11 +94,29 @@ Phases, each of which raises on failure (exit code not 0):
               from one snapshot (losses and weight changes), with controls
               (the CPU on one thread must pass; the dQ kernel's output
               zeroed and the dK/dV kernel's output zeroed must fail).
- 8. the kernel table as one JSON line, an entry for every timed f32
+ 8. local-sgd — SparkNet's own algorithm over 4 worker slots on the
+              card: `python -m sparknet_tpu_torch make_synth_cifar`
+              (10,000 + 1,000 records), then the `cifar` verb at
+              CifarApp's settings (cifar10_full, per-worker batch 100,
+              tau 10, the zoo solver) for 6 rounds with tests and
+              snapshots (the round loss must fall), --resume auto for 2
+              more (the counter continues from 60) and --strategy dp for
+              2 steps; in process, a cifar10_full round and a CaffeNet
+              round at the ImageNet app's widths (batch 256 a slot, tau
+              cut from 50 to 10, f32) by CUDA events with images/s beside
+              the K40's 267, CaffeNet's LRN launches (norm1 and norm2,
+              forward and backward, once a step), the slot average's
+              time, peak memory and a profiler window; card against CPU
+              for one round of cifar10_full (2 slots x batch 8, tau 3),
+              with the control (slot 0's params in place of the average)
+              failing, and the tau-1 identity with one DataParallelSolver
+              step on the card.
+ 9. the kernel table as one JSON line, an entry for every timed f32
     row of phase 3 and the LM's flash row of phase 6 (launches from the
     serving path for the GoogLeNet forwards, the training path for their
-    backwards, the lm verb's first run for the flash kernels), the
-    nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
+    backwards, the CaffeNet local-SGD rounds for CaffeNet's LRN shapes,
+    the lm verb's first run for the flash kernels), the nvidia-smi line,
+    and as the last line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -1468,6 +1486,335 @@ def phase_lm_card_vs_cpu(torch, tmp, steps=2):
             "grad_rel", "weight_change_rel")} for n, r in faults.items()}}
 
 
+# -- phase 8 --------------------------------------------------------------
+
+# Local SGD card against CPU: each blob's change over the round within
+# LOCAL_SGD_LIMIT of the CPU's largest change in that blob, between the
+# sound readings and the control's (the slot average replaced by slot
+# 0's params); see PERF.md. The tau = 1 identity (local SGD against one
+# data-parallel step) reads against the same limit.
+LOCAL_SGD_LIMIT = 1e-2
+K40_CAFFENET_IMAGES_PER_S = 267.0   # BASELINE.md:8, cuDNN, CaffeNet b256
+CAFFENET_LRN_SHAPES = ((256, 96, 27, 27), (256, 256, 13, 13))
+
+
+def _cifar_cli(args, timeout=600):
+    """``python -m sparknet_tpu_torch cifar`` (or ``make_synth_cifar``)
+    in a child process that ends (or is killed at ``timeout``) before
+    this returns; -> its stdout."""
+    cmd = [sys.executable, "-m", "sparknet_tpu_torch", *args]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=timeout)
+    for line in out.stdout.strip().splitlines():
+        print(f"[cifar-cli] {line}")
+    check(out.returncode == 0,
+          f"{' '.join(cmd)} exited {out.returncode}: {out.stderr[-4000:]}")
+    print(f"[cifar-cli] exited 0 in {time.perf_counter() - t0:.1f} s")
+    return out.stdout
+
+
+def _round_losses(out):
+    return [float(line.split(": loss = ")[1]) for line in out.splitlines()
+            if ": loss = " in line]
+
+
+def phase_cifar_cli(tmp):
+    """The cifar verb on the card, at CifarApp's own settings
+    (cifar10_full, per-worker batch 100, tau 10, the zoo solver) over 4
+    worker slots, on 10,000 + 1,000 records from make_synth_cifar: 6
+    rounds with a test every 3 and a snapshot every 3, then --resume
+    auto for 2 more (the counter continues from 60), then --strategy dp
+    for 2 steps."""
+    data = os.path.join(tmp, "cifar_data")
+    prefix = os.path.join(tmp, "cifar")
+    _cifar_cli(["make_synth_cifar", data, "--train", "10000", "--test",
+                "1000"])
+    common = ["cifar", "--data", data, "--workers", "4"]
+    out = _cifar_cli(common + ["--tau", "10", "--rounds", "6",
+                               "--test-every", "3", "--snapshot-prefix",
+                               prefix, "--snapshot-every", "3"])
+    check("strategy=local_sgd, device=cuda" in out,
+          "the cifar verb did not train on the card")
+    losses = _round_losses(out)
+    check(len(losses) == 6 and all(np.isfinite(losses)),
+          f"round losses {losses}")
+    check(losses[-1] < losses[0], f"the round loss did not fall: {losses}")
+    accuracy = [float(line.split("test accuracy = ")[1])
+                for line in out.splitlines() if "test accuracy = " in line]
+    check(len(accuracy) == 2, f"test accuracies {accuracy}, want 2")
+    check("done: 6 rounds, iter=60" in out, "the cifar verb did not reach "
+                                            "iter 60")
+    for it in (30, 60):
+        check(os.path.exists(f"{prefix}_iter_{it}.solverstate"),
+              f"no cifar snapshot at iteration {it}")
+    out2 = _cifar_cli(common + ["--tau", "10", "--rounds", "2",
+                                "--test-every", "5", "--snapshot-prefix",
+                                prefix, "--resume", "auto"])
+    check("resume auto: restored iter 60" in out2,
+          "--resume auto did not pick up the iteration-60 snapshot")
+    check("done: 2 rounds, iter=80" in out2,
+          "the resumed run did not continue from iteration 60 to 80")
+    resumed = _round_losses(out2)
+    check(len(resumed) == 2 and all(np.isfinite(resumed)),
+          f"resumed round losses {resumed}")
+    out3 = _cifar_cli(common + ["--strategy", "dp", "--rounds", "2",
+                                "--test-every", "5"])
+    check("strategy=dp, device=cuda" in out3 and
+          "done: 2 rounds, iter=2" in out3, "--strategy dp did not take 2 "
+                                            "steps on the card")
+    dp = _round_losses(out3)
+    check(len(dp) == 2 and all(np.isfinite(dp)), f"dp losses {dp}")
+    return {"round_losses": losses, "test_accuracy": accuracy,
+            "resumed_losses": resumed, "dp_losses": dp}
+
+
+def _time_rounds(torch, fn, reps=3):
+    """Median of ``reps`` calls of ``fn`` over CUDA events after one
+    warm-up call (ms)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times), times
+
+
+def _caffenet_group(name):
+    if "channel_walk" in name:
+        return "port kernels (channel_walk)"
+    if any(s in name for s in ("fprop", "dgrad", "wgrad", "conv", "cudnn",
+                               "implicit", "winograd", "fft", "bprop")):
+        return "cuDNN"
+    if any(s in name for s in ("gemm", "cublas", "cutlass", "nvjet")):
+        return "cuBLAS"
+    return "other"
+
+
+def _synthetic_rounds(torch, tau, workers, batch, shape, classes, seed):
+    """A round's batches made on the card: N(0, 1) images and uniform
+    labels, (tau, workers*batch, ...)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = workers * batch
+    return {"data": torch.randn((tau, n) + tuple(shape), generator=gen,
+                                device="cuda"),
+            "label": torch.randint(0, classes, (tau, n), generator=gen,
+                                   device="cuda", dtype=torch.int32)}
+
+
+def phase_local_sgd(torch, card, tau=10, workers=4):
+    """Rounds in process on the card: cifar10_full at CifarApp's
+    settings (4 slots x batch 100, tau 10), then CaffeNet at the ImageNet
+    app's widths (zoo.caffenet(batch_size=256), its solver, 4 slots,
+    tau cut from the app's 50 to 10), f32 with TF32 off, on synthetic
+    batches made on the card. Each: the round by CUDA events (median of
+    3 after one warm-up) and images/s. CaffeNet also: the LRN kernels'
+    launches in those 4 rounds (each of norm1 and norm2 forward and
+    backward once a step), the averaging step alone (median of 5), the
+    peak memory, and a profiler window over one round (time by group,
+    busy share)."""
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.ops import KERNEL_WRAPPERS, kernel_launches
+    from sparknet_tpu_torch.parallel import LocalSGDSolver
+    from sparknet_tpu_torch.proto import Message
+    out = {}
+    sp = Message("SolverParameter", base_lr=0.001, momentum=0.9,
+                 weight_decay=0.004, lr_policy="fixed", display=0,
+                 random_seed=SEED)
+    solver = LocalSGDSolver(sp, workers=workers, tau=tau,
+                            net_param=zoo.cifar10_full(batch_size=100),
+                            device="cuda", log_fn=None)
+    batches = _synthetic_rounds(torch, tau, workers, 100, (3, 32, 32), 10,
+                                SEED)
+    ms, all_ms = _time_rounds(torch, lambda: solver.train_round(batches))
+    ips = tau * workers * 100 / (ms / 1e3)
+    print(f"[local-sgd] cifar10_full {workers} slots x b100, tau {tau}: "
+          f"round {ms:.2f} ms (median of 3 over CUDA events, {all_ms}), "
+          f"{ips:,.0f} images/s; {card}")
+    out["cifar10_full"] = {"round_ms": ms, "rounds_ms": all_ms,
+                           "images_per_s": ips}
+    del solver, batches
+    torch.cuda.empty_cache()
+
+    sp = Message("SolverParameter", base_lr=0.01, momentum=0.9,
+                 weight_decay=0.0005, lr_policy="step", gamma=0.1,
+                 stepsize=100000, display=0, random_seed=SEED)
+    solver = LocalSGDSolver(sp, workers=workers, tau=tau,
+                            net_param=zoo.caffenet(batch_size=256),
+                            device="cuda", log_fn=None)
+    n_params = sum(p.numel() for v in solver.params.values() for p in v)
+    batches = _synthetic_rounds(torch, tau, workers, 256, (3, 227, 227),
+                                1000, SEED + 1)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+    losses = []
+    ms, all_ms = _time_rounds(
+        torch, lambda: losses.append(solver.train_round(batches)))
+    launches = kernel_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(l) for l in losses]
+    ips = tau * workers * 256 / (ms / 1e3)
+    print(f"[local-sgd] CaffeNet {n_params / 1e6:.1f}M params, {workers} "
+          f"slots x b256, tau {tau}, f32 (TF32 off): round {ms:.1f} ms "
+          f"(median of 3 over CUDA events, {all_ms}), {ips:,.0f} images/s "
+          f"(K40 + cuDNN, the reference's own GPU: "
+          f"{K40_CAFFENET_IMAGES_PER_S:g} images/s on one worker); round "
+          f"losses {[round(l, 4) for l in losses]}; peak memory "
+          f"{peak_gb:.1f} GB; {card}")
+    print(f"[local-sgd] CaffeNet launches in 4 rounds: {launches}")
+    check(all(np.isfinite(losses)), f"CaffeNet round losses {losses}")
+    per_run = 2 * tau * workers * 4     # norm1 + norm2, every step
+    for name in ("lrn_across", "lrn_across_bwd"):
+        check(launches[name] == per_run,
+              f"{name}: {launches[name]} launches in 4 CaffeNet rounds, "
+              f"want {per_run} (norm1 and norm2 each step)")
+    avg_ms, _ = _time_rounds(torch, solver.average_slots, reps=5)
+    avg_bytes = 2 * (workers + 1) * 4 * n_params
+    print(f"[local-sgd] the slot average alone: {avg_ms:.3f} ms (median of "
+          f"5), {avg_bytes / 1e9:.2f} GB moved ({avg_bytes / 1e9 / avg_ms:.2f}"
+          f" TB/s), {100 * avg_ms / ms:.3f}% of the round")
+    profile = _profile(torch, lambda: solver.train_round(batches), 1,
+                       _caffenet_group, "CaffeNet local-SGD round", card,
+                       top=12)
+    out["caffenet"] = {"params": n_params, "round_ms": ms,
+                       "rounds_ms": all_ms, "images_per_s": ips,
+                       "losses": losses, "launches": launches,
+                       "peak_gb": peak_gb, "average_ms": avg_ms,
+                       "profile": profile}
+    del solver, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cifar_local(workers, tau, momentum, base_lr, device, batch=8):
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.parallel import LocalSGDSolver
+    return LocalSGDSolver(_cifar_sp(momentum, base_lr), workers=workers,
+                          tau=tau, net_param=zoo.cifar10_full(
+                              batch_size=batch),
+                          device=device, log_fn=None)
+
+
+def _cifar_sp(momentum, base_lr):
+    from sparknet_tpu_torch.proto import Message
+    return Message("SolverParameter", base_lr=base_lr, lr_policy="step",
+                   gamma=0.5, stepsize=2, momentum=momentum,
+                   weight_decay=0.004, random_seed=SEED, display=0)
+
+
+def _change_error(params, w0, dw_ref):
+    """Worst blob's max |dw - dw_ref| / max |dw_ref| with dw = w - w0."""
+    worst, where = 0.0, None
+    for name, refs in dw_ref.items():
+        for i, ref in enumerate(refs):
+            dw = params[name][i].detach().cpu().double() - w0[name][i]
+            e = float((dw - ref).abs().max()
+                      / ref.abs().max().clamp_min(1e-30))
+            if e > worst:
+                worst, where = e, f"{name}[{i}]"
+    return worst, where
+
+
+def _params64(params):
+    return {n: [p.detach().cpu().double().clone() for p in blobs]
+            for n, blobs in params.items()}
+
+
+def phase_local_sgd_card_vs_cpu(torch, tmp, device="cuda"):
+    """One local-SGD round of cifar10_full (per-worker batch 8, 2 slots,
+    tau 3, momentum 0.9, lr stepping inside the round) on the card and on
+    the CPU from one snapshot and the same batches: the round losses
+    within 1e-4 relative and each blob's change within LOCAL_SGD_LIMIT.
+    Control: the card's round with the slot average replaced by slot 0's
+    params must read above it. Then, on the card, tau 1 and no momentum
+    (lr 1, a step far above the weights' rounding): the round must equal
+    one DataParallelSolver step on the global batch within the same
+    limit."""
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.parallel import DataParallelSolver
+    from sparknet_tpu_torch.parallel import data_parallel as dpm
+    cpu = _cifar_local(2, 3, 0.9, 0.02, "cpu")
+    _, state = cpu.snapshot(os.path.join(tmp, "local_sgd_parity"))
+    w0 = _params64(cpu.params)
+    rs = np.random.RandomState(SEED + 2)
+    batches = {"data": rs.randn(3, 16, 3, 32, 32).astype(np.float32),
+               "label": rs.randint(0, 10, (3, 16)).astype(np.int32)}
+    cpu_loss = float(cpu.train_round(batches))
+    dw_cpu = {n: [p - w for p, w in zip(ps, w0[n])]
+              for n, ps in _params64(cpu.params).items()}
+
+    def run(label):
+        solver = _cifar_local(2, 3, 0.9, 0.02, device)
+        solver.restore(state)
+        loss = float(solver.train_round(batches))
+        worst, where = _change_error(solver.params, w0, dw_cpu)
+        print(f"[local-sgd-parity] {label}: round loss {loss:.7f} (cpu "
+              f"{cpu_loss:.7f}); weight change max |dw - dw_cpu| / max "
+              f"|dw_cpu| = {worst:.3e} at {where} (limit "
+              f"{LOCAL_SGD_LIMIT:g})")
+        return loss, worst
+
+    loss, worst = run("card")
+    mean = dpm.slot_mean
+    try:
+        dpm.slot_mean = lambda stacked: stacked[0].clone()
+        _, control = run("control, slot 0 in place of the average")
+    finally:
+        dpm.slot_mean = mean
+    loss_rel = abs(loss - cpu_loss) / abs(cpu_loss)
+
+    ls = _cifar_local(4, 1, 0.0, 1.0, device)
+    dp = DataParallelSolver(_cifar_sp(0.0, 1.0), workers=4,
+                            net_param=zoo.cifar10_full(batch_size=32),
+                            device=device, log_fn=None)
+    with torch.no_grad():
+        for n, ps in dp.params.items():
+            for p, q in zip(ps, ls.params[n]):
+                p.copy_(q)
+    v0 = _params64(dp.params)
+    rs = np.random.RandomState(SEED + 3)
+    one = {"data": rs.randn(1, 32, 3, 32, 32).astype(np.float32),
+           "label": rs.randint(0, 10, (1, 32)).astype(np.int32)}
+    ls.train_round(one)
+    dp.train_step({k: v[0] for k, v in one.items()})
+    dv = {n: [p - w for p, w in zip(ps, v0[n])]
+          for n, ps in _params64(dp.params).items()}
+    identity, where = _change_error(ls.params, v0, dv)
+    print(f"[local-sgd-parity] tau 1, no momentum: local SGD against one "
+          f"data-parallel step, max |dw - dw_dp| / max |dw_dp| = "
+          f"{identity:.3e} at {where} (limit {LOCAL_SGD_LIMIT:g})")
+    check(loss_rel <= 1e-4, f"card and CPU round losses differ by "
+                            f"{loss_rel:.3e}")
+    check(worst <= LOCAL_SGD_LIMIT,
+          f"card and CPU local-SGD rounds differ by {worst:.3e}")
+    check(control > LOCAL_SGD_LIMIT,
+          f"control 'slot 0 in place of the average' reads {control:.3e}, "
+          "within the limit: the check would not catch it")
+    check(identity <= LOCAL_SGD_LIMIT,
+          f"tau-1 local SGD and one data-parallel step differ by "
+          f"{identity:.3e}")
+    return {"loss_rel": loss_rel, "weight_change_rel": worst,
+            "control_slot0": control, "tau1_identity_rel": identity}
+
+
+def phase_local_sgd_all(torch, card, tmp):
+    t0 = time.perf_counter()
+    cli_out = phase_cifar_cli(tmp)
+    rounds = phase_local_sgd(torch, card)
+    parity = phase_local_sgd_card_vs_cpu(torch, tmp)
+    wall = time.perf_counter() - t0
+    print(f"[local-sgd] phase 8 wall time {wall:.1f} s")
+    return {"cli": cli_out, "rounds": rounds, "card_vs_cpu": parity,
+            "wall_s": wall}
+
+
 KERNELS = {
     # name: (source, replaces, path whose launches the row reports)
     "lrn_across": ("sparknet_tpu_torch/csrc/lrn.cu",
@@ -1506,15 +1853,22 @@ def main():
     lm_cli = phase_lm_cli(tmp)
     lm_step = phase_lm_step(torch, card)
     lm_parity = phase_lm_card_vs_cpu(torch, tmp)
+    torch.cuda.empty_cache()
+    local_sgd = phase_local_sgd_all(torch, card, tmp)
     paths = {"serve auto": served["auto"], "serve on": served["on"],
              "train auto": trained["launches"]["auto"],
              "train on": trained["launches"]["on"],
-             "lm verb": lm_cli["launches"]}
+             "lm verb": lm_cli["launches"],
+             "local-sgd caffenet": local_sgd["rounds"]["caffenet"][
+                 "launches"]}
     table = []
-    for name, (source, replaces, path) in KERNELS.items():
+    for name, (source, replaces, own_path) in KERNELS.items():
         rows = [r for r in results + flash if r["name"] == name and r["row"]]
         check(rows, f"no timed row of {name}")
         for r in rows:          # one entry per timed shape of the kernel
+            # CaffeNet's shapes are the local-SGD round's
+            path = "local-sgd caffenet" \
+                if tuple(r["shape"]) in CAFFENET_LRN_SHAPES else own_path
             table.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": paths[path][name],
@@ -1535,7 +1889,8 @@ def main():
         "train": {**{k: trained[k] for k in (
             "launches", "fixed_batch_losses", "step_ms", "images_per_s",
             "profile", "card_vs_cpu")}, **trained_cli},
-        "lm": {"cli": lm_cli, "step": lm_step, "card_vs_cpu": lm_parity}}))
+        "lm": {"cli": lm_cli, "step": lm_step, "card_vs_cpu": lm_parity},
+        "local_sgd": local_sgd}))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,14 @@
           synthetic bigram corpus with the single-device Solver: the
           corpus floor first, optional --metrics JSONL, snapshots and
           --resume, and as the last line each CUDA kernel's launches.
+  cifar   the CifarApp loop: cifar10_full on CIFAR-10 binaries (or
+          synthetic class-gaussians) under local SGD over --workers
+          slots (--tau steps each, then the weights averaged) or per-step
+          data parallelism (--strategy dp); tests every --test-every
+          rounds, snapshots and --resume auto. The JAX verb's multi-host,
+          chaos, metrics, health, elastic and heartbeat flags exit 2.
+  make_synth_cifar
+          write a synthetic CIFAR-format dataset (no download needed).
 
 All run on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given.
@@ -184,6 +192,71 @@ def cmd_lm(args):
     return 0
 
 
+def cmd_cifar(args):
+    from .apps import CifarApp
+    from .ops import kernel_launches
+    app = CifarApp(num_workers=args.workers, data_dir=args.data,
+                   prototxt_dir=args.prototxt_dir, strategy=args.strategy,
+                   tau=args.tau, log_path=args.log, device=args.device,
+                   echo=args.echo)
+    solver = app.run(num_rounds=args.rounds, test_every=args.test_every,
+                     snapshot_prefix=args.snapshot_prefix,
+                     snapshot_every=args.snapshot_every, resume=args.resume)
+    print(f"done: {args.rounds} rounds, iter={solver.iter}")
+    print(f"Kernel launches: {json.dumps(kernel_launches())}")
+    return 0
+
+
+def cmd_make_synth_cifar(args):
+    from . import tools
+    tools.make_synth_cifar(args.output, n_train=args.train, n_test=args.test,
+                           seed=args.seed, noise=args.noise,
+                           label_noise=args.label_noise)
+    return 0
+
+
+class _NotPorted(argparse.Action):
+    """A flag of the JAX package's verb that the port does not have yet:
+    giving it is a usage error (exit 2) naming what is missing. Values
+    in ``allow`` pass through (``--reshard strict``)."""
+
+    def __init__(self, option_strings, dest, what="", allow=(), **kw):
+        self.what, self.allow = what, allow
+        super().__init__(option_strings, dest, **kw)
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        if values in self.allow:
+            setattr(namespace, self.dest, values)
+            return
+        shown = f" {values}" if values else ""
+        parser.error(f"{option_string}{shown}: not ported ({self.what})")
+
+
+# the JAX `cifar` verb's flags the port refuses: (flags, takes a value,
+# what is missing and where the roadmap has it)
+_CIFAR_NOT_PORTED = (
+    (("--hosts",), True, "hierarchical host fault domains, ROADMAP A6"),
+    (("--metrics",), True, "the app's JSONL metrics, ROADMAP A6"),
+    (("--chaos",), True, "fault injection, ROADMAP A6"),
+    (("--remat", "--precision", "--fsdp", "--tp"), True,
+     "remat, precision and sharding levers, ROADMAP A5"),
+    (("--wire", "--wire-bits", "--staging"), True,
+     "wire formats and H2D staging, ROADMAP A2"),
+    (("--shard-ingest",), True, "per-host sharded ingest, ROADMAP A6"),
+    (("--no-health", "--health-arm-recovery"), False,
+     "the health monitor, ROADMAP A6"),
+    (("--health-straggler-factor", "--health-loss-skew-factor",
+      "--health-div-abs", "--health-trend-rounds", "--health-trend-factor",
+      "--health-cooldown"), True, "the health monitor, ROADMAP A6"),
+    (("--quorum", "--evict-after", "--readmit-after", "--staleness",
+      "--s-decay", "--unpark-after", "--evict-stale-after"), True,
+     "elastic membership and bounded staleness, ROADMAP A6"),
+    (("--heartbeat-dir", "--lease-s", "--heartbeat-interval"), True,
+     "the heartbeat and its relay, ROADMAP A6"),
+    (("--grow",), False, "the heartbeat and its relay, ROADMAP A6"),
+)
+
+
 def cmd_serve(args):
     from .serve import Batcher, ServeEngine, serve_http
     net_param = None
@@ -298,5 +371,55 @@ def main(argv=None):
                     help="torch device to train on (default cuda; the "
                          "CPU runs only when asked: --device cpu)")
     lm.set_defaults(fn=cmd_lm)
+    ms = sub.add_parser("make_synth_cifar",
+                        help="synthetic CIFAR-format dataset (zero-egress "
+                             "stand-in for get_cifar10.sh)")
+    ms.add_argument("output", help="dir for data_batch_*.bin/test_batch.bin")
+    ms.add_argument("--train", type=int, default=50000)
+    ms.add_argument("--test", type=int, default=10000)
+    ms.add_argument("--seed", type=int, default=0)
+    ms.add_argument("--noise", type=float, default=28.0)
+    ms.add_argument("--label-noise", type=float, default=0.0,
+                    help="fraction of labels resampled uniformly (hard "
+                         "mode: caps accuracy at (1-p)+p/10)")
+    ms.set_defaults(fn=cmd_make_synth_cifar)
+    c = sub.add_parser("cifar", help="the CifarApp training loop")
+    c.add_argument("--workers", type=int, default=None,
+                   help="worker slots on the device (default 1)")
+    c.add_argument("--data", help="dir with CIFAR-10 .bin batches")
+    c.add_argument("--prototxt-dir", help="dir with stock cifar10 prototxts")
+    c.add_argument("--strategy", choices=("local_sgd", "dp"),
+                   default="local_sgd")
+    c.add_argument("--tau", type=int, default=10)
+    c.add_argument("--rounds", type=int, default=20)
+    c.add_argument("--test-every", type=int, default=10,
+                   help="test every N rounds (CifarApp.scala:98)")
+    c.add_argument("--log")
+    c.add_argument("--snapshot-prefix",
+                   help="write periodic snapshots under this prefix "
+                        "(enables --resume auto)")
+    c.add_argument("--snapshot-every", type=int, default=0,
+                   help="snapshot every N rounds (0 disables)")
+    c.add_argument("--resume", metavar="auto|STATE",
+                   help="'auto': continue from the newest valid snapshot "
+                        "under --snapshot-prefix; or an explicit "
+                        ".solverstate path")
+    c.add_argument("--echo", type=int, default=1, metavar="E",
+                   help="serve each round's batch E times (data echoing)")
+    c.add_argument("--reshard", action=_NotPorted, default="strict",
+                   allow=("strict",),
+                   what="cross-world resharding, ROADMAP A6",
+                   help="strict only: a snapshot of another world is "
+                        "refused with WorldMismatch")
+    for flags, value, what in _CIFAR_NOT_PORTED:
+        for flag in flags:
+            c.add_argument(flag, action=_NotPorted, what=what,
+                           nargs=None if value else 0,
+                           metavar="V" if value else None,
+                           help=f"not ported: {what}")
+    c.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda; the "
+                        "CPU runs only when asked: --device cpu)")
+    c.set_defaults(fn=cmd_cifar)
     args = p.parse_args(argv)
     return args.fn(args)

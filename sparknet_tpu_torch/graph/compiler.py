@@ -159,6 +159,7 @@ class CompiledNet:
         net_param = upgrade_net(net_param)
         self.phase = phase
         self.dtype = torch.float32     # params (the f32 masters)
+        self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
         self.net_param = filter_net(net_param, phase, level, stages)
         self.name = net_param.name

@@ -15,9 +15,12 @@ leaves the previous manifest pointing at the previous complete snapshot.
   resume_auto          ``--resume auto``
   load_model_only      what serving reads
 
-The port trains on one device in one process, so its world stamp is
-``{"processes": 1}``: the JAX package's single-device Solver stamps the
-same, and snapshots restore in both directions.
+The port trains in one process on one device. The single-device Solver
+stamps ``{"processes": 1}``, as the JAX package's does; the parallel
+solvers, whose W worker slots stand in for a "data" mesh axis, stamp
+``{"processes": 1, "mesh": {"data": W}}``, as the JAX package's do on a
+W-device mesh. A restore compares the stamps as the JAX package does, so
+snapshots restore in both directions between equal worlds.
 """
 
 import glob
@@ -125,35 +128,43 @@ class WorldMismatch(RuntimeError):
     damns every snapshot under the prefix."""
 
 
-def world_signature():
-    """The world a snapshot is resumable in: the port trains in one
-    process on one device."""
-    return {"processes": 1}
+def world_signature(solver=None):
+    """The world a snapshot is resumable in: one process, and for the
+    parallel solvers their worker slots as the "data" mesh axis
+    (``solver.mesh_shape``)."""
+    sig = {"processes": 1}
+    mesh = getattr(solver, "mesh_shape", None)
+    if mesh:
+        sig["mesh"] = {str(k): int(v) for k, v in mesh.items()}
+    return sig
 
 
-def check_world(entry, state_path):
+def check_world(entry, world, state_path):
     """Raise WorldMismatch when manifest ``entry`` carries a world stamp
-    that disagrees with this one's. Entries without a stamp pass."""
+    that disagrees with ``world`` (the restoring solver's
+    world_signature): another process count, or another mesh where both
+    stamps name one. Entries without a stamp pass."""
     want = entry.get("world") if isinstance(entry, dict) else None
-    world = world_signature()
-    if not want:
+    if not want or not world:
         return
     mismatches = []
     if want.get("processes") is not None and \
-            int(want["processes"]) != world["processes"]:
+            int(want["processes"]) != int(world["processes"]):
         mismatches.append(f"process count {want['processes']} vs "
                           f"{world['processes']}")
-    if want.get("mesh"):
-        mismatches.append(f"mesh {want['mesh']}")
+    if want.get("mesh") and world.get("mesh") and \
+            dict(want["mesh"]) != dict(world["mesh"]):
+        mismatches.append(f"mesh {want['mesh']} vs {world['mesh']}")
     if mismatches:
         raise WorldMismatch(
             f"snapshot {state_path} was written by a different world: "
             f"snapshot world {want} vs this run's world {world} "
-            f"({'; '.join(mismatches)}); the port restores only "
-            "single-process, single-device snapshots")
+            f"({'; '.join(mismatches)}). Relaunch with the worker count "
+            "the snapshot names, or start a new run under a different "
+            "snapshot prefix; the port does not reshard snapshots.")
 
 
-def _commit(prefix, model_path, state_path, write_files, iter_):
+def _commit(prefix, model_path, state_path, write_files, iter_, world):
     """Write a binaryproto (model, state) pair through
     ``write_files(tmp_model, tmp_state)`` under temp names, fsync,
     checksum, rename both, then commit the manifest. Returns
@@ -177,7 +188,7 @@ def _commit(prefix, model_path, state_path, write_files, iter_):
             "bytes": {"model": os.path.getsize(tmp_model),
                       "state": os.path.getsize(tmp_state)},
             "time": round(time.time(), 3),
-            "world": world_signature(),
+            "world": world,
         }
         os.replace(tmp_model, model_path)
         os.replace(tmp_state, state_path)
@@ -211,7 +222,7 @@ def save_snapshot(solver, prefix):
         prefix, model_path, state_path,
         lambda tm, ts: solver._write_snapshot_files(
             tm, ts, learned_net=model_path),
-        solver.iter)
+        solver.iter, world_signature(solver))
 
 
 def save_model_snapshot(net, params, prefix, iter=0, state=None):
@@ -228,7 +239,8 @@ def save_model_snapshot(net, params, prefix, iter=0, state=None):
         wire.dump(net.params_to_netproto(params, state), tmp_model)
         wire.dump(Message("SolverState", iter=int(iter),
                           learned_net=model_path, current_step=0), tmp_state)
-    return _commit(prefix, model_path, state_path, write, iter)
+    return _commit(prefix, model_path, state_path, write, iter,
+                   world_signature())
 
 
 def _verify_entry(d, entry):
@@ -335,11 +347,12 @@ def find_resumable(prefix, log_fn=None):
     return state, skipped
 
 
-def check_restorable(state_path):
+def check_restorable(state_path, world=None):
     """Guard an explicit restore(): if a manifest in the snapshot's
     directory covers this state file, verify the whole pair and raise
     ValueError naming the snapshot and the reason when it fails; raise
-    WorldMismatch when its stamp names another world.
+    WorldMismatch when its stamp names another world than ``world``
+    (default: the single-device one).
     Temp files from torn writes are always refused. Returns the matched
     manifest entry, or None for an un-manifested snapshot."""
     if _TMP_TAG in os.path.basename(state_path):
@@ -356,7 +369,8 @@ def check_restorable(state_path):
                 if reason is not None:
                     raise ValueError(
                         f"refusing snapshot {state_path}: {reason}")
-                check_world(entry, state_path)
+                check_world(entry, world or world_signature(),
+                            state_path)
                 return entry
     return None
 

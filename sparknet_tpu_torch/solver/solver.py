@@ -61,6 +61,20 @@ def resolve_nets(sp, base_dir="", net_param=None):
     return train, test
 
 
+def clear_grads(params):
+    for blobs in params.values():
+        for p in blobs:
+            p.grad = None
+
+
+def grads_of(params):
+    """{layer: [each param's accumulated .grad, zeros where it has
+    none]}: the gradients an Updater takes."""
+    return {name: [p.grad if p.grad is not None else torch.zeros_like(p)
+                   for p in blobs]
+            for name, blobs in params.items()}
+
+
 def sp_test_scheduled(sp):
     """Does the solver schedule testing (test_iter/test_interval set)?"""
     return bool(sp.test_iter) or int(sp.test_interval) > 0
@@ -149,10 +163,11 @@ class Solver:
         return float(torch.stack(list(self._smoothed)).mean())
 
     # -- public API --------------------------------------------------------
-    def check_batch(self, batch, leading=()):
+    def check_batch(self, batch, leading=(), shapes=None):
         """Fail fast with blob names when a feed array has the wrong shape
-        (otherwise the error is a cryptic reshape deep inside a layer)."""
-        shapes = self.net.feed_shapes()
+        (otherwise the error is a cryptic reshape deep inside a layer).
+        ``shapes`` defaults to the train net's feed shapes."""
+        shapes = self.net.feed_shapes() if shapes is None else shapes
         for name, want in shapes.items():
             if name not in batch:
                 raise ValueError(f"batch missing feed blob {name!r} "
@@ -170,9 +185,7 @@ class Solver:
         iter_size = int(self.param.iter_size)
         self.check_batch(batch, leading=(iter_size,) if iter_size > 1
                          else ())
-        for blobs in self.params.values():
-            for p in blobs:
-                p.grad = None
+        clear_grads(self.params)
         micros = [batch] if iter_size == 1 else \
             [{k: v[i] for k, v in batch.items()} for i in range(iter_size)]
         losses = []
@@ -182,10 +195,7 @@ class Solver:
             loss.backward()
             losses.append(loss.detach())
         loss = losses[0] if iter_size == 1 else torch.stack(losses).mean()
-        grads = {name: [p.grad if p.grad is not None else torch.zeros_like(p)
-                        for p in blobs]
-                 for name, blobs in self.params.items()}
-        self.updater(self.params, grads, self.history,
+        self.updater(self.params, grads_of(self.params), self.history,
                      self.lr_fn(self.iter), self.iter)
         self.iter += 1
         return loss
@@ -239,11 +249,7 @@ class Solver:
         try:
             with torch.inference_mode():
                 for _ in range(n):
-                    blobs, _ = self.test_net.apply(
-                        self.params, self.state, next(data_iter),
-                        train=False)
-                    out = {b: blobs[b].float()
-                           for b in self.test_net.output_blobs}
+                    out = self._test_outputs(next(data_iter))
                     sums = out if sums is None else \
                         {k: sums[k] + out[k] for k in sums}
         finally:
@@ -251,6 +257,12 @@ class Solver:
                 data_iter.close()
         return {k: v.cpu().numpy().astype(np.float64) / n
                 for k, v in sums.items()}
+
+    def _test_outputs(self, batch):
+        """{output blob: f32 tensor} of the TEST net on one batch."""
+        blobs, _ = self.test_net.apply(self.params, self.state, batch,
+                                       train=False)
+        return {b: blobs[b].float() for b in self.test_net.output_blobs}
 
     # -- checkpointing (Caffe solver.cpp Snapshot :447-521) ----------------
     def snapshot(self, prefix=None):
@@ -292,7 +304,8 @@ class Solver:
         (learned_net). A snapshot its manifest marks partial or corrupt,
         or one stamped by another world, is refused with the reason."""
         from ..resilience import checkpoint
-        checkpoint.check_restorable(state_path)
+        checkpoint.check_restorable(state_path,
+                                    checkpoint.world_signature(self))
         if state_path.endswith(".h5"):
             raise ValueError(
                 f"{state_path}: HDF5 solver states are not ported")

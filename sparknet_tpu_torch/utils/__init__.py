@@ -1,5 +1,6 @@
-"""Utilities of the port: the JSONL MetricsLogger."""
+"""Utilities of the port: the JSONL MetricsLogger and the Watchdog."""
 
 from .metrics import MetricsLogger
+from .watchdog import Watchdog
 
-__all__ = ["MetricsLogger"]
+__all__ = ["MetricsLogger", "Watchdog"]

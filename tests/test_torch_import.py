@@ -27,7 +27,12 @@ MODULES = [
     "sparknet_tpu_torch.solver.hdf5_io", "sparknet_tpu_torch.ops.attention",
     "sparknet_tpu_torch.ops.cuda_attention",
     "sparknet_tpu_torch.ops.normalization", "sparknet_tpu_torch.data",
-    "sparknet_tpu_torch.utils",
+    "sparknet_tpu_torch.utils", "sparknet_tpu_torch.parallel",
+    "sparknet_tpu_torch.parallel.data_parallel", "sparknet_tpu_torch.apps",
+    "sparknet_tpu_torch.apps.cifar_app", "sparknet_tpu_torch.data.cifar",
+    "sparknet_tpu_torch.data.prefetch", "sparknet_tpu_torch.data.synthetic",
+    "sparknet_tpu_torch.models.proto_loader", "sparknet_tpu_torch.tools",
+    "sparknet_tpu_torch.utils.watchdog",
 ]
 
 
