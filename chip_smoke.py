@@ -111,12 +111,31 @@ Phases, each of which raises on failure (exit code not 0):
               with the control (slot 0's params in place of the average)
               failing, and the tau-1 identity with one DataParallelSolver
               step on the card.
- 9. the kernel table as one JSON line, an entry for every timed f32
+ 9. records — CaffeNet trained from stock records: 2,560 + 512 Datums of
+              3x256x256 uint8 (1,000-class class-gaussian images, one
+              seed) written by the port's LMDBWriter, their mean by
+              compute_image_mean; the device transform on the card
+              against the host transform at CaffeNet's b256 (bit for bit,
+              with a shifted-offset control that must differ), its time
+              against its bound, the host transform's and the copies to
+              the card; `python -m sparknet_tpu_torch train` on a
+              stock-form CaffeNet train_val (Data layers, LMDB, batch
+              256, crop 227, mirror, mean_file; bvlc_reference_caffenet's
+              solver) for 30 iterations and one test pass (finite losses,
+              2 LRN forward and 2 backward launches an iteration); in
+              process, the record-fed step in both modes (device
+              transform, --host-transform) beside the step on a batch
+              made on the card, each with images/s and a profiler
+              window's busy share, and the host reader's time; then the
+              `imagenet` verb at 4 slots x b256, 1,000 classes, tau cut
+              from 50 to 2, 3 rounds (finite losses, images/s a round).
+10. the kernel table as one JSON line, an entry for every timed f32
     row of phase 3 and the LM's flash row of phase 6 (launches from the
     serving path for the GoogLeNet forwards, the training path for their
-    backwards, the CaffeNet local-SGD rounds for CaffeNet's LRN shapes,
-    the lm verb's first run for the flash kernels), the nvidia-smi line,
-    and as the last line {"ok": true, "device": {...}}.
+    backwards, the record-fed train verb of phase 9 for CaffeNet's LRN
+    shapes, with the local-SGD rounds' and the imagenet verb's beside
+    them, the lm verb's first run for the flash kernels), the nvidia-smi
+    line, and as the last line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -1814,6 +1833,350 @@ def phase_local_sgd_all(torch, card, tmp):
     return {"cli": cli_out, "rounds": rounds, "card_vs_cpu": parity,
             "wall_s": wall}
 
+# -- phase 9 --------------------------------------------------------------
+
+RECORD_SHAPE = (3, 256, 256)          # ImageNet app's SOURCE_SIZE
+CAFFENET_BATCH, CAFFENET_CROP = 256, 227
+DB_TRAIN, DB_TEST = 2560, 512
+DB_ITERS, DB_TEST_ITER, DB_TEST_INTERVAL = 30, 2, 20
+IMAGENET_TAU, IMAGENET_ROUNDS = 2, 3
+
+
+def _caffenet_db_files(tmp):
+    """The records of phase 9 and a stock-form CaffeNet train_val over
+    them: DB_TRAIN + DB_TEST 3x256x256 uint8 Datums of 1,000-class
+    class-gaussian images (the ImageNet app's synthetic images, one
+    seed) in two LMDBs, their mean image, zoo.caffenet's body under two
+    Data layers (TRAIN: 227 random crops, mirror, mean_file; TEST: center
+    crops) and bvlc_reference_caffenet's solver values. -> (solver path,
+    seconds to write)."""
+    from sparknet_tpu_torch import tools
+    from sparknet_tpu_torch.data.datum import array_to_datum
+    from sparknet_tpu_torch.data.lmdb import LMDBWriter
+    from sparknet_tpu_torch.data.synthetic import class_gaussian_images
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.proto import Message, text_format
+    t0 = time.perf_counter()
+    images, labels = class_gaussian_images(
+        DB_TRAIN + DB_TEST, shape=RECORD_SHAPE, num_classes=1000, seed=SEED)
+    images = np.clip(images * 32 + 128, 0, 255).astype(np.uint8)
+    t_gen = time.perf_counter() - t0
+    for name, lo, hi in (("train_lmdb", 0, DB_TRAIN),
+                         ("test_lmdb", DB_TRAIN, DB_TRAIN + DB_TEST)):
+        with LMDBWriter(os.path.join(tmp, name)) as w:
+            for i in range(lo, hi):
+                w.put(b"%08d" % (i - lo),
+                      array_to_datum(images[i], int(labels[i])))
+    del images
+    t_write = time.perf_counter() - t0 - t_gen
+    tools.compute_image_mean(os.path.join(tmp, "train_lmdb"),
+                             os.path.join(tmp, "mean.binaryproto"),
+                             log=lambda *a: None)
+    net = Message("NetParameter", name="CaffeNet")
+    for phase, src, mirror in (("TRAIN", "train_lmdb", True),
+                               ("TEST", "test_lmdb", False)):
+        lp = Message("LayerParameter", name="data", type="Data",
+                     data_param=dict(source=src, batch_size=CAFFENET_BATCH,
+                                     backend="LMDB"),
+                     transform_param=dict(crop_size=CAFFENET_CROP,
+                                          mirror=mirror,
+                                          mean_file="mean.binaryproto"))
+        lp.top.append("data")
+        lp.top.append("label")
+        lp.add("include", phase=phase)
+        net.layer.append(lp)
+    for lp in zoo.caffenet(batch_size=CAFFENET_BATCH, with_data=False).layer:
+        net.layer.append(lp)
+    text_format.dump(net, os.path.join(tmp, "train_val.prototxt"))
+    sp = Message("SolverParameter", net="train_val.prototxt", base_lr=0.01,
+                 lr_policy="step", gamma=0.1, stepsize=100000, momentum=0.9,
+                 weight_decay=0.0005, display=10, max_iter=DB_ITERS,
+                 test_iter=[DB_TEST_ITER], test_interval=DB_TEST_INTERVAL,
+                 test_initialization=False, random_seed=SEED)
+    path = os.path.join(tmp, "solver.prototxt")
+    text_format.dump(sp, path)
+    mb = sum(os.path.getsize(os.path.join(tmp, d, "data.mdb"))
+             for d in ("train_lmdb", "test_lmdb")) / 1e6
+    dt = time.perf_counter() - t0
+    print(f"[records] {DB_TRAIN} + {DB_TEST} Datums of {RECORD_SHAPE} uint8 "
+          f"({mb:.0f} MB of LMDB): images {t_gen:.1f} s, LMDBWriter "
+          f"{t_write:.1f} s, all with the mean {dt:.1f} s")
+    return path, dt
+
+
+def _launches_line(out, tag):
+    last = out.strip().splitlines()[-1]
+    check(last.startswith("Kernel launches: "),
+          f"[{tag}] the verb's last line is not its launch counts: {last}")
+    return json.loads(last[len("Kernel launches: "):])
+
+
+def phase_db_cli(tmp, solver_path, device="cuda"):
+    """The train verb on the records: DB_ITERS iterations of CaffeNet
+    b256 from the LMDB, the device transform (the default), one test
+    pass at DB_TEST_INTERVAL. The loss must be finite and each LRN
+    kernel launch twice per iteration (norm1, norm2), the forward also
+    twice per test batch."""
+    cmd = [sys.executable, "-m", "sparknet_tpu_torch", "train", "--solver",
+           solver_path, "--device", device]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    for line in out.stdout.strip().splitlines():
+        print(f"[db-cli] {line}")
+    check(out.returncode == 0,
+          f"{' '.join(cmd)} exited {out.returncode}: {out.stderr[-4000:]}")
+    wall = time.perf_counter() - t0
+    print(f"[db-cli] exited 0 in {wall:.1f} s")
+    stdout = out.stdout
+    check(f"({DB_TRAIN} records, device-transform)" in stdout,
+          "the train verb did not train from the LMDB records")
+    check("synthetic" not in stdout, "the train verb fed synthetic batches")
+    losses = [float(l.split("loss = ")[1].split(",")[0])
+              for l in stdout.splitlines() if "Iteration " in l]
+    check(len(losses) == DB_ITERS // 10 and all(np.isfinite(losses)),
+          f"train verb losses {losses}")
+    tests = [l for l in stdout.splitlines() if "Test net output" in l]
+    check(len(tests) == 2, f"want one test pass (accuracy, loss): {tests}")
+    launches = _launches_line(stdout, "db-cli")
+    # 2 a training iteration, the forward also 2 a test batch; none on
+    # the CPU, where the plain versions run
+    on_card = device == "cuda"
+    want = (on_card * (2 * DB_ITERS + 2 * DB_TEST_ITER),
+            on_card * 2 * DB_ITERS)
+    check((launches["lrn_across"], launches["lrn_across_bwd"]) == want,
+          f"train verb LRN launches {launches}: want {want} (forward, "
+          "backward)")
+    return {"losses": losses, "tests": tests, "launches": launches,
+            "wall_s": wall}
+
+
+def _host_ms(fn, reps=5):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_transform_check(torch, card, tmp):
+    """The device transform on the card against the host transform at
+    CaffeNet's shapes (b256 of 3x256x256 uint8 records, 227 crops,
+    mirror, the full mean file) with the same draws from one seeded
+    RandomState: equal bit for bit. Control: #x shifted by one column
+    must differ. Then the device transform's time per batch (CUDA
+    events, L2 flushed) against its bound (uint8 in, f32 out over 3.35
+    TB/s), the host transform's and the copy of each batch to the card
+    from pinned memory."""
+    from sparknet_tpu_torch.data.device_transform import \
+        build_device_transformer
+    from sparknet_tpu_torch.data.transforms import DataTransformer
+    from sparknet_tpu_torch.proto import Message
+    tp = Message("TransformationParameter", crop_size=CAFFENET_CROP,
+                 mirror=True,
+                 mean_file=os.path.join(tmp, "mean.binaryproto"))
+    rs = np.random.RandomState(SEED)
+    images = rs.randint(0, 256, (CAFFENET_BATCH,) + RECORD_SHAPE) \
+        .astype(np.uint8)
+    host = DataTransformer(tp, phase=0, rng=np.random.RandomState(SEED + 1))
+    dev = build_device_transformer(tp, phase=0,
+                                   rng=np.random.RandomState(SEED + 1))
+    want = host(images)
+    aux = dev.aux(CAFFENET_BATCH, RECORD_SHAPE)
+    fn = dev.device_fn()
+    x = torch.from_numpy(images).cuda()
+    auxd = {k: torch.from_numpy(v).cuda() for k, v in aux.items()}
+    got = fn({"data": x, **auxd})["data"]
+    torch.cuda.synchronize()
+    err = float(np.abs(got.cpu().numpy() - want).max())
+    shifted = dict(auxd)
+    shifted[dev.kx] = (auxd[dev.kx] + 1).clamp_max(256 - CAFFENET_CROP)
+    control = float(np.abs(fn({"data": x, **shifted})["data"].cpu().numpy()
+                           - want).max())
+    timer = Timer(torch)
+    ms = timer(lambda: fn({"data": x, **auxd}))
+    nbytes = x.numel() + want.size * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    host_ms = _host_ms(lambda: host(images))
+    pinned = torch.from_numpy(images).pin_memory()
+    pinned_f32 = torch.from_numpy(want).pin_memory()
+    h2d_ms = Timer(torch, reps=10, flush=False)(
+        lambda: pinned.to("cuda", non_blocking=True))
+    h2d_f32_ms = Timer(torch, reps=10, flush=False)(
+        lambda: pinned_f32.to("cuda", non_blocking=True))
+    print(f"[transform] device against host at CaffeNet's b256 "
+          f"(3x256x256 uint8 -> 227 crops, mirror, full mean): max abs "
+          f"difference {err:g} (want 0); control, #x shifted one column: "
+          f"{control:g} (want > 0)")
+    print(f"[transform] device transform {ms:.4f} ms a batch (median of 30,"
+          f" L2 flushed; bound {bound_ms:.4f} ms: {nbytes / 1e6:.1f} MB over"
+          f" 3.35 TB/s, {100 * bound_ms / ms:.1f}% of it); host transform "
+          f"{host_ms:.1f} ms (numpy, median of 5); copy to the card from "
+          f"pinned memory: uint8 batch {images.nbytes / 1e6:.1f} MB "
+          f"{h2d_ms:.3f} ms, f32 crops {want.nbytes / 1e6:.1f} MB "
+          f"{h2d_f32_ms:.3f} ms; {card}")
+    check(err == 0.0, f"device transform differs from the host's by {err}")
+    check(control > 0.0, "control: shifted crops read equal, the check "
+                         "would not catch a wrong offset")
+    return {"max_abs_err": err, "control": control, "ms": ms,
+            "bound_ms": bound_ms, "host_ms": host_ms, "h2d_u8_ms": h2d_ms,
+            "h2d_f32_ms": h2d_f32_ms}
+
+
+def _step_events(torch, solver, batches, steps):
+    """Per-step times (ms) from CUDA events recorded between consecutive
+    train steps with no synchronization: the card's clock, which counts
+    its idle time waiting for the host between steps."""
+    events = []
+    for _ in range(steps + 1):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        if len(events) <= steps:
+            solver.train_step(next(batches))
+    events[-1].synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def phase_record_steps(torch, card, tmp, solver_path, steps=12):
+    """CaffeNet b256 train steps in process from the records, through the
+    train verb's own feed (the source, a PrefetchIterator whose worker
+    runs the H2DStager), in both modes: the device transform and the
+    host transform; and on one batch made on the card (phase 8's input),
+    with the same Solver. Each: the median step over CUDA events between
+    steps, images/s, the LRN launches and a profiler window's busy
+    share. Also the host reader's time per batch."""
+    from sparknet_tpu_torch.data.db_source import build_db_feed
+    from sparknet_tpu_torch.data.prefetch import H2DStager, PrefetchIterator
+    from sparknet_tpu_torch.graph.compiler import TRAIN
+    from sparknet_tpu_torch.ops import KERNEL_WRAPPERS, kernel_launches
+    from sparknet_tpu_torch.proto import text_format
+    from sparknet_tpu_torch.solver import Solver
+    from sparknet_tpu_torch.solver.solver import resolve_nets
+    sp = text_format.load(solver_path, "SolverParameter")
+    train_np, _ = resolve_nets(sp, tmp)
+    shapes, probe = build_db_feed(train_np, TRAIN, tmp, seed=SEED,
+                                  device_transform=True)
+    it = iter(probe)
+    reader_ms = _host_ms(lambda: next(it))
+    probe.close()
+    solver = Solver(sp, base_dir=tmp, feed_shapes=shapes, device="cuda",
+                    log_fn=None)
+    out = {"reader_ms": reader_ms}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    on_card = {"data": torch.randn((CAFFENET_BATCH, 3, CAFFENET_CROP,
+                                    CAFFENET_CROP), generator=gen,
+                                   device="cuda"),
+               "label": torch.randint(0, 1000, (CAFFENET_BATCH,),
+                                      generator=gen, device="cuda",
+                                      dtype=torch.int32)}
+    for mode in ("device-transform", "host-transform", "on-card batch"):
+        src = data = None
+        if mode == "on-card batch":
+            solver.set_input_transform(None)
+            data = iter(lambda: on_card, None)
+        else:
+            _, src = build_db_feed(train_np, TRAIN, tmp, seed=SEED,
+                                   device_transform=mode.startswith("dev"))
+            if src.device_mode:
+                solver.set_input_transform(src.device_fn,
+                                           src.raw_feed_overrides)
+            else:
+                solver.set_input_transform(None)
+            data = PrefetchIterator(iter(src), depth=3,
+                                    transform=H2DStager(slots=2),
+                                    name="train_feed")
+        try:
+            for _ in range(3):                          # warm-up
+                solver.train_step(next(data))
+            torch.cuda.synchronize()
+            for fn in KERNEL_WRAPPERS:
+                fn.launches = 0
+            times = _step_events(torch, solver, data, steps)
+            launches = kernel_launches()
+            ms = statistics.median(times)
+            prof = _profile(torch, lambda: solver.train_step(next(data)), 4,
+                            _caffenet_group, f"CaffeNet b256 step, {mode}",
+                            card, top=6)
+        finally:
+            if src is not None:
+                data.close()
+                src.close()
+        busy = "not measured" if prof is None \
+            else f"{100 * prof['busy_share']:.1f}%"
+        print(f"[db-steps] CaffeNet b256, {mode}: step {ms:.2f} ms (median "
+              f"of {steps} over CUDA events between steps; "
+              f"{[round(t, 2) for t in times]}), "
+              f"{CAFFENET_BATCH / (ms / 1e3):,.0f} images/s, device busy "
+              f"{busy}; LRN launches {launches['lrn_across']} forward, "
+              f"{launches['lrn_across_bwd']} backward in {steps} steps; "
+              f"{card}")
+        check(launches["lrn_across"] == 2 * steps and
+              launches["lrn_across_bwd"] == 2 * steps,
+              f"{mode}: LRN launches {launches} in {steps} steps, want "
+              f"{2 * steps} each")
+        out[mode] = {"step_ms": ms, "steps_ms": times,
+                     "images_per_s": CAFFENET_BATCH / (ms / 1e3),
+                     "launches": launches, "profile": prof}
+    print(f"[db-steps] host reader (LMDB -> uint8 batch + draws): "
+          f"{reader_ms:.1f} ms a batch (median of 5); {card}")
+    del solver
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_imagenet_cli(workers=4, batch=256, classes=1000, device="cuda"):
+    """The imagenet verb at the app's widths: 4 slots x b256, 1,000
+    classes, CaffeNet, tau cut from 50 to IMAGENET_TAU (steps only),
+    IMAGENET_ROUNDS rounds, a test at round 0. Round losses must be
+    finite; each prints its images/s; the LRN kernels launch twice a
+    step (and the forward twice a test batch)."""
+    cmd = [sys.executable, "-m", "sparknet_tpu_torch", "imagenet",
+           "--workers", str(workers), "--batch", str(batch), "--classes",
+           str(classes), "--tau", str(IMAGENET_TAU), "--rounds",
+           str(IMAGENET_ROUNDS), "--device", device]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    for line in out.stdout.strip().splitlines():
+        print(f"[imagenet-cli] {line}")
+    check(out.returncode == 0,
+          f"{' '.join(cmd)} exited {out.returncode}: {out.stderr[-4000:]}")
+    wall = time.perf_counter() - t0
+    print(f"[imagenet-cli] exited 0 in {wall:.1f} s")
+    rounds = [l for l in out.stdout.splitlines() if ": loss = " in l]
+    losses = [float(l.split(": loss = ")[1].split(",")[0]) for l in rounds]
+    rates = [float(l.rsplit(", ", 1)[1].split()[0]) for l in rounds]
+    check(len(losses) == IMAGENET_ROUNDS and all(np.isfinite(losses)),
+          f"imagenet round losses {losses}")
+    check(f"device={device}" in out.stdout,
+          f"the imagenet verb did not run on {device}")
+    launches = _launches_line(out.stdout, "imagenet-cli")
+    # 2 a step, the forward also 2 for each of the 4 test batches
+    steps = IMAGENET_TAU * workers * IMAGENET_ROUNDS * (device == "cuda")
+    want = (2 * steps + 8 * bool(steps), 2 * steps)
+    check((launches["lrn_across"], launches["lrn_across_bwd"]) == want,
+          f"imagenet LRN launches {launches}: want {want} (forward, "
+          "backward)")
+    return {"losses": losses, "images_per_s": rates, "launches": launches,
+            "wall_s": wall}
+
+
+def phase_records_all(torch, card, tmp):
+    t0 = time.perf_counter()
+    db = os.path.join(tmp, "records")
+    os.makedirs(db, exist_ok=True)
+    solver_path, write_s = _caffenet_db_files(db)
+    transform = phase_transform_check(torch, card, db)
+    cli_out = phase_db_cli(tmp, solver_path)
+    steps = phase_record_steps(torch, card, db, solver_path)
+    imagenet = phase_imagenet_cli()
+    wall = time.perf_counter() - t0
+    print(f"[records] phase 9 wall time {wall:.1f} s")
+    return {"write_s": write_s, "transform": transform, "cli": cli_out,
+            "steps": steps, "imagenet": imagenet, "wall_s": wall}
+
 
 KERNELS = {
     # name: (source, replaces, path whose launches the row reports)
@@ -1855,26 +2218,32 @@ def main():
     lm_parity = phase_lm_card_vs_cpu(torch, tmp)
     torch.cuda.empty_cache()
     local_sgd = phase_local_sgd_all(torch, card, tmp)
+    torch.cuda.empty_cache()
+    records = phase_records_all(torch, card, tmp)
     paths = {"serve auto": served["auto"], "serve on": served["on"],
              "train auto": trained["launches"]["auto"],
              "train on": trained["launches"]["on"],
              "lm verb": lm_cli["launches"],
              "local-sgd caffenet": local_sgd["rounds"]["caffenet"][
-                 "launches"]}
+                 "launches"],
+             "train verb on records": records["cli"]["launches"]}
     table = []
     for name, (source, replaces, own_path) in KERNELS.items():
         rows = [r for r in results + flash if r["name"] == name and r["row"]]
         check(rows, f"no timed row of {name}")
         for r in rows:          # one entry per timed shape of the kernel
-            # CaffeNet's shapes are the local-SGD round's
-            path = "local-sgd caffenet" \
-                if tuple(r["shape"]) in CAFFENET_LRN_SHAPES else own_path
+            # CaffeNet's shapes: the record-fed train verb's (phase 9)
+            caffenet = tuple(r["shape"]) in CAFFENET_LRN_SHAPES
+            path = "train verb on records" if caffenet else own_path
             table.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": paths[path][name],
                 "launches_path": path,
                 "launches_train": trained["launches"]["auto"][name],
                 "launches_lm_step": lm_step["launches"][name],
+                **({"launches_local_sgd": paths["local-sgd caffenet"][name],
+                    "launches_imagenet": records["imagenet"]["launches"][
+                        name]} if caffenet else {}),
                 "shape": r["shape"], "dtype": r["dtype"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1890,7 +2259,7 @@ def main():
             "launches", "fixed_batch_losses", "step_ms", "images_per_s",
             "profile", "card_vs_cpu")}, **trained_cli},
         "lm": {"cli": lm_cli, "step": lm_step, "card_vs_cpu": lm_parity},
-        "local_sgd": local_sgd}))
+        "local_sgd": local_sgd, "records": records}))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

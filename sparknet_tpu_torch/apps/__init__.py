@@ -1,6 +1,7 @@
-"""Applications of the port: the CIFAR-10 app over the parallel
-solvers (the ImageNet app comes with the port's LMDB readers)."""
+"""Applications of the port: the CIFAR-10 and ImageNet apps over the
+parallel solvers."""
 
 from .cifar_app import CifarApp
+from .imagenet_app import ImageNetApp
 
-__all__ = ["CifarApp"]
+__all__ = ["CifarApp", "ImageNetApp"]

@@ -3,9 +3,17 @@
   train   train from a solver prototxt on one device: Caffe's solver
           schedule (display, test_interval, snapshot cadence), crash-safe
           snapshots, ``--weights`` finetuning, ``--snapshot`` /
-          ``--resume auto|STATE`` restores. The port has no LMDB readers
-          yet, so it feeds synthetic batches of the net's feed shapes.
-          Its last line counts each CUDA kernel's launches in the run.
+          ``--resume auto|STATE`` restores. The net's Data layers read
+          their LMDB/LevelDB records, the raw records shipped to the card
+          and cropped, mirrored and mean-subtracted there
+          (``--host-transform`` does that on the host); a net whose
+          sources do not exist trains on synthetic batches of its feed
+          shapes and says so. Its last line counts each CUDA kernel's
+          launches in the run.
+  test    score a model's TEST net over its Data-layer records.
+  time    per-layer forward and forward+backward times.
+  device_query
+          list the CUDA devices.
   serve   weights-only inference over a snapshot prefix — continuous
           batching into power-of-two buckets, hot reload on new
           snapshots, graceful SIGTERM/SIGINT drain (exit 0); exit 3 when
@@ -21,8 +29,15 @@
           data parallelism (--strategy dp); tests every --test-every
           rounds, snapshots and --resume auto. The JAX verb's multi-host,
           chaos, metrics, health, elastic and heartbeat flags exit 2.
-  make_synth_cifar
-          write a synthetic CIFAR-format dataset (no download needed).
+  imagenet
+          the ImageNetApp loop: CaffeNet under local SGD (or --strategy
+          dp) on synthetic class-gaussian images, transformed on the
+          device.
+  make_synth_cifar, convert_cifar_data, compute_image_mean,
+  convert_imageset
+          write a synthetic CIFAR-format dataset (no download needed),
+          turn CIFAR binaries or image files into Datum LMDBs, and
+          compute a DB's mean image.
 
 All run on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given.
@@ -61,6 +76,35 @@ def _net_base_dir(sp, solver_path):
         d = parent
 
 
+def _feed_shapes_arg(specs):
+    """["data=100,3,32,32", ...] -> {"data": (100,3,32,32)} (the shape DB
+    records would supply)."""
+    out = {}
+    for spec in specs or ():
+        name, _, dims = spec.partition("=")
+        out[name.strip()] = tuple(int(d) for d in dims.replace("x", ",")
+                                  .split(","))
+    return out
+
+
+def _real_feeds(train_np, test_np, base_dir, seed=None,
+                device_transform=False):
+    """Open the DB sources the net's Data layers name, when they exist.
+    Returns (train_shapes, train_src, test_shapes, test_src) with None
+    entries where no real source is available."""
+    from .data.db_source import build_db_feed
+    from .graph.compiler import TEST, TRAIN
+    train_shapes, train_src = build_db_feed(
+        train_np, TRAIN, base_dir, seed=seed,
+        device_transform=device_transform)
+    test_shapes = test_src = None
+    if test_np is not None:
+        test_shapes, test_src = build_db_feed(
+            test_np, TEST, base_dir, seed=seed,
+            device_transform=device_transform)
+    return train_shapes, train_src, test_shapes, test_src
+
+
 def make_data_iter(net, seed=0):
     """Synthetic batch stream of the net's feed shapes: N(0, 1) data,
     labels in [0, 10)."""
@@ -77,10 +121,12 @@ def make_data_iter(net, seed=0):
 
 
 def cmd_train(args):
+    from .data.prefetch import H2DStager, PrefetchIterator
     from .ops import kernel_launches
     from .proto import text_format
     from .resilience import checkpoint
     from .solver import Solver
+    from .solver.solver import resolve_nets
     sp = text_format.load(args.solver, "SolverParameter")
     base_dir = _net_base_dir(sp, args.solver)
     if sp.has("snapshot_prefix") and base_dir \
@@ -88,31 +134,77 @@ def cmd_train(args):
         # stock prefixes are caffe-root-relative: anchor them where the
         # net resolved, not the process CWD
         sp.snapshot_prefix = os.path.join(base_dir, sp.snapshot_prefix)
-    solver = Solver(sp, base_dir=base_dir, device=args.device)
-    prefix = args.snapshot_prefix or (
-        sp.snapshot_prefix if sp.has("snapshot_prefix") else None)
-    if args.weights:
-        solver.load_weights(args.weights)
-    if args.snapshot:
-        solver.restore(args.snapshot)
-    if args.resume:
-        if args.resume == "auto":
-            if not prefix:
-                raise SystemExit("--resume auto needs a snapshot prefix "
-                                 "(--snapshot-prefix or the solver's "
-                                 "snapshot_prefix)")
-            checkpoint.resume_auto(solver, prefix, log_fn=print)
+    train_np, test_np = resolve_nets(sp, base_dir)
+    seed = int(sp.random_seed) if int(sp.random_seed) >= 0 else None
+    train_shapes, train_src, test_shapes, test_src = _real_feeds(
+        train_np, test_np, base_dir, seed=seed,
+        device_transform=not args.host_transform)
+    feed = {**(train_shapes or {}), **_feed_shapes_arg(args.input_shape)}
+    data_iter = None
+    try:
+        solver = Solver(sp, base_dir=base_dir, feed_shapes=feed or None,
+                        test_feed_shapes=test_shapes, device=args.device)
+        # device mode: the sources yield raw records and the crop/mirror
+        # draws; the transform runs on the device before each forward
+        test_fn = test_src.device_fn \
+            if test_src is not None and test_src.device_mode else None
+        if train_src is not None and train_src.device_mode:
+            solver.set_input_transform(train_src.device_fn,
+                                       train_src.raw_feed_overrides,
+                                       test_fn=test_fn)
+        elif test_fn is not None:
+            solver.set_input_transform(None, None, test_fn=test_fn)
+        prefix = args.snapshot_prefix or (
+            sp.snapshot_prefix if sp.has("snapshot_prefix") else None)
+        if args.weights:
+            solver.load_weights(args.weights)
+        if args.snapshot:
+            solver.restore(args.snapshot)
+        if args.resume:
+            if args.resume == "auto":
+                if not prefix:
+                    raise SystemExit("--resume auto needs a snapshot prefix "
+                                     "(--snapshot-prefix or the solver's "
+                                     "snapshot_prefix)")
+                checkpoint.resume_auto(solver, prefix, log_fn=print)
+            else:
+                solver.restore(args.resume)
+        total = args.iterations or int(sp.max_iter) or 1000
+        if train_src is not None:
+            kind = "device-transform" if train_src.device_mode \
+                else "host-transform"
+            print(f"Training from {train_src.source} "
+                  f"({train_src.num_records} records, {kind})")
+            # the copy to the card runs in the prefetch worker, on a side
+            # stream, so batch k+1's copy overlaps step k; iter_size > 1
+            # stacks micro-batches on the host, so it feeds host arrays
+            stager = H2DStager(slots=2, device=solver.device) \
+                if int(sp.iter_size) <= 1 else None
+            data_iter = PrefetchIterator(iter(train_src), depth=3,
+                                         transform=stager, name="train_feed")
         else:
-            solver.restore(args.resume)
-    total = args.iterations or int(sp.max_iter) or 1000
-    print("WARNING: the port has no Data-layer LMDB reader yet; "
-          "feeding synthetic noise (shapes only)")
-    data_iter = make_data_iter(solver.net)
-    test_fn = (lambda: make_data_iter(solver.test_net, seed=1)) \
-        if solver.test_net is not None else None
-    while solver.iter < total:
-        solver.step(min(100, total - solver.iter), data_iter,
-                    test_data_fn=test_fn)
+            print("WARNING: no Data-layer LMDB source found; "
+                  "feeding synthetic noise (shapes only)")
+            data_iter = make_data_iter(solver.net)
+        if test_src is not None:
+            # a fresh pass per test, not prefetched: a prefetch worker
+            # would draw augmentation randomness for batches past the
+            # test_iter consumed, moving the source's RandomState between
+            # passes
+            test_data_fn = lambda: iter(test_src)  # noqa: E731
+        else:
+            test_data_fn = (lambda: make_data_iter(solver.test_net, seed=1)) \
+                if solver.test_net is not None else None
+        while solver.iter < total:
+            solver.step(min(100, total - solver.iter), data_iter,
+                        test_data_fn=test_data_fn)
+    finally:
+        if train_src is not None:
+            if data_iter is not None:
+                data_iter.close()
+            train_src.close()
+        if test_src is not None:
+            test_src.close()
     # a final snapshot unless the in-loop cadence already wrote this
     # iteration (Caffe solver.cpp Solve tail :300-306)
     cadence_fired = int(sp.snapshot) and sp.has("snapshot_prefix") \
@@ -120,6 +212,163 @@ def cmd_train(args):
     if prefix and sp.snapshot_after_train and not cadence_fired:
         solver.snapshot(prefix=prefix)
     print(f"Optimization done, iter={solver.iter}")
+    print(f"Kernel launches: {json.dumps(kernel_launches())}")
+    return 0
+
+
+def cmd_test(args):
+    """Score a model's TEST net over its Data-layer records (the JAX
+    verb's host-transformed feed), or synthetic batches where the source
+    does not exist."""
+    from .data.db_source import resolve_db_feed
+    from .graph.compiler import TEST
+    from .proto import Message, text_format
+    from .solver import Solver
+    net_param = text_format.load(args.model, "NetParameter")
+    sp = Message("SolverParameter", base_lr=0.0, lr_policy="fixed",
+                 display=0)
+    sp.net_param = net_param
+    # stock prototxt sources are caffe-root-relative: walk up from the
+    # model file until one resolves
+    test_shapes, test_src = resolve_db_feed(
+        net_param, TEST, os.path.dirname(os.path.abspath(args.model)))
+    try:
+        # the (unused) TRAIN net compiles with the test shapes: param
+        # shapes do not depend on the batch, and only the TEST net runs
+        solver = Solver(sp, feed_shapes=_feed_shapes_arg(args.input_shape)
+                        or test_shapes, test_feed_shapes=test_shapes,
+                        device=args.device)
+        if args.weights:
+            solver.load_weights(args.weights)
+        if test_src is not None:
+            print(f"Scoring on {test_src.source} "
+                  f"({test_src.num_records} records)")
+            it = iter(test_src)
+        else:
+            print("WARNING: no Data-layer LMDB source found; synthetic "
+                  "batches")
+            it = make_data_iter(solver.test_net or solver.net)
+        scores = solver.test(it, num_iters=args.iterations)
+    finally:
+        if test_src is not None:
+            test_src.close()
+    for k, v in scores.items():
+        print(f"{k} = {np.asarray(v).mean():.6f}")
+    return 0
+
+
+def cmd_time(args):
+    """Per-layer forward and forward+backward times (`caffe time`,
+    caffe.cpp:290-376): each layer alone on random inputs of its true
+    shapes, on the device; a layer that cannot run so (a loss fed
+    random labels) prints its error."""
+    import time
+    import torch
+    from .graph.compiler import TRAIN, CompiledNet
+    from .proto import text_format
+    net = CompiledNet(text_format.load(args.model, "NetParameter"), TRAIN,
+                      feed_shapes=_feed_shapes_arg(args.input_shape),
+                      device=args.device)
+    params, _ = net.init(torch.Generator().manual_seed(0))
+    dev = net.device
+    rs = np.random.RandomState(0)
+    iters = args.iterations
+
+    def timed(fn):
+        fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    print(f"{'layer':<28}{'type':<18}{'fwd ms':>10}{'fwd+bwd ms':>12}")
+    total_f = total_fb = 0.0
+    for lp, impl, bottoms, tops in net.layers:
+        if getattr(impl, "is_feed", False):
+            continue
+        bvals = [torch.tensor(rs.randn(*net.blob_shapes[b]),
+                              dtype=torch.float32, device=dev,
+                              requires_grad=True) for b in bottoms]
+        lparams = [p.detach().requires_grad_(True)
+                   for p in net.resolve_params(params, lp.name)]
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def fwd():
+            tv = impl.apply(lparams, bvals, True, gen) if impl.needs_rng \
+                else impl.apply(lparams, bvals, True)
+            return sum(t.float().sum() for t in tv)
+
+        def fwd_bwd():
+            out = fwd()
+            leaves = bvals + lparams
+            if out.requires_grad:
+                torch.autograd.grad(out, leaves, allow_unused=True)
+
+        try:
+            f_ms = timed(fwd)
+            fb_ms = timed(fwd_bwd)
+        except Exception as e:     # a layer that cannot run on random input
+            print(f"{lp.name:<28}{lp.type:<18}{'—':>10}  ({e})")
+            continue
+        total_f += f_ms
+        total_fb += fb_ms
+        print(f"{lp.name:<28}{lp.type:<18}{f_ms:>10.3f}{fb_ms:>12.3f}")
+    print(f"{'TOTAL':<28}{'':<18}{total_f:>10.3f}{total_fb:>12.3f}")
+    print(f"device: {dev}; layer by layer, so the whole step (one "
+          "autograd graph, the fused epilogue sites) differs")
+    return 0
+
+
+def cmd_device_query(args):
+    import torch
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if not n:
+        print("no CUDA device (torch.cuda.is_available() is False)")
+        return 1
+    for i in range(n):
+        p = torch.cuda.get_device_properties(i)
+        print(f"id {i}: {p.name} (cuda) sm_{p.major}{p.minor}, "
+              f"{p.multi_processor_count} SMs, "
+              f"{p.total_memory / 2 ** 30:.1f} GiB")
+    return 0
+
+
+def cmd_convert_cifar(args):
+    from . import tools
+    tools.convert_cifar_data(args.input, args.output)
+    return 0
+
+
+def cmd_compute_mean(args):
+    from . import tools
+    # backend None: open_db sniffs the layout, so LevelDB dirs work like
+    # the reference tool's -backend flag (compute_image_mean.cpp:22)
+    tools.compute_image_mean(args.db, args.output, backend=args.backend)
+    return 0
+
+
+def cmd_convert_imageset(args):
+    from . import tools
+    tools.convert_imageset(args.root, args.listfile, args.db,
+                           resize_height=args.resize_height,
+                           resize_width=args.resize_width, gray=args.gray,
+                           shuffle=args.shuffle, encoded=args.encoded,
+                           backend=args.backend)
+    return 0
+
+
+def cmd_imagenet(args):
+    from .apps import ImageNetApp
+    from .ops import kernel_launches
+    app = ImageNetApp(num_workers=args.workers, strategy=args.strategy,
+                      tau=args.tau, batch=args.batch, log_path=args.log,
+                      num_classes=args.classes, device=args.device)
+    solver = app.run(num_rounds=args.rounds, test_every=args.test_every)
+    print(f"done: {args.rounds} rounds, iter={solver.iter}")
     print(f"Kernel launches: {json.dumps(kernel_launches())}")
     return 0
 
@@ -241,7 +490,7 @@ _CIFAR_NOT_PORTED = (
     (("--remat", "--precision", "--fsdp", "--tp"), True,
      "remat, precision and sharding levers, ROADMAP A5"),
     (("--wire", "--wire-bits", "--staging"), True,
-     "wire formats and H2D staging, ROADMAP A2"),
+     "wire formats and the staging switch, ROADMAP A4"),
     (("--shard-ingest",), True, "per-host sharded ingest, ROADMAP A6"),
     (("--no-health", "--health-arm-recovery"), False,
      "the health monitor, ROADMAP A6"),
@@ -308,10 +557,78 @@ def main(argv=None):
                         "under the snapshot prefix (partial/corrupt ones "
                         "are skipped with a reason); or an explicit "
                         ".solverstate path")
+    t.add_argument("--input-shape", action="append", default=[],
+                   help='feed blob shape, e.g. "data=100,3,32,32" (stands '
+                        "in for the record shape where no source exists)")
+    t.add_argument("--host-transform", action="store_true",
+                   help="crop/mirror/mean on the host and ship float32 "
+                        "crops, instead of the default: raw uint8 records "
+                        "transformed on the device")
     t.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; the "
                         "CPU runs only when asked: --device cpu)")
     t.set_defaults(fn=cmd_train)
+    te = sub.add_parser("test", help="score a model")
+    te.add_argument("--model", required=True)
+    te.add_argument("--weights")
+    te.add_argument("--iterations", type=int, default=50)
+    te.add_argument("--input-shape", action="append", default=[])
+    te.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; --device cpu)")
+    te.set_defaults(fn=cmd_test)
+    ti = sub.add_parser("time", help="per-layer timing")
+    ti.add_argument("--model", required=True)
+    ti.add_argument("--iterations", type=int, default=10)
+    ti.add_argument("--input-shape", action="append", default=[])
+    ti.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; --device cpu)")
+    ti.set_defaults(fn=cmd_time)
+    d = sub.add_parser("device_query", help="list CUDA devices")
+    d.set_defaults(fn=cmd_device_query)
+    cc = sub.add_parser("convert_cifar_data",
+                        help="CIFAR-10 .bin batches -> train/test LMDBs")
+    cc.add_argument("input", help="dir with data_batch_*.bin + test_batch.bin")
+    cc.add_argument("output", help="dir to create cifar10_{train,test}_lmdb")
+    cc.set_defaults(fn=cmd_convert_cifar)
+    cm = sub.add_parser("compute_image_mean",
+                        help="Datum DB -> mean image .binaryproto")
+    cm.add_argument("db")
+    cm.add_argument("output")
+    cm.add_argument("--backend", choices=("lmdb", "leveldb"), default=None,
+                    help="DB backend (default: sniff the directory layout)")
+    cm.set_defaults(fn=cmd_compute_mean)
+    ci = sub.add_parser("convert_imageset",
+                        help='images + "path label" listfile -> Datum DB')
+    ci.add_argument("root", help="root folder of image paths")
+    ci.add_argument("listfile")
+    ci.add_argument("db")
+    ci.add_argument("--resize_height", type=int, default=0)
+    ci.add_argument("--resize_width", type=int, default=0)
+    ci.add_argument("--gray", action="store_true")
+    ci.add_argument("--shuffle", action="store_true")
+    ci.add_argument("--encoded", action="store_true")
+    ci.add_argument("--backend", choices=["lmdb", "leveldb"],
+                    default="lmdb")
+    ci.set_defaults(fn=cmd_convert_imageset)
+    i = sub.add_parser("imagenet", help="the ImageNetApp training loop")
+    i.add_argument("--workers", type=int, default=None,
+                   help="worker slots on the device (default 1)")
+    i.add_argument("--strategy", choices=("local_sgd", "dp"),
+                   default="local_sgd")
+    i.add_argument("--tau", type=int, default=50)
+    i.add_argument("--batch", type=int, default=256)
+    i.add_argument("--classes", type=int, default=1000)
+    i.add_argument("--rounds", type=int, default=2)
+    i.add_argument("--test-every", type=int, default=10,
+                   help="test every N rounds (0 never)")
+    i.add_argument("--log")
+    i.add_argument("--metrics", action=_NotPorted,
+                   what="the app's JSONL metrics, ROADMAP A6",
+                   help="not ported: the app's JSONL metrics, ROADMAP A6")
+    i.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda; the "
+                        "CPU runs only when asked: --device cpu)")
+    i.set_defaults(fn=cmd_imagenet)
     sv = sub.add_parser(
         "serve",
         help="serve a resilient checkpoint over HTTP: weights-only "

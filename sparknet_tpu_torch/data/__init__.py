@@ -1,5 +1,8 @@
-"""Data sources of the port: CIFAR-10 binaries, synthetic images and
-token streams, and the prefetching iterators the CIFAR app reads them
+"""Data sources of the port: CIFAR-10 binaries, Datum records in LMDB
+and LevelDB (datum, lmdb, leveldb, db_source), ImageNet tar archives,
+synthetic images and token streams; the input transforms on the host
+(transforms) and on the device (device_transform); and the prefetching
+iterators and host-to-card stager the apps and the train verb read
 through."""
 
 from .cifar import CifarDataset, read_batch_file, write_batch_file

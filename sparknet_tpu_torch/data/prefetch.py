@@ -1,12 +1,13 @@
 """Background prefetch: the reference's double-buffered loader thread.
 
-The port of what the CIFAR app uses from sparknet_tpu/data/prefetch.py:
-``PrefetchIterator`` (one worker thread running the host-side produce
-loop into a bounded queue, Caffe's BasePrefetchingDataLayer,
-base_data_layer.cpp:70-101) and ``EchoIterator`` (data echoing). Left
-out until their readers are ported: the queue-depth ``prefetch`` metrics
-events and static extras, several workers, the worker-side transform,
-and the ``H2DStager``.
+The port of sparknet_tpu/data/prefetch.py: ``PrefetchIterator`` (one
+worker thread running the host-side produce loop into a bounded queue,
+Caffe's BasePrefetchingDataLayer, base_data_layer.cpp:70-101, with an
+optional worker-side ``transform``), ``H2DStager`` (the host-to-card
+copy in that worker, on a side stream) and ``EchoIterator`` (data
+echoing). Left out (ROADMAP A6): the queue-depth ``prefetch`` metrics
+events and static extras, several workers, and the chaos hook of the
+stager.
 
 Every put the worker makes is bounded, so ``close()`` always ends it:
 it stops the worker, drains the queue and joins the thread within a
@@ -17,6 +18,9 @@ end-of-stream marker, which can block on a full queue after close.)
 import queue
 import threading
 
+import numpy as np
+import torch
+
 _END = object()
 
 
@@ -24,14 +28,17 @@ class PrefetchIterator:
     """Wrap a batch iterator with one background worker.
 
     depth: max buffered batches (2 = classic double buffering).
+    transform: optional fn(item) -> item run in the worker (e.g. an
+    H2DStager, so a batch's copy to the card overlaps the running step).
 
     A worker exception is raised in the consumer exactly once, with the
     original traceback, after the batches produced before the failure;
     iteration then ends (StopIteration).
     """
 
-    def __init__(self, source, depth=2, name="prefetch"):
+    def __init__(self, source, depth=2, name="prefetch", transform=None):
         self._q = queue.Queue(maxsize=depth)
+        self._transform = transform
         self._stop = threading.Event()
         self._done = False
         self._error = None
@@ -53,6 +60,8 @@ class PrefetchIterator:
     def _run(self):
         try:
             for item in self._source:
+                if self._transform is not None:
+                    item = self._transform(item)
                 if not self._put(item):
                     return
         except BaseException as e:     # surfaced on the consumer side
@@ -92,6 +101,90 @@ class PrefetchIterator:
             pass
         self._thread.join(timeout)
         return not self._thread.is_alive()
+
+
+class StagedBatch(dict):
+    """A batch dict whose tensors an H2DStager is copying to the card on
+    its side stream. ``wait()`` makes the caller's current stream wait
+    for that copy (and tells the caching allocator that the stream uses
+    the tensors); call it before reading them."""
+
+    ready = None        # the copy's CUDA event
+    device = None
+
+    def wait(self):
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(self.ready)
+        for v in self.values():
+            v.record_stream(stream)
+
+
+def wait_staged(batch):
+    """``batch.wait()`` for a StagedBatch; any other batch as it is."""
+    if isinstance(batch, StagedBatch):
+        batch.wait()
+    return batch
+
+
+class H2DStager:
+    """Rotating-slot asynchronous host-to-card copies, used as a
+    PrefetchIterator ``transform`` (the port of the JAX package's
+    H2DStager, whose ``jax.device_put`` becomes pinned buffers and
+    ``non_blocking`` copies on a side stream).
+
+    Each call copies the batch's arrays into the pinned host buffers of
+    the next of ``slots`` slots, enqueues their copies to the card on a
+    side ``torch.cuda.Stream`` and records the slot's CUDA event after
+    them; it returns a StagedBatch whose consumer waits on that event.
+    Before a slot's buffers are rewritten, the host waits for the slot's
+    previous copy to complete, so at most ``slots`` copies are in flight
+    and the pinned memory stays at ``slots`` batches; the card holds the
+    batches still queued, the one in use and those in flight.
+
+    With ``device="cpu"`` it is the identity, as it is for a batch whose
+    values are already tensors (made on the device, or staged).
+    """
+
+    def __init__(self, slots=2, device="cuda"):
+        self.device = torch.device(device)
+        self.slots = max(1, int(slots))
+        self._pinned = [None] * self.slots
+        self._events = [None] * self.slots
+        self._next = 0
+        self._stream = None
+        self.puts = 0
+
+    def __call__(self, batch):
+        if self.device.type != "cuda" or any(
+                torch.is_tensor(v) for v in batch.values()):
+            return batch
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        slot = self._next
+        self._next = (slot + 1) % self.slots
+        if self._events[slot] is not None:
+            self._events[slot].synchronize()   # the slot's last copy is done
+        arrays = {k: torch.from_numpy(np.ascontiguousarray(v))
+                  for k, v in batch.items()}
+        pinned = self._pinned[slot]
+        if pinned is None or [(k, t.shape, t.dtype) for k, t in
+                              pinned.items()] != \
+                [(k, a.shape, a.dtype) for k, a in arrays.items()]:
+            pinned = self._pinned[slot] = {
+                k: torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                for k, a in arrays.items()}
+        for k, a in arrays.items():
+            pinned[k].copy_(a)
+        out = StagedBatch()
+        out.device = self.device
+        with torch.cuda.stream(self._stream):
+            for k, t in pinned.items():
+                out[k] = t.to(self.device, non_blocking=True)
+            out.ready = torch.cuda.Event()
+            out.ready.record(self._stream)
+        self._events[slot] = out.ready
+        self.puts += 1
+        return out
 
 
 class EchoIterator:

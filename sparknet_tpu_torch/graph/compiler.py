@@ -201,6 +201,7 @@ class CompiledNet:
             else:
                 impl = cls(lp, bshapes, phase)
             impl.compute_dtype = compute_dtype
+            impl.device = self.device
             tshapes = impl.out_shapes()
             if len(tops) < len(tshapes) and impl.loss_like:
                 # Caffe auto-top (net.cpp AppendTop): a LOSS layer may

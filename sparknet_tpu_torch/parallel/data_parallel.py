@@ -33,8 +33,9 @@ comms accounting).
 import numpy as np
 import torch
 
+from ..data.prefetch import wait_staged
 from ..graph.compiler import CompiledNet
-from ..solver.solver import Solver, clear_grads, grads_of
+from ..solver.solver import Solver, clear_grads, grads_of, to_device
 
 DATA_AXIS = "data"
 
@@ -65,12 +66,6 @@ def _rebatch(net, n):
         local[name] = (s[0] // n,) + tuple(s[1:])
     return CompiledNet(net.net_param, net.phase, feed_shapes=local,
                        device=net.device, compute_dtype=net.compute_dtype)
-
-
-def _to_device(batch, device):
-    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
-                               else v, device=device)
-            for k, v in batch.items()}
 
 
 def _rows(v, w, b, dim):
@@ -148,7 +143,8 @@ class DataParallelSolver(_SlotSolver):
         iter_size = int(self.param.iter_size)
         self.check_batch(batch, leading=(iter_size,) if iter_size > 1
                          else ())
-        batch = _to_device(batch, self.device)
+        batch = self._transform(to_device(wait_staged(batch), self.device),
+                                self.input_transform, iter_size)
         clear_grads(self.params)
         losses, states = [], []
         shards = self._shards(batch, self.local_net, int(iter_size > 1))
@@ -283,12 +279,13 @@ class LocalSGDSolver(_SlotSolver):
         steps, slot w taking rows [w*B, (w+1)*B) of dim 1 (as the JAX
         package's shard_batch(..., batch_dim=1) slices them). Returns
         the mean over slots of each slot's mean loss over its tau steps,
-        a 0-d tensor on the device."""
-        shapes = self.net.feed_shapes()
+        a 0-d tensor on the device. Under an input transform the batches
+        are the raw feed, each step's rows transformed on the device."""
+        shapes = self.input_shapes()
         self.check_batch(batches, shapes={
             n: (self.tau, self.workers * s[0]) + tuple(s[1:])
             for n, s in shapes.items() if s})
-        batches = _to_device(batches, self.device)
+        batches = to_device(wait_staged(batches), self.device)
         b = {k: s[0] for k, s in shapes.items() if s}
         it0 = self.iter
         slot_losses, states = [], []
@@ -296,8 +293,9 @@ class LocalSGDSolver(_SlotSolver):
             params, history = self._param_views[w], self._history_views[w]
             gen, state, losses = self.slot_generators[w], self.state, []
             for i in range(self.tau):
-                batch = {k: _rows(v[i], w, b.get(k, 0), 0)
-                         for k, v in batches.items()}
+                batch = self._transform(
+                    {k: _rows(v[i], w, b.get(k, 0), 0)
+                     for k, v in batches.items()}, self.input_transform)
                 clear_grads(params)
                 loss, (_, state) = self.net.loss_fn(params, state, batch,
                                                     gen)

@@ -11,7 +11,9 @@ crash-safe manifest of resilience/checkpoint.py, readable by the JAX
 package and back.
 
 With ``metrics`` (a utils/metrics.py MetricsLogger) it writes the JAX
-Solver's "train" events at display points. Not ported (ROADMAP A6): its
+Solver's "train" events at display points. ``set_input_transform``
+installs a transform that runs on the device before the forward (the
+raw-record feed of data/device_transform.py). Not ported (ROADMAP A6): its
 "test" events and other observability hooks, chaos, elastic, heartbeat,
 watchdog and staleness machinery, remat and scan knobs, debug_info and
 HDF5 snapshots.
@@ -24,6 +26,7 @@ import time
 import numpy as np
 import torch
 
+from ..data.prefetch import wait_staged
 from ..device import resolve_device
 from ..graph.compiler import CompiledNet, TRAIN, TEST, array_to_blob, \
     blob_to_array
@@ -73,6 +76,13 @@ def grads_of(params):
     return {name: [p.grad if p.grad is not None else torch.zeros_like(p)
                    for p in blobs]
             for name, blobs in params.items()}
+
+
+def to_device(batch, device):
+    """{blob: array or tensor} -> {blob: tensor on ``device``}."""
+    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                               else v, device=device)
+            for k, v in batch.items()}
 
 
 def sp_test_scheduled(sp):
@@ -149,6 +159,9 @@ class Solver:
         self.iter = 0
         self._smoothed = collections.deque(
             maxlen=max(1, int(solver_param.average_loss)))
+        self.input_transform = None
+        self.test_input_transform = None
+        self._raw_feed_shapes = None
 
     def _arm_grads(self):
         for blobs in self.params.values():
@@ -163,11 +176,43 @@ class Solver:
         return float(torch.stack(list(self._smoothed)).mean())
 
     # -- public API --------------------------------------------------------
+    def set_input_transform(self, fn, raw_overrides=None, test_fn=None):
+        """Install transforms that run on the device before the forward.
+        fn/test_fn: fn(batch dict of tensors on the device) -> the net's
+        feed dict, for training and for testing; raw_overrides: {blob:
+        raw shape} check_batch overrides for the pre-transform feed (the
+        uint8 source extent and the '#y'/'#x'/'#flip' aux arrays)."""
+        self.input_transform = fn
+        self.test_input_transform = test_fn
+        self._raw_feed_shapes = dict(raw_overrides) if raw_overrides \
+            else None
+
+    def input_shapes(self):
+        """{blob: shape} a training batch carries: the train net's feed
+        shapes, with the raw feed's in their place under an input
+        transform."""
+        shapes = dict(self.net.feed_shapes())
+        if self._raw_feed_shapes:
+            shapes.update(self._raw_feed_shapes)
+        return shapes
+
+    def _transform(self, batch, fn, iter_size=1):
+        """``batch`` through ``fn`` on the device (each micro-batch of a
+        leading iter_size axis apart); as it is without ``fn``."""
+        if fn is None:
+            return batch
+        batch = to_device(batch, self.device)
+        if iter_size == 1:
+            return fn(batch)
+        micros = [fn({k: v[i] for k, v in batch.items()})
+                  for i in range(iter_size)]
+        return {k: torch.stack([m[k] for m in micros]) for k in micros[0]}
+
     def check_batch(self, batch, leading=(), shapes=None):
         """Fail fast with blob names when a feed array has the wrong shape
         (otherwise the error is a cryptic reshape deep inside a layer).
-        ``shapes`` defaults to the train net's feed shapes."""
-        shapes = self.net.feed_shapes() if shapes is None else shapes
+        ``shapes`` defaults to input_shapes()."""
+        shapes = self.input_shapes() if shapes is None else shapes
         for name, want in shapes.items():
             if name not in batch:
                 raise ValueError(f"batch missing feed blob {name!r} "
@@ -185,6 +230,8 @@ class Solver:
         iter_size = int(self.param.iter_size)
         self.check_batch(batch, leading=(iter_size,) if iter_size > 1
                          else ())
+        batch = self._transform(wait_staged(batch), self.input_transform,
+                                iter_size)
         clear_grads(self.params)
         micros = [batch] if iter_size == 1 else \
             [{k: v[i] for k, v in batch.items()} for i in range(iter_size)]
@@ -249,7 +296,9 @@ class Solver:
         try:
             with torch.inference_mode():
                 for _ in range(n):
-                    out = self._test_outputs(next(data_iter))
+                    out = self._test_outputs(self._transform(
+                        wait_staged(next(data_iter)),
+                        self.test_input_transform))
                     sums = out if sums is None else \
                         {k: sums[k] + out[k] for k in sums}
         finally:

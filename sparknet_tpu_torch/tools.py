@@ -1,8 +1,86 @@
-"""Dataset tools of the port: ``make_synth_cifar`` (the JAX package's
-sparknet_tpu/tools.py make_synth_cifar). ``convert_cifar_data`` writes
-LMDB and comes with the port's DB writers."""
+"""Dataset tools of the port (sparknet_tpu/tools.py; the reference's tools/
+binaries):
+
+  convert_cifar_data   examples/cifar10/convert_cifar_data.cpp: CIFAR-10
+                       binary batches -> train/test Datum LMDBs
+  compute_image_mean   tools/compute_image_mean.cpp: Datum DB -> mean image
+                       .binaryproto (+ per-channel means printed)
+  convert_imageset     tools/convert_imageset.cpp: listfile of
+                       "relpath label" lines -> Datum DB (optional resize,
+                       gray, shuffle, encoded passthrough)
+  make_synth_cifar     a synthetic CIFAR-10-format dataset
+
+Both DB backends are pure Python: LMDB (data/lmdb.py) is the default
+writer; convert_imageset also writes LevelDB (data/leveldb.py), and every
+reader goes through data/db_source.open_db, which reads either. The JAX
+package's native host library is not used: its numpy equivalents give
+the same files.
+"""
 
 import os
+
+import numpy as np
+
+from .data.datum import array_to_datum, datum_to_array, encoded_datum
+from .data.lmdb import LMDBWriter
+from .data.transforms import accumulate_sum, save_mean_binaryproto
+
+
+def convert_cifar_data(input_folder, output_folder, log=print):
+    """CIFAR-10 binary batches -> cifar10_{train,test}_lmdb of Datums,
+    keys "%05d" in read order (convert_cifar_data.cpp:38-88)."""
+    from .data.cifar import read_batch_file
+
+    def write(db_path, files):
+        with LMDBWriter(db_path) as w:
+            idx = 0
+            for f in files:
+                images, labels = read_batch_file(
+                    os.path.join(input_folder, f))
+                for img, label in zip(images, labels):
+                    w.put(b"%05d" % idx, array_to_datum(img, int(label)))
+                    idx += 1
+        return idx
+
+    log("Writing Training data")
+    n = write(os.path.join(output_folder, "cifar10_train_lmdb"),
+              [f"data_batch_{i}.bin" for i in range(1, 6)])
+    log(f"  {n} records")
+    log("Writing Testing data")
+    n = write(os.path.join(output_folder, "cifar10_test_lmdb"),
+              ["test_batch.bin"])
+    log(f"  {n} records")
+
+
+def compute_image_mean(db_path, out_path=None, backend="lmdb", log=print):
+    """Mean image over every Datum in a DB -> BlobProto .binaryproto
+    (tools/compute_image_mean.cpp)."""
+    from .data.db_source import open_db
+    db = open_db(db_path, backend)
+    acc = None
+    count = 0
+    try:
+        for _, value in db.items():
+            arr, _ = datum_to_array(value)
+            if arr.dtype != np.uint8:
+                arr = arr.astype(np.float64)
+                acc = arr if acc is None else acc + arr
+            else:
+                if acc is None:
+                    acc = np.zeros(arr.shape, np.int64)
+                accumulate_sum(arr[None], acc)
+            count += 1
+    finally:
+        db.close()
+    if not count:
+        raise ValueError(f"{db_path}: empty database")
+    mean = (acc / count).astype(np.float32)
+    if out_path:
+        save_mean_binaryproto(mean, out_path)
+        log(f"Write to {out_path}")
+    for ch in range(mean.shape[0]):
+        log(f"mean_value channel [{ch}]: {mean[ch].mean():.6g}")
+    return mean
 
 
 def make_synth_cifar(out_dir, n_train=50000, n_test=10000, seed=0,
@@ -27,3 +105,63 @@ def make_synth_cifar(out_dir, n_train=50000, n_test=10000, seed=0,
                                         label_noise=label_noise)
     write_batch_file(os.path.join(out_dir, "test_batch.bin"), imgs, labels)
     log(f"test_batch.bin: {n_test} records")
+
+
+def convert_imageset(root_folder, list_file, db_path, resize_height=0,
+                     resize_width=0, gray=False, shuffle=False,
+                     encoded=False, seed=0, backend="lmdb", log=print):
+    """Images listed as "relative/path label" lines -> Datum DB.
+
+    Matches tools/convert_imageset.cpp keys ("%08d_<path>") and flags
+    (--resize_height/width, --gray, --shuffle, --encoded, --backend
+    lmdb/leveldb). Undecodable images are skipped with a warning, like the
+    reference's ReadImageToDatum false return (and
+    ScaleAndConvert.scala:22-26)."""
+    from PIL import Image
+
+    lines = []
+    with open(list_file) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            path, _, label = line.rpartition(" ")
+            lines.append((path, int(label)))
+    if shuffle:
+        np.random.RandomState(seed).shuffle(lines)
+    log(f"A total of {len(lines)} images.")
+
+    if backend == "leveldb":
+        from .data.leveldb import LevelDBWriter as _Writer
+    else:
+        _Writer = LMDBWriter
+    written = 0
+    with _Writer(db_path) as w:
+        for i, (rel, label) in enumerate(lines):
+            full = os.path.join(root_folder, rel)
+            try:
+                if encoded and not (resize_height or resize_width or gray):
+                    with open(full, "rb") as f:
+                        raw = f.read()
+                    datum = encoded_datum(raw, label)
+                else:
+                    img = Image.open(full)
+                    img = img.convert("L" if gray else "RGB")
+                    if resize_height and resize_width:
+                        img = img.resize((resize_width, resize_height),
+                                         Image.BILINEAR)
+                    a = np.asarray(img, np.uint8)
+                    if a.ndim == 2:
+                        a = a[None]            # (1,H,W)
+                    else:
+                        a = a[:, :, ::-1].transpose(2, 0, 1)  # HWC RGB->CHW BGR
+                    datum = array_to_datum(np.ascontiguousarray(a), label)
+            except (OSError, ValueError) as e:
+                log(f"Could not open or find file {full}: {e}")
+                continue
+            w.put(b"%08d_%s" % (i, rel.encode()), datum)
+            written += 1
+            if written % 1000 == 0:
+                log(f"Processed {written} files.")
+    log(f"Processed {written} files.")
+    return written

@@ -523,3 +523,68 @@ def test_train_steps_on_card_match_cpu(cuda):
         for c, g in zip(blobs, card.params[name]):
             torch.testing.assert_close(g.detach().cpu(), c.detach(),
                                        rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mean", ["full", "channel", "none"])
+def test_device_transform_on_card_equals_the_host_transform(cuda, mean):
+    """The record feed's transform on the card against the host's numpy
+    transform on the same draws: equal bit for bit; a crop one column
+    over must differ."""
+    from sparknet_tpu_torch.data.device_transform import (
+        DeviceTransformer, transform_batch)
+    from sparknet_tpu_torch.data.transforms import (DataTransformer,
+                                                    transform_batch as host)
+    rs = np.random.RandomState(21)
+    images = rs.randint(0, 256, (9, 3, 40, 44)).astype(np.uint8)
+    t = DataTransformer(rng=np.random.RandomState(22))
+    t.crop_size, t.mirror, t.scale = 33, True, 0.017
+    if mean == "full":
+        t.mean, t.full_mean = (rs.rand(3, 40, 44) * 255).astype(np.float32), \
+            True
+    elif mean == "channel":
+        t.mean = np.array([104.0, 117.0, 123.0], np.float32)
+    dev = DeviceTransformer(t)
+    aux = dev.aux(9, images.shape[1:])
+    ys, xs, flips = aux["data#y"], aux["data#x"], aux["data#flip"]
+    want = host(images, 33, ys=ys, xs=xs, mirror=flips, mean=t.mean,
+                scale=t.scale, full_mean=t.full_mean)
+    got = dev.device_fn()({"data": torch.from_numpy(images).cuda(),
+                           **{k: torch.from_numpy(v).cuda()
+                              for k, v in aux.items()}})["data"]
+    assert got.is_cuda
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    shifted = transform_batch(torch.from_numpy(images).cuda(), 33,
+                              ys=ys, xs=np.minimum(xs + 1, 44 - 33),
+                              mirror=flips, mean=t.mean, scale=t.scale,
+                              full_mean=t.full_mean)
+    assert float((shifted.cpu() - torch.from_numpy(want)).abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_h2d_stager_copies_batches_on_a_side_stream(cuda):
+    """Batches staged by the prefetch worker arrive on the card equal to
+    their host arrays; the pinned slots are reused, so at most ``slots``
+    copies are in flight."""
+    from sparknet_tpu_torch.data.prefetch import (H2DStager,
+                                                  PrefetchIterator,
+                                                  StagedBatch, wait_staged)
+    rs = np.random.RandomState(23)
+    batches = [{"data": rs.randint(0, 256, (4, 3, 64, 64)).astype(np.uint8),
+                "label": rs.randint(0, 10, 4).astype(np.int32)}
+               for _ in range(6)]
+    stager = H2DStager(slots=2)
+    it = PrefetchIterator(iter(batches), depth=2, transform=stager)
+    for want in batches:
+        got = next(it)
+        assert isinstance(got, StagedBatch)
+        wait_staged(got)
+        for k in want:
+            assert got[k].is_cuda
+            np.testing.assert_array_equal(got[k].cpu().numpy(), want[k])
+    assert it.close()
+    assert stager.puts == 6 and len(stager._pinned) == 2
+    assert stager(batches[0]) is not batches[0]
+    cuda_batch = {k: torch.from_numpy(v).cuda() for k, v in
+                  batches[0].items()}
+    assert stager(cuda_batch) is cuda_batch

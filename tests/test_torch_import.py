@@ -32,7 +32,12 @@ MODULES = [
     "sparknet_tpu_torch.apps.cifar_app", "sparknet_tpu_torch.data.cifar",
     "sparknet_tpu_torch.data.prefetch", "sparknet_tpu_torch.data.synthetic",
     "sparknet_tpu_torch.models.proto_loader", "sparknet_tpu_torch.tools",
-    "sparknet_tpu_torch.utils.watchdog",
+    "sparknet_tpu_torch.utils.watchdog", "sparknet_tpu_torch.data.datum",
+    "sparknet_tpu_torch.data.lmdb", "sparknet_tpu_torch.data.leveldb",
+    "sparknet_tpu_torch.data.transforms",
+    "sparknet_tpu_torch.data.device_transform",
+    "sparknet_tpu_torch.data.db_source", "sparknet_tpu_torch.data.imagenet",
+    "sparknet_tpu_torch.apps.imagenet_app", "sparknet_tpu_torch.ops.feed",
 ]
 
 
