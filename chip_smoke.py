@@ -17,7 +17,8 @@ Phases, each of which raises on failure (exit code not 0):
               LRN backwards) against its plain PyTorch version on the card
               at the serving (b8) and training (b32) shapes, f32 and bf16,
               at CaffeNet's norm1 (256, 96, 27, 27) and norm2 (256, 256,
-              13, 13), and at the edge geometry of the tiled kernels (one
+              13, 13) and at one dp slot's share of them (64, ...: phase
+              10's dp runs), and at the edge geometry of the tiled kernels (one
               channel, 31 and 33 channels about a CTA's chunk of 32, H*W
               = 323 and 729, the largest windows taken, a view at an odd
               offset): max errors against stated limits, median kernel
@@ -118,8 +119,8 @@ Phases, each of which raises on failure (exit code not 0):
               against the host transform at CaffeNet's b256 (bit for bit,
               with a shifted-offset control that must differ), its time
               against its bound, the host transform's and the copies to
-              the card; `python -m sparknet_tpu_torch train` on a
-              stock-form CaffeNet train_val (Data layers, LMDB, batch
+              the card; `python -m sparknet_tpu_torch train` (the
+              device cache off) on a stock-form CaffeNet train_val (Data layers, LMDB, batch
               256, crop 227, mirror, mean_file; bvlc_reference_caffenet's
               solver) for 30 iterations and one test pass (finite losses,
               2 LRN forward and 2 backward launches an iteration); in
@@ -129,13 +130,36 @@ Phases, each of which raises on failure (exit code not 0):
               window's busy share, and the host reader's time; then the
               `imagenet` verb at 4 slots x b256, 1,000 classes, tau cut
               from 50 to 2, 3 rounds (finite losses, images/s a round).
-10. the kernel table as one JSON line, an entry for every timed f32
+10. feeds  — the train verb's whole input path on phase 9's CaffeNet
+              b256 records: the verb with default flags (the records
+              resident on the card: `device-cached`), with
+              SPARKNET_DEVICE_CACHE_MB=0 (`device-transform`) and with
+              `--strategy dp --mesh data=4`, 10 iterations each (finite
+              losses, the LRN launches); in process, bit for bit on the
+              card the cached and streaming feeds' first transformed
+              batches and the precrop and raw ones', then 12 timed steps
+              of each feed (cached, streaming, `--wire precrop`, `--echo
+              2`, a batch made on the card; the dp solver's 4 x 64,
+              staged as the verb feeds it and unstaged as a control, in
+              the order unstaged, staged, staged, unstaged) with
+              images/s, busy share and bytes copied to the card a step,
+              the cache's resident MiB, upload seconds and peak memory;
+              the bit-pack wire on a 2-bit source (pack and
+              precrop+pack against raw, bit for bit, KB an image);
+              cifar10_full b100 from convert_cifar_data's records
+              (10,000 + 1,000) cached, streaming and on the card; and
+              `extract_features` of fc7 for 2 batches, read back and held
+              to a forward on the card.
+11. the kernel table as one JSON line, an entry for every timed f32
     row of phase 3 and the LM's flash row of phase 6 (launches from the
     serving path for the GoogLeNet forwards, the training path for their
-    backwards, the record-fed train verb of phase 9 for CaffeNet's LRN
-    shapes, with the local-SGD rounds' and the imagenet verb's beside
-    them, the lm verb's first run for the flash kernels), the nvidia-smi
-    line, and as the last line {"ok": true, "device": {...}}.
+    backwards, the train verb's default device-cached feed of phase 10
+    for CaffeNet's LRN shapes, with the local-SGD rounds', the imagenet
+    verb's, phase 9's streaming verb's and phase 10's streaming and dp
+    verbs' beside them, phase 10's dp verb for one dp slot's LRN shapes,
+    the lm verb's first run for the flash kernels),
+    the nvidia-smi line, and as the last line {"ok": true, "device":
+    {...}}.
 """
 
 import json
@@ -371,9 +395,10 @@ def phase_kernels(torch):
         x2, b2 = randn((32, 192, 56, 56), dtype), randn((192,), scale=0.5)
         g2 = randn((32, 192, 56, 56), dtype)
         brl_bwd(x2, b2, g2, lrn_p, row=f32)
-        # CaffeNet's norm1 and norm2 at the ImageNet app's batch (256):
+        # CaffeNet's norm1 and norm2 at the ImageNet app's batch (256),
+        # and at one dp slot's share of it (64; phase 10's dp runs):
         # H*W = 729 and 169 take the kernels' scalar path
-        for shape in ((256, 96, 27, 27), (256, 256, 13, 13)):
+        for shape in CAFFENET_LRN_SHAPES + CAFFENET_DP_LRN_SHAPES:
             x3 = randn(shape, dtype)
             lrn_fwd(x3, lrn_p, row=f32)
             if f32:
@@ -1515,6 +1540,7 @@ def phase_lm_card_vs_cpu(torch, tmp, steps=2):
 LOCAL_SGD_LIMIT = 1e-2
 K40_CAFFENET_IMAGES_PER_S = 267.0   # BASELINE.md:8, cuDNN, CaffeNet b256
 CAFFENET_LRN_SHAPES = ((256, 96, 27, 27), (256, 256, 13, 13))
+CAFFENET_DP_LRN_SHAPES = ((64, 96, 27, 27), (64, 256, 13, 13))  # b256 / 4
 
 
 def _cifar_cli(args, timeout=600):
@@ -1913,15 +1939,17 @@ def _launches_line(out, tag):
 
 def phase_db_cli(tmp, solver_path, device="cuda"):
     """The train verb on the records: DB_ITERS iterations of CaffeNet
-    b256 from the LMDB, the device transform (the default), one test
-    pass at DB_TEST_INTERVAL. The loss must be finite and each LRN
-    kernel launch twice per iteration (norm1, norm2), the forward also
-    twice per test batch."""
+    b256 streamed from the LMDB through the device transform (the device
+    cache off: phase 10 runs the verb's cached default), one test pass at
+    DB_TEST_INTERVAL. The loss must be finite and each LRN kernel launch
+    twice per iteration (norm1, norm2), the forward also twice per test
+    batch."""
     cmd = [sys.executable, "-m", "sparknet_tpu_torch", "train", "--solver",
            solver_path, "--device", device]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                         timeout=600)
+                         timeout=600, env=dict(os.environ,
+                                               SPARKNET_DEVICE_CACHE_MB="0"))
     for line in out.stdout.strip().splitlines():
         print(f"[db-cli] {line}")
     check(out.returncode == 0,
@@ -2175,7 +2203,578 @@ def phase_records_all(torch, card, tmp):
     wall = time.perf_counter() - t0
     print(f"[records] phase 9 wall time {wall:.1f} s")
     return {"write_s": write_s, "transform": transform, "cli": cli_out,
-            "steps": steps, "imagenet": imagenet, "wall_s": wall}
+            "steps": steps, "imagenet": imagenet, "wall_s": wall,
+            "dir": db, "solver": solver_path}
+
+
+# -- phase 10 -------------------------------------------------------------
+
+FEED_ITERS = 10            # the train verb's iterations in phase 10
+FEED_STEPS = 12            # timed steps of each feed in process
+DP_SLOTS = 4
+PACK_RECORDS = 256
+CIFAR_TRAIN, CIFAR_TEST, CIFAR_BATCH = 10000, 1000, 100
+FEATURE_LIMIT = 1e-4       # of the largest |fc7| of the reference forward
+
+
+def _train_verb(solver_path, tag, extra=(), env=None):
+    """``python -m sparknet_tpu_torch train`` for FEED_ITERS iterations in
+    a child process that ends before this returns; -> (stdout, seconds).
+    ``env`` adds to (None values remove from) this process's environment."""
+    cmd = [sys.executable, "-m", "sparknet_tpu_torch", "train", "--solver",
+           solver_path, "--iterations", str(FEED_ITERS), *extra]
+    full_env = dict(os.environ)
+    for k, v in (env or {}).items():
+        if v is None:
+            full_env.pop(k, None)
+        else:
+            full_env[k] = v
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=600, env=full_env)
+    for line in out.stdout.strip().splitlines():
+        print(f"[{tag}] {line}")
+    check(out.returncode == 0,
+          f"{' '.join(cmd)} exited {out.returncode}: {out.stderr[-4000:]}")
+    wall = time.perf_counter() - t0
+    print(f"[{tag}] exited 0 in {wall:.1f} s")
+    return out.stdout, wall
+
+
+def phase_feeds_cli(solver_path, card, device="cuda"):
+    """The train verb on phase 9's CaffeNet records for FEED_ITERS
+    iterations, three ways: default flags (the records go to the card
+    once: `device-cached`), SPARKNET_DEVICE_CACHE_MB=0 (the streaming
+    `device-transform` feed), and `--strategy dp --mesh data=4` (4 slots
+    x 64, streaming, as the JAX verb's dp). Each loss must be finite and
+    the LRN kernels (norm1, norm2) must launch twice a step and slot,
+    forward and backward."""
+    out = {}
+    for name, extra, env, kind, slots in (
+            ("cached", (), {"SPARKNET_DEVICE_CACHE_MB": None},
+             "device-cached", 1),
+            ("streaming", (), {"SPARKNET_DEVICE_CACHE_MB": "0"},
+             "device-transform", 1),
+            ("dp", ("--strategy", "dp", "--mesh", f"data={DP_SLOTS}"),
+             {"SPARKNET_DEVICE_CACHE_MB": None}, "device-transform",
+             DP_SLOTS)):
+        stdout, wall = _train_verb(solver_path, f"feeds-cli {name}",
+                                   (*extra, "--device", device), env)
+        check(f"({DB_TRAIN} records, {kind})" in stdout,
+              f"{name}: the train verb did not say {kind}")
+        losses = [float(l.split("loss = ")[1].split(",")[0])
+                  for l in stdout.splitlines() if "Iteration " in l]
+        check(losses and all(np.isfinite(losses)),
+              f"{name}: train verb losses {losses}")
+        launches = _launches_line(stdout, f"feeds-cli {name}")
+        # none on the CPU, where the plain versions run
+        want = 2 * FEED_ITERS * slots * (device == "cuda")
+        check(launches["lrn_across"] == want and
+              launches["lrn_across_bwd"] == want,
+              f"{name}: LRN launches {launches}, want {want} forward and "
+              "backward")
+        print(f"[feeds-cli] {name}: {kind}, losses {losses}, LRN launches "
+              f"{launches['lrn_across']} / {launches['lrn_across_bwd']} in "
+              f"{FEED_ITERS} iterations, {wall:.1f} s; {card}")
+        out[name] = {"losses": losses, "launches": launches, "wall_s": wall}
+    return out
+
+
+class _Shipped:
+    """Wraps a batch iterator and, while ``counting``, adds up the bytes
+    each served batch copies to the card: its numpy arrays (copied when
+    the step takes them) and its tensors that the previous batch did not
+    hold (a staged copy; an echo reuses its base's)."""
+
+    def __init__(self, torch, it):
+        self.torch, self.it = torch, it
+        self.bytes, self.counting, self._last = 0, False, {}
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        b = next(self.it)
+        if self.counting:
+            for k, v in b.items():
+                if self.torch.is_tensor(v):
+                    if v is not self._last.get(k):
+                        self.bytes += v.numel() * v.element_size()
+                else:
+                    self.bytes += np.asarray(v).nbytes
+        self._last = dict(b)
+        return b
+
+    def close(self):
+        close = getattr(self.it, "close", None)
+        return close() if close is not None else True
+
+
+def _first_transformed(torch, src, device="cuda"):
+    """The device transform of ``src``'s first batch, on ``device``."""
+    from sparknet_tpu_torch.solver.solver import to_device
+    out = src.device_fn(to_device(next(iter(src)), device))["data"]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def _feed_steps(torch, card, solver, feeds, label, batch, group,
+                steps=FEED_STEPS):
+    """Each of ``feeds`` ({name: (fn() -> data iterator, transform,
+    overrides)}), its iterator made when its turn comes, through
+    ``solver``'s train step: 3 warm-up steps, then ``steps``
+    timed by CUDA events between steps (median), images/s, the bytes
+    copied to the card a step, the LRN launches, and a profiler window's
+    busy share."""
+    from sparknet_tpu_torch.ops import KERNEL_WRAPPERS, kernel_launches
+    out = {}
+    for name, (make, fn, over) in feeds.items():
+        solver.set_input_transform(fn, over)
+        shipped = _Shipped(torch, make())
+        try:
+            for _ in range(3):
+                solver.train_step(next(shipped))
+            torch.cuda.synchronize()
+            for w in KERNEL_WRAPPERS:
+                w.launches = 0
+            shipped.counting = True
+            times = _step_events(torch, solver, shipped, steps)
+            shipped.counting = False
+            launches = kernel_launches()
+            ms = statistics.median(times)
+            prof = _profile(torch, lambda: solver.train_step(next(shipped)),
+                            4, group, f"{label}, {name}", card, top=6)
+        finally:
+            shipped.close()
+        busy = "not measured" if prof is None \
+            else f"{100 * prof['busy_share']:.1f}%"
+        per_step = shipped.bytes / steps
+        print(f"[feeds] {label}, {name}: step {ms:.2f} ms (median of {steps}"
+              f" over CUDA events between steps; "
+              f"{[round(t, 2) for t in times]}), "
+              f"{batch / (ms / 1e3):,.0f} images/s, device busy {busy}, "
+              f"{per_step / 1e6:.4f} MB copied to the card a step; LRN "
+              f"launches {launches['lrn_across']} / "
+              f"{launches['lrn_across_bwd']}; {card}")
+        out[name] = {"step_ms": ms, "steps_ms": times,
+                     "images_per_s": batch / (ms / 1e3),
+                     "h2d_bytes_per_step": per_step, "launches": launches,
+                     "profile": prof}
+    return out
+
+
+def _with_wire(mode, build):
+    """``build()`` with SPARKNET_WIRE set to ``mode`` (restored after)."""
+    old = os.environ.get("SPARKNET_WIRE")
+    os.environ["SPARKNET_WIRE"] = mode
+    try:
+        return build()
+    finally:
+        if old is None:
+            os.environ.pop("SPARKNET_WIRE")
+        else:
+            os.environ["SPARKNET_WIRE"] = old
+
+
+def phase_feed_steps(torch, card, db, solver_path):
+    """CaffeNet b256 from phase 9's records in process, one Solver, five
+    feeds: the records resident on the card (the cache), the streaming
+    device transform, `--wire precrop` on it, `--echo 2` on it, and a
+    batch made on the card; then the dp solver (4 slots x 64) on the
+    streaming feed, staged and unstaged. Bit for bit first: the cached
+    and streaming feeds' first transformed batches, and the precrop and
+    raw feeds'. The cache also reports its resident MiB, its upload
+    seconds and the peak memory. Returns the results and the Solver's weights path (for
+    extract_features)."""
+    from sparknet_tpu_torch.data.db_source import build_db_feed
+    from sparknet_tpu_torch.data.device_cache import (DeviceCachedSource,
+                                                      maybe_device_cache)
+    from sparknet_tpu_torch.data.prefetch import (EchoIterator, H2DStager,
+                                                  PrefetchIterator)
+    from sparknet_tpu_torch.graph.compiler import TRAIN
+    from sparknet_tpu_torch.parallel import DataParallelSolver
+    from sparknet_tpu_torch.proto import text_format, wire
+    from sparknet_tpu_torch.solver import Solver
+    from sparknet_tpu_torch.solver.solver import resolve_nets
+    sp = text_format.load(solver_path, "SolverParameter")
+    train_np, _ = resolve_nets(sp, db)
+
+    def source(mode="raw"):
+        return _with_wire(mode, lambda: build_db_feed(
+            train_np, TRAIN, db, seed=SEED, device_transform=True))
+
+    shapes, stream = source()
+    first_stream = _first_transformed(torch, stream)
+    it = iter(stream)
+    reader_ms = _host_ms(lambda: next(it))
+    raw_batch = next(it)
+    stream.close()
+    _, pre = source("precrop")
+    first_pre = _first_transformed(torch, pre)
+    encode_ms = _host_ms(lambda: pre.wire.encode(raw_batch))
+    pre.close()
+    print(f"[feeds] host work a CaffeNet b256 batch (median of 5): the "
+          f"reader (LMDB -> uint8 batch + draws) {reader_ms:.1f} ms, the "
+          f"precrop encode {encode_ms:.1f} ms; {card}")
+    torch.cuda.reset_peak_memory_stats()
+    _, inner = source()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cached = maybe_device_cache(inner, device="cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    check(isinstance(cached, DeviceCachedSource),
+          "the CaffeNet records were not promoted to the card")
+    first_cached = _first_transformed(torch, cached)
+    cache_eq = bool(torch.equal(first_cached, first_stream))
+    pre_eq = bool(torch.equal(first_pre, first_stream))
+    resident_mib = cached.nbytes / 2 ** 20
+    print(f"[feeds] bit for bit on the card, CaffeNet b256 first batch "
+          f"{tuple(first_stream.shape)}: cached == streaming {cache_eq}, "
+          f"precrop == raw {pre_eq}; the cache: {resident_mib:.1f} MiB "
+          f"resident ({cached.num_records} records), uploaded in "
+          f"{upload_s:.2f} s (LMDB read included); {card}")
+    check(cache_eq, "the cached feed's first batch differs from the "
+                    "streaming feed's")
+    check(pre_eq, "the precrop feed's first batch differs from the raw "
+                  "feed's")
+    del first_stream, first_pre, first_cached
+
+    solver = Solver(sp, base_dir=db, feed_shapes=shapes, device="cuda",
+                    log_fn=None)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    on_card = {"data": torch.randn((CAFFENET_BATCH, 3, CAFFENET_CROP,
+                                    CAFFENET_CROP), generator=gen,
+                                   device="cuda"),
+               "label": torch.randint(0, 1000, (CAFFENET_BATCH,),
+                                      generator=gen, device="cuda",
+                                      dtype=torch.int32)}
+    out = {"bit_equal": {"cached_streaming": cache_eq, "precrop_raw": pre_eq},
+           "resident_mib": resident_mib, "upload_s": upload_s,
+           "reader_ms": reader_ms, "precrop_encode_ms": encode_ms}
+
+    def staged(src):
+        return PrefetchIterator(iter(src), depth=3,
+                                transform=H2DStager(slots=2),
+                                name="train_feed")
+
+    srcs = [cached]
+    try:
+        feeds = {"cached": (lambda: staged(cached), cached.device_fn,
+                            cached.raw_feed_overrides)}
+        out.update(_feed_steps(torch, card, solver, feeds, "CaffeNet b256",
+                               CAFFENET_BATCH, _caffenet_group))
+        out["cached"]["peak_memory_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        print(f"[feeds] the cached feed's peak memory "
+              f"{out['cached']['peak_memory_gb']:.2f} GB "
+              f"(torch.cuda.max_memory_allocated); {card}")
+        cached.close()
+        srcs = [source()[1], source("precrop")[1], source()[1]]
+        plain, pre, echo_src = srcs
+        feeds = {
+            "streaming": (lambda: staged(plain), plain.device_fn,
+                          plain.raw_feed_overrides),
+            "precrop": (lambda: staged(pre), pre.device_fn,
+                        pre.raw_feed_overrides),
+            "echo 2": (lambda: EchoIterator(
+                staged(echo_src), 2, fresh_aux=lambda b: echo_src.fresh_aux()),
+                echo_src.device_fn, echo_src.raw_feed_overrides),
+            "on-card batch": (lambda: iter(lambda: on_card, None), None,
+                              None)}
+        out.update(_feed_steps(torch, card, solver, feeds, "CaffeNet b256",
+                               CAFFENET_BATCH, _caffenet_group))
+    finally:
+        for src in srcs:
+            src.close()
+    weights = os.path.join(db, "feeds.caffemodel")
+    wire.dump(solver.net.params_to_netproto(solver.params, solver.state),
+              weights)
+    del solver, on_card
+    torch.cuda.empty_cache()
+
+    # the dp solver on the streaming feed, staged as the train verb feeds
+    # it, and unstaged (each step's train_step copies the host batch) as
+    # the control, in the order unstaged, staged, staged, unstaged so
+    # that neither arm gains from the solver's warm-up
+    dp = DataParallelSolver(sp, workers=DP_SLOTS, base_dir=db,
+                            feed_shapes=shapes, device="cuda", log_fn=None)
+    arms = ("unstaged", "staged", "staged", "unstaged")
+    srcs = [source()[1] for _ in arms]
+    tag = f"dp {DP_SLOTS} x {CAFFENET_BATCH // DP_SLOTS}, streaming"
+
+    def dp_feed(arm, src):
+        make = (lambda: staged(src)) if arm == "staged" else (
+            lambda: PrefetchIterator(iter(src), depth=3, name="train_feed"))
+        return make, src.device_fn, src.raw_feed_overrides
+
+    try:
+        res = _feed_steps(
+            torch, card, dp, {f"{tag}, {arm} {i + 1}": dp_feed(arm, src)
+                              for i, (arm, src) in enumerate(zip(arms, srcs))},
+            "CaffeNet b256", CAFFENET_BATCH, _caffenet_group)
+    finally:
+        for src in srcs:
+            src.close()
+    want = 2 * DP_SLOTS * FEED_STEPS
+    for name, r in res.items():
+        check(r["launches"]["lrn_across"] == want and
+              r["launches"]["lrn_across_bwd"] == want,
+              f"{name}: LRN launches {r['launches']}, want {want} each")
+    for arm in ("staged", "unstaged"):
+        runs = [r for name, r in res.items() if name.split(", ")[-1]
+                .startswith(arm + " ")]
+        times = [t for r in runs for t in r["steps_ms"]]
+        out["dp" if arm == "staged" else "dp_unstaged"] = {
+            "step_ms": statistics.median(times), "steps_ms": times,
+            "arm_step_ms": [r["step_ms"] for r in runs],
+            "busy_share": [r["profile"] and r["profile"]["busy_share"]
+                           for r in runs],
+            "h2d_bytes_per_step": runs[0]["h2d_bytes_per_step"],
+            "launches": runs[0]["launches"]}
+    print(f"[feeds] dp {DP_SLOTS} slots, median of {2 * FEED_STEPS} steps: "
+          f"staged {out['dp']['step_ms']:.2f} ms (arms "
+          f"{[round(t, 2) for t in out['dp']['arm_step_ms']]}), unstaged "
+          f"{out['dp_unstaged']['step_ms']:.2f} ms (arms "
+          f"{[round(t, 2) for t in out['dp_unstaged']['arm_step_ms']]}), "
+          f"against the single-slot cached step "
+          f"{out['cached']['step_ms']:.2f} ms; {card}")
+    for name in ("cached", "streaming", "precrop", "echo 2"):
+        check(out[name]["launches"]["lrn_across"] == 2 * FEED_STEPS,
+              f"{name}: LRN launches {out[name]['launches']}")
+    del dp
+    torch.cuda.empty_cache()
+    return out, weights
+
+
+def phase_pack(torch, card, tmp, mean_file, device="cuda"):
+    """The bit-pack wire on the card: PACK_RECORDS records of 3x256x256
+    with values in 0..3 (a 2-bit source) written by the port's writer;
+    the pack and precrop+pack feeds' unpacked, transformed first batch
+    against the raw wire's (CaffeNet's transform: 227 crops, mirror, the
+    full mean), bit for bit; KB shipped an image."""
+    from sparknet_tpu_torch.data.datum import array_to_datum
+    from sparknet_tpu_torch.data.db_source import DatumBatchSource
+    from sparknet_tpu_torch.data.lmdb import LMDBWriter
+    from sparknet_tpu_torch.proto import Message
+    path = os.path.join(tmp, "pack_lmdb")
+    rs = np.random.RandomState(SEED)
+    with LMDBWriter(path) as w:
+        for i in range(PACK_RECORDS):
+            w.put(b"%05d" % i, array_to_datum(
+                rs.randint(0, 4, RECORD_SHAPE).astype(np.uint8), i % 1000))
+    tp = Message("TransformationParameter", crop_size=CAFFENET_CROP,
+                 mirror=True, mean_file=mean_file)
+
+    def source(mode):
+        return _with_wire(mode, lambda: DatumBatchSource(
+            path, PACK_RECORDS, transform_param=tp, seed=SEED,
+            device_transform=True))
+
+    raw = source("raw")
+    want = _first_transformed(torch, raw, device)
+    raw.close()
+    out = {}
+    for mode in ("pack", "precrop+pack"):
+        src = source(mode)
+        got = _first_transformed(torch, src, device)
+        src.close()
+        eq = bool(torch.equal(got, want))
+        kb, raw_kb = src.wire.kb_per_image, src.wire.raw_kb_per_image
+        print(f"[pack] {mode} ({src.wire.bits} bits) at CaffeNet's b256: "
+              f"{kb:.2f} KB shipped an image (raw {raw_kb:.0f}), unpacked "
+              f"and transformed on the card == raw wire's: {eq}; {card}")
+        check(eq, f"{mode}: the unpacked batch differs from the raw wire's")
+        out[mode] = {"kb_per_image": kb, "bits": src.wire.bits,
+                     "bit_equal": eq}
+    return out
+
+
+def _cifar_db_files(tmp, data):
+    """cifar10_full from records: make_synth_cifar's CIFAR-10-format
+    binaries (phase 8's, or made here; CIFAR_TRAIN + CIFAR_TEST, cut from
+    CIFAR-10's 50,000 + 10,000), convert_cifar_data's LMDBs, their mean,
+    and a stock-form cifar10_full_train_test (two Data layers, batch 100,
+    mean_file) with cifar10_full_solver's values. -> solver path."""
+    from sparknet_tpu_torch import tools
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.proto import Message, text_format
+    quiet = lambda *a: None  # noqa: E731
+    if not os.path.exists(os.path.join(data, "test_batch.bin")):
+        tools.make_synth_cifar(data, n_train=CIFAR_TRAIN, n_test=CIFAR_TEST,
+                               log=quiet)
+    db = os.path.join(tmp, "cifar_records")
+    os.makedirs(db, exist_ok=True)
+    t0 = time.perf_counter()
+    tools.convert_cifar_data(data, db, log=quiet)
+    tools.compute_image_mean(os.path.join(db, "cifar10_train_lmdb"),
+                             os.path.join(db, "mean.binaryproto"), log=quiet)
+    print(f"[cifar-records] convert_cifar_data + compute_image_mean "
+          f"{time.perf_counter() - t0:.1f} s")
+    net = Message("NetParameter", name="CIFAR10_full")
+    for phase, src in (("TRAIN", "cifar10_train_lmdb"),
+                       ("TEST", "cifar10_test_lmdb")):
+        lp = Message("LayerParameter", name="cifar", type="Data",
+                     data_param=dict(source=src, batch_size=CIFAR_BATCH,
+                                     backend="LMDB"),
+                     transform_param=dict(mean_file="mean.binaryproto"))
+        lp.top.append("data")
+        lp.top.append("label")
+        lp.add("include", phase=phase)
+        net.layer.append(lp)
+    for lp in zoo.cifar10_full(batch_size=CIFAR_BATCH,
+                               with_data=False).layer:
+        net.layer.append(lp)
+    text_format.dump(net, os.path.join(db, "cifar10_full_train_test.prototxt"))
+    sp = Message("SolverParameter", net="cifar10_full_train_test.prototxt",
+                 base_lr=0.001, momentum=0.9, weight_decay=0.004,
+                 lr_policy="fixed", display=0, max_iter=60000,
+                 test_iter=[10], test_interval=1000, random_seed=SEED)
+    path = os.path.join(db, "cifar10_full_solver.prototxt")
+    text_format.dump(sp, path)
+    return db, path
+
+
+def phase_cifar_feeds(torch, card, tmp):
+    """cifar10_full b100 from records, in process: the cached feed, the
+    streaming feed and a batch made on the card, in one Solver (the
+    small-net case, where the pure-Python reader can set the pace). No
+    port kernel runs (its LRNs are WITHIN_CHANNEL)."""
+    from sparknet_tpu_torch.data.db_source import build_db_feed
+    from sparknet_tpu_torch.data.device_cache import (DeviceCachedSource,
+                                                      maybe_device_cache)
+    from sparknet_tpu_torch.data.prefetch import H2DStager, PrefetchIterator
+    from sparknet_tpu_torch.graph.compiler import TRAIN
+    from sparknet_tpu_torch.proto import text_format
+    from sparknet_tpu_torch.solver import Solver
+    from sparknet_tpu_torch.solver.solver import resolve_nets
+    db, solver_path = _cifar_db_files(tmp, os.path.join(tmp, "cifar_data"))
+    sp = text_format.load(solver_path, "SolverParameter")
+    train_np, _ = resolve_nets(sp, db)
+
+    def source():
+        return build_db_feed(train_np, TRAIN, db, seed=SEED,
+                             device_transform=True)
+
+    shapes, probe = source()
+    it = iter(probe)
+    reader_ms = _host_ms(lambda: next(it))
+    probe.close()
+    _, inner = source()
+    t0 = time.perf_counter()
+    cached = maybe_device_cache(inner, device="cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    check(isinstance(cached, DeviceCachedSource),
+          "the cifar10 records were not promoted to the card")
+    solver = Solver(sp, base_dir=db, feed_shapes=shapes, device="cuda",
+                    log_fn=None)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    on_card = {"data": torch.randn((CIFAR_BATCH, 3, 32, 32), generator=gen,
+                                   device="cuda"),
+               "label": torch.randint(0, 10, (CIFAR_BATCH,), generator=gen,
+                                      device="cuda", dtype=torch.int32)}
+    _, plain = source()
+
+    def staged(src):
+        return PrefetchIterator(iter(src), depth=3,
+                                transform=H2DStager(slots=2),
+                                name="train_feed")
+
+    try:
+        out = _feed_steps(torch, card, solver, {
+            "cached": (lambda: staged(cached), cached.device_fn,
+                       cached.raw_feed_overrides),
+            "streaming": (lambda: staged(plain), plain.device_fn,
+                          plain.raw_feed_overrides),
+            "on-card batch": (lambda: iter(lambda: on_card, None), None,
+                              None)},
+            "cifar10_full b100", CIFAR_BATCH,
+            lambda name: "other" if "channel_walk" not in name
+            else "port kernels (channel_walk)")
+    finally:
+        cached.close()
+        plain.close()
+    print(f"[feeds] cifar10_full: {cached.num_records} records resident "
+          f"({CIFAR_TRAIN * 3 * 32 * 32 / 2 ** 20:.1f} MiB), uploaded in "
+          f"{upload_s:.2f} s; the host reader {reader_ms:.2f} ms a batch of "
+          f"{CIFAR_BATCH} (median of 5); {card}")
+    out.update(reader_ms=reader_ms, upload_s=upload_s)
+    del solver, on_card
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_extract_features(torch, card, db, weights, device="cuda"):
+    """`python -m sparknet_tpu_torch extract_features` of CaffeNet's fc7
+    for 2 batches of phase 9's TEST records on the card; the LMDB it
+    writes read back (2 x 256 float Datums of 4,096), the first batch
+    against a forward of the same net and weights on the card (the TEST
+    data layer's host transform, seed 0, as the tool's), within
+    FEATURE_LIMIT of the largest reference value."""
+    from sparknet_tpu_torch.data.datum import datum_to_array
+    from sparknet_tpu_torch.data.db_source import resolve_db_feed
+    from sparknet_tpu_torch.data.lmdb import LMDBReader
+    from sparknet_tpu_torch.graph.compiler import TEST, CompiledNet
+    from sparknet_tpu_torch.proto import text_format, wire
+    model = os.path.join(db, "train_val.prototxt")
+    out_db = os.path.join(db, "fc7_lmdb")
+    cmd = [sys.executable, "-m", "sparknet_tpu_torch", "extract_features",
+           weights, model, "fc7", out_db, "2", "lmdb", "--device", device]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    for line in run.stdout.strip().splitlines():
+        print(f"[extract] {line}")
+    check(run.returncode == 0,
+          f"{' '.join(cmd)} exited {run.returncode}: {run.stderr[-4000:]}")
+    wall = time.perf_counter() - t0
+    with LMDBReader(out_db) as r:
+        keys = list(r.keys())
+        feats = np.stack([datum_to_array(r.get(k))[0] for k in keys])
+    check(len(keys) == 2 * CAFFENET_BATCH and feats.shape[1:] ==
+          (4096, 1, 1), f"extract_features wrote {len(keys)} Datums of "
+          f"{feats.shape[1:]}")
+    net_param = text_format.load(model, "NetParameter")
+    shapes, src = resolve_db_feed(net_param, TEST, db, seed=0)
+    try:
+        net = CompiledNet(net_param, TEST, feed_shapes=shapes, device=device)
+        params, state = net.init(torch.Generator().manual_seed(0))
+        params, state = net.load_netproto(
+            wire.load(weights, "NetParameter"), params, state)
+        with torch.inference_mode():
+            blobs, _ = net.apply(params, state, next(iter(src)),
+                                 train=False)
+        ref = blobs["fc7"].float().cpu().numpy()
+    finally:
+        src.close()
+    got = feats[:CAFFENET_BATCH].reshape(ref.shape)
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    print(f"[extract] fc7 of {len(keys)} TEST records in {wall:.1f} s; first "
+          f"batch against a forward on the card: max abs difference {err:g} "
+          f"of max |fc7| {scale:g} (limit {FEATURE_LIMIT:g} of it); {card}")
+    check(scale > 0, "fc7 is all zero: the comparison would say nothing")
+    check(err <= FEATURE_LIMIT * scale,
+          f"extract_features' fc7 differs from the forward by {err}")
+    return {"datums": len(keys), "max_abs_err": err, "max_abs_fc7": scale,
+            "wall_s": wall}
+
+
+def phase_feeds_all(torch, card, tmp, db, solver_path):
+    t0 = time.perf_counter()
+    cli_out = phase_feeds_cli(solver_path, card)
+    steps, weights = phase_feed_steps(torch, card, db, solver_path)
+    pack = phase_pack(torch, card, tmp,
+                      os.path.join(db, "mean.binaryproto"))
+    cifar = phase_cifar_feeds(torch, card, tmp)
+    extract = phase_extract_features(torch, card, db, weights)
+    wall = time.perf_counter() - t0
+    print(f"[feeds] phase 10 wall time {wall:.1f} s")
+    return {"cli": cli_out, "caffenet": steps, "pack": pack,
+            "cifar10_full": cifar, "extract_features": extract,
+            "wall_s": wall}
 
 
 KERNELS = {
@@ -2220,21 +2819,29 @@ def main():
     local_sgd = phase_local_sgd_all(torch, card, tmp)
     torch.cuda.empty_cache()
     records = phase_records_all(torch, card, tmp)
+    torch.cuda.empty_cache()
+    feeds = phase_feeds_all(torch, card, tmp, records["dir"],
+                            records["solver"])
     paths = {"serve auto": served["auto"], "serve on": served["on"],
              "train auto": trained["launches"]["auto"],
              "train on": trained["launches"]["on"],
              "lm verb": lm_cli["launches"],
              "local-sgd caffenet": local_sgd["rounds"]["caffenet"][
                  "launches"],
-             "train verb on records": records["cli"]["launches"]}
+             "train verb on records": records["cli"]["launches"],
+             "train verb, device-cached": feeds["cli"]["cached"]["launches"],
+             "train verb, dp": feeds["cli"]["dp"]["launches"]}
     table = []
     for name, (source, replaces, own_path) in KERNELS.items():
         rows = [r for r in results + flash if r["name"] == name and r["row"]]
         check(rows, f"no timed row of {name}")
         for r in rows:          # one entry per timed shape of the kernel
-            # CaffeNet's shapes: the record-fed train verb's (phase 9)
+            # CaffeNet's shapes: the train verb's default, device-cached
+            # feed, and its dp slots (phase 10)
             caffenet = tuple(r["shape"]) in CAFFENET_LRN_SHAPES
-            path = "train verb on records" if caffenet else own_path
+            path = "train verb, device-cached" if caffenet else \
+                "train verb, dp" if tuple(r["shape"]) in \
+                CAFFENET_DP_LRN_SHAPES else own_path
             table.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": paths[path][name],
@@ -2243,7 +2850,13 @@ def main():
                 "launches_lm_step": lm_step["launches"][name],
                 **({"launches_local_sgd": paths["local-sgd caffenet"][name],
                     "launches_imagenet": records["imagenet"]["launches"][
-                        name]} if caffenet else {}),
+                        name],
+                    "launches_records_streaming":
+                        paths["train verb on records"][name],
+                    "launches_streaming_verb":
+                        feeds["cli"]["streaming"]["launches"][name],
+                    "launches_dp_verb": feeds["cli"]["dp"]["launches"][name]}
+                   if caffenet else {}),
                 "shape": r["shape"], "dtype": r["dtype"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2259,7 +2872,7 @@ def main():
             "launches", "fixed_batch_losses", "step_ms", "images_per_s",
             "profile", "card_vs_cpu")}, **trained_cli},
         "lm": {"cli": lm_cli, "step": lm_step, "card_vs_cpu": lm_parity},
-        "local_sgd": local_sgd, "records": records}))
+        "local_sgd": local_sgd, "records": records, "feeds": feeds}))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

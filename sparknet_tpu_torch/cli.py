@@ -2,15 +2,20 @@
 
   train   train from a solver prototxt on one device: Caffe's solver
           schedule (display, test_interval, snapshot cadence), crash-safe
-          snapshots, ``--weights`` finetuning, ``--snapshot`` /
-          ``--resume auto|STATE`` restores. The net's Data layers read
-          their LMDB/LevelDB records, the raw records shipped to the card
-          and cropped, mirrored and mean-subtracted there
-          (``--host-transform`` does that on the host); a net whose
-          sources do not exist trains on synthetic batches of its feed
-          shapes and says so. Its last line counts each CUDA kernel's
-          launches in the run.
-  test    score a model's TEST net over its Data-layer records.
+          snapshots (binaryproto or HDF5), ``--weights`` finetuning,
+          ``--snapshot`` / ``--resume auto|STATE`` restores. The net's
+          Data layers read their LMDB/LevelDB records: a dataset within
+          SPARKNET_DEVICE_CACHE_MB is uploaded to the card once and each
+          step ships only its record indices and crop/mirror draws;
+          otherwise the raw records stream to the card (``--wire``
+          codecs, ``--staging``, ``--echo``) and are cropped, mirrored
+          and mean-subtracted there (``--host-transform`` does that on
+          the host). ImageData, WindowData and HDF5Data layers read their
+          files. ``--strategy dp --mesh data=W`` splits each batch over W
+          worker slots. A net whose sources do not exist trains on
+          synthetic batches of its feed shapes and says so. Its last line
+          counts each CUDA kernel's launches in the run.
+  test    score a model's TEST net over its data layer's source.
   time    per-layer forward and forward+backward times.
   device_query
           list the CUDA devices.
@@ -38,6 +43,12 @@
           write a synthetic CIFAR-format dataset (no download needed),
           turn CIFAR binaries or image files into Datum LMDBs, and
           compute a DB's mean image.
+  extract_features
+          forward a TEST net on the device and write named blobs as
+          float-Datum DBs.
+  upgrade_net_proto_text, upgrade_net_proto_binary,
+  upgrade_solver_proto_text
+          rewrite old-format net and solver files in the latest format.
 
 All run on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given.
@@ -53,6 +64,75 @@ import threading
 import numpy as np
 
 EXIT_RECOVERY_ABORT = 3
+
+
+def _mesh_arg(s):
+    """"data=4" or "4" -> {"data": 4}. The port's one mesh axis is the
+    data axis over worker slots; any other axis is a usage error."""
+    if s.isdigit():
+        return {"data": int(s)}
+    out = {}
+    for part in s.split(","):
+        k, _, v = part.partition("=")
+        k = k.strip()
+        if k != "data":
+            raise argparse.ArgumentTypeError(
+                f"mesh axis {k!r}: not ported (the port's one axis is "
+                "'data', over worker slots; model, sequence and pipeline "
+                "axes are ROADMAP A5, host axes A6)")
+        try:
+            out[k] = int(v)
+        except ValueError:
+            raise argparse.ArgumentTypeError(
+                f"mesh {s!r}: want data=W or W") from None
+    return out
+
+
+def _apply_feed_flags(args):
+    """The feed flags write their SPARKNET_* env vars (the env stays the
+    fallback when a flag is not given, as in the JAX package); returns
+    the echo factor. Echo > 1 with a precrop wire exits: precropped
+    bytes cannot take fresh crop draws."""
+    for flag, env in (("wire", "SPARKNET_WIRE"),
+                      ("wire_bits", "SPARKNET_WIRE_BITS"),
+                      ("staging", "SPARKNET_STAGING"),
+                      ("echo", "SPARKNET_ECHO")):
+        if getattr(args, flag, None) is not None:
+            os.environ[env] = str(getattr(args, flag))
+    echo = int(os.environ.get("SPARKNET_ECHO", "1") or 1)
+    wire = os.environ.get("SPARKNET_WIRE", "raw") or "raw"
+    if echo > 1 and "precrop" in wire:
+        raise SystemExit(
+            "--echo > 1 is incompatible with a precrop wire mode: "
+            "pre-cropping bakes the crop window into the shipped bytes, "
+            "so echoes could not get fresh crop draws (use --wire raw "
+            "or --wire pack with echo)")
+    return max(1, echo)
+
+
+def _add_feed_flags(p):
+    p.add_argument("--wire", default=None,
+                   choices=("raw", "precrop", "pack", "precrop+pack"),
+                   help="wire format of the streaming device-transform "
+                        "feed: raw uint8 records (default), host-side "
+                        "precrop (crop/mirror still on the device, bit "
+                        "for bit), lossless bit-pack for low-entropy "
+                        "sources, or both. Default: SPARKNET_WIRE, else "
+                        "raw")
+    p.add_argument("--wire-bits", type=int, choices=(1, 2, 4, 8),
+                   default=None,
+                   help="pack width of the pack modes (8 = no pack); "
+                        "default: SPARKNET_WIRE_BITS, else inferred from "
+                        "the first record (a batch out of range raises)")
+    p.add_argument("--staging", choices=("on", "off"), default=None,
+                   help="on: the copy to the card runs on a side stream "
+                        "in the prefetch worker (H2DStager); off: a plain "
+                        "copy in that worker. Default: SPARKNET_STAGING, "
+                        "else on")
+    p.add_argument("--echo", type=int, default=None, metavar="E",
+                   help="data echoing: serve each shipped batch E times, "
+                        "with fresh crop/mirror draws for each echo. "
+                        "Default: SPARKNET_ECHO, else 1")
 
 
 def _net_base_dir(sp, solver_path):
@@ -121,12 +201,19 @@ def make_data_iter(net, seed=0):
 
 
 def cmd_train(args):
-    from .data.prefetch import H2DStager, PrefetchIterator
+    from .data.device_cache import DeviceCachedSource, maybe_device_cache
+    from .data.prefetch import EchoIterator, H2DStager, PrefetchIterator
+    from .device import resolve_device
     from .ops import kernel_launches
     from .proto import text_format
     from .resilience import checkpoint
     from .solver import Solver
-    from .solver.solver import resolve_nets
+    from .solver.solver import resolve_nets, to_device
+    echo = _apply_feed_flags(args)   # before any data source is built
+    if echo > 1 and args.host_transform:
+        raise SystemExit(
+            "--echo > 1 needs the device-transform feed (drop "
+            "--host-transform): echoes re-draw crop/mirror on the device")
     sp = text_format.load(args.solver, "SolverParameter")
     base_dir = _net_base_dir(sp, args.solver)
     if sp.has("snapshot_prefix") and base_dir \
@@ -136,19 +223,47 @@ def cmd_train(args):
         sp.snapshot_prefix = os.path.join(base_dir, sp.snapshot_prefix)
     train_np, test_np = resolve_nets(sp, base_dir)
     seed = int(sp.random_seed) if int(sp.random_seed) >= 0 else None
+    device = resolve_device(args.device)
     train_shapes, train_src, test_shapes, test_src = _real_feeds(
         train_np, test_np, base_dir, seed=seed,
         device_transform=not args.host_transform)
-    feed = {**(train_shapes or {}), **_feed_shapes_arg(args.input_shape)}
     data_iter = None
     try:
-        solver = Solver(sp, base_dir=base_dir, feed_shapes=feed or None,
-                        test_feed_shapes=test_shapes, device=args.device)
-        # device mode: the sources yield raw records and the crop/mirror
-        # draws; the transform runs on the device before each forward
-        test_fn = test_src.device_fn \
-            if test_src is not None and test_src.device_mode else None
-        if train_src is not None and train_src.device_mode:
+        # a dataset within the budget lives on the card: one upload, then
+        # each step ships its (B, k) control array (data/device_cache.py);
+        # only the single-device feed with the device transform, as in the
+        # JAX verb. SPARKNET_DEVICE_CACHE_MB=0 disables.
+        budget = float(os.environ.get("SPARKNET_DEVICE_CACHE_MB", "2048"))
+        off = "--host-transform" if args.host_transform else \
+            "--strategy dp" if args.strategy == "dp" else \
+            "SPARKNET_DEVICE_CACHE_MB=0" if budget <= 0 else None
+        if off and train_src is not None:
+            print(f"device cache: off under {off}; the records stream")
+        if not off:
+            isz = int(sp.iter_size)
+            train_src = maybe_device_cache(train_src, budget, iter_size=isz,
+                                           device=device)
+            if isinstance(train_src, DeviceCachedSource):
+                budget -= train_src.nbytes / (1 << 20)      # one budget
+            test_src = maybe_device_cache(test_src, budget, iter_size=isz,
+                                          device=device)
+        feed = {**(train_shapes or {}), **_feed_shapes_arg(args.input_shape)}
+        kw = dict(base_dir=base_dir, feed_shapes=feed or None,
+                  test_feed_shapes=test_shapes, device=device)
+        if args.strategy == "dp":
+            from .parallel import DataParallelSolver
+            workers = (args.mesh or {}).get("data", 1)
+            solver = DataParallelSolver(sp, workers=workers, **kw)
+        else:
+            solver = Solver(sp, **kw)
+        # device mode: the sources yield raw records (or control arrays)
+        # and the crop/mirror draws; the transform runs on the device
+        # before each forward, on the whole batch before the dp solver
+        # cuts its slots' rows
+        test_fn = test_src.device_fn if test_src is not None and \
+            getattr(test_src, "device_mode", False) else None
+        if train_src is not None and getattr(train_src, "device_mode",
+                                             False):
             solver.set_input_transform(train_src.device_fn,
                                        train_src.raw_feed_overrides,
                                        test_fn=test_fn)
@@ -171,17 +286,39 @@ def cmd_train(args):
                 solver.restore(args.resume)
         total = args.iterations or int(sp.max_iter) or 1000
         if train_src is not None:
-            kind = "device-transform" if train_src.device_mode \
-                else "host-transform"
+            cached = isinstance(train_src, DeviceCachedSource)
+            kind = "device-cached" if cached else (
+                "device-transform" if getattr(train_src, "device_mode",
+                                              False) else "host-transform")
             print(f"Training from {train_src.source} "
                   f"({train_src.num_records} records, {kind})")
-            # the copy to the card runs in the prefetch worker, on a side
-            # stream, so batch k+1's copy overlaps step k; iter_size > 1
-            # stacks micro-batches on the host, so it feeds host arrays
-            stager = H2DStager(slots=2, device=solver.device) \
-                if int(sp.iter_size) <= 1 else None
+            # the copy to the card runs in the prefetch worker: with
+            # staging on a side stream, so batch k+1's copy overlaps step
+            # k (both solvers' train_step wait on the staged copy and cut
+            # the dp slots from the batch on the card); iter_size > 1
+            # stacks micro-batches on the host, so those are fed as they
+            # are
+            put = None
+            if int(sp.iter_size) <= 1:
+                if os.environ.get("SPARKNET_STAGING", "on") != "off":
+                    put = H2DStager(slots=2, device=solver.device)
+                else:
+                    put = lambda b: to_device(b, solver.device)  # noqa: E731
             data_iter = PrefetchIterator(iter(train_src), depth=3,
-                                         transform=stager, name="train_feed")
+                                         transform=put, name="train_feed")
+            if echo > 1:
+                if cached:
+                    # each batch is already a small control array
+                    print("NOTE: --echo ignored for the device-cached feed")
+                elif not hasattr(train_src, "fresh_aux"):
+                    raise SystemExit(
+                        f"--echo > 1 needs a source with re-drawable "
+                        f"device-side augmentation; "
+                        f"{type(train_src).__name__} has none")
+                else:
+                    data_iter = EchoIterator(
+                        data_iter, echo,
+                        fresh_aux=lambda b: train_src.fresh_aux())
         else:
             print("WARNING: no Data-layer LMDB source found; "
                   "feeding synthetic noise (shapes only)")
@@ -444,15 +581,42 @@ def cmd_lm(args):
 def cmd_cifar(args):
     from .apps import CifarApp
     from .ops import kernel_launches
+    # the app feeds host-transformed CIFAR batches: as in the JAX
+    # package, the wire and staging flags only set their env vars there
+    echo = _apply_feed_flags(args)
     app = CifarApp(num_workers=args.workers, data_dir=args.data,
                    prototxt_dir=args.prototxt_dir, strategy=args.strategy,
                    tau=args.tau, log_path=args.log, device=args.device,
-                   echo=args.echo)
+                   echo=echo)
     solver = app.run(num_rounds=args.rounds, test_every=args.test_every,
                      snapshot_prefix=args.snapshot_prefix,
                      snapshot_every=args.snapshot_every, resume=args.resume)
     print(f"done: {args.rounds} rounds, iter={solver.iter}")
     print(f"Kernel launches: {json.dumps(kernel_launches())}")
+    return 0
+
+
+def cmd_upgrade_net_proto(args):
+    from . import tools
+    tools.upgrade_net_proto(args.input, args.output, binary=args.binary)
+    return 0
+
+
+def cmd_upgrade_solver_proto(args):
+    from . import tools
+    tools.upgrade_solver_proto(args.input, args.output)
+    return 0
+
+
+def cmd_extract_features(args):
+    from . import tools
+    if args.db_type not in ("lmdb", "leveldb"):
+        raise SystemExit(f"unknown db_type {args.db_type!r}")
+    weights = None if args.weights.lower() == "none" else args.weights
+    tools.extract_features(args.model, args.blobs.split(","),
+                           args.dbs.split(","), args.num_batches,
+                           weights_path=weights, backend=args.db_type,
+                           device=args.device)
     return 0
 
 
@@ -481,16 +645,10 @@ class _NotPorted(argparse.Action):
         parser.error(f"{option_string}{shown}: not ported ({self.what})")
 
 
-# the JAX `cifar` verb's flags the port refuses: (flags, takes a value,
-# what is missing and where the roadmap has it)
-_CIFAR_NOT_PORTED = (
-    (("--hosts",), True, "hierarchical host fault domains, ROADMAP A6"),
-    (("--metrics",), True, "the app's JSONL metrics, ROADMAP A6"),
+# flags of the JAX `train` and `cifar` verbs the port refuses: (flags,
+# takes a value, what is missing and where the roadmap has it)
+_RESILIENCE_NOT_PORTED = (
     (("--chaos",), True, "fault injection, ROADMAP A6"),
-    (("--remat", "--precision", "--fsdp", "--tp"), True,
-     "remat, precision and sharding levers, ROADMAP A5"),
-    (("--wire", "--wire-bits", "--staging"), True,
-     "wire formats and the staging switch, ROADMAP A4"),
     (("--shard-ingest",), True, "per-host sharded ingest, ROADMAP A6"),
     (("--no-health", "--health-arm-recovery"), False,
      "the health monitor, ROADMAP A6"),
@@ -504,6 +662,40 @@ _CIFAR_NOT_PORTED = (
      "the heartbeat and its relay, ROADMAP A6"),
     (("--grow",), False, "the heartbeat and its relay, ROADMAP A6"),
 )
+_CIFAR_NOT_PORTED = _RESILIENCE_NOT_PORTED + (
+    (("--hosts",), True, "hierarchical host fault domains, ROADMAP A6"),
+    (("--metrics",), True, "the app's JSONL metrics, ROADMAP A6"),
+    (("--remat", "--precision", "--fsdp", "--tp"), True,
+     "remat, precision and sharding levers, ROADMAP A5"),
+)
+_TRAIN_NOT_PORTED = _RESILIENCE_NOT_PORTED + (
+    (("--metrics", "--profile"), True,
+     "the metrics stream and the profiler trace, ROADMAP A6"),
+    (("--stall-seconds",), True, "the train verb's watchdog, ROADMAP A6"),
+    (("--sigint_effect", "--sighup_effect", "--sigterm_effect"), True,
+     "signal policies (utils/signals.py), ROADMAP A6"),
+    (("--recover", "--recover-lr-decay", "--recover-explode-factor"), True,
+     "divergence recovery, ROADMAP A6"),
+    (("--remat", "--precision"), True,
+     "remat and precision levers, ROADMAP A5"),
+)
+
+
+def _add_not_ported(p, table):
+    """Each flag of ``table`` on ``p`` as a usage error naming its
+    ROADMAP item; --reshard and --keep take only what the port does
+    (strict worlds; every snapshot kept)."""
+    p.add_argument("--reshard", action=_NotPorted, default="strict",
+                   allow=("strict",),
+                   what="cross-world resharding, ROADMAP A6",
+                   help="strict only: a snapshot of another world is "
+                        "refused with WorldMismatch")
+    for flags, value, what in table:
+        for flag in flags:
+            p.add_argument(flag, action=_NotPorted, what=what,
+                           nargs=None if value else 0,
+                           metavar="V" if value else None,
+                           help=f"not ported: {what}")
 
 
 def cmd_serve(args):
@@ -560,10 +752,22 @@ def main(argv=None):
     t.add_argument("--input-shape", action="append", default=[],
                    help='feed blob shape, e.g. "data=100,3,32,32" (stands '
                         "in for the record shape where no source exists)")
+    t.add_argument("--strategy", choices=("single", "dp"), default="single",
+                   help="single: one solver (the default); dp: each batch "
+                        "split over the --mesh data axis's worker slots, "
+                        "their gradients averaged")
+    t.add_argument("--mesh", type=_mesh_arg, default=None,
+                   help='"data=W" or "W": worker slots under --strategy '
+                        "dp (default 1)")
     t.add_argument("--host-transform", action="store_true",
                    help="crop/mirror/mean on the host and ship float32 "
                         "crops, instead of the default: raw uint8 records "
                         "transformed on the device")
+    _add_feed_flags(t)
+    t.add_argument("--keep", action=_NotPorted, default="0", allow=("0",),
+                   what="snapshot retention, ROADMAP A6",
+                   help="0 only: every snapshot is kept")
+    _add_not_ported(t, _TRAIN_NOT_PORTED)
     t.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; the "
                         "CPU runs only when asked: --device cpu)")
@@ -610,6 +814,36 @@ def main(argv=None):
     ci.add_argument("--backend", choices=["lmdb", "leveldb"],
                     default="lmdb")
     ci.set_defaults(fn=cmd_convert_imageset)
+    for verb, binary in (("upgrade_net_proto_text", False),
+                         ("upgrade_net_proto_binary", True)):
+        u = sub.add_parser(verb,
+                           help="V0/V1 NetParameter file -> latest format")
+        u.add_argument("input")
+        u.add_argument("output")
+        u.set_defaults(fn=cmd_upgrade_net_proto, binary=binary)
+    us = sub.add_parser("upgrade_solver_proto_text",
+                        help="solver_type enum -> type string")
+    us.add_argument("input")
+    us.add_argument("output")
+    us.set_defaults(fn=cmd_upgrade_solver_proto)
+    ef = sub.add_parser("extract_features",
+                        help="forward a net, write named blobs as "
+                             "float-Datum DBs; positional order as the "
+                             "reference binary's "
+                             "(tools/extract_features.cpp): weights model "
+                             "blobs dbs n [db_type]")
+    ef.add_argument("weights",
+                    help=".caffemodel[.h5]; `none` for random init")
+    ef.add_argument("model", help="feature-extraction prototxt with a "
+                                  "TEST data layer")
+    ef.add_argument("blobs", help="blob_name1[,name2,...]")
+    ef.add_argument("dbs", help="db_path1[,path2,...]")
+    ef.add_argument("num_batches", type=int)
+    ef.add_argument("db_type", nargs="?", default="lmdb")
+    ef.add_argument("--device", default="cuda",
+                    help="torch device to forward on (default cuda; the "
+                         "CPU runs only when asked: --device cpu)")
+    ef.set_defaults(fn=cmd_extract_features)
     i = sub.add_parser("imagenet", help="the ImageNetApp training loop")
     i.add_argument("--workers", type=int, default=None,
                    help="worker slots on the device (default 1)")
@@ -721,19 +955,8 @@ def main(argv=None):
                    help="'auto': continue from the newest valid snapshot "
                         "under --snapshot-prefix; or an explicit "
                         ".solverstate path")
-    c.add_argument("--echo", type=int, default=1, metavar="E",
-                   help="serve each round's batch E times (data echoing)")
-    c.add_argument("--reshard", action=_NotPorted, default="strict",
-                   allow=("strict",),
-                   what="cross-world resharding, ROADMAP A6",
-                   help="strict only: a snapshot of another world is "
-                        "refused with WorldMismatch")
-    for flags, value, what in _CIFAR_NOT_PORTED:
-        for flag in flags:
-            c.add_argument(flag, action=_NotPorted, what=what,
-                           nargs=None if value else 0,
-                           metavar="V" if value else None,
-                           help=f"not ported: {what}")
+    _add_feed_flags(c)
+    _add_not_ported(c, _CIFAR_NOT_PORTED)
     c.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; the "
                         "CPU runs only when asked: --device cpu)")

@@ -6,12 +6,12 @@ and wraps at the end (data_layer.cpp:14-60, db_lmdb.cpp LMDBCursor), with
 ``rand_skip`` advancing the cursor once at startup and a DataTransformer
 applying crop/mirror/scale/mean per record. Here a `DatumBatchSource`
 yields feed dicts that the training loop (or a PrefetchIterator wrapping
-it) hands to the solver.
+it) hands to the solver. In device mode a SPARKNET_WIRE codec
+(data/wire.py) may re-encode the shipped records. build_db_feed also
+dispatches the ImageData, WindowData and HDF5Data layers to
+data/file_sources.py.
 
-Not ported (ROADMAP A4, A6): the ImageData, WindowData and HDF5Data
-sources (a net naming one that exists raises NotImplementedError), the
-compressed wire formats (SPARKNET_WIRE other than ``raw`` raises), and
-the retry and chaos hooks around record reads.
+Not ported (ROADMAP A6): the retry and chaos hooks around record reads.
 """
 
 import os
@@ -44,14 +44,6 @@ def open_db(source, backend="lmdb"):
     raise ValueError(f"unknown DB backend {backend!r}")
 
 
-def _check_wire():
-    mode = os.environ.get("SPARKNET_WIRE", "").strip().lower() or "raw"
-    if mode != "raw":
-        raise NotImplementedError(
-            f"SPARKNET_WIRE={mode!r}: the port ships raw records only "
-            "(the wire codecs are ROADMAP A4)")
-
-
 class DatumBatchSource:
     """Infinite batched iterator over a Datum database.
 
@@ -76,7 +68,6 @@ class DatumBatchSource:
         # config AND rng, so both modes see the same augmentation stream
         self.device_mode = bool(device_transform)
         if self.device_mode:
-            _check_wire()
             from .device_transform import DeviceTransformer
             self._devt = DeviceTransformer(self.transformer,
                                            data_top=data_top)
@@ -92,6 +83,18 @@ class DatumBatchSource:
             else (1, 1, int(arr.size))
         self.shape = (self.batch_size,) + \
             self.transformer.output_shape(self.record_shape)
+        # the compressed wire (device mode only): host-side precrop and/or
+        # lossless bit-pack per SPARKNET_WIRE, decoded by device_fn; raw
+        # mode is no codec, the feed byte for byte
+        self._codec = None
+        if self.device_mode:
+            from .wire import WireCodec, wire_bits_from_env, \
+                wire_mode_from_env
+            mode = wire_mode_from_env()
+            if mode != "raw":
+                self._codec = WireCodec(
+                    self._devt, self.record_shape, mode=mode,
+                    bits=wire_bits_from_env(), sample=arr)
 
     @property
     def num_records(self):
@@ -119,20 +122,37 @@ class DatumBatchSource:
                 arrs.append(arr.reshape(c, h, w))
             batch = np.stack(arrs)  # uint8, or float32 for float_data nets
             if self.device_mode:
-                yield {self.data_top: batch, self.label_top: labels,
+                out = {self.data_top: batch, self.label_top: labels,
                        **self._devt.aux(self.batch_size, self.record_shape)}
+                yield self._codec.encode(out) if self._codec else out
             else:
                 yield {self.data_top: self.transformer(batch),
                        self.label_top: labels}
 
+    def fresh_aux(self):
+        """New crop/mirror draws for one batch (data echoing: each echo
+        of a shipped batch gets its own augmentation)."""
+        return self._devt.aux(self.batch_size, self.record_shape)
+
+    @property
+    def wire(self):
+        """The active WireCodec, or None (raw wire, or host mode)."""
+        return self._codec
+
     @property
     def device_fn(self):
-        """The transform on the batch's device (device mode only)."""
+        """The transform on the batch's device (device mode only),
+        decoding the wire first when a codec is active."""
+        if self._codec is not None:
+            return self._codec.device_fn()
         return self._devt.device_fn()
 
     @property
     def raw_feed_overrides(self):
-        """check_batch shape overrides for the raw feed (device mode)."""
+        """check_batch shape overrides for the raw feed (device mode):
+        the SHIPPED shapes when a codec is active."""
+        if self._codec is not None:
+            return self._codec.raw_overrides(self.batch_size)
         return self._devt.raw_overrides(self.batch_size, self.record_shape)
 
     def close(self):
@@ -152,46 +172,77 @@ def _resolve(path, base_dir):
         if base_dir and not os.path.isabs(path) else path
 
 
-_UNPORTED_SOURCES = {"ImageData": "image_data_param",
-                     "WindowData": "window_data_param",
-                     "HDF5Data": "hdf5_data_param"}
-
-
 def build_db_feed(net_param, phase, base_dir="", seed=None,
                   device_transform=False):
-    """If the net's phase-filtered Data layer points at an existing DB,
-    return (feed_shapes, source); else (None, None) — the caller falls
-    back to synthetic feeds and says so. An ImageData, WindowData or
-    HDF5Data layer whose source exists raises NotImplementedError: the
-    port does not read those formats yet, and feeding noise in their
-    place would train on nothing."""
+    """If the net's phase-filtered data layer points at an existing source
+    (Data -> LMDB/LevelDB, ImageData -> listfile, WindowData -> window
+    file, HDF5Data -> list of .h5 files), return (feed_shapes, source);
+    else (None, None) — the caller falls back to synthetic feeds and says
+    so. Only Data takes the device transform; the file sources yield
+    host-transformed float32 batches, as in the JAX package."""
+    from .file_sources import (HDF5DataSource, ImageDataSource,
+                               WindowDataSource)
     for lp in phase_data_layers(net_param, phase):
         tops = list(lp.top)
-        if lp.type in _UNPORTED_SOURCES:
-            field = _UNPORTED_SOURCES[lp.type]
-            if lp.has(field) and os.path.exists(
-                    _resolve(getattr(lp, field).source, base_dir)):
-                raise NotImplementedError(
-                    f"layer {lp.name!r} ({lp.type}): its source "
-                    f"{getattr(lp, field).source!r} exists, but the port "
-                    f"reads only Data-layer LMDB/LevelDB sources "
-                    f"(ROADMAP A4)")
+        tp = lp.transform_param if lp.has("transform_param") else None
+        label_top = tops[1] if len(tops) > 1 else "label"
+        if lp.type == "Data" and lp.has("data_param"):
+            dp = lp.data_param
+            source = _resolve(dp.source, base_dir)
+            backend = int(dp.backend) if dp.has("backend") else None
+            if not _db_exists(source, backend):
+                continue
+            src = DatumBatchSource(
+                source, int(dp.batch_size), phase=phase, transform_param=tp,
+                backend=backend, rand_skip=int(dp.rand_skip),
+                base_dir=base_dir, seed=seed, data_top=tops[0],
+                label_top=label_top, device_transform=device_transform)
+        elif lp.type == "ImageData" and lp.has("image_data_param"):
+            ip = lp.image_data_param
+            source = _resolve(ip.source, base_dir)
+            if not os.path.exists(source):
+                continue
+            src = ImageDataSource(
+                source, int(ip.batch_size), phase=phase, transform_param=tp,
+                root_folder=_resolve(ip.root_folder, base_dir)
+                if ip.root_folder else base_dir,
+                new_height=int(ip.new_height), new_width=int(ip.new_width),
+                is_color=bool(int(ip.is_color)),
+                shuffle=bool(int(ip.shuffle)), rand_skip=int(ip.rand_skip),
+                base_dir=base_dir, seed=seed, data_top=tops[0],
+                label_top=label_top)
+        elif lp.type == "WindowData" and lp.has("window_data_param"):
+            wp = lp.window_data_param
+            source = _resolve(wp.source, base_dir)
+            if not os.path.exists(source):
+                continue
+            if wp.has("cache_images") and bool(int(wp.cache_images)):
+                import warnings
+                warnings.warn(
+                    f"layer {lp.name!r}: cache_images is ignored — "
+                    "WindowDataSource decodes per sampled window (the "
+                    "deliberate no-cache choice, file_sources.py), so "
+                    "expect per-window decode cost", stacklevel=2)
+            src = WindowDataSource(
+                source, int(wp.batch_size), phase=phase, transform_param=tp,
+                fg_threshold=float(wp.fg_threshold),
+                bg_threshold=float(wp.bg_threshold),
+                fg_fraction=float(wp.fg_fraction),
+                context_pad=int(wp.context_pad), crop_mode=wp.crop_mode,
+                root_folder=_resolve(wp.root_folder, base_dir)
+                if wp.root_folder else base_dir,
+                base_dir=base_dir, seed=seed, data_top=tops[0],
+                label_top=label_top)
+        elif lp.type == "HDF5Data" and lp.has("hdf5_data_param"):
+            hp = lp.hdf5_data_param
+            source = _resolve(hp.source, base_dir)
+            if not os.path.exists(source):
+                continue
+            src = HDF5DataSource(source, int(hp.batch_size), tops,
+                                 shuffle=bool(int(hp.shuffle)), seed=seed)
+            return dict(src.shape), src
+        else:
             continue
-        if not lp.has("data_param"):
-            continue
-        dp = lp.data_param
-        source = _resolve(dp.source, base_dir)
-        backend = int(dp.backend) if dp.has("backend") else None
-        if not _db_exists(source, backend):
-            continue
-        src = DatumBatchSource(
-            source, int(dp.batch_size), phase=phase,
-            transform_param=lp.transform_param
-            if lp.has("transform_param") else None,
-            backend=backend, rand_skip=int(dp.rand_skip), base_dir=base_dir,
-            seed=seed, data_top=tops[0],
-            label_top=tops[1] if len(tops) > 1 else "label",
-            device_transform=device_transform)
         shapes = {tops[0]: src.shape}
         if len(tops) > 1:
             shapes[tops[1]] = (src.batch_size,)

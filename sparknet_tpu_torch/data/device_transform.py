@@ -47,13 +47,17 @@ def _index(v, n, device):
 
 
 def transform_batch(images, crop, ys=None, xs=None, mirror=None, mean=None,
-                    scale=1.0, full_mean=False):
+                    scale=1.0, full_mean=False, precropped=False):
     """uint8 tensor (N,C,H,W) -> float32 (N,C,crop,crop) on the tensor's
     device; crop 0 keeps the whole (H,W). The arguments are
     transforms.transform_batch's (numpy arrays or tensors), and so is the
-    result on the same draws, to the bit."""
+    result on the same draws, to the bit. ``precropped``: the images are
+    already the (N,C,crop,crop) windows at ys/xs (the precrop wire), so
+    the gather is skipped; a full mean is still taken at ys/xs."""
     n, c, h, w = images.shape
     dev = images.device
+    if precropped and full_mean and mean is not None:
+        h, w = tuple(mean.shape[-2:])       # the source records' extent
     kind = check_mean(mean, full_mean, c, h, w, crop or h)
     if mean is not None:
         mean = _tensor(mean, dev).float()
@@ -64,7 +68,8 @@ def transform_batch(images, crop, ys=None, xs=None, mirror=None, mean=None,
         chan = torch.arange(c, device=dev).view(1, c, 1, 1)
         img = torch.arange(n, device=dev).view(n, 1, 1, 1)
         # slicing uint8 then casting equals casting then slicing
-        out = images[img, chan, rows, cols].float()
+        out = images.float() if precropped \
+            else images[img, chan, rows, cols].float()
         if kind == 3:        # the source-indexed window, before the mirror
             out = out - mean[chan, rows, cols]
     else:
@@ -118,10 +123,13 @@ class DeviceTransformer:
             over[k] = (batch_size,)
         return over
 
-    def device_fn(self):
+    def device_fn(self, precropped=False):
         """-> fn(batch dict) -> batch dict. Consumes ``data_top`` (a uint8
         tensor on its device) and the aux keys, passes every other entry
-        (labels, extra feeds) through."""
+        (labels, extra feeds) through. ``precropped``: the wire codec
+        already sliced the crop windows on the host (data/wire.py); the
+        y/x aux still place the full mean's window, so the output bits
+        equal the uncropped path's."""
         t = self.h
         data_top, ky, kx, kf = self.data_top, self.ky, self.kx, self.kf
         means = {}
@@ -137,7 +145,8 @@ class DeviceTransformer:
             batch[data_top] = transform_batch(
                 x, t.crop_size, ys=batch.pop(ky, None),
                 xs=batch.pop(kx, None), mirror=batch.pop(kf, None),
-                mean=mean, scale=t.scale, full_mean=t.full_mean)
+                mean=mean, scale=t.scale, full_mean=t.full_mean,
+                precropped=precropped)
             return batch
 
         return fn

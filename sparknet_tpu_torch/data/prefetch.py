@@ -189,13 +189,23 @@ class H2DStager:
 
 class EchoIterator:
     """Serve each upstream batch ``echo`` times (data echoing, Choi et
-    al.). echo == 1 is a strict passthrough. Delegates close() to the
-    wrapped iterator."""
+    al.).
 
-    def __init__(self, source, echo):
+    fresh_aux: optional fn(batch) -> {aux_key: array} giving new host-side
+    crop/mirror draws for every echo after the first, so each echo is a
+    distinct augmentation of the same shipped pixels. An echo is a plain
+    dict copy of the batch with only the small aux arrays swapped: the
+    staged pixels are reused, and the consumer has already waited for
+    their copy when it took the first serving.
+
+    echo == 1 is a strict passthrough: no extra draws, no copies.
+    Delegates close() to the wrapped iterator."""
+
+    def __init__(self, source, echo, fresh_aux=None):
         self._inner = source
         self._it = iter(source)
         self.echo = max(1, int(echo))
+        self._fresh_aux = fresh_aux
         self._base = None
         self._left = 0
 
@@ -203,9 +213,15 @@ class EchoIterator:
         return self
 
     def __next__(self):
+        if self.echo == 1:
+            return next(self._it)
         if self._left > 0:
             self._left -= 1
-            return self._base
+            b = self._base
+            if self._fresh_aux is not None and isinstance(b, dict):
+                b = dict(b)
+                b.update(self._fresh_aux(self._base))
+            return b
         self._base = next(self._it)
         self._left = self.echo - 1
         return self._base

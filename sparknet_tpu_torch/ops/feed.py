@@ -158,3 +158,18 @@ class DummyData(Layer):
         gen = torch.Generator().manual_seed(seed)
         return [F.fill(gen, s, f).to(self.device)
                 for s, f in zip(self.shapes, self.fillers)]
+
+
+@register
+class HDF5Output(Layer):
+    """Sink layer with no tops (reference hdf5_output_layer.cpp wrote its
+    bottoms to disk). In the compiled graph it computes nothing; the
+    extract_features verb writes blobs instead."""
+
+    type_name = "HDF5Output"
+
+    def out_shapes(self):
+        return []
+
+    def apply(self, params, bottoms, train):
+        return []

@@ -2,15 +2,18 @@
 
 The format is the JAX package's (sparknet_tpu/resilience/checkpoint.py):
 a snapshot is a ``<prefix>_iter_<N>.caffemodel`` binaryproto NetParameter
-plus a ``.solverstate``, both committed by atomic rename, and
+plus a ``.solverstate`` (or, under ``snapshot_format: HDF5``, the
+``.caffemodel.h5`` and ``.solverstate.h5`` pair), both committed by
+atomic rename, and
 ``<prefix>.latest.json`` names them with their sha256 sums. The manifest
 is written last (temp + fsync + rename), so a crash at any earlier point
 leaves the previous manifest pointing at the previous complete snapshot.
 
   save_snapshot        a Solver's pair
   save_model_snapshot  the same files and entry without a solver
-  find_resumable       the newest manifested pair that verifies, with
-                       the reason every newer one was refused
+  find_resumable       the newest pair that verifies (manifested ones
+                       first, then un-manifested ones), with the reason
+                       every newer one was refused
   check_restorable     the guard of an explicit restore
   resume_auto          ``--resume auto``
   load_model_only      what serving reads
@@ -28,6 +31,7 @@ import hashlib
 import itertools
 import json
 import os
+import re
 import threading
 import time
 
@@ -164,8 +168,9 @@ def check_world(entry, world, state_path):
             "snapshot prefix; the port does not reshard snapshots.")
 
 
-def _commit(prefix, model_path, state_path, write_files, iter_, world):
-    """Write a binaryproto (model, state) pair through
+def _commit(prefix, model_path, state_path, write_files, iter_, world,
+            format="binaryproto"):
+    """Write a (model, state) pair of ``format`` through
     ``write_files(tmp_model, tmp_state)`` under temp names, fsync,
     checksum, rename both, then commit the manifest. Returns
     (model_path, state_path)."""
@@ -180,7 +185,7 @@ def _commit(prefix, model_path, state_path, write_files, iter_, world):
             _fsync_file(p)
         entry = {
             "iter": int(iter_),
-            "format": "binaryproto",
+            "format": format,
             "model": os.path.basename(model_path),
             "state": os.path.basename(state_path),
             "sha256": {"model": _sha256(tmp_model),
@@ -214,15 +219,16 @@ def _commit(prefix, model_path, state_path, write_files, iter_, world):
 
 
 def save_snapshot(solver, prefix):
-    """Atomically write one (model, state) snapshot pair for ``solver``
-    and commit it to the manifest; returns the final paths. The state
-    file names the FINAL model path (SolverState.learned_net)."""
-    model_path, state_path = solver._snapshot_paths(prefix)
+    """Atomically write one (model, state) snapshot pair for ``solver``,
+    in its snapshot_format, and commit it to the manifest; returns the
+    final paths. The state file names the FINAL model path
+    (SolverState.learned_net)."""
+    model_path, state_path, format = solver._snapshot_paths(prefix)
     return _commit(
         prefix, model_path, state_path,
         lambda tm, ts: solver._write_snapshot_files(
-            tm, ts, learned_net=model_path),
-        solver.iter, world_signature(solver))
+            tm, ts, format, learned_net=model_path),
+        solver.iter, world_signature(solver), format)
 
 
 def save_model_snapshot(net, params, prefix, iter=0, state=None):
@@ -326,18 +332,30 @@ def find_resumable(prefix, log_fn=None):
 
     skipped is [(state_path, reason), ...] for every newer snapshot that
     was refused (partial write, checksum mismatch, missing pair file).
-    Returns (None, skipped) when nothing valid exists. The port writes
-    every snapshot through the manifest, as the JAX package does, so
-    only manifested snapshots are candidates."""
+    Returns (None, skipped) when nothing valid exists. Manifested
+    snapshots are checksum-verified and come first; un-manifested pairs
+    (``_iter_N.solverstate`` or ``.solverstate.h5`` beside its
+    ``.caffemodel``/``.caffemodel.h5``, as a stock Caffe run leaves them)
+    are only checked for existence and non-emptiness, as in the JAX
+    package."""
     log = log_fn or (lambda *a: None)
-    state, skipped = None, []
+    skipped, seen = [], set()
     d = os.path.dirname(prefix)
     man = load_manifest(prefix)
+    candidates = []
     for entry in reversed((man or {}).get("snapshots", [])):
         if not isinstance(entry, dict):
             continue
         path = os.path.join(d, entry.get("state") or "?")
-        reason = _verify_entry(d, entry)
+        seen.add(os.path.basename(path))
+        candidates.append((path, lambda e=entry: _verify_entry(d, e)))
+    for _, model, path in _legacy_pairs(prefix):
+        if os.path.basename(path) not in seen:  # the manifest ruled on it
+            candidates.append((path, lambda m=model, s=path:
+                               _verify_pair(m, s)))
+    state = None
+    for path, verify in candidates:
+        reason = verify()
         if reason is None:
             state = path
             break
@@ -345,6 +363,31 @@ def find_resumable(prefix, log_fn=None):
     for s, r in skipped:
         log(f"refusing snapshot {s}: {r}")
     return state, skipped
+
+
+_ITER_RE = re.compile(r"_iter_(\d+)\.solverstate(\.h5)?$")
+
+
+def _legacy_pairs(prefix):
+    """Un-manifested (iter, model, state) snapshot pairs, newest first."""
+    pairs = []
+    for state in glob.glob(glob.escape(prefix) + "_iter_*.solverstate*"):
+        m = _ITER_RE.search(state)
+        if _TMP_TAG in state or not m:
+            continue
+        model = state[:m.start()] + f"_iter_{m.group(1)}.caffemodel" \
+            + (m.group(2) or "")
+        pairs.append((int(m.group(1)), model, state))
+    return sorted(pairs, reverse=True)
+
+
+def _verify_pair(model, state):
+    """Why an un-manifested pair cannot be resumed from, or None."""
+    if not os.path.exists(model):
+        return f"model file {model} is missing"
+    if os.path.getsize(model) == 0 or os.path.getsize(state) == 0:
+        return "snapshot pair has an empty file (partial write)"
+    return None
 
 
 def check_restorable(state_path, world=None):

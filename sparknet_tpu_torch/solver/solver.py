@@ -6,7 +6,8 @@ forwards with ``backward()`` (autograd sums the micro-batch gradients
 into each param's f32 ``.grad``), then the Updater changes params and
 history in place. Evaluation averages the TEST net's output blobs over
 test_iter batches (solver.cpp TestAndStoreResult :414-444). Snapshots
-are Caffe's binaryproto .caffemodel + .solverstate pair under the
+are Caffe's .caffemodel + .solverstate pair, binaryproto or (with
+``snapshot_format: HDF5``) the .h5 pair of solver/hdf5_io.py, under the
 crash-safe manifest of resilience/checkpoint.py, readable by the JAX
 package and back.
 
@@ -15,8 +16,7 @@ Solver's "train" events at display points. ``set_input_transform``
 installs a transform that runs on the device before the forward (the
 raw-record feed of data/device_transform.py). Not ported (ROADMAP A6): its
 "test" events and other observability hooks, chaos, elastic, heartbeat,
-watchdog and staleness machinery, remat and scan knobs, debug_info and
-HDF5 snapshots.
+watchdog and staleness machinery, remat and scan knobs and debug_info.
 """
 
 import collections
@@ -181,7 +181,8 @@ class Solver:
         fn/test_fn: fn(batch dict of tensors on the device) -> the net's
         feed dict, for training and for testing; raw_overrides: {blob:
         raw shape} check_batch overrides for the pre-transform feed (the
-        uint8 source extent and the '#y'/'#x'/'#flip' aux arrays)."""
+        uint8 source extent and the '#y'/'#x'/'#flip' aux arrays; None
+        for a blob the transform makes itself)."""
         self.input_transform = fn
         self.test_input_transform = test_fn
         self._raw_feed_shapes = dict(raw_overrides) if raw_overrides \
@@ -194,7 +195,9 @@ class Solver:
         shapes = dict(self.net.feed_shapes())
         if self._raw_feed_shapes:
             shapes.update(self._raw_feed_shapes)
-        return shapes
+        # None: a blob the transform makes on the device (the device
+        # cache's data and labels), not host-fed
+        return {k: v for k, v in shapes.items() if v is not None}
 
     def _transform(self, batch, fn, iter_size=1):
         """``batch`` through ``fn`` on the device (each micro-batch of a
@@ -315,8 +318,9 @@ class Solver:
 
     # -- checkpointing (Caffe solver.cpp Snapshot :447-521) ----------------
     def snapshot(self, prefix=None):
-        """Write weights + solver state through the crash-safe manifest;
-        returns (model_path, state_path). Binaryproto only."""
+        """Write weights + solver state through the crash-safe manifest,
+        in the SolverParameter's snapshot_format (BINARYPROTO, the
+        default, or HDF5); returns (model_path, state_path)."""
         from ..resilience import checkpoint
         model_path, state_path = checkpoint.save_snapshot(
             self, prefix or self.param.snapshot_prefix)
@@ -324,24 +328,29 @@ class Solver:
         return model_path, state_path
 
     def _snapshot_paths(self, prefix=None):
-        """-> (model_path, state_path) for a snapshot at the current iter
-        (Caffe Snapshot naming, solver.cpp:466-470)."""
-        if int(self.param.snapshot_format) == 0:
-            raise NotImplementedError(
-                "snapshot_format: HDF5: the port writes binaryproto "
-                "snapshots only (HDF5 needs h5py and is not ported)")
+        """-> (model_path, state_path, format) for a snapshot at the
+        current iter (Caffe Snapshot naming, solver.cpp:466-470)."""
         prefix = prefix or self.param.snapshot_prefix
-        return (f"{prefix}_iter_{self.iter}.caffemodel",
-                f"{prefix}_iter_{self.iter}.solverstate")
+        format = "hdf5" if int(self.param.snapshot_format) == 0 \
+            else "binaryproto"
+        ext = ".h5" if format == "hdf5" else ""
+        return (f"{prefix}_iter_{self.iter}.caffemodel{ext}",
+                f"{prefix}_iter_{self.iter}.solverstate{ext}", format)
 
-    def _write_snapshot_files(self, model_path, state_path,
+    def _write_snapshot_files(self, model_path, state_path, format,
                               learned_net=None):
         """Write the two snapshot files to the given (possibly temporary)
         paths; ``learned_net`` is the model path the state file names."""
+        learned = learned_net or model_path
+        if format == "hdf5":
+            hdf5_io.save_net_hdf5(model_path, self.net, self.params)
+            hdf5_io.save_state_hdf5(state_path, self.iter, learned,
+                                    self.net, self.history)
+            return
         wire.dump(self.net.params_to_netproto(self.params, self.state),
                   model_path)
-        ss = Message("SolverState", iter=self.iter,
-                     learned_net=learned_net or model_path, current_step=0)
+        ss = Message("SolverState", iter=self.iter, learned_net=learned,
+                     current_step=0)
         # Caffe's history_ order: slot-major over net-ordered params
         for lname, i, s in hdf5_io.history_order(self.net, self.history):
             ss.history.append(array_to_blob(
@@ -349,15 +358,20 @@ class Solver:
         wire.dump(ss, state_path)
 
     def restore(self, state_path):
-        """Resume from a binaryproto .solverstate and the weights it names
-        (learned_net). A snapshot its manifest marks partial or corrupt,
-        or one stamped by another world, is refused with the reason."""
+        """Resume from a .solverstate (binaryproto) or .solverstate.h5
+        and the weights it names (learned_net). A snapshot its manifest
+        marks partial or corrupt, or one stamped by another world, is
+        refused with the reason."""
         from ..resilience import checkpoint
         checkpoint.check_restorable(state_path,
                                     checkpoint.world_signature(self))
         if state_path.endswith(".h5"):
-            raise ValueError(
-                f"{state_path}: HDF5 solver states are not ported")
+            it, learned = hdf5_io.load_state_hdf5(state_path, self.net,
+                                                  self.history)
+            if learned and os.path.exists(learned):
+                self.load_weights(learned)
+            self.iter = it
+            return
         ss = wire.load(state_path, "SolverState")
         order = list(hdf5_io.history_order(self.net, self.history))
         blobs = list(ss.history)
@@ -378,11 +392,11 @@ class Solver:
         self.iter = int(ss.iter)
 
     def load_weights(self, caffemodel_path):
-        """Caffe CopyTrainedLayersFrom: a binaryproto .caffemodel, layers
-        matched by name."""
+        """Caffe CopyTrainedLayersFrom: a binaryproto .caffemodel or a
+        .caffemodel.h5, layers matched by name."""
         if caffemodel_path.endswith(".h5"):
-            raise ValueError(
-                f"{caffemodel_path}: HDF5 weights are not ported")
+            hdf5_io.load_net_hdf5(caffemodel_path, self.params)
+            return
         net_proto = wire.load(caffemodel_path, "NetParameter")
         self.params, self.state = self.net.load_netproto(
             net_proto, self.params, self.state)

@@ -9,6 +9,10 @@ binaries):
                        "relpath label" lines -> Datum DB (optional resize,
                        gray, shuffle, encoded passthrough)
   make_synth_cifar     a synthetic CIFAR-10-format dataset
+  upgrade_net_proto    tools/upgrade_net_proto_{text,binary}.cpp
+  upgrade_solver_proto tools/upgrade_solver_proto_text.cpp
+  extract_features     tools/extract_features.cpp: forward a TEST net on
+                       a device, write named blobs as float-Datum DBs
 
 Both DB backends are pure Python: LMDB (data/lmdb.py) is the default
 writer; convert_imageset also writes LevelDB (data/leveldb.py), and every
@@ -165,3 +169,124 @@ def convert_imageset(root_folder, list_file, db_path, resize_height=0,
                 log(f"Processed {written} files.")
     log(f"Processed {written} files.")
     return written
+
+
+def upgrade_net_proto(in_path, out_path, binary=False, log=print):
+    """Any-vintage NetParameter file -> latest format
+    (tools/upgrade_net_proto_text.cpp / upgrade_net_proto_binary.cpp:
+    V0 upgrade + V1 upgrade + deprecated data-transform move, then write).
+
+    binary=False reads/writes prototxt text; True reads/writes wire bytes
+    (.caffemodel-style)."""
+    from .graph.upgrade import (needs_v0_upgrade, net_needs_data_upgrade,
+                                upgrade_net)
+    from .proto import text_format, wire
+    codec = wire if binary else text_format
+    net = codec.load(in_path, "NetParameter")
+    if not (needs_v0_upgrade(net) or len(net.layers)
+            or net_needs_data_upgrade(net)):
+        log(f"File already in latest proto format: {in_path}")
+    net = upgrade_net(net)
+    codec.dump(net, out_path)
+    log(f"Wrote upgraded NetParameter {'binary' if binary else 'text'} "
+        f"proto to {out_path}")
+    return net
+
+
+def upgrade_solver_proto(in_path, out_path, log=print):
+    """Deprecated solver_type enum -> type string in a solver prototxt
+    (tools/upgrade_solver_proto_text.cpp)."""
+    from .graph.upgrade import solver_needs_type_upgrade, upgrade_solver
+    from .proto import text_format
+    sp = text_format.load(in_path, "SolverParameter")
+    if not solver_needs_type_upgrade(sp):
+        log(f"File already in latest proto format: {in_path}")
+    sp = upgrade_solver(sp)
+    text_format.dump(sp, out_path)
+    log(f"Wrote upgraded SolverParameter text proto to {out_path}")
+    return sp
+
+
+def extract_features(model_path, blob_names, db_paths, num_batches,
+                     weights_path=None, base_dir=None, backend="lmdb",
+                     device="cuda", log=print):
+    """Forward a TEST-phase net num_batches times on ``device`` and write
+    the named blobs' per-image activations as float Datums, keys "%010d"
+    (tools/extract_features.cpp:135-185; Datum channels/height/width
+    follow the legacy 4-d blob accessors, so an (N, D) blob writes
+    (D, 1, 1) features).
+
+    blob_names / db_paths are parallel lists (the reference's
+    comma-separated pairs). The net's own TEST data layer supplies input,
+    host-transformed; its source is resolved relative to base_dir
+    (default: the model file's directory, walking up like the CLI).
+    Random-init params (weights_path None) draw from a generator seeded
+    with 0."""
+    import torch
+    from .data.db_source import resolve_db_feed
+    from .graph.compiler import TEST, CompiledNet
+    from .graph.upgrade import upgrade_net
+    from .proto import text_format, wire
+    from .solver import hdf5_io
+
+    if len(blob_names) != len(db_paths):
+        raise ValueError("the number of blob names and dataset names "
+                         "must be equal")
+    net_param = upgrade_net(text_format.load(model_path, "NetParameter"))
+    feed_shapes, src = resolve_db_feed(
+        net_param, TEST,
+        base_dir or os.path.dirname(os.path.abspath(model_path)), seed=0)
+    if src is None:
+        raise ValueError(
+            f"{model_path}: no TEST data layer with a readable source "
+            "(extract_features needs the net to feed itself)")
+    counts = [0] * len(blob_names)
+    try:
+        net = CompiledNet(net_param, TEST, feed_shapes=feed_shapes,
+                          device=device)
+        params, state = net.init(torch.Generator().manual_seed(0))
+        if weights_path:
+            if weights_path.endswith(".h5"):
+                hdf5_io.load_net_hdf5(weights_path, params)
+            else:
+                params, state = net.load_netproto(
+                    wire.load(weights_path, "NetParameter"), params, state)
+        for b in blob_names:
+            if b not in net.blob_shapes:
+                raise ValueError(f"Unknown feature blob name {b} in the "
+                                 f"network {model_path}")
+        log("Extracting Features")
+        if backend == "leveldb":
+            from .data.leveldb import LevelDBWriter as _W
+        else:
+            _W = LMDBWriter
+        writers = [_W(p) for p in db_paths]
+        try:
+            it = iter(src)
+            for _ in range(num_batches):
+                with torch.inference_mode():
+                    blobs, _ = net.apply(params, state, next(it),
+                                         train=False)
+                for i, b in enumerate(blob_names):
+                    arr = blobs[b].to("cpu", torch.float32).numpy()
+                    n = arr.shape[0]
+                    # legacy 4-d accessors: (N, C[, H[, W]]) -> (C, H, W)
+                    chw = arr.reshape(n,
+                                      arr.shape[1] if arr.ndim > 1 else 1,
+                                      arr.shape[2] if arr.ndim > 2 else 1,
+                                      -1)
+                    for row in chw:
+                        writers[i].put(b"%010d" % counts[i],
+                                       array_to_datum(row))
+                        counts[i] += 1
+                        if counts[i] % 1000 == 0:
+                            log(f"Extracted features of {counts[i]} query "
+                                f"images for feature blob {b}")
+        finally:
+            for w in writers:
+                w.close()
+    finally:
+        src.close()
+    for b, c in zip(blob_names, counts):
+        log(f"Extracted features of {c} query images for feature blob {b}")
+    return counts

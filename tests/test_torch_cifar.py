@@ -210,13 +210,32 @@ def test_cifar_verb_dp_and_the_stock_prototxt_path(tmp_path, capsys):
     ["--hosts", "2"], ["--chaos", "stall_step=1"], ["--reshard", "auto"],
     ["--metrics", "m.jsonl"], ["--quorum", "2"], ["--staleness", "1"],
     ["--heartbeat-dir", "hb"], ["--grow"], ["--no-health"],
-    ["--shard-ingest", "on"], ["--fsdp", "on"], ["--wire", "pack"]],
+    ["--shard-ingest", "on"], ["--fsdp", "on"], ["--precision", "bf16"]],
     ids=lambda f: f[0])
 def test_cifar_verb_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["cifar", "--device", "cpu", *flags])
     assert e.value.code == 2
     assert "not ported" in capsys.readouterr().err
+
+
+def test_cifar_verb_takes_the_wire_flags_as_the_jax_verb(capsys,
+                                                          monkeypatch):
+    # as in the JAX package, the CIFAR feed is host-transformed, so the
+    # wire and staging flags only set their env vars; echo with a precrop
+    # wire is refused before anything runs
+    for env in ("SPARKNET_WIRE", "SPARKNET_WIRE_BITS", "SPARKNET_STAGING",
+                "SPARKNET_ECHO"):
+        monkeypatch.setenv(env, "")
+    out = _verb(["--workers", "1", "--tau", "1", "--rounds", "1",
+                 "--test-every", "5", "--wire", "pack", "--wire-bits", "4",
+                 "--staging", "off"], capsys)
+    assert "done: 1 rounds, iter=1" in out
+    assert (os.environ["SPARKNET_WIRE"], os.environ["SPARKNET_WIRE_BITS"],
+            os.environ["SPARKNET_STAGING"]) == ("pack", "4", "off")
+    with pytest.raises(SystemExit, match="precrop"):
+        cli.main(["cifar", "--device", "cpu", "--wire", "precrop",
+                  "--echo", "2"])
 
 
 def test_cifar_app_refuses_hosts():

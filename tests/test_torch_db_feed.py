@@ -169,19 +169,25 @@ def test_build_db_feed_reads_a_stock_prototxt(db_tree, tmp_path,
     # a source that does not exist: (None, None), the caller's synthetic
     # shapes
     assert build_db_feed(net, TRAIN, str(tmp_path)) == (None, None)
-    # an unported source that exists is refused, never fed noise
+    # an ImageData source that exists is read (data/file_sources.py;
+    # tests/test_torch_file_sources.py holds it against the JAX package)
+    from PIL import Image
+    Image.new("RGB", (5, 4), (10, 20, 30)).save(tmp_path / "a.png")
     (tmp_path / "list.txt").write_text("a.png 0\n")
     img = _prototxt(tmp_path, 'layer { name: "d" type: "ImageData" '
                     'top: "data" top: "label" image_data_param { '
                     'source: "list.txt" batch_size: 2 } }')
-    with pytest.raises(NotImplementedError, match="ImageData"):
-        build_db_feed(img, TRAIN, str(tmp_path))
+    shapes, src = build_db_feed(img, TRAIN, str(tmp_path))
+    assert shapes == {"data": (2, 3, 4, 5), "label": (2,)}
+    batch = next(iter(src))
+    np.testing.assert_array_equal(batch["data"][1, :, 0, 0], [30, 20, 10])
     missing = _prototxt(tmp_path, 'layer { name: "d" type: "HDF5Data" '
                         'top: "data" hdf5_data_param { source: "no.txt" '
                         'batch_size: 2 } }')
     assert build_db_feed(missing, TRAIN, str(tmp_path)) == (None, None)
+    # a wire mode that does not exist is an error, not the raw wire
     monkeypatch.setenv("SPARKNET_WIRE", "crop")
-    with pytest.raises(NotImplementedError, match="SPARKNET_WIRE"):
+    with pytest.raises(ValueError, match="SPARKNET_WIRE"):
         build_db_feed(net, TRAIN, str(db_tree), device_transform=True)
 
 
@@ -250,32 +256,52 @@ def _train_losses(out):
         [(k, float(v)) for k, v in _TEST.findall(out)]
 
 
-@pytest.fixture(scope="module")
-def jax_train(db_tree):
-    """The JAX verb's losses on the records, through its device-transform
-    feed (the device cache, a layout the port does not have, is off)."""
+def _jax_verb(db_tree, cache_mb, extra=(), kind="device-transform"):
+    """The JAX verb's losses on the records; ``cache_mb`` None leaves
+    SPARKNET_DEVICE_CACHE_MB unset (the default, the device cache on)."""
     import contextlib
     import io
     buf = io.StringIO()
-    old = os.environ.get("SPARKNET_DEVICE_CACHE_MB")
-    os.environ["SPARKNET_DEVICE_CACHE_MB"] = "0"
+    old = os.environ.pop("SPARKNET_DEVICE_CACHE_MB", None)
+    if cache_mb is not None:
+        os.environ["SPARKNET_DEVICE_CACHE_MB"] = cache_mb
     try:
         with contextlib.redirect_stdout(buf):
             jcli.main(["train", "--solver", str(db_tree / "solver.prototxt"),
-                       "--weights", str(db_tree / "start.caffemodel")])
+                       "--weights", str(db_tree / "start.caffemodel"),
+                       *extra])
     finally:
-        if old is None:
-            os.environ.pop("SPARKNET_DEVICE_CACHE_MB")
-        else:
+        os.environ.pop("SPARKNET_DEVICE_CACHE_MB", None)
+        if old is not None:
             os.environ["SPARKNET_DEVICE_CACHE_MB"] = old
     out = buf.getvalue()
-    assert "device-transform" in out
+    assert f"40 records, {kind}" in out
     return _train_losses(out)
+
+
+@pytest.fixture(scope="module")
+def jax_train(db_tree):
+    """The JAX verb's losses on the records, through its streaming
+    device-transform feed (the device cache off)."""
+    return _jax_verb(db_tree, "0")
+
+
+def _assert_matches(out, jax_run):
+    losses, tests = _train_losses(out)
+    jlosses, jtests = jax_run
+    assert len(losses) == len(jlosses) == 3 and len(tests) == len(jtests) == 4
+    assert max(abs(a - b) for a, b in zip(losses, jlosses)) <= LOSS_LIMIT
+    for (k, v), (jk, jv) in zip(tests, jtests):
+        assert k == jk and abs(v - jv) <= LOSS_LIMIT, (k, v, jv)
+    assert abs(losses[0] - np.log(10)) > 10 * LOSS_LIMIT   # not chance
 
 
 @pytest.mark.parametrize("mode", ["device-transform", "host-transform"])
 def test_train_verb_on_records_matches_the_jax_verb(db_tree, jax_train,
-                                                    mode, capsys):
+                                                    mode, capsys,
+                                                    monkeypatch):
+    # the streaming feeds: the device cache off, as in the JAX run
+    monkeypatch.setenv("SPARKNET_DEVICE_CACHE_MB", "0")
     argv = ["train", "--solver", str(db_tree / "solver.prototxt"),
             "--weights", str(db_tree / "start.caffemodel"),
             "--device", "cpu"]
@@ -284,13 +310,77 @@ def test_train_verb_on_records_matches_the_jax_verb(db_tree, jax_train,
                capsys)
     assert f"Training from " in out and f"40 records, {mode}" in out
     assert "synthetic" not in out
-    losses, tests = _train_losses(out)
-    jlosses, jtests = jax_train
-    assert len(losses) == len(jlosses) == 3 and len(tests) == len(jtests) == 4
-    assert max(abs(a - b) for a, b in zip(losses, jlosses)) <= LOSS_LIMIT
-    for (k, v), (jk, jv) in zip(tests, jtests):
-        assert k == jk and abs(v - jv) <= LOSS_LIMIT, (k, v, jv)
-    assert abs(losses[0] - np.log(10)) > 10 * LOSS_LIMIT   # not chance
+    _assert_matches(out, jax_train)
+
+
+def test_train_verb_default_is_device_cached_as_the_jax_verb(db_tree,
+                                                             capsys,
+                                                             monkeypatch):
+    monkeypatch.delenv("SPARKNET_DEVICE_CACHE_MB", raising=False)
+    out = _run(cli.main, ["train", "--solver",
+                          str(db_tree / "solver.prototxt"), "--weights",
+                          str(db_tree / "start.caffemodel"), "--device",
+                          "cpu"], capsys)
+    assert "40 records, device-cached" in out
+    _assert_matches(out, _jax_verb(db_tree, None, kind="device-cached"))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--wire", "precrop"], ["--wire", "precrop+pack"], ["--staging", "off"]],
+    ids=lambda f: " ".join(f))
+def test_train_verb_feed_flags_keep_the_streaming_losses(db_tree, jax_train,
+                                                         flags, capsys,
+                                                         monkeypatch):
+    # the flags write their env vars: monkeypatch restores them after
+    for env in ("SPARKNET_WIRE", "SPARKNET_WIRE_BITS", "SPARKNET_STAGING",
+                "SPARKNET_ECHO"):
+        monkeypatch.setenv(env, "")
+    monkeypatch.setenv("SPARKNET_DEVICE_CACHE_MB", "0")
+    out = _run(cli.main, ["train", "--solver",
+                          str(db_tree / "solver.prototxt"), "--weights",
+                          str(db_tree / "start.caffemodel"), "--device",
+                          "cpu", *flags], capsys)
+    assert "40 records, device-transform" in out
+    _assert_matches(out, jax_train)
+
+
+def test_train_verb_dp_matches_the_jax_verb_s_dp(db_tree, capsys,
+                                                 monkeypatch):
+    monkeypatch.delenv("SPARKNET_DEVICE_CACHE_MB", raising=False)
+    dp = ["--strategy", "dp", "--mesh", "data=2"]
+    out = _run(cli.main, ["train", "--solver",
+                          str(db_tree / "solver.prototxt"), "--weights",
+                          str(db_tree / "start.caffemodel"), "--device",
+                          "cpu", *dp], capsys)
+    # dp streams: the cache is the single-device feed's, as in the JAX
+    # verb, and the verb says so
+    assert "40 records, device-transform" in out
+    assert "device cache: off under --strategy dp" in out
+    _assert_matches(out, _jax_verb(db_tree, None, extra=dp))
+
+
+def test_train_verb_echo_and_refusals(db_tree, capsys, monkeypatch):
+    for env in ("SPARKNET_WIRE", "SPARKNET_ECHO"):
+        monkeypatch.setenv(env, "")
+    argv = ["train", "--solver", str(db_tree / "solver.prototxt"),
+            "--device", "cpu", "--iterations", "2"]
+    monkeypatch.delenv("SPARKNET_DEVICE_CACHE_MB", raising=False)
+    out = _run(cli.main, argv + ["--echo", "2"], capsys)
+    assert "NOTE: --echo ignored for the device-cached feed" in out
+    monkeypatch.setenv("SPARKNET_DEVICE_CACHE_MB", "0")
+    out = _run(cli.main, argv + ["--echo", "2"], capsys)
+    assert "device-transform" in out and "Optimization done, iter=2" in out
+    assert "device cache: off under SPARKNET_DEVICE_CACHE_MB=0" in out
+    for bad in (["--echo", "2", "--wire", "precrop"],
+                ["--echo", "2", "--host-transform"]):
+        with pytest.raises(SystemExit, match="--echo > 1"):
+            cli.main(argv + bad)
+        monkeypatch.setenv("SPARKNET_WIRE", "")
+        monkeypatch.setenv("SPARKNET_ECHO", "")
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv + ["--strategy", "dp", "--mesh", "data=2,model=2"])
+    assert e.value.code == 2
+    assert "ROADMAP A5" in capsys.readouterr().err
 
 
 def test_train_verb_control_shuffled_records_differ(db_tree, jax_train,
@@ -405,3 +495,18 @@ def test_imagenet_verb_runs_rounds_on_the_cpu(capsys):
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert len(re.findall(r"images/s", out)) == 2
     assert "test accuracy" in out and "done: 2 rounds, iter=2" in out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--keep", "5"], ["--reshard", "auto"], ["--recover", "2"],
+    ["--sigterm_effect", "stop"], ["--metrics", "m.jsonl"],
+    ["--precision", "bf16"], ["--chaos", "nan_step=1"], ["--quorum", "2"]],
+    ids=lambda f: f[0])
+def test_train_verb_refuses_unported_flags_naming_the_roadmap(db_tree, flags,
+                                                              capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["train", "--solver", str(db_tree / "solver.prototxt"),
+                  "--device", "cpu", *flags])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "not ported" in err and "ROADMAP A" in err

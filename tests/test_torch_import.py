@@ -38,6 +38,8 @@ MODULES = [
     "sparknet_tpu_torch.data.device_transform",
     "sparknet_tpu_torch.data.db_source", "sparknet_tpu_torch.data.imagenet",
     "sparknet_tpu_torch.apps.imagenet_app", "sparknet_tpu_torch.ops.feed",
+    "sparknet_tpu_torch.data.device_cache", "sparknet_tpu_torch.data.wire",
+    "sparknet_tpu_torch.data.file_sources", "sparknet_tpu_torch.data.sampler",
 ]
 
 
@@ -76,6 +78,27 @@ def test_port_sources_name_no_jax_import():
                 hits.append(f"{os.path.relpath(path, REPO)}: {m.group(0)}")
     assert not hits, hits
     assert sum(1 for _ in _port_sources()) > 20
+
+
+def test_port_imports_leave_h5py_and_pil_out():
+    """h5py and PIL are absent on the card's machine: the port imports
+    them only inside the functions that read images and .h5 files."""
+    code = (
+        "import importlib, sys\n"
+        "import sparknet_tpu_torch, sparknet_tpu_torch.data\n"
+        "first = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('h5py', 'PIL'))\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('h5py', 'PIL', 'jax'))\n"
+        "assert not first and not bad, (first, bad)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_kernel_sources_ship_with_the_package():
