@@ -150,14 +150,39 @@ Phases, each of which raises on failure (exit code not 0):
               (10,000 + 1,000) cached, streaming and on the card; and
               `extract_features` of fc7 for 2 batches, read back and held
               to a forward on the card.
-11. the kernel table as one JSON line, an entry for every timed f32
+11. zoo    — the layer zoo and the Switch-MoE LM: `python -m
+              sparknet_tpu_torch lm` at phase 7's full width with
+              `--moe-experts 8 --moe-aux-weight 0.01` (top-1 routing,
+              capacity factor 1.25, F 4096) for 4 steps (finite losses,
+              each flash kernel 12 times a step); in process, its train
+              step (median of 5, CUDA events), tokens/s, peak memory, a
+              profiler window (f32 expert GEMMs, dispatch and combine,
+              flash, bf16 GEMMs, other) and one layer's expert FFN alone
+              times 12 against the step; card against CPU for a 2-layer
+              MoE LM of 4 experts (one Adam step: loss, gradients, weight
+              changes; every token's router margin above twice its
+              card-CPU logit difference; the combine without its gate as
+              a control that must fail); the stock BatchNorm/Sigmoid
+              CIFAR net (zoo.cifar10_full_sigmoid_bn, batch 100) through
+              the train verb for 30 iterations on convert_cifar_data
+              records (3,000 + 200) with a test pass and a snapshot, its
+              BN state blobs read back (moved, s = sum of 0.999^i), the
+              snapshot served on the card (4 requests against a CPU
+              TEST-phase forward); and each of the 24 layer types the
+              zoo adds to the earlier paths' (BatchNorm, Deconvolution,
+              Im2col, SPP, the neuron, structural, Python and MoE
+              layers), and STOCHASTIC pooling, forward and backward on
+              the card against the CPU at one realistic shape (f32, TF32
+              off, 1e-5 or 1e-4 of the largest value), with its time.
+12. the kernel table as one JSON line, an entry for every timed f32
     row of phase 3 and the LM's flash row of phase 6 (launches from the
     serving path for the GoogLeNet forwards, the training path for their
     backwards, the train verb's default device-cached feed of phase 10
     for CaffeNet's LRN shapes, with the local-SGD rounds', the imagenet
     verb's, phase 9's streaming verb's and phase 10's streaming and dp
     verbs' beside them, phase 10's dp verb for one dp slot's LRN shapes,
-    the lm verb's first run for the flash kernels),
+    the lm verb's first run for the flash kernels, with the MoE LM's
+    verb and in-process launches beside them),
     the nvidia-smi line, and as the last line {"ok": true, "device":
     {...}}.
 """
@@ -499,14 +524,15 @@ def _post(url, rows):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _serve_requests(url, inputs, reference, path):
+def _serve_requests(url, inputs, reference, path, top="loss3/classifier",
+                    classes=1000):
     lat = []
     for x in inputs:
         out, ms = _post(url, x)
         lat.append(ms)
-        logits = np.asarray(out["outputs"]["loss3/classifier"], np.float32)
+        logits = np.asarray(out["outputs"][top], np.float32)
         ref = reference(x)
-        check(logits.shape == (x.shape[0], 1000),
+        check(logits.shape == (x.shape[0], classes),
               f"{path}: logits shape {logits.shape} for {x.shape[0]} rows")
         check(np.isfinite(logits).all(), f"{path}: non-finite logits")
         check(np.abs(logits).max() > 0, f"{path}: all-zero logits")
@@ -1241,7 +1267,7 @@ FLASH_KERNELS = ("flash_attention", "flash_attention_dq",
                  "flash_attention_dkv")
 
 
-def _lm_cli(args, timeout=600):
+def _lm_cli(args, timeout=600, tag="lm-cli"):
     """``python -m sparknet_tpu_torch lm`` at full width, bf16, in a child
     process that ends (or is killed at ``timeout``) before this
     returns; -> (stdout, its launch counts)."""
@@ -1255,10 +1281,10 @@ def _lm_cli(args, timeout=600):
     out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                          timeout=timeout)
     for line in out.stdout.strip().splitlines():
-        print(f"[lm-cli] {line}")
+        print(f"[{tag}] {line}")
     check(out.returncode == 0,
           f"{' '.join(cmd)} exited {out.returncode}: {out.stderr[-4000:]}")
-    print(f"[lm-cli] exited 0 in {time.perf_counter() - t0:.1f} s")
+    print(f"[{tag}] exited 0 in {time.perf_counter() - t0:.1f} s")
     last = out.stdout.strip().splitlines()[-1]
     check(last.startswith("Kernel launches: "),
           f"the lm verb's last line is not its launch counts: {last}")
@@ -2777,6 +2803,561 @@ def phase_feeds_all(torch, card, tmp, db, solver_path):
             "wall_s": wall}
 
 
+# -- phase 11 -------------------------------------------------------------
+
+MOE_EXPERTS = 8            # Switch Transformer's top-1 routing (arXiv:2101.03961)
+MOE_AUX_WEIGHT = 0.01      # its load-balancing weight alpha
+MOE_STEPS = 4
+ZOO_CIFAR_TRAIN, ZOO_CIFAR_TEST = 3000, 200
+BN_ITERS = 30
+BN_MAF = 0.999             # BatchNorm's moving_average_fraction default
+# the layer sweep, card against CPU in f32 with TF32 off: max |card - cpu|
+# / max |cpu| of each top and each gradient
+SWEEP_LIMIT = 1e-5          # elementwise maps, copies and selections
+SWEEP_SUM_LIMIT = 1e-4      # sums of products and long reductions
+# a token's top-2 router-logit margin over the card's and the CPU's
+# logit difference for that token: above it, no token's expert can flip
+ROUTING_FACTOR = 2.0
+
+
+def _moe_group(name):
+    if "flash_" in name:
+        return "port attention kernels (flash_*)"
+    if any(s in name for s in ("gemm", "cutlass", "nvjet", "cublas",
+                               "xmma")):
+        return "bf16 GEMMs" if "bf16" in name else \
+            "f32 GEMMs (expert einsums, router)"
+    if any(s in name for s in ("sort", "radix", "index", "scatter",
+                               "gather", "searchsorted", "bincount")):
+        return "MoE dispatch and combine (sort, index)"
+    return "other"
+
+
+def phase_moe_cli():
+    """The lm verb at LM_FULL with a Switch-MoE FFN of MOE_EXPERTS
+    experts (F 4096, capacity factor 1.25) in every block, bf16, for
+    MOE_STEPS steps: finite losses, each flash kernel ``layers`` times a
+    step."""
+    layers = LM_FULL["layers"]
+    out, counts = _lm_cli(["--steps", str(MOE_STEPS), "--moe-experts",
+                           str(MOE_EXPERTS), "--moe-aux-weight",
+                           str(MOE_AUX_WEIGHT)], tag="moe-cli")
+    check(f"done: {MOE_STEPS} steps, " in out,
+          f"moe lm verb: not {MOE_STEPS} steps")
+    for name in FLASH_KERNELS:
+        check(counts[name] == layers * MOE_STEPS,
+              f"moe lm verb: {name} launched {counts[name]} times in "
+              f"{MOE_STEPS} steps of a {layers}-layer net, want "
+              f"{layers * MOE_STEPS}")
+    losses = _losses(out)
+    check(sorted(losses) == list(range(MOE_STEPS)) and
+          all(np.isfinite(v) for v in losses.values()),
+          f"moe lm verb losses {losses}")
+    rate = [float(l.split("steps, ")[1].split(" tokens/s")[0]
+                  .replace(",", ""))
+            for l in out.splitlines() if l.startswith("done: ")]
+    return {"losses": losses, "launches": counts, "tokens_per_s_wall": rate}
+
+
+def phase_moe_step(torch, card, steps=3):
+    """In process at LM_FULL with the MoE FFN: launches per step, the
+    train step (median of 5, CUDA events), tokens/s, peak memory, a
+    profiler window, and one layer's expert FFN alone (two f32 einsums
+    with bias and ReLU, forward and backward) times ``layers`` against
+    the step."""
+    import math
+    from sparknet_tpu_torch.data import lm_batch_stream
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.ops import KERNEL_WRAPPERS, kernel_launches
+    from sparknet_tpu_torch.proto import Message
+    from sparknet_tpu_torch.solver import Solver
+    f = LM_FULL
+    sp = Message("SolverParameter", base_lr=3e-4, lr_policy="fixed",
+                 type="Adam", random_seed=SEED, display=0)
+    net = zoo.transformer_lm(vocab_size=f["vocab"], seq_len=f["seq_len"],
+                             batch_size=f["batch"], d_model=f["d_model"],
+                             num_layers=f["layers"], num_heads=f["heads"],
+                             moe_experts=MOE_EXPERTS,
+                             moe_aux_weight=MOE_AUX_WEIGHT)
+    solver = Solver(sp, net_param=net, device="cuda", log_fn=None,
+                    compute_dtype=torch.bfloat16)
+    n_params = sum(p.numel() for v in solver.params.values() for p in v)
+    stream, _ = lm_batch_stream(f["vocab"], f["batch"], f["seq_len"],
+                                seed=SEED)
+    feed = {k: torch.as_tensor(v).cuda() for k, v in next(stream).items()}
+    float(solver.train_step(feed))              # warm-up: cuBLAS plans
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+    losses = [float(solver.train_step(feed)) for _ in range(steps)]
+    launches = kernel_launches()
+    check(all(np.isfinite(losses)), f"moe lm losses {losses}")
+    for name in FLASH_KERNELS:
+        check(launches[name] == f["layers"] * steps,
+              f"moe lm: {name}: {launches[name]} launches in {steps} "
+              f"steps, want {f['layers'] * steps}")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = Timer(torch, reps=5, flush=False)(
+        lambda: solver.train_step(feed))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tps = f["batch"] * f["seq_len"] / (step_ms / 1e3)
+    print(f"[moe] MoE LM {n_params / 1e6:.1f}M params ({MOE_EXPERTS} "
+          f"experts, F {4 * f['d_model']}), b{f['batch']} S{f['seq_len']} "
+          f"bf16 train step {step_ms:.3f} ms (median of 5, CUDA events), "
+          f"{tps:,.0f} tokens/s, peak memory {peak_gb:.1f} GB; losses "
+          f"{[round(l, 4) for l in losses]}; {card}")
+    profile = _profile(torch, lambda: solver.train_step(feed), 2,
+                       _moe_group, "MoE LM train step", card, top=14)
+    del solver, feed
+    torch.cuda.empty_cache()
+
+    X, E, F = MOE_EXPERTS, f["d_model"], 4 * f["d_model"]
+    C = math.ceil(f["batch"] * f["seq_len"] / X * 1.25)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    xe = torch.randn(X, C, E, device="cuda", generator=gen)
+    ws = [torch.randn(s, device="cuda", generator=gen) * 0.02
+          for s in ((X, F, E), (X, F), (X, E, F), (X, E))]
+    gy = torch.randn(X, C, E, device="cuda", generator=gen)
+
+    def ffn():
+        x, w1, b1, w2, b2 = (t.detach().requires_grad_(True)
+                             for t in (xe, *ws))
+        h = torch.relu(torch.einsum("xce,xfe->xcf", x, w1) + b1[:, None])
+        y = torch.einsum("xcf,xef->xce", h, w2) + b2[:, None]
+        torch.autograd.grad(y, (x, w1, b1, w2, b2), gy)
+    expert_ms = Timer(torch, reps=5, flush=False)(ffn)
+    flops = 3 * 2 * 2 * X * C * E * F
+    share = f["layers"] * expert_ms / step_ms
+    print(f"[moe] one layer's expert FFN ({X} x {C} x {E} -> {F}, f32, "
+          f"TF32 off), forward and backward: {expert_ms:.3f} ms "
+          f"({flops / expert_ms / 1e9:.1f} TFLOP/s); x{f['layers']} layers "
+          f"= {100 * share:.1f}% of the step; {card}")
+    del xe, ws, gy
+    torch.cuda.empty_cache()
+    return {"params": n_params, "launches": launches, "losses": losses,
+            "step_ms": step_ms, "tokens_per_s": tps, "peak_gb": peak_gb,
+            "profile": profile, "expert_ffn_ms": expert_ms,
+            "expert_ffn_tflops": flops / expert_ms / 1e9,
+            "expert_share": share}
+
+
+def _routing_ratio(x_card, x_cpu, router):
+    """Smallest over tokens of the top-2 margin of the CPU's router
+    logits over max(|card logits - CPU logits| of that token, 1e-6):
+    above 1 no token's expert can differ between the two."""
+    r = router.detach().cpu().double().t()
+    t = x_cpu.detach().cpu().double().reshape(-1, r.shape[0]) @ r
+    c = x_card.detach().cpu().double().reshape(-1, r.shape[0]) @ r
+    top2 = t.topk(2, dim=1).values
+    shift = (c - t).abs().max(dim=1).values.clamp_min(1e-6)
+    return float(((top2[:, 0] - top2[:, 1]) / shift).min())
+
+
+def phase_moe_card_vs_cpu(torch, tmp, device="cuda"):
+    """A small MoE LM (vocab 512, 2 layers, d 256, 4 heads, 4 experts,
+    S 256, batch 2, f32, TF32 off) from one snapshot: one Adam step
+    (delta 1e-6) on the card and on the CPU, its loss within 1e-5, its
+    gradients within LM_GRAD_LIMIT and its weight changes within
+    LM_WEIGHT_CHANGE_LIMIT. Every token's top-2 router margin must exceed
+    ROUTING_FACTOR times its card-CPU logit difference (else its expert
+    could flip: a near-tie, not a port defect). Control: the combine's
+    gate weighting left out on the card (must fail)."""
+    from sparknet_tpu_torch.data import lm_batch_stream
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.ops.moe import MoE
+    from sparknet_tpu_torch.proto import Message
+    from sparknet_tpu_torch.solver import Solver
+    sp = Message("SolverParameter", base_lr=1e-3, lr_policy="fixed",
+                 type="Adam", random_seed=SEED, display=0, delta=1e-6)
+    net = zoo.transformer_lm(vocab_size=512, seq_len=256, batch_size=2,
+                             d_model=256, num_layers=2, num_heads=4,
+                             moe_experts=4)
+    cpu = Solver(sp, net_param=net, device="cpu", log_fn=None)
+    _, state = cpu.snapshot(os.path.join(tmp, "moe_parity"))
+    w0 = {n: [p.detach().double().clone() for p in blobs]
+          for n, blobs in cpu.params.items()}
+    stream, _ = lm_batch_stream(512, 2, 256, seed=SEED + 2)
+    batch = next(stream)
+    with torch.no_grad():
+        cpu_blobs, _ = cpu.net.apply(cpu.params, cpu.state, batch)
+    cpu_loss = float(cpu.train_step(batch))
+    g_cpu = {n: [p.grad.detach().double() for p in blobs]
+             for n, blobs in cpu.params.items()}
+    dw_cpu = {n: [p.detach().double() - w for p, w in zip(blobs, w0[n])]
+              for n, blobs in cpu.params.items()}
+
+    def run(label):
+        solver = Solver(sp, net_param=net, device=device, log_fn=None)
+        solver.restore(state)
+        with torch.no_grad():
+            blobs, _ = solver.net.apply(solver.params, solver.state, batch)
+        ratio = min(_routing_ratio(blobs[f"block{i}/ln2"],
+                                   cpu_blobs[f"block{i}/ln2"],
+                                   solver.params[f"block{i}/moe"][0])
+                    for i in range(2))
+        loss = float(solver.train_step(batch))
+        g_err, g_where = _grad_error(solver.params, g_cpu)
+        w_err, w_where = _weight_change_error(solver.params, w0, dw_cpu)
+        rel = abs(loss - cpu_loss) / abs(cpu_loss)
+        print(f"[moe-parity] {label}: loss card {loss:.7f} cpu "
+              f"{cpu_loss:.7f} ({rel:.3e}, limit 1e-5); gradients "
+              f"{g_err:.3e} at {g_where} (limit {LM_GRAD_LIMIT:g}); weight "
+              f"change {w_err:.3e} at {w_where} (limit "
+              f"{LM_WEIGHT_CHANGE_LIMIT:g}); smallest routing margin over "
+              f"the card-CPU logit difference {ratio:.1f} (limit "
+              f"{ROUTING_FACTOR:g})")
+        return {"loss_rel": rel, "grad_rel": g_err, "grad_where": g_where,
+                "weight_change_rel": w_err, "where": w_where,
+                "routing_ratio": ratio}
+
+    card = run("card")
+    route = MoE.route
+
+    def ungated(self, xt, router):
+        gates, idx, gate = route(self, xt, router)
+        return gates, idx, torch.ones_like(gate)
+    MoE.route = ungated
+    try:
+        control = run("control, combine without the gate")
+    finally:
+        MoE.route = route
+    check(card["routing_ratio"] > ROUTING_FACTOR,
+          f"a token's router margin is only {card['routing_ratio']:.2f} "
+          "times its card-CPU logit difference: a near-tie whose expert "
+          "may flip, not a port defect; this input cannot decide")
+    check(card["loss_rel"] <= 1e-5,
+          f"card and CPU MoE LM losses differ by {card['loss_rel']:.3e}")
+    for key, limit in (("grad_rel", LM_GRAD_LIMIT),
+                       ("weight_change_rel", LM_WEIGHT_CHANGE_LIMIT)):
+        check(card[key] <= limit,
+              f"card and CPU MoE LM {key} {card[key]:.3e} > {limit:g}")
+    check(control["grad_rel"] > LM_GRAD_LIMIT,
+          f"the ungated control reads gradients {control['grad_rel']:.3e}, "
+          "within the limit: the check would not catch it")
+    return {"card": card, "control": control}
+
+
+def _bn_cifar_files(tmp):
+    """make_synth_cifar (ZOO_CIFAR_TRAIN + ZOO_CIFAR_TEST, cut from
+    CIFAR-10's 50,000 + 10,000), convert_cifar_data's LMDBs, their mean,
+    and a stock-form train_val of zoo.cifar10_full_sigmoid_bn (two Data
+    layers, batch 100, mean_file) with the rate and momentum of Caffe's
+    cifar10_full_sigmoid_solver_bn (0.001, 0.9): a test pass at
+    iteration 20 of BN_ITERS, a snapshot at BN_ITERS. -> (db, solver)."""
+    from sparknet_tpu_torch import tools
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.proto import Message, text_format
+    quiet = lambda *a: None  # noqa: E731
+    data = os.path.join(tmp, "zoo_cifar_data")
+    db = os.path.join(tmp, "zoo_cifar_records")
+    os.makedirs(db, exist_ok=True)
+    tools.make_synth_cifar(data, n_train=ZOO_CIFAR_TRAIN,
+                           n_test=ZOO_CIFAR_TEST, log=quiet)
+    tools.convert_cifar_data(data, db, log=quiet)
+    tools.compute_image_mean(os.path.join(db, "cifar10_train_lmdb"),
+                             os.path.join(db, "mean.binaryproto"), log=quiet)
+    net = Message("NetParameter", name="CIFAR10_full_sigmoid_bn")
+    for phase, src in (("TRAIN", "cifar10_train_lmdb"),
+                       ("TEST", "cifar10_test_lmdb")):
+        lp = Message("LayerParameter", name="cifar", type="Data",
+                     data_param=dict(source=src, batch_size=CIFAR_BATCH,
+                                     backend="LMDB"),
+                     transform_param=dict(mean_file="mean.binaryproto"))
+        lp.top.append("data")
+        lp.top.append("label")
+        lp.add("include", phase=phase)
+        net.layer.append(lp)
+    for lp in zoo.cifar10_full_sigmoid_bn(batch_size=CIFAR_BATCH,
+                                          with_data=False).layer:
+        net.layer.append(lp)
+    text_format.dump(net, os.path.join(
+        db, "cifar10_full_sigmoid_bn_train_test.prototxt"))
+    sp = Message("SolverParameter",
+                 net="cifar10_full_sigmoid_bn_train_test.prototxt",
+                 base_lr=0.001, momentum=0.9, lr_policy="fixed", display=10,
+                 max_iter=60000, test_iter=[ZOO_CIFAR_TEST // CIFAR_BATCH],
+                 test_interval=20, test_initialization=False,
+                 snapshot=BN_ITERS, snapshot_prefix="bn",
+                 random_seed=SEED)
+    path = os.path.join(db, "cifar10_full_sigmoid_bn_solver.prototxt")
+    text_format.dump(sp, path)
+    return db, path
+
+
+def phase_bn_cifar(torch, card, tmp, device="cuda"):
+    """The stock BN/Sigmoid CIFAR net through the train verb (BN_ITERS
+    iterations from records, one test pass, a snapshot); its BatchNorm
+    state blobs against their start (zero) and s against the sum of
+    BN_MAF^i over the BN_ITERS updates; then the snapshot served on
+    ``device``, 4 requests held to a TEST-phase forward of the same
+    weights and state on the CPU."""
+    from sparknet_tpu_torch.graph.compiler import blob_to_array
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.proto import wire
+    from sparknet_tpu_torch.serve import Batcher, ServeEngine, serve_http
+    db, solver_path = _bn_cifar_files(tmp)
+    out, wall = _train_verb(solver_path, "bn-cli",
+                            extra=("--iterations", str(BN_ITERS),
+                                   "--device", device))
+    losses = [float(l.split("loss = ")[1].split(",")[0])
+              for l in out.splitlines() if l.startswith("Iteration ")]
+    check(len(losses) == 3 and all(np.isfinite(losses)),
+          f"bn train verb losses {losses}")
+    tests = [l for l in out.splitlines() if "Test net output" in l]
+    check(len(tests) == 2 and "device-cached" in out,
+          f"bn train verb: {len(tests)} test outputs (want the loss and "
+          "the accuracy of one pass) or not the device-cached feed")
+    prefix = os.path.join(db, "bn")
+    model = f"{prefix}_iter_{BN_ITERS}.caffemodel"
+    check(os.path.exists(model), f"no snapshot {model}")
+    layers = {l.name: [blob_to_array(b) for b in l.blobs]
+              for l in wire.load(model, "NetParameter").layer}
+    want_s = sum(BN_MAF ** i for i in range(BN_ITERS))
+    state = {}
+    for name in ("bn1", "bn2", "bn3"):
+        mean, var, s = layers[name]
+        check(np.abs(mean).max() > 0 and var.min() > 0,
+              f"{name}: the state did not move from its zero start")
+        check(abs(float(s[0]) - want_s) <= 1e-5 * want_s,
+              f"{name}: s = {float(s[0])}, want {want_s}")
+        state[name] = {"mean_abs_max": float(np.abs(mean).max() / s[0]),
+                       "var_min": float(var.min() / s[0]), "s": float(s[0])}
+    print(f"[bn] state after {BN_ITERS} iterations (s want {want_s:.6f}): "
+          f"{state}")
+
+    # the snapshot's net feeds from TRAIN-phase Data layers: serve the
+    # same layers behind a feed blob (the serve verb's --model)
+    deploy = zoo.cifar10_full_sigmoid_bn(batch_size=8)
+    engine = ServeEngine(prefix, net_param=deploy, max_batch=8,
+                         device=device, log_fn=None)
+    engine.load()
+    cpu = ServeEngine(prefix, net_param=deploy, max_batch=8, device="cpu",
+                      log_fn=None)
+    cpu.load()
+    rs = np.random.RandomState(SEED)
+    inputs = [rs.randn(n, 3, 32, 32).astype(np.float32) * 50
+              for n in (1, 3, 8, 5)]
+    batcher = Batcher(max_batch=8, max_wait_s=0.002, queue_limit=64)
+    stop, listening = threading.Event(), threading.Event()
+    urls, rcs = [], []
+
+    def run():
+        rcs.append(serve_http(
+            engine, batcher, port=0, stop_event=stop, log_fn=print,
+            on_listen=lambda u: (urls.append(u), listening.set())))
+
+    server = threading.Thread(target=run, daemon=True)
+    server.start()
+    try:
+        check(listening.wait(120), "server did not start listening")
+        lat = _serve_requests(
+            urls[0], inputs, lambda x: cpu.forward({"data": x})[0]["ip1"],
+            "BN CIFAR snapshot", top="ip1", classes=10)
+    finally:
+        stop.set()
+        server.join(timeout=120)
+    check(not server.is_alive() and rcs == [0], "server did not drain")
+    return {"losses": losses, "tests": tests, "verb_s": wall,
+            "state": state, "serve_ms": lat}
+
+
+def _sweep_cases(tmp):
+    """[(type, layer fields, bottom shapes, phase, limit)]: each layer
+    type of the zoo sweep, and STOCHASTIC pooling, at a shape its users run
+    (batch 100 CIFAR activations, CaffeNet's pool5 input at batch 32 and
+    fc7 at 256, GoogLeNet's 56x56 planes, an LM block's tokens)."""
+    mod = "zoo_sweep_layer"
+    with open(os.path.join(tmp, f"{mod}.py"), "w") as f:
+        f.write("import torch\n\n\nclass Gate:\n"
+                "    def reshape(self, bottom_shapes):\n"
+                "        return [bottom_shapes[0]]\n\n"
+                "    def param_shapes(self):\n"
+                "        return [((64,), None, 1.0, 1.0)]\n\n"
+                "    def forward(self, params, bottoms):\n"
+                "        x = bottoms[0]\n"
+                "        return [x * torch.sigmoid(params[0][None, :, None,"
+                " None] * x)]\n")
+    os.environ["SPARKNET_PYTHON_LAYER_PATH"] = tmp
+    act = (100, 32, 32, 32)         # cifar10_full's conv1 at batch 100
+    p5 = (32, 256, 13, 13)          # CaffeNet's pool5 input at batch 32
+    fc = (256, 4096)                # CaffeNet's fc7 at batch 256
+    train, test = 0, 1
+    lo, hi = SWEEP_LIMIT, SWEEP_SUM_LIMIT
+    return [
+        ("PReLU", {}, [(32, 64, 56, 56)], train, lo),
+        ("Sigmoid", {}, [act], train, lo),
+        ("TanH", {}, [act], train, lo),
+        ("BNLL", {}, [act], train, lo),
+        ("AbsVal", {}, [act], train, lo),
+        ("Power", dict(power_param=dict(power=2.0, scale=0.5, shift=1.0)),
+         [act], train, lo),
+        ("Exp", dict(exp_param=dict(base=2.0, scale=0.5)), [act], train, lo),
+        ("Log", dict(log_param=dict(shift=6.0, scale=0.5)), [act], train,
+         lo),
+        ("Threshold", dict(threshold_param=dict(threshold=0.5)), [act],
+         train, lo),
+        ("Slice", dict(top=["a", "b"], slice_param=dict(
+            axis=1, slice_point=[96])), [p5], train, lo),
+        ("Split", dict(top=["a", "b"]), [p5], train, lo),
+        ("Reshape", dict(reshape_param=dict(shape=dict(dim=[0, -1]))),
+         [p5], train, lo),
+        ("Tile", dict(tile_param=dict(axis=1, tiles=2)), [p5], train, lo),
+        ("ArgMax", dict(argmax_param=dict(top_k=5, out_max_val=True)),
+         [(256, 1000)], test, lo),
+        ("Reduction", dict(reduction_param=dict(operation="SUMSQ", axis=1,
+                                                coeff=0.5)), [act], train,
+         hi),
+        ("Silence", {}, [fc], train, lo),
+        ("BatchReindex", {}, [fc, (256,)], train, lo),
+        ("Filter", dict(top=["f", "l", "n"]), [fc, (256,), (256,)], train,
+         lo),
+        ("Deconvolution", dict(convolution_param=dict(
+            num_output=64, kernel_size=[4], stride=[2], pad=[1])),
+         [(8, 64, 56, 56)], train, hi),
+        ("Im2col", dict(convolution_param=dict(kernel_size=[3], pad=[1])),
+         [(8, 64, 28, 28)], train, lo),
+        ("SPP", dict(spp_param=dict(pyramid_height=3, pool="MAX")), [p5],
+         train, lo),
+        ("Pooling", dict(pooling_param=dict(pool="STOCHASTIC",
+                                            kernel_size=3, stride=2)),
+         [act], test, hi),
+        ("BatchNorm", {}, [act], train, hi),
+        ("Python", dict(top=["y"], python_param=dict(module=mod,
+                                                     layer="Gate")),
+         [(32, 64, 56, 56)], train, lo),
+        ("MoE", dict(top=["y", "aux", "stats"], moe_param=dict(
+            num_experts=8, hidden_dim=4096)), [(2, 1024, 1024)], train, hi),
+    ]
+
+
+def _sweep_inputs(type_name, shapes, rs):
+    xs = [rs.randn(*s).astype(np.float32) for s in shapes]
+    if type_name == "BatchReindex":
+        xs[1] = rs.randint(0, shapes[0][0], shapes[1]).astype(np.float32)
+    elif type_name == "Filter":
+        xs[1] = rs.randint(0, 10, shapes[1]).astype(np.float32)
+        xs[2] = (rs.rand(*shapes[2]) < 0.5).astype(np.float32)
+    elif type_name == "Pooling":
+        xs[0] = np.maximum(xs[0], 0)             # STOCHASTIC after a ReLU
+    return xs
+
+
+def _stochastic_draws(torch, layer, x):
+    """TRAIN-phase STOCHASTIC draws on x's device: every output is an
+    element of its window, and a window with a positive element draws a
+    positive one. -> the windows checked."""
+    from sparknet_tpu_torch.ops.pooling import _patches
+    gen = torch.Generator(device=x.device).manual_seed(SEED)
+    y, = layer.apply([], [x], True, gen)
+    p = _patches(x, layer.kernel, layer.stride, layer.pad, layer.out)
+    member = (p == y[:, :, None]).any(dim=2)
+    live = (p > 0).any(dim=2)
+    check(bool(member.all()), "STOCHASTIC TRAIN drew a value outside its "
+                              "window")
+    check(bool((y[live] > 0).all()), "STOCHASTIC TRAIN drew a non-positive "
+                                     "element of a window with a positive "
+                                     "one")
+    return member.numel()
+
+
+def phase_layer_sweep(torch, card, tmp, device="cuda"):
+    """Each of the 24 zoo layer types (and STOCHASTIC pooling),
+    forward and backward on ``device`` against the same layer on the CPU
+    from the same inputs, params and cotangents (f32, TF32 off; the
+    limits above); STOCHASTIC's TRAIN draws checked to be elements of
+    their windows; fwd+bwd time on the card (median of 10, CUDA
+    events)."""
+    from sparknet_tpu_torch.device import resolve_device
+    from sparknet_tpu_torch.graph.registry import get
+    from sparknet_tpu_torch.proto import Message
+    resolve_device(device)                       # TF32 off on the card
+    rows = {}
+    for i, (type_name, fields, shapes, phase, limit) in enumerate(
+            _sweep_cases(tmp)):
+        rs = np.random.RandomState(SEED + i)
+        lp = Message("LayerParameter", name=type_name.lower(),
+                     type=type_name, **fields)
+        layer = get(type_name)(lp, shapes, phase)
+        params = [(0.1 * rs.randn(*s)).astype(np.float32)
+                  for s, *_ in layer.param_shapes()]
+        xs = _sweep_inputs(type_name, shapes, rs)
+        state = [np.full(s, v, np.float32) for s, v in layer.state_shapes()]
+        outs = [np.asarray(rs.randn(*s), np.float32)
+                for s in layer.out_shapes()]
+
+        def tensors(dev):
+            return ([torch.tensor(p, device=dev) for p in params],
+                    [torch.tensor(x, device=dev) for x in xs],
+                    [torch.tensor(v, device=dev) for v in state],
+                    [torch.tensor(c, device=dev) for c in outs])
+
+        def run(ps, bs, st, cots):
+            ps = [p.detach().requires_grad_(True) for p in ps]
+            bs = [b.detach().requires_grad_(b.is_floating_point())
+                  for b in bs]
+            if layer.has_state:
+                tops, _ = layer.apply_stateful(ps, st, bs, phase == 0)
+            else:
+                tops = layer.apply(ps, bs, phase == 0)
+            terms = [(t * c).sum() for t, c in zip(tops, cots)
+                     if t.requires_grad]
+            wrt = [t for t in ps + bs if t.requires_grad]
+            grads = torch.autograd.grad(sum(terms), wrt, allow_unused=True) \
+                if terms else []
+            # an index or selector bottom takes no gradient
+            return tops, [torch.zeros_like(t) if g is None else g
+                          for t, g in zip(wrt, grads)]
+
+        cpu = tensors("cpu")
+        dev = tensors(device)
+        cpu_tops, cpu_grads = run(*cpu)
+        tops, grads = run(*dev)
+        ms = Timer(torch, reps=10, flush=False)(lambda: run(*dev)) \
+            if device == "cuda" else float("nan")
+        e_out = max([_rel_err(t.detach().double().cpu(),
+                              r.detach().double())
+                     for t, r in zip(tops, cpu_tops)] or [0.0])
+        e_grad = max([_rel_err(a.double().cpu(), b.double())
+                      for a, b in zip(grads, cpu_grads)] or [0.0])
+        extra = ""
+        if type_name == "MoE":
+            ratio = _routing_ratio(dev[1][0], cpu[1][0], dev[0][0])
+            extra = f"; routing margin / logit difference {ratio:.1f}"
+            check(ratio > ROUTING_FACTOR, f"MoE sweep: a token's router "
+                  f"margin is {ratio:.2f} times its card-CPU logit "
+                  "difference: a near-tie, not a port defect")
+        if type_name == "Pooling":
+            n = _stochastic_draws(torch, layer, dev[1][0])
+            extra = f"; TRAIN draws in their windows ({n} windows)"
+        print(f"[zoo-sweep] {type_name:<13} {str(shapes[0]):<18} fwd+bwd "
+              f"{ms:.3f} ms; max |card - cpu| / max |cpu|: tops "
+              f"{e_out:.2e}, grads {e_grad:.2e} (limit {limit:g}){extra}")
+        check(e_out <= limit and e_grad <= limit,
+              f"{type_name}: card and CPU differ by {e_out:.2e} (tops), "
+              f"{e_grad:.2e} (grads), limit {limit:g}")
+        rows[type_name] = {"shape": list(shapes[0]), "ms": ms,
+                           "tops_rel": e_out, "grads_rel": e_grad,
+                           "limit": limit}
+    check(len(rows) == 25, f"{len(rows)} sweep rows, want 24 types and "
+                           "STOCHASTIC pooling")
+    print(f"[zoo-sweep] {len(rows)} layers within their limits; {card}")
+    return rows
+
+
+def phase_zoo_all(torch, card, tmp):
+    t0 = time.perf_counter()
+    moe_cli = phase_moe_cli()
+    moe_step = phase_moe_step(torch, card)
+    moe_parity = phase_moe_card_vs_cpu(torch, tmp)
+    torch.cuda.empty_cache()
+    bn = phase_bn_cifar(torch, card, tmp)
+    sweep = phase_layer_sweep(torch, card, tmp)
+    wall = time.perf_counter() - t0
+    print(f"[zoo] phase 11 wall time {wall:.1f} s")
+    return {"moe_cli": moe_cli, "moe_step": moe_step,
+            "moe_card_vs_cpu": moe_parity, "bn_cifar": bn, "sweep": sweep,
+            "wall_s": wall}
+
+
 KERNELS = {
     # name: (source, replaces, path whose launches the row reports)
     "lrn_across": ("sparknet_tpu_torch/csrc/lrn.cu",
@@ -2822,6 +3403,8 @@ def main():
     torch.cuda.empty_cache()
     feeds = phase_feeds_all(torch, card, tmp, records["dir"],
                             records["solver"])
+    torch.cuda.empty_cache()
+    zoo = phase_zoo_all(torch, card, tmp)
     paths = {"serve auto": served["auto"], "serve on": served["on"],
              "train auto": trained["launches"]["auto"],
              "train on": trained["launches"]["on"],
@@ -2848,6 +3431,9 @@ def main():
                 "launches_path": path,
                 "launches_train": trained["launches"]["auto"][name],
                 "launches_lm_step": lm_step["launches"][name],
+                **({"launches_moe_lm_verb": zoo["moe_cli"]["launches"][name],
+                    "launches_moe_lm_step": zoo["moe_step"]["launches"][
+                        name]} if name in FLASH_KERNELS else {}),
                 **({"launches_local_sgd": paths["local-sgd caffenet"][name],
                     "launches_imagenet": records["imagenet"]["launches"][
                         name],
@@ -2872,7 +3458,8 @@ def main():
             "launches", "fixed_batch_losses", "step_ms", "images_per_s",
             "profile", "card_vs_cpu")}, **trained_cli},
         "lm": {"cli": lm_cli, "step": lm_step, "card_vs_cpu": lm_parity},
-        "local_sgd": local_sgd, "records": records, "feeds": feeds}))
+        "local_sgd": local_sgd, "records": records, "feeds": feeds,
+        "zoo": zoo}))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

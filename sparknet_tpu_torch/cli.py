@@ -514,7 +514,9 @@ def cmd_lm(args):
     """The JAX package's ``lm`` verb, single-device branch
     (sparknet_tpu/cli.py cmd_lm): Solver over zoo.transformer_lm on the
     bigram stream. ``--dtype bf16`` is mixed precision: f32 master
-    params, bf16 activations cast at the embedding."""
+    params, bf16 activations cast at the embedding. ``--moe-experts X``
+    swaps every block's FFN for a Switch-MoE of X experts whose
+    load-balancing loss joins the objective at ``--moe-aux-weight``."""
     import time
     import torch
     from .data import lm_batch_stream
@@ -548,7 +550,9 @@ def cmd_lm(args):
     net = zoo.transformer_lm(vocab_size=args.vocab, seq_len=args.seq_len,
                              batch_size=args.batch, d_model=args.d_model,
                              num_layers=args.layers, num_heads=args.heads,
-                             flash=not args.no_flash)
+                             flash=not args.no_flash,
+                             moe_experts=args.moe_experts,
+                             moe_aux_weight=args.moe_aux_weight)
     solver = Solver(sp, net_param=net, device=args.device, metrics=metrics,
                     compute_dtype=compute_dtype)
     if args.resume:
@@ -678,6 +682,18 @@ _TRAIN_NOT_PORTED = _RESILIENCE_NOT_PORTED + (
      "divergence recovery, ROADMAP A6"),
     (("--remat", "--precision"), True,
      "remat and precision levers, ROADMAP A5"),
+)
+
+# the JAX `lm` verb's mesh and perf flags: (flags, values that pass, what
+# is missing and where the roadmap has it)
+_LM_NOT_PORTED = (
+    (("--ep", "--dp", "--sp", "--pipeline-stages", "--tp"), ("1",),
+     "expert, data, sequence, pipeline and tensor parallelism over a "
+     "mesh, ROADMAP A5"),
+    (("--microbatches",), ("0",), "the GPipe pipeline, ROADMAP A5"),
+    (("--fsdp",), ("off",), "FSDP sharding, ROADMAP A5"),
+    (("--remat", "--precision", "--scan"), (),
+     "remat, precision and scan levers, ROADMAP A5"),
 )
 
 
@@ -914,6 +930,16 @@ def main(argv=None):
                     help="bf16: bf16 activations over f32 master params")
     lm.add_argument("--no-flash", action="store_true",
                     help="dense attention instead of the flash kernels")
+    lm.add_argument("--moe-experts", type=int, default=0, metavar="X",
+                    help="X>0: a Switch-MoE FFN of X experts in every "
+                         "block (top-1, capacity factor 1.25)")
+    lm.add_argument("--moe-aux-weight", type=float, default=0.01,
+                    help="Switch load-balancing aux loss weight")
+    for flags, allow, what in _LM_NOT_PORTED:
+        for flag in flags:
+            lm.add_argument(flag, action=_NotPorted, what=what,
+                            allow=allow, metavar="V",
+                            help=f"not ported: {what}")
     lm.add_argument("--metrics", help="JSONL loss-curve output path")
     lm.add_argument("--snapshot-every", type=int, default=0)
     lm.add_argument("--snapshot-prefix")

@@ -431,7 +431,10 @@ class CompiledNet:
                     # absent, never stale (the plan proved no consumer)
                     blobs.pop(tops[0], None)
                 continue
-            if impl.needs_rng:
+            if impl.has_state:
+                tvals, new_state[lp.name] = impl.apply_stateful(
+                    lparams, state[lp.name], bvals, train)
+            elif impl.needs_rng:
                 tvals = impl.apply(lparams, bvals, train, rngs.get(li))
             else:
                 tvals = impl.apply(lparams, bvals, train)

@@ -67,6 +67,8 @@ class Layer:
       param_shapes() -> [(shape, filler Message|None, lr_mult, decay_mult)]
       state_shapes() -> [(shape, init_value)]       # non-learnable (e.g. BN)
       apply(params, bottoms, train) -> [tops]       # tensors in, tensors out
+      apply_stateful(params, state, bottoms, train)  # has_state layers,
+          -> ([tops], new_state)                     # in place of apply
 
     ``loss_like`` marks layers whose top[0] joins the objective with default
     loss_weight 1 (Caffe: any *Loss layer). ``needs_rng`` layers take a

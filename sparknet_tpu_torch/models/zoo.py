@@ -9,7 +9,7 @@ from .dsl import (NetParam, RDDLayer, ConvolutionLayer, PoolingLayer,
                   InnerProductLayer, ReLULayer, SoftmaxWithLoss,
                   AccuracyLayer, LRNLayer, DropoutLayer, ConcatLayer,
                   EltwiseLayer, AttentionLayer, EmbedLayer,
-                  PositionalEmbedLayer, LayerNormLayer, MoELayer)
+                  PositionalEmbedLayer, LayerNormLayer, MoELayer, _base)
 
 
 def _conv(name, bottom, num_output, kernel, stride=1, pad=0, group=None,
@@ -92,6 +92,53 @@ def cifar10_full(batch_size=100, with_data=True):
         SoftmaxWithLoss("loss", ["ip1", "label"]),
     ]
     return NetParam("CIFAR10_full", *layers)
+
+
+def cifar10_full_sigmoid_bn(batch_size=100, with_data=True):
+    """CIFAR10_full with sigmoids and BatchNorm, after the layer list of
+    Caffe's examples/cifar10/cifar10_full_sigmoid_train_test_bn.prototxt:
+    three 5x5 pad-2 convolutions (32, 32, 64 outputs) without bias, each
+    with a BatchNorm (its three state blobs at lr_mult 0) and a Sigmoid;
+    MAX then AVE 3/2 pooling; ip1 of 10 outputs and the loss. The port's
+    own (the JAX zoo has no such net): it carries every layer of the
+    stock BN nets that the older zoo nets lack."""
+    def conv(name, bottom, num_output, std):
+        return _base("Convolution", name, [bottom], convolution_param=dict(
+            num_output=num_output, pad=[2], kernel_size=[5], stride=[1],
+            bias_term=False, weight_filler=dict(type="gaussian", std=std)),
+            param=[dict(lr_mult=1)])
+
+    def bn(name, bottom):
+        return _base("BatchNorm", name, [bottom],
+                     param=[dict(lr_mult=0)] * 3)
+
+    def sigmoid(name, bottom):
+        return _base("Sigmoid", name, [bottom])
+
+    layers = []
+    if with_data:
+        layers += [RDDLayer("data", [batch_size, 3, 32, 32]),
+                   RDDLayer("label", [batch_size])]
+    layers += [
+        conv("conv1", "data", 32, 0.0001),
+        PoolingLayer("pool1", ["conv1"], "MAX", (3, 3), (2, 2)),
+        bn("bn1", "pool1"), sigmoid("Sigmoid1", "bn1"),
+        conv("conv2", "Sigmoid1", 32, 0.01),
+        bn("bn2", "conv2"), sigmoid("Sigmoid2", "bn2"),
+        PoolingLayer("pool2", ["Sigmoid2"], "AVE", (3, 3), (2, 2)),
+        conv("conv3", "pool2", 64, 0.01),
+        bn("bn3", "conv3"), sigmoid("Sigmoid3", "bn3"),
+        PoolingLayer("pool3", ["Sigmoid3"], "AVE", (3, 3), (2, 2)),
+        InnerProductLayer(
+            "ip1", ["pool3"], 10,
+            weight_filler=dict(type="gaussian", std=0.01),
+            bias_filler=dict(type="constant"),
+            param=[dict(lr_mult=1, decay_mult=250),
+                   dict(lr_mult=0.2, decay_mult=0)]),
+        AccuracyLayer("accuracy", ["ip1", "label"]),
+        SoftmaxWithLoss("loss", ["ip1", "label"]),
+    ]
+    return NetParam("CIFAR10_full_sigmoid_bn", *layers)
 
 
 def caffenet(batch_size=256, num_classes=1000, with_data=True,

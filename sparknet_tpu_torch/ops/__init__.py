@@ -1,7 +1,9 @@
-"""Layer implementations (registered by import side effect).
+"""Layer implementations (registered by import side effect): every layer
+type the JAX package registers.
 
 Plain PyTorch for the convolutions, pooling, matmuls, normalizations,
-reshapes and losses; the cross-channel LRN (cuda_lrn), the fused conv
+neuron and structural layers, losses, the user's Python layers and the
+mixture-of-experts FFN; the cross-channel LRN (cuda_lrn), the fused conv
 epilogue (cuda_epilogue) and flash attention (cuda_attention), forward
 and backward, are CUDA kernels written for Hopper, built from ../csrc at
 first use.
@@ -15,8 +17,10 @@ from . import (  # noqa: F401
     feed,
     losses,
     lrn,
+    moe,
     normalization,
     pooling,
+    python_layer,
     structural,
 )
 from .cuda_attention import (flash_attention, flash_attention_dkv,

@@ -1,4 +1,5 @@
-"""MAX and AVE pooling with exact Caffe geometry.
+"""MAX, AVE and STOCHASTIC pooling with exact Caffe geometry, and SPP
+(the port of sparknet_tpu/ops/pooling.py).
 
 Semantics match Caffe's pooling_layer.cpp:
   * ceil-mode output sizing:  out = ceil((in + 2p - k)/s) + 1, then if padded
@@ -8,8 +9,15 @@ Semantics match Caffe's pooling_layer.cpp:
   * AVE divides by the window area clipped to [start, in + pad) with the RAW
     (possibly negative) start (pooling_layer.cpp:199-203) — divisors are
     position-dependent at borders and computed once on the host.
-Both pad explicitly (left ``pad``, right whatever the last ceil-mode
-window overhangs) and then pool with no implicit padding, so the
+  * STOCHASTIC (Zeiler & Fergus; pooling_layer.cu) over each zero-padded
+    window p: TEST gives sum(p^2)/sum(p), and 0 where sum(p) <= 0; TRAIN
+    picks one element with probability max(p, 0)/sum(max(p, 0)) (a
+    window with no positive element picks uniformly), drawn from the
+    layer's torch.Generator. The draws follow Caffe's: u*sum against the
+    running sum. They cannot match the JAX package's bits, only their
+    distribution.
+Each pads explicitly (left ``pad``, right whatever the last ceil-mode
+window overhangs) and then pools with no implicit padding, so the
 geometry never depends on the framework's own ceil-mode rules.
 """
 
@@ -88,6 +96,45 @@ def ave_pool(x, kernel, stride, pad, out):
     return sums / torch.as_tensor(counts, dtype=x.dtype, device=x.device)
 
 
+def _patches(x, kernel, stride, pad, out):
+    """(N, C, kh*kw, OH, OW) zero-padded windows."""
+    (kh, kw), (sh, sw), (oh, ow) = kernel, stride, out
+    n, c = x.shape[:2]
+    xp = _padded(x, kernel, stride, pad, out, 0.0)
+    return F.unfold(xp, (kh, kw), stride=(sh, sw)).reshape(
+        n, c, kh * kw, oh, ow)
+
+
+def stochastic_pool(x, kernel, stride, pad, out, train, rng=None):
+    p = _patches(x, kernel, stride, pad, out)
+    if not train:
+        denom = p.sum(dim=2)
+        num = (p * p).sum(dim=2)
+        return torch.where(denom > 0, num / denom.clamp_min(1e-30),
+                           torch.zeros_like(denom))
+    if rng is None:
+        raise ValueError("TRAIN-phase STOCHASTIC pooling needs a generator")
+    with torch.no_grad():
+        w = p.clamp_min(0)
+        dead = (w > 0).sum(dim=2, keepdim=True) == 0
+        w = torch.where(dead, torch.ones_like(w), w)
+        run = w.cumsum(dim=2)
+        u = torch.rand(run[:, :, -1:].shape, generator=rng,
+                       device=x.device, dtype=run.dtype)
+        # the first element whose running sum passes u * total
+        idx = (run <= u * run[:, :, -1:]).sum(dim=2, keepdim=True) \
+            .clamp_max(p.shape[2] - 1)
+    return p.gather(2, idx)[:, :, 0]
+
+
+def pool(method, x, kernel, stride, pad, out, train, rng=None):
+    if method == MAX:
+        return max_pool(x, kernel, stride, pad, out)
+    if method == AVE:
+        return ave_pool(x, kernel, stride, pad, out)
+    return stochastic_pool(x, kernel, stride, pad, out, train, rng)
+
+
 @register
 class Pooling(Layer):
     type_name = "Pooling"
@@ -96,10 +143,8 @@ class Pooling(Layer):
         super().__init__(lp, bottom_shapes, phase)
         pp = lp.pooling_param
         self.method = int(pp.pool)
-        if self.method not in (MAX, AVE):
-            raise NotImplementedError(
-                f"layer {lp.name!r}: STOCHASTIC pooling is not ported yet "
-                "(MAX and AVE are)")
+        # only STOCHASTIC draws: the compiler makes generators for it alone
+        self.needs_rng = self.method == STOCHASTIC
         n, c, h, w = bottom_shapes[0]
         self.kernel, self.stride, self.pad, self.out = \
             caffe_pool_geometry(pp, h, w)
@@ -108,7 +153,39 @@ class Pooling(Layer):
         n, c, h, w = self.bottom_shapes[0]
         return [(n, c) + self.out]
 
-    def apply(self, params, bottoms, train):
-        pool = max_pool if self.method == MAX else ave_pool
-        return [pool(bottoms[0], self.kernel, self.stride, self.pad,
-                     self.out)]
+    def apply(self, params, bottoms, train, rng=None):
+        return [pool(self.method, bottoms[0], self.kernel, self.stride,
+                     self.pad, self.out, train, rng)]
+
+
+@register
+class SPP(Layer):
+    """Spatial pyramid pooling (Caffe spp_layer.cpp): levels 0..H-1 of
+    2^i x 2^i bins, each a pooling with kernel ceil(in/bins), stride the
+    kernel and pad (kernel*bins - in + 1)/2, flattened and concatenated
+    along dim 1."""
+
+    type_name = "SPP"
+
+    def __init__(self, lp, bottom_shapes, phase):
+        super().__init__(lp, bottom_shapes, phase)
+        sp = lp.spp_param
+        self.method = int(sp.pool)
+        self.needs_rng = self.method == STOCHASTIC
+        n, c, h, w = bottom_shapes[0]
+        self.levels = []
+        for i in range(int(sp.pyramid_height)):
+            bins = 2 ** i
+            kh, kw = -(-h // bins), -(-w // bins)
+            ph, pw = (kh * bins - h + 1) // 2, (kw * bins - w + 1) // 2
+            self.levels.append(((kh, kw), (kh, kw), (ph, pw), (bins, bins)))
+
+    def out_shapes(self):
+        n, c, h, w = self.bottom_shapes[0]
+        return [(n, c * sum(b * b for *_, (b, _) in self.levels))]
+
+    def apply(self, params, bottoms, train, rng=None):
+        x = bottoms[0]
+        return [torch.cat([pool(self.method, x, *level, train, rng)
+                           .reshape(x.shape[0], -1)
+                           for level in self.levels], dim=1)]

@@ -185,10 +185,13 @@ def test_cifar_verb_local_sgd_snapshots_and_resumes(tmp_path, synth_dir,
     assert "done: 1 rounds, iter=6" in out
 
 
-def test_cifar_verb_dp_and_the_stock_prototxt_path(tmp_path, capsys):
+def test_cifar_verb_dp_and_the_stock_prototxt_path(tmp_path, capsys,
+                                                    monkeypatch):
     """Data parallelism over 2 slots on the synthetic class-gaussians;
     then the solver and net from prototxt files, their data layers
     replaced (ProtoLoader.replaceDataLayers)."""
+    # --echo writes SPARKNET_ECHO: monkeypatch restores it after the test
+    monkeypatch.setenv("SPARKNET_ECHO", "")
     out = _verb(["--strategy", "dp", "--workers", "2", "--rounds", "2",
                  "--test-every", "1", "--echo", "2"], capsys)
     assert "strategy=dp" in out and "round 1: test loss = " in out

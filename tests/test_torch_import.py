@@ -40,6 +40,9 @@ MODULES = [
     "sparknet_tpu_torch.apps.imagenet_app", "sparknet_tpu_torch.ops.feed",
     "sparknet_tpu_torch.data.device_cache", "sparknet_tpu_torch.data.wire",
     "sparknet_tpu_torch.data.file_sources", "sparknet_tpu_torch.data.sampler",
+    "sparknet_tpu_torch.ops.moe", "sparknet_tpu_torch.ops.python_layer",
+    "sparknet_tpu_torch.ops.activations", "sparknet_tpu_torch.ops.structural",
+    "sparknet_tpu_torch.ops.pooling", "sparknet_tpu_torch.ops.convolution",
 ]
 
 
@@ -114,3 +117,20 @@ def test_kernel_sources_ship_with_the_package():
             head = f.read(2500)
         # each kernel names the TPU kernel it replaces and its bound
         assert "sparknet_tpu/ops/pallas_" in head and bound in head, fn
+
+
+def test_custom_layer_api_loads_the_registry_on_first_use():
+    code = (
+        "import sys\n"
+        "import sparknet_tpu_torch as p\n"
+        "assert 'torch' not in sys.modules\n"
+        "from sparknet_tpu_torch import Layer, register_layer\n"
+        "from sparknet_tpu_torch.graph import registry\n"
+        "assert Layer is registry.Layer and register_layer is "
+        "registry.register\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

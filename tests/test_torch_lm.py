@@ -265,10 +265,12 @@ def test_lm_verb_trains_snapshots_and_resumes(tmp_path, capsys):
 
 
 def test_lm_verb_refuses_unported_flags_and_missing_prefix(capsys):
-    for extra in (["--dp", "2"], ["--moe-experts", "4"], ["--fsdp"]):
+    for extra in (["--dp", "2"], ["--ep", "2", "--moe-experts", "4"],
+                  ["--fsdp", "on"]):
         with pytest.raises(SystemExit) as e:
             cli.main(TINY + extra)
-        assert e.value.code != 0
+        assert e.value.code == 2
+        assert "ROADMAP A5" in capsys.readouterr().err
     with pytest.raises(SystemExit, match="--snapshot-prefix"):
         cli.main(TINY + ["--snapshot-every", "2"])
 
