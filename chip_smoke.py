@@ -129,7 +129,7 @@ Phases, each of which raises on failure (exit code not 0):
               made on the card, each with images/s and a profiler
               window's busy share, and the host reader's time; then the
               `imagenet` verb at 4 slots x b256, 1,000 classes, tau cut
-              from 50 to 2, 3 rounds (finite losses, images/s a round).
+              from 50 to 2, 2 rounds (finite losses, images/s a round).
 10. feeds  — the train verb's whole input path on phase 9's CaffeNet
               b256 records: the verb with default flags (the records
               resident on the card: `device-cached`), with
@@ -174,8 +174,29 @@ Phases, each of which raises on failure (exit code not 0):
               layers), and STOCHASTIC pooling, forward and backward on
               the card against the CPU at one realistic shape (f32, TF32
               off, 1e-5 or 1e-4 of the largest value), with its time.
-12. the kernel table as one JSON line, an entry for every timed f32
-    row of phase 3 and the LM's flash row of phase 6 (launches from the
+12. levers, run safety and the metrics stream — GoogLeNet b32 (f32)
+              under --remat none, dots and full in process: the step
+              (median of 10, CUDA events), peak allocated memory and
+              each LRN/epilogue kernel's launches an iteration (forwards
+              double under remat, backwards do not); two SGD steps from
+              one snapshot under each policy, deterministic cuDNN, within
+              1e-4 relative on the loss and each blob's weight change;
+              --precision bf16 against fp32, the losses bit for bit (C8);
+              the train verb with --remat full --metrics --profile
+              --stall-seconds 600 --keep 2 (every event registered, the
+              report verb exits 0, its step p50 beside the in-process
+              median, the torch.profiler trace naming the channel_walk
+              kernels); the LM at phase 7's width under each policy (step
+              median of 5, peak memory, flash forward launches against
+              dQ/dK/dV) and the lm verb under --remat dots; and on a
+              small net, each in a child under `timeout -s KILL`: SIGTERM
+              snapshots and exits 0 (--resume auto restores it), a layer
+              that hangs with --stall-seconds 5 exits 42 leaving a
+              snapshot that restores, a NaN batch with --recover 2 rolls
+              back and goes on with finite losses.
+    After the phases: the kernel table as one JSON line, an entry for
+    every timed f32 row of phase 3 and the LM's flash row of phase 6
+    (launches from the
     serving path for the GoogLeNet forwards, the training path for their
     backwards, the train verb's default device-cached feed of phase 10
     for CaffeNet's LRN shapes, with the local-SGD rounds', the imagenet
@@ -183,12 +204,18 @@ Phases, each of which raises on failure (exit code not 0):
     verbs' beside them, phase 10's dp verb for one dp slot's LRN shapes,
     the lm verb's first run for the flash kernels, with the MoE LM's
     verb and in-process launches beside them),
-    the nvidia-smi line, and as the last line {"ok": true, "device":
-    {...}}.
+    with phase 12's launches an iteration under each remat policy beside
+    them), each phase's wall seconds and the total, the nvidia-smi line,
+    and as the last line {"ok": true, "device": {...}}.
+
+``python3 chip_smoke.py --phases 12`` (a comma-separated list) runs
+phases 1 and 2 and those given, for development calls: it prints each
+phase's seconds and no result lines. With no arguments every phase runs.
 """
 
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1891,7 +1918,7 @@ RECORD_SHAPE = (3, 256, 256)          # ImageNet app's SOURCE_SIZE
 CAFFENET_BATCH, CAFFENET_CROP = 256, 227
 DB_TRAIN, DB_TEST = 2560, 512
 DB_ITERS, DB_TEST_ITER, DB_TEST_INTERVAL = 30, 2, 20
-IMAGENET_TAU, IMAGENET_ROUNDS = 2, 3
+IMAGENET_TAU, IMAGENET_ROUNDS = 2, 2
 
 
 def _caffenet_db_files(tmp):
@@ -3358,6 +3385,472 @@ def phase_zoo_all(torch, card, tmp):
             "wall_s": wall}
 
 
+# -- phase 12 -------------------------------------------------------------
+
+REMAT_POLICIES = ("none", "dots", "full")
+CNN_KERNELS = ("lrn_across", "lrn_across_bwd", "bias_relu_lrn",
+               "bias_relu_lrn_bwd")
+FORWARD_OF = {"lrn_across": "lrn_across_bwd",
+              "bias_relu_lrn": "bias_relu_lrn_bwd",
+              "flash_attention": "flash_attention_dq"}
+REMAT_LIMIT = 1e-4          # relative, remat against none on the card
+GOOGLENET_STEPS = 10
+VERB_ITERS = 24             # the metrics verb run: samples at 0, 1, 21
+
+
+def _zero_launches():
+    from sparknet_tpu_torch.ops import KERNEL_WRAPPERS
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+def _policy_runs(torch, solver, feed, steps, label, card):
+    """Under each remat policy: the step (median of ``steps``, CUDA
+    events), the peak allocated memory and the launches of one step."""
+    from sparknet_tpu_torch.ops import kernel_launches
+    out = {}
+    for pol in REMAT_POLICIES:
+        solver.set_remat(pol)
+        float(solver.train_step(feed))               # warm-up
+        _zero_launches()
+        float(solver.train_step(feed))
+        launches = kernel_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = Timer(torch, reps=steps, flush=False)(
+            lambda: solver.train_step(feed))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out[pol] = {"step_ms": ms, "peak_gb": peak, "launches": launches}
+        print(f"[remat] {label} --remat {pol}: step {ms:.3f} ms (median of "
+              f"{steps}, CUDA events), peak allocated {peak:.2f} GB, "
+              f"launches an iteration "
+              f"{ {k: v for k, v in launches.items() if v} }; {card}")
+    solver.set_remat("none")
+    return out
+
+
+def _check_recompute(runs, kernels):
+    """Forwards launch twice an iteration under dots and full, once
+    under none; backwards the same number under every policy."""
+    for name in kernels:
+        bwd = FORWARD_OF.get(name)
+        if bwd is None:
+            continue
+        n = runs["none"]["launches"][name]
+        check(n >= 1, f"{name} never launched under --remat none")
+        for pol in ("dots", "full"):
+            got = runs[pol]["launches"]
+            check(got[name] == 2 * n,
+                  f"--remat {pol}: {name} launched {got[name]} times an "
+                  f"iteration, want twice none's {n}")
+            for b in [bwd] + (["flash_attention_dkv"]
+                              if name == "flash_attention" else []):
+                check(got[b] == runs["none"]["launches"][b],
+                      f"--remat {pol}: {b} launched {got[b]} times, none "
+                      f"{runs['none']['launches'][b]}")
+
+
+def _two_steps(torch, solver, state_path, batches):
+    """Two SGD steps from the snapshot -> (losses, {blob: weight
+    change}) as float64 arrays on the host."""
+    solver.restore(state_path)
+    solver.generator.manual_seed(SEED)
+    w0 = {n: [p.detach().double().cpu() for p in ps]
+          for n, ps in solver.params.items()}
+    losses = [float(solver.train_step(b)) for b in batches]
+    dw = {n: [(p.detach().double().cpu() - w).numpy()
+              for p, w in zip(ps, w0[n])]
+          for n, ps in solver.params.items()}
+    return np.array(losses), dw
+
+
+def _remat_agreement(torch, solver, tmp, batches):
+    """Two steps under each policy from one snapshot, cuDNN restricted
+    to deterministic algorithms: losses and every blob's weight change
+    within REMAT_LIMIT of --remat none's, relative to its largest
+    value; -> the readings."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        solver.set_remat("none")
+        _, state = solver.snapshot(os.path.join(tmp, "remat_start"))
+        ref_l, ref_dw = _two_steps(torch, solver, state, batches)
+        out = {}
+        for pol in ("dots", "full"):
+            solver.set_remat(pol)
+            l, dw = _two_steps(torch, solver, state, batches)
+            loss_err = float(np.max(np.abs(l - ref_l) / np.abs(ref_l)))
+            worst, where = 0.0, None
+            for n, ds in ref_dw.items():
+                for i, d in enumerate(ds):
+                    scale = max(float(np.abs(d).max()), 1e-30)
+                    e = float(np.abs(dw[n][i] - d).max()) / scale
+                    if e > worst:
+                        worst, where = e, f"{n}[{i}]"
+            print(f"[remat] two SGD steps, --remat {pol} against none: "
+                  f"loss {loss_err:.3e}, worst weight change {worst:.3e} "
+                  f"({where}), limit {REMAT_LIMIT:g}")
+            check(loss_err <= REMAT_LIMIT and worst <= REMAT_LIMIT,
+                  f"--remat {pol} disagrees with none: loss {loss_err:.3e}"
+                  f", weight change {worst:.3e} at {where}")
+            out[pol] = {"loss_rel": loss_err, "weight_change_rel": worst,
+                        "blob": where}
+        solver.set_remat("none")
+        # C8: SPARKNET_PRECISION reaches no CNN layer, so bf16 is fp32
+        from sparknet_tpu_torch.solver import Solver
+        os.environ["SPARKNET_PRECISION"] = "bf16"
+        try:
+            bf = Solver(solver.param, device=solver.device, log_fn=None)
+        finally:
+            os.environ.pop("SPARKNET_PRECISION")
+        check(bf.net.compute_dtype == torch.bfloat16 and all(
+            getattr(impl, "compute_dtype", None) is None
+            for _, impl, _, _ in bf.net.layers),
+            "--precision bf16 did not resolve net.compute_dtype alone")
+        again, _ = _two_steps(torch, solver, state, batches)
+        bl, _ = _two_steps(torch, bf, state, batches)
+        print(f"[remat] --precision fp32 losses {ref_l.tolist()} (again "
+              f"{again.tolist()}), --precision bf16 {bl.tolist()}")
+        check(np.array_equal(again, ref_l),
+              "fp32 twice is not bit for bit with deterministic cuDNN")
+        check(np.array_equal(bl, ref_l),
+              "--precision bf16 changed GoogLeNet's losses")
+        out["precision_bf16_equal"] = True
+        del bf
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def _safety_costs(torch, solver, feed, card, tmp, iters=24):
+    """ms an iteration of Solver.step (display every 8, as the solver
+    prototxt says) with nothing armed, with the metrics stream, with
+    recovery and with both: the host clock over ``iters`` iterations
+    ending in a synchronize, each arm three times in turns (forward,
+    backward, forward); -> {arm: [ms, ms, ms]}."""
+    from sparknet_tpu_torch.obs import (CommsMeter, MemoryMonitor,
+                                        StepAccounting)
+    from sparknet_tpu_torch.utils.metrics import MetricsLogger
+
+    def batches():
+        while True:
+            yield feed
+
+    arms = (("off", False, False), ("metrics", True, False),
+            ("recover", False, True), ("metrics+recover", True, True))
+    solver.param.snapshot = 0
+    logger = MetricsLogger(os.path.join(tmp, "costs.jsonl"))
+    out = {label: [] for label, _, _ in arms}
+    for order in (arms, arms[::-1], arms):
+        for label, metrics, recover in order:
+            solver.metrics = logger if metrics else None
+            solver.stepstats = StepAccounting(logger) if metrics else None
+            solver.comms = CommsMeter(logger) if metrics else None
+            solver.memstats = MemoryMonitor(logger, device=solver.device) \
+                if metrics else None
+            solver._comms_registered = False
+            solver.recovery = None
+            if recover:
+                solver.arm_recovery(max_rollbacks=2)
+            solver.step(8, batches())                # warm the arm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver.step(iters, batches())
+            torch.cuda.synchronize()
+            out[label].append((time.perf_counter() - t0) / iters * 1e3)
+    solver.metrics = solver.stepstats = solver.comms = None
+    solver.memstats = solver.recovery = None
+    logger.close()
+    print(f"[costs] GoogLeNet b32 Solver.step, ms an iteration over "
+          f"{iters}, three turns each: " + "; ".join(
+              f"{k} {[round(v, 3) for v in vs]} (median "
+              f"{statistics.median(vs):.3f})" for k, vs in out.items())
+          + f"; {card}")
+    return out
+
+
+def phase_remat_googlenet(torch, card, tmp, batch=32):
+    from sparknet_tpu_torch.solver import Solver
+    os.environ.pop("SPARKNET_EPILOGUE", None)
+    rs = np.random.RandomState(SEED + 12)
+    solver = Solver(_googlenet_solver(batch, os.path.join(tmp, "remat")),
+                    device="cuda", log_fn=None)
+    check(set(solver.net._remat_groups()) and all(
+        any(lo <= i < hi for lo, hi in solver.net._remat_groups().items())
+        for i, (lp, _, _, _) in enumerate(solver.net.layers)
+        if lp.name in ("pool1/norm1", "conv2/norm2")),
+        "GoogLeNet's LRN sites are not inside remat segments")
+    feed = {k: torch.as_tensor(v).cuda() for k, v in _batch(rs, batch).items()}
+    runs = _policy_runs(torch, solver, feed, GOOGLENET_STEPS,
+                        f"GoogLeNet b{batch} f32", card)
+    _check_recompute(runs, CNN_KERNELS)
+    costs = _safety_costs(torch, solver, feed, card, tmp)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in
+                _batch(rs, batch).items()} for _ in range(2)]
+    agreement = _remat_agreement(torch, solver, tmp, batches)
+    del solver, feed, batches
+    torch.cuda.empty_cache()
+    return {"policies": runs, "agreement": agreement, "costs": costs}
+
+
+def phase_remat_lm(torch, card, steps=5):
+    """The LM at phase 7's width under each policy, then the lm verb
+    under --remat dots."""
+    from sparknet_tpu_torch.data import lm_batch_stream
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.proto import Message
+    from sparknet_tpu_torch.solver import Solver
+    f = LM_FULL
+    sp = Message("SolverParameter", base_lr=3e-4, lr_policy="fixed",
+                 type="Adam", random_seed=SEED, display=0)
+    net = zoo.transformer_lm(vocab_size=f["vocab"], seq_len=f["seq_len"],
+                             batch_size=f["batch"], d_model=f["d_model"],
+                             num_layers=f["layers"], num_heads=f["heads"])
+    solver = Solver(sp, net_param=net, device="cuda", log_fn=None,
+                    compute_dtype=torch.bfloat16)
+    stream, _ = lm_batch_stream(f["vocab"], f["batch"], f["seq_len"],
+                                seed=SEED)
+    feed = {k: torch.as_tensor(v).cuda() for k, v in next(stream).items()}
+    runs = _policy_runs(torch, solver, feed, steps, "LM d1024x12 S4096 bf16",
+                        card)
+    _check_recompute(runs, ("flash_attention",))
+    for pol in ("dots", "full"):
+        check(runs[pol]["launches"]["flash_attention"] == 2 * f["layers"],
+              f"--remat {pol}: the flash forward is not recomputed in "
+              "every block")
+    del solver, feed
+    torch.cuda.empty_cache()
+    out, counts = _lm_cli(["--steps", "2", "--remat", "dots"],
+                          tag="lm-cli remat")
+    check("done: 2 steps, " in out, "lm verb --remat dots: not 2 steps")
+    check(counts["flash_attention"] == 2 * counts["flash_attention_dq"]
+          == 2 * counts["flash_attention_dkv"] == 4 * f["layers"],
+          f"lm verb --remat dots launches {counts}")
+    return {"policies": runs, "verb_launches": counts}
+
+
+def _registered(path):
+    from sparknet_tpu_torch.obs.event_schema import EVENTS
+    events = [json.loads(line) for line in open(path)]
+    unknown = sorted({e["event"] for e in events} - set(EVENTS))
+    check(not unknown, f"events not in obs/event_schema.py: {unknown}")
+    return events
+
+
+def phase_metrics_verb(torch, card, tmp, googlenet, batch=32,
+                       device="cuda"):
+    """The slice's verb path: GoogLeNet b32 under --remat full with the
+    metrics stream, the profiler block, the watchdog and keep-2
+    retention; then the report verb on the stream. ``device="cpu"``
+    rehearses it without a card (no kernel names in its trace)."""
+    from sparknet_tpu_torch import cli
+    from sparknet_tpu_torch.proto import text_format
+    path = os.path.join(tmp, "googlenet_metrics_solver.prototxt")
+    prefix = os.path.join(tmp, "googlenet_metrics")
+    text_format.dump(_googlenet_solver(batch, prefix), path)
+    metrics = os.path.join(tmp, "googlenet.jsonl")
+    prof = os.path.join(tmp, "googlenet_profile")
+    out = _train_cli(["--solver", path, "--iterations", str(VERB_ITERS),
+                      "--remat", "full", "--metrics", metrics, "--profile",
+                      prof, "--stall-seconds", "600", "--keep", "2",
+                      "--device", device])
+    counts = {}
+    if device == "cuda":        # the CPU runs the plain versions
+        counts = _check_cli_launches(out, VERB_ITERS)
+        for fwd in ("lrn_across", "bias_relu_lrn"):
+            check(counts[fwd] == 2 * counts[FORWARD_OF[fwd]],
+                  f"train verb --remat full: {fwd} {counts[fwd]} launches "
+                  f"against {counts[FORWARD_OF[fwd]]} backwards")
+    events = _registered(metrics)
+    kinds = sorted({e["event"] for e in events})
+    buf = subprocess.run([sys.executable, "-m", "sparknet_tpu_torch",
+                          "report", metrics], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    check(buf.returncode == 0, f"report exited {buf.returncode}: "
+                               f"{buf.stderr[-2000:]}")
+    for line in buf.stdout.splitlines():
+        print(f"[report] {line}")
+    summary = [e for e in events if e["event"] == "step_summary"][-1]
+    trace = open(os.path.join(prof, "torch.trace.json")).read()
+    walks = trace.count("channel_walk")
+    check(walks > 0 or device != "cuda",
+          "the torch.profiler trace names no channel_walk kernel")
+    check(os.path.exists(os.path.join(prof, "spans.trace.json")),
+          "no spans.trace.json beside the profiler trace")
+    print(f"[metrics] {len(events)} events of kinds {kinds}, all "
+          f"registered; stream step p50 {summary['device_ms_p50']} ms "
+          f"(device, {summary['device_samples']} samples) against phase "
+          f"12's in-process --remat full median "
+          f"{googlenet['policies']['full']['step_ms']:.3f} ms; the trace "
+          f"names channel_walk {walks} times; {card}")
+    return {"events": len(events), "kinds": kinds, "launches": counts,
+            "step_summary": summary, "channel_walk_in_trace": walks}
+
+
+# a pass-through layer that, from its param_str "MODE:N", hangs (stall) or
+# turns its input NaN (nan) at its N-th call: a feed that stops, one bad
+# batch
+TAP_LAYER = """
+import time
+
+
+class Tap:
+    def setup(self, bottom_shapes):
+        mode, at = self.param_str.split(":")
+        self.mode, self.at, self.calls = mode, int(at), 0
+
+    def reshape(self, bottom_shapes):
+        return [bottom_shapes[0]]
+
+    def forward(self, params, bottoms):
+        self.calls += 1
+        if self.calls == self.at and self.mode == "stall":
+            time.sleep(3600)
+        if self.calls == self.at and self.mode == "nan":
+            return [bottoms[0] * float("nan")]
+        return [bottoms[0]]
+"""
+
+
+def _safety_files(tmp, name, tap, **fields):
+    """A small net (two InnerProducts over a (64, 256) feed) behind a
+    Tap layer, and its solver with a snapshot prefix -> (solver path,
+    prefix)."""
+    from sparknet_tpu_torch.models import dsl
+    from sparknet_tpu_torch.proto import Message, text_format
+    with open(os.path.join(tmp, "tap_layer.py"), "w") as fh:
+        fh.write(TAP_LAYER)
+    lp = Message("LayerParameter", name="tap", type="Python")
+    lp.bottom.append("data")
+    lp.top.append("tapped")
+    lp.python_param = Message("PythonParameter", module="tap_layer",
+                              layer="Tap", param_str=tap)
+    filler = dict(type="gaussian", std=0.05)
+    net = dsl.NetParam(
+        name, dsl.RDDLayer("data", (64, 256)), dsl.RDDLayer("label", (64,)),
+        lp, dsl.InnerProductLayer("ip1", ["tapped"], 512,
+                                  weight_filler=filler),
+        dsl.ReLULayer("relu", ["ip1"], tops=["ip1"]),
+        dsl.InnerProductLayer("ip2", ["ip1"], 10, weight_filler=filler),
+        dsl.SoftmaxWithLoss("loss", ["ip2", "label"]))
+    prefix = os.path.join(tmp, name, "s")
+    sp = Message("SolverParameter", base_lr=0.05, momentum=0.9,
+                 lr_policy="fixed", display=1, random_seed=SEED,
+                 snapshot_prefix=prefix, **fields)
+    sp.net_param = net
+    path = os.path.join(tmp, f"{name}_solver.prototxt")
+    text_format.dump(sp, path)
+    return path, prefix
+
+
+def _safety_env(tmp):
+    return dict(os.environ, PYTHONUNBUFFERED="1",
+                SPARKNET_PYTHON_LAYER_PATH=tmp)
+
+
+def _killable(args, device, limit=180):
+    return ["timeout", "-s", "KILL", str(limit), sys.executable, "-m",
+            "sparknet_tpu_torch", "train", "--device", device, *args]
+
+
+def _resume_iter(solver_path, prefix, tmp, device):
+    """--resume auto through the train verb in process, one iteration
+    past the snapshot -> the iteration it restored."""
+    import contextlib
+    import io
+    from sparknet_tpu_torch import cli
+    from sparknet_tpu_torch.resilience import checkpoint
+    it = checkpoint.load_manifest(prefix)["latest"]["iter"]
+    buf = io.StringIO()
+    os.environ["SPARKNET_PYTHON_LAYER_PATH"] = tmp
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["train", "--solver", solver_path, "--resume",
+                           "auto", "--iterations", str(it + 1),
+                           "--device", device])
+    finally:
+        os.environ.pop("SPARKNET_PYTHON_LAYER_PATH")
+    out = buf.getvalue()
+    check(rc == 0 and f"resume auto: restored iter {it}" in out,
+          f"--resume auto did not restore iteration {it}: {out[-2000:]}")
+    return it
+
+
+def phase_run_safety(tmp, device="cuda"):
+    """SIGTERM, the watchdog's kill and a NaN batch, each through the
+    train verb in a child under `timeout -s KILL` (``device="cpu"``
+    rehearses it without a card)."""
+    out = {}
+    # SIGTERM after a few iterations: the block ends, snapshot, exit 0
+    path, prefix = _safety_files(tmp, "sigterm", "nan:0")
+    t0 = time.perf_counter()
+    p = subprocess.Popen(_killable(["--solver", path, "--iterations",
+                                    "100000"], device),
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, cwd=REPO, env=_safety_env(tmp))
+    lines = []
+    for line in p.stdout:
+        lines.append(line)
+        if line.startswith("Iteration 2,"):
+            p.send_signal(signal.SIGTERM)
+            break
+    lines.append(p.communicate(timeout=300)[0])
+    text = "".join(lines)
+    done = [l for l in text.splitlines()
+            if l.startswith("Optimization done, iter=")]
+    check(p.returncode == 0 and "stopping early on signal" in text and done,
+          f"SIGTERM: exit {p.returncode}: {text[-2000:]}")
+    it = int(done[-1].split("=")[1])
+    check(_resume_iter(path, prefix, tmp, device) == it,
+          f"SIGTERM: the snapshot is not iteration {it}")
+    print(f"[safety] SIGTERM after iteration 2: snapshot at {it}, exit 0 "
+          f"({time.perf_counter() - t0:.1f} s); --resume auto restored it")
+    out["sigterm_iter"] = it
+    # a layer that hangs at its 6th call: the watchdog kills with 42
+    path, prefix = _safety_files(tmp, "stall", "stall:6")
+    t0 = time.perf_counter()
+    r = subprocess.run(_killable(["--solver", path, "--iterations", "50",
+                                  "--stall-seconds", "5"], device),
+                       capture_output=True, text=True, cwd=REPO,
+                       env=_safety_env(tmp), timeout=300)
+    check(r.returncode == 42, f"stall: exit {r.returncode}, want 42: "
+                              f"{r.stdout[-1500:]} {r.stderr[-1500:]}")
+    it = _resume_iter(path, prefix, tmp, device)
+    check(it == 5, f"stall: the emergency snapshot is iteration {it}, "
+                   "want 5")
+    print(f"[safety] a layer hung at iteration 5: exit 42 after "
+          f"{time.perf_counter() - t0:.1f} s, the emergency snapshot of "
+          "iteration 5 restores")
+    out["stall_exit"], out["stall_iter"] = r.returncode, it
+    # one NaN batch at iteration 4 with --recover 2
+    path, prefix = _safety_files(tmp, "nan", "nan:5")
+    r = subprocess.run(_killable(["--solver", path, "--iterations", "12",
+                                  "--recover", "2"], device),
+                       capture_output=True, text=True, cwd=REPO,
+                       env=_safety_env(tmp), timeout=300)
+    check(r.returncode == 0, f"recover: exit {r.returncode}: "
+                             f"{r.stdout[-1500:]} {r.stderr[-1500:]}")
+    losses = [float(l.split("loss = ")[1].split(",")[0])
+              for l in r.stdout.splitlines() if l.startswith("Iteration ")]
+    check("rolled back to iter 4" in r.stdout and len(losses) == 12 and
+          all(np.isfinite(losses)),
+          f"recover: no rollback to 4 or a non-finite loss: "
+          f"{r.stdout[-2000:]}")
+    print(f"[safety] a NaN batch at iteration 4 with --recover 2: rolled "
+          f"back to 4, then losses {[round(l, 4) for l in losses]}")
+    out["recover_losses"] = losses
+    return out
+
+
+def phase_levers_all(torch, card, tmp):
+    googlenet = phase_remat_googlenet(torch, card, tmp)
+    verb = phase_metrics_verb(torch, card, tmp, googlenet)
+    torch.cuda.empty_cache()
+    lm = phase_remat_lm(torch, card)
+    safety = phase_run_safety(tmp)
+    return {"googlenet": googlenet, "metrics_verb": verb, "lm": lm,
+            "safety": safety}
+
+
 KERNELS = {
     # name: (source, replaces, path whose launches the row reports)
     "lrn_across": ("sparknet_tpu_torch/csrc/lrn.cu",
@@ -3381,30 +3874,72 @@ KERNELS = {
 }
 
 
-def main():
+PHASES = {1: "device", 2: "build", 3: "kernels", 4: "serve", 5: "train",
+          6: "flash", 7: "lm", 8: "local-sgd", 9: "records", 10: "feeds",
+          11: "zoo", 12: "levers, run safety, metrics"}
+
+
+def _selected(argv):
+    """--phases 3,12 -> {1, 2, 3, 12} (phase 10 brings 9, whose records
+    it reads); no argument -> every phase."""
+    if not argv:
+        return set(PHASES)
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: chip_smoke.py [--phases N[,N...]]")
+    want = {int(x) for x in argv[1].split(",")}
+    bad = want - set(PHASES)
+    if bad:
+        raise SystemExit(f"no phase {sorted(bad)}; phases are 1-12")
+    if 10 in want:
+        want.add(9)
+    return want | {1, 2}
+
+
+def main(argv=None):
     sys.path.insert(0, REPO)
+    phases = _selected(sys.argv[1:] if argv is None else argv)
     import torch
-    card = phase_device(torch)
-    phase_build()
-    results = phase_kernels(torch)
-    served = phase_serve(torch, card)
+    seconds = {}
+    t_start = time.perf_counter()
+
+    def run(n, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[n] = time.perf_counter() - t0
+        print(f"[phase {n}] {PHASES[n]}: {seconds[n]:.1f} s")
+        return out
+
+    def section(n, fn, *args):
+        if n not in phases:
+            return None
+        out = run(n, fn, *args)
+        torch.cuda.empty_cache()
+        return out
+
+    card = run(1, phase_device, torch)
+    run(2, phase_build)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    trained_cli = phase_train_cli(tmp)
-    trained = phase_train(torch, card, tmp)
-    torch.cuda.empty_cache()
-    flash = phase_flash_kernels(torch)
-    lm_cli = phase_lm_cli(tmp)
-    lm_step = phase_lm_step(torch, card)
-    lm_parity = phase_lm_card_vs_cpu(torch, tmp)
-    torch.cuda.empty_cache()
-    local_sgd = phase_local_sgd_all(torch, card, tmp)
-    torch.cuda.empty_cache()
-    records = phase_records_all(torch, card, tmp)
-    torch.cuda.empty_cache()
-    feeds = phase_feeds_all(torch, card, tmp, records["dir"],
-                            records["solver"])
-    torch.cuda.empty_cache()
-    zoo = phase_zoo_all(torch, card, tmp)
+    results = section(3, phase_kernels, torch)
+    served = section(4, phase_serve, torch, card)
+    trained_cli, trained = section(5, lambda: (
+        phase_train_cli(tmp), phase_train(torch, card, tmp))) or (None, None)
+    flash = section(6, phase_flash_kernels, torch)
+    lm_cli, lm_step, lm_parity = section(7, lambda: (
+        phase_lm_cli(tmp), phase_lm_step(torch, card),
+        phase_lm_card_vs_cpu(torch, tmp))) or (None, None, None)
+    local_sgd = section(8, phase_local_sgd_all, torch, card, tmp)
+    records = section(9, phase_records_all, torch, card, tmp)
+    feeds = section(10, lambda: phase_feeds_all(
+        torch, card, tmp, records["dir"], records["solver"]))
+    zoo = section(11, phase_zoo_all, torch, card, tmp)
+    levers = section(12, phase_levers_all, torch, card, tmp)
+    total = time.perf_counter() - t_start
+    print("[phases] " + json.dumps(
+        {PHASES[n]: round(v, 1) for n, v in sorted(seconds.items())}))
+    print(f"[phases] total {total:.1f} s")
+    if phases != set(PHASES):
+        print(f"partial run of phases {sorted(phases)}: no result lines")
+        return 0
     paths = {"serve auto": served["auto"], "serve on": served["on"],
              "train auto": trained["launches"]["auto"],
              "train on": trained["launches"]["on"],
@@ -3414,6 +3949,8 @@ def main():
              "train verb on records": records["cli"]["launches"],
              "train verb, device-cached": feeds["cli"]["cached"]["launches"],
              "train verb, dp": feeds["cli"]["dp"]["launches"]}
+    remat = levers["googlenet"]["policies"]
+    remat_lm = levers["lm"]["policies"]
     table = []
     for name, (source, replaces, own_path) in KERNELS.items():
         rows = [r for r in results + flash if r["name"] == name and r["row"]]
@@ -3425,12 +3962,17 @@ def main():
             path = "train verb, device-cached" if caffenet else \
                 "train verb, dp" if tuple(r["shape"]) in \
                 CAFFENET_DP_LRN_SHAPES else own_path
+            per_iter, model = (remat_lm, "lm") if name in FLASH_KERNELS \
+                else (remat, "googlenet")
             table.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": paths[path][name],
                 "launches_path": path,
                 "launches_train": trained["launches"]["auto"][name],
                 "launches_lm_step": lm_step["launches"][name],
+                f"launches_{model}_iteration_by_remat": {
+                    pol: per_iter[pol]["launches"][name]
+                    for pol in REMAT_POLICIES},
                 **({"launches_moe_lm_verb": zoo["moe_cli"]["launches"][name],
                     "launches_moe_lm_step": zoo["moe_step"]["launches"][
                         name]} if name in FLASH_KERNELS else {}),
@@ -3459,7 +4001,9 @@ def main():
             "profile", "card_vs_cpu")}, **trained_cli},
         "lm": {"cli": lm_cli, "step": lm_step, "card_vs_cpu": lm_parity},
         "local_sgd": local_sgd, "records": records, "feeds": feeds,
-        "zoo": zoo}))
+        "zoo": zoo, "levers": levers,
+        "phase_seconds": {PHASES[n]: v for n, v in seconds.items()},
+        "total_seconds": total}, default=str))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,11 +10,12 @@ strategy="dp", DataParallelSolver.train_step (per-step gradient
 averaging).
 
 Timing log: elapsed-seconds-prefixed phases, like the reference's
-training_log_<ts>.txt (CifarApp.scala:43-52).
+training_log_<ts>.txt (CifarApp.scala:43-52). With ``metrics_path`` one
+JSONL stream carries the solver's step, comms, divergence and health
+events, the watchdog's and the app's own "round" and "test" events.
 
 Not ported (ROADMAP A6): hierarchical host fault domains (``hosts``),
-chaos injection, per-host sharded ingest and elastic membership; the
-app's JSONL metrics stream.
+chaos injection, per-host sharded ingest and elastic membership.
 """
 
 import os
@@ -43,7 +44,7 @@ class CifarApp:
 
     def __init__(self, num_workers=None, data_dir=None, prototxt_dir=None,
                  strategy="local_sgd", tau=10, log_path=None, seed=None,
-                 hosts=0, device="cuda", echo=1):
+                 hosts=0, device="cuda", echo=1, metrics_path=None):
         if hosts:
             raise ValueError(
                 "hosts (hierarchical local SGD over host fault domains) is "
@@ -53,6 +54,8 @@ class CifarApp:
                              f"{strategy!r}")
         self.t0 = time.time()
         self.logf = open(log_path, "w") if log_path else None
+        from ..utils.metrics import MetricsLogger
+        self.metrics = MetricsLogger(metrics_path) if metrics_path else None
         self.rng = np.random.RandomState(seed)
         self._train_f32 = None
         self.num_workers = int(num_workers or 1)
@@ -90,12 +93,14 @@ class CifarApp:
             self.solver = LocalSGDSolver(solver_param,
                                          workers=self.num_workers, tau=tau,
                                          net_param=net, log_fn=self.log,
-                                         device=device)
+                                         device=device,
+                                         metrics=self.metrics)
         else:
             self.solver = DataParallelSolver(solver_param,
                                              workers=self.num_workers,
                                              net_param=net, log_fn=self.log,
-                                             device=device)
+                                             device=device,
+                                             metrics=self.metrics)
         self.log(f"initialized: {self.num_workers} workers, "
                  f"strategy={strategy}, device={self.solver.device}")
 
@@ -188,7 +193,11 @@ class CifarApp:
         elif resume:
             self.solver.restore(resume)
 
-        wd = Watchdog(stall_seconds=stall_seconds,
+        metrics = self.metrics
+        steps_per_round = self.solver.tau \
+            if self.strategy == "local_sgd" else 1
+        imgs_per_round = TRAIN_BATCH * self.num_workers * steps_per_round
+        wd = Watchdog(stall_seconds=stall_seconds, metrics=metrics,
                       on_stall=lambda dt: self.log(
                           f"WATCHDOG: no round finished in {dt:.0f}s"),
                       on_nan=lambda v: self.log(f"WATCHDOG: loss = {v}"))
@@ -203,21 +212,46 @@ class CifarApp:
                         self.log("testing")
                         for k, v in self.run_test().items():
                             self.log(f"round {r}: test {k} = {v:.4f}")
+                            if metrics:
+                                metrics.log("test", round=r, metric=k,
+                                            value=v)
 
                     self.log("broadcasting weights & running workers")
+                    rt0 = time.perf_counter()
                     if self.strategy == "local_sgd":
                         loss = self.solver.train_round(next(batches))
                     else:
                         loss = self.solver.train_step(next(batches))
                     loss = float(loss)
+                    dt = time.perf_counter() - rt0
                     wd.beat(loss)
-                    self.log(f"round {r}: loss = {loss:.4f}")
+                    line = f"round {r}: loss = {loss:.4f}"
+                    d = self.solver.last_divergence
+                    if d and d.get("mean") is not None:
+                        # the paper's tau drift at this round's average
+                        line += f", divergence = {d['mean']:.4g}"
+                    self.log(line)
+                    if metrics:
+                        metrics.log("round", round=r, loss=loss,
+                                    iter=self.solver.iter,
+                                    lr=float(self.solver.lr_fn(
+                                        self.solver.iter)),
+                                    images_per_s=round(imgs_per_round
+                                                       / max(dt, 1e-9), 1))
                     if snapshot_prefix and snapshot_every and \
                             (r + 1) % snapshot_every == 0:
                         self.solver.snapshot(prefix=snapshot_prefix)
         finally:
             if not batches.close():
                 self.log("prefetch worker did not stop within its timeout")
+            h = self.solver.health
+            if h is not None and h.alarms:
+                hs = h.summary()
+                self.log(f"health: {hs['alarms']} alarm(s); last: "
+                         f"{hs['last_alarm']}")
+            self.solver.close()     # the step, comms and health summaries
+            if metrics:
+                metrics.close()
             if self.logf:
                 self.logf.close()
                 self.logf = None

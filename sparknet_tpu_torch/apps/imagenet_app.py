@@ -16,7 +16,9 @@ device, through the solver's input transform. The mean is the app's own:
 the mean image's center window, subtracted after the mirror
 (transforms.transform_train), not DataTransformer's source-indexed one.
 
-Not ported (ROADMAP A6): the app's JSONL metrics stream.
+With ``metrics_path`` one JSONL stream carries the solver's step,
+comms, divergence and health events, the watchdog's and the app's own
+"round" and "test" events.
 """
 
 import os
@@ -46,12 +48,14 @@ class ImageNetApp:
 
     def __init__(self, num_workers=None, train_source=None, test_source=None,
                  num_classes=1000, strategy="local_sgd", tau=50, batch=BATCH,
-                 log_path=None, seed=0, device="cuda"):
+                 log_path=None, seed=0, device="cuda", metrics_path=None):
         if strategy not in ("local_sgd", "dp"):
             raise ValueError(f"strategy must be local_sgd or dp, got "
                              f"{strategy!r}")
         self.t0 = time.time()
         self.logf = open(log_path, "w") if log_path else None
+        from ..utils.metrics import MetricsLogger
+        self.metrics = MetricsLogger(metrics_path) if metrics_path else None
         self.num_workers = int(num_workers or 1)
         self.strategy = strategy
         self.batch = batch
@@ -82,12 +86,13 @@ class ImageNetApp:
             weight_decay=0.0005, lr_policy="step", gamma=0.1, stepsize=100000,
             display=0, random_seed=seed)
         if strategy == "local_sgd":
-            self.solver = LocalSGDSolver(solver_param,
+            self.solver = LocalSGDSolver(solver_param, metrics=self.metrics,
                                          workers=self.num_workers, tau=tau,
                                          net_param=net, log_fn=self.log,
                                          device=device)
         else:
             self.solver = DataParallelSolver(solver_param,
+                                             metrics=self.metrics,
                                              workers=self.num_workers,
                                              net_param=net, log_fn=self.log,
                                              device=device)
@@ -173,9 +178,10 @@ class ImageNetApp:
         from ..data.prefetch import PrefetchIterator
         from ..utils.watchdog import Watchdog
 
+        metrics = self.metrics
         steps = self.solver.tau if self.strategy == "local_sgd" else 1
         imgs_per_round = self.batch * self.num_workers * steps
-        wd = Watchdog(stall_seconds=stall_seconds,
+        wd = Watchdog(stall_seconds=stall_seconds, metrics=metrics,
                       on_stall=lambda dt: self.log(
                           f"WATCHDOG: no round finished in {dt:.0f}s"),
                       on_nan=lambda v: self.log(f"WATCHDOG: loss = {v}"))
@@ -191,6 +197,9 @@ class ImageNetApp:
                         for k, v in scores.items():
                             v = float(np.asarray(v).mean())
                             self.log(f"round {r}: test {k} = {v:.4f}")
+                            if metrics:
+                                metrics.log("test", round=r, metric=k,
+                                            value=v)
                     rt0 = time.perf_counter()
                     if self.strategy == "local_sgd":
                         loss = self.solver.train_round(next(batches))
@@ -202,9 +211,17 @@ class ImageNetApp:
                     self.log(f"round {r}: loss = {loss:.4f}, "
                              f"{imgs_per_round / max(dt, 1e-9):.1f} "
                              f"images/s")
+                    if metrics:
+                        metrics.log("round", round=r, loss=loss,
+                                    iter=self.solver.iter,
+                                    images_per_s=round(
+                                        imgs_per_round / max(dt, 1e-9), 1))
         finally:
             if not batches.close():
                 self.log("prefetch worker did not stop within its timeout")
+            self.solver.close()     # the step, comms and health summaries
+            if metrics:
+                metrics.close()
             if self.logf:
                 self.logf.close()
                 self.logf = None

@@ -13,8 +13,14 @@
           the host). ImageData, WindowData and HDF5Data layers read their
           files. ``--strategy dp --mesh data=W`` splits each batch over W
           worker slots. A net whose sources do not exist trains on
-          synthetic batches of its feed shapes and says so. Its last line
-          counts each CUDA kernel's launches in the run.
+          synthetic batches of its feed shapes and says so. Run safety
+          and observability as in the JAX verb: ``--metrics`` (one JSONL
+          stream: spans, steps, comms, memory, checkpoints), ``--profile``
+          (a torch.profiler trace of one steady block), the signal
+          policies, ``--stall-seconds`` (exit 42 after an emergency
+          snapshot), ``--recover`` (rollback; exit 3 on abort),
+          ``--keep N``, ``--health-*``; ``--remat`` and ``--precision``.
+          Its last line counts each CUDA kernel's launches in the run.
   test    score a model's TEST net over its data layer's source.
   time    per-layer forward and forward+backward times.
   device_query
@@ -32,8 +38,9 @@
           synthetic class-gaussians) under local SGD over --workers
           slots (--tau steps each, then the weights averaged) or per-step
           data parallelism (--strategy dp); tests every --test-every
-          rounds, snapshots and --resume auto. The JAX verb's multi-host,
-          chaos, metrics, health, elastic and heartbeat flags exit 2.
+          rounds, snapshots and --resume auto; --metrics, --health-*,
+          --remat, --precision. The JAX verb's multi-host, chaos, elastic
+          and heartbeat flags exit 2.
   imagenet
           the ImageNetApp loop: CaffeNet under local SGD (or --strategy
           dp) on synthetic class-gaussian images, transformed on the
@@ -49,6 +56,10 @@
   upgrade_net_proto_text, upgrade_net_proto_binary,
   upgrade_solver_proto_text
           rewrite old-format net and solver files in the latest format.
+  report  aggregate a --metrics JSONL into a run report (phases, step
+          percentiles, comms, health, loss curve).
+  trace   merge metrics JSONLs into one clock-aligned timeline: Chrome
+          trace export and the per-round critical path.
 
 All run on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given.
@@ -63,7 +74,7 @@ import threading
 
 import numpy as np
 
-EXIT_RECOVERY_ABORT = 3
+from .utils.exit_codes import EXIT_RECOVERY_ABORT, EXIT_USAGE
 
 
 def _mesh_arg(s):
@@ -108,6 +119,82 @@ def _apply_feed_flags(args):
             "so echoes could not get fresh crop draws (use --wire raw "
             "or --wire pack with echo)")
     return max(1, echo)
+
+
+def _apply_perf_flags(args):
+    """--remat and --precision write SPARKNET_REMAT and
+    SPARKNET_PRECISION before any net is built, as the JAX verbs do (the
+    variables stay the fallback when a flag is not given)."""
+    if getattr(args, "remat", None) is not None:
+        os.environ["SPARKNET_REMAT"] = args.remat
+    if getattr(args, "precision", None) is not None:
+        os.environ["SPARKNET_PRECISION"] = args.precision
+
+
+def _add_perf_flags(p, scan=False):
+    p.add_argument("--remat", choices=("none", "dots", "full"),
+                   default=None,
+                   help="rematerialization of the TRAIN forward's "
+                        "prefix/ segments: none (keep everything), dots "
+                        "(keep matmul and convolution outputs, recompute "
+                        "the rest), full (recompute whole segments). "
+                        "Default: SPARKNET_REMAT, else none")
+    if scan:
+        p.add_argument("--scan", action=_NotPorted, allow=("off", "auto"),
+                       what="scan-over-layers, ROADMAP A5",
+                       metavar="off|auto",
+                       help="off or auto: the layers run unrolled (the "
+                            "JAX package's auto scans only on a TPU); on "
+                            "is not ported (ROADMAP A5)")
+    p.add_argument("--precision", choices=("bf16", "fp32"), default=None,
+                   help="resolves net.compute_dtype; as in the JAX "
+                        "package the layers keep the constructor's dtype "
+                        "(only Embed reads one), so a CNN runs in f32 "
+                        "either way. Default: SPARKNET_PRECISION, else "
+                        "fp32")
+
+
+def _add_health_flags(p):
+    """The --health-* thresholds of the training verbs (applied by
+    _apply_health_flags once the solver exists)."""
+    p.add_argument("--no-health", action="store_true",
+                   help="disable the training-dynamics health detectors")
+    p.add_argument("--health-straggler-factor", type=float, default=1.5,
+                   help="flag a worker whose round latency exceeds this "
+                        "factor x the median of its peers")
+    p.add_argument("--health-loss-skew-factor", type=float, default=3.0,
+                   help="flag when the per-worker loss spread jumps past "
+                        "this factor x its rolling EMA")
+    p.add_argument("--health-div-abs", type=float, default=0.0,
+                   help=">0: critical alarm when mean worker divergence "
+                        "crosses this absolute L2 threshold")
+    p.add_argument("--health-trend-rounds", type=int, default=5,
+                   help="divergence-trend alarm window (consecutive "
+                        "growing observations)")
+    p.add_argument("--health-trend-factor", type=float, default=2.0,
+                   help="total growth over the trend window that "
+                        "triggers the divergence-trend alarm")
+    p.add_argument("--health-cooldown", type=int, default=5,
+                   help="min observations between same-kind alarms")
+    p.add_argument("--health-arm-recovery", action="store_true",
+                   help="critical health alarms arm the divergence "
+                        "RecoveryPolicy if none is armed yet")
+
+
+def _apply_health_flags(solver, args):
+    if getattr(solver, "metrics", None) is None:
+        return
+    if args.no_health:
+        solver.arm_health(enabled=False)
+        return
+    solver.arm_health(
+        straggler_factor=args.health_straggler_factor,
+        loss_skew_factor=args.health_loss_skew_factor,
+        div_abs=args.health_div_abs,
+        trend_rounds=args.health_trend_rounds,
+        trend_factor=args.health_trend_factor,
+        cooldown=args.health_cooldown,
+        arm_recovery=args.health_arm_recovery)
 
 
 def _add_feed_flags(p):
@@ -204,16 +291,25 @@ def cmd_train(args):
     from .data.device_cache import DeviceCachedSource, maybe_device_cache
     from .data.prefetch import EchoIterator, H2DStager, PrefetchIterator
     from .device import resolve_device
+    from .obs import TorchProfiler, Tracer
     from .ops import kernel_launches
     from .proto import text_format
     from .resilience import checkpoint
+    from .resilience.recovery import RecoveryAbort
     from .solver import Solver
     from .solver.solver import resolve_nets, to_device
+    from .utils.metrics import MetricsLogger
+    from .utils.signals import SignalPolicy
+    _apply_perf_flags(args)          # before any net is built
     echo = _apply_feed_flags(args)   # before any data source is built
     if echo > 1 and args.host_transform:
         raise SystemExit(
             "--echo > 1 needs the device-transform feed (drop "
             "--host-transform): echoes re-draw crop/mirror on the device")
+    # one metrics stream and span tracer for the whole run: the solver's
+    # step, comms and memory accounting and the verb's phase spans
+    metrics = MetricsLogger(args.metrics) if args.metrics else None
+    tracer = Tracer(metrics)
     sp = text_format.load(args.solver, "SolverParameter")
     base_dir = _net_base_dir(sp, args.solver)
     if sp.has("snapshot_prefix") and base_dir \
@@ -227,7 +323,9 @@ def cmd_train(args):
     train_shapes, train_src, test_shapes, test_src = _real_feeds(
         train_np, test_np, base_dir, seed=seed,
         device_transform=not args.host_transform)
-    data_iter = None
+    data_iter = solver = None
+    prof = TorchProfiler(args.profile)
+    rc = 0
     try:
         # a dataset within the budget lives on the card: one upload, then
         # each step ships its (B, k) control array (data/device_cache.py);
@@ -249,13 +347,15 @@ def cmd_train(args):
                                           device=device)
         feed = {**(train_shapes or {}), **_feed_shapes_arg(args.input_shape)}
         kw = dict(base_dir=base_dir, feed_shapes=feed or None,
-                  test_feed_shapes=test_shapes, device=device)
-        if args.strategy == "dp":
-            from .parallel import DataParallelSolver
-            workers = (args.mesh or {}).get("data", 1)
-            solver = DataParallelSolver(sp, workers=workers, **kw)
-        else:
-            solver = Solver(sp, **kw)
+                  test_feed_shapes=test_shapes, device=device,
+                  metrics=metrics, tracer=tracer)
+        with tracer.span("setup", strategy=args.strategy):
+            if args.strategy == "dp":
+                from .parallel import DataParallelSolver
+                workers = (args.mesh or {}).get("data", 1)
+                solver = DataParallelSolver(sp, workers=workers, **kw)
+            else:
+                solver = Solver(sp, **kw)
         # device mode: the sources yield raw records (or control arrays)
         # and the crop/mirror draws; the transform runs on the device
         # before each forward, on the whole batch before the dp solver
@@ -269,8 +369,20 @@ def cmd_train(args):
                                        test_fn=test_fn)
         elif test_fn is not None:
             solver.set_input_transform(None, None, test_fn=test_fn)
+        solver.snapshot_keep = args.keep or None
         prefix = args.snapshot_prefix or (
             sp.snapshot_prefix if sp.has("snapshot_prefix") else None)
+        if args.stall_seconds:
+            # a stall is killed: emergency snapshot, then exit 42
+            solver.arm_watchdog(
+                stall_seconds=args.stall_seconds, kill_on_stall=True,
+                **({"emergency_snapshot": lambda: solver.snapshot(
+                    prefix=prefix)} if prefix else {}))
+        if args.recover:
+            solver.arm_recovery(max_rollbacks=args.recover,
+                                lr_decay=args.recover_lr_decay,
+                                explode_factor=args.recover_explode_factor)
+        _apply_health_flags(solver, args)
         if args.weights:
             solver.load_weights(args.weights)
         if args.snapshot:
@@ -332,25 +444,57 @@ def cmd_train(args):
         else:
             test_data_fn = (lambda: make_data_iter(solver.test_net, seed=1)) \
                 if solver.test_net is not None else None
-        while solver.iter < total:
-            solver.step(min(100, total - solver.iter), data_iter,
-                        test_data_fn=test_data_fn)
+        policy = SignalPolicy(sigint=args.sigint_effect,
+                              sighup=args.sighup_effect,
+                              sigterm=args.sigterm_effect)
+        blocks_done = 0
+        with policy:
+            while solver.iter < total:
+                prof.maybe_start(blocks_done, total - solver.iter)
+                n = min(100, total - solver.iter)
+                with tracer.span("train_block", iter0=solver.iter, iters=n):
+                    try:
+                        solver.step(n, data_iter, test_data_fn=test_data_fn)
+                    except RecoveryAbort as e:
+                        # the run is over; the last good snapshot on disk
+                        # is intact
+                        print(f"ABORT: {e}")
+                        rc = EXIT_RECOVERY_ABORT
+                        break
+                blocks_done += 1
+                prof.maybe_stop()
+                action = policy.pending()
+                if action in ("snapshot", "snapshot_stop"):
+                    solver.snapshot(prefix=prefix or "snap")
+                if action in ("stop", "snapshot_stop"):
+                    print("stopping early on signal")
+                    break
     finally:
+        prof.abort()
         if train_src is not None:
             if data_iter is not None:
                 data_iter.close()
             train_src.close()
         if test_src is not None:
             test_src.close()
+        if solver is not None:
+            solver.close()      # the watchdog thread, the summaries
+        if args.profile:
+            # the host-side twin of the profiler's device trace
+            tracer.export_chrome(os.path.join(args.profile,
+                                              "spans.trace.json"))
     # a final snapshot unless the in-loop cadence already wrote this
-    # iteration (Caffe solver.cpp Solve tail :300-306)
+    # iteration (Caffe solver.cpp Solve tail :300-306); never after a
+    # recovery abort, whose params may be the diverged ones
     cadence_fired = int(sp.snapshot) and sp.has("snapshot_prefix") \
         and solver.iter % int(sp.snapshot) == 0
-    if prefix and sp.snapshot_after_train and not cadence_fired:
+    if prefix and sp.snapshot_after_train and not cadence_fired and rc == 0:
         solver.snapshot(prefix=prefix)
     print(f"Optimization done, iter={solver.iter}")
+    if metrics:
+        metrics.close()
     print(f"Kernel launches: {json.dumps(kernel_launches())}")
-    return 0
+    return rc
 
 
 def cmd_test(args):
@@ -503,7 +647,8 @@ def cmd_imagenet(args):
     from .ops import kernel_launches
     app = ImageNetApp(num_workers=args.workers, strategy=args.strategy,
                       tau=args.tau, batch=args.batch, log_path=args.log,
-                      num_classes=args.classes, device=args.device)
+                      num_classes=args.classes, device=args.device,
+                      metrics_path=args.metrics)
     solver = app.run(num_rounds=args.rounds, test_every=args.test_every)
     print(f"done: {args.rounds} rounds, iter={solver.iter}")
     print(f"Kernel launches: {json.dumps(kernel_launches())}")
@@ -528,6 +673,7 @@ def cmd_lm(args):
 
     if args.snapshot_every and not args.snapshot_prefix:
         raise SystemExit("--snapshot-every needs --snapshot-prefix")
+    _apply_perf_flags(args)   # before any net is built
     sp = Message("SolverParameter", base_lr=args.lr, lr_policy="fixed",
                  display=args.display, type=args.solver_type,
                  random_seed=args.seed, snapshot=args.snapshot_every or 0)
@@ -543,8 +689,7 @@ def cmd_lm(args):
                     seq_len=args.seq_len, batch=args.batch,
                     dtype=args.dtype,
                     precision=os.environ.get("SPARKNET_PRECISION",
-                                             "fp32") or "fp32",
-                    device=args.device)
+                                             "fp32") or "fp32")
     print(f"bigram corpus floor: {floor:.4f} nats/token "
           f"(untrained: {np.log(args.vocab):.4f})")
     net = zoo.transformer_lm(vocab_size=args.vocab, seq_len=args.seq_len,
@@ -573,6 +718,7 @@ def cmd_lm(args):
     rate = toks / dt if dt > 0 else 0
     print(f"done: {executed} steps, {rate:,.0f} tokens/s wall, "
           f"final loss {final}")
+    solver.close()          # the step and comms summaries
     if metrics:
         metrics.log("summary", steps=executed,
                     tokens_per_sec=round(rate, 1),
@@ -585,13 +731,15 @@ def cmd_lm(args):
 def cmd_cifar(args):
     from .apps import CifarApp
     from .ops import kernel_launches
+    _apply_perf_flags(args)   # before the app builds its nets
     # the app feeds host-transformed CIFAR batches: as in the JAX
     # package, the wire and staging flags only set their env vars there
     echo = _apply_feed_flags(args)
     app = CifarApp(num_workers=args.workers, data_dir=args.data,
                    prototxt_dir=args.prototxt_dir, strategy=args.strategy,
                    tau=args.tau, log_path=args.log, device=args.device,
-                   echo=echo)
+                   echo=echo, metrics_path=args.metrics)
+    _apply_health_flags(app.solver, args)
     solver = app.run(num_rounds=args.rounds, test_every=args.test_every,
                      snapshot_prefix=args.snapshot_prefix,
                      snapshot_every=args.snapshot_every, resume=args.resume)
@@ -632,6 +780,83 @@ def cmd_make_synth_cifar(args):
     return 0
 
 
+def cmd_report(args):
+    """Aggregate a --metrics JSONL into a run report (obs/report.py):
+    per-phase time, step-time percentiles, comms, health, the loss
+    curve; --json / --format json for machines, --chrome for the spans."""
+    from .obs import report as obs_report
+    events = [e for e in (args.event.split(",") if args.event else [])
+              if e.strip()]
+    try:
+        obs_report.report_file(args.jsonl, json_out=args.json,
+                               chrome_out=args.chrome, since=args.since,
+                               event_types=events or None, fmt=args.format)
+    except obs_report.MetricsFileError as e:
+        print(f"sparknet_tpu_torch report: error: {e}", file=sys.stderr)
+        return EXIT_USAGE
+    except BrokenPipeError:          # `report | head` closed the pipe
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+    return 0
+
+
+def cmd_trace(args):
+    """Merge metrics JSONLs into one clock-aligned timeline
+    (obs/fleettrace.py): --chrome writes one Chrome trace with a track
+    group per host, --critpath prints the per-round critical path
+    (obs/critpath.py); with neither, the alignment summary."""
+    from .obs import critpath as obs_critpath
+    from .obs import fleettrace as obs_fleettrace
+    from .obs.report import MetricsFileError, load_events
+    try:
+        streams, bad = [], 0
+        for path in args.metrics:
+            evs, b = load_events(path)
+            streams.append(evs)
+            bad += b
+        if not any(streams):
+            raise MetricsFileError(
+                "no parseable events in " + ", ".join(args.metrics)
+                + (f" ({bad} malformed line(s) skipped)" if bad else ""))
+        ft = obs_fleettrace.merge_streams(streams)
+        if bad:
+            print(f"sparknet_tpu_torch trace: WARNING: {bad} malformed "
+                  "JSONL line(s) skipped", file=sys.stderr)
+        if args.chrome:
+            obs_fleettrace.export_chrome(args.chrome, ft)
+            print(f"wrote {args.chrome} ({len(ft.hosts)} host track(s), "
+                  f"{sum(len(v) for v in ft.events.values())} event(s))")
+        if args.critpath:
+            cp = obs_critpath.compute(ft, round_filter=args.round)
+            if args.json:
+                print(json.dumps(cp, indent=1, sort_keys=True, default=str))
+            else:
+                obs_critpath.render(cp)
+        if not args.chrome and not args.critpath:
+            summ = obs_fleettrace.align_summary(ft)
+            if args.json:
+                print(json.dumps(summ, indent=1, sort_keys=True))
+            else:
+                print(f"fleet: {len(summ['hosts'])} track(s), "
+                      f"{summ['beacons']} clock beacon(s)")
+                for h, o in sorted(summ["offsets"].items()):
+                    if not o.get("aligned"):
+                        print(f"  host {h}: unaligned (no beacon path)")
+                        continue
+                    err = o.get("err_s")
+                    err_txt = "one-sided bound" if err is None \
+                        else f"±{err * 1e3:.1f} ms"
+                    print(f"  host {h}: offset "
+                          f"{o.get('offset_s', 0.0) * 1e3:+.1f} ms "
+                          f"({err_txt}, {o.get('samples', 0)} "
+                          "beacon(s))")
+    except MetricsFileError as e:
+        print(f"sparknet_tpu_torch trace: error: {e}", file=sys.stderr)
+        return EXIT_USAGE
+    except BrokenPipeError:
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+    return 0
+
+
 class _NotPorted(argparse.Action):
     """A flag of the JAX package's verb that the port does not have yet:
     giving it is a usage error (exit 2) naming what is missing. Values
@@ -651,14 +876,9 @@ class _NotPorted(argparse.Action):
 
 # flags of the JAX `train` and `cifar` verbs the port refuses: (flags,
 # takes a value, what is missing and where the roadmap has it)
-_RESILIENCE_NOT_PORTED = (
+_TRAIN_NOT_PORTED = (
     (("--chaos",), True, "fault injection, ROADMAP A6"),
     (("--shard-ingest",), True, "per-host sharded ingest, ROADMAP A6"),
-    (("--no-health", "--health-arm-recovery"), False,
-     "the health monitor, ROADMAP A6"),
-    (("--health-straggler-factor", "--health-loss-skew-factor",
-      "--health-div-abs", "--health-trend-rounds", "--health-trend-factor",
-      "--health-cooldown"), True, "the health monitor, ROADMAP A6"),
     (("--quorum", "--evict-after", "--readmit-after", "--staleness",
       "--s-decay", "--unpark-after", "--evict-stale-after"), True,
      "elastic membership and bounded staleness, ROADMAP A6"),
@@ -666,41 +886,26 @@ _RESILIENCE_NOT_PORTED = (
      "the heartbeat and its relay, ROADMAP A6"),
     (("--grow",), False, "the heartbeat and its relay, ROADMAP A6"),
 )
-_CIFAR_NOT_PORTED = _RESILIENCE_NOT_PORTED + (
+_CIFAR_NOT_PORTED = _TRAIN_NOT_PORTED + (
     (("--hosts",), True, "hierarchical host fault domains, ROADMAP A6"),
-    (("--metrics",), True, "the app's JSONL metrics, ROADMAP A6"),
-    (("--remat", "--precision", "--fsdp", "--tp"), True,
-     "remat, precision and sharding levers, ROADMAP A5"),
-)
-_TRAIN_NOT_PORTED = _RESILIENCE_NOT_PORTED + (
-    (("--metrics", "--profile"), True,
-     "the metrics stream and the profiler trace, ROADMAP A6"),
-    (("--stall-seconds",), True, "the train verb's watchdog, ROADMAP A6"),
-    (("--sigint_effect", "--sighup_effect", "--sigterm_effect"), True,
-     "signal policies (utils/signals.py), ROADMAP A6"),
-    (("--recover", "--recover-lr-decay", "--recover-explode-factor"), True,
-     "divergence recovery, ROADMAP A6"),
-    (("--remat", "--precision"), True,
-     "remat and precision levers, ROADMAP A5"),
+    (("--fsdp", "--tp"), True, "sharding levers, ROADMAP A5"),
 )
 
-# the JAX `lm` verb's mesh and perf flags: (flags, values that pass, what
-# is missing and where the roadmap has it)
+# the JAX `lm` verb's mesh flags: (flags, values that pass, what is
+# missing and where the roadmap has it)
 _LM_NOT_PORTED = (
     (("--ep", "--dp", "--sp", "--pipeline-stages", "--tp"), ("1",),
      "expert, data, sequence, pipeline and tensor parallelism over a "
      "mesh, ROADMAP A5"),
     (("--microbatches",), ("0",), "the GPipe pipeline, ROADMAP A5"),
     (("--fsdp",), ("off",), "FSDP sharding, ROADMAP A5"),
-    (("--remat", "--precision", "--scan"), (),
-     "remat, precision and scan levers, ROADMAP A5"),
 )
 
 
 def _add_not_ported(p, table):
     """Each flag of ``table`` on ``p`` as a usage error naming its
-    ROADMAP item; --reshard and --keep take only what the port does
-    (strict worlds; every snapshot kept)."""
+    ROADMAP item; --reshard takes only what the port does (strict
+    worlds)."""
     p.add_argument("--reshard", action=_NotPorted, default="strict",
                    allow=("strict",),
                    what="cross-world resharding, ROADMAP A6",
@@ -716,6 +921,7 @@ def _add_not_ported(p, table):
 
 def cmd_serve(args):
     from .serve import Batcher, ServeEngine, serve_http
+    _apply_perf_flags(args)   # before any net is built
     net_param = None
     if args.model:
         from .proto import text_format
@@ -779,10 +985,40 @@ def main(argv=None):
                    help="crop/mirror/mean on the host and ship float32 "
                         "crops, instead of the default: raw uint8 records "
                         "transformed on the device")
+    t.add_argument("--metrics", help="JSONL metrics output path")
+    t.add_argument("--profile",
+                   help="write a torch.profiler trace of one steady "
+                        "100-iteration block (the card's kernels) to this "
+                        "directory as torch.trace.json, beside the run's "
+                        "spans as spans.trace.json")
+    t.add_argument("--stall-seconds", type=float, default=0,
+                   help="arm a stall/NaN watchdog with this timeout: a "
+                        "stall takes an emergency snapshot under the "
+                        "snapshot prefix and exits 42")
+    for sig, effect in (("sigint", "stop"), ("sighup", "snapshot"),
+                        ("sigterm", "snapshot_stop")):
+        t.add_argument(f"--{sig}_effect", default=effect,
+                       choices=("snapshot", "stop", "snapshot_stop",
+                                "none"),
+                       help=f"what {sig.upper()} does between blocks "
+                            f"(default {effect})")
+    t.add_argument("--keep", type=int, default=5,
+                   help="snapshot retention: keep the newest N manifested "
+                        "snapshots, delete older ones (0 = keep all)")
+    t.add_argument("--recover", type=int, default=0, metavar="N",
+                   help="arm divergence recovery: roll back to the last "
+                        "known-good state on a NaN/exploding loss, up to "
+                        "N consecutive times before a clean abort "
+                        "(exit 3)")
+    t.add_argument("--recover-lr-decay", type=float, default=1.0,
+                   help="multiply the lr schedule by this on every "
+                        "rollback (e.g. 0.5)")
+    t.add_argument("--recover-explode-factor", type=float, default=0.0,
+                   help=">0: also roll back when the loss exceeds this "
+                        "factor times its recent healthy EMA")
+    _add_perf_flags(t)
     _add_feed_flags(t)
-    t.add_argument("--keep", action=_NotPorted, default="0", allow=("0",),
-                   what="snapshot retention, ROADMAP A6",
-                   help="0 only: every snapshot is kept")
+    _add_health_flags(t)
     _add_not_ported(t, _TRAIN_NOT_PORTED)
     t.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; the "
@@ -872,9 +1108,7 @@ def main(argv=None):
     i.add_argument("--test-every", type=int, default=10,
                    help="test every N rounds (0 never)")
     i.add_argument("--log")
-    i.add_argument("--metrics", action=_NotPorted,
-                   what="the app's JSONL metrics, ROADMAP A6",
-                   help="not ported: the app's JSONL metrics, ROADMAP A6")
+    i.add_argument("--metrics", help="JSONL metrics output path")
     i.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; the "
                         "CPU runs only when asked: --device cpu)")
@@ -911,6 +1145,7 @@ def main(argv=None):
     sv.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; the "
                          "CPU runs only when asked: --device cpu)")
+    _add_perf_flags(sv, scan=True)
     sv.set_defaults(fn=cmd_serve)
     lm = sub.add_parser("lm", help="train the transformer LM on the "
                                    "synthetic bigram corpus")
@@ -935,6 +1170,7 @@ def main(argv=None):
                          "block (top-1, capacity factor 1.25)")
     lm.add_argument("--moe-aux-weight", type=float, default=0.01,
                     help="Switch load-balancing aux loss weight")
+    _add_perf_flags(lm, scan=True)
     for flags, allow, what in _LM_NOT_PORTED:
         for flag in flags:
             lm.add_argument(flag, action=_NotPorted, what=what,
@@ -981,11 +1217,50 @@ def main(argv=None):
                    help="'auto': continue from the newest valid snapshot "
                         "under --snapshot-prefix; or an explicit "
                         ".solverstate path")
+    c.add_argument("--metrics", help="JSONL metrics output path")
+    _add_perf_flags(c)
     _add_feed_flags(c)
+    _add_health_flags(c)
     _add_not_ported(c, _CIFAR_NOT_PORTED)
     c.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; the "
                         "CPU runs only when asked: --device cpu)")
     c.set_defaults(fn=cmd_cifar)
+    rp = sub.add_parser("report",
+                        help="aggregate a --metrics JSONL into a run "
+                             "report (phases, step percentiles, comms, "
+                             "health, loss curve)")
+    rp.add_argument("jsonl", help="metrics JSONL written by --metrics")
+    rp.add_argument("--json", help="also write the machine-readable "
+                                   "report as JSON here")
+    rp.add_argument("--chrome", help="also export the run's spans as a "
+                                     "Chrome trace_event file")
+    rp.add_argument("--since", type=float, default=None, metavar="T",
+                    help="only events at or after T seconds into the run "
+                         "(the JSONL 't' field); selecting no event is "
+                         "an error (exit 2)")
+    rp.add_argument("--event", metavar="KINDS",
+                    help="comma-separated event kinds to keep (e.g. "
+                         "'health,divergence'); selecting no event is an "
+                         "error (exit 2)")
+    rp.add_argument("--format", choices=("text", "json"), default="text",
+                    help="text (default) or the report as one JSON "
+                         "document on stdout")
+    rp.set_defaults(fn=cmd_report)
+    tr = sub.add_parser("trace",
+                        help="merge metrics JSONLs into one clock-aligned "
+                             "timeline: Chrome trace export and the "
+                             "per-round critical path")
+    tr.add_argument("metrics", nargs="+",
+                    help="metrics JSONL files (one per host)")
+    tr.add_argument("--chrome", metavar="OUT",
+                    help="write one Chrome trace_event file")
+    tr.add_argument("--critpath", action="store_true",
+                    help="print the per-round critical path")
+    tr.add_argument("--round", type=int, default=None, metavar="N",
+                    help="limit --critpath to round N")
+    tr.add_argument("--json", action="store_true",
+                    help="JSON instead of text")
+    tr.set_defaults(fn=cmd_trace)
     args = p.parse_args(argv)
     return args.fn(args)

@@ -15,8 +15,19 @@ ForwardFromTo :565, loss weights):
   * Mixed precision as in the JAX package: params stay f32 masters and
     each layer casts them to its input's dtype, so activations take
     ``compute_dtype`` where they are born from params alone (Embed).
-  * Remat, scan-over-layers and fission are not ported.
+    ``net.compute_dtype`` resolves SPARKNET_PRECISION (``--precision``)
+    when the constructor gets None, but the layers get the constructor's
+    argument, exactly as the JAX package's do: the variable alone moves
+    no layer to bf16.
+  * Remat (SPARKNET_REMAT, ``--remat none|dots|full``): in a TRAIN
+    forward, runs of layers sharing a ``prefix/`` name run under
+    ``torch.utils.checkpoint``, so the backward recomputes them
+    (``_remat_groups``, ``apply``).
+  * Scan-over-layers and fission are not ported: every layer runs
+    unrolled, as the JAX package does off a TPU.
 """
+
+import functools
 
 import os
 
@@ -32,6 +43,64 @@ from .registry import get as get_layer, V1_TYPE_MAP
 from .. import ops as _ops  # noqa: F401
 
 TRAIN, TEST = 0, 1
+
+REMAT_POLICIES = ("none", "dots", "full")
+
+
+def _env_remat():
+    """SPARKNET_REMAT -> policy name ("0"/"1" mean none/full, as in the
+    JAX package)."""
+    v = os.environ.get("SPARKNET_REMAT", "").lower()
+    pol = {"": "none", "0": "none", "none": "none",
+           "1": "full", "full": "full", "dots": "dots"}.get(v)
+    if pol is None:
+        raise ValueError(
+            f"SPARKNET_REMAT={v!r}: want none|dots|full (or 0/1)")
+    return pol
+
+
+def _env_precision():
+    """SPARKNET_PRECISION -> compute dtype (the ``--precision`` knob):
+    "bf16" is torch.bfloat16; "fp32" or unset is None, the full-precision
+    path."""
+    v = os.environ.get("SPARKNET_PRECISION", "").strip().lower()
+    if v in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    if v in ("", "fp32", "float32", "off"):
+        return None
+    raise ValueError(f"SPARKNET_PRECISION={v!r}: want bf16|fp32")
+
+
+def _saved_by_dots():
+    """The aten ops whose outputs the "dots" policy saves: matrix
+    products and convolutions, what jax.checkpoint_policies.
+    checkpoint_dots saves (dot_general and conv_general_dilated)."""
+    aten = torch.ops.aten
+    return {aten.mm.default, aten.addmm.default, aten.bmm.default,
+            aten.baddbmm.default, aten.convolution.default,
+            aten._convolution.default}
+
+
+def _dots_policy(saved, ctx, func, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if func in saved \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn, pol, *args):
+    """``fn(*args)`` under torch.utils.checkpoint with the named policy:
+    "full" recomputes the whole segment in the backward; "dots" saves
+    the matmul and convolution outputs and recomputes the rest (the
+    elementwise tails, and the port's CUDA kernels, whose ctypes launch
+    no dispatch mode sees: they are always recomputed whole)."""
+    from torch.utils.checkpoint import (
+        checkpoint, create_selective_checkpoint_contexts)
+    if pol == "dots":
+        ctx = functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(_dots_policy, _saved_by_dots()))
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def upgrade_v1(net_param):
@@ -148,9 +217,14 @@ class CompiledNet:
     ``device="cpu"`` to run on the CPU (the kernels' plain versions).
 
     ``compute_dtype`` (e.g. torch.bfloat16) is the activations' dtype
-    over f32 params; None keeps them f32. The layers get this argument
-    and nothing else, so SPARKNET_PRECISION alone leaves a net's
-    activations in f32, as the JAX package's layers do.
+    over f32 params; None keeps them f32. ``net.compute_dtype`` takes
+    SPARKNET_PRECISION when the argument is None (so twin nets built
+    from it inherit the resolved policy), but the layers get this
+    argument and nothing else, so SPARKNET_PRECISION alone leaves a
+    net's activations in f32, as the JAX package's layers do.
+
+    ``remat`` (None: SPARKNET_REMAT) is the rematerialization policy of
+    a TRAIN forward: "none", "dots" or "full" (Solver.set_remat).
     """
 
     def __init__(self, net_param, phase=TEST, feed_shapes=None, level=0,
@@ -159,7 +233,10 @@ class CompiledNet:
         net_param = upgrade_net(net_param)
         self.phase = phase
         self.dtype = torch.float32     # params (the f32 masters)
-        self.compute_dtype = compute_dtype
+        self.compute_dtype = compute_dtype if compute_dtype is not None \
+            else _env_precision()
+        self.remat = None              # None: SPARKNET_REMAT
+        self._remat_cache = None
         self.device = resolve_device(device)
         self.net_param = filter_net(net_param, phase, level, stages)
         self.name = net_param.name
@@ -388,25 +465,55 @@ class CompiledNet:
                 out[li] = g
         return out
 
-    def apply(self, params, state, batch, train=None, generator=None):
-        """Run the forward. TEST-phase callers wrap it in
-        ``torch.inference_mode()``; a TRAIN-phase forward records the
-        autograd graph (``train`` defaults to the net's phase).
-        ``generator`` seeds the per-layer randomness (TRAIN dropout). The
-        epilogue policy is read once per call. A fused bias+ReLU+LRN site
-        leaves its pre-LRN blob absent from the returned dict (never
-        stale); keep SPARKNET_EPILOGUE=off to inspect every blob."""
-        if train is None:
-            train = self.phase == TRAIN
-        from ..ops import cuda_epilogue as ce
-        ep = self._active_epilogue()
-        rngs = self._layer_generators(generator) if train else {}
-        blobs = {n: self._feed(batch[n]) for n in self.net_inputs}
-        new_state = dict(state)
-        skip = set()
+    def _remat_groups(self):
+        """Rematerialization segments {start: end}: maximal runs of >= 2
+        consecutive layers sharing a name prefix before "/" (the zoo's
+        "block{i}/..." convention; GoogLeNet's "conv2/...", "pool5/..."),
+        the JAX package's grouping exactly. Cached."""
+        if self._remat_cache is not None:
+            return self._remat_cache
+        groups = {}
+        start = prefix = None
         for li, (lp, impl, bottoms, tops) in enumerate(self.layers):
+            p = lp.name.split("/")[0] if "/" in lp.name else None
+            if p != prefix:
+                if prefix is not None and li - start >= 2:
+                    groups[start] = li
+                start, prefix = li, p
+        if prefix is not None and len(self.layers) - start >= 2:
+            groups[start] = len(self.layers)
+        self._remat_cache = groups
+        return groups
+
+    def _segment_externals(self, lo, hi):
+        """Blob names a [lo, hi) segment must surface: consumed by later
+        layers, carrying loss weight, or net outputs."""
+        produced = set()
+        for li in range(lo, hi):
+            produced.update(self.layers[li][3])
+        needed = set()
+        for li in range(hi, len(self.layers)):
+            needed.update(self.layers[li][2])
+        for li in range(lo, hi):
+            lp = self.layers[li][0]
+            for t, w in zip(self.layers[li][3], self.loss_weights[lp.name]):
+                if w:
+                    needed.add(t)
+        needed.update(self.output_blobs)
+        return sorted(produced & needed)
+
+    def _apply_range(self, params, state, new_state, blobs, lo, hi, batch,
+                     train, rngs, ep):
+        """Run layers [lo, hi) over the mutable blob dict (the body a
+        remat segment replays). ``ep``: the active epilogue sites; a site
+        fuses only when its whole conv/ReLU(/LRN) window lies inside
+        [lo, hi), else its layers run unfused (right either way)."""
+        from ..ops import cuda_epilogue as ce
+        skip = set()
+        for li in range(lo, hi):
             if li in skip:
                 continue
+            lp, impl, bottoms, tops = self.layers[li]
             if getattr(impl, "is_feed", False):
                 for t in tops:
                     blobs[t] = self._feed(batch[t])
@@ -414,7 +521,8 @@ class CompiledNet:
             lparams = self.resolve_params(params, lp.name)
             bvals = [blobs[b] for b in bottoms]
             fuse = ep.get(li)
-            if fuse is not None:
+            if fuse is not None and max(x for x in fuse
+                                        if x is not None) < hi:
                 ri, lrni = fuse
                 y = impl.apply_raw(lparams, bvals, train)
                 skip.add(ri)
@@ -440,6 +548,97 @@ class CompiledNet:
                 tvals = impl.apply(lparams, bvals, train)
             for t, v in zip(tops, tvals):
                 blobs[t] = v
+
+    def _apply_segment(self, params, state, new_state, blobs, lo, hi,
+                       batch, train, rngs, ep, pol):
+        """Layers [lo, hi) under torch.utils.checkpoint with policy
+        ``pol``. Each rng-consuming layer of the segment draws from its
+        own torch.Generator, which the checkpoint's RNG stash (the global
+        CPU/CUDA states) does not cover: their states are taken before
+        the segment and set again at the start of every run of it, so
+        the recompute draws the forward's masks. Net-state updates come
+        from the forward's outputs only, never the recompute's."""
+        in_names = sorted({b for j in range(lo, hi)
+                           for b in self.layers[j][2] if b in blobs})
+        out_names = self._segment_externals(lo, hi)
+        seg_states = sorted({self.layers[j][0].name for j in range(lo, hi)
+                             if self.layers[j][1].has_state})
+        gens = {j: rngs[j] for j in range(lo, hi) if j in rngs}
+        gen_states = {j: g.get_state() for j, g in gens.items()}
+
+        def seg_fn(*in_vals):
+            for j, g in gens.items():
+                g.set_state(gen_states[j])
+            sblobs = dict(zip(in_names, in_vals))
+            sstate = {}
+            self._apply_range(params, state, sstate, sblobs, lo, hi, batch,
+                              train, rngs, ep)
+            return (tuple(sblobs[n] for n in out_names)
+                    + tuple(t for n in seg_states for t in sstate[n]))
+
+        outs = _checkpointed(seg_fn, pol, *[blobs[n] for n in in_names])
+        # a blob produced before the segment and overwritten in place
+        # inside it (top == bottom across the boundary) must not survive
+        # with its pre-segment value: internal blobs are absent, never
+        # stale
+        produced = {t for j in range(lo, hi) for t in self.layers[j][3]}
+        for n in produced.difference(out_names):
+            blobs.pop(n, None)
+        for n, v in zip(out_names, outs):
+            blobs[n] = v
+        k = len(out_names)
+        for n in seg_states:
+            m = len(state[n])
+            new_state[n] = list(outs[k:k + m])
+            k += m
+
+    def apply(self, params, state, batch, train=None, generator=None):
+        """Run the forward. TEST-phase callers wrap it in
+        ``torch.inference_mode()``; a TRAIN-phase forward records the
+        autograd graph (``train`` defaults to the net's phase).
+        ``generator`` seeds the per-layer randomness (TRAIN dropout).
+
+        Two policies, each read once per call, shape what comes back:
+        * remat (``self.remat``, else SPARKNET_REMAT: none|dots|full):
+          with train=True each ``_remat_groups`` segment runs under
+          torch.utils.checkpoint (``_apply_segment``); its internal
+          blobs are absent from the returned dict (only its boundary
+          blobs, loss tops and net outputs survive). A TEST forward
+          runs no remat.
+        * epilogue (SPARKNET_EPILOGUE): a fused bias+ReLU+LRN site
+          leaves its pre-LRN blob absent (never stale).
+        Keep both off to inspect every blob."""
+        if train is None:
+            train = self.phase == TRAIN
+        pol = (self.remat if self.remat is not None else _env_remat()) \
+            if train else "none"
+        if pol not in REMAT_POLICIES:
+            raise ValueError(f"remat={pol!r}: want none|dots|full")
+        groups = self._remat_groups() if pol != "none" else {}
+        ep = self._active_epilogue()
+        rngs = self._layer_generators(generator) if train else {}
+        blobs = {n: self._feed(batch[n]) for n in self.net_inputs}
+        new_state = dict(state)
+        li = 0
+        while li < len(self.layers):
+            hi = groups.get(li)
+            if hi is not None:
+                self._apply_segment(params, state, new_state, blobs, li, hi,
+                                    batch, train, rngs, ep, pol)
+                li = hi
+                continue
+            # a fusion site outside any segment runs its whole window in
+            # one range so the fused branch engages; a window a segment
+            # starts inside runs unfused
+            end = li + 1
+            fuse = ep.get(li)
+            if fuse is not None:
+                w_end = max(x for x in fuse if x is not None) + 1
+                if all(j not in groups for j in range(li + 1, w_end)):
+                    end = w_end
+            self._apply_range(params, state, new_state, blobs, li, end,
+                              batch, train, rngs, ep)
+            li = end
         return blobs, new_state
 
     def total_loss(self, blobs):

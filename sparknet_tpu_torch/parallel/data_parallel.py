@@ -23,18 +23,29 @@ A loop over slots rather than ``torch.func.vmap``: the port's CUDA
 kernels are autograd Functions launched through ctypes and have no vmap
 rule, and the loop keeps activation memory at one worker's.
 
+With metrics on, each solver registers the bytes its JAX twin's
+collective over a W-device data axis moves (obs/comms.py), and measures
+the slots' drift from their consensus on the card (obs/divergence.py):
+per-step gradient drift for DataParallelSolver on its sampled steps,
+per-round weight drift for LocalSGDSolver every round; the health
+detectors read both. LocalSGDSolver.run polls signals, beats an armed
+watchdog and lets an armed RecoveryPolicy redo a bad round.
+
 Not ported (ROADMAP A6), refused with a ValueError: the hierarchical
 ``host_axis`` mode, bounded staleness, elastic membership masks, the
-heartbeat and its cross-host relay. Also left out: run()'s signal,
-recovery and quorum handling, and the observability hooks (divergence,
-comms accounting).
+heartbeat and its cross-host relay, and run()'s quorum handling.
 """
+
+import time
 
 import numpy as np
 import torch
 
 from ..data.prefetch import wait_staged
 from ..graph.compiler import CompiledNet
+from ..obs.comms import (broadcast_collect_bytes, ring_allreduce_bytes,
+                         tree_bytes)
+from ..obs.divergence import slot_divergence, tree_sq_dist
 from ..solver.solver import Solver, clear_grads, grads_of, to_device
 
 DATA_AXIS = "data"
@@ -101,6 +112,15 @@ class _SlotSolver(Solver):
                 (base ^ ((w + 1) * 0x9E3779B97F4A7C15)) % 2 ** 63)
             for w in range(self.workers)]
 
+    def rng_state(self):
+        return super().rng_state() + [g.get_state()
+                                      for g in self.slot_generators]
+
+    def set_rng_state(self, states):
+        super().set_rng_state(states[:1])
+        for g, st in zip(self.slot_generators, states[1:]):
+            g.set_state(st)
+
     def arm_elastic(self, *args, **kwargs):
         raise _not_ported("elastic membership (validity-masked consensus)")
 
@@ -143,10 +163,16 @@ class DataParallelSolver(_SlotSolver):
         iter_size = int(self.param.iter_size)
         self.check_batch(batch, leading=(iter_size,) if iter_size > 1
                          else ())
+        fed = batch
+        # on a sampled step with metrics on, each slot's own gradient is
+        # kept (the difference of the running sum) for the divergence
+        stats = self._obs_sampled_next() and self.divergence is not None
+        self._obs_begin()
+        t0 = time.perf_counter()
         batch = self._transform(to_device(wait_staged(batch), self.device),
                                 self.input_transform, iter_size)
         clear_grads(self.params)
-        losses, states = [], []
+        losses, states, sums = [], [], []
         shards = self._shards(batch, self.local_net, int(iter_size > 1))
         for shard, gen in zip(shards, self.slot_generators):
             micros = [shard] if iter_size == 1 else \
@@ -160,13 +186,43 @@ class DataParallelSolver(_SlotSolver):
                 slot.append(loss.detach())
             losses.append(torch.stack(slot).mean())
             states.append(state)
+            if stats:
+                sums.append({n: [g.detach().clone() for g in gs]
+                             for n, gs in grads_of(self.params).items()})
         grads = {name: [g / self.workers for g in gs]
                  for name, gs in grads_of(self.params).items()}
+        aux = None
+        if stats:
+            stacked = {n: [torch.stack([sums[0][n][i]] + [
+                sums[w][n][i] - sums[w - 1][n][i]
+                for w in range(1, self.workers)])
+                for i in range(len(gs))] for n, gs in grads.items()}
+            ref = sum(g.float().square().sum()
+                      for gs in grads.values() for g in gs)
+            _, aux = slot_divergence(stacked, ref_sq=ref,
+                                     worker_loss=torch.stack(losses))
+            aux["kind"] = "grads"
         self.state = _average_states(states)
         self.updater(self.params, grads, self.history,
                      self.lr_fn(self.iter), self.iter)
         self.iter += 1
-        return torch.stack(losses).mean()
+        loss = torch.stack(losses).mean()
+        self._obs_step(time.perf_counter() - t0, loss, fed, aux=aux)
+        return loss
+
+    def _register_comms(self, cm):
+        """Per-step DP sync: the pmean of the gradients and the net state
+        over the W slots, costed as the JAX package's whole-tree
+        allreduce over a W-device data axis."""
+        super()._register_comms(cm)
+        n = self.workers
+        gb, sb = tree_bytes(self.params), tree_bytes(self.state)
+        cm.set_topology(axes=dict(self.mesh_shape))
+        cm.register(
+            "allreduce_grads", ring_allreduce_bytes(gb + sb, n),
+            axis=DATA_AXIS,
+            note="pmean(grads)+pmean(state) per step, ring model per chip",
+            paper_broadcast_collect_bytes=broadcast_collect_bytes(gb, n))
 
     def _test_outputs(self, batch):
         outs = []
@@ -216,6 +272,7 @@ class LocalSGDSolver(_SlotSolver):
             raise ValueError(f"tau must be at least 1, got {tau}")
         self.average_history = bool(average_history)
         super().__init__(solver_param, workers=workers, **kw)
+        self._round_idx = 0
         self._stack()
 
     @torch.no_grad()
@@ -236,6 +293,38 @@ class LocalSGDSolver(_SlotSolver):
              for n, hss in self.slot_history.items()} for w in range(W)]
         self.params = self._param_views[0]
         self.history = self._history_views[0]
+
+    def training_tensors(self):
+        """The stacked slots of params and history, and the net state."""
+        out = [P for ps in self.slot_params.values() for P in ps]
+        out += [t for blobs in self.state.values() for t in blobs]
+        out += [H for hss in self.slot_history.values() for hs in hss
+                for H in hs]
+        return out
+
+    def _register_comms(self, cm):
+        """The SparkNet tradeoff: ONE param-sized averaging pmean per
+        tau-step round (against DP's per-step gradient allreduce), costed
+        as the JAX package's over a W-device data axis."""
+        super()._register_comms(cm)
+        n = self.workers
+        pb = tree_bytes(self.params) + tree_bytes(self.state)
+        if self.average_history:
+            pb += tree_bytes(self.history)
+        cm.set_topology(axes=dict(self.mesh_shape), tau=self.tau)
+        cm.register(
+            "param_average", ring_allreduce_bytes(pb, n), axis=DATA_AXIS,
+            steps_per_round=self.tau,
+            note="one weight-averaging pmean per tau-step round "
+                 "(the paper's broadcast+collect)",
+            paper_broadcast_collect_bytes=broadcast_collect_bytes(pb, n))
+
+    def _round_latencies(self, round_s):
+        """One round's time for every slot: the slots run in turn on one
+        card, and the round ends when the last one has."""
+        if self.workers <= 1 or round_s is None:
+            return None
+        return [float(round_s)] * self.workers
 
     def load_weights(self, caffemodel_path):
         """Caffe CopyTrainedLayersFrom into every slot (the JAX package
@@ -285,9 +374,16 @@ class LocalSGDSolver(_SlotSolver):
         self.check_batch(batches, shapes={
             n: (self.tau, self.workers * s[0]) + tuple(s[1:])
             for n, s in shapes.items() if s})
+        fed = batches
+        self._obs_begin(self.tau)
+        t0 = time.perf_counter()
         batches = to_device(wait_staged(batches), self.device)
         b = {k: s[0] for k, s in shapes.items() if s}
         it0 = self.iter
+        stats = self.divergence is not None
+        if stats:   # the round's input: the consensus of the last round
+            params_in = {n: [p.detach().clone() for p in ps]
+                         for n, ps in self.params.items()}
         slot_losses, states = [], []
         for w in range(self.workers):
             params, history = self._param_views[w], self._history_views[w]
@@ -306,20 +402,38 @@ class LocalSGDSolver(_SlotSolver):
             clear_grads(params)
             slot_losses.append(torch.stack(losses).mean())
             states.append(state)
+        aux = None
+        if stats:
+            consensus, aux = slot_divergence(
+                self.slot_params, worker_loss=torch.stack(slot_losses))
+            aux["ref_sq"] = tree_sq_dist(consensus, params_in)[1]
+            aux["kind"] = "params"
         self.average_slots(states)
         self.iter += self.tau
-        return torch.stack(slot_losses).mean()
+        loss = torch.stack(slot_losses).mean()
+        self._obs_step(time.perf_counter() - t0, loss, fed, steps=self.tau)
+        if aux:
+            # once per round: the divergence event and the detectors
+            self._observe_sync_round(aux, round_s=time.perf_counter() - t0,
+                                     round_idx=self._round_idx)
+        self._round_idx += 1
+        return loss
 
     def run(self, num_rounds, batch_fn, test_data_fn=None, test_every=10,
-            snapshot_prefix=None, snapshot_every=0, resume=None):
+            snapshot_prefix=None, snapshot_every=0, resume=None,
+            sigint="stop", sighup="snapshot", sigterm="snapshot_stop"):
         """The reference training loop (CifarApp.scala:92-135): for each
         round, test every ``test_every`` rounds (:98), then train tau
         steps per slot. ``batch_fn(tau)`` -> batches as train_round
         takes them. resume="auto" restores the newest valid snapshot
         under the prefix first (a path restores that snapshot);
-        ``snapshot_every`` N snapshots every N completed rounds. Returns
-        the last round's loss."""
+        ``snapshot_every`` N snapshots every N completed rounds. Signals
+        are polled between rounds (SIGHUP snapshots, SIGINT stops,
+        SIGTERM snapshots then stops); an armed watchdog is beaten with
+        each round's loss, and an armed RecoveryPolicy rolls a bad round
+        back and redoes it. Returns the last round's loss."""
         from ..resilience import checkpoint
+        from ..utils.signals import SignalPolicy
         prefix = snapshot_prefix or (self.param.snapshot_prefix
                                      if self.param.has("snapshot_prefix")
                                      else None)
@@ -330,14 +444,29 @@ class LocalSGDSolver(_SlotSolver):
                 self.log("resume auto: no snapshot prefix; starting fresh")
         elif resume:
             self.restore(resume)
-        loss = None
-        for r in range(num_rounds):
-            if test_data_fn is not None and r % test_every == 0 \
-                    and self.test_net is not None:
-                for k, v in self.test(test_data_fn()).items():
-                    self.log(f"round {r}: test {k} = {v}")
-            loss = float(self.train_round(batch_fn(self.tau)))
-            self.log(f"round {r}: mean local loss = {loss:.6g}")
-            if prefix and snapshot_every and (r + 1) % snapshot_every == 0:
-                self.snapshot(prefix=prefix)
+        loss, r = None, 0
+        with SignalPolicy(sigint=sigint, sighup=sighup,
+                          sigterm=sigterm) as policy:
+            while r < num_rounds:
+                if test_data_fn is not None and r % test_every == 0 \
+                        and self.test_net is not None:
+                    for k, v in self.test(test_data_fn()).items():
+                        self.log(f"round {r}: test {k} = {v}")
+                loss = float(self.train_round(batch_fn(self.tau)))
+                if self.watchdog is not None:
+                    self.watchdog.beat(loss)
+                if self._maybe_recover(loss):
+                    self.log(f"round {r}: rolled back to iter {self.iter}; "
+                             "redoing the round")
+                    continue
+                self.log(f"round {r}: mean local loss = {loss:.6g}")
+                r += 1
+                action = policy.pending()
+                if prefix and (action in ("snapshot", "snapshot_stop") or
+                               (snapshot_every and
+                                r % snapshot_every == 0)):
+                    self.snapshot(prefix=prefix)
+                if action in ("stop", "snapshot_stop"):
+                    self.log(f"stopping on signal after round {r}")
+                    break
         return loss

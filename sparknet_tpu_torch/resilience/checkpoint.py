@@ -169,11 +169,14 @@ def check_world(entry, world, state_path):
 
 
 def _commit(prefix, model_path, state_path, write_files, iter_, world,
-            format="binaryproto"):
+            format="binaryproto", keep=None, metrics=None):
     """Write a (model, state) pair of ``format`` through
     ``write_files(tmp_model, tmp_state)`` under temp names, fsync,
-    checksum, rename both, then commit the manifest. Returns
-    (model_path, state_path)."""
+    checksum, rename both, then commit the manifest. ``keep``: retention
+    — manifest entries beyond the newest N are dropped from it and their
+    files deleted after the commit (None/0 keeps everything); with
+    ``metrics`` a ``checkpoint`` event says how many were kept and
+    dropped. Returns (model_path, state_path)."""
     d = os.path.dirname(model_path)
     if d:
         os.makedirs(d, exist_ok=True)
@@ -212,23 +215,39 @@ def _commit(prefix, model_path, state_path, write_files, iter_, world,
                   e.get("format") == entry["format"])]
     snaps.append(entry)
     snaps.sort(key=lambda e: (e.get("iter", -1), e.get("time", 0)))
+    dropped = []
+    if keep and int(keep) > 0 and len(snaps) > int(keep):
+        dropped, snaps = snaps[:-int(keep)], snaps[-int(keep):]
     atomic_write_json(manifest_path(prefix),
                       {"version": 1, "latest": entry, "snapshots": snaps},
                       indent=1, sort_keys=True, fsync_dir=True)
+    for e in dropped:           # after the commit: never a dangling entry
+        for k in ("model", "state"):
+            if e.get(k):
+                try:
+                    os.remove(os.path.join(d, e[k]))
+                except OSError:
+                    pass
+    if metrics is not None:
+        metrics.log("checkpoint", iter=entry["iter"], format=format,
+                    model=model_path, state=state_path,
+                    bytes=entry["bytes"]["model"] + entry["bytes"]["state"],
+                    kept=len(snaps), dropped=len(dropped))
     return model_path, state_path
 
 
-def save_snapshot(solver, prefix):
+def save_snapshot(solver, prefix, keep=None, metrics=None):
     """Atomically write one (model, state) snapshot pair for ``solver``,
-    in its snapshot_format, and commit it to the manifest; returns the
-    final paths. The state file names the FINAL model path
-    (SolverState.learned_net)."""
+    in its snapshot_format, and commit it to the manifest, keeping the
+    newest ``keep`` (None/0: all); returns the final paths. The state
+    file names the FINAL model path (SolverState.learned_net)."""
     model_path, state_path, format = solver._snapshot_paths(prefix)
     return _commit(
         prefix, model_path, state_path,
         lambda tm, ts: solver._write_snapshot_files(
             tm, ts, format, learned_net=model_path),
-        solver.iter, world_signature(solver), format)
+        solver.iter, world_signature(solver), format, keep=keep,
+        metrics=metrics)
 
 
 def save_model_snapshot(net, params, prefix, iter=0, state=None):
@@ -326,7 +345,7 @@ def load_model_only(prefix, log_fn=None):
         f"manifest {man_path} has no servable model blob ({detail})")
 
 
-def find_resumable(prefix, log_fn=None):
+def find_resumable(prefix, log_fn=None, exclude=()):
     """Newest manifested snapshot for ``prefix`` whose pair verifies ->
     (state_path, skipped).
 
@@ -337,9 +356,11 @@ def find_resumable(prefix, log_fn=None):
     (``_iter_N.solverstate`` or ``.solverstate.h5`` beside its
     ``.caffemodel``/``.caffemodel.h5``, as a stock Caffe run leaves them)
     are only checked for existence and non-emptiness, as in the JAX
-    package."""
+    package. ``exclude``: state paths to pass over even if they verify
+    (resume_auto's fallback after a restore that failed)."""
     log = log_fn or (lambda *a: None)
     skipped, seen = [], set()
+    exclude = {os.path.basename(p) for p in exclude}
     d = os.path.dirname(prefix)
     man = load_manifest(prefix)
     candidates = []
@@ -355,6 +376,8 @@ def find_resumable(prefix, log_fn=None):
                                _verify_pair(m, s)))
     state = None
     for path, verify in candidates:
+        if os.path.basename(path) in exclude:
+            continue
         reason = verify()
         if reason is None:
             state = path
@@ -421,15 +444,36 @@ def check_restorable(state_path, world=None):
 def resume_auto(solver, prefix, log_fn=None):
     """``--resume auto``: restore ``solver`` from the newest valid
     snapshot under ``prefix``; returns the state path used, or None
-    (fresh start). Every refused snapshot is logged with its reason; a
-    restore that fails after the check raises, as does WorldMismatch."""
+    (fresh start). Every refused snapshot is logged with its reason.
+
+    The verification and the restore are two reads: keep-N retention in
+    a concurrent writer, or an external cleaner, can delete manifested
+    files between them, and a manifest can outlive files a crashed
+    pruner removed. A snapshot that verified but fails to restore is
+    therefore logged with the reason and excluded, and the search falls
+    back to the next valid one (as in the JAX package). WorldMismatch is
+    not in the fallback set: a wrong-world stamp damns every snapshot
+    under the prefix alike, so it propagates."""
     log = log_fn or (lambda *a: None)
-    state, skipped = find_resumable(prefix, log_fn=log)
-    if state is None:
-        log(f"resume auto: no resumable snapshot under {prefix!r}"
-            + (f" ({len(skipped)} refused)" if skipped else "")
-            + "; starting fresh")
-        return None
-    solver.restore(state)
-    log(f"resume auto: restored iter {solver.iter} from {state}")
-    return state
+    tried = []
+    while True:
+        state, skipped = find_resumable(prefix, log_fn=log, exclude=tried)
+        if state is None:
+            refused = len(skipped) + len(tried)
+            log(f"resume auto: no resumable snapshot under {prefix!r}"
+                + (f" ({refused} refused)" if refused else "")
+                + "; starting fresh")
+            return None
+        try:
+            solver.restore(state)
+        except (OSError, ValueError, KeyError) as e:
+            log(f"refusing snapshot {state}: restore failed ({e}); "
+                "falling back to the next valid snapshot")
+            tried.append(state)
+            continue
+        log(f"resume auto: restored iter {solver.iter} from {state}")
+        if getattr(solver, "metrics", None) is not None:
+            solver.metrics.log("checkpoint", kind="resume",
+                               iter=solver.iter, state=state,
+                               refused=len(skipped) + len(tried))
+        return state

@@ -11,12 +11,17 @@ are Caffe's .caffemodel + .solverstate pair, binaryproto or (with
 crash-safe manifest of resilience/checkpoint.py, readable by the JAX
 package and back.
 
-With ``metrics`` (a utils/metrics.py MetricsLogger) it writes the JAX
-Solver's "train" events at display points. ``set_input_transform``
-installs a transform that runs on the device before the forward (the
-raw-record feed of data/device_transform.py). Not ported (ROADMAP A6): its
-"test" events and other observability hooks, chaos, elastic, heartbeat,
-watchdog and staleness machinery, remat and scan knobs and debug_info.
+With ``metrics`` (a utils/metrics.py MetricsLogger, or a path) it writes
+the JAX Solver's events: "train" and "test" at display and test points,
+the ``test`` and ``snapshot`` spans of its Tracer, and through the obs
+package step accounting, comms, memory, and for the slot solvers worker
+divergence and health. ``arm_watchdog``, ``arm_recovery`` and
+``arm_health`` install the run-safety hooks the step loop drives;
+``snapshot_keep`` is keep-N retention; ``set_remat`` the remat policy.
+``set_input_transform`` installs a transform that runs on the device
+before the forward (the raw-record feed of data/device_transform.py).
+Not ported (ROADMAP A5/A6): chaos, elastic, heartbeat and staleness
+machinery, scan-over-layers and debug_info.
 """
 
 import collections
@@ -102,13 +107,42 @@ class Solver:
 
     def __init__(self, solver_param, net_param=None, feed_shapes=None,
                  test_feed_shapes=None, base_dir="", device="cuda",
-                 log_fn=print, metrics=None, compute_dtype=None):
+                 log_fn=print, metrics=None, compute_dtype=None,
+                 tracer=None):
         if solver_needs_type_upgrade(solver_param):
             solver_param = upgrade_solver(solver_param)
         self.param = solver_param
         self.log = log_fn or (lambda *a: None)
-        self.metrics = metrics
         self.device = resolve_device(device)
+        # observability (sparknet_tpu_torch.obs): a JSONL MetricsLogger
+        # (or its path, then owned and closed by close()), a span Tracer
+        # over it, and with metrics on the step, comms, divergence,
+        # health and memory meters
+        self._own_metrics = isinstance(metrics, str)
+        if self._own_metrics:
+            from ..utils.metrics import MetricsLogger
+            metrics = MetricsLogger(metrics)
+        self.metrics = metrics
+        from ..obs import Tracer
+        self.tracer = tracer if tracer is not None else Tracer(self.metrics)
+        self.stepstats = self.comms = None
+        self._comms_registered = False
+        self.divergence = self.health = self.memstats = None
+        self.last_divergence = None
+        if self.metrics is not None:
+            from ..obs import (CommsMeter, DivergenceMeter, HealthMonitor,
+                               MemoryMonitor, StepAccounting)
+            self.stepstats = StepAccounting(self.metrics)
+            self.comms = CommsMeter(self.metrics)
+            self.divergence = DivergenceMeter(self.metrics)
+            self.health = HealthMonitor(self.metrics, log_fn=self.log,
+                                        solver=self)
+            self.memstats = MemoryMonitor(self.metrics, device=self.device)
+        # run safety: the watchdog step() beats, keep-N snapshot
+        # retention (None: keep all) and the divergence RecoveryPolicy
+        self.watchdog = None
+        self.snapshot_keep = None
+        self.recovery = None
         train_np, test_np = resolve_nets(solver_param, base_dir, net_param)
         # NetState from the solver (Caffe solver.cpp InitTrainNet /
         # InitTestNets): train_state / test_state[0] join the filter state
@@ -162,6 +196,11 @@ class Solver:
         self.input_transform = None
         self.test_input_transform = None
         self._raw_feed_shapes = None
+        # a loss reaches the host at display points, and every
+        # _sync_stride steps when display is off (the JAX solver's
+        # cadence): the watchdog and recovery see losses no more often
+        self._sync_stride = max(1, int(os.environ.get(
+            "SPARKNET_SYNC_STRIDE", "100")))
 
     def _arm_grads(self):
         for blobs in self.params.values():
@@ -174,6 +213,196 @@ class Solver:
         if not self._smoothed:
             return None
         return float(torch.stack(list(self._smoothed)).mean())
+
+    # -- knobs and run safety ----------------------------------------------
+    def set_remat(self, policy):
+        """Set the remat policy (the --remat knob) on every net this
+        solver owns: "none", "dots" (save matmul and convolution outputs,
+        recompute the rest) or "full". Overrides SPARKNET_REMAT."""
+        from ..graph.compiler import REMAT_POLICIES
+        if policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat policy {policy!r}: want one of {REMAT_POLICIES}")
+        for name in ("net", "test_net", "local_net", "local_test_net"):
+            n = getattr(self, name, None)
+            if n is not None:
+                n.remat = policy
+
+    def scale_lr(self, factor):
+        """Scale the lr schedule by ``factor`` from now on."""
+        base, factor = self.lr_fn, float(factor)
+        self.lr_fn = lambda it: base(it) * factor
+
+    def training_tensors(self):
+        """Every tensor that defines where training stands (params, net
+        state, optimizer history), in a fixed order: what a
+        RecoveryPolicy copies and rolls back in place."""
+        out = [p for blobs in self.params.values() for p in blobs]
+        out += [t for blobs in self.state.values() for t in blobs]
+        out += [h for hss in self.history.values() for hs in hss
+                for h in hs]
+        return out
+
+    def rng_state(self):
+        return [self.generator.get_state()]
+
+    def set_rng_state(self, states):
+        self.generator.set_state(states[0])
+
+    def arm_watchdog(self, stall_seconds=300.0, **kw):
+        """Start a stall/NaN watchdog that step() beats each iteration.
+        With kill_on_stall and a snapshot prefix, the exit path takes an
+        emergency snapshot first."""
+        from ..utils.watchdog import Watchdog
+        kw.setdefault("metrics", self.metrics)
+        if kw.get("kill_on_stall") and "emergency_snapshot" not in kw \
+                and self.param.has("snapshot_prefix"):
+            kw["emergency_snapshot"] = self.snapshot
+        self.watchdog = Watchdog(stall_seconds=stall_seconds, **kw).start()
+        return self.watchdog
+
+    def arm_recovery(self, policy=None, **kw):
+        """Install a divergence RecoveryPolicy (NaN or exploding loss ->
+        rollback to the last known-good state). The state at arm time is
+        the first known-good point."""
+        if policy is None:
+            from ..resilience.recovery import RecoveryPolicy
+            kw.setdefault("metrics", self.metrics)
+            kw.setdefault("log_fn", self.log)
+            policy = RecoveryPolicy(**kw)
+        self.recovery = policy
+        policy.note_good(self)
+        return policy
+
+    def arm_health(self, **kw):
+        """(Re)configure the health detectors (the --health-* flags),
+        keeping the metrics sink; enabled=False disarms them."""
+        if not kw.pop("enabled", True):
+            self.health = None
+            return None
+        from ..obs import HealthMonitor
+        kw.setdefault("log_fn", self.log)
+        self.health = HealthMonitor(self.metrics, solver=self, **kw)
+        return self.health
+
+    def _maybe_recover(self, loss):
+        """Feed a host loss to the recovery policy; True when the solver
+        was rolled back (the caller redoes the work)."""
+        if self.recovery is None or loss is None:
+            return False
+        return self.recovery.observe(self, float(loss))
+
+    # -- observability (sparknet_tpu_torch.obs) ----------------------------
+    def _register_comms(self, cm):
+        """Declare this solver's collective volume with the CommsMeter:
+        the single-device solver only has its host-to-device feed."""
+        from ..obs.comms import tree_bytes
+        cm.set_topology(strategy=type(self).__name__,
+                        n_devices=torch.cuda.device_count()
+                        if self.device.type == "cuda" else 1,
+                        param_bytes=tree_bytes(self.params))
+
+    def _obs_begin(self, steps=1):
+        """Before a step (or a round of ``steps`` iterations): the step
+        accounting's start event."""
+        if self.stepstats is not None:
+            self.stepstats.begin(self.iter + steps - 1, self.device)
+
+    def _obs_sampled_next(self):
+        """Will the coming step be sampled (so its sync-round aux is
+        worth computing)?"""
+        return self.stepstats is not None and \
+            self.stepstats.will_sample(self.iter)
+
+    def _obs_step(self, host_s, result, batch, aux=None, steps=1):
+        """After each step (or round of ``steps`` iterations): feed
+        bytes, comms, step accounting, and on sampled steps memory and
+        the sync round's aux. One attribute test when metrics is off."""
+        if self.stepstats is None:
+            return
+        from ..obs.comms import tree_bytes
+        if not self._comms_registered:
+            self._comms_registered = True
+            try:
+                self._register_comms(self.comms)
+            except Exception as e:      # accounting must never end a run
+                self.log(f"comms registration failed: {e!r}")
+        it = self.iter - 1
+        self.comms.add_h2d(tree_bytes(batch))
+        self.comms.tick(it)
+        if self.stepstats.observe(it, host_s, result=result, steps=steps):
+            if self.memstats is not None:
+                try:
+                    self.memstats.sample(it)
+                except Exception as e:
+                    self.log(f"memstats sampling failed: {e!r}")
+            if aux:
+                self._observe_sync_round(aux)
+
+    def _round_latencies(self, round_s):
+        """Per-worker latencies of the finished round, or None (one
+        worker)."""
+        return None
+
+    def _observe_sync_round(self, aux, round_s=None, round_idx=None):
+        """Fetch one sync round's aux (a few scalars from the card), emit
+        the ``divergence`` event and feed the health detectors."""
+        if not aux or self.divergence is None:
+            return None
+        from ..obs.divergence import to_host
+        try:
+            aux = to_host(aux)
+            d = self.divergence.observe(
+                self.iter - 1, aux, kind=aux.get("kind", "params"),
+                tau=getattr(self, "tau", None), round_idx=round_idx)
+            self.last_divergence = d
+            if self.health is not None:
+                self.health.observe_round(
+                    self.iter - 1, round_idx=round_idx,
+                    worker_losses=aux.get("worker_loss"),
+                    latencies=self._round_latencies(round_s)
+                    if round_s is not None else None,
+                    divergence=d, valid=aux.get("valid"))
+            return d
+        except Exception as e:          # monitoring must never end a run
+            self.log(f"divergence observation failed: {e!r}")
+            return None
+
+    def close(self):
+        """Stop the watchdog thread, write the health, step and comms
+        summaries, and close a metrics stream this solver opened.
+        Idempotent; training cannot go on with metrics afterwards."""
+        if self.watchdog is not None:
+            self.watchdog.stop()
+            self.watchdog = None
+        if self.health is not None:
+            try:
+                if self.health.alarms and self.metrics is not None:
+                    self.metrics.log("health_summary",
+                                     **self.health.summary())
+            finally:
+                self.health = None
+        self.divergence = self.memstats = None
+        if self.stepstats is not None:
+            try:
+                self.stepstats.flush(self.iter)
+            finally:
+                self.stepstats = None
+        if self.comms is not None:
+            try:
+                self.comms.flush(self.iter - 1)
+            finally:
+                self.comms = None
+        if self._own_metrics and self.metrics is not None:
+            self.metrics.close()
+            self.metrics = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
     # -- public API --------------------------------------------------------
     def set_input_transform(self, fn, raw_overrides=None, test_fn=None):
@@ -233,6 +462,9 @@ class Solver:
         iter_size = int(self.param.iter_size)
         self.check_batch(batch, leading=(iter_size,) if iter_size > 1
                          else ())
+        fed = batch
+        self._obs_begin()
+        t0 = time.perf_counter()
         batch = self._transform(wait_staged(batch), self.input_transform,
                                 iter_size)
         clear_grads(self.params)
@@ -248,12 +480,17 @@ class Solver:
         self.updater(self.params, grads_of(self.params), self.history,
                      self.lr_fn(self.iter), self.iter)
         self.iter += 1
+        self._obs_step(time.perf_counter() - t0, loss, fed)
         return loss
 
     def step(self, num_iters, data_iter, test_data_fn=None):
         """Run ``num_iters`` steps: pull batches from ``data_iter``,
         display the smoothed loss, run scheduled tests (test_data_fn() ->
-        a fresh test batch iterator) and snapshot on the cadence."""
+        a fresh test batch iterator) and snapshot on the cadence. A loss
+        reaches the host at display points (the smoothed one) and every
+        _sync_stride steps between them: there the watchdog gets it and
+        an armed RecoveryPolicy may roll the solver back, after which
+        the loop goes on from the restored iteration."""
         sp = self.param
         iter_size = int(sp.iter_size)
         t_last, it_last = time.time(), self.iter
@@ -261,8 +498,13 @@ class Solver:
             if sp.test_interval and self.iter % sp.test_interval == 0 and \
                     (self.iter > 0 or sp.test_initialization) and \
                     self.test_net is not None and test_data_fn is not None:
-                for k, v in self.test(test_data_fn()).items():
+                scores = self.test(test_data_fn())
+                for k, v in scores.items():
                     self.log(f"    Test net output: {k} = {v}")
+                if self.metrics:
+                    self.metrics.log("test", iter=self.iter,
+                                     **{k: float(np.mean(v))
+                                        for k, v in scores.items()})
                 t_last, it_last = time.time(), self.iter
             if iter_size == 1:
                 batch = next(data_iter)
@@ -270,9 +512,29 @@ class Solver:
                 micros = [next(data_iter) for _ in range(iter_size)]
                 batch = {k: np.stack([m[k] for m in micros])
                          for k in micros[0]}
-            self._smoothed.append(self.train_step(batch))
-            if sp.display and (self.iter - 1) % sp.display == 0:
-                sm, lr = self.smoothed_loss(), self.lr_fn(self.iter - 1)
+            loss = self.train_step(batch)
+            self._smoothed.append(loss)
+            disp = sp.display and (self.iter - 1) % sp.display == 0
+            if not disp:
+                if self.iter % self._sync_stride == 0:
+                    v = float(loss)
+                    if self.watchdog is not None:
+                        self.watchdog.beat(v)
+                    if self._maybe_recover(v):
+                        t_last, it_last = time.time(), self.iter
+                        continue        # rolled back; redo from there
+                elif self.watchdog is not None:
+                    self.watchdog.beat()
+            else:
+                sm = self.smoothed_loss()
+                if self.watchdog is not None:
+                    self.watchdog.beat(sm)
+                if self._maybe_recover(sm):
+                    # the iteration counter went back: restart the
+                    # throughput window too
+                    t_last, it_last = time.time(), self.iter
+                    continue
+                lr = self.lr_fn(self.iter - 1)
                 self.log(f"Iteration {self.iter - 1}, loss = {sm:.6g}, "
                          f"lr = {lr:.6g}")
                 if self.metrics:
@@ -291,6 +553,10 @@ class Solver:
     def test(self, data_iter, num_iters=None):
         """Average the TEST net's output blobs over test_iter batches
         (Caffe solver.cpp TestAndStoreResult :414-444)."""
+        with self.tracer.span("test", iter=self.iter):
+            return self._test(data_iter, num_iters)
+
+    def _test(self, data_iter, num_iters=None):
         if self.test_net is None:
             raise ValueError("this solver has no TEST-phase net")
         n = num_iters or (int(self.param.test_iter[0])
@@ -322,8 +588,10 @@ class Solver:
         in the SolverParameter's snapshot_format (BINARYPROTO, the
         default, or HDF5); returns (model_path, state_path)."""
         from ..resilience import checkpoint
-        model_path, state_path = checkpoint.save_snapshot(
-            self, prefix or self.param.snapshot_prefix)
+        with self.tracer.span("snapshot", iter=self.iter):
+            model_path, state_path = checkpoint.save_snapshot(
+                self, prefix or self.param.snapshot_prefix,
+                keep=self.snapshot_keep, metrics=self.metrics)
         self.log(f"Snapshotting to {model_path}")
         return model_path, state_path
 

@@ -211,9 +211,9 @@ def test_cifar_verb_dp_and_the_stock_prototxt_path(tmp_path, capsys,
 
 @pytest.mark.parametrize("flags", [
     ["--hosts", "2"], ["--chaos", "stall_step=1"], ["--reshard", "auto"],
-    ["--metrics", "m.jsonl"], ["--quorum", "2"], ["--staleness", "1"],
-    ["--heartbeat-dir", "hb"], ["--grow"], ["--no-health"],
-    ["--shard-ingest", "on"], ["--fsdp", "on"], ["--precision", "bf16"]],
+    ["--tp", "2"], ["--quorum", "2"], ["--staleness", "1"],
+    ["--heartbeat-dir", "hb"], ["--grow"], ["--evict-after", "2"],
+    ["--shard-ingest", "on"], ["--fsdp", "on"], ["--lease-s", "3"]],
     ids=lambda f: f[0])
 def test_cifar_verb_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as e:

@@ -498,9 +498,9 @@ def test_imagenet_verb_runs_rounds_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--keep", "5"], ["--reshard", "auto"], ["--recover", "2"],
-    ["--sigterm_effect", "stop"], ["--metrics", "m.jsonl"],
-    ["--precision", "bf16"], ["--chaos", "nan_step=1"], ["--quorum", "2"]],
+    ["--shard-ingest", "on"], ["--reshard", "auto"], ["--staleness", "1"],
+    ["--heartbeat-dir", "hb"], ["--lease-s", "3"], ["--grow"],
+    ["--chaos", "nan_step=1"], ["--quorum", "2"]],
     ids=lambda f: f[0])
 def test_train_verb_refuses_unported_flags_naming_the_roadmap(db_tree, flags,
                                                               capsys):

@@ -43,6 +43,15 @@ MODULES = [
     "sparknet_tpu_torch.ops.moe", "sparknet_tpu_torch.ops.python_layer",
     "sparknet_tpu_torch.ops.activations", "sparknet_tpu_torch.ops.structural",
     "sparknet_tpu_torch.ops.pooling", "sparknet_tpu_torch.ops.convolution",
+    "sparknet_tpu_torch.obs", "sparknet_tpu_torch.obs.trace",
+    "sparknet_tpu_torch.obs.stepstats", "sparknet_tpu_torch.obs.memstats",
+    "sparknet_tpu_torch.obs.comms", "sparknet_tpu_torch.obs.divergence",
+    "sparknet_tpu_torch.obs.health", "sparknet_tpu_torch.obs.event_schema",
+    "sparknet_tpu_torch.obs.report", "sparknet_tpu_torch.obs.critpath",
+    "sparknet_tpu_torch.obs.fleettrace", "sparknet_tpu_torch.utils.metrics",
+    "sparknet_tpu_torch.utils.signals", "sparknet_tpu_torch.utils.timing",
+    "sparknet_tpu_torch.utils.exit_codes",
+    "sparknet_tpu_torch.resilience.recovery",
 ]
 
 
