@@ -65,7 +65,9 @@ Phases, each of which raises on failure (exit code not 0):
               plain versions: f32 at (2, 4, 1024, 64), causal and not,
               bf16 at (2, 4, 1024, 128) full, (2, 4, 1024, 64) causal
               and (2, 4, 1024, 96) causal (a head_dim that is not built,
-              zero-padded to 128), and bf16 at the LM's full width (4, 8,
+              zero-padded to 128), f32 and bf16 at (1, 4, 1024, 256) and
+              (1, 4, 1024, 192) (zero-padded to 256), causal and not
+              (ROADMAP B0), and bf16 at the LM's full width (4, 8,
               4096, 128), causal;
               each output's worst 64-row tile against f32 1e-4 and bf16
               5e-3 of that tile's norm (a measure that does not shrink
@@ -191,9 +193,30 @@ Phases, each of which raises on failure (exit code not 0):
               dQ/dK/dV) and the lm verb under --remat dots; and on a
               small net, each in a child under `timeout -s KILL`: SIGTERM
               snapshots and exits 0 (--resume auto restores it), a layer
-              that hangs with --stall-seconds 5 exits 42 leaving a
-              snapshot that restores, a NaN batch with --recover 2 rolls
-              back and goes on with finite losses.
+              that hangs under a Solver armed with
+              arm_watchdog(kill_on_stall=True) exits 42 leaving a
+              snapshot that restores (the train verb's --stall-seconds
+              only logs, as the JAX verb's), a NaN batch with --recover 2
+              rolls back and goes on with finite losses.
+13. fleet  — the serving fleet on phase 4's GoogLeNet snapshot (f32,
+              buckets 1-8, a copy of the prefix for each replica): R0 is
+              serve_http in this process with a ReplicaMember (its
+              launch counters readable), R1 and R2 `python -m
+              sparknet_tpu_torch serve --fleet_dir` processes, R2 with
+              --chaos kill_replica=2,kill_req=25; `route --lease 3` in
+              front; 8 inputs through the router within 1e-3 of the CPU
+              forward; `serve-bench` closed (16 in flight, 5 s) and open
+              (half the closed rate, 5 s) with 0 errors through R2's
+              kill, the router evicting it within a lease and a window;
+              R0's LRN and fused bias+ReLU+LRN launches equal to its
+              serve_batch events, bias+ReLU 0; a snapshot written under
+              R1's prefix served within the reload poll and a beat,
+              R1's answers then the new weights', the router seeing two
+              shas; SIGTERM to R1 under load: exit 0 after a drain, 0
+              errors; the report verb's stage breakdown over the
+              router's stream and `monitor --once`. Prints req/s, rows/s,
+              the open loop's p50/p95/p99, each stage's p50/p99, the
+              mean batch fill, the failover window and its seconds.
     After the phases: the kernel table as one JSON line, an entry for
     every timed f32 row of phase 3 and the LM's flash row of phase 6
     (launches from the
@@ -205,12 +228,15 @@ Phases, each of which raises on failure (exit code not 0):
     the lm verb's first run for the flash kernels, with the MoE LM's
     verb and in-process launches beside them),
     with phase 12's launches an iteration under each remat policy beside
-    them), each phase's wall seconds and the total, the nvidia-smi line,
+    them, and phase 13's R0 launches beside the serving kernels'; the
+    head_dim 256 flash rows of phase 6 with the LM's), each phase's wall
+    seconds and the total, the nvidia-smi line,
     and as the last line {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --phases 12`` (a comma-separated list) runs
-phases 1 and 2 and those given, for development calls: it prints each
-phase's seconds and no result lines. With no arguments every phase runs.
+phases 1 and 2 and those given (13 brings 4, 10 brings 9), for
+development calls: it prints each phase's seconds and no result lines.
+With no arguments every phase runs.
 """
 
 import json
@@ -678,7 +704,7 @@ def phase_serve(torch, card):
                        _serve_group, "bucket 8 forward", card)
     return {"auto": launches["auto"], "on": launches["on"],
             "per_bucket_ms": per_bucket, "images_per_s_b8": ips,
-            "p50_ms": p50, "profile_b8": profile}
+            "p50_ms": p50, "profile_b8": profile, "prefix": prefix}
 
 
 def _device_events(prof, reps):
@@ -1113,7 +1139,23 @@ def _flash_kernel_info(torch):
     return info
 
 
-def phase_flash_kernels(torch):
+# (shape, dtype, causal, a row of the kernels line): phase 6's cases
+FLASH_CASES = (
+    ((2, 4, 1024, 64), "float32", False, False),
+    ((2, 4, 1024, 64), "float32", True, False),
+    ((2, 4, 1024, 128), "bfloat16", False, False),
+    ((2, 4, 1024, 64), "bfloat16", True, False),
+    # head_dim 96 is not built: zero-padded to 128
+    ((2, 4, 1024, 96), "bfloat16", True, False),
+    # head_dim 256, the widest built (ROADMAP B0), and 192, zero-padded
+    # to it
+    *(((1, 4, 1024, d), dt, causal, d == 256)
+      for d in (256, 192) for dt in ("float32", "bfloat16")
+      for causal in (False, True)),
+    ((4, 8, 4096, 128), "bfloat16", True, True))
+
+
+def phase_flash_kernels(torch, cases=FLASH_CASES):
     """The forward, dQ and dK/dV kernels against their plain versions on
     the same inputs (the backward kernels take the kernel forward's O and
     LSE, dK/dV the dQ kernel's delta), the planted faults, the library's
@@ -1126,14 +1168,8 @@ def phase_flash_kernels(torch):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     timer = Timer(torch)
     results = []
-    for shape, dtype, causal, row in (
-            ((2, 4, 1024, 64), torch.float32, False, False),
-            ((2, 4, 1024, 64), torch.float32, True, False),
-            ((2, 4, 1024, 128), torch.bfloat16, False, False),
-            ((2, 4, 1024, 64), torch.bfloat16, True, False),
-            # head_dim 96 is not built: zero-padded to 128
-            ((2, 4, 1024, 96), torch.bfloat16, True, False),
-            ((4, 8, 4096, 128), torch.bfloat16, True, True)):
+    for shape, dtype, causal, row in cases:
+        dtype = getattr(torch, dtype)
         q, k, v, do = ((0.5 * torch.randn(shape, generator=gen,
                                           device="cuda")).to(dtype)
                        for _ in range(4))
@@ -3742,6 +3778,25 @@ def _safety_files(tmp, name, tap, **fields):
     return path, prefix
 
 
+# the watchdog's kill path as an API (the train verb only logs a stall,
+# as the JAX verb does): a Solver on a solver file armed with
+# kill_on_stall, fed the net's shapes from a seed
+KILL_SCRIPT = """
+import sys
+import numpy as np
+from sparknet_tpu_torch.proto import text_format
+from sparknet_tpu_torch.solver import Solver
+sp = text_format.load(sys.argv[1], "SolverParameter")
+s = Solver(sp, device=sys.argv[2])
+s.arm_watchdog(stall_seconds=float(sys.argv[3]), kill_on_stall=True)
+rs = np.random.RandomState(0)
+feed = ({"data": rs.randn(64, 256).astype(np.float32),
+         "label": rs.randint(0, 10, 64).astype(np.int32)} for _ in range(50))
+s.step(50, feed)
+print("NOT REACHED")
+"""
+
+
 def _safety_env(tmp):
     return dict(os.environ, PYTHONUNBUFFERED="1",
                 SPARKNET_PYTHON_LAYER_PATH=tmp)
@@ -3776,9 +3831,10 @@ def _resume_iter(solver_path, prefix, tmp, device):
 
 
 def phase_run_safety(tmp, device="cuda"):
-    """SIGTERM, the watchdog's kill and a NaN batch, each through the
-    train verb in a child under `timeout -s KILL` (``device="cpu"``
-    rehearses it without a card)."""
+    """SIGTERM and a NaN batch through the train verb, and the
+    watchdog's kill through a Solver armed with kill_on_stall, each in a
+    child under `timeout -s KILL` (``device="cpu"`` rehearses it without
+    a card)."""
     out = {}
     # SIGTERM after a few iterations: the block ends, snapshot, exit 0
     path, prefix = _safety_files(tmp, "sigterm", "nan:0")
@@ -3805,22 +3861,28 @@ def phase_run_safety(tmp, device="cuda"):
     print(f"[safety] SIGTERM after iteration 2: snapshot at {it}, exit 0 "
           f"({time.perf_counter() - t0:.1f} s); --resume auto restored it")
     out["sigterm_iter"] = it
-    # a layer that hangs at its 6th call: the watchdog kills with 42
+    # a layer that hangs at its 6th call under a Solver armed with
+    # kill_on_stall: the watchdog kills with 42 after an emergency
+    # snapshot (the train verb's --stall-seconds only logs, as the JAX
+    # verb's does)
     path, prefix = _safety_files(tmp, "stall", "stall:6")
     t0 = time.perf_counter()
-    r = subprocess.run(_killable(["--solver", path, "--iterations", "50",
-                                  "--stall-seconds", "5"], device),
+    r = subprocess.run(["timeout", "-s", "KILL", "180", sys.executable, "-c",
+                        KILL_SCRIPT, path, device, "5"],
                        capture_output=True, text=True, cwd=REPO,
                        env=_safety_env(tmp), timeout=300)
-    check(r.returncode == 42, f"stall: exit {r.returncode}, want 42: "
-                              f"{r.stdout[-1500:]} {r.stderr[-1500:]}")
+    kill_s = time.perf_counter() - t0
+    check(r.returncode == 42 and "NOT REACHED" not in r.stdout,
+          f"stall: exit {r.returncode}, want 42: {r.stdout[-1500:]} "
+          f"{r.stderr[-1500:]}")
     it = _resume_iter(path, prefix, tmp, device)
     check(it == 5, f"stall: the emergency snapshot is iteration {it}, "
                    "want 5")
-    print(f"[safety] a layer hung at iteration 5: exit 42 after "
-          f"{time.perf_counter() - t0:.1f} s, the emergency snapshot of "
-          "iteration 5 restores")
+    print(f"[safety] a layer hung at iteration 5 under arm_watchdog("
+          f"kill_on_stall=True): exit 42 after {kill_s:.1f} s, the "
+          "emergency snapshot of iteration 5 restores")
     out["stall_exit"], out["stall_iter"] = r.returncode, it
+    out["stall_kill_s"] = kill_s
     # one NaN batch at iteration 4 with --recover 2
     path, prefix = _safety_files(tmp, "nan", "nan:5")
     r = subprocess.run(_killable(["--solver", path, "--iterations", "12",
@@ -3851,6 +3913,381 @@ def phase_levers_all(torch, card, tmp):
             "safety": safety}
 
 
+# -- phase 13 -------------------------------------------------------------
+
+FLEET_REPLICAS = 3
+FLEET_LEASE_S = 3.0          # route --lease (the JAX default)
+FLEET_BEAT_S = 0.5           # serve --heartbeat_interval (the JAX default)
+FLEET_WINDOW_S = 1.0         # route --window_s (the JAX default)
+FLEET_RELOAD_POLL_S = 2.0    # serve --reload_poll (the JAX default)
+FLEET_KILL_REQ = 25          # R2's kill_req: about a third of its share
+FLEET_LIMIT = 1e-3           # answers against the CPU forward (phase 4's)
+FLEET_SECONDS = 5.0          # each serve-bench mode
+
+
+def _fleet_proc(args, log_path, env=None):
+    """``python -m sparknet_tpu_torch ARGS`` with its output in a file."""
+    fh = open(log_path, "w")
+    return subprocess.Popen([sys.executable, "-m", "sparknet_tpu_torch",
+                             *args], stdout=fh, stderr=subprocess.STDOUT,
+                            cwd=REPO, env=env or dict(
+                                os.environ, PYTHONUNBUFFERED="1"))
+
+
+def _wait_for(cond, what, timeout, poll=0.1):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        got = cond()
+        if got:
+            return got
+        time.sleep(poll)
+    check(False, f"fleet: {what} within {timeout:g} s")
+
+
+def _listening(log_path):
+    def find():
+        try:
+            text = open(log_path).read()
+        except OSError:
+            return None
+        for line in text.splitlines():
+            if "listening on " in line:
+                return line.split("listening on ", 1)[1].split()[0]
+        return None
+    return find
+
+
+def _get_json(url, timeout=30):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _jsonl(path, kind=None):
+    out = []
+    with open(path) as fh:
+        for line in fh:
+            try:
+                e = json.loads(line)
+            except ValueError:
+                continue
+            if kind is None or e.get("event") == kind:
+                out.append(e)
+    return out
+
+
+def _copy_prefix(prefix, dst_dir):
+    """The snapshot files of ``prefix`` (manifest, model, state) copied
+    into ``dst_dir`` under the same basename -> the copy's prefix."""
+    import glob
+    import shutil
+    os.makedirs(dst_dir, exist_ok=True)
+    for f in glob.glob(glob.escape(prefix) + "*"):
+        shutil.copy(f, dst_dir)
+    return os.path.join(dst_dir, os.path.basename(prefix))
+
+
+def _bench(url, mode, log_dir, tag, concurrency=16, rate=None,
+           duration=FLEET_SECONDS):
+    """serve-bench as a user runs it -> its summary dict."""
+    out = os.path.join(log_dir, f"bench_{tag}.json")
+    args = ["serve-bench", "--url", url, "--mode", mode, "--duration",
+            str(duration), "--concurrency", str(concurrency), "--json", out,
+            "--metrics", os.path.join(log_dir, f"bench_{tag}.jsonl")]
+    if rate is not None:
+        args += ["--rate", f"{rate:.3f}"]
+    p = _fleet_proc(args, os.path.join(log_dir, f"bench_{tag}.log"))
+    rc = p.wait(timeout=duration + 240)
+    summary = json.load(open(out))[0]
+    print(f"[fleet] serve-bench --mode {mode}: exit {rc}, "
+          f"{summary['ok']} ok, {summary['rejected']} rejected (429), "
+          f"{summary['errors']} errors, {summary['dropped']} dropped, "
+          f"{summary['rps']} req/s, p50/p95/p99 "
+          f"{summary.get('latency_ms_p50')}/{summary.get('latency_ms_p95')}"
+          f"/{summary.get('latency_ms_p99')} ms")
+    return rc, summary
+
+
+def phase_fleet(torch, card, prefix, device="cuda"):
+    """The serving fleet on the card: R0 (serve_http in this process,
+    with a ReplicaMember, so its launch counters can be read), R1 and R2
+    (``serve --fleet_dir`` processes; R2 kills itself through --chaos),
+    the ``route`` router and ``serve-bench``, all on phase 4's GoogLeNet
+    snapshot, each replica on its own copy of the prefix.
+    ``device="cpu"`` rehearses it without a card (with FLEET_KILL_REQ and
+    FLEET_SECONDS cut to the CPU's pace): no kernel launches then."""
+    from sparknet_tpu_torch.graph import CompiledNet, TEST
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.obs.tracing import STAGES, TraceSampler
+    from sparknet_tpu_torch.ops import KERNEL_WRAPPERS, kernel_launches
+    from sparknet_tpu_torch.resilience import save_model_snapshot
+    from sparknet_tpu_torch.serve import (Batcher, ReplicaMember,
+                                          ServeEngine, deploy_net_param,
+                                          serve_http)
+    from sparknet_tpu_torch.obs.stepstats import percentiles
+    from sparknet_tpu_torch.utils.metrics import MetricsLogger
+    t_phase = time.perf_counter()
+    os.environ.pop("SPARKNET_EPILOGUE", None)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    fleet_dir = os.path.join(tmp, "rendezvous")
+    prefixes = [_copy_prefix(prefix, os.path.join(tmp, f"r{i}"))
+                for i in range(FLEET_REPLICAS)]
+    streams = {name: os.path.join(tmp, f"{name}.jsonl")
+               for name in ("r0", "r1", "r2", "router")}
+    procs = {}
+    r0_stop = threading.Event()
+    r0_rc, r0_thread, r0_metrics = [], None, None
+    try:
+        for i in (1, 2):
+            args = ["serve", "--prefix", prefixes[i], "--fleet_dir",
+                    fleet_dir, "--replica", str(i), "--replicas",
+                    str(FLEET_REPLICAS), "--max_batch", "8", "--metrics",
+                    streams[f"r{i}"], "--device", device]
+            if i == 2:
+                args += ["--chaos", f"kill_replica=2,kill_req="
+                                    f"{FLEET_KILL_REQ}"]
+            procs[f"r{i}"] = _fleet_proc(args, os.path.join(tmp,
+                                                            f"r{i}.log"))
+        # R0 in this process
+        r0_metrics = MetricsLogger(streams["r0"])
+        engine = ServeEngine(prefixes[0], max_batch=8, device=device,
+                             metrics=r0_metrics, log_fn=None)
+        engine.load()
+        engine.warmup()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        batcher = Batcher(max_batch=8, max_wait_s=0.005, queue_limit=64,
+                          metrics=r0_metrics)
+        member = ReplicaMember(fleet_dir, 0, replicas=FLEET_REPLICAS,
+                               engine=engine, batcher=batcher,
+                               interval_s=FLEET_BEAT_S,
+                               lease_s=FLEET_LEASE_S, metrics=r0_metrics,
+                               log_fn=print)
+        up = threading.Event()
+        r0_thread = threading.Thread(target=lambda: r0_rc.append(serve_http(
+            engine, batcher, port=0, metrics=r0_metrics, stop_event=r0_stop,
+            reload_poll_s=FLEET_RELOAD_POLL_S, member=member, replica=0,
+            tracer=TraceSampler(), log_fn=print,
+            on_listen=lambda u: up.set())), daemon=True)
+        r0_thread.start()
+        check(up.wait(120), "fleet: R0 did not start listening")
+        procs["router"] = _fleet_proc(
+            ["route", "--fleet_dir", fleet_dir, "--replicas",
+             str(FLEET_REPLICAS), "--lease", str(FLEET_LEASE_S),
+             "--metrics", streams["router"]],
+            os.path.join(tmp, "router.log"))
+        router = _wait_for(_listening(os.path.join(tmp, "router.log")),
+                           "the router announced its URL", 120)
+        # every replica's lease read (the policy counts a replica live
+        # before its first beat)
+        health = _wait_for(lambda: (lambda h: h if len(h["replicas"]) ==
+                                    FLEET_REPLICAS else None)(
+            _get_json(router + "/healthz")),
+            "three replicas leased in", 240, poll=0.5)
+        urls = {int(r): rec["url"] for r, rec in health["replicas"].items()}
+        t_setup = time.perf_counter() - t_phase
+        print(f"[fleet] router {router}, replicas {urls} live after "
+              f"{t_setup:.1f} s")
+
+        # 1. answers through the router against the CPU forward
+        for fn in KERNEL_WRAPPERS:
+            fn.launches = 0
+        cpu = ServeEngine(prefix, max_batch=8, device="cpu", log_fn=None)
+        cpu.load()
+        rs = np.random.RandomState(SEED + 13)
+        worst = 0.0
+        for n in range(1, 9):
+            x = np.round(rs.randn(n, 3, 224, 224), 3).astype(np.float32)
+            out, _ = _post(router, x)
+            got = np.asarray(out["outputs"]["loss3/classifier"], np.float32)
+            ref = cpu.forward({"data": x})[0]["loss3/classifier"]
+            check(got.shape == ref.shape and np.isfinite(got).all() and
+                  np.abs(got).max() > 0, f"fleet: bad answer {got.shape}")
+            worst = max(worst, float(np.abs(got - ref).max()
+                                     / np.abs(ref).max()))
+        answered = sorted({e["replica"] for e in _jsonl(streams["router"],
+                                                         "route")})
+        print(f"[fleet] 8 inputs of 1-8 rows through the router (answered "
+              f"by replicas {answered}): max |card - cpu| / max |cpu| = "
+              f"{worst:.3e} (limit {FLEET_LIMIT:g})")
+        check(worst <= FLEET_LIMIT, f"fleet: answers differ from the CPU "
+                                    f"forward by {worst:.3e}")
+
+        # 2. the load: closed loop through R2's kill, then open loop
+        rc, closed = _bench(router, "closed", tmp, "closed")
+        check(rc == 0 and closed["errors"] == 0,
+              f"fleet: closed loop exit {rc}, {closed['errors']} errors")
+        r2_rc = procs["r2"].wait(timeout=120)
+        check(r2_rc == -signal.SIGKILL,
+              f"fleet: R2 exited {r2_rc}, want SIGKILL by its chaos spec")
+        rc, opened = _bench(router, "open", tmp, "open",
+                            rate=max(1.0, closed["rps"] / 2))
+        check(rc == 0 and opened["errors"] == 0,
+              f"fleet: open loop exit {rc}, {opened['errors']} errors")
+        routes = _jsonl(streams["router"], "route")
+        evict = [e for e in _jsonl(streams["router"], "eviction")
+                 if e.get("worker") == 2]
+        check(evict, "fleet: the router never evicted R2")
+        last_r2 = max(e["t"] for e in routes
+                      if e.get("replica") == 2 and e.get("code") == 200)
+        failover_s = evict[0]["t"] - last_r2
+        print(f"[fleet] R2 killed itself after {FLEET_KILL_REQ}+ requests;"
+              f" the router evicted it {failover_s:.2f} s after its last "
+              f"answer (lease {FLEET_LEASE_S:g} s, window "
+              f"{FLEET_WINDOW_S:g} s); 429s: closed "
+              f"{closed['rejected']}, open {opened['rejected']}; retried "
+              f"dispatches {sum(1 for e in routes if e.get('retried'))}")
+        check(failover_s <= FLEET_LEASE_S + FLEET_WINDOW_S + FLEET_BEAT_S,
+              f"fleet: eviction {failover_s:.2f} s after R2's last answer,"
+              f" more than one lease ({FLEET_LEASE_S:g} s) plus a window "
+              "and a beat")
+
+        # 4. hot reload under R1's prefix
+        net = CompiledNet(deploy_net_param(zoo.googlenet(
+            batch_size=8, with_aux=False)), TEST, device="cpu")
+        params, state = net.init(torch.Generator().manual_seed(SEED + 1))
+        save_model_snapshot(net, params, prefixes[1], iter=1, state=state)
+        t0 = time.perf_counter()
+        _wait_for(lambda: _get_json(urls[1] + "/healthz").get("iter") == 1,
+                  "R1 hot-reloaded", 60, poll=0.05)
+        reload_s = time.perf_counter() - t0
+        reload_ms = [e["ms"] for e in _jsonl(streams["r1"], "serve_reload")]
+        check(reload_ms, "fleet: R1 logged no serve_reload")
+        print(f"[fleet] R1 served the new snapshot {reload_s:.2f} s after "
+              f"its commit (reload poll {FLEET_RELOAD_POLL_S:g} s, beat "
+              f"{FLEET_BEAT_S:g} s, the reload itself {reload_ms[-1]:.0f} "
+              "ms)")
+        check(reload_s <= FLEET_RELOAD_POLL_S + FLEET_BEAT_S
+              + reload_ms[-1] / 1e3,
+              f"fleet: R1 took {reload_s:.2f} s to serve the new snapshot")
+        new_cpu = ServeEngine(prefixes[1], max_batch=8, device="cpu",
+                              log_fn=None)
+        new_cpu.load()
+        x = np.round(rs.randn(3, 3, 224, 224), 3).astype(np.float32)
+        got = np.asarray(_post(urls[1], x)[0]["outputs"]["loss3/classifier"],
+                         np.float32)
+        ref = new_cpu.forward({"data": x})[0]["loss3/classifier"]
+        old = cpu.forward({"data": x})[0]["loss3/classifier"]
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        moved = float(np.abs(old - ref).max() / np.abs(ref).max())
+        check(err <= FLEET_LIMIT and moved > 10 * FLEET_LIMIT,
+              f"fleet: R1 after the reload is {err:.3e} from the new "
+              f"weights' CPU forward (the old weights are {moved:.3e})")
+        shas = _wait_for(lambda: (lambda s: s if len(s) == 2 else None)({
+            rec.get("sha") for rec in _get_json(router + "/healthz")[
+                "replicas"].values()}), "the router saw two shas",
+            3 * FLEET_BEAT_S + 2 * FLEET_WINDOW_S + 5)
+        print(f"[fleet] R1 after the reload: {err:.3e} of the largest "
+              f"logit from the new weights' CPU forward (the old weights: "
+              f"{moved:.3e}); the router sees shas "
+              f"{sorted(s[:12] for s in shas)}")
+
+        # 5. drain R1 under load
+        p = _fleet_proc(["serve-bench", "--url", router, "--mode", "closed",
+                         "--duration", "4", "--concurrency", "4", "--json",
+                         os.path.join(tmp, "bench_drain.json")],
+                        os.path.join(tmp, "bench_drain.log"))
+        time.sleep(1.5)
+        procs["r1"].send_signal(signal.SIGTERM)
+        r1_rc = procs["r1"].wait(timeout=120)
+        p.wait(timeout=240)
+        drain = json.load(open(os.path.join(tmp, "bench_drain.json")))[0]
+        r1_log = open(os.path.join(tmp, "r1.log")).read()
+        print(f"[fleet] SIGTERM to R1 under a closed loop: exit {r1_rc}, "
+              f"the loop {drain['ok']} ok, {drain['rejected']} rejected, "
+              f"{drain['errors']} errors")
+        check(r1_rc == 0 and "drained cleanly" in r1_log and
+              drain["errors"] == 0,
+              f"fleet: R1's drain: exit {r1_rc}, {drain['errors']} "
+              f"errors: {r1_log[-1500:]}")
+
+        # 3. R0's launches against its batches
+        r0_stop.set()
+        r0_thread.join(timeout=120)
+        check(r0_rc == [0], f"fleet: R0's drain returned {r0_rc}")
+        counts = kernel_launches()
+        batches = len(_jsonl(streams["r0"], "serve_batch"))
+        print(f"[fleet] R0: {batches} forward batches (serve_batch "
+              f"events), launches {counts}")
+        want = batches if device == "cuda" else 0
+        check(batches > 0 and counts["lrn_across"] == want and
+              counts["bias_relu_lrn"] == want and counts["bias_relu"] == 0,
+              f"fleet: R0's launches {counts} against {batches} batches")
+        procs["router"].send_signal(signal.SIGTERM)
+        router_rc = procs["router"].wait(timeout=60)
+        check(router_rc == 0, f"fleet: the router exited {router_rc}")
+
+        # 6. the report's stage breakdown, and the monitor
+        rep_json = os.path.join(tmp, "router_report.json")
+        rep = subprocess.run(
+            [sys.executable, "-m", "sparknet_tpu_torch", "report",
+             streams["router"], "--json", rep_json],
+            capture_output=True, text=True, cwd=REPO, timeout=120)
+        check(rep.returncode == 0 and "request tracing" in rep.stdout and
+              "routing fleet" in rep.stdout,
+              f"fleet: report: exit {rep.returncode} {rep.stdout[-1500:]}"
+              f" {rep.stderr[-1500:]}")
+        for name in ("r0", "r1", "r2"):
+            r = subprocess.run(
+                [sys.executable, "-m", "sparknet_tpu_torch", "report",
+                 streams[name]], capture_output=True, text=True, cwd=REPO,
+                timeout=120)
+            # R2 was killed: its stream ends without a summary
+            check(r.returncode == 0 and ("serving" in r.stdout
+                                         or name == "r2"),
+                  f"fleet: report of {name}: exit {r.returncode} "
+                  f"{r.stdout[-1000:]}")
+        stages_rep = json.load(open(rep_json))["tracing"]["stages"]
+        mon = subprocess.run(
+            [sys.executable, "-m", "sparknet_tpu_torch", "monitor",
+             streams["router"], "--once"], capture_output=True, text=True,
+            cwd=REPO, timeout=120)
+        check(mon.returncode == 0 and "tracing:" in mon.stdout and
+              "routing:" in mon.stdout,
+              f"fleet: monitor --once: exit {mon.returncode} "
+              f"{mon.stdout[-1500:]}")
+        print("[fleet] report (request tracing):\n" + "\n".join(
+            "  " + l for l in rep.stdout.splitlines()
+            if l.strip().split(" ")[0] in STAGES + ("total", "traces:")))
+        print("[fleet] monitor --once:\n" + "\n".join(
+            "  " + l for l in mon.stdout.splitlines()[:12]))
+    finally:
+        r0_stop.set()
+        if r0_thread is not None:
+            r0_thread.join(timeout=60)
+        if r0_metrics is not None:
+            r0_metrics.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    traces = [e for e in _jsonl(streams["router"], "serve_trace")
+              if e.get("src") == "router" and e.get("code") == 200]
+    stage_pct = {k: percentiles([e[f"{k}_ms"] for e in traces
+                                 if e.get(f"{k}_ms") is not None],
+                                qs=(50, 99))
+                 for k in STAGES}
+    fills = [e["fill"] for name in ("r0", "r1", "r2")
+             for e in _jsonl(streams[name], "serve_batch")]
+    seconds = time.perf_counter() - t_phase
+    print(f"[fleet] closed loop: {closed['rps']} req/s, "
+          f"{closed['rps'] * closed['rows']} rows/s ({card})")
+    print(f"[fleet] open loop at {opened['offered_rps']:.1f} req/s: p50 "
+          f"{opened.get('latency_ms_p50')} ms, p95 "
+          f"{opened.get('latency_ms_p95')} ms, p99 "
+          f"{opened.get('latency_ms_p99')} ms ({card})")
+    print("[fleet] stages over " + str(len(traces)) + " traced requests: "
+          + ", ".join(f"{k} p50 {v['p50']:.3f} / p99 {v['p99']:.3f} ms"
+                      for k, v in stage_pct.items()) + f" ({card})")
+    print(f"[fleet] mean batch fill {np.mean(fills):.4f} over "
+          f"{len(fills)} batches; failover window {failover_s:.2f} s; "
+          f"phase {seconds:.1f} s")
+    return {"launches": counts, "batches": batches, "closed": closed,
+            "open": opened, "drain": drain, "stages": stage_pct,
+            "report_stages": stages_rep, "batch_fill": float(np.mean(fills)),
+            "failover_s": failover_s, "reload_s": reload_s,
+            "answers_err": worst, "reload_err": err, "seconds": seconds}
+
+
 KERNELS = {
     # name: (source, replaces, path whose launches the row reports)
     "lrn_across": ("sparknet_tpu_torch/csrc/lrn.cu",
@@ -3876,12 +4313,13 @@ KERNELS = {
 
 PHASES = {1: "device", 2: "build", 3: "kernels", 4: "serve", 5: "train",
           6: "flash", 7: "lm", 8: "local-sgd", 9: "records", 10: "feeds",
-          11: "zoo", 12: "levers, run safety, metrics"}
+          11: "zoo", 12: "levers, run safety, metrics", 13: "fleet"}
 
 
 def _selected(argv):
     """--phases 3,12 -> {1, 2, 3, 12} (phase 10 brings 9, whose records
-    it reads); no argument -> every phase."""
+    it reads, and 13 brings 4, whose snapshot it serves); no argument ->
+    every phase."""
     if not argv:
         return set(PHASES)
     if len(argv) != 2 or argv[0] != "--phases":
@@ -3889,9 +4327,11 @@ def _selected(argv):
     want = {int(x) for x in argv[1].split(",")}
     bad = want - set(PHASES)
     if bad:
-        raise SystemExit(f"no phase {sorted(bad)}; phases are 1-12")
+        raise SystemExit(f"no phase {sorted(bad)}; phases are 1-13")
     if 10 in want:
         want.add(9)
+    if 13 in want:
+        want.add(4)
     return want | {1, 2}
 
 
@@ -3933,6 +4373,7 @@ def main(argv=None):
         torch, card, tmp, records["dir"], records["solver"]))
     zoo = section(11, phase_zoo_all, torch, card, tmp)
     levers = section(12, phase_levers_all, torch, card, tmp)
+    fleet = section(13, lambda: phase_fleet(torch, card, served["prefix"]))
     total = time.perf_counter() - t_start
     print("[phases] " + json.dumps(
         {PHASES[n]: round(v, 1) for n, v in sorted(seconds.items())}))
@@ -3973,6 +4414,8 @@ def main(argv=None):
                 f"launches_{model}_iteration_by_remat": {
                     pol: per_iter[pol]["launches"][name]
                     for pol in REMAT_POLICIES},
+                **({"launches_fleet_r0": fleet["launches"][name]}
+                   if own_path.startswith("serve") else {}),
                 **({"launches_moe_lm_verb": zoo["moe_cli"]["launches"][name],
                     "launches_moe_lm_step": zoo["moe_step"]["launches"][
                         name]} if name in FLASH_KERNELS else {}),
@@ -4001,7 +4444,7 @@ def main(argv=None):
             "profile", "card_vs_cpu")}, **trained_cli},
         "lm": {"cli": lm_cli, "step": lm_step, "card_vs_cpu": lm_parity},
         "local_sgd": local_sgd, "records": records, "feeds": feeds,
-        "zoo": zoo, "levers": levers,
+        "zoo": zoo, "levers": levers, "fleet": fleet,
         "phase_seconds": {PHASES[n]: v for n, v in seconds.items()},
         "total_seconds": total}, default=str))
     print(json.dumps({"kernels": table}))

@@ -17,8 +17,8 @@
           and observability as in the JAX verb: ``--metrics`` (one JSONL
           stream: spans, steps, comms, memory, checkpoints), ``--profile``
           (a torch.profiler trace of one steady block), the signal
-          policies, ``--stall-seconds`` (exit 42 after an emergency
-          snapshot), ``--recover`` (rollback; exit 3 on abort),
+          policies, ``--stall-seconds`` (a ``watchdog`` event on a stall
+          or NaN), ``--recover`` (rollback; exit 3 on abort),
           ``--keep N``, ``--health-*``; ``--remat`` and ``--precision``.
           Its last line counts each CUDA kernel's launches in the run.
   test    score a model's TEST net over its data layer's source.
@@ -29,7 +29,18 @@
           batching into power-of-two buckets, hot reload on new
           snapshots, graceful SIGTERM/SIGINT drain (exit 0); exit 3 when
           the checkpoint has no servable model blob, before the socket
-          opens.
+          opens. ``--fleet_dir`` leases the replica into a serving fleet,
+          ``--chaos`` injects the serving faults, ``--metrics`` and
+          ``--trace_*`` write the request stream.
+  route   the serving fleet's router: replicas found through their
+          leases, least-queue-depth dispatch with retry-once failover,
+          SLO autoscaling decisions, canary rollback.
+  serve-bench
+          closed- and open-loop load against a replica or the router.
+  simfleet --serve
+          the serving fleet on a simulated clock (no device); the
+          training fleet's simulator exits 2 (ROADMAP A6d).
+  monitor a live terminal view of a --metrics stream.
   lm      train the transformer LM (models/zoo.py transformer_lm) on the
           synthetic bigram corpus with the single-device Solver: the
           corpus floor first, optional --metrics JSONL, snapshots and
@@ -70,7 +81,6 @@ import json
 import os
 import signal
 import sys
-import threading
 
 import numpy as np
 
@@ -373,11 +383,7 @@ def cmd_train(args):
         prefix = args.snapshot_prefix or (
             sp.snapshot_prefix if sp.has("snapshot_prefix") else None)
         if args.stall_seconds:
-            # a stall is killed: emergency snapshot, then exit 42
-            solver.arm_watchdog(
-                stall_seconds=args.stall_seconds, kill_on_stall=True,
-                **({"emergency_snapshot": lambda: solver.snapshot(
-                    prefix=prefix)} if prefix else {}))
+            solver.arm_watchdog(stall_seconds=args.stall_seconds)
         if args.recover:
             solver.arm_recovery(max_rollbacks=args.recover,
                                 lr_decay=args.recover_lr_decay,
@@ -877,17 +883,17 @@ class _NotPorted(argparse.Action):
 # flags of the JAX `train` and `cifar` verbs the port refuses: (flags,
 # takes a value, what is missing and where the roadmap has it)
 _TRAIN_NOT_PORTED = (
-    (("--chaos",), True, "fault injection, ROADMAP A6"),
-    (("--shard-ingest",), True, "per-host sharded ingest, ROADMAP A6"),
+    (("--chaos",), True, "fault injection in training, ROADMAP A6d"),
+    (("--shard-ingest",), True, "per-host sharded ingest, ROADMAP A6d"),
     (("--quorum", "--evict-after", "--readmit-after", "--staleness",
       "--s-decay", "--unpark-after", "--evict-stale-after"), True,
-     "elastic membership and bounded staleness, ROADMAP A6"),
+     "elastic membership and bounded staleness, ROADMAP A6d"),
     (("--heartbeat-dir", "--lease-s", "--heartbeat-interval"), True,
-     "the heartbeat and its relay, ROADMAP A6"),
-    (("--grow",), False, "the heartbeat and its relay, ROADMAP A6"),
+     "the heartbeat and its relay, ROADMAP A6d"),
+    (("--grow",), False, "the heartbeat and its relay, ROADMAP A6d"),
 )
 _CIFAR_NOT_PORTED = _TRAIN_NOT_PORTED + (
-    (("--hosts",), True, "hierarchical host fault domains, ROADMAP A6"),
+    (("--hosts",), True, "hierarchical host fault domains, ROADMAP A6d"),
     (("--fsdp", "--tp"), True, "sharding levers, ROADMAP A5"),
 )
 
@@ -908,7 +914,7 @@ def _add_not_ported(p, table):
     worlds)."""
     p.add_argument("--reshard", action=_NotPorted, default="strict",
                    allow=("strict",),
-                   what="cross-world resharding, ROADMAP A6",
+                   what="cross-world resharding, ROADMAP A6d",
                    help="strict only: a snapshot of another world is "
                         "refused with WorldMismatch")
     for flags, value, what in table:
@@ -920,35 +926,504 @@ def _add_not_ported(p, table):
 
 
 def cmd_serve(args):
-    from .serve import Batcher, ServeEngine, serve_http
+    """Weights-only inference over a snapshot prefix — continuous
+    batching, hot reload, graceful drain, as the JAX verb. Exit 0 after
+    a clean SIGTERM/SIGINT drain (or a router's drain order); exit 3
+    (EXIT_RECOVERY_ABORT) when the checkpoint has no servable model
+    blob, before the socket ever opens; exit 2 on a bad --chaos spec.
+    With --fleet_dir the replica leases into the fleet rendezvous
+    (serve/fleet.py) for the ``route`` verb to discover."""
+    from .obs.tracing import TraceSampler
+    from .serve import Batcher, ReplicaMember, ServeEngine, serve_http
+    from .utils.metrics import MetricsLogger
+    from .utils.signals import SignalPolicy
     _apply_perf_flags(args)   # before any net is built
     net_param = None
     if args.model:
         from .proto import text_format
         net_param = text_format.load(args.model, "NetParameter")
+    metrics = MetricsLogger(args.metrics) if args.metrics else None
+    chaos = None
+    if args.chaos:
+        from .resilience.chaos import ChaosMonkey
+        try:
+            chaos = ChaosMonkey.parse(args.chaos, metrics=metrics)
+        except ValueError as e:
+            print(f"sparknet_tpu_torch serve: error: {e}", file=sys.stderr)
+            if metrics:
+                metrics.close()
+            return EXIT_USAGE
     engine = ServeEngine(args.prefix, net_param=net_param,
-                         max_batch=args.max_batch, device=args.device)
+                         max_batch=args.max_batch, device=args.device,
+                         metrics=metrics)
     try:
         engine.load()
     except ValueError as e:
         print(f"sparknet_tpu_torch serve: error: {e}", file=sys.stderr)
+        if metrics:
+            metrics.close()
         return EXIT_RECOVERY_ABORT
     if not args.no_warmup:
         engine.warmup()           # builds the kernels, runs every bucket
     batcher = Batcher(max_batch=args.max_batch,
                       max_wait_s=args.max_wait_ms / 1e3,
-                      queue_limit=args.queue_limit)
-    stop = threading.Event()
+                      queue_limit=args.queue_limit, metrics=metrics)
+    member = None
+    if args.fleet_dir:
+        member = ReplicaMember(args.fleet_dir, args.replica,
+                               replicas=args.replicas, engine=engine,
+                               batcher=batcher,
+                               interval_s=args.heartbeat_interval,
+                               lease_s=args.lease, metrics=metrics)
+    tracer = TraceSampler(sample=args.trace_sample,
+                          tail_ms=args.trace_tail_ms)
     # SIGTERM = the scheduler's preemption notice -> drain, exit 0
-    previous = {s: signal.signal(s, lambda *_: stop.set())
-                for s in (signal.SIGTERM, signal.SIGINT)}
+    policy = SignalPolicy(sigint="stop", sighup="none", sigterm="stop")
+    with policy:
+        rc = serve_http(engine, batcher, host=args.host, port=args.port,
+                        metrics=metrics, policy=policy,
+                        reload_poll_s=args.reload_poll,
+                        request_timeout_s=args.request_timeout,
+                        member=member, chaos=chaos,
+                        replica=args.replica, tracer=tracer)
+    if metrics:
+        metrics.close()
+    return rc
+
+
+def cmd_route(args):
+    """The serving-fleet router (serve/fleet.py): lease-based membership
+    over --fleet_dir, least-queue-depth dispatch with retry-once
+    failover, SLO autoscaling decisions, canary auto-rollback. Exit 0
+    after a clean SIGTERM/SIGINT drain; a fleet with no live replica
+    answers 503s and waits for capacity to lease back in. Plain Python:
+    no device."""
+    from .obs.tracing import BurnRateLedger, TraceSampler
+    from .serve import CanaryController, Router, SLOAutoscaler, route_http
+    from .utils.metrics import MetricsLogger
+    from .utils.signals import SignalPolicy
+    metrics = MetricsLogger(args.metrics) if args.metrics else None
+    canary = CanaryController(
+        pct=args.canary_pct, min_requests=args.canary_min_requests,
+        max_err_delta=args.canary_err_delta,
+        max_p99_delta_ms=args.canary_p99_delta_ms, metrics=metrics)
+    tracer = TraceSampler(sample=args.trace_sample,
+                          tail_ms=args.trace_tail_ms)
+    slo = None
+    if not args.no_slo_burn:
+        slo = BurnRateLedger(
+            slo_ms=(args.slo_ms if args.slo_ms is not None
+                    else args.slo_p99_ms),
+            objective=args.slo_objective, scale=args.burn_scale,
+            metrics=metrics)
+    router = Router(args.fleet_dir, replicas=args.replicas,
+                    lease_s=args.lease, canary=canary, metrics=metrics,
+                    tracer=tracer, slo=slo)
+    autoscaler = None
+    if not args.no_autoscale:
+        autoscaler = SLOAutoscaler(
+            p99_ms=args.slo_p99_ms, depth=args.slo_depth,
+            windows=args.breach_windows, idle_windows=args.idle_windows,
+            min_replicas=args.min_replicas,
+            max_replicas=args.max_replicas, metrics=metrics)
+    policy = SignalPolicy(sigint="stop", sighup="none", sigterm="stop")
+    with policy:
+        rc = route_http(router, autoscaler=autoscaler, host=args.host,
+                        port=args.port, window_s=args.window_s,
+                        policy=policy, request_timeout_s=args.request_timeout)
+    if metrics:
+        metrics.close()
+    return rc
+
+
+def cmd_serve_bench(args):
+    """Load-generate against a running ``serve`` replica or ``route``
+    router (closed and/or open loop); exit 1 when any request failed."""
+    from .serve import run_loadgen
+    from .utils.metrics import MetricsLogger
+    metrics = MetricsLogger(args.metrics) if args.metrics else None
+    modes = ("closed", "open") if args.mode == "both" else (args.mode,)
+    results = []
+    for mode in modes:
+        results.append(run_loadgen(
+            args.url, mode=mode, concurrency=args.concurrency,
+            rate=args.rate, duration_s=args.duration, rows=args.rows,
+            timeout=args.request_timeout, metrics=metrics))
+    if metrics:
+        metrics.close()
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(results, f, indent=1)
+    bad = sum(r["errors"] for r in results)
+    return 0 if bad == 0 else 1
+
+
+def cmd_monitor(args):
+    """Tail a --metrics JSONL and render a live terminal summary
+    (obs/monitor.py): round/iter/loss, per-worker losses, divergence,
+    stragglers, memory, the serving fleet, last health alarm."""
+    from .obs import monitor as obs_monitor
+    from .obs.report import MetricsFileError
     try:
-        return serve_http(engine, batcher, host=args.host, port=args.port,
-                          reload_poll_s=args.reload_poll, stop_event=stop,
-                          request_timeout_s=args.request_timeout)
+        state = obs_monitor.monitor_file(
+            args.jsonl, interval=args.interval, once=args.once,
+            wait=args.wait, duration=args.duration)
+    except MetricsFileError as e:
+        print(f"sparknet_tpu_torch monitor: error: {e}", file=sys.stderr)
+        return EXIT_USAGE
+    except BrokenPipeError:
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+        return 0
+    return 0 if state.events else EXIT_USAGE
+
+
+def _print_serve_sim(s):
+    print(f"servefleet: {s['replicas']} replicas x "
+          f"{s['windows']} windows (sim {s['sim_s']}s) "
+          f"trace={s['trace']} rate={s['rate']:g}/s "
+          f"lease={s['lease_s']:g} interval={s['interval_s']:g}")
+    print(f"traffic: {s['arrivals']} arrivals -> {s['ok']} ok, "
+          f"{s['rejected']} rejected (429), {s['errors']} "
+          f"errors, {s['retries']} retried; lost {s['lost']}")
+    print(f"availability {s['availability']}  "
+          f"p99 {s['p99_ms']}ms"
+          + (f"  top stage {s['top_stage']}"
+             if s.get("top_stage") else ""))
+    if s.get("burn"):
+        b = s["burn"]
+        print(f"slo burn: fast x{b.get('fast')}"
+              f"/{b.get('fast_long')} slow x{b.get('slow')}"
+              f"/{b.get('slow_long')} budget left "
+              f"{b.get('budget_left')}"
+              + (f"  ALERT {b['alert']}" if b.get("alert") else ""))
+    print(f"membership: {s['evictions']} evictions, "
+          f"{s['readmissions']} readmissions, "
+          f"{s['admissions']} admissions; final live "
+          f"{s['replicas_final']}; grow {s['grow']} shrink "
+          f"{s['shrink']}; canary rollbacks "
+          f"{s['canary_rollbacks']}"
+          + ("  QUORUM LOST" if s["quorum_lost"] else ""))
+
+
+def cmd_simfleet(args):
+    """The serving-fleet simulator (sim/servefleet.py, ``--serve``):
+    virtual replicas and the real router, autoscaler and canary under
+    open-loop arrival traces on a simulated clock. Exit 0 on success, 1
+    on a lost serving request (no-lost-request-without-429 invariant),
+    2 on a bad chaos/sweep spec or without --serve (the training fleet's
+    simulator waits for ROADMAP A6d), 4 (EXIT_QUORUM_LOST) when the
+    simulated fleet loses quorum. Plain Python: no device."""
+    from .sim import ServeFleetSim, sweep
+    from .utils.exit_codes import EXIT_QUORUM_LOST
+    from .utils.metrics import MetricsLogger
+    if not args.serve:
+        print("sparknet_tpu_torch simfleet: the training fleet's simulator "
+              "(--record_real, --replay, FleetSim) is not ported "
+              "(ROADMAP A6d); --serve runs the serving fleet's",
+              file=sys.stderr)
+        return EXIT_USAGE
+    metrics = MetricsLogger(args.metrics) if args.metrics else None
+    log = print if args.verbose else None
+    try:
+        if args.sweep:
+            cells = []
+            for spec in args.sweep:
+                cells.extend(sweep.parse_serve_grid(spec))
+            results = sweep.run_sweep(cells, metrics=metrics, log_fn=print,
+                                      budget_s=args.budget_s,
+                                      cell_fn=sweep.run_serve_cell)
+            print(sweep.render_serve_table(results))
+            if args.json:
+                with open(args.json, "w") as f:
+                    json.dump(results, f, indent=1)
+            lost = sum(r["lost"] for r in results)
+            if lost:
+                print(f"sparknet_tpu_torch simfleet: {lost} request(s) "
+                      "LOST without an explicit 429/5xx — the serving "
+                      "invariant is broken", file=sys.stderr)
+                return 1
+            return 0
+        sim = ServeFleetSim(
+            replicas=args.replicas, windows=args.windows,
+            window_s=args.window_s, interval_s=args.interval,
+            lease_s=args.lease, service_ms=args.service_ms,
+            queue_limit=args.queue_limit, rate=args.rate,
+            trace=args.trace, spike_x=args.spike_x,
+            slo_p99_ms=args.slo_p99_ms, slo_depth=args.slo_depth,
+            breach_windows=args.breach_windows,
+            idle_windows=args.idle_windows,
+            max_replicas=args.max_replicas, canary_w=args.canary_w,
+            canary_pct=args.canary_pct, canary_err=args.canary_err,
+            canary_min_requests=args.canary_min_requests,
+            die_w=args.die_w, rejoin_w=args.rejoin_w,
+            chaos=args.chaos, seed=args.seed,
+            trace_sample=args.trace_sample,
+            tail_ms=args.trace_tail_ms, slo_burn=args.slo_burn,
+            burn_scale=args.burn_scale, metrics=metrics, log_fn=log)
+        s = sim.run()
+        _print_serve_sim(s)
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(s, f, indent=1)
+        if s["quorum_lost"]:
+            return EXIT_QUORUM_LOST
+        return 1 if s["lost"] else 0
+    except ValueError as e:
+        print(f"sparknet_tpu_torch simfleet: error: {e}", file=sys.stderr)
+        return EXIT_USAGE
     finally:
-        for s, h in previous.items():
-            signal.signal(s, h)
+        if metrics:
+            metrics.close()
+
+
+def _add_fleet_parsers(sub):
+    """The serving fleet's verbs — route, serve-bench, simfleet --serve
+    and monitor — with the JAX verbs' flags and defaults. None of them
+    touches a device."""
+    rt = sub.add_parser(
+        "route",
+        help="serving-fleet router: discovers `serve --fleet_dir` "
+             "replicas through their leases, spreads POST /predict by "
+             "least queue depth with retry-once failover, makes SLO "
+             "autoscaling decisions, auto-rolls-back a bad canary "
+             "checkpoint")
+    rt.add_argument("--fleet_dir", required=True,
+                    help="the fleet rendezvous directory replicas "
+                         "lease into")
+    rt.add_argument("--host", default="127.0.0.1")
+    rt.add_argument("--port", type=int, default=0,
+                    help="0 = pick a free port (announced on stdout)")
+    rt.add_argument("--replicas", type=int, default=1,
+                    help="expected initial fleet size (late replicas "
+                         "grow the world on admission)")
+    rt.add_argument("--lease", type=float, default=3.0,
+                    help="lease_s: a replica whose beat is staler "
+                         "than this is evicted (failover window)")
+    rt.add_argument("--window_s", type=float, default=1.0,
+                    help="membership/SLO evaluation cadence")
+    rt.add_argument("--request_timeout", type=float, default=30.0,
+                    help="per-dispatch timeout toward a replica")
+    rt.add_argument("--no_autoscale", action="store_true",
+                    help="disable SLO autoscaling decisions")
+    rt.add_argument("--slo_p99_ms", type=float, default=500.0,
+                    help="autoscaler p99 target")
+    rt.add_argument("--slo_depth", type=int, default=32,
+                    help="autoscaler queue-depth target")
+    rt.add_argument("--breach_windows", type=int, default=3,
+                    help="consecutive breach windows before a grow "
+                         "decision (scale events; an orchestrator "
+                         "launches the replica)")
+    rt.add_argument("--idle_windows", type=int, default=30,
+                    help="consecutive idle windows before a shrink "
+                         "(drain order to the highest replica)")
+    rt.add_argument("--min_replicas", type=int, default=1)
+    rt.add_argument("--max_replicas", type=int, default=8)
+    rt.add_argument("--canary_pct", type=float, default=20.0,
+                    help="traffic share for a second checkpoint sha "
+                         "while a canary is in flight")
+    rt.add_argument("--canary_min_requests", type=int, default=20,
+                    help="canary responses required before a verdict")
+    rt.add_argument("--canary_err_delta", type=float, default=0.05,
+                    help="rollback when canary error rate exceeds "
+                         "baseline by this")
+    rt.add_argument("--canary_p99_delta_ms", type=float, default=500.0,
+                    help="rollback when canary p99 exceeds baseline "
+                         "by this")
+    rt.add_argument("--metrics", help="JSONL metrics output path "
+                                      "(route/scale/canary + "
+                                      "membership events)")
+    rt.add_argument("--trace_sample", type=float, default=1.0,
+                    help="serve_trace head-sampling rate at the "
+                         "router (1.0 = every request)")
+    rt.add_argument("--trace_tail_ms", type=float, default=250.0,
+                    help="always keep serve_trace exemplars at/above "
+                         "this latency, regardless of sampling")
+    rt.add_argument("--slo_ms", type=float, default=None,
+                    help="error-budget SLO latency bound (default: "
+                         "--slo_p99_ms)")
+    rt.add_argument("--slo_objective", type=float, default=0.999,
+                    help="error-budget availability objective "
+                         "(fraction of requests that must be good)")
+    rt.add_argument("--burn_scale", type=float, default=1.0,
+                    help="burn-rate window scale (0.01 shrinks the "
+                         "5m/1h/6h windows 100x for short runs)")
+    rt.add_argument("--no_slo_burn", action="store_true",
+                    help="disable the SLO error-budget ledger")
+    rt.set_defaults(fn=cmd_route)
+
+    sb = sub.add_parser(
+        "serve-bench",
+        help="load-generate against a running serve replica or route "
+             "router (closed loop = capacity, open loop = honest tail "
+             "latency at a fixed arrival rate)")
+    sb.add_argument("--url", required=True,
+                    help="server base URL, e.g. http://127.0.0.1:8080")
+    sb.add_argument("--mode", choices=("closed", "open", "both"),
+                    default="closed")
+    sb.add_argument("--concurrency", type=int, default=4,
+                    help="closed loop: workers with one request in "
+                         "flight each (also bounds open-loop dispatch)")
+    sb.add_argument("--rate", type=float, default=50.0,
+                    help="open loop: offered requests/second")
+    sb.add_argument("--duration", type=float, default=5.0,
+                    help="seconds per mode")
+    sb.add_argument("--rows", type=int, default=1,
+                    help="rows per request")
+    sb.add_argument("--request_timeout", type=float, default=10.0)
+    sb.add_argument("--metrics", help="JSONL metrics output path "
+                                      "(bench rows)")
+    sb.add_argument("--json", help="write per-mode summaries here")
+    sb.set_defaults(fn=cmd_serve_bench)
+
+    mo = sub.add_parser("monitor",
+                        help="tail a --metrics JSONL and render a live "
+                             "terminal summary (round/loss per worker, "
+                             "divergence, stragglers, memory, the "
+                             "serving fleet, alarms)")
+    mo.add_argument("jsonl", help="metrics JSONL a run is writing "
+                                  "via --metrics")
+    mo.add_argument("--interval", type=float, default=1.0,
+                    help="refresh period in seconds")
+    mo.add_argument("--once", action="store_true",
+                    help="render the current state once and exit")
+    mo.add_argument("--wait", action="store_true",
+                    help="wait for the file to appear instead of erroring "
+                         "(a run that hasn't started writing yet)")
+    mo.add_argument("--duration", type=float, default=None,
+                    help="stop after this many seconds (default: forever)")
+    mo.set_defaults(fn=cmd_monitor)
+
+    sf = sub.add_parser(
+        "simfleet",
+        help="discrete-event simulator of the serving fleet (--serve): "
+             "virtual replicas drive the real router, autoscaler and "
+             "canary on a simulated clock and an in-memory rendezvous; "
+             "the training fleet's simulator waits for ROADMAP A6d")
+    # the JAX verb's training-fleet flags: parsed with its defaults, and
+    # refused (exit 2) unless --serve is given
+    sf.add_argument("--hosts", type=int, default=64,
+                    help="(training fleet, not ported) virtual fleet size")
+    sf.add_argument("--rounds", type=int, default=50,
+                    help="(training fleet, not ported) rounds")
+    sf.add_argument("--interval", type=float, default=0.5,
+                    help="heartbeat interval_s, simulated seconds")
+    sf.add_argument("--lease", type=float, default=3.0,
+                    help="heartbeat lease_s, simulated seconds")
+    sf.add_argument("--round_s", type=float, default=None,
+                    help="(training fleet, not ported)")
+    sf.add_argument("--tau", type=int, default=4,
+                    help="(training fleet, not ported)")
+    sf.add_argument("--step_s", type=float, default=0.25,
+                    help="(training fleet, not ported)")
+    sf.add_argument("--jitter", type=float, default=0.15,
+                    help="(training fleet, not ported)")
+    sf.add_argument("--quorum", type=int, default=1,
+                    help="(training fleet, not ported)")
+    sf.add_argument("--evict_after", type=int, default=1,
+                    help="(training fleet, not ported)")
+    sf.add_argument("--readmit_after", type=int, default=0,
+                    help="(training fleet, not ported)")
+    sf.add_argument("--staleness", type=int, default=None,
+                    help="(training fleet, not ported)")
+    sf.add_argument("--s_decay", type=float, default=0.5,
+                    help="(training fleet, not ported)")
+    sf.add_argument("--consensus",
+                    choices=("auto", "sync", "async", "none"),
+                    default="auto", help="(training fleet, not ported)")
+    sf.add_argument("--recover_after", type=int, default=0,
+                    help="(training fleet, not ported)")
+    sf.add_argument("--chaos",
+                    help="chaos spec, e.g. 'kill_replica=1,kill_req=40' "
+                         "or 'slow_replica=0,slow_ms=50' "
+                         "(resilience/chaos.py)")
+    sf.add_argument("--seed", type=int, default=0,
+                    help="master seed: same spec + seed = same "
+                         "timeline, to the event")
+    sf.add_argument("--metrics",
+                    help="JSONL metrics output — the standard stream; "
+                         "renders through the report and monitor verbs "
+                         "unchanged")
+    sf.add_argument("--json", help="write the summary (or sweep "
+                                   "results) JSON here")
+    sf.add_argument("--sweep", action="append", metavar="GRID",
+                    help="axis grid 'replicas=2:4,trace=spike:flash' "
+                         "(Cartesian; repeatable — cells accumulate)")
+    sf.add_argument("--budget_s", type=float, default=None,
+                    help="real wall-clock budget for a sweep; unfired "
+                         "cells are reported, never silently dropped")
+    sf.add_argument("--record_real", metavar="OUT",
+                    help="(training fleet, not ported: ROADMAP A6d)")
+    sf.add_argument("--replay", metavar="REC",
+                    help="(training fleet, not ported: ROADMAP A6d)")
+    sf.add_argument("-v", "--verbose", action="store_true",
+                    help="log the simulated fleet's membership story")
+    sf.add_argument("--serve", action="store_true",
+                    help="simulate the serving fleet: virtual replicas + "
+                         "the REAL router/autoscaler/canary under "
+                         "open-loop arrival traces; exit 1 when any "
+                         "request is lost without an explicit 429/5xx")
+    sf.add_argument("--replicas", type=int, default=3,
+                    help="(--serve) initial replica count")
+    sf.add_argument("--windows", type=int, default=30,
+                    help="(--serve) router windows to simulate")
+    sf.add_argument("--window_s", type=float, default=1.0,
+                    help="(--serve) router window, simulated seconds")
+    sf.add_argument("--service_ms", type=float, default=20.0,
+                    help="(--serve) per-request service time")
+    sf.add_argument("--queue_limit", type=int, default=64,
+                    help="(--serve) per-replica queue bound (429 past "
+                         "it)")
+    sf.add_argument("--rate", type=float, default=40.0,
+                    help="(--serve) base arrival rate, req/s")
+    sf.add_argument("--trace",
+                    choices=("flat", "diurnal", "spike", "flash"),
+                    default="flat",
+                    help="(--serve) open-loop arrival shape")
+    sf.add_argument("--spike_x", type=float, default=4.0,
+                    help="(--serve) spike/flash rate multiplier")
+    sf.add_argument("--slo_p99_ms", type=float, default=500.0,
+                    help="(--serve) autoscaler p99 target")
+    sf.add_argument("--slo_depth", type=int, default=32,
+                    help="(--serve) autoscaler queue-depth target")
+    sf.add_argument("--breach_windows", type=int, default=3,
+                    help="(--serve) consecutive breach windows before "
+                         "grow")
+    sf.add_argument("--idle_windows", type=int, default=10,
+                    help="(--serve) consecutive idle windows before "
+                         "shrink")
+    sf.add_argument("--max_replicas", type=int, default=8,
+                    help="(--serve) autoscaler growth ceiling")
+    sf.add_argument("--canary_w", type=int, default=0,
+                    help="(--serve) window at which one replica "
+                         "hot-reloads to a faulty sha (0 = never)")
+    sf.add_argument("--canary_pct", type=float, default=20.0,
+                    help="(--serve) canary traffic percentage")
+    sf.add_argument("--canary_err", type=float, default=1.0,
+                    help="(--serve) canary per-request fault "
+                         "probability")
+    sf.add_argument("--canary_min_requests", type=int, default=10,
+                    help="(--serve) canary verdict sample floor")
+    sf.add_argument("--die_w", type=int, default=None,
+                    help="(--serve) window at which the lowest live "
+                         "replica dies (deterministic kill)")
+    sf.add_argument("--rejoin_w", type=int, default=None,
+                    help="(--serve) window at which a dead replica "
+                         "rejoins")
+    sf.add_argument("--trace_sample", type=float, default=1.0,
+                    help="(--serve) serve_trace head-sampling rate "
+                         "(1.0 = every request)")
+    sf.add_argument("--trace_tail_ms", type=float, default=None,
+                    help="(--serve) always keep serve_trace exemplars "
+                         "at/above this latency, regardless of "
+                         "sampling")
+    sf.add_argument("--slo_burn", action="store_true",
+                    help="(--serve) track the SLO error budget and "
+                         "multi-window burn-rate alerts")
+    sf.add_argument("--burn_scale", type=float, default=1.0,
+                    help="(--serve) burn-rate window scale (0.01 "
+                         "shrinks the 5m/1h/6h windows 100x for "
+                         "short sims)")
+    sf.set_defaults(fn=cmd_simfleet)
 
 
 def main(argv=None):
@@ -993,8 +1468,9 @@ def main(argv=None):
                         "spans as spans.trace.json")
     t.add_argument("--stall-seconds", type=float, default=0,
                    help="arm a stall/NaN watchdog with this timeout: a "
-                        "stall takes an emergency snapshot under the "
-                        "snapshot prefix and exits 42")
+                        "stall or a NaN is printed and, with --metrics, "
+                        "logged as a `watchdog` event, as in the JAX verb; "
+                        "the run goes on")
     for sig, effect in (("sigint", "stop"), ("sighup", "snapshot"),
                         ("sigterm", "snapshot_stop")):
         t.add_argument(f"--{sig}_effect", default=effect,
@@ -1142,11 +1618,40 @@ def main(argv=None):
                     help="per-request inference timeout (504 past it)")
     sv.add_argument("--no_warmup", action="store_true",
                     help="skip running every bucket before traffic")
+    sv.add_argument("--metrics", help="JSONL metrics output path")
+    sv.add_argument("--fleet_dir",
+                    help="fleet rendezvous directory: lease this "
+                         "replica into the serving fleet "
+                         "(serve/fleet.py) for the route verb")
+    sv.add_argument("--replica", type=int, default=0,
+                    help="this replica's id in the fleet (also tags "
+                         "the chaos injectors)")
+    sv.add_argument("--replicas", type=int, default=0,
+                    help="initial fleet size hint (a higher --replica "
+                         "grows the world through admission)")
+    sv.add_argument("--lease", type=float, default=3.0,
+                    help="fleet lease_s: the router evicts this "
+                         "replica when its beat goes stale past this")
+    sv.add_argument("--heartbeat_interval", type=float, default=0.5,
+                    help="fleet beat cadence (also bounds how stale "
+                         "the router's queue-depth view can be)")
+    sv.add_argument("--chaos",
+                    help="chaos spec, e.g. 'kill_replica=0,kill_req=20'"
+                         " (SIGKILL self after the 20th request) or "
+                         "'slow_replica=0,slow_ms=50' "
+                         "(resilience/chaos.py)")
+    sv.add_argument("--trace_sample", type=float, default=1.0,
+                    help="serve_trace head-sampling rate (1.0 = every "
+                         "request emits a trace event)")
+    sv.add_argument("--trace_tail_ms", type=float, default=250.0,
+                    help="always keep serve_trace exemplars at/above "
+                         "this latency, regardless of sampling")
     sv.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; the "
                          "CPU runs only when asked: --device cpu)")
     _add_perf_flags(sv, scan=True)
     sv.set_defaults(fn=cmd_serve)
+    _add_fleet_parsers(sub)
     lm = sub.add_parser("lm", help="train the transformer LM on the "
                                    "synthetic bigram corpus")
     lm.add_argument("--vocab", type=int, default=512)

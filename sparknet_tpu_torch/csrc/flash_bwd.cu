@@ -11,7 +11,7 @@
 //   dV_j   = sum_i P_ij^T dO_i                    (the dK/dV kernel)
 //   dK_j   = scale * sum_i dS_ij^T Q_i           (the dK/dV kernel)
 // The product is scaled (not Q), as the TPU backward does. Storage f32 or
-// bf16, head_dim 16, 32, 64 or 128, any sequence length. Two kernels and
+// bf16, head_dim 16, 32, 64, 128 or 256, any sequence length. Two kernels and
 // no atomics: every output element is summed by one thread in a fixed
 // order, so the result is the same launch after launch.
 //
@@ -58,21 +58,29 @@
 //    version (tests/test_torch_flash_rounding.py; chip_smoke.py's limit
 //    5e-3). S, dP, delta and the dQ, dK, dV sums stay in f32; the
 //    outputs are rounded once.
+//  - Head_dim 256: the dK and dV accumulators of all columns (2 x 128 f32
+//    a thread) would not fit in registers, so the grid's z axis splits
+//    the output columns in 128-wide halves (kOutCols, flash_mma.cuh):
+//    each CTA recomputes S and dP over all of D and accumulates its half
+//    of dQ (or dK and dV); the first writes delta. Its tiles of all D
+//    columns take ~198 KB: one CTA an SM.
 //  - Registers a thread, shared memory and CTAs per SM, as the runtime
 //    reports them on the H100 (sparknet_flash_backward_info, printed and
 //    checked by chip_smoke.py phase 6); no instantiation spills:
-//        D            16       32       64       128
-//        dQ     125 18 KB 4  153 30 KB 3  190 54 KB 2  234 102 KB 2
-//        dK/dV  140 19 KB 3  170 31 KB 2  226 55 KB 2  244 103 KB 2
+//        D            16       32       64       128          256
+//        dQ     125 18 KB 4  153 30 KB 3  190 54 KB 2  234 102 KB 2  242 198 KB 1
+//        dK/dV  140 19 KB 3  170 31 KB 2  226 55 KB 2  244 103 KB 2  254 199 KB 1
 //    At the LM's shape: dQ 0.79-0.84 ms, dK/dV 1.03-1.10 ms, 244-268
 //    TFLOP/s (PERF.md).
 //
 // f32 storage (flash_dq_kernel, flash_dkv_kernel) keeps CUDA-core
 // products in f32: the f32 checks (5e-4 of the largest element; the small
 // LM's card-vs-CPU gradients within 1e-4) need f32 products, which TF32
-// tensor cores would not give. A CTA of 256 threads owns one 64-row tile
-// staged in f32 with row stride D + 1; 4x4 register blocks. The storage
-// type picks the kernel and nothing else does.
+// tensor cores would not give. A CTA of 256 threads owns one R-row tile
+// (R = kRows<D>: 64; 32 at D = 256, where four f32 tiles of D + 1
+// columns must fit) staged in f32 with row stride D + 1; R/16 x R/16
+// register blocks. The storage type picks the kernel and nothing else
+// does.
 
 #include <type_traits>
 
@@ -89,14 +97,15 @@ __global__ void __launch_bounds__(kThreads)
                     T* __restrict__ dq, float* __restrict__ delta, int seq,
                     float scale, int causal) {
   extern __shared__ float smem[];
-  constexpr int LD = D + 1, NJ = D / 16;
-  float* qs = smem;                  // kBlockQ x LD
-  float* dos = qs + kBlockQ * LD;    // kBlockQ x LD
-  float* ks = dos + kBlockQ * LD;    // kBlockK x LD
-  float* vs = ks + kBlockK * LD;     // kBlockK x LD
-  float* dss = vs + kBlockK * LD;    // kBlockQ x kLP
+  constexpr int R = kRows<D>, RI = R / 16, LD = D + 1, LP = R + 1;
+  constexpr int NJ = D / 16;
+  float* qs = smem;                  // R x LD
+  float* dos = qs + R * LD;          // R x LD
+  float* ks = dos + R * LD;          // R x LD
+  float* vs = ks + R * LD;           // R x LD
+  float* dss = vs + R * LD;          // R x LP
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * R;
   const long long base = static_cast<long long>(blockIdx.y) * seq * D;
   q += base;
   k += base;
@@ -107,18 +116,18 @@ __global__ void __launch_bounds__(kThreads)
   lse += static_cast<long long>(blockIdx.y) * seq;
   delta += static_cast<long long>(blockIdx.y) * seq;
 
-  load_tile<T, D>(qs, q, q0, seq, 1.f);
-  load_tile<T, D>(dos, dout, q0, seq, 1.f);
+  load_tile<T, D, R>(qs, q, q0, seq, 1.f);
+  load_tile<T, D, R>(dos, dout, q0, seq, 1.f);
   __syncthreads();
-  float lse_r[4], delta_r[4], acc[4][NJ];
+  float lse_r[RI], delta_r[RI], acc[RI][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int r = q0 + ty * RI + i;
     float part = 0.f;
     if (r < seq) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        part += dos[(ty * 4 + i) * LD + tx + 16 * j] *
+        part += dos[(ty * RI + i) * LD + tx + 16 * j] *
                 to_f32(o[static_cast<long long>(r) * D + tx + 16 * j]);
     }
     delta_r[i] = row_sum16(part);
@@ -127,32 +136,32 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
-  const int k_end = causal ? min(seq, q0 + kBlockQ) : seq;
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
+  const int k_end = causal ? min(seq, q0 + R) : seq;
+  for (int k0 = 0; k0 < k_end; k0 += R) {
     __syncthreads();                 // the last tile's readers are done
-    load_tile<T, D>(ks, k, k0, seq, 1.f);
-    load_tile<T, D>(vs, v, k0, seq, 1.f);
+    load_tile<T, D, R>(ks, k, k0, seq, 1.f);
+    load_tile<T, D, R>(vs, v, k0, seq, 1.f);
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot<D>(s, qs, ks, ty, tx);
-    tile_dot<D>(dp, dos, vs, ty, tx);
+    float s[RI][RI] = {}, dp[RI][RI] = {};
+    tile_dot<D, R>(s, qs, ks, ty, tx);
+    tile_dot<D, R>(dp, dos, vs, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
+    for (int i = 0; i < RI; ++i) {
+      const int r = q0 + ty * RI + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int c = k0 + tx + 16 * j;
         const float p =
             masked(r, c, seq, causal) ? 0.f : expf(scale * s[i][j] - lse_r[i]);
-        dss[(ty * 4 + i) * kLP + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
+        dss[(ty * RI + i) * LP + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
       }
     }
     __syncthreads();
-    tile_mul<D, false>(acc, dss, ks, ty, tx);
+    tile_mul<D, R, false>(acc, dss, ks, ty, tx);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int r = q0 + ty * RI + i;
     if (r >= seq) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
@@ -169,17 +178,18 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int seq, float scale, int causal) {
   extern __shared__ float smem[];
-  constexpr int LD = D + 1, NJ = D / 16;
-  float* ks = smem;                  // kBlockK x LD (this CTA's keys)
-  float* vs = ks + kBlockK * LD;     // kBlockK x LD
-  float* qs = vs + kBlockK * LD;     // kBlockQ x LD
-  float* dos = qs + kBlockQ * LD;    // kBlockQ x LD
-  float* ps = dos + kBlockQ * LD;    // kBlockQ x kLP
-  float* dss = ps + kBlockQ * kLP;   // kBlockQ x kLP
-  float* lse_s = dss + kBlockQ * kLP;  // kBlockQ
-  float* delta_s = lse_s + kBlockQ;    // kBlockQ
+  constexpr int R = kRows<D>, RI = R / 16, LD = D + 1, LP = R + 1;
+  constexpr int NJ = D / 16;
+  float* ks = smem;                  // R x LD (this CTA's keys)
+  float* vs = ks + R * LD;           // R x LD
+  float* qs = vs + R * LD;           // R x LD
+  float* dos = qs + R * LD;          // R x LD
+  float* ps = dos + R * LD;          // R x LP
+  float* dss = ps + R * LP;          // R x LP
+  float* lse_s = dss + R * LP;       // R
+  float* delta_s = lse_s + R;        // R
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int k0 = blockIdx.x * kBlockK;
+  const int k0 = blockIdx.x * R;
   const long long base = static_cast<long long>(blockIdx.y) * seq * D;
   q += base;
   k += base;
@@ -190,48 +200,48 @@ __global__ void __launch_bounds__(kThreads)
   lse += static_cast<long long>(blockIdx.y) * seq;
   delta += static_cast<long long>(blockIdx.y) * seq;
 
-  load_tile<T, D>(ks, k, k0, seq, 1.f);
-  load_tile<T, D>(vs, v, k0, seq, 1.f);
-  float dk_acc[4][NJ], dv_acc[4][NJ];
+  load_tile<T, D, R>(ks, k, k0, seq, 1.f);
+  load_tile<T, D, R>(vs, v, k0, seq, 1.f);
+  float dk_acc[RI][NJ], dv_acc[RI][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
   // causal: query tiles wholly above the diagonal are skipped
-  const int q_start = causal ? (k0 / kBlockQ) * kBlockQ : 0;
-  for (int q0 = q_start; q0 < seq; q0 += kBlockQ) {
+  const int q_start = causal ? k0 : 0;
+  for (int q0 = q_start; q0 < seq; q0 += R) {
     __syncthreads();                 // the last tile's readers are done
-    load_tile<T, D>(qs, q, q0, seq, 1.f);
-    load_tile<T, D>(dos, dout, q0, seq, 1.f);
-    for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
+    load_tile<T, D, R>(qs, q, q0, seq, 1.f);
+    load_tile<T, D, R>(dos, dout, q0, seq, 1.f);
+    for (int i = threadIdx.x; i < R; i += kThreads) {
       const int r = q0 + i;
       lse_s[i] = r < seq ? lse[r] : 0.f;
       delta_s[i] = r < seq ? delta[r] : 0.f;
     }
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_dot<D>(s, qs, ks, ty, tx);
-    tile_dot<D>(dp, dos, vs, ty, tx);
+    float s[RI][RI] = {}, dp[RI][RI] = {};
+    tile_dot<D, R>(s, qs, ks, ty, tx);
+    tile_dot<D, R>(dp, dos, vs, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = ty * 4 + i, r = q0 + rl;
+    for (int i = 0; i < RI; ++i) {
+      const int rl = ty * RI + i, r = q0 + rl;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int c = k0 + tx + 16 * j;
         const float p =
             masked(r, c, seq, causal) ? 0.f : expf(scale * s[i][j] - lse_s[rl]);
-        ps[rl * kLP + tx + 16 * j] = p;
-        dss[rl * kLP + tx + 16 * j] = p * (dp[i][j] - delta_s[rl]);
+        ps[rl * LP + tx + 16 * j] = p;
+        dss[rl * LP + tx + 16 * j] = p * (dp[i][j] - delta_s[rl]);
       }
     }
     __syncthreads();
     // rows of the accumulators are this CTA's keys: P^T dO and dS^T Q
-    tile_mul<D, true>(dv_acc, ps, dos, ty, tx);
-    tile_mul<D, true>(dk_acc, dss, qs, ty, tx);
+    tile_mul<D, R, true>(dv_acc, ps, dos, ty, tx);
+    tile_mul<D, R, true>(dk_acc, dss, qs, ty, tx);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int c = k0 + ty * RI + i;
     if (c >= seq) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -254,7 +264,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
                         const float* __restrict__ lse, bf16* __restrict__ dq,
                         float* __restrict__ delta, int seq, float scale,
                         int causal) {
-  constexpr int LD = D + 8, TILE = kBlockQ * LD, KD = D / 16, ND = D / 8;
+  constexpr int LD = D + 8, TILE = kBlockQ * LD, KD = D / 16;
+  constexpr int DO = kOutCols<D>, KO = DO / 16, NO = DO / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // this CTA's 64 queries
   bf16* dos = qs + TILE;
@@ -273,6 +284,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   lse += static_cast<long long>(blockIdx.x) * seq;
   delta += static_cast<long long>(blockIdx.x) * seq;
   const int n_k = causal ? qt + 1 : gridDim.y;   // key tiles to walk
+  const int col0 = blockIdx.z * DO;             // this CTA's columns of dQ
 
   cp_async_tile<D>(qs, q, q0, seq);
   cp_async_tile<D>(dos, dout, q0, seq);
@@ -296,7 +308,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
                           *reinterpret_cast<const uint4*>(dos + rl * LD + c));
     }
     dl = part + __shfl_xor_sync(0xffffffffu, part, 1);
-    if ((lane & 1) == 0 && r < seq) delta[r] = dl;
+    if ((lane & 1) == 0 && r < seq && col0 == 0) delta[r] = dl;
   }
   // this thread's rows of the score tiles: w0 + g and w0 + g + 8
   float delta_r[2], lse_r[2];
@@ -307,7 +319,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     lse_r[i] = r < seq ? lse[r] * kLog2e : 0.f;
   }
   const float sl2 = scale * kLog2e;
-  float acc[ND][4] = {};               // dQ, rows w0 .. w0 + 15
+  float acc[NO][4] = {};               // dQ, rows w0 .. w0 + 15
 
   for (int j = 0; j < n_k; ++j) {
     if (j + 1 < n_k) {
@@ -365,9 +377,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int nd = 0; nd < KD; ++nd) {
+      for (int nd = 0; nd < KO; ++nd) {
         uint32_t b[4];
-        ldmatrix_x4_trans(b, bt_frag<LD>(ks, kk * 16, nd * 16, lane));
+        ldmatrix_x4_trans(b, bt_frag<LD>(ks, kk * 16, col0 + nd * 16, lane));
         mma_bf16(acc[2 * nd], ds[kk], b[0], b[1]);
         mma_bf16(acc[2 * nd + 1], ds[kk], b[2], b[3]);
       }
@@ -380,9 +392,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     const int r = q0 + w0 + g + 8 * i;
     if (r >= seq) continue;
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(dq + static_cast<long long>(r) * D + n * 8 +
-                                   2 * t) =
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(dq + static_cast<long long>(r) * D + col0 +
+                                   n * 8 + 2 * t) =
           pack_bf16(scale * acc[n][2 * i], scale * acc[n][2 * i + 1]);
   }
 }
@@ -397,7 +409,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
                          const float* __restrict__ delta,
                          bf16* __restrict__ dk, bf16* __restrict__ dv,
                          int seq, float scale, int causal) {
-  constexpr int LD = D + 8, TILE = kBlockK * LD, KD = D / 16, ND = D / 8;
+  constexpr int LD = D + 8, TILE = kBlockK * LD, KD = D / 16;
+  constexpr int DO = kOutCols<D>, KO = DO / 16, NO = DO / 8;
   constexpr int kSub = D > 64 ? 32 : 64;   // queries per S^T block
   constexpr int NS = kSub / 8;             // its n8 tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -420,6 +433,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   delta += static_cast<long long>(blockIdx.x) * seq;
   // causal: query tiles wholly above the diagonal are skipped
   const int n_q = gridDim.y, q_first = causal ? kt : 0;
+  const int col0 = blockIdx.z * DO;        // this CTA's columns of dK, dV
 
   auto load_queries = [&](int stage, int qt) {
     bf16* dst = qds + stage * 2 * TILE;
@@ -433,7 +447,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   load_queries(0, q_first);
   cp_async_commit();
   const float sl2 = scale * kLog2e;
-  float dk_acc[ND][4] = {}, dv_acc[ND][4] = {};   // rows w0 .. w0 + 15
+  float dk_acc[NO][4] = {}, dv_acc[NO][4] = {};   // rows w0 .. w0 + 15
 
   for (int qt = q_first; qt < n_q; ++qt) {
     const int stage = (qt - q_first) & 1;
@@ -498,12 +512,13 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 #pragma unroll
       for (int kk = 0; kk < NS / 2; ++kk) {
 #pragma unroll
-        for (int nd = 0; nd < KD; ++nd) {
+        for (int nd = 0; nd < KO; ++nd) {
+          const int n0 = col0 + nd * 16;
           uint32_t b[4];
-          ldmatrix_x4_trans(b, bt_frag<LD>(dos, sub + kk * 16, nd * 16, lane));
+          ldmatrix_x4_trans(b, bt_frag<LD>(dos, sub + kk * 16, n0, lane));
           mma_bf16(dv_acc[2 * nd], pf[kk], b[0], b[1]);
           mma_bf16(dv_acc[2 * nd + 1], pf[kk], b[2], b[3]);
-          ldmatrix_x4_trans(b, bt_frag<LD>(qs, sub + kk * 16, nd * 16, lane));
+          ldmatrix_x4_trans(b, bt_frag<LD>(qs, sub + kk * 16, n0, lane));
           mma_bf16(dk_acc[2 * nd], dsf[kk], b[0], b[1]);
           mma_bf16(dk_acc[2 * nd + 1], dsf[kk], b[2], b[3]);
         }
@@ -517,8 +532,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     const int c = k0 + w0 + g + 8 * i;
     if (c >= seq) continue;
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      const long long at = static_cast<long long>(c) * D + n * 8 + 2 * t;
+    for (int n = 0; n < NO; ++n) {
+      const long long at =
+          static_cast<long long>(c) * D + col0 + n * 8 + 2 * t;
       *reinterpret_cast<uint32_t*>(dk + at) =
           pack_bf16(scale * dk_acc[n][2 * i], scale * dk_acc[n][2 * i + 1]);
       *reinterpret_cast<uint32_t*>(dv + at) =
@@ -532,13 +548,14 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
-template <typename T, typename Kernel, typename... Args>
+template <typename T, int D, typename Kernel, typename... Args>
 int launch_bwd(Kernel kernel, int bh, int seq, size_t bytes,
                cudaStream_t stream, Args... args) {
   if constexpr (kTensorCores<T>)
-    return launch_mma(kernel, bh, seq, bytes, stream, args...);
+    return launch_mma(kernel, bh, seq, D / kOutCols<D>, bytes, stream,
+                      args...);
   else
-    return launch_tiles(kernel, bh, seq, bytes, stream, args...);
+    return launch_tiles(kernel, bh, seq, kRows<D>, bytes, stream, args...);
 }
 
 struct DqLaunch {
@@ -564,13 +581,13 @@ struct DqLaunch {
     if constexpr (kTensorCores<T>)
       return sizeof(T) * (2 * kBlockQ + 4 * kBlockK) * (D + 8);
     else
-      return sizeof(float) * ((2 * kBlockQ + 2 * kBlockK) * (D + 1) +
-                              kBlockQ * kLP);
+      return sizeof(float) * (4 * kRows<D> * (D + 1) +
+                              kRows<D> * (kRows<D> + 1));
   }
 
   template <typename T, int D>
   int run() const {
-    return launch_bwd<T>(kernel<T, D>(), bh, seq, smem<T, D>(), stream,
+    return launch_bwd<T, D>(kernel<T, D>(), bh, seq, smem<T, D>(), stream,
                          static_cast<const T*>(q), static_cast<const T*>(k),
                          static_cast<const T*>(v), static_cast<const T*>(o),
                          static_cast<const T*>(dout), lse, static_cast<T*>(dq),
@@ -601,13 +618,13 @@ struct DkvLaunch {
       return sizeof(T) * (2 * kBlockK + 4 * kBlockQ) * (D + 8) +
              sizeof(float) * 4 * kBlockQ;
     else
-      return sizeof(float) * ((2 * kBlockQ + 2 * kBlockK) * (D + 1) +
-                              2 * kBlockQ * kLP + 2 * kBlockQ);
+      return sizeof(float) * (4 * kRows<D> * (D + 1) +
+                              2 * kRows<D> * (kRows<D> + 1) + 2 * kRows<D>);
   }
 
   template <typename T, int D>
   int run() const {
-    return launch_bwd<T>(kernel<T, D>(), bh, seq, smem<T, D>(), stream,
+    return launch_bwd<T, D>(kernel<T, D>(), bh, seq, smem<T, D>(), stream,
                          static_cast<const T*>(q), static_cast<const T*>(k),
                          static_cast<const T*>(v), static_cast<const T*>(dout),
                          lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),

@@ -6,8 +6,8 @@
 //   LSE = m + log(max(l, 1e-30))        per query row, f32
 // by the online-softmax recurrence: a running max m, denominator l and
 // unnormalised accumulator over tiles of keys; masked scores are -1e30;
-// O = acc / max(l, 1e-30). Storage f32 or bf16, head_dim 16, 32, 64 or
-// 128, any sequence length (the last tile is ragged and masked).
+// O = acc / max(l, 1e-30). Storage f32 or bf16, head_dim 16, 32, 64, 128
+// or 256, any sequence length (the last tile is ragged and masked).
 //
 // Bound on the H100: operations. One (b, h) at S = 4096, D = 128 causal
 // does 2 * 2 * S^2 * D / 2 = 4.3 GFLOP on 4 MB of bf16 q, k, v, o: ~1000
@@ -43,20 +43,29 @@
 //    other's products, a persistent grid, and a TMA store of O. Both
 //    warpgroups wait at one barrier per key tile before its stage is
 //    refilled, so the tensor cores idle while both do their softmax.
+//  - Head_dim 256 (WgTiles): an O accumulator of all 256 columns (128
+//    f32 a thread) beside S (64) would pass 255 registers, and Q, K, V
+//    and a second stage would pass 227 KB of shared memory. So the grid's
+//    z axis splits O's columns in two 128-wide halves: each CTA computes
+//    S = Q K^T over all of D, reads only its half of V and writes its
+//    half of O (and the first, LSE); the ring keeps one K/V stage (Q 64
+//    KB + K 64 KB + half of V 32 KB). The split costs one more S product
+//    a tile; the single stage serialises each tile's loads and products.
 //  - Registers a thread, shared memory and CTAs per SM, as the runtime
 //    reports them on the H100 (sparknet_flash_forward_info, printed and
 //    checked by chip_smoke.py phase 6); no instantiation spills:
-//        D      16           32           64           128
-//               130 21 KB 1  138 42 KB 1  154 83 KB 1  186 161 KB 1
+//        D      16           32           64           128          256
+//               130 21 KB 1  138 42 KB 1  154 83 KB 1  186 161 KB 1  186 161 KB 1
 //    At the LM's (4, 8, 4096, 128) causal: 0.39-0.40 ms, 341-351 TFLOP/s,
 //    1.2-1.5x F.scaled_dot_product_attention's time (PERF.md).
 //
 // f32 storage (flash_fwd_kernel) keeps CUDA-core products in f32 (the f32
 // limits, 2e-5 of the largest element, need f32 products): a CTA of 256
-// threads owns 64 query rows, Q scaled as it is staged in f32 shared
-// memory (row stride D + 1), K and V streamed one 64-row tile at a time,
-// a 4x4 block of scores and a 4 x D/16 block of O per thread. The storage
-// type picks the kernel and nothing else does.
+// threads owns R = kRows<D> query rows (64; 32 at D = 256, where three
+// f32 tiles of D + 1 columns must fit), Q scaled as it is staged in f32
+// shared memory (row stride D + 1), K and V streamed one R-row tile at a
+// time, an R/16 x R/16 block of scores and an R/16 x D/16 block of O per
+// thread. The storage type picks the kernel and nothing else does.
 
 #include <type_traits>
 
@@ -73,13 +82,14 @@ __global__ void __launch_bounds__(kThreads)
                      float* __restrict__ lse, int seq, float scale,
                      int causal) {
   extern __shared__ float smem[];
-  constexpr int LD = D + 1, NJ = D / 16;
-  float* qs = smem;                  // kBlockQ x LD, scaled
-  float* ks = qs + kBlockQ * LD;     // kBlockK x LD
-  float* vs = ks + kBlockK * LD;     // kBlockK x LD
-  float* ps = vs + kBlockK * LD;     // kBlockQ x kLP
+  constexpr int R = kRows<D>, RI = R / 16, LD = D + 1, LP = R + 1;
+  constexpr int NJ = D / 16;
+  float* qs = smem;                  // R x LD, scaled
+  float* ks = qs + R * LD;           // R x LD
+  float* vs = ks + R * LD;           // R x LD
+  float* ps = vs + R * LD;           // R x LP
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * R;
   const long long base = static_cast<long long>(blockIdx.y) * seq * D;
   q += base;
   k += base;
@@ -87,30 +97,30 @@ __global__ void __launch_bounds__(kThreads)
   o += base;
   lse += static_cast<long long>(blockIdx.y) * seq;
 
-  load_tile<float, D>(qs, q, q0, seq, scale);
-  float acc[4][NJ], m[4], l[4];
+  load_tile<float, D, R>(qs, q, q0, seq, scale);
+  float acc[RI][NJ], m[RI], l[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
   // causal: key tiles wholly above the diagonal are skipped
-  const int k_end = causal ? min(seq, q0 + kBlockQ) : seq;
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
+  const int k_end = causal ? min(seq, q0 + R) : seq;
+  for (int k0 = 0; k0 < k_end; k0 += R) {
     __syncthreads();                 // the last tile's readers are done
-    load_tile<float, D>(ks, k, k0, seq, 1.f);
-    load_tile<float, D>(vs, v, k0, seq, 1.f);
+    load_tile<float, D, R>(ks, k, k0, seq, 1.f);
+    load_tile<float, D, R>(vs, v, k0, seq, 1.f);
     __syncthreads();
-    float s[4][4] = {};
-    tile_dot<D>(s, qs, ks, ty, tx);
+    float s[RI][RI] = {};
+    tile_dot<D, R>(s, qs, ks, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
+    for (int i = 0; i < RI; ++i) {
+      const int r = q0 + ty * RI + i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         // a query row past seq is never stored: only keys are masked
         const int c = k0 + tx + 16 * j;
         if (c >= seq || (causal && c > r)) s[i][j] = kNegInf;
@@ -120,10 +130,10 @@ __global__ void __launch_bounds__(kThreads)
       const float alpha = expf(m[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         s[i][j] = expf(s[i][j] - m_new);
         sum += s[i][j];
-        ps[(ty * 4 + i) * kLP + tx + 16 * j] = s[i][j];
+        ps[(ty * RI + i) * LP + tx + 16 * j] = s[i][j];
       }
       l[i] = l[i] * alpha + row_sum16(sum);
       m[i] = m_new;
@@ -131,11 +141,11 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
     }
     __syncthreads();
-    tile_mul<D, false>(acc, ps, vs, ty, tx);
+    tile_mul<D, R, false>(acc, ps, vs, ty, tx);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int r = q0 + ty * RI + i;
     if (r >= seq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -154,16 +164,27 @@ constexpr int kWgKeys = 128;       // keys per tile
 constexpr int kWgThreads = 256;    // two warpgroups
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared-memory geometry at head_dim D (bytes; flash_wgmma.cuh)
+// Shared-memory geometry at head_dim D (bytes; flash_wgmma.cuh). Up to
+// D = 128 a CTA computes all D columns of O through a ring of two K/V
+// stages. At D = 256 an O accumulator of all columns would not fit in a
+// thread's registers: the grid's z axis splits O's columns in DO = 128
+// wide halves, each CTA computes the whole of S = Q K^T (its reduction
+// runs over all of D) and O for its half, reading only its half of V;
+// and the ring holds one stage, so that Q, K and half of V fit in
+// shared memory (64 + 64 + 32 KB).
 template <int D>
 struct WgTiles {
+  static constexpr int DO = D > 128 ? 128 : D;   // O columns of a CTA
+  static constexpr int STAGES = D > 128 ? 1 : 2;  // K/V ring depth
   static constexpr int W = D < 64 ? D : 64;   // columns of a swizzle block
   static constexpr int RB = 2 * W;            // its row: the swizzle bytes
   static constexpr int BLOCK = 128 * RB;      // one block of a 128-row tile
-  static constexpr int TILE = 128 * D * 2;    // a 128-row tile of Q, K or V
+  static constexpr int TILE = 128 * D * 2;    // a 128-row tile of Q or K
+  static constexpr int VTILE = 128 * DO * 2;  // a CTA's columns of a V tile
+  static constexpr int STAGE = TILE + VTILE;  // K then V
   static constexpr int SBO = 8 * RB;          // 8 rows
-  // Q, two stages of K and V, three mbarriers, 1024-byte alignment
-  static constexpr size_t kSmem = 5 * TILE + 64 + 1024;
+  // Q, the stages of K and V, their mbarriers, 1024-byte alignment
+  static constexpr size_t kSmem = TILE + STAGES * STAGE + 64 + 1024;
 };
 
 template <int D>
@@ -177,53 +198,55 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   extern __shared__ unsigned char smem_raw[];
   // the swizzle atoms repeat every 1024 bytes: tiles start on that
   const uint32_t qs = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t kv = qs + L::TILE;   // stage st: K at kv + 2 st TILE, V after
-  const uint32_t bars = kv + 4 * L::TILE;   // Q, stage 0, stage 1
+  const uint32_t kv = qs + L::TILE;   // stage st at kv + st STAGE: K, V
+  const uint32_t bars = kv + L::STAGES * L::STAGE;   // Q, then each stage
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
   const int lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;   // causal: longest CTAs first
   const int q0 = qt * kWgRows;
   const int n_k = causal ? qt + 1 : gridDim.y;   // key tiles to walk
+  const int col0 = blockIdx.z * L::DO;         // this CTA's columns of O
 
   const CUtensorMap *mq = &tm_q, *mk = &tm_k, *mv = &tm_v;
+  // column blocks [c0, c0 + n) of rows [row0, row0 + 128)
   auto load = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                  int row0) {
-#pragma unroll
-    for (int c = 0; c < D / L::W; ++c)
-      tma_load_3d(dst + c * L::BLOCK, map, bar, c * L::W, row0, bh);
+                  int row0, int c0, int n) {
+    for (int c = 0; c < n; ++c)
+      tma_load_3d(dst + c * L::BLOCK, map, bar, (c0 + c) * L::W, row0, bh);
   };
   auto load_kv = [&](int j) {
-    const uint32_t bar = bars + 8 + 8 * (j & 1);
-    const uint32_t dst = kv + (j & 1) * 2 * L::TILE;
-    mbar_expect_tx(bar, 2 * L::TILE);
-    load(dst, mk, bar, j * kWgKeys);
-    load(dst + L::TILE, mv, bar, j * kWgKeys);
+    const int st = j % L::STAGES;
+    const uint32_t bar = bars + 8 + 8 * st;
+    const uint32_t dst = kv + st * L::STAGE;
+    mbar_expect_tx(bar, L::STAGE);
+    load(dst, mk, bar, j * kWgKeys, 0, D / L::W);
+    load(dst + L::TILE, mv, bar, j * kWgKeys, col0 / L::W, L::DO / L::W);
   };
   if (tid == 0) {
-    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i, 1);
+    for (int i = 0; i <= L::STAGES; ++i) mbar_init(bars + 8 * i, 1);
     mbar_fence_init();
   }
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(bars, L::TILE);
-    load(qs, mq, bars, q0);
-    load_kv(0);
-    if (n_k > 1) load_kv(1);
+    load(qs, mq, bars, q0, 0, D / L::W);
+    for (int j = 0; j < L::STAGES && j < n_k; ++j) load_kv(j);
   }
 
   const float sl2 = scale * kLog2e;
   const int row = wg * 64 + warp * 16 + g;   // this thread's rows of the
                                              // CTA's 128: row, row + 8
-  float acc[D / 2];                          // O, unnormalised
+  float acc[L::DO / 2];                      // O, unnormalised
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int e = 0; e < L::DO / 2; ++e) acc[e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // m in log2 units
   mbar_wait(bars, 0);                        // Q has landed
 
   for (int j = 0; j < n_k; ++j) {
-    const uint32_t ks = kv + (j & 1) * 2 * L::TILE, vs = ks + L::TILE;
-    mbar_wait(bars + 8 + 8 * (j & 1), (j >> 1) & 1);   // K, V of tile j
+    const int st = j % L::STAGES;
+    const uint32_t ks = kv + st * L::STAGE, vs = ks + L::TILE;
+    mbar_wait(bars + 8 + 8 * st, (j / L::STAGES) & 1);   // K, V of tile j
     float s[64];                             // S: 64 rows x 128 keys
     wgmma_fence();
 #pragma unroll
@@ -271,7 +294,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+    for (int e = 0; e < L::DO / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
     uint32_t pf[8][4];                       // P as A fragments, keys 16 kk..
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
@@ -284,14 +307,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
-      wgmma_rs_tb<D>(
+      wgmma_rs_tb<L::DO>(
           acc, pf[kk],
           wgmma_desc(vs + kk * 16 * L::RB, L::BLOCK, L::SBO, L::RB));
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(acc);
-    __syncthreads();                         // stage j & 1 is free
-    if (tid == 0 && j + 2 < n_k) load_kv(j + 2);
+    __syncthreads();                         // stage st is free
+    if (tid == 0 && j + L::STAGES < n_k) load_kv(j + L::STAGES);
   }
 
   const long long r0 = static_cast<long long>(bh) * seq;
@@ -302,12 +325,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int r = q0 + row + 8 * i;
     if (r >= seq) continue;
     const float lc = fmaxf(lt, 1e-30f);
-    bf16* orow = o + (r0 + r) * D;
+    bf16* orow = o + (r0 + r) * D + col0;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < L::DO / 8; ++n)
       *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) =
           pack_bf16(acc[4 * n + 2 * i] / lc, acc[4 * n + 2 * i + 1] / lc);
-    if (t == 0) lse[r0 + r] = m[i] * kLn2 + logf(lc);
+    if (t == 0 && col0 == 0) lse[r0 + r] = m[i] * kLn2 + logf(lc);
   }
 }
 
@@ -336,8 +359,8 @@ struct ForwardLaunch {
     if constexpr (kTensorCores<T>)
       return WgTiles<D>::kSmem;
     else
-      return sizeof(float) * ((kBlockQ + 2 * kBlockK) * (D + 1) +
-                              kBlockQ * kLP);
+      return sizeof(float) * (3 * kRows<D> * (D + 1) +
+                              kRows<D> * (kRows<D> + 1));
   }
 
   template <typename T, int D>
@@ -357,12 +380,13 @@ struct ForwardLaunch {
           fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(bytes));
       if (err != cudaSuccess) return err;
-      fn<<<dim3(bh, tiles), kWgThreads, bytes, stream>>>(
+      fn<<<dim3(bh, tiles, D / WgTiles<D>::DO), kWgThreads, bytes, stream>>>(
           maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, seq, scale,
           causal);
       return cudaGetLastError();
     } else {
-      return launch_tiles(kernel<T, D>(), bh, seq, smem<T, D>(), stream,
+      return launch_tiles(kernel<T, D>(), bh, seq, kRows<D>, smem<T, D>(),
+                          stream,
                           static_cast<const float*>(q),
                           static_cast<const float*>(k),
                           static_cast<const float*>(v), static_cast<float*>(o),

@@ -28,6 +28,14 @@ namespace sparknet_flash {
 constexpr int kMmaThreads = 128;   // 4 warps, each 16 rows of the CTA's 64
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Output columns a backward CTA accumulates at head_dim D. At D = 256 the
+// dK and dV accumulators of all columns (2 x 128 f32 a thread) would not
+// fit in registers: the grid's z axis splits the output columns in
+// 128-wide halves, and each CTA recomputes the score tiles (whose
+// reduction runs over all of D) for its half.
+template <int D>
+constexpr int kOutCols = D > 128 ? 128 : D;
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -168,11 +176,11 @@ __device__ __forceinline__ float dot8_bf16(uint4 a, uint4 b) {
 
 // Opt the kernel in to `bytes` of dynamic shared memory with the largest
 // shared-memory carveout (so two CTAs of ~105 KB fit on an SM), launch it
-// on a (bh, ceil(seq / 64)) grid of kMmaThreads threads, and return the
-// launch's error code. The tile index is the slow grid axis, so every
-// (b, h) starts its tile 0 before any starts tile 1.
+// on a (bh, ceil(seq / 64), splits) grid of kMmaThreads threads, and
+// return the launch's error code. The tile index is the slow grid axis,
+// so every (b, h) starts its tile 0 before any starts tile 1.
 template <typename Kernel, typename... Args>
-int launch_mma(Kernel kernel, int bh, int seq, size_t bytes,
+int launch_mma(Kernel kernel, int bh, int seq, int splits, size_t bytes,
                cudaStream_t stream, Args... args) {
   const int tiles = (seq + 63) / 64;
   if (tiles > 65535) return cudaErrorInvalidValue;
@@ -184,7 +192,7 @@ int launch_mma(Kernel kernel, int bh, int seq, size_t bytes,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, tiles);
+  dim3 grid(bh, tiles, splits);
   kernel<<<grid, kMmaThreads, bytes, stream>>>(args...);
   return cudaGetLastError();
 }

@@ -16,6 +16,10 @@ stream carries the run and the ``report`` and ``trace`` verbs read it.
   memstats.py   allocator, device-memory and host-rss sampling
   report.py     the ``report`` verb; critpath.py and fleettrace.py
                 behind the ``trace`` verb (copies of the JAX modules)
+  tracing.py    request tracing for the serving fleet: the trace and
+                stage headers, head sampling with tail exemplars, stage
+                reservoirs, the SLO burn-rate ledger
+  monitor.py    the ``monitor`` verb: a live view of a stream
 """
 
 from .comms import (CommsMeter, broadcast_collect_bytes,

@@ -25,7 +25,7 @@ before dV = P^T dO, dQ = dS K and dK = dS^T Q in the backward
 (csrc/flash_bwd.cu, mma.sync), as the JAX kernels' default-precision
 dots do on the TPU. The plain versions keep them in f32.
 
-A head_dim D <= 128 that the kernels were not built for (``HEAD_DIMS``)
+A head_dim D <= 256 that the kernels were not built for (``HEAD_DIMS``)
 runs through the next built one: Q, K, V (and O, dO) are zero-padded to
 it and the outputs sliced back. That is exact: zero columns add nothing
 to Q K^T or to rowsum(dO * O), and give zero columns of O, dQ, dK and dV.
@@ -47,7 +47,7 @@ import torch
 from . import cuda_build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)     # the head_dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the head_dims the kernels are built for
 
 
 def default_scale(q, scale=None):
@@ -61,7 +61,7 @@ def built_head_dim(d):
         if d <= b:
             return b
     raise ValueError(f"head_dim {d} > {HEAD_DIMS[-1]}: not built "
-                     f"{HEAD_DIMS}")
+                     f"{HEAD_DIMS} (ROADMAP B0)")
 
 
 def pad_head_dim(tensors, d):
@@ -146,7 +146,7 @@ def check_cuda_inputs(what, rows=(), **tensors):
     """Raise ValueError on what the kernels do not take: tensors not on
     one CUDA device, not 4-D (B, H, S, D) of one shape and dtype, not
     contiguous or not 16-byte aligned, a dtype they were not built for
-    (float32, bfloat16), a head_dim above 128, more than 65535 (batch,
+    (float32, bfloat16), a head_dim above 256, more than 65535 (batch,
     head) pairs or 64-row tiles; and per-row tensors ``rows`` (LSE,
     delta) not contiguous f32 (B*H, S)."""
     ref = next(iter(tensors.values()))
@@ -169,7 +169,7 @@ def check_cuda_inputs(what, rows=(), **tensors):
     b, h, s, d = ref.shape
     if d > HEAD_DIMS[-1]:
         raise ValueError(f"{what}: head_dim {d} > {HEAD_DIMS[-1]}: not "
-                         f"built {HEAD_DIMS}")
+                         f"built {HEAD_DIMS} (ROADMAP B0)")
     if b * h > cuda_build.MAX_GRID_Y:
         raise ValueError(f"{what}: B*H = {b * h} > {cuda_build.MAX_GRID_Y}")
     if s > 64 * cuda_build.MAX_GRID_Y:

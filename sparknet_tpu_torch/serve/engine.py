@@ -82,12 +82,14 @@ class ServeEngine:
     ``device`` defaults to the card; with no card it raises unless the
     caller passes ``device="cpu"``. Serving computes in float32, the JAX
     package's default precision: resolve_device turns TF32 off on the
-    card."""
+    card. With ``metrics`` (a MetricsLogger) every hot reload is a
+    ``serve_reload`` event."""
 
     def __init__(self, prefix, net_param=None, max_batch=8, device="cuda",
-                 log_fn=print):
+                 metrics=None, log_fn=print):
         self.prefix = prefix
         self.device = resolve_device(device)
+        self.metrics = metrics
         self.max_batch = int(max_batch)
         self.buckets = bucket_sizes(self.max_batch)
         self.log = log_fn or (lambda *a: None)
@@ -267,10 +269,15 @@ class ServeEngine:
         ms = (time.perf_counter() - t0) * 1e3
         self.log(f"serve: hot-reloaded iter {entry.get('iter')} "
                  f"(was {from_iter}) in {ms:.0f} ms")
+        if self.metrics is not None:
+            self.metrics.log("serve_reload", iter=entry.get("iter"),
+                             from_iter=from_iter,
+                             model=entry.get("model"), ms=round(ms, 3))
         return entry
 
     def status(self):
-        """Snapshot for /healthz (called from HTTP handler threads)."""
+        """Snapshot for /healthz (called from HTTP handler threads); its
+        ``sha`` is the loaded blob's, which the fleet's canary keys on."""
         with self._lock:
             loaded, reloads = self._loaded, self._reloads
         return {

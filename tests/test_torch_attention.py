@@ -90,6 +90,31 @@ def test_flash_backward_matches_pallas_grad(shape, causal):
                                    err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [192, 256])
+def test_wide_head_dim_flash_matches_pallas(d, causal):
+    """head_dim 192 and 256 (ROADMAP B0: the kernels are built up to 256,
+    192 zero-padded to it): the plain forward, LSE and gradients through
+    the port's autograd.Function against the Pallas kernel in interpret
+    mode at S = 128, within 1e-5 (f32 on both sides; rtol and atol)."""
+    shape = (1, 2, 128, d)
+    q, k, v = _qkv(*shape, seed=20 + d)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = np.asarray(j_flash(jq, jk, jv, causal, None, 128, 128))
+    _, j_lse = _flash_forward(jq, jk, jv, causal, 1 / np.sqrt(d), 128, 128,
+                              True)
+    o, lse = ca.flash_attention_fwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                                    causal)
+    np.testing.assert_allclose(o.numpy(), want, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse)[..., 0],
+                               atol=1e-5, rtol=1e-5)
+    got, ref = _grads_both(shape, causal, seed=30 + d)
+    for g, w, name in zip(got, ref, "qkv"):
+        assert np.abs(w).max() > 1e-3
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-5,
+                                   err_msg=f"d{name}")
+
+
 def test_flash_backward_plain_pieces_agree():
     """flash_attention_bwd_plain is the dQ step then the dK/dV step on its
     delta, and delta is rowsum(dO * O) from O as stored."""

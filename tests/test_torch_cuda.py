@@ -432,10 +432,24 @@ def test_flash_autograd_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("d", [8, 48, 96])
+@pytest.mark.parametrize("d", [8, 48, 96, 192])
 def test_flash_kernels_take_unbuilt_head_dims_on_card(cuda, d, causal, dtype):
     # D outside HEAD_DIMS runs through the next built D, zero-padded;
     # held to chip_smoke.py's phase-6 limits against the plain versions
+    _flash_kernels_against_plain(d, causal, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_kernels_at_head_dim_256_on_card(cuda, causal, dtype):
+    # the widest built head_dim (ROADMAP B0): the f32 kernels on 32-row
+    # tiles, the bf16 ones with O's columns split over the grid's z axis
+    _flash_kernels_against_plain(256, causal, dtype)
+
+
+def _flash_kernels_against_plain(d, causal, dtype):
     rs = np.random.RandomState(50 + d)
     q, k, v, do = (torch.from_numpy(0.5 * rs.randn(2, 2, 300, d).astype(
         np.float32)).to("cuda", dtype) for _ in range(4))
@@ -464,8 +478,8 @@ def test_flash_kernels_take_unbuilt_head_dims_on_card(cuda, d, causal, dtype):
 @pytest.mark.cuda
 def test_flash_refuses_what_it_was_not_built_for(cuda):
     x = torch.randn(1, 2, 128, 64, device="cuda")
-    with pytest.raises(ValueError, match="head_dim 160"):
-        y = torch.randn(1, 2, 128, 160, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 300 > 256.*ROADMAP B0"):
+        y = torch.randn(1, 2, 128, 300, device="cuda")
         ca.flash_attention_fwd(y, y, y)
     with pytest.raises(ValueError, match="contiguous"):
         ca.flash_attention_fwd(x.transpose(1, 2), x.transpose(1, 2),

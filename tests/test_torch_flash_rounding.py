@@ -135,7 +135,7 @@ def test_tensor_core_rounding_fits_the_bf16_tile_limit(shape, causal, output):
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("d", [8, 48, 96])
+@pytest.mark.parametrize("d", [8, 48, 96, 192])
 def test_zero_padded_head_dim_is_exact(d, causal):
     # a head_dim the kernels were not built for runs through the next
     # built one, its inputs zero-padded (ops/cuda_attention.py): the plain
@@ -162,7 +162,8 @@ def test_zero_padded_head_dim_is_exact(d, causal):
 
 
 def test_built_head_dim():
-    assert [ca.built_head_dim(d) for d in (1, 16, 17, 33, 64, 65, 128)] == \
-        [16, 16, 32, 64, 64, 128, 128]
-    with pytest.raises(ValueError, match="head_dim 129"):
-        ca.built_head_dim(129)
+    assert [ca.built_head_dim(d)
+            for d in (1, 16, 17, 33, 64, 65, 128, 129, 192, 256)] == \
+        [16, 16, 32, 64, 64, 128, 128, 256, 256, 256]
+    with pytest.raises(ValueError, match="head_dim 257.*ROADMAP B0"):
+        ca.built_head_dim(257)

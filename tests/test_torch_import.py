@@ -52,6 +52,14 @@ MODULES = [
     "sparknet_tpu_torch.utils.signals", "sparknet_tpu_torch.utils.timing",
     "sparknet_tpu_torch.utils.exit_codes",
     "sparknet_tpu_torch.resilience.recovery",
+    "sparknet_tpu_torch.resilience.seam",
+    "sparknet_tpu_torch.resilience.heartbeat",
+    "sparknet_tpu_torch.resilience.elastic",
+    "sparknet_tpu_torch.resilience.chaos", "sparknet_tpu_torch.obs.tracing",
+    "sparknet_tpu_torch.obs.monitor", "sparknet_tpu_torch.serve.fleet",
+    "sparknet_tpu_torch.serve.loadgen", "sparknet_tpu_torch.sim",
+    "sparknet_tpu_torch.sim.clock", "sparknet_tpu_torch.sim.memdir",
+    "sparknet_tpu_torch.sim.servefleet", "sparknet_tpu_torch.sim.sweep",
 ]
 
 

@@ -42,16 +42,18 @@ REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 B, D = 4, 16
 
 # a pass-through layer that stalls or turns its input non-finite from its
-# N-th call on (param_str "stall:N" / "nan:N"): a feed that hangs, a
-# batch that blows the loss up
+# N-th call on (param_str "stall:N" / "nan:N"), or pauses S seconds at
+# its N-th call only ("pause:N:S"): a feed that hangs, a batch that blows
+# the loss up, a feed that hiccups once
 TAP = '''
 import time
 
 
 class Tap:
     def setup(self, bottom_shapes):
-        mode, at = self.param_str.split(":")
+        mode, at, *rest = self.param_str.split(":")
         self.mode, self.at, self.calls = mode, int(at), 0
+        self.pause_s = float(rest[0]) if rest else 0.0
 
     def reshape(self, bottom_shapes):
         return [bottom_shapes[0]]
@@ -61,6 +63,8 @@ class Tap:
         x = bottoms[0]
         if self.calls >= self.at and self.mode == "stall":
             time.sleep(600)
+        if self.calls == self.at and self.mode == "pause":
+            time.sleep(self.pause_s)
         if self.calls >= self.at and self.mode == "nan":
             return [x * float("nan")]
         return [x]
@@ -252,9 +256,7 @@ print("NOT REACHED")
 def test_watchdog_kills_with_exit_42_and_a_restorable_snapshot(tmp_path):
     """A feed that hangs before step 4: both packages' solvers, armed
     with kill_on_stall, take an emergency snapshot of iteration 3, log
-    the kill and exit 42; the snapshot restores in either package. And
-    the port's train verb with --stall-seconds does the same on a layer
-    that hangs."""
+    the kill and exit 42; the snapshot restores in either package."""
     script = tmp_path / "kill.py"
     script.write_text(KILL_SCRIPT)
     procs = {}
@@ -264,15 +266,6 @@ def test_watchdog_kills_with_exit_42_and_a_restorable_snapshot(tmp_path):
             [sys.executable, str(script), pkg, str(tmp_path / pkg / "s")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             env=_env(tmp_path))
-    verb = tmp_path / "verb"
-    verb.mkdir()
-    solver = _solver_file(verb, str(verb / "snap" / "s"), tap="stall:4")
-    procs["verb"] = subprocess.Popen(
-        [sys.executable, "-m", "sparknet_tpu_torch", "train", "--solver",
-         solver, "--device", "cpu", "--stall-seconds", "3",
-         "--metrics", str(verb / "m.jsonl")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=_env(verb), cwd=str(verb))
     outs = {}
     try:
         for pkg, p in procs.items():
@@ -286,11 +279,9 @@ def test_watchdog_kills_with_exit_42_and_a_restorable_snapshot(tmp_path):
         assert p.returncode == EXIT_WATCHDOG_STALL, (pkg, outs[pkg][-2000:])
         assert "NOT REACHED" not in outs[pkg]
     for pkg, prefix in (("port", tmp_path / "port" / "s"),
-                        ("jax", tmp_path / "jax" / "s"),
-                        ("verb", verb / "snap" / "s")):
-        kills = [e for e in map(json.loads, open(
-            str(verb / "m.jsonl") if pkg == "verb" else f"{prefix}.jsonl"))
-            if e["event"] == "watchdog"]
+                        ("jax", tmp_path / "jax" / "s")):
+        kills = [e for e in map(json.loads, open(f"{prefix}.jsonl"))
+                 if e["event"] == "watchdog"]
         assert [e["kind"] for e in kills] == ["stall", "killed"], pkg
         assert kills[-1]["exit_code"] == 42
         assert kills[-1]["emergency_snapshot_ok"] is True
@@ -318,6 +309,90 @@ def test_watchdog_kills_with_exit_42_and_a_restorable_snapshot(tmp_path):
             for p, q in zip(ps, js.params[n]):
                 np.testing.assert_array_equal(p.detach().numpy(),
                                               np.asarray(q))
+
+
+PAUSE_SCRIPT = '''
+import sys, time
+import numpy as np
+pkg, prefix = sys.argv[1], sys.argv[2]
+if pkg == "port":
+    from sparknet_tpu_torch.models import dsl
+    from sparknet_tpu_torch.proto import Message
+    from sparknet_tpu_torch.solver import Solver
+    kw = dict(device="cpu")
+else:
+    from sparknet_tpu.models import dsl
+    from sparknet_tpu.proto import Message
+    from sparknet_tpu.solver.solver import Solver
+    kw = {}
+net = dsl.NetParam("tiny", dsl.RDDLayer("data", (4, 16)),
+                   dsl.RDDLayer("label", (4,)),
+                   dsl.InnerProductLayer("ip", ["data"], 10,
+                                         weight_filler=dict(type="xavier")),
+                   dsl.SoftmaxWithLoss("loss", ["ip", "label"]))
+sp = Message("SolverParameter", base_lr=0.1, lr_policy="fixed", display=1,
+             random_seed=3, snapshot_prefix=prefix)
+s = Solver(sp, net_param=net, log_fn=print, metrics=prefix + ".jsonl",
+           **kw)
+s.arm_watchdog(stall_seconds=1.0)          # as the JAX train verb arms it
+
+def feed():
+    rs = np.random.RandomState(0)
+    for i in range(8):
+        if i == 3:
+            time.sleep(3.0)            # the feed hiccups before step 4
+        yield {"data": rs.randn(4, 16).astype(np.float32),
+               "label": rs.randint(0, 10, 4).astype(np.int32)}
+s.step(8, feed())
+s.close()
+print("DONE", s.iter)
+'''
+
+
+def test_train_verb_stall_logs_as_the_jax_verb(tmp_path):
+    """--stall-seconds arms the watchdog as the JAX train verb does
+    (``arm_watchdog(stall_seconds=...)``, no kill): a layer that pauses
+    3 s once under a 1 s watchdog gives ``stall`` events and nothing
+    else, and the verb trains on to its end with exit 0 — the events
+    and the ending that both packages' Solvers give when armed that way
+    on a feed that pauses as long."""
+    script = tmp_path / "pause.py"
+    script.write_text(PAUSE_SCRIPT)
+    verb = tmp_path / "verb"
+    verb.mkdir()
+    solver = _solver_file(verb, str(verb / "snap" / "s"), tap="pause:4:3",
+                          max_iter=8)
+    procs = {"verb": subprocess.Popen(
+        [sys.executable, "-m", "sparknet_tpu_torch", "train", "--solver",
+         solver, "--device", "cpu", "--stall-seconds", "1",
+         "--metrics", str(verb / "m.jsonl")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=_env(verb), cwd=str(verb))}
+    for pkg in ("port", "jax"):
+        (tmp_path / pkg).mkdir()
+        procs[pkg] = subprocess.Popen(
+            [sys.executable, str(script), pkg, str(tmp_path / pkg / "s")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=_env(tmp_path))
+    outs = {}
+    try:
+        for pkg, p in procs.items():
+            outs[pkg] = p.communicate(timeout=180)[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    kinds = {}
+    for pkg, p in procs.items():
+        assert p.returncode == 0, (pkg, outs[pkg][-2000:])
+        stream = verb / "m.jsonl" if pkg == "verb" else \
+            tmp_path / pkg / "s.jsonl"
+        kinds[pkg] = {e["kind"] for e in map(json.loads, open(stream))
+                      if e["event"] == "watchdog"}
+    assert "Optimization done, iter=8" in outs["verb"]
+    assert "DONE 8" in outs["port"] and "DONE 8" in outs["jax"]
+    assert kinds["verb"] == kinds["port"] == kinds["jax"] == {"stall"}, kinds
 
 
 @pytest.mark.parametrize("package", ["port", "jax"])
