@@ -66,9 +66,10 @@ Phases, each of which raises on failure (exit code not 0):
               bf16 at (2, 4, 1024, 128) full, (2, 4, 1024, 64) causal
               and (2, 4, 1024, 96) causal (a head_dim that is not built,
               zero-padded to 128), f32 and bf16 at (1, 4, 1024, 256) and
-              (1, 4, 1024, 192) (zero-padded to 256), causal and not
-              (ROADMAP B0), and bf16 at the LM's full width (4, 8,
-              4096, 128), causal;
+              (1, 4, 1024, 192) (zero-padded to 256), causal and not,
+              f32 and bf16 at (1, 4, 1024, D) for D in 320, 512 and 1024
+              (the wide kernels of csrc/flash_wide.cuh), causal and not,
+              and bf16 at the LM's full width (4, 8, 4096, 128), causal;
               each output's worst 64-row tile against f32 1e-4 and bf16
               5e-3 of that tile's norm (a measure that does not shrink
               along the sequence as causal outputs do; the bf16 kernels
@@ -131,7 +132,8 @@ Phases, each of which raises on failure (exit code not 0):
               made on the card, each with images/s and a profiler
               window's busy share, and the host reader's time; then the
               `imagenet` verb at 4 slots x b256, 1,000 classes, tau cut
-              from 50 to 2, 2 rounds (finite losses, images/s a round).
+              from 50 to 2, 1 round after a test (finite losses,
+              images/s a round).
 10. feeds  — the train verb's whole input path on phase 9's CaffeNet
               b256 records: the verb with default flags (the records
               resident on the card: `device-cached`), with
@@ -217,6 +219,36 @@ Phases, each of which raises on failure (exit code not 0):
               router's stream and `monitor --once`. Prints req/s, rows/s,
               the open loop's p50/p95/p99, each stage's p50/p99, the
               mean batch fill, the failover window and its seconds.
+14. hosts  — multi-host training on the one card. A: CaffeNet at the
+              ImageNet app's widths (4 slots x b256, tau 10, phase 8's
+              solver) under LocalSGDSolver(host_axis="host"): 4 hosts x 1
+              slot against the single-tier round and 1 host x 4 slots
+              against 10 DataParallelSolver steps, bit for bit with
+              deterministic cuDNN; 2 hosts x 2 slots beside phase 8's
+              round, then 4 rounds with elastic membership (quorum 1,
+              evict_after 1, readmit_after 2) and chaos kill_host=1 at
+              round 1: each round's consensus within 1e-6 of a float64
+              masked mean of the live hosts' post-round weights, host 1
+              evicted at round 1 and readmitted at round 3, every host
+              holding the consensus, the LRN launches a round equal to
+              the unarmed round's, the masked consensus alone timed. B:
+              the train verb on phase 9's records with `--strategy dp
+              --mesh data=4 --quorum 3 --evict-after 1 --readmit-after 2
+              --staleness 1 --chaos kill_worker=1,kill_round=2
+              --metrics`: exit 0, the eviction and readmission events,
+              finite losses, phase 10's dp LRN launches. C: `cifar
+              --hosts N --workers 2N` processes (2 slots x b100 a host,
+              cifar10_full, make_synth_cifar records) relaying through
+              --heartbeat-dir (lease 2 s, beat 0.25 s): 2 processes with
+              host 1 killed at round 3 (the consensus bit for bit across
+              the hosts before it, the eviction within a lease and a
+              beat, the survivor's exit 0, the relay's post, mask and
+              average ms); 3 processes at --quorum 3 with host 2 killed
+              (both survivors exit 4 agreed on the manifest's sha256; a
+              2-process relaunch with --resume auto --reshard auto goes
+              on from it); a running pair joined by a `--hosts 1 --grow
+              --resume auto --reshard auto` process (its reshard event,
+              masks of three hosts). D: the wide flash rows of phase 6.
     After the phases: the kernel table as one JSON line, an entry for
     every timed f32 row of phase 3 and the LM's flash row of phase 6
     (launches from the
@@ -229,12 +261,15 @@ Phases, each of which raises on failure (exit code not 0):
     verb and in-process launches beside them),
     with phase 12's launches an iteration under each remat policy beside
     them, and phase 13's R0 launches beside the serving kernels'; the
-    head_dim 256 flash rows of phase 6 with the LM's), each phase's wall
+    head_dim 256 and wide (320, 512, 1024) flash rows of phase 6 with the
+    LM's; phase 14's two-tier and elastic dp verb launches beside
+    CaffeNet's LRN rows), each phase's wall
     seconds and the total, the nvidia-smi line,
     and as the last line {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --phases 12`` (a comma-separated list) runs
-phases 1 and 2 and those given (13 brings 4, 10 brings 9), for
+phases 1 and 2 and those given (13 brings 4, 10 brings 9, 14 brings 9
+and 10), for
 development calls: it prints each phase's seconds and no result lines.
 With no arguments every phase runs.
 """
@@ -1118,7 +1153,7 @@ def _flash_kernel_info(torch):
     for name, query in queries.items():
         for dtype, code in cuda_build.DTYPE_CODES.items():
             dname = str(dtype).replace("torch.", "")
-            for d in ca.HEAD_DIMS:
+            for d in ca.HEAD_DIMS + WIDE_DIMS:
                 out = (ctypes.c_int * 4)()
                 err = query(code, d, ctypes.cast(out, ctypes.c_void_p))
                 check(err == 0, f"the info query of {name} ({code}, {d}) "
@@ -1139,6 +1174,8 @@ def _flash_kernel_info(torch):
     return info
 
 
+# head_dims past 256 (the wide kernels, one instantiation for every D)
+WIDE_DIMS = (320, 512, 1024)
 # (shape, dtype, causal, a row of the kernels line): phase 6's cases
 FLASH_CASES = (
     ((2, 4, 1024, 64), "float32", False, False),
@@ -1147,10 +1184,14 @@ FLASH_CASES = (
     ((2, 4, 1024, 64), "bfloat16", True, False),
     # head_dim 96 is not built: zero-padded to 128
     ((2, 4, 1024, 96), "bfloat16", True, False),
-    # head_dim 256, the widest built (ROADMAP B0), and 192, zero-padded
+    # head_dim 256, the widest of the tiled kernels, and 192, zero-padded
     # to it
     *(((1, 4, 1024, d), dt, causal, d == 256)
       for d in (256, 192) for dt in ("float32", "bfloat16")
+      for causal in (False, True)),
+    # past 256: the wide kernels
+    *(((1, 4, 1024, d), dt, causal, True)
+      for d in WIDE_DIMS for dt in ("float32", "bfloat16")
       for causal in (False, True)),
     ((4, 8, 4096, 128), "bfloat16", True, True))
 
@@ -1166,9 +1207,10 @@ def phase_flash_kernels(torch, cases=FLASH_CASES):
     from sparknet_tpu_torch.ops import cuda_attention as ca
     info = _flash_kernel_info(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    timer = Timer(torch)
+    timers = {False: Timer(torch), True: Timer(torch, reps=10)}
     results = []
     for shape, dtype, causal, row in cases:
+        timer = timers[shape[-1] > ca.HEAD_DIMS[-1]]   # the wide kernels
         dtype = getattr(torch, dtype)
         q, k, v, do = ((0.5 * torch.randn(shape, generator=gen,
                                           device="cuda")).to(dtype)
@@ -1731,15 +1773,16 @@ def _caffenet_group(name):
     return "other"
 
 
-def _synthetic_rounds(torch, tau, workers, batch, shape, classes, seed):
+def _synthetic_rounds(torch, tau, workers, batch, shape, classes, seed,
+                      device="cuda"):
     """A round's batches made on the card: N(0, 1) images and uniform
     labels, (tau, workers*batch, ...)."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     n = workers * batch
     return {"data": torch.randn((tau, n) + tuple(shape), generator=gen,
-                                device="cuda"),
+                                device=device),
             "label": torch.randint(0, classes, (tau, n), generator=gen,
-                                   device="cuda", dtype=torch.int32)}
+                                   device=device, dtype=torch.int32)}
 
 
 def phase_local_sgd(torch, card, tau=10, workers=4):
@@ -1896,12 +1939,14 @@ def phase_local_sgd_card_vs_cpu(torch, tmp, device="cuda"):
         return loss, worst
 
     loss, worst = run("card")
-    mean = dpm.slot_mean
+    consensus = dpm.masked_consensus
     try:
-        dpm.slot_mean = lambda stacked: stacked[0].clone()
+        dpm.masked_consensus = lambda stacked, valid: (
+            {n: [P[0].clone() for P in ps] for n, ps in stacked.items()},
+            valid.sum())
         _, control = run("control, slot 0 in place of the average")
     finally:
-        dpm.slot_mean = mean
+        dpm.masked_consensus = consensus
     loss_rel = abs(loss - cpu_loss) / abs(cpu_loss)
 
     ls = _cifar_local(4, 1, 0.0, 1.0, device)
@@ -1954,7 +1999,7 @@ RECORD_SHAPE = (3, 256, 256)          # ImageNet app's SOURCE_SIZE
 CAFFENET_BATCH, CAFFENET_CROP = 256, 227
 DB_TRAIN, DB_TEST = 2560, 512
 DB_ITERS, DB_TEST_ITER, DB_TEST_INTERVAL = 30, 2, 20
-IMAGENET_TAU, IMAGENET_ROUNDS = 2, 2
+IMAGENET_TAU, IMAGENET_ROUNDS = 2, 1   # one round: the time budget (C10)
 
 
 def _caffenet_db_files(tmp):
@@ -4288,6 +4333,551 @@ def phase_fleet(torch, card, prefix, device="cuda"):
             "answers_err": worst, "reload_err": err, "seconds": seconds}
 
 
+# -- phase 14 -------------------------------------------------------------
+
+HOSTS_TAU = 10              # phase 8's tau for CaffeNet
+HOSTS_BATCH = 256           # a slot's batch (the ImageNet app's)
+HOSTS_ROUNDS = 4            # the armed two-tier rounds
+CONSENSUS_LIMIT = 1e-6      # relative, against a float64 masked mean
+RELAY_LEASE_S, RELAY_BEAT_S = 2.0, 0.25
+RELAY_TAU = 10              # CifarApp's
+RELAY_ROUNDS = 6            # each process's rounds in the survival run
+RELAY_KILL_ROUND = 3
+GROW_ROUNDS, JOINER_ROUNDS = 60, 8
+RELAY_TIMEOUT = 300
+
+
+def _hosts_caffenet(torch, hosts=None, workers=4, dp=False, device="cuda"):
+    """CaffeNet at the ImageNet app's widths (phase 8's solver): a
+    LocalSGDSolver of 4 slots x b256 (two-tier over ``hosts`` when
+    given), or with ``dp`` a DataParallelSolver over the same 4 x 256."""
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.parallel import DataParallelSolver, LocalSGDSolver
+    from sparknet_tpu_torch.proto import Message
+    sp = Message("SolverParameter", base_lr=0.01, momentum=0.9,
+                 weight_decay=0.0005, lr_policy="step", gamma=0.1,
+                 stepsize=100000, display=0, random_seed=SEED)
+    if dp:
+        return DataParallelSolver(sp, workers=workers, log_fn=None,
+                                  net_param=zoo.caffenet(
+                                      batch_size=HOSTS_BATCH * workers),
+                                  device=device)
+    kw = dict(host_axis="host", hosts=hosts) if hosts else {}
+    return LocalSGDSolver(sp, workers=workers, tau=HOSTS_TAU, log_fn=None,
+                          net_param=zoo.caffenet(batch_size=HOSTS_BATCH),
+                          device=device, **kw)
+
+
+def _bitwise_params(a, b):
+    """Every param blob of ``a`` equal to ``b``'s, bit for bit."""
+    return all(x.detach().equal(y.detach()) for n in a.params
+               for x, y in zip(a.params[n], b.params[n]))
+
+
+def _one_round_ms(torch, fn):
+    """(fn(), its ms over CUDA events; the host clock on the CPU)."""
+    if not torch.cuda.is_available():
+        t0 = time.perf_counter()
+        out = fn()
+        return out, 1e3 * (time.perf_counter() - t0)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def phase_two_tier(torch, card, device="cuda"):
+    """Part A: the two-tier local-SGD round in process at the ImageNet
+    app's widths (CaffeNet, 4 slots x b256, tau 10, f32, TF32 off), on
+    batches made on the card. The degeneracies first: 4 hosts x 1 slot
+    against phase 8's single-tier round, and 1 host x 4 slots against
+    tau DataParallelSolver steps, each bit for bit (losses and params).
+    Then 2 hosts x 2 slots: one unarmed round (its LRN launches), and
+    HOSTS_ROUNDS rounds with elastic membership armed (quorum 1,
+    evict_after 1, readmit_after 2) and chaos kill_host=1 at round 1 —
+    host 1 holds slots 2 and 3; in two-tier mode the membership unit is
+    the host, whose injector is kill_host (the JAX grammar's kill_worker
+    feeds worker-unit membership). Each round's consensus against a
+    float64 masked mean, computed on the card, of the live hosts'
+    post-round weights; the eviction at round 1, the readmission after
+    the cooldown, every host holding the consensus after every round;
+    the LRN launches a round equal to the unarmed round's; the masked
+    consensus alone timed."""
+    from sparknet_tpu_torch.ops import KERNEL_WRAPPERS, kernel_launches
+    r0 = _synthetic_rounds(torch, HOSTS_TAU, 4, HOSTS_BATCH, (3, 227, 227),
+                           1000, SEED + 40, device)
+    # bit for bit needs cuDNN's deterministic algorithms (its default
+    # backward sums with atomics: two runs of one solver differ)
+    torch.backends.cudnn.deterministic = True
+    try:
+        same_41, same_14 = _degeneracies(torch, card, r0, device)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # 2 hosts x 2 slots, unarmed, beside phase 8's single-tier round:
+    # the round times and the LRN launches of one round
+    ref = _hosts_caffenet(torch, device=device)
+    _one_round_ms(torch, lambda: ref.train_round(r0))       # warm-up
+    _, ref_ms = _one_round_ms(torch, lambda: ref.train_round(r0))
+    del ref
+    torch.cuda.empty_cache()
+    solver = _hosts_caffenet(torch, hosts=2, device=device)
+    _one_round_ms(torch, lambda: solver.train_round(r0))    # warm-up
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+    _, plain_ms = _one_round_ms(torch, lambda: solver.train_round(r0))
+    unarmed = kernel_launches()
+    del solver
+    torch.cuda.empty_cache()
+    return _two_tier_armed(torch, card, device, unarmed, plain_ms, ref_ms,
+                           same_41, same_14)
+
+
+def _degeneracies(torch, card, r0, device):
+    """4 hosts x 1 slot against the single-tier round and 1 host x 4
+    slots against tau DataParallelSolver steps, each on ``r0`` from one
+    seed: -> (both bit for bit?, ...)."""
+    # 4 hosts x 1 slot == the single-tier round of phase 8, bit for bit
+    ref = _hosts_caffenet(torch, device=device)
+    ref_loss, ref_ms = _one_round_ms(torch, lambda: ref.train_round(r0))
+    hier = _hosts_caffenet(torch, hosts=4, device=device)
+    hier_loss, hier_ms = _one_round_ms(torch, lambda: hier.train_round(r0))
+    same_41 = float(ref_loss) == float(hier_loss) and \
+        _bitwise_params(ref, hier)
+    print(f"[hosts] 4 hosts x 1 slot against the single-tier round: losses "
+          f"{float(hier_loss):.7f} / {float(ref_loss):.7f}, params bit for "
+          f"bit {same_41}; round {hier_ms:.1f} ms, single-tier {ref_ms:.1f} "
+          f"ms; {card}")
+    check(same_41, "4 hosts x 1 slot is not the single-tier round bit for "
+                   "bit")
+    del ref, hier
+    torch.cuda.empty_cache()
+    # 1 host x 4 slots == tau DataParallelSolver steps, bit for bit
+    one = _hosts_caffenet(torch, hosts=1, device=device)
+    one_loss, one_ms = _one_round_ms(torch, lambda: one.train_round(r0))
+    dp = _hosts_caffenet(torch, dp=True, device=device)
+    steps = [dp.train_step({k: v[i] for k, v in r0.items()})
+             for i in range(HOSTS_TAU)]
+    dp_loss = float(torch.stack(steps).mean())
+    same_14 = float(one_loss) == dp_loss and _bitwise_params(one, dp)
+    print(f"[hosts] 1 host x 4 slots against {HOSTS_TAU} data-parallel "
+          f"steps: losses {float(one_loss):.7f} / {dp_loss:.7f}, params bit "
+          f"for bit {same_14}; round {one_ms:.1f} ms")
+    check(same_14, "1 host x 4 slots is not tau DataParallelSolver steps "
+                   "bit for bit")
+    del one, dp, steps
+    torch.cuda.empty_cache()
+    return same_41, same_14
+
+
+def _two_tier_armed(torch, card, device, unarmed, plain_ms, ref_ms, same_41,
+                    same_14):
+    """2 hosts x 2 slots armed, host 1 killed at round 1 (see
+    phase_two_tier)."""
+    from sparknet_tpu_torch.ops import KERNEL_WRAPPERS, kernel_launches
+    from sparknet_tpu_torch.resilience import chaos as chaos_mod
+    from sparknet_tpu_torch.resilience.elastic import masked_consensus
+    chaos_mod.install_chaos(chaos_mod.ChaosMonkey.parse(
+        "kill_host=1,kill_host_round=1"))
+    try:
+        solver = _hosts_caffenet(torch, hosts=2, device=device)
+        solver.arm_elastic(quorum=1, evict_after=1, readmit_after=2)
+    finally:
+        chaos_mod.install_chaos(None)
+    captured = []
+    local_round = solver._local_round
+
+    def capture(batches):
+        res = local_round(batches)
+        captured.append({n: [P.detach().double() for P in ps]
+                         for n, ps in solver.slot_params.items()})
+        return res
+    solver._local_round = capture
+    losses, worst, per_round, rounds_ms = [], 0.0, [], []
+    for r in range(HOSTS_ROUNDS):
+        batches = _synthetic_rounds(torch, HOSTS_TAU, 4, HOSTS_BATCH,
+                                    (3, 227, 227), 1000, SEED + 41 + r,
+                                    device)
+        alive = torch.as_tensor(solver.elastic.alive.astype(np.float64),
+                                device=device)
+        for fn in KERNEL_WRAPPERS:
+            fn.launches = 0
+        loss, ms = _one_round_ms(torch, lambda: solver.train_round(batches))
+        rounds_ms.append(ms)
+        per_round.append(kernel_launches())
+        losses.append(float(loss))
+        units = captured.pop()
+        finite = torch.stack([
+            torch.stack([torch.isfinite(P[u]).all() for ps in units.values()
+                         for P in ps]).all() for u in range(solver.units)])
+        mask = alive * finite.double()
+        err = 0.0
+        for name, ps in units.items():
+            for i, P in enumerate(ps):
+                m = mask.reshape((-1,) + (1,) * (P.dim() - 1))
+                want = (P * m).sum(0) / mask.sum()
+                got = solver.slot_params[name][i]
+                for u in range(solver.units):     # every host holds it
+                    e = float((got[u].double() - want).abs().max()
+                              / want.abs().max().clamp_min(1e-30))
+                    err = max(err, e)
+        worst = max(worst, err)
+        print(f"[hosts] 2 hosts x 2 slots, armed, round {r}: loss "
+              f"{losses[-1]:.6f}, alive during the round "
+              f"{mask.tolist()}, consensus against the float64 masked "
+              f"mean {err:.3e} (limit {CONSENSUS_LIMIT:g}), {ms:.1f} ms, LRN "
+              f"launches {per_round[-1]['lrn_across']} / "
+              f"{per_round[-1]['lrn_across_bwd']} (unarmed "
+              f"{unarmed['lrn_across']} / {unarmed['lrn_across_bwd']})")
+    el = solver.elastic
+    ev = [(e["worker"], e["round"], e["reason"]) for e in el.evictions]
+    rd = [(e["worker"], e["round"]) for e in el.readmissions]
+    valid = solver._alive_mask()
+    _one_round_ms(torch, lambda: masked_consensus(solver.slot_params,
+                                                  valid))    # warm-up
+    cons_ms = statistics.median(
+        _one_round_ms(torch, lambda: masked_consensus(solver.slot_params,
+                                                      valid))[1]
+        for _ in range(5))
+    n_params = sum(P[0].numel() for ps in solver.slot_params.values()
+                   for P in ps)
+    armed_ms = statistics.median(rounds_ms)
+    print(f"[hosts] evictions {ev}, readmissions {rd}; the masked "
+          f"consensus alone {cons_ms:.3f} ms over {n_params / 1e6:.1f}M "
+          f"params x 2 hosts; the armed round {armed_ms:.1f} ms (median of "
+          f"{HOSTS_ROUNDS}), unarmed {plain_ms:.1f} ms, phase 8's "
+          f"single-tier {ref_ms:.1f} ms in this call; {card}")
+    check(all(np.isfinite(losses)), f"armed two-tier losses {losses}")
+    check(worst <= CONSENSUS_LIMIT,
+          f"the two-tier consensus differs from the float64 masked mean by "
+          f"{worst:.3e}")
+    check(ev == [(1, 1, "chaos_kill")], f"evictions {ev}, want host 1 at "
+                                        "round 1")
+    check(rd == [(1, 3)], f"readmissions {rd}, want host 1 at round 3")
+    for name in ("lrn_across", "lrn_across_bwd"):
+        check(all(p[name] == unarmed[name] for p in per_round),
+              f"{name} launches a round {[p[name] for p in per_round]}, "
+              f"unarmed {unarmed[name]}")
+    launches = {k: sum(p[k] for p in per_round) for k in per_round[0]}
+    out = {"degenerate_4x1_bitwise": same_41, "degenerate_1x4_bitwise":
+           same_14, "single_tier_round_ms": ref_ms,
+           "unarmed_round_ms": plain_ms,
+           "armed_rounds_ms": rounds_ms, "losses": losses,
+           "consensus_err": worst, "consensus_ms": cons_ms,
+           "evictions": ev, "readmissions": rd, "launches": launches,
+           "unarmed_launches": unarmed}
+    solver.close()
+    del solver, captured
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_elastic_train_verb(solver_path, card, dp_launches, tmp,
+                             device="cuda"):
+    """Part B: `train --strategy dp --mesh data=4` on phase 9's CaffeNet
+    records (4 x b64) with elastic membership, bounded staleness 1 and
+    chaos killing worker 1 at step 2: exit 0, the eviction and the
+    readmission in its --metrics stream, finite losses, and the LRN
+    launches of the unarmed dp verb's run (phase 10), every slot still
+    computing."""
+    metrics = os.path.join(tmp, "elastic_dp.jsonl")
+    stdout, wall = _train_verb(
+        solver_path, "hosts-train",
+        ("--strategy", "dp", "--mesh", f"data={DP_SLOTS}", "--quorum", "3",
+         "--evict-after", "1", "--readmit-after", "2", "--staleness", "1",
+         "--chaos", "kill_worker=1,kill_round=2", "--metrics", metrics,
+         "--device", device), {"SPARKNET_DEVICE_CACHE_MB": None})
+    losses = [float(l.split("loss = ")[1].split(",")[0])
+              for l in stdout.splitlines() if "Iteration " in l]
+    launches = _launches_line(stdout, "hosts-train")
+    ev = [(e["worker"], e["round"], e["reason"])
+          for e in _jsonl(metrics, "eviction")]
+    rd = [(e["worker"], e["round"]) for e in _jsonl(metrics, "readmission")]
+    print(f"[hosts-train] evictions {ev}, readmissions {rd}, losses "
+          f"{losses}, LRN launches {launches['lrn_across']} / "
+          f"{launches['lrn_across_bwd']} (the unarmed dp verb "
+          f"{dp_launches['lrn_across']} / {dp_launches['lrn_across_bwd']}) "
+          f"in {FEED_ITERS} iterations, {wall:.1f} s; {card}")
+    check(losses and all(np.isfinite(losses)), f"losses {losses}")
+    check(ev == [(1, 2, "chaos_kill")], f"evictions {ev}")
+    check(rd == [(1, 4)], f"readmissions {rd}")
+    for name in ("lrn_across", "lrn_across_bwd"):
+        check(launches[name] == dp_launches[name],
+              f"{name}: {launches[name]} launches, the unarmed dp verb "
+              f"{dp_launches[name]}")
+    return {"losses": losses, "evictions": ev, "readmissions": rd,
+            "launches": launches, "wall_s": wall}
+
+
+def _cifar_procs(tmp, tag, hosts, flags, per_host=None, env=None,
+                 world=None):
+    """Start ``hosts`` `cifar` verb processes (one host each, ids 0..n-1
+    of a world of ``world`` processes, default ``hosts``), all on the
+    card; ``per_host`` {pid: extra flags}. -> [(Popen, stdout path,
+    metrics path)]."""
+    procs = []
+    for pid in range(hosts):
+        log = os.path.join(tmp, f"{tag}-{pid}.log")
+        met = os.path.join(tmp, f"{tag}-{pid}.jsonl")
+        e = dict(os.environ, SPARKNET_NUM_PROCESSES=str(world or hosts),
+                 SPARKNET_PROCESS_ID=str(pid), **(env or {}))
+        cmd = [sys.executable, "-m", "sparknet_tpu_torch", "cifar",
+               *flags, "--metrics", met,
+               *((per_host or {}).get(pid, ()))]
+        with open(log, "w") as fh:
+            procs.append((subprocess.Popen(cmd, cwd=REPO, stdout=fh,
+                                           stderr=subprocess.STDOUT,
+                                           env=e), log, met))
+    return procs
+
+
+def _wait_procs(procs, timeout=RELAY_TIMEOUT):
+    """Exit codes of ``procs``; kills what outlives ``timeout``."""
+    deadline = time.time() + timeout
+    rcs = []
+    try:
+        for p, _, _ in procs:
+            rcs.append(p.wait(timeout=max(1.0, deadline - time.time())))
+    finally:
+        for p, _, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return rcs
+
+
+def _read(path):
+    with open(path) as fh:
+        return fh.read()
+
+
+def _relay_lines(text):
+    """{round: (hosts, sha, post ms, mask ms, average ms)} from a
+    process's `relay:` log lines."""
+    out = {}
+    for line in text.splitlines():
+        if "relay: round " not in line:
+            continue
+        part = line.split("relay: round ", 1)[1]
+        r = int(part.split(" ", 1)[0])
+        sha = part.split("sha256 ", 1)[1].split(";")[0].strip()
+        hosts = part.split("hosts ", 1)[1].split("]")[0] + "]"
+        ms = [float(x.split(" ms")[0]) for x in part.split(
+            "; post ", 1)[1].replace("mask ", "").replace(
+            "average ", "").split(", ")] if "; post " in part else []
+        out[r] = (hosts, sha, *ms)
+    return out
+
+
+def phase_relay_processes(tmp, card, device="cuda"):
+    """Part C: `cifar --hosts N --strategy local_sgd --tau 10` processes
+    on the one card, each one host of 2 slots x b100 of cifar10_full on
+    make_synth_cifar records, relaying the cross-host average through
+    the rendezvous directory (--heartbeat-dir, --lease-s 2,
+    --heartbeat-interval 0.25, --metrics).
+    1. survival: 2 processes, --quorum 1 --evict-after 1, host 1 with
+       --chaos kill_host=1,kill_host_round=3: until the kill both adopt
+       the same consensus bit for bit (each round's sha256 in the log);
+       host 0 evicts host 1 (lease_expired) within a lease and a beat of
+       its last lease, and finishes with exit 0.
+    2. coordinated restart: 3 processes, --quorum 3, host 2 killed at
+       round 2: both survivors exit 4 after agreeing on the sha256 of the
+       manifest (a coordinated_restart event, agreed); relaunched as a
+       2-process world with --resume auto --reshard auto, both restore
+       that snapshot's iteration and go on.
+    3. grow: a pair with --snapshot-prefix P --snapshot-every 1, and a
+       third standalone process with --hosts 1 --grow --snapshot-prefix P
+       --resume auto --reshard auto started once P has a snapshot: its
+       reshard event names both worlds, and the pair's next masks count
+       three hosts."""
+    from sparknet_tpu_torch import tools
+    data = os.path.join(tmp, "relay_cifar")
+    tools.make_synth_cifar(data, n_train=5000, n_test=500, seed=SEED,
+                           log=lambda *a: None)
+
+    def flags(hosts):           # 2 slots x b100 a host
+        return ["--data", data, "--hosts", str(hosts), "--workers",
+                str(2 * hosts), "--strategy", "local_sgd", "--tau",
+                str(RELAY_TAU),
+                "--test-every", "1000", "--lease-s", str(RELAY_LEASE_S),
+                "--heartbeat-interval", str(RELAY_BEAT_S), "--device",
+                device]
+    base = flags(2)
+    out = {}
+    # 1. survival
+    hb = os.path.join(tmp, "hb-survive")
+    t0 = time.perf_counter()
+    procs = _cifar_procs(
+        tmp, "relay-survive", 2,
+        base + ["--rounds", str(RELAY_ROUNDS), "--heartbeat-dir", hb,
+                "--quorum", "1", "--evict-after", "1"],
+        per_host={1: ("--chaos", f"kill_host=1,kill_host_round="
+                                 f"{RELAY_KILL_ROUND}")})
+    rcs = _wait_procs(procs)
+    wall = time.perf_counter() - t0
+    logs = [_read(p[1]) for p in procs]
+    for pid, text in enumerate(logs):
+        for line in text.strip().splitlines()[-8:]:
+            print(f"[relay-survive {pid}] {line}")
+    check(rcs[0] == 0, f"survivor exited {rcs[0]}: {logs[0][-3000:]}")
+    check(rcs[1] == -signal.SIGKILL, f"host 1 exited {rcs[1]}, want "
+                                     "SIGKILL")
+    rel = [_relay_lines(t) for t in logs]
+    shared = sorted(set(rel[0]) & set(rel[1]))
+    check(shared == list(range(RELAY_KILL_ROUND)),
+          f"rounds both hosts relayed: {shared}")
+    same = all(rel[0][r][1] == rel[1][r][1] for r in shared)
+    check(same, f"the hosts' consensus differs before the kill: "
+                f"{[(rel[0][r][1], rel[1][r][1]) for r in shared]}")
+    m0 = procs[0][2]
+    ev = [(e["worker"], e["round"], e["reason"]) for e in
+          _jsonl(m0, "eviction")]
+    check(ev == [(1, RELAY_KILL_ROUND, "lease_expired")],
+          f"host 0's evictions {ev}")
+    gate = [e for e in _jsonl(m0, "host_round") if 1 in e.get("dead", [])]
+    window = float(gate[0]["lease_age_s"][1])
+    check(window <= RELAY_LEASE_S + RELAY_BEAT_S + 0.25,
+          f"host 1 evicted {window:.3f} s after its last lease, beyond a "
+          f"lease and a beat")
+    relay_ms = [v[2:] for r, v in sorted(rel[0].items()) if len(v) == 5]
+    post, mask, avg = (float(np.median([m[i] for m in relay_ms]))
+                       for i in range(3))
+    io = [e["seconds"] for e in _jsonl(m0, "relay_io")]
+    print(f"[relay] survival: consensus bit for bit across the hosts for "
+          f"rounds {shared}; host 1 evicted (lease_expired) at round "
+          f"{RELAY_KILL_ROUND}, {window:.3f} s after its last lease (lease "
+          f"{RELAY_LEASE_S} s, beat {RELAY_BEAT_S} s); the relay a round "
+          f"(median over host 0's {len(relay_ms)}): post {post:.2f} ms, mask "
+          f"{mask:.2f} ms, average {avg:.2f} ms (relay_io {1e3 * float(np.median(io)):.2f} ms); "
+          f"{wall:.1f} s; {card}")
+    out["survival"] = {"rcs": rcs, "shared_rounds": shared,
+                       "eviction_window_s": window, "post_ms": post,
+                       "mask_ms": mask, "average_ms": avg,
+                       "relay_io_ms": 1e3 * float(np.median(io)),
+                       "wall_s": wall}
+
+    # 2. coordinated restart
+    hb = os.path.join(tmp, "hb-restart")
+    prefix = os.path.join(tmp, "restart", "snap")
+    t0 = time.perf_counter()
+    procs = _cifar_procs(
+        tmp, "relay-restart", 3,
+        flags(3) + ["--rounds", str(RELAY_ROUNDS), "--heartbeat-dir", hb,
+                  "--quorum", "3", "--evict-after", "1",
+                  "--snapshot-prefix", prefix],
+        per_host={2: ("--chaos", "kill_host=2,kill_host_round=2")})
+    rcs = _wait_procs(procs)
+    logs = [_read(p[1]) for p in procs]
+    for pid, text in enumerate(logs):
+        for line in text.strip().splitlines()[-6:]:
+            print(f"[relay-restart {pid}] {line}")
+    check(rcs[:2] == [4, 4], f"survivors exited {rcs[:2]}, want 4 and 4")
+    cr = [[e for e in _jsonl(p[2], "membership")
+           if e.get("kind") == "coordinated_restart"] for p in procs[:2]]
+    from sparknet_tpu_torch.resilience.heartbeat import manifest_sha
+    sha = manifest_sha(prefix)
+    check(all(c and c[-1]["agreed"] and c[-1]["sha"] == sha for c in cr),
+          f"coordinated_restart events {cr}, manifest sha {sha}")
+    barrier = [float(t.split("coordinated restart: barrier ")[1].split(
+        " s")[0]) for t in logs[:2]]
+    from sparknet_tpu_torch.resilience.checkpoint import load_manifest
+    it = int(load_manifest(prefix)["latest"]["iter"])
+    hb2 = os.path.join(tmp, "hb-restart-2")
+    procs = _cifar_procs(
+        tmp, "relay-resume", 2,
+        base + ["--rounds", "2", "--heartbeat-dir", hb2, "--quorum", "1",
+                "--snapshot-prefix", prefix, "--resume", "auto",
+                "--reshard", "auto"])
+    rcs2 = _wait_procs(procs)
+    logs2 = [_read(p[1]) for p in procs]
+    wall = time.perf_counter() - t0
+    for pid, text in enumerate(logs2):
+        for line in text.strip().splitlines()[-4:]:
+            print(f"[relay-resume {pid}] {line}")
+    check(rcs2 == [0, 0], f"relaunch exited {rcs2}")
+    check(all(f"resume auto: restored iter {it} " in t for t in logs2),
+          f"the relaunch did not restore iter {it}")
+    check(all(f"done: 2 rounds, iter={it + 2 * RELAY_TAU}" in t
+              for t in logs2),
+          "the relaunch did not go on from the manifest")
+    print(f"[relay] coordinated restart: both survivors exit 4 on manifest "
+          f"{sha[:16]} (iter {it}), the barrier {barrier} s; the 2-process "
+          f"relaunch restored iter {it} and went on; {wall:.1f} s")
+    out["restart"] = {"rcs": rcs, "sha": sha, "iter": it,
+                      "barrier_s": barrier, "relaunch_rcs": rcs2,
+                      "wall_s": wall}
+
+    # 3. grow
+    hb = os.path.join(tmp, "hb-grow")
+    prefix = os.path.join(tmp, "grow", "snap")
+    t0 = time.perf_counter()
+    pair = _cifar_procs(
+        tmp, "relay-pair", 2,
+        base + ["--rounds", str(GROW_ROUNDS), "--heartbeat-dir", hb,
+                "--quorum", "1", "--evict-after", "1", "--snapshot-prefix",
+                prefix, "--snapshot-every", "1"])
+    from sparknet_tpu_torch.resilience.checkpoint import manifest_path
+    deadline = time.time() + RELAY_TIMEOUT
+    while not os.path.exists(manifest_path(prefix)) and \
+            time.time() < deadline and all(p.poll() is None
+                                           for p, _, _ in pair):
+        time.sleep(0.2)
+    jlog = os.path.join(tmp, "relay-joiner.log")
+    jmet = os.path.join(tmp, "relay-joiner.jsonl")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SPARKNET_NUM_PROCESSES", "SPARKNET_PROCESS_ID")}
+    with open(jlog, "w") as fh:
+        joiner = subprocess.Popen(
+            [sys.executable, "-m", "sparknet_tpu_torch", "cifar",
+             *flags(1),
+             "--rounds", str(JOINER_ROUNDS), "--heartbeat-dir", hb,
+             "--grow", "--quorum", "1", "--evict-after", "1",
+             "--snapshot-prefix", prefix, "--resume", "auto", "--reshard",
+             "auto", "--metrics", jmet], cwd=REPO, stdout=fh,
+            stderr=subprocess.STDOUT, env=env)
+    rcs = _wait_procs(pair + [(joiner, jlog, jmet)])
+    wall = time.perf_counter() - t0
+    jtext = _read(jlog)
+    for line in jtext.strip().splitlines()[-6:]:
+        print(f"[relay-joiner] {line}")
+    check(rcs == [0, 0, 0], f"grow run exited {rcs}: {jtext[-3000:]}")
+    rs = _jsonl(jmet, "reshard")
+    check(rs and rs[0]["from_world"]["processes"] == 2 and
+          rs[0]["to_world"]["processes"] == 1,
+          f"the joiner's reshard events {rs}")
+    joined = [e for e in _jsonl(pair[0][2], "host_joined")]
+    masks = []
+    for name in sorted(os.listdir(hb)):
+        if name.startswith("mask-") and name.endswith(".json"):
+            rec = json.loads(_read(os.path.join(hb, name)))
+            masks.append((rec["round"], rec["included"]))
+    three = [r for r, inc in masks if sorted(inc) == [0, 1, 2]]
+    check(joined and joined[0]["host"] == 2, f"host_joined {joined}")
+    check(three, f"no round's mask counts three hosts: {masks}")
+    print(f"[relay] grow: the joiner's reshard {rs[0]['from_world']} -> "
+          f"{rs[0]['to_world']} ({rs[0]['direction']}), admitted as host 2 "
+          f"at round {joined[0]['round']}; {len(three)} rounds counted three "
+          f"hosts; {wall:.1f} s")
+    out["grow"] = {"rcs": rcs, "reshard": rs[0], "joined": joined[0],
+                   "three_host_rounds": len(three), "wall_s": wall}
+    return out
+
+
+def phase_hosts_all(torch, card, tmp, records, feeds):
+    t0 = time.perf_counter()
+    two_tier = phase_two_tier(torch, card)
+    verb = phase_elastic_train_verb(records["solver"], card,
+                                    feeds["cli"]["dp"]["launches"], tmp)
+    relay = phase_relay_processes(tmp, card)
+    wall = time.perf_counter() - t0
+    print(f"[hosts] phase 14 wall time {wall:.1f} s")
+    return {"two_tier": two_tier, "train_verb": verb, "relay": relay,
+            "wall_s": wall}
+
+
 KERNELS = {
     # name: (source, replaces, path whose launches the row reports)
     "lrn_across": ("sparknet_tpu_torch/csrc/lrn.cu",
@@ -4313,13 +4903,15 @@ KERNELS = {
 
 PHASES = {1: "device", 2: "build", 3: "kernels", 4: "serve", 5: "train",
           6: "flash", 7: "lm", 8: "local-sgd", 9: "records", 10: "feeds",
-          11: "zoo", 12: "levers, run safety, metrics", 13: "fleet"}
+          11: "zoo", 12: "levers, run safety, metrics", 13: "fleet",
+          14: "hosts"}
 
 
 def _selected(argv):
     """--phases 3,12 -> {1, 2, 3, 12} (phase 10 brings 9, whose records
-    it reads, and 13 brings 4, whose snapshot it serves); no argument ->
-    every phase."""
+    it reads, 13 brings 4, whose snapshot it serves, and 14 brings 9 and
+    10, whose records and dp verb run it reads); no argument -> every
+    phase."""
     if not argv:
         return set(PHASES)
     if len(argv) != 2 or argv[0] != "--phases":
@@ -4327,7 +4919,9 @@ def _selected(argv):
     want = {int(x) for x in argv[1].split(",")}
     bad = want - set(PHASES)
     if bad:
-        raise SystemExit(f"no phase {sorted(bad)}; phases are 1-13")
+        raise SystemExit(f"no phase {sorted(bad)}; phases are 1-14")
+    if 14 in want:
+        want.add(10)
     if 10 in want:
         want.add(9)
     if 13 in want:
@@ -4374,6 +4968,8 @@ def main(argv=None):
     zoo = section(11, phase_zoo_all, torch, card, tmp)
     levers = section(12, phase_levers_all, torch, card, tmp)
     fleet = section(13, lambda: phase_fleet(torch, card, served["prefix"]))
+    hosts = section(14, lambda: phase_hosts_all(torch, card, tmp, records,
+                                                feeds))
     total = time.perf_counter() - t_start
     print("[phases] " + json.dumps(
         {PHASES[n]: round(v, 1) for n, v in sorted(seconds.items())}))
@@ -4426,8 +5022,15 @@ def main(argv=None):
                         paths["train verb on records"][name],
                     "launches_streaming_verb":
                         feeds["cli"]["streaming"]["launches"][name],
-                    "launches_dp_verb": feeds["cli"]["dp"]["launches"][name]}
+                    "launches_dp_verb": feeds["cli"]["dp"]["launches"][name],
+                    "launches_two_tier_armed": hosts["two_tier"][
+                        "launches"][name],
+                    "launches_two_tier_unarmed_round": hosts["two_tier"][
+                        "unarmed_launches"][name]}
                    if caffenet else {}),
+                **({"launches_elastic_dp_verb": hosts["train_verb"][
+                    "launches"][name]}
+                   if tuple(r["shape"]) in CAFFENET_DP_LRN_SHAPES else {}),
                 "shape": r["shape"], "dtype": r["dtype"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -4444,7 +5047,7 @@ def main(argv=None):
             "profile", "card_vs_cpu")}, **trained_cli},
         "lm": {"cli": lm_cli, "step": lm_step, "card_vs_cpu": lm_parity},
         "local_sgd": local_sgd, "records": records, "feeds": feeds,
-        "zoo": zoo, "levers": levers, "fleet": fleet,
+        "zoo": zoo, "levers": levers, "fleet": fleet, "hosts": hosts,
         "phase_seconds": {PHASES[n]: v for n, v in seconds.items()},
         "total_seconds": total}, default=str))
     print(json.dumps({"kernels": table}))

@@ -19,7 +19,10 @@
           (a torch.profiler trace of one steady block), the signal
           policies, ``--stall-seconds`` (a ``watchdog`` event on a stall
           or NaN), ``--recover`` (rollback; exit 3 on abort),
-          ``--keep N``, ``--health-*``; ``--remat`` and ``--precision``.
+          ``--keep N``, ``--health-*``; ``--remat`` and ``--precision``;
+          the multi-host flags as in ``cifar`` (``--chaos``, elastic
+          membership, ``--staleness``, the heartbeat, ``--reshard``),
+          exit 4 on a lost quorum.
           Its last line counts each CUDA kernel's launches in the run.
   test    score a model's TEST net over its data layer's source.
   time    per-layer forward and forward+backward times.
@@ -37,9 +40,11 @@
           SLO autoscaling decisions, canary rollback.
   serve-bench
           closed- and open-loop load against a replica or the router.
-  simfleet --serve
-          the serving fleet on a simulated clock (no device); the
-          training fleet's simulator exits 2 (ROADMAP A6d).
+  simfleet
+          the training fleet on a simulated clock (virtual hosts driving
+          the real heartbeat, relay and elastic-policy code; --sweep
+          grids, --record_real / --replay), and with --serve the serving
+          fleet (no device).
   monitor a live terminal view of a --metrics stream.
   lm      train the transformer LM (models/zoo.py transformer_lm) on the
           synthetic bigram corpus with the single-device Solver: the
@@ -50,8 +55,16 @@
           slots (--tau steps each, then the weights averaged) or per-step
           data parallelism (--strategy dp); tests every --test-every
           rounds, snapshots and --resume auto; --metrics, --health-*,
-          --remat, --precision. The JAX verb's multi-host, chaos, elastic
-          and heartbeat flags exit 2.
+          --remat, --precision. --hosts H splits the slots into H fault
+          domains (two-tier local SGD); with SPARKNET_NUM_PROCESSES and
+          SPARKNET_PROCESS_ID each process is one host, and
+          --heartbeat-dir leases it and relays the cross-host average
+          through the directory. --quorum / --evict-after /
+          --readmit-after arm elastic membership (exit 4 on a lost
+          quorum, after a snapshot every survivor agrees on),
+          --staleness the bounded-staleness mode, --chaos the fault
+          injectors, --grow a late joiner, --reshard auto a resume on
+          another world.
   imagenet
           the ImageNetApp loop: CaffeNet under local SGD (or --strategy
           dp) on synthetic class-gaussian images, transformed on the
@@ -100,7 +113,8 @@ def _mesh_arg(s):
             raise argparse.ArgumentTypeError(
                 f"mesh axis {k!r}: not ported (the port's one axis is "
                 "'data', over worker slots; model, sequence and pipeline "
-                "axes are ROADMAP A5, host axes A6)")
+                "axes are ROADMAP A5; host fault domains are cifar "
+                "--hosts)")
         try:
             out[k] = int(v)
         except ValueError:
@@ -117,7 +131,8 @@ def _apply_feed_flags(args):
     for flag, env in (("wire", "SPARKNET_WIRE"),
                       ("wire_bits", "SPARKNET_WIRE_BITS"),
                       ("staging", "SPARKNET_STAGING"),
-                      ("echo", "SPARKNET_ECHO")):
+                      ("echo", "SPARKNET_ECHO"),
+                      ("shard_ingest", "SPARKNET_SHARD_INGEST")):
         if getattr(args, flag, None) is not None:
             os.environ[env] = str(getattr(args, flag))
     echo = int(os.environ.get("SPARKNET_ECHO", "1") or 1)
@@ -230,6 +245,12 @@ def _add_feed_flags(p):
                    help="data echoing: serve each shipped batch E times, "
                         "with fresh crop/mirror draws for each echo. "
                         "Default: SPARKNET_ECHO, else 1")
+    p.add_argument("--shard-ingest", choices=("on", "off"), default=None,
+                   help="per-host sharded ingest in multi-process runs: "
+                        "each host reads only its owned record partition "
+                        "(data/ingest.py; ownership re-spreads with "
+                        "elastic membership). Default: "
+                        "SPARKNET_SHARD_INGEST env var, else on")
 
 
 def _net_base_dir(sp, solver_path):
@@ -305,6 +326,8 @@ def cmd_train(args):
     from .ops import kernel_launches
     from .proto import text_format
     from .resilience import checkpoint
+    from .parallel.multihost import exit_if_peers_died
+    from .resilience.elastic import EXIT_QUORUM_LOST, QuorumLost
     from .resilience.recovery import RecoveryAbort
     from .solver import Solver
     from .solver.solver import resolve_nets, to_device
@@ -320,6 +343,9 @@ def cmd_train(args):
     # step, comms and memory accounting and the verb's phase spans
     metrics = MetricsLogger(args.metrics) if args.metrics else None
     tracer = Tracer(metrics)
+    # before the solver and the sources: they take the injector through
+    # active_chaos()
+    chaos = _install_chaos(args, metrics=metrics)
     sp = text_format.load(args.solver, "SolverParameter")
     base_dir = _net_base_dir(sp, args.solver)
     if sp.has("snapshot_prefix") and base_dir \
@@ -333,7 +359,7 @@ def cmd_train(args):
     train_shapes, train_src, test_shapes, test_src = _real_feeds(
         train_np, test_np, base_dir, seed=seed,
         device_transform=not args.host_transform)
-    data_iter = solver = None
+    data_iter = solver = hb = None
     prof = TorchProfiler(args.profile)
     rc = 0
     try:
@@ -389,19 +415,23 @@ def cmd_train(args):
                                 lr_decay=args.recover_lr_decay,
                                 explode_factor=args.recover_explode_factor)
         _apply_health_flags(solver, args)
+        _apply_heartbeat_flags(solver, args)   # before elastic: the relay
+        _apply_elastic_flags(solver, args)     # world sizes to processes
+        hb = solver.heartbeat                  # close() drops the reference
         if args.weights:
             solver.load_weights(args.weights)
         if args.snapshot:
-            solver.restore(args.snapshot)
+            solver.restore(args.snapshot, reshard=args.reshard)
         if args.resume:
             if args.resume == "auto":
                 if not prefix:
                     raise SystemExit("--resume auto needs a snapshot prefix "
                                      "(--snapshot-prefix or the solver's "
                                      "snapshot_prefix)")
-                checkpoint.resume_auto(solver, prefix, log_fn=print)
+                checkpoint.resume_auto(solver, prefix, log_fn=print,
+                                       reshard=args.reshard)
             else:
-                solver.restore(args.resume)
+                solver.restore(args.resume, reshard=args.reshard)
         total = args.iterations or int(sp.max_iter) or 1000
         if train_src is not None:
             cached = isinstance(train_src, DeviceCachedSource)
@@ -419,7 +449,8 @@ def cmd_train(args):
             put = None
             if int(sp.iter_size) <= 1:
                 if os.environ.get("SPARKNET_STAGING", "on") != "off":
-                    put = H2DStager(slots=2, device=solver.device)
+                    put = H2DStager(slots=2, device=solver.device,
+                                    chaos=chaos)
                 else:
                     put = lambda b: to_device(b, solver.device)  # noqa: E731
             data_iter = PrefetchIterator(iter(train_src), depth=3,
@@ -467,8 +498,22 @@ def cmd_train(args):
                         print(f"ABORT: {e}")
                         rc = EXIT_RECOVERY_ABORT
                         break
+                    except QuorumLost as e:
+                        # too few live workers for a trustworthy
+                        # consensus: a distinct exit for the supervisor.
+                        # The masked consensus up to here is healthy:
+                        # keep it, and in a multi-host world barrier
+                        # every survivor on the same manifest
+                        print(f"QUORUM LOST: {e}")
+                        if prefix:
+                            solver.snapshot(prefix=prefix)
+                            solver.coordinated_restart(prefix)
+                        rc = EXIT_QUORUM_LOST
+                        break
                 blocks_done += 1
                 prof.maybe_stop()
+                if chaos is not None:
+                    chaos.maybe_sigterm(blocks_done)
                 action = policy.pending()
                 if action in ("snapshot", "snapshot_stop"):
                     solver.snapshot(prefix=prefix or "snap")
@@ -500,6 +545,9 @@ def cmd_train(args):
     if metrics:
         metrics.close()
     print(f"Kernel launches: {json.dumps(kernel_launches())}")
+    sys.stdout.flush()
+    # a run that survived a peer's death reports its own exit code
+    exit_if_peers_died(rc, hb)
     return rc
 
 
@@ -735,23 +783,44 @@ def cmd_lm(args):
 
 
 def cmd_cifar(args):
+    """The CifarApp loop. Exit 0, or 4 (EXIT_QUORUM_LOST) when elastic
+    membership lost its quorum: the app has then snapshotted and, with
+    the heartbeat armed, barriered every surviving process on the same
+    manifest."""
     from .apps import CifarApp
     from .ops import kernel_launches
+    from .parallel.multihost import exit_if_peers_died
+    from .resilience.elastic import EXIT_QUORUM_LOST, QuorumLost
     _apply_perf_flags(args)   # before the app builds its nets
     # the app feeds host-transformed CIFAR batches: as in the JAX
     # package, the wire and staging flags only set their env vars there
     echo = _apply_feed_flags(args)
+    chaos = _install_chaos(args)    # before the app builds its solver
     app = CifarApp(num_workers=args.workers, data_dir=args.data,
                    prototxt_dir=args.prototxt_dir, strategy=args.strategy,
                    tau=args.tau, log_path=args.log, device=args.device,
-                   echo=echo, metrics_path=args.metrics)
+                   echo=echo, metrics_path=args.metrics, hosts=args.hosts)
+    if chaos is not None and chaos.metrics is None:
+        chaos.metrics = app.metrics  # chaos events land in the run's JSONL
     _apply_health_flags(app.solver, args)
-    solver = app.run(num_rounds=args.rounds, test_every=args.test_every,
-                     snapshot_prefix=args.snapshot_prefix,
-                     snapshot_every=args.snapshot_every, resume=args.resume)
-    print(f"done: {args.rounds} rounds, iter={solver.iter}")
+    _apply_heartbeat_flags(app.solver, args)   # before elastic: the relay
+    _apply_elastic_flags(app.solver, args)     # world sizes to processes
+    hb = app.solver.heartbeat                  # close() drops the reference
+    rc = 0
+    try:
+        solver = app.run(num_rounds=args.rounds, test_every=args.test_every,
+                         snapshot_prefix=args.snapshot_prefix,
+                         snapshot_every=args.snapshot_every,
+                         resume=args.resume, reshard=args.reshard)
+        print(f"done: {args.rounds} rounds, iter={solver.iter}")
+    except QuorumLost as e:
+        print(f"QUORUM LOST: {e}")
+        rc = EXIT_QUORUM_LOST
     print(f"Kernel launches: {json.dumps(kernel_launches())}")
-    return 0
+    sys.stdout.flush()
+    # a run that survived a peer's death reports its own exit code
+    exit_if_peers_died(rc, hb)
+    return rc
 
 
 def cmd_upgrade_net_proto(args):
@@ -880,23 +949,6 @@ class _NotPorted(argparse.Action):
         parser.error(f"{option_string}{shown}: not ported ({self.what})")
 
 
-# flags of the JAX `train` and `cifar` verbs the port refuses: (flags,
-# takes a value, what is missing and where the roadmap has it)
-_TRAIN_NOT_PORTED = (
-    (("--chaos",), True, "fault injection in training, ROADMAP A6d"),
-    (("--shard-ingest",), True, "per-host sharded ingest, ROADMAP A6d"),
-    (("--quorum", "--evict-after", "--readmit-after", "--staleness",
-      "--s-decay", "--unpark-after", "--evict-stale-after"), True,
-     "elastic membership and bounded staleness, ROADMAP A6d"),
-    (("--heartbeat-dir", "--lease-s", "--heartbeat-interval"), True,
-     "the heartbeat and its relay, ROADMAP A6d"),
-    (("--grow",), False, "the heartbeat and its relay, ROADMAP A6d"),
-)
-_CIFAR_NOT_PORTED = _TRAIN_NOT_PORTED + (
-    (("--hosts",), True, "hierarchical host fault domains, ROADMAP A6d"),
-    (("--fsdp", "--tp"), True, "sharding levers, ROADMAP A5"),
-)
-
 # the JAX `lm` verb's mesh flags: (flags, values that pass, what is
 # missing and where the roadmap has it)
 _LM_NOT_PORTED = (
@@ -908,21 +960,134 @@ _LM_NOT_PORTED = (
 )
 
 
-def _add_not_ported(p, table):
-    """Each flag of ``table`` on ``p`` as a usage error naming its
-    ROADMAP item; --reshard takes only what the port does (strict
-    worlds)."""
-    p.add_argument("--reshard", action=_NotPorted, default="strict",
-                   allow=("strict",),
-                   what="cross-world resharding, ROADMAP A6d",
-                   help="strict only: a snapshot of another world is "
-                        "refused with WorldMismatch")
-    for flags, value, what in table:
-        for flag in flags:
-            p.add_argument(flag, action=_NotPorted, what=what,
-                           nargs=None if value else 0,
-                           metavar="V" if value else None,
-                           help=f"not ported: {what}")
+def _add_resilience_flags(p, hosts=False):
+    """The JAX train and cifar verbs' multi-host flags: --reshard,
+    --chaos, the elastic membership and bounded-staleness flags
+    (resilience/elastic.py) and the heartbeat flags
+    (resilience/heartbeat.py); with ``hosts``, cifar's --hosts."""
+    if hosts:
+        p.add_argument("--hosts", type=int, default=0,
+                       help="N>0: hierarchical local SGD over N host "
+                            "fault domains (two-tier: per-step grad "
+                            "pmean inside a host, tau-interval masked "
+                            "averaging across hosts; membership/eviction "
+                            "at host granularity). Single-process: N "
+                            "virtual domains partition the worker slots; "
+                            "multi-process (SPARKNET_NUM_PROCESSES): one "
+                            "domain per process, relayed through "
+                            "--heartbeat-dir")
+    p.add_argument("--reshard", choices=("strict", "auto"),
+                   default="strict",
+                   help="cross-world restore policy: 'strict' refuses a "
+                        "snapshot stamped by a different world "
+                        "(WorldMismatch names both worlds); 'auto' "
+                        "re-partitions it for THIS world — an 8-way "
+                        "run's checkpoint resumes on 4 or 16 "
+                        "(resilience/checkpoint.reshard_for_world)")
+    p.add_argument("--chaos", metavar="SPEC",
+                   help="deterministic fault injection, e.g. "
+                        "'nan_step=30,io_p=0.02,sigterm_round=3,seed=1' "
+                        "or 'kill_worker=1,kill_round=3' (also via "
+                        "SPARKNET_CHAOS; see resilience/chaos.py)")
+    p.add_argument("--quorum", type=int, default=0, metavar="N",
+                   help="arm elastic membership: sync rounds become "
+                        "validity-masked quorum averages that survive "
+                        "worker loss; abort with exit 4 when fewer than "
+                        "N workers are live (0 = elasticity off unless "
+                        "--evict-after/--readmit-after is given, then "
+                        "quorum defaults to 1)")
+    p.add_argument("--evict-after", type=int, default=None, metavar="R",
+                   help="evict a worker after R consecutive rounds with "
+                        "an invalid (non-finite) contribution "
+                        "(default 2); its data shard re-spreads over "
+                        "the survivors")
+    p.add_argument("--readmit-after", type=int, default=None, metavar="R",
+                   help="readmit an evicted worker after an R-round "
+                        "cooldown, restarting it from the consensus "
+                        "weights (default 5; 0 = never readmit)")
+    p.add_argument("--staleness", type=int, default=None, metavar="S",
+                   help="arm the ASYNC bounded-staleness update mode "
+                        "(the knob next to --tau): rounds are barrier-"
+                        "free — a worker up to S rounds behind the "
+                        "fastest live peer still contributes "
+                        "(staleness-discounted), beyond S it is parked "
+                        "and resynced from the consensus; the round "
+                        "never waits for a straggler. S=0 is bit-for-"
+                        "bit the synchronous masked round")
+    p.add_argument("--s-decay", type=float, default=0.5,
+                   help="geometric per-round-of-lag discount applied "
+                        "to stale contributions in async mode "
+                        "(1.0 = no discount inside the bound)")
+    p.add_argument("--unpark-after", type=int, default=1, metavar="R",
+                   help="rounds a parked (over-stale) worker spends "
+                        "resyncing before it rejoins at the front "
+                        "(async mode; default 1)")
+    p.add_argument("--evict-stale-after", type=int, default=0,
+                   metavar="K",
+                   help="evict a worker after K chronic parks without "
+                        "a sustained in-bound stretch (async mode; "
+                        "0 = park/resync forever, never evict)")
+    p.add_argument("--heartbeat-dir", metavar="DIR",
+                   help="shared rendezvous directory (every host must "
+                        "reach it): arms leased heartbeats, host-level "
+                        "eviction on lease expiry, the no-hang round "
+                        "gate, and coordinated restart on quorum loss")
+    p.add_argument("--lease-s", type=float, default=3.0,
+                   help="heartbeat lease: a host silent this long is "
+                        "dead (evicted at the next round gate)")
+    p.add_argument("--heartbeat-interval", type=float, default=0.5,
+                   help="seconds between heartbeat re-leases (must be "
+                        "well under --lease-s)")
+    p.add_argument("--grow", action="store_true",
+                   help="late-join an already-RUNNING world through "
+                        "--heartbeat-dir: this standalone process scans "
+                        "the fresh leases, takes the next host id, and "
+                        "is admitted at the incumbents' next round gate "
+                        "(nothing rebuilt); pair with --resume auto "
+                        "--reshard auto to bootstrap weights from the "
+                        "running world's checkpoint")
+
+
+def _install_chaos(args, metrics=None):
+    """--chaos arms the process-wide injector BEFORE any solver or data
+    source is built, so they pick it up through active_chaos(); a bad
+    spec is a usage error."""
+    if not getattr(args, "chaos", None):
+        return None
+    from .resilience.chaos import ChaosMonkey, install_chaos
+    try:
+        monkey = ChaosMonkey.parse(args.chaos, metrics=metrics)
+    except ValueError as e:
+        raise SystemExit(f"--chaos: {e}") from None
+    install_chaos(monkey)
+    return monkey
+
+
+def _apply_heartbeat_flags(solver, args):
+    if not getattr(args, "heartbeat_dir", None):
+        return
+    solver.arm_heartbeat(args.heartbeat_dir,
+                         interval_s=args.heartbeat_interval,
+                         lease_s=args.lease_s,
+                         grow=getattr(args, "grow", False))
+
+
+def _apply_elastic_flags(solver, args):
+    on = args.quorum > 0 or args.evict_after is not None \
+        or args.readmit_after is not None
+    if on:
+        solver.arm_elastic(
+            quorum=max(1, args.quorum),
+            evict_after=args.evict_after
+            if args.evict_after is not None else 2,
+            readmit_after=args.readmit_after
+            if args.readmit_after is not None else 5)
+    if getattr(args, "staleness", None) is not None:
+        # after arm_elastic: the policy the flags armed gains the
+        # staleness fields (arm_staleness updates it in place)
+        solver.arm_staleness(args.staleness, decay=args.s_decay,
+                             unpark_after=args.unpark_after,
+                             evict_parked_after=args.evict_stale_after)
 
 
 def cmd_serve(args):
@@ -1106,25 +1271,25 @@ def _print_serve_sim(s):
 
 
 def cmd_simfleet(args):
-    """The serving-fleet simulator (sim/servefleet.py, ``--serve``):
-    virtual replicas and the real router, autoscaler and canary under
-    open-loop arrival traces on a simulated clock. Exit 0 on success, 1
-    on a lost serving request (no-lost-request-without-429 invariant),
-    2 on a bad chaos/sweep spec or without --serve (the training fleet's
-    simulator waits for ROADMAP A6d), 4 (EXIT_QUORUM_LOST) when the
-    simulated fleet loses quorum. Plain Python: no device."""
-    from .sim import ServeFleetSim, sweep
+    """The discrete-event fleet simulator (sim/): virtual hosts driving
+    the real heartbeat, consensus and elastic-policy code on a simulated
+    clock and an in-memory rendezvous directory — one run, a --sweep
+    grid, or the replay pair (--record_real / --replay); with --serve
+    the serving fleet's simulator (sim/servefleet.py) instead. Exit 0 on
+    success, 1 on a replay mismatch or a lost serving request
+    (no-lost-request-without-429 invariant), 2 on a bad chaos/sweep
+    spec, 4 (EXIT_QUORUM_LOST) when the simulated fleet loses quorum.
+    Plain Python: no device."""
+    import tempfile
+    from .sim import FleetSim, ServeFleetSim, replay, sweep
     from .utils.exit_codes import EXIT_QUORUM_LOST
     from .utils.metrics import MetricsLogger
-    if not args.serve:
-        print("sparknet_tpu_torch simfleet: the training fleet's simulator "
-              "(--record_real, --replay, FleetSim) is not ported "
-              "(ROADMAP A6d); --serve runs the serving fleet's",
-              file=sys.stderr)
-        return EXIT_USAGE
     metrics = MetricsLogger(args.metrics) if args.metrics else None
     log = print if args.verbose else None
     try:
+        if not args.serve:
+            return _simfleet_training(args, metrics, log, FleetSim, replay,
+                                      sweep, tempfile)
         if args.sweep:
             cells = []
             for spec in args.sweep:
@@ -1174,6 +1339,82 @@ def cmd_simfleet(args):
     finally:
         if metrics:
             metrics.close()
+
+
+def _simfleet_training(args, metrics, log, FleetSim, replay, sweep,
+                       tempfile):
+    """simfleet without --serve: the training fleet (sim/fleet.py)."""
+    from .utils.exit_codes import EXIT_QUORUM_LOST
+    if args.record_real:
+        with tempfile.TemporaryDirectory() as d:
+            rec = replay.record_real(
+                d, hosts=min(args.hosts, 4), rounds=args.rounds,
+                interval_s=args.interval, lease_s=args.lease,
+                round_s=args.round_s or 0.12,
+                evict_after=args.evict_after,
+                readmit_after=args.readmit_after,
+                quorum=args.quorum, log_fn=log)
+        with open(args.record_real, "w") as f:
+            json.dump(rec, f, indent=1)
+        print(f"simfleet: recorded real {rec['config']['hosts']}-"
+              f"coordinator run -> {args.record_real} "
+              f"({len(rec['sequence'])} membership events)")
+        return 0
+    if args.replay:
+        with open(args.replay) as f:
+            rec = json.load(f)
+        ok, real_seq, sim_seq = replay.replay_sim(rec, metrics=metrics,
+                                                  log_fn=log)
+        if ok:
+            print(f"simfleet: REPLAY MATCH — {len(sim_seq)} "
+                  "membership events reproduced exactly")
+            return 0
+        print("simfleet: REPLAY MISMATCH", file=sys.stderr)
+        print(f"  real: {real_seq}", file=sys.stderr)
+        print(f"  sim:  {sim_seq}", file=sys.stderr)
+        return 1
+    if args.sweep:
+        cells = []
+        for spec in args.sweep:
+            cells.extend(sweep.parse_grid(spec))
+        results = sweep.run_sweep(cells, metrics=metrics, log_fn=print,
+                                  budget_s=args.budget_s)
+        print(sweep.render_table(results))
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(results, f, indent=1)
+        return 0
+    sim = FleetSim(hosts=args.hosts, rounds=args.rounds,
+                   interval_s=args.interval, lease_s=args.lease,
+                   round_s=args.round_s, jitter=args.jitter, tau=args.tau,
+                   step_s=args.step_s, quorum=args.quorum,
+                   evict_after=args.evict_after,
+                   readmit_after=args.readmit_after,
+                   staleness=args.staleness, s_decay=args.s_decay,
+                   consensus=args.consensus,
+                   recover_after=args.recover_after, chaos=args.chaos,
+                   seed=args.seed, metrics=metrics, log_fn=log)
+    s = sim.run()
+    w = s["gate_wait_s"]
+    print(f"fleet: {s['hosts']} hosts x {s['rounds']} rounds "
+          f"(sim {s['sim_s']}s) consensus={s['consensus']} "
+          f"lease={s['lease_s']:g} interval={s['interval_s']:g} "
+          f"round_s={s['round_s']:g}")
+    print(f"membership: {s['evictions']} evictions, "
+          f"{s['readmissions']} readmissions, "
+          f"{s['admissions']} admissions; "
+          f"final live {s['live_final']}/{s['hosts']}"
+          + ("  QUORUM LOST" if s["quorum_lost"] else ""))
+    print(f"gate wait: mean {w['mean']}s p50 {w['p50']}s "
+          f"p95 {w['p95']}s max {w['max']}s")
+    print(f"staleness: parks {s['parks']} unparks {s['unparks']}"
+          + (f" max_lag {s['max_lag']}" if "max_lag" in s else "")
+          + f"  rollbacks {s['rollbacks']}"
+          + f"  retry_exhausted {s['retry_exhausted']}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(s, f, indent=1)
+    return EXIT_QUORUM_LOST if s["quorum_lost"] else 0
 
 
 def _add_fleet_parsers(sub):
@@ -1295,46 +1536,55 @@ def _add_fleet_parsers(sub):
 
     sf = sub.add_parser(
         "simfleet",
-        help="discrete-event simulator of the serving fleet (--serve): "
-             "virtual replicas drive the real router, autoscaler and "
-             "canary on a simulated clock and an in-memory rendezvous; "
-             "the training fleet's simulator waits for ROADMAP A6d")
-    # the JAX verb's training-fleet flags: parsed with its defaults, and
-    # refused (exit 2) unless --serve is given
+        help="discrete-event fleet simulator: thousands of virtual "
+             "hosts drive the real heartbeat/consensus/elastic-policy "
+             "code (simulated clock, in-memory rendezvous) — single "
+             "runs, --sweep grids, and replay validation against a "
+             "recorded real multi-coordinator run")
     sf.add_argument("--hosts", type=int, default=64,
-                    help="(training fleet, not ported) virtual fleet size")
+                    help="virtual fleet size")
     sf.add_argument("--rounds", type=int, default=50,
-                    help="(training fleet, not ported) rounds")
+                    help="simulated training rounds")
     sf.add_argument("--interval", type=float, default=0.5,
                     help="heartbeat interval_s, simulated seconds")
     sf.add_argument("--lease", type=float, default=3.0,
                     help="heartbeat lease_s, simulated seconds")
     sf.add_argument("--round_s", type=float, default=None,
-                    help="(training fleet, not ported)")
+                    help="simulated round duration (default: "
+                         "tau * step_s)")
     sf.add_argument("--tau", type=int, default=4,
-                    help="(training fleet, not ported)")
+                    help="local steps per consensus round (round_s = "
+                         "tau * step_s — sweeping tau changes how much "
+                         "compute amortizes each gate)")
     sf.add_argument("--step_s", type=float, default=0.25,
-                    help="(training fleet, not ported)")
+                    help="simulated seconds per local step")
     sf.add_argument("--jitter", type=float, default=0.15,
-                    help="(training fleet, not ported)")
+                    help="per-host round-duration jitter (std dev "
+                         "fraction, seeded)")
     sf.add_argument("--quorum", type=int, default=1,
-                    help="(training fleet, not ported)")
+                    help="ElasticPolicy quorum (exit 4 below it)")
     sf.add_argument("--evict_after", type=int, default=1,
-                    help="(training fleet, not ported)")
+                    help="ElasticPolicy evict_after")
     sf.add_argument("--readmit_after", type=int, default=0,
-                    help="(training fleet, not ported)")
+                    help="ElasticPolicy readmit cooldown (0 = never)")
     sf.add_argument("--staleness", type=int, default=None,
-                    help="(training fleet, not ported)")
+                    help="bounded-staleness s (parking past it)")
     sf.add_argument("--s_decay", type=float, default=0.5,
-                    help="(training fleet, not ported)")
+                    help="staleness consensus weight decay per lag")
     sf.add_argument("--consensus",
                     choices=("auto", "sync", "async", "none"),
-                    default="auto", help="(training fleet, not ported)")
+                    default="auto",
+                    help="cross-host transport: the real File/"
+                         "AsyncFileConsensus at small fleets, policy-"
+                         "level version clocks at scale (auto)")
     sf.add_argument("--recover_after", type=int, default=0,
-                    help="(training fleet, not ported)")
+                    help="revive chaos-killed hosts after this many "
+                         "rounds (0 = never) — the MTBF repair half")
     sf.add_argument("--chaos",
-                    help="chaos spec, e.g. 'kill_replica=1,kill_req=40' "
-                         "or 'slow_replica=0,slow_ms=50' "
+                    help="chaos spec, e.g. 'fail_rate=0.001,"
+                         "fail_seed=7,fail_corr=8' or 'kill_host=2,"
+                         "kill_host_round=5'; with --serve "
+                         "'kill_replica=1,kill_req=40' "
                          "(resilience/chaos.py)")
     sf.add_argument("--seed", type=int, default=0,
                     help="master seed: same spec + seed = same "
@@ -1346,15 +1596,22 @@ def _add_fleet_parsers(sub):
     sf.add_argument("--json", help="write the summary (or sweep "
                                    "results) JSON here")
     sf.add_argument("--sweep", action="append", metavar="GRID",
-                    help="axis grid 'replicas=2:4,trace=spike:flash' "
-                         "(Cartesian; repeatable — cells accumulate)")
+                    help="axis grid 'hosts=200:1000,fail_rate="
+                         "0.0005:0.005', or with --serve "
+                         "'replicas=2:4,trace=spike:flash' (Cartesian; "
+                         "repeatable — cells accumulate)")
     sf.add_argument("--budget_s", type=float, default=None,
                     help="real wall-clock budget for a sweep; unfired "
                          "cells are reported, never silently dropped")
     sf.add_argument("--record_real", metavar="OUT",
-                    help="(training fleet, not ported: ROADMAP A6d)")
+                    help="run a REAL multi-coordinator SIGKILL-shaped "
+                         "scenario (threads + wall clock + on-disk "
+                         "rendezvous) and record its membership "
+                         "sequence to OUT for --replay")
     sf.add_argument("--replay", metavar="REC",
-                    help="(training fleet, not ported: ROADMAP A6d)")
+                    help="re-run a recording in the simulator; exit 1 "
+                         "unless the membership sequence matches "
+                         "exactly")
     sf.add_argument("-v", "--verbose", action="store_true",
                     help="log the simulated fleet's membership story")
     sf.add_argument("--serve", action="store_true",
@@ -1495,7 +1752,7 @@ def main(argv=None):
     _add_perf_flags(t)
     _add_feed_flags(t)
     _add_health_flags(t)
-    _add_not_ported(t, _TRAIN_NOT_PORTED)
+    _add_resilience_flags(t)
     t.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; the "
                         "CPU runs only when asked: --device cpu)")
@@ -1715,7 +1972,8 @@ def main(argv=None):
     c.add_argument("--log")
     c.add_argument("--snapshot-prefix",
                    help="write periodic snapshots under this prefix "
-                        "(enables --resume auto)")
+                        "(enables --resume auto and the QuorumLost "
+                        "best-effort snapshot)")
     c.add_argument("--snapshot-every", type=int, default=0,
                    help="snapshot every N rounds (0 disables)")
     c.add_argument("--resume", metavar="auto|STATE",
@@ -1726,7 +1984,7 @@ def main(argv=None):
     _add_perf_flags(c)
     _add_feed_flags(c)
     _add_health_flags(c)
-    _add_not_ported(c, _CIFAR_NOT_PORTED)
+    _add_resilience_flags(c, hosts=True)
     c.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; the "
                         "CPU runs only when asked: --device cpu)")

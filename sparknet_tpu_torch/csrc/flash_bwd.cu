@@ -86,6 +86,7 @@
 
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
+#include "flash_wide.cuh"
 
 namespace sparknet_flash {
 
@@ -675,7 +676,8 @@ struct InfoQuery {
 
 // q, k, v, o, dout, dq: (bh, seq, head_dim) contiguous, dtype 0 = f32,
 // 1 = bf16 (16-byte aligned); lse (read) and delta (written): (bh, seq)
-// f32.
+// f32. A head_dim past 256 (a multiple of 64) runs the wide kernels of
+// flash_wide.cuh, here and in the dK/dV entry point.
 extern "C" int sparknet_flash_backward_dq(const void* q, const void* k,
                                           const void* v, const void* o,
                                           const void* dout, const void* lse,
@@ -683,6 +685,11 @@ extern "C" int sparknet_flash_backward_dq(const void* q, const void* k,
                                           int bh, int seq, int head_dim,
                                           float scale, int causal,
                                           void* stream) {
+  if (head_dim > 256)
+    return sparknet_flash::wide_dq(
+        q, k, v, o, dout, static_cast<const float*>(lse), dq,
+        static_cast<float*>(delta), dtype, bh, seq, head_dim, scale, causal,
+        static_cast<cudaStream_t>(stream));
   const sparknet_flash::DqLaunch launch{
       q, k, v, o, dout, static_cast<const float*>(lse), dq,
       static_cast<float*>(delta), bh, seq, scale, causal,
@@ -699,6 +706,11 @@ extern "C" int sparknet_flash_backward_dkv(const void* q, const void* k,
                                            int bh, int seq, int head_dim,
                                            float scale, int causal,
                                            void* stream) {
+  if (head_dim > 256)
+    return sparknet_flash::wide_dkv(
+        q, k, v, dout, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), dk, dv, dtype, bh, seq, head_dim,
+        scale, causal, static_cast<cudaStream_t>(stream));
   const sparknet_flash::DkvLaunch launch{
       q, k, v, dout, static_cast<const float*>(lse),
       static_cast<const float*>(delta), dk, dv, bh, seq, scale, causal,
@@ -711,6 +723,8 @@ extern "C" int sparknet_flash_backward_dkv(const void* q, const void* k,
 // out[2] dynamic shared memory bytes, out[3] resident CTAs per SM.
 extern "C" int sparknet_flash_backward_info(int which, int dtype,
                                             int head_dim, int* out) {
+  if (head_dim > 256)
+    return sparknet_flash::wide_info(which == 0 ? 1 : 2, dtype, out);
   const sparknet_flash::InfoQuery query{which, out};
   return sparknet_flash::dispatch(dtype, head_dim, query);
 }

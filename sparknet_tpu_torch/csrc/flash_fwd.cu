@@ -72,6 +72,7 @@
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 #include "flash_wgmma.cuh"
+#include "flash_wide.cuh"
 
 namespace sparknet_flash {
 
@@ -427,13 +428,18 @@ struct ForwardInfo {
 }  // namespace sparknet_flash
 
 // q, k, v, o: (bh, seq, head_dim) contiguous, dtype 0 = f32, 1 = bf16
-// (16-byte aligned); lse: (bh, seq) f32. Returns the CUDA error code of
-// the launch.
+// (16-byte aligned); lse: (bh, seq) f32. A head_dim past 256 (a multiple
+// of 64) runs the wide kernel of flash_wide.cuh. Returns the CUDA error
+// code of the launch.
 extern "C" int sparknet_flash_forward(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int dtype, int bh, int seq,
                                       int head_dim, float scale, int causal,
                                       void* stream) {
+  if (head_dim > 256)
+    return sparknet_flash::wide_forward(
+        q, k, v, o, static_cast<float*>(lse), dtype, bh, seq, head_dim,
+        scale, causal, static_cast<cudaStream_t>(stream));
   const sparknet_flash::ForwardLaunch launch{
       q, k, v, o, static_cast<float*>(lse), bh, seq, scale, causal,
       static_cast<cudaStream_t>(stream)};
@@ -445,6 +451,7 @@ extern "C" int sparknet_flash_forward(const void* q, const void* k,
 // memory bytes, out[3] resident CTAs per SM.
 extern "C" int sparknet_flash_forward_info(int dtype, int head_dim,
                                            int* out) {
+  if (head_dim > 256) return sparknet_flash::wide_info(0, dtype, out);
   const sparknet_flash::ForwardInfo query{out};
   return sparknet_flash::dispatch(dtype, head_dim, query);
 }

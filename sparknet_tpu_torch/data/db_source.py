@@ -9,9 +9,9 @@ yields feed dicts that the training loop (or a PrefetchIterator wrapping
 it) hands to the solver. In device mode a SPARKNET_WIRE codec
 (data/wire.py) may re-encode the shipped records. build_db_feed also
 dispatches the ImageData, WindowData and HDF5Data layers to
-data/file_sources.py.
-
-Not ported (ROADMAP A6): the retry and chaos hooks around record reads.
+data/file_sources.py. Record reads go through a jittered-backoff
+RetryPolicy (resilience/retry.py; SPARKNET_IO_RETRIES attempts, 0
+disables), and the process-wide chaos injector's ``io_p`` exercises it.
 """
 
 import os
@@ -57,8 +57,16 @@ class DatumBatchSource:
 
     def __init__(self, source, batch_size, phase=0, transform_param=None,
                  backend="lmdb", rand_skip=0, base_dir="", seed=None,
-                 data_top="data", label_top="label", device_transform=False):
+                 data_top="data", label_top="label", device_transform=False,
+                 retry=None):
         self.source = source
+        # transient-IO resilience: record reads go through a jittered
+        # backoff RetryPolicy (SPARKNET_IO_RETRIES attempts by default, 0
+        # disables) and the process-wide chaos injector exercises the path
+        from ..resilience.chaos import active_chaos
+        from ..resilience.retry import retry_from_env
+        self._retry = retry if retry is not None else retry_from_env()
+        self._chaos = active_chaos()
         self.batch_size = int(batch_size)
         self.data_top, self.label_top = data_top, label_top
         rng = np.random.RandomState(seed)
@@ -102,14 +110,35 @@ class DatumBatchSource:
 
     def _records(self):
         """Sequential wrap-around record stream, from the rand_skip
-        position on the first pass."""
+        position on the first pass. A transient IO error mid-cursor
+        restarts the DB iterator and fast-forwards to the record that
+        failed, under the retry policy's backoff and budget — a flaky
+        read costs a re-walk, not the run."""
         pos = self._skip
         self._skip = 0
+        attempt = 0
         while True:
-            for i, (_, value) in enumerate(self.db.items()):
-                if i >= pos:
-                    yield datum_to_array(value)
-            pos = 0             # "restarting data prefetching from start"
+            try:
+                seen = 0
+                for _, value in self.db.items():
+                    if seen < pos:
+                        seen += 1
+                        continue
+                    if self._chaos is not None:
+                        self._chaos.maybe_io_error(self.source)
+                    arr = datum_to_array(value)
+                    seen += 1
+                    pos += 1
+                    if pos >= len(self.db):
+                        pos = 0     # wrap ("restarting data prefetching")
+                    attempt = 0     # progress resets the per-read attempts
+                    yield arr
+                pos = 0             # clean end of pass
+            except OSError as e:
+                if self._retry is None:
+                    raise
+                attempt += 1
+                self._retry.record_failure(e, attempt, where=self.source)
 
     def __iter__(self):
         rec = self._records()

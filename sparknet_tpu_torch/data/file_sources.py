@@ -14,8 +14,9 @@ loop (or a PrefetchIterator) to hand to the solver:
 
 The graph-side shape stubs live in ops/feed.py; build_db_feed
 (db_source.py) dispatches a net's data layers to these classes. PIL and
-h5py are imported only where an image or an .h5 file is read. Not
-ported (ROADMAP A6): the retry and chaos hooks around the reads.
+h5py are imported only where an image or an .h5 file is read. Image
+decodes and .h5 loads retry with backoff (resilience/retry.py), and the
+process-wide chaos injector's ``io_p`` exercises the image path.
 """
 
 import os
@@ -65,6 +66,12 @@ class ImageDataSource:
         self.is_color = bool(is_color)
         self.shuffle = bool(shuffle)
         self.data_top, self.label_top = data_top, label_top
+        # transient-IO resilience: image decodes retry with backoff (a
+        # flaky NFS read costs a sleep, not the round); chaos injects
+        from ..resilience.chaos import active_chaos
+        from ..resilience.retry import retry_from_env
+        self._retry = retry_from_env()
+        self._chaos = active_chaos()
         self.rng = np.random.RandomState(seed)
         self.transformer = DataTransformer(transform_param, phase=phase,
                                            base_dir=base_dir, rng=self.rng)
@@ -97,6 +104,15 @@ class ImageDataSource:
             resize=(self.new_width, self.new_height)
             if self.new_height and self.new_width else None)
 
+    def _read_resilient(self, rel):
+        def read():
+            if self._chaos is not None:
+                self._chaos.maybe_io_error(rel)
+            return self._read(rel)
+        if self._retry is None:
+            return read()
+        return self._retry.call(read, where=rel)
+
     def _records(self):
         skip = self._skip
         self._skip = 0
@@ -105,7 +121,7 @@ class ImageDataSource:
                 if skip:
                     skip -= 1
                     continue
-                yield self._read(rel), label
+                yield self._read_resilient(rel), label
             if self.shuffle:                    # reshuffle on wrap
                 self.rng.shuffle(self.lines)
 
@@ -181,12 +197,15 @@ class HDF5DataSource:
             return {t: np.asarray(f[t]) for t in self.tops}
 
     def _rows(self):
+        from ..resilience.retry import retry_from_env
+        retry = retry_from_env()
         files = list(self.files)
         while True:
             if self.shuffle:
                 self.rng.shuffle(files)
             for p in files:
-                data = self._load(p)
+                data = self._load(p) if retry is None \
+                    else retry.call(self._load, p, where=p)
                 n = len(data[self.tops[0]])
                 order = self.rng.permutation(n) if self.shuffle \
                     else np.arange(n)

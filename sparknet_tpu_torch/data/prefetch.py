@@ -143,9 +143,12 @@ class H2DStager:
 
     With ``device="cpu"`` it is the identity, as it is for a batch whose
     values are already tensors (made on the device, or staged).
+    ``chaos`` hooks ChaosMonkey.maybe_slow_h2d: an armed ``slow_h2d``
+    makes every staged batch pay its injected wire time.
     """
 
-    def __init__(self, slots=2, device="cuda"):
+    def __init__(self, slots=2, device="cuda", chaos=None):
+        self._chaos = chaos
         self.device = torch.device(device)
         self.slots = max(1, int(slots))
         self._pinned = [None] * self.slots
@@ -155,6 +158,9 @@ class H2DStager:
         self.puts = 0
 
     def __call__(self, batch):
+        if self._chaos is not None:
+            self._chaos.maybe_slow_h2d(nbytes=sum(
+                int(getattr(v, "nbytes", 0)) for v in batch.values()))
         if self.device.type != "cuda" or any(
                 torch.is_tensor(v) for v in batch.values()):
             return batch

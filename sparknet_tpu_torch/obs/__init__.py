@@ -24,7 +24,7 @@ stream carries the run and the ``report`` and ``trace`` verbs read it.
 
 from .comms import (CommsMeter, broadcast_collect_bytes,
                     ring_allreduce_bytes, tree_bytes)
-from .divergence import DivergenceMeter, slot_divergence, tree_sq_dist
+from .divergence import DivergenceMeter, tree_sq_dist
 from .health import HealthMonitor
 from .memstats import MemoryMonitor
 from .stepstats import StepAccounting, device_memory, percentiles
@@ -34,6 +34,5 @@ __all__ = [
     "CommsMeter", "DivergenceMeter", "HealthMonitor", "MemoryMonitor",
     "StepAccounting", "TorchProfiler", "Tracer", "broadcast_collect_bytes",
     "chrome_from_spans", "device_memory", "export_chrome", "percentiles",
-    "ring_allreduce_bytes", "slot_divergence", "tree_bytes",
-    "tree_sq_dist",
+    "ring_allreduce_bytes", "tree_bytes", "tree_sq_dist",
 ]

@@ -6,13 +6,13 @@ a round cut communication but let the workers' replicas drift apart
 before the average (Stich's local-SGD analysis bounds exactly this drift
 term). Two halves:
 
-  slot_divergence   on the card: the port's W worker slots are stacked
-      on one device ((W, ...) per blob), so the consensus is a mean over
-      the slot axis and each slot's squared L2 distance to it is one
-      elementwise pass per blob, summed per layer — a handful of scalars
-      and a (W,) vector, never a host copy of weights. The aux keys are
-      those of the JAX package's masked_consensus_stats with every worker
-      valid.
+  the stats on the card: the port's W worker slots are stacked on one
+      device ((W, ...) per blob), so the consensus is a (masked) mean
+      over the slot axis and each slot's squared L2 distance to it is
+      one elementwise pass per blob, summed per layer — a handful of
+      scalars and a (W,) vector, never a host copy of weights. That half
+      is resilience/elastic.masked_consensus_stats, as in the JAX
+      package; ``tree_sq_dist`` is its per-tree distance.
   DivergenceMeter   host side (a copy of the JAX class): takes the aux
       dict, fetched to the host once per sampled round, emits a
       ``divergence`` JSONL event (mean/max/per-worker distance, the top
@@ -31,44 +31,6 @@ import numpy as np
 
 def _sq(t):
     return t.float().square().sum()
-
-
-def slot_divergence(stacked, ref_sq=None, worker_loss=None):
-    """``stacked``: {layer: [(W, ...) tensors]}, slot w's copy of each
-    blob at ``[w]``. Returns (consensus, aux): consensus {layer: [mean
-    over the slots]} and the aux of tensors on the card:
-
-      div_mean_sq    E_w ||x_w - consensus||^2
-      div_max_sq     max_w ...
-      div_worker_sq  (W,) each slot's squared distance
-      layer_div_sq   {layer: E_w of its per-layer squared distance}
-      valid, n_live  every slot valid (the port has no elastic mask)
-      ref_sq, worker_loss   as given (the update's squared norm, the
-                     (W,) per-slot losses)
-    """
-    import torch
-    consensus, per_layer, local = {}, {}, None
-    for name, blobs in stacked.items():
-        if not blobs:
-            continue
-        means = [B.mean(0) for B in blobs]
-        consensus[name] = means
-        sq = sum((B.float() - m.float().unsqueeze(0)).square()
-                 .reshape(B.shape[0], -1).sum(1)
-                 for B, m in zip(blobs, means))
-        per_layer[name] = sq.mean()
-        local = sq if local is None else local + sq
-    W = next(iter(stacked.values()))[0].shape[0] if stacked else 1
-    if local is None:
-        local = torch.zeros(W)
-    aux = {"div_mean_sq": local.mean(), "div_max_sq": local.max(),
-           "div_worker_sq": local, "layer_div_sq": per_layer,
-           "valid": torch.ones(W), "n_live": W}
-    if ref_sq is not None:
-        aux["ref_sq"] = ref_sq
-    if worker_loss is not None:
-        aux["worker_loss"] = worker_loss
-    return consensus, aux
 
 
 def tree_sq_dist(a, b):

@@ -29,7 +29,11 @@ A head_dim D <= 256 that the kernels were not built for (``HEAD_DIMS``)
 runs through the next built one: Q, K, V (and O, dO) are zero-padded to
 it and the outputs sliced back. That is exact: zero columns add nothing
 to Q K^T or to rowsum(dO * O), and give zero columns of O, dQ, dK and dV.
-The scale stays 1/sqrt(D) of the true D.
+The scale stays 1/sqrt(D) of the true D. Past 256 any D is taken: it is
+zero-padded to a multiple of ``WIDE_CHUNK`` and runs the wide kernels of
+csrc/flash_wide.cuh (one 64-column chunk of each output a CTA, the scores
+rebuilt over all of D, every product in f32 on the CUDA cores), through
+the same entry points and counters.
 
 ``flash_attention`` is differentiable: for CUDA tensors its forward is
 csrc/flash_fwd.cu and its backward the two kernels of csrc/flash_bwd.cu
@@ -48,6 +52,7 @@ from . import cuda_build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the head_dims the kernels are built for
+WIDE_CHUNK = 64     # past 256, D is padded to a multiple of this
 
 
 def default_scale(q, scale=None):
@@ -56,12 +61,12 @@ def default_scale(q, scale=None):
 
 def built_head_dim(d):
     """The head_dim of the kernels that take D = ``d``: the smallest of
-    ``HEAD_DIMS`` at least ``d``."""
+    ``HEAD_DIMS`` at least ``d``, and past the last of them the next
+    multiple of ``WIDE_CHUNK`` (the wide kernels)."""
     for b in HEAD_DIMS:
         if d <= b:
             return b
-    raise ValueError(f"head_dim {d} > {HEAD_DIMS[-1]}: not built "
-                     f"{HEAD_DIMS} (ROADMAP B0)")
+    return -(-d // WIDE_CHUNK) * WIDE_CHUNK
 
 
 def pad_head_dim(tensors, d):
@@ -146,9 +151,9 @@ def check_cuda_inputs(what, rows=(), **tensors):
     """Raise ValueError on what the kernels do not take: tensors not on
     one CUDA device, not 4-D (B, H, S, D) of one shape and dtype, not
     contiguous or not 16-byte aligned, a dtype they were not built for
-    (float32, bfloat16), a head_dim above 256, more than 65535 (batch,
-    head) pairs or 64-row tiles; and per-row tensors ``rows`` (LSE,
-    delta) not contiguous f32 (B*H, S)."""
+    (float32, bfloat16), more than 65535 (batch, head) pairs or 64-row
+    tiles; and per-row tensors ``rows`` (LSE, delta) not contiguous f32
+    (B*H, S)."""
     ref = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != ref.device:
@@ -167,9 +172,6 @@ def check_cuda_inputs(what, rows=(), **tensors):
         raise ValueError(f"{what}: dtype {ref.dtype} not built "
                          "(float32, bfloat16)")
     b, h, s, d = ref.shape
-    if d > HEAD_DIMS[-1]:
-        raise ValueError(f"{what}: head_dim {d} > {HEAD_DIMS[-1]}: not "
-                         f"built {HEAD_DIMS} (ROADMAP B0)")
     if b * h > cuda_build.MAX_GRID_Y:
         raise ValueError(f"{what}: B*H = {b * h} > {cuda_build.MAX_GRID_Y}")
     if s > 64 * cuda_build.MAX_GRID_Y:

@@ -17,13 +17,18 @@ leaves the previous manifest pointing at the previous complete snapshot.
   check_restorable     the guard of an explicit restore
   resume_auto          ``--resume auto``
   load_model_only      what serving reads
+  world_slots, reshard_for_world
+                       a snapshot of another world re-partitioned for
+                       this one (``--reshard auto``)
+  wait_for_manifest    the non-writers' barrier of a multi-process run
 
-The port trains in one process on one device. The single-device Solver
-stamps ``{"processes": 1}``, as the JAX package's does; the parallel
-solvers, whose W worker slots stand in for a "data" mesh axis, stamp
-``{"processes": 1, "mesh": {"data": W}}``, as the JAX package's do on a
-W-device mesh. A restore compares the stamps as the JAX package does, so
-snapshots restore in both directions between equal worlds.
+Every snapshot is stamped with the world that wrote it: the process
+count (parallel/multihost.py) and, for the parallel solvers, their slot
+grid as the JAX package's mesh shape (``{"data": W}``, or ``{"host": H,
+"data": P}`` in two-tier mode), as the JAX package stamps its mesh. A
+restore compares the stamps as the JAX package does, so snapshots
+restore in both directions between equal worlds, and with ``--reshard
+auto`` between unequal ones.
 """
 
 import glob
@@ -133,10 +138,12 @@ class WorldMismatch(RuntimeError):
 
 
 def world_signature(solver=None):
-    """The world a snapshot is resumable in: one process, and for the
-    parallel solvers their worker slots as the "data" mesh axis
-    (``solver.mesh_shape``)."""
-    sig = {"processes": 1}
+    """The world a snapshot is resumable in: the process count
+    (parallel/multihost.py), and for the parallel solvers their slot
+    grid as the JAX package's mesh shape (``solver.mesh_shape``: the
+    "data" axis of worker slots, with a "host" axis in two-tier mode)."""
+    from ..parallel.multihost import process_count
+    sig = {"processes": int(process_count())}
     mesh = getattr(solver, "mesh_shape", None)
     if mesh:
         sig["mesh"] = {str(k): int(v) for k, v in mesh.items()}
@@ -163,9 +170,52 @@ def check_world(entry, world, state_path):
         raise WorldMismatch(
             f"snapshot {state_path} was written by a different world: "
             f"snapshot world {want} vs this run's world {world} "
-            f"({'; '.join(mismatches)}). Relaunch with the worker count "
-            "the snapshot names, or start a new run under a different "
-            "snapshot prefix; the port does not reshard snapshots.")
+            f"({'; '.join(mismatches)} — snapshot first). Relaunch with "
+            "the topology the snapshot names, pass `--reshard auto` "
+            "(restore(reshard=\"auto\")) to re-partition the snapshot "
+            "for this world, or start a new run under a different "
+            "snapshot prefix; refusing to guess.")
+
+
+def world_slots(sig):
+    """Worker-slot count a world signature describes: process count x
+    the product of the mesh's named axis sizes — the partition count
+    data ownership is spread over, the unit reshard_for_world() plans
+    in."""
+    if not isinstance(sig, dict):
+        return None
+    n = int(sig.get("processes") or 1)
+    for size in (sig.get("mesh") or {}).values():
+        n *= int(size)
+    return n
+
+
+def reshard_for_world(from_world, to_world):
+    """Plan the re-partitioning that carries a snapshot stamped for
+    ``from_world`` (W1) onto the restoring run's ``to_world`` (W2), or
+    None when the worlds already agree.
+
+    Params and optimizer history are REPLICATED across the consensus
+    axis after a round, so the blobs restore unchanged under W2; what
+    changes is data ownership: W1's partitions re-spread over W2's slots
+    by the round-robin rule eviction uses (data/sampler.reshard_owners).
+    The snapshot is re-stamped with W2 at the next save; the reshard
+    itself is read-only."""
+    a, b = world_slots(from_world), world_slots(to_world)
+    if a is None or b is None:
+        return None
+    if from_world == to_world:
+        return None
+    from ..data.sampler import reshard_owners
+    direction = "shrink" if b < a else ("grow" if b > a else "remap")
+    return {
+        "from_world": dict(from_world),
+        "to_world": dict(to_world),
+        "n_from": a,
+        "n_to": b,
+        "direction": direction,
+        "owners": [int(o) for o in reshard_owners(a, b)],
+    }
 
 
 def _commit(prefix, model_path, state_path, write_files, iter_, world,
@@ -413,14 +463,19 @@ def _verify_pair(model, state):
     return None
 
 
-def check_restorable(state_path, world=None):
+def check_restorable(state_path, world=None, reshard="strict"):
     """Guard an explicit restore(): if a manifest in the snapshot's
     directory covers this state file, verify the whole pair and raise
-    ValueError naming the snapshot and the reason when it fails; raise
-    WorldMismatch when its stamp names another world than ``world``
-    (default: the single-device one).
-    Temp files from torn writes are always refused. Returns the matched
-    manifest entry, or None for an un-manifested snapshot."""
+    ValueError naming the snapshot and the reason when it fails. Under
+    ``reshard="strict"`` raise WorldMismatch when its stamp names
+    another world than ``world`` (default: this process's, with no
+    mesh); ``reshard="auto"`` accepts the entry so the caller can
+    reshard_for_world() it. Temp files from torn writes are always
+    refused. Returns the matched manifest entry, or None for an
+    un-manifested snapshot."""
+    if reshard not in ("strict", "auto"):
+        raise ValueError(f"reshard must be 'strict' or 'auto', "
+                         f"got {reshard!r}")
     if _TMP_TAG in os.path.basename(state_path):
         raise ValueError(f"refusing snapshot {state_path}: temp file from "
                          "an interrupted snapshot write")
@@ -435,13 +490,14 @@ def check_restorable(state_path, world=None):
                 if reason is not None:
                     raise ValueError(
                         f"refusing snapshot {state_path}: {reason}")
-                check_world(entry, world or world_signature(),
-                            state_path)
+                if reshard == "strict":
+                    check_world(entry, world or world_signature(),
+                                state_path)
                 return entry
     return None
 
 
-def resume_auto(solver, prefix, log_fn=None):
+def resume_auto(solver, prefix, log_fn=None, reshard="strict"):
     """``--resume auto``: restore ``solver`` from the newest valid
     snapshot under ``prefix``; returns the state path used, or None
     (fresh start). Every refused snapshot is logged with its reason.
@@ -453,7 +509,9 @@ def resume_auto(solver, prefix, log_fn=None):
     therefore logged with the reason and excluded, and the search falls
     back to the next valid one (as in the JAX package). WorldMismatch is
     not in the fallback set: a wrong-world stamp damns every snapshot
-    under the prefix alike, so it propagates."""
+    under the prefix alike, so it propagates. ``reshard="auto"`` passes
+    through to restore(): a snapshot of another world is re-partitioned
+    for this one."""
     log = log_fn or (lambda *a: None)
     tried = []
     while True:
@@ -465,7 +523,10 @@ def resume_auto(solver, prefix, log_fn=None):
                 + "; starting fresh")
             return None
         try:
-            solver.restore(state)
+            if reshard == "strict":
+                solver.restore(state)
+            else:
+                solver.restore(state, reshard=reshard)
         except (OSError, ValueError, KeyError) as e:
             log(f"refusing snapshot {state}: restore failed ({e}); "
                 "falling back to the next valid snapshot")
@@ -477,3 +538,28 @@ def resume_auto(solver, prefix, log_fn=None):
                                iter=solver.iter, state=state,
                                refused=len(skipped) + len(tried))
         return state
+
+
+def wait_for_manifest(prefix, min_iter=None, timeout=120.0, poll=0.2):
+    """Block until the manifest under ``prefix`` records a snapshot at
+    iter >= ``min_iter`` (any snapshot when None); returns the matching
+    entry dict or None on timeout.
+
+    The non-writing half of the multi-process snapshot discipline:
+    params, state and history are replicated after a round, so N
+    processes writing the same files would race each other's renames
+    and the manifest commit. Only the designated writer (the lowest live
+    host) runs save_snapshot; everyone else barriers here on the
+    manifest it committed — the manifest a coordinated restart later
+    agrees on."""
+    deadline = time.time() + float(timeout)
+    while True:
+        man = load_manifest(prefix)
+        latest = (man or {}).get("latest")
+        if isinstance(latest, dict) and (
+                min_iter is None or
+                int(latest.get("iter", -1)) >= int(min_iter)):
+            return latest
+        if time.time() >= deadline:
+            return None
+        time.sleep(poll)

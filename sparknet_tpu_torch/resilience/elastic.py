@@ -1,23 +1,57 @@
-"""Elastic membership, host half (the port of the host half of
-sparknet_tpu/resilience/elastic.py): ElasticPolicy, the per-round
-membership controller, and QuorumLost.
+"""Elastic membership: quorum-based sync rounds that survive worker loss
+(the port of sparknet_tpu/resilience/elastic.py, both halves).
 
-ElasticPolicy consumes each round's membership (per-member validity,
-losses) plus the chaos ``kill_worker``/``dead_p`` injectors, evicts a
-member after ``evict_after`` consecutive invalid rounds (per-member
-``eviction`` records in the metrics stream), readmits it after a
-``readmit_after``-round cooldown, and raises QuorumLost when the live
-count would drop below ``quorum`` — the CLI maps that to exit code
-EXIT_QUORUM_LOST (4). The serving fleet's router (serve/fleet.py)
-drives it at replica granularity: every expired lease is an eviction,
-every fresh one a readmission.
+device half (torch, on the solver's device): the JAX functions run
+inside shard_map and reduce over a named mesh axis; the port's workers
+are slots stacked on one card, so each function here takes a tree of
+STACKED blobs (every leaf a (W, ...) tensor, slot w at ``[w]``) and
+reduces over dim 0 — the W slots of the single-tier solvers, or the host
+rows of the two-tier solver's (host, data) slot grid. The validity mask
+and the staleness lag are (W,) tensors on the card, so a change of
+membership changes an input and rebuilds nothing.
+
+  masked_consensus        validity-masked average over the slots: a slot
+                          contributes iff its host-declared alive bit
+                          AND its on-device finite check hold; weights
+                          renormalize over the live count. BIT FOR BIT
+                          the plain ``mean(0)`` when every slot is valid
+                          (``torch.where`` keeps dead slots' NaNs out of
+                          the sum — ``NaN * 0`` would still be NaN — and
+                          the scale n / n_live is exactly 1.0).
+  masked_consensus_stats  the same average plus the divergence aux of
+                          obs/divergence.py, dead slots excluded from
+                          the drift statistics.
+  masked_scalar_mean      the masked mean of a (W,) vector (round loss).
+  tree_finite / slots_finite
+                          "all leaves finite", for one replica or for
+                          every slot of a stacked tree at once.
+  staleness_discount      the bounded-staleness weight of a lag: 1.0 at
+                          lag 0, decay**lag up to the bound s, 0 past it.
+  weighted_consensus(_stats)
+                          masked_consensus with a [0, 1] weight a slot.
+
+host half:
+
+  ElasticPolicy   per-round membership controller: consumes each round's
+                  membership (per-member validity, losses) plus the
+                  chaos ``kill_worker``/``kill_host``/``dead_p``
+                  injectors, evicts a member after ``evict_after``
+                  consecutive invalid rounds (per-member ``eviction``
+                  records in the metrics stream), readmits it after a
+                  ``readmit_after``-round cooldown (the consensus every
+                  slot leaves the round holding is the re-broadcast),
+                  and raises QuorumLost when the live count would drop
+                  below ``quorum`` — the CLI maps that to exit code
+                  EXIT_QUORUM_LOST (4). The serving fleet's router
+                  (serve/fleet.py) drives it at replica granularity.
+  expand_to_slots re-partition helper: lay batches drawn for the LIVE
+                  workers back onto the full slot grid (dead slots get
+                  a survivor's copy, which the device mask discards).
 
 Bounded staleness (the async local-SGD mode) generalizes the 0/1
 validity bit to a [0, 1] per-worker weight; its host-side bookkeeping
-(versions on virtual clocks, parking, resync) is here as in the JAX
-module. The device half of the JAX module — the masked consensus
-functions run inside the sharded solvers — waits for ROADMAP A6d,
-where it becomes torch functions over the worker slots.
+(versions on virtual clocks, parking, resync) is in ElasticPolicy as in
+the JAX module.
 """
 
 import numpy as np
@@ -29,6 +63,210 @@ class QuorumLost(RuntimeError):
     """Live worker count fell below the quorum — the run cannot make a
     trustworthy consensus anymore. The CLI exits EXIT_QUORUM_LOST (4);
     see the JAX package's DEPLOY.md supervisor runbook."""
+
+
+# -- device half (stacked slots, dim 0) ------------------------------------
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _slot_mask(mask, x):
+    """A (W,) mask shaped to broadcast over a (W, ...) blob."""
+    return mask.reshape((-1,) + (1,) * (x.dim() - 1))
+
+
+def tree_finite(tree):
+    """0-d bool tensor: every leaf of ``tree`` (one replica) is finite
+    everywhere."""
+    import torch
+    ok = None
+    for leaf in _leaves(tree):
+        f = torch.isfinite(leaf.float()).all()
+        ok = f if ok is None else ok & f
+    return ok if ok is not None else torch.tensor(True)
+
+
+def slots_finite(stacked):
+    """(W,) bool tensor: slot w's leaves of a stacked tree are all
+    finite — tree_finite of every slot at once."""
+    ok = None
+    for leaf in _leaves(stacked):
+        f = leaf.float().isfinite().reshape(leaf.shape[0], -1).all(1)
+        ok = f if ok is None else ok & f
+    return ok
+
+
+def _live_scale(valid):
+    """(n_live, scale) for a masked average over W slots: scale =
+    W / max(n_live, 1), EXACTLY 1.0 when every slot is valid (W/W with
+    small ints is exact in f32), so ``mean * scale`` is bit for bit the
+    plain mean in the all-valid case."""
+    import torch
+    valid = valid.float()
+    n_live = valid.sum()
+    scale = torch.tensor(float(valid.shape[0]), device=valid.device) \
+        / torch.clamp(n_live, min=1.0)
+    return n_live, scale
+
+
+def masked_consensus(stacked, valid):
+    """Validity-masked average of a stacked tree over its slots.
+    ``valid``: (W,) f32 0/1 tensor. Returns (consensus, n_live), the
+    consensus a tree of unstacked blobs. All-valid: bit for bit
+    ``x.mean(0)`` — ``where(True, x, 0)`` is ``x`` and the scale is
+    exactly 1.0."""
+    import torch
+    n_live, scale = _live_scale(valid)
+    keep = valid > 0
+
+    def one(x):
+        m = torch.where(_slot_mask(keep, x), x, torch.zeros_like(x)).mean(0)
+        return m * scale.to(m.dtype)
+
+    return _tree_map(one, stacked), n_live
+
+
+def masked_scalar_mean(x, valid):
+    """Masked mean of a (W,) vector (e.g. the slots' round losses): dead
+    slots' NaNs stay out of the value; the all-valid case is bit for
+    bit ``x.mean()``."""
+    import torch
+    x = x.float()
+    _, scale = _live_scale(valid)
+    return torch.where(valid > 0, x, torch.zeros_like(x)).mean() * scale
+
+
+def _per_slot_sq(stacked, consensus):
+    """({top-level key: (W,) squared distance of each slot to the
+    consensus}, (W,) total), in f32 — obs/divergence.tree_sq_dist of
+    every slot at once."""
+    def sq(B, m):
+        return (B.float() - m.float().unsqueeze(0)).square().reshape(
+            B.shape[0], -1).sum(1)
+    if isinstance(stacked, dict):
+        per = {}
+        for k, v in stacked.items():
+            pairs = list(zip(_leaves(v), _leaves(consensus[k])))
+            if pairs:
+                per[k] = sum(sq(B, m) for B, m in pairs)
+    else:
+        per = {"": sum(sq(B, m) for B, m in
+                       zip(_leaves(stacked), _leaves(consensus)))}
+    total = None
+    for v in per.values():
+        total = v if total is None else total + v
+    return per, total
+
+
+def masked_consensus_stats(stacked, valid, consensus=None):
+    """masked_consensus + the divergence aux of obs/divergence.py, dead
+    slots excluded from the drift statistics (their distance to the
+    consensus is garbage). The aux:
+
+      div_mean_sq, div_max_sq, div_worker_sq (W,), layer_div_sq
+      valid    (W,) each slot's effective validity
+      n_live   the live count the average renormalized over
+
+    ``consensus``: an optional precomputed (consensus, n_live) pair."""
+    import torch
+    consensus, n_live = masked_consensus(stacked, valid) \
+        if consensus is None else consensus
+    per_layer, local_sq = _per_slot_sq(stacked, consensus)
+    keep = valid > 0
+    local_sq = torch.where(keep, local_sq, torch.zeros_like(local_sq))
+    aux = {"div_mean_sq": masked_scalar_mean(local_sq, valid),
+           "div_max_sq": local_sq.max(),
+           "div_worker_sq": local_sq,
+           "layer_div_sq": {k: masked_scalar_mean(v, valid)
+                            for k, v in per_layer.items()},
+           "valid": valid.float(), "n_live": n_live}
+    return consensus, aux
+
+
+def staleness_discount(lag, s, decay=0.5):
+    """Per-slot staleness weight in [0, 1] of a (W,) f32 lag tensor:
+    EXACTLY 1.0 at lag 0 (an s=0 async round is the synchronous masked
+    round bit for bit), ``decay ** lag`` while 0 < lag <= s, and 0 past
+    the bound (over-stale is dead to the consensus: the same where-mask
+    excludes both)."""
+    import torch
+    lag = torch.as_tensor(lag, dtype=torch.float32)
+    one = torch.ones_like(lag)
+    w = torch.where(lag <= 0, one,
+                    torch.tensor(float(decay), dtype=torch.float32,
+                                 device=lag.device) ** lag)
+    return torch.where(lag > float(s), torch.zeros_like(lag), w)
+
+
+def weighted_consensus(stacked, weight):
+    """masked_consensus generalized from a 0/1 bit to a [0, 1] weight a
+    slot: sum_w weight_w x_w / sum_w weight_w, zero-weight slots
+    excluded by ``torch.where``. Returns (consensus, weight_sum). With
+    every weight exactly 1.0 it is masked_consensus's all-valid path bit
+    for bit (``x * 1.0`` is ``x``, the scale is exactly 1.0)."""
+    import torch
+    weight = weight.float()
+    n = weight.shape[0]
+    wsum = weight.sum()
+    # the 1e-6 floor only matters when every weight is zero
+    scale = torch.tensor(float(n), device=weight.device) \
+        / torch.clamp(wsum, min=1e-6)
+    keep = weight > 0
+
+    def one(x):
+        w = _slot_mask(weight, x).to(x.dtype)
+        xw = torch.where(_slot_mask(keep, x), x * w, torch.zeros_like(x))
+        m = xw.mean(0)
+        return m * scale.to(m.dtype)
+
+    return _tree_map(one, stacked), wsum
+
+
+def weighted_consensus_stats(stacked, valid, weight, consensus=None):
+    """weighted_consensus + the aux of masked_consensus_stats over the
+    INCLUDED slots (weight > 0); ``valid`` is the membership bit (what
+    ElasticPolicy's eviction streaks read: a parked but healthy slot
+    stays valid), and the aux also carries ``weight``."""
+    import torch
+    consensus, _ = weighted_consensus(stacked, weight) \
+        if consensus is None else consensus
+    inc = (weight.float() > 0).float()
+    per_layer, local_sq = _per_slot_sq(stacked, consensus)
+    local_sq = torch.where(inc > 0, local_sq, torch.zeros_like(local_sq))
+    aux = {"div_mean_sq": masked_scalar_mean(local_sq, inc),
+           "div_max_sq": local_sq.max(),
+           "div_worker_sq": local_sq,
+           "layer_div_sq": {k: masked_scalar_mean(v, inc)
+                            for k, v in per_layer.items()},
+           "valid": valid.float(), "weight": weight.float(),
+           "n_live": inc.sum()}
+    return consensus, aux
+
+
+# -- host half ---------------------------------------------------------------
+
+def expand_to_slots(shards, owners):
+    """Re-partition helper: ``shards`` is a list/array of per-LIVE-worker
+    batch shards (worker-major); ``owners[slot]`` indexes into it for
+    every slot (identity-ish for live slots, a survivor for dead ones —
+    see ElasticPolicy.shard_owners). Returns the full-slot-grid array
+    the round expects; dead slots' copies are discarded by the device
+    mask, so only live shards carry fresh data."""
+    shards = [np.asarray(s) for s in shards]
+    return np.stack([shards[o] for o in owners])
 
 
 class ElasticPolicy:

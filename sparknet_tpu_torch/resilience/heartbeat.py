@@ -16,10 +16,27 @@ host side, in plain Python with no torch in it:
   fresh_leases          the unexpired leases of a rendezvous directory,
                         read without a coordinator (a router, a late
                         joiner).
+  FileConsensus         the tau-interval cross-host weight average
+                        executed THROUGH the rendezvous directory — the
+                        port's cross-process tier (it has no collective
+                        across processes), and a faithful rendering of
+                        the paper's own architecture: SparkNet's driver
+                        collected and re-broadcast weights every tau
+                        steps; here the shared filesystem is the driver,
+                        the masked average is the consensus, and tau
+                        amortizes the slow transport.
+  AsyncFileConsensus    its bounded-staleness twin: versioned deltas, a
+                        barrier-free merge.
+  restart_barrier       coordinated restart: on quorum loss every
+                        surviving process converges on the SAME
+                        checkpoint manifest (barrier on the manifest
+                        file's sha256) before exiting EXIT_QUORUM_LOST
+                        (4), so a supervisor relaunch resumes one
+                        consistent world.
   manifest_sha          the sha256 of a checkpoint manifest.
 
-The training half of the JAX module — FileConsensus,
-AsyncFileConsensus and restart_barrier — waits for ROADMAP A6d.
+The files and their layout are the JAX module's, so a JAX host and a
+port host share one rendezvous directory.
 
 Time and storage go through the injectable seam (resilience/seam.py):
 ``clock`` (wall stamps, MONOTONIC durations, sleep) and ``dirops``
@@ -49,6 +66,14 @@ port process lease into one directory:
   hb-<host>.json        the lease: {host, seq, round, stamp, mono, ...}
                         rewritten atomically by the writer thread every
                         ``interval_s`` and at every round arrival
+  part-<host>-<r>.npz   FileConsensus: host's post-round contribution
+                        (a ``meta`` uint8 JSON and ``leaf<i>`` arrays)
+  mask-<r>.json         FileConsensus: the round's membership decided
+                        by the lowest-indexed live host
+  delta-<host>-<v>.*    AsyncFileConsensus: versioned contributions
+  consensus-<v>.*       AsyncFileConsensus: the merged versions
+  restart-<host>.json   restart_barrier: the manifest sha this host
+                        will resume from
 """
 
 import glob
@@ -611,6 +636,437 @@ class HeartbeatCoordinator:
 # -- tau-interval consensus over the rendezvous dir -------------------------
 
 
+class FileConsensus:
+    """Masked cross-host weight averaging through the shared directory.
+
+    The device half of the hierarchy (per-step pmean inside a host)
+    stays a compiled collective; this is the cross-host tier for
+    backends without multi-process collectives. Protocol per round r:
+
+      1. every live host atomically posts part-<host>-<r>.npz: its
+         post-round leaves + {valid, loss} meta
+      2. the LOWEST-indexed live host waits for the others (lease-
+         bounded), then posts mask-<r>.json naming exactly which
+         contributions count — ONE authority per round, so every host
+         computes the identical consensus (the paper's driver, made
+         crash-tolerant: if the authority dies, the next-lowest live
+         host takes over on lease expiry)
+      3. every host averages the masked-in contributions with weight
+         1/n_live and adopts the result — evicted or readmitted hosts
+         included, which makes readmission the same free re-broadcast
+         as the replicated collective path
+
+    All file I/O is atomic-rename through the coordinator's Dir seam;
+    round r's part files are deleted at round r+2 so the directory
+    stays O(hosts) files."""
+
+    def __init__(self, coord, keep_rounds=2):
+        self.coord = coord
+        self.dir = coord.dir
+        self.dirops = coord.dirops
+        self.clock = coord.clock
+        self.keep_rounds = max(1, int(keep_rounds))
+        # the last exchange's seconds: posting the part, deciding (or
+        # awaiting) the mask, loading and averaging the parts
+        self.timing = {}
+
+    def _part_name(self, host, round_idx):
+        return f"part-{int(host)}-{int(round_idx)}.npz"
+
+    def _mask_name(self, round_idx):
+        return f"mask-{int(round_idx)}.json"
+
+    def _post(self, round_idx, leaves, valid, loss):
+        meta = json.dumps({"host": self.coord.host, "round": int(round_idx),
+                           "valid": int(bool(valid)),
+                           "loss": float(loss)})
+        arrays = {"meta": np.frombuffer(meta.encode(), np.uint8)}
+        for i, a in enumerate(leaves):
+            arrays[f"leaf{i}"] = np.asarray(a)
+        self.dirops.write_npz(self._part_name(self.coord.host, round_idx),
+                              arrays)
+
+    def _load(self, host, round_idx, n_leaves):
+        z = self.dirops.load_npz(self._part_name(host, round_idx))
+        if z is None:
+            return None, None
+        try:
+            meta = json.loads(bytes(z["meta"]).decode())
+            leaves = [z[f"leaf{i}"] for i in range(n_leaves)]
+        except (KeyError, ValueError):
+            return None, None
+        return leaves, meta
+
+    def _wait_parts(self, round_idx, hosts, deadline):
+        """Hosts whose contribution for ``round_idx`` landed before
+        monotonic ``deadline`` (polling; arrival is the atomic
+        rename)."""
+        got = set()
+        hosts = set(hosts)
+        while True:
+            for h in hosts - got:
+                if self.dirops.exists(self._part_name(h, round_idx)):
+                    got.add(h)
+            if got >= hosts or self.clock.monotonic() >= deadline:
+                return got
+            self.clock.sleep(min(self.coord.interval_s / 4, 0.05))
+
+    def _decide_mask(self, round_idx, alive, deadline):
+        """The round's membership: written once by the lowest live
+        host, awaited by the rest. If the authority dies before
+        posting, its lease expires, the next-lowest live host becomes
+        the authority and posts instead — one mask per round either
+        way, so every host computes the identical consensus."""
+        me = self.coord.host
+        while True:
+            rec = self.dirops.read_json(self._mask_name(round_idx))
+            if rec is not None and rec.get("round") == round_idx:
+                return [int(h) for h in rec.get("included", [])]
+            live = set(self.coord.alive_hosts())
+            if min(live | {me}) == me:
+                got = self._wait_parts(round_idx, set(alive) | {me},
+                                       deadline)
+                mask = sorted(got)
+                self.dirops.write_json(self._mask_name(round_idx),
+                                       {"round": int(round_idx),
+                                        "included": mask, "authority": me})
+                return mask
+            self.clock.sleep(min(self.coord.interval_s / 4, 0.05))
+
+    def _gc(self, round_idx):
+        for name in self.dirops.glob("part-*.npz"):
+            try:
+                r = int(name.rsplit("-", 1)[1].split(".")[0])
+            except ValueError:
+                continue
+            if r <= round_idx - self.keep_rounds:
+                self.dirops.remove(name)
+
+    def exchange(self, round_idx, leaves, valid, loss, alive_hosts,
+                 timeout=None):
+        """One cross-host averaging round. ``leaves``: this host's flat
+        list of numpy arrays (params+state in tree order); ``valid``:
+        this host's finite bit; ``alive_hosts``: the membership in
+        force (ElasticPolicy.live()). Returns (consensus_leaves, aux)
+        where aux mirrors the compiled masked_consensus_stats membership
+        report: valid (n,), n_live, worker_loss (n,), div_worker_sq
+        (n,) — so the divergence/health/monitor pipeline runs unchanged
+        over the relay transport."""
+        n = self.coord.n
+        timeout = self.coord.lease_s if timeout is None else timeout
+        t0 = self.clock.monotonic()
+        self._post(round_idx, leaves, valid, loss)
+        t1 = self.clock.monotonic()
+        deadline = t1 + timeout
+        included = self._decide_mask(round_idx, set(alive_hosts), deadline)
+        t2 = self.clock.monotonic()
+        parts, metas = {}, {}
+        for h in included:
+            lv, meta = self._load(h, round_idx, len(leaves))
+            if lv is not None and meta.get("valid"):
+                parts[h], metas[h] = lv, meta
+        if not parts:
+            # no valid contribution anywhere (every live host NaN'd):
+            # keep our own leaves; the policy will see the all-invalid
+            # vector and act (evict/quorum)
+            parts = {self.coord.host: leaves}
+            metas = {self.coord.host: {"loss": float(loss),
+                                       "valid": int(bool(valid))}}
+        w = 1.0 / len(parts)
+        consensus = []
+        for i in range(len(leaves)):
+            acc = None
+            for h in parts:
+                x = np.asarray(parts[h][i], np.float64)
+                acc = x * w if acc is None else acc + x * w
+            consensus.append(acc.astype(np.asarray(leaves[i]).dtype))
+        # admission skew (grow-mid-run): a peer that admitted a joiner
+        # this round can publish a mask including a host id >= our
+        # coord.n — size the aux vectors to the mask, not our (one
+        # round stale) world, so the report indexes without blowing up
+        n = max(n, max(parts) + 1)
+        valid_vec = np.zeros(n, np.float32)
+        loss_vec = np.full(n, np.nan, np.float32)
+        div_sq = np.zeros(n, np.float32)
+        for h in parts:
+            valid_vec[h] = 1.0
+            loss_vec[h] = metas[h].get("loss", float("nan"))
+            div_sq[h] = sum(
+                float(((np.asarray(parts[h][i], np.float64)
+                        - np.asarray(consensus[i], np.float64)) ** 2).sum())
+                for i in range(len(leaves)))
+        live_div = div_sq[valid_vec > 0]
+        aux = {"valid": valid_vec, "n_live": np.float32(len(parts)),
+               "worker_loss": loss_vec, "div_worker_sq": div_sq,
+               "div_mean_sq": np.float32(live_div.mean()),
+               "div_max_sq": np.float32(live_div.max()),
+               "transport": "relay"}
+        self._gc(round_idx)
+        self.timing = {"post_s": t1 - t0, "mask_s": t2 - t1,
+                       "average_s": self.clock.monotonic() - t2}
+        return consensus, aux
+
+
+# -- bounded-staleness async consensus over the rendezvous dir ---------------
+
+class AsyncFileConsensus(FileConsensus):
+    """Versioned, BARRIER-FREE cross-host delta exchange — the async
+    bounded-staleness rendering of FileConsensus. Where the
+    synchronous relay's authority WAITS for every live host's part file
+    before publishing the round mask, this one never waits for anyone:
+
+      1. after each local round a host atomically posts
+         ``delta-<host>-<v>.npz`` (payload) + ``delta-<host>-<v>.json``
+         (meta: host, version, valid, loss, stamp) at ITS OWN version
+         counter v — a slow host simply posts lower versions
+      2. the LOWEST-live-host merge authority publishes
+         ``consensus-<v*>`` at the fastest version it can see, averaging
+         each live host's LATEST delta with weight decay**(v* - v_h);
+         deltas more than ``s`` versions behind (and lease-expired
+         hosts) are excluded — the same degradation as death
+      3. every host adopts the newest published consensus it hasn't
+         adopted yet, or keeps its own weights when none is visible yet
+         (early rounds, a dead authority mid-failover) — it NEVER blocks
+      4. a host that finds itself more than ``s`` versions behind the
+         fastest live peer PARKS: it abandons its stale line, adopts the
+         latest consensus, and jumps its version to the front (the
+         relay twin of ElasticPolicy.park/unpark)
+
+    GC is lease-driven: a host whose lease expired has ALL its delta
+    files removed (its stale pushes must stop haunting merges), and
+    superseded delta/consensus versions are trimmed to a keep window.
+    s=0 with every host in step degenerates to one full-weight merge
+    per version — the synchronous consensus, reached without a barrier.
+    """
+
+    def __init__(self, coord, s=0, decay=0.5, keep_versions=3):
+        super().__init__(coord)
+        self.s = max(0, int(s))
+        self.decay = float(decay)
+        self.keep_versions = max(2, int(keep_versions))
+        self.version = 0            # this host's completed-round counter
+        self.parks = 0
+        self._adopted = -1          # newest consensus version adopted
+
+    # -- files ---------------------------------------------------------------
+    def _delta_npz(self, host, v):
+        return f"delta-{int(host)}-{int(v)}.npz"
+
+    def _delta_meta(self, host, v):
+        return f"delta-{int(host)}-{int(v)}.json"
+
+    def _consensus_npz(self, v):
+        return f"consensus-{int(v)}.npz"
+
+    def _consensus_meta(self, v):
+        return f"consensus-{int(v)}.json"
+
+    def _push(self, v, leaves, valid, loss):
+        """Payload first, meta last — the meta's atomic rename commits
+        the delta, so a reader that sees the meta can read the npz."""
+        self.dirops.write_npz(self._delta_npz(self.coord.host, v),
+                              {f"leaf{i}": np.asarray(a)
+                               for i, a in enumerate(leaves)})
+        self.dirops.write_json(self._delta_meta(self.coord.host, v),
+                               {"host": self.coord.host, "version": int(v),
+                                "valid": int(bool(valid)),
+                                "loss": float(loss),
+                                "stamp": self.clock.time()})
+
+    def _peer_versions(self):
+        """{host: newest committed delta version} from the meta files."""
+        vers = {}
+        for name in self.dirops.glob("delta-*.json"):
+            rec = self.dirops.read_json(name)
+            if rec is None or not isinstance(rec.get("host"), int):
+                continue
+            h, v = rec["host"], int(rec.get("version", -1))
+            if v > vers.get(h, -1):
+                vers[h] = v
+        return vers
+
+    def _load_delta(self, host, v, n_leaves):
+        meta = self.dirops.read_json(self._delta_meta(host, v))
+        if meta is None:
+            return None, None
+        z = self.dirops.load_npz(self._delta_npz(host, v))
+        if z is None:
+            return None, None
+        try:
+            leaves = [z[f"leaf{i}"] for i in range(n_leaves)]
+        except KeyError:
+            return None, None
+        return leaves, meta
+
+    # -- the merge authority -------------------------------------------------
+    def _merge(self, v_ref, live, vers, n_leaves):
+        """Publish consensus-<v_ref> from each live host's latest delta
+        within the staleness bound, discounted by decay**lag. Runs on
+        the lowest live host; failover is automatic (the next-lowest
+        live host sees itself lowest once the lease expires). Idempotent
+        per v_ref — an existing consensus file is left alone."""
+        if self.dirops.read_json(self._consensus_meta(v_ref)) is not None:
+            return
+        included, wsum = [], 0.0
+        parts = {}
+        for h in sorted(live):
+            vh = vers.get(h, -1)
+            if vh < 0 or v_ref - vh > self.s:
+                continue                    # over-stale == excluded
+            leaves, meta = self._load_delta(h, vh, n_leaves)
+            if leaves is None or not meta.get("valid"):
+                continue                    # torn or non-finite: out
+            lagh = max(0, v_ref - vh)
+            w = 1.0 if lagh == 0 else self.decay ** lagh
+            parts[h] = (leaves, meta, lagh, w)
+            wsum += w
+        if not parts:
+            return                          # nothing mergeable yet
+        consensus = []
+        for i in range(n_leaves):
+            a = None
+            for h, (leaves, _, _, w) in parts.items():
+                x = np.asarray(leaves[i], np.float64) * (w / wsum)
+                a = x if a is None else a + x
+            consensus.append(a)
+        for h, (leaves, meta, lagh, w) in sorted(parts.items()):
+            div = sum(float(((np.asarray(leaves[i], np.float64)
+                              - consensus[i]) ** 2).sum())
+                      for i in range(n_leaves))
+            included.append({"host": h, "version": int(vers[h]),
+                             "lag": int(lagh), "weight": round(w, 6),
+                             "loss": float(meta.get("loss",
+                                                    float("nan"))),
+                             "div_sq": div})
+        self.dirops.write_npz(self._consensus_npz(v_ref),
+                              {f"leaf{i}": c.astype(np.float64)
+                               for i, c in enumerate(consensus)})
+        self.dirops.write_json(self._consensus_meta(v_ref),
+                               {"version": int(v_ref),
+                                "authority": self.coord.host,
+                                "included": included,
+                                "stamp": self.clock.time()})
+
+    def _latest_consensus(self, n_leaves):
+        """(version, leaves, meta) of the newest committed consensus,
+        or (None,)*3 — purely a read, never a wait."""
+        best = None
+        for name in self.dirops.glob("consensus-*.json"):
+            rec = self.dirops.read_json(name)
+            if rec is not None and isinstance(rec.get("version"), int):
+                if best is None or rec["version"] > best["version"]:
+                    best = rec
+        if best is None:
+            return None, None, None
+        z = self.dirops.load_npz(self._consensus_npz(best["version"]))
+        if z is None:
+            return None, None, None
+        try:
+            leaves = [z[f"leaf{i}"] for i in range(n_leaves)]
+        except KeyError:
+            return None, None, None
+        return best["version"], leaves, best
+
+    def _gc_async(self, vers, live):
+        """Lease-expiry GC: every delta of a host whose lease expired is
+        removed (its stale pushes must stop haunting merges), and
+        committed versions older than the keep window are trimmed."""
+        floor = max(vers.values(), default=0) - self.s - self.keep_versions
+        for name in self.dirops.glob("delta-*.json"):
+            rec = self.dirops.read_json(name)
+            if rec is None:
+                continue
+            h, v = rec.get("host"), int(rec.get("version", -1))
+            dead = isinstance(h, int) and h not in live
+            if dead or v < floor:
+                self.dirops.remove(name)
+                self.dirops.remove(self._delta_npz(h, v))
+        keep = self.keep_versions
+        cons = sorted(int(name.rsplit("-", 1)[1].split(".")[0])
+                      for name in self.dirops.glob("consensus-*.json")
+                      if name.rsplit("-", 1)[1].split(".")[0].isdigit())
+        for v in cons[:-keep] if len(cons) > keep else []:
+            self.dirops.remove(self._consensus_npz(v))
+            self.dirops.remove(self._consensus_meta(v))
+
+    # -- the exchange --------------------------------------------------------
+    def exchange(self, round_idx, leaves, valid, loss, alive_hosts,
+                 timeout=None):
+        """One barrier-free exchange (same signature as the synchronous
+        FileConsensus so LocalSGDSolver._train_round_relay is transport-
+        agnostic; ``round_idx``/``timeout`` are accepted but versioning
+        is internal and nothing ever waits). Returns (consensus_leaves,
+        aux) with the same aux fields plus ``lag`` (per-host version
+        lag), ``parked_self`` and ``version``."""
+        me = self.coord.host
+        n = self.coord.n
+        v = self.version
+        self._push(v, leaves, valid, loss)
+        vers = self._peer_versions()
+        vers[me] = max(vers.get(me, -1), v)
+        live = set(int(h) for h in alive_hosts) | {me}
+        live &= set(self.coord.alive_hosts()) | {me}
+        fastest = max((vers.get(h, -1) for h in live), default=v)
+        my_lag = max(0, fastest - v)
+        if me == min(live):
+            self._merge(fastest, live, vers, len(leaves))
+        cv, cleaves, cmeta = self._latest_consensus(len(leaves))
+        parked = my_lag > self.s
+        if parked:
+            # the bound is hit: abandon the stale line, adopt the
+            # consensus, rejoin at the front (the relay park/unpark)
+            self.parks += 1
+            self.coord.log(
+                f"async relay: host {me} PARKED at version {v} "
+                f"(lag {my_lag} > s={self.s}); resyncing to the front")
+            if self.coord.metrics is not None:
+                self.coord.metrics.log("parked", worker=me, unit="host",
+                                       round=int(v), lag=int(my_lag))
+            self.version = fastest          # resynced
+        else:
+            self.version = v + 1
+        if cleaves is not None and cv > self._adopted:
+            self._adopted = cv
+            out = [c.astype(np.asarray(leaves[i]).dtype)
+                   for i, c in enumerate(cleaves)]
+            meta_inc = {e["host"]: e for e in cmeta.get("included", [])}
+        else:
+            # no (new) consensus visible — keep our own post-round
+            # weights and keep moving; the next exchange will adopt
+            out = [np.asarray(x) for x in leaves]
+            meta_inc = {me: {"host": me, "version": v, "lag": 0,
+                             "weight": 1.0, "loss": float(loss),
+                             "div_sq": 0.0}}
+        valid_vec = np.zeros(n, np.float32)
+        weight_vec = np.zeros(n, np.float32)
+        loss_vec = np.full(n, np.nan, np.float32)
+        div_sq = np.zeros(n, np.float32)
+        lag_vec = np.zeros(n, np.float32)
+        for h in range(n):
+            lag_vec[h] = max(0, fastest - vers.get(h, fastest))
+            e = meta_inc.get(h)
+            if e is not None:
+                valid_vec[h] = 1.0
+                weight_vec[h] = float(e.get("weight", 1.0))
+                loss_vec[h] = e.get("loss", float("nan"))
+                div_sq[h] = e.get("div_sq", 0.0)
+        live_div = div_sq[valid_vec > 0] if (valid_vec > 0).any() \
+            else np.zeros(1, np.float32)
+        aux = {"valid": valid_vec, "weight": weight_vec,
+               "n_live": np.float32((valid_vec > 0).sum()),
+               "worker_loss": loss_vec, "div_worker_sq": div_sq,
+               "div_mean_sq": np.float32(live_div.mean()),
+               "div_max_sq": np.float32(live_div.max()),
+               "lag": [int(x) for x in lag_vec],
+               "parked": [me] if parked else [],
+               "parked_self": parked, "version": int(self.version),
+               "transport": "async-relay"}
+        self._gc_async(vers, live)
+        return out, aux
+
+
+# -- coordinated restart -----------------------------------------------------
+
 def manifest_sha(prefix):
     """sha256 of the checkpoint manifest file itself — the value every
     survivor must agree on before a coordinated exit."""
@@ -620,3 +1076,39 @@ def manifest_sha(prefix):
             return hashlib.sha256(f.read()).hexdigest()
     except OSError:
         return None
+
+
+def restart_barrier(coord, sha, timeout=30.0):
+    """Post this host's resume manifest sha and wait for every LIVE
+    peer to post theirs. Returns (agreed, shas_by_host). Used on quorum
+    loss so all survivors exit 4 holding the SAME resumable manifest —
+    the supervisor relaunch then resumes one consistent world."""
+    coord.dirops.write_json(f"restart-{coord.host}.json",
+                            {"host": coord.host, "sha": sha,
+                             "stamp": coord.clock.time()})
+    deadline = coord.clock.monotonic() + timeout
+    while True:
+        live = coord.alive_hosts()
+        shas = {}
+        for h in live:
+            rec = coord.dirops.read_json(f"restart-{h}.json")
+            if rec is not None:
+                shas[h] = rec.get("sha")
+        if set(live) <= set(shas) or \
+                coord.clock.monotonic() >= deadline:
+            agreed = len(set(shas.values())) == 1 and \
+                set(live) <= set(shas)
+            if coord.metrics is not None:
+                coord.metrics.log("membership", kind="coordinated_restart",
+                                  observer=coord.host, agreed=agreed,
+                                  sha=sha, hosts=sorted(shas))
+            if not agreed:
+                coord.log(f"coordinated restart: survivors did NOT "
+                          f"converge on one manifest: {shas}")
+            else:
+                coord.log("coordinated restart: all "
+                          f"{len(shas)} survivor(s) agree on manifest "
+                          f"{str(sha)[:12]}… — exiting for supervisor "
+                          "relaunch")
+            return agreed, shas
+        coord.clock.sleep(min(coord.interval_s / 2, 0.1))

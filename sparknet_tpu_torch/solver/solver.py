@@ -20,8 +20,14 @@ divergence and health. ``arm_watchdog``, ``arm_recovery`` and
 ``snapshot_keep`` is keep-N retention; ``set_remat`` the remat policy.
 ``set_input_transform`` installs a transform that runs on the device
 before the forward (the raw-record feed of data/device_transform.py).
-Not ported (ROADMAP A5/A6): chaos, elastic, heartbeat and staleness
-machinery, scan-over-layers and debug_info.
+The multi-host machinery is the JAX Solver's: ``arm_elastic`` (quorum
+membership over the slot solvers' consensus), ``arm_staleness``
+(bounded-staleness async rounds), ``arm_heartbeat`` (leased host
+liveness, the round gate and the file relay of resilience/heartbeat.py),
+``coordinated_restart`` on quorum loss, the writer election of
+multi-process snapshots, ``restore(reshard="auto")``, and the chaos
+injectors armed process-wide (``self.chaos``). Not ported (ROADMAP A5):
+scan-over-layers and debug_info.
 """
 
 import collections
@@ -143,6 +149,18 @@ class Solver:
         self.watchdog = None
         self.snapshot_keep = None
         self.recovery = None
+        # multi-host resilience (sparknet_tpu_torch.resilience): the
+        # elastic membership controller (arm_elastic), the bounded-
+        # staleness bound and decay (arm_staleness; None = synchronous),
+        # host-level fault domains (arm_heartbeat) and the process-wide
+        # chaos injector (None unless --chaos / SPARKNET_CHAOS armed one)
+        self.elastic = None
+        self.staleness = None
+        self.s_decay = 0.5
+        self.heartbeat = None
+        self._reshard_plan = None
+        from ..resilience.chaos import active_chaos
+        self.chaos = active_chaos()
         train_np, test_np = resolve_nets(solver_param, base_dir, net_param)
         # NetState from the solver (Caffe solver.cpp InitTrainNet /
         # InitTestNets): train_state / test_state[0] join the filter state
@@ -274,6 +292,216 @@ class Solver:
         policy.note_good(self)
         return policy
 
+    # -- multi-host resilience (resilience/elastic.py, heartbeat.py) -------
+    def _membership_size(self):
+        """The count of membership units of this solver's consensus:
+        1 for the single-device solver (overridden by the slot
+        solvers)."""
+        return 1
+
+    def arm_elastic(self, policy=None, **kw):
+        """Install an elastic membership controller (resilience/
+        elastic.py): the sync consensus becomes a validity-masked quorum
+        average, sick workers (hosts, in two-tier mode) are evicted and
+        readmitted, and dropping below ``quorum`` raises QuorumLost
+        (exit 4). With the heartbeat relay armed the world spans the
+        processes rather than the local slots."""
+        n = self._membership_size()
+        if getattr(self, "_relay", None) is not None:
+            n = self.heartbeat.n
+        if policy is None:
+            from ..resilience.elastic import ElasticPolicy
+            kw.setdefault("metrics", self.metrics)
+            kw.setdefault("log_fn", self.log)
+            kw.setdefault("chaos", self.chaos)
+            kw.setdefault("unit", getattr(self, "elastic_unit", "worker"))
+            kw.setdefault("staleness", self.staleness)
+            kw.setdefault("s_decay", self.s_decay)
+            policy = ElasticPolicy(n_workers=n, **kw)
+        self.elastic = policy
+        return policy
+
+    def arm_staleness(self, s, decay=0.5, unpark_after=1,
+                      evict_parked_after=0):
+        """Arm the asynchronous bounded-staleness mode (``--staleness``
+        next to ``--tau``): the consensus becomes a staleness-weighted
+        average — a worker ``lag`` rounds behind the fastest live peer
+        is discounted by ``decay ** lag``, parked once ``lag > s``,
+        resynced after ``unpark_after`` rounds and evicted after
+        ``evict_parked_after`` chronic parks (0 = never). s=0 is bit for
+        bit the synchronous masked round. Arms elastic membership (quorum
+        1) when none is armed; a synchronous file relay is upgraded in
+        place to the async one."""
+        self.staleness = max(0, int(s))
+        self.s_decay = float(decay)
+        if self.elastic is None:
+            self.arm_elastic(quorum=1, unpark_after=unpark_after,
+                             evict_parked_after=evict_parked_after)
+        else:
+            el = self.elastic
+            el.staleness = self.staleness
+            el.s_decay = self.s_decay
+            el.unpark_after = max(1, int(unpark_after))
+            el.evict_parked_after = max(0, int(evict_parked_after))
+        if getattr(self, "_relay", None) is not None:
+            from ..resilience.heartbeat import (AsyncFileConsensus,
+                                                FileConsensus)
+            if type(self._relay) is FileConsensus:
+                self._relay = AsyncFileConsensus(
+                    self._relay.coord, s=self.staleness,
+                    decay=self.s_decay)
+                self.log("staleness: upgraded the cross-host relay to "
+                         "the versioned barrier-free delta exchange")
+            elif isinstance(self._relay, AsyncFileConsensus):
+                self._relay.s = self.staleness
+                self._relay.decay = self.s_decay
+        self.log(f"staleness: async bounded-staleness armed (s="
+                 f"{self.staleness}, decay={self.s_decay})")
+        return self.elastic
+
+    def arm_heartbeat(self, directory, interval_s=0.5, lease_s=3.0,
+                      relay="auto", grow=False, **kw):
+        """Arm host-level fault domains (resilience/heartbeat.py): this
+        process leases its liveness into ``directory`` (storage every
+        host reaches), a monitor thread marks peer hosts dead on lease
+        expiry, and the slot solvers gate every cross-host round on the
+        rendezvous, so a dead peer costs an eviction, never a hang.
+
+        relay: "auto" routes the tau-interval cross-host average through
+        the directory (heartbeat.FileConsensus) whenever more than one
+        process runs (parallel.multihost.needs_host_relay); True/False
+        force it. Arm BEFORE arm_elastic, so the membership world sizes
+        to the process count.
+
+        grow: this is a LATE JOINER (``--grow``): a standalone process
+        that scans the fresh leases, takes host id max(existing) + 1,
+        forces the relay on, and fast-forwards its round counter to the
+        running world's front at its first gate; the incumbents' gates
+        see the new lease and admit it, with nothing rebuilt."""
+        from ..parallel.multihost import (needs_host_relay, process_count,
+                                          process_index)
+        from ..resilience.heartbeat import (FileConsensus,
+                                            HeartbeatCoordinator,
+                                            fresh_leases)
+        host = process_index()
+        n = process_count()
+        self._grow_pending = False
+        if grow:
+            if n > 1:
+                self.log("heartbeat: WARNING — --grow ignored inside a "
+                         f"{n}-process world (its membership is fixed at "
+                         "launch); launch the joiner as a standalone "
+                         "single process")
+            else:
+                existing = fresh_leases(directory, lease_s)
+                if existing:
+                    host = max(existing) + 1
+                    n = host + 1
+                    relay = True if relay == "auto" else relay
+                    self._grow_pending = True
+                    self.log(f"heartbeat: joining a running world of "
+                             f"{len(existing)} host(s) "
+                             f"{sorted(existing)} as host {host}")
+                else:
+                    self.log("heartbeat: --grow found no fresh leases "
+                             f"under {directory}; starting a new world")
+        kw.setdefault("metrics", self.metrics)
+        kw.setdefault("log_fn", self.log)
+        kw.setdefault("chaos", self.chaos)
+        coord = HeartbeatCoordinator(directory, host=host, n_hosts=n,
+                                     interval_s=interval_s,
+                                     lease_s=lease_s, **kw).start()
+        self.heartbeat = coord
+        if relay == "auto":
+            relay = needs_host_relay()
+        if relay and hasattr(self, "_train_round_relay"):
+            if self.staleness is not None:
+                from ..resilience.heartbeat import AsyncFileConsensus
+                self._relay = AsyncFileConsensus(coord, s=self.staleness,
+                                                 decay=self.s_decay)
+                self.log(f"heartbeat: ASYNC relay consensus armed ({n} "
+                         "hosts, versioned barrier-free delta exchange)")
+            else:
+                self._relay = FileConsensus(coord)
+                self.log(f"heartbeat: relay consensus armed ({n} hosts "
+                         "through the rendezvous directory)")
+        if self.elastic is not None and self.elastic.n != n and \
+                getattr(self, "_relay", None) is not None:
+            self.log(f"heartbeat: WARNING — elastic world {self.elastic.n}"
+                     f" != {n} processes; arm_heartbeat before "
+                     "arm_elastic in relay mode")
+        return coord
+
+    def coordinated_restart(self, prefix, timeout=30.0):
+        """Quorum loss in a multi-host world: barrier with every
+        surviving process on the sha256 of the snapshot manifest under
+        ``prefix`` before exiting 4, so a supervisor restart resumes ONE
+        consistent world (resilience/heartbeat.restart_barrier). A
+        heartbeat-less run, or a world of one process and one host: a
+        no-op True."""
+        from ..parallel.multihost import process_count
+        if self.heartbeat is None or \
+                (process_count() <= 1 and self.heartbeat.n <= 1):
+            return True
+        from ..resilience.heartbeat import manifest_sha, restart_barrier
+        sha = manifest_sha(prefix)
+        t0 = time.perf_counter()
+        agreed, _ = restart_barrier(self.heartbeat, sha, timeout=timeout)
+        self.log(f"coordinated restart: barrier {time.perf_counter() - t0:.3f}"
+                 f" s, agreed {agreed}")
+        return agreed
+
+    def _alive_mask(self):
+        """The (n,) f32 alive mask the round consumes, on the solver's
+        device: all ones without elastic membership (the masked average
+        is then bit for bit the plain mean). Under the relay the policy
+        world spans PROCESSES, so the local round sees all ones and
+        membership is applied at the exchange."""
+        n = self._membership_size()
+        if self.elastic is not None and self.elastic.n == n:
+            return torch.as_tensor(self.elastic.alive_f32(),
+                                   device=self.device)
+        return torch.ones(n, device=self.device)
+
+    def _staleness_lag(self):
+        """The (n,) f32 per-unit version lag next to the alive mask: all
+        zeros while the async mode is off (the staleness weights are
+        then exactly 1.0) or when the policy world spans processes."""
+        n = self._membership_size()
+        if self.staleness is not None and self.elastic is not None \
+                and self.elastic.n == n:
+            return torch.as_tensor(np.asarray(self.elastic.lag(),
+                                              np.float32),
+                                   device=self.device)
+        return torch.zeros(n, device=self.device)
+
+    def _observe_membership(self, aux, round_idx=None):
+        """Feed the elastic membership controller one round's fetched
+        validity and loss vectors. QuorumLost propagates (the run must
+        stop); nothing else may end training."""
+        if self.elastic is None or not aux:
+            return
+        from ..resilience.elastic import QuorumLost
+        try:
+            self.elastic.observe_round(
+                round_idx if round_idx is not None else self.iter - 1,
+                valid=aux.get("valid"),
+                worker_loss=aux.get("worker_loss"))
+        except QuorumLost:
+            raise
+        except Exception as e:
+            self.log(f"elastic membership observation failed: {e!r}")
+
+    def _chaos_loss(self, loss):
+        """Apply the armed per-step chaos injectors (stall, loss
+        poisoning) to the step that just ran; no-op when chaos is off."""
+        if self.chaos is None:
+            return loss
+        self.chaos.maybe_stall(self.iter - 1)
+        if self.chaos.poison_loss(self.iter - 1):
+            return torch.tensor(float("nan"), device=self.device)
+        return loss
+
     def arm_health(self, **kw):
         """(Re)configure the health detectors (the --health-* flags),
         keeping the metrics sink; enabled=False disarms them."""
@@ -345,13 +573,27 @@ class Solver:
         return None
 
     def _observe_sync_round(self, aux, round_s=None, round_idx=None):
-        """Fetch one sync round's aux (a few scalars from the card), emit
-        the ``divergence`` event and feed the health detectors."""
-        if not aux or self.divergence is None:
+        """Fetch one sync round's aux (a few scalars from the card), feed
+        the elastic membership controller, emit the ``divergence`` event
+        and feed the health detectors. Only QuorumLost escapes."""
+        if not aux:
             return None
         from ..obs.divergence import to_host
         try:
             aux = to_host(aux)
+        except Exception as e:          # monitoring must never end a run
+            self.log(f"sync-round aux fetch failed: {e!r}")
+            return None
+        # membership first: eviction (and the QuorumLost abort) must not
+        # depend on the metrics stream; the detectors judge the round
+        # against the membership in force while it ran
+        alive_during_round = self.elastic.alive.copy() \
+            if self.elastic is not None else None
+        if not aux.get("membership_seen"):
+            self._observe_membership(aux, round_idx)
+        if self.divergence is None:
+            return None
+        try:
             d = self.divergence.observe(
                 self.iter - 1, aux, kind=aux.get("kind", "params"),
                 tau=getattr(self, "tau", None), round_idx=round_idx)
@@ -362,7 +604,9 @@ class Solver:
                     worker_losses=aux.get("worker_loss"),
                     latencies=self._round_latencies(round_s)
                     if round_s is not None else None,
-                    divergence=d, valid=aux.get("valid"))
+                    divergence=d, valid=aux.get("valid"),
+                    alive=alive_during_round, lag=aux.get("lag"),
+                    parked=aux.get("parked"), staleness=self.staleness)
             return d
         except Exception as e:          # monitoring must never end a run
             self.log(f"divergence observation failed: {e!r}")
@@ -375,6 +619,13 @@ class Solver:
         if self.watchdog is not None:
             self.watchdog.stop()
             self.watchdog = None
+        if self.heartbeat is not None:
+            try:
+                self.heartbeat.stop()   # the leaser thread must not
+            finally:                    # outlive the run
+                self.heartbeat = None
+                if getattr(self, "_relay", None) is not None:
+                    self._relay = None
         if self.health is not None:
             try:
                 if self.health.alarms and self.metrics is not None:
@@ -382,6 +633,15 @@ class Solver:
                                      **self.health.summary())
             finally:
                 self.health = None
+        if self.elastic is not None:
+            try:
+                if self.metrics is not None and \
+                        (self.elastic.evictions or
+                         self.elastic.readmissions):
+                    self.metrics.log("membership", kind="summary",
+                                     **self.elastic.summary())
+            finally:
+                self.elastic = None
         self.divergence = self.memstats = None
         if self.stepstats is not None:
             try:
@@ -481,7 +741,7 @@ class Solver:
                      self.lr_fn(self.iter), self.iter)
         self.iter += 1
         self._obs_step(time.perf_counter() - t0, loss, fed)
-        return loss
+        return self._chaos_loss(loss)
 
     def step(self, num_iters, data_iter, test_data_fn=None):
         """Run ``num_iters`` steps: pull batches from ``data_iter``,
@@ -586,14 +846,46 @@ class Solver:
     def snapshot(self, prefix=None):
         """Write weights + solver state through the crash-safe manifest,
         in the SolverParameter's snapshot_format (BINARYPROTO, the
-        default, or HDF5); returns (model_path, state_path)."""
+        default, or HDF5); returns (model_path, state_path). In a
+        multi-process world only the designated writer commits; the
+        others barrier on the manifest it wrote."""
         from ..resilience import checkpoint
+        prefix = prefix or self.param.snapshot_prefix
+        if not self._snapshot_writer():
+            entry = checkpoint.wait_for_manifest(prefix, min_iter=self.iter)
+            if entry is None:
+                self.log(f"snapshot: writer never committed iter "
+                         f"{self.iter} under {prefix!r} (timed out); "
+                         "continuing without a local copy")
+                return None, None
+            d = os.path.dirname(prefix)
+            self.log(f"snapshot: committed by the writer process "
+                     f"(iter {entry.get('iter')})")
+            return (os.path.join(d, entry.get("model", "")),
+                    os.path.join(d, entry.get("state", "")))
         with self.tracer.span("snapshot", iter=self.iter):
             model_path, state_path = checkpoint.save_snapshot(
-                self, prefix or self.param.snapshot_prefix,
-                keep=self.snapshot_keep, metrics=self.metrics)
+                self, prefix, keep=self.snapshot_keep,
+                metrics=self.metrics)
         self.log(f"Snapshotting to {model_path}")
         return model_path, state_path
+
+    def _snapshot_writer(self):
+        """Which process commits snapshots in a multi-process world: the
+        lowest-indexed LIVE host (process 0 while healthy). Params, state
+        and history are replicated after a round, so N processes writing
+        the same files would race each other's renames."""
+        from ..parallel.multihost import process_count, process_index
+        if process_count() <= 1:
+            return True
+        me = process_index()
+        hb = self.heartbeat
+        if hb is not None:
+            try:
+                return me == min(hb.live_processes() + [me])
+            except Exception:
+                pass
+        return me == 0
 
     def _snapshot_paths(self, prefix=None):
         """-> (model_path, state_path, format) for a snapshot at the
@@ -625,14 +917,36 @@ class Solver:
                 self.history[lname][i][s].detach().cpu().numpy()))
         wire.dump(ss, state_path)
 
-    def restore(self, state_path):
+    def restore(self, state_path, reshard="strict"):
         """Resume from a .solverstate (binaryproto) or .solverstate.h5
         and the weights it names (learned_net). A snapshot its manifest
-        marks partial or corrupt, or one stamped by another world, is
-        refused with the reason."""
+        marks partial or corrupt is refused with the reason; one stamped
+        by another world raises WorldMismatch under ``reshard="strict"``,
+        while ``reshard="auto"`` re-partitions it for this world: params
+        and history are replicated after a round, so the blobs restore
+        unchanged and only data ownership re-spreads (the
+        reshard_for_world plan, logged as a ``reshard`` event)."""
         from ..resilience import checkpoint
-        checkpoint.check_restorable(state_path,
-                                    checkpoint.world_signature(self))
+        world = checkpoint.world_signature(self)
+        entry = checkpoint.check_restorable(state_path, world,
+                                            reshard=reshard)
+        self._reshard_plan = None
+        if reshard == "auto" and isinstance(entry, dict):
+            plan = checkpoint.reshard_for_world(entry.get("world"), world)
+            if plan is not None:
+                self._reshard_plan = plan
+                self.log(
+                    f"reshard: snapshot {state_path} written for world "
+                    f"{plan['from_world']} ({plan['n_from']} slots); "
+                    f"re-partitioning for this world {plan['to_world']} "
+                    f"({plan['n_to']} slots, {plan['direction']})")
+                if self.metrics is not None:
+                    self.metrics.log(
+                        "reshard", iter=int(entry.get("iter", 0)),
+                        state=state_path, from_world=plan["from_world"],
+                        to_world=plan["to_world"], n_from=plan["n_from"],
+                        n_to=plan["n_to"], direction=plan["direction"],
+                        owners=plan["owners"])
         if state_path.endswith(".h5"):
             it, learned = hdf5_io.load_state_hdf5(state_path, self.net,
                                                   self.history)

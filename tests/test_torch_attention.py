@@ -91,10 +91,11 @@ def test_flash_backward_matches_pallas_grad(shape, causal):
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("d", [192, 256, 320, 512])
 def test_wide_head_dim_flash_matches_pallas(d, causal):
-    """head_dim 192 and 256 (ROADMAP B0: the kernels are built up to 256,
-    192 zero-padded to it): the plain forward, LSE and gradients through
+    """head_dim 192 and 256 (the tiled kernels are built up to 256, 192
+    zero-padded to it) and 320 and 512 (the wide kernels of
+    csrc/flash_wide.cuh on the card): the plain forward, LSE and gradients through
     the port's autograd.Function against the Pallas kernel in interpret
     mode at S = 128, within 1e-5 (f32 on both sides; rtol and atol)."""
     shape = (1, 2, 128, d)

@@ -476,11 +476,26 @@ def _flash_kernels_against_plain(d, causal, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_kernels_at_head_dim_512_on_card(cuda, causal, dtype):
+    # past 256: the wide kernels (csrc/flash_wide.cuh), one 64-column
+    # chunk of each output a CTA
+    _flash_kernels_against_plain(512, causal, dtype)
+
+
+@pytest.mark.cuda
 def test_flash_refuses_what_it_was_not_built_for(cuda):
     x = torch.randn(1, 2, 128, 64, device="cuda")
-    with pytest.raises(ValueError, match="head_dim 300 > 256.*ROADMAP B0"):
-        y = torch.randn(1, 2, 128, 300, device="cuda")
-        ca.flash_attention_fwd(y, y, y)
+    # head_dim 300 is taken (zero-padded to 320, the wide kernels) and
+    # agrees with the plain forward
+    y = torch.randn(1, 2, 128, 300, device="cuda")
+    o, lse = ca.flash_attention_fwd(y, y, y)
+    ro, rlse = ca.flash_attention_fwd_plain(y, y, y)
+    assert o.shape == y.shape
+    assert _worst_tile(o, ro) <= FLASH_TILE_TOL[torch.float32]
+    assert _worst(lse, rlse) <= 2e-5
     with pytest.raises(ValueError, match="contiguous"):
         ca.flash_attention_fwd(x.transpose(1, 2), x.transpose(1, 2),
                                x.transpose(1, 2))

@@ -165,5 +165,6 @@ def test_built_head_dim():
     assert [ca.built_head_dim(d)
             for d in (1, 16, 17, 33, 64, 65, 128, 129, 192, 256)] == \
         [16, 16, 32, 64, 64, 128, 128, 256, 256, 256]
-    with pytest.raises(ValueError, match="head_dim 257.*ROADMAP B0"):
-        ca.built_head_dim(257)
+    # past 256: the next multiple of 64 (the wide kernels)
+    assert [ca.built_head_dim(d) for d in (257, 300, 320, 321, 512, 1000)] \
+        == [320, 320, 320, 384, 512, 1024]

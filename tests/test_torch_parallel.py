@@ -298,17 +298,22 @@ def test_run_snapshots_and_resumes_auto(tmp_path):
     assert resumed.iter == 6
 
 
-def test_refuses_what_is_not_ported():
-    for kw, what in ((dict(host_axis="host"), "host_axis"),
-                     (dict(staleness=1), "staleness")):
+def test_refuses_what_is_not_ported(tmp_path):
+    # host_axis, staleness and the arms are the JAX solver's now; what is
+    # refused is a host axis of another name and a grid that does not
+    # divide the workers
+    for kw, what in ((dict(host_axis="model"), "host_axis"),
+                     (dict(host_axis="host", hosts=3), "not divisible"),
+                     (dict(hosts=2), "hosts needs host_axis")):
         with pytest.raises(ValueError, match=what):
             _port_local(2, **kw)
+    assert _port_local(2, staleness=1).staleness == 1
     ts = _port_local(2)
-    for arm, what in ((ts.arm_elastic, "elastic"),
-                      (ts.arm_heartbeat, "relay"),
-                      (ts.arm_staleness, "staleness")):
-        with pytest.raises(ValueError, match=what):
-            arm()
+    assert ts.arm_elastic(quorum=1).n == 2
+    assert ts.arm_staleness(2).staleness == 2
+    hb = ts.arm_heartbeat(str(tmp_path / "hb"), relay=False)
+    assert hb.n == 1 and ts._relay is None
+    ts.close()
     with pytest.raises(ValueError, match="batch 6 not divisible by mesh "
                                          "axis size 4"):
         DataParallelSolver(_sp(TMessage), workers=4,

@@ -119,5 +119,12 @@ def test_simfleet_verb_exit_codes_and_errors_equal_jax(argv, rc, capsys):
 
 
 def test_simfleet_training_branch_refuses_naming_a6d(capsys):
-    assert port_main(["simfleet", "--hosts", "8"]) == 2
-    assert "ROADMAP A6d" in capsys.readouterr().err
+    # the training fleet's simulator runs now, as the JAX verb's: the
+    # same exit code and the same summary lines
+    argv = ["simfleet", "--hosts", "8", "--rounds", "6"]
+    assert port_main(argv) == 0
+    got = capsys.readouterr()
+    assert jax_main(argv) == 0
+    ref = capsys.readouterr()
+    assert "ROADMAP" not in got.err
+    assert got.out == ref.out and got.out.startswith("fleet: 8 hosts")
