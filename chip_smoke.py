@@ -249,6 +249,28 @@ Phases, each of which raises on failure (exit code not 0):
               on from it); a running pair joined by a `--hosts 1 --grow
               --resume auto --reshard auto` process (its reshard event,
               masks of three hosts). D: the wide flash rows of phase 6.
+15. mesh   — the lm verb's mesh branches over slots on the card, each
+              built by the verb's own setup (cli.lm_setup). (a) A small
+              LM (vocab 512, 2 layers, d 256, 4 heads, S 512, batch 8,
+              f32, SGD lr 0.01) from one init and one batch stream, 3
+              steps of --dp 4, --fsdp on --dp 4, --tp 2, --sp 4 (ring
+              attention) and --pipeline-stages 2 --microbatches 4 against
+              the single-device port on the card (each loss within 1e-5
+              relative, every param within 1e-4 max-abs, the first
+              step's change 1e-2); --ep 4 --moe-experts 8 against the port's own EP
+              run on the CPU (the capacity is each slot's, so no single
+              device matches it): losses 1e-5, first-step gradients
+              1e-4, weight changes 1e-2, every token whose router margin
+              clears twice its card-CPU shift routed alike. (b) Phase 7's
+              full-width LM (bf16 over f32 masters) through --dp 4,
+              --fsdp on --dp 4, --tp 2, --tp 4, --sp 4 (under --remat
+              full: b4 without it fills the card) and --pipeline-stages 4
+              --microbatches 4, and phase 11's MoE row over --ep 4: 3
+              steps each, the step median, tokens/s, peak allocated
+              memory and the flash launches a step (every branch but
+              --sp launches them). (c) The flash kernels at the per-slot
+              shapes (1, 8, 4096, 128) and (4, 4, 4096, 128), bf16
+              causal, by phase 6's method.
     After the phases: the kernel table as one JSON line, an entry for
     every timed f32 row of phase 3 and the LM's flash row of phase 6
     (launches from the
@@ -266,6 +288,10 @@ Phases, each of which raises on failure (exit code not 0):
     CaffeNet's LRN rows), each phase's wall
     seconds and the total, the nvidia-smi line,
     and as the last line {"ok": true, "device": {...}}.
+
+The kernel table also holds the flash rows of phase 15's per-slot
+shapes, launches from the branch that gives the shape, and every
+branch's flash launches a step.
 
 ``python3 chip_smoke.py --phases 12`` (a comma-separated list) runs
 phases 1 and 2 and those given (13 brings 4, 10 brings 9, 14 brings 9
@@ -2002,6 +2028,27 @@ DB_ITERS, DB_TEST_ITER, DB_TEST_INTERVAL = 30, 2, 20
 IMAGENET_TAU, IMAGENET_ROUNDS = 2, 1   # one round: the time budget (C10)
 
 
+def _class_gaussian_uint8(n, classes, device=None):
+    """n class-gaussian images of RECORD_SHAPE as uint8 (the ImageNet
+    app's synthetic images: a unit-normal prototype per class, twice it
+    plus unit noise, scaled by 32 about 128), and their labels, drawn
+    from SEED on the card where there is one (numpy takes ~35 s for
+    phase 9's 3,072 on one host thread)."""
+    import torch
+    device = device or ("cuda" if torch.cuda.is_available() else "cpu")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    protos = torch.randn((classes,) + RECORD_SHAPE, generator=gen,
+                         device=device)
+    labels = torch.randint(0, classes, (n,), generator=gen, device=device)
+    images = torch.empty((n,) + RECORD_SHAPE, dtype=torch.uint8)
+    for lo in range(0, n, 256):
+        hi = min(n, lo + 256)
+        x = 2.0 * protos[labels[lo:hi]] + torch.randn(
+            (hi - lo,) + RECORD_SHAPE, generator=gen, device=device)
+        images[lo:hi] = (x * 32 + 128).clamp(0, 255).to(torch.uint8).cpu()
+    return images.numpy(), labels.cpu().numpy().astype(np.int32)
+
+
 def _caffenet_db_files(tmp):
     """The records of phase 9 and a stock-form CaffeNet train_val over
     them: DB_TRAIN + DB_TEST 3x256x256 uint8 Datums of 1,000-class
@@ -2013,13 +2060,10 @@ def _caffenet_db_files(tmp):
     from sparknet_tpu_torch import tools
     from sparknet_tpu_torch.data.datum import array_to_datum
     from sparknet_tpu_torch.data.lmdb import LMDBWriter
-    from sparknet_tpu_torch.data.synthetic import class_gaussian_images
     from sparknet_tpu_torch.models import zoo
     from sparknet_tpu_torch.proto import Message, text_format
     t0 = time.perf_counter()
-    images, labels = class_gaussian_images(
-        DB_TRAIN + DB_TEST, shape=RECORD_SHAPE, num_classes=1000, seed=SEED)
-    images = np.clip(images * 32 + 128, 0, 255).astype(np.uint8)
+    images, labels = _class_gaussian_uint8(DB_TRAIN + DB_TEST, 1000)
     t_gen = time.perf_counter() - t0
     for name, lo, hi in (("train_lmdb", 0, DB_TRAIN),
                          ("test_lmdb", DB_TRAIN, DB_TRAIN + DB_TEST)):
@@ -4878,6 +4922,326 @@ def phase_hosts_all(torch, card, tmp, records, feeds):
             "wall_s": wall}
 
 
+# -- phase 15 -------------------------------------------------------------
+
+MESH_SMALL = ["--vocab", "512", "--seq-len", "512", "--batch", "8",
+              "--d-model", "256", "--layers", "2", "--heads", "4"]
+MESH_PARITY = (("dp 4", ["--dp", "4"]),
+               ("fsdp 4", ["--fsdp", "on", "--dp", "4"]),
+               ("tp 2", ["--tp", "2"]),
+               ("sp 4", ["--sp", "4"]),
+               ("pipeline 2 x 4", ["--pipeline-stages", "2",
+                                   "--microbatches", "4"]))
+MESH_EP = ["--ep", "4", "--moe-experts", str(MOE_EXPERTS)]
+MESH_SGD = ["--solver-type", "SGD", "--lr", "0.01"]
+MESH_FULL = (("dp 4", ["--dp", "4"]),
+             ("fsdp 4", ["--fsdp", "on", "--dp", "4"]),
+             ("tp 2", ["--tp", "2"]),
+             ("tp 4", ["--tp", "4"]),
+             # b4 over 4 seq slots keeps the ring's f32 scores and
+             # probabilities of every slot and layer, ~52 GB, beside the
+             # step's own ~16 GB: without remat its peak read 77.2-80.0
+             # GB of the card's 85 and ran out once in the whole script
+             # (PERF.md, PR 14), so it runs under --remat full, b4
+             ("sp 4", ["--sp", "4", "--remat", "full"]),
+             ("pipeline 4 x 4", ["--pipeline-stages", "4",
+                                 "--microbatches", "4"]),
+             ("ep 4", MESH_EP))
+MESH_STEPS = 3
+MESH_LOSS_RTOL = 1e-5           # each step's loss against one device
+MESH_PARAM_ATOL = 1e-4          # every param after the steps, max-abs
+# the flash kernels at the per-slot shapes of the full-width branches:
+# dp/fsdp slots and pipeline microbatches (1, 8, 4096, 128), tp 2 slots
+# (4, 4, 4096, 128)
+MESH_FLASH_CASES = (((1, 8, 4096, 128), "bfloat16", True, True),
+                    ((4, 4, 4096, 128), "bfloat16", True, True))
+MESH_FLASH_PATH = {(1, 8, 4096, 128): "dp 4", (4, 4, 4096, 128): "tp 2"}
+
+
+def _mesh_setup(flags, device="cuda"):
+    """The lm verb's solver and stream for ``flags`` (its own code path,
+    cli.lm_setup), the sharding variables pinned first and --remat none
+    unless the flags give a policy."""
+    from sparknet_tpu_torch import cli
+    os.environ["SPARKNET_FSDP"] = "off"
+    os.environ["SPARKNET_TP"] = "0"
+    remat = [] if "--remat" in flags else ["--remat", "none"]
+    args = cli.parser().parse_args(
+        ["lm", "--display", "0", "--seed", str(SEED), "--device", device]
+        + remat + flags)
+    return cli.lm_setup(args)
+
+
+def _lm_params_cpu(solver):
+    """{name: [f64 CPU tensors]} of a solver's params in the
+    single-device layout (the pipeline's stacked blocks unstacked)."""
+    out = {}
+    for name, blobs in solver.params.items():
+        vals = [p.detach().double().cpu() for p in blobs]
+        kind, _, layer = name.partition("/")
+        if kind == "blocks":
+            for i in range(vals[0].shape[0]):
+                out[f"block{i}/{layer}"] = [v[i] for v in vals]
+        else:
+            out[layer if kind in ("prefix", "suffix") else name] = vals
+    return out
+
+
+def _param_error(params, ref):
+    """Worst max |p - p_ref| over the blobs, and the blob."""
+    worst, where = 0.0, None
+    for name, refs in ref.items():
+        for i, r in enumerate(refs):
+            e = float((params[name][i] - r).abs().max())
+            if e > worst:
+                worst, where = e, f"{name}[{i}]"
+    return worst, where
+
+
+def _change_error_of(params, w0, ref):
+    """Worst blob's max |dw - dw_ref| / max |dw_ref| (dw = w - w0): under
+    plain SGD the first step's change is -lr times the gradient."""
+    worst, where = 0.0, None
+    for name, refs in ref.items():
+        for i, r in enumerate(refs):
+            dr = r - w0[name][i]
+            e = float(((params[name][i] - w0[name][i]) - dr).abs().max()
+                      / dr.abs().max().clamp_min(1e-30))
+            if e > worst:
+                worst, where = e, f"{name}[{i}]"
+    return worst, where
+
+
+def _to_pipeline(torch, solver, params):
+    """Copy single-device LM params into a PipelineLMSolver's layout."""
+    with torch.no_grad():
+        for name, blobs in solver.params.items():
+            kind, layer = name.split("/", 1)
+            for i, b in enumerate(blobs):
+                if kind == "blocks":
+                    b.copy_(torch.stack([params[f"block{j}/{layer}"][i]
+                                         for j in range(b.shape[0])]))
+                else:
+                    b.copy_(params[layer][i])
+
+
+def phase_mesh_parity(torch, tmp, steps=MESH_STEPS, device="cuda"):
+    """(a) On the card, a small LM (vocab 512, 2 layers, d 256, 4 heads, S
+    512, batch 8, f32) from one init and one batch stream, under plain
+    SGD (lr 0.01: a step's change is lr times the gradient, so the
+    params read the gradients; under Adam a gradient that is zero up to
+    rounding, or a ReLU input within rounding of 0, turns another
+    summation order into a step of ~lr of either sign). Each mesh branch
+    against the single-device port on the card: each step's loss within
+    1e-5 relative, every param within 1e-4 max-abs after the steps, the
+    first step's change within 1e-2 of each blob's largest (phase 7's
+    weight-change measure). The EP branch (8 experts over 4 expert
+    slots, each slot's own capacity, so no single device matches it)
+    against the port's own EP run on the CPU at phase 11's MoE limits:
+    each step's loss 1e-5, the first step's gradients 1e-4, the weight
+    changes 1e-2 of each blob's largest, the routing of every token whose
+    margin clears twice its card-CPU logit difference the same."""
+    from sparknet_tpu_torch.ops import kernel_launches
+    sgd = MESH_SMALL + MESH_SGD
+    ref = _mesh_setup(sgd, device=device)
+    solver, stream = ref["solver"], ref["stream"]
+    _, state = solver.snapshot(os.path.join(tmp, "mesh_start"))
+    w0 = _lm_params_cpu(solver)
+    batches = [next(stream) for _ in range(steps)]
+    ref_losses = [float(solver.train_step(batches[0]))]
+    ref_first = _lm_params_cpu(solver)
+    ref_losses += [float(solver.train_step(b)) for b in batches[1:]]
+    ref_params = _lm_params_cpu(solver)
+    del ref, solver
+    out = {"single": {"losses": ref_losses}}
+    for label, flags in MESH_PARITY:
+        pipe = "--pipeline-stages" in flags
+        run = _mesh_setup(sgd + flags + ([] if pipe else
+                                         ["--resume", state]),
+                          device=device)
+        s = run["solver"]
+        if pipe:
+            _to_pipeline(torch, s, {k: [v.float() for v in vs]
+                                    for k, vs in w0.items()})
+        before = dict(kernel_launches())
+        losses = [float(s.train_step(batches[0]))]
+        first, where1 = _change_error_of(_lm_params_cpu(s), w0, ref_first)
+        losses += [float(s.train_step(b)) for b in batches[1:]]
+        launches = {k: v - before[k] for k, v in kernel_launches().items()}
+        rels = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+        err, where = _param_error(_lm_params_cpu(s), ref_params)
+        print(f"[mesh] (a) {label} ({run['branch']}) against one device on "
+              f"the card: first-step change {first:.3e} at {where1} (limit "
+              f"{LM_WEIGHT_CHANGE_LIMIT:g}); losses {[round(x, 6) for x in losses]}, "
+              f"relative {[f'{r:.2e}' for r in rels]} (limit "
+              f"{MESH_LOSS_RTOL:g}); params max-abs {err:.3e} at {where} "
+              f"(limit {MESH_PARAM_ATOL:g}); flash launches "
+              f"{launches['flash_attention']}")
+        check(first <= LM_WEIGHT_CHANGE_LIMIT, f"mesh {label}: the first "
+              f"step's change differs from one device's by {first:.3e} "
+              f"at {where1}")
+        check(max(rels) <= MESH_LOSS_RTOL, f"mesh {label}: loss differs "
+              f"from one device by {max(rels):.3e} relative")
+        check(err <= MESH_PARAM_ATOL, f"mesh {label}: params differ from "
+              f"one device by {err:.3e} at {where}")
+        out[label] = {"losses": losses, "loss_rel_err": max(rels),
+                      "first_change_err": first, "param_err": err,
+                      "launches": launches}
+        del run, s
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    out["ep 4"] = _mesh_ep_card_vs_cpu(torch, steps, device=device)
+    return out
+
+
+def _mesh_ep_card_vs_cpu(torch, steps, device="cuda"):
+    """The EP branch on ``device`` against the same run on the CPU."""
+    flags = MESH_SMALL + MESH_SGD + MESH_EP
+    runs = {"card": _mesh_setup(flags, device=device),
+            "cpu": _mesh_setup(flags, device="cpu")}
+    card, cpu = runs["card"]["solver"], runs["cpu"]["solver"]
+    w0 = _lm_params_cpu(cpu)
+    batches = [next(runs["cpu"]["stream"]) for _ in range(steps)]
+    # the routing of the first step's tokens, card against CPU
+    dev_batch = {k: torch.as_tensor(v).to(card.device)
+                 for k, v in batches[0].items()}
+    with torch.no_grad():
+        bc, _ = card.net.apply(card.params, {}, dev_batch, train=False)
+        bp, _ = cpu.net.apply(cpu.params, {}, batches[0], train=False)
+    unclear = 0
+    for i in range(2):
+        r = cpu.params[f"block{i}/moe"][0].detach().double().t()
+        t = bp[f"block{i}/ln2"].double().reshape(-1, r.shape[0]) @ r
+        c = bc[f"block{i}/ln2"].cpu().double().reshape(-1, r.shape[0]) @ r
+        shift = (c - t).abs().max(dim=1).values.clamp_min(1e-6)
+        top2 = t.topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > ROUTING_FACTOR * shift
+        same = c.argmax(1) == t.argmax(1)
+        check(bool(same[clear].all()), f"mesh ep: block{i} tokens clear of "
+              "their card-CPU shift route to different experts")
+        unclear += int((~clear).sum())
+    n_tok = 2 * batches[0]["data"].size
+    check(unclear <= 0.02 * n_tok, f"mesh ep: {unclear} of {n_tok} tokens "
+          "within twice their card-CPU logit shift")
+    losses, grads = {}, {}
+    for key, s in (("card", card), ("cpu", cpu)):
+        losses[key] = []
+        for j, b in enumerate(batches):
+            losses[key].append(float(s.train_step(b)))
+            if j == 0:
+                grads[key] = {n: [p.grad.detach().double().cpu()
+                                  for p in ps] for n, ps in s.params.items()}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                  losses["cpu"]))
+    g_err, g_where = 0.0, None
+    for n, gs in grads["cpu"].items():
+        for i, g in enumerate(gs):
+            e = float((grads["card"][n][i] - g).abs().max()
+                      / g.abs().max().clamp_min(1e-30))
+            if e > g_err:
+                g_err, g_where = e, f"{n}[{i}]"
+    dw_ref = {n: [p - w0[n][i] for i, p in enumerate(ps)]
+              for n, ps in _lm_params_cpu(cpu).items()}
+    w_err, w_where = _weight_change_error(card.params, w0, dw_ref)
+    print(f"[mesh] (a) ep 4 x {MOE_EXPERTS} experts, card against the CPU: "
+          f"losses {[round(x, 6) for x in losses['card']]}, worst relative "
+          f"{rel:.3e} (limit {MESH_LOSS_RTOL:g}); first-step gradients "
+          f"{g_err:.3e} at {g_where} (limit {LM_GRAD_LIMIT:g}); weight "
+          f"changes {w_err:.3e} at {w_where} (limit "
+          f"{LM_WEIGHT_CHANGE_LIMIT:g}); {unclear} of {n_tok} tokens "
+          f"within {ROUTING_FACTOR:g}x their logit shift")
+    check(rel <= MESH_LOSS_RTOL, f"mesh ep: loss card-vs-CPU {rel:.3e}")
+    check(g_err <= LM_GRAD_LIMIT, f"mesh ep: gradients {g_err:.3e} at "
+          f"{g_where}")
+    check(w_err <= LM_WEIGHT_CHANGE_LIMIT, f"mesh ep: weight changes "
+          f"{w_err:.3e} at {w_where}")
+    return {"losses": losses, "loss_rel_err": rel, "grad_err": g_err,
+            "weight_change_err": w_err, "unclear_tokens": unclear,
+            "tokens": n_tok}
+
+
+def _mesh_full_run(torch, card, label, flags, steps, device="cuda"):
+    """One full-width branch through the lm verb's setup: steps timed by
+    CUDA synchronisation, tokens/s, the peak allocated memory, the
+    kernels' launches a step."""
+    from sparknet_tpu_torch.ops import KERNEL_WRAPPERS, kernel_launches
+    f = LM_FULL
+    full = ["--vocab", str(f["vocab"]), "--seq-len", str(f["seq_len"]),
+            "--batch", str(f["batch"]), "--d-model", str(f["d_model"]),
+            "--layers", str(f["layers"]), "--heads", str(f["heads"]),
+            "--dtype", "bf16"]
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    run = _mesh_setup(full + flags, device=device)
+    s, stream = run["solver"], run["stream"]
+    _zero_launches()
+    times, losses = [], []
+    for _ in range(steps):
+        b = next(stream)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(s.train_step(b)))     # the fetch synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    step_ms = statistics.median(times)
+    tps = f["batch"] * f["seq_len"] / (step_ms / 1e3)
+    per_step = {k: v / steps for k, v in launches.items()}
+    check(all(np.isfinite(losses)), f"mesh {label}: non-finite losses "
+          f"{losses}")
+    print(f"[mesh] (b) {label} ({run['branch']}): losses "
+          f"{[round(x, 4) for x in losses]}, step {step_ms:.1f} ms (median "
+          f"of {steps}), {tps:,.0f} tokens/s, peak allocated {peak:.1f} GB, "
+          f"flash launches a step {per_step['flash_attention']:g} / "
+          f"{per_step['flash_attention_dq']:g} / "
+          f"{per_step['flash_attention_dkv']:g}; {card}")
+    del run, s
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"branch": label, "losses": losses, "step_ms": step_ms,
+            "step_ms_all": times, "tokens_per_s": tps, "peak_gb": peak,
+            "launches": launches, "launches_per_step": per_step}
+
+
+def phase_mesh_full(torch, card, steps=MESH_STEPS, device="cuda"):
+    """(b) The full-width LM (bench.py's row: vocab 8192, S 4096, batch 4,
+    d 1024, 12 layers, 8 heads, bf16 over f32 masters, Adam) through the
+    lm verb's setup on every branch, and the MoE row (8 experts, F 4096,
+    top-1, capacity 1.25) over 4 expert slots; --sp 4 under --remat full
+    at the same widths (MESH_FULL says why)."""
+    out = {}
+    for label, flags in MESH_FULL:
+        out[label] = _mesh_full_run(torch, card, label, flags, steps,
+                                    device=device)
+        if device == "cuda":
+            want = label != "sp 4"
+            got = out[label]["launches"]
+            check(all((got[k] > 0) == want for k in FLASH_KERNELS),
+                  f"mesh {label}: flash launches {got}")
+    os.environ["SPARKNET_REMAT"] = "none"
+    return out
+
+
+def phase_mesh_all(torch, card, tmp):
+    t0 = time.perf_counter()
+    parity = phase_mesh_parity(torch, tmp)
+    t1 = time.perf_counter()
+    full = phase_mesh_full(torch, card)
+    t2 = time.perf_counter()
+    flash = phase_flash_kernels(torch, cases=MESH_FLASH_CASES)
+    for r in flash:
+        r["launches_path"] = MESH_FLASH_PATH[tuple(r["shape"])]
+    wall = time.perf_counter() - t0
+    print(f"[mesh] phase 15 wall time {wall:.1f} s: (a) {t1 - t0:.1f}, "
+          f"(b) {t2 - t1:.1f}, (c) {time.perf_counter() - t2:.1f}")
+    return {"parity": parity, "full": full, "flash": flash, "wall_s": wall}
+
+
 KERNELS = {
     # name: (source, replaces, path whose launches the row reports)
     "lrn_across": ("sparknet_tpu_torch/csrc/lrn.cu",
@@ -4904,7 +5268,7 @@ KERNELS = {
 PHASES = {1: "device", 2: "build", 3: "kernels", 4: "serve", 5: "train",
           6: "flash", 7: "lm", 8: "local-sgd", 9: "records", 10: "feeds",
           11: "zoo", 12: "levers, run safety, metrics", 13: "fleet",
-          14: "hosts"}
+          14: "hosts", 15: "mesh"}
 
 
 def _selected(argv):
@@ -4919,7 +5283,7 @@ def _selected(argv):
     want = {int(x) for x in argv[1].split(",")}
     bad = want - set(PHASES)
     if bad:
-        raise SystemExit(f"no phase {sorted(bad)}; phases are 1-14")
+        raise SystemExit(f"no phase {sorted(bad)}; phases are 1-15")
     if 14 in want:
         want.add(10)
     if 10 in want:
@@ -4970,6 +5334,7 @@ def main(argv=None):
     fleet = section(13, lambda: phase_fleet(torch, card, served["prefix"]))
     hosts = section(14, lambda: phase_hosts_all(torch, card, tmp, records,
                                                 feeds))
+    mesh = section(15, phase_mesh_all, torch, card, tmp)
     total = time.perf_counter() - t_start
     print("[phases] " + json.dumps(
         {PHASES[n]: round(v, 1) for n, v in sorted(seconds.items())}))
@@ -4985,20 +5350,26 @@ def main(argv=None):
                  "launches"],
              "train verb on records": records["cli"]["launches"],
              "train verb, device-cached": feeds["cli"]["cached"]["launches"],
-             "train verb, dp": feeds["cli"]["dp"]["launches"]}
+             "train verb, dp": feeds["cli"]["dp"]["launches"],
+             **{f"lm --{k}": v["launches"]
+                for k, v in mesh["full"].items()}}
     remat = levers["googlenet"]["policies"]
     remat_lm = levers["lm"]["policies"]
     table = []
     for name, (source, replaces, own_path) in KERNELS.items():
-        rows = [r for r in results + flash if r["name"] == name and r["row"]]
+        rows = [r for r in results + flash + mesh["flash"]
+                if r["name"] == name and r["row"]]
         check(rows, f"no timed row of {name}")
         for r in rows:          # one entry per timed shape of the kernel
             # CaffeNet's shapes: the train verb's default, device-cached
-            # feed, and its dp slots (phase 10)
+            # feed, and its dp slots (phase 10); the flash kernels at a
+            # mesh branch's per-slot shape: that branch (phase 15)
             caffenet = tuple(r["shape"]) in CAFFENET_LRN_SHAPES
             path = "train verb, device-cached" if caffenet else \
                 "train verb, dp" if tuple(r["shape"]) in \
-                CAFFENET_DP_LRN_SHAPES else own_path
+                CAFFENET_DP_LRN_SHAPES else \
+                f"lm --{r['launches_path']}" if "launches_path" in r \
+                else own_path
             per_iter, model = (remat_lm, "lm") if name in FLASH_KERNELS \
                 else (remat, "googlenet")
             table.append({
@@ -5014,7 +5385,11 @@ def main(argv=None):
                    if own_path.startswith("serve") else {}),
                 **({"launches_moe_lm_verb": zoo["moe_cli"]["launches"][name],
                     "launches_moe_lm_step": zoo["moe_step"]["launches"][
-                        name]} if name in FLASH_KERNELS else {}),
+                        name],
+                    "launches_mesh_per_step": {
+                        k: v["launches_per_step"][name]
+                        for k, v in mesh["full"].items()}}
+                   if name in FLASH_KERNELS else {}),
                 **({"launches_local_sgd": paths["local-sgd caffenet"][name],
                     "launches_imagenet": records["imagenet"]["launches"][
                         name],
@@ -5048,6 +5423,7 @@ def main(argv=None):
         "lm": {"cli": lm_cli, "step": lm_step, "card_vs_cpu": lm_parity},
         "local_sgd": local_sgd, "records": records, "feeds": feeds,
         "zoo": zoo, "levers": levers, "fleet": fleet, "hosts": hosts,
+        "mesh": mesh,
         "phase_seconds": {PHASES[n]: v for n, v in seconds.items()},
         "total_seconds": total}, default=str))
     print(json.dumps({"kernels": table}))

@@ -47,9 +47,12 @@
           fleet (no device).
   monitor a live terminal view of a --metrics stream.
   lm      train the transformer LM (models/zoo.py transformer_lm) on the
-          synthetic bigram corpus with the single-device Solver: the
-          corpus floor first, optional --metrics JSONL, snapshots and
-          --resume, and as the last line each CUDA kernel's launches.
+          synthetic bigram corpus: the single-device Solver, or the JAX
+          verb's mesh branches over slots on the card (--dp, --fsdp,
+          --tp, --sp, --ep with --moe-experts, --pipeline-stages and
+          --microbatches; parallel/); the corpus floor first, optional
+          --metrics JSONL, snapshots and --resume, and as the last line
+          each CUDA kernel's launches.
   cifar   the CifarApp loop: cifar10_full on CIFAR-10 binaries (or
           synthetic class-gaussians) under local SGD over --workers
           slots (--tau steps each, then the weights averaged) or per-step
@@ -101,25 +104,20 @@ from .utils.exit_codes import EXIT_RECOVERY_ABORT, EXIT_USAGE
 
 
 def _mesh_arg(s):
-    """"data=4" or "4" -> {"data": 4}. The port's one mesh axis is the
-    data axis over worker slots; any other axis is a usage error."""
+    """"data=8,seq=2" -> {"data": 8, "seq": 2}; "8" -> {"data": 8} (the
+    JAX verb's parser). Each axis is that many slots on the card (-1:
+    one); the train verb's dp solver splits the batch over "data" and
+    replicates over the others."""
     if s.isdigit():
         return {"data": int(s)}
     out = {}
     for part in s.split(","):
         k, _, v = part.partition("=")
-        k = k.strip()
-        if k != "data":
-            raise argparse.ArgumentTypeError(
-                f"mesh axis {k!r}: not ported (the port's one axis is "
-                "'data', over worker slots; model, sequence and pipeline "
-                "axes are ROADMAP A5; host fault domains are cifar "
-                "--hosts)")
         try:
-            out[k] = int(v)
+            out[k.strip()] = int(v)
         except ValueError:
             raise argparse.ArgumentTypeError(
-                f"mesh {s!r}: want data=W or W") from None
+                f"mesh {s!r}: want axis=N[,axis=N...] or N") from None
     return out
 
 
@@ -147,13 +145,29 @@ def _apply_feed_flags(args):
 
 
 def _apply_perf_flags(args):
-    """--remat and --precision write SPARKNET_REMAT and
-    SPARKNET_PRECISION before any net is built, as the JAX verbs do (the
-    variables stay the fallback when a flag is not given)."""
-    if getattr(args, "remat", None) is not None:
-        os.environ["SPARKNET_REMAT"] = args.remat
-    if getattr(args, "precision", None) is not None:
-        os.environ["SPARKNET_PRECISION"] = args.precision
+    """--remat, --precision, --fsdp and --tp write SPARKNET_REMAT,
+    SPARKNET_PRECISION, SPARKNET_FSDP and SPARKNET_TP before any net is
+    built, as the JAX verbs do (the variables stay the fallback when a
+    flag is not given)."""
+    for flag, env in (("remat", "SPARKNET_REMAT"),
+                      ("precision", "SPARKNET_PRECISION"),
+                      ("fsdp", "SPARKNET_FSDP"), ("tp", "SPARKNET_TP")):
+        if getattr(args, flag, None) is not None:
+            os.environ[env] = str(getattr(args, flag))
+
+
+def _add_sharding_flags(p):
+    """--fsdp / --tp: the one-big-model levers (parallel/fsdp.py,
+    parallel/gspmd.py); each writes its SPARKNET_* variable."""
+    p.add_argument("--fsdp", choices=("on", "off"), default=None,
+                   help="ZeRO/FSDP sharding: params + optimizer state "
+                        "dim0-sharded over the data slots (all-gather at "
+                        "use, reduce-scatter grads, per-shard update). "
+                        "Default: SPARKNET_FSDP, else off")
+    p.add_argument("--tp", type=int, default=None, metavar="N",
+                   help="N>1: Megatron-style tensor parallelism for the "
+                        "LM's matmuls over an N-way \"model\" slot axis. "
+                        "Default: SPARKNET_TP, else 1")
 
 
 def _add_perf_flags(p, scan=False):
@@ -388,8 +402,7 @@ def cmd_train(args):
         with tracer.span("setup", strategy=args.strategy):
             if args.strategy == "dp":
                 from .parallel import DataParallelSolver
-                workers = (args.mesh or {}).get("data", 1)
-                solver = DataParallelSolver(sp, workers=workers, **kw)
+                solver = DataParallelSolver(sp, mesh=args.mesh, **kw)
             else:
                 solver = Solver(sp, **kw)
         # device mode: the sources yield raw records (or control arrays)
@@ -709,25 +722,33 @@ def cmd_imagenet(args):
     return 0
 
 
-def cmd_lm(args):
-    """The JAX package's ``lm`` verb, single-device branch
-    (sparknet_tpu/cli.py cmd_lm): Solver over zoo.transformer_lm on the
-    bigram stream. ``--dtype bf16`` is mixed precision: f32 master
-    params, bf16 activations cast at the embedding. ``--moe-experts X``
-    swaps every block's FFN for a Switch-MoE of X experts whose
-    load-balancing loss joins the objective at ``--moe-aux-weight``."""
-    import time
+def lm_setup(args):
+    """The ``lm`` verb's run up to its first step: the perf and sharding
+    flags applied, the solver its mesh flags choose (the JAX verb's
+    branches, sparknet_tpu/cli.py cmd_lm) restored from ``--resume``,
+    the bigram stream. -> dict(solver, stream, floor, metrics, branch)."""
     import torch
     from .data import lm_batch_stream
     from .models import zoo
-    from .ops import kernel_launches
+    from .parallel import make_mesh
+    from .parallel.fsdp import fsdp_enabled
     from .proto import Message
-    from .solver import Solver
     from .utils import MetricsLogger
 
     if args.snapshot_every and not args.snapshot_prefix:
         raise SystemExit("--snapshot-every needs --snapshot-prefix")
     _apply_perf_flags(args)   # before any net is built
+    fsdp_on = fsdp_enabled()
+    tp_ways = int(os.environ.get("SPARKNET_TP", "0") or 0)
+    if fsdp_on and tp_ways > 1:
+        raise SystemExit(
+            "--fsdp and --tp do not compose yet: FSDP shards over the "
+            "data axis via shard_map, TP annotates a (data, model) mesh "
+            "via GSPMD — pick one lever per run")
+    if (fsdp_on or tp_ways > 1) and (args.pipeline_stages > 1
+                                     or args.ep > 1 or args.sp > 1):
+        raise SystemExit("--fsdp/--tp compose with --dp only (not "
+                         "--ep/--sp/--pipeline-stages)")
     sp = Message("SolverParameter", base_lr=args.lr, lr_policy="fixed",
                  display=args.display, type=args.solver_type,
                  random_seed=args.seed, snapshot=args.snapshot_every or 0)
@@ -735,30 +756,162 @@ def cmd_lm(args):
         sp.snapshot_prefix = args.snapshot_prefix
     metrics = MetricsLogger(args.metrics) if args.metrics else None
     compute_dtype = torch.bfloat16 if args.dtype == "bf16" else None
+    lm_kw = dict(vocab_size=args.vocab, seq_len=args.seq_len,
+                 batch_size=args.batch, d_model=args.d_model,
+                 num_heads=args.heads, flash=not args.no_flash)
+    kw = dict(metrics=metrics, compute_dtype=compute_dtype,
+              device=args.device)
     stream, floor = lm_batch_stream(args.vocab, args.batch, args.seq_len,
                                     seed=args.seed)
     if metrics:
         metrics.log("config", loss_floor_nats=round(floor, 4),
                     d_model=args.d_model, layers=args.layers,
                     seq_len=args.seq_len, batch=args.batch,
-                    dtype=args.dtype,
+                    pipeline_stages=args.pipeline_stages, dtype=args.dtype,
                     precision=os.environ.get("SPARKNET_PRECISION",
-                                             "fp32") or "fp32")
-    print(f"bigram corpus floor: {floor:.4f} nats/token "
-          f"(untrained: {np.log(args.vocab):.4f})")
-    net = zoo.transformer_lm(vocab_size=args.vocab, seq_len=args.seq_len,
-                             batch_size=args.batch, d_model=args.d_model,
-                             num_layers=args.layers, num_heads=args.heads,
-                             flash=not args.no_flash,
-                             moe_experts=args.moe_experts,
-                             moe_aux_weight=args.moe_aux_weight)
-    solver = Solver(sp, net_param=net, device=args.device, metrics=metrics,
-                    compute_dtype=compute_dtype)
+                                             "fp32") or "fp32",
+                    fsdp=int(fsdp_on), tp=max(tp_ways, 1))
+    mesh_on = args.ep > 1 or args.dp > 1 or args.sp > 1 or fsdp_on
+    if tp_ways > 1:
+        # tensor parallelism over a (data, model) slot grid:
+        # wqkv/ffn1/lm_head column-split, wo/ffn2 row-split
+        from .parallel import (GSPMDSolver, make_tp_mesh,
+                               transformer_tp_rule)
+        branch = f"tp {tp_ways}"
+        solver = GSPMDSolver(
+            sp, mesh=make_tp_mesh(tp_ways),
+            param_rule=transformer_tp_rule(tp_ways),
+            net_param=zoo.transformer_lm(num_layers=args.layers, **lm_kw),
+            **kw)
+    elif mesh_on:
+        if args.pipeline_stages > 1:
+            raise SystemExit("--ep/--dp/--sp cannot combine with "
+                             "--pipeline-stages")
+        if args.ep > 1 and not args.moe_experts:
+            raise SystemExit("--ep needs --moe-experts")
+        if args.sp > 1:
+            lm_kw = dict(lm_kw, flash=False)   # ring attention path
+        net = zoo.transformer_lm(num_layers=args.layers,
+                                 moe_experts=args.moe_experts,
+                                 moe_aux_weight=args.moe_aux_weight,
+                                 moe_stats=bool(args.moe_experts),
+                                 ring=args.sp > 1, **lm_kw)
+        if args.moe_experts:
+            from .parallel import ExpertParallelSolver
+            axes = {"data": args.dp}
+            if args.sp > 1:
+                axes["seq"] = args.sp
+            axes["expert"] = args.ep
+            branch = "ep " + " x ".join(f"{k} {v}" for k, v in axes.items())
+            solver = ExpertParallelSolver(
+                sp, mesh=make_mesh(axes),
+                seq_axis="seq" if args.sp > 1 else None, net_param=net,
+                **kw)
+        elif args.sp > 1:
+            from .parallel import SeqParallelSolver
+            branch = f"sp {args.sp} x dp {args.dp}"
+            solver = SeqParallelSolver(
+                sp, mesh=make_mesh({"data": args.dp, "seq": args.sp}),
+                net_param=net, **kw)
+        else:
+            # --dp alone (or --fsdp, which implies the data axis): the
+            # per-step slot average, or FSDP's sharded twin
+            from .parallel import DataParallelSolver, FSDPSolver
+            from .parallel.multihost import process_count
+            cls = FSDPSolver if fsdp_on else DataParallelSolver
+            branch = f"{'fsdp' if fsdp_on else 'dp'} {max(args.dp, 1)}"
+            solver = cls(sp, mesh=make_mesh(
+                {"data": args.dp if args.dp > 1 else -1}), net_param=net,
+                **kw)
+            if process_count() > 1:
+                # every process draws the identical seeded stream and
+                # takes its own slice of each batch
+                from .parallel import local_batch_slice
+
+                def _host_slice(it, B=args.batch):
+                    for b in it:
+                        s0, ln = local_batch_slice(B)
+                        yield {k: v[s0:s0 + ln] for k, v in b.items()}
+                stream = _host_slice(stream)
+    elif args.pipeline_stages > 1:
+        from .parallel import PipelineLMSolver
+        if args.moe_experts:
+            raise SystemExit("--moe-experts is not supported under "
+                             "--pipeline-stages (dense-FFN blocks only)")
+        solver = PipelineLMSolver(
+            sp, mesh=make_mesh({"pipe": args.pipeline_stages}),
+            num_layers=args.layers,
+            num_microbatches=args.microbatches or None, **kw, **lm_kw)
+        branch = (f"pipeline {args.pipeline_stages} x "
+                  f"{solver.num_microbatches} microbatches")
+        solver.snapshot_prefix = args.snapshot_prefix
+    else:
+        from .solver import Solver
+        branch = "single"
+        solver = Solver(sp, net_param=zoo.transformer_lm(
+            num_layers=args.layers, moe_experts=args.moe_experts,
+            moe_aux_weight=args.moe_aux_weight, **lm_kw), **kw)
     if args.resume:
         solver.restore(args.resume)
+    return dict(solver=solver, stream=stream, floor=floor, metrics=metrics,
+                branch=branch, mesh=mesh_on and tp_ways <= 1)
+
+
+def _routing_diagnostics(solver, stream, metrics):
+    """The MoE mesh branch's routing line: one TEST-phase forward, the
+    stats tops (each expert's token fraction and the overflow) averaged
+    over the slots and the blocks."""
+    scores = solver.test(iter([next(stream)]), num_iters=1)
+    stats = {k: np.asarray(v) for k, v in scores.items()
+             if k.endswith("/moe_stats")}
+    if not stats:
+        return
+    util = np.mean([s[:-1] for s in stats.values()], axis=0)
+    overflow = float(np.mean([s[-1] for s in stats.values()]))
+    print(f"    iter {solver.iter}: expert util "
+          f"[{', '.join(f'{u:.3f}' for u in util)}] "
+          f"overflow {overflow:.4f}")
+    if metrics:
+        ce = scores.get("loss")
+        metrics.log("moe", iter=solver.iter,
+                    eval_ce=round(float(np.mean(ce)), 4)
+                    if ce is not None else None,
+                    expert_util=[round(float(u), 4) for u in util],
+                    overflow_fraction=round(overflow, 5),
+                    **{k.replace("/moe_stats", "_util"):
+                       [round(float(x), 4) for x in s[:-1]]
+                       for k, s in stats.items()})
+
+
+def cmd_lm(args):
+    """The JAX package's ``lm`` verb (sparknet_tpu/cli.py cmd_lm): the
+    transformer LM on the bigram stream, through the solver its flags
+    choose — the single-device Solver; ``--tp N`` GSPMDSolver over a
+    (data, model) slot grid; ``--dp``/``--fsdp``/``--sp``/``--ep`` the
+    data, FSDP, sequence (ring attention) and expert slot solvers, with
+    the MoE routing line every display chunk; ``--pipeline-stages S``
+    the GPipe PipelineLMSolver (``--microbatches``, ``.lm.npz``
+    snapshots). ``--dtype bf16`` is mixed precision: f32 master params,
+    bf16 activations cast at the embedding. ``--moe-experts X`` swaps
+    every block's FFN for a Switch-MoE of X experts."""
+    import time
+    import torch
+    from .ops import kernel_launches
+
+    run = lm_setup(args)
+    solver, stream, floor = run["solver"], run["stream"], run["floor"]
+    metrics = run["metrics"]
+    print(f"bigram corpus floor: {floor:.4f} nats/token "
+          f"(untrained: {np.log(args.vocab):.4f})")
     start_iter = solver.iter
     t0 = time.time()
-    solver.step(args.steps - solver.iter, stream)
+    if run["mesh"] and args.moe_experts:
+        chunk = args.display or 50
+        while solver.iter < args.steps:
+            solver.step(min(chunk, args.steps - solver.iter), stream)
+            _routing_diagnostics(solver, stream, metrics)
+    else:
+        solver.step(max(0, args.steps - solver.iter), stream)
     if solver.device.type == "cuda":
         torch.cuda.synchronize(solver.device)
     dt = time.time() - t0
@@ -947,17 +1100,6 @@ class _NotPorted(argparse.Action):
             return
         shown = f" {values}" if values else ""
         parser.error(f"{option_string}{shown}: not ported ({self.what})")
-
-
-# the JAX `lm` verb's mesh flags: (flags, values that pass, what is
-# missing and where the roadmap has it)
-_LM_NOT_PORTED = (
-    (("--ep", "--dp", "--sp", "--pipeline-stages", "--tp"), ("1",),
-     "expert, data, sequence, pipeline and tensor parallelism over a "
-     "mesh, ROADMAP A5"),
-    (("--microbatches",), ("0",), "the GPipe pipeline, ROADMAP A5"),
-    (("--fsdp",), ("off",), "FSDP sharding, ROADMAP A5"),
-)
 
 
 def _add_resilience_flags(p, hosts=False):
@@ -1683,7 +1825,8 @@ def _add_fleet_parsers(sub):
     sf.set_defaults(fn=cmd_simfleet)
 
 
-def main(argv=None):
+def parser():
+    """The command line's argparse parser (every verb)."""
     p = argparse.ArgumentParser(
         prog="python -m sparknet_tpu_torch",
         description="SparkNet's PyTorch/CUDA port: train and serve on an "
@@ -1711,8 +1854,11 @@ def main(argv=None):
                         "split over the --mesh data axis's worker slots, "
                         "their gradients averaged")
     t.add_argument("--mesh", type=_mesh_arg, default=None,
-                   help='"data=W" or "W": worker slots under --strategy '
-                        "dp (default 1)")
+                   help='"data=W[,axis=N...]" or "W": slots under '
+                        "--strategy dp; the batch splits over the data "
+                        "axis, the other axes replicate, and snapshots "
+                        "are stamped with the whole mesh (default: one "
+                        "data slot)")
     t.add_argument("--host-transform", action="store_true",
                    help="crop/mirror/mean on the host and ship float32 "
                         "crops, instead of the default: raw uint8 records "
@@ -1932,16 +2078,28 @@ def main(argv=None):
                          "block (top-1, capacity factor 1.25)")
     lm.add_argument("--moe-aux-weight", type=float, default=0.01,
                     help="Switch load-balancing aux loss weight")
+    lm.add_argument("--ep", type=int, default=1,
+                    help="N>1: ExpertParallelSolver over an N-way "
+                         "\"expert\" slot axis (needs --moe-experts)")
+    lm.add_argument("--dp", type=int, default=1,
+                    help="data-parallel slots (composed with --ep: mesh "
+                         "{data: dp, expert: ep})")
+    lm.add_argument("--sp", type=int, default=1,
+                    help="sequence-parallel slots: ring attention over "
+                         "\"seq\" (composed with --dp, and with --ep: "
+                         "dp x sp x ep)")
+    lm.add_argument("--pipeline-stages", type=int, default=1,
+                    help="N>1: run the trunk as an N-stage GPipe pipeline "
+                         "over \"pipe\" slots (PipelineLMSolver)")
+    lm.add_argument("--microbatches", type=int, default=0,
+                    help="GPipe microbatches (default 2 x stages)")
     _add_perf_flags(lm, scan=True)
-    for flags, allow, what in _LM_NOT_PORTED:
-        for flag in flags:
-            lm.add_argument(flag, action=_NotPorted, what=what,
-                            allow=allow, metavar="V",
-                            help=f"not ported: {what}")
+    _add_sharding_flags(lm)
     lm.add_argument("--metrics", help="JSONL loss-curve output path")
     lm.add_argument("--snapshot-every", type=int, default=0)
     lm.add_argument("--snapshot-prefix")
-    lm.add_argument("--resume", help=".solverstate to resume from")
+    lm.add_argument("--resume", help=".lm.npz (pipeline) or "
+                                     ".solverstate to resume from")
     lm.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda; the "
                          "CPU runs only when asked: --device cpu)")
@@ -2025,5 +2183,9 @@ def main(argv=None):
     tr.add_argument("--json", action="store_true",
                     help="JSON instead of text")
     tr.set_defaults(fn=cmd_trace)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
     return args.fn(args)

@@ -43,6 +43,29 @@ def ring_allreduce_bytes(nbytes, n):
     return int(2 * (n - 1) / n * nbytes)
 
 
+def ring_reduce_scatter_bytes(nbytes, n):
+    """Per-chip bytes for one ring reduce-scatter of ``nbytes`` over
+    ``n`` peers: the gradient half of an allreduce ((n-1)/n * B), all
+    FSDP pays on the backward side."""
+    n, nbytes = int(n), int(nbytes)
+    if n <= 1 or nbytes <= 0:
+        return 0
+    return int((n - 1) / n * nbytes)
+
+
+def ring_all_gather_bytes(nbytes, n):
+    """Per-chip bytes for one ring all-gather reassembling a ``nbytes``
+    global payload from its n shards ((n-1)/n * B): FSDP's
+    params-at-use leg."""
+    return ring_reduce_scatter_bytes(nbytes, n)
+
+
+def all_to_all_bytes(nbytes, n):
+    """Per-chip bytes for one all_to_all of a ``nbytes`` local buffer:
+    (n-1)/n of it leaves the chip (the diagonal block stays)."""
+    return ring_reduce_scatter_bytes(nbytes, n)
+
+
 def broadcast_collect_bytes(nbytes, n):
     """The paper's driver-centric sync cost: broadcast N copies out plus
     collect N copies back through one driver (SparkNet's per-round

@@ -5,8 +5,11 @@ rows are laid out (3, H, D), as in the JAX package, so weights carry
 over unchanged. The core is the flash-attention kernel
 (ops/cuda_attention.py) when ``attention_param.flash`` is set and S is
 a multiple of 128, else ``dense_attention``, the JAX layer's rule.
-``attention_param.ring`` is ignored: the port has no sequence-sharded
-mesh, and the JAX layer also ignores it without a "seq" axis.
+With ``attention_param.ring`` under a "seq" axis (parallel/context.py,
+published by the sequence-parallel solvers) the layer needs every seq
+slot at once: ``slot_coupled()`` says so, and ``apply_slots`` runs ring
+attention (parallel/ring.py) over the slots' projections; without a
+"seq" axis ``ring`` is ignored, as in the JAX layer.
 """
 
 import torch
@@ -47,6 +50,7 @@ class Attention(Layer):
         self.head_dim = int(p.head_dim) if p.has("head_dim") \
             else self.embed // self.num_heads
         self.causal = bool(p.causal)
+        self.ring = bool(p.ring)
         self.flash = bool(p.flash)
         self.inner = self.num_heads * self.head_dim
 
@@ -65,18 +69,41 @@ class Attention(Layer):
     def out_shapes(self):
         return [tuple(self.bottom_shapes[0])]
 
-    def apply(self, params, bottoms, train):
-        x = bottoms[0]                                   # (B, S, E)
-        wqkv, bqkv, wo, bo = [p.to(x.dtype) for p in params]
+    def project(self, params, x):
+        """x (B, S, E) -> q, k, v (B, H, S, D), contiguous: the kernels
+        take no strides."""
+        wqkv, bqkv = params[0].to(x.dtype), params[1].to(x.dtype)
         b, s, _ = x.shape
-        qkv = (x @ wqkv.T + bqkv).reshape(b, s, 3, self.num_heads,
-                                          self.head_dim)
-        # (B, H, S, D), contiguous: the kernels take no strides
-        q, k, v = [qkv[:, :, i].transpose(1, 2).contiguous()
-                   for i in range(3)]
-        if self.flash and s % 128 == 0:
-            o = flash_attention(q, k, v, self.causal)
-        else:
-            o = dense_attention(q, k, v, causal=self.causal)
-        o = o.transpose(1, 2).reshape(b, s, self.inner)
-        return [o @ wo.T + bo]
+        heads = wqkv.shape[0] // (3 * self.head_dim)
+        qkv = (x @ wqkv.T + bqkv).reshape(b, s, 3, heads, self.head_dim)
+        return [qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3)]
+
+    def core(self, q, k, v):
+        if self.flash and q.shape[2] % 128 == 0:
+            return flash_attention(q, k, v, self.causal)
+        return dense_attention(q, k, v, causal=self.causal)
+
+    def output(self, params, o):
+        """o (B, H, S, D) -> (B, S, E) through the output projection."""
+        b, h, s, d = o.shape
+        wo, bo = params[2].to(o.dtype), params[3].to(o.dtype)
+        return o.transpose(1, 2).reshape(b, s, h * d) @ wo.T + bo
+
+    def apply(self, params, bottoms, train):
+        q, k, v = self.project(params, bottoms[0])
+        return [self.output(params, self.core(q, k, v))]
+
+    def slot_coupled(self):
+        from ..parallel import context
+        return self.ring and context.axis("seq") is not None
+
+    def apply_slots(self, params, bottoms, train):
+        """Ring attention over the "seq" slots: one (params, bottoms) a
+        slot in, one [top] a slot out."""
+        from ..parallel import context
+        from ..parallel.ring import ring_attention
+        qkv = [self.project(p, b[0]) for p, b in zip(params, bottoms)]
+        o = ring_attention([t[0] for t in qkv], [t[1] for t in qkv],
+                           [t[2] for t in qkv], context.current_mesh(),
+                           context.axis("seq"), causal=self.causal)
+        return [[self.output(p, ow)] for p, ow in zip(params, o)]

@@ -83,7 +83,9 @@ class Embed(Layer):
 class PositionalEmbed(Layer):
     """Adds rows [0, S) of a learned (max_positions, E) table to a (B, S,
     E) activation. embed_param: input_dim = max positions (>= S),
-    num_output = E."""
+    num_output = E. Under a "seq" axis (parallel/context.py) a slot's
+    shard holds global positions [i*S, (i+1)*S), i its seq index, and
+    adds those rows."""
 
     type_name = "PositionalEmbed"
 
@@ -112,5 +114,8 @@ class PositionalEmbed(Layer):
         return [tuple(self.bottom_shapes[0])]
 
     def apply(self, params, bottoms, train):
+        from ..parallel import context
         x = bottoms[0]
-        return [x + params[0][:x.shape[1]].to(x.dtype)[None]]
+        s = x.shape[1]
+        start = context.axis_index("seq") * s
+        return [x + params[0][start:start + s].to(x.dtype)[None]]

@@ -24,9 +24,18 @@ the dropped tokens' gradient is exactly zero. The expert FFN
 (relu(x W1 + b1) W2 + b2) runs in float32 whatever the activations'
 dtype, and the output is cast back.
 
-``expert_parallel: true`` computes the same thing here: the JAX layer
-exchanges the dispatch buffer with all_to_all only under an "expert"
-mesh axis, and the port has no mesh (ROADMAP A5).
+Expert parallelism: with ``expert_parallel: true`` under an "expert"
+axis (parallel/context.py, published by parallel/expert_parallel.py)
+the layer needs every expert slot at once (``slot_coupled``), and
+``apply_slots`` runs the JAX layer's exchange over the slots: each slot
+routes its own tokens with the capacity of its own token count (the
+JAX layer's per-source-device rule: under overflow the drop order is
+each slot's arrival order), one all_to_all sends each expert's
+(X, C, E) dispatch rows to the slot that owns the expert, the slot runs
+its X/ep experts over the ep*C gathered rows with its shard of the
+expert weights, and a second all_to_all returns the outputs to their
+source slots. Without the axis ``expert_parallel`` computes the same
+thing as the plain layer.
 
 Weight blobs, expert-major as in the JAX layer: router (X, E) | w1 (X, F,
 E) | b1 (X, F) | w2 (X, E, F) | b2 (X, E); unless the layer names a
@@ -95,14 +104,13 @@ class MoE(Layer):
         idx = torch.argmax(gates, dim=-1)
         return gates, idx, gates.gather(1, idx[:, None])[:, 0]
 
-    def apply(self, params, bottoms, train):
-        x = bottoms[0]
-        router, w1, b1, w2, b2 = params
+    def dispatch(self, x, router):
+        """Route one slot's tokens: -> (the (X, C, E) dispatch buffer,
+        the routing the combine and the tops need)."""
         b, s, e = x.shape
         n, X = b * s, self.num_experts
         xt = x.reshape(n, e)
         gates, idx, gate = self.route(xt, router)
-
         # sort-based dispatch: a token's rank within its expert is its
         # position in the stable sort less the expert's first position;
         # ranks past the capacity go to the trash row X*C
@@ -119,16 +127,25 @@ class MoE(Layer):
         slot[order] = dest
         buf = torch.zeros(X * C + 1, e, device=x.device,
                           dtype=torch.float32).index_put((slot,), xt.float())
-        xe = buf[:-1].reshape(X, C, e)
+        return buf[:-1].reshape(X, C, e), (x, gates, idx, gate, slot, keep, C)
 
+    @staticmethod
+    def experts(xe, w1, b1, w2, b2):
+        """The expert FFN over (X, C, E) rows, in f32."""
         h = torch.relu(torch.einsum("xce,xfe->xcf", xe, w1.float())
                        + b1.float()[:, None, :])
-        ye = torch.einsum("xcf,xef->xce", h, w2.float()) \
+        return torch.einsum("xcf,xef->xce", h, w2.float()) \
             + b2.float()[:, None, :]
 
-        # combine: each slot's output written back to its token (an empty
-        # slot to the trash row n; a dropped token's row stays zero),
-        # weighted by the token's gate
+    def combine(self, ye, routing):
+        """Each slot's (X, C, E) expert outputs back to its tokens, and
+        the layer's tops."""
+        x, gates, idx, gate, slot, keep, C = routing
+        b, s, e = x.shape
+        n, X = b * s, self.num_experts
+        # each slot's output written back to its token (an empty slot to
+        # the trash row n; a dropped token's row stays zero), weighted by
+        # the token's gate
         owner = torch.full((X * C + 1,), n, device=x.device,
                            dtype=slot.dtype)
         owner[slot] = torch.arange(n, device=x.device)
@@ -142,3 +159,26 @@ class MoE(Layer):
                 overflow = 1.0 - keep.float().mean()
                 tops.append(torch.cat([frac, overflow[None]]).detach())
         return tops
+
+    def apply(self, params, bottoms, train):
+        router, w1, b1, w2, b2 = params
+        xe, routing = self.dispatch(bottoms[0], router)
+        return self.combine(self.experts(xe, w1, b1, w2, b2), routing)
+
+    def slot_coupled(self):
+        from ..parallel import context
+        return self.expert_parallel and context.axis("expert") is not None
+
+    def apply_slots(self, params, bottoms, train):
+        """The expert-parallel exchange over the "expert" slots: one
+        (params, bottoms) a slot in (each slot's w1/b1/w2/b2 its own
+        X/ep experts), one tops list a slot out."""
+        from ..parallel import context
+        from ..parallel.mesh import all_to_all
+        mesh, axis = context.current_mesh(), context.axis("expert")
+        routed = [self.dispatch(b[0], p[0]) for p, b in zip(params, bottoms)]
+        xe = all_to_all([r[0] for r in routed], mesh, axis,
+                        split_dim=0, concat_dim=1)
+        ye = [self.experts(x, *p[1:]) for x, p in zip(xe, params)]
+        ye = all_to_all(ye, mesh, axis, split_dim=1, concat_dim=0)
+        return [self.combine(y, r[1]) for y, r in zip(ye, routed)]

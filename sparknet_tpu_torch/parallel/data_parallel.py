@@ -72,6 +72,8 @@ from ..resilience.elastic import (masked_consensus, masked_consensus_stats,
                                   staleness_discount, weighted_consensus,
                                   weighted_consensus_stats)
 from ..solver.solver import Solver, clear_grads, grads_of, to_device
+from .overlap import (bucket_sizes, bucketed_consensus, overlap_enabled,
+                      plan_buckets)
 
 DATA_AXIS = "data"
 HOST_AXIS = "host"
@@ -82,10 +84,10 @@ def slot_mean(stacked):
     return stacked.mean(0)
 
 
-def _rebatch(net, n):
-    """A per-shard twin of ``net``: the same layers, device and
-    precision, feed blobs with their leading (batch) dim divided by
-    ``n``."""
+def _rebatch(net, n, seq=1):
+    """A per-slot twin of ``net``: feed blobs with their leading (batch)
+    dim divided by ``n`` and, for ``seq`` > 1, dim 1 divided by ``seq``
+    (rank-1 blobs keep dim 1: they hold no sequence)."""
     local = {}
     for name, s in net.feed_shapes().items():
         if not s:
@@ -95,9 +97,33 @@ def _rebatch(net, n):
             raise ValueError(
                 f"feed blob {name!r} batch {s[0]} not divisible by mesh "
                 f"axis size {n}")
-        local[name] = (s[0] // n,) + tuple(s[1:])
+        out = [s[0] // n] + list(s[1:])
+        if seq > 1 and len(s) >= 2:
+            if s[1] % seq:
+                raise ValueError(
+                    f"feed blob {name!r} seq dim {s[1]} not divisible "
+                    f"by seq axis size {seq}")
+            out[1] = s[1] // seq
+        local[name] = tuple(out)
     return CompiledNet(net.net_param, net.phase, feed_shapes=local,
                        device=net.device, compute_dtype=net.compute_dtype)
+
+
+def check_seq_shardable_losses(net, solver_name):
+    """Sequence-sharded exactness (the mean of the shards' means is the
+    global mean) needs every shard to normalize by the same token count;
+    a loss with ignore_label normalizes by its local valid count, so
+    shards with more padding would weigh their tokens more. Refused."""
+    for lp, impl, _, _ in net.layers:
+        if getattr(impl, "ignore_label", None) is not None and \
+                net.loss_weights.get(lp.name) and \
+                any(net.loss_weights[lp.name]):
+            raise ValueError(
+                f"layer {lp.name!r}: ignore_label losses normalize by "
+                f"the per-shard valid-token count, which breaks "
+                f"{solver_name}'s equal-shard loss/grad exactness "
+                "(shards with more padding would be over-weighted). "
+                "Drop ignore_label or mask labels on the host instead.")
 
 
 def _rows(v, w, b, dim):
@@ -180,7 +206,15 @@ class DataParallelSolver(_SlotSolver):
     W."""
 
     def __init__(self, solver_param, workers=1, staleness=None,
-                 s_decay=0.5, **kw):
+                 s_decay=0.5, mesh=None, **kw):
+        if mesh is not None:
+            # a mesh ({axis: size} or a SlotMesh; -1 is the card's one
+            # device): only its "data" axis splits the batch, the other
+            # axes replicate, and snapshots are stamped with all of it
+            shape = dict(getattr(mesh, "shape", mesh))
+            self.mesh_shape = {k: 1 if int(v) == -1 else int(v)
+                               for k, v in shape.items()}
+            workers = self.mesh_shape.get(DATA_AXIS, 1)
         super().__init__(solver_param, workers=workers, **kw)
         # the per-shard nets: same params, feed blobs at batch/W (the
         # user-facing self.net keeps the global shapes)
@@ -308,11 +342,14 @@ class DataParallelSolver(_SlotSolver):
             aux["ref_sq"] = sum(g.float().square().sum()
                                 for gs in grads.values() for g in gs)
         else:
+            # reverse-order buckets under SPARKNET_OVERLAP (the default),
+            # bit for bit the whole-tree consensus (parallel/overlap.py)
+            fn, weight = (weighted_consensus, sweight) if async_on \
+                else (masked_consensus, valid)
+            grads, n_live = bucketed_consensus(fn, stacked, weight) \
+                if overlap_enabled() else fn(stacked, weight)
             if async_on:
-                grads, _ = weighted_consensus(stacked, sweight)
                 n_live = inc.sum()
-            else:
-                grads, n_live = masked_consensus(stacked, valid)
             aux = {"valid": valid, "n_live": n_live}
             if async_on:
                 aux["weight"] = sweight
@@ -324,17 +361,37 @@ class DataParallelSolver(_SlotSolver):
 
     def _register_comms(self, cm):
         """Per-step DP sync: the pmean of the gradients and the net state
-        over the W slots, costed as the JAX package's whole-tree
-        allreduce over a W-device data axis."""
+        over the W slots, costed as the JAX package's allreduce over a
+        W-device data axis: per reverse-order bucket under
+        SPARKNET_OVERLAP (the default; every bucket but the last-issued
+        one overlappable), else one whole-tree allreduce."""
         super()._register_comms(cm)
         n = self.workers
         gb, sb = tree_bytes(self.params), tree_bytes(self.state)
         cm.set_topology(axes=dict(self.mesh_shape))
+        if not overlap_enabled():
+            cm.register(
+                "allreduce_grads", ring_allreduce_bytes(gb + sb, n),
+                axis=DATA_AXIS,
+                note="pmean(grads)+pmean(state) per step, ring model per "
+                     "chip",
+                paper_broadcast_collect_bytes=broadcast_collect_bytes(gb, n))
+            return
+        sizes = bucket_sizes(plan_buckets(self.params))
+        for bi, nb in enumerate(sizes):
+            extra = {}
+            if bi == len(sizes) - 1:
+                extra["paper_broadcast_collect_bytes"] = \
+                    broadcast_collect_bytes(gb, n)
+            cm.register(
+                "allreduce_grads_bucket", ring_allreduce_bytes(nb, n),
+                axis=DATA_AXIS, bucket=bi,
+                overlappable=bi < len(sizes) - 1,
+                note="bucketed pmean(grads), issued as backward drains; "
+                     "ring model per chip", **extra)
         cm.register(
-            "allreduce_grads", ring_allreduce_bytes(gb + sb, n),
-            axis=DATA_AXIS,
-            note="pmean(grads)+pmean(state) per step, ring model per chip",
-            paper_broadcast_collect_bytes=broadcast_collect_bytes(gb, n))
+            "allreduce_state", ring_allreduce_bytes(sb, n), axis=DATA_AXIS,
+            note="pmean(state) per step, ring model per chip")
 
     def _test_outputs(self, batch):
         outs = []

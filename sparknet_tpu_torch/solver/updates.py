@@ -63,13 +63,18 @@ def init_history(solver_type, params):
             for name, blobs in params.items()}
 
 
-def clip_scale(grads, clip):
+def clip_scale_of(grads, clip):
     """The global-L2-norm clipping factor (sgd_solver.cpp:81-99) as a
     0-d tensor on the grads' device, or None when clipping is off
     (clip < 0). The norm is summed in f32."""
     if clip is None or clip < 0:
         return None
-    sumsq = sum((g.float() ** 2).sum() for g in grads)
+    return clip_factor(sum((g.float() ** 2).sum() for g in grads), clip)
+
+
+def clip_factor(sumsq, clip):
+    """clip / ||g|| where the norm (sqrt of ``sumsq``) exceeds ``clip``,
+    else 1."""
     norm = torch.sqrt(sumsq)
     return torch.where(norm > clip, clip / torch.clamp(norm, min=1e-30),
                        torch.ones_like(norm))
@@ -139,27 +144,35 @@ class Updater:
         return init_history(self.solver_type, params)
 
     @torch.no_grad()
-    def __call__(self, params, grads, history, rate, it):
+    def __call__(self, params, grads, history, rate, it, clip_scale=None):
         """One update of ``params`` and ``history`` in place from
         ``grads`` (same structure as params: the summed micro-batch
-        gradients), at policy rate ``rate`` for iteration ``it``."""
-        scale = clip_scale([g for gs in grads.values() for g in gs],
-                           self.clip)
-        t = it + 1
+        gradients), at policy rate ``rate`` for iteration ``it``.
+        ``clip_scale`` overrides the clipping factor of ``grads`` (a
+        sharded solver's, taken over the global gradient)."""
+        scale = clip_scale if clip_scale is not None else clip_scale_of(
+            [g for gs in grads.values() for g in gs], self.clip)
         for lname, blobs in params.items():
             for i, p in enumerate(blobs):
-                g = grads[lname][i].to(p.dtype)
-                if scale is not None:
-                    g = g * scale
-                lr_mult, decay_mult = self.mults[lname][i]
-                if self.iter_size > 1:
-                    g = g / self.iter_size
-                g = regularize(g, p, self.weight_decay * decay_mult,
-                               self.reg_type)
-                u, new = compute_update(
-                    self.solver_type, g, history[lname][i], rate * lr_mult,
-                    momentum=self.momentum, delta=self.delta,
-                    rms_decay=self.rms_decay, momentum2=self.momentum2, t=t)
-                for h, v in zip(history[lname][i], new):
-                    h.copy_(v)
-                p.sub_(u)
+                self.update_blob(lname, i, p, grads[lname][i],
+                                 history[lname][i], rate, it, scale)
+
+    @torch.no_grad()
+    def update_blob(self, lname, i, p, g, history, rate, it, scale=None):
+        """The update of one param blob ``p`` (layer ``lname``, owned
+        blob ``i``; a view updates its rows in place) and its history
+        slots from its gradient ``g``."""
+        g = g.to(p.dtype)
+        if scale is not None:
+            g = g * scale
+        lr_mult, decay_mult = self.mults[lname][i]
+        if self.iter_size > 1:
+            g = g / self.iter_size
+        g = regularize(g, p, self.weight_decay * decay_mult, self.reg_type)
+        u, new = compute_update(
+            self.solver_type, g, history, rate * lr_mult,
+            momentum=self.momentum, delta=self.delta,
+            rms_decay=self.rms_decay, momentum2=self.momentum2, t=it + 1)
+        for h, v in zip(history, new):
+            h.copy_(v)
+        p.sub_(u)

@@ -377,10 +377,21 @@ def test_train_verb_echo_and_refusals(db_tree, capsys, monkeypatch):
             cli.main(argv + bad)
         monkeypatch.setenv("SPARKNET_WIRE", "")
         monkeypatch.setenv("SPARKNET_ECHO", "")
+    # the JAX verb's mesh axes: only "data" splits the batch, the rest
+    # replicate, and the snapshot is stamped with the whole mesh
+    import json
+    prefix = str(db_tree / "meshdp")
+    out = _run(cli.main, argv + ["--strategy", "dp", "--mesh",
+                                 "data=2,model=2", "--snapshot-prefix",
+                                 prefix], capsys)
+    assert "Optimization done, iter=2" in out
+    with open(prefix + ".latest.json") as f:
+        entry = json.load(f)
+    assert entry["latest"]["world"]["mesh"] == {"data": 2, "model": 2}
     with pytest.raises(SystemExit) as e:
-        cli.main(argv + ["--strategy", "dp", "--mesh", "data=2,model=2"])
+        cli.main(argv + ["--strategy", "dp", "--mesh", "data=two"])
     assert e.value.code == 2
-    assert "ROADMAP A5" in capsys.readouterr().err
+    assert "want axis=N" in capsys.readouterr().err
 
 
 def test_train_verb_control_shuffled_records_differ(db_tree, jax_train,

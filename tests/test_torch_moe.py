@@ -9,8 +9,9 @@ whose two largest logits lie within the frameworks' rounding of each
 other may go to different experts, a near-tie and not a port defect.
 Every comparison first asserts that the top-2 logit margin of every
 token exceeds MARGIN, far above f32 rounding of the logits (~1e-6);
-bf16 activations shift the logits by up to ~1e-2, so the bf16 case
-asserts BF16_MARGIN.
+bf16 activations shift the logits by up to ~3e-2, so the bf16 case
+holds every token that clears twice its own shift to the JAX expert and
+bounds how many do not (tests/test_torch_mesh_parity.py routing_agreement).
 
 Tolerances: the layer's outputs and gradients rtol 1e-4 and atol 1e-5
 times the largest absolute value (its expert products sum in different
@@ -40,6 +41,7 @@ from sparknet_tpu_torch.graph.registry import get as tget
 from sparknet_tpu_torch.models import zoo as tzoo
 from sparknet_tpu_torch.proto import Message as TMessage
 from sparknet_tpu_torch.solver import Solver as TSolver
+from test_torch_mesh_parity import routing_agreement
 
 TRAIN = 0
 MARGIN = 1e-4
@@ -238,15 +240,16 @@ def test_moe_lm_loss_and_gradients_match_jax(jax_moe_lm):
                                        err_msg=f"{name}[{i}]")
 
 
-def test_moe_lm_bf16_loss_matches_jax():
+def test_moe_lm_bf16_loss_matches_jax(jax_moe_lm):
     """bf16 activations: the two packages' router logits lie up to ~3e-2
-    apart (their bf16 residual streams differ in the last bit), so each
-    token's margin is held to BF16_FACTOR times its own logits' shift.
-    With the f32 test's weights one token of block1 falls inside it (the
-    loss still agrees, 6.7e-4 relative); these weights (init key 1) keep
-    every token at 4.7 or more times its shift."""
-    jn = JNet(jzoo.transformer_lm(**LM, moe_experts=4), TRAIN)
-    params_np = jax.tree.map(np.asarray, jn.init(jax.random.PRNGKey(1))[0])
+    apart (their bf16 residual streams differ in the last bit). With the
+    f32 test's weights (no key chosen to avoid near-ties, ROADMAP C12)
+    every token whose top-2 margin clears BF16_FACTOR times its own
+    logits' shift must go to the JAX expert, and at most 2% of the
+    tokens may fall inside their shift (a near-tie whose expert may flip
+    between the frameworks' rounding, not a port defect; 4 of the 256
+    do here, and the loss still agrees)."""
+    params_np = jax_moe_lm[0]
     jn = JNet(jzoo.transformer_lm(**LM, moe_experts=4), TRAIN,
               compute_dtype=jnp.bfloat16)
     batch = _batch()
@@ -257,21 +260,15 @@ def test_moe_lm_bf16_loss_matches_jax():
     net, params, state = _port_lm(params_np, torch.bfloat16)
     loss, (blobs, _) = net.loss_fn(params, state, batch)
     assert blobs["block0/moe"].dtype == torch.bfloat16
+    j, t = [], []
     for i in range(LM["num_layers"]):
         router = params_np[f"block{i}/moe"][0].T
-        j = np.asarray(j_blobs[f"block{i}/ln2"], np.float32).reshape(
-            -1, LM["d_model"]) @ router
-        t = blobs[f"block{i}/ln2"].detach().float().reshape(
-            -1, LM["d_model"]).numpy() @ router
-        shift = np.abs(j - t).max(axis=1)
-        top2 = np.sort(j, axis=1)[:, -2:]
-        ratio = float(((top2[:, 1] - top2[:, 0]) /
-                       np.maximum(shift, MARGIN)).min())
-        assert ratio > BF16_FACTOR, (
-            f"block{i}/moe: a token's top-2 router-logit margin is only "
-            f"{ratio:.2f} times the two packages' bf16 logit difference: "
-            "a near-tie whose expert may flip between the frameworks' "
-            "rounding; this is not a port defect")
+        j.append(np.asarray(j_blobs[f"block{i}/ln2"], np.float32).reshape(
+            -1, LM["d_model"]) @ router)
+        t.append(blobs[f"block{i}/ln2"].detach().float().reshape(
+            -1, LM["d_model"]).numpy() @ router)
+    routing_agreement(np.concatenate(j), np.concatenate(t),
+                      factor=BF16_FACTOR, floor=MARGIN)
     loss.backward()
     assert all(p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all()
                for v in params.values() for p in v)
@@ -332,8 +329,23 @@ def test_lm_verb_with_moe_matches_the_jax_verb(tmp_path, capsys):
     pytest.param(["--dp", "2", "--moe-experts", "4"], id="dp-moe"),
     pytest.param(["--sp", "2"], id="sp"),
 ])
-def test_lm_verb_refuses_the_mesh_flags_naming_a5(extra, capsys):
-    with pytest.raises(SystemExit) as e:
-        tcli.main(VERB[:1] + ["--device", "cpu"] + extra)
-    assert e.value.code == 2
-    assert "ROADMAP A5" in capsys.readouterr().err
+def test_lm_verb_refuses_the_mesh_flags_naming_a5(extra, capsys,
+                                                  monkeypatch):
+    """The mesh flags are ported (ROADMAP A5b; their parity with the JAX
+    verb is tests/test_torch_lm_mesh.py): each MoE combination trains a
+    step with the routing line, and --ep alone exits with the JAX verb's
+    message instead of naming A5."""
+    monkeypatch.setenv("SPARKNET_FSDP", "off")
+    monkeypatch.setenv("SPARKNET_TP", "0")
+    i = VERB.index("--moe-experts")
+    argv = VERB[:i] + VERB[i + 2:] + ["--device", "cpu", "--steps",
+                                      "1"] + extra
+    if extra == ["--ep", "2"]:
+        with pytest.raises(SystemExit, match="--ep needs --moe-experts"):
+            tcli.main(argv)
+        return
+    assert tcli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "done: 1 steps" in out and "ROADMAP A5" not in out
+    if "--moe-experts" in extra:
+        assert "expert util [" in out
