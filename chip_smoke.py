@@ -85,8 +85,8 @@ Phases, each of which raises on failure (exit code not 0):
               torch.autograd.grad through it for dq, dk, dv together).
  7. lm      — the transformer LM at the full width of bench.py's larger
               row (vocab 8192, S 4096, batch 4, d 1024, 12 layers, 8
-              heads, bf16 activations over f32 masters, Adam): `python -m
-              sparknet_tpu_torch lm` for 3 steps with a snapshot, then
+              heads, bf16 activations over f32 masters, Adam): the lm
+              verb in process for 3 steps with a snapshot, then
               --resume to 5 (the counter continues, each kernel launches
               exactly 12 times per step in both runs, the loss falls from
               about ln 8192); in process, the train step time (CUDA
@@ -132,13 +132,14 @@ Phases, each of which raises on failure (exit code not 0):
               made on the card, each with images/s and a profiler
               window's busy share, and the host reader's time; then the
               `imagenet` verb at 4 slots x b256, 1,000 classes, tau cut
-              from 50 to 2, 1 round after a test (finite losses,
-              images/s a round).
+              from 50 to 1, 1 round and its test at round 0 (finite
+              losses, the test accuracy, images/s a round, 2 LRN
+              launches a step and 2 a test batch).
 10. feeds  — the train verb's whole input path on phase 9's CaffeNet
               b256 records: the verb with default flags (the records
-              resident on the card: `device-cached`), with
-              SPARKNET_DEVICE_CACHE_MB=0 (`device-transform`) and with
-              `--strategy dp --mesh data=4`, 10 iterations each (finite
+              resident on the card: `device-cached`) and with
+              `--strategy dp --mesh data=4` (phase 9 ran it streaming),
+              10 iterations each (finite
               losses, the LRN launches); in process, bit for bit on the
               card the cached and streaming feeds' first transformed
               batches and the precrop and raw ones', then 12 timed steps
@@ -154,8 +155,8 @@ Phases, each of which raises on failure (exit code not 0):
               (10,000 + 1,000) cached, streaming and on the card; and
               `extract_features` of fc7 for 2 batches, read back and held
               to a forward on the card.
-11. zoo    — the layer zoo and the Switch-MoE LM: `python -m
-              sparknet_tpu_torch lm` at phase 7's full width with
+11. zoo    — the layer zoo and the Switch-MoE LM: the lm verb in
+              process at phase 7's full width with
               `--moe-experts 8 --moe-aux-weight 0.01` (top-1 routing,
               capacity factor 1.25, F 4096) for 4 steps (finite losses,
               each flash kernel 12 times a step); in process, its train
@@ -180,7 +181,7 @@ Phases, each of which raises on failure (exit code not 0):
               off, 1e-5 or 1e-4 of the largest value), with its time.
 12. levers, run safety and the metrics stream — GoogLeNet b32 (f32)
               under --remat none, dots and full in process: the step
-              (median of 10, CUDA events), peak allocated memory and
+              (median of 5, CUDA events), peak allocated memory and
               each LRN/epilogue kernel's launches an iteration (forwards
               double under remat, backwards do not); two SGD steps from
               one snapshot under each policy, deterministic cuDNN, within
@@ -191,7 +192,7 @@ Phases, each of which raises on failure (exit code not 0):
               report verb exits 0, its step p50 beside the in-process
               median, the torch.profiler trace naming the channel_walk
               kernels); the LM at phase 7's width under each policy (step
-              median of 5, peak memory, flash forward launches against
+              median of 3, peak memory, flash forward launches against
               dQ/dK/dV) and the lm verb under --remat dots; and on a
               small net, each in a child under `timeout -s KILL`: SIGTERM
               snapshots and exits 0 (--resume auto restores it), a layer
@@ -271,21 +272,51 @@ Phases, each of which raises on failure (exit code not 0):
               --sp launches them). (c) The flash kernels at the per-slot
               shapes (1, 8, 4096, 128) and (4, 4, 4096, 128), bf16
               causal, by phase 6's method.
+16. rest   — the JAX package's last modules. (a) GoogLeNet b32 (dropout
+              0) 20 steps with inception fission on (SPARKNET_FISSION,
+              the default) and off from the same weights on the same
+              batches, free-running, then in lock step under
+              deterministic cuDNN (each step from the on arm's state):
+              each loss within 1e-4 relative, every param within 1e-4
+              max-abs, each leaf's weight change within 5e-2 of that
+              leaf's largest change; the port kernels' launches equal,
+              each arm's step median, convolution kernels a step and
+              busy share (a profiler window); a bucket-8 batch served
+              under both, within 1e-3 of the largest logit, and each
+              arm's bucket-8 forward timed as phase 4 times it. (b) The
+              native host library built (available()), its b256
+              transform (3x256x256 uint8, 227 crops, mirror) equal to
+              the numpy path and the device transform for every mean
+              kind, with both host times; the train verb's
+              --host-transform feed on phase 9's records (written anew
+              when phase 9 does not run) through one Solver, native and
+              numpy, step medians over CUDA events
+              and the LRN launches; a LevelDB of 2,000 Datums read
+              native and in pure Python, with and without crc checks
+              (records/s). (c) The lm verb's setup at phase 7's full
+              width under --scan off and on, 3 steps each: losses
+              within 1e-5 relative, step medians, each flash kernel 12
+              times a step. (d) `train --metrics` on a small LMDB
+              (cifar10_full b16, the cached feed, 60 iterations): the
+              prefetch, h2d_stage and device_cache events with the JAX
+              emit sites' fields, read back by the report verb.
     After the phases: the kernel table as one JSON line, an entry for
     every timed f32 row of phase 3 and the LM's flash row of phase 6
     (launches from the
     serving path for the GoogLeNet forwards, the training path for their
     backwards, the train verb's default device-cached feed of phase 10
     for CaffeNet's LRN shapes, with the local-SGD rounds', the imagenet
-    verb's, phase 9's streaming verb's and phase 10's streaming and dp
-    verbs' beside them, phase 10's dp verb for one dp slot's LRN shapes,
+    verb's, phase 9's streaming verb's and phase 10's dp verb's beside
+    them, phase 10's dp verb for one dp slot's LRN shapes,
     the lm verb's first run for the flash kernels, with the MoE LM's
     verb and in-process launches beside them),
     with phase 12's launches an iteration under each remat policy beside
     them, and phase 13's R0 launches beside the serving kernels'; the
     head_dim 256 and wide (320, 512, 1024) flash rows of phase 6 with the
     LM's; phase 14's two-tier and elastic dp verb launches beside
-    CaffeNet's LRN rows), each phase's wall
+    CaffeNet's LRN rows; phase 16's: fission on and off beside the
+    GoogLeNet rows, the host-transform feed native and numpy beside
+    CaffeNet's, --scan off and on beside the flash rows), each phase's wall
     seconds and the total, the nvidia-smi line,
     and as the last line {"ok": true, "device": {...}}.
 
@@ -300,6 +331,7 @@ development calls: it prints each phase's seconds and no result lines.
 With no arguments every phase runs.
 """
 
+import contextlib
 import json
 import os
 import signal
@@ -1398,28 +1430,36 @@ FLASH_KERNELS = ("flash_attention", "flash_attention_dq",
                  "flash_attention_dkv")
 
 
-def _lm_cli(args, timeout=600, tag="lm-cli"):
-    """``python -m sparknet_tpu_torch lm`` at full width, bf16, in a child
-    process that ends (or is killed at ``timeout``) before this
-    returns; -> (stdout, its launch counts)."""
+def _lm_in_process(args, tag):
+    """The lm verb at full width, bf16, in this process (no interpreter
+    start): the launch counters zeroed first and the variables its
+    flags write put back after; -> (stdout, its launch counts)."""
+    import io
+    from sparknet_tpu_torch import cli
     f = LM_FULL
-    cmd = [sys.executable, "-m", "sparknet_tpu_torch", "lm",
-           "--vocab", str(f["vocab"]), "--seq-len", str(f["seq_len"]),
-           "--batch", str(f["batch"]), "--d-model", str(f["d_model"]),
-           "--layers", str(f["layers"]), "--heads", str(f["heads"]),
-           "--dtype", "bf16", "--display", "1", *args]
+    argv = ["lm", "--vocab", str(f["vocab"]), "--seq-len", str(f["seq_len"]),
+            "--batch", str(f["batch"]), "--d-model", str(f["d_model"]),
+            "--layers", str(f["layers"]), "--heads", str(f["heads"]),
+            "--dtype", "bf16", "--display", "1", *args]
+    env = dict(os.environ)
+    _zero_launches()
+    buf = io.StringIO()
     t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                         timeout=timeout)
-    for line in out.stdout.strip().splitlines():
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        os.environ.clear()
+        os.environ.update(env)
+    out = buf.getvalue()
+    for line in out.strip().splitlines():
         print(f"[{tag}] {line}")
-    check(out.returncode == 0,
-          f"{' '.join(cmd)} exited {out.returncode}: {out.stderr[-4000:]}")
-    print(f"[{tag}] exited 0 in {time.perf_counter() - t0:.1f} s")
-    last = out.stdout.strip().splitlines()[-1]
+    check(rc == 0, f"lm {' '.join(args)} returned {rc}")
+    print(f"[{tag}] returned 0 in {time.perf_counter() - t0:.1f} s")
+    last = out.strip().splitlines()[-1]
     check(last.startswith("Kernel launches: "),
           f"the lm verb's last line is not its launch counts: {last}")
-    return out.stdout, json.loads(last[len("Kernel launches: "):])
+    return out, json.loads(last[len("Kernel launches: "):])
 
 
 def _losses(out):
@@ -1429,18 +1469,21 @@ def _losses(out):
 
 
 def phase_lm_cli(tmp):
-    """The lm verb at full width: 3 steps with a snapshot at 3, then
-    --resume from it to 5. Each flash kernel must launch exactly
+    """The lm verb at full width, in process (phase 15 starts it as a
+    child): 3 steps with a snapshot at 3, then --resume from it to 5.
+    Each flash kernel must launch exactly
     ``layers`` times per step in each run, the resumed run must start
     at iteration 3, and the loss must fall from about ln(vocab)."""
     prefix = os.path.join(tmp, "lm")
     layers = LM_FULL["layers"]
-    out1, counts1 = _lm_cli(["--steps", "3", "--snapshot-every", "3",
-                             "--snapshot-prefix", prefix])
+    out1, counts1 = _lm_in_process(["--steps", "3", "--snapshot-every",
+                                    "3", "--snapshot-prefix", prefix],
+                                   "lm-cli")
     check(os.path.exists(f"{prefix}_iter_3.solverstate"),
           "no lm snapshot at iteration 3")
-    out2, counts2 = _lm_cli(["--steps", "5", "--resume",
-                             f"{prefix}_iter_3.solverstate"])
+    out2, counts2 = _lm_in_process(["--steps", "5", "--resume",
+                                    f"{prefix}_iter_3.solverstate"],
+                                   "lm-cli")
     for out, counts, steps in ((out1, counts1, 3), (out2, counts2, 2)):
         check(f"done: {steps} steps, " in out, f"lm verb: not {steps} steps")
         for name in FLASH_KERNELS:
@@ -2025,7 +2068,7 @@ RECORD_SHAPE = (3, 256, 256)          # ImageNet app's SOURCE_SIZE
 CAFFENET_BATCH, CAFFENET_CROP = 256, 227
 DB_TRAIN, DB_TEST = 2560, 512
 DB_ITERS, DB_TEST_ITER, DB_TEST_INTERVAL = 30, 2, 20
-IMAGENET_TAU, IMAGENET_ROUNDS = 2, 1   # one round: the time budget (C10)
+IMAGENET_TAU, IMAGENET_ROUNDS = 1, 1   # the time budget (C10)
 
 
 def _class_gaussian_uint8(n, classes, device=None):
@@ -2335,7 +2378,10 @@ def phase_record_steps(torch, card, tmp, solver_path, steps=12):
 def phase_imagenet_cli(workers=4, batch=256, classes=1000, device="cuda"):
     """The imagenet verb at the app's widths: 4 slots x b256, 1,000
     classes, CaffeNet, tau cut from 50 to IMAGENET_TAU (steps only),
-    IMAGENET_ROUNDS rounds, a test at round 0. Round losses must be
+    IMAGENET_ROUNDS rounds, a test at round 0 (the app's centre crops
+    through the slots' test()). Every synthetic batch makes 1,000 fresh
+    class prototypes on the host (the round's 16 batches of 64 images
+    take most of the verb's time), hence tau 1. Round losses must be
     finite; each prints its images/s; the LRN kernels launch twice a
     step (and the forward twice a test batch)."""
     cmd = [sys.executable, "-m", "sparknet_tpu_torch", "imagenet",
@@ -2356,6 +2402,10 @@ def phase_imagenet_cli(workers=4, batch=256, classes=1000, device="cuda"):
     rates = [float(l.rsplit(", ", 1)[1].split()[0]) for l in rounds]
     check(len(losses) == IMAGENET_ROUNDS and all(np.isfinite(losses)),
           f"imagenet round losses {losses}")
+    tests = [float(l.split(" = ")[1]) for l in out.stdout.splitlines()
+             if "round 0: test accuracy = " in l]
+    check(len(tests) == 1 and 0 <= tests[0] <= 1,
+          f"imagenet round 0 test accuracy {tests}")
     check(f"device={device}" in out.stdout,
           f"the imagenet verb did not run on {device}")
     launches = _launches_line(out.stdout, "imagenet-cli")
@@ -2421,18 +2471,16 @@ def _train_verb(solver_path, tag, extra=(), env=None):
 
 def phase_feeds_cli(solver_path, card, device="cuda"):
     """The train verb on phase 9's CaffeNet records for FEED_ITERS
-    iterations, three ways: default flags (the records go to the card
-    once: `device-cached`), SPARKNET_DEVICE_CACHE_MB=0 (the streaming
-    `device-transform` feed), and `--strategy dp --mesh data=4` (4 slots
-    x 64, streaming, as the JAX verb's dp). Each loss must be finite and
-    the LRN kernels (norm1, norm2) must launch twice a step and slot,
+    iterations, two ways: default flags (the records go to the card
+    once: `device-cached`) and `--strategy dp --mesh data=4` (4 slots x
+    64, streaming, as the JAX verb's dp); phase 9's verb run streams
+    them (SPARKNET_DEVICE_CACHE_MB=0). Each loss must be finite and the
+    LRN kernels (norm1, norm2) must launch twice a step and slot,
     forward and backward."""
     out = {}
     for name, extra, env, kind, slots in (
             ("cached", (), {"SPARKNET_DEVICE_CACHE_MB": None},
              "device-cached", 1),
-            ("streaming", (), {"SPARKNET_DEVICE_CACHE_MB": "0"},
-             "device-transform", 1),
             ("dp", ("--strategy", "dp", "--mesh", f"data={DP_SLOTS}"),
              {"SPARKNET_DEVICE_CACHE_MB": None}, "device-transform",
              DP_SLOTS)):
@@ -2987,13 +3035,14 @@ def _moe_group(name):
 
 def phase_moe_cli():
     """The lm verb at LM_FULL with a Switch-MoE FFN of MOE_EXPERTS
-    experts (F 4096, capacity factor 1.25) in every block, bf16, for
-    MOE_STEPS steps: finite losses, each flash kernel ``layers`` times a
-    step."""
+    experts (F 4096, capacity factor 1.25) in every block, bf16, in
+    process, for MOE_STEPS steps: finite losses, each flash kernel
+    ``layers`` times a step."""
     layers = LM_FULL["layers"]
-    out, counts = _lm_cli(["--steps", str(MOE_STEPS), "--moe-experts",
-                           str(MOE_EXPERTS), "--moe-aux-weight",
-                           str(MOE_AUX_WEIGHT)], tag="moe-cli")
+    out, counts = _lm_in_process(["--steps", str(MOE_STEPS),
+                                  "--moe-experts", str(MOE_EXPERTS),
+                                  "--moe-aux-weight", str(MOE_AUX_WEIGHT)],
+                                 "moe-cli")
     check(f"done: {MOE_STEPS} steps, " in out,
           f"moe lm verb: not {MOE_STEPS} steps")
     for name in FLASH_KERNELS:
@@ -3519,7 +3568,7 @@ FORWARD_OF = {"lrn_across": "lrn_across_bwd",
               "bias_relu_lrn": "bias_relu_lrn_bwd",
               "flash_attention": "flash_attention_dq"}
 REMAT_LIMIT = 1e-4          # relative, remat against none on the card
-GOOGLENET_STEPS = 10
+GOOGLENET_STEPS = 5
 VERB_ITERS = 24             # the metrics verb run: samples at 0, 1, 21
 
 
@@ -3646,7 +3695,7 @@ def _remat_agreement(torch, solver, tmp, batches):
     return out
 
 
-def _safety_costs(torch, solver, feed, card, tmp, iters=24):
+def _safety_costs(torch, solver, feed, card, tmp, iters=8):
     """ms an iteration of Solver.step (display every 8, as the solver
     prototxt says) with nothing armed, with the metrics stream, with
     recovery and with both: the host clock over ``iters`` iterations
@@ -3717,7 +3766,7 @@ def phase_remat_googlenet(torch, card, tmp, batch=32):
     return {"policies": runs, "agreement": agreement, "costs": costs}
 
 
-def phase_remat_lm(torch, card, steps=5):
+def phase_remat_lm(torch, card, steps=3):
     """The LM at phase 7's width under each policy, then the lm verb
     under --remat dots."""
     from sparknet_tpu_torch.data import lm_batch_stream
@@ -3744,8 +3793,9 @@ def phase_remat_lm(torch, card, steps=5):
               "every block")
     del solver, feed
     torch.cuda.empty_cache()
-    out, counts = _lm_cli(["--steps", "2", "--remat", "dots"],
-                          tag="lm-cli remat")
+    out, counts = _lm_in_process(["--steps", "2", "--remat", "dots"],
+                                 tag="lm-cli remat")
+    torch.cuda.empty_cache()
     check("done: 2 steps, " in out, "lm verb --remat dots: not 2 steps")
     check(counts["flash_attention"] == 2 * counts["flash_attention_dq"]
           == 2 * counts["flash_attention_dkv"] == 4 * f["layers"],
@@ -5242,6 +5292,567 @@ def phase_mesh_all(torch, card, tmp):
     return {"parity": parity, "full": full, "flash": flash, "wall_s": wall}
 
 
+# -- phase 16 -------------------------------------------------------------
+
+FISSION_STEPS = 20
+FISSION_LOSS_RTOL = 1e-4        # each step's loss, fission on against off
+FISSION_PARAM_ATOL = 1e-4       # every param after the steps, max-abs
+# each step's weight change, leaf by leaf, of the leaf's largest change.
+# Fission reorders float32 sums, and a leaf whose change is a long sum
+# that nearly cancels (a bias) keeps the most of it: 2.9e-4 to 5.5e-3 on
+# an H100 over 20 steps. float64 closes the gap (1.2e-15 against 1.65e-3
+# in float32 on the CPU), and a dropped branch gradient moves a leaf by
+# 1.0-1.4 (tests/test_torch_fission.py).
+FISSION_DW_RTOL = 5e-2
+FISSION_SERVE_LIMIT = 1e-3      # bucket-8 logits, of the largest (phase 4's)
+SCAN_STEPS = 3
+SCAN_LOSS_RTOL = 1e-5           # each step's loss, --scan on against off
+HOST_STEPS = 10                 # timed host-transform steps an arm
+EVENT_ITERS = 60                # past the stager's gauge at its 50th put
+LEVELDB_RECORDS = 2000
+# the fields of the JAX package's emit sites: PrefetchIterator.stats()
+# with the train verb's extras, H2DStager's h2d_stage, and the device
+# cache's gauges (sparknet_tpu/data/prefetch.py, device_cache.py)
+PREFETCH_FIELDS = {"name", "gets", "depth_cap", "depth_mean", "empty_frac",
+                   "echo", "staging"}
+H2D_FIELDS = {"name", "puts", "bytes", "kb_per_item", "dispatch_ms",
+              "wait_ms", "in_flight", "slots"}
+CACHE_FIELDS = {"source", "records", "nbytes", "hits", "misses", "hit_rate"}
+
+
+def _sync(torch, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _empty_cache(torch, device):
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _conv_window(torch, fn, reps=2):
+    """Convolution kernels a call (cuDNN forward and backward, by
+    phase 5's grouping) and the device's busy share over ``reps`` calls
+    under torch.profiler, after one call outside the window; None when
+    the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = _device_events(prof, reps)
+    busy = sum(ms for ms, _, _ in events)
+    if busy <= 0:
+        return None
+    conv = sum(n for _, n, key in events
+               if _train_group(key.lower()).startswith("convolution"))
+    return {"conv_launches": conv, "busy_share": busy * reps / wall,
+            "device_ms": busy, "wall_ms": wall / reps}
+
+
+def _copy_tree(dst, src):
+    """Copy a nest of tensors (dicts, lists) into ``dst`` in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_tree(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for a, b in zip(dst, src):
+            _copy_tree(a, b)
+    else:
+        dst.copy_(src)
+
+
+def _update_gap(torch, start, on, off):
+    """One step's weight changes from ``start``, the on arm's against the
+    off arm's, leaf by leaf: (the worst max |d_on - d_off| over max
+    |d_off|, its leaf) and the largest |d_off| of any leaf."""
+    worst, top = (0.0, None), 0.0
+    for k, v in start.items():
+        for i, p0 in enumerate(v):
+            d_on = on[k][i].detach() - p0
+            d_off = off[k][i].detach() - p0
+            scale = float(d_off.abs().max())
+            top = max(top, scale)
+            gap = float((d_on - d_off).abs().max()) / max(scale, 1e-30)
+            if gap > worst[0]:
+                worst = (gap, f"{k}[{i}]")
+    return worst, top
+
+
+def _set_fission(arm):
+    os.environ["SPARKNET_FISSION"] = "1" if arm == "on" else "0"
+
+
+def phase_fission(torch, card, tmp, batch=32, steps=FISSION_STEPS,
+                  device="cuda"):
+    """GoogLeNet b32 training (dropout 0) with inception fission on (the
+    default) and off, two Solvers from the same weights on the same
+    batches. Free-running, ``steps`` steps each: each arm's step median,
+    the port kernels' launches (equal in both arms), the convolution
+    kernels a step and busy share (a profiler window), and how far the
+    two trajectories drift apart (printed: the random-init net's
+    training amplifies any change of summation order step by step).
+    Then ``steps`` steps in lock step under deterministic cuDNN: before
+    each, the off arm takes the on arm's params and momentum, and the
+    step's loss must agree within 1e-4 relative, every param after it
+    within 1e-4 max-abs, and each leaf's weight change within
+    FISSION_DW_RTOL of that leaf's largest change. Last, a
+    bucket-8 batch served under both, within 1e-3 of the largest
+    logit, and each arm's bucket-8 forward (phase 4's timing)."""
+    from sparknet_tpu_torch.graph import CompiledNet, TEST
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.ops import kernel_launches
+    from sparknet_tpu_torch.resilience import save_model_snapshot
+    from sparknet_tpu_torch.serve import ServeEngine, deploy_net_param
+    from sparknet_tpu_torch.solver import Solver
+    os.environ.pop("SPARKNET_EPILOGUE", None)
+    rs = np.random.RandomState(SEED + 16)
+    feeds = [{k: torch.as_tensor(v).to(device) for k, v in
+              _batch(rs, batch).items()} for _ in range(4)]
+    arms, solvers = {}, {}
+    try:
+        for arm in ("on", "off"):
+            solvers[arm] = Solver(_googlenet_solver(
+                batch, os.path.join(tmp, f"fission_{arm}"), dropout=False),
+                device=device, log_fn=None)
+        with torch.no_grad():
+            _copy_tree(solvers["off"].params, solvers["on"].params)
+        w0 = {k: [p.detach().cpu().numpy().copy() for p in v]
+              for k, v in solvers["on"].params.items()}
+        for arm, solver in solvers.items():
+            _set_fission(arm)
+            _zero_launches()
+            losses, times = [], []
+            for i in range(steps):
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                losses.append(float(solver.train_step(feeds[i % 4])))
+                times.append((time.perf_counter() - t0) * 1e3)
+            launches = kernel_launches()
+            ms = statistics.median(times[1:])
+            arms[arm] = {"losses": losses, "step_ms": ms, "steps_ms": times,
+                         "launches": launches}
+            check(all(np.isfinite(losses)), f"fission {arm}: losses "
+                  f"{losses}")
+        drift_loss = max(abs(a - b) / abs(b) for a, b in
+                         zip(arms["on"]["losses"], arms["off"]["losses"]))
+        drift = max(float((a - b).detach().abs().max())
+                    for k, v in solvers["on"].params.items()
+                    for a, b in zip(v, solvers["off"].params[k]))
+        moved = max(float(np.abs(a.detach().cpu().numpy() - b).max())
+                    for k, v in solvers["on"].params.items()
+                    for a, b in zip(v, w0[k]))
+        for arm, solver in solvers.items():
+            _set_fission(arm)
+            window = _conv_window(torch, lambda: solver.train_step(
+                feeds[0])) if device == "cuda" else None
+            arms[arm]["window"] = window
+            conv = "not measured" if window is None else \
+                f"{window['conv_launches']} convolution kernels a step, " \
+                f"device busy {100 * window['busy_share']:.1f}%"
+            print(f"[fission] GoogLeNet b{batch}, fission {arm}: step "
+                  f"{arms[arm]['step_ms']:.2f} ms (median of {steps - 1}, "
+                  f"host clock around the step and its loss), {conv}; "
+                  f"launches {arms[arm]['launches']}; {card}")
+        print(f"[fission] free-running {steps} steps: the arms drift "
+              f"{drift_loss:.3e} apart in loss (relative) and {drift:.3e} "
+              f"in params (max-abs), the largest move from the start "
+              f"{moved:.3e}")
+        check(arms["on"]["launches"] == arms["off"]["launches"],
+              "fission changed the port kernels' launches")
+        lock_loss = lock_param = 0.0
+        dw_gaps, dw_tops = [], []
+        determ = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for i in range(steps):
+                with torch.no_grad():
+                    _copy_tree(solvers["off"].params, solvers["on"].params)
+                    _copy_tree(solvers["off"].history,
+                               solvers["on"].history)
+                    start = {k: [p.detach().clone() for p in v]
+                             for k, v in solvers["on"].params.items()}
+                solvers["off"].iter = solvers["on"].iter
+                step = {}
+                for arm, solver in solvers.items():
+                    _set_fission(arm)
+                    step[arm] = float(solver.train_step(feeds[i % 4]))
+                lock_loss = max(lock_loss, abs(step["on"] - step["off"])
+                                / abs(step["off"]))
+                lock_param = max(lock_param, max(
+                    float((a - b).detach().abs().max())
+                    for k, v in solvers["on"].params.items()
+                    for a, b in zip(v, solvers["off"].params[k])))
+                gap, top = _update_gap(torch, start, solvers["on"].params,
+                                       solvers["off"].params)
+                dw_gaps.append(gap)
+                dw_tops.append(top)
+        finally:
+            torch.backends.cudnn.deterministic = determ
+        worst = max(dw_gaps)
+        print(f"[fission] lock step, {steps} steps each from the on arm's "
+              f"state, cuDNN deterministic: losses within {lock_loss:.3e} "
+              f"relative (limit {FISSION_LOSS_RTOL:g}), params after each "
+              f"step within {lock_param:.3e} max-abs (limit "
+              f"{FISSION_PARAM_ATOL:g}); each step's update, leaf by "
+              f"leaf, within {worst[0]:.3e} of the leaf's largest change "
+              f"({worst[1]}, step {dw_gaps.index(worst)}; limit "
+              f"{FISSION_DW_RTOL:g})")
+        print(f"[fission] lock step, each step's worst leaf gap "
+              f"{[float(f'{g:.3e}') for g, _ in dw_gaps]} and largest "
+              f"update (max-abs over all leaves) "
+              f"{[float(f'{t:.3e}') for t in dw_tops]}")
+        check(lock_loss <= FISSION_LOSS_RTOL, f"fission: losses differ by "
+              f"{lock_loss:.3e} relative")
+        check(lock_param <= FISSION_PARAM_ATOL, f"fission: params differ by "
+              f"{lock_param:.3e}")
+        check(worst[0] <= FISSION_DW_RTOL, f"fission: a step's update of "
+              f"{worst[1]} differs by {worst[0]:.3e} of its largest change")
+        check(moved > 10 * FISSION_PARAM_ATOL, "fission: the params barely "
+              "moved, the param check reads nothing")
+        solvers.clear()
+        _empty_cache(torch, device)
+        # serving: one deploy snapshot, a bucket-8 batch under both
+        net = CompiledNet(deploy_net_param(zoo.googlenet(
+            batch_size=8, with_aux=False)), TEST, device="cpu")
+        params, state = net.init(torch.Generator().manual_seed(SEED))
+        prefix = os.path.join(tmp, "fission_serve")
+        save_model_snapshot(net, params, prefix, iter=0, state=state)
+        engine = ServeEngine(prefix, max_batch=8, device=device,
+                             log_fn=None)
+        engine.load()
+        x = np.round(rs.randn(8, 3, 224, 224), 3).astype(np.float32)
+        feeds8 = {"data": torch.as_tensor(x).to(device)}
+        served, serve_ms = {}, {}
+        for arm in ("on", "off"):
+            _set_fission(arm)
+            served[arm] = engine.forward({"data": x})[0]["loss3/classifier"]
+            # phase 4's reading: the bucket's forward over CUDA events
+            serve_ms[arm] = Timer(torch, reps=20)(
+                lambda: engine.run_bucket(8, feeds8)) \
+                if device == "cuda" else None
+        ref = served["off"]
+        serve_err = float(np.abs(served["on"] - ref).max()
+                          / np.abs(ref).max())
+        print(f"[fission] served bucket 8: on against off {serve_err:.3e} "
+              f"of the largest logit (limit {FISSION_SERVE_LIMIT:g}); "
+              f"device forward on {serve_ms['on']} ms, off "
+              f"{serve_ms['off']} ms (median of 20, CUDA events); {card}")
+        check(np.abs(ref).max() > 0, "fission serve: all-zero logits")
+        check(serve_err <= FISSION_SERVE_LIMIT, f"fission serve: "
+              f"{serve_err:.3e}")
+        del engine
+    finally:
+        os.environ.pop("SPARKNET_FISSION", None)       # the default: on
+    return {"arms": arms, "drift_loss_rel": drift_loss,
+            "drift_param_max_abs": drift, "moved": moved,
+            "lock_loss_rel_err": lock_loss,
+            "lock_param_max_abs_err": lock_param,
+            "lock_update_gap": worst[0], "lock_update_gap_leaf": worst[1],
+            "lock_update_gaps": [g for g, _ in dw_gaps],
+            "lock_update_max": dw_tops, "serve_err": serve_err,
+            "serve_b8_ms": serve_ms}
+
+
+class _NumpyHostPath:
+    """The native library switched off for a measurement: its entry
+    points take their numpy paths, as where it does not build."""
+
+    def __enter__(self):
+        from sparknet_tpu_torch import native
+        self.native, self.load = native, native._load
+        native._load = lambda: None
+        return self
+
+    def __exit__(self, *exc):
+        self.native._load = self.load
+        return False
+
+
+def phase_native_host(torch, card, tmp, db, solver_path, steps=HOST_STEPS,
+                      device="cuda"):
+    """The native host library: built (available() true); at CaffeNet's
+    b256 (3x256x256 uint8, 227 crops, mirror), its transform against the
+    numpy path and the device transform, bit for bit, for every mean
+    kind; the train verb's --host-transform feed on phase 9's records
+    (the source, a PrefetchIterator with the H2DStager) through one
+    Solver, native and numpy, step medians over CUDA events; and a
+    LevelDB read, native against pure Python."""
+    from sparknet_tpu_torch import native
+    from sparknet_tpu_torch.data import device_transform
+    from sparknet_tpu_torch.data.datum import array_to_datum
+    from sparknet_tpu_torch.data.db_source import build_db_feed
+    from sparknet_tpu_torch.data.leveldb import LevelDBReader, LevelDBWriter
+    from sparknet_tpu_torch.data.prefetch import H2DStager, PrefetchIterator
+    from sparknet_tpu_torch.graph.compiler import TRAIN
+    from sparknet_tpu_torch.ops import kernel_launches
+    from sparknet_tpu_torch.proto import text_format
+    from sparknet_tpu_torch.solver import Solver
+    from sparknet_tpu_torch.solver.solver import resolve_nets
+    check(native.available(), "the native host library did not build")
+    print(f"[native] {native.library_path()}")
+    rs = np.random.RandomState(SEED + 17)
+    n, (c, h, w), crop = CAFFENET_BATCH, RECORD_SHAPE, CAFFENET_CROP
+    images = rs.randint(0, 256, (n, c, h, w)).astype(np.uint8)
+    ys = rs.randint(0, h - crop + 1, n).astype(np.int32)
+    xs = rs.randint(0, w - crop + 1, n).astype(np.int32)
+    flips = rs.randint(0, 2, n).astype(np.uint8)
+    kinds = {"none": (None, 1.0),
+             "channel": ((rs.rand(c) * 128).astype(np.float32), 0.0078125),
+             "crop_image": ((rs.rand(c, crop, crop) * 128).astype(
+                 np.float32), 0.017),
+             "full_image": ((rs.rand(c, h, w) * 128).astype(np.float32),
+                            1.0)}
+    x_card = torch.from_numpy(images).to(device)
+    transform = {}
+    for kind, (mean, scale) in kinds.items():
+        args = (images, crop, ys, xs, flips, mean, scale,
+                kind == "full_image")
+        got = native.transform_batch(*args)
+        with _NumpyHostPath():
+            ref = native.transform_batch(*args)
+        dev = device_transform.transform_batch(
+            x_card, crop, ys=ys, xs=xs, mirror=flips, mean=mean,
+            scale=scale, full_mean=kind == "full_image").cpu().numpy()
+        same = bool(np.array_equal(got, ref)) and \
+            bool(np.array_equal(got, dev))
+        native_ms = _host_ms(lambda: native.transform_batch(*args))
+        with _NumpyHostPath():
+            numpy_ms = _host_ms(lambda: native.transform_batch(*args),
+                                reps=3)
+        transform[kind] = {"bitwise": same, "native_ms": native_ms,
+                           "numpy_ms": numpy_ms}
+        print(f"[native] b{n} transform, mean {kind}: native {native_ms:.1f}"
+              f" ms, numpy {numpy_ms:.1f} ms (host, median); equal to the "
+              f"numpy path and the device transform: {same}")
+        check(same, f"native transform ({kind}) differs")
+    # the --host-transform feed, native against numpy, one Solver
+    sp = text_format.load(solver_path, "SolverParameter")
+    train_np, _ = resolve_nets(sp, db)
+    shapes, probe = build_db_feed(train_np, TRAIN, db, seed=SEED,
+                                  device_transform=False)
+    probe.close()
+    solver = Solver(sp, base_dir=db, feed_shapes=shapes, device=device,
+                    log_fn=None)
+    solver.set_input_transform(None)
+    arms = {}
+    for arm in ("native", "numpy"):
+        with _NumpyHostPath() if arm == "numpy" else \
+                contextlib.nullcontext():
+            _, src = build_db_feed(train_np, TRAIN, db, seed=SEED,
+                                   device_transform=False)
+            data = PrefetchIterator(iter(src), depth=3, transform=H2DStager(
+                slots=2, device=device), name="train_feed")
+            try:
+                for _ in range(2):                      # warm-up
+                    solver.train_step(next(data))
+                _sync(torch, device)
+                _zero_launches()
+                if device == "cuda":
+                    times = _step_events(torch, solver, data, steps)
+                else:
+                    times = [_host_ms(lambda: float(solver.train_step(
+                        next(data))), reps=1) for _ in range(steps)]
+                launches = kernel_launches()
+            finally:
+                data.close()
+                src.close()
+        ms = statistics.median(times)
+        arms[arm] = {"step_ms": ms, "steps_ms": times, "launches": launches,
+                     "images_per_s": n / (ms / 1e3)}
+        print(f"[native] CaffeNet b{n} --host-transform, {arm}: step "
+              f"{ms:.2f} ms (median of {steps} over CUDA events between "
+              f"steps; {[round(t, 2) for t in times]}), "
+              f"{n / (ms / 1e3):,.0f} images/s; LRN launches "
+              f"{launches['lrn_across']} forward, "
+              f"{launches['lrn_across_bwd']} backward; {card}")
+        want = 2 * steps * (device == "cuda")
+        check(launches["lrn_across"] == want and
+              launches["lrn_across_bwd"] == want,
+              f"host-transform {arm}: LRN launches {launches}")
+    del solver
+    _empty_cache(torch, device)
+    # a LevelDB of CIFAR-sized Datums, read whole, native and pure Python
+    path = os.path.join(tmp, "leveldb16")
+    with LevelDBWriter(path) as wr:
+        for i in range(LEVELDB_RECORDS):
+            wr.put(b"%08d" % i, array_to_datum(
+                rs.randint(0, 256, (3, 32, 32)).astype(np.uint8), i % 10))
+    reads = {}
+    for verify in (False, True):
+        for arm in ("native", "python"):
+            with _NumpyHostPath() if arm == "python" else \
+                    contextlib.nullcontext():
+                t0 = time.perf_counter()
+                with LevelDBReader(path, verify_checksums=verify) as r:
+                    count = sum(1 for _ in r.items())
+                secs = time.perf_counter() - t0
+            check(count == LEVELDB_RECORDS, f"LevelDB read {count} records")
+            key = f"{arm}{', crc verified' if verify else ''}"
+            reads[key] = LEVELDB_RECORDS / secs
+            print(f"[native] LevelDB read of {LEVELDB_RECORDS} 3x32x32 "
+                  f"Datums, {key}: {reads[key]:,.0f} records/s")
+    return {"library": native.library_path(), "transform": transform,
+            "host_transform": arms, "leveldb_records_per_s": reads}
+
+
+def phase_lm_scan(torch, card, steps=SCAN_STEPS, device="cuda"):
+    """The lm verb's setup (cli.lm_setup) at phase 7's full width with
+    --scan off, then --scan on, from one seed and one stream: each
+    step's loss within 1e-5 relative (bit for bit said when seen), the
+    step median and the flash launches (each kernel once a layer a
+    step)."""
+    from sparknet_tpu_torch.ops import kernel_launches
+    f = LM_FULL
+    full = ["--vocab", str(f["vocab"]), "--seq-len", str(f["seq_len"]),
+            "--batch", str(f["batch"]), "--d-model", str(f["d_model"]),
+            "--layers", str(f["layers"]), "--heads", str(f["heads"]),
+            "--dtype", "bf16"]
+    arms = {}
+    try:
+        for mode in ("off", "on"):
+            run = _mesh_setup(full + ["--scan", mode], device=device)
+            s, stream = run["solver"], run["stream"]
+            runs = s.net._scan_runs()
+            check(s.net._scan_enabled() == (mode == "on") and len(runs) == 1
+                  and runs[0]["n"] == f["layers"],
+                  f"--scan {mode}: enabled {s.net._scan_enabled()}, runs "
+                  f"{[(r['n'], r['glen']) for r in runs]}")
+            _zero_launches()
+            times, losses = [], []
+            for _ in range(steps):
+                b = next(stream)
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                losses.append(float(s.train_step(b)))
+                times.append((time.perf_counter() - t0) * 1e3)
+            launches = kernel_launches()
+            ms = statistics.median(times)
+            arms[mode] = {"losses": losses, "step_ms": ms,
+                          "steps_ms": times, "launches": launches}
+            print(f"[scan] lm --scan {mode} at full width: losses "
+                  f"{losses}, step {ms:.1f} ms (median of {steps}, host "
+                  f"clock around the step and its loss), flash launches "
+                  f"{sum(launches[k] for k in FLASH_KERNELS) / steps:g} a "
+                  f"step; {card}")
+            for k in FLASH_KERNELS:
+                check(launches[k] == f["layers"] * steps * (device == "cuda"),
+                      f"--scan {mode}: {k} launched {launches[k]} times")
+            del run, s
+            _empty_cache(torch, device)
+    finally:
+        os.environ.pop("SPARKNET_SCAN", None)
+    err = max(abs(a - b) / abs(b) for a, b in
+              zip(arms["on"]["losses"], arms["off"]["losses"]))
+    bitwise = arms["on"]["losses"] == arms["off"]["losses"]
+    print(f"[scan] on against off: losses within {err:.3e} relative "
+          f"(limit {SCAN_LOSS_RTOL:g}); bit for bit: {bitwise}")
+    check(err <= SCAN_LOSS_RTOL, f"--scan on: losses differ by {err:.3e}")
+    return {"arms": arms, "loss_rel_err": err, "bitwise": bitwise}
+
+
+def phase_input_events(torch, card, tmp, device="cuda"):
+    """`train --metrics` on the card on a small LMDB (256 Datums of
+    3x36x36, cifar10_full b16 on 32 crops with mirror, the default
+    device-cached feed) for EVENT_ITERS iterations in process: the
+    stream holds prefetch, h2d_stage and device_cache events with the
+    JAX emit sites' fields, and the report verb reads them."""
+    import io
+    from sparknet_tpu_torch import cli
+    from sparknet_tpu_torch.data.datum import array_to_datum
+    from sparknet_tpu_torch.data.lmdb import LMDBWriter
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.proto import Message, text_format
+    d = os.path.join(tmp, "events16")
+    os.makedirs(d, exist_ok=True)
+    rs = np.random.RandomState(SEED + 18)
+    with LMDBWriter(os.path.join(d, "train_lmdb")) as wr:
+        for i in range(256):
+            wr.put(b"%05d" % i, array_to_datum(
+                rs.randint(0, 256, (3, 36, 36)).astype(np.uint8), i % 10))
+    net = Message("NetParameter", name="events")
+    lp = Message("LayerParameter", name="data", type="Data",
+                 data_param=dict(source="train_lmdb", batch_size=16,
+                                 backend="LMDB"),
+                 transform_param=dict(crop_size=32, mirror=True))
+    lp.top.extend(["data", "label"])
+    net.layer.append(lp)
+    for layer in zoo.cifar10_full(batch_size=16, with_data=False).layer:
+        net.layer.append(layer)
+    text_format.dump(net, os.path.join(d, "train_val.prototxt"))
+    sp = Message("SolverParameter", net="train_val.prototxt", base_lr=0.001,
+                 momentum=0.9, lr_policy="fixed", display=20,
+                 max_iter=EVENT_ITERS, random_seed=SEED)
+    solver_path = os.path.join(d, "solver.prototxt")
+    text_format.dump(sp, solver_path)
+    metrics = os.path.join(d, "m.jsonl")
+    buf = io.StringIO()
+    _zero_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["train", "--solver", solver_path, "--metrics",
+                       metrics, "--device", device])
+    for line in buf.getvalue().strip().splitlines():
+        print(f"[events] {line}")
+    check(rc == 0, f"train --metrics exited {rc}")
+    check("device-cached" in buf.getvalue(), "the feed was not cached")
+    events = [json.loads(line) for line in open(metrics)]
+    fields = {}
+    for e in events:
+        if e["event"] in ("prefetch", "h2d_stage", "device_cache"):
+            fields.setdefault(e["event"], []).append(
+                set(e) - {"event", "t"})
+    counts = {k: len(v) for k, v in fields.items()}
+    print(f"[events] {len(events)} events; input path: {counts}")
+    check(set(counts) == {"prefetch", "h2d_stage", "device_cache"},
+          f"input events {counts}")
+    check(all(f == PREFETCH_FIELDS for f in fields["prefetch"]),
+          f"prefetch fields {fields['prefetch']}")
+    check(all(f == H2D_FIELDS for f in fields["h2d_stage"]),
+          f"h2d_stage fields {fields['h2d_stage']}")
+    # the promotion's gauge (one a cached source) adds "resident"
+    resident = [f for f in fields["device_cache"] if "resident" in f]
+    check(resident and all(f == CACHE_FIELDS | {"resident"}
+                           for f in resident) and
+          all(f == CACHE_FIELDS for f in fields["device_cache"]
+              if "resident" not in f) and
+          len(resident) < len(fields["device_cache"]),
+          f"device_cache fields {fields['device_cache']}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["report", metrics, "--format", "json"])
+    check(rc == 0, f"report exited {rc}")
+    rep = json.loads(buf.getvalue())
+    check(rep.get("device_cache") and rep.get("prefetch") and
+          "h2d_stage" in json.dumps(rep), f"report sections {sorted(rep)}")
+    h2d = [e for e in events if e["event"] == "h2d_stage"][-1]
+    print(f"[events] report: device_cache {rep['device_cache']}, prefetch "
+          f"{rep['prefetch']}; last h2d_stage {h2d}; {card}")
+    return {"counts": counts, "report_device_cache": rep["device_cache"],
+            "report_prefetch": rep["prefetch"], "h2d_stage": h2d}
+
+
+def phase_rest_all(torch, card, tmp, records):
+    """Phase 16 on phase 9's records, or, run without phase 9, on records
+    of its own (phase 9's, written here)."""
+    if records is None:
+        db = os.path.join(tmp, "records16")
+        os.makedirs(db, exist_ok=True)
+        solver_path, _ = _caffenet_db_files(db)
+        records = {"dir": db, "solver": solver_path}
+    fission = phase_fission(torch, card, tmp)
+    host = phase_native_host(torch, card, tmp, records["dir"],
+                             records["solver"])
+    scan = phase_lm_scan(torch, card)
+    events = phase_input_events(torch, card, tmp)
+    return {"fission": fission, "native": host, "scan": scan,
+            "events": events}
+
+
 KERNELS = {
     # name: (source, replaces, path whose launches the row reports)
     "lrn_across": ("sparknet_tpu_torch/csrc/lrn.cu",
@@ -5268,14 +5879,14 @@ KERNELS = {
 PHASES = {1: "device", 2: "build", 3: "kernels", 4: "serve", 5: "train",
           6: "flash", 7: "lm", 8: "local-sgd", 9: "records", 10: "feeds",
           11: "zoo", 12: "levers, run safety, metrics", 13: "fleet",
-          14: "hosts", 15: "mesh"}
+          14: "hosts", 15: "mesh", 16: "rest"}
 
 
 def _selected(argv):
     """--phases 3,12 -> {1, 2, 3, 12} (phase 10 brings 9, whose records
     it reads, 13 brings 4, whose snapshot it serves, and 14 brings 9 and
-    10, whose records and dp verb run it reads); no argument -> every
-    phase."""
+    10, whose records and dp verb run it reads; 16 writes its own records
+    when 9 does not run); no argument -> every phase."""
     if not argv:
         return set(PHASES)
     if len(argv) != 2 or argv[0] != "--phases":
@@ -5283,7 +5894,7 @@ def _selected(argv):
     want = {int(x) for x in argv[1].split(",")}
     bad = want - set(PHASES)
     if bad:
-        raise SystemExit(f"no phase {sorted(bad)}; phases are 1-15")
+        raise SystemExit(f"no phase {sorted(bad)}; phases are 1-16")
     if 14 in want:
         want.add(10)
     if 10 in want:
@@ -5335,6 +5946,7 @@ def main(argv=None):
     hosts = section(14, lambda: phase_hosts_all(torch, card, tmp, records,
                                                 feeds))
     mesh = section(15, phase_mesh_all, torch, card, tmp)
+    rest = section(16, lambda: phase_rest_all(torch, card, tmp, records))
     total = time.perf_counter() - t_start
     print("[phases] " + json.dumps(
         {PHASES[n]: round(v, 1) for n, v in sorted(seconds.items())}))
@@ -5395,8 +6007,6 @@ def main(argv=None):
                         name],
                     "launches_records_streaming":
                         paths["train verb on records"][name],
-                    "launches_streaming_verb":
-                        feeds["cli"]["streaming"]["launches"][name],
                     "launches_dp_verb": feeds["cli"]["dp"]["launches"][name],
                     "launches_two_tier_armed": hosts["two_tier"][
                         "launches"][name],
@@ -5406,6 +6016,20 @@ def main(argv=None):
                 **({"launches_elastic_dp_verb": hosts["train_verb"][
                     "launches"][name]}
                    if tuple(r["shape"]) in CAFFENET_DP_LRN_SHAPES else {}),
+                # phase 16's paths: the GoogLeNet step with fission on and
+                # off, CaffeNet's --host-transform feed native and numpy,
+                # the LM under --scan off and on
+                **({"launches_lm_scan": {
+                    k: v["launches"][name]
+                    for k, v in rest["scan"]["arms"].items()}}
+                   if name in FLASH_KERNELS else
+                   {"launches_host_transform": {
+                       k: v["launches"][name]
+                       for k, v in rest["native"]["host_transform"].items()}}
+                   if caffenet else
+                   {"launches_googlenet_fission": {
+                       k: v["launches"][name]
+                       for k, v in rest["fission"]["arms"].items()}}),
                 "shape": r["shape"], "dtype": r["dtype"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -5423,7 +6047,7 @@ def main(argv=None):
         "lm": {"cli": lm_cli, "step": lm_step, "card_vs_cpu": lm_parity},
         "local_sgd": local_sgd, "records": records, "feeds": feeds,
         "zoo": zoo, "levers": levers, "fleet": fleet, "hosts": hosts,
-        "mesh": mesh,
+        "mesh": mesh, "rest": rest,
         "phase_seconds": {PHASES[n]: v for n, v in seconds.items()},
         "total_seconds": total}, default=str))
     print(json.dumps({"kernels": table}))

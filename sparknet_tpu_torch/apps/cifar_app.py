@@ -309,8 +309,13 @@ class CifarApp:
                 ch.maybe_slow_h2d(nbytes=sum(
                     int(getattr(v, "nbytes", 0)) for v in b.values()))
                 return b
+        extra = {"echo": self.echo}
+        if self.ingest is not None:
+            extra["ingest_hosts"] = self.ingest.hosts
+            extra["ingest_records"] = self.ingest.owned
         batches = PrefetchIterator(self._round_stream(), depth=2,
-                                   transform=gate, name="round_feed")
+                                   transform=gate, metrics=metrics,
+                                   name="round_feed", extra=extra)
         if self.echo > 1:
             batches = EchoIterator(batches, self.echo)
         try:

@@ -21,7 +21,9 @@ comms, divergence and health events, the watchdog's and the app's own
 "round" and "test" events.
 """
 
+import itertools
 import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -185,8 +187,11 @@ class ImageNetApp:
                       on_stall=lambda dt: self.log(
                           f"WATCHDOG: no round finished in {dt:.0f}s"),
                       on_nan=lambda v: self.log(f"WATCHDOG: loss = {v}"))
-        batches = PrefetchIterator(self._round_stream(), depth=2,
-                                   name="round_feed")
+        # the worker makes the rounds this run reads and no more: a
+        # synthetic round is tens of seconds of host time
+        batches = PrefetchIterator(
+            itertools.islice(self._round_stream(), num_rounds), depth=2,
+            metrics=metrics, name="round_feed")
         try:
             with wd:
                 for r in range(num_rounds):
@@ -217,6 +222,8 @@ class ImageNetApp:
                                     images_per_s=round(
                                         imgs_per_round / max(dt, 1e-9), 1))
         finally:
+            if isinstance(self.train_source, SyntheticSource):
+                self.train_source.close()   # the round nobody will read
             if not batches.close():
                 self.log("prefetch worker did not stop within its timeout")
             self.solver.close()     # the step, comms and health summaries
@@ -228,6 +235,10 @@ class ImageNetApp:
         return self.solver
 
 
+class SourceClosed(Exception):
+    """A SyntheticSource was closed while a take() was making batches."""
+
+
 class SyntheticSource:
     """Endless (images uint8 (batch,3,256,256), labels) batches of
     class-gaussians, each from a seed drawn from ``rng`` (the JAX app's
@@ -236,14 +247,23 @@ class SyntheticSource:
     are those of k calls of next(). A batch makes num_classes prototype
     images first (196,608 normals each at 1,000 classes), so one thread
     makes a few batches a second at most; numpy's generators release
-    the interpreter lock while they fill."""
+    the interpreter lock while they fill.
+
+    ``close()`` stops the making: batches not yet started are skipped and
+    a ``take`` in flight raises SourceClosed, so a prefetch worker
+    filling the next round ends with the run (its thread pool's threads
+    would otherwise hold the interpreter's exit until the round nobody
+    reads is made)."""
 
     def __init__(self, rng, num_classes, batch=64):
         self.rng = rng
         self.num_classes = num_classes
         self.batch = batch
+        self._closed = threading.Event()
 
     def _make(self, seed):
+        if self._closed.is_set():
+            return None
         images, labels = class_gaussian_images(
             self.batch, shape=(3, SOURCE_SIZE, SOURCE_SIZE),
             num_classes=self.num_classes, seed=seed)
@@ -254,7 +274,13 @@ class SyntheticSource:
     def take(self, k):
         seeds = [int(self.rng.randint(1 << 31)) for _ in range(k)]
         with ThreadPoolExecutor(min(k, os.cpu_count() or 1)) as pool:
-            return list(pool.map(self._make, seeds))
+            out = list(pool.map(self._make, seeds))
+        if self._closed.is_set():
+            raise SourceClosed("the synthetic source was closed")
+        return out
+
+    def close(self):
+        self._closed.set()
 
     def __iter__(self):
         return self

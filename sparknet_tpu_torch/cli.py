@@ -145,11 +145,12 @@ def _apply_feed_flags(args):
 
 
 def _apply_perf_flags(args):
-    """--remat, --precision, --fsdp and --tp write SPARKNET_REMAT,
-    SPARKNET_PRECISION, SPARKNET_FSDP and SPARKNET_TP before any net is
-    built, as the JAX verbs do (the variables stay the fallback when a
-    flag is not given)."""
+    """--remat, --scan, --precision, --fsdp and --tp write
+    SPARKNET_REMAT, SPARKNET_SCAN, SPARKNET_PRECISION, SPARKNET_FSDP and
+    SPARKNET_TP before any net is built, as the JAX verbs do (the
+    variables stay the fallback when a flag is not given)."""
     for flag, env in (("remat", "SPARKNET_REMAT"),
+                      ("scan", "SPARKNET_SCAN"),
                       ("precision", "SPARKNET_PRECISION"),
                       ("fsdp", "SPARKNET_FSDP"), ("tp", "SPARKNET_TP")):
         if getattr(args, flag, None) is not None:
@@ -179,12 +180,14 @@ def _add_perf_flags(p, scan=False):
                         "the rest), full (recompute whole segments). "
                         "Default: SPARKNET_REMAT, else none")
     if scan:
-        p.add_argument("--scan", action=_NotPorted, allow=("off", "auto"),
-                       what="scan-over-layers, ROADMAP A5",
-                       metavar="off|auto",
-                       help="off or auto: the layers run unrolled (the "
-                            "JAX package's auto scans only on a TPU); on "
-                            "is not ported (ROADMAP A5)")
+        p.add_argument("--scan", choices=("auto", "on", "off"),
+                       default=None,
+                       help="scan-over-layers for isomorphic block "
+                            "stacks: on runs the first block's layers "
+                            "once per block with that block's params, "
+                            "its internal blobs absent (auto scans only "
+                            "on a TPU, so it is off here). Default: "
+                            "SPARKNET_SCAN, else auto")
     p.add_argument("--precision", choices=("bf16", "fp32"), default=None,
                    help="resolves net.compute_dtype; as in the JAX "
                         "package the layers keep the constructor's dtype "
@@ -390,11 +393,11 @@ def cmd_train(args):
         if not off:
             isz = int(sp.iter_size)
             train_src = maybe_device_cache(train_src, budget, iter_size=isz,
-                                           device=device)
+                                           device=device, metrics=metrics)
             if isinstance(train_src, DeviceCachedSource):
                 budget -= train_src.nbytes / (1 << 20)      # one budget
             test_src = maybe_device_cache(test_src, budget, iter_size=isz,
-                                          device=device)
+                                          device=device, metrics=metrics)
         feed = {**(train_shapes or {}), **_feed_shapes_arg(args.input_shape)}
         kw = dict(base_dir=base_dir, feed_shapes=feed or None,
                   test_feed_shapes=test_shapes, device=device,
@@ -459,15 +462,21 @@ def cmd_train(args):
             # the dp slots from the batch on the card); iter_size > 1
             # stacks micro-batches on the host, so those are fed as they
             # are
-            put = None
+            put = stager = None
             if int(sp.iter_size) <= 1:
                 if os.environ.get("SPARKNET_STAGING", "on") != "off":
-                    put = H2DStager(slots=2, device=solver.device,
-                                    chaos=chaos)
+                    put = stager = H2DStager(
+                        slots=2, device=solver.device, chaos=chaos,
+                        metrics=metrics, name="train_feed")
                 else:
                     put = lambda b: to_device(b, solver.device)  # noqa: E731
+            extra = {"echo": echo, "staging": int(stager is not None)}
+            codec = getattr(train_src, "wire", None)
+            if codec is not None:
+                extra.update(codec.describe())
             data_iter = PrefetchIterator(iter(train_src), depth=3,
-                                         transform=put, name="train_feed")
+                                         transform=put, metrics=metrics,
+                                         name="train_feed", extra=extra)
             if echo > 1:
                 if cached:
                     # each batch is already a small control array
@@ -1083,23 +1092,6 @@ def cmd_trace(args):
     except BrokenPipeError:
         os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
     return 0
-
-
-class _NotPorted(argparse.Action):
-    """A flag of the JAX package's verb that the port does not have yet:
-    giving it is a usage error (exit 2) naming what is missing. Values
-    in ``allow`` pass through (``--reshard strict``)."""
-
-    def __init__(self, option_strings, dest, what="", allow=(), **kw):
-        self.what, self.allow = what, allow
-        super().__init__(option_strings, dest, **kw)
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        if values in self.allow:
-            setattr(namespace, self.dest, values)
-            return
-        shown = f" {values}" if values else ""
-        parser.error(f"{option_string}{shown}: not ported ({self.what})")
 
 
 def _add_resilience_flags(p, hosts=False):
@@ -1825,6 +1817,85 @@ def _add_fleet_parsers(sub):
     sf.set_defaults(fn=cmd_simfleet)
 
 
+def cmd_lint(args):
+    """Static analysis (sparknet_tpu_torch.analysis): the JAX package's
+    rule families over the port's source — the lock-discipline and
+    deadlock rules of the threaded host side, the distributed
+    file-protocol rules and the metrics event-schema rules. The
+    analysis package imports no torch."""
+    from .analysis.cli import run_lint
+    return run_lint(args)
+
+
+def _add_lint_parser(sub):
+    """The JAX verb's flags; the default target, baseline and schema
+    are the port's."""
+    li = sub.add_parser(
+        "lint",
+        help="static analysis: JAX hazard rules (host syncs/recompiles/"
+             "PRNG reuse/axis mismatches in jitted code), the "
+             "guarded-by lock-discipline race checker, deadlock rules "
+             "(lock-order cycles, blocking/callbacks under locks), "
+             "distributed file-protocol rules (atomic rendezvous "
+             "writes, bounded gates, canonical exit codes), and the "
+             "metrics event-schema rules")
+    li.add_argument("paths", nargs="*",
+                    help="files/directories to lint (default: the "
+                         "sparknet_tpu_torch package source)")
+    li.add_argument("--strict", action="store_true",
+                    help="exit 1 on ANY non-baselined finding (warnings "
+                         "included), stale baseline entries, or "
+                         "baseline entries without a justification")
+    li.add_argument("--baseline",
+                    help="baseline file (default: "
+                         ".sparknet-torch-lint-baseline.json next to the "
+                         "lint root, then CWD)")
+    li.add_argument("--write-baseline", action="store_true",
+                    help="accept the current findings into the baseline "
+                         "(new entries need --justification; stale "
+                         "entries expire)")
+    li.add_argument("--justification",
+                    help="justification text recorded on entries newly "
+                         "added by --write-baseline")
+    li.add_argument("--select", metavar="CODES",
+                    help="comma-separated rule codes to run "
+                         "(e.g. SPK201,SPK301), or a profile: @tests "
+                         "(parse/file-protocol/exit-code rules for the "
+                         "test tree), @tools (those plus the JAX "
+                         "host-sync hazards)")
+    li.add_argument("--exclude", action="append", default=[],
+                    metavar="PATTERN",
+                    help="skip files whose path matches (substring, "
+                         "glob, or path-component glob); repeatable — "
+                         "e.g. --exclude fixtures")
+    li.add_argument("--jobs", type=int, default=1, metavar="N",
+                    help="lint files across N forked workers (the "
+                         "parsed project index is shared "
+                         "copy-on-write)")
+    li.add_argument("--cache", action="store_true",
+                    help="reuse per-file results keyed on content + "
+                         "rule sources + cross-module summaries "
+                         "(.sparknet-torch-lint-cache.json next to the "
+                         "root; safe to delete any time)")
+    li.add_argument("--write-event-schema", action="store_true",
+                    help="regenerate sparknet_tpu_torch/obs/"
+                         "event_schema.py from the port's and the repo "
+                         "root scripts' metrics emit sites and exit "
+                         "(rules SPK401/402 check against it)")
+    li.add_argument("--root", help="directory finding paths are "
+                                   "reported relative to (default: "
+                                   "CWD, or the package parent when "
+                                   "linting the default target)")
+    li.add_argument("--json", action="store_true",
+                    help="machine-readable findings on stdout")
+    li.add_argument("-v", "--verbose", action="store_true",
+                    help="also print baselined findings with their "
+                         "justifications")
+    li.add_argument("--list-rules", action="store_true",
+                    help="print the rule table and exit")
+    li.set_defaults(fn=cmd_lint)
+
+
 def parser():
     """The command line's argparse parser (every verb)."""
     p = argparse.ArgumentParser(
@@ -2183,6 +2254,7 @@ def parser():
     tr.add_argument("--json", action="store_true",
                     help="JSON instead of text")
     tr.set_defaults(fn=cmd_trace)
+    _add_lint_parser(sub)
     return p
 
 

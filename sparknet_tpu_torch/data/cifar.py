@@ -1,6 +1,5 @@
 """CIFAR-10 binary-format loader, copied from sparknet_tpu/data/cifar.py
-(numpy only; the JAX package's optional native decoder is its own numpy
-fallback here).
+(records decoded by the native host library, native/, as there).
 
 Behavioral port of reference CifarLoader.scala: reads the five
 ``data_batch_N.bin`` files (each record = 1 label byte + 3072 CHW image
@@ -25,9 +24,8 @@ def read_batch_file(path):
     raw = np.fromfile(path, np.uint8)
     if raw.size % RECORD:
         raise ValueError(f"{path}: size {raw.size} not a multiple of {RECORD}")
-    recs = raw.reshape(-1, RECORD)
-    images = np.ascontiguousarray(recs[:, 1:])
-    labels = recs[:, 0].astype(np.int32)
+    from .. import native
+    images, labels = native.decode_cifar_records(raw, RECORD)
     return images.reshape(-1, CHANNELS, HEIGHT, WIDTH), labels
 
 

@@ -43,11 +43,21 @@ class DeviceCachedSource:
     transform. The resident tensors never ride in a batch: device_fn
     holds them, so the control array is the only copy to the card a step,
     and the net's data and label blobs are not host-fed (their
-    check_batch overrides are None)."""
+    check_batch overrides are None).
 
-    def __init__(self, dbsource, device):
+    ``metrics`` gets ``device_cache`` hit/miss gauges, next to the
+    prefetch queue's: one at promotion (``resident=True``), one every
+    ``emit_every`` batches served and a last partial one at close.
+    Every batch served from the resident tensors is a hit; misses happen
+    only where promotion was refused (maybe_device_cache logs that
+    refusal as an all-miss event)."""
+
+    def __init__(self, dbsource, device, metrics=None, emit_every=100):
         if not dbsource.device_mode:
             raise ValueError("DeviceCachedSource needs a device-mode source")
+        self.metrics = metrics
+        self.emit_every = max(1, int(emit_every))
+        self.hits = 0
         self.source = dbsource.source
         self.batch_size = dbsource.batch_size
         self.data_top = dbsource.data_top
@@ -85,6 +95,14 @@ class DeviceCachedSource:
         self._labels = torch.from_numpy(labels).to(device)
         self._start = dbsource._skip % n
         dbsource.db.close()
+        self._gauge(resident=True)
+
+    def _gauge(self, **extra):
+        if self.metrics is None:
+            return
+        self.metrics.log("device_cache", source=self.source,
+                         records=self.num_records, nbytes=self.nbytes,
+                         hits=self.hits, misses=0, hit_rate=1.0, **extra)
 
     @property
     def nbytes(self):
@@ -119,6 +137,9 @@ class DeviceCachedSource:
                 cols += [aux[ky], aux[kx]]
             if kf in aux:
                 cols.append(aux[kf].astype(np.int32))
+            self.hits += 1
+            if self.hits % self.emit_every == 0:
+                self._gauge()
             yield {self._ctl_key: np.stack(cols, axis=1)}
 
     @property
@@ -160,15 +181,30 @@ class DeviceCachedSource:
                 self._ctl_key: (self.batch_size, self._ctl_columns())}
 
     def close(self):
+        if self.hits % self.emit_every:
+            self._gauge()              # the last partial window's gauge
         self._images = self._labels = None
 
 
+def _log_miss_mode(metrics, src, reason, **extra):
+    """Promotion refused: every batch will stream through the host — an
+    all-miss ``device_cache`` gauge with the reason, so a report can tell
+    "cache never engaged" from "no gauge at all"."""
+    if metrics is None:
+        return
+    metrics.log("device_cache", source=getattr(src, "source", "?"),
+                resident=False, reason=reason, hits=0,
+                misses=getattr(src, "num_records", None), hit_rate=0.0,
+                **extra)
+
+
 def maybe_device_cache(src, budget_mb=2048, iter_size=1, device="cuda",
-                       log_fn=print):
+                       log_fn=print, metrics=None):
     """Promote a device-mode DatumBatchSource to a DeviceCachedSource when
     the whole dataset fits the budget; otherwise return it unchanged (the
     streaming device-transform feed), after ``log_fn`` says why on one
-    line.
+    line and, for a device-mode Datum source, ``metrics`` gets the
+    refusal's all-miss ``device_cache`` event (the JAX package's).
 
     The gate is the JAX package's: the dataset is sized from its first
     record's actual dtype (float_data Datums decode to float32, 4x the
@@ -185,6 +221,7 @@ def maybe_device_cache(src, budget_mb=2048, iter_size=1, device="cuda",
     if int(iter_size) > 1:
         log(f"device cache: {src.source} streams (iter_size "
             f"{int(iter_size)} > 1 stacks micro-batches on the host)")
+        _log_miss_mode(metrics, src, "iter_size")
         return src
     arr, _ = datum_to_array(next(src.db.items())[1])
     est = len(src.db) * (arr.size * arr.itemsize + 4)
@@ -193,5 +230,7 @@ def maybe_device_cache(src, budget_mb=2048, iter_size=1, device="cuda",
         log(f"device cache: {src.source} streams ({needed / 2 ** 20:.1f} "
             f"MiB needed for {est / 2 ** 20:.1f} MiB of records, over the "
             f"{budget_mb:g} MiB budget SPARKNET_DEVICE_CACHE_MB leaves)")
+        _log_miss_mode(metrics, src, "over_budget", est_bytes=est,
+                       budget_mb=budget_mb)
         return src
-    return DeviceCachedSource(src, device)
+    return DeviceCachedSource(src, device, metrics=metrics)

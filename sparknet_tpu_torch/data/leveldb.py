@@ -1,8 +1,8 @@
 """Pure-Python LevelDB — reader (full DB: SSTables + MANIFEST + WAL) and a
 single-table writer, dependency-free (the port's copy of
-sparknet_tpu/data/leveldb.py, without its native crc32c and Snappy
-dispatch: the JAX package's ``native/`` library is host C++ that the
-port does not build).
+sparknet_tpu/data/leveldb.py). crc32c and Snappy dispatch to the native
+host library (native/) where it builds, as there; the pure-Python codecs
+below are the fallback and the executable spec.
 
 The reference opens Datum databases through either backend
 (``db.cpp:10-22`` dispatch; ``db_leveldb.cpp:8-19`` with block_size 64 KiB)
@@ -73,12 +73,24 @@ for _n in range(256):
 del _c, _n
 
 
-def crc32c(data, crc=0):
+def _crc32c_py(data, crc=0):
     c = crc ^ 0xffffffff
     tab = _CRC_TABLE
     for b in data:
         c = tab[(c ^ b) & 0xff] ^ (c >> 8)
     return c ^ 0xffffffff
+
+
+def crc32c(data, crc=0):
+    # the native kernel (native/pipeline.cpp crc32c_update) wins past a
+    # few dozen bytes; the ctypes call itself costs ~1us, so tiny inputs
+    # (the 1-byte record-type prefixes) stay in Python
+    if len(data) >= 64:
+        from .. import native
+        c = native.crc32c(data, crc)
+        if c is not None:
+            return c
+    return _crc32c_py(data, crc)
 
 
 def crc_mask(crc):
@@ -96,8 +108,23 @@ def crc_unmask(masked):
 def snappy_decompress(data):
     """Full Snappy format decoder: varint32 length preamble, then literal
     (00), copy-1 (01), copy-2 (10), copy-4 (11) elements; copies may
-    overlap their own output (RLE-style) so those run byte-wise."""
+    overlap their own output (RLE-style) so those run byte-wise.
+
+    Dispatches to the native decoder (native/pipeline.cpp
+    snappy_uncompress) when the library is available — the block decode
+    is the hot loop of LevelDB streaming; the pure-Python path below is
+    the fallback, and the error path with the descriptive diagnostics."""
     n, p = _get_varint(data, 0)
+    from .. import native
+    out_native = native.snappy_uncompress(data, n)
+    if out_native is not None:
+        return out_native
+    return _snappy_decompress_py(data, n, p)
+
+
+def _snappy_decompress_py(data, n, p):
+    """The pure-Python decoder from the element stream at ``p``, for a
+    declared length ``n``."""
     out = bytearray()
     while p < len(data):
         tag = data[p]

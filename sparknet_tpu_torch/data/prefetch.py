@@ -1,22 +1,23 @@
-"""Background prefetch: the reference's double-buffered loader thread.
+"""Background prefetch: the reference's double-buffered loader threads.
 
-The port of sparknet_tpu/data/prefetch.py: ``PrefetchIterator`` (one
-worker thread running the host-side produce loop into a bounded queue,
+The port of sparknet_tpu/data/prefetch.py: ``PrefetchIterator`` (worker
+threads running the host-side produce loop into a bounded queue,
 Caffe's BasePrefetchingDataLayer, base_data_layer.cpp:70-101, with an
-optional worker-side ``transform``), ``H2DStager`` (the host-to-card
-copy in that worker, on a side stream) and ``EchoIterator`` (data
-echoing). Left out (ROADMAP A6): the queue-depth ``prefetch`` metrics
-events and static extras, several workers, and the chaos hook of the
-stager.
+optional worker-side ``transform``, and the queue-depth ``prefetch``
+metrics events), ``H2DStager`` (the host-to-card copy in that worker, on
+a side stream, with its ``h2d_stage`` events and chaos hook) and
+``EchoIterator`` (data echoing).
 
-Every put the worker makes is bounded, so ``close()`` always ends it:
-it stops the worker, drains the queue and joins the thread within a
-timeout. (The JAX package's worker ends with an unbounded put of its
-end-of-stream marker, which can block on a full queue after close.)
+Every put a worker makes is bounded, so ``close()`` always ends the
+pool: it stops the workers, drains the queue and joins the threads
+within a timeout. (The JAX package's last worker ends with an unbounded
+put of its end-of-stream marker, which can block on a full queue after
+close.)
 """
 
 import queue
 import threading
+import time
 
 import numpy as np
 import torch
@@ -25,31 +26,62 @@ _END = object()
 
 
 class PrefetchIterator:
-    """Wrap a batch iterator with one background worker.
+    """Wrap a batch iterator with ``workers`` background threads.
 
     depth: max buffered batches (2 = classic double buffering).
     transform: optional fn(item) -> item run in the worker (e.g. an
     H2DStager, so a batch's copy to the card overlaps the running step).
+    workers > 1 share one upstream iterator under a lock and keep no
+    ordering guarantee (the default, 1, keeps the source's order, as the
+    reference's single reader does).
+    metrics: optional utils.metrics.MetricsLogger; queue-depth gauges are
+    emitted as ``prefetch`` events every ``emit_every`` consumer gets
+    (and once at close). An empty queue at get time means the consumer
+    is about to block on the producer: a sustained empty_frac near 1.0
+    says the input pipeline, not the card, is the bound.
+    extra: optional static fields (echo factor, wire mode, staging)
+    merged into stats() and the ``prefetch`` event.
 
     A worker exception is raised in the consumer exactly once, with the
     original traceback, after the batches produced before the failure;
-    iteration then ends (StopIteration).
+    iteration then ends (StopIteration). The failing worker also stops
+    its siblings, so a poisoned source cannot keep a pool running.
     """
 
-    def __init__(self, source, depth=2, name="prefetch", transform=None):
+    def __init__(self, source, depth=2, transform=None, workers=1,
+                 metrics=None, name="prefetch", emit_every=100, extra=None):
         self._q = queue.Queue(maxsize=depth)
         self._transform = transform
-        self._stop = threading.Event()
+        self._stop = threading.Event()      # the workers stop producing
+        self._closed = threading.Event()    # close(): no put waits on
         self._done = False
         self._error = None
-        self._source = iter(source)
-        self._thread = threading.Thread(target=self._run, daemon=True,
-                                        name=f"sparknet-{name}")
-        self._thread.start()
+        self._src_lock = threading.Lock()
+        # workers > 1 share one upstream iterator; the lock checker
+        # (`lint`, SPK201) verifies every next() holds the lock
+        self._source = iter(source)         # spk: guarded-by=_src_lock
+        self._metrics = metrics
+        self._name = name
+        self._emit_every = max(1, emit_every)
+        self._extra = dict(extra) if extra else {}
+        self._depth = depth
+        self._gets = 0
+        self._depth_sum = 0
+        self._empty_gets = 0
+        self._stats_emitted = False
+        n = max(1, int(workers))
+        self._live_lock = threading.Lock()
+        self._live = n                      # spk: guarded-by=_live_lock
+        self._threads = [
+            threading.Thread(target=self._run, daemon=True,
+                             name=f"sparknet-{name}-{i}")
+            for i in range(n)]
+        for t in self._threads:
+            t.start()
 
     def _put(self, item):
         """Queue ``item`` unless close() was called; False when it was."""
-        while not self._stop.is_set():
+        while not self._closed.is_set():
             try:
                 self._q.put(item, timeout=0.05)
                 return True
@@ -59,15 +91,27 @@ class PrefetchIterator:
 
     def _run(self):
         try:
-            for item in self._source:
+            while not self._stop.is_set():
+                with self._src_lock:
+                    try:
+                        item = next(self._source)
+                    except StopIteration:
+                        break
                 if self._transform is not None:
                     item = self._transform(item)
-                if not self._put(item):
-                    return
+                if self._stop.is_set() or not self._put(item):
+                    break
         except BaseException as e:     # surfaced on the consumer side
-            self._error = e
+            with self._live_lock:
+                if self._error is None:      # the first failure wins
+                    self._error = e
+            self._stop.set()                 # and stops the siblings
         finally:
-            self._put(_END)
+            with self._live_lock:
+                self._live -= 1
+                last = self._live == 0
+            if last:
+                self._put(_END)
 
     def __iter__(self):
         return self
@@ -83,24 +127,58 @@ class PrefetchIterator:
     def __next__(self):
         if self._done:
             self._finish()
+        d = self._q.qsize()          # approximate, fine for a gauge
+        self._gets += 1
+        self._depth_sum += d
+        if d == 0:
+            self._empty_gets += 1
+        if self._metrics is not None and self._gets % self._emit_every == 0:
+            self._emit_stats()
         item = self._q.get()
         if item is _END:
             self._finish()
         return item
 
+    def stats(self):
+        """Queue-depth gauges over the consumer's gets so far."""
+        g = self._gets
+        out = {"name": self._name, "gets": g, "depth_cap": self._depth,
+               "depth_mean": round(self._depth_sum / g, 3) if g else None,
+               "empty_frac": round(self._empty_gets / g, 3) if g else None}
+        out.update(self._extra)
+        return out
+
+    def _emit_stats(self):
+        self._metrics.log("prefetch", **self.stats())
+
     def close(self, timeout=5.0):
-        """Stop the worker, drop what it buffered and join it; returns
-        whether it ended within ``timeout`` seconds (a worker inside a
-        slow ``next()`` of its source ends when that call returns)."""
+        """Emit the last gauge, stop the workers, drop what they buffered
+        and join them; returns whether they all ended within ``timeout``
+        seconds (a worker inside a slow ``next()`` of its source ends
+        when that call returns)."""
+        if self._metrics is not None and self._gets \
+                and not self._stats_emitted:
+            self._stats_emitted = True
+            self._emit_stats()
         self._done = True
         self._stop.set()
+        self._closed.set()
         try:
             while True:
                 self._q.get_nowait()
         except queue.Empty:
             pass
-        self._thread.join(timeout)
-        return not self._thread.is_alive()
+        end = time.monotonic() + timeout
+        for t in self._threads:
+            t.join(max(0.0, end - time.monotonic()))
+        return not any(t.is_alive() for t in self._threads)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
 
 class StagedBatch(dict):
@@ -142,55 +220,114 @@ class H2DStager:
     batches still queued, the one in use and those in flight.
 
     With ``device="cpu"`` it is the identity, as it is for a batch whose
-    values are already tensors (made on the device, or staged).
-    ``chaos`` hooks ChaosMonkey.maybe_slow_h2d: an armed ``slow_h2d``
-    makes every staged batch pay its injected wire time.
+    values are already tensors (made on the device, or staged); either
+    way the call is counted. ``chaos`` hooks ChaosMonkey.maybe_slow_h2d:
+    an armed ``slow_h2d`` makes every staged batch pay its injected wire
+    time. ``metrics`` gets an ``h2d_stage`` event every ``emit_every``
+    calls: bytes per item, the host's dispatch time (the pinned copy and
+    the enqueue) and its wait for a slot's previous copy, and the copies
+    still in flight.
+
+    Safe from several prefetch workers: the slot rotation and counters
+    are lock-guarded, and each slot's buffers are held under the slot's
+    own lock from the wait for its last copy to the record of its new
+    one.
     """
 
-    def __init__(self, slots=2, device="cuda", chaos=None):
+    def __init__(self, slots=2, device="cuda", chaos=None, metrics=None,
+                 name="h2d", emit_every=50):
         self._chaos = chaos
         self.device = torch.device(device)
         self.slots = max(1, int(slots))
+        self._metrics = metrics
+        self._name = name
+        self._emit_every = max(1, emit_every)
         self._pinned = [None] * self.slots
         self._events = [None] * self.slots
-        self._next = 0
-        self._stream = None
-        self.puts = 0
+        self._slot_locks = [threading.Lock() for _ in range(self.slots)]
+        self._lock = threading.Lock()
+        self._stream = None                 # spk: guarded-by=_lock
+        self._next = 0                      # spk: guarded-by=_lock
+        self.puts = 0                       # spk: guarded-by=_lock
+        self._bytes = 0                     # spk: guarded-by=_lock
+        self._dispatch_s = 0.0              # spk: guarded-by=_lock
+        self._wait_s = 0.0                  # spk: guarded-by=_lock
 
     def __call__(self, batch):
+        nbytes = sum(int(getattr(v, "nbytes", 0)) for v in batch.values())
         if self._chaos is not None:
-            self._chaos.maybe_slow_h2d(nbytes=sum(
-                int(getattr(v, "nbytes", 0)) for v in batch.values()))
-        if self.device.type != "cuda" or any(
+            self._chaos.maybe_slow_h2d(nbytes=nbytes)
+        t0 = time.perf_counter()
+        wait = 0.0
+        out = batch
+        if self.device.type == "cuda" and not any(
                 torch.is_tensor(v) for v in batch.values()):
-            return batch
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        slot = self._next
-        self._next = (slot + 1) % self.slots
-        if self._events[slot] is not None:
-            self._events[slot].synchronize()   # the slot's last copy is done
-        arrays = {k: torch.from_numpy(np.ascontiguousarray(v))
-                  for k, v in batch.items()}
-        pinned = self._pinned[slot]
-        if pinned is None or [(k, t.shape, t.dtype) for k, t in
-                              pinned.items()] != \
-                [(k, a.shape, a.dtype) for k, a in arrays.items()]:
-            pinned = self._pinned[slot] = {
-                k: torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-                for k, a in arrays.items()}
-        for k, a in arrays.items():
-            pinned[k].copy_(a)
-        out = StagedBatch()
-        out.device = self.device
-        with torch.cuda.stream(self._stream):
-            for k, t in pinned.items():
-                out[k] = t.to(self.device, non_blocking=True)
-            out.ready = torch.cuda.Event()
-            out.ready.record(self._stream)
-        self._events[slot] = out.ready
-        self.puts += 1
+            out, wait = self._stage(batch)
+        dispatch = time.perf_counter() - t0 - wait
+        with self._lock:
+            self.puts += 1
+            self._bytes += nbytes
+            self._dispatch_s += dispatch
+            self._wait_s += wait
+            emit = (self._metrics is not None
+                    and self.puts % self._emit_every == 0)
+            snap = self._stats_locked() if emit else None
+        if emit:
+            self._metrics.log(
+                "h2d_stage", name=snap["name"], puts=snap["puts"],
+                bytes=snap["bytes"], kb_per_item=snap["kb_per_item"],
+                dispatch_ms=snap["dispatch_ms"], wait_ms=snap["wait_ms"],
+                in_flight=snap["in_flight"], slots=snap["slots"])
         return out
+
+    def _stage(self, batch):
+        """Copy ``batch`` into the next slot's pinned buffers and enqueue
+        their copies to the card; returns (StagedBatch, seconds waited
+        for the slot's previous copy)."""
+        with self._lock:
+            slot = self._next
+            self._next = (slot + 1) % self.slots
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            stream = self._stream
+        with self._slot_locks[slot]:
+            t = time.perf_counter()
+            if self._events[slot] is not None:
+                self._events[slot].synchronize()   # its last copy is done
+            wait = time.perf_counter() - t
+            arrays = {k: torch.from_numpy(np.ascontiguousarray(v))
+                      for k, v in batch.items()}
+            pinned = self._pinned[slot]
+            if pinned is None or [(k, t.shape, t.dtype) for k, t in
+                                  pinned.items()] != \
+                    [(k, a.shape, a.dtype) for k, a in arrays.items()]:
+                pinned = self._pinned[slot] = {
+                    k: torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                    for k, a in arrays.items()}
+            for k, a in arrays.items():
+                pinned[k].copy_(a)
+            out = StagedBatch()
+            out.device = self.device
+            with torch.cuda.stream(stream):
+                for k, t in pinned.items():
+                    out[k] = t.to(self.device, non_blocking=True)
+                out.ready = torch.cuda.Event()
+                out.ready.record(stream)
+            self._events[slot] = out.ready
+        return out, wait
+
+    def _stats_locked(self):        # spk: holds=_lock
+        p = self.puts
+        return {
+            "name": self._name, "puts": p, "bytes": self._bytes,
+            "kb_per_item": round(self._bytes / p / 1024.0, 1) if p else 0.0,
+            "dispatch_ms": round(self._dispatch_s / p * 1e3, 3) if p
+            else 0.0,
+            "wait_ms": round(self._wait_s / p * 1e3, 3) if p else 0.0,
+            "in_flight": sum(1 for e in self._events
+                             if e is not None and not e.query()),
+            "slots": self.slots}
+
 
 
 class EchoIterator:

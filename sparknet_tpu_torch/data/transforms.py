@@ -5,50 +5,19 @@ sparknet_tpu/data/transforms.py).
 Replaces caffe/src/caffe/data_transformer.cpp (crop/mirror/scale/mean,
 :42-51) and the per-image Scala preprocessing closures
 (ImageNetApp.scala:155-169: random 227x227 crop + mean subtraction; test
-variant :117-131: center crop). The JAX package runs these through its
-``native/`` host C++ library where it builds; the port runs the numpy
-path of that library's loader (sparknet_tpu/native/__init__.py
-transform_batch and accumulate_sum), which gives the same numbers.
-data/device_transform.py is the same arithmetic on the card.
+variant :117-131: center crop). The crop/mirror/mean/scale pass and the
+mean accumulator run in the native host library (native/, built with
+g++ on first use; its numpy path gives the same numbers where it does
+not build), as the JAX package's do. data/device_transform.py is the
+same arithmetic on the card.
 """
 
 import os
 
 import numpy as np
 
-
-def transform_batch(images, crop, ys=None, xs=None, mirror=None, mean=None,
-                    scale=1.0, full_mean=False):
-    """uint8 (N,C,H,W) -> float32 (N,C,crop,crop).
-
-    mean: None | (C,) per-channel | (C,crop,crop) cropped mean image
-    (subtracted after the mirror) | with full_mean=True a (C,H,W)
-    source-size mean image subtracted at the crop-window source index
-    before the mirror — the reference mean_file semantics
-    (data_transformer.cpp:42-51).
-    ys/xs: per-image crop offsets (None -> 0: top-left/no crop).
-    mirror: per-image flags (None -> no flips).
-    """
-    images = np.ascontiguousarray(images, np.uint8)
-    n, c, h, w = images.shape
-    mean_kind = check_mean(mean, full_mean, c, h, w, crop)
-    out = np.empty((n, c, crop, crop), np.float32)
-    for i in range(n):
-        y0 = int(ys[i]) if ys is not None else 0
-        x0 = int(xs[i]) if xs is not None else 0
-        win = images[i, :, y0:y0 + crop, x0:x0 + crop].astype(np.float32)
-        if mean_kind == 3:  # source-indexed subtract, then mirror
-            win = win - mean[:, y0:y0 + crop, x0:x0 + crop]
-        if mirror is not None and mirror[i]:
-            win = win[:, :, ::-1]
-        out[i] = win
-    if mean_kind == 1:
-        out -= mean.reshape(1, c, 1, 1)
-    elif mean_kind == 2:
-        out -= mean
-    if scale != 1.0:
-        out *= scale
-    return out
+from .. import native
+from ..native import transform_batch  # noqa: F401  (the transforms' API)
 
 
 def check_mean(mean, full_mean, c, h, w, crop):
@@ -251,8 +220,7 @@ class DataTransformer:
 
 def accumulate_sum(images, acc):
     """Add the sum over the batch of uint8 (N,...) into int64 acc (...)."""
-    acc += np.asarray(images, np.uint8).astype(np.int64).sum(axis=0)
-    return acc
+    return native.accumulate_sum(np.asarray(images), acc)
 
 
 def compute_mean(image_iter, shape):
@@ -261,7 +229,7 @@ def compute_mean(image_iter, shape):
     acc = np.zeros(shape, np.int64)
     count = 0
     for batch in image_iter:
-        accumulate_sum(batch, acc)
+        native.accumulate_sum(np.asarray(batch), acc)
         count += len(batch)
     if count == 0:
         raise ValueError("empty image stream")

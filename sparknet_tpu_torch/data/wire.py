@@ -200,3 +200,13 @@ class WireCodec:
     def kb_per_image(self):
         """Shipped pixel bytes per image under this codec."""
         return int(np.prod(self.wire_shape)) / 1024.0
+
+    def describe(self):
+        """The codec's fields for the ``prefetch`` event's extras."""
+        row = {"wire": self.mode,
+               "h2d_kb_per_image": round(self.kb_per_image, 2),
+               "wire_reduction": round(
+                   self.raw_kb_per_image / max(self.kb_per_image, 1e-9), 2)}
+        if self.packing:
+            row["wire_bits"] = self.bits
+        return row

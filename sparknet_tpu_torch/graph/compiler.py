@@ -23,8 +23,18 @@ ForwardFromTo :565, loss weights):
     forward, runs of layers sharing a ``prefix/`` name run under
     ``torch.utils.checkpoint``, so the backward recomputes them
     (``_remat_groups``, ``apply``).
-  * Scan-over-layers and fission are not ported: every layer runs
-    unrolled, as the JAX package does off a TPU.
+  * Inception fission (graph/fission.py, SPARKNET_FISSION, on by
+    default as in the JAX package on every backend): a channel Concat
+    stays a virtual ``Branches``; a group-1 Convolution consuming it runs
+    one partial conv per branch and a MAX/AVE Pooling maps over the
+    branches. ``apply`` returns a ``LazyBlobs`` that concatenates a
+    virtual blob only when a caller reads it.
+  * Scan-over-layers (SPARKNET_SCAN / ``--scan``, ``_scan_runs``):
+    under ``on`` a chain of structurally identical ``prefix/`` blocks
+    runs as the JAX package's lax.scan body runs it (each layer's own
+    apply, no fission, no epilogue), and its internal blobs are absent
+    from the result; ``auto`` scans only on a TPU there, so here it is
+    off.
 """
 
 import functools
@@ -37,6 +47,7 @@ import torch
 from ..device import resolve_device
 from ..proto.message import Message
 from . import fillers as F
+from . import fission
 from .registry import get as get_layer, V1_TYPE_MAP
 
 # import for registration side effects
@@ -189,6 +200,14 @@ def filter_net(net_param, phase, level=0, stages=()):
     return out
 
 
+def scan_mode():
+    """SPARKNET_SCAN: auto (default) | on | off."""
+    mode = os.environ.get("SPARKNET_SCAN", "auto").lower()
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"SPARKNET_SCAN={mode!r}: want auto|on|off")
+    return mode
+
+
 def epilogue_mode():
     """SPARKNET_EPILOGUE: auto (default) | on | off."""
     mode = os.environ.get("SPARKNET_EPILOGUE", "auto").lower()
@@ -225,6 +244,8 @@ class CompiledNet:
 
     ``remat`` (None: SPARKNET_REMAT) is the rematerialization policy of
     a TRAIN forward: "none", "dots" or "full" (Solver.set_remat).
+    ``scan`` (None: SPARKNET_SCAN) is the scan-over-layers mode: "auto",
+    "on" or "off" (Solver.set_scan).
     """
 
     def __init__(self, net_param, phase=TEST, feed_shapes=None, level=0,
@@ -237,6 +258,8 @@ class CompiledNet:
             else _env_precision()
         self.remat = None              # None: SPARKNET_REMAT
         self._remat_cache = None
+        self.scan = None               # None: SPARKNET_SCAN
+        self._scan_cache = None
         self.device = resolve_device(device)
         self.net_param = filter_net(net_param, phase, level, stages)
         self.name = net_param.name
@@ -503,11 +526,12 @@ class CompiledNet:
         return sorted(produced & needed)
 
     def _apply_range(self, params, state, new_state, blobs, lo, hi, batch,
-                     train, rngs, ep):
+                     train, rngs, ep, fiss=False):
         """Run layers [lo, hi) over the mutable blob dict (the body a
         remat segment replays). ``ep``: the active epilogue sites; a site
         fuses only when its whole conv/ReLU(/LRN) window lies inside
-        [lo, hi), else its layers run unfused (right either way)."""
+        [lo, hi), else its layers run unfused (right either way).
+        ``fiss``: dispatch through fission.try_apply first."""
         from ..ops import cuda_epilogue as ce
         skip = set()
         for li in range(lo, hi):
@@ -524,6 +548,7 @@ class CompiledNet:
             if fuse is not None and max(x for x in fuse
                                         if x is not None) < hi:
                 ri, lrni = fuse
+                bvals = [fission.materialize(v) for v in bvals]
                 y = impl.apply_raw(lparams, bvals, train)
                 skip.add(ri)
                 if lrni is None:
@@ -539,25 +564,32 @@ class CompiledNet:
                     # absent, never stale (the plan proved no consumer)
                     blobs.pop(tops[0], None)
                 continue
-            if impl.has_state:
-                tvals, new_state[lp.name] = impl.apply_stateful(
-                    lparams, state[lp.name], bvals, train)
-            elif impl.needs_rng:
-                tvals = impl.apply(lparams, bvals, train, rngs.get(li))
-            else:
-                tvals = impl.apply(lparams, bvals, train)
+            tvals = fission.try_apply(lp, impl, lparams, bvals, train) \
+                if fiss else None
+            if tvals is None:
+                # the normal path; a virtual concat bottom materializes
+                bvals = [fission.materialize(v) for v in bvals]
+                if impl.has_state:
+                    tvals, new_state[lp.name] = impl.apply_stateful(
+                        lparams, state[lp.name], bvals, train)
+                elif impl.needs_rng:
+                    tvals = impl.apply(lparams, bvals, train, rngs.get(li))
+                else:
+                    tvals = impl.apply(lparams, bvals, train)
             for t, v in zip(tops, tvals):
                 blobs[t] = v
 
     def _apply_segment(self, params, state, new_state, blobs, lo, hi,
-                       batch, train, rngs, ep, pol):
+                       batch, train, rngs, ep, pol, fiss):
         """Layers [lo, hi) under torch.utils.checkpoint with policy
         ``pol``. Each rng-consuming layer of the segment draws from its
         own torch.Generator, which the checkpoint's RNG stash (the global
         CPU/CUDA states) does not cover: their states are taken before
         the segment and set again at the start of every run of it, so
         the recompute draws the forward's masks. Net-state updates come
-        from the forward's outputs only, never the recompute's."""
+        from the forward's outputs only, never the recompute's. A virtual
+        concat crosses the segment's boundary as its branches
+        (fission.spread)."""
         in_names = sorted({b for j in range(lo, hi)
                            for b in self.layers[j][2] if b in blobs})
         out_names = self._segment_externals(lo, hi)
@@ -565,18 +597,23 @@ class CompiledNet:
                              if self.layers[j][1].has_state})
         gens = {j: rngs[j] for j in range(lo, hi) if j in rngs}
         gen_states = {j: g.get_state() for j, g in gens.items()}
+        in_flat, in_parts = fission.spread([blobs[n] for n in in_names])
+        out_parts = []          # set by the forward's run of seg_fn
 
-        def seg_fn(*in_vals):
+        def seg_fn(*flat):
             for j, g in gens.items():
                 g.set_state(gen_states[j])
-            sblobs = dict(zip(in_names, in_vals))
+            sblobs = dict(zip(in_names, fission.gather(flat, in_parts)))
             sstate = {}
             self._apply_range(params, state, sstate, sblobs, lo, hi, batch,
-                              train, rngs, ep)
-            return (tuple(sblobs[n] for n in out_names)
-                    + tuple(t for n in seg_states for t in sstate[n]))
+                              train, rngs, ep, fiss)
+            outs, out_parts[:] = fission.spread([sblobs[n]
+                                                 for n in out_names])
+            return tuple(outs) + tuple(t for n in seg_states
+                                       for t in sstate[n])
 
-        outs = _checkpointed(seg_fn, pol, *[blobs[n] for n in in_names])
+        outs = _checkpointed(seg_fn, pol, *in_flat)
+        k = sum(max(c, 1) for c in out_parts)
         # a blob produced before the segment and overwritten in place
         # inside it (top == bottom across the boundary) must not survive
         # with its pre-segment value: internal blobs are absent, never
@@ -584,13 +621,153 @@ class CompiledNet:
         produced = {t for j in range(lo, hi) for t in self.layers[j][3]}
         for n in produced.difference(out_names):
             blobs.pop(n, None)
-        for n, v in zip(out_names, outs):
+        for n, v in zip(out_names, fission.gather(outs[:k], out_parts)):
             blobs[n] = v
-        k = len(out_names)
         for n in seg_states:
             m = len(state[n])
             new_state[n] = list(outs[k:k + m])
             k += m
+
+    def _scan_runs(self):
+        """Scan-over-layers sites, cached: maximal runs of >= 2
+        consecutive structurally identical "prefix/" layer groups (the
+        zoo's "block{i}/..." convention), each chained through a single
+        boundary blob — the JAX package's rule exactly.
+
+        Two groups are identical when every corresponding layer matches
+        on type, name suffix, prefix-stripped bottoms/tops, top blob
+        shapes and owned param shapes, and is stateless, rng-free,
+        loss-free, feed-free, with no cross-layer param sharing.
+        Chaining requires group i's one external input to be group i-1's
+        one externally consumed top, read by nothing else.
+
+        Returns [{lo, hi, glen, n, entry, body_out, out}]: layer range,
+        group length and count, group 0's external input blob, group 0's
+        boundary top (the carry) and the last group's boundary blob."""
+        if self._scan_cache is not None:
+            return self._scan_cache
+        pgroups = []                       # (prefix, lo, hi)
+        prefix, start = None, 0
+        for li, (lp, _, _, _) in enumerate(self.layers):
+            p = lp.name.split("/")[0] if "/" in lp.name else None
+            if p != prefix:
+                if prefix is not None:
+                    pgroups.append((prefix, start, li))
+                prefix, start = p, li
+        if prefix is not None:
+            pgroups.append((prefix, start, len(self.layers)))
+        nl = len(self.layers)
+
+        def group_info(gi):
+            """(signature, entry, boundary) or None if ineligible."""
+            pfx, lo, hi = pgroups[gi]
+            produced, sig, externals = set(), [], set()
+            strip = len(pfx) + 1
+            for li in range(lo, hi):
+                lp, impl, bottoms, tops = self.layers[li]
+                if getattr(impl, "is_feed", False) or impl.has_state \
+                        or impl.needs_rng \
+                        or any(self.loss_weights[lp.name]):
+                    return None
+                if any(owner != lp.name
+                       for owner, _ in self.param_refs[lp.name]):
+                    return None
+                bsig = []
+                for b in bottoms:
+                    if b in produced:
+                        bsig.append(b[strip:] if b.startswith(pfx + "/")
+                                    else b)
+                    else:
+                        externals.add(b)
+                        bsig.append("\x00ENTRY")
+                pshapes = tuple((self.param_meta[k][0],)
+                                for k in self.param_refs[lp.name])
+                sig.append((lp.type, lp.name[strip:], tuple(bsig),
+                            tuple(t[strip:] if t.startswith(pfx + "/")
+                                  else "\x00T:" + t for t in tops),
+                            tuple(tuple(self.blob_shapes[t]) for t in tops),
+                            pshapes))
+                produced.update(tops)
+            if len(externals) != 1:
+                return None
+            out = {t for li in range(lo, hi) for t in self.layers[li][3]
+                   if t in self.output_blobs
+                   or any(t in self.layers[lj][2] for lj in range(hi, nl))}
+            if len(out) != 1:
+                return None
+            return tuple(sig), next(iter(externals)), next(iter(out))
+
+        infos = [group_info(gi) for gi in range(len(pgroups))]
+
+        def chains(a, b):
+            """Group b continues group a: same structure, b's input is
+            a's boundary, and that blob is read by b alone."""
+            ia, ib = infos[a], infos[b]
+            if ia is None or ib is None or ia[0] != ib[0]:
+                return False
+            if pgroups[a][2] != pgroups[b][1]:     # must be adjacent
+                return False
+            if ib[1] != ia[2] or ia[2] in self.output_blobs:
+                return False
+            bhi = pgroups[b][2]
+            return not any(ia[2] in self.layers[lj][2]
+                           for lj in range(bhi, nl))
+
+        runs, gi = [], 0
+        while gi < len(pgroups):
+            gj = gi
+            while gj + 1 < len(pgroups) and chains(gj, gj + 1):
+                gj += 1
+            if gj > gi:
+                lo, hi = pgroups[gi][1], pgroups[gj][2]
+                runs.append({"lo": lo, "hi": hi,
+                             "glen": pgroups[gi][2] - pgroups[gi][1],
+                             "n": gj - gi + 1,
+                             "entry": infos[gi][1],
+                             "body_out": infos[gi][2],
+                             "out": infos[gj][2]})
+            gi = gj + 1
+        self._scan_cache = runs
+        return runs
+
+    def _scan_enabled(self):
+        """The scan policy (``self.scan``, else SPARKNET_SCAN): on scans
+        everywhere; auto scans only on a TPU in the JAX package (XLA:CPU
+        pessimizes loop bodies), so it is off here, as is off."""
+        mode = self.scan if self.scan is not None else scan_mode()
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"scan={mode!r}: want auto|on|off")
+        return mode == "on"
+
+    def _apply_scan(self, run, params, state, new_state, blobs, batch,
+                    train, rngs, groups, pol):
+        """Execute one scan run: its layers through the normal path, each
+        block a remat segment under remat, as the JAX package's lax.scan
+        body calls them: the entry blob materialized, then every layer's
+        own apply, with neither fission nor the epilogue. Then every blob
+        the run made but its last boundary blob is dropped
+        (``scan_dropped``): absent, as in the JAX package."""
+        lo, hi = run["lo"], run["hi"]
+        blobs[run["entry"]] = fission.materialize(blobs[run["entry"]])
+        li = lo
+        while li < hi:
+            end = groups.get(li)
+            if end is None:
+                self._apply_range(params, state, new_state, blobs, li,
+                                  li + 1, batch, train, rngs, {})
+                li += 1
+            else:
+                self._apply_segment(params, state, new_state, blobs, li,
+                                    end, batch, train, rngs, {}, pol, False)
+                li = end
+        for n in self.scan_dropped(run):
+            blobs.pop(n, None)
+
+    def scan_dropped(self, run):
+        """The blobs a scan run leaves absent: all it produces but its
+        last boundary blob."""
+        return {t for j in range(run["lo"], run["hi"])
+                for t in self.layers[j][3]} - {run["out"]}
 
     def apply(self, params, state, batch, train=None, generator=None):
         """Run the forward. TEST-phase callers wrap it in
@@ -598,48 +775,65 @@ class CompiledNet:
         autograd graph (``train`` defaults to the net's phase).
         ``generator`` seeds the per-layer randomness (TRAIN dropout).
 
-        Two policies, each read once per call, shape what comes back:
+        Four policies, each read once per call, shape what comes back:
         * remat (``self.remat``, else SPARKNET_REMAT: none|dots|full):
           with train=True each ``_remat_groups`` segment runs under
           torch.utils.checkpoint (``_apply_segment``); its internal
           blobs are absent from the returned dict (only its boundary
           blobs, loss tops and net outputs survive). A TEST forward
           runs no remat.
+        * scan (``self.scan``, else SPARKNET_SCAN: auto|on|off): each
+          ``_scan_runs`` chain runs through ``_apply_scan``; its
+          block-internal blobs are absent, and remat checkpoints each
+          block as a segment.
+        * fission (SPARKNET_FISSION, on by default): channel concats
+          stay virtual inside the forward; the returned LazyBlobs
+          concatenates one when a caller reads it.
         * epilogue (SPARKNET_EPILOGUE): a fused bias+ReLU+LRN site
           leaves its pre-LRN blob absent (never stale).
-        Keep both off to inspect every blob."""
+        Keep remat, scan and the epilogue off to inspect every blob."""
         if train is None:
             train = self.phase == TRAIN
         pol = (self.remat if self.remat is not None else _env_remat()) \
             if train else "none"
         if pol not in REMAT_POLICIES:
             raise ValueError(f"remat={pol!r}: want none|dots|full")
+        fiss = fission.enabled()
         groups = self._remat_groups() if pol != "none" else {}
+        scans = {r["lo"]: r for r in self._scan_runs()} \
+            if self._scan_enabled() else {}
         ep = self._active_epilogue()
         rngs = self._layer_generators(generator) if train else {}
         blobs = {n: self._feed(batch[n]) for n in self.net_inputs}
         new_state = dict(state)
         li = 0
         while li < len(self.layers):
+            run = scans.get(li)
+            if run is not None:
+                self._apply_scan(run, params, state, new_state, blobs,
+                                 batch, train, rngs, groups, pol)
+                li = run["hi"]
+                continue
             hi = groups.get(li)
             if hi is not None:
                 self._apply_segment(params, state, new_state, blobs, li, hi,
-                                    batch, train, rngs, ep, pol)
+                                    batch, train, rngs, ep, pol, fiss)
                 li = hi
                 continue
             # a fusion site outside any segment runs its whole window in
             # one range so the fused branch engages; a window a segment
-            # starts inside runs unfused
+            # or a scan run starts inside runs unfused
             end = li + 1
             fuse = ep.get(li)
             if fuse is not None:
                 w_end = max(x for x in fuse if x is not None) + 1
-                if all(j not in groups for j in range(li + 1, w_end)):
+                if all(j not in groups and j not in scans
+                       for j in range(li + 1, w_end)):
                     end = w_end
             self._apply_range(params, state, new_state, blobs, li, end,
-                              batch, train, rngs, ep)
+                              batch, train, rngs, ep, fiss)
             li = end
-        return blobs, new_state
+        return fission.LazyBlobs(blobs), new_state
 
     def total_loss(self, blobs):
         """Weighted sum of the loss tops, in f32 (Caffe net.cpp

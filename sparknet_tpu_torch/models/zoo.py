@@ -331,7 +331,7 @@ def transformer_lm(vocab_size=512, seq_len=256, batch_size=8, d_model=256,
     are structurally isomorphic by construction and chain through a
     single boundary blob — exactly what graph/compiler.py's
     scan-over-layers detector (_scan_runs) requires to collapse the
-    stack into one lax.scan body (SPARKNET_SCAN / ``--scan``), and what
+    stack into one scan run (SPARKNET_SCAN / ``--scan``), and what
     the per-block remat segments checkpoint (``--remat``). Renaming
     blocks away from the shared prefix, sharing params across blocks,
     or giving one block a different shape silently forfeits both.

@@ -1,13 +1,14 @@
-"""Metrics event registry: a copy of sparknet_tpu/obs/event_schema.py's
-(the port imports nothing of the JAX package), which that package
-generates from its emit sites.
+"""Metrics event registry — GENERATED, do not edit by hand.
 
-Every event name the repo emits via ``metrics.log(...)`` with the union
-of field names seen at its emit sites (``open``: some site forwards
-**kwargs, so the field set is not closed). Consumers (obs/report.py) may
-only filter on names in this registry. tests/test_torch_obs.py holds the
-copy equal to the JAX registry and every event the port emits inside it;
-regenerate the JAX one and copy it when an event is added.
+Every event name the repo emits via ``metrics.log(...)`` with
+the union of field names seen at its emit sites (``open`` =
+some site forwards **kwargs, so the field set is not closed).
+Consumers (obs/report.py, obs/monitor.py) may only filter on
+names in this registry — lint rule SPK401 and
+tests/test_torch_obs.py both enforce it; the latter also holds
+it equal to the JAX package's registry.
+
+Regenerate with:  python -m sparknet_tpu_torch lint --write-event-schema
 """
 
 EVENTS = {

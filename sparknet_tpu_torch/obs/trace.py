@@ -32,8 +32,8 @@ class Tracer:
         self.t0 = time.monotonic()
         self._tls = threading.local()
         self._lock = threading.Lock()
-        self._buf = []              # guarded by _lock
-        self.dropped = 0            # guarded by _lock
+        self._buf = []              # spk: guarded-by=_lock
+        self.dropped = 0            # spk: guarded-by=_lock
         self.max_buffer = max_buffer
 
     def _stack(self):

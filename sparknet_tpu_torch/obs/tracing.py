@@ -112,7 +112,7 @@ class StageReservoir:
     def __init__(self, cap=4096):
         self.cap = int(cap)
         self._lock = threading.Lock()
-        self._samples = {}                # guarded by _lock
+        self._samples = {}                # spk: guarded-by=_lock
 
     def add(self, stages):
         with self._lock:
@@ -175,11 +175,11 @@ class BurnRateLedger:
         self.log = log_fn or (lambda *a: None)
         self._bin_s = max(self.fast_s[0] / 30.0, 1e-6)
         self._lock = threading.Lock()
-        self._bins = collections.deque()  # guarded by _lock
-        self._good = 0                    # guarded by _lock
-        self._bad = 0                     # guarded by _lock
-        self._alert = None                # guarded by _lock
-        self.last = None                  # guarded by _lock
+        self._bins = collections.deque()  # spk: guarded-by=_lock
+        self._good = 0                    # spk: guarded-by=_lock
+        self._bad = 0                     # spk: guarded-by=_lock
+        self._alert = None                # spk: guarded-by=_lock
+        self.last = None                  # spk: guarded-by=_lock
 
     def good(self, code, latency_ms):
         """The SLI: did this response meet the latency SLO?"""

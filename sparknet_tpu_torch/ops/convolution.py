@@ -102,6 +102,25 @@ class Convolution(Layer):
                          stride=(self.sh, self.sw),
                          padding=(self.ph, self.pw), groups=self.group)]
 
+    def apply_fissioned(self, params, branches, train):
+        """The conv over a virtual concat (graph/fission.py): one partial
+        conv per branch on the matching input-channel slice of the same
+        weight blob, summed left to right; the bias is added once.
+        group == 1 only."""
+        w = params[0]
+        y = None
+        off = 0
+        for x in branches.parts:
+            c = x.shape[1]
+            yi = F.conv2d(x, w[:, off:off + c].to(x.dtype), None,
+                          stride=(self.sh, self.sw),
+                          padding=(self.ph, self.pw))
+            off += c
+            y = yi if y is None else y + yi
+        if self.bias_term:
+            y = y + params[1].to(y.dtype)[None, :, None, None]
+        return y
+
 
 @register
 class Deconvolution(Layer):

@@ -36,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from ..graph import fission
 from ..graph.compiler import (REMAT_POLICIES, TRAIN, _checkpointed,
                               _env_remat)
 from ..solver.solver import clear_grads, grads_of, to_device
@@ -55,8 +56,10 @@ def _coupled(impl, lp, overrides):
 
 
 def _run_range(net, mesh, params, states, new_states, blobs, lo, hi,
-               batches, train, rngs, overrides):
-    """Layers [lo, hi) of ``net`` over every slot's blob dict."""
+               batches, train, rngs, overrides, fiss):
+    """Layers [lo, hi) of ``net`` over every slot's blob dict (a slot's
+    own layers through fission.try_apply when ``fiss``, as each device's
+    forward is in the JAX package)."""
     W = mesh.size
     for li in range(lo, hi):
         lp, impl, bottoms, tops = net.layers[li]
@@ -67,10 +70,11 @@ def _run_range(net, mesh, params, states, new_states, blobs, lo, hi,
                 with context.slot_context(mesh, w):
                     net._apply_range(params[w], states[w], new_states[w],
                                      blobs[w], li, li + 1, batches[w],
-                                     train, rngs[w], {})
+                                     train, rngs[w], {}, fiss)
             continue
         lparams = [net.resolve_params(params[w], lp.name) for w in range(W)]
-        bvals = [[blobs[w][b] for b in bottoms] for w in range(W)]
+        bvals = [[fission.materialize(blobs[w][b]) for b in bottoms]
+                 for w in range(W)]
         out = fn(lparams, bvals, train)
         for w in range(W):
             for t, v in zip(tops, out[w]):
@@ -78,8 +82,10 @@ def _run_range(net, mesh, params, states, new_states, blobs, lo, hi,
 
 
 def _run_segment(net, mesh, params, states, new_states, blobs, lo, hi,
-                 batches, train, rngs, overrides, pol):
-    """Layers [lo, hi) of every slot under one torch.utils.checkpoint."""
+                 batches, train, rngs, overrides, pol, fiss):
+    """Layers [lo, hi) of every slot under one torch.utils.checkpoint; a
+    virtual concat crosses its boundary as its branches (fission.spread),
+    as in CompiledNet._apply_segment."""
     W = mesh.size
     in_names = [sorted({b for j in range(lo, hi)
                         for b in net.layers[j][2] if b in blobs[w]})
@@ -91,7 +97,9 @@ def _run_segment(net, mesh, params, states, new_states, blobs, lo, hi,
     if any(net.layers[j][1].has_state for j in range(lo, hi)):
         raise ValueError("remat over slots: a segment with net state is "
                          "not supported")
-    counts = [len(n) for n in in_names]
+    ins = [fission.spread([blobs[w][n] for n in in_names[w]])
+           for w in range(W)]
+    out_parts = [None] * W      # set by the forward's run of seg_fn
     # the backward's recompute runs outside the step's contexts: it
     # takes the forward's axes along, so the same layers couple
     axes = context.current_axes()
@@ -101,23 +109,49 @@ def _run_segment(net, mesh, params, states, new_states, blobs, lo, hi,
             for j, g in gs.items():
                 g.set_state(st[j])
         sblobs, k = [], 0
-        for w in range(W):
-            sblobs.append(dict(zip(in_names[w], flat[k:k + counts[w]])))
-            k += counts[w]
+        for w, (f, parts) in enumerate(ins):
+            sblobs.append(dict(zip(in_names[w], fission.gather(
+                flat[k:k + len(f)], parts))))
+            k += len(f)
         scratch = [{} for _ in range(W)]
         with context.axis_context(**axes), context.mesh_context(mesh):
             _run_range(net, mesh, params, states, scratch, sblobs, lo, hi,
-                       batches, train, rngs, overrides)
-        return tuple(sblobs[w][n] for w in range(W) for n in out_names)
+                       batches, train, rngs, overrides, fiss)
+        outs = []
+        for w in range(W):
+            f, out_parts[w] = fission.spread([sblobs[w][n]
+                                              for n in out_names])
+            outs.extend(f)
+        return tuple(outs)
 
-    flat = [blobs[w][n] for w in range(W) for n in in_names[w]]
-    outs = _checkpointed(seg_fn, pol, *flat)
+    outs = _checkpointed(seg_fn, pol, *[t for f, _ in ins for t in f])
     produced = {t for j in range(lo, hi) for t in net.layers[j][3]}
+    k = 0
     for w in range(W):
         for n in produced.difference(out_names):
             blobs[w].pop(n, None)
-        for i, n in enumerate(out_names):
-            blobs[w][n] = outs[w * len(out_names) + i]
+        m = sum(max(c, 1) for c in out_parts[w])
+        for n, v in zip(out_names, fission.gather(outs[k:k + m],
+                                                  out_parts[w])):
+            blobs[w][n] = v
+        k += m
+
+
+def _run_layers(net, mesh, params, states, new_states, blobs, lo, hi,
+                batches, train, rngs, overrides, groups, pol, fiss):
+    """Layers [lo, hi): each remat segment (``groups``) under one
+    checkpoint, every other layer alone."""
+    li = lo
+    while li < hi:
+        end = groups.get(li)
+        if end is None:
+            _run_range(net, mesh, params, states, new_states, blobs, li,
+                       li + 1, batches, train, rngs, overrides, fiss)
+            li += 1
+        else:
+            _run_segment(net, mesh, params, states, new_states, blobs, li,
+                         end, batches, train, rngs, overrides, pol, fiss)
+            li = end
 
 
 def lockstep_apply(net, mesh, params, states, batches, train=None,
@@ -125,7 +159,10 @@ def lockstep_apply(net, mesh, params, states, batches, train=None,
     """The forward of ``net`` on every slot of ``mesh``: ``params``,
     ``states``, ``batches`` and ``generators`` are one entry a slot;
     returns one (blobs, new_state) a slot. ``overrides``: {layer name:
-    fn(params a slot, bottoms a slot, train) -> tops a slot}."""
+    fn(params a slot, bottoms a slot, train) -> tops a slot}. The net's
+    remat, fission and scan policies apply as in CompiledNet.apply: a
+    scan run's layers take neither fission nor the epilogue, and leave
+    its internal blobs absent (CompiledNet._apply_scan)."""
     W = mesh.size
     if train is None:
         train = net.phase == TRAIN
@@ -134,23 +171,27 @@ def lockstep_apply(net, mesh, params, states, batches, train=None,
     if pol not in REMAT_POLICIES:
         raise ValueError(f"remat={pol!r}: want none|dots|full")
     groups = net._remat_groups() if pol != "none" else {}
+    runs = net._scan_runs() if net._scan_enabled() else []
+    fiss = fission.enabled()
     gens = generators or [None] * W
     rngs = [net._layer_generators(g) if train else {} for g in gens]
     blobs = [{n: net._feed(b[n]) for n in net.net_inputs} for b in batches]
     new_states = [dict(s) for s in states]
+    step = (net, mesh, params, states, new_states, blobs)
+    rest = (batches, train, rngs, overrides, groups, pol)
     with context.mesh_context(mesh):
         li = 0
-        while li < len(net.layers):
-            hi = groups.get(li)
-            if hi is None:
-                hi = li + 1
-                _run_range(net, mesh, params, states, new_states, blobs,
-                           li, hi, batches, train, rngs, overrides)
-            else:
-                _run_segment(net, mesh, params, states, new_states, blobs,
-                             li, hi, batches, train, rngs, overrides, pol)
-            li = hi
-    return list(zip(blobs, new_states))
+        for run in runs:
+            _run_layers(*step, li, run["lo"], *rest, fiss)
+            for b in blobs:
+                b[run["entry"]] = fission.materialize(b[run["entry"]])
+            _run_layers(*step, run["lo"], run["hi"], *rest, False)
+            for b in blobs:
+                for n in net.scan_dropped(run):
+                    b.pop(n, None)
+            li = run["hi"]
+        _run_layers(*step, li, len(net.layers), *rest, fiss)
+    return list(zip(map(fission.LazyBlobs, blobs), new_states))
 
 
 class MeshSolver(_SlotSolver):

@@ -195,20 +195,20 @@ class HeartbeatCoordinator:
         # stay interchangeable with enriched ones.
         self.payload_fn = payload_fn
         self._lock = threading.Lock()
-        self._seq = 0                                # guarded by _lock
-        self._round = -1                             # guarded by _lock
-        self._alive_view = np.ones(self.n, bool)     # guarded by _lock
-        self._age_view = np.zeros(self.n, np.float64)  # guarded by _lock
-        self._ever_dead = set()                      # guarded by _lock
-        self._stopped = False                        # guarded by _lock
+        self._seq = 0                                # spk: guarded-by=_lock
+        self._round = -1                             # spk: guarded-by=_lock
+        self._alive_view = np.ones(self.n, bool)     # spk: guarded-by=_lock
+        self._age_view = np.zeros(self.n, np.float64)  # spk: guarded-by=_lock
+        self._ever_dead = set()                      # spk: guarded-by=_lock
+        self._stopped = False                        # spk: guarded-by=_lock
         # lease receipts: host -> ((seq, stamp), monotonic-at-receipt,
         # initial age). Freshness is monotonic from the receipt, so a
         # wall-clock step can never mass-expire peers.
-        self._lease_seen = {}                        # guarded by _lock
+        self._lease_seen = {}                        # spk: guarded-by=_lock
         # trace_align throttle: host -> observer mono of the last beacon
         # emitted for that peer (at most one per lease_s per peer keeps
         # the metrics volume O(hosts / lease_s) even at sim scale)
-        self._align_last = {}                        # guarded by _lock
+        self._align_last = {}                        # spk: guarded-by=_lock
         self._t0_mono = self.clock.monotonic()
         self._stop = threading.Event()
         self._thread = None

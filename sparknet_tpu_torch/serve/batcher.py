@@ -73,11 +73,11 @@ class Batcher:
         self.queue_limit = int(queue_limit)
         self.metrics = metrics
         self._cv = threading.Condition()
-        self._q = collections.deque()     # guarded by _cv
-        self._rows = 0                    # guarded by _cv
-        self._closed = False              # guarded by _cv
-        self._submitted = 0               # guarded by _cv
-        self._rejected = 0                # guarded by _cv
+        self._q = collections.deque()     # spk: guarded-by=_cv
+        self._rows = 0                    # spk: guarded-by=_cv
+        self._closed = False              # spk: guarded-by=_cv
+        self._submitted = 0               # spk: guarded-by=_cv
+        self._rejected = 0                # spk: guarded-by=_cv
 
     def submit(self, arrays, n=1, trace=None):
         """Queue one request from a handler thread; returns the Request

@@ -95,10 +95,10 @@ class ServeEngine:
         self.log = log_fn or (lambda *a: None)
         self._net_param = net_param       # template; None -> from checkpoint
         self._lock = threading.Lock()
-        self._params = None               # guarded by _lock
-        self._state = None                # guarded by _lock
-        self._loaded = None               # guarded by _lock
-        self._reloads = 0                 # guarded by _lock
+        self._params = None               # spk: guarded-by=_lock
+        self._state = None                # spk: guarded-by=_lock
+        self._loaded = None               # spk: guarded-by=_lock
+        self._reloads = 0                 # spk: guarded-by=_lock
         self._nets = {}                   # bucket -> CompiledNet (serve thread)
         self._base = None                 # probe net: shapes + weight loading
         self._base_shapes = None          # feed blob -> full-batch shape

@@ -249,13 +249,13 @@ class CanaryController:
         self.metrics = metrics
         self.log = log_fn or (lambda *a: None)
         self._lock = threading.Lock()
-        self.baseline_sha = None          # guarded by _lock
-        self.canary_sha = None            # guarded by _lock
-        self.rolled_back = set()          # guarded by _lock
-        self._counter = 0                 # guarded by _lock
-        self._stats = {}                  # guarded by _lock
-        self._healthy = 0                 # guarded by _lock
-        self.rollbacks = 0                # guarded by _lock
+        self.baseline_sha = None          # spk: guarded-by=_lock
+        self.canary_sha = None            # spk: guarded-by=_lock
+        self.rolled_back = set()          # spk: guarded-by=_lock
+        self._counter = 0                 # spk: guarded-by=_lock
+        self._stats = {}                  # spk: guarded-by=_lock
+        self._healthy = 0                 # spk: guarded-by=_lock
+        self.rollbacks = 0                # spk: guarded-by=_lock
 
     def _fresh(self):
         return {"ok": 0, "err": 0, "lat": []}
@@ -458,22 +458,22 @@ class Router:
         self._t0_mono = self.clock.monotonic()
         self._window = 0
         self._lock = threading.Lock()
-        self._leases = {}                 # guarded by _lock
-        self._seen = {}                   # guarded by _lock
-        self._inflight = {}               # guarded by _lock
-        self._sent = {}                   # guarded by _lock
-        self._win_lat = []                # guarded by _lock
-        self._win_reqs = 0                # guarded by _lock
-        self._win_errs = 0                # guarded by _lock
-        self._rr = 0                      # guarded by _lock
-        self._trace_n = 0                 # guarded by _lock
-        self._by_replica = {}             # guarded by _lock
-        self.requests = 0                 # guarded by _lock
-        self.ok = 0                       # guarded by _lock
-        self.rejected = 0                 # guarded by _lock
-        self.errors = 0                   # guarded by _lock
-        self.retries = 0                  # guarded by _lock
-        self.no_replica = 0               # guarded by _lock
+        self._leases = {}                 # spk: guarded-by=_lock
+        self._seen = {}                   # spk: guarded-by=_lock
+        self._inflight = {}               # spk: guarded-by=_lock
+        self._sent = {}                   # spk: guarded-by=_lock
+        self._win_lat = []                # spk: guarded-by=_lock
+        self._win_reqs = 0                # spk: guarded-by=_lock
+        self._win_errs = 0                # spk: guarded-by=_lock
+        self._rr = 0                      # spk: guarded-by=_lock
+        self._trace_n = 0                 # spk: guarded-by=_lock
+        self._by_replica = {}             # spk: guarded-by=_lock
+        self.requests = 0                 # spk: guarded-by=_lock
+        self.ok = 0                       # spk: guarded-by=_lock
+        self.rejected = 0                 # spk: guarded-by=_lock
+        self.errors = 0                   # spk: guarded-by=_lock
+        self.retries = 0                  # spk: guarded-by=_lock
+        self.no_replica = 0               # spk: guarded-by=_lock
 
     # -- membership (window loop only) --------------------------------------
     def poll(self):

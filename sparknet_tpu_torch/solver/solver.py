@@ -17,7 +17,8 @@ the ``test`` and ``snapshot`` spans of its Tracer, and through the obs
 package step accounting, comms, memory, and for the slot solvers worker
 divergence and health. ``arm_watchdog``, ``arm_recovery`` and
 ``arm_health`` install the run-safety hooks the step loop drives;
-``snapshot_keep`` is keep-N retention; ``set_remat`` the remat policy.
+``snapshot_keep`` is keep-N retention; ``set_remat`` the remat policy,
+``set_scan`` the scan-over-layers mode.
 ``set_input_transform`` installs a transform that runs on the device
 before the forward (the raw-record feed of data/device_transform.py).
 The multi-host machinery is the JAX Solver's: ``arm_elastic`` (quorum
@@ -26,8 +27,8 @@ membership over the slot solvers' consensus), ``arm_staleness``
 liveness, the round gate and the file relay of resilience/heartbeat.py),
 ``coordinated_restart`` on quorum loss, the writer election of
 multi-process snapshots, ``restore(reshard="auto")``, and the chaos
-injectors armed process-wide (``self.chaos``). Not ported (ROADMAP A5):
-scan-over-layers and debug_info.
+injectors armed process-wide (``self.chaos``), and debug_info's
+per-blob dump at display points (``_print_debug_info``).
 """
 
 import collections
@@ -241,10 +242,21 @@ class Solver:
         if policy not in REMAT_POLICIES:
             raise ValueError(
                 f"remat policy {policy!r}: want one of {REMAT_POLICIES}")
+        self._set_net_knob("remat", policy)
+
+    def set_scan(self, mode):
+        """Set the scan-over-layers mode (the --scan knob) on every net
+        this solver owns: "auto" (a TPU-only scan in the JAX package, so
+        off here), "on" or "off". Overrides SPARKNET_SCAN."""
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"scan mode {mode!r}: want auto|on|off")
+        self._set_net_knob("scan", mode)
+
+    def _set_net_knob(self, attr, value):
         for name in ("net", "test_net", "local_net", "local_test_net"):
             n = getattr(self, name, None)
             if n is not None:
-                n.remat = policy
+                setattr(n, attr, value)
 
     def scale_lr(self, factor):
         """Scale the lr schedule by ``factor`` from now on."""
@@ -772,6 +784,14 @@ class Solver:
                 micros = [next(data_iter) for _ in range(iter_size)]
                 batch = {k: np.stack([m[k] for m in micros])
                          for k in micros[0]}
+            # debug_info dumps run on the pre-update params (the state
+            # that produces this iteration's loss), like the reference's
+            # mid-step prints
+            if int(sp.debug_info) and sp.display \
+                    and self.iter % sp.display == 0:
+                micro = batch if iter_size == 1 \
+                    else {k: v[0] for k, v in batch.items()}
+                self._print_debug_info(micro)
             loss = self.train_step(batch)
             self._smoothed.append(loss)
             disp = sp.display and (self.iter - 1) % sp.display == 0
@@ -809,6 +829,57 @@ class Solver:
             if sp.snapshot and self.iter % sp.snapshot == 0 and \
                     sp.has("snapshot_prefix"):
                 self.snapshot()
+
+    def _print_debug_info(self, batch):
+        """SolverParameter.debug_info: the per-blob and per-param mean |x|
+        dump in the reference's format (net.cpp ForwardDebugInfo :658 and
+        the param diffs of BackwardDebugInfo), the JAX Solver's. It runs
+        at display points only, before the displayed iteration's update,
+        so the data and diff norms describe the params that produced the
+        displayed loss; one forward and backward on copies of the params,
+        with a copy of the solver's generator (the step's draws, and the
+        step's generator untouched). Labels carry the layer's param slot
+        (shared or owned), as the reference prints them."""
+        from ..parallel.multihost import process_count
+        if process_count() > 1:
+            if not getattr(self, "_dbg_warned", False):
+                self._dbg_warned = True
+                self.log("debug_info dump is single-process only; "
+                         "skipping (per-host batch slices cannot feed "
+                         "the global-shape debug pass)")
+            return
+        net = self.net
+        batch = self._transform(wait_staged(batch), self.input_transform)
+        ps = {k: [p.detach().clone().requires_grad_(True) for p in v]
+              for k, v in self.params.items()}
+        gen = torch.Generator()
+        gen.set_state(self.generator.get_state())
+        loss, (blobs, _) = net.loss_fn(ps, self.state, batch, gen)
+        loss.backward()
+
+        def mabs(x):
+            if x is None:
+                return 0.0
+            return float(x.detach().float().abs().mean())
+        for lp, _, _, tops in net.layers:
+            for t in tops:
+                v = mabs(blobs[t]) if t in blobs else 0.0
+                self.log(f"    [Forward] Layer {lp.name}, top blob {t} "
+                         f"data: {v:.6g}")
+        slots = []              # (layer, slot, owner, owner's position)
+        for lp, _, _, _ in net.layers:
+            for slot, key in enumerate(net.param_refs[lp.name]):
+                owner = key[0]
+                owned = [k for k in net.param_refs.get(owner, [])
+                         if k[0] == owner]
+                if key in owned:
+                    slots.append((lp.name, slot, owner, owned.index(key)))
+        for lname, slot, owner, pos in slots:
+            self.log(f"    [Forward] Layer {lname}, param blob {slot} "
+                     f"data: {mabs(ps[owner][pos]):.6g}")
+        for lname, slot, owner, pos in slots:
+            self.log(f"    [Backward] Layer {lname}, param blob {slot} "
+                     f"diff: {mabs(ps[owner][pos].grad):.6g}")
 
     def test(self, data_iter, num_iters=None):
         """Average the TEST net's output blobs over test_iter batches

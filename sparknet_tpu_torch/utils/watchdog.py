@@ -49,7 +49,7 @@ class Watchdog:
         # the beat time is written by the training thread and read and
         # re-armed by the monitor thread
         self._lock = threading.Lock()
-        self._last = time.monotonic()
+        self._last = time.monotonic()   # spk: guarded-by=_lock
         self._stop = threading.Event()
         self._thread = None
         self.stalls = 0

@@ -118,7 +118,7 @@ def test_prefetch_close_joins_its_worker_within_a_limit():
     t0 = time.monotonic()
     assert it.close(timeout=5.0)
     assert time.monotonic() - t0 < 5.0
-    assert not it._thread.is_alive()
+    assert not any(t.is_alive() for t in it._threads)
     with pytest.raises(StopIteration):
         next(it)
     echo = EchoIterator(PrefetchIterator(_count(), depth=1), echo=2)
@@ -139,7 +139,7 @@ def test_prefetch_raises_a_worker_error_once_after_its_batches():
         next(it)
     assert it.close()
     alive = [t for t in threading.enumerate()
-             if t.name == "sparknet-prefetch" and t is it._thread]
+             if t.name.startswith("sparknet-prefetch") and t in it._threads]
     assert not alive
 
 

@@ -60,6 +60,15 @@ MODULES = [
     "sparknet_tpu_torch.serve.loadgen", "sparknet_tpu_torch.sim",
     "sparknet_tpu_torch.sim.clock", "sparknet_tpu_torch.sim.memdir",
     "sparknet_tpu_torch.sim.servefleet", "sparknet_tpu_torch.sim.sweep",
+    "sparknet_tpu_torch.graph.fission", "sparknet_tpu_torch.native",
+    "sparknet_tpu_torch.analysis", "sparknet_tpu_torch.analysis.cli",
+    "sparknet_tpu_torch.analysis.baseline",
+    "sparknet_tpu_torch.analysis.engine",
+    "sparknet_tpu_torch.analysis.jax_rules",
+    "sparknet_tpu_torch.analysis.metrics_rules",
+    "sparknet_tpu_torch.analysis.project",
+    "sparknet_tpu_torch.analysis.protocol_rules",
+    "sparknet_tpu_torch.analysis.thread_rules",
 ]
 
 

@@ -266,16 +266,16 @@ def test_lm_verb_trains_snapshots_and_resumes(tmp_path, capsys):
 
 def test_lm_verb_refuses_unported_flags_and_missing_prefix(capsys,
                                                            monkeypatch):
-    """The mesh flags are ported (tests/test_torch_lm_mesh.py); what the
-    verb still refuses: --scan on (scan-over-layers, exit 2 naming its
-    roadmap item), --ep without experts and --snapshot-every without a
-    prefix (the JAX verb's messages)."""
+    """The mesh flags and --scan on are ported (tests/test_torch_lm_mesh.py,
+    tests/test_torch_scan.py); what the verb still refuses: a --scan
+    value outside auto|on|off (argparse's exit 2), --ep without experts
+    and --snapshot-every without a prefix (the JAX verb's messages)."""
     monkeypatch.setenv("SPARKNET_FSDP", "off")
     monkeypatch.setenv("SPARKNET_TP", "0")
     with pytest.raises(SystemExit) as e:
-        cli.main(TINY + ["--scan", "on"])
+        cli.main(TINY + ["--scan", "always"])
     assert e.value.code == 2
-    assert "ROADMAP A5" in capsys.readouterr().err
+    assert "invalid choice: 'always'" in capsys.readouterr().err
     with pytest.raises(SystemExit, match="--ep needs --moe-experts"):
         cli.main(TINY + ["--ep", "2"])
     with pytest.raises(SystemExit, match="--snapshot-prefix"):

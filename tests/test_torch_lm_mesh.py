@@ -127,5 +127,5 @@ def test_lm_verb_takes_every_jax_flag_with_its_default():
     kinds = {type(a).__name__ for a in next(
         a for a in tcli.parser()._actions
         if isinstance(a, argparse._SubParsersAction)).choices["lm"]._actions}
-    assert "_NotPorted" in kinds          # --scan on alone stays refused
+    assert "_NotPorted" not in kinds      # --scan on is ported too
     assert not hasattr(tcli, "_LM_NOT_PORTED")

@@ -360,12 +360,16 @@ def test_lm_and_serve_verbs_take_remat_precision_and_scan(tmp_path,
         monkeypatch.setenv("SPARKNET_REMAT", "none")
         monkeypatch.setenv("SPARKNET_PRECISION", "fp32")
     assert len(runs[0]) == 3 and runs[0] == runs[1] == runs[2]
+    # --scan on is ported: the same losses, the layers run as a scan
+    monkeypatch.setenv("SPARKNET_SCAN", "auto")
+    assert _losses(cli.main, tiny + ["--scan", "on"]) == runs[0]
+    monkeypatch.setenv("SPARKNET_SCAN", "auto")
     for verb in (tiny, ["serve", "--prefix", str(tmp_path / "none"),
                         "--device", "cpu"]):
         with pytest.raises(SystemExit) as e:
-            cli.main(verb + ["--scan", "on"])
+            cli.main(verb + ["--scan", "always"])
         assert e.value.code == 2
-        assert "ROADMAP A5" in capsys.readouterr().err
+        assert "invalid choice" in capsys.readouterr().err
     # serve takes the flags; a prefix with no snapshot is exit 3
     assert cli.main(["serve", "--prefix", str(tmp_path / "none"),
                      "--device", "cpu", "--remat", "full", "--precision",

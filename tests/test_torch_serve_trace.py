@@ -271,14 +271,6 @@ def test_fleet_verb_flags_parse_with_the_jax_defaults(verb):
     assert set(ref) <= set(port)
     for key, spec in ref.items():
         got = port[key]
-        if got["kind"] == "_NotPorted":
-            # a value the port refuses by name (serve --scan on, ROADMAP
-            # A5): the same flag, the same default, the rest of the JAX
-            # values accepted
-            assert (got["dest"], got["default"]) == \
-                (spec["dest"], spec["default"]), (verb, key)
-            assert set(got["allow"]) < set(spec["choices"]), (verb, key)
-            continue
         assert {k: v for k, v in got.items() if k != "allow"} == \
             {k: v for k, v in spec.items() if k != "allow"}, (verb, key)
     if verb == "serve":
