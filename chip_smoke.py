@@ -11,7 +11,10 @@ Phases, each of which raises on failure (exit code not 0):
               and nvcc versions; fails when torch.cuda.is_available() is
               False.
  2. build   — compiles the port's CUDA kernels from csrc/ (one nvcc per
-              source, in parallel) and prints the seconds it took and
+              source, all at once: the flash kernels, and beside them the
+              one-pass TF32 control of the f32 flash kernels, go on
+              building behind phases 3-5, which do not launch them, and
+              phase 6 waits for them) and prints the seconds it took and
               ptxas's registers and spills of every kernel.
  3. kernels — each kernel wrapper (the three forwards and the two
               LRN backwards) against its plain PyTorch version on the card
@@ -58,9 +61,9 @@ Phases, each of which raises on failure (exit code not 0):
               the CPU on one thread (must pass), a zeroed LRN backward at
               each site and TF32 on (each must fail the same reading).
  6. flash   — registers, spills, shared memory and CTAs per SM of every
-              flash kernel instantiation, forward and backward (the bf16
-              tensor-core kernels must not spill; the backward's must fit
-              two CTAs per SM at head_dim 128); then the three
+              flash kernel instantiation, forward and backward (none may
+              spill; the bf16 backward's must fit two CTAs per SM at
+              head_dim 128); then the three
               flash-attention kernels (forward, dQ, dK/dV) against their
               plain versions: f32 at (2, 4, 1024, 64), causal and not,
               bf16 at (2, 4, 1024, 128) full, (2, 4, 1024, 64) causal
@@ -69,7 +72,9 @@ Phases, each of which raises on failure (exit code not 0):
               (1, 4, 1024, 192) (zero-padded to 256), causal and not,
               f32 and bf16 at (1, 4, 1024, D) for D in 320, 512 and 1024
               (the wide kernels of csrc/flash_wide.cuh), causal and not,
-              and bf16 at the LM's full width (4, 8, 4096, 128), causal;
+              bf16 at the LM's full width (4, 8, 4096, 128), causal, and
+              f32 (the lm verb's default dtype) there and at the verb's
+              default widths (8, 8, 256, 32), causal;
               each output's worst 64-row tile against f32 1e-4 and bf16
               5e-3 of that tile's norm (a measure that does not shrink
               along the sequence as causal outputs do; the bf16 kernels
@@ -77,10 +82,16 @@ Phases, each of which raises on failure (exit code not 0):
               with two planted faults that must fail it and the library's
               own O and gradients read beside it, f32 also against 2e-5
               (forward) and 5e-4 (backward) of the largest reference
-              element, LSE and delta against 2e-5 of theirs; median times
+              element, LSE and delta against 2e-5 of theirs; every f32
+              case up to head_dim 256 (the split-TF32 kernels) launched
+              twice, bitwise equal, and run through the one-pass TF32
+              control build (lo terms left out), whose O must read over
+              2e-5 and whose dQ over a dQ limit; median times
               over CUDA events with the L2 flushed, achieved TFLOP/s; the
-              bound (the larger of bytes over 3.35 TB/s and FLOPs over 67
-              TFLOP/s f32 or 989 TFLOP/s dense bf16 tensor); the library
+              bound (the larger of bytes over 3.35 TB/s and FLOPs over 165
+              TFLOP/s for the split-TF32 f32 kernels (495 TF32 over 3
+              products), 67 TFLOP/s f32 for the wide ones past 256, or
+              989 TFLOP/s dense bf16 tensor); the library
               call (F.scaled_dot_product_attention forward, and
               torch.autograd.grad through it for dq, dk, dv together).
  7. lm      — the transformer LM at the full width of bench.py's larger
@@ -92,7 +103,12 @@ Phases, each of which raises on failure (exit code not 0):
               about ln 8192); in process, the train step time (CUDA
               events) and tokens/s, launches per step, and a profiler
               window (port attention kernels, cuBLAS GEMMs, other; busy
-              share); and card against CPU for a small LM (2 layers, d
+              share); the same step in f32 throughout (the lm verb's
+              default dtype: no compute dtype, TF32 off) with its flash
+              kernels' share of the profiler window; the lm verb at its
+              defaults (vocab 512, S 256, b 8, d 256, 4 layers, f32) for 2
+              steps, each flash kernel 4 times a step at (8, 8, 256, 32);
+              and card against CPU for a small LM (2 layers, d
               256, 4 heads, S 256, batch 2, f32): the first step's
               gradients under the lm verb's Solver, and two Adam steps
               from one snapshot (losses and weight changes), with controls
@@ -301,14 +317,16 @@ Phases, each of which raises on failure (exit code not 0):
               prefetch, h2d_stage and device_cache events with the JAX
               emit sites' fields, read back by the report verb.
     After the phases: the kernel table as one JSON line, an entry for
-    every timed f32 row of phase 3 and the LM's flash row of phase 6
-    (launches from the
+    every timed f32 row of phase 3 and the LM's flash rows of phase 6,
+    bf16 and f32 (launches from the
     serving path for the GoogLeNet forwards, the training path for their
     backwards, the train verb's default device-cached feed of phase 10
     for CaffeNet's LRN shapes, with the local-SGD rounds', the imagenet
     verb's, phase 9's streaming verb's and phase 10's dp verb's beside
     them, phase 10's dp verb for one dp slot's LRN shapes,
-    the lm verb's first run for the flash kernels, with the MoE LM's
+    the lm verb's first run for the flash kernels, phase 7's f32 step for
+    their f32 row at the LM's width and the lm verb at its defaults for
+    the (8, 8, 256, 32) row, with the MoE LM's
     verb and in-process launches beside them),
     with phase 12's launches an iteration under each remat policy beside
     them, and phase 13's R0 launches beside the serving kernels'; the
@@ -347,6 +365,9 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+# H100 SXM dense TF32 (495 TFLOP/s) over the three products of split TF32
+# (3xTF32): the f32 flash kernels' rate of f32-accurate products
+SPLIT_TF32_OPS_PER_S = 495e12 / 3
 BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 SEED = 1234
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -384,17 +405,68 @@ def phase_device(torch):
 
 # -- phase 2 --------------------------------------------------------------
 
+FLASH_SOURCES = ("flash_fwd", "flash_bwd")
+_BEHIND = {}      # phase 2's builds that go on behind phases 3-5
+
+
 def phase_build():
+    """Every source, all at once: the LRN and epilogue libraries before
+    phase 3; the flash kernels, and beside them their one-pass TF32
+    control (cuda_build.TF32_ONE_PASS, phase 6's), behind phases 3-5,
+    none of which launches them (_flash_built waits for them)."""
     from sparknet_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    logs = cuda_build.build(ptxas_verbose=True)
+
+    def build(key, defines=()):
+        try:
+            _BEHIND[key] = cuda_build.build(
+                FLASH_SOURCES, ptxas_verbose=not defines, defines=defines)
+        except Exception as e:          # raised where it is waited for
+            _BEHIND[key] = e
+    _BEHIND["threads"] = [
+        threading.Thread(target=build, args=("flash",)),
+        threading.Thread(target=build,
+                         args=("control", cuda_build.TF32_ONE_PASS))]
+    _BEHIND["t0"] = t0
+    for thread in _BEHIND["threads"]:
+        thread.start()
+    logs = cuda_build.build([n for n in cuda_build.SOURCES
+                             if n not in FLASH_SOURCES], ptxas_verbose=True)
     dt = time.perf_counter() - t0
+    _print_build(logs)
+    print(f"[build] compiled {sorted(logs) or 'nothing (already built)'} "
+          f"in {dt:.2f} s into {cuda_build.BUILD_DIR}; the flash kernels "
+          "and their one-pass TF32 control build behind phases 3-5")
+    return dt
+
+
+def _print_build(logs):
     for name, log in logs.items():
         for line in log.strip().splitlines():
             print(f"[build] {name}: {line}")
-    print(f"[build] compiled {sorted(logs) or 'nothing (already built)'} "
-          f"in {dt:.2f} s into {cuda_build.BUILD_DIR}")
-    return dt
+
+
+def _flash_built():
+    """Wait for phase 2's builds of the flash kernels and their one-pass
+    control, once: print their compiler output and raise a failed
+    build's error."""
+    threads = _BEHIND.pop("threads", None)
+    if threads is None:
+        return
+    t0 = time.perf_counter()
+    for thread in threads:
+        thread.join()
+    logs = {}
+    for key in ("flash", "control"):
+        got = _BEHIND.pop(key)
+        if isinstance(got, Exception):
+            raise got
+        logs[key] = got
+    _print_build(logs["flash"])
+    print(f"[build] compiled {sorted(logs['flash']) or 'nothing'} and the "
+          f"one-pass TF32 control of {sorted(logs['control']) or 'nothing'}"
+          f" {time.perf_counter() - _BEHIND.pop('t0'):.2f} s after phase 2 "
+          f"began (waited {time.perf_counter() - t0:.1f} s for them)")
 
 
 # -- phase 3 --------------------------------------------------------------
@@ -1194,8 +1266,8 @@ def _planted(torch, t):
 def _flash_kernel_info(torch):
     """{(name, dtype, head_dim): what the runtime says of that flash
     kernel instantiation}: registers a thread, local memory a thread
-    (spills), dynamic shared memory, resident CTAs per SM. Fails if a
-    tensor-core (bf16) kernel uses local memory, or a bf16 backward kernel
+    (spills), dynamic shared memory, resident CTAs per SM. Fails if any
+    instantiation uses local memory (spills), or a bf16 backward kernel
     fits fewer than two CTAs on an SM at head_dim 128."""
     import ctypes
     from sparknet_tpu_torch.ops import cuda_attention as ca
@@ -1222,9 +1294,9 @@ def _flash_kernel_info(torch):
                 print(f"[flash] {name} {dname} D={d}: {out[0]} registers, "
                       f"{out[1]} bytes local (spills), {out[2]} bytes "
                       f"shared, {out[3]} CTAs per SM")
+                check(r["local_bytes"] == 0,
+                      f"{name} {dname} D={d} uses local memory: {r}")
                 if dtype == torch.bfloat16:
-                    check(r["local_bytes"] == 0,
-                          f"{name} bf16 D={d} uses local memory: {r}")
                     check(name == "flash_attention" or d != 128
                           or r["ctas_per_sm"] >= 2,
                           f"{name} bf16 D=128 fits {r['ctas_per_sm']} CTA "
@@ -1251,7 +1323,128 @@ FLASH_CASES = (
     *(((1, 4, 1024, d), dt, causal, True)
       for d in WIDE_DIMS for dt in ("float32", "bfloat16")
       for causal in (False, True)),
-    ((4, 8, 4096, 128), "bfloat16", True, True))
+    ((4, 8, 4096, 128), "bfloat16", True, True),
+    # f32, the lm verb's default dtype: the LM's full width, and the
+    # verb's default widths (vocab 512, S 256, b 8, d 256, 8 heads)
+    ((4, 8, 4096, 128), "float32", True, True),
+    ((8, 8, 256, 32), "float32", True, True))
+# the kernels line's launches for a flash row: the path that gives its
+# shape (the lm verb's bf16 run for the rest)
+FLASH_ROW_PATHS = {((4, 8, 4096, 128), "float32"): "lm step, f32",
+                   ((8, 8, 256, 32), "float32"): "lm verb, defaults (f32)"}
+
+
+def flash_entry_points(libs=None, defines=()):
+    """The flash kernels' three C entry points, their argument types set:
+    {"fwd", "dq", "dkv"} from ``libs`` ({"flash_fwd": CDLL, "flash_bwd":
+    CDLL}, another tree's build), or else from this tree's sources built
+    with the macros ``defines``."""
+    import ctypes
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    from sparknet_tpu_torch.ops import cuda_build
+    fns = {}
+    for key, source, symbol, argtypes in (
+            ("fwd", "flash_fwd", "sparknet_flash_forward", ca._FWD_ARGTYPES),
+            ("dq", "flash_bwd", "sparknet_flash_backward_dq",
+             ca._BWD_ARGTYPES),
+            ("dkv", "flash_bwd", "sparknet_flash_backward_dkv",
+             ca._BWD_ARGTYPES)):
+        if libs is None:
+            fns[key] = cuda_build.function(source, symbol, argtypes, defines)
+        else:
+            fn = getattr(libs[source], symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fns[key] = fn
+    return fns
+
+
+def flash_calls(torch, fns, q, k, v, do, o, lse, delta, causal):
+    """No-argument calls of one set of flash entry points on these
+    (B, H, S, D) inputs, zero-padded to the built head_dim as the
+    wrappers pad them: {"fwd": -> (O, LSE), "dq": -> (dQ, delta), "dkv":
+    -> (dK, dV)}, the backward on the given O, LSE and delta."""
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    from sparknet_tpu_torch.ops import cuda_build
+    b, h, s, d = q.shape
+    scale = ca.default_scale(q)
+    qp, kp, vp, op, dop = ca.pad_head_dim((q, k, v, o, do),
+                                          ca.built_head_dim(d))
+    code = cuda_build.DTYPE_CODES[q.dtype]
+    stream = cuda_build.stream_handle(q.device)
+
+    def launch(what, fn, *tensors):
+        err = fn(*(t.data_ptr() for t in tensors), code, b * h, s,
+                 qp.shape[-1], scale, int(causal), stream)
+        check(err == 0, f"flash {what} launch failed: cudaError {err}")
+
+    def fwd():
+        out = torch.empty_like(qp)
+        rows = torch.empty(b * h, s, device=q.device)
+        launch("forward", fns["fwd"], qp, kp, vp, out, rows)
+        return out[..., :d], rows
+
+    def dq():
+        out = torch.empty_like(qp)
+        rows = torch.empty(b * h, s, device=q.device)
+        launch("dQ", fns["dq"], qp, kp, vp, op, dop, lse, out, rows)
+        return out[..., :d], rows
+
+    def dkv():
+        dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+        launch("dK/dV", fns["dkv"], qp, kp, vp, dop, lse, delta, dk, dv)
+        return dk[..., :d], dv[..., :d]
+    return {"fwd": fwd, "dq": dq, "dkv": dkv}
+
+
+# The f32 limits of the largest element (tests/test_flash.py's): the
+# one-pass TF32 control must read over O's, and over dQ's or its tile's
+F32_ELEMENT_LIMIT = {"O": 2e-5, "dQ": 5e-4, "dK": 5e-4, "dV": 5e-4}
+
+
+def _split_tf32_checks(torch, what, q, k, v, do, causal, kern, refs):
+    """The f32 kernels' own checks at one case: each kernel launched
+    again on the same inputs gives bitwise the same outputs, and the
+    one-pass TF32 build of the same sources (cuda_build.TF32_ONE_PASS:
+    the lo terms left out) reads over the f32 O limit in the forward and
+    over a dQ limit in the backward. ``kern``: the wrappers' O, LSE, dQ,
+    delta, dK, dV; ``refs``: the plain versions' O, dQ, dK, dV."""
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    from sparknet_tpu_torch.ops import cuda_build
+    o, lse, delta = kern["O"], kern["LSE"], kern["delta"]
+    again = dict(zip(("O", "LSE"), ca.flash_attention_fwd(q, k, v, causal)))
+    again.update(zip(("dQ", "delta"), ca.flash_attention_dq(
+        q, k, v, o, lse, do, causal)))
+    again.update(zip(("dK", "dV"), ca.flash_attention_dkv(
+        q, k, v, do, lse, delta, causal)))
+    for name, t in again.items():
+        check(torch.equal(t, kern[name]),
+              f"f32 {name} at {what}: two launches on the same inputs "
+              "differ")
+    calls = flash_calls(torch, flash_entry_points(
+        defines=cuda_build.TF32_ONE_PASS), q, k, v, do, o, lse, delta,
+        causal)
+    got = {"O": calls["fwd"]()[0], "dQ": calls["dq"]()[0]}
+    got.update(zip(("dK", "dV"), calls["dkv"]()))
+    torch.cuda.synchronize()
+    out = {}
+    for name, t in got.items():
+        out[name] = {"max_rel_err": _rel_err(t, refs[name]),
+                     "tile_err": _tile_err(torch, t, refs[name])}
+        print(f"[flash]   one-pass TF32 control, {name} {what}: worst tile "
+              f"{out[name]['tile_err']:.3e} (limit 1e-4), of the largest "
+              f"element {out[name]['max_rel_err']:.3e} (limit "
+              f"{F32_ELEMENT_LIMIT[name]:g})")
+    check(out["O"]["max_rel_err"] > F32_ELEMENT_LIMIT["O"],
+          f"the one-pass TF32 control's O at {what} reads "
+          f"{out['O']['max_rel_err']:.3e}, within the f32 limit: the check "
+          "would not tell one TF32 pass from split TF32")
+    check(out["dQ"]["max_rel_err"] > F32_ELEMENT_LIMIT["dQ"]
+          or out["dQ"]["tile_err"] > FLASH_BWD_TILE_LIMIT["float32"],
+          f"the one-pass TF32 control's dQ at {what} reads {out['dQ']}, "
+          "within the f32 limits")
+    print(f"[flash] f32 {what}: O, LSE, dQ, delta, dK, dV bitwise equal "
+          "over two launches")
+    return {"bitwise_repeat": True, "one_pass_control": out}
 
 
 def phase_flash_kernels(torch, cases=FLASH_CASES):
@@ -1263,6 +1456,7 @@ def phase_flash_kernels(torch, cases=FLASH_CASES):
     kernel's registers, spills, shared memory and CTAs per SM."""
     import torch.nn.functional as F
     from sparknet_tpu_torch.ops import cuda_attention as ca
+    _flash_built()
     info = _flash_kernel_info(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     timers = {False: Timer(torch), True: Timer(torch, reps=10)}
@@ -1277,7 +1471,11 @@ def phase_flash_kernels(torch, cases=FLASH_CASES):
         f32 = dtype == torch.float32
         dname = str(dtype).replace("torch.", "")
         what = f"{list(shape)} {dname} causal={causal}"
-        peak = F32_OPS_PER_S if f32 else BF16_TENSOR_OPS_PER_S
+        wide = d > ca.HEAD_DIMS[-1]
+        # f32 up to 256: split TF32 on the tensor cores; past it the
+        # wide kernels' CUDA cores
+        peak = BF16_TENSOR_OPS_PER_S if not f32 else \
+            F32_OPS_PER_S if wide else SPLIT_TF32_OPS_PER_S
         tile_tols = {"O": FLASH_TILE_LIMIT[dname],
                      **{g: FLASH_BWD_TILE_LIMIT[dname]
                         for g in ("dQ", "dK", "dV")}}
@@ -1368,6 +1566,11 @@ def phase_flash_kernels(torch, cases=FLASH_CASES):
                       f"{rel:.3e} (limit {ROW_LIMIT:g})")
                 check(rel <= ROW_LIMIT, f"{label} at {what} disagrees with "
                       f"the plain version: {rel:.3e} > {ROW_LIMIT:g}")
+            if f32 and not wide:
+                readings["split_tf32"] = _split_tf32_checks(
+                    torch, what, q, k, v, do, causal,
+                    {"O": o, "LSE": lse, "dQ": dq, "delta": delta, "dK": dk,
+                     "dV": dv}, {"O": ro, "dQ": rdq, "dK": rdk, "dV": rdv})
             readings["flash_attention"]["lse_rel_err"] = _rel_err(lse, rlse)
             readings["flash_attention_dq"]["delta_rel_err"] = _rel_err(
                 delta, rdelta)
@@ -1410,6 +1613,9 @@ def phase_flash_kernels(torch, cases=FLASH_CASES):
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     row=row, **info.get((name, dname, d), {}))
                 r["tflops"] = flops / r["ms"] / 1e9
+                r["bound_share"] = r["bound_ms"] / r["ms"]
+                if "split_tf32" in readings:
+                    r["split_tf32"] = readings["split_tf32"]
                 print(f"[flash] {name} {what}: kernel {r['ms']:.4f} ms "
                       f"({r['tflops']:.1f} TFLOP/s), plain "
                       f"{r['plain_ms']:.4f} ms, library "
@@ -1430,17 +1636,19 @@ FLASH_KERNELS = ("flash_attention", "flash_attention_dq",
                  "flash_attention_dkv")
 
 
-def _lm_in_process(args, tag):
-    """The lm verb at full width, bf16, in this process (no interpreter
-    start): the launch counters zeroed first and the variables its
-    flags write put back after; -> (stdout, its launch counts)."""
+def _lm_in_process(args, tag, full_width=True):
+    """The lm verb at full width, bf16 (or, with full_width False, at the
+    verb's own defaults), in this process (no interpreter start): the
+    launch counters zeroed first and the variables its flags write put
+    back after; -> (stdout, its launch counts)."""
     import io
     from sparknet_tpu_torch import cli
     f = LM_FULL
-    argv = ["lm", "--vocab", str(f["vocab"]), "--seq-len", str(f["seq_len"]),
-            "--batch", str(f["batch"]), "--d-model", str(f["d_model"]),
-            "--layers", str(f["layers"]), "--heads", str(f["heads"]),
-            "--dtype", "bf16", "--display", "1", *args]
+    sizes = ["--vocab", str(f["vocab"]), "--seq-len", str(f["seq_len"]),
+             "--batch", str(f["batch"]), "--d-model", str(f["d_model"]),
+             "--layers", str(f["layers"]), "--heads", str(f["heads"]),
+             "--dtype", "bf16"] if full_width else []
+    argv = ["lm", *sizes, "--display", "1", *args]
     env = dict(os.environ)
     _zero_launches()
     buf = io.StringIO()
@@ -1516,10 +1724,12 @@ def _lm_group(name):
     return "other"
 
 
-def phase_lm_step(torch, card, steps=3):
-    """In process at full width: launches per step, the train step time
-    (median of 5, CUDA events, device-resident batch), tokens/s and a
-    profiler window."""
+def phase_lm_step(torch, card, steps=3, dtype="bf16"):
+    """In process at full width, bf16 activations over f32 masters or
+    f32 throughout (the lm verb's default dtype: no compute dtype, TF32
+    off): launches per step, the train step time (median of 5, CUDA
+    events, device-resident batch), tokens/s, peak memory and a profiler
+    window with the flash kernels' share of its device time."""
     from sparknet_tpu_torch.data import lm_batch_stream
     from sparknet_tpu_torch.models import zoo
     from sparknet_tpu_torch.ops import KERNEL_WRAPPERS, kernel_launches
@@ -1532,7 +1742,12 @@ def phase_lm_step(torch, card, steps=3):
                              batch_size=f["batch"], d_model=f["d_model"],
                              num_layers=f["layers"], num_heads=f["heads"])
     solver = Solver(sp, net_param=net, device="cuda", log_fn=None,
-                    compute_dtype=torch.bfloat16)
+                    compute_dtype=torch.bfloat16 if dtype == "bf16"
+                    else None)
+    if dtype == "f32":
+        check(not torch.backends.cuda.matmul.allow_tf32
+              and not torch.backends.cudnn.allow_tf32,
+              "the f32 Solver left TF32 on")
     n_params = sum(p.numel() for v in solver.params.values() for p in v)
     stream, _ = lm_batch_stream(f["vocab"], f["batch"], f["seq_len"],
                                 seed=SEED)
@@ -1542,7 +1757,7 @@ def phase_lm_step(torch, card, steps=3):
         fn.launches = 0
     losses = [float(solver.train_step(feed)) for _ in range(steps)]
     launches = kernel_launches()
-    print(f"[lm] in process, {steps} steps on one batch: losses "
+    print(f"[lm] {dtype} in process, {steps} steps on one batch: losses "
           f"{[round(l, 4) for l in losses]}, launches {launches}")
     for name in FLASH_KERNELS:
         check(launches[name] == f["layers"] * steps,
@@ -1554,16 +1769,38 @@ def phase_lm_step(torch, card, steps=3):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tps = f["batch"] * f["seq_len"] / (step_ms / 1e3)
     print(f"[lm] transformer LM {n_params / 1e6:.1f}M params, b{f['batch']} "
-          f"S{f['seq_len']} bf16 train step {step_ms:.3f} ms (median of 5, "
-          f"CUDA events), {tps:,.0f} tokens/s, peak memory {peak_gb:.1f} GB; "
-          f"{card}")
+          f"S{f['seq_len']} {dtype} train step {step_ms:.3f} ms (median of "
+          f"5, CUDA events), {tps:,.0f} tokens/s, peak memory "
+          f"{peak_gb:.1f} GB; {card}")
     profile = _profile(torch, lambda: solver.train_step(feed), 2, _lm_group,
-                       "full-width LM train step", card, top=12)
+                       f"full-width LM train step, {dtype}", card, top=12)
+    flash_share = None
+    if profile is not None:
+        flash_share = profile["groups_ms"].get(
+            "port attention kernels (flash_*)", 0.0) / \
+            profile["device_ms_per_call"]
+        print(f"[lm] {dtype}: the flash kernels take {100 * flash_share:.1f}%"
+              " of the window's device time")
     del solver, feed
     torch.cuda.empty_cache()
-    return {"params": n_params, "launches": launches, "losses": losses,
-            "step_ms": step_ms, "tokens_per_s": tps, "peak_gb": peak_gb,
-            "profile": profile}
+    return {"dtype": dtype, "params": n_params, "launches": launches,
+            "losses": losses, "step_ms": step_ms, "tokens_per_s": tps,
+            "peak_gb": peak_gb, "profile": profile,
+            "flash_share": flash_share}
+
+
+def phase_lm_default_verb(steps=2):
+    """The lm verb at its defaults (vocab 512, S 256, b 8, d 256, 4
+    layers, 8 heads, f32) in process for ``steps`` steps: each flash
+    kernel ``layers`` times a step at (8, 8, 256, 32) f32 causal."""
+    out, launches = _lm_in_process(["--steps", str(steps)], "lm-default",
+                                   full_width=False)
+    check(f"done: {steps} steps, " in out, f"lm verb: not {steps} steps")
+    for name in FLASH_KERNELS:
+        check(launches[name] == 4 * steps,
+              f"lm at its defaults: {name} launched {launches[name]} times "
+              f"in {steps} steps of 4 layers")
+    return {"launches": launches, "losses": _losses(out)}
 
 
 def _weight_change_error(params, w0, dw_ref):
@@ -3153,6 +3390,119 @@ def _routing_ratio(x_card, x_cpu, router):
     return float(((top2[:, 0] - top2[:, 1]) / shift).min())
 
 
+
+# A ReLU input of the MoE's expert FFN within rounding of zero can take
+# one sign on the card and the other on the CPU, a near-tie of the same
+# kind as the router's, and that one unit moves its expert's w1 gradient
+# by ~1e-3 of the blob (1.365e-03 at block1/moe[1] in phase 11). So the
+# CPU reference takes the card's decision only at a near-tie, by a
+# measure independent of the card's expert FFN: the CPU's input lies
+# within ROUTING_FACTOR times the largest change that the difference
+# between the two devices' inputs to the FFN (the dispatched rows, w1,
+# b1, as each device handed them in) makes to that row's ReLU inputs,
+# in f64, plus the f32 einsum's rounding bound on each device (E u
+# sum |x w| + |b|, u = 2^-24). A flip anywhere else fails, and the
+# near-ties taken are at most RELU_NEAR_TIE_SHARE of the units of the
+# filled capacity slots: the readings were 1 of 782,336 (phase 11,
+# 1.3e-06) and 4 of 16,813,056 (phase 15's ep check, 2.4e-07) on an
+# NVIDIA H100 80GB HBM3 at 700 W; the planted fault (expert 0's w1 and
+# b1 negated on the card, phase 11) read 163,740 flips at clear inputs
+# of block 0's 470,016.
+RELU_NEAR_TIE_SHARE = 4e-6
+
+
+def _relu_ties(torch, rec, xe, w1, b1, pre):
+    """-> (near, flip): the CPU's expert ReLU inputs ``pre`` (from xe,
+    w1, b1) that are near-ties of the card's record ``rec``, and those
+    whose sign differs from the card's."""
+    f64 = [t.detach().cpu().double() for t in (xe, w1, b1)]
+    card = [rec[k].double() for k in ("x", "w1", "b1")]
+
+    def pre64(x, w, b):
+        return torch.einsum("xce,xfe->xcf", x, w) + b[:, None, :]
+    shift = (pre64(*card) - pre64(*f64)).abs().amax(-1, keepdim=True)
+    x, w, b = f64
+    rounding = 2 * x.shape[-1] * 2.0 ** -24 * pre64(x.abs(), w.abs(),
+                                                    b.abs())
+    near = pre.detach().cpu().double().abs() <= ROUTING_FACTOR * (shift
+                                                               + rounding)
+    return near, (pre.detach().cpu() > 0) != rec["on"]
+
+
+@contextlib.contextmanager
+def _expert_relu(torch, record=None, replay=None, fault=False):
+    """Around MoE.experts: with ``record`` (a list), each call's inputs
+    (the dispatched rows, w1, b1) and ReLU decisions (input > 0) are
+    appended and the port's function computes the output, unchanged;
+    ``fault`` negates expert 0's w1 and b1 first (a planted fault). With
+    ``replay`` (the card's records), the CPU takes the card's decision at
+    each near-tie whose sign differs (_relu_ties) and the port's function
+    is called as it is when there is none. Yields the counts {"units"
+    and "near" (those of the capacity slots a token fills), "taken",
+    "clear": flips at clear inputs} and "first": the CPU's first call's
+    (xe, w1, b1)."""
+    from sparknet_tpu_torch.ops.moe import MoE
+    orig = MoE.__dict__["experts"]
+    port = orig.__func__
+    count = {"calls": 0, "units": 0, "near": 0, "taken": 0, "clear": 0,
+             "first": None}
+
+    def pre_of(xe, w1, b1):
+        return torch.einsum("xce,xfe->xcf", xe, w1.float()) \
+            + b1.float()[:, None, :]
+
+    def experts(xe, w1, b1, w2, b2):
+        i = count["calls"]
+        count["calls"] += 1
+        if record is not None:
+            rec = {k: t.detach().to("cpu", torch.float32, copy=True)
+                   for k, t in (("x", xe), ("w1", w1), ("b1", b1))}
+            if fault:
+                sign = torch.ones(w1.shape[0], 1, device=w1.device)
+                sign[0] = -1.0
+                w1, b1 = w1 * sign[:, :, None], b1 * sign
+            with torch.no_grad():
+                rec["on"] = (pre_of(xe, w1, b1) > 0).cpu()
+            record.append(rec)
+            return port(xe, w1, b1, w2, b2)
+        pre = pre_of(xe, w1, b1)
+        if i == 0:
+            count["first"] = tuple(t.detach().clone() for t in (xe, w1, b1))
+        near, flip = _relu_ties(torch, replay[i], xe, w1, b1, pre)
+        take = flip & near
+        used = xe.detach().cpu().ne(0).any(-1, keepdim=True)  # not empty
+        count["units"] += int(used.sum()) * pre.shape[-1]
+        count["near"] += int((near & used).sum())
+        count["taken"] += int(take.sum())
+        count["clear"] += int((flip & ~near).sum())
+        if not bool(take.any()):
+            return port(xe, w1, b1, w2, b2)
+        keep = torch.where(take, replay[i]["on"], pre.detach().cpu() > 0)
+        h = pre * keep.to(pre.device)     # relu(pre) but where taken
+        return torch.einsum("xcf,xef->xce", h, w2.float()) \
+            + b2.float()[:, None, :]
+    MoE.experts = staticmethod(experts)
+    try:
+        yield count
+    finally:
+        MoE.experts = orig
+
+
+def _check_relu_flips(count, what):
+    print(f"[{what}] expert ReLU inputs: {count['units']} in all, "
+          f"{count['near']} near-ties (within {ROUTING_FACTOR:g}x their "
+          f"inputs' card-CPU shift and rounding), at {count['taken']} of "
+          f"them the CPU took the card's other sign (limit "
+          f"{RELU_NEAR_TIE_SHARE:g} of all), {count['clear']} clear inputs "
+          "with another sign (must be 0)")
+    check(count["units"] > 0 and count["clear"] == 0,
+          f"{what}: {count['clear']} expert ReLU inputs clear of a near-tie "
+          "take another sign on the card than on the CPU")
+    check(count["taken"] <= RELU_NEAR_TIE_SHARE * count["units"],
+          f"{what}: {count['taken']} of {count['units']} expert ReLU "
+          "near-ties take another sign on the card than on the CPU")
+
+
 def phase_moe_card_vs_cpu(torch, tmp, device="cuda"):
     """A small MoE LM (vocab 512, 2 layers, d 256, 4 heads, 4 experts,
     S 256, batch 2, f32, TF32 off) from one snapshot: one Adam step
@@ -3160,8 +3510,12 @@ def phase_moe_card_vs_cpu(torch, tmp, device="cuda"):
     gradients within LM_GRAD_LIMIT and its weight changes within
     LM_WEIGHT_CHANGE_LIMIT. Every token's top-2 router margin must exceed
     ROUTING_FACTOR times its card-CPU logit difference (else its expert
-    could flip: a near-tie, not a port defect). Control: the combine's
-    gate weighting left out on the card (must fail)."""
+    could flip: a near-tie, not a port defect). The CPU step takes the
+    card's expert ReLU decision at a near-tie whose sign differs
+    (_expert_relu; a flip at a clear input fails, the near-ties taken
+    are bounded). Controls: the combine's gate weighting left out on the
+    card (must fail the gradients), and expert 0's w1 and b1 negated on
+    the card (must read flips the ReLU check rejects)."""
     from sparknet_tpu_torch.data import lm_batch_stream
     from sparknet_tpu_torch.models import zoo
     from sparknet_tpu_torch.ops.moe import MoE
@@ -3180,13 +3534,11 @@ def phase_moe_card_vs_cpu(torch, tmp, device="cuda"):
     batch = next(stream)
     with torch.no_grad():
         cpu_blobs, _ = cpu.net.apply(cpu.params, cpu.state, batch)
-    cpu_loss = float(cpu.train_step(batch))
-    g_cpu = {n: [p.grad.detach().double() for p in blobs]
-             for n, blobs in cpu.params.items()}
-    dw_cpu = {n: [p.detach().double() - w for p, w in zip(blobs, w0[n])]
-              for n, blobs in cpu.params.items()}
 
-    def run(label):
+    def step(record, fault=False):
+        """One step on ``device`` from the snapshot, its expert inputs
+        and ReLU decisions into ``record`` (_expert_relu, ``fault``
+        planted); -> (solver, loss, the routing ratio)."""
         solver = Solver(sp, net_param=net, device=device, log_fn=None)
         solver.restore(state)
         with torch.no_grad():
@@ -3195,7 +3547,22 @@ def phase_moe_card_vs_cpu(torch, tmp, device="cuda"):
                                    cpu_blobs[f"block{i}/ln2"],
                                    solver.params[f"block{i}/moe"][0])
                     for i in range(2))
-        loss = float(solver.train_step(batch))
+        with _expert_relu(torch, record=record, fault=fault):
+            loss = float(solver.train_step(batch))
+        return solver, loss, ratio
+
+    decisions = []
+    card_run = step(decisions)
+    with _expert_relu(torch, replay=decisions) as flips:
+        cpu_loss = float(cpu.train_step(batch))
+    _check_relu_flips(flips, "moe-parity")
+    g_cpu = {n: [p.grad.detach().double() for p in blobs]
+             for n, blobs in cpu.params.items()}
+    dw_cpu = {n: [p.detach().double() - w for p, w in zip(blobs, w0[n])]
+              for n, blobs in cpu.params.items()}
+
+    def read(label, run):
+        solver, loss, ratio = run
         g_err, g_where = _grad_error(solver.params, g_cpu)
         w_err, w_where = _weight_change_error(solver.params, w0, dw_cpu)
         rel = abs(loss - cpu_loss) / abs(cpu_loss)
@@ -3210,7 +3577,7 @@ def phase_moe_card_vs_cpu(torch, tmp, device="cuda"):
                 "weight_change_rel": w_err, "where": w_where,
                 "routing_ratio": ratio}
 
-    card = run("card")
+    card = read("card", card_run)
     route = MoE.route
 
     def ungated(self, xt, router):
@@ -3218,7 +3585,7 @@ def phase_moe_card_vs_cpu(torch, tmp, device="cuda"):
         return gates, idx, torch.ones_like(gate)
     MoE.route = ungated
     try:
-        control = run("control, combine without the gate")
+        control = read("control, combine without the gate", step([]))
     finally:
         MoE.route = route
     check(card["routing_ratio"] > ROUTING_FACTOR,
@@ -3234,7 +3601,29 @@ def phase_moe_card_vs_cpu(torch, tmp, device="cuda"):
     check(control["grad_rel"] > LM_GRAD_LIMIT,
           f"the ungated control reads gradients {control['grad_rel']:.3e}, "
           "within the limit: the check would not catch it")
-    return {"card": card, "control": control}
+    # the planted fault: expert 0's ReLU decisions of block 0 (whose
+    # inputs the fault leaves as they were) against the CPU's
+    faulty = []
+    step(faulty, fault=True)
+    xe, w1, b1 = flips["first"]
+    with torch.no_grad():
+        pre = torch.einsum("xce,xfe->xcf", xe, w1.float()) \
+            + b1.float()[:, None, :]
+    near, flip = _relu_ties(torch, faulty[0], xe, w1, b1, pre)
+    planted = {"clear": int((flip & ~near).sum()),
+               "taken": int((flip & near).sum()),
+               "units": int(xe.ne(0).any(-1).sum()) * pre.shape[-1]}
+    print(f"[moe-parity] control, expert 0's w1 and b1 negated on the "
+          f"card: block 0 reads {planted['clear']} of {planted['units']} "
+          f"expert ReLU inputs with another sign at clear inputs and "
+          f"{planted['taken']} near-ties")
+    check(planted["clear"] > 0 or planted["taken"]
+          > RELU_NEAR_TIE_SHARE * planted["units"],
+          "the negated expert reads no flip the ReLU check would reject")
+    return {"card": card, "control": control,
+            "relu_flips": {k: flips[k] for k in ("units", "near", "taken",
+                                                 "clear")},
+            "relu_fault": planted}
 
 
 def _bn_cifar_files(tmp):
@@ -5174,13 +5563,18 @@ def _mesh_ep_card_vs_cpu(torch, steps, device="cuda"):
     check(unclear <= 0.02 * n_tok, f"mesh ep: {unclear} of {n_tok} tokens "
           "within twice their card-CPU logit shift")
     losses, grads = {}, {}
-    for key, s in (("card", card), ("cpu", cpu)):
+    decisions = []            # the CPU takes the card's expert ReLU
+    for key, s in (("card", card), ("cpu", cpu)):   # decisions
         losses[key] = []
-        for j, b in enumerate(batches):
-            losses[key].append(float(s.train_step(b)))
-            if j == 0:
-                grads[key] = {n: [p.grad.detach().double().cpu()
-                                  for p in ps] for n, ps in s.params.items()}
+        with _expert_relu(torch, record=decisions if key == "card" else None,
+                          replay=decisions if key == "cpu" else None) as flips:
+            for j, b in enumerate(batches):
+                losses[key].append(float(s.train_step(b)))
+                if j == 0:
+                    grads[key] = {n: [p.grad.detach().double().cpu()
+                                      for p in ps]
+                                  for n, ps in s.params.items()}
+    _check_relu_flips(flips, "mesh")
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
                                                   losses["cpu"]))
     g_err, g_where = 0.0, None
@@ -5207,7 +5601,9 @@ def _mesh_ep_card_vs_cpu(torch, steps, device="cuda"):
           f"{w_err:.3e} at {w_where}")
     return {"losses": losses, "loss_rel_err": rel, "grad_err": g_err,
             "weight_change_err": w_err, "unclear_tokens": unclear,
-            "tokens": n_tok}
+            "tokens": n_tok,
+            "relu_flips": {k: flips[k] for k in ("units", "near", "taken",
+                                                 "clear")}}
 
 
 def _mesh_full_run(torch, card, label, flags, steps, device="cuda"):
@@ -5932,10 +6328,13 @@ def main(argv=None):
     served = section(4, phase_serve, torch, card)
     trained_cli, trained = section(5, lambda: (
         phase_train_cli(tmp), phase_train(torch, card, tmp))) or (None, None)
+    _flash_built()
     flash = section(6, phase_flash_kernels, torch)
-    lm_cli, lm_step, lm_parity = section(7, lambda: (
-        phase_lm_cli(tmp), phase_lm_step(torch, card),
-        phase_lm_card_vs_cpu(torch, tmp))) or (None, None, None)
+    lm_cli, lm_step, lm_step_f32, lm_default, lm_parity = section(
+        7, lambda: (phase_lm_cli(tmp), phase_lm_step(torch, card),
+                    phase_lm_step(torch, card, dtype="f32"),
+                    phase_lm_default_verb(),
+                    phase_lm_card_vs_cpu(torch, tmp))) or (None,) * 5
     local_sgd = section(8, phase_local_sgd_all, torch, card, tmp)
     records = section(9, phase_records_all, torch, card, tmp)
     feeds = section(10, lambda: phase_feeds_all(
@@ -5958,6 +6357,8 @@ def main(argv=None):
              "train auto": trained["launches"]["auto"],
              "train on": trained["launches"]["on"],
              "lm verb": lm_cli["launches"],
+             "lm step, f32": lm_step_f32["launches"],
+             "lm verb, defaults (f32)": lm_default["launches"],
              "local-sgd caffenet": local_sgd["rounds"]["caffenet"][
                  "launches"],
              "train verb on records": records["cli"]["launches"],
@@ -5981,7 +6382,8 @@ def main(argv=None):
                 "train verb, dp" if tuple(r["shape"]) in \
                 CAFFENET_DP_LRN_SHAPES else \
                 f"lm --{r['launches_path']}" if "launches_path" in r \
-                else own_path
+                else FLASH_ROW_PATHS.get((tuple(r["shape"]), r["dtype"]),
+                                         own_path)
             per_iter, model = (remat_lm, "lm") if name in FLASH_KERNELS \
                 else (remat, "googlenet")
             table.append({
@@ -5995,7 +6397,10 @@ def main(argv=None):
                     for pol in REMAT_POLICIES},
                 **({"launches_fleet_r0": fleet["launches"][name]}
                    if own_path.startswith("serve") else {}),
-                **({"launches_moe_lm_verb": zoo["moe_cli"]["launches"][name],
+                **({"launches_lm_step_f32": lm_step_f32["launches"][name],
+                    "launches_lm_verb_defaults_f32": lm_default["launches"][
+                        name],
+                    "launches_moe_lm_verb": zoo["moe_cli"]["launches"][name],
                     "launches_moe_lm_step": zoo["moe_step"]["launches"][
                         name],
                     "launches_mesh_per_step": {
@@ -6044,7 +6449,8 @@ def main(argv=None):
         "train": {**{k: trained[k] for k in (
             "launches", "fixed_batch_losses", "step_ms", "images_per_s",
             "profile", "card_vs_cpu")}, **trained_cli},
-        "lm": {"cli": lm_cli, "step": lm_step, "card_vs_cpu": lm_parity},
+        "lm": {"cli": lm_cli, "step": lm_step, "step_f32": lm_step_f32,
+               "default_verb": lm_default, "card_vs_cpu": lm_parity},
         "local_sgd": local_sgd, "records": records, "feeds": feeds,
         "zoo": zoo, "levers": levers, "fleet": fleet, "hosts": hosts,
         "mesh": mesh, "rest": rest,

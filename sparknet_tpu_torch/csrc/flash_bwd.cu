@@ -73,185 +73,48 @@
 //    At the LM's shape: dQ 0.79-0.84 ms, dK/dV 1.03-1.10 ms, 244-268
 //    TFLOP/s (PERF.md).
 //
-// f32 storage (flash_dq_kernel, flash_dkv_kernel) keeps CUDA-core
-// products in f32: the f32 checks (5e-4 of the largest element; the small
-// LM's card-vs-CPU gradients within 1e-4) need f32 products, which TF32
-// tensor cores would not give. A CTA of 256 threads owns one R-row tile
-// (R = kRows<D>: 64; 32 at D = 256, where four f32 tiles of D + 1
-// columns must fit) staged in f32 with row stride D + 1; R/16 x R/16
-// register blocks. The storage type picks the kernel and nothing else
-// does.
+// f32 storage (flash_dq_tf32_kernel, flash_dkv_tf32_kernel): every
+// product on the tensor cores in split TF32 (3xTF32, flash_tf32.cuh:
+// a b ~ a_hi b_lo + a_lo b_hi + a_hi b_hi, f32 accumulation), which keeps
+// the f32 limits (5e-4 of the largest element, 1e-4 of a 64-row tile;
+// the small LM's card-vs-CPU gradients within 1e-4). The layout is the
+// bf16 kernels' (4 warps, a warp 16 rows of the CTA's own 64-row tile,
+// the streamed pair through cp.async stages) with f32 tiles of row
+// stride D + 4 and mma.sync m16n8k8 fed by plain shared-memory loads
+// (ldmatrix moves 16-bit elements only). S, dP, P and dS stay in f32
+// and enter the second products split, from the accumulators; nothing
+// is rounded between the products. Every tensor-core sum runs over at
+// most 64 columns of D or one streamed tile and is then added in f32
+// (the tensor core truncates its sums: flash_tf32.cuh). Streamed tiles:
+// 64 rows through two stages up to D = 64; from D = 128, dQ takes K and
+// V 32 rows through one stage (two CTAs an SM at D = 128) and dK/dV Q
+// and dO 16 rows through two; at D = 256 the output columns split over
+// the grid's z axis as the bf16 kernels' do. P is exp(scale S - LSE) in
+// natural units, as the plain version computes it. Bound: operations.
+// At the LM's shape dQ does 206 and dK/dV 275 GFLOP: 1.25 and 1.67 ms at
+// 165 TFLOP/s of f32-accurate products (495 TFLOP/s of dense TF32 over 3
+// products); like the forward they are bound by instruction throughput
+// and latency before that. Registers a thread, shared memory and CTAs
+// per SM on the H100 (sparknet_flash_backward_info, chip_smoke.py phase
+// 6); no spills:
+//        D        16           32           64           128          256
+//        dQ       128 30 KB 4  128 54 KB 4  168 102 KB 2 225 99 KB 2  202 195 KB 1
+//        dK/dV    155 31 KB 3  164 55 KB 3  241 103 KB 2 250 99 KB 2  250 195 KB 1
+// At the LM's shape: dQ 3.65 ms (56.5 TFLOP/s, 34% of the bound) and
+// dK/dV 5.31-5.34 ms (51.7, 31%), against 10.37-10.41 and 12.58-12.67 for
+// the CUDA-core kernels they replaced in the same call, and 10.03 for
+// autograd through F.scaled_dot_product_attention's three gradients
+// (scripts/flash_f32_ab.py; PERF.md).
+// The storage type picks the kernel and nothing else does.
 
 #include <type_traits>
 
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
+#include "flash_tf32.cuh"
 #include "flash_wide.cuh"
 
 namespace sparknet_flash {
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    T* __restrict__ dq, float* __restrict__ delta, int seq,
-                    float scale, int causal) {
-  extern __shared__ float smem[];
-  constexpr int R = kRows<D>, RI = R / 16, LD = D + 1, LP = R + 1;
-  constexpr int NJ = D / 16;
-  float* qs = smem;                  // R x LD
-  float* dos = qs + R * LD;          // R x LD
-  float* ks = dos + R * LD;          // R x LD
-  float* vs = ks + R * LD;           // R x LD
-  float* dss = vs + R * LD;          // R x LP
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * R;
-  const long long base = static_cast<long long>(blockIdx.y) * seq * D;
-  q += base;
-  k += base;
-  v += base;
-  o += base;
-  dout += base;
-  dq += base;
-  lse += static_cast<long long>(blockIdx.y) * seq;
-  delta += static_cast<long long>(blockIdx.y) * seq;
-
-  load_tile<T, D, R>(qs, q, q0, seq, 1.f);
-  load_tile<T, D, R>(dos, dout, q0, seq, 1.f);
-  __syncthreads();
-  float lse_r[RI], delta_r[RI], acc[RI][NJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = q0 + ty * RI + i;
-    float part = 0.f;
-    if (r < seq) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        part += dos[(ty * RI + i) * LD + tx + 16 * j] *
-                to_f32(o[static_cast<long long>(r) * D + tx + 16 * j]);
-    }
-    delta_r[i] = row_sum16(part);
-    lse_r[i] = r < seq ? lse[r] : 0.f;
-    if (tx == 0 && r < seq) delta[r] = delta_r[i];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-  const int k_end = causal ? min(seq, q0 + R) : seq;
-  for (int k0 = 0; k0 < k_end; k0 += R) {
-    __syncthreads();                 // the last tile's readers are done
-    load_tile<T, D, R>(ks, k, k0, seq, 1.f);
-    load_tile<T, D, R>(vs, v, k0, seq, 1.f);
-    __syncthreads();
-    float s[RI][RI] = {}, dp[RI][RI] = {};
-    tile_dot<D, R>(s, qs, ks, ty, tx);
-    tile_dot<D, R>(dp, dos, vs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = q0 + ty * RI + i;
-#pragma unroll
-      for (int j = 0; j < RI; ++j) {
-        const int c = k0 + tx + 16 * j;
-        const float p =
-            masked(r, c, seq, causal) ? 0.f : expf(scale * s[i][j] - lse_r[i]);
-        dss[(ty * RI + i) * LP + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
-      }
-    }
-    __syncthreads();
-    tile_mul<D, R, false>(acc, dss, ks, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = q0 + ty * RI + i;
-    if (r >= seq) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      dq[static_cast<long long>(r) * D + tx + 16 * j] =
-          from_f32<T>(scale * acc[i][j]);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int seq, float scale, int causal) {
-  extern __shared__ float smem[];
-  constexpr int R = kRows<D>, RI = R / 16, LD = D + 1, LP = R + 1;
-  constexpr int NJ = D / 16;
-  float* ks = smem;                  // R x LD (this CTA's keys)
-  float* vs = ks + R * LD;           // R x LD
-  float* qs = vs + R * LD;           // R x LD
-  float* dos = qs + R * LD;          // R x LD
-  float* ps = dos + R * LD;          // R x LP
-  float* dss = ps + R * LP;          // R x LP
-  float* lse_s = dss + R * LP;       // R
-  float* delta_s = lse_s + R;        // R
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int k0 = blockIdx.x * R;
-  const long long base = static_cast<long long>(blockIdx.y) * seq * D;
-  q += base;
-  k += base;
-  v += base;
-  dout += base;
-  dk += base;
-  dv += base;
-  lse += static_cast<long long>(blockIdx.y) * seq;
-  delta += static_cast<long long>(blockIdx.y) * seq;
-
-  load_tile<T, D, R>(ks, k, k0, seq, 1.f);
-  load_tile<T, D, R>(vs, v, k0, seq, 1.f);
-  float dk_acc[RI][NJ], dv_acc[RI][NJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-  // causal: query tiles wholly above the diagonal are skipped
-  const int q_start = causal ? k0 : 0;
-  for (int q0 = q_start; q0 < seq; q0 += R) {
-    __syncthreads();                 // the last tile's readers are done
-    load_tile<T, D, R>(qs, q, q0, seq, 1.f);
-    load_tile<T, D, R>(dos, dout, q0, seq, 1.f);
-    for (int i = threadIdx.x; i < R; i += kThreads) {
-      const int r = q0 + i;
-      lse_s[i] = r < seq ? lse[r] : 0.f;
-      delta_s[i] = r < seq ? delta[r] : 0.f;
-    }
-    __syncthreads();
-    float s[RI][RI] = {}, dp[RI][RI] = {};
-    tile_dot<D, R>(s, qs, ks, ty, tx);
-    tile_dot<D, R>(dp, dos, vs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int rl = ty * RI + i, r = q0 + rl;
-#pragma unroll
-      for (int j = 0; j < RI; ++j) {
-        const int c = k0 + tx + 16 * j;
-        const float p =
-            masked(r, c, seq, causal) ? 0.f : expf(scale * s[i][j] - lse_s[rl]);
-        ps[rl * LP + tx + 16 * j] = p;
-        dss[rl * LP + tx + 16 * j] = p * (dp[i][j] - delta_s[rl]);
-      }
-    }
-    __syncthreads();
-    // rows of the accumulators are this CTA's keys: P^T dO and dS^T Q
-    tile_mul<D, R, true>(dv_acc, ps, dos, ty, tx);
-    tile_mul<D, R, true>(dk_acc, dss, qs, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int c = k0 + ty * RI + i;
-    if (c >= seq) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const long long at = static_cast<long long>(c) * D + tx + 16 * j;
-      dk[at] = from_f32<T>(scale * dk_acc[i][j]);
-      dv[at] = from_f32<T>(dv_acc[i][j]);
-    }
-  }
-}
 
 // bf16 storage: the tensor-core kernels (the note at the top).
 
@@ -544,20 +407,265 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   }
 }
 
-// The storage type picks the kernel: bf16 the tensor cores, f32 the CUDA
-// cores.
-template <typename T>
-constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+// f32 storage: split TF32 on the tensor cores (the note at the top).
 
-template <typename T, int D, typename Kernel, typename... Args>
-int launch_bwd(Kernel kernel, int bh, int seq, size_t bytes,
-               cudaStream_t stream, Args... args) {
-  if constexpr (kTensorCores<T>)
-    return launch_mma(kernel, bh, seq, D / kOutCols<D>, bytes, stream,
-                      args...);
-  else
-    return launch_tiles(kernel, bh, seq, kRows<D>, bytes, stream, args...);
+// Tiles of the f32 backward kernels at head_dim D (floats): the CTA's own
+// 64 rows, and ST-row streamed tiles through a ring of STAGES
+template <int D, int kStreamed, int kStages>
+struct Tf32BwdTiles {
+  static constexpr int DO = kOutCols<D>;           // output columns a CTA
+  static constexpr int ST = kStreamed;             // rows a streamed tile
+  static constexpr int STAGES = kStages;           // streamed tiles in flight
+  static constexpr int LD = D + 4;                 // row stride
+  static constexpr int TILE = kBlockQ * LD;        // the CTA's own rows
+  static constexpr int STILE = ST * LD;            // a streamed tile
+  static constexpr size_t kDqSmem =
+      sizeof(float) * (2 * TILE + STAGES * 2 * STILE);
+  static constexpr size_t kDkvSmem =
+      sizeof(float) * (2 * TILE + STAGES * (2 * STILE + 2 * ST));
+};
+
+// From D = 128 each kernel keeps two CTAs on an SM: dQ streams K and V
+// 32 keys at a time through one stage, dK/dV Q and dO 16 queries at a
+// time through two (each ran faster at the LM's shape than the other
+// kernel's choice, and than 8 rows through two stages).
+template <int D>
+using DqTiles = Tf32BwdTiles<D, (D == 128 ? 32 : (D > 64 ? 16 : 64)),
+                             (D == 128 ? 1 : 2)>;
+template <int D>
+using DkvTiles = Tf32BwdTiles<D, (D > 64 ? 16 : 64), 2>;
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_dq_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ o,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         float* __restrict__ dq, float* __restrict__ delta,
+                         int seq, float scale, int causal) {
+  using L = DqTiles<D>;
+  constexpr int LD = L::LD, KT = L::ST, NT = KT / 8, NO = L::DO / 8;
+  extern __shared__ float smem[];
+  float* qs = smem;                    // this CTA's 64 queries
+  float* dos = qs + L::TILE;
+  float* kvs = dos + L::TILE;   // stage st: K at kvs + 2 st STILE, V after
+  const int lane = threadIdx.x & 31, w0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // causal: longest CTAs first
+  const int q0 = qt * kBlockQ;
+  const long long base = static_cast<long long>(blockIdx.x) * seq * D;
+  q += base;
+  k += base;
+  v += base;
+  o += base;
+  dout += base;
+  dq += base;
+  lse += static_cast<long long>(blockIdx.x) * seq;
+  delta += static_cast<long long>(blockIdx.x) * seq;
+  const int tiles = (seq + KT - 1) / KT;
+  const int n_k = causal ? min(tiles, (q0 + kBlockQ) / KT) : tiles;
+  const int col0 = blockIdx.z * L::DO;          // this CTA's columns of dQ
+
+  auto load_kv = [&](int j) {
+    float* dst = kvs + (j % L::STAGES) * 2 * L::STILE;
+    cp_async_f32<KT, D, LD>(dst, k, D, j * KT, 0, seq);
+    cp_async_f32<KT, D, LD>(dst + L::STILE, v, D, j * KT, 0, seq);
+  };
+  cp_async_f32<kBlockQ, D, LD>(qs, q, D, q0, 0, seq);
+  cp_async_f32<kBlockQ, D, LD>(dos, dout, D, q0, 0, seq);
+  cp_async_commit();
+  for (int j = 0; j < L::STAGES - 1; ++j) {
+    if (j < n_k) load_kv(j);
+    cp_async_commit();
+  }
+  cp_async_wait<L::STAGES - 1>();      // Q and dO have landed
+  __syncthreads();
+
+  // delta of row w0 + lane / 2, two lanes a row, half the row each
+  float dl;
+  {
+    const int rl = w0 + (lane >> 1), r = q0 + rl, c0 = (lane & 1) * (D / 2);
+    float part = 0.f;
+    if (r < seq) {
+#pragma unroll
+      for (int c = c0; c < c0 + D / 2; c += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            o + static_cast<long long>(r) * D + c);
+        const float4 y = *reinterpret_cast<const float4*>(dos + rl * LD + c);
+        part = fmaf(x.x, y.x, part);
+        part = fmaf(x.y, y.y, part);
+        part = fmaf(x.z, y.z, part);
+        part = fmaf(x.w, y.w, part);
+      }
+    }
+    dl = part + __shfl_xor_sync(0xffffffffu, part, 1);
+    if ((lane & 1) == 0 && r < seq && col0 == 0) delta[r] = dl;
+  }
+  // this thread's rows of the score tiles: w0 + g and w0 + g + 8
+  float delta_r[2], lse_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    delta_r[i] = __shfl_sync(0xffffffffu, dl, 2 * g + 16 * i);
+    const int r = q0 + w0 + g + 8 * i;
+    lse_r[i] = r < seq ? lse[r] : 0.f;
+  }
+  float acc[NO][4] = {};               // dQ, rows w0 .. w0 + 15
+
+  for (int j = 0; j < n_k; ++j) {
+    if (j + L::STAGES - 1 < n_k) load_kv(j + L::STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<L::STAGES - 1>();    // tile j has landed
+    __syncthreads();
+    const float* ks = kvs + (j % L::STAGES) * 2 * L::STILE;
+    const float* vs = ks + L::STILE;
+    float s[NT][4], dp[NT][4];         // S, dP: 16 rows x KT keys
+    dot_tiles<LD, D / 8>(s, qs, w0, ks, 0, g, t);
+    dot_tiles<LD, D / 8>(dp, dos, w0, vs, 0, g, t);
+    const int k0 = j * KT;
+    const bool edge = (causal && k0 + KT > q0 + 1) || k0 + KT > seq ||
+                      q0 + kBlockQ > seq;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = expf(fmaf(s[n][e], scale, -lse_r[i]));
+        if (edge && masked(q0 + w0 + g + 8 * i, k0 + n * 8 + 2 * t + (e & 1),
+                           seq, causal))
+          p = 0.f;
+        s[n][e] = p * (dp[n][e] - delta_r[i]);    // dS
+      }
+    }
+    uint32_t dsh[NT][4], dsl[NT][4];   // dQ += dS K
+    split_c_tiles(dsh, dsl, s);
+    mul_tiles<LD>(acc, dsh, dsl, ks, 0, col0, g, t);
+    __syncthreads();                   // tile j's stage is free
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + w0 + g + 8 * i;
+    if (r >= seq) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(dq + static_cast<long long>(r) * D + col0 +
+                                 n * 8 + 2 * t) =
+          make_float2(scale * acc[n][2 * i], scale * acc[n][2 * i + 1]);
+  }
 }
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_dkv_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int seq, float scale, int causal) {
+  using L = DkvTiles<D>;
+  constexpr int LD = L::LD, QT = L::ST, NS = QT / 8, NO = L::DO / 8;
+  extern __shared__ float smem[];
+  float* ks = smem;                    // this CTA's 64 keys
+  float* vs = ks + L::TILE;
+  float* qds = vs + L::TILE;   // stage st: Q at qds + 2 st STILE, dO after
+  float* rows = qds + L::STAGES * 2 * L::STILE;   // stage st: LSE at rows +
+                                                  // 2 st QT, delta after
+  const int lane = threadIdx.x & 31, w0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int kt = blockIdx.y, k0 = kt * kBlockK;   // causal: longest first
+  const long long base = static_cast<long long>(blockIdx.x) * seq * D;
+  q += base;
+  k += base;
+  v += base;
+  dout += base;
+  dk += base;
+  dv += base;
+  lse += static_cast<long long>(blockIdx.x) * seq;
+  delta += static_cast<long long>(blockIdx.x) * seq;
+  // causal: query tiles wholly above the diagonal are skipped
+  const int n_q = (seq + QT - 1) / QT, q_first = causal ? k0 / QT : 0;
+  const int col0 = blockIdx.z * L::DO;     // this CTA's columns of dK, dV
+
+  auto load_queries = [&](int stage, int qt) {
+    float* dst = qds + stage * 2 * L::STILE;
+    cp_async_f32<QT, D, LD>(dst, q, D, qt * QT, 0, seq);
+    cp_async_f32<QT, D, LD>(dst + L::STILE, dout, D, qt * QT, 0, seq);
+    cp_async_vec<QT>(rows + stage * 2 * QT, lse, qt * QT, seq);
+    cp_async_vec<QT>(rows + stage * 2 * QT + QT, delta, qt * QT, seq);
+  };
+  cp_async_f32<kBlockK, D, LD>(ks, k, D, k0, 0, seq);
+  cp_async_f32<kBlockK, D, LD>(vs, v, D, k0, 0, seq);
+  for (int j = 0; j < L::STAGES - 1; ++j) {   // K, V land with tile 0
+    if (q_first + j < n_q) load_queries(j, q_first + j);
+    cp_async_commit();
+  }
+  float dk_acc[NO][4] = {}, dv_acc[NO][4] = {};   // rows w0 .. w0 + 15
+
+  for (int qt = q_first; qt < n_q; ++qt) {
+    const int it = qt - q_first;
+    if (qt + L::STAGES - 1 < n_q)
+      load_queries((it + L::STAGES - 1) % L::STAGES, qt + L::STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<L::STAGES - 1>();    // tile qt has landed
+    __syncthreads();
+    const int stage = it % L::STAGES;
+    const float* qs = qds + stage * 2 * L::STILE;
+    const float* dos = qs + L::STILE;
+    const float* lse_s = rows + stage * 2 * QT;
+    const float* delta_s = lse_s + QT;
+    const int qb0 = qt * QT;
+    const bool edge = (causal && qb0 < k0 + kBlockK - 1) || qb0 + QT > seq ||
+                      k0 + kBlockK > seq;
+    // a warp whose keys this query tile does not see skips it
+    if (!(causal && qb0 + QT - 1 < k0 + w0)) {
+      float s[NS][4], dp[NS][4];         // S^T, dP^T: 16 keys x QT queries
+      dot_tiles<LD, D / 8>(s, ks, w0, qs, 0, g, t);
+      dot_tiles<LD, D / 8>(dp, vs, w0, dos, 0, g, t);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + 2 * t + (e & 1);   // query in tile
+          float p = expf(fmaf(s[n][e], scale, -lse_s[c]));
+          if (edge && masked(qb0 + c, k0 + w0 + g + 8 * (e >> 1), seq, causal))
+            p = 0.f;
+          dp[n][e] = p * (dp[n][e] - delta_s[c]);   // dS^T
+          s[n][e] = p;                               // P^T
+        }
+      }
+      uint32_t ph[NS][4], pl[NS][4], dh[NS][4], dl[NS][4];
+      split_c_tiles(ph, pl, s);          // dV += P^T dO
+      mul_tiles<LD>(dv_acc, ph, pl, dos, 0, col0, g, t);
+      split_c_tiles(dh, dl, dp);         // dK += dS^T Q
+      mul_tiles<LD>(dk_acc, dh, dl, qs, 0, col0, g, t);
+    }
+    __syncthreads();                   // tile qt's stage is free
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = k0 + w0 + g + 8 * i;
+    if (c >= seq) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const long long at =
+          static_cast<long long>(c) * D + col0 + n * 8 + 2 * t;
+      *reinterpret_cast<float2*>(dk + at) =
+          make_float2(scale * dk_acc[n][2 * i], scale * dk_acc[n][2 * i + 1]);
+      *reinterpret_cast<float2*>(dv + at) =
+          make_float2(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    }
+  }
+}
+
+// The storage type picks the kernel: bf16 in bf16 on the tensor cores,
+// f32 in split TF32 on them; both take launch_mma's grid.
+template <typename T>
+constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 
 struct DqLaunch {
   const void *q, *k, *v, *o, *dout;
@@ -571,28 +679,27 @@ struct DqLaunch {
 
   template <typename T, int D>
   static auto kernel() {
-    if constexpr (kTensorCores<T>)
+    if constexpr (kBf16<T>)
       return flash_dq_mma_kernel<D>;
     else
-      return flash_dq_kernel<T, D>;
+      return flash_dq_tf32_kernel<D>;
   }
 
   template <typename T, int D>
   static size_t smem() {
-    if constexpr (kTensorCores<T>)
+    if constexpr (kBf16<T>)
       return sizeof(T) * (2 * kBlockQ + 4 * kBlockK) * (D + 8);
     else
-      return sizeof(float) * (4 * kRows<D> * (D + 1) +
-                              kRows<D> * (kRows<D> + 1));
+      return DqTiles<D>::kDqSmem;
   }
 
   template <typename T, int D>
   int run() const {
-    return launch_bwd<T, D>(kernel<T, D>(), bh, seq, smem<T, D>(), stream,
-                         static_cast<const T*>(q), static_cast<const T*>(k),
-                         static_cast<const T*>(v), static_cast<const T*>(o),
-                         static_cast<const T*>(dout), lse, static_cast<T*>(dq),
-                         delta, seq, scale, causal);
+    return launch_mma(kernel<T, D>(), bh, seq, D / kOutCols<D>, smem<T, D>(),
+                      stream, static_cast<const T*>(q),
+                      static_cast<const T*>(k), static_cast<const T*>(v),
+                      static_cast<const T*>(o), static_cast<const T*>(dout),
+                      lse, static_cast<T*>(dq), delta, seq, scale, causal);
   }
 };
 
@@ -607,29 +714,29 @@ struct DkvLaunch {
 
   template <typename T, int D>
   static auto kernel() {
-    if constexpr (kTensorCores<T>)
+    if constexpr (kBf16<T>)
       return flash_dkv_mma_kernel<D>;
     else
-      return flash_dkv_kernel<T, D>;
+      return flash_dkv_tf32_kernel<D>;
   }
 
   template <typename T, int D>
   static size_t smem() {
-    if constexpr (kTensorCores<T>)
+    if constexpr (kBf16<T>)
       return sizeof(T) * (2 * kBlockK + 4 * kBlockQ) * (D + 8) +
              sizeof(float) * 4 * kBlockQ;
     else
-      return sizeof(float) * (4 * kRows<D> * (D + 1) +
-                              2 * kRows<D> * (kRows<D> + 1) + 2 * kRows<D>);
+      return DkvTiles<D>::kDkvSmem;
   }
 
   template <typename T, int D>
   int run() const {
-    return launch_bwd<T, D>(kernel<T, D>(), bh, seq, smem<T, D>(), stream,
-                         static_cast<const T*>(q), static_cast<const T*>(k),
-                         static_cast<const T*>(v), static_cast<const T*>(dout),
-                         lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-                         seq, scale, causal);
+    return launch_mma(kernel<T, D>(), bh, seq, D / kOutCols<D>, smem<T, D>(),
+                      stream, static_cast<const T*>(q),
+                      static_cast<const T*>(k), static_cast<const T*>(v),
+                      static_cast<const T*>(dout), lse, delta,
+                      static_cast<T*>(dk), static_cast<T*>(dv), seq, scale,
+                      causal);
   }
 };
 
@@ -640,7 +747,7 @@ struct InfoQuery {
   int which;                           // 0: dQ, 1: dK/dV
   int* out;
 
-  template <typename T, typename Kernel>
+  template <typename Kernel>
   int fill(Kernel kernel, size_t bytes) const {
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
@@ -648,14 +755,14 @@ struct InfoQuery {
       err = cudaFuncSetAttribute(kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(bytes));
-    if (err == cudaSuccess && kTensorCores<T>)
+    if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kernel,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
     int ctas = 0;
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &ctas, kernel, kTensorCores<T> ? kMmaThreads : kThreads, bytes);
+          &ctas, kernel, kMmaThreads, bytes);
     if (err != cudaSuccess) return err;
     out[0] = attr.numRegs;
     out[1] = static_cast<int>(attr.localSizeBytes);
@@ -667,8 +774,8 @@ struct InfoQuery {
   template <typename T, int D>
   int run() const {
     return which == 0
-               ? fill<T>(DqLaunch::kernel<T, D>(), DqLaunch::smem<T, D>())
-               : fill<T>(DkvLaunch::kernel<T, D>(), DkvLaunch::smem<T, D>());
+               ? fill(DqLaunch::kernel<T, D>(), DqLaunch::smem<T, D>())
+               : fill(DkvLaunch::kernel<T, D>(), DkvLaunch::smem<T, D>());
   }
 };
 

@@ -2,15 +2,15 @@
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are contiguous (B*H, S, D) in the
 // storage type T (float or __nv_bfloat16); lse and delta are (B*H, S) f32.
-// The f32 kernels: a CTA of kThreads threads owns one R-row tile of one
-// (b, h), R = kRows<D> (64; 32 at D = 256, so that four f32 tiles of
-// D + 1 columns fit in shared memory): tiles are staged in shared memory
-// as f32 with a row stride of D + 1 (an odd stride keeps the column reads
-// of 16 neighbouring rows on 16 distinct banks), and every product
-// accumulates in f32. Thread (ty, tx) = (tid / 16, tid % 16) owns rows
-// ty*RI .. ty*RI+RI-1 (RI = R / 16) of an R x R score tile and its
-// columns tx, tx+16, ...; the 16 threads of a row are half a warp, so a
-// row's max and sum are xor shuffles over lanes 8, 4, 2, 1.
+// The CUDA-core helpers below (tile_dot, tile_mul) serve the wide kernels
+// past head_dim 256 (flash_wide.cuh): a CTA of kThreads threads over an
+// R-row tile staged in shared memory as f32 with a row stride of D + 1
+// (an odd stride keeps the column reads of 16 neighbouring rows on 16
+// distinct banks), every product accumulated in f32. Thread (ty, tx) =
+// (tid / 16, tid % 16) owns rows ty*RI .. ty*RI+RI-1 (RI = R / 16) of an
+// R x R score tile and its columns tx, tx+16, ...; the 16 threads of a
+// row are half a warp, so a row's max and sum are xor shuffles over lanes
+// 8, 4, 2, 1.
 
 #pragma once
 
@@ -21,11 +21,7 @@ namespace sparknet_flash {
 
 constexpr int kBlockQ = 64;     // query rows per tile (tensor-core kernels)
 constexpr int kBlockK = 64;     // key rows per tile (tensor-core kernels)
-constexpr int kThreads = 256;   // 16 x 16
-
-// rows of the f32 kernels' query and key tiles at head_dim D
-template <int D>
-constexpr int kRows = D > 128 ? 32 : 64;
+constexpr int kThreads = 256;   // 16 x 16 (the wide kernels)
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF: finite, so
                                    // exp(m_prev - m_new) never sees inf-inf
 
@@ -42,19 +38,6 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);   // round to nearest even, as the plain
 }                               // version's .to(torch.bfloat16)
-
-// rows [row0, row0 + R) of a (seq, D) matrix -> f32 smem tile with row
-// stride D + 1, times `mult`; rows at or past seq read as zero
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int seq, float mult) {
-  for (int i = threadIdx.x; i < R * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const int g = row0 + r;
-    dst[r * (D + 1) + c] =
-        g < seq ? to_f32(src[static_cast<long long>(g) * D + c]) * mult : 0.f;
-  }
-}
 
 __device__ __forceinline__ float row_max16(float v) {
 #pragma unroll
@@ -137,21 +120,6 @@ int dispatch(int dtype, int head_dim, const Launch& launch) {
   if (dtype == 1) { SPARKNET_FLASH_D(__nv_bfloat16) }
 #undef SPARKNET_FLASH_D
   return cudaErrorInvalidValue;
-}
-
-// Opt the kernel in to `bytes` of dynamic shared memory (above 48 KB
-// needs it), launch it on a (ceil(seq / rows), bh) grid, and return the
-// launch's error code.
-template <typename Kernel, typename... Args>
-int launch_tiles(Kernel kernel, int bh, int seq, int rows, size_t bytes,
-                 cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  dim3 grid((seq + rows - 1) / rows, bh);
-  kernel<<<grid, kThreads, bytes, stream>>>(args...);
-  return cudaGetLastError();
 }
 
 }  // namespace sparknet_flash

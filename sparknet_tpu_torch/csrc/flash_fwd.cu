@@ -59,102 +59,55 @@
 //    At the LM's (4, 8, 4096, 128) causal: 0.39-0.40 ms, 341-351 TFLOP/s,
 //    1.2-1.5x F.scaled_dot_product_attention's time (PERF.md).
 //
-// f32 storage (flash_fwd_kernel) keeps CUDA-core products in f32 (the f32
-// limits, 2e-5 of the largest element, need f32 products): a CTA of 256
-// threads owns R = kRows<D> query rows (64; 32 at D = 256, where three
-// f32 tiles of D + 1 columns must fit), Q scaled as it is staged in f32
-// shared memory (row stride D + 1), K and V streamed one R-row tile at a
-// time, an R/16 x R/16 block of scores and an R/16 x D/16 block of O per
-// thread. The storage type picks the kernel and nothing else does.
+// f32 storage (flash_fwd_tf32_kernel): both products on the tensor cores
+// in split TF32 (3xTF32, flash_tf32.cuh): each f32 operand is split into
+// a TF32 hi and lo, and a b ~ a_hi b_lo + a_lo b_hi + a_hi b_hi with f32
+// accumulation, which keeps O within the f32 limits (2e-5 of the largest
+// element; one TF32 pass reads ~15x over it). A CTA of 4 warps owns 64
+// query rows of one (b, h), 16 a warp, as the bf16 backward's layout
+// (mma.sync m16n8k8 fed from shared memory; wgmma takes TF32 only with
+// both operands K-major, which P V's V is not).
+//  - Loads: Q lands once; K and V follow in KT-key tiles (64 at D <= 32,
+//    32 from D = 64) by cp.async, two stages deep (tile j + 1 in flight
+//    under tile j's products) but one at D = 128, where that lets three
+//    CTAs share an SM. f32 tiles of row stride D + 4, free of bank
+//    conflicts.
+//  - S = Q K^T in f32 accumulators, summed on the tensor cores 64
+//    columns of D at a time and added in f32 (the tensor core truncates
+//    its sums: flash_tf32.cuh), then scaled. Online softmax in registers
+//    as the bf16 kernel's (a row's scores in the 4 lanes of a quad), with
+//    expf in natural units as the plain version computes it; nothing is
+//    rounded between the products: P enters O += P V split, from S's
+//    accumulators, one tile's sum added to O in f32.
+//  - Head_dim 256: O's columns split in two 128-wide halves over the
+//    grid's z axis (each CTA computes S over all of D and reads its half
+//    of V), as the bf16 kernel does.
+//  - Causal: key tiles past the diagonal are skipped; the query tile is
+//    the slow grid axis, last tile first.
+//  - Bound: operations. At the LM's (4, 8, 4096, 128) causal, 137 GFLOP:
+//    0.83 ms at 165 TFLOP/s of f32-accurate products (495 TFLOP/s of
+//    dense TF32 over the 3 products). Every mma also costs its loads and
+//    the split of its B fragment, so instruction throughput and latency
+//    bind it first.
+//  - Registers a thread, shared memory and CTAs per SM on the H100
+//    (sparknet_flash_forward_info, chip_smoke.py phase 6); no spills:
+//        D      16           32           64           128          256
+//               128 25 KB 4  128 45 KB 4  127 51 KB 4  167 66 KB 3  254 163 KB 1
+//    At the LM's shape: 2.78 ms, 49.5 TFLOP/s, 30% of the bound; the
+//    CUDA-core kernel it replaced took 5.91-6.15 ms in the same call and
+//    F.scaled_dot_product_attention 3.20 (scripts/flash_f32_ab.py;
+//    PERF.md).
+// The storage type picks the kernel and nothing else does.
 
 #include <type_traits>
 
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
+#include "flash_tf32.cuh"
 #include "flash_wgmma.cuh"
 #include "flash_wide.cuh"
 
 namespace sparknet_flash {
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int seq, float scale,
-                     int causal) {
-  extern __shared__ float smem[];
-  constexpr int R = kRows<D>, RI = R / 16, LD = D + 1, LP = R + 1;
-  constexpr int NJ = D / 16;
-  float* qs = smem;                  // R x LD, scaled
-  float* ks = qs + R * LD;           // R x LD
-  float* vs = ks + R * LD;           // R x LD
-  float* ps = vs + R * LD;           // R x LP
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * R;
-  const long long base = static_cast<long long>(blockIdx.y) * seq * D;
-  q += base;
-  k += base;
-  v += base;
-  o += base;
-  lse += static_cast<long long>(blockIdx.y) * seq;
-
-  load_tile<float, D, R>(qs, q, q0, seq, scale);
-  float acc[RI][NJ], m[RI], l[RI];
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-  // causal: key tiles wholly above the diagonal are skipped
-  const int k_end = causal ? min(seq, q0 + R) : seq;
-  for (int k0 = 0; k0 < k_end; k0 += R) {
-    __syncthreads();                 // the last tile's readers are done
-    load_tile<float, D, R>(ks, k, k0, seq, 1.f);
-    load_tile<float, D, R>(vs, v, k0, seq, 1.f);
-    __syncthreads();
-    float s[RI][RI] = {};
-    tile_dot<D, R>(s, qs, ks, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = q0 + ty * RI + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < RI; ++j) {
-        // a query row past seq is never stored: only keys are masked
-        const int c = k0 + tx + 16 * j;
-        if (c >= seq || (causal && c > r)) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < RI; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-        ps[(ty * RI + i) * LP + tx + 16 * j] = s[i][j];
-      }
-      l[i] = l[i] * alpha + row_sum16(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-    tile_mul<D, R, false>(acc, ps, vs, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = q0 + ty * RI + i;
-    if (r >= seq) continue;
-    const float lc = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      o[static_cast<long long>(r) * D + tx + 16 * j] = acc[i][j] / lc;
-    if (tx == 0) lse[r] = m[i] + logf(lc);
-  }
-}
 
 // bf16 storage: the tensor-core kernel (the note at the top).
 
@@ -335,8 +288,139 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// f32 storage: split TF32 on the tensor cores (the note at the top).
+
+// Tiles of the f32 forward at head_dim D (floats; flash_tf32.cuh)
+template <int D>
+struct Tf32FwdTiles {
+  static constexpr int DO = D > 128 ? 128 : D;     // O columns of a CTA
+  // keys a tile, and K/V tiles in flight: at D = 128 one stage of 32
+  // keys lets three CTAs share an SM, which ran faster at the LM's shape
+  // than two stages and two CTAs, or one stage of 64 keys
+  static constexpr int KT = D >= 64 ? 32 : 64;
+  static constexpr int STAGES = D == 128 ? 1 : 2;
+  static constexpr int LD = D + 4, LDV = DO + 4;   // row strides: Q, K; V
+  static constexpr int STAGE = KT * (LD + LDV);    // K then V
+  static constexpr size_t kSmem =
+      sizeof(float) * (kBlockQ * LD + STAGES * STAGE);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int seq, float scale,
+                          int causal) {
+  using L = Tf32FwdTiles<D>;
+  constexpr int KT = L::KT, LD = L::LD, LDV = L::LDV;
+  constexpr int NT = KT / 8, NO = L::DO / 8;
+  extern __shared__ float smem[];
+  float* qs = smem;                          // this CTA's 64 queries
+  float* kv = qs + kBlockQ * LD;             // stage st: K, then V
+  const int lane = threadIdx.x & 31, w0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // causal: longest CTAs first
+  const int q0 = qt * kBlockQ;
+  const int col0 = blockIdx.z * L::DO;         // this CTA's columns of O
+  const long long base = static_cast<long long>(blockIdx.x) * seq * D;
+  q += base;
+  k += base;
+  v += base;
+  o += base;
+  lse += static_cast<long long>(blockIdx.x) * seq;
+  const int tiles = (seq + KT - 1) / KT;
+  // causal: key tiles wholly above the diagonal are skipped
+  const int n_k = causal ? min(tiles, (q0 + kBlockQ) / KT) : tiles;
+
+  auto load_kv = [&](int j) {
+    float* dst = kv + (j % L::STAGES) * L::STAGE;
+    cp_async_f32<KT, D, LD>(dst, k, D, j * KT, 0, seq);
+    cp_async_f32<KT, L::DO, LDV>(dst + KT * LD, v, D, j * KT, col0, seq);
+  };
+  cp_async_f32<kBlockQ, D, LD>(qs, q, D, q0, 0, seq);
+  for (int j = 0; j < L::STAGES - 1; ++j) {   // Q lands with tile 0
+    if (j < n_k) load_kv(j);
+    cp_async_commit();
+  }
+
+  float acc[NO][4] = {};                     // O, unnormalised
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  for (int j = 0; j < n_k; ++j) {
+    if (j + L::STAGES - 1 < n_k) load_kv(j + L::STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<L::STAGES - 1>();          // tile j has landed
+    __syncthreads();
+    const float* ks = kv + (j % L::STAGES) * L::STAGE;
+    const float* vs = ks + KT * LD;
+    float s[NT][4];                          // S: 16 rows x KT keys
+    dot_tiles<LD, D / 8>(s, qs, w0, ks, 0, g, t);
+    const int k0 = j * KT;
+    const bool edge = (causal && k0 + KT > q0 + 1) || k0 + KT > seq;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float x = s[n][e] * scale;
+        if (edge) {
+          // a query row past seq is never stored: only keys are masked
+          const int c = k0 + n * 8 + 2 * t + (e & 1);
+          if (c >= seq || (causal && c > q0 + w0 + g + 8 * i)) x = kNegInf;
+        }
+        s[n][e] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = expf(s[n][e] - m[e >> 1]);
+        sum[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    uint32_t ph[NT][4], pl[NT][4];           // O += P V
+    split_c_tiles(ph, pl, s);
+    mul_tiles<LDV>(acc, ph, pl, vs, 0, 0, g, t);
+    __syncthreads();                         // tile j's stage is free
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float lt = l[i] + __shfl_xor_sync(0xffffffffu, l[i], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int r = q0 + w0 + g + 8 * i;
+    if (r >= seq) continue;
+    const float lc = fmaxf(lt, 1e-30f);
+    float* orow = o + static_cast<long long>(r) * D + col0;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * i] / lc, acc[n][2 * i + 1] / lc);
+    if (t == 0 && col0 == 0) lse[r] = m[i] + logf(lc);
+  }
+}
+
+// bf16 storage takes the wgmma kernel, f32 the split-TF32 one
 template <typename T>
-constexpr bool kTensorCores = std::is_same<T, bf16>::value;
+constexpr bool kWgmma = std::is_same<T, bf16>::value;
 
 struct ForwardLaunch {
   const void *q, *k, *v;
@@ -349,24 +433,23 @@ struct ForwardLaunch {
 
   template <typename T, int D>
   static auto kernel() {
-    if constexpr (kTensorCores<T>)
+    if constexpr (kWgmma<T>)
       return flash_fwd_wgmma_kernel<D>;
     else
-      return flash_fwd_kernel<D>;
+      return flash_fwd_tf32_kernel<D>;
   }
 
   template <typename T, int D>
   static size_t smem() {
-    if constexpr (kTensorCores<T>)
+    if constexpr (kWgmma<T>)
       return WgTiles<D>::kSmem;
     else
-      return sizeof(float) * (3 * kRows<D> * (D + 1) +
-                              kRows<D> * (kRows<D> + 1));
+      return Tf32FwdTiles<D>::kSmem;
   }
 
   template <typename T, int D>
   int run() const {
-    if constexpr (kTensorCores<T>) {
+    if constexpr (kWgmma<T>) {
       const int tiles = (seq + kWgRows - 1) / kWgRows;
       if (tiles > 65535) return cudaErrorInvalidValue;
       CUtensorMap maps[3];
@@ -386,12 +469,11 @@ struct ForwardLaunch {
           causal);
       return cudaGetLastError();
     } else {
-      return launch_tiles(kernel<T, D>(), bh, seq, kRows<D>, smem<T, D>(),
-                          stream,
-                          static_cast<const float*>(q),
-                          static_cast<const float*>(k),
-                          static_cast<const float*>(v), static_cast<float*>(o),
-                          lse, seq, scale, causal);
+      return launch_mma(kernel<T, D>(), bh, seq, D / Tf32FwdTiles<D>::DO,
+                        smem<T, D>(), stream, static_cast<const float*>(q),
+                        static_cast<const float*>(k),
+                        static_cast<const float*>(v), static_cast<float*>(o),
+                        lse, seq, scale, causal);
     }
   }
 };
@@ -412,10 +494,14 @@ struct ForwardInfo {
       err = cudaFuncSetAttribute(fn,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(bytes));
+    if (err == cudaSuccess && !kWgmma<T>)    // as launch_mma sets it
+      err = cudaFuncSetAttribute(fn,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
     int ctas = 0;
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &ctas, fn, kTensorCores<T> ? kWgThreads : kThreads, bytes);
+          &ctas, fn, kWgmma<T> ? kWgThreads : kMmaThreads, bytes);
     if (err != cudaSuccess) return err;
     out[0] = attr.numRegs;
     out[1] = static_cast<int>(attr.localSizeBytes);

@@ -17,13 +17,18 @@ scales the product, as they do. LSE is stored (B*H, S), not
 lane-replicated. The backward computes delta once, in the dQ kernel,
 and hands it to the dK/dV kernel.
 
-For float32 tensors every kernel computes in f32 on the CUDA cores. For
-bfloat16 tensors every kernel runs its products on the tensor cores,
-with f32 sums, and rounds to bfloat16 what feeds a second product: P
-before O = P V in the forward (csrc/flash_fwd.cu, wgmma), P and dS
-before dV = P^T dO, dQ = dS K and dK = dS^T Q in the backward
-(csrc/flash_bwd.cu, mma.sync), as the JAX kernels' default-precision
-dots do on the TPU. The plain versions keep them in f32.
+For float32 tensors every kernel runs its products on the tensor cores
+in split TF32 (csrc/flash_tf32.cuh, mma.sync): each f32 operand is
+split into a TF32 hi and lo and a b ~ a_hi b_lo + a_lo b_hi + a_hi b_hi,
+summed in f32, which is as accurate as f32 products (one TF32 pass is
+not: it reads ~15x over the f32 limit on O); nothing is rounded between
+the products. For bfloat16 tensors every kernel runs its products on the
+tensor cores in bf16, with f32 sums, and rounds to bfloat16 what feeds a
+second product: P before O = P V in the forward (csrc/flash_fwd.cu,
+wgmma), P and dS before dV = P^T dO, dQ = dS K and dK = dS^T Q in the
+backward (csrc/flash_bwd.cu, mma.sync), as the JAX kernels'
+default-precision dots do on the TPU. The plain versions keep them in
+f32.
 
 A head_dim D <= 256 that the kernels were not built for (``HEAD_DIMS``)
 runs through the next built one: Q, K, V (and O, dO) are zero-padded to

@@ -6,7 +6,12 @@ _build/<name>_<key>.so``. The key hashes the source, the shared headers
 and the compiler flags, so an edited source rebuilds and an unchanged one
 loads the library already there. ``build()`` starts one ``nvcc`` per
 missing source, all at once. A failed compile raises with ``nvcc``'s
-stderr; nothing falls back to the plain PyTorch versions.
+stderr; nothing falls back to the plain PyTorch versions. ``defines``
+builds a variant with those preprocessor macros set, into a library of
+its own (``<name>_<macros>_<key>.so``): the one-pass TF32 control of the
+f32 flash kernels (``TF32_ONE_PASS``), which chip_smoke.py and
+scripts/flash_f32_ab.py build to show that the f32 limits reject 10-bit
+products. The wrappers load no variant.
 
 Nothing here runs at import time: the package imports on machines with
 no ``nvcc`` and no card, and the CPU path never calls in here.
@@ -27,9 +32,12 @@ BUILD_DIR = os.path.join(PACKAGE, "_build")
 SOURCES = ("lrn", "epilogue", "lrn_bwd", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+# csrc/flash_tf32.cuh's one-pass TF32 control: split-TF32 products with
+# the lo terms left out
+TF32_ONE_PASS = ("SPARKNET_FLASH_TF32_ONE_PASS",)
 
 _lock = threading.Lock()
-_loaded = {}          # name -> ctypes.CDLL; a loaded library is process-wide
+_loaded = {}          # (name, defines) -> ctypes.CDLL, process-wide
 
 
 def nvcc_path():
@@ -47,8 +55,13 @@ def nvcc_path():
     return found
 
 
-def _key(name):
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _macro_flags(defines):
+    return tuple(f"-D{d}" for d in defines)
+
+
+def _key(name, defines=()):
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + _macro_flags(defines))
+                       .encode())
     for fn in sorted(os.listdir(CSRC)):
         if fn == f"{name}.cu" or fn.endswith(".cuh"):
             h.update(fn.encode())
@@ -57,25 +70,27 @@ def _key(name):
     return h.hexdigest()[:16]
 
 
-def library_path(name):
-    return os.path.join(BUILD_DIR, f"{name}_{_key(name)}.so")
+def library_path(name, defines=()):
+    tag = "".join(f"_{d.lower()}" for d in defines)
+    return os.path.join(BUILD_DIR, f"{name}{tag}_{_key(name, defines)}.so")
 
 
-def build(names=SOURCES, ptxas_verbose=False):
-    """Compile every library in ``names`` that is not built yet, one
-    ``nvcc`` process per source, all started together. Returns
-    {name: compiler output} for the ones it compiled; raises
-    RuntimeError with the stderr of every failed compile."""
+def build(names=SOURCES, ptxas_verbose=False, defines=()):
+    """Compile every library in ``names`` that is not built yet (with
+    the macros ``defines`` set), one ``nvcc`` process per source, all
+    started together. Returns {name: compiler output} for the ones it
+    compiled; raises RuntimeError with the stderr of every failed
+    compile."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     extra = ("-Xptxas", "-v") if ptxas_verbose else ()
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, defines)
         if os.path.exists(out):
             continue
         tmp = f"{out}.tmp.{os.getpid()}.{threading.get_ident()}"
-        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", tmp,
-               os.path.join(CSRC, f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *_macro_flags(defines), *extra,
+               "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        tmp, out)
@@ -95,24 +110,27 @@ def build(names=SOURCES, ptxas_verbose=False):
     return logs
 
 
-def library(name):
-    """The loaded library for csrc/<name>.cu, built first if needed."""
+def library(name, defines=()):
+    """The loaded library for csrc/<name>.cu (built with the macros
+    ``defines``), built first if needed."""
+    defines = tuple(defines)
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get((name, defines))
         if lib is None:
-            path = library_path(name)
+            path = library_path(name, defines)
             if not os.path.exists(path):
-                build((name,))
+                build((name,), defines=defines)
             lib = ctypes.CDLL(path)
-            _loaded[name] = lib
+            _loaded[name, defines] = lib
         return lib
 
 
-def function(name, symbol, argtypes):
-    """C function ``symbol`` of csrc/<name>.cu's library, its argument
-    types declared (each pointer as c_void_p, so none is cut to 32
-    bits) and returning the CUDA error code as an int."""
-    fn = getattr(library(name), symbol)
+def function(name, symbol, argtypes, defines=()):
+    """C function ``symbol`` of csrc/<name>.cu's library (built with the
+    macros ``defines``), its argument types declared (each pointer as
+    c_void_p, so none is cut to 32 bits) and returning the CUDA error
+    code as an int."""
+    fn = getattr(library(name, defines), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

@@ -21,12 +21,45 @@ Emulated the same way, O's worst 64-row tile must lie under the card's
 limit of 5e-3 and above 1e-3 (rounding only O reads ~2e-4, since the
 plain version rounds O too), and both planted faults must read above
 the limit.
+
+The f32 kernels (csrc/flash_tf32.cuh) run every product in split TF32:
+each f32 operand x is split as hi = tf32(x) (round to nearest, ties
+away from zero, as cvt.rna.tf32.f32; emulated here by bit masking) and
+lo = x - hi, which the tensor core reads truncated to TF32, and a b ~
+a_hi b_lo + a_lo b_hi + a_hi b_hi. Each mma.sync m16n8k8 is emulated as
+the tensor core computes it: the 8 products of a k-step exact (TF32
+products are exact in f32, and so is their sum in f64 here), added to
+the accumulator and the result truncated to f32 toward zero, since the
+tensor core does not round its sums as IEEE f32 does (the alignment
+shifts inside the mma are not modelled). The sums are chunked as the
+kernels chunk them (flash_tf32.cuh's kSumSteps): a tensor-core sum runs
+over at most 8 k-steps (64 columns of D) for S and dP, and over one
+streamed tile for the second products (the forward's key tiles, the dQ
+kernel's key tiles, the dK/dV kernel's query tiles, each as wide as the
+kernel streams them at that head_dim), each chunk starting from zero
+and then added into the f32 sum by an IEEE add; everything else stays
+f32 as in the kernels (the forward's key-tile walk with its online
+softmax, exp in natural units; the backward's P, dS, delta). That
+emulation, forward and backward, must keep the f32 limits (O, LSE and
+delta 2e-5 and dQ, dK, dV 5e-4 of the largest element, every output's
+worst 64-row tile 1e-4) against the plain versions and against the JAX
+package's Pallas kernel in interpret mode, with the planted faults
+above them; one TF32 pass (lo left out, the card's precision control)
+must read over the O limit; and against f64, dK and dV summed in one
+tensor-core accumulator over all of S must read measurably worse than
+the kernels' chunked sums.
 """
 
+import functools
+import math
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from sparknet_tpu.ops.pallas_attention import _flash_backward, _flash_forward
 from sparknet_tpu_torch.ops import cuda_attention as ca
 
 BWD_TILE_LIMIT = 5e-3     # chip_smoke.FLASH_BWD_TILE_LIMIT["bfloat16"]
@@ -168,3 +201,277 @@ def test_built_head_dim():
     # past 256: the next multiple of 64 (the wide kernels)
     assert [ca.built_head_dim(d) for d in (257, 300, 320, 321, 512, 1000)] \
         == [320, 320, 320, 384, 512, 1024]
+
+
+# -- the f32 kernels: split TF32 ------------------------------------------
+
+F32_LIMIT = {"O": 2e-5, "LSE": 2e-5, "delta": 2e-5, "dq": 5e-4, "dk": 5e-4,
+             "dv": 5e-4}               # of the largest reference element
+F32_TILE_LIMIT = 1e-4                  # chip_smoke.FLASH_TILE_LIMIT["float32"]
+F32_SHAPES = [pytest.param((1, 2, 256, 64), id="S256-D64"),
+              pytest.param((1, 2, 256, 128), id="S256-D128")]
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 does: half of the dropped 13 bits'
+    unit added to the bit pattern, then the 13 bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """x as the tensor core reads an f32 bit pattern for a TF32 operand:
+    its low 13 bits dropped (toward zero)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    """hi, lo as the kernels hand them to the mma, and as it reads them:
+    hi = tf32(x), lo = x - hi truncated to TF32."""
+    hi = _tf32(x)
+    return hi, _tf32_truncated(x - hi)
+
+
+def _rz(x):
+    """f64 values rounded to f32 toward zero (kept in f64): the 29
+    mantissa bits that f32 lacks cleared (f32's normal range)."""
+    return (x.view(torch.int64) & -(1 << 29)).view(torch.float64)
+
+
+K_SUM_STEPS = 8            # csrc/flash_tf32.cuh's kSumSteps
+
+
+def _tc_sum(a, b, passes=3, chain=K_SUM_STEPS, acc=None):
+    """a @ b (a (..., M, K), b (..., K, N), f32) as the kernels' split
+    TF32 mma computes it: per k-step of 8, the tensor core's products
+    a_hi b_lo, a_lo b_hi, then a_hi b_hi, each mma truncating its f32
+    result (passes=1: a_hi b_hi alone, one TF32 pass), summed on the
+    tensor core over ``chain`` k-steps from zero (None: all of K in one
+    accumulator) and those sums added into ``acc`` in f32, in order."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    pairs = [(ah, bl), (al, bh), (ah, bh)] if passes == 3 else [(ah, bh)]
+    kk = a.shape[-1] // 8
+    terms = [torch.einsum("...mks,...ksn->k...mn",
+                          x.double().unflatten(-1, (kk, 8)),
+                          y.double().unflatten(-2, (kk, 8)))
+             for x, y in pairs]
+    chain = chain or kk
+    for c0 in range(0, kk, chain):
+        part = torch.zeros_like(terms[0][0])
+        for k in range(c0, min(c0 + chain, kk)):
+            for t in terms:
+                part = _rz(part + t[k])
+        acc = part.float() if acc is None else acc + part.float()
+    return acc
+
+
+def _streamed(d):
+    """Rows of the streamed tiles at head_dim d: the forward's key tiles,
+    the dQ kernel's key tiles, the dK/dV kernel's query tiles
+    (Tf32FwdTiles, DqTiles, DkvTiles)."""
+    return {"fwd": 32 if d >= 64 else 64,
+            "dq": 32 if d == 128 else (16 if d > 64 else 64),
+            "dkv": 16 if d > 64 else 64}
+
+
+def _rel(got, ref):
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+def _f32_inputs(shape, seed=51):
+    rs = np.random.RandomState(seed)
+    return [(0.5 * rs.randn(*shape)).astype(np.float32) for _ in range(4)]
+
+
+def _split_tf32_forward(q, k, v, causal, passes=3):
+    """O and LSE as csrc/flash_fwd.cu's f32 kernel computes them: S in
+    f32 from split-TF32 sums, scaled after them, key tiles of 64 (32
+    from D = 64) with the online softmax, O scaled by alpha and then
+    P V's k-steps added from the unrounded P."""
+    b, h, s, d = q.shape
+    tile = _streamed(d)["fwd"]
+    scale = ca.default_scale(q)
+    m = torch.full((b, h, s, 1), ca.NEG_INF)
+    l = torch.zeros(b, h, s, 1)
+    acc = torch.zeros(b, h, s, d)
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, s, tile):
+        x = _tc_sum(q, k[:, :, k0:k0 + tile].transpose(-1, -2), passes) \
+            * scale
+        if causal:
+            cols = torch.arange(k0, min(k0 + tile, s))[None, :]
+            x = x.masked_fill(cols > rows, ca.NEG_INF)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(x - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = _tc_sum(p, v[:, :, k0:k0 + tile], passes, acc=acc * alpha)
+        m = m_new
+    lc = l.clamp_min(1e-30)
+    return acc / lc, (m + torch.log(lc)).reshape(b * h, s)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_tf32_backward(shape, causal, one_accumulator=False):
+    """dQ, delta, dK, dV as csrc/flash_bwd.cu's f32 kernels compute them
+    on _f32_inputs(shape) with the plain forward's O and LSE: S and dP
+    from split-TF32 sums over D (the dK/dV kernel's S^T and dP^T with K
+    and V as the first operand), P = exp(scale S - LSE) masked to 0,
+    delta = rowsum(dO O) in f32, dS = P (dP - delta), and the second
+    products from the unrounded P and dS, one tensor-core sum a streamed
+    tile (``one_accumulator``: over all of S at once); with the plain
+    versions' outputs as "ref"."""
+    q, k, v, do = (torch.from_numpy(a) for a in _f32_inputs(shape))
+    o, lse = ca.flash_attention_fwd_plain(q, k, v, causal)
+    b, h, s, d = shape
+    scale = ca.default_scale(q)
+    lse = lse.reshape(b, h, s, 1)
+    future = torch.ones(s, s, dtype=torch.bool).triu(1)
+    delta = (do * o).sum(-1, keepdim=True)
+
+    def p_ds(s_, dp, lse_, delta_, mask):
+        p = torch.exp((s_.double() * scale - lse_.double()).float())
+        if causal:
+            p = p.masked_fill(mask, 0.0)
+        return p, p * (dp - delta_)
+
+    def tiled(a, b_, rows):
+        """a @ b_, the sum over S one streamed tile of ``rows`` at a
+        time (all of S in one accumulator with one_accumulator)."""
+        if one_accumulator:
+            return _tc_sum(a, b_, chain=None)
+        acc = None
+        for r0 in range(0, s, rows):
+            acc = _tc_sum(a[..., r0:r0 + rows], b_[..., r0:r0 + rows, :],
+                          acc=acc)
+        return acc
+    _, ds = p_ds(_tc_sum(q, k.transpose(-1, -2)),
+                 _tc_sum(do, v.transpose(-1, -2)), lse, delta, future)
+    pt, dst = p_ds(_tc_sum(k, q.transpose(-1, -2)),
+                   _tc_sum(v, do.transpose(-1, -2)), lse.transpose(-1, -2),
+                   delta.transpose(-1, -2), future.t())
+    rows = _streamed(d)
+    out = {"dq": scale * tiled(ds, k, rows["dq"]),
+           "delta": delta.reshape(b * h, s),
+           "dk": scale * tiled(dst, q, rows["dkv"]),
+           "dv": tiled(pt, do, rows["dkv"])}
+    rdq, rdelta = ca.flash_attention_dq_plain(q, k, v, o, lse.reshape(
+        b * h, s), do, causal)
+    rdk, rdv = ca.flash_attention_dkv_plain(q, k, v, do, lse.reshape(
+        b * h, s), rdelta, causal)
+    out["ref"] = {"dq": rdq, "delta": rdelta, "dk": rdk, "dv": rdv}
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _f64_gradients(shape, causal):
+    """dQ, dK, dV of softmax attention on _f32_inputs(shape) in f64."""
+    q, k, v, do = (torch.from_numpy(a).double().requires_grad_()
+                   for a in _f32_inputs(shape))
+    s = shape[2]
+    x = q @ k.transpose(-1, -2) / math.sqrt(shape[-1])
+    if causal:
+        x = x.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1),
+                          -math.inf)
+    o = torch.softmax(x, -1) @ v
+    return dict(zip(("dq", "dk", "dv"),
+                    torch.autograd.grad(o, (q, k, v), do)))
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_reference(shape, causal):
+    """O, LSE, dQ, dK, dV of the JAX package's flash attention on
+    _f32_inputs(shape), dO the cotangent: the Pallas forward and backward
+    that flash_attention's custom VJP runs, in interpret mode as it runs
+    them off a TPU (tests/test_torch_attention.py)."""
+    scale = 1.0 / math.sqrt(shape[-1])
+
+    @jax.jit
+    def both(q, k, v, do):
+        o, lse = _flash_forward(q, k, v, causal, scale, 128, 128, True)
+        return (o, lse) + tuple(_flash_backward(q, k, v, o, lse, do, causal,
+                                                scale, 128, 128, True))
+    o, lse, dq, dk, dv = both(*(jnp.asarray(a) for a in _f32_inputs(shape)))
+    b, h, s, _ = shape
+    return {"O": np.array(o), "LSE": np.array(lse)[..., 0].reshape(b * h, s),
+            "dq": np.array(dq), "dk": np.array(dk), "dv": np.array(dv)}
+
+
+def _check(label, got, ref, planted=True):
+    """got within the f32 limits of ref: of the largest element, and for
+    (B, H, S, D) outputs the worst 64-row tile; the planted faults not."""
+    assert _rel(got, ref) <= F32_LIMIT[label], (label, _rel(got, ref))
+    if got.dim() == 4:
+        assert _worst_tile(got, ref) <= F32_TILE_LIMIT, label
+        if planted:
+            for bad in _planted(got):
+                assert _worst_tile(bad, ref) > F32_TILE_LIMIT, label
+
+
+def test_tf32_split_rebuilds_every_f32_input():
+    rs = np.random.RandomState(50)
+    x = torch.from_numpy(np.concatenate([
+        rs.randn(4096), 1e-6 * rs.randn(1024), 1e6 * rs.randn(1024),
+        np.float32(2.0) ** rs.randint(-100, 100, 1024) * rs.rand(1024),
+    ]).astype(np.float32))
+    hi, lo = _split(x)
+    for part in (hi, lo):            # TF32: the low 13 bits clear
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    err = ((hi.double() + lo.double()) - x.double()).abs()
+    assert bool((err <= 2.0 ** -21 * x.double().abs()).all())
+    # one TF32 pass alone is ~2^-11 off: the split is what restores f32
+    assert float(((hi.double() - x.double()).abs()
+                  / x.double().abs().clamp_min(1e-300)).max()) > 2.0 ** -13
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", F32_SHAPES)
+def test_split_tf32_forward_keeps_the_f32_limits(shape, causal):
+    q, k, v, _ = (torch.from_numpy(a) for a in _f32_inputs(shape))
+    o, lse = _split_tf32_forward(q, k, v, causal)
+    ro, rlse = ca.flash_attention_fwd_plain(q, k, v, causal)
+    jax_ref = _pallas_reference(shape, causal)
+    for ref_o, ref_lse in ((ro, rlse), (torch.from_numpy(jax_ref["O"]),
+                                        torch.from_numpy(jax_ref["LSE"]))):
+        _check("O", o, ref_o)
+        _check("LSE", lse, ref_lse)
+
+
+@pytest.mark.parametrize("output", ["dq", "dk", "dv"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", F32_SHAPES)
+def test_split_tf32_backward_keeps_the_f32_limits(shape, causal, output):
+    got = _split_tf32_backward(shape, causal)
+    _check("delta", got["delta"], got["ref"]["delta"])
+    _check(output, got[output], got["ref"][output])
+    _check(output, got[output], torch.from_numpy(
+        _pallas_reference(shape, causal)[output]))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_one_tensor_core_accumulator_over_s_reads_worse(causal):
+    # the tensor core truncates each mma's sum, so a chain of them drifts:
+    # dK and dV summed in one accumulator over all of S (~3-5e-6 of the
+    # largest element) sit 2-4x further from f64 than the kernels' sums
+    # of one streamed tile added in f32 (~1e-6)
+    shape = (1, 2, 256, 64)
+    ref = _f64_gradients(shape, causal)
+
+    def worst(got):
+        return max(_rel(got[o], ref[o]) for o in ("dk", "dv"))
+    one, tiles = (worst(_split_tf32_backward(shape, causal, one_acc))
+                  for one_acc in (True, False))
+    assert one > 1.5 * tiles, (one, tiles)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", F32_SHAPES)
+def test_one_tf32_pass_reads_over_the_f32_o_limit(shape, causal):
+    # the card's precision control (cuda_build.TF32_ONE_PASS): 10-bit
+    # operands, which the f32 limit on O must reject
+    q, k, v, _ = (torch.from_numpy(a) for a in _f32_inputs(shape))
+    o, _ = _split_tf32_forward(q, k, v, causal, passes=1)
+    ro, _ = ca.flash_attention_fwd_plain(q, k, v, causal)
+    assert _rel(o, ro) > F32_LIMIT["O"], _rel(o, ro)

@@ -9,6 +9,8 @@ Tolerance: both sides compute in float32 — rtol=1e-5, atol=1e-6 (the
 biases' gradients, sums over N*H*W elements, atol=1e-5).
 """
 
+import os
+
 import numpy as np
 import pytest
 import jax
@@ -187,3 +189,14 @@ def test_library_paths_are_per_source_and_stable():
     assert a != cuda_build.library_path("epilogue")
     assert a == cuda_build.library_path("lrn")      # stable
     assert "lrn_bwd" in cuda_build.SOURCES
+
+
+def test_a_macro_variant_builds_into_a_library_of_its_own():
+    # the one-pass TF32 control of the f32 flash kernels: its own file,
+    # named for its macro, never the library the wrappers load
+    plain = cuda_build.library_path("flash_fwd")
+    control = cuda_build.library_path("flash_fwd", cuda_build.TF32_ONE_PASS)
+    assert control != plain and control.endswith(".so")
+    assert "sparknet_flash_tf32_one_pass" in os.path.basename(control)
+    assert control == cuda_build.library_path("flash_fwd",
+                                              cuda_build.TF32_ONE_PASS)
