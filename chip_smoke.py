@@ -60,10 +60,11 @@ Phases, each of which raises on failure (exit code not 0):
               left to the Solver, weights read by their change; controls:
               the CPU on one thread (must pass), a zeroed LRN backward at
               each site and TF32 on (each must fail the same reading).
- 6. flash   — registers, spills, shared memory and CTAs per SM of every
-              flash kernel instantiation, forward and backward (none may
-              spill; the bf16 backward's must fit two CTAs per SM at
-              head_dim 128); then the three
+ 6. flash   — registers, spills, shared memory, CTAs per SM, and for the
+              cluster kernels past head_dim 256 the cluster size and
+              co-resident clusters, of every flash kernel instantiation,
+              forward and backward (none may spill; the bf16 backward's
+              must fit two CTAs per SM at head_dim 128); then the three
               flash-attention kernels (forward, dQ, dK/dV) against their
               plain versions: f32 at (2, 4, 1024, 64), causal and not,
               bf16 at (2, 4, 1024, 128) full, (2, 4, 1024, 64) causal
@@ -71,7 +72,9 @@ Phases, each of which raises on failure (exit code not 0):
               zero-padded to 128), f32 and bf16 at (1, 4, 1024, 256) and
               (1, 4, 1024, 192) (zero-padded to 256), causal and not,
               f32 and bf16 at (1, 4, 1024, D) for D in 320, 512 and 1024
-              (the wide kernels of csrc/flash_wide.cuh), causal and not,
+              (the wide kernels of csrc/flash_wide.cuh: the forward and dQ
+              on thread-block clusters, each launch counted), causal and
+              not,
               bf16 at the LM's full width (4, 8, 4096, 128), causal, and
               f32 (the lm verb's default dtype) there and at the verb's
               default widths (8, 8, 256, 32), causal;
@@ -83,15 +86,14 @@ Phases, each of which raises on failure (exit code not 0):
               own O and gradients read beside it, f32 also against 2e-5
               (forward) and 5e-4 (backward) of the largest reference
               element, LSE and delta against 2e-5 of theirs; every f32
-              case up to head_dim 256 (the split-TF32 kernels) launched
-              twice, bitwise equal, and run through the one-pass TF32
+              case launched twice, bitwise equal, and run through the
+              one-pass TF32
               control build (lo terms left out), whose O must read over
               2e-5 and whose dQ over a dQ limit; median times
               over CUDA events with the L2 flushed, achieved TFLOP/s; the
               bound (the larger of bytes over 3.35 TB/s and FLOPs over 165
-              TFLOP/s for the split-TF32 f32 kernels (495 TF32 over 3
-              products), 67 TFLOP/s f32 for the wide ones past 256, or
-              989 TFLOP/s dense bf16 tensor); the library
+              TFLOP/s for f32 (495 TF32 over the 3 products of split
+              TF32), or 989 TFLOP/s dense bf16 tensor); the library
               call (F.scaled_dot_product_attention forward, and
               torch.autograd.grad through it for dq, dk, dv together).
  7. lm      — the transformer LM at the full width of bench.py's larger
@@ -1266,9 +1268,12 @@ def _planted(torch, t):
 def _flash_kernel_info(torch):
     """{(name, dtype, head_dim): what the runtime says of that flash
     kernel instantiation}: registers a thread, local memory a thread
-    (spills), dynamic shared memory, resident CTAs per SM. Fails if any
-    instantiation uses local memory (spills), or a bf16 backward kernel
-    fits fewer than two CTAs on an SM at head_dim 128."""
+    (spills), dynamic shared memory, resident CTAs per SM, the cluster
+    size (1: none) and the clusters that fit on the card at once
+    (cudaOccupancyMaxActiveClusters; the forward and dQ past head_dim
+    256). Fails if any instantiation uses local memory (spills), or a
+    bf16 backward kernel fits fewer than two CTAs on an SM at head_dim
+    128."""
     import ctypes
     from sparknet_tpu_torch.ops import cuda_attention as ca
     from sparknet_tpu_torch.ops import cuda_build
@@ -1284,18 +1289,24 @@ def _flash_kernel_info(torch):
         for dtype, code in cuda_build.DTYPE_CODES.items():
             dname = str(dtype).replace("torch.", "")
             for d in ca.HEAD_DIMS + WIDE_DIMS:
-                out = (ctypes.c_int * 4)()
-                err = query(code, d, ctypes.cast(out, ctypes.c_void_p))
+                out = (ctypes.c_int * 6)()
+                err = query(code, ca.built_head_dim(d),
+                            ctypes.cast(out, ctypes.c_void_p))
                 check(err == 0, f"the info query of {name} ({code}, {d}) "
                                 f"returned cudaError {err}")
                 r = info[name, dname, d] = dict(
                     registers=out[0], local_bytes=out[1], smem_bytes=out[2],
-                    ctas_per_sm=out[3])
+                    ctas_per_sm=out[3], cluster_size=out[4],
+                    max_active_clusters=out[5])
                 print(f"[flash] {name} {dname} D={d}: {out[0]} registers, "
                       f"{out[1]} bytes local (spills), {out[2]} bytes "
-                      f"shared, {out[3]} CTAs per SM")
+                      f"shared, {out[3]} CTAs per SM"
+                      + (f", clusters of {out[4]}, {out[5]} co-resident"
+                         if out[4] > 1 else ""))
                 check(r["local_bytes"] == 0,
                       f"{name} {dname} D={d} uses local memory: {r}")
+                check(out[4] == 1 or out[5] > 0,
+                      f"{name} {dname} D={d}: no cluster of {out[4]} fits")
                 if dtype == torch.bfloat16:
                     check(name == "flash_attention" or d != 128
                           or r["ctas_per_sm"] >= 2,
@@ -1358,23 +1369,29 @@ def flash_entry_points(libs=None, defines=()):
     return fns
 
 
-def flash_calls(torch, fns, q, k, v, do, o, lse, delta, causal):
+def flash_calls(torch, fns, q, k, v, do, o, lse, delta, causal,
+                built=None):
     """No-argument calls of one set of flash entry points on these
-    (B, H, S, D) inputs, zero-padded to the built head_dim as the
-    wrappers pad them: {"fwd": -> (O, LSE), "dq": -> (dQ, delta), "dkv":
-    -> (dK, dV)}, the backward on the given O, LSE and delta."""
+    (B, H, S, D) inputs, zero-padded to the head_dim ``built`` (by
+    default the ones this tree's wrappers pad them to, dK/dV's its own):
+    {"fwd": -> (O, LSE), "dq": -> (dQ, delta), "dkv": -> (dK, dV)}, the
+    backward on the given O, LSE and delta."""
     from sparknet_tpu_torch.ops import cuda_attention as ca
     from sparknet_tpu_torch.ops import cuda_build
     b, h, s, d = q.shape
     scale = ca.default_scale(q)
-    qp, kp, vp, op, dop = ca.pad_head_dim((q, k, v, o, do),
-                                          ca.built_head_dim(d))
+
+    def padded(width):
+        return [t.contiguous() for t in ca.pad_head_dim((q, k, v, o, do),
+                                                        width)]
+    qp, kp, vp, op, dop = padded(built or ca.built_head_dim(d))
+    dkv_in = padded(built or ca.dkv_head_dim(d))
     code = cuda_build.DTYPE_CODES[q.dtype]
     stream = cuda_build.stream_handle(q.device)
 
     def launch(what, fn, *tensors):
         err = fn(*(t.data_ptr() for t in tensors), code, b * h, s,
-                 qp.shape[-1], scale, int(causal), stream)
+                 tensors[0].shape[-1], scale, int(causal), stream)
         check(err == 0, f"flash {what} launch failed: cudaError {err}")
 
     def fwd():
@@ -1390,8 +1407,9 @@ def flash_calls(torch, fns, q, k, v, do, o, lse, delta, causal):
         return out[..., :d], rows
 
     def dkv():
-        dk, dv = torch.empty_like(kp), torch.empty_like(vp)
-        launch("dK/dV", fns["dkv"], qp, kp, vp, dop, lse, delta, dk, dv)
+        qd, kd, vd, _, dod = dkv_in
+        dk, dv = torch.empty_like(kd), torch.empty_like(vd)
+        launch("dK/dV", fns["dkv"], qd, kd, vd, dod, lse, delta, dk, dv)
         return dk[..., :d], dv[..., :d]
     return {"fwd": fwd, "dq": dq, "dkv": dkv}
 
@@ -1472,10 +1490,8 @@ def phase_flash_kernels(torch, cases=FLASH_CASES):
         dname = str(dtype).replace("torch.", "")
         what = f"{list(shape)} {dname} causal={causal}"
         wide = d > ca.HEAD_DIMS[-1]
-        # f32 up to 256: split TF32 on the tensor cores; past it the
-        # wide kernels' CUDA cores
-        peak = BF16_TENSOR_OPS_PER_S if not f32 else \
-            F32_OPS_PER_S if wide else SPLIT_TF32_OPS_PER_S
+        # f32: the rate of f32-accurate products on the tensor cores
+        peak = SPLIT_TF32_OPS_PER_S if f32 else BF16_TENSOR_OPS_PER_S
         tile_tols = {"O": FLASH_TILE_LIMIT[dname],
                      **{g: FLASH_BWD_TILE_LIMIT[dname]
                         for g in ("dQ", "dK", "dV")}}
@@ -1494,10 +1510,16 @@ def phase_flash_kernels(torch, cases=FLASH_CASES):
                 return torch.autograd.grad(out, (ql, kl, vl), do,
                                            retain_graph=True)
         with torch.no_grad():
+            n0 = {n: getattr(ca, n).launches for n in FLASH_KERNELS}
             o, lse = ca.flash_attention_fwd(q, k, v, causal)
             dq, delta = ca.flash_attention_dq(q, k, v, o, lse, do, causal)
             dk, dv = ca.flash_attention_dkv(q, k, v, do, lse, delta, causal)
             torch.cuda.synchronize()
+            launched = {n: getattr(ca, n).launches - n0[n]
+                        for n in FLASH_KERNELS}
+            check(all(c == 1 for c in launched.values()),
+                  f"flash at {what}: the wrappers counted {launched}, want "
+                  "one launch each")
             ro, rlse = ca.flash_attention_fwd_plain(q, k, v, causal)
             rdq, rdelta = ca.flash_attention_dq_plain(q, k, v, o, lse, do,
                                                       causal)
@@ -1566,7 +1588,7 @@ def phase_flash_kernels(torch, cases=FLASH_CASES):
                       f"{rel:.3e} (limit {ROW_LIMIT:g})")
                 check(rel <= ROW_LIMIT, f"{label} at {what} disagrees with "
                       f"the plain version: {rel:.3e} > {ROW_LIMIT:g}")
-            if f32 and not wide:
+            if f32:
                 readings["split_tf32"] = _split_tf32_checks(
                     torch, what, q, k, v, do, causal,
                     {"O": o, "LSE": lse, "dQ": dq, "delta": delta, "dK": dk,
@@ -1614,6 +1636,9 @@ def phase_flash_kernels(torch, cases=FLASH_CASES):
                     row=row, **info.get((name, dname, d), {}))
                 r["tflops"] = flops / r["ms"] / 1e9
                 r["bound_share"] = r["bound_ms"] / r["ms"]
+                r["launches_phase6"] = launched[name]
+                if wide:
+                    r["source"] = "sparknet_tpu_torch/csrc/flash_wide.cuh"
                 if "split_tf32" in readings:
                     r["split_tf32"] = readings["split_tf32"]
                 print(f"[flash] {name} {what}: kernel {r['ms']:.4f} ms "
@@ -6387,7 +6412,8 @@ def main(argv=None):
             per_iter, model = (remat_lm, "lm") if name in FLASH_KERNELS \
                 else (remat, "googlenet")
             table.append({
-                "name": name, "route": "cuda", "source": source,
+                "name": name, "route": "cuda",
+                "source": r.get("source", source),
                 "replaces": replaces, "launches": paths[path][name],
                 "launches_path": path,
                 "launches_train": trained["launches"]["auto"][name],

@@ -1,32 +1,37 @@
 #!/usr/bin/env python3
-"""Time the f32 flash-attention kernels of two source trees on one card,
-in turns: baseline, this tree, this tree, baseline.
+"""Time the flash-attention kernels of two source trees on one card, in
+turns: baseline, this tree, this tree, baseline.
 
-    python3 scripts/flash_f32_ab.py --baseline <an older csrc/ dir>
+    python3 scripts/flash_ab.py --baseline <an older csrc/ dir>
 
 The kernels are the forward (csrc/flash_fwd.cu) and the dQ and dK/dV
-kernels (csrc/flash_bwd.cu) of sparknet_tpu_torch on float32 tensors, at
-the shapes of chip_smoke.py phase 6's f32 cases up to head_dim 256
-(past it both trees run the same wide kernels). The baseline's sources
-are built with this tree's nvcc flags into _work/flash_f32_ab/; this
-tree's, and its one-pass TF32 control (cuda_build.TF32_ONE_PASS), are
-the libraries of cuda_build (built there if chip_smoke.py has not built
-them yet), all three at once. All are called through their C entry
-points, whose signatures the trees share.
+kernels (csrc/flash_bwd.cu) of sparknet_tpu_torch, at the shapes of
+chip_smoke.py phase 6's f32 cases up to head_dim 256 and its cases past
+256 (the wide kernels, csrc/flash_wide.cuh) in f32 and bf16. The
+baseline's sources are built here with this tree's nvcc flags into
+_work/flash_ab/; this tree's kernels, and their one-pass TF32 control
+(cuda_build.TF32_ONE_PASS), are the libraries of cuda_build
+(cuda_build.library builds them there if chip_smoke.py has not yet).
+All are called through their C entry points, whose signatures the
+trees share; each tree's kernels take the inputs zero-padded as its own
+wrappers pad them (past 256 this tree to a multiple of 128, the
+baseline to one of 64, as trees whose wide kernels took 64-column
+chunks pad it: BASELINE_CHUNK).
 Every arm runs on the same inputs: the backward kernels on this tree's
 O, LSE and delta. Each arm is held to the plain PyTorch versions at
-chip_smoke.py's f32 limits (O and LSE 2e-5, dQ, dK, dV 5e-4 of the
-largest element, delta 2e-5, every output's worst 64-row tile 1e-4);
-this tree's kernels must give bitwise the same outputs when launched
-twice, and the one-pass control must read over the O limit and over a
-dQ limit. Times: the median of 30 launches over CUDA events with the L2
-flushed before each (chip_smoke.Timer), in the order baseline, new, new,
-baseline, with F.scaled_dot_product_attention and torch.autograd.grad
-through it (dq, dk, dv together) beside them, and each kernel's bound
-(FLOPs over 165 TFLOP/s, split TF32's rate of f32-accurate products, or
-bytes over 3.35 TB/s, whichever is larger). Prints a line per kernel and
-case, the card's name and power limit, and last one JSON object with
-every number.
+chip_smoke.py's limits (f32: O and LSE 2e-5, dQ, dK, dV 5e-4 of the
+largest element, every output's worst 64-row tile 1e-4; bf16: every
+output's worst tile 5e-3; delta and LSE 2e-5); this tree's kernels must
+give bitwise the same outputs when launched twice, and at f32 the
+one-pass control must read over the O limit and over a dQ limit. Times:
+the median of 30 launches over CUDA events with the L2 flushed before
+each (chip_smoke.Timer), in the order baseline, new, new, baseline,
+with F.scaled_dot_product_attention and torch.autograd.grad through it
+(dq, dk, dv together) beside them, and each kernel's bound (FLOPs over
+165 TFLOP/s, split TF32's rate of f32-accurate products, for f32, or
+989 TFLOP/s for bf16, or bytes over 3.35 TB/s, whichever is larger).
+Prints a line per kernel and case, the card's name and power limit, and
+last one JSON object with every number.
 """
 
 import argparse
@@ -35,7 +40,6 @@ import json
 import os
 import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -48,10 +52,12 @@ from sparknet_tpu_torch.ops import cuda_attention as ca  # noqa: E402
 from sparknet_tpu_torch.ops import cuda_build  # noqa: E402
 
 SOURCES = ("flash_fwd", "flash_bwd")
-CASES = [(shape, causal) for shape, dtype, causal, _ in chip_smoke.FLASH_CASES
-         if dtype == "float32" and shape[-1] <= ca.HEAD_DIMS[-1]]
+CASES = [(shape, dtype, causal)
+         for shape, dtype, causal, _ in chip_smoke.FLASH_CASES
+         if shape[-1] > ca.HEAD_DIMS[-1] or dtype == "float32"]
 KERNELS = (("fwd", "flash_attention", "O"), ("dq", "flash_attention_dq", "dQ"),
            ("dkv", "flash_attention_dkv", "dK"))
+BASELINE_CHUNK = 64   # the baseline pads a head_dim past 256 to this
 
 
 def build(csrc, out_dir):
@@ -78,22 +84,33 @@ def build(csrc, out_dir):
     return wait
 
 
-def held_to_plain(arm, what, outs, refs):
-    """Each of ``outs`` against the plain version's ``refs`` at the f32
-    limits; -> {label: (of the largest element, worst tile)}."""
+def held_to_plain(arm, what, outs, refs, f32):
+    """Each of ``outs`` against the plain version's ``refs`` at the
+    dtype's limits; -> {label: (of the largest element, worst tile)}."""
     readings = {}
+    tile_limit = chip_smoke.FLASH_TILE_LIMIT["float32" if f32 else "bfloat16"]
     for label, got in outs.items():
         rel = chip_smoke._rel_err(got, refs[label])
         tile = chip_smoke._tile_err(torch, got, refs[label]) \
             if got.dim() == 4 else None
         limit = chip_smoke.ROW_LIMIT if got.dim() == 2 else \
-            chip_smoke.F32_ELEMENT_LIMIT[label]
+            chip_smoke.F32_ELEMENT_LIMIT[label] if f32 else None
         chip_smoke.check(bool(torch.isfinite(got).all())
-                         and rel <= limit and (tile is None or tile <= 1e-4),
+                         and (limit is None or rel <= limit)
+                         and (tile is None or tile <= tile_limit),
                          f"{arm} {label} at {what}: {rel:.3e} of the largest "
-                         f"element (limit {limit:g}), worst tile {tile}")
+                         f"element (limit {limit}), worst tile {tile} "
+                         f"(limit {tile_limit:g})")
         readings[label] = (rel, tile)
     return readings
+
+
+def outputs_of(calls):
+    outs = dict(zip(("O", "LSE"), calls["fwd"]()))
+    outs.update(zip(("dQ", "delta"), calls["dq"]()))
+    outs.update(zip(("dK", "dV"), calls["dkv"]()))
+    torch.cuda.synchronize()
+    return outs
 
 
 def main():
@@ -103,23 +120,28 @@ def main():
     args = ap.parse_args()
     chip_smoke.check(torch.cuda.is_available(), "no CUDA card")
     card = chip_smoke.nvidia_smi()
-    work = os.path.join(REPO, "_work", "flash_f32_ab")
-    wait = build(args.baseline, os.path.join(work, "baseline"))
+    wait = build(args.baseline, os.path.join(REPO, "_work", "flash_ab",
+                                             "baseline"))
     variants = {"new": (), "control": cuda_build.TF32_ONE_PASS}
-    with ThreadPoolExecutor(len(variants)) as pool:
-        for done in [pool.submit(cuda_build.build, SOURCES, defines=d)
-                     for d in variants.values()]:
-            done.result()
+    for defines in variants.values():
+        for source in SOURCES:
+            cuda_build.library(source, defines)
     arms = {"baseline": chip_smoke.flash_entry_points(wait())}
     arms.update((arm, chip_smoke.flash_entry_points(defines=d))
                 for arm, d in variants.items())
     timer = chip_smoke.Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
     results = []
-    for shape, causal in CASES:
+    for shape, dname, causal in CASES:
         b, h, s, d = shape
-        what = f"{list(shape)} float32 causal={causal}"
-        q, k, v, do = (0.5 * torch.randn(shape, generator=gen, device="cuda")
+        f32 = dname == "float32"
+        dtype = getattr(torch, dname)
+        wide = d > ca.HEAD_DIMS[-1]
+        what = f"{list(shape)} {dname} causal={causal}"
+        built = {"baseline": -(-d // BASELINE_CHUNK) * BASELINE_CHUNK
+                 if wide else ca.built_head_dim(d)}
+        q, k, v, do = ((0.5 * torch.randn(shape, generator=gen,
+                                          device="cuda")).to(dtype)
                        for _ in range(4))
         with torch.no_grad():
             new = chip_smoke.flash_calls(torch, arms["new"], q, k, v, do,
@@ -127,9 +149,10 @@ def main():
             o, lse = new["fwd"]()
             dq, delta = chip_smoke.flash_calls(
                 torch, arms["new"], q, k, v, do, o, lse, None, causal)["dq"]()
-            calls = {arm: chip_smoke.flash_calls(torch, fns, q, k, v, do, o,
-                                                 lse, delta, causal)
-                     for arm, fns in arms.items()}
+            calls = {arm: chip_smoke.flash_calls(
+                torch, fns, q, k, v, do, o, lse, delta, causal,
+                built=built.get(arm))
+                for arm, fns in arms.items() if f32 or arm != "control"}
             ro, rlse = ca.flash_attention_fwd_plain(q, k, v, causal)
             rdq, rdelta = ca.flash_attention_dq_plain(q, k, v, o, lse, do,
                                                       causal)
@@ -137,33 +160,29 @@ def main():
                                                     causal)
             refs = {"O": ro, "LSE": rlse, "dQ": rdq, "delta": rdelta,
                     "dK": rdk, "dV": rdv}
-            outputs = {}
-            for arm, c in calls.items():
-                outs = dict(zip(("O", "LSE"), c["fwd"]()))
-                outs.update(zip(("dQ", "delta"), c["dq"]()))
-                outs.update(zip(("dK", "dV"), c["dkv"]()))
-                torch.cuda.synchronize()
-                outputs[arm] = outs
-            errors = {arm: held_to_plain(arm, what, outputs[arm], refs)
+            outputs = {arm: outputs_of(c) for arm, c in calls.items()}
+            errors = {arm: held_to_plain(arm, what, outputs[arm], refs, f32)
                       for arm in ("baseline", "new")}
-            again = dict(zip(("O", "LSE"), calls["new"]["fwd"]()))
-            again.update(zip(("dQ", "delta"), calls["new"]["dq"]()))
-            again.update(zip(("dK", "dV"), calls["new"]["dkv"]()))
-            for label, t in again.items():
+            for label, t in outputs_of(calls["new"]).items():
                 chip_smoke.check(torch.equal(t, outputs["new"][label]),
                                  f"new {label} at {what}: two launches "
                                  "differ")
-            control = {label: (chip_smoke._rel_err(t, refs[label]),
-                               chip_smoke._tile_err(torch, t, refs[label]))
-                       for label, t in outputs["control"].items()
-                       if t.dim() == 4}
-            chip_smoke.check(control["O"][0] > 2e-5,
-                             f"the one-pass control's O at {what} reads "
-                             f"{control['O'][0]:.3e}, within the f32 limit")
-            chip_smoke.check(control["dQ"][0] > 5e-4 or control["dQ"][1]
-                             > 1e-4, f"the one-pass control's dQ at {what} "
-                             f"reads {control['dQ']}, within the f32 limits")
-            del outputs, again, ro, rlse, rdq, rdelta, rdk, rdv, refs
+            control = {}
+            if f32:
+                control = {label: (chip_smoke._rel_err(t, refs[label]),
+                                   chip_smoke._tile_err(torch, t,
+                                                        refs[label]))
+                           for label, t in outputs["control"].items()
+                           if t.dim() == 4}
+                chip_smoke.check(control["O"][0] > 2e-5,
+                                 f"the one-pass control's O at {what} reads "
+                                 f"{control['O'][0]:.3e}, within the f32 "
+                                 "limit")
+                chip_smoke.check(control["dQ"][0] > 5e-4 or control["dQ"][1]
+                                 > 1e-4, f"the one-pass control's dQ at "
+                                 f"{what} reads {control['dQ']}, within the "
+                                 "f32 limits")
+            del outputs, ro, rlse, rdq, rdelta, rdk, rdv, refs
             ql, kl, vl = (t.detach().clone().requires_grad_()
                           for t in (q, k, v))
             with torch.enable_grad():
@@ -176,10 +195,12 @@ def main():
                     lib_out, (ql, kl, vl), do, retain_graph=True)}
             library_ms = {key: timer(fn) for key, fn in library.items()}
             pairs = b * h * s * s * (0.5 if causal else 1.0)
-            item, rows = 4 * q.numel(), 4 * b * h * s
+            item, rows = q.element_size() * q.numel(), 4 * b * h * s
             work_of = {"fwd": (4 * item + rows, 4 * pairs * d),
                        "dq": (6 * item + 2 * rows, 6 * pairs * d),
                        "dkv": (6 * item + 2 * rows, 8 * pairs * d)}
+            peak = chip_smoke.SPLIT_TF32_OPS_PER_S if f32 else \
+                chip_smoke.BF16_TENSOR_OPS_PER_S
             for key, name, label in KERNELS:
                 turns = [(arm, timer(calls[arm][key]))
                          for arm in ("baseline", "new", "new", "baseline")]
@@ -187,8 +208,8 @@ def main():
                 ms = [t for a, t in turns if a == "new"]
                 nbytes, flops = work_of[key]
                 t_bytes = nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3
-                t_ops = flops / chip_smoke.SPLIT_TF32_OPS_PER_S * 1e3
-                r = dict(name=name, shape=list(shape), dtype="float32",
+                t_ops = flops / peak * 1e3
+                r = dict(name=name, shape=list(shape), dtype=dname,
                          causal=causal, baseline_ms=old, new_ms=ms,
                          library_ms=library_ms["fwd" if key == "fwd"
                                                else "bwd"],
@@ -209,9 +230,10 @@ def main():
                       f"{r['tflops']:.1f} TFLOP/s), library "
                       f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
                       f"ms ({r['bound_by']}, {100 * r['bound_share']:.1f}% "
-                      f"of it); one-pass control {label} "
-                      f"{control[label][0]:.3e} of the largest element; "
-                      f"{card}")
+                      "of it)" + (f"; one-pass control {label} "
+                                  f"{control[label][0]:.3e} of the largest "
+                                  "element" if control else "")
+                      + f"; {card}")
             del q, k, v, do, o, lse, dq, delta, calls, ql, kl, vl, lib_out
             torch.cuda.empty_cache()
     print(card)

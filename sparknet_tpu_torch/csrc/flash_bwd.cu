@@ -104,7 +104,7 @@
 // dK/dV 5.31-5.34 ms (51.7, 31%), against 10.37-10.41 and 12.58-12.67 for
 // the CUDA-core kernels they replaced in the same call, and 10.03 for
 // autograd through F.scaled_dot_product_attention's three gradients
-// (scripts/flash_f32_ab.py; PERF.md).
+// (scripts/flash_ab.py; PERF.md).
 // The storage type picks the kernel and nothing else does.
 
 #include <type_traits>
@@ -742,7 +742,7 @@ struct DkvLaunch {
 
 // What the runtime says of one backward kernel: registers a thread, local
 // memory a thread (spills), dynamic shared memory and resident CTAs per
-// SM, into out[0..3].
+// SM, into out[0..3]; out[4] = 1, out[5] = 0 (no cluster).
 struct InfoQuery {
   int which;                           // 0: dQ, 1: dK/dV
   int* out;
@@ -768,6 +768,8 @@ struct InfoQuery {
     out[1] = static_cast<int>(attr.localSizeBytes);
     out[2] = static_cast<int>(bytes);
     out[3] = ctas;
+    out[4] = 1;                        // no cluster
+    out[5] = 0;
     return cudaSuccess;
   }
 
@@ -783,8 +785,9 @@ struct InfoQuery {
 
 // q, k, v, o, dout, dq: (bh, seq, head_dim) contiguous, dtype 0 = f32,
 // 1 = bf16 (16-byte aligned); lse (read) and delta (written): (bh, seq)
-// f32. A head_dim past 256 (a multiple of 64) runs the wide kernels of
-// flash_wide.cuh, here and in the dK/dV entry point.
+// f32. A head_dim past 256 runs the wide kernels of flash_wide.cuh, here
+// (a cluster kernel: D a multiple of 128 that splits into equal clusters,
+// ops/cuda_attention.py built_head_dim) and in the dK/dV entry point.
 extern "C" int sparknet_flash_backward_dq(const void* q, const void* k,
                                           const void* v, const void* o,
                                           const void* dout, const void* lse,
@@ -827,11 +830,14 @@ extern "C" int sparknet_flash_backward_dkv(const void* q, const void* k,
 
 // which 0 = the dQ kernel, 1 = the dK/dV kernel, for (dtype, head_dim):
 // out[0] registers a thread, out[1] local memory bytes a thread (spills),
-// out[2] dynamic shared memory bytes, out[3] resident CTAs per SM.
+// out[2] dynamic shared memory bytes, out[3] resident CTAs per SM, out[4]
+// the cluster size (1: none), out[5] co-resident clusters on the card (the
+// wide kernels past 256; 0 without a cluster).
 extern "C" int sparknet_flash_backward_info(int which, int dtype,
                                             int head_dim, int* out) {
   if (head_dim > 256)
-    return sparknet_flash::wide_info(which == 0 ? 1 : 2, dtype, out);
+    return sparknet_flash::wide_info(which == 0 ? 1 : 2, dtype, head_dim,
+                                     out);
   const sparknet_flash::InfoQuery query{which, out};
   return sparknet_flash::dispatch(dtype, head_dim, query);
 }

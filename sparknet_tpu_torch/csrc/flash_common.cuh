@@ -2,15 +2,13 @@
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are contiguous (B*H, S, D) in the
 // storage type T (float or __nv_bfloat16); lse and delta are (B*H, S) f32.
-// The CUDA-core helpers below (tile_dot, tile_mul) serve the wide kernels
+// The CUDA-core helpers below (tile_dot, tile_mul) serve the dK/dV kernel
 // past head_dim 256 (flash_wide.cuh): a CTA of kThreads threads over an
 // R-row tile staged in shared memory as f32 with a row stride of D + 1
 // (an odd stride keeps the column reads of 16 neighbouring rows on 16
 // distinct banks), every product accumulated in f32. Thread (ty, tx) =
 // (tid / 16, tid % 16) owns rows ty*RI .. ty*RI+RI-1 (RI = R / 16) of an
-// R x R score tile and its columns tx, tx+16, ...; the 16 threads of a
-// row are half a warp, so a row's max and sum are xor shuffles over lanes
-// 8, 4, 2, 1.
+// R x R score tile and its columns tx, tx+16, ....
 
 #pragma once
 
@@ -21,7 +19,7 @@ namespace sparknet_flash {
 
 constexpr int kBlockQ = 64;     // query rows per tile (tensor-core kernels)
 constexpr int kBlockK = 64;     // key rows per tile (tensor-core kernels)
-constexpr int kThreads = 256;   // 16 x 16 (the wide kernels)
+constexpr int kThreads = 256;   // 16 x 16 (the wide dK/dV kernel)
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF: finite, so
                                    // exp(m_prev - m_new) never sees inf-inf
 
@@ -38,19 +36,6 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);   // round to nearest even, as the plain
 }                               // version's .to(torch.bfloat16)
-
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // Is score (row r, column c) outside the attention: past the sequence,
 // or above the diagonal when causal?

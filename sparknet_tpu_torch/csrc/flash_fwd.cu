@@ -95,7 +95,7 @@
 //               128 25 KB 4  128 45 KB 4  127 51 KB 4  167 66 KB 3  254 163 KB 1
 //    At the LM's shape: 2.78 ms, 49.5 TFLOP/s, 30% of the bound; the
 //    CUDA-core kernel it replaced took 5.91-6.15 ms in the same call and
-//    F.scaled_dot_product_attention 3.20 (scripts/flash_f32_ab.py;
+//    F.scaled_dot_product_attention 3.20 (scripts/flash_ab.py;
 //    PERF.md).
 // The storage type picks the kernel and nothing else does.
 
@@ -480,7 +480,8 @@ struct ForwardLaunch {
 
 // What the runtime says of the forward kernel for (dtype, head_dim):
 // registers a thread, local memory a thread (spills), dynamic shared
-// memory and resident CTAs per SM, into out[0..3].
+// memory and resident CTAs per SM, into out[0..3]; out[4] = 1, out[5] = 0
+// (no cluster).
 struct ForwardInfo {
   int* out;
 
@@ -507,6 +508,8 @@ struct ForwardInfo {
     out[1] = static_cast<int>(attr.localSizeBytes);
     out[2] = static_cast<int>(bytes);
     out[3] = ctas;
+    out[4] = 1;                        // no cluster
+    out[5] = 0;
     return cudaSuccess;
   }
 };
@@ -514,9 +517,10 @@ struct ForwardInfo {
 }  // namespace sparknet_flash
 
 // q, k, v, o: (bh, seq, head_dim) contiguous, dtype 0 = f32, 1 = bf16
-// (16-byte aligned); lse: (bh, seq) f32. A head_dim past 256 (a multiple
-// of 64) runs the wide kernel of flash_wide.cuh. Returns the CUDA error
-// code of the launch.
+// (16-byte aligned); lse: (bh, seq) f32. A head_dim past 256 runs the
+// cluster kernel of flash_wide.cuh (a multiple of 128 that splits into
+// equal clusters: ops/cuda_attention.py built_head_dim). Returns the CUDA
+// error code of the launch.
 extern "C" int sparknet_flash_forward(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int dtype, int bh, int seq,
@@ -534,10 +538,13 @@ extern "C" int sparknet_flash_forward(const void* q, const void* k,
 
 // The forward kernel for (dtype, head_dim): out[0] registers a thread,
 // out[1] local memory bytes a thread (spills), out[2] dynamic shared
-// memory bytes, out[3] resident CTAs per SM.
+// memory bytes, out[3] resident CTAs per SM, out[4] the cluster size (1:
+// none), out[5] co-resident clusters on the card (past 256; 0 without a
+// cluster).
 extern "C" int sparknet_flash_forward_info(int dtype, int head_dim,
                                            int* out) {
-  if (head_dim > 256) return sparknet_flash::wide_info(0, dtype, out);
+  if (head_dim > 256)
+    return sparknet_flash::wide_info(0, dtype, head_dim, out);
   const sparknet_flash::ForwardInfo query{out};
   return sparknet_flash::dispatch(dtype, head_dim, query);
 }

@@ -20,7 +20,7 @@
 // is loaded, and serves every product it enters. Built with
 // SPARKNET_FLASH_TF32_ONE_PASS, lo is dropped and each product is one
 // TF32 pass (10-bit operands): the precision control that chip_smoke.py
-// and scripts/flash_f32_ab.py build and hold against the f32 limits,
+// and scripts/flash_ab.py build and hold against the f32 limits,
 // which it must fail. The wrappers never load that build.
 //
 // Tiles: f32 rows of D columns with a row stride of D + 4 floats. D + 4

@@ -10,7 +10,7 @@ stderr; nothing falls back to the plain PyTorch versions. ``defines``
 builds a variant with those preprocessor macros set, into a library of
 its own (``<name>_<macros>_<key>.so``): the one-pass TF32 control of the
 f32 flash kernels (``TF32_ONE_PASS``), which chip_smoke.py and
-scripts/flash_f32_ab.py build to show that the f32 limits reject 10-bit
+scripts/flash_ab.py build to show that the f32 limits reject 10-bit
 products. The wrappers load no variant.
 
 Nothing here runs at import time: the package imports on machines with

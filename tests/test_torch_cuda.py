@@ -489,16 +489,26 @@ def _flash_kernels_against_plain(d, causal, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_flash_kernels_at_head_dim_512_on_card(cuda, causal, dtype):
-    # past 256: the wide kernels (csrc/flash_wide.cuh), one 64-column
-    # chunk of each output a CTA
-    _flash_kernels_against_plain(512, causal, dtype)
+@pytest.mark.parametrize("d", [320, 512, 1024, 1100])
+def test_flash_wide_kernels_on_card(cuda, d, causal, dtype):
+    # past 256 (csrc/flash_wide.cuh): the forward and dQ on thread-block
+    # clusters of 128-column slices (320 padded to 384: three; 1024:
+    # eight; 1100 padded to 1280: two clusters of five, each building the
+    # scores again), dK/dV one 64-column chunk a CTA; two launches of the
+    # forward give bitwise the same O and LSE
+    _flash_kernels_against_plain(d, causal, dtype)
+    rs = np.random.RandomState(60 + d)
+    q, k, v = (torch.from_numpy(0.5 * rs.randn(1, 2, 200, d).astype(
+        np.float32)).to("cuda", dtype) for _ in range(3))
+    first = ca.flash_attention_fwd(q, k, v, causal)
+    for a, b in zip(first, ca.flash_attention_fwd(q, k, v, causal)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
 def test_flash_refuses_what_it_was_not_built_for(cuda):
     x = torch.randn(1, 2, 128, 64, device="cuda")
-    # head_dim 300 is taken (zero-padded to 320, the wide kernels) and
+    # head_dim 300 is taken (zero-padded to 384, the wide kernels) and
     # agrees with the plain forward
     y = torch.randn(1, 2, 128, 300, device="cuda")
     o, lse = ca.flash_attention_fwd(y, y, y)

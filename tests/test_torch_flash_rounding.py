@@ -48,6 +48,18 @@ above them; one TF32 pass (lo left out, the card's precision control)
 must read over the O limit; and against f64, dK and dV summed in one
 tensor-core accumulator over all of S must read measurably worse than
 the kernels' chunked sums.
+
+Past head_dim 256 (csrc/flash_wide.cuh) the forward and dQ run on a
+thread-block cluster: D is zero-padded to a multiple of 128
+(ca.built_head_dim), each rank's 128-column slice gives a partial score
+tile (bf16: one f32 tensor-core chain; f32: two split-TF32 sums of 8
+k-steps added in f32), and a row's owner adds the ranks' partials in
+rank order, from zero, in f32 before the softmax (key tiles of 64 in the
+forward, 32 in dQ). WIDE_SHAPES emulate that at D = 320 (three
+ranks) and 512 (four), S = 128: the bf16 forward's and dQ's worst tiles
+between 1e-3 and 5e-3, the f32 forward and dQ within the f32 limits
+against the plain versions and the Pallas kernel, the one-pass control
+over the O limit, the planted faults over the limits.
 """
 
 import functools
@@ -66,6 +78,9 @@ BWD_TILE_LIMIT = 5e-3     # chip_smoke.FLASH_BWD_TILE_LIMIT["bfloat16"]
 FWD_TILE_LIMIT = 5e-3     # chip_smoke.FLASH_TILE_LIMIT["bfloat16"]
 SHAPES = [pytest.param((1, 2, 512, 128), id="S512-D128"),
           pytest.param((2, 3, 256, 64), id="S256-D64")]
+# past head_dim 256: D = 320 (padded to 384, three ranks) and 512 (four)
+WIDE_SHAPES = [pytest.param((1, 2, 128, 320), id="S128-D320"),
+               pytest.param((1, 1, 128, 512), id="S128-D512")]
 
 
 def _worst_tile(got, ref, rows=64):
@@ -109,18 +124,21 @@ def _emulated_backward(q, k, v, o, lse, do, causal):
     return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
 
 
-def _emulated_forward(q, k, v, causal, tile=128):
+def _emulated_forward(q, k, v, causal, tile=128, scores=None, scale=None):
     """O with the bf16 forward kernel's rounding points, key tile by key
-    tile as the kernel walks them."""
+    tile as the kernel walks them; ``scores`` (Q, K tile -> f32 S, the
+    plain product by default) and ``scale`` (1/sqrt(D) of q by default)
+    let the wide kernel's padded inputs and cluster sums through."""
     b, h, s, d = q.shape
-    scale = ca.default_scale(q)
+    scale = ca.default_scale(q, scale)
+    scores = scores or (lambda a, bt: a @ bt.transpose(-1, -2))
     qf, kf, vf = (t.float() for t in (q, k, v))
     m = torch.full((b, h, s, 1), ca.NEG_INF)
     l = torch.zeros(b, h, s, 1)
     acc = torch.zeros(b, h, s, d)
     rows = torch.arange(s)[:, None]
     for k0 in range(0, s, tile):
-        sc = scale * (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2))
+        sc = scale * scores(qf, kf[:, :, k0:k0 + tile])
         if causal:
             cols = torch.arange(k0, min(k0 + tile, s))[None, :]
             sc = sc.masked_fill(cols > rows, ca.NEG_INF)
@@ -134,14 +152,69 @@ def _emulated_forward(q, k, v, causal, tile=128):
     return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
 
 
+# -- past head_dim 256: the cluster kernels (csrc/flash_wide.cuh) --------
+
+def _rank_sum(parts):
+    """The cluster's sum of its ranks' partial tiles: f32 adds in rank
+    order 0 .. G-1, from zero, as every rank takes them."""
+    tot = torch.zeros_like(parts[0])
+    for part in parts:
+        tot = tot + part
+    return tot
+
+
+def _cluster_scores(dot):
+    """Q, K tile -> the score tile as a cluster builds it: D in slices of
+    ca.WIDE_CHUNK columns, one a rank (one cluster up to D = 1024), each
+    rank's partial ``dot(Q slice, K slice^T)``, summed by _rank_sum."""
+    def scores(a, bt):
+        w = ca.WIDE_CHUNK
+        return _rank_sum([dot(a[..., c:c + w], bt[..., c:c + w]
+                              .transpose(-1, -2))
+                          for c in range(0, a.shape[-1], w)])
+    return scores
+
+
+def _padded(d, *tensors):
+    return ca.pad_head_dim(tensors, ca.built_head_dim(d))
+
+
+def _emulated_wide_forward(q, k, v, causal):
+    """O as the bf16 cluster forward computes it: the padded slices'
+    f32 partial scores summed in rank order, then scaled; key tiles of
+    64 (WideFwdTiles); P rounded before P V."""
+    d = q.shape[-1]
+    o = _emulated_forward(*_padded(d, q, k, v), causal, tile=64,
+                          scores=_cluster_scores(torch.matmul),
+                          scale=ca.default_scale(q))
+    return o[..., :d]
+
+
+def _emulated_wide_dq(q, k, v, o, lse, do, causal):
+    """dQ as the bf16 cluster dQ kernel computes it: S and dP from the
+    padded slices' f32 partials summed in rank order, P and dS in f32,
+    dS rounded to bf16 before dQ = scale dS K, dQ rounded once."""
+    b, h, s, d = q.shape
+    scale = ca.default_scale(q)
+    qf, kf, vf, of, dof = (t.float() for t in _padded(d, q, k, v, o, do))
+    build = _cluster_scores(torch.matmul)
+    p = torch.exp(scale * build(qf, kf) - lse.reshape(b, h, s, 1))
+    if causal:
+        p = p.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1), 0.0)
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = (p * (build(dof, vf) - delta)).to(torch.bfloat16).float()
+    return (scale * (ds @ kf))[..., :d].to(torch.bfloat16)
+
+
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + WIDE_SHAPES)
 def test_tensor_core_forward_rounding_fits_the_bf16_tile_limit(shape, causal):
     rs = np.random.RandomState(43)
     q, k, v = (torch.from_numpy(0.5 * rs.randn(*shape).astype(
         np.float32)).to(torch.bfloat16) for _ in range(3))
     ro, _ = ca.flash_attention_fwd_plain(q, k, v, causal)
-    got = _emulated_forward(q, k, v, causal)
+    got = (_emulated_wide_forward if shape[-1] > ca.HEAD_DIMS[-1]
+           else _emulated_forward)(q, k, v, causal)
     reading = _worst_tile(got, ro)
     assert 1e-3 < reading < FWD_TILE_LIMIT, reading
     for bad in _planted(got):
@@ -164,6 +237,23 @@ def test_tensor_core_rounding_fits_the_bf16_tile_limit(shape, causal, output):
     reading = _worst_tile(got[output], ref)
     assert 1e-3 < reading < BWD_TILE_LIMIT, reading
     for bad in _planted(got[output]):
+        assert _worst_tile(bad, ref) > BWD_TILE_LIMIT
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_wide_dq_rounding_fits_the_bf16_tile_limit(shape, causal):
+    # the cluster dQ kernel rounds dS to bf16 (its dK/dV partner, on the
+    # CUDA cores, rounds nothing but its outputs)
+    rs = np.random.RandomState(41)
+    q, k, v, do = (torch.from_numpy(0.5 * rs.randn(*shape).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(4))
+    o, lse = ca.flash_attention_fwd_plain(q, k, v, causal)
+    got = _emulated_wide_dq(q, k, v, o, lse, do, causal)
+    ref, _ = ca.flash_attention_dq_plain(q, k, v, o, lse, do, causal)
+    reading = _worst_tile(got, ref)
+    assert 1e-3 < reading < BWD_TILE_LIMIT, reading
+    for bad in _planted(got):
         assert _worst_tile(bad, ref) > BWD_TILE_LIMIT
 
 
@@ -198,9 +288,15 @@ def test_built_head_dim():
     assert [ca.built_head_dim(d)
             for d in (1, 16, 17, 33, 64, 65, 128, 129, 192, 256)] == \
         [16, 16, 32, 64, 64, 128, 128, 256, 256, 256]
-    # past 256: the next multiple of 64 (the wide kernels)
+    # past 256 (the wide kernels): the next multiple of 128 whose slices
+    # split into equal clusters of at most 8
     assert [ca.built_head_dim(d) for d in (257, 300, 320, 321, 512, 1000)] \
-        == [320, 320, 320, 384, 512, 1024]
+        == [384, 384, 384, 384, 512, 1024]
+    assert [ca.built_head_dim(d) for d in (1025, 1100, 1280, 2048, 2049)] \
+        == [1280, 1280, 1280, 2048, 2304]
+    # dK/dV past 256: its own 64-column chunks
+    assert [ca.dkv_head_dim(d) for d in (96, 256, 300, 320, 1100)] \
+        == [128, 256, 320, 320, 1152]
 
 
 # -- the f32 kernels: split TF32 ------------------------------------------
@@ -210,6 +306,7 @@ F32_LIMIT = {"O": 2e-5, "LSE": 2e-5, "delta": 2e-5, "dq": 5e-4, "dk": 5e-4,
 F32_TILE_LIMIT = 1e-4                  # chip_smoke.FLASH_TILE_LIMIT["float32"]
 F32_SHAPES = [pytest.param((1, 2, 256, 64), id="S256-D64"),
               pytest.param((1, 2, 256, 128), id="S256-D128")]
+# the forward's cases: past head_dim 256 too (WIDE_SHAPES)
 
 
 def _tf32(x):
@@ -289,17 +386,27 @@ def _split_tf32_forward(q, k, v, causal, passes=3):
     """O and LSE as csrc/flash_fwd.cu's f32 kernel computes them: S in
     f32 from split-TF32 sums, scaled after them, key tiles of 64 (32
     from D = 64) with the online softmax, O scaled by alpha and then
-    P V's k-steps added from the unrounded P."""
+    P V's k-steps added from the unrounded P. Past head_dim 256, as the
+    cluster kernel of csrc/flash_wide.cuh: Q scaled (in f32) before the
+    products, on the padded inputs, each rank's slice two sums of 8
+    k-steps added in f32 and the ranks' partials summed in rank order,
+    key tiles of 64 (P V one tensor-core sum of 8 k-steps a tile)."""
     b, h, s, d = q.shape
-    tile = _streamed(d)["fwd"]
     scale = ca.default_scale(q)
+    wide = d > ca.HEAD_DIMS[-1]
+    if wide:
+        q, k, v = _padded(d, q, k, v)
+        q = q * scale
+        scores = _cluster_scores(lambda a, b_: _tc_sum(a, b_, passes))
+    tile = 64 if wide else _streamed(d)["fwd"]
     m = torch.full((b, h, s, 1), ca.NEG_INF)
     l = torch.zeros(b, h, s, 1)
-    acc = torch.zeros(b, h, s, d)
+    acc = torch.zeros(q.shape)
     rows = torch.arange(s)[:, None]
     for k0 in range(0, s, tile):
-        x = _tc_sum(q, k[:, :, k0:k0 + tile].transpose(-1, -2), passes) \
-            * scale
+        kt = k[:, :, k0:k0 + tile]
+        x = scores(q, kt) if wide else \
+            _tc_sum(q, kt.transpose(-1, -2), passes) * scale
         if causal:
             cols = torch.arange(k0, min(k0 + tile, s))[None, :]
             x = x.masked_fill(cols > rows, ca.NEG_INF)
@@ -310,7 +417,36 @@ def _split_tf32_forward(q, k, v, causal, passes=3):
         acc = _tc_sum(p, v[:, :, k0:k0 + tile], passes, acc=acc * alpha)
         m = m_new
     lc = l.clamp_min(1e-30)
-    return acc / lc, (m + torch.log(lc)).reshape(b * h, s)
+    return (acc / lc)[..., :d], (m + torch.log(lc)).reshape(b * h, s)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_tf32_wide_dq(shape, causal):
+    """dQ and delta as the f32 cluster dQ kernel computes them on
+    _f32_inputs(shape) (D past 256) with the plain forward's O and LSE:
+    S and dP from the padded slices' split-TF32 partials (two sums of 8
+    k-steps a slice) summed in rank order, P = exp(scale S - LSE) masked
+    to 0, dS = P (dP - delta), dQ = scale dS K one tensor-core sum a key
+    tile of 32 added in f32; with the plain versions' as "ref"."""
+    q, k, v, do = (torch.from_numpy(a) for a in _f32_inputs(shape))
+    o, lse = ca.flash_attention_fwd_plain(q, k, v, causal)
+    b, h, s, d = shape
+    scale = ca.default_scale(q)
+    qp, kp, vp, op, dop = _padded(d, q, k, v, o, do)
+    build = _cluster_scores(_tc_sum)
+    x = (build(qp, kp).double() * scale
+         - lse.reshape(b, h, s, 1).double()).float()
+    p = torch.exp(x)
+    if causal:
+        p = p.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1), 0.0)
+    delta = (dop * op).sum(-1, keepdim=True)
+    ds = p * (build(dop, vp) - delta)
+    acc = None
+    for r0 in range(0, s, 32):
+        acc = _tc_sum(ds[..., r0:r0 + 32], kp[..., r0:r0 + 32, :], acc=acc)
+    rdq, rdelta = ca.flash_attention_dq_plain(q, k, v, o, lse, do, causal)
+    return {"dq": (scale * acc)[..., :d], "delta": delta.reshape(b * h, s),
+            "ref": {"dq": rdq, "delta": rdelta}}
 
 
 @functools.lru_cache(maxsize=None)
@@ -427,7 +563,7 @@ def test_tf32_split_rebuilds_every_f32_input():
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("shape", F32_SHAPES)
+@pytest.mark.parametrize("shape", F32_SHAPES + WIDE_SHAPES)
 def test_split_tf32_forward_keeps_the_f32_limits(shape, causal):
     q, k, v, _ = (torch.from_numpy(a) for a in _f32_inputs(shape))
     o, lse = _split_tf32_forward(q, k, v, causal)
@@ -451,6 +587,16 @@ def test_split_tf32_backward_keeps_the_f32_limits(shape, causal, output):
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_split_tf32_wide_dq_keeps_the_f32_limits(shape, causal):
+    got = _split_tf32_wide_dq(shape, causal)
+    _check("delta", got["delta"], got["ref"]["delta"])
+    _check("dq", got["dq"], got["ref"]["dq"])
+    _check("dq", got["dq"], torch.from_numpy(
+        _pallas_reference(shape, causal)["dq"]))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_one_tensor_core_accumulator_over_s_reads_worse(causal):
     # the tensor core truncates each mma's sum, so a chain of them drifts:
     # dK and dV summed in one accumulator over all of S (~3-5e-6 of the
@@ -467,7 +613,7 @@ def test_one_tensor_core_accumulator_over_s_reads_worse(causal):
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("shape", F32_SHAPES)
+@pytest.mark.parametrize("shape", F32_SHAPES + WIDE_SHAPES)
 def test_one_tf32_pass_reads_over_the_f32_o_limit(shape, causal):
     # the card's precision control (cuda_build.TF32_ONE_PASS): 10-bit
     # operands, which the f32 limit on O must reject
