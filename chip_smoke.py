@@ -72,9 +72,9 @@ Phases, each of which raises on failure (exit code not 0):
               zero-padded to 128), f32 and bf16 at (1, 4, 1024, 256) and
               (1, 4, 1024, 192) (zero-padded to 256), causal and not,
               f32 and bf16 at (1, 4, 1024, D) for D in 320, 512 and 1024
-              (the wide kernels of csrc/flash_wide.cuh: the forward and dQ
-              on thread-block clusters, each launch counted), causal and
-              not,
+              (the wide kernels of csrc/flash_wide.cuh: the forward, dQ
+              and dK/dV on thread-block clusters, each launch counted),
+              causal and not,
               bf16 at the LM's full width (4, 8, 4096, 128), causal, and
               f32 (the lm verb's default dtype) there and at the verb's
               default widths (8, 8, 256, 32), causal;
@@ -1270,7 +1270,7 @@ def _flash_kernel_info(torch):
     kernel instantiation}: registers a thread, local memory a thread
     (spills), dynamic shared memory, resident CTAs per SM, the cluster
     size (1: none) and the clusters that fit on the card at once
-    (cudaOccupancyMaxActiveClusters; the forward and dQ past head_dim
+    (cudaOccupancyMaxActiveClusters; the three kernels past head_dim
     256). Fails if any instantiation uses local memory (spills), or a
     bf16 backward kernel fits fewer than two CTAs on an SM at head_dim
     128."""
@@ -1372,20 +1372,23 @@ def flash_entry_points(libs=None, defines=()):
 def flash_calls(torch, fns, q, k, v, do, o, lse, delta, causal,
                 built=None):
     """No-argument calls of one set of flash entry points on these
-    (B, H, S, D) inputs, zero-padded to the head_dim ``built`` (by
-    default the ones this tree's wrappers pad them to, dK/dV's its own):
-    {"fwd": -> (O, LSE), "dq": -> (dQ, delta), "dkv": -> (dK, dV)}, the
-    backward on the given O, LSE and delta."""
+    (B, H, S, D) inputs, zero-padded for each kernel to the head_dim
+    ``built[key]`` (by default, and for a key it lacks, the one this
+    tree's wrappers pad them to): {"fwd": -> (O, LSE), "dq": -> (dQ,
+    delta), "dkv": -> (dK, dV)}, the backward on the given O, LSE and
+    delta."""
     from sparknet_tpu_torch.ops import cuda_attention as ca
     from sparknet_tpu_torch.ops import cuda_build
     b, h, s, d = q.shape
     scale = ca.default_scale(q)
 
-    def padded(width):
+    def padded(key):
+        width = (built or {}).get(key) or ca.built_head_dim(d)
         return [t.contiguous() for t in ca.pad_head_dim((q, k, v, o, do),
                                                         width)]
-    qp, kp, vp, op, dop = padded(built or ca.built_head_dim(d))
-    dkv_in = padded(built or ca.dkv_head_dim(d))
+    qp, kp, vp, _, _ = padded("fwd")
+    dq_in = padded("dq")
+    dkv_in = padded("dkv")
     code = cuda_build.DTYPE_CODES[q.dtype]
     stream = cuda_build.stream_handle(q.device)
 
@@ -1401,9 +1404,10 @@ def flash_calls(torch, fns, q, k, v, do, o, lse, delta, causal,
         return out[..., :d], rows
 
     def dq():
-        out = torch.empty_like(qp)
+        qd, kd, vd, od, dod = dq_in
+        out = torch.empty_like(qd)
         rows = torch.empty(b * h, s, device=q.device)
-        launch("dQ", fns["dq"], qp, kp, vp, op, dop, lse, out, rows)
+        launch("dQ", fns["dq"], qd, kd, vd, od, dod, lse, out, rows)
         return out[..., :d], rows
 
     def dkv():

@@ -14,9 +14,10 @@ _work/flash_ab/; this tree's kernels, and their one-pass TF32 control
 (cuda_build.library builds them there if chip_smoke.py has not yet).
 All are called through their C entry points, whose signatures the
 trees share; each tree's kernels take the inputs zero-padded as its own
-wrappers pad them (past 256 this tree to a multiple of 128, the
-baseline to one of 64, as trees whose wide kernels took 64-column
-chunks pad it: BASELINE_CHUNK).
+wrappers pad them, kernel by kernel (past 256 this tree pads all three
+to ca.built_head_dim; the baseline as BASELINE_PAD says: the forward
+and dQ as this tree, dK/dV, whose CUDA-core kernel took 64-column
+chunks there, to a multiple of 64).
 Every arm runs on the same inputs: the backward kernels on this tree's
 O, LSE and delta. Each arm is held to the plain PyTorch versions at
 chip_smoke.py's limits (f32: O and LSE 2e-5, dQ, dK, dV 5e-4 of the
@@ -57,7 +58,10 @@ CASES = [(shape, dtype, causal)
          if shape[-1] > ca.HEAD_DIMS[-1] or dtype == "float32"]
 KERNELS = (("fwd", "flash_attention", "O"), ("dq", "flash_attention_dq", "dQ"),
            ("dkv", "flash_attention_dkv", "dK"))
-BASELINE_CHUNK = 64   # the baseline pads a head_dim past 256 to this
+# past head_dim 256: the head_dim the baseline's wrappers pad D to, by
+# kernel (flash_calls' keys)
+BASELINE_PAD = {"fwd": ca.built_head_dim, "dq": ca.built_head_dim,
+                "dkv": lambda d: -(-d // 64) * 64}
 
 
 def build(csrc, out_dir):
@@ -138,8 +142,8 @@ def main():
         dtype = getattr(torch, dname)
         wide = d > ca.HEAD_DIMS[-1]
         what = f"{list(shape)} {dname} causal={causal}"
-        built = {"baseline": -(-d // BASELINE_CHUNK) * BASELINE_CHUNK
-                 if wide else ca.built_head_dim(d)}
+        built = {"baseline": {key: pad(d) for key, pad in
+                              BASELINE_PAD.items()} if wide else None}
         q, k, v, do = ((0.5 * torch.randn(shape, generator=gen,
                                           device="cuda")).to(dtype)
                        for _ in range(4))

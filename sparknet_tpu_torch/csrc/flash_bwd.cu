@@ -786,8 +786,8 @@ struct InfoQuery {
 // q, k, v, o, dout, dq: (bh, seq, head_dim) contiguous, dtype 0 = f32,
 // 1 = bf16 (16-byte aligned); lse (read) and delta (written): (bh, seq)
 // f32. A head_dim past 256 runs the wide kernels of flash_wide.cuh, here
-// (a cluster kernel: D a multiple of 128 that splits into equal clusters,
-// ops/cuda_attention.py built_head_dim) and in the dK/dV entry point.
+// and in the dK/dV entry point (cluster kernels: D a multiple of 128 that
+// splits into equal clusters, ops/cuda_attention.py built_head_dim).
 extern "C" int sparknet_flash_backward_dq(const void* q, const void* k,
                                           const void* v, const void* o,
                                           const void* dout, const void* lse,

@@ -5,31 +5,37 @@
 // The D <= 256 kernels hold whole (rows, D) tiles, and an accumulator of
 // all D output columns, on chip; past 256 neither fits in one CTA.
 //
-// The forward and dQ (flash_wide_fwd_kernel, flash_wide_dq_kernel): a
-// thread-block cluster of G CTAs ("ranks") owns one 64-row query tile of
-// one (b, h), and rank r owns the 128 columns [128 r, 128 r + 128) of D:
-// its slices of Q, K, V (and dO, dQ). Each score tile is built once, and
-// each of its rows is finished by one rank, its owner (rank r owns rows
-// [64 r / G, 64 (r + 1) / G) of the tile):
-//  - every rank computes the partial score tile S_r = Q_r K_r^T of its
-//    columns (and dP_r = dO_r V_r^T in dQ) for a tile of KT keys on the
-//    tensor cores, and stores each row of it into the owner's shared
-//    memory through distributed shared memory (DSMEM: a reduce-scatter);
+// All three are thread-block-cluster kernels. In the forward and dQ
+// (flash_wide_fwd_kernel, flash_wide_dq_kernel) a cluster of G CTAs
+// ("ranks") owns one 64-row query tile of one (b, h) and streams the key
+// tiles; in dK/dV (flash_wide_dkv_kernel) it owns one 64-row key tile and
+// streams the query tiles. Rank r owns the 128 columns [128 r, 128 r +
+// 128) of D: its slices of Q, K, V, dO (and dQ; dK, dV). Each score tile
+// is built once, and each of its rows is finished by one rank, its owner
+// (rank r owns rows [64 r / G, 64 (r + 1) / G) of the resident tile):
+//  - every rank computes the partial score tile of its columns for a
+//    streamed tile of KT rows on the tensor cores (S_r = Q_r K_r^T, and
+//    dP_r = dO_r V_r^T in dQ; S^T_r = K_r Q_r^T and dP^T_r = V_r dO_r^T
+//    in dK/dV), and stores each row of it into the owner's shared memory
+//    through distributed shared memory (DSMEM: a reduce-scatter);
 //  - the owner adds the G partials of its rows in rank order 0 .. G-1
-//    in f32, runs the online softmax on them (m, l, alpha; in dQ P and
-//    dS from LSE and delta), and stores the rows of P (dS), in the
-//    storage type, and alpha into every rank's shared memory (an
-//    all-gather);
-//  - each rank then multiplies P (dS) into its own slice of V (K) on the
-//    tensor cores: O_r += P V_r, dQ_r += dS K_r. At the end the owners
-//    store l for the normalisation of O; owners write LSE and delta, and
-//    dQ's owners first gather delta from per-rank partial row sums of
-//    dO_r O_r.
+//    in f32 and finishes them: the forward's online softmax (m, l,
+//    alpha), dQ's P and dS from LSE and delta per row, dK/dV's P^T and
+//    dS^T from LSE and delta per column (query); it stores the rows of P
+//    (dS; P^T and dS^T), in the storage type, and alpha into every
+//    rank's shared memory (an all-gather);
+//  - each rank then multiplies them into its own slices on the tensor
+//    cores: O_r += P V_r, dQ_r += dS K_r, dV_r += P^T dO_r and dK_r +=
+//    dS^T Q_r. At the end the forward's owners store l for the
+//    normalisation of O; owners write LSE and delta, and dQ's owners
+//    first gather delta from per-rank partial row sums of dO_r O_r (dK/dV
+//    reads dQ's delta).
 // Every row is summed and finished once, in a fixed order: two launches
-// on the same inputs give bitwise the same O, LSE, dQ and delta. A rank
-// receives one partial tile of 64 x KT f32 a key tile (two in dQ) and
-// one tile of P (dS): not the G partial tiles that an all-gather of the
-// partials moved, which bound the first design (PERF.md).
+// on the same inputs give bitwise the same O, LSE, dQ, delta, dK and dV
+// (no atomics). A rank receives one partial tile of 64 x KT f32 a
+// streamed tile (two in dQ and dK/dV) and one tile of P (dS; two in
+// dK/dV): not the G partial tiles that an all-gather of the partials
+// moved, which bound the first design (PERF.md).
 // The exchanges are st.async stores, which complete their bytes on an
 // mbarrier in the receiving CTA: a receiver waits on its own mbarrier of
 // that buffer and parity (two parities: tile j in buffer j % 2), and a
@@ -47,51 +53,54 @@
 // G is at most 8, the portable cluster size: that covers D <= 1024. Past
 // it the output's slices split into `groups` clusters of equal size G
 // (the grid's x axis; the wrappers pad D so that they are equal), and
-// each cluster builds S again over all of D: rank r's partial then runs
-// over the slices r, r + G, r + 2 G, ... in order (its own one resident,
-// the others loaded on the spot, 64 columns at a time, into an extra
-// tile), a recompute factor of `groups` = ceil(D / 1024) instead of the
-// D / 64 of the CUDA-core kernels these replaced.
+// each cluster builds the scores again over all of D: rank r's partial
+// then runs over the slices r, r + G, r + 2 G, ... in order (its own one
+// resident, the others loaded on the spot, 64 columns at a time, into an
+// extra tile), a recompute factor of `groups` = ceil(D / 1024) instead of
+// the D / 64 of the CUDA-core kernels these replaced.
 //
 // Arithmetic, as the kernels up to D = 256 (flash_fwd.cu, flash_bwd.cu):
 //  - bf16: mma.sync m16n8k16 (flash_mma.cuh) with f32 sums; the
-//    forward's S is scaled after the products, in f32; P (forward) and dS
-//    (dQ) are rounded to bf16 before the second product, O and dQ once.
+//    forward's S is scaled after the products, in f32; P (forward), dS
+//    (dQ), P^T and dS^T (dK/dV) are rounded to bf16 before the second
+//    products, each output once.
 //  - f32: split TF32 (3xTF32, flash_tf32.cuh): the forward scales Q (in
 //    f32, in shared memory) before Q K^T, as the plain version does; no
 //    tensor-core sum runs past kSumSteps k-steps (a slice's 128 columns
 //    are two sums added in f32; P V one sum a key tile of 64, dS K of
-//    32);
+//    32, P^T dO and dS^T Q one a query tile of 32);
 //    built with SPARKNET_FLASH_TF32_ONE_PASS the lo terms drop out, as in
 //    the other f32 kernels.
 //  - The sum across ranks is IEEE f32, in rank order, from zero; within
-//    a rank the slices in order. Masked scores are -1e30, l is floored at
-//    1e-30, the backward scales the product.
+//    a rank the slices in order. Masked scores are -1e30 (the backward's
+//    P exactly 0), l is floored at 1e-30, the backward scales the
+//    product (dQ and dK once, at the end).
 // A CTA is 8 warps: warp w computes the partial of rows 16 (w % 4) ..
-// + 16 and keys (w / 4) KT / 2 .. + KT / 2 of the tile over all of its
-// slice's 128 columns, and O (dQ) of the same rows and the columns
-// 64 (w / 4) .. + 64 of its slice; an owner row is 8 threads, KT / 8 keys
-// each. KT is 64 in the forward and 32 in dQ (whose partials are two
-// tiles). K and V come in tiles by 16-byte cp.async into one buffer each
-// (dQ: two for K, which both its products of a tile read), the next tile
-// in flight under the current one's other work; row strides 136 (bf16;
-// and the f32 forward's Q and K, read in 64-bit pairs: cols_dot_pairs)
-// or 132 (f32), P of KT + 8: free of bank conflicts (flash_mma.cuh,
-// flash_tf32.cuh). The single buffers fit two CTAs of the bf16 kernels
-// on an SM (shared memory and 128 registers), whose exchanges overlap;
-// the f32 kernels take more registers and run one CTA an SM (the f32
-// forward at 128 registers spilled and ran slower: PERF.md).
-// Bound: operations. The forward does 4 S^2 D and dQ 6 S^2 D FLOPs
-// (halved when causal). Registers, shared memory and co-resident
-// clusters: sparknet_flash_forward_info / sparknet_flash_backward_info,
-// printed by chip_smoke.py phase 6; measured times in PERF.md.
-//
-// dK/dV (flash_wide_dkv_kernel) is the earlier CUDA-core design: a CTA of
-// kThreads threads owns one 64-row key tile of one (b, h) and one
-// 64-column chunk of dK and dV (blockIdx.z), builds each 64 x 64 score
-// tile S^T and dP^T by walking all of D in 64-column chunks through
-// shared memory (wide_dot), and multiplies it by its chunk of dO and Q,
-// every product in f32 on the CUDA cores, from the dQ kernel's delta.
+// + 16 and streamed rows (w / 4) KT / 2 .. + KT / 2 of the tile over all
+// of its slice's 128 columns, and its outputs for the same rows and the
+// columns 64 (w / 4) .. + 64 of its slice; an owner row is 8 threads,
+// KT / 8 streamed rows each. KT is 64 in the forward and 32 in dQ and
+// dK/dV (whose partials are two tiles). The streamed tiles come by
+// 16-byte cp.async, the next tile in flight under the current one's
+// other work: the forward one buffer each for K and V, dQ two for K
+// (which both its products of a tile read), dK/dV two each for Q and dO
+// (with their LSE and delta) in f32 and one in bf16 and past D = 1024,
+// where the next tile loads after the products (WideDkvTiles). With two
+// buffers each thread's copies arrive on the buffer's mbarrier and each
+// thread waits there, not at a CTA barrier, so the warps that own no
+// rows start the next tile's partials while the owners finish theirs.
+// Row strides 136 (bf16; and the f32 forward's Q and K, read in 64-bit
+// pairs: cols_dot_pairs) or 132 (f32), P of KT + 8: free of bank
+// conflicts (flash_mma.cuh, flash_tf32.cuh). The single buffers fit two
+// CTAs of the bf16 kernels on an SM (shared memory and 128 registers),
+// whose exchanges overlap; the f32 kernels take more registers and run
+// one CTA an SM (the f32 forward at 128 registers spilled and ran
+// slower: PERF.md).
+// Bound: operations. The forward does 4 S^2 D, dQ 6 S^2 D and dK/dV
+// 8 S^2 D FLOPs (halved when causal). Registers, shared memory and
+// co-resident clusters: sparknet_flash_forward_info /
+// sparknet_flash_backward_info, printed by chip_smoke.py phase 6;
+// measured times in PERF.md.
 
 #pragma once
 
@@ -190,6 +199,15 @@ __device__ __forceinline__ void st_async(uint32_t addr, const uint32_t (&w)[N],
         "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
         "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3]), "r"(bar)
         : "memory");
+}
+
+// an arrival on the local mbarrier `bar` once this thread's cp.async
+// copies so far have landed (the barrier counts every thread's arrival:
+// noinc), so that a warp can wait for a tile without a CTA barrier
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
 }
 
 // wait until the local mbarrier's phase `parity` has completed, with
@@ -513,6 +531,29 @@ struct WideDqTiles<float> {
   static constexpr bool kPairs = false;
 };
 
+// dK/dV streams query tiles of KT rows (Q and dO, QST buffers each) past
+// a resident key tile: f32 double-buffers them (both products of a tile
+// read them, and the next tile's partials come before those products);
+// bf16 takes one buffer each, so that two CTAs fit on an SM (108 KB of
+// shared memory at 128 registers), and loads the next tile after the
+// products. Past D = 1024 (groups > 1) the extra tiles leave no room for
+// a second f32 buffer: one there too (dkv_layout). Each choice was timed
+// against the other (PERF.md).
+template <typename T>
+struct WideDkvTiles;
+template <>
+struct WideDkvTiles<__nv_bfloat16> {
+  static constexpr int KT = 32, QST = 1, LD = kSliceW + 8, LDP = KT + 8,
+                       LDX = 72, kMinCtas = 2;
+  static constexpr bool kPairs = false;
+};
+template <>
+struct WideDkvTiles<float> {
+  static constexpr int KT = 32, QST = 2, LD = kSliceW + 4, LDP = KT + 8,
+                       LDX = 68, kMinCtas = 1;
+  static constexpr bool kPairs = false;
+};
+
 // Byte offsets of a cluster kernel's dynamic shared memory: the own
 // slices (Q; dO), the K and V tiles, the extra tile pair (groups >
 // 1), the incoming partials of both parities (S; dP), P or dS of both
@@ -548,11 +589,49 @@ __host__ __device__ inline WideLayout wide_layout(bool dq, int gc,
   return w;
 }
 
-// This rank's partial (rows r0.., keys half KT / 2 .. of tile j's KT) of
-// A B^T over all its slices in order (groups > 1: the others loaded into
-// the extra tiles xa, xb 64 columns at a time): the resident pair (as,
-// bs) for its own slice `group`; `scale_a` scales each loaded A (the f32
-// forward's Q). B rows start at key k0 of the (seq, D) matrix b.
+// Byte offsets of the dK/dV kernel's dynamic shared memory: its K and V
+// slices, `qst` buffers of the Q and dO tiles (WideDkvTiles) and of their
+// LSE and delta, the extra tile pair (groups > 1), the incoming S^T and
+// dP^T partials of both parities, P^T and dS^T of both parities, then
+// the mbarriers on which the partials and P^T, dS^T of each parity
+// complete, and those on which each buffer's tile lands.
+struct WideDkvLayout {
+  int k, v, q, dout, rows, x, in, inp, pt, bars, bytes, qst;
+};
+
+template <typename T>
+__host__ __device__ inline WideDkvLayout dkv_layout(int gc, int groups) {
+  using L = WideDkvTiles<T>;
+  WideDkvLayout w{};
+  int at = 0;
+  auto take = [&at](int bytes) {
+    const int o = at;
+    at += (bytes + 15) & ~15;
+    return o;
+  };
+  const int in_bytes = 2 * gc * rows_max(gc) * (L::KT + 4) * 4;
+  const int tile = L::KT * L::LD * static_cast<int>(sizeof(T));
+  w.qst = groups > 1 ? 1 : L::QST;
+  w.k = take(64 * L::LD * sizeof(T));
+  w.v = take(64 * L::LD * sizeof(T));
+  w.q = take(w.qst * tile);
+  w.dout = take(w.qst * tile);
+  w.rows = take(w.qst * 2 * L::KT * 4);
+  w.x = groups > 1 ? take((64 + L::KT) * L::LDX * sizeof(T)) : 0;
+  w.in = take(in_bytes);
+  w.inp = take(in_bytes);
+  w.pt = take(2 * 2 * 64 * L::LDP * sizeof(T));
+  w.bars = take(6 * 8);
+  w.bytes = at;
+  return w;
+}
+
+// This rank's partial (rows r0.., streamed rows half KT / 2 .. of tile
+// j's KT) of A B^T over all its slices in order (groups > 1: the others
+// loaded into the extra tiles xa, xb 64 columns at a time): the resident
+// pair (as, bs) for its own slice `group`; `scale_a` scales each loaded
+// A (the f32 forward's Q). A's 64 rows start at row0 of the (seq, D)
+// matrix a, B's KT at row k0 of b (keys; queries in dK/dV).
 template <typename L, typename T, int NS>
 __device__ __forceinline__ void rank_partial(
     float (&s)[NS][4], const T* as, const T* bs, const T* a, const T* b,
@@ -1022,53 +1101,12 @@ __global__ void __launch_bounds__(kWideThreads, WideDqTiles<T>::kMinCtas)
   }
 }
 
-// -- dK/dV: CUDA cores (the note at the top) ------------------------------
-
-constexpr int kWideR = 64;                    // rows of a query / key tile
-constexpr int kWideC = 64;                    // head_dim columns a chunk
-constexpr int kWideLd = kWideC + 1;           // smem row stride (floats)
-constexpr int kWideTile = kWideR * kWideLd;   // one staged tile (floats)
-
-// rows [row0, row0 + 64) and columns [col0, col0 + 64) of a (seq, D)
-// matrix -> an f32 smem tile with row stride 65, times `mult`; rows at or
-// past seq read as zero
+// dK = scale dS^T Q and dV = P^T dO, P^T = exp(scale K Q^T - LSE) and
+// dS^T = P^T (V dO^T - delta) with LSE and delta per column (query), for
+// one 64-row key tile from the dQ kernel's delta: this rank's 128 columns
+// of dK and dV (the note at the top).
 template <typename T>
-__device__ __forceinline__ void load_chunk(float* dst, const T* src, int row0,
-                                           int seq, int D, int col0,
-                                           float mult) {
-  for (int i = threadIdx.x; i < kWideR * kWideC; i += kThreads) {
-    const int r = i / kWideC, c = i % kWideC, g = row0 + r;
-    dst[r * kWideLd + c] =
-        g < seq ? to_f32(src[static_cast<long long>(g) * D + col0 + c]) * mult
-                : 0.f;
-  }
-}
-
-// acc = (mult * A[a0 .. a0+64)) B[b0 .. b0+64)^T over all D columns, 64 at
-// a time through the smem tiles as and bs. Starts with a barrier, so the
-// caller's earlier reads of as and bs are done before they are refilled.
-template <typename T>
-__device__ __forceinline__ void wide_dot(float (&acc)[4][4], float* as,
-                                         float* bs, const T* a, int a0,
-                                         const T* b, int b0, int seq, int D,
-                                         float mult, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int c0 = 0; c0 < D; c0 += kWideC) {
-    __syncthreads();
-    load_chunk(as, a, a0, seq, D, c0, mult);
-    load_chunk(bs, b, b0, seq, D, c0, 1.f);
-    __syncthreads();
-    tile_dot<kWideC, kWideR>(acc, as, bs, ty, tx);
-  }
-}
-
-// dK = scale dS^T Q and dV = P^T dO for one 64-row key tile and one
-// 64-column chunk of dK and dV, from the dQ kernel's delta.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWideThreads, WideDkvTiles<T>::kMinCtas)
     flash_wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
                           const T* __restrict__ dout,
@@ -1076,73 +1114,198 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ delta,
                           T* __restrict__ dk, T* __restrict__ dv, int seq,
                           int D, float scale, int causal) {
-  extern __shared__ float smem[];
-  float* as = smem;
-  float* bs = as + kWideTile;
-  float* ps = bs + kWideTile;   // P^T: rows keys, columns queries
-  float* ds = ps + kWideTile;   // dS^T
-  float* lse_s = ds + kWideTile;
-  float* delta_s = lse_s + kWideR;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int k0 = blockIdx.x * kWideR, col0 = blockIdx.z * kWideC;
-  const long long row_base = static_cast<long long>(blockIdx.y) * seq;
-  const long long base = row_base * D;
+  using L = WideDkvTiles<T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int QT = L::KT, LD = L::LD, LDP = L::LDP, QTP = QT + 4;
+  constexpr int NS = QT / 16;        // n8 tiles of a warp's partials
+  constexpr int CW = QT / kTpr;      // queries of an owner thread
+  extern __shared__ __align__(16) unsigned char smem_wide[];
+  const cg::cluster_group cl = cg::this_cluster();
+  const int gc = static_cast<int>(cl.num_blocks());
+  const int rank = static_cast<int>(cl.block_rank());
+  const int groups = gridDim.x / gc, group = blockIdx.x / gc;
+  const int col0 = (group * gc + rank) * kSliceW;   // this rank's columns
+  const WideDkvLayout lay = dkv_layout<T>(gc, groups);
+  // Q, dO tile j in buffer j & 1: f32 with one cluster a D (L::QST
+  // first, so that bf16's code is free of that path at compile time)
+  const bool two = L::QST == 2 && lay.qst == 2;
+  T* ks = reinterpret_cast<T*>(smem_wide + lay.k);
+  T* vs = reinterpret_cast<T*>(smem_wide + lay.v);
+  T* qs = reinterpret_cast<T*>(smem_wide + lay.q);
+  T* dos = reinterpret_cast<T*>(smem_wide + lay.dout);
+  float* rows = reinterpret_cast<float*>(smem_wide + lay.rows);
+  T* xa = reinterpret_cast<T*>(smem_wide + lay.x);
+  T* xb = xa + 64 * L::LDX;
+  float* in_s = reinterpret_cast<float*>(smem_wide + lay.in);   // S^T
+  float* in_p = reinterpret_cast<float*>(smem_wide + lay.inp);  // dP^T
+  T* pt = reinterpret_cast<T*>(smem_wide + lay.pt);  // P^T, dS^T a parity
+  const int in_par = gc * rows_max(gc) * QTP;     // floats a parity
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp & 3) * 16, half = warp >> 2;
+  const int lo = own_lo(rank, gc), n_own = own_lo(rank + 1, gc) - lo;
+  const int orow = threadIdx.x / kTpr, ch = threadIdx.x % kTpr;
+  const bool owner = orow < n_own;
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.z * 64;    // causal: key tile 0, the longest,
+                                     // first
+  const long long base = static_cast<long long>(bh) * seq * D;
   q += base;
   k += base;
   v += base;
   dout += base;
   dk += base;
   dv += base;
-  float acc_k[4][4], acc_v[4][4], st[4][4], dpt[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-  const int n_q = (seq + kWideR - 1) / kWideR;
-  for (int t = causal ? blockIdx.x : 0; t < n_q; ++t) {
-    const int q0 = t * kWideR;
-    // the last reads of lse_s / delta_s came before the barrier that
-    // precedes the previous tile's products
-    if (tid < kWideR) {
-      const int g = q0 + tid;
-      lse_s[tid] = g < seq ? lse[row_base + g] : 0.f;
-      delta_s[tid] = g < seq ? delta[row_base + g] : 0.f;
+  lse += static_cast<long long>(bh) * seq;
+  delta += static_cast<long long>(bh) * seq;
+  // query tiles j0 .. of QT rows; causal: from the one with key k0
+  const int j0 = causal ? k0 / QT : 0;
+  const int n_q = (seq + QT - 1) / QT - j0;
+
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_wide + lay.bars);
+  uint64_t* full_in = bars;          // tile j's partials S^T, dP^T: j & 1
+  uint64_t* full_p = bars + 2;       // tile j's P^T and dS^T in: j & 1
+  uint64_t* full_q = bars + 4;       // two buffers: tile j landed, j & 1
+  const uint32_t in_bytes = 2 * gc * n_own * QT * 4;
+  const uint32_t p_bytes = 2 * 64 * QT * sizeof(T);
+  auto buf = [&](int j) { return (two ? j & 1 : 0) * QT * LD; };
+  auto rows_of = [&](int j) { return rows + (two ? j & 1 : 0) * 2 * QT; };
+  auto load_q = [&](int j) {         // Q, dO, LSE and delta of query tile j
+    const int row0 = (j0 + j) * QT;
+    cp_async_cols<QT, kSliceW, LD>(qs + buf(j), q, D, row0, col0, seq);
+    cp_async_cols<QT, kSliceW, LD>(dos + buf(j), dout, D, row0, col0, seq);
+    if (threadIdx.x < 2 * QT) {      // LSE at [0, QT), delta at [QT, 2 QT)
+      const int i = threadIdx.x % QT, r = row0 + i;
+      const float* src = threadIdx.x < QT ? lse : delta;
+      cp_async4(rows_of(j) + threadIdx.x, src + (r < seq ? r : 0),
+                r < seq ? 4 : 0);
     }
-    wide_dot(st, as, bs, k, k0, q, q0, seq, D, 1.f, ty, tx);
-    wide_dot(dpt, as, bs, v, k0, dout, q0, seq, D, 1.f, ty, tx);
+    if (two) cp_async_mbar_arrive(smem_addr(full_q + (j & 1)));
+  };
+  // two buffers: each thread waits for tile j's copies, no CTA barrier,
+  // so a warp starts tile j's partials while the owners still finish
+  // tile j - 1 (one buffer: the copies are waited for right after they
+  // are issued, by a CTA barrier; the mbarrier spilled the bf16 kernel)
+  auto wait_q = [&](int j) {
+    mbar_wait(smem_addr(full_q + (j & 1)), (j >> 1) & 1);
+  };
+  auto partial = [&](int j) {        // tile j's S^T, dP^T into the owners
+    const int row0 = (j0 + j) * QT;
+    float s[NS][4];
+    rank_partial<L>(s, ks, qs + buf(j), k, q, xa, xb, k0, row0, seq, D, rank,
+                    gc, groups, group, r0, half, lane, 1.f);
+    push_partial<QTP>(in_s + (j & 1) * in_par, full_in + (j & 1), s, rank,
+                      gc, r0, half * (QT / 2), lane);
+    rank_partial<L>(s, vs, dos + buf(j), v, dout, xa, xb, k0, row0, seq, D,
+                    rank, gc, groups, group, r0, half, lane, 1.f);
+    push_partial<QTP>(in_p + (j & 1) * in_par, full_in + (j & 1), s, rank,
+                      gc, r0, half * (QT / 2), lane);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(smem_addr(bars + i), 1);
+    for (int i = 4; i < 6; ++i) mbar_init(smem_addr(bars + i), kWideThreads);
+    for (int i = 0; i < 2 && i < n_q; ++i) {
+      mbar_expect_tx(smem_addr(full_in + i), in_bytes);
+      mbar_expect_tx(smem_addr(full_p + i), p_bytes);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();                 // full_q is set before any arrival
+  cp_async_cols<64, kSliceW, LD>(ks, k, D, k0, col0, seq);
+  cp_async_cols<64, kSliceW, LD>(vs, v, D, k0, col0, seq);
+  load_q(0);
+  cp_async_commit();
+  if (two && n_q > 1) load_q(1);
+  cp_async_commit();
+  cluster_sync();                  // every rank runs, its mbarriers set
+  cp_async_wait<1>();              // K, V and tile 0
+  __syncthreads();
+  partial(0);
+  // P^T = exp(S^T mult - LSE): natural units for f32, log2 units for bf16
+  const float mult = kF32 ? scale : scale * kLog2e;
+  const int key = k0 + lo + orow;  // an owner's row
+  float acc_k[8][4] = {}, acc_v[8][4] = {};   // dK (unscaled), dV
+  for (int j = 0; j < n_q; ++j) {
+    const int p = j & 1, qrow0 = (j0 + j) * QT + ch * CW;
+    const uint32_t phase = (j >> 1) & 1;
+    T* ptj = pt + p * 2 * 64 * LDP;  // P^T of tile j, dS^T after it
+    if (owner) {  // the owned rows of tile j: P^T and dS^T into every rank
+      float x[CW], y[CW];
+      mbar_wait_cluster(smem_addr(full_in + p), phase);
+      if (threadIdx.x == 0 && j + 2 < n_q)     // its next phase: tile j + 2
+        mbar_expect_tx(smem_addr(full_in + p), in_bytes);
+      owner_sum<QTP>(x, in_s + p * in_par, gc, orow, ch);
+      owner_sum<QTP>(y, in_p + p * in_par, gc, orow, ch);
+      const float* lq = rows_of(j) + ch * CW;   // LSE, then delta at + QT
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float p = masked(q0 + c, k0 + r, seq, causal)
-                            ? 0.f
-                            : expf(scale * st[i][j] - lse_s[c]);
-        ps[r * kWideLd + c] = p;
-        ds[r * kWideLd + c] = p * (dpt[i][j] - delta_s[c]);
+      for (int c = 0; c < CW; ++c) {
+        const float e = fmaf(x[c], mult, -lq[c] * (kF32 ? 1.f : kLog2e));
+        const float pr = masked(qrow0 + c, key, seq, causal)
+                             ? 0.f
+                             : (kF32 ? expf(e) : exp2f(e));
+        x[c] = pr;                                // P^T
+        y[c] = pr * (y[c] - lq[QT + c]);          // dS^T
+      }
+      push_row<T, LDP>(ptj, full_p + p, x, gc, lo + orow, ch);
+      push_row<T, LDP>(ptj + 64 * LDP, full_p + p, y, gc, lo + orow, ch);
+    }
+    if (two) {
+      if (j + 1 < n_q) {
+        wait_q(j + 1);
+        if (j > 0) cluster_wait(); // every owner has read tile j - 1's
+        partial(j + 1);            // partials, whose buffers this refills
+      } else if (j > 0) {
+        cluster_wait();
       }
     }
-    __syncthreads();  // as and bs are read by the last wide_dot until here
-    load_chunk(as, dout, q0, seq, D, col0, 1.f);
-    load_chunk(bs, q, q0, seq, D, col0, 1.f);
-    __syncthreads();
-    tile_mul<kWideC, kWideR, false>(acc_v, ps, as, ty, tx);
-    tile_mul<kWideC, kWideR, false>(acc_k, ds, bs, ty, tx);
+    mbar_wait_cluster(smem_addr(full_p + p), phase);   // P^T, dS^T of j
+    if (threadIdx.x == 0 && j + 2 < n_q)
+      mbar_expect_tx(smem_addr(full_p + p), p_bytes);
+    tile_mul_kt<LDP, LD, QT>(acc_v, ptj, r0, dos + buf(j), half * 64, lane);
+    tile_mul_kt<LDP, LD, QT>(acc_k, ptj + 64 * LDP, r0, qs + buf(j),
+                             half * 64, lane);
+    __syncthreads();               // tile j's Q, dO buffers are free
+    if (two) {
+      if (j + 2 < n_q) load_q(j + 2);
+    } else if (j + 1 < n_q) {      // one buffer: tile j + 1 after j's
+      load_q(j + 1);               // products
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (j > 0) cluster_wait();
+      partial(j + 1);
+    } else if (j > 0) {
+      cluster_wait();
+    }
+    cluster_arrive_relaxed();      // tile j's partials and P^T, dS^T read
   }
+  cluster_wait();                  // no rank still writes to another
+  cp_async_wait<0>();
+
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = k0 + r0 + g + 8 * i;
     if (r >= seq) continue;
+    const long long at = static_cast<long long>(r) * D + col0 + half * 64;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const long long at = static_cast<long long>(r) * D + col0 + tx + 16 * j;
-      dk[at] = from_f32<T>(scale * acc_k[i][j]);
-      dv[at] = from_f32<T>(acc_v[i][j]);
+    for (int n = 0; n < 8; ++n) {
+      const float a = scale * acc_k[n][2 * i],
+                  b = scale * acc_k[n][2 * i + 1];
+      const float c = acc_v[n][2 * i], e = acc_v[n][2 * i + 1];
+      if constexpr (kF32) {
+        *reinterpret_cast<float2*>(dk + at + 8 * n + 2 * t) =
+            make_float2(a, b);
+        *reinterpret_cast<float2*>(dv + at + 8 * n + 2 * t) =
+            make_float2(c, e);
+      } else {
+        *reinterpret_cast<uint32_t*>(dk + at + 8 * n + 2 * t) =
+            pack_bf16(a, b);
+        *reinterpret_cast<uint32_t*>(dv + at + 8 * n + 2 * t) =
+            pack_bf16(c, e);
+      }
     }
   }
 }
-
 
 // Launch `kernel` (a cluster kernel) for head_dim D on a (G groups, bh,
 // ceil(seq / 64)) grid of clusters of G CTAs along x, with `bytes` of
@@ -1180,26 +1343,6 @@ int launch_cluster(Kernel kernel, size_t bytes, int bh, int seq, int D,
   return cudaGetLastError();
 }
 
-// dK/dV's dynamic shared memory, and its launch on a (ceil(seq / 64),
-// bh, D / 64) grid
-inline size_t dkv_smem() {
-  return sizeof(float) * (4 * kWideTile + 2 * kWideR);
-}
-
-template <typename Kernel, typename... Args>
-int launch_wide(Kernel kernel, int bh, int seq, int D, cudaStream_t stream,
-                Args... args) {
-  if (D % kWideC != 0) return cudaErrorInvalidValue;
-  const size_t bytes = dkv_smem();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  dim3 grid((seq + kWideR - 1) / kWideR, bh, D / kWideC);
-  kernel<<<grid, kThreads, bytes, stream>>>(args...);
-  return cudaGetLastError();
-}
-
 // Run `fn(T{})` for dtype 0 = f32, 1 = bf16; cudaErrorInvalidValue else.
 template <typename Fn>
 int wide_dispatch(int dtype, const Fn& fn) {
@@ -1208,15 +1351,18 @@ int wide_dispatch(int dtype, const Fn& fn) {
   return cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory (bytes) of the forward (which 0) or dQ (1) for
-// storage T at head_dim D (0 for a D the kernels do not take)
+// Dynamic shared memory (bytes) of the forward (which 0), dQ (1) or
+// dK/dV (2) for storage T at head_dim D (0 for a D the kernels do not
+// take)
 template <typename T>
 size_t cluster_smem(int which, int D) {
   int gc = 0, groups = 0;
   if (!wide_cluster(D, &gc, &groups)) return 0;
   return which == 0
              ? wide_layout<WideFwdTiles<T>, T>(false, gc, groups).bytes
-             : wide_layout<WideDqTiles<T>, T>(true, gc, groups).bytes;
+         : which == 1
+             ? wide_layout<WideDqTiles<T>, T>(true, gc, groups).bytes
+             : dkv_layout<T>(gc, groups).bytes;
 }
 
 inline int wide_forward(const void* q, const void* k, const void* v, void* o,
@@ -1254,11 +1400,13 @@ inline int wide_dkv(const void* q, const void* k, const void* v,
                     float scale, int causal, cudaStream_t stream) {
   return wide_dispatch(dtype, [&](auto tag) {
     using T = decltype(tag);
-    return launch_wide(flash_wide_dkv_kernel<T>, bh, seq, D, stream,
-                       static_cast<const T*>(q), static_cast<const T*>(k),
-                       static_cast<const T*>(v), static_cast<const T*>(dout),
-                       lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-                       seq, D, scale, causal);
+    return launch_cluster(flash_wide_dkv_kernel<T>,
+                          cluster_smem<T>(2, D), bh, seq, D,
+                          stream, static_cast<const T*>(q),
+                          static_cast<const T*>(k), static_cast<const T*>(v),
+                          static_cast<const T*>(dout), lse, delta,
+                          static_cast<T*>(dk), static_cast<T*>(dv), seq, D,
+                          scale, causal);
   });
 }
 
@@ -1310,17 +1458,17 @@ int fill_info(Kernel kernel, int threads, size_t bytes, int gc, int* out) {
 // which 0: the forward, 1: dQ, 2: dK/dV at head_dim D
 inline int wide_info(int which, int dtype, int D, int* out) {
   int gc = 0, groups = 0;
-  if (which < 2 && !wide_cluster(D, &gc, &groups))
-    return cudaErrorInvalidValue;
+  if (!wide_cluster(D, &gc, &groups)) return cudaErrorInvalidValue;
   return wide_dispatch(dtype, [&](auto tag) {
     using T = decltype(tag);
+    const size_t bytes = cluster_smem<T>(which, D);
     return which == 0
-               ? fill_info(flash_wide_fwd_kernel<T>, kWideThreads,
-                           cluster_smem<T>(0, D), gc, out)
+               ? fill_info(flash_wide_fwd_kernel<T>, kWideThreads, bytes, gc,
+                           out)
            : which == 1
-               ? fill_info(flash_wide_dq_kernel<T>, kWideThreads,
-                           cluster_smem<T>(1, D), gc, out)
-               : fill_info(flash_wide_dkv_kernel<T>, kThreads, dkv_smem(), 1,
+               ? fill_info(flash_wide_dq_kernel<T>, kWideThreads, bytes, gc,
+                           out)
+               : fill_info(flash_wide_dkv_kernel<T>, kWideThreads, bytes, gc,
                            out);
   });
 }

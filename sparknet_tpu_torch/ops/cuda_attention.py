@@ -36,17 +36,17 @@ it and the outputs sliced back. That is exact: zero columns add nothing
 to Q K^T or to rowsum(dO * O), and give zero columns of O, dQ, dK and dV.
 The scale stays 1/sqrt(D) of the true D. Past 256 any D is taken and
 runs the wide kernels of csrc/flash_wide.cuh through the same entry
-points and counters: the forward and dQ on a thread-block cluster that
-splits D into ``WIDE_CHUNK`` = 128-column slices, one a CTA, and builds
-each score tile once from the slices' partial products (exchanged
-through distributed shared memory, every product on the tensor cores as
-above); dK/dV on the CUDA cores, one 64-column chunk a CTA. A cluster
-holds at most ``WIDE_CLUSTER`` = 8 slices (D <= 1024); past that the
-slices split into equal clusters, each of which builds the scores again.
-So D is zero-padded to the next multiple of 128 whose slices split into
-equal clusters of at most 8 (``built_head_dim``: 320 -> 384, 1100 ->
-1280); dK/dV, whose work grows with each 64-column chunk, only to the
-next multiple of 64 (``dkv_head_dim``: 320 stays 320).
+points and counters: the forward, dQ and dK/dV each on a thread-block
+cluster that splits D into ``WIDE_CHUNK`` = 128-column slices, one a
+CTA, and builds each score tile once from the slices' partial products
+(exchanged through distributed shared memory, every product on the
+tensor cores as above; dK/dV builds S^T and dP^T for a resident key
+tile and rounds P^T and dS^T to bfloat16 as the bfloat16 backward does).
+A cluster holds at most ``WIDE_CLUSTER`` = 8 slices (D <= 1024); past
+that the slices split into equal clusters, each of which builds the
+scores again. So D is zero-padded, for all three kernels, to the next
+multiple of 128 whose slices split into equal clusters of at most 8
+(``built_head_dim``: 320 -> 384, 1100 -> 1280).
 
 ``flash_attention`` is differentiable: for CUDA tensors its forward is
 csrc/flash_fwd.cu and its backward the two kernels of csrc/flash_bwd.cu
@@ -84,14 +84,6 @@ def built_head_dim(d):
     slices = -(-d // WIDE_CHUNK)
     groups = -(-slices // WIDE_CLUSTER)
     return groups * -(-slices // groups) * WIDE_CHUNK
-
-
-def dkv_head_dim(d):
-    """The head_dim the dK/dV kernel takes for D = ``d``: past 256 the
-    next multiple of 64 (its chunk), else ``built_head_dim(d)``."""
-    if d <= HEAD_DIMS[-1]:
-        return built_head_dim(d)
-    return -(-d // 64) * 64
 
 
 def pad_head_dim(tensors, d):
@@ -272,7 +264,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
     d = q.shape[-1]
     if q.numel() == 0:
         return torch.empty_like(k), torch.empty_like(v)
-    q, k, v, do = pad_head_dim((q, k, v, do), dkv_head_dim(d))
+    q, k, v, do = pad_head_dim((q, k, v, do), built_head_dim(d))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attention_dkv", "flash_bwd", "sparknet_flash_backward_dkv",
             _BWD_ARGTYPES, q, (q, k, v, do, lse, delta, dk, dv), scale,

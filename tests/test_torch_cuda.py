@@ -491,17 +491,23 @@ def _flash_kernels_against_plain(d, causal, dtype):
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("d", [320, 512, 1024, 1100])
 def test_flash_wide_kernels_on_card(cuda, d, causal, dtype):
-    # past 256 (csrc/flash_wide.cuh): the forward and dQ on thread-block
-    # clusters of 128-column slices (320 padded to 384: three; 1024:
-    # eight; 1100 padded to 1280: two clusters of five, each building the
-    # scores again), dK/dV one 64-column chunk a CTA; two launches of the
-    # forward give bitwise the same O and LSE
+    # past 256 (csrc/flash_wide.cuh): the forward, dQ and dK/dV on
+    # thread-block clusters of 128-column slices (320 padded to 384:
+    # three; 1024: eight; 1100 padded to 1280: two clusters of five, each
+    # building the scores again); two launches of the forward give
+    # bitwise the same O and LSE, and of dK/dV the same dK and dV
     _flash_kernels_against_plain(d, causal, dtype)
     rs = np.random.RandomState(60 + d)
-    q, k, v = (torch.from_numpy(0.5 * rs.randn(1, 2, 200, d).astype(
-        np.float32)).to("cuda", dtype) for _ in range(3))
+    q, k, v, do = (torch.from_numpy(0.5 * rs.randn(1, 2, 200, d).astype(
+        np.float32)).to("cuda", dtype) for _ in range(4))
     first = ca.flash_attention_fwd(q, k, v, causal)
     for a, b in zip(first, ca.flash_attention_fwd(q, k, v, causal)):
+        assert torch.equal(a, b)
+    o, lse = first
+    _, delta = ca.flash_attention_dq(q, k, v, o, lse, do, causal)
+    grads = ca.flash_attention_dkv(q, k, v, do, lse, delta, causal)
+    for a, b in zip(grads, ca.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                  causal)):
         assert torch.equal(a, b)
 
 

@@ -49,17 +49,19 @@ must read over the O limit; and against f64, dK and dV summed in one
 tensor-core accumulator over all of S must read measurably worse than
 the kernels' chunked sums.
 
-Past head_dim 256 (csrc/flash_wide.cuh) the forward and dQ run on a
-thread-block cluster: D is zero-padded to a multiple of 128
+Past head_dim 256 (csrc/flash_wide.cuh) the forward, dQ and dK/dV run
+on a thread-block cluster: D is zero-padded to a multiple of 128
 (ca.built_head_dim), each rank's 128-column slice gives a partial score
 tile (bf16: one f32 tensor-core chain; f32: two split-TF32 sums of 8
 k-steps added in f32), and a row's owner adds the ranks' partials in
 rank order, from zero, in f32 before the softmax (key tiles of 64 in the
-forward, 32 in dQ). WIDE_SHAPES emulate that at D = 320 (three
-ranks) and 512 (four), S = 128: the bf16 forward's and dQ's worst tiles
-between 1e-3 and 5e-3, the f32 forward and dQ within the f32 limits
-against the plain versions and the Pallas kernel, the one-pass control
-over the O limit, the planted faults over the limits.
+forward, 32 in dQ; dK/dV builds S^T and dP^T for its key tile, query
+tiles of 32, and rounds P^T and dS^T to bf16 before dV = P^T dO and
+dK = scale dS^T Q). WIDE_SHAPES emulate that at D = 320 (three ranks)
+and 512 (four), S = 128: the bf16 forward's, dQ's, dK's and dV's worst
+tiles between 1e-3 and 5e-3, the f32 forward, dQ, dK and dV within the
+f32 limits against the plain versions and the Pallas kernel, the
+one-pass control over the O limit, the planted faults over the limits.
 """
 
 import functools
@@ -206,6 +208,27 @@ def _emulated_wide_dq(q, k, v, o, lse, do, causal):
     return (scale * (ds @ kf))[..., :d].to(torch.bfloat16)
 
 
+def _emulated_wide_dkv(q, k, v, o, lse, do, causal):
+    """dK, dV as the bf16 cluster dK/dV kernel computes them: S^T = K Q^T
+    and dP^T = V dO^T from the padded slices' f32 partials summed in rank
+    order, P^T = exp(scale S^T - LSE) per query column and dS^T = P^T
+    (dP^T - delta) in f32 (delta the dQ kernel's, rowsum(dO O) in f32),
+    P^T and dS^T rounded to bf16 before dV = P^T dO and dK = scale dS^T Q,
+    each output rounded once."""
+    b, h, s, d = q.shape
+    scale = ca.default_scale(q)
+    qf, kf, vf, of, dof = (t.float() for t in _padded(d, q, k, v, o, do))
+    build = _cluster_scores(torch.matmul)
+    pt = torch.exp(scale * build(kf, qf) - lse.reshape(b, h, 1, s))
+    if causal:
+        pt = pt.masked_fill(torch.ones(s, s, dtype=torch.bool).tril(-1), 0.0)
+    delta = (dof * of).sum(-1)[..., None, :]
+    dst = (pt * (build(vf, dof) - delta)).to(torch.bfloat16).float()
+    pt = pt.to(torch.bfloat16).float()
+    return ((scale * (dst @ qf))[..., :d].to(torch.bfloat16),
+            (pt @ dof)[..., :d].to(torch.bfloat16))
+
+
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("shape", SHAPES + WIDE_SHAPES)
 def test_tensor_core_forward_rounding_fits_the_bf16_tile_limit(shape, causal):
@@ -243,14 +266,33 @@ def test_tensor_core_rounding_fits_the_bf16_tile_limit(shape, causal, output):
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("shape", WIDE_SHAPES)
 def test_wide_dq_rounding_fits_the_bf16_tile_limit(shape, causal):
-    # the cluster dQ kernel rounds dS to bf16 (its dK/dV partner, on the
-    # CUDA cores, rounds nothing but its outputs)
+    # the cluster dQ kernel rounds dS to bf16 (its dK/dV partner P^T and
+    # dS^T: the next test)
     rs = np.random.RandomState(41)
     q, k, v, do = (torch.from_numpy(0.5 * rs.randn(*shape).astype(
         np.float32)).to(torch.bfloat16) for _ in range(4))
     o, lse = ca.flash_attention_fwd_plain(q, k, v, causal)
     got = _emulated_wide_dq(q, k, v, o, lse, do, causal)
     ref, _ = ca.flash_attention_dq_plain(q, k, v, o, lse, do, causal)
+    reading = _worst_tile(got, ref)
+    assert 1e-3 < reading < BWD_TILE_LIMIT, reading
+    for bad in _planted(got):
+        assert _worst_tile(bad, ref) > BWD_TILE_LIMIT
+
+
+@pytest.mark.parametrize("output", ["dk", "dv"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_wide_dkv_rounding_fits_the_bf16_tile_limit(shape, causal, output):
+    rs = np.random.RandomState(41)
+    q, k, v, do = (torch.from_numpy(0.5 * rs.randn(*shape).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(4))
+    o, lse = ca.flash_attention_fwd_plain(q, k, v, causal)
+    got = dict(zip(("dk", "dv"),
+                   _emulated_wide_dkv(q, k, v, o, lse, do, causal)))[output]
+    _, rdelta = ca.flash_attention_dq_plain(q, k, v, o, lse, do, causal)
+    ref = dict(zip(("dk", "dv"), ca.flash_attention_dkv_plain(
+        q, k, v, do, lse, rdelta, causal)))[output]
     reading = _worst_tile(got, ref)
     assert 1e-3 < reading < BWD_TILE_LIMIT, reading
     for bad in _planted(got):
@@ -284,7 +326,7 @@ def test_zero_padded_head_dim_is_exact(d, causal):
     torch.testing.assert_close(plse, lse, rtol=1e-6, atol=1e-7)
 
 
-def test_built_head_dim():
+def test_built_head_dim(monkeypatch):
     assert [ca.built_head_dim(d)
             for d in (1, 16, 17, 33, 64, 65, 128, 129, 192, 256)] == \
         [16, 16, 32, 64, 64, 128, 128, 256, 256, 256]
@@ -294,9 +336,24 @@ def test_built_head_dim():
         == [384, 384, 384, 384, 512, 1024]
     assert [ca.built_head_dim(d) for d in (1025, 1100, 1280, 2048, 2049)] \
         == [1280, 1280, 1280, 2048, 2304]
-    # dK/dV past 256: its own 64-column chunks
-    assert [ca.dkv_head_dim(d) for d in (96, 256, 300, 320, 1100)] \
-        == [128, 256, 320, 320, 1152]
+    # each wrapper, dK/dV's too, launches on inputs padded to that width:
+    # on the meta device the checks and the launch are stood in for, and
+    # the padding and slicing run as they do on a card
+    seen = []
+    monkeypatch.setattr(ca, "check_cuda_inputs", lambda *a, **kw: None)
+    monkeypatch.setattr(ca, "_launch", lambda what, *a: seen.append(
+        (what, a[3].shape[-1])))
+    names = ("flash_attention", "flash_attention_dq", "flash_attention_dkv")
+    for name in names:
+        monkeypatch.setattr(getattr(ca, name), "launches", 0)
+    for d in (96, 256, 300, 320, 1100):
+        x = torch.empty(1, 1, 8, d, device="meta")
+        rows = torch.empty(1, 8, device="meta")
+        outs = (*ca.flash_attention_fwd(x, x, x),
+                *ca.flash_attention_dq(x, x, x, x, rows, x),
+                *ca.flash_attention_dkv(x, x, x, x, rows, rows))
+        assert seen[-3:] == [(n, ca.built_head_dim(d)) for n in names]
+        assert [t.shape[-1] for t in outs] == [d, 8, d, 8, d, d]
 
 
 # -- the f32 kernels: split TF32 ------------------------------------------
@@ -450,6 +507,40 @@ def _split_tf32_wide_dq(shape, causal):
 
 
 @functools.lru_cache(maxsize=None)
+def _split_tf32_wide_dkv(shape, causal):
+    """dK and dV as the f32 cluster dK/dV kernel computes them on
+    _f32_inputs(shape) (D past 256) with the plain forward's O and LSE:
+    S^T = K Q^T and dP^T = V dO^T from the padded slices' split-TF32
+    partials (two sums of 8 k-steps a slice) summed in rank order, P^T =
+    exp(scale S^T - LSE) per query column masked to 0, dS^T = P^T (dP^T -
+    delta), dV = P^T dO and dK = scale dS^T Q one tensor-core sum a query
+    tile of 32 added in f32; with the plain versions' as "ref"."""
+    q, k, v, do = (torch.from_numpy(a) for a in _f32_inputs(shape))
+    o, lse = ca.flash_attention_fwd_plain(q, k, v, causal)
+    b, h, s, d = shape
+    scale = ca.default_scale(q)
+    qp, kp, vp, op, dop = _padded(d, q, k, v, o, do)
+    build = _cluster_scores(_tc_sum)
+    x = (build(kp, qp).double() * scale
+         - lse.reshape(b, h, 1, s).double()).float()
+    pt = torch.exp(x)
+    if causal:
+        pt = pt.masked_fill(torch.ones(s, s, dtype=torch.bool).tril(-1), 0.0)
+    delta = (dop * op).sum(-1)[..., None, :]
+    dst = pt * (build(vp, dop) - delta)
+    acc_k = acc_v = None
+    for r0 in range(0, s, 32):
+        acc_k = _tc_sum(dst[..., r0:r0 + 32], qp[..., r0:r0 + 32, :],
+                        acc=acc_k)
+        acc_v = _tc_sum(pt[..., r0:r0 + 32], dop[..., r0:r0 + 32, :],
+                        acc=acc_v)
+    _, rdelta = ca.flash_attention_dq_plain(q, k, v, o, lse, do, causal)
+    rdk, rdv = ca.flash_attention_dkv_plain(q, k, v, do, lse, rdelta, causal)
+    return {"dk": (scale * acc_k)[..., :d], "dv": acc_v[..., :d],
+            "ref": {"dk": rdk, "dv": rdv}}
+
+
+@functools.lru_cache(maxsize=None)
 def _split_tf32_backward(shape, causal, one_accumulator=False):
     """dQ, delta, dK, dV as csrc/flash_bwd.cu's f32 kernels compute them
     on _f32_inputs(shape) with the plain forward's O and LSE: S and dP
@@ -594,6 +685,16 @@ def test_split_tf32_wide_dq_keeps_the_f32_limits(shape, causal):
     _check("dq", got["dq"], got["ref"]["dq"])
     _check("dq", got["dq"], torch.from_numpy(
         _pallas_reference(shape, causal)["dq"]))
+
+
+@pytest.mark.parametrize("output", ["dk", "dv"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_split_tf32_wide_dkv_keeps_the_f32_limits(shape, causal, output):
+    got = _split_tf32_wide_dkv(shape, causal)
+    _check(output, got[output], got["ref"][output])
+    _check(output, got[output], torch.from_numpy(
+        _pallas_reference(shape, causal)[output]))
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
