@@ -344,6 +344,13 @@ The kernel table also holds the flash rows of phase 15's per-slot
 shapes, launches from the branch that gives the shape, and every
 branch's flash launches a step.
 
+Verbs run in child processes that share no files run at the same
+time, after their phase's timed work (_beside): phase 5's train verb
+beside card against CPU, phase 8's resumed and dp cifar runs, phase
+9's imagenet and records verbs, phase 10's two train verbs and
+extract_features, phase 12's metrics verb and the three run-safety
+children. Each prints its lines in one block.
+
 ``python3 chip_smoke.py --phases 12`` (a comma-separated list) runs
 phases 1 and 2 and those given (13 brings 4, 10 brings 9, 14 brings 9
 and 10), for
@@ -378,6 +385,59 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+_HELD = threading.local()       # the lines of a call that _beside defers
+
+
+def _say(line):
+    """print(line), or, in a call that _beside runs in a thread, keep it
+    to print when that call has ended."""
+    held = getattr(_HELD, "lines", None)
+    if held is None:
+        print(line)
+    else:
+        held.append(line)
+
+
+def _beside(first, *rest):
+    """Runs ``first()`` here and each of ``rest`` (no-argument calls that
+    mostly wait on child processes of their own, print only through _say
+    and leave stdout and os.environ as they are) in a thread of its own
+    at the same time; then prints each of ``rest``'s lines, call after
+    call, and returns all the results in order. An error of any call is
+    raised once all have ended. For work that shares no files, timed
+    section or device measurement: the log reads as if the calls had
+    run one after another."""
+    def held(call):
+        _HELD.lines = []
+        try:
+            return call(), _HELD.lines, None
+        except BaseException as e:      # raised below, after the join
+            return None, _HELD.lines, e
+
+    done = [None] * len(rest)
+
+    def run(i):
+        done[i] = held(rest[i])
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(rest))]
+    for t in threads:
+        t.start()
+    try:
+        out = [first()]
+    finally:
+        for t in threads:
+            t.join()
+    for _, lines, _ in done:
+        for line in lines:
+            print(line)
+    for result, _, err in done:
+        if err is not None:
+            raise err
+        out.append(result)
+    return out
 
 
 def nvidia_smi():
@@ -992,10 +1052,10 @@ def _train_cli(args, timeout=600):
     out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                          timeout=timeout)
     for line in out.stdout.strip().splitlines():
-        print(f"[train-cli] {line}")
+        _say(f"[train-cli] {line}")
     check(out.returncode == 0,
           f"{' '.join(cmd)} exited {out.returncode}: {out.stderr[-4000:]}")
-    print(f"[train-cli] exited 0 in {time.perf_counter() - t0:.1f} s")
+    _say(f"[train-cli] exited 0 in {time.perf_counter() - t0:.1f} s")
     return out.stdout
 
 
@@ -1047,7 +1107,7 @@ def phase_train(torch, card, tmp, batch=32, steps=20):
     """In-process training through the port's Solver at full width:
     a fixed batch for ``steps`` steps under SPARKNET_EPILOGUE=auto (the
     loss must fall; launches counted), 2 steps under =on, the train step
-    time and a profiler window; then card against CPU at batch 4."""
+    time and a profiler window."""
     from sparknet_tpu_torch.ops import KERNEL_WRAPPERS, kernel_launches
     from sparknet_tpu_torch.solver import Solver
     os.environ.pop("SPARKNET_EPILOGUE", None)
@@ -1096,10 +1156,18 @@ def phase_train(torch, card, tmp, batch=32, steps=20):
           f"images/s; {card}")
     profile = _profile(torch, lambda: solver.train_step(feed), 3,
                        _train_group, "b32 train step", card, top=14)
-    parity = _card_vs_cpu(torch, tmp)
     return {"launches": launches, "fixed_batch_losses": losses,
-            "step_ms": step_ms, "images_per_s": ips, "profile": profile,
-            "card_vs_cpu": parity}
+            "step_ms": step_ms, "images_per_s": ips, "profile": profile}
+
+
+def phase_train_all(torch, card, tmp):
+    """phase_train, then card against CPU beside the train verb's
+    children (phase_train_cli) -> (the verb's results, phase_train's
+    with "card_vs_cpu")."""
+    trained = phase_train(torch, card, tmp)
+    trained["card_vs_cpu"], verb = _beside(
+        lambda: _card_vs_cpu(torch, tmp), lambda: phase_train_cli(tmp))
+    return verb, trained
 
 
 # Between the sound readings (1.5e-2 at most: the gradients of a
@@ -1335,6 +1403,9 @@ FLASH_CASES = (
       for d in WIDE_DIMS for dt in ("float32", "bfloat16")
       for causal in (False, True)),
     ((4, 8, 4096, 128), "bfloat16", True, True),
+    # head_dim 256 at the attention shape of the lm verb's d_model 2048, 8
+    # heads (LM_D256): the card-filling row of the head_dim-256 kernels
+    ((2, 8, 4096, 256), "bfloat16", True, True),
     # f32, the lm verb's default dtype: the LM's full width, and the
     # verb's default widths (vocab 512, S 256, b 8, d 256, 8 heads)
     ((4, 8, 4096, 128), "float32", True, True),
@@ -1342,7 +1413,9 @@ FLASH_CASES = (
 # the kernels line's launches for a flash row: the path that gives its
 # shape (the lm verb's bf16 run for the rest)
 FLASH_ROW_PATHS = {((4, 8, 4096, 128), "float32"): "lm step, f32",
-                   ((8, 8, 256, 32), "float32"): "lm verb, defaults (f32)"}
+                   ((8, 8, 256, 32), "float32"): "lm verb, defaults (f32)",
+                   ((1, 4, 1024, 256), "bfloat16"): "lm verb, d_model 2048",
+                   ((2, 8, 4096, 256), "bfloat16"): "lm verb, d_model 2048"}
 
 
 def flash_entry_points(libs=None, defines=()):
@@ -1369,26 +1442,18 @@ def flash_entry_points(libs=None, defines=()):
     return fns
 
 
-def flash_calls(torch, fns, q, k, v, do, o, lse, delta, causal,
-                built=None):
+def flash_calls(torch, fns, q, k, v, do, o, lse, delta, causal):
     """No-argument calls of one set of flash entry points on these
-    (B, H, S, D) inputs, zero-padded for each kernel to the head_dim
-    ``built[key]`` (by default, and for a key it lacks, the one this
-    tree's wrappers pad them to): {"fwd": -> (O, LSE), "dq": -> (dQ,
-    delta), "dkv": -> (dK, dV)}, the backward on the given O, LSE and
-    delta."""
+    (B, H, S, D) inputs, zero-padded to the head_dim this tree's wrappers
+    pad them to: {"fwd": -> (O, LSE), "dq": -> (dQ, delta), "dkv": ->
+    (dK, dV)}, the backward on the given O, LSE and delta."""
     from sparknet_tpu_torch.ops import cuda_attention as ca
     from sparknet_tpu_torch.ops import cuda_build
     b, h, s, d = q.shape
     scale = ca.default_scale(q)
 
-    def padded(key):
-        width = (built or {}).get(key) or ca.built_head_dim(d)
-        return [t.contiguous() for t in ca.pad_head_dim((q, k, v, o, do),
-                                                        width)]
-    qp, kp, vp, _, _ = padded("fwd")
-    dq_in = padded("dq")
-    dkv_in = padded("dkv")
+    qp, kp, vp, op, dop = (t.contiguous() for t in ca.pad_head_dim(
+        (q, k, v, o, do), ca.built_head_dim(d)))
     code = cuda_build.DTYPE_CODES[q.dtype]
     stream = cuda_build.stream_handle(q.device)
 
@@ -1404,16 +1469,14 @@ def flash_calls(torch, fns, q, k, v, do, o, lse, delta, causal,
         return out[..., :d], rows
 
     def dq():
-        qd, kd, vd, od, dod = dq_in
-        out = torch.empty_like(qd)
+        out = torch.empty_like(qp)
         rows = torch.empty(b * h, s, device=q.device)
-        launch("dQ", fns["dq"], qd, kd, vd, od, dod, lse, out, rows)
+        launch("dQ", fns["dq"], qp, kp, vp, op, dop, lse, out, rows)
         return out[..., :d], rows
 
     def dkv():
-        qd, kd, vd, _, dod = dkv_in
-        dk, dv = torch.empty_like(kd), torch.empty_like(vd)
-        launch("dK/dV", fns["dkv"], qd, kd, vd, dod, lse, delta, dk, dv)
+        dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+        launch("dK/dV", fns["dkv"], qp, kp, vp, dop, lse, delta, dk, dv)
         return dk[..., :d], dv[..., :d]
     return {"fwd": fwd, "dq": dq, "dkv": dkv}
 
@@ -1524,6 +1587,20 @@ def phase_flash_kernels(torch, cases=FLASH_CASES):
             check(all(c == 1 for c in launched.values()),
                   f"flash at {what}: the wrappers counted {launched}, want "
                   "one launch each")
+            if not f32 and ca.built_head_dim(d) == 256:
+                # the wgmma backward: no atomics, one thread sums each
+                # output element in a fixed order
+                again = ca.flash_attention_dq(q, k, v, o, lse, do, causal)
+                again += ca.flash_attention_dkv(q, k, v, do, lse, again[1],
+                                                causal)
+                for label, a, b in zip(("dQ", "delta", "dK", "dV"), again,
+                                       (dq, delta, dk, dv)):
+                    check(torch.equal(a, b), f"bf16 {label} at {what}: two "
+                          "launches on the same inputs differ")
+                print(f"[flash] bf16 {what}: dQ, delta, dK, dV bitwise "
+                      "equal over two launches")
+                readings["bitwise_repeat"] = True
+                del again
             ro, rlse = ca.flash_attention_fwd_plain(q, k, v, causal)
             rdq, rdelta = ca.flash_attention_dq_plain(q, k, v, o, lse, do,
                                                       causal)
@@ -1645,6 +1722,8 @@ def phase_flash_kernels(torch, cases=FLASH_CASES):
                     r["source"] = "sparknet_tpu_torch/csrc/flash_wide.cuh"
                 if "split_tf32" in readings:
                     r["split_tf32"] = readings["split_tf32"]
+                if "bitwise_repeat" in readings and name != "flash_attention":
+                    r["bitwise_repeat"] = True
                 print(f"[flash] {name} {what}: kernel {r['ms']:.4f} ms "
                       f"({r['tflops']:.1f} TFLOP/s), plain "
                       f"{r['plain_ms']:.4f} ms, library "
@@ -1665,14 +1744,15 @@ FLASH_KERNELS = ("flash_attention", "flash_attention_dq",
                  "flash_attention_dkv")
 
 
-def _lm_in_process(args, tag, full_width=True):
-    """The lm verb at full width, bf16 (or, with full_width False, at the
-    verb's own defaults), in this process (no interpreter start): the
-    launch counters zeroed first and the variables its flags write put
-    back after; -> (stdout, its launch counts)."""
+def _lm_in_process(args, tag, full_width=True, widths=None):
+    """The lm verb at full width (LM_FULL, or ``widths``), bf16 (or,
+    with full_width False, at the verb's own defaults), in this process
+    (no interpreter start): the launch counters zeroed first and the
+    variables its flags write put back after; -> (stdout, its launch
+    counts)."""
     import io
     from sparknet_tpu_torch import cli
-    f = LM_FULL
+    f = widths or LM_FULL
     sizes = ["--vocab", str(f["vocab"]), "--seq-len", str(f["seq_len"]),
              "--batch", str(f["batch"]), "--d-model", str(f["d_model"]),
              "--layers", str(f["layers"]), "--heads", str(f["heads"]),
@@ -1830,6 +1910,35 @@ def phase_lm_default_verb(steps=2):
               f"lm at its defaults: {name} launched {launches[name]} times "
               f"in {steps} steps of 4 layers")
     return {"launches": launches, "losses": _losses(out)}
+
+
+# The lm verb's path to the head_dim-256 flash kernels: Gemma 2B's
+# attention width and head count (google/gemma-2b's config: hidden 2048,
+# 8 heads of head_dim 256; the port has no grouped KV heads and runs its
+# one KV head as full heads), cut to 2 layers at batch 2
+LM_D256 = dict(vocab=8192, seq_len=4096, batch=2, d_model=2048, layers=2,
+               heads=8)
+
+
+def phase_lm_d256(steps=2):
+    """The lm verb at LM_D256, bf16, in process for ``steps`` steps: each
+    flash kernel ``layers`` times a step at (2, 8, 4096, 256) causal, and
+    the first loss finite and within 1.5 of ln(vocab)."""
+    f = LM_D256
+    out, launches = _lm_in_process(["--steps", str(steps)], "lm-d256",
+                                   widths=f)
+    check(f"done: {steps} steps, " in out, f"lm verb: not {steps} steps")
+    for name in FLASH_KERNELS:
+        check(launches[name] == f["layers"] * steps,
+              f"lm at d_model 2048: {name} launched {launches[name]} times "
+              f"in {steps} steps of {f['layers']} layers, want "
+              f"{f['layers'] * steps}")
+    losses = _losses(out)
+    ln_v = float(np.log(f["vocab"]))
+    check(np.isfinite(losses[0]) and abs(losses[0] - ln_v) < 1.5,
+          f"lm at d_model 2048: first loss {losses[0]:.4f} is not about "
+          f"ln(vocab) = {ln_v:.4f}")
+    return {"launches": launches, "losses": losses}
 
 
 def _weight_change_error(params, w0, dw_ref):
@@ -2018,10 +2127,10 @@ def _cifar_cli(args, timeout=600):
     out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                          timeout=timeout)
     for line in out.stdout.strip().splitlines():
-        print(f"[cifar-cli] {line}")
+        _say(f"[cifar-cli] {line}")
     check(out.returncode == 0,
           f"{' '.join(cmd)} exited {out.returncode}: {out.stderr[-4000:]}")
-    print(f"[cifar-cli] exited 0 in {time.perf_counter() - t0:.1f} s")
+    _say(f"[cifar-cli] exited 0 in {time.perf_counter() - t0:.1f} s")
     return out.stdout
 
 
@@ -2035,8 +2144,8 @@ def phase_cifar_cli(tmp):
     (cifar10_full, per-worker batch 100, tau 10, the zoo solver) over 4
     worker slots, on 10,000 + 1,000 records from make_synth_cifar: 6
     rounds with a test every 3 and a snapshot every 3, then --resume
-    auto for 2 more (the counter continues from 60), then --strategy dp
-    for 2 steps."""
+    auto for 2 more (the counter continues from 60) and, beside it,
+    --strategy dp for 2 steps."""
     data = os.path.join(tmp, "cifar_data")
     prefix = os.path.join(tmp, "cifar")
     _cifar_cli(["make_synth_cifar", data, "--train", "10000", "--test",
@@ -2059,9 +2168,13 @@ def phase_cifar_cli(tmp):
     for it in (30, 60):
         check(os.path.exists(f"{prefix}_iter_{it}.solverstate"),
               f"no cifar snapshot at iteration {it}")
-    out2 = _cifar_cli(common + ["--tau", "10", "--rounds", "2",
-                                "--test-every", "5", "--snapshot-prefix",
-                                prefix, "--resume", "auto"])
+    # the resumed run and the dp run share no file: they run together
+    out2, out3 = _beside(
+        lambda: _cifar_cli(common + ["--tau", "10", "--rounds", "2",
+                                     "--test-every", "5", "--snapshot-prefix",
+                                     prefix, "--resume", "auto"]),
+        lambda: _cifar_cli(common + ["--strategy", "dp", "--rounds", "2",
+                                     "--test-every", "5"]))
     check("resume auto: restored iter 60" in out2,
           "--resume auto did not pick up the iteration-60 snapshot")
     check("done: 2 rounds, iter=80" in out2,
@@ -2069,8 +2182,6 @@ def phase_cifar_cli(tmp):
     resumed = _round_losses(out2)
     check(len(resumed) == 2 and all(np.isfinite(resumed)),
           f"resumed round losses {resumed}")
-    out3 = _cifar_cli(common + ["--strategy", "dp", "--rounds", "2",
-                                "--test-every", "5"])
     check("strategy=dp, device=cuda" in out3 and
           "done: 2 rounds, iter=2" in out3, "--strategy dp did not take 2 "
                                             "steps on the card")
@@ -2438,11 +2549,11 @@ def phase_db_cli(tmp, solver_path, device="cuda"):
                          timeout=600, env=dict(os.environ,
                                                SPARKNET_DEVICE_CACHE_MB="0"))
     for line in out.stdout.strip().splitlines():
-        print(f"[db-cli] {line}")
+        _say(f"[db-cli] {line}")
     check(out.returncode == 0,
           f"{' '.join(cmd)} exited {out.returncode}: {out.stderr[-4000:]}")
     wall = time.perf_counter() - t0
-    print(f"[db-cli] exited 0 in {wall:.1f} s")
+    _say(f"[db-cli] exited 0 in {wall:.1f} s")
     stdout = out.stdout
     check(f"({DB_TRAIN} records, device-transform)" in stdout,
           "the train verb did not train from the LMDB records")
@@ -2658,11 +2769,11 @@ def phase_imagenet_cli(workers=4, batch=256, classes=1000, device="cuda"):
     out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                          timeout=600)
     for line in out.stdout.strip().splitlines():
-        print(f"[imagenet-cli] {line}")
+        _say(f"[imagenet-cli] {line}")
     check(out.returncode == 0,
           f"{' '.join(cmd)} exited {out.returncode}: {out.stderr[-4000:]}")
     wall = time.perf_counter() - t0
-    print(f"[imagenet-cli] exited 0 in {wall:.1f} s")
+    _say(f"[imagenet-cli] exited 0 in {wall:.1f} s")
     rounds = [l for l in out.stdout.splitlines() if ": loss = " in l]
     losses = [float(l.split(": loss = ")[1].split(",")[0]) for l in rounds]
     rates = [float(l.rsplit(", ", 1)[1].split()[0]) for l in rounds]
@@ -2691,9 +2802,10 @@ def phase_records_all(torch, card, tmp):
     os.makedirs(db, exist_ok=True)
     solver_path, write_s = _caffenet_db_files(db)
     transform = phase_transform_check(torch, card, db)
-    cli_out = phase_db_cli(tmp, solver_path)
     steps = phase_record_steps(torch, card, db, solver_path)
-    imagenet = phase_imagenet_cli()
+    # two verbs in children of their own, after the timed steps
+    imagenet, cli_out = _beside(phase_imagenet_cli,
+                                lambda: phase_db_cli(tmp, solver_path))
     wall = time.perf_counter() - t0
     print(f"[records] phase 9 wall time {wall:.1f} s")
     return {"write_s": write_s, "transform": transform, "cli": cli_out,
@@ -2727,31 +2839,32 @@ def _train_verb(solver_path, tag, extra=(), env=None):
     out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                          timeout=600, env=full_env)
     for line in out.stdout.strip().splitlines():
-        print(f"[{tag}] {line}")
+        _say(f"[{tag}] {line}")
     check(out.returncode == 0,
           f"{' '.join(cmd)} exited {out.returncode}: {out.stderr[-4000:]}")
     wall = time.perf_counter() - t0
-    print(f"[{tag}] exited 0 in {wall:.1f} s")
+    _say(f"[{tag}] exited 0 in {wall:.1f} s")
     return out.stdout, wall
 
 
-def phase_feeds_cli(solver_path, card, device="cuda"):
+def phase_feeds_cli(solver_path, card, device="cuda", beside=()):
     """The train verb on phase 9's CaffeNet records for FEED_ITERS
-    iterations, two ways: default flags (the records go to the card
-    once: `device-cached`) and `--strategy dp --mesh data=4` (4 slots x
-    64, streaming, as the JAX verb's dp); phase 9's verb run streams
+    iterations, two ways at once: default flags (the records go to the
+    card once: `device-cached`) and `--strategy dp --mesh data=4` (4
+    slots x 64, streaming, as the JAX verb's dp), with the calls of
+    ``beside`` (see _beside) run with them; phase 9's verb run streams
     them (SPARKNET_DEVICE_CACHE_MB=0). Each loss must be finite and the
     LRN kernels (norm1, norm2) must launch twice a step and slot,
-    forward and backward."""
+    forward and backward. -> (results, the results of ``beside``)."""
+    modes = (("cached", (), "device-cached", 1),
+             ("dp", ("--strategy", "dp", "--mesh", f"data={DP_SLOTS}"),
+              "device-transform", DP_SLOTS))
+    runs = _beside(*(lambda name=name, extra=extra: _train_verb(
+        solver_path, f"feeds-cli {name}", (*extra, "--device", device),
+        {"SPARKNET_DEVICE_CACHE_MB": None})
+        for name, extra, _, _ in modes), *beside)
     out = {}
-    for name, extra, env, kind, slots in (
-            ("cached", (), {"SPARKNET_DEVICE_CACHE_MB": None},
-             "device-cached", 1),
-            ("dp", ("--strategy", "dp", "--mesh", f"data={DP_SLOTS}"),
-             {"SPARKNET_DEVICE_CACHE_MB": None}, "device-transform",
-             DP_SLOTS)):
-        stdout, wall = _train_verb(solver_path, f"feeds-cli {name}",
-                                   (*extra, "--device", device), env)
+    for (name, _, kind, slots), (stdout, wall) in zip(modes, runs):
         check(f"({DB_TRAIN} records, {kind})" in stdout,
               f"{name}: the train verb did not say {kind}")
         losses = [float(l.split("loss = ")[1].split(",")[0])
@@ -2769,7 +2882,7 @@ def phase_feeds_cli(solver_path, card, device="cuda"):
               f"{launches['lrn_across']} / {launches['lrn_across_bwd']} in "
               f"{FEED_ITERS} iterations, {wall:.1f} s; {card}")
         out[name] = {"losses": losses, "launches": launches, "wall_s": wall}
-    return out
+    return out, runs[len(modes):]
 
 
 class _Shipped:
@@ -3218,7 +3331,7 @@ def phase_extract_features(torch, card, db, weights, device="cuda"):
     run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                          timeout=600)
     for line in run.stdout.strip().splitlines():
-        print(f"[extract] {line}")
+        _say(f"[extract] {line}")
     check(run.returncode == 0,
           f"{' '.join(cmd)} exited {run.returncode}: {run.stderr[-4000:]}")
     wall = time.perf_counter() - t0
@@ -3244,7 +3357,7 @@ def phase_extract_features(torch, card, db, weights, device="cuda"):
     got = feats[:CAFFENET_BATCH].reshape(ref.shape)
     scale = float(np.abs(ref).max())
     err = float(np.abs(got - ref).max())
-    print(f"[extract] fc7 of {len(keys)} TEST records in {wall:.1f} s; first "
+    _say(f"[extract] fc7 of {len(keys)} TEST records in {wall:.1f} s; first "
           f"batch against a forward on the card: max abs difference {err:g} "
           f"of max |fc7| {scale:g} (limit {FEATURE_LIMIT:g} of it); {card}")
     check(scale > 0, "fc7 is all zero: the comparison would say nothing")
@@ -3256,12 +3369,15 @@ def phase_extract_features(torch, card, db, weights, device="cuda"):
 
 def phase_feeds_all(torch, card, tmp, db, solver_path):
     t0 = time.perf_counter()
-    cli_out = phase_feeds_cli(solver_path, card)
     steps, weights = phase_feed_steps(torch, card, db, solver_path)
     pack = phase_pack(torch, card, tmp,
                       os.path.join(db, "mean.binaryproto"))
     cifar = phase_cifar_feeds(torch, card, tmp)
-    extract = phase_extract_features(torch, card, db, weights)
+    # the verbs and the extract tool in children of their own, after the
+    # timed feeds
+    cli_out, (extract,) = phase_feeds_cli(
+        solver_path, card, beside=(lambda: phase_extract_features(
+            torch, card, db, weights),))
     wall = time.perf_counter() - t0
     print(f"[feeds] phase 10 wall time {wall:.1f} s")
     return {"cli": cli_out, "caffenet": steps, "pack": pack,
@@ -4117,8 +4233,9 @@ def _safety_costs(torch, solver, feed, card, tmp, iters=8):
     """ms an iteration of Solver.step (display every 8, as the solver
     prototxt says) with nothing armed, with the metrics stream, with
     recovery and with both: the host clock over ``iters`` iterations
-    ending in a synchronize, each arm three times in turns (forward,
-    backward, forward); -> {arm: [ms, ms, ms]}."""
+    ending in a synchronize, each arm twice in turns (forward, then
+    backward, so a drift weighs on every arm alike); -> {arm: [ms,
+    ms]}."""
     from sparknet_tpu_torch.obs import (CommsMeter, MemoryMonitor,
                                         StepAccounting)
     from sparknet_tpu_torch.utils.metrics import MetricsLogger
@@ -4132,7 +4249,7 @@ def _safety_costs(torch, solver, feed, card, tmp, iters=8):
     solver.param.snapshot = 0
     logger = MetricsLogger(os.path.join(tmp, "costs.jsonl"))
     out = {label: [] for label, _, _ in arms}
-    for order in (arms, arms[::-1], arms):
+    for order in (arms, arms[::-1]):
         for label, metrics, recover in order:
             solver.metrics = logger if metrics else None
             solver.stepstats = StepAccounting(logger) if metrics else None
@@ -4153,7 +4270,7 @@ def _safety_costs(torch, solver, feed, card, tmp, iters=8):
     solver.memstats = solver.recovery = None
     logger.close()
     print(f"[costs] GoogLeNet b32 Solver.step, ms an iteration over "
-          f"{iters}, three turns each: " + "; ".join(
+          f"{iters}, two turns each: " + "; ".join(
               f"{k} {[round(v, 3) for v in vs]} (median "
               f"{statistics.median(vs):.3f})" for k, vs in out.items())
           + f"; {card}")
@@ -4306,12 +4423,10 @@ class Tap:
 
 def _safety_files(tmp, name, tap, **fields):
     """A small net (two InnerProducts over a (64, 256) feed) behind a
-    Tap layer, and its solver with a snapshot prefix -> (solver path,
-    prefix)."""
+    Tap layer (``tmp``/tap_layer.py, which phase_run_safety writes),
+    and its solver with a snapshot prefix -> (solver path, prefix)."""
     from sparknet_tpu_torch.models import dsl
     from sparknet_tpu_torch.proto import Message, text_format
-    with open(os.path.join(tmp, "tap_layer.py"), "w") as fh:
-        fh.write(TAP_LAYER)
     lp = Message("LayerParameter", name="tap", type="Python")
     lp.bottom.append("data")
     lp.top.append("tapped")
@@ -4387,13 +4502,10 @@ def _resume_iter(solver_path, prefix, tmp, device):
     return it
 
 
-def phase_run_safety(tmp, device="cuda"):
-    """SIGTERM and a NaN batch through the train verb, and the
-    watchdog's kill through a Solver armed with kill_on_stall, each in a
-    child under `timeout -s KILL` (``device="cpu"`` rehearses it without
-    a card)."""
-    out = {}
-    # SIGTERM after a few iterations: the block ends, snapshot, exit 0
+def _sigterm_child(tmp, device):
+    """The SIGTERM case's child: the train verb, sent SIGTERM once it
+    has logged iteration 2 -> (solver path, prefix, exit code, output,
+    seconds)."""
     path, prefix = _safety_files(tmp, "sigterm", "nan:0")
     t0 = time.perf_counter()
     p = subprocess.Popen(_killable(["--solver", path, "--iterations",
@@ -4407,28 +4519,62 @@ def phase_run_safety(tmp, device="cuda"):
             p.send_signal(signal.SIGTERM)
             break
     lines.append(p.communicate(timeout=300)[0])
-    text = "".join(lines)
-    done = [l for l in text.splitlines()
-            if l.startswith("Optimization done, iter=")]
-    check(p.returncode == 0 and "stopping early on signal" in text and done,
-          f"SIGTERM: exit {p.returncode}: {text[-2000:]}")
-    it = int(done[-1].split("=")[1])
-    check(_resume_iter(path, prefix, tmp, device) == it,
-          f"SIGTERM: the snapshot is not iteration {it}")
-    print(f"[safety] SIGTERM after iteration 2: snapshot at {it}, exit 0 "
-          f"({time.perf_counter() - t0:.1f} s); --resume auto restored it")
-    out["sigterm_iter"] = it
-    # a layer that hangs at its 6th call under a Solver armed with
-    # kill_on_stall: the watchdog kills with 42 after an emergency
-    # snapshot (the train verb's --stall-seconds only logs, as the JAX
-    # verb's does)
+    return (path, prefix, p.returncode, "".join(lines),
+            time.perf_counter() - t0)
+
+
+def _stall_child(tmp, device):
+    """The stall case's child: KILL_SCRIPT on a layer that hangs at its
+    6th call -> (solver path, prefix, the run, seconds)."""
     path, prefix = _safety_files(tmp, "stall", "stall:6")
     t0 = time.perf_counter()
     r = subprocess.run(["timeout", "-s", "KILL", "180", sys.executable, "-c",
                         KILL_SCRIPT, path, device, "5"],
                        capture_output=True, text=True, cwd=REPO,
                        env=_safety_env(tmp), timeout=300)
-    kill_s = time.perf_counter() - t0
+    return path, prefix, r, time.perf_counter() - t0
+
+
+def _nan_child(tmp, device):
+    """The NaN case's child: 12 iterations with a NaN batch at 4 and
+    --recover 2 -> the run."""
+    path, _ = _safety_files(tmp, "nan", "nan:5")
+    return subprocess.run(_killable(["--solver", path, "--iterations", "12",
+                                     "--recover", "2"], device),
+                          capture_output=True, text=True, cwd=REPO,
+                          env=_safety_env(tmp), timeout=300)
+
+
+def phase_run_safety(tmp, device="cuda", beside=None):
+    """SIGTERM and a NaN batch through the train verb, and the
+    watchdog's kill through a Solver armed with kill_on_stall, each in a
+    child under `timeout -s KILL`, the three at once (and ``beside()``
+    here with them: see _beside); then the resumes, in this process
+    (``device="cpu"`` rehearses it without a card). -> (results, what
+    ``beside`` returned)."""
+    with open(os.path.join(tmp, "tap_layer.py"), "w") as fh:
+        fh.write(TAP_LAYER)     # before the children import it
+    result, sigterm, stall, nan = _beside(
+        beside or (lambda: None), lambda: _sigterm_child(tmp, device),
+        lambda: _stall_child(tmp, device), lambda: _nan_child(tmp, device))
+    out = {}
+    # SIGTERM after a few iterations: the block ends, snapshot, exit 0
+    path, prefix, rc, text, sigterm_s = sigterm
+    done = [l for l in text.splitlines()
+            if l.startswith("Optimization done, iter=")]
+    check(rc == 0 and "stopping early on signal" in text and done,
+          f"SIGTERM: exit {rc}: {text[-2000:]}")
+    it = int(done[-1].split("=")[1])
+    check(_resume_iter(path, prefix, tmp, device) == it,
+          f"SIGTERM: the snapshot is not iteration {it}")
+    print(f"[safety] SIGTERM after iteration 2: snapshot at {it}, exit 0 "
+          f"({sigterm_s:.1f} s); --resume auto restored it")
+    out["sigterm_iter"] = it
+    # a layer that hangs at its 6th call under a Solver armed with
+    # kill_on_stall: the watchdog kills with 42 after an emergency
+    # snapshot (the train verb's --stall-seconds only logs, as the JAX
+    # verb's does)
+    path, prefix, r, kill_s = stall
     check(r.returncode == 42 and "NOT REACHED" not in r.stdout,
           f"stall: exit {r.returncode}, want 42: {r.stdout[-1500:]} "
           f"{r.stderr[-1500:]}")
@@ -4441,11 +4587,7 @@ def phase_run_safety(tmp, device="cuda"):
     out["stall_exit"], out["stall_iter"] = r.returncode, it
     out["stall_kill_s"] = kill_s
     # one NaN batch at iteration 4 with --recover 2
-    path, prefix = _safety_files(tmp, "nan", "nan:5")
-    r = subprocess.run(_killable(["--solver", path, "--iterations", "12",
-                                  "--recover", "2"], device),
-                       capture_output=True, text=True, cwd=REPO,
-                       env=_safety_env(tmp), timeout=300)
+    r = nan
     check(r.returncode == 0, f"recover: exit {r.returncode}: "
                              f"{r.stdout[-1500:]} {r.stderr[-1500:]}")
     losses = [float(l.split("loss = ")[1].split(",")[0])
@@ -4457,15 +4599,17 @@ def phase_run_safety(tmp, device="cuda"):
     print(f"[safety] a NaN batch at iteration 4 with --recover 2: rolled "
           f"back to 4, then losses {[round(l, 4) for l in losses]}")
     out["recover_losses"] = losses
-    return out
+    return out, result
 
 
 def phase_levers_all(torch, card, tmp):
     googlenet = phase_remat_googlenet(torch, card, tmp)
-    verb = phase_metrics_verb(torch, card, tmp, googlenet)
     torch.cuda.empty_cache()
     lm = phase_remat_lm(torch, card)
-    safety = phase_run_safety(tmp)
+    # the metrics verb's child beside the run-safety children, after the
+    # timed steps
+    safety, verb = phase_run_safety(tmp, beside=lambda: phase_metrics_verb(
+        torch, card, tmp, googlenet))
     return {"googlenet": googlenet, "metrics_verb": verb, "lm": lm,
             "safety": safety}
 
@@ -6355,15 +6499,15 @@ def main(argv=None):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     results = section(3, phase_kernels, torch)
     served = section(4, phase_serve, torch, card)
-    trained_cli, trained = section(5, lambda: (
-        phase_train_cli(tmp), phase_train(torch, card, tmp))) or (None, None)
+    trained_cli, trained = section(5, phase_train_all, torch, card,
+                                   tmp) or (None, None)
     _flash_built()
     flash = section(6, phase_flash_kernels, torch)
-    lm_cli, lm_step, lm_step_f32, lm_default, lm_parity = section(
+    lm_cli, lm_step, lm_step_f32, lm_default, lm_d256, lm_parity = section(
         7, lambda: (phase_lm_cli(tmp), phase_lm_step(torch, card),
                     phase_lm_step(torch, card, dtype="f32"),
-                    phase_lm_default_verb(),
-                    phase_lm_card_vs_cpu(torch, tmp))) or (None,) * 5
+                    phase_lm_default_verb(), phase_lm_d256(),
+                    phase_lm_card_vs_cpu(torch, tmp))) or (None,) * 6
     local_sgd = section(8, phase_local_sgd_all, torch, card, tmp)
     records = section(9, phase_records_all, torch, card, tmp)
     feeds = section(10, lambda: phase_feeds_all(
@@ -6388,6 +6532,7 @@ def main(argv=None):
              "lm verb": lm_cli["launches"],
              "lm step, f32": lm_step_f32["launches"],
              "lm verb, defaults (f32)": lm_default["launches"],
+             "lm verb, d_model 2048": lm_d256["launches"],
              "local-sgd caffenet": local_sgd["rounds"]["caffenet"][
                  "launches"],
              "train verb on records": records["cli"]["launches"],
@@ -6429,6 +6574,8 @@ def main(argv=None):
                    if own_path.startswith("serve") else {}),
                 **({"launches_lm_step_f32": lm_step_f32["launches"][name],
                     "launches_lm_verb_defaults_f32": lm_default["launches"][
+                        name],
+                    "launches_lm_verb_d_model_2048": lm_d256["launches"][
                         name],
                     "launches_moe_lm_verb": zoo["moe_cli"]["launches"][name],
                     "launches_moe_lm_step": zoo["moe_step"]["launches"][
@@ -6480,7 +6627,8 @@ def main(argv=None):
             "launches", "fixed_batch_losses", "step_ms", "images_per_s",
             "profile", "card_vs_cpu")}, **trained_cli},
         "lm": {"cli": lm_cli, "step": lm_step, "step_f32": lm_step_f32,
-               "default_verb": lm_default, "card_vs_cpu": lm_parity},
+               "default_verb": lm_default, "d256_verb": lm_d256,
+               "card_vs_cpu": lm_parity},
         "local_sgd": local_sgd, "records": records, "feeds": feeds,
         "zoo": zoo, "levers": levers, "fleet": fleet, "hosts": hosts,
         "mesh": mesh, "rest": rest,

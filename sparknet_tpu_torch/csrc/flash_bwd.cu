@@ -26,10 +26,11 @@
 // 206 GFLOP and 275 GFLOP against 202 MB of bf16 q, k, v, o, dO, dq, dk,
 // dv, LSE and delta: 0.21 and 0.28 ms at 989 TFLOP/s of dense bf16.
 //
-// bf16 storage (flash_dq_mma_kernel, flash_dkv_mma_kernel): the products
-// run on the tensor cores (mma.sync m16n8k16 bf16 -> f32, fed by ldmatrix
-// from bf16 shared-memory tiles of row stride D + 8; flash_mma.cuh). A CTA
-// of 4 warps owns one 64-row tile; each warp owns 16 of its rows.
+// bf16 storage up to head_dim 128 (flash_dq_mma_kernel,
+// flash_dkv_mma_kernel): the products run on the tensor cores (mma.sync
+// m16n8k16 bf16 -> f32, fed by ldmatrix from bf16 shared-memory tiles of
+// row stride D + 8; flash_mma.cuh). A CTA of 4 warps owns one 64-row
+// tile; each warp owns 16 of its rows.
 //  - dQ: the warp's S = Q K^T and dP = dO V^T for 64 keys stay in f32
 //    accumulator registers; P = exp2(S * scale * log2e - LSE * log2e) and
 //    dS = P (dP - delta) are computed there and packed to bf16 A
@@ -58,20 +59,56 @@
 //    version (tests/test_torch_flash_rounding.py; chip_smoke.py's limit
 //    5e-3). S, dP, delta and the dQ, dK, dV sums stay in f32; the
 //    outputs are rounded once.
-//  - Head_dim 256: the dK and dV accumulators of all columns (2 x 128 f32
-//    a thread) would not fit in registers, so the grid's z axis splits
-//    the output columns in 128-wide halves (kOutCols, flash_mma.cuh):
-//    each CTA recomputes S and dP over all of D and accumulates its half
-//    of dQ (or dK and dV); the first writes delta. Its tiles of all D
-//    columns take ~198 KB: one CTA an SM.
 //  - Registers a thread, shared memory and CTAs per SM, as the runtime
 //    reports them on the H100 (sparknet_flash_backward_info, printed and
 //    checked by chip_smoke.py phase 6); no instantiation spills:
-//        D            16       32       64       128          256
-//        dQ     125 18 KB 4  153 30 KB 3  190 54 KB 2  234 102 KB 2  242 198 KB 1
-//        dK/dV  140 19 KB 3  170 31 KB 2  226 55 KB 2  244 103 KB 2  254 199 KB 1
+//        D            16       32       64       128
+//        dQ     125 18 KB 4  153 30 KB 3  190 54 KB 2  234 102 KB 2
+//        dK/dV  140 19 KB 3  170 31 KB 2  226 55 KB 2  244 103 KB 2
 //    At the LM's shape: dQ 0.79-0.84 ms, dK/dV 1.03-1.10 ms, 244-268
 //    TFLOP/s (PERF.md).
+//
+// bf16 storage at head_dim 256 (flash_dq_wgmma_kernel,
+// flash_dkv_wgmma_kernel; and D 129-255, zero-padded to it): one CTA of two
+// warpgroups (256 threads, one CTA an SM) owns all 256 output columns of
+// its tile, so S and dP (S^T and dP^T) are built once per tile pair, every
+// product on wgmma (flash_wgmma.cuh). Loads: one thread issues TMA copies
+// through 3-D tensor maps (D, S, B*H), four 64-column blocks of 128-byte
+// swizzle a tile (rows past S arrive as zeros), each completing on an
+// mbarrier; the streamed tiles are in flight under the products of the
+// tile before.
+//  - dQ: the CTA owns 128 queries (Q, dO resident, 128 KB), each
+//    warpgroup 64 of them, and walks the keys in tiles of 64. A
+//    warpgroup builds dP = dO V^T, then S = Q K^T, for its rows and all
+//    64 keys (m64n64k16, both operands in shared memory, 16 k-steps over
+//    D), forms dS in registers and adds dS K into its own dQ rows, all 256
+//    columns (m64n256k16, dS as the register A operand, K read MN-major):
+//    128 f32 accumulators a thread, and no exchange between the
+//    warpgroups. K goes through two slots and V through one (224 KB in
+//    all): V is released as soon as both warpgroups' dP is done (an
+//    mbarrier every thread arrives on), and V of the next tile loads
+//    under the softmax and dS K; K is released after dS K. delta is
+//    computed first, two threads a row, from O and dO as stored.
+//  - dK/dV: the CTA owns 64 keys (K, V resident), and streams 64-query
+//    tiles of Q and dO (with their LSE and delta rows, read from device
+//    memory under the products) through two stages. The accumulators of
+//    dK and dV for all 256 columns (256 f32 a thread) do not fit one
+//    warpgroup, so the work splits between the warpgroups twice: each
+//    builds S^T and dP^T for its 32 of the tile's queries (m64n32k16),
+//    writes P^T and dS^T as bf16 to 64 x 64 tiles in the same 128-byte
+//    swizzle (the 8 rows of a store phase on 8 distinct 16-byte bank
+//    groups), and after a CTA barrier adds P^T dO and dS^T Q into its own
+//    128 columns of dV and dK over all 64 queries (m64n128k16, A the
+//    handoff tile, B the streamed tile read MN-major). 209 KB.
+//  - Causal, rounding and determinism as above: tiles past the diagonal
+//    skipped (dQ's second warpgroup sees its last key tile, the first
+//    none of it: masked), the longest CTAs first; P and dS (P^T, dS^T)
+//    rounded to bf16 once; every output element summed by one thread in a
+//    fixed order, no atomics.
+//  - Registers a thread, shared memory and CTAs per SM on the H100
+//    (sparknet_flash_backward_info, chip_smoke.py phase 6): dQ 240, 226 KB,
+//    1; dK/dV 199, 209 KB, 1; no spills. At the lm verb's d_model 2048
+//    shape, (2, 8, 4096, 256) causal, dQ and dK/dV take PERF.md's times.
 //
 // f32 storage (flash_dq_tf32_kernel, flash_dkv_tf32_kernel): every
 // product on the tensor cores in split TF32 (3xTF32, flash_tf32.cuh:
@@ -89,7 +126,7 @@
 // 64 rows through two stages up to D = 64; from D = 128, dQ takes K and
 // V 32 rows through one stage (two CTAs an SM at D = 128) and dK/dV Q
 // and dO 16 rows through two; at D = 256 the output columns split over
-// the grid's z axis as the bf16 kernels' do. P is exp(scale S - LSE) in
+// the grid's z axis (kOutCols, flash_mma.cuh). P is exp(scale S - LSE) in
 // natural units, as the plain version computes it. Bound: operations.
 // At the LM's shape dQ does 206 and dK/dV 275 GFLOP: 1.25 and 1.67 ms at
 // 165 TFLOP/s of f32-accurate products (495 TFLOP/s of dense TF32 over 3
@@ -112,6 +149,7 @@
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 #include "flash_tf32.cuh"
+#include "flash_wgmma.cuh"
 #include "flash_wide.cuh"
 
 namespace sparknet_flash {
@@ -128,8 +166,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
                         const float* __restrict__ lse, bf16* __restrict__ dq,
                         float* __restrict__ delta, int seq, float scale,
                         int causal) {
+  static_assert(D <= 128, "bf16 head_dim 256 runs flash_dq_wgmma_kernel");
   constexpr int LD = D + 8, TILE = kBlockQ * LD, KD = D / 16;
-  constexpr int DO = kOutCols<D>, KO = DO / 16, NO = DO / 8;
+  constexpr int NO = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // this CTA's 64 queries
   bf16* dos = qs + TILE;
@@ -148,7 +187,6 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   lse += static_cast<long long>(blockIdx.x) * seq;
   delta += static_cast<long long>(blockIdx.x) * seq;
   const int n_k = causal ? qt + 1 : gridDim.y;   // key tiles to walk
-  const int col0 = blockIdx.z * DO;             // this CTA's columns of dQ
 
   cp_async_tile<D>(qs, q, q0, seq);
   cp_async_tile<D>(dos, dout, q0, seq);
@@ -172,7 +210,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
                           *reinterpret_cast<const uint4*>(dos + rl * LD + c));
     }
     dl = part + __shfl_xor_sync(0xffffffffu, part, 1);
-    if ((lane & 1) == 0 && r < seq && col0 == 0) delta[r] = dl;
+    if ((lane & 1) == 0 && r < seq) delta[r] = dl;
   }
   // this thread's rows of the score tiles: w0 + g and w0 + g + 8
   float delta_r[2], lse_r[2];
@@ -241,9 +279,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int nd = 0; nd < KO; ++nd) {
+      for (int nd = 0; nd < KD; ++nd) {
         uint32_t b[4];
-        ldmatrix_x4_trans(b, bt_frag<LD>(ks, kk * 16, col0 + nd * 16, lane));
+        ldmatrix_x4_trans(b, bt_frag<LD>(ks, kk * 16, nd * 16, lane));
         mma_bf16(acc[2 * nd], ds[kk], b[0], b[1]);
         mma_bf16(acc[2 * nd + 1], ds[kk], b[2], b[3]);
       }
@@ -257,7 +295,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     if (r >= seq) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(dq + static_cast<long long>(r) * D + col0 +
+      *reinterpret_cast<uint32_t*>(dq + static_cast<long long>(r) * D +
                                    n * 8 + 2 * t) =
           pack_bf16(scale * acc[n][2 * i], scale * acc[n][2 * i + 1]);
   }
@@ -273,8 +311,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
                          const float* __restrict__ delta,
                          bf16* __restrict__ dk, bf16* __restrict__ dv,
                          int seq, float scale, int causal) {
+  static_assert(D <= 128, "bf16 head_dim 256 runs flash_dkv_wgmma_kernel");
   constexpr int LD = D + 8, TILE = kBlockK * LD, KD = D / 16;
-  constexpr int DO = kOutCols<D>, KO = DO / 16, NO = DO / 8;
+  constexpr int NO = D / 8;
   constexpr int kSub = D > 64 ? 32 : 64;   // queries per S^T block
   constexpr int NS = kSub / 8;             // its n8 tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -297,7 +336,6 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   delta += static_cast<long long>(blockIdx.x) * seq;
   // causal: query tiles wholly above the diagonal are skipped
   const int n_q = gridDim.y, q_first = causal ? kt : 0;
-  const int col0 = blockIdx.z * DO;        // this CTA's columns of dK, dV
 
   auto load_queries = [&](int stage, int qt) {
     bf16* dst = qds + stage * 2 * TILE;
@@ -376,8 +414,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 #pragma unroll
       for (int kk = 0; kk < NS / 2; ++kk) {
 #pragma unroll
-        for (int nd = 0; nd < KO; ++nd) {
-          const int n0 = col0 + nd * 16;
+        for (int nd = 0; nd < KD; ++nd) {
+          const int n0 = nd * 16;
           uint32_t b[4];
           ldmatrix_x4_trans(b, bt_frag<LD>(dos, sub + kk * 16, n0, lane));
           mma_bf16(dv_acc[2 * nd], pf[kk], b[0], b[1]);
@@ -397,12 +435,381 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     if (c >= seq) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      const long long at =
-          static_cast<long long>(c) * D + col0 + n * 8 + 2 * t;
+      const long long at = static_cast<long long>(c) * D + n * 8 + 2 * t;
       *reinterpret_cast<uint32_t*>(dk + at) =
           pack_bf16(scale * dk_acc[n][2 * i], scale * dk_acc[n][2 * i + 1]);
       *reinterpret_cast<uint32_t*>(dv + at) =
           pack_bf16(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    }
+  }
+}
+
+// bf16 storage at head_dim 256: the wgmma kernels (the note at the top).
+
+constexpr int kBwdWgThreads = 256;   // two warpgroups
+constexpr int kDqRows = 128;         // query rows of a dQ CTA, 64 a warpgroup
+
+// Shared-memory geometry of the head_dim-256 bf16 backward (bytes): a
+// 64-row tile of 256 columns is four column blocks of 64 rows x 128 bytes
+// in the 128-byte swizzle that TMA writes and wgmma reads
+// (flash_wgmma.cuh); dQ's 128-row Q and dO tiles have blocks of 128
+// rows, and dK/dV's handoff tiles (P^T, dS^T) are one block of 64 x 64.
+struct Bwd256Tiles {
+  static constexpr int D = 256;
+  static constexpr int RB = 128;               // a swizzled row, bytes
+  static constexpr int BLOCK = 64 * RB;        // 64 rows of 64 columns
+  static constexpr int TILE = 4 * BLOCK;       // 64 rows of 256 columns
+  static constexpr int SBO = 8 * RB;           // 8 rows
+  // dQ: 128 rows of Q and dO, two K slots and one V slot, seven
+  // mbarriers and 128 f32 rows of delta; dK/dV: 64 rows of K and V, two
+  // stages of Q and dO, the P^T and dS^T tiles, three mbarriers; both
+  // with 1024 bytes to align the tiles
+  static constexpr size_t kDqSmem = 7 * TILE + 64 + 512 + 1024;
+  static constexpr size_t kDkvSmem = 6 * TILE + 2 * BLOCK + 64 + 1024;
+};
+
+// byte offset of element (r, c) in a swizzled 64 x 64 bf16 block
+__device__ __forceinline__ uint32_t swz128(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// K-major descriptor of the 16 columns kk * 16 .. of a 256-column tile
+// whose column blocks are `block` bytes apart, from row `row0` (a
+// multiple of 8) on
+__device__ __forceinline__ uint64_t kmajor256(uint32_t tile, int row0,
+                                              int kk, int block) {
+  using L = Bwd256Tiles;
+  return wgmma_desc(tile + (kk >> 2) * block + row0 * L::RB + (kk & 3) * 32,
+                    16, L::SBO, L::RB);
+}
+
+// MN-major descriptor of rows kk * 16 .. kk * 16 + 15 of a 256-column
+// tile, columns 128 half .. 128 half + 127 (two column blocks)
+__device__ __forceinline__ uint64_t mnmajor256(uint32_t tile, int half,
+                                               int kk) {
+  using L = Bwd256Tiles;
+  return wgmma_desc(tile + 2 * half * L::BLOCK + kk * 16 * L::RB, L::BLOCK,
+                    L::SBO, L::RB);
+}
+
+// the tile of a (D, seq, bh) map at rows row0.. (its box: 64 or 128
+// rows), four column blocks `block` bytes apart into `dst`, completing on
+// `bar`
+__device__ __forceinline__ void tma_tile256(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int row0, int bh,
+                                            int block) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    tma_load_3d(dst + c * block, map, bar, c * 64, row0, bh);
+}
+
+__global__ void __launch_bounds__(kBwdWgThreads, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const bf16* __restrict__ o,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          bf16* __restrict__ dq, float* __restrict__ delta,
+                          int seq, float scale, int causal) {
+  using L = Bwd256Tiles;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t qs = (raw + 1023) & ~1023u;   // this CTA's 128 queries
+  const uint32_t dos = qs + 2 * L::TILE;
+  const uint32_t kslots = dos + 2 * L::TILE;   // K of tile j: slot j & 1
+  const uint32_t vs = kslots + 2 * L::TILE;    // V of the tile in hand
+  // mbarriers: +0 Q and dO; +8, +16 K slot full; +24 V full; +32, +40 K
+  // slot free; +48 V free (every consumer thread arrives)
+  const uint32_t bars = vs + L::TILE;
+  float* delta_s = reinterpret_cast<float*>(smem_raw + (bars + 64 - raw));
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // causal: longest CTAs first
+  const int q0 = qt * kDqRows;
+  const int key_tiles = (seq + kBlockK - 1) / kBlockK;
+  const int n_k = causal ? min(2 * qt + 2, key_tiles) : key_tiles;
+  const long long rows0 = static_cast<long long>(bh) * seq;
+
+  const CUtensorMap *mq = &tm_q, *mk = &tm_k, *mv = &tm_v, *mdo = &tm_do;
+  auto load_k = [&](int j) {
+    const uint32_t bar = bars + 8 + 8 * (j & 1);
+    mbar_expect_tx(bar, L::TILE);
+    tma_tile256(kslots + (j & 1) * L::TILE, mk, bar, j * kBlockK, bh,
+                L::BLOCK);
+  };
+  auto load_v = [&](int j) {
+    mbar_expect_tx(bars + 24, L::TILE);
+    tma_tile256(vs, mv, bars + 24, j * kBlockK, bh, L::BLOCK);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(bars + 8 * i, 1);
+    for (int i = 4; i < 7; ++i) mbar_init(bars + 8 * i, kBwdWgThreads);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bars, 4 * L::TILE);
+    tma_tile256(qs, mq, bars, q0, bh, 2 * L::BLOCK);
+    tma_tile256(dos, mdo, bars, q0, bh, 2 * L::BLOCK);
+    load_k(0);
+    load_v(0);
+    if (n_k > 1) load_k(1);
+  }
+
+  // delta = rowsum(dO O) in f32 from O and dO as stored: two threads a
+  // row, 128 columns each
+  {
+    const int r = tid >> 1, gr = q0 + r, c0 = (tid & 1) * 128;
+    float part = 0.f;
+    if (gr < seq) {
+      const bf16* orow = o + (rows0 + gr) * L::D + c0;
+      const bf16* drow = dout + (rows0 + gr) * L::D + c0;
+#pragma unroll 4
+      for (int c = 0; c < 128; c += 8)
+        part += dot8_bf16(*reinterpret_cast<const uint4*>(orow + c),
+                          *reinterpret_cast<const uint4*>(drow + c));
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if ((tid & 1) == 0) {
+      delta_s[r] = part;
+      if (gr < seq) delta[rows0 + gr] = part;
+    }
+  }
+  __syncthreads();
+  // this thread's rows: 64 wg + 16 warp + g and that + 8
+  const int row = 64 * wg + 16 * warp + g;
+  float delta_r[2], lse_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    delta_r[i] = delta_s[row + 8 * i];
+    lse_r[i] = q0 + row + 8 * i < seq
+                   ? lse[rows0 + q0 + row + 8 * i] * kLog2e : 0.f;
+  }
+  const float sl2 = scale * kLog2e;
+  // this warpgroup's 64 rows of Q and dO: A of S = Q K^T, dP = dO V^T
+  const uint32_t qa = qs + 64 * wg * L::RB, doa = dos + 64 * wg * L::RB;
+  float acc[128];                      // dQ, all 256 columns
+#pragma unroll
+  for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+  mbar_wait(bars, 0);                  // Q and dO have landed
+
+  for (int j = 0; j < n_k; ++j) {
+    const uint32_t ks = kslots + (j & 1) * L::TILE;
+    mbar_wait(bars + 8 + 8 * (j & 1), (j >> 1) & 1);   // K of tile j
+    mbar_wait(bars + 24, j & 1);                       // V of tile j
+    float s[32], dp[32];               // S, dP: 64 rows x 64 keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk)
+      wgmma_ss_n64(dp, kmajor256(doa, 0, kk, 2 * L::BLOCK),
+                   kmajor256(vs, 0, kk, L::BLOCK), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk)
+      wgmma_ss_n64(s, kmajor256(qa, 0, kk, 2 * L::BLOCK),
+                   kmajor256(ks, 0, kk, L::BLOCK), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(dp);
+    mbar_arrive(bars + 48);            // V of tile j is read
+    if (tid == 0 && j + 1 < n_k) {
+      mbar_wait(bars + 48, j & 1);
+      load_v(j + 1);
+    }
+    wgmma_wait<0>();
+    fence_operands(s);
+
+    const int k0 = j * kBlockK;
+    const bool edge = (causal && j >= 2 * qt) || k0 + kBlockK > seq ||
+                      q0 + kDqRows > seq;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      float p = exp2f(fmaf(s[e], sl2, -lse_r[i]));
+      if (edge && masked(q0 + row + 8 * i,
+                         k0 + 8 * (e >> 2) + 2 * t + (e & 1), seq, causal))
+        p = 0.f;
+      s[e] = p * (dp[e] - delta_r[i]);           // dS
+    }
+    uint32_t ds[4][4];                 // dS as A fragments, keys 16 kk ..
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        ds[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    // dQ += dS K, all 256 columns: K read MN-major
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tb<256>(acc, ds[kk],
+                       wgmma_desc(ks + kk * 16 * L::RB, L::BLOCK, L::SBO,
+                                  L::RB));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    mbar_arrive(bars + 32 + 8 * (j & 1));   // K of tile j is read
+    if (tid == 0 && j + 2 < n_k) {
+      mbar_wait(bars + 32 + 8 * (j & 1), (j >> 1) & 1);
+      load_k(j + 2);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + row + 8 * i;
+    if (r >= seq) continue;
+    bf16* out = dq + (rows0 + r) * L::D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 32; ++n)
+      *reinterpret_cast<uint32_t*>(out + 8 * n) = pack_bf16(
+          scale * acc[4 * n + 2 * i], scale * acc[4 * n + 2 * i + 1]);
+  }
+}
+
+__global__ void __launch_bounds__(kBwdWgThreads, 1)
+    flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int seq, float scale, int causal) {
+  using L = Bwd256Tiles;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ks = (smem_addr(smem_raw) + 1023) & ~1023u;   // 64 keys
+  const uint32_t vs = ks + L::TILE;
+  const uint32_t qd = vs + L::TILE;   // stage st: Q at qd + 2 st TILE, dO after
+  const uint32_t pts = qd + 4 * L::TILE;   // P^T, 64 keys x 64 queries
+  const uint32_t dsts = pts + L::BLOCK;    // dS^T
+  const uint32_t bars = dsts + L::BLOCK;   // K and V, then each stage
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int kt = blockIdx.y, k0 = kt * kBlockK;   // causal: longest first
+  const long long rows0 = static_cast<long long>(bh) * seq;
+  // causal: query tiles wholly above the diagonal are skipped
+  const int n_q = gridDim.y, q_first = causal ? kt : 0;
+
+  const CUtensorMap *mq = &tm_q, *mk = &tm_k, *mv = &tm_v, *mdo = &tm_do;
+  auto load_queries = [&](int it, int qt) {
+    const uint32_t bar = bars + 8 + 8 * (it & 1);
+    const uint32_t dst = qd + (it & 1) * 2 * L::TILE;
+    mbar_expect_tx(bar, 2 * L::TILE);
+    tma_tile256(dst, mq, bar, qt * kBlockQ, bh, L::BLOCK);
+    tma_tile256(dst + L::TILE, mdo, bar, qt * kBlockQ, bh, L::BLOCK);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bars, 2 * L::TILE);
+    tma_tile256(ks, mk, bars, k0, bh, L::BLOCK);
+    tma_tile256(vs, mv, bars, k0, bh, L::BLOCK);
+    for (int it = 0; it < 2 && q_first + it < n_q; ++it)
+      load_queries(it, q_first + it);
+  }
+  const float sl2 = scale * kLog2e;
+  // dK, dV: columns 128 wg .. 128 wg + 127 of this thread's key rows
+  float dk_acc[64], dv_acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+  mbar_wait(bars, 0);                  // K and V have landed
+
+  for (int qt = q_first; qt < n_q; ++qt) {
+    const int it = qt - q_first;
+    const uint32_t qs = qd + (it & 1) * 2 * L::TILE, dos = qs + L::TILE;
+    const int q0 = qt * kBlockQ;
+    // LSE and delta of this thread's 8 query columns, 32 wg + 8 n + 2 t
+    // + b: read here, used after the products
+    float lq[8], dl[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int r = q0 + 32 * wg + 8 * (c >> 1) + 2 * t + (c & 1);
+      lq[c] = r < seq ? lse[rows0 + r] * kLog2e : 0.f;
+      dl[c] = r < seq ? delta[rows0 + r] : 0.f;
+    }
+    mbar_wait(bars + 8 + 8 * (it & 1), (it >> 1) & 1);   // Q, dO of tile qt
+    // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 32 queries
+    float s[16], dp[16];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk)
+      wgmma_ss_n32(s, kmajor256(ks, 0, kk, L::BLOCK),
+                   kmajor256(qs, 32 * wg, kk, L::BLOCK), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk)
+      wgmma_ss_n32(dp, kmajor256(vs, 0, kk, L::BLOCK),
+                   kmajor256(dos, 32 * wg, kk, L::BLOCK), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+    fence_operands(dp);
+
+    const bool edge = (causal && qt == kt) || q0 + kBlockQ > seq ||
+                      k0 + kBlockK > seq;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int c = 2 * (e >> 2) + (e & 1);      // the column's lq, dl
+      const int key = warp * 16 + g + 8 * ((e >> 1) & 1);
+      float p = exp2f(fmaf(s[e], sl2, -lq[c]));
+      if (edge && masked(q0 + 32 * wg + 8 * (e >> 2) + 2 * t + (e & 1),
+                         k0 + key, seq, causal))
+        p = 0.f;
+      dp[e] = p * (dp[e] - dl[c]);               // dS^T
+      s[e] = p;                                  // P^T
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t at =
+            swz128(warp * 16 + g + 8 * i, 32 * wg + 8 * n + 2 * t);
+        st_shared_b32(pts + at,
+                      pack_bf16(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
+        st_shared_b32(dsts + at,
+                      pack_bf16(dp[4 * n + 2 * i], dp[4 * n + 2 * i + 1]));
+      }
+    fence_proxy_async();
+    __syncthreads();                   // P^T, dS^T of all 64 queries
+    // dV += P^T dO and dK += dS^T Q, this warpgroup's 128 columns
+    fence_operands(dv_acc);
+    fence_operands(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_tb_n128(dv_acc, wgmma_desc(pts + kk * 32, 16, L::SBO, L::RB),
+                       mnmajor256(dos, wg, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_tb_n128(dk_acc, wgmma_desc(dsts + kk * 32, 16, L::SBO, L::RB),
+                       mnmajor256(qs, wg, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dv_acc);
+    fence_operands(dk_acc);
+    __syncthreads();                   // this stage, P^T and dS^T are free
+    if (tid == 0 && qt + 2 < n_q) load_queries(it + 2, qt + 2);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = k0 + warp * 16 + g + 8 * i;
+    if (c >= seq) continue;
+    const long long at = (rows0 + c) * L::D + 128 * wg + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * n) = pack_bf16(
+          scale * dk_acc[4 * n + 2 * i], scale * dk_acc[4 * n + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * n) =
+          pack_bf16(dv_acc[4 * n + 2 * i], dv_acc[4 * n + 2 * i + 1]);
     }
   }
 }
@@ -662,10 +1069,39 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// The storage type picks the kernel: bf16 in bf16 on the tensor cores,
-// f32 in split TF32 on them; both take launch_mma's grid.
+// The storage type and head_dim pick the kernel: bf16 at head_dim 256 the
+// wgmma kernels on a (bh, tiles) grid of two warpgroups, other bf16 the
+// mma.sync kernels, f32 split TF32; the last two take launch_mma's grid.
 template <typename T>
 constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+template <typename T, int D>
+constexpr bool kWgmma256 = kBf16<T> && D == 256;
+
+// Launch a head_dim-256 wgmma kernel on a (bh, ceil(seq / rows)) grid
+// of kBwdWgThreads threads with `bytes` of dynamic shared memory, its
+// first four arguments the tensor maps of q, k, v and dO: boxes of `rows`
+// rows for q and dO (the CTA's own tile in dQ), of 64 for k and v; ->
+// the launch's error code.
+template <typename Kernel, typename... Args>
+int launch_wgmma256(Kernel kernel, const void* const (&src)[4], int rows,
+                    int bh, int seq, size_t bytes, cudaStream_t stream,
+                    Args... args) {
+  const int tiles = (seq + rows - 1) / rows;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = rows_map(&maps[i], src[i], 256, seq, bh,
+                                     i == 0 || i == 3 ? rows : 64);
+    if (err != cudaSuccess) return err;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(bh, tiles, 1), kBwdWgThreads, bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], args...);
+  return cudaGetLastError();
+}
 
 struct DqLaunch {
   const void *q, *k, *v, *o, *dout;
@@ -679,7 +1115,9 @@ struct DqLaunch {
 
   template <typename T, int D>
   static auto kernel() {
-    if constexpr (kBf16<T>)
+    if constexpr (kWgmma256<T, D>)
+      return flash_dq_wgmma_kernel;
+    else if constexpr (kBf16<T>)
       return flash_dq_mma_kernel<D>;
     else
       return flash_dq_tf32_kernel<D>;
@@ -687,7 +1125,9 @@ struct DqLaunch {
 
   template <typename T, int D>
   static size_t smem() {
-    if constexpr (kBf16<T>)
+    if constexpr (kWgmma256<T, D>)
+      return Bwd256Tiles::kDqSmem;
+    else if constexpr (kBf16<T>)
       return sizeof(T) * (2 * kBlockQ + 4 * kBlockK) * (D + 8);
     else
       return DqTiles<D>::kDqSmem;
@@ -695,11 +1135,19 @@ struct DqLaunch {
 
   template <typename T, int D>
   int run() const {
-    return launch_mma(kernel<T, D>(), bh, seq, D / kOutCols<D>, smem<T, D>(),
-                      stream, static_cast<const T*>(q),
-                      static_cast<const T*>(k), static_cast<const T*>(v),
-                      static_cast<const T*>(o), static_cast<const T*>(dout),
-                      lse, static_cast<T*>(dq), delta, seq, scale, causal);
+    if constexpr (kWgmma256<T, D>) {
+      const void* const src[4] = {q, k, v, dout};
+      return launch_wgmma256(kernel<T, D>(), src, kDqRows, bh, seq,
+                             smem<T, D>(), stream, static_cast<const T*>(o),
+                             static_cast<const T*>(dout), lse,
+                             static_cast<T*>(dq), delta, seq, scale, causal);
+    } else {
+      return launch_mma(kernel<T, D>(), bh, seq, D / kOutCols<D>,
+                        smem<T, D>(), stream, static_cast<const T*>(q),
+                        static_cast<const T*>(k), static_cast<const T*>(v),
+                        static_cast<const T*>(o), static_cast<const T*>(dout),
+                        lse, static_cast<T*>(dq), delta, seq, scale, causal);
+    }
   }
 };
 
@@ -714,7 +1162,9 @@ struct DkvLaunch {
 
   template <typename T, int D>
   static auto kernel() {
-    if constexpr (kBf16<T>)
+    if constexpr (kWgmma256<T, D>)
+      return flash_dkv_wgmma_kernel;
+    else if constexpr (kBf16<T>)
       return flash_dkv_mma_kernel<D>;
     else
       return flash_dkv_tf32_kernel<D>;
@@ -722,7 +1172,9 @@ struct DkvLaunch {
 
   template <typename T, int D>
   static size_t smem() {
-    if constexpr (kBf16<T>)
+    if constexpr (kWgmma256<T, D>)
+      return Bwd256Tiles::kDkvSmem;
+    else if constexpr (kBf16<T>)
       return sizeof(T) * (2 * kBlockK + 4 * kBlockQ) * (D + 8) +
              sizeof(float) * 4 * kBlockQ;
     else
@@ -731,38 +1183,47 @@ struct DkvLaunch {
 
   template <typename T, int D>
   int run() const {
-    return launch_mma(kernel<T, D>(), bh, seq, D / kOutCols<D>, smem<T, D>(),
-                      stream, static_cast<const T*>(q),
-                      static_cast<const T*>(k), static_cast<const T*>(v),
-                      static_cast<const T*>(dout), lse, delta,
-                      static_cast<T*>(dk), static_cast<T*>(dv), seq, scale,
-                      causal);
+    if constexpr (kWgmma256<T, D>) {
+      const void* const src[4] = {q, k, v, dout};
+      return launch_wgmma256(kernel<T, D>(), src, kBlockQ, bh, seq,
+                             smem<T, D>(), stream, lse, delta,
+                             static_cast<T*>(dk),
+                             static_cast<T*>(dv), seq, scale, causal);
+    } else {
+      return launch_mma(kernel<T, D>(), bh, seq, D / kOutCols<D>,
+                        smem<T, D>(), stream, static_cast<const T*>(q),
+                        static_cast<const T*>(k), static_cast<const T*>(v),
+                        static_cast<const T*>(dout), lse, delta,
+                        static_cast<T*>(dk), static_cast<T*>(dv), seq, scale,
+                        causal);
+    }
   }
 };
 
 // What the runtime says of one backward kernel: registers a thread, local
 // memory a thread (spills), dynamic shared memory and resident CTAs per
-// SM, into out[0..3]; out[4] = 1, out[5] = 0 (no cluster).
+// SM at the kernel's own thread count, into out[0..3]; out[4] = 1,
+// out[5] = 0 (no cluster).
 struct InfoQuery {
   int which;                           // 0: dQ, 1: dK/dV
   int* out;
 
   template <typename Kernel>
-  int fill(Kernel kernel, size_t bytes) const {
+  int fill(Kernel kernel, size_t bytes, int threads, bool carveout) const {
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(bytes));
-    if (err == cudaSuccess)
+    if (err == cudaSuccess && carveout)      // as launch_mma sets it
       err = cudaFuncSetAttribute(kernel,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
     int ctas = 0;
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &ctas, kernel, kMmaThreads, bytes);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                          threads, bytes);
     if (err != cudaSuccess) return err;
     out[0] = attr.numRegs;
     out[1] = static_cast<int>(attr.localSizeBytes);
@@ -775,9 +1236,12 @@ struct InfoQuery {
 
   template <typename T, int D>
   int run() const {
+    const int threads = kWgmma256<T, D> ? kBwdWgThreads : kMmaThreads;
     return which == 0
-               ? fill(DqLaunch::kernel<T, D>(), DqLaunch::smem<T, D>())
-               : fill(DkvLaunch::kernel<T, D>(), DkvLaunch::smem<T, D>());
+               ? fill(DqLaunch::kernel<T, D>(), DqLaunch::smem<T, D>(),
+                      threads, !kWgmma256<T, D>)
+               : fill(DkvLaunch::kernel<T, D>(), DkvLaunch::smem<T, D>(),
+                      threads, !kWgmma256<T, D>);
   }
 };
 

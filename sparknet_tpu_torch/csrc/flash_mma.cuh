@@ -28,11 +28,14 @@ namespace sparknet_flash {
 constexpr int kMmaThreads = 128;   // 4 warps, each 16 rows of the CTA's 64
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Output columns a backward CTA accumulates at head_dim D. At D = 256 the
-// dK and dV accumulators of all columns (2 x 128 f32 a thread) would not
-// fit in registers: the grid's z axis splits the output columns in
-// 128-wide halves, and each CTA recomputes the score tiles (whose
-// reduction runs over all of D) for its half.
+// Output columns an f32 backward CTA (flash_bwd.cu's split-TF32 kernels)
+// accumulates at head_dim D. At D = 256 the dK and dV accumulators of all
+// columns (2 x 128 f32 a thread) would not fit in registers: the grid's z
+// axis splits the output columns in 128-wide halves, and each CTA
+// recomputes the score tiles (whose reduction runs over all of D) for its
+// half. The bf16 kernels run here up to D = 128 only, where this is D;
+// bf16 at 256 takes flash_bwd.cu's wgmma kernels, which split the columns
+// between two warpgroups of one CTA instead.
 template <int D>
 constexpr int kOutCols = D > 128 ? 128 : D;
 

@@ -9,6 +9,8 @@ only); from the same seed each gives the same arrays as the JAX package.
   stream.
 """
 
+import functools
+
 import numpy as np
 
 
@@ -115,13 +117,13 @@ def shape_texture_images(n, seed=0, size=32, noise=28.0, num_classes=10,
     return imgs, labels
 
 
-def bigram_corpus(vocab_size=512, seed=0, concentration=0.3):
-    """Learnable synthetic token stream: a fixed random bigram transition
-    table (Dirichlet rows, peaked by ``concentration``). A model that
-    learns the table reaches the table's conditional entropy; an
-    untrained one sits at ln(vocab).
-    Returns (sample_fn(n_seqs, seq_len, rng) -> int32 (n, S+1), the exact
-    per-token cross-entropy floor in nats)."""
+@functools.lru_cache(maxsize=4)
+def _bigram_table(vocab_size, seed, concentration):
+    """(row-wise cumulative transition table, read-only; the floor) of
+    bigram_corpus. A pure function of its arguments, kept for the
+    process: at vocab 8192 its vocab^2 Dirichlet draws take seconds, and
+    a process that builds several streams of one corpus (a resume, each
+    mesh branch) makes the table once."""
     rs = np.random.RandomState(seed)
     probs = rs.dirichlet([concentration] * vocab_size, size=vocab_size)
     # asymptotic floor: row entropies weighted by the chain's STATIONARY
@@ -139,6 +141,18 @@ def bigram_corpus(vocab_size=512, seed=0, concentration=0.3):
     cum = np.cumsum(probs, axis=1)
     cum[:, -1] = 1.0   # float cumsum can end at 1-eps; u above it would
     #                    index one past the vocab
+    cum.flags.writeable = False
+    return cum, floor
+
+
+def bigram_corpus(vocab_size=512, seed=0, concentration=0.3):
+    """Learnable synthetic token stream: a fixed random bigram transition
+    table (Dirichlet rows, peaked by ``concentration``). A model that
+    learns the table reaches the table's conditional entropy; an
+    untrained one sits at ln(vocab).
+    Returns (sample_fn(n_seqs, seq_len, rng) -> int32 (n, S+1), the exact
+    per-token cross-entropy floor in nats)."""
+    cum, floor = _bigram_table(vocab_size, seed, concentration)
 
     def sample(n, seq_len, rng):
         toks = np.empty((n, seq_len + 1), np.int32)

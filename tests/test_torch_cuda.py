@@ -370,13 +370,15 @@ def _flash_inputs(shape, dtype, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_flash_backward_is_deterministic_on_card(cuda, causal, dtype):
+def test_flash_backward_is_deterministic_on_card(cuda, causal, dtype, d):
     # two kernels and no atomics: each output element is summed by one
-    # thread in a fixed order, launch after launch
-    q, k, v, do = _flash_inputs((2, 4, 512, 128), dtype, 33)
+    # thread in a fixed order, launch after launch (bf16 at head_dim 256:
+    # the wgmma kernels, each warpgroup its own 128 columns)
+    q, k, v, do = _flash_inputs((2, 4, 512, d), dtype, 33)
     o, lse = ca.flash_attention_fwd(q, k, v, causal)
     runs = []
     for _ in range(2):
@@ -454,8 +456,11 @@ def test_flash_kernels_take_unbuilt_head_dims_on_card(cuda, d, causal, dtype):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_flash_kernels_at_head_dim_256_on_card(cuda, causal, dtype):
-    # the widest built head_dim (ROADMAP B0): the f32 kernels on 32-row
-    # tiles, the bf16 ones with O's columns split over the grid's z axis
+    # the widest built head_dim (ROADMAP B0): the f32 kernels in split
+    # TF32 with the output columns split over the grid's z axis; bf16, the
+    # forward with O's columns split so, the backward on wgmma, one CTA of
+    # two warpgroups owning all 256 columns of its 64 rows (S = 300: a
+    # ragged last tile)
     _flash_kernels_against_plain(256, causal, dtype)
 
 

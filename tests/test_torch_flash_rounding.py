@@ -79,7 +79,10 @@ from sparknet_tpu_torch.ops import cuda_attention as ca
 BWD_TILE_LIMIT = 5e-3     # chip_smoke.FLASH_BWD_TILE_LIMIT["bfloat16"]
 FWD_TILE_LIMIT = 5e-3     # chip_smoke.FLASH_TILE_LIMIT["bfloat16"]
 SHAPES = [pytest.param((1, 2, 512, 128), id="S512-D128"),
-          pytest.param((2, 3, 256, 64), id="S256-D64")]
+          pytest.param((2, 3, 256, 64), id="S256-D64"),
+          # the widest tiled head_dim: the wgmma backward's rounding points
+          # are the mma.sync kernels' (P and dS to bf16 once)
+          pytest.param((1, 1, 128, 256), id="S128-D256")]
 # past head_dim 256: D = 320 (padded to 384, three ranks) and 512 (four)
 WIDE_SHAPES = [pytest.param((1, 2, 128, 320), id="S128-D320"),
                pytest.param((1, 1, 128, 512), id="S128-D512")]

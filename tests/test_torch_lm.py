@@ -59,6 +59,27 @@ def test_bigram_stream_matches_jax():
             assert b[k].dtype == np.int32
 
 
+@pytest.mark.parametrize("seed", [0, 5])
+def test_bigram_table_is_made_once_and_streams_stay_the_jax_ones(seed):
+    """The transition table is kept for the process: a second stream of
+    one corpus reuses it (read-only), a stream of another seed does not,
+    and every stream stays the JAX package's, draw for draw."""
+    from sparknet_tpu_torch.data.synthetic import _bigram_table
+    first = _bigram_table(96, seed, 0.3)
+    assert _bigram_table(96, seed, 0.3) is first
+    assert _bigram_table(96, seed + 1, 0.3)[0] is not first[0]
+    assert not first[0].flags.writeable
+    (jit, jfloor), (tit, tfloor), (again, _) = (
+        j_stream(96, 3, 24, seed=seed), lm_batch_stream(96, 3, 24, seed=seed),
+        lm_batch_stream(96, 3, 24, seed=seed))
+    assert tfloor == jfloor
+    for _ in range(2):
+        a, b, c = next(jit), next(tit), next(again)
+        for k in ("data", "label"):
+            np.testing.assert_array_equal(a[k], b[k])
+            np.testing.assert_array_equal(b[k], c[k])
+
+
 @pytest.fixture(scope="module")
 def jax_lm():
     """The JAX net, its params (numpy) and, for one batch, its f32 loss
