@@ -3,16 +3,21 @@
 turns: baseline, this tree, this tree, baseline.
 
     python3 scripts/flash_ab.py --baseline <an older csrc/ dir>
+        [--cases bf16-256] [--sass]
 
 The kernels are the forward (csrc/flash_fwd.cu) and the dQ and dK/dV
 kernels (csrc/flash_bwd.cu) of sparknet_tpu_torch, at the shapes of
 chip_smoke.py phase 6's f32 cases up to head_dim 256, its bf16 cases at
-head_dim 256 (the wgmma backward), its cases past 256 (the wide
-kernels, csrc/flash_wide.cuh) in f32 and bf16, and one bf16 case whose
-kernels the trees share (SAME_KERNEL_CASE: its ratio is the call's
-noise floor). The baseline's sources are built here with this tree's
-nvcc flags into _work/flash_ab/; this tree's kernels, and their one-pass
-TF32 control (cuda_build.TF32_ONE_PASS), are the libraries of cuda_build
+head_dim 256 and 192 (the head_dim-256 wgmma kernels), its cases past
+256 (the wide kernels, csrc/flash_wide.cuh) in f32 and bf16, and one
+bf16 case whose kernels the trees share (SAME_KERNEL_CASE: its ratio is
+the call's noise floor); ``--cases bf16-256`` keeps only the bf16 cases
+at head_dim 256 and 192 and the shared case; ``--sass`` first prints the
+instructions (cuobjdump) in which the two trees' bf16 forward kernels up
+to head_dim 128 differ. The baseline's sources are built here with
+this tree's nvcc flags into _work/flash_ab/; this tree's kernels, and
+their one-pass TF32 control
+(cuda_build.TF32_ONE_PASS), are the libraries of cuda_build
 (cuda_build.library builds them there if chip_smoke.py has not yet).
 All are called through their C entry points, whose signatures the
 trees share, on the inputs zero-padded as this tree's wrappers pad them
@@ -37,8 +42,10 @@ last one JSON object with every number.
 
 import argparse
 import ctypes
+import difflib
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -58,8 +65,19 @@ SOURCES = ("flash_fwd", "flash_bwd")
 SAME_KERNEL_CASE = ((4, 8, 4096, 128), "bfloat16", True)
 CASES = [(shape, dtype, causal)
          for shape, dtype, causal, _ in chip_smoke.FLASH_CASES
-         if dtype == "float32" or shape[-1] >= ca.HEAD_DIMS[-1]
+         if dtype == "float32"
+         or ca.built_head_dim(shape[-1]) >= ca.HEAD_DIMS[-1]
          or (shape, dtype, causal) == SAME_KERNEL_CASE]
+# --cases bf16-256: the head_dim-256 bf16 kernels and the shared case
+CASE_SETS = {"all": lambda c: True,
+             "bf16-256": lambda c: c == SAME_KERNEL_CASE or (
+                 c[1] == "bfloat16" and ca.built_head_dim(c[0][-1]) == 256)}
+# --sass: the bf16 forward's instantiations up to head_dim 128, whose
+# instructions a tree may mean to leave as they were
+SASS_KERNELS = tuple(
+    f"_ZN14sparknet_flash22flash_fwd_wgmma_kernelILi{d}EEEv14CUtensorMap_st"
+    "S1_S1_P13__nv_bfloat16Pfifi" for d in (16, 32, 64, 128))
+BRANCH = re.compile(r"\b(BRA|BRX|BSSY|CALL\.\S+|JMP|JMX)\b")
 KERNELS = (("fwd", "flash_attention", "O"), ("dq", "flash_attention_dq", "dQ"),
            ("dkv", "flash_attention_dkv", "dK"))
 
@@ -86,6 +104,38 @@ def build(csrc, out_dir):
             libs[name] = ctypes.CDLL(so)
         return libs
     return wait
+
+
+def sass(so, function):
+    """The instructions of ``function`` in the library ``so`` as cuobjdump
+    prints them, without addresses and encodings; a branch's target,
+    which moves with any instruction before it, reads TARGET."""
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", "-fun", function, so],
+                         capture_output=True, text=True, check=True).stdout
+    lines = []
+    for line in out.splitlines():
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        if m:
+            text = m.group(1)
+            lines.append(re.sub(r"0x[0-9a-f]+", "TARGET", text)
+                         if BRANCH.search(text) else text)
+    chip_smoke.check(lines, f"cuobjdump found no {function} in {so}")
+    return lines
+
+
+def sass_diff(baseline_so, new_so):
+    """Print, for each of SASS_KERNELS, the two trees' instruction counts
+    and every instruction one has and the other has not."""
+    for fn in SASS_KERNELS:
+        a, b = sass(baseline_so, fn), sass(new_so, fn)
+        diff = [line for line in difflib.unified_diff(a, b, lineterm="", n=0)
+                if line[:1] in "+-" and line[:3] not in ("+++", "---")]
+        print(f"[sass] {fn}: {len(a)} instructions in the baseline, "
+              f"{len(b)} here; {sum(x[0] == '-' for x in diff)} only in the "
+              f"baseline, {sum(x[0] == '+' for x in diff)} only here")
+        for line in diff:
+            print(f"[sass]   {line}")
 
 
 def held_to_plain(arm, what, outs, refs, f32):
@@ -121,6 +171,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", required=True,
                     help="the csrc/ directory of the baseline tree")
+    ap.add_argument("--cases", choices=sorted(CASE_SETS), default="all",
+                    help="the cases to time (default: all)")
+    ap.add_argument("--sass", action="store_true",
+                    help="first diff the SASS of the bf16 forward's "
+                         "instantiations up to head_dim 128 in both trees")
     args = ap.parse_args()
     chip_smoke.check(torch.cuda.is_available(), "no CUDA card")
     card = chip_smoke.nvidia_smi()
@@ -131,12 +186,16 @@ def main():
         for source in SOURCES:
             cuda_build.library(source, defines)
     arms = {"baseline": chip_smoke.flash_entry_points(wait())}
+    if args.sass:
+        sass_diff(os.path.join(REPO, "_work", "flash_ab", "baseline",
+                               "flash_fwd.so"),
+                  cuda_build.library_path("flash_fwd"))
     arms.update((arm, chip_smoke.flash_entry_points(defines=d))
                 for arm, d in variants.items())
     timer = chip_smoke.Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
     results = []
-    for shape, dname, causal in CASES:
+    for shape, dname, causal in filter(CASE_SETS[args.cases], CASES):
         b, h, s, d = shape
         f32 = dname == "float32"
         dtype = getattr(torch, dname)

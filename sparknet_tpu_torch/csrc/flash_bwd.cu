@@ -449,17 +449,11 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 constexpr int kBwdWgThreads = 256;   // two warpgroups
 constexpr int kDqRows = 128;         // query rows of a dQ CTA, 64 a warpgroup
 
-// Shared-memory geometry of the head_dim-256 bf16 backward (bytes): a
-// 64-row tile of 256 columns is four column blocks of 64 rows x 128 bytes
-// in the 128-byte swizzle that TMA writes and wgmma reads
-// (flash_wgmma.cuh); dQ's 128-row Q and dO tiles have blocks of 128
-// rows, and dK/dV's handoff tiles (P^T, dS^T) are one block of 64 x 64.
-struct Bwd256Tiles {
-  static constexpr int D = 256;
-  static constexpr int RB = 128;               // a swizzled row, bytes
-  static constexpr int BLOCK = 64 * RB;        // 64 rows of 64 columns
-  static constexpr int TILE = 4 * BLOCK;       // 64 rows of 256 columns
-  static constexpr int SBO = 8 * RB;           // 8 rows
+// Shared-memory geometry of the head_dim-256 bf16 backward (bytes; the
+// 64 x 256 tiles of flash_wgmma.cuh's Tile256): dQ's 128-row Q and dO
+// tiles have blocks of 128 rows, and dK/dV's handoff tiles (P^T, dS^T)
+// are one block of 64 x 64.
+struct Bwd256Tiles : Tile256 {
   // dQ: 128 rows of Q and dO, two K slots and one V slot, seven
   // mbarriers and 128 f32 rows of delta; dK/dV: 64 rows of K and V, two
   // stages of Q and dO, the P^T and dS^T tiles, three mbarriers; both
@@ -467,42 +461,6 @@ struct Bwd256Tiles {
   static constexpr size_t kDqSmem = 7 * TILE + 64 + 512 + 1024;
   static constexpr size_t kDkvSmem = 6 * TILE + 2 * BLOCK + 64 + 1024;
 };
-
-// byte offset of element (r, c) in a swizzled 64 x 64 bf16 block
-__device__ __forceinline__ uint32_t swz128(int r, int c) {
-  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
-}
-
-// K-major descriptor of the 16 columns kk * 16 .. of a 256-column tile
-// whose column blocks are `block` bytes apart, from row `row0` (a
-// multiple of 8) on
-__device__ __forceinline__ uint64_t kmajor256(uint32_t tile, int row0,
-                                              int kk, int block) {
-  using L = Bwd256Tiles;
-  return wgmma_desc(tile + (kk >> 2) * block + row0 * L::RB + (kk & 3) * 32,
-                    16, L::SBO, L::RB);
-}
-
-// MN-major descriptor of rows kk * 16 .. kk * 16 + 15 of a 256-column
-// tile, columns 128 half .. 128 half + 127 (two column blocks)
-__device__ __forceinline__ uint64_t mnmajor256(uint32_t tile, int half,
-                                               int kk) {
-  using L = Bwd256Tiles;
-  return wgmma_desc(tile + 2 * half * L::BLOCK + kk * 16 * L::RB, L::BLOCK,
-                    L::SBO, L::RB);
-}
-
-// the tile of a (D, seq, bh) map at rows row0.. (its box: 64 or 128
-// rows), four column blocks `block` bytes apart into `dst`, completing on
-// `bar`
-__device__ __forceinline__ void tma_tile256(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int row0, int bh,
-                                            int block) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    tma_load_3d(dst + c * block, map, bar, c * 64, row0, bh);
-}
 
 __global__ void __launch_bounds__(kBwdWgThreads, 1)
     flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,

@@ -13,9 +13,10 @@
 // does 2 * 2 * S^2 * D / 2 = 4.3 GFLOP on 4 MB of bf16 q, k, v, o: ~1000
 // operations per byte, far above the card's balance.
 //
-// bf16 storage (flash_fwd_wgmma_kernel): both products on the tensor
-// cores through wgmma (flash_wgmma.cuh). A CTA of two warpgroups owns 128
-// query rows of one (b, h), 64 per warpgroup (one m64 tile).
+// bf16 storage up to head_dim 128 (flash_fwd_wgmma_kernel): both products
+// on the tensor cores through wgmma (flash_wgmma.cuh). A CTA of two
+// warpgroups owns 128 query rows of one (b, h), 64 per warpgroup (one m64
+// tile).
 //  - Loads: one thread issues TMA copies through 3-D tensor maps
 //    (D, S, B*H), so rows past S of one (b, h) arrive as zeros and never
 //    as the next head's rows. Q lands once; K and V follow in 128-key
@@ -38,26 +39,63 @@
 //  - Causal: key tiles past the diagonal are skipped and the mask runs
 //    only on the tile that crosses it or S; the query tile is the slow
 //    grid axis, last tile first, so the longest CTAs start first.
-//  - Not yet: a producer warp with setmaxnreg (warp specialisation), the
-//    ping-pong of two warpgroups that puts one's softmax under the
-//    other's products, a persistent grid, and a TMA store of O. Both
-//    warpgroups wait at one barrier per key tile before its stage is
-//    refilled, so the tensor cores idle while both do their softmax.
-//  - Head_dim 256 (WgTiles): an O accumulator of all 256 columns (128
-//    f32 a thread) beside S (64) would pass 255 registers, and Q, K, V
-//    and a second stage would pass 227 KB of shared memory. So the grid's
-//    z axis splits O's columns in two 128-wide halves: each CTA computes
-//    S = Q K^T over all of D, reads only its half of V and writes its
-//    half of O (and the first, LSE); the ring keeps one K/V stage (Q 64
-//    KB + K 64 KB + half of V 32 KB). The split costs one more S product
-//    a tile; the single stage serialises each tile's loads and products.
+//  - Not yet: the head_dim-256 kernel's producer warpgroup and its S of
+//    the next tile under this tile's P V (below), a persistent grid, and
+//    a TMA store of O. Both warpgroups wait at one barrier per key tile
+//    before its stage is refilled.
+//
+// bf16 storage at head_dim 256 (flash_fwd_wgmma256_kernel; and D 129-255,
+// zero-padded to it): one CTA owns all 256 columns of O for its query
+// rows, so S = Q K^T is built once per tile pair. 384 threads: a
+// producer warpgroup and two consumer warpgroups; setmaxnreg leaves the
+// producer 24 registers a thread and gives the consumers 240, enough for
+// O's 128 f32 accumulators a thread beside S (32) and P (16).
+//  - The CTA owns 128 query rows, 64 a consumer warpgroup, and walks the
+//    keys in tiles of 64. Q is resident (128 x 256 bf16, 64 KB); K and V
+//    of a tile go through two stages of 32 KB each (128 KB), four TMA
+//    blocks of 64 columns in the 128-byte swizzle (Tile256): 194 KB in
+//    all, one CTA an SM.
+//  - Per warpgroup and tile: S = Q K^T as m64n64k16 over 16 k-steps of D
+//    (both operands in shared memory); the online softmax on its 32 f32
+//    a thread; P packed from S's accumulators into bf16 A fragments; O
+//    += P V as four register-A m64n256k16 steps, V read MN-major. The
+//    rounding points are those of the kernel above.
+//  - No CTA barrier in the key loop: a full and an empty mbarrier guard
+//    each stage's K and V. K of a tile is released once both warpgroups'
+//    S is done, V once both have added their P V; the producer's one
+//    thread refills each as it frees. S of tile j goes to the tensor
+//    cores before P V of tile j - 1, so the softmax of tile j runs under
+//    that P V (wgmma_wait<1>); O is rescaled after the P V is done, and
+//    only by a warp whose rows' max moved (a factor of 1 is exact).
+//  - Causal: key tiles past the diagonal are skipped; the first
+//    warpgroup's rows see none of the CTA's last tile, which it leaves;
+//    the mask runs only on the tiles that cross the diagonal or S; the
+//    query tile is the slow grid axis, last tile first.
+//  - Grids of fewer 128-row CTAs than the card has SMs (the host asks the
+//    device) take the split variant: a CTA of 64 query rows, twice as
+//    many CTAs, whose warpgroups walk the even and the odd key tiles,
+//    each its own stage, with its own (m, l, O), in the order S, softmax,
+//    P V (one stage a warpgroup leaves nothing to put under P V); at the
+//    end the second hands its m, l and O (f32, through its stage) to the
+//    first, which adds them to its own in that order, in f32.
+//  - No atomics: each O element and LSE row is summed by one warpgroup
+//    (and, in the split variant, the two halves added by one thread) in
+//    a fixed order, so two launches give bitwise the same O and LSE.
+//  - Tried and dropped (scripts/flash_ab.py, PERF.md): the two consumer
+//    warpgroups taking turns at the tensor cores on named barriers
+//    (ping-pong), 0.99x; no producer warpgroup, one consumer thread
+//    refilling each stage, 0.89x; a producer warp beside the consumers
+//    (288 threads), which leaves 168 registers a thread and spills.
 //  - Registers a thread, shared memory and CTAs per SM, as the runtime
 //    reports them on the H100 (sparknet_flash_forward_info, printed and
 //    checked by chip_smoke.py phase 6); no instantiation spills:
 //        D      16           32           64           128          256
-//               130 21 KB 1  138 42 KB 1  154 83 KB 1  186 161 KB 1  186 161 KB 1
-//    At the LM's (4, 8, 4096, 128) causal: 0.39-0.40 ms, 341-351 TFLOP/s,
-//    1.2-1.5x F.scaled_dot_product_attention's time (PERF.md).
+//               130 21 KB 1  138 42 KB 1  154 83 KB 1  186 161 KB 1  168 194 KB 1
+//    (at D = 256 the count at launch, 384 threads; the consumers run at
+//    240 after setmaxnreg). At the LM's (4, 8, 4096, 128) causal:
+//    0.32 ms, ~430 TFLOP/s, 1.24x F.scaled_dot_product_attention's time;
+//    at the d_model 2048 LM's (2, 8, 4096, 256) causal: 0.27 ms, ~510
+//    TFLOP/s, level with it (PERF.md).
 //
 // f32 storage (flash_fwd_tf32_kernel): both products on the tensor cores
 // in split TF32 (3xTF32, flash_tf32.cuh): each f32 operand is split into
@@ -81,7 +119,7 @@
 //    accumulators, one tile's sum added to O in f32.
 //  - Head_dim 256: O's columns split in two 128-wide halves over the
 //    grid's z axis (each CTA computes S over all of D and reads its half
-//    of V), as the bf16 kernel does.
+//    of V).
 //  - Causal: key tiles past the diagonal are skipped; the query tile is
 //    the slow grid axis, last tile first.
 //  - Bound: operations. At the LM's (4, 8, 4096, 128) causal, 137 GFLOP:
@@ -99,6 +137,7 @@
 //    PERF.md).
 // The storage type picks the kernel and nothing else does.
 
+#include <algorithm>
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -116,29 +155,22 @@ using bf16 = __nv_bfloat16;
 constexpr int kWgRows = 128;       // query rows per CTA, 64 per warpgroup
 constexpr int kWgKeys = 128;       // keys per tile
 constexpr int kWgThreads = 256;    // two warpgroups
+constexpr int kWgStages = 2;       // the K/V ring's depth
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared-memory geometry at head_dim D (bytes; flash_wgmma.cuh). Up to
-// D = 128 a CTA computes all D columns of O through a ring of two K/V
-// stages. At D = 256 an O accumulator of all columns would not fit in a
-// thread's registers: the grid's z axis splits O's columns in DO = 128
-// wide halves, each CTA computes the whole of S = Q K^T (its reduction
-// runs over all of D) and O for its half, reading only its half of V;
-// and the ring holds one stage, so that Q, K and half of V fit in
-// shared memory (64 + 64 + 32 KB).
+// Shared-memory geometry at head_dim D <= 128 (bytes; flash_wgmma.cuh): a
+// CTA computes all D columns of O through a ring of two K/V stages.
 template <int D>
 struct WgTiles {
-  static constexpr int DO = D > 128 ? 128 : D;   // O columns of a CTA
-  static constexpr int STAGES = D > 128 ? 1 : 2;  // K/V ring depth
+  static_assert(D <= 128, "bf16 head_dim 256 runs flash_fwd_wgmma256_kernel");
   static constexpr int W = D < 64 ? D : 64;   // columns of a swizzle block
   static constexpr int RB = 2 * W;            // its row: the swizzle bytes
   static constexpr int BLOCK = 128 * RB;      // one block of a 128-row tile
-  static constexpr int TILE = 128 * D * 2;    // a 128-row tile of Q or K
-  static constexpr int VTILE = 128 * DO * 2;  // a CTA's columns of a V tile
-  static constexpr int STAGE = TILE + VTILE;  // K then V
+  static constexpr int TILE = 128 * D * 2;    // a 128-row tile of Q, K or V
+  static constexpr int STAGE = 2 * TILE;      // K then V
   static constexpr int SBO = 8 * RB;          // 8 rows
   // Q, the stages of K and V, their mbarriers, 1024-byte alignment
-  static constexpr size_t kSmem = TILE + STAGES * STAGE + 64 + 1024;
+  static constexpr size_t kSmem = TILE + kWgStages * STAGE + 64 + 1024;
 };
 
 template <int D>
@@ -153,14 +185,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   // the swizzle atoms repeat every 1024 bytes: tiles start on that
   const uint32_t qs = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t kv = qs + L::TILE;   // stage st at kv + st STAGE: K, V
-  const uint32_t bars = kv + L::STAGES * L::STAGE;   // Q, then each stage
+  const uint32_t bars = kv + kWgStages * L::STAGE;   // Q, then each stage
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
   const int lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;   // causal: longest CTAs first
   const int q0 = qt * kWgRows;
   const int n_k = causal ? qt + 1 : gridDim.y;   // key tiles to walk
-  const int col0 = blockIdx.z * L::DO;         // this CTA's columns of O
 
   const CUtensorMap *mq = &tm_q, *mk = &tm_k, *mv = &tm_v;
   // column blocks [c0, c0 + n) of rows [row0, row0 + 128)
@@ -170,37 +201,37 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       tma_load_3d(dst + c * L::BLOCK, map, bar, (c0 + c) * L::W, row0, bh);
   };
   auto load_kv = [&](int j) {
-    const int st = j % L::STAGES;
+    const int st = j % kWgStages;
     const uint32_t bar = bars + 8 + 8 * st;
     const uint32_t dst = kv + st * L::STAGE;
     mbar_expect_tx(bar, L::STAGE);
     load(dst, mk, bar, j * kWgKeys, 0, D / L::W);
-    load(dst + L::TILE, mv, bar, j * kWgKeys, col0 / L::W, L::DO / L::W);
+    load(dst + L::TILE, mv, bar, j * kWgKeys, 0, D / L::W);
   };
   if (tid == 0) {
-    for (int i = 0; i <= L::STAGES; ++i) mbar_init(bars + 8 * i, 1);
+    for (int i = 0; i <= kWgStages; ++i) mbar_init(bars + 8 * i, 1);
     mbar_fence_init();
   }
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(bars, L::TILE);
     load(qs, mq, bars, q0, 0, D / L::W);
-    for (int j = 0; j < L::STAGES && j < n_k; ++j) load_kv(j);
+    for (int j = 0; j < kWgStages && j < n_k; ++j) load_kv(j);
   }
 
   const float sl2 = scale * kLog2e;
   const int row = wg * 64 + warp * 16 + g;   // this thread's rows of the
                                              // CTA's 128: row, row + 8
-  float acc[L::DO / 2];                      // O, unnormalised
+  float acc[D / 2];                          // O, unnormalised
 #pragma unroll
-  for (int e = 0; e < L::DO / 2; ++e) acc[e] = 0.f;
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // m in log2 units
   mbar_wait(bars, 0);                        // Q has landed
 
   for (int j = 0; j < n_k; ++j) {
-    const int st = j % L::STAGES;
+    const int st = j % kWgStages;
     const uint32_t ks = kv + st * L::STAGE, vs = ks + L::TILE;
-    mbar_wait(bars + 8 + 8 * st, (j / L::STAGES) & 1);   // K, V of tile j
+    mbar_wait(bars + 8 + 8 * st, (j / kWgStages) & 1);   // K, V of tile j
     float s[64];                             // S: 64 rows x 128 keys
     wgmma_fence();
 #pragma unroll
@@ -248,7 +279,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
 #pragma unroll
-    for (int e = 0; e < L::DO / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+    for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
     uint32_t pf[8][4];                       // P as A fragments, keys 16 kk..
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
@@ -261,14 +292,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
-      wgmma_rs_tb<L::DO>(
+      wgmma_rs_tb<D>(
           acc, pf[kk],
           wgmma_desc(vs + kk * 16 * L::RB, L::BLOCK, L::SBO, L::RB));
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(acc);
     __syncthreads();                         // stage st is free
-    if (tid == 0 && j + L::STAGES < n_k) load_kv(j + L::STAGES);
+    if (tid == 0 && j + kWgStages < n_k) load_kv(j + kWgStages);
   }
 
   const long long r0 = static_cast<long long>(bh) * seq;
@@ -279,12 +310,296 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int r = q0 + row + 8 * i;
     if (r >= seq) continue;
     const float lc = fmaxf(lt, 1e-30f);
-    bf16* orow = o + (r0 + r) * D + col0;
+    bf16* orow = o + (r0 + r) * D;
 #pragma unroll
-    for (int n = 0; n < L::DO / 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) =
           pack_bf16(acc[4 * n + 2 * i] / lc, acc[4 * n + 2 * i + 1] / lc);
-    if (t == 0 && col0 == 0) lse[r0 + r] = m[i] * kLn2 + logf(lc);
+    if (t == 0) lse[r0 + r] = m[i] * kLn2 + logf(lc);
+  }
+}
+
+// bf16 storage at head_dim 256 (and 129-255, zero-padded to it): the
+// tensor-core kernel of the note at the top that owns all 256 columns.
+
+constexpr int kFwd256Threads = 384;   // a producer warpgroup, two consumer
+                                      // warpgroups
+
+// Shared memory of the head_dim-256 forward (bytes; Tile256): Q (128
+// rows, 64 in the split variant), two stages of K then V (64 keys each),
+// nine mbarriers, the split variant's row state of its second warpgroup
+// (m and l of 64 rows), and 1024 bytes to align the tiles.
+struct Fwd256Tiles : Tile256 {
+  static constexpr int STAGE = 2 * TILE;      // K, then V, of one key tile
+  static constexpr int kBars = 128;           // nine mbarriers, rounded up
+  static constexpr size_t smem(bool split) {
+    return (split ? TILE : 2 * TILE) + 2 * STAGE + kBars + 512 + 1024;
+  }
+};
+
+// kSplit: the variant for grids smaller than the card, a CTA of 64 query
+// rows whose warpgroups walk alternate key tiles and combine at the end.
+template <bool kSplit>
+__global__ void __launch_bounds__(kFwd256Threads, 1)
+    flash_fwd_wgmma256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              bf16* __restrict__ o, float* __restrict__ lse,
+                              int seq, float scale, int causal) {
+  using L = Fwd256Tiles;
+  constexpr int kRows = kSplit ? 64 : 128;       // query rows of a CTA
+  constexpr int kQBlock = kRows * L::RB;         // Q's column blocks apart
+  constexpr int kReaders = kSplit ? 128 : 256;   // threads that read a stage
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t qs = (raw + 1023) & ~1023u;     // this CTA's queries
+  // stage st (key tile j: st = j & 1): K at stages + st STAGE, V a TILE on
+  const uint32_t stages = qs + kRows * L::D * 2;
+  // mbarriers: +0 Q; +8, +16 K full; +24, +32 V full; +40, +48 K free;
+  // +56, +64 V free (every thread that reads the stage arrives)
+  const uint32_t bars = stages + 2 * L::STAGE;
+  float* row_state =
+      reinterpret_cast<float*>(smem_raw + (bars + L::kBars - raw));
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;     // causal: longest CTAs first
+  const int q0 = qt * kRows;
+  const int key_tiles = (seq + kBlockK - 1) / kBlockK;
+  const int n_k = causal ? min((q0 + kRows) / kBlockK, key_tiles)
+                         : key_tiles;
+
+  if (tid == 0) {
+    mbar_init(bars, 1);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(bars + 8 + 8 * st, 1);
+      mbar_init(bars + 24 + 8 * st, 1);
+      mbar_init(bars + 40 + 8 * st, kReaders);
+      mbar_init(bars + 56 + 8 * st, kReaders);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer warpgroup: one thread loads Q, then K and V of each key
+    // tile j into its stage once the stage's last tile, j - 2, is read
+    setmaxnreg_dec<24>();
+    if (tid == 256) {
+      const CUtensorMap *mq = &tm_q, *mk = &tm_k, *mv = &tm_v;
+      mbar_expect_tx(bars, kRows * L::D * 2);
+      tma_tile256(qs, mq, bars, q0, bh, kQBlock);
+      for (int j = 0; j < n_k; ++j) {
+        const int st = j & 1;
+        const uint32_t ks = stages + st * L::STAGE;
+        const uint32_t freed = ((j >> 1) - 1) & 1;
+        if (j >= 2) mbar_wait(bars + 40 + 8 * st, freed);
+        mbar_expect_tx(bars + 8 + 8 * st, L::TILE);
+        tma_tile256(ks, mk, bars + 8 + 8 * st, j * kBlockK, bh, L::BLOCK);
+        if (j >= 2) mbar_wait(bars + 56 + 8 * st, freed);
+        mbar_expect_tx(bars + 24 + 8 * st, L::TILE);
+        tma_tile256(ks + L::TILE, mv, bars + 24 + 8 * st, j * kBlockK, bh,
+                    L::BLOCK);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  // this warpgroup's rows start at r0w; this thread's: r0w + row, + 8
+  const int r0w = q0 + (kSplit ? 0 : 64 * wg);
+  const int row = 16 * warp + g;
+  const uint32_t qa = qs + (kSplit ? 0 : 64 * wg * L::RB);
+  const float sl2 = scale * kLog2e;
+  float acc[128];                      // O, unnormalised, all 256 columns
+#pragma unroll
+  for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // m in log2 units
+  // this warpgroup's key tiles: j0, j0 + step, .. below j_end. Causal:
+  // the first warpgroup's rows end before the CTA's last tile, which it
+  // leaves (no later tile needs that stage, so it does not release it)
+  const int step = kSplit ? 2 : 1, j0 = kSplit ? wg : 0;
+  const int j_end =
+      !kSplit && causal && (n_k - 1) * kBlockK > r0w + 63 ? n_k - 1 : n_k;
+
+  // S = Q K^T of tile j into s (K-major operands in shared memory)
+  auto scores = [&](int j, float (&s)[32]) {
+    const int st = j & 1;
+    mbar_wait(bars + 8 + 8 * st, (j >> 1) & 1);   // K of tile j
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk)
+      wgmma_ss_n64(s, kmajor256(qa, 0, kk, kQBlock),
+                   kmajor256(stages + st * L::STAGE, 0, kk, L::BLOCK),
+                   kk > 0);
+    wgmma_commit();
+  };
+  // O += P V of tile j, all 256 columns: V read MN-major
+  auto add_pv = [&](int j, const uint32_t (&pf)[4][4]) {
+    const int st = j & 1;
+    const uint32_t vs = stages + st * L::STAGE + L::TILE;
+    mbar_wait(bars + 24 + 8 * st, (j >> 1) & 1);  // V of tile j
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tb<256>(acc, pf[kk],
+                       wgmma_desc(vs + kk * 16 * L::RB, L::BLOCK, L::SBO,
+                                  L::RB));
+    wgmma_commit();
+  };
+  // the online softmax of tile j's scores in s: p = exp2(s sl2 - m) in
+  // place, l and m updated; -> alpha, O's factor
+  auto softmax = [&](int j, float (&s)[32], float (&alpha)[2]) {
+    const int k0 = j * kBlockK;
+    const bool edge = (causal && k0 + kBlockK - 1 > r0w) ||
+                      k0 + kBlockK > seq;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      float x = s[e] * sl2;
+      if (edge) {
+        // a query row past seq is never stored: only keys are masked
+        const int c = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        if (c >= seq || (causal && c > r0w + row + 8 * i)) x = kNegInf;
+      }
+      s[e] = x;
+      mx[i] = fmaxf(mx[i], x);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      s[e] = exp2f(s[e] - m[i]);
+      sum[i] += s[e];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+  };
+  // P as A fragments of P V, keys 16 kk .., rounded to bf16
+  auto pack = [&](const float (&s)[32], uint32_t (&pf)[4][4]) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  };
+
+  mbar_wait(bars, 0);                  // Q has landed
+  if (j0 < j_end) {
+    float s[32], alpha[2];             // S: 64 rows x 64 keys
+    uint32_t pf[4][4];
+    scores(j0, s);
+    wgmma_wait<0>();
+    fence_operands(s);
+    mbar_arrive(bars + 40 + 8 * (j0 & 1));   // K of tile j0 is read
+    softmax(j0, s, alpha);             // O is still 0: no rescale
+    pack(s, pf);
+    for (int j = j0 + step; j < j_end; j += step) {
+      const int jp = j - step;
+      if (kSplit) {
+        // one stage a warpgroup: P V of the tile before goes first, so
+        // that its V is free for the next load under this tile's S
+        add_pv(jp, pf);
+        wgmma_wait<0>();
+        fence_operands(acc);
+        mbar_arrive(bars + 56 + 8 * (jp & 1));   // V of tile jp is read
+        scores(j, s);
+        wgmma_wait<0>();
+        fence_operands(s);
+        mbar_arrive(bars + 40 + 8 * (j & 1));    // K of tile j is read
+        softmax(j, s, alpha);
+      } else {
+        // S of tile j goes to the tensor cores before P V of the tile
+        // before, so that tile j's softmax runs under that P V
+        scores(j, s);
+        add_pv(jp, pf);
+        wgmma_wait<1>();
+        fence_operands(s);
+        mbar_arrive(bars + 40 + 8 * (j & 1));    // K of tile j is read
+        softmax(j, s, alpha);
+        wgmma_wait<0>();
+        fence_operands(acc);
+        mbar_arrive(bars + 56 + 8 * (jp & 1));   // V of tile jp is read
+      }
+      // O's rescale, left out by a warp whose rows kept their max (a
+      // factor of 1 is exact either way)
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int e = 0; e < 128; ++e) acc[e] *= alpha[(e >> 1) & 1];
+      }
+      pack(s, pf);
+    }
+    const int jl = j0 + (j_end - 1 - j0) / step * step;   // the last
+    add_pv(jl, pf);
+    wgmma_wait<0>();
+    fence_operands(acc);
+    mbar_arrive(bars + 56 + 8 * (jl & 1));     // V of tile jl is read
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  if (kSplit) {
+    // the second warpgroup hands its (m, l, O) to the first through stage
+    // 1 (only it read that stage, and it has read it to the end) and the
+    // row state; the first adds them to its own, its own first, in f32
+    float* part =
+        reinterpret_cast<float*>(smem_raw + (stages + L::STAGE - raw));
+    const int slot = tid & 127;
+    if (wg == 1) {
+#pragma unroll
+      for (int e = 0; e < 128; ++e) part[e * 128 + slot] = acc[e];
+      if (t == 0)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          row_state[row + 8 * i] = m[i];
+          row_state[64 + row + 8 * i] = l[i];
+        }
+      named_bar_arrive(3, 256);
+      return;
+    }
+    named_bar_sync(3, 256);
+    float a0[2], a1[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m1 = row_state[row + 8 * i];
+      const float mm = fmaxf(m[i], m1);
+      a0[i] = exp2f(m[i] - mm);
+      a1[i] = exp2f(m1 - mm);
+      l[i] = l[i] * a0[i] + row_state[64 + row + 8 * i] * a1[i];
+      m[i] = mm;
+    }
+#pragma unroll
+    for (int e = 0; e < 128; ++e) {
+      const int i = (e >> 1) & 1;
+      acc[e] = acc[e] * a0[i] + part[e * 128 + slot] * a1[i];
+    }
+  }
+
+  const long long r0 = static_cast<long long>(bh) * seq;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0w + row + 8 * i;
+    if (r >= seq) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+    bf16* orow = o + (r0 + r) * L::D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 32; ++n)
+      *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+          pack_bf16(acc[4 * n + 2 * i] / lc, acc[4 * n + 2 * i + 1] / lc);
+    if (t == 0) lse[r0 + r] = m[i] * kLn2 + logf(lc);
   }
 }
 
@@ -418,9 +733,37 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// bf16 storage takes the wgmma kernel, f32 the split-TF32 one
+// bf16 storage takes the wgmma kernels (head_dim 256 its own), f32 the
+// split-TF32 one
 template <typename T>
 constexpr bool kWgmma = std::is_same<T, bf16>::value;
+template <typename T, int D>
+constexpr bool kWgmma256 = kWgmma<T> && D == 256;
+
+// The head_dim-256 bf16 forward on a (bh, ceil(seq / rows)) grid, rows
+// 128, or 64 in the split variant; -> the launch's error code.
+template <bool kSplit>
+int launch_fwd256(const void* const (&src)[3], bf16* o, float* lse, int bh,
+                  int seq, float scale, int causal, cudaStream_t stream) {
+  constexpr int rows = kSplit ? 64 : 128;
+  const int tiles = (seq + rows - 1) / rows;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err =
+        rows_map(&maps[i], src[i], 256, seq, bh, i == 0 ? rows : kBlockK);
+    if (err != cudaSuccess) return err;
+  }
+  const auto fn = flash_fwd_wgmma256_kernel<kSplit>;
+  const size_t bytes = Fwd256Tiles::smem(kSplit);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  fn<<<dim3(bh, tiles), kFwd256Threads, bytes, stream>>>(
+      maps[0], maps[1], maps[2], o, lse, seq, scale, causal);
+  return cudaGetLastError();
+}
 
 struct ForwardLaunch {
   const void *q, *k, *v;
@@ -433,7 +776,9 @@ struct ForwardLaunch {
 
   template <typename T, int D>
   static auto kernel() {
-    if constexpr (kWgmma<T>)
+    if constexpr (kWgmma256<T, D>)
+      return flash_fwd_wgmma256_kernel<false>;
+    else if constexpr (kWgmma<T>)
       return flash_fwd_wgmma_kernel<D>;
     else
       return flash_fwd_tf32_kernel<D>;
@@ -441,7 +786,9 @@ struct ForwardLaunch {
 
   template <typename T, int D>
   static size_t smem() {
-    if constexpr (kWgmma<T>)
+    if constexpr (kWgmma256<T, D>)
+      return Fwd256Tiles::smem(false);
+    else if constexpr (kWgmma<T>)
       return WgTiles<D>::kSmem;
     else
       return Tf32FwdTiles<D>::kSmem;
@@ -449,7 +796,23 @@ struct ForwardLaunch {
 
   template <typename T, int D>
   int run() const {
-    if constexpr (kWgmma<T>) {
+    if constexpr (kWgmma256<T, D>) {
+      // fewer 128-row CTAs than the card has SMs: the split variant's
+      // 64-row CTAs, twice as many
+      int dev = 0, sms = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      if (err != cudaSuccess) return err;
+      const void* const src[3] = {q, k, v};
+      const long long ctas = static_cast<long long>(bh) * ((seq + 127) / 128);
+      return ctas < sms
+                 ? launch_fwd256<true>(src, static_cast<bf16*>(o), lse, bh,
+                                       seq, scale, causal, stream)
+                 : launch_fwd256<false>(src, static_cast<bf16*>(o), lse, bh,
+                                        seq, scale, causal, stream);
+    } else if constexpr (kWgmma<T>) {
       const int tiles = (seq + kWgRows - 1) / kWgRows;
       if (tiles > 65535) return cudaErrorInvalidValue;
       CUtensorMap maps[3];
@@ -464,7 +827,7 @@ struct ForwardLaunch {
           fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(bytes));
       if (err != cudaSuccess) return err;
-      fn<<<dim3(bh, tiles, D / WgTiles<D>::DO), kWgThreads, bytes, stream>>>(
+      fn<<<dim3(bh, tiles), kWgThreads, bytes, stream>>>(
           maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, seq, scale,
           causal);
       return cudaGetLastError();
@@ -481,28 +844,50 @@ struct ForwardLaunch {
 // What the runtime says of the forward kernel for (dtype, head_dim):
 // registers a thread, local memory a thread (spills), dynamic shared
 // memory and resident CTAs per SM, into out[0..3]; out[4] = 1, out[5] = 0
-// (no cluster).
+// (no cluster). bf16 at head_dim 256: the 128-row kernel's, but registers
+// and local memory the larger of its and the split variant's.
 struct ForwardInfo {
   int* out;
+
+  template <typename Kernel>
+  static cudaError_t attributes(Kernel fn, size_t bytes,
+                                cudaFuncAttributes* attr) {
+    cudaError_t err = cudaFuncGetAttributes(attr, fn);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fn,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(bytes));
+    return err;
+  }
 
   template <typename T, int D>
   int run() const {
     const auto fn = ForwardLaunch::kernel<T, D>();
     const size_t bytes = ForwardLaunch::smem<T, D>();
+    const int threads = kWgmma256<T, D> ? kFwd256Threads
+                        : kWgmma<T>     ? kWgThreads
+                                        : kMmaThreads;
     cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(fn,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(bytes));
+    cudaError_t err = attributes(fn, bytes, &attr);
     if (err == cudaSuccess && !kWgmma<T>)    // as launch_mma sets it
       err = cudaFuncSetAttribute(fn,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
+    if constexpr (kWgmma256<T, D>) {
+      cudaFuncAttributes split;
+      if (err == cudaSuccess)
+        err = attributes(flash_fwd_wgmma256_kernel<true>,
+                         Fwd256Tiles::smem(true), &split);
+      if (err == cudaSuccess) {
+        attr.numRegs = std::max(attr.numRegs, split.numRegs);
+        attr.localSizeBytes =
+            std::max(attr.localSizeBytes, split.localSizeBytes);
+      }
+    }
     int ctas = 0;
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &ctas, fn, kWgmma<T> ? kWgThreads : kMmaThreads, bytes);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, threads,
+                                                          bytes);
     if (err != cudaSuccess) return err;
     out[0] = attr.numRegs;
     out[1] = static_cast<int>(attr.localSizeBytes);

@@ -1,7 +1,8 @@
 // Hopper building blocks of the bf16 flash-attention forward (flash_fwd.cu)
-// and of the bf16 backward at head_dim 256 (flash_bwd.cu): mbarriers, TMA
-// tile loads through a tensor map, wgmma shared-memory descriptors and the
-// warpgroup products they use.
+// and of the bf16 backward at head_dim 256 (flash_bwd.cu): mbarriers, named
+// barriers, TMA tile loads through a tensor map, wgmma shared-memory
+// descriptors and the warpgroup products they use, and the 256-column
+// tiles of the head_dim-256 kernels (Tile256).
 //
 // Tiles in shared memory are what TMA writes with a swizzle of W bytes,
 // W = 2 * min(D, 64) (128 for D = 64 and 128, 64 for D = 32, 32 for
@@ -403,6 +404,82 @@ __device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128],
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// -- named barriers ------------------------------------------------------
+
+// Barrier `id` (1-15; 0 is __syncthreads) of `count` threads: sync waits
+// until `count` threads have reached it by sync or arrive; arrive counts
+// this thread and goes on.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Registers a thread of this warpgroup may hold from here on (a
+// multiple of 8, 24-256): dec gives some back, inc takes them; every
+// warp of the warpgroup runs the same one.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// -- head_dim 256 --------------------------------------------------------
+
+// A 64-row tile of 256 bf16 columns (bytes) as the head_dim-256 kernels
+// keep it: four column blocks of 64 rows x 128 bytes in the 128-byte
+// swizzle that TMA writes and wgmma reads; a 128-row tile is four blocks
+// of 128 rows (block stride 2 BLOCK).
+struct Tile256 {
+  static constexpr int D = 256;
+  static constexpr int RB = 128;               // a swizzled row, bytes
+  static constexpr int BLOCK = 64 * RB;        // 64 rows of 64 columns
+  static constexpr int TILE = 4 * BLOCK;       // 64 rows of 256 columns
+  static constexpr int SBO = 8 * RB;           // 8 rows
+};
+
+// byte offset of element (r, c) in a swizzled 64 x 64 bf16 block
+__device__ __forceinline__ uint32_t swz128(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// K-major descriptor of the 16 columns kk * 16 .. of a 256-column tile
+// whose column blocks are `block` bytes apart, from row `row0` (a
+// multiple of 8) on
+__device__ __forceinline__ uint64_t kmajor256(uint32_t tile, int row0,
+                                              int kk, int block) {
+  using L = Tile256;
+  return wgmma_desc(tile + (kk >> 2) * block + row0 * L::RB + (kk & 3) * 32,
+                    16, L::SBO, L::RB);
+}
+
+// MN-major descriptor of rows kk * 16 .. kk * 16 + 15 of a 256-column
+// tile, columns 128 half .. 128 half + 127 (two column blocks)
+__device__ __forceinline__ uint64_t mnmajor256(uint32_t tile, int half,
+                                               int kk) {
+  using L = Tile256;
+  return wgmma_desc(tile + 2 * half * L::BLOCK + kk * 16 * L::RB, L::BLOCK,
+                    L::SBO, L::RB);
+}
+
+// the tile of a (D, seq, bh) map at rows row0.. (its box: 64 or 128
+// rows), four column blocks `block` bytes apart into `dst`, completing on
+// `bar`
+__device__ __forceinline__ void tma_tile256(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int row0, int bh,
+                                            int block) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    tma_load_3d(dst + c * block, map, bar, c * 64, row0, bh);
 }
 
 // -- host: tensor maps ---------------------------------------------------

@@ -390,14 +390,18 @@ def test_flash_backward_is_deterministic_on_card(cuda, causal, dtype, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b, d", [(2, 128), (2, 256), (16, 256)],
+                         ids=["d128", "d256", "d256-b16"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_flash_forward_is_deterministic_on_card(cuda, causal, dtype):
+def test_flash_forward_is_deterministic_on_card(cuda, causal, dtype, b, d):
     # no atomics: each O element and LSE row is summed by one warpgroup
     # (bf16) or warp (f32) in a fixed order over the key tiles, launch
-    # after launch
-    q, k, v, _ = _flash_inputs((2, 4, 512, 128), dtype, 35)
+    # after launch (bf16 at head_dim 256: b 2 gives 32 CTAs of 128 rows,
+    # fewer than the card's SMs, so the split variant runs, whose
+    # warpgroups' halves combine in a fixed order; b 16 the 128-row CTAs)
+    q, k, v, _ = _flash_inputs((b, 4, 512, d), dtype, 35)
     first = ca.flash_attention_fwd(q, k, v, causal)
     second = ca.flash_attention_fwd(q, k, v, causal)
     for a, b in zip(first, second):
@@ -452,21 +456,23 @@ def test_flash_kernels_take_unbuilt_head_dims_on_card(cuda, d, causal, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 24], ids=["b2", "b24"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_flash_kernels_at_head_dim_256_on_card(cuda, causal, dtype):
+def test_flash_kernels_at_head_dim_256_on_card(cuda, causal, dtype, b):
     # the widest built head_dim (ROADMAP B0): the f32 kernels in split
-    # TF32 with the output columns split over the grid's z axis; bf16, the
-    # forward with O's columns split so, the backward on wgmma, one CTA of
-    # two warpgroups owning all 256 columns of its 64 rows (S = 300: a
-    # ragged last tile)
-    _flash_kernels_against_plain(256, causal, dtype)
+    # TF32 with the output columns split over the grid's z axis; bf16 on
+    # wgmma, one CTA of two warpgroups owning all 256 columns of its rows
+    # in every kernel (the forward: b 2 gives fewer 128-row CTAs than the
+    # card has SMs, so its split variant runs, 64 rows a CTA; b 24 the
+    # 128-row CTAs), S = 300: a ragged last tile
+    _flash_kernels_against_plain(256, causal, dtype, b)
 
 
-def _flash_kernels_against_plain(d, causal, dtype):
+def _flash_kernels_against_plain(d, causal, dtype, b=2):
     rs = np.random.RandomState(50 + d)
-    q, k, v, do = (torch.from_numpy(0.5 * rs.randn(2, 2, 300, d).astype(
+    q, k, v, do = (torch.from_numpy(0.5 * rs.randn(b, 2, 300, d).astype(
         np.float32)).to("cuda", dtype) for _ in range(4))
     o, lse = ca.flash_attention_fwd(q, k, v, causal)
     dq, delta = ca.flash_attention_dq(q, k, v, o, lse, do, causal)

@@ -325,3 +325,58 @@ def test_dropped_branch_gradient_fails_the_leaf_gap(googlenet_b2,
     monkeypatch.setattr(Convolution, "apply_fissioned", dropped)
     gap = _leaf_gap(_googlenet_grads(*googlenet_b2, torch.float64), ref)
     assert gap[0] > 1e-1, gap
+
+
+def _flip_case(case):
+    """Synthetic aux-head ReLU inputs of the two lock-step arms and one
+    step's params (start, on, off) for chip_smoke._attributed_gap: every
+    on-arm update within rounding of the off arm's, but for ``case``'s
+    change."""
+    import chip_smoke
+    rs = np.random.RandomState(7)
+    pre_on, pre_off, start, on, off = {}, {}, {}, {}, {}
+    for relu, leaf in chip_smoke.FISSION_RELUS.items():
+        shape = (4, 6, 2, 2) if leaf.endswith("conv") else (4, 8)
+        a = torch.from_numpy(rs.randn(*shape))
+        pre_on[relu] = a
+        pre_off[relu] = a + 1e-6 * torch.from_numpy(rs.randn(*shape))
+        units = shape[1]
+        start[leaf] = [torch.from_numpy(rs.randn(units, 5)),
+                       torch.from_numpy(rs.randn(units))]
+    start["inception_4a/3x3"] = [torch.from_numpy(rs.randn(6, 5))]
+    for k, v in start.items():
+        off[k] = [p + torch.from_numpy(rs.randn(*p.shape)) for p in v]
+        on[k] = [p + 1e-6 * torch.from_numpy(rs.randn(*p.shape))
+                 for p in off[k]]
+    fc = "loss1/relu_fc"
+    if case in ("near", "clear", "near_other_row"):
+        # unit 3 of the first sample takes another sign, and row 3 of
+        # loss1/fc's update moves by one sample's share
+        x = 3e-7 if case != "clear" else 0.5
+        pre_on[fc][0, 3], pre_off[fc][0, 3] = x, -x
+        on["loss1/fc"][0][3] += 0.3
+    if case == "near_other_row":
+        on["loss1/fc"][0][5] += 0.3
+    if case == "other_leaf":
+        on["inception_4a/3x3"][0][2] += 0.3
+    return chip_smoke._attributed_gap(
+        torch, start, on, off, chip_smoke._relu_flips(torch, pre_on, pre_off))
+
+
+@pytest.mark.parametrize("case, attributed", [
+    ("none", True), ("near", True), ("clear", False),
+    ("near_other_row", False), ("other_leaf", False)])
+def test_lock_step_gap_is_attributed_only_to_relu_flips_at_near_ties(
+        case, attributed):
+    """chip_smoke.py phase 16's update check: a leaf's gap over the 5e-2
+    limit passes only as rows of units whose ReLU took another sign in
+    the two arms at a near-tie (within twice the arms' largest difference
+    of that layer's other inputs); a flip at a clear input, a gap in a
+    row that did not flip, or in a leaf with no ReLU flip, fails."""
+    import chip_smoke
+    worst, after, failed, _ = _flip_case(case)
+    assert (failed is None) == attributed, failed
+    if case in ("near", "near_other_row", "other_leaf"):
+        assert worst[0] > chip_smoke.FISSION_DW_RTOL
+    if attributed:
+        assert after <= chip_smoke.FISSION_DW_RTOL

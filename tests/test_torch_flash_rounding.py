@@ -129,20 +129,20 @@ def _emulated_backward(q, k, v, o, lse, do, causal):
     return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
 
 
-def _emulated_forward(q, k, v, causal, tile=128, scores=None, scale=None):
-    """O with the bf16 forward kernel's rounding points, key tile by key
-    tile as the kernel walks them; ``scores`` (Q, K tile -> f32 S, the
-    plain product by default) and ``scale`` (1/sqrt(D) of q by default)
-    let the wide kernel's padded inputs and cluster sums through."""
-    b, h, s, d = q.shape
-    scale = ca.default_scale(q, scale)
-    scores = scores or (lambda a, bt: a @ bt.transpose(-1, -2))
-    qf, kf, vf = (t.float() for t in (q, k, v))
-    m = torch.full((b, h, s, 1), ca.NEG_INF)
-    l = torch.zeros(b, h, s, 1)
-    acc = torch.zeros(b, h, s, d)
-    rows = torch.arange(s)[:, None]
-    for k0 in range(0, s, tile):
+def _walk(qf, kf, vf, scale, causal, row0, tiles, tile, scores):
+    """One walk of the forward's online softmax over the key tiles
+    ``tiles`` (of ``tile`` keys) for the f32 query rows ``qf`` that start
+    at row ``row0``: (m, l, acc), p = exp(s - m) in f32 summed unrounded
+    into l, P rounded to bf16 before acc += P V. A walk with no tile
+    leaves m at NEG_INF, l and acc at 0."""
+    b, h, n, d = qf.shape
+    s = kf.shape[2]
+    m = torch.full((b, h, n, 1), ca.NEG_INF)
+    l = torch.zeros(b, h, n, 1)
+    acc = torch.zeros(b, h, n, vf.shape[-1])
+    rows = torch.arange(row0, row0 + n)[:, None]
+    for j in tiles:
+        k0 = j * tile
         sc = scale * scores(qf, kf[:, :, k0:k0 + tile])
         if causal:
             cols = torch.arange(k0, min(k0 + tile, s))[None, :]
@@ -154,7 +154,45 @@ def _emulated_forward(q, k, v, causal, tile=128, scores=None, scale=None):
         pb = p.to(torch.bfloat16).float()                  # P rounded
         acc = acc * alpha + pb @ vf[:, :, k0:k0 + tile]
         m = m_new
+    return m, l, acc
+
+
+def _emulated_forward(q, k, v, causal, tile=128, scores=None, scale=None):
+    """O with the bf16 forward kernel's rounding points, key tile by key
+    tile as the kernel walks them; ``scores`` (Q, K tile -> f32 S, the
+    plain product by default) and ``scale`` (1/sqrt(D) of q by default)
+    let the wide kernel's padded inputs and cluster sums through."""
+    s = q.shape[2]
+    scale = ca.default_scale(q, scale)
+    scores = scores or (lambda a, bt: a @ bt.transpose(-1, -2))
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    _, l, acc = _walk(qf, kf, vf, scale, causal, 0,
+                      range(math.ceil(s / tile)), tile, scores)
     return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+def _emulated_split_forward(q, k, v, causal, rows=64, tile=64):
+    """O as the head_dim-256 forward's split variant computes it: a CTA of
+    ``rows`` query rows, whose two warpgroups walk the even and the odd
+    key tiles it sees, each with its own (m, l, acc), combined in f32 in
+    the kernel's order (the even walk's first): m = max(m0, m1), a_w =
+    exp(m_w - m), l = l0 a0 + l1 a1, O = (acc0 a0 + acc1 a1) / l."""
+    s = q.shape[2]
+    scale = ca.default_scale(q)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    key_tiles = math.ceil(s / tile)
+    out = []
+    for r0 in range(0, s, rows):
+        n_k = min((r0 + rows) // tile, key_tiles) if causal else key_tiles
+        (m0, l0, c0), (m1, l1, c1) = (
+            _walk(qf[:, :, r0:r0 + rows], kf, vf, scale, causal, r0,
+                  range(w, n_k, 2), tile, lambda a, bt: a @ bt.transpose(
+                      -1, -2)) for w in (0, 1))
+        m = torch.maximum(m0, m1)
+        a0, a1 = torch.exp(m0 - m), torch.exp(m1 - m)
+        l = l0 * a0 + l1 * a1
+        out.append((c0 * a0 + c1 * a1) / l.clamp_min(1e-30))
+    return torch.cat(out, dim=2).to(torch.bfloat16)
 
 
 # -- past head_dim 256: the cluster kernels (csrc/flash_wide.cuh) --------
@@ -239,8 +277,27 @@ def test_tensor_core_forward_rounding_fits_the_bf16_tile_limit(shape, causal):
     q, k, v = (torch.from_numpy(0.5 * rs.randn(*shape).astype(
         np.float32)).to(torch.bfloat16) for _ in range(3))
     ro, _ = ca.flash_attention_fwd_plain(q, k, v, causal)
-    got = (_emulated_wide_forward if shape[-1] > ca.HEAD_DIMS[-1]
-           else _emulated_forward)(q, k, v, causal)
+    if shape[-1] > ca.HEAD_DIMS[-1]:
+        got = _emulated_wide_forward(q, k, v, causal)
+    else:
+        # the head_dim-256 kernel walks keys in tiles of 64, the others 128
+        got = _emulated_forward(q, k, v, causal, tile=64 if ca.built_head_dim(
+            shape[-1]) == 256 else 128)
+    reading = _worst_tile(got, ro)
+    assert 1e-3 < reading < FWD_TILE_LIMIT, reading
+    for bad in _planted(got):
+        assert _worst_tile(bad, ro) > FWD_TILE_LIMIT
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_split_forward_rounding_fits_the_bf16_tile_limit(causal):
+    # the head_dim-256 forward on a grid smaller than the card: 64-row
+    # CTAs whose warpgroups walk alternate key tiles and combine in f32
+    rs = np.random.RandomState(44)
+    q, k, v = (torch.from_numpy(0.5 * rs.randn(1, 2, 256, 256).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(3))
+    ro, _ = ca.flash_attention_fwd_plain(q, k, v, causal)
+    got = _emulated_split_forward(q, k, v, causal)
     reading = _worst_tile(got, ro)
     assert 1e-3 < reading < FWD_TILE_LIMIT, reading
     for bad in _planted(got):
