@@ -5545,12 +5545,17 @@ def phase_hosts_all(torch, card, tmp, records, feeds):
 
 MESH_SMALL = ["--vocab", "512", "--seq-len", "512", "--batch", "8",
               "--d-model", "256", "--layers", "2", "--heads", "4"]
+# dp x tp x sp on one mesh: GSPMDSolver(seq_axis="seq"), which no verb
+# flag builds (_gspmd_sp_setup)
+GSPMD_SP = "gspmd dp 2 x tp 2 x sp 2"
+GSPMD_SP_AXES = {"data": 2, "model": 2, "seq": 2}
 MESH_PARITY = (("dp 4", ["--dp", "4"]),
                ("fsdp 4", ["--fsdp", "on", "--dp", "4"]),
                ("tp 2", ["--tp", "2"]),
                ("sp 4", ["--sp", "4"]),
                ("pipeline 2 x 4", ["--pipeline-stages", "2",
-                                   "--microbatches", "4"]))
+                                   "--microbatches", "4"]),
+               (GSPMD_SP, []))
 MESH_EP = ["--ep", "4", "--moe-experts", str(MOE_EXPERTS)]
 MESH_SGD = ["--solver-type", "SGD", "--lr", "0.01"]
 MESH_FULL = (("dp 4", ["--dp", "4"]),
@@ -5565,16 +5570,29 @@ MESH_FULL = (("dp 4", ["--dp", "4"]),
              ("sp 4", ["--sp", "4", "--remat", "full"]),
              ("pipeline 4 x 4", ["--pipeline-stages", "4",
                                  "--microbatches", "4"]),
-             ("ep 4", MESH_EP))
+             ("ep 4", MESH_EP),
+             # each (data, model) group's attention runs on its gathered
+             # sequence through the flash kernels: no S x S scores are
+             # held, so no remat
+             (GSPMD_SP, []))
 MESH_STEPS = 3
 MESH_LOSS_RTOL = 1e-5           # each step's loss against one device
 MESH_PARAM_ATOL = 1e-4          # every param after the steps, max-abs
 # the flash kernels at the per-slot shapes of the full-width branches:
 # dp/fsdp slots and pipeline microbatches (1, 8, 4096, 128), tp 2 slots
-# (4, 4, 4096, 128)
+# (4, 4, 4096, 128), a gspmd (data, model) group's gathered sequence
+# (2, 4, 4096, 128)
 MESH_FLASH_CASES = (((1, 8, 4096, 128), "bfloat16", True, True),
-                    ((4, 4, 4096, 128), "bfloat16", True, True))
-MESH_FLASH_PATH = {(1, 8, 4096, 128): "dp 4", (4, 4, 4096, 128): "tp 2"}
+                    ((4, 4, 4096, 128), "bfloat16", True, True),
+                    ((2, 4, 4096, 128), "bfloat16", True, True))
+MESH_FLASH_PATH = {(1, 8, 4096, 128): "dp 4", (4, 4, 4096, 128): "tp 2",
+                   (2, 4, 4096, 128): GSPMD_SP}
+
+
+def _mesh_path(label):
+    """The launch path a mesh branch's rows name: the lm verb's flags, or
+    the GSPMD sequence branch, which has none."""
+    return label if label == GSPMD_SP else f"lm --{label}"
 
 
 def _mesh_setup(flags, device="cuda"):
@@ -5589,6 +5607,49 @@ def _mesh_setup(flags, device="cuda"):
         ["lm", "--display", "0", "--seed", str(SEED), "--device", device]
         + remat + flags)
     return cli.lm_setup(args)
+
+
+def _gspmd_sp_setup(flags, device="cuda"):
+    """GSPMDSolver(seq_axis="seq") over GSPMD_SP_AXES with
+    transformer_tp_rule(2) on the lm verb's flags, built as cli.lm_setup
+    builds its tp branch (the JAX lm verb builds GSPMDSolver without a
+    seq axis, so no flag reaches it), restored from --resume."""
+    import torch
+    from sparknet_tpu_torch import cli
+    from sparknet_tpu_torch.data import lm_batch_stream
+    from sparknet_tpu_torch.models import zoo
+    from sparknet_tpu_torch.parallel import (GSPMDSolver, make_mesh,
+                                             transformer_tp_rule)
+    from sparknet_tpu_torch.proto import Message
+    os.environ["SPARKNET_FSDP"] = "off"
+    os.environ["SPARKNET_TP"] = "0"
+    remat = [] if "--remat" in flags else ["--remat", "none"]
+    args = cli.parser().parse_args(
+        ["lm", "--display", "0", "--seed", str(SEED), "--device", device]
+        + remat + flags)
+    cli._apply_perf_flags(args)
+    sp = Message("SolverParameter", base_lr=args.lr, lr_policy="fixed",
+                 display=0, type=args.solver_type, random_seed=args.seed)
+    net = zoo.transformer_lm(
+        vocab_size=args.vocab, seq_len=args.seq_len, batch_size=args.batch,
+        d_model=args.d_model, num_layers=args.layers, num_heads=args.heads,
+        flash=not args.no_flash)
+    solver = GSPMDSolver(
+        sp, mesh=make_mesh(GSPMD_SP_AXES), seq_axis="seq",
+        param_rule=transformer_tp_rule(GSPMD_SP_AXES["model"]),
+        net_param=net, device=args.device,
+        compute_dtype=torch.bfloat16 if args.dtype == "bf16" else None)
+    if args.resume:
+        solver.restore(args.resume)
+    stream, _ = lm_batch_stream(args.vocab, args.batch, args.seq_len,
+                                seed=args.seed)
+    return dict(solver=solver, stream=stream,
+                branch='GSPMDSolver, seq_axis="seq"')
+
+
+def _branch_setup(label, flags, device="cuda"):
+    setup = _gspmd_sp_setup if label == GSPMD_SP else _mesh_setup
+    return setup(flags, device=device)
 
 
 def _lm_params_cpu(solver):
@@ -5654,7 +5715,8 @@ def phase_mesh_parity(torch, tmp, steps=MESH_STEPS, device="cuda"):
     against the single-device port on the card: each step's loss within
     1e-5 relative, every param within 1e-4 max-abs after the steps, the
     first step's change within 1e-2 of each blob's largest (phase 7's
-    weight-change measure). The EP branch (8 experts over 4 expert
+    weight-change measure); the GSPMD dp 2 x tp 2 x sp 2 mesh too
+    (_gspmd_sp_setup). The EP branch (8 experts over 4 expert
     slots, each slot's own capacity, so no single device matches it)
     against the port's own EP run on the CPU at phase 11's MoE limits:
     each step's loss 1e-5, the first step's gradients 1e-4, the weight
@@ -5675,9 +5737,9 @@ def phase_mesh_parity(torch, tmp, steps=MESH_STEPS, device="cuda"):
     out = {"single": {"losses": ref_losses}}
     for label, flags in MESH_PARITY:
         pipe = "--pipeline-stages" in flags
-        run = _mesh_setup(sgd + flags + ([] if pipe else
-                                         ["--resume", state]),
-                          device=device)
+        run = _branch_setup(label, sgd + flags + ([] if pipe else
+                                                  ["--resume", state]),
+                            device=device)
         s = run["solver"]
         if pipe:
             _to_pipeline(torch, s, {k: [v.float() for v in vs]
@@ -5800,7 +5862,7 @@ def _mesh_full_run(torch, card, label, flags, steps, device="cuda"):
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    run = _mesh_setup(full + flags, device=device)
+    run = _branch_setup(label, full + flags, device=device)
     s, stream = run["solver"], run["stream"]
     _zero_launches()
     times, losses = [], []
@@ -5839,7 +5901,9 @@ def phase_mesh_full(torch, card, steps=MESH_STEPS, device="cuda"):
     d 1024, 12 layers, 8 heads, bf16 over f32 masters, Adam) through the
     lm verb's setup on every branch, and the MoE row (8 experts, F 4096,
     top-1, capacity 1.25) over 4 expert slots; --sp 4 under --remat full
-    at the same widths (MESH_FULL says why)."""
+    at the same widths (MESH_FULL says why); the GSPMD dp 2 x tp 2 x sp 2
+    mesh (_gspmd_sp_setup), whose flash kernels must launch once a block
+    and (data, model) group a step."""
     out = {}
     for label, flags in MESH_FULL:
         out[label] = _mesh_full_run(torch, card, label, flags, steps,
@@ -5849,6 +5913,14 @@ def phase_mesh_full(torch, card, steps=MESH_STEPS, device="cuda"):
             got = out[label]["launches"]
             check(all((got[k] > 0) == want for k in FLASH_KERNELS),
                   f"mesh {label}: flash launches {got}")
+            if label == GSPMD_SP:
+                # each block's kernels once per (data, model) group a step
+                n = LM_FULL["layers"] * GSPMD_SP_AXES["data"] * \
+                    GSPMD_SP_AXES["model"]
+                per = out[label]["launches_per_step"]
+                check(all(per[k] == n for k in FLASH_KERNELS),
+                      f"mesh {label}: flash launches a step {per}, want "
+                      f"{n} each")
     os.environ["SPARKNET_REMAT"] = "none"
     return out
 
@@ -6662,7 +6734,7 @@ def main(argv=None):
              "train verb on records": records["cli"]["launches"],
              "train verb, device-cached": feeds["cli"]["cached"]["launches"],
              "train verb, dp": feeds["cli"]["dp"]["launches"],
-             **{f"lm --{k}": v["launches"]
+             **{_mesh_path(k): v["launches"]
                 for k, v in mesh["full"].items()}}
     remat = levers["googlenet"]["policies"]
     remat_lm = levers["lm"]["policies"]
@@ -6679,7 +6751,7 @@ def main(argv=None):
             path = "train verb, device-cached" if caffenet else \
                 "train verb, dp" if tuple(r["shape"]) in \
                 CAFFENET_DP_LRN_SHAPES else \
-                f"lm --{r['launches_path']}" if "launches_path" in r \
+                _mesh_path(r["launches_path"]) if "launches_path" in r \
                 else FLASH_ROW_PATHS.get((tuple(r["shape"]), r["dtype"]),
                                          own_path)
             per_iter, model = (remat_lm, "lm") if name in FLASH_KERNELS \
