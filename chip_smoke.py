@@ -64,7 +64,8 @@ Phases, each of which raises on failure (exit code not 0):
               cluster kernels past head_dim 256 the cluster size and
               co-resident clusters, of every flash kernel instantiation,
               forward and backward (none may spill; the bf16 backward's
-              must fit two CTAs per SM at head_dim 128); then the three
+              up to head_dim 128 must read its design's 168 registers,
+              shared memory and one CTA an SM); then the three
               flash-attention kernels (forward, dQ, dK/dV) against their
               plain versions: f32 at (2, 4, 1024, 64), causal and not,
               bf16 at (2, 4, 1024, 128) full, (2, 4, 1024, 64) causal
@@ -76,6 +77,7 @@ Phases, each of which raises on failure (exit code not 0):
               and dK/dV on thread-block clusters, each launch counted),
               causal and not,
               bf16 at the LM's full width (4, 8, 4096, 128), causal, and
+              at (1, 4, 1000, 128), causal (a ragged last 128-row tile),
               f32 (the lm verb's default dtype) there and at the verb's
               default widths (8, 8, 256, 32), causal;
               each output's worst 64-row tile against f32 1e-4 and bf16
@@ -86,8 +88,8 @@ Phases, each of which raises on failure (exit code not 0):
               own O and gradients read beside it, f32 also against 2e-5
               (forward) and 5e-4 (backward) of the largest reference
               element, LSE and delta against 2e-5 of theirs; every f32
-              case and every bf16 case at head_dim 256 (and 192, padded
-              to it) launched twice, bitwise equal; every f32 case run
+              case and every bf16 case up to head_dim 256 launched
+              twice, bitwise equal; every f32 case run
               through the one-pass TF32
               control build (lo terms left out), whose O must read over
               2e-5 and whose dQ over a dQ limit; median times
@@ -1345,8 +1347,9 @@ def _flash_kernel_info(torch):
     size (1: none) and the clusters that fit on the card at once
     (cudaOccupancyMaxActiveClusters; the three kernels past head_dim
     256). Fails if any instantiation uses local memory (spills), or a
-    bf16 backward kernel fits fewer than two CTAs on an SM at head_dim
-    128."""
+    bf16 backward kernel up to head_dim 128 is not as it was built
+    (_bf16_bwd_design): 384 threads (a producer and two consumer
+    warpgroups) at 168 registers, its shared memory, one CTA an SM."""
     import ctypes
     from sparknet_tpu_torch.ops import cuda_attention as ca
     from sparknet_tpu_torch.ops import cuda_build
@@ -1380,12 +1383,28 @@ def _flash_kernel_info(torch):
                       f"{name} {dname} D={d} uses local memory: {r}")
                 check(out[4] == 1 or out[5] > 0,
                       f"{name} {dname} D={d}: no cluster of {out[4]} fits")
-                if dtype == torch.bfloat16:
-                    check(name == "flash_attention" or d != 128
-                          or r["ctas_per_sm"] >= 2,
-                          f"{name} bf16 D=128 fits {r['ctas_per_sm']} CTA "
-                          "per SM, want 2")
+                if dtype == torch.bfloat16 and name != "flash_attention" \
+                        and ca.built_head_dim(d) <= 128:
+                    want = _bf16_bwd_design(name, ca.built_head_dim(d))
+                    got = {key: r[key] for key in want}
+                    check(got == want, f"{name} bf16 D={d} reads {got}, "
+                          f"built for {want}")
     return info
+
+
+def _bf16_bwd_design(name, d):
+    """What the runtime should say of the bf16 dQ or dK/dV kernel
+    (``name``) at a built head_dim ``d`` <= 128 (csrc/flash_bwd.cu,
+    BwdTiles): 384 threads at launch_bounds(384, 1) leave 168 registers
+    a thread (the consumers take 240 through setmaxnreg); shared memory
+    for the CTA's own 128-row pair, three stages of the streamed 64-row
+    pair, 64 bytes of mbarriers and 1024 to align the tiles, and in
+    dK/dV each stage's 64 f32 LSE and delta rows; one CTA an SM."""
+    rows = 3 * 2 * 64 * 4 if name == "flash_attention_dkv" else 0
+    return {"registers": 168,
+            "smem_bytes": 2 * 128 * d * 2 + 3 * 2 * 64 * d * 2 + 64 + 1024
+            + rows,
+            "ctas_per_sm": 1}
 
 
 # head_dims past 256 (the wide kernels, one instantiation for every D)
@@ -1408,6 +1427,9 @@ FLASH_CASES = (
       for d in WIDE_DIMS for dt in ("float32", "bfloat16")
       for causal in (False, True)),
     ((4, 8, 4096, 128), "bfloat16", True, True),
+    # S not a multiple of 128: the bf16 backward's last 128-row tile is
+    # 104 rows, its second warpgroup 40 of them
+    ((1, 4, 1000, 128), "bfloat16", True, False),
     # head_dim 256 at the attention shape of the lm verb's d_model 2048, 8
     # heads (LM_D256): the card-filling row of the head_dim-256 kernels
     ((2, 8, 4096, 256), "bfloat16", True, True),
@@ -1592,9 +1614,9 @@ def phase_flash_kernels(torch, cases=FLASH_CASES):
             check(all(c == 1 for c in launched.values()),
                   f"flash at {what}: the wrappers counted {launched}, want "
                   "one launch each")
-            if not f32 and ca.built_head_dim(d) == 256:
-                # the head_dim-256 wgmma kernels: no atomics, one thread
-                # sums each output element in a fixed order
+            if not f32 and not wide:
+                # the bf16 wgmma kernels: no atomics, one thread sums
+                # each output element in a fixed order
                 again = ca.flash_attention_fwd(q, k, v, causal)
                 again += ca.flash_attention_dq(q, k, v, o, lse, do, causal)
                 again += ca.flash_attention_dkv(q, k, v, do, lse, again[3],

@@ -3,18 +3,27 @@
 turns: baseline, this tree, this tree, baseline.
 
     python3 scripts/flash_ab.py --baseline <an older csrc/ dir>
-        [--cases bf16-256] [--sass]
+        [--cases bf16-256|bf16-128] [--sass] [--steps N]
 
 The kernels are the forward (csrc/flash_fwd.cu) and the dQ and dK/dV
 kernels (csrc/flash_bwd.cu) of sparknet_tpu_torch, at the shapes of
-chip_smoke.py phase 6's f32 cases up to head_dim 256, its bf16 cases at
-head_dim 256 and 192 (the head_dim-256 wgmma kernels), its cases past
-256 (the wide kernels, csrc/flash_wide.cuh) in f32 and bf16, and one
-bf16 case whose kernels the trees share (SAME_KERNEL_CASE: its ratio is
-the call's noise floor); ``--cases bf16-256`` keeps only the bf16 cases
-at head_dim 256 and 192 and the shared case; ``--sass`` first prints the
-instructions (cuobjdump) in which the two trees' bf16 forward kernels up
-to head_dim 128 differ. The baseline's sources are built here with
+chip_smoke.py phase 6's cases (f32 up to head_dim 256, bf16 at every
+tiled head_dim, and past 256 the wide kernels of csrc/flash_wide.cuh in
+both dtypes) and at phase 15's bf16 mesh-slot shapes (MESH_FLASH_CASES),
+with one case whose kernels the trees are meant to share
+(SAME_KERNEL_CASE, the bf16 head_dim-256 LM row: its ratio is the
+call's noise floor while neither tree changes those kernels);
+``--cases bf16-256`` keeps only the bf16 cases at head_dim 256 and 192
+and the shared case, ``--cases bf16-128`` the bf16 cases up to head_dim
+128 and the shared case; ``--sass`` first prints the instructions
+(cuobjdump) in which the two trees' bf16 forward kernels up to head_dim
+128 differ, and counts the wgmma (HGMMA) and mma.sync (HMMA)
+instructions of this tree's bf16 backward kernels up to head_dim 128,
+which must be HGMMA only; ``--steps N`` last times the LM row's bf16
+train step and its tp 2 branch (chip_smoke.py phases 7 and 15, through
+the lm verb's setup) with the baseline's and this tree's flash_bwd in
+turns, N steps an arm, baseline, new, new, baseline, and prints each
+arm's median and its spread. The baseline's sources are built here with
 this tree's nvcc flags into _work/flash_ab/; this tree's kernels, and
 their one-pass TF32 control
 (cuda_build.TF32_ONE_PASS), are the libraries of cuda_build
@@ -60,23 +69,31 @@ from sparknet_tpu_torch.ops import cuda_attention as ca  # noqa: E402
 from sparknet_tpu_torch.ops import cuda_build  # noqa: E402
 
 SOURCES = ("flash_fwd", "flash_bwd")
-# a case both trees run with the same kernel: its ratio is the call's
-# noise floor
-SAME_KERNEL_CASE = ((4, 8, 4096, 128), "bfloat16", True)
+# a case whose kernels both trees are meant to share: its ratio is the
+# call's noise floor
+SAME_KERNEL_CASE = ((2, 8, 4096, 256), "bfloat16", True)
 CASES = [(shape, dtype, causal)
          for shape, dtype, causal, _ in chip_smoke.FLASH_CASES
-         if dtype == "float32"
-         or ca.built_head_dim(shape[-1]) >= ca.HEAD_DIMS[-1]
-         or (shape, dtype, causal) == SAME_KERNEL_CASE]
-# --cases bf16-256: the head_dim-256 bf16 kernels and the shared case
+         + chip_smoke.MESH_FLASH_CASES]
+
+
+def _bf16_at(c, dims):
+    return c[1] == "bfloat16" and ca.built_head_dim(c[0][-1]) in dims
+
+
 CASE_SETS = {"all": lambda c: True,
-             "bf16-256": lambda c: c == SAME_KERNEL_CASE or (
-                 c[1] == "bfloat16" and ca.built_head_dim(c[0][-1]) == 256)}
+             "bf16-256": lambda c: c == SAME_KERNEL_CASE
+             or _bf16_at(c, (256,)),
+             "bf16-128": lambda c: c == SAME_KERNEL_CASE
+             or _bf16_at(c, ca.HEAD_DIMS[:-1])}
 # --sass: the bf16 forward's instantiations up to head_dim 128, whose
 # instructions a tree may mean to leave as they were
 SASS_KERNELS = tuple(
     f"_ZN14sparknet_flash22flash_fwd_wgmma_kernelILi{d}EEEv14CUtensorMap_st"
     "S1_S1_P13__nv_bfloat16Pfifi" for d in (16, 32, 64, 128))
+# --sass: the bf16 backward's instantiations up to head_dim 128, by the
+# start of their mangled names
+SASS_BWD = re.compile(r"flash_(dq|dkv)_wgmma_kernelILi")
 BRANCH = re.compile(r"\b(BRA|BRX|BSSY|CALL\.\S+|JMP|JMX)\b")
 KERNELS = (("fwd", "flash_attention", "O"), ("dq", "flash_attention_dq", "dQ"),
            ("dkv", "flash_attention_dkv", "dK"))
@@ -138,6 +155,77 @@ def sass_diff(baseline_so, new_so):
             print(f"[sass]   {line}")
 
 
+def sass_products(so):
+    """Count the wgmma (HGMMA) and mma.sync (HMMA) instructions of every
+    bf16 backward instantiation up to head_dim 128 (SASS_BWD) in the
+    library ``so``; each must have HGMMA and no HMMA."""
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", so], capture_output=True,
+                         text=True, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1) if SASS_BWD.search(m.group(1)) else None
+            if name:
+                counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name:
+            for op in counts[name]:
+                if re.search(rf"\b{op}\.", line):
+                    counts[name][op] += 1
+    chip_smoke.check(len(counts) == 2 * (len(ca.HEAD_DIMS) - 1),
+                     f"cuobjdump found {sorted(counts)} in {so}")
+    for fn, c in sorted(counts.items()):
+        print(f"[sass] {fn}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA")
+        chip_smoke.check(c["HGMMA"] > 0 and c["HMMA"] == 0,
+                         f"{fn}: {c}, want wgmma products only")
+    return counts
+
+
+def time_steps(libs, steps):
+    """The LM row's bf16 train step on one device and its tp 2 branch
+    (chip_smoke._branch_setup, the lm verb's setup at LM_FULL), timed by
+    synchronisation: ``steps`` steps on one batch an arm, the baseline's
+    flash_bwd and this tree's in turns (baseline, new, new, baseline),
+    after two warm-up steps; -> {branch: {"baseline": [[ms]...], "new":
+    [[ms]...]}}."""
+    import statistics
+    import time
+    f = chip_smoke.LM_FULL
+    full = ["--vocab", str(f["vocab"]), "--seq-len", str(f["seq_len"]),
+            "--batch", str(f["batch"]), "--d-model", str(f["d_model"]),
+            "--layers", str(f["layers"]), "--heads", str(f["heads"]),
+            "--dtype", "bf16"]
+    ours = cuda_build.library("flash_bwd")
+    key = ("flash_bwd", ())
+    out = {}
+    for label, flags in (("one device", []), ("tp 2", ["--tp", "2"])):
+        run = chip_smoke._branch_setup(label, full + flags)
+        solver, batch = run["solver"], next(run["stream"])
+        for _ in range(2):
+            float(solver.train_step(batch))
+        arms = {"baseline": [], "new": []}
+        for arm in ("baseline", "new", "new", "baseline"):
+            cuda_build._loaded[key] = libs["flash_bwd"] \
+                if arm == "baseline" else ours
+            times = []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                float(solver.train_step(batch))   # the fetch synchronises
+                times.append((time.perf_counter() - t0) * 1e3)
+            arms[arm].append(times)
+            print(f"[steps] {label} {arm}: median "
+                  f"{statistics.median(times):.2f} ms, spread "
+                  f"{min(times):.2f}-{max(times):.2f} ms over {steps} "
+                  "steps")
+        cuda_build._loaded[key] = ours
+        out[label] = arms
+        del run, solver, batch
+        torch.cuda.empty_cache()
+    return out
+
+
 def held_to_plain(arm, what, outs, refs, f32):
     """Each of ``outs`` against the plain version's ``refs`` at the
     dtype's limits; -> {label: (of the largest element, worst tile)}."""
@@ -175,7 +263,13 @@ def main():
                     help="the cases to time (default: all)")
     ap.add_argument("--sass", action="store_true",
                     help="first diff the SASS of the bf16 forward's "
-                         "instantiations up to head_dim 128 in both trees")
+                         "instantiations up to head_dim 128 in both trees "
+                         "and count the bf16 backward's wgmma and "
+                         "mma.sync instructions up to head_dim 128")
+    ap.add_argument("--steps", type=int, default=0,
+                    help="last time the LM row's bf16 step and its tp 2 "
+                         "branch with each tree's flash_bwd, N steps an "
+                         "arm (default 0: not timed)")
     args = ap.parse_args()
     chip_smoke.check(torch.cuda.is_available(), "no CUDA card")
     card = chip_smoke.nvidia_smi()
@@ -185,11 +279,13 @@ def main():
     for defines in variants.values():
         for source in SOURCES:
             cuda_build.library(source, defines)
-    arms = {"baseline": chip_smoke.flash_entry_points(wait())}
+    baseline = wait()
+    arms = {"baseline": chip_smoke.flash_entry_points(baseline)}
     if args.sass:
         sass_diff(os.path.join(REPO, "_work", "flash_ab", "baseline",
                                "flash_fwd.so"),
                   cuda_build.library_path("flash_fwd"))
+        sass_products(cuda_build.library_path("flash_bwd"))
     arms.update((arm, chip_smoke.flash_entry_points(defines=d))
                 for arm, d in variants.items())
     timer = chip_smoke.Timer(torch)
@@ -295,8 +391,9 @@ def main():
                       + f"; {card}")
             del q, k, v, do, o, lse, dq, delta, calls, ql, kl, vl, lib_out
             torch.cuda.empty_cache()
+    steps = time_steps(baseline, args.steps) if args.steps else {}
     print(card)
-    print(json.dumps({"card": card, "rows": results}))
+    print(json.dumps({"card": card, "rows": results, "steps": steps}))
     return 0
 
 

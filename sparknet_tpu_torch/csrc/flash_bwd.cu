@@ -26,50 +26,84 @@
 // 206 GFLOP and 275 GFLOP against 202 MB of bf16 q, k, v, o, dO, dq, dk,
 // dv, LSE and delta: 0.21 and 0.28 ms at 989 TFLOP/s of dense bf16.
 //
-// bf16 storage up to head_dim 128 (flash_dq_mma_kernel,
-// flash_dkv_mma_kernel): the products run on the tensor cores (mma.sync
-// m16n8k16 bf16 -> f32, fed by ldmatrix from bf16 shared-memory tiles of
-// row stride D + 8; flash_mma.cuh). A CTA of 4 warps owns one 64-row
-// tile; each warp owns 16 of its rows.
-//  - dQ: the warp's S = Q K^T and dP = dO V^T for 64 keys stay in f32
-//    accumulator registers; P = exp2(S * scale * log2e - LSE * log2e) and
-//    dS = P (dP - delta) are computed there and packed to bf16 A
-//    fragments of dQ += dS K, which reads K through ldmatrix .trans.
-//  - dK/dV: the warp computes S^T = K Q^T and dP^T = V dO^T for its 16
-//    keys (32 queries at a time at D = 128, 64 below, for registers), so
-//    P^T and dS^T are A fragments of dV += P^T dO and dK += dS^T Q, which
-//    read dO and Q through ldmatrix .trans.
-//  - The streamed pair (K, V for dQ; Q, dO with their LSE and delta rows
-//    for dK/dV) is double-buffered: cp.async copies of tile j + 1
-//    (16-byte chunks; rows past S zero-filled) run under the products of
-//    tile j (cp.async.wait_group 1).
-//  - Shared memory at D = 128: own pair 34 KB + two stages of the streamed
-//    pair 68 KB (+ 1 KB of LSE/delta rows) = 102 / 103 KB, so two CTAs
-//    fit on an SM (228 KB); launched with the largest carveout.
-//  - Causal: tiles past the diagonal are skipped (and, in dK/dV, a
-//    warp's query blocks that none of its keys see); the mask is applied
-//    only on tiles that cross the diagonal or S. The tile index is the
-//    slow grid axis, and the dQ kernel maps it to query tiles last to
-//    first, so the longest CTAs start first and the causal tail does not
-//    leave the last wave half empty.
-//  - Rounding: P and dS are rounded to bf16 before the second products,
-//    as any tensor-core backward does (the TPU's MXU takes the JAX
-//    kernel's f32 operands as single-pass bf16); the worst 64-row tile of
-//    dQ, dK, dV then reads ~3e-3 of its norm against the f32 plain
-//    version (tests/test_torch_flash_rounding.py; chip_smoke.py's limit
-//    5e-3). S, dP, delta and the dQ, dK, dV sums stay in f32; the
-//    outputs are rounded once.
+// bf16 storage up to head_dim 128 (flash_dq_wgmma_kernel<D>,
+// flash_dkv_wgmma_kernel<D>, D = 16, 32, 64, 128): every product on
+// wgmma (flash_wgmma.cuh). A CTA of 384 threads: a producer warpgroup
+// (setmaxnreg leaves it 24 registers a thread) and two consumer
+// warpgroups (240), each owning 64 of the CTA's 128 rows and all D
+// output columns, so S and dP (S^T and dP^T) are built once per tile
+// pair and no warpgroup waits on the other: no CTA barrier in the loop.
+//  - Loads: one producer thread issues TMA copies through 3-D tensor maps
+//    (D, S, B*H) into tiles of D / W column blocks in the swizzle of 2 W
+//    bytes, W = min(D, 64) (128 bytes at D = 64 and 128, as the forward);
+//    rows past S arrive as zeros. The CTA's own 128-row pair lands once;
+//    the streamed 64-row pair goes through a ring of three stages, each
+//    with a full mbarrier (the copies' bytes) and a free one (all 256
+//    consumer threads arrive after their last product that reads it), so
+//    two tiles are in flight under the products of the one in hand.
+//    Shared memory at D = 128: own pair 64 KB + 3 x 32 KB = 161 KB (dK/dV
+//    1.5 KB more for the stages' LSE and delta rows), one CTA an SM.
+//  - dQ: the CTA owns 128 queries (Q, dO resident) and walks the keys in
+//    tiles of 64 (K, V streamed). A warpgroup builds dP = dO V^T and
+//    S = Q K^T for its 64 rows (m64n64k16, D / 16 k-steps, both operands
+//    in shared memory), forms P and dS in registers, and adds dS K into
+//    its dQ rows (m64nDk16, dS packed from the accumulators as the
+//    register A operand, K read MN-major): 32 + 32 + D / 2 f32 a thread.
+//    S and dP of tile j + 1 go to the tensor cores before dS K of tile
+//    j, so tile j + 1's softmax runs under dS K; and the two warpgroups
+//    take turns to issue S and dP (named barriers), so one's softmax
+//    runs under the other's products.
+//    delta is computed first, in f32 from O and dO as stored, by the 4
+//    threads of a quad that hold a row's accumulators (D / 4 columns
+//    each, added by two shuffles), and written to the (B*H, S) buffer
+//    that the dK/dV kernel reads.
+//  - dK/dV: the CTA owns 128 keys (K, V resident) and streams 64-query
+//    tiles of Q and dO. A warpgroup builds dP^T = V dO^T and S^T = K Q^T
+//    for its 64 keys (m64n64k16), forms P^T and dS^T in registers and
+//    adds P^T dO and dS^T Q into its dV and dK rows (m64nDk16, register
+//    A, dO and Q read MN-major): 64 + 64 + 32 + 32 f32 a thread at
+//    D = 128, so unlike head_dim 256 nothing goes through shared memory
+//    between the products. dP^T is issued before S^T and its delta taken
+//    off while S^T runs; the accumulators leave no registers for the
+//    next tile's products, and turns at the tensor cores as in dQ ran
+//    slower here. LSE and delta are indexed by S^T's columns,
+//    16 of them a thread: the producer warpgroup's 128 threads write a
+//    tile's 64 of each into its stage before the stage's full barrier
+//    (rows past S as zeros), and the consumers read them from there.
+//  - Causal: tiles past the diagonal are skipped (and a warpgroup's tile
+//    that none of its rows see: dQ's first warpgroup leaves the CTA's
+//    last key tile, dK/dV's second its first query tile, after arriving
+//    on its free barrier); the mask runs only on tiles that cross the
+//    diagonal or S. The dQ kernel maps the tile axis to query tiles last
+//    to first and dK/dV's key tile 0 walks the most query tiles, so the
+//    longest CTAs start first and the causal tail does not leave the last
+//    wave half empty.
+//  - P = 2^(S scale log2(e) - LSE log2(e)) in one MUFU.EX2 a score
+//    (fast_exp2): exp2f's range handling added several instructions and
+//    predicates a score, made the softmax a large share of a tile's
+//    time, and spilled dK/dV's registers.
+//  - Rounding: P and dS (P^T and dS^T) are rounded to bf16 once, before
+//    the second products, as any tensor-core backward does (the TPU's MXU
+//    takes the JAX kernel's f32 operands as single-pass bf16); the worst
+//    64-row tile of dQ, dK, dV then reads ~3e-3 of its norm against the
+//    f32 plain version (tests/test_torch_flash_rounding.py emulates the
+//    kernels' tile walk; chip_smoke.py's limit 5e-3). S, dP, delta and
+//    the dQ, dK, dV sums stay in f32; the outputs are rounded once. Every
+//    output element is summed by one thread in a fixed order (dQ over the
+//    key tiles, dK and dV over the query tiles, each into one f32
+//    accumulator chain), with no atomics: two launches give the same
+//    bits. The library's five-product backward would need atomics on dQ,
+//    so the two kernels stay.
 //  - Registers a thread, shared memory and CTAs per SM, as the runtime
 //    reports them on the H100 (sparknet_flash_backward_info, printed and
-//    checked by chip_smoke.py phase 6); no instantiation spills:
-//        D            16       32       64       128
-//        dQ     125 18 KB 4  153 30 KB 3  190 54 KB 2  234 102 KB 2
-//        dK/dV  140 19 KB 3  170 31 KB 2  226 55 KB 2  244 103 KB 2
-//    At the LM's shape: dQ 0.79-0.84 ms, dK/dV 1.03-1.10 ms, 244-268
-//    TFLOP/s (PERF.md).
-//
-// bf16 storage at head_dim 256 (flash_dq_wgmma_kernel,
-// flash_dkv_wgmma_kernel; and D 129-255, zero-padded to it): one CTA of two
+//    checked by chip_smoke.py phase 6): 168 at launch (384 threads, the
+//    consumers 240 after setmaxnreg), one CTA an SM, no spills; shared
+//    memory 2 x 128 x 2 D + 3 x 2 x 64 x 2 D bytes + 1 KB (D = 128: 161
+//    KB), dK/dV 1.5 KB more. At the LM's shape: PERF.md
+//    (scripts/flash_ab.py).
+
+// bf16 storage at head_dim 256 (flash_dq_wgmma256_kernel,
+// flash_dkv_wgmma256_kernel; and D 129-255, zero-padded to it): one CTA of two
 // warpgroups (256 threads, one CTA an SM) owns all 256 output columns of
 // its tile, so S and dP (S^T and dP^T) are built once per tile pair, every
 // product on wgmma (flash_wgmma.cuh). Loads: one thread issues TMA copies
@@ -114,11 +148,11 @@
 // product on the tensor cores in split TF32 (3xTF32, flash_tf32.cuh:
 // a b ~ a_hi b_lo + a_lo b_hi + a_hi b_hi, f32 accumulation), which keeps
 // the f32 limits (5e-4 of the largest element, 1e-4 of a 64-row tile;
-// the small LM's card-vs-CPU gradients within 1e-4). The layout is the
-// bf16 kernels' (4 warps, a warp 16 rows of the CTA's own 64-row tile,
-// the streamed pair through cp.async stages) with f32 tiles of row
-// stride D + 4 and mma.sync m16n8k8 fed by plain shared-memory loads
-// (ldmatrix moves 16-bit elements only). S, dP, P and dS stay in f32
+// the small LM's card-vs-CPU gradients within 1e-4). A CTA of 4 warps
+// owns a 64-row tile, a warp 16 rows of it, and streams its pair through
+// cp.async stages: f32 tiles of row stride D + 4 and mma.sync m16n8k8
+// fed by plain shared-memory loads (wgmma takes TF32 only with both
+// operands K-major, which dQ's K and dK/dV's Q and dO are not). S, dP, P and dS stay in f32
 // and enter the second products split, from the accumulators; nothing
 // is rounded between the products. Every tensor-core sum runs over at
 // most 64 columns of D or one streamed tile and is then added in f32
@@ -154,292 +188,466 @@
 
 namespace sparknet_flash {
 
-// bf16 storage: the tensor-core kernels (the note at the top).
+// bf16 storage up to head_dim 128: the wgmma kernels (the note at the top).
 
 using bf16 = __nv_bfloat16;
 
+constexpr int kBwdThreads = 384;   // a producer warpgroup, two consumers
+constexpr int kBwdRows = 128;      // a CTA's own rows (queries of dQ, keys of
+                                   // dK/dV), 64 a consumer warpgroup
+constexpr int kBwdStages = 3;      // the ring of streamed 64-row tile pairs
+
+// Shared-memory geometry of the bf16 backward at head_dim D <= 128 (bytes;
+// flash_wgmma.cuh): a tile of R rows of D bf16 is D / W column blocks of
+// R rows of RB bytes, in the RB-byte swizzle that TMA writes and wgmma
+// reads. The CTA's own pair of 128-row tiles (Q and dO, or K and V) stays
+// resident; the streamed pair (K and V, or Q and dO) of each 64-row tile
+// goes through a ring of kBwdStages stages.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, 2)
-    flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ o,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, bf16* __restrict__ dq,
-                        float* __restrict__ delta, int seq, float scale,
-                        int causal) {
-  static_assert(D <= 128, "bf16 head_dim 256 runs flash_dq_wgmma_kernel");
-  constexpr int LD = D + 8, TILE = kBlockQ * LD, KD = D / 16;
-  constexpr int NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // this CTA's 64 queries
-  bf16* dos = qs + TILE;
-  bf16* kvs = dos + TILE;   // stage st: K at kvs + 2 st TILE, V after it
-  const int lane = threadIdx.x & 31, w0 = (threadIdx.x >> 5) * 16;
-  const int g = lane >> 2, t = lane & 3;
-  const int qt = gridDim.y - 1 - blockIdx.y;   // causal: longest CTAs first
-  const int q0 = qt * kBlockQ;
-  const long long base = static_cast<long long>(blockIdx.x) * seq * D;
-  q += base;
-  k += base;
-  v += base;
-  o += base;
-  dout += base;
-  dq += base;
-  lse += static_cast<long long>(blockIdx.x) * seq;
-  delta += static_cast<long long>(blockIdx.x) * seq;
-  const int n_k = causal ? qt + 1 : gridDim.y;   // key tiles to walk
+struct BwdTiles {
+  static_assert(D <= 128, "bf16 head_dim 256 runs the Bwd256Tiles kernels");
+  static constexpr int W = D < 64 ? D : 64;   // columns of a swizzle block
+  static constexpr int RB = 2 * W;            // its row: the swizzle bytes
+  static constexpr int SBO = 8 * RB;          // 8 rows
+  static constexpr int OWN = kBwdRows * D * 2;      // one own tile
+  static constexpr int STREAMED = kBlockK * D * 2;  // one streamed tile
+  static constexpr int STAGE = 2 * STREAMED;        // a stage: the pair
+  // the own pair, the ring, 1 + 2 kBwdStages mbarriers, 1024 bytes to
+  // align the tiles; dK/dV also the LSE and delta rows of each stage's
+  // queries (f32)
+  static constexpr size_t kDqSmem = 2 * OWN + kBwdStages * STAGE + 64 + 1024;
+  static constexpr size_t kDkvSmem = kDqSmem + kBwdStages * 2 * kBlockQ * 4;
 
-  cp_async_tile<D>(qs, q, q0, seq);
-  cp_async_tile<D>(dos, dout, q0, seq);
-  cp_async_commit();
-  cp_async_tile<D>(kvs, k, 0, seq);
-  cp_async_tile<D>(kvs + TILE, v, 0, seq);
-  cp_async_commit();
-  cp_async_wait<1>();                  // Q and dO have landed
-  __syncthreads();
-
-  // delta of row w0 + lane / 2, two lanes a row, half the row each
-  float dl;
-  {
-    const int rl = w0 + (lane >> 1), r = q0 + rl, c0 = (lane & 1) * (D / 2);
-    float part = 0.f;
-    if (r < seq) {
-#pragma unroll
-      for (int c = c0; c < c0 + D / 2; c += 8)
-        part += dot8_bf16(*reinterpret_cast<const uint4*>(
-                              o + static_cast<long long>(r) * D + c),
-                          *reinterpret_cast<const uint4*>(dos + rl * LD + c));
-    }
-    dl = part + __shfl_xor_sync(0xffffffffu, part, 1);
-    if ((lane & 1) == 0 && r < seq) delta[r] = dl;
+  // K-major descriptor of the 16 columns 16 kk .. of a tile of `rows`
+  // rows, from row `row0` (a multiple of 8) on
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows,
+                                                    int row0, int kk) {
+    const int c = 16 * kk;
+    return wgmma_desc(tile + (c / W) * rows * RB + row0 * RB + (c % W) * 2,
+                      16, SBO, RB);
   }
-  // this thread's rows of the score tiles: w0 + g and w0 + g + 8
+  // MN-major descriptor of rows 16 kk .. 16 kk + 15 of a tile of `rows`
+  // rows, all D columns (the next W columns one block further on)
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows,
+                                                     int kk) {
+    return wgmma_desc(tile + kk * 16 * RB, rows * RB, SBO, RB);
+  }
+  // rows row0 .. of a (D, seq, bh) map whose box is `rows` rows, into the
+  // tile at `dst`, completing on `bar`
+  static __device__ __forceinline__ void load(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int rows,
+                                              int row0, int bh) {
+#pragma unroll
+    for (int c = 0; c < D / W; ++c)
+      tma_load_3d(dst + c * rows * RB, map, bar, c * W, row0, bh);
+  }
+};
+
+// mbarriers of the kernels below, from `bars`: +0 the own pair landed;
+// then each stage's "full" (its pair landed) and "free" (all 256
+// consumer threads have read it)
+__device__ __forceinline__ uint32_t stage_full(uint32_t bars, int st) {
+  return bars + 8 + 8 * st;
+}
+__device__ __forceinline__ uint32_t stage_free(uint32_t bars, int st) {
+  return bars + 8 + 8 * (kBwdStages + st);
+}
+
+// The producer warpgroup: setmaxnreg leaves it 24 registers a thread, and
+// one thread loads the own pair, then the streamed pair of each tile
+// it = 0 .. n - 1 (rows row0 + 64 it ..) into stage it % kBwdStages once
+// that stage's tile before is read. With `rows` (dK/dV), the warpgroup's
+// 128 threads first write the stage's 64 rows of LSE (log2 units) and
+// delta there, rows past seq as zeros: the stage's full barrier, which
+// that thread arrives on after a barrier of the warpgroup, then covers
+// them.
+template <int D>
+__device__ __forceinline__ void bwd_producer(
+    uint32_t own, const CUtensorMap* own0, const CUtensorMap* own1,
+    int own_row0, uint32_t ring, const CUtensorMap* str0,
+    const CUtensorMap* str1, int row0, int n, uint32_t bars, int bh,
+    float* rows = nullptr, const float* lse = nullptr,
+    const float* delta = nullptr, int seq = 0) {
+  using L = BwdTiles<D>;
+  setmaxnreg_dec<24>();
+  const int p = threadIdx.x - 256;     // 0 .. 127
+  if (rows == nullptr && p != 0) return;
+  if (p == 0) {
+    mbar_expect_tx(bars, 2 * L::OWN);
+    L::load(own, own0, bars, kBwdRows, own_row0, bh);
+    L::load(own + L::OWN, own1, bars, kBwdRows, own_row0, bh);
+  }
+  for (int it = 0; it < n; ++it) {
+    const int st = it % kBwdStages, r0 = row0 + it * kBlockK;
+    const uint32_t dst = ring + st * L::STAGE;
+    if (it >= kBwdStages)
+      mbar_wait(stage_free(bars, st), (it / kBwdStages - 1) & 1);
+    if (rows != nullptr) {
+      const int r = r0 + (p & 63);
+      rows[st * 2 * kBlockK + p] =
+          r >= seq ? 0.f : p < 64 ? lse[r] * kLog2e : delta[r];
+      named_bar_sync(1, 128);
+    }
+    if (p == 0) {
+      mbar_expect_tx(stage_full(bars, st), L::STAGE);
+      L::load(dst, str0, stage_full(bars, st), kBlockK, r0, bh);
+      L::load(dst + L::STREAMED, str1, stage_full(bars, st), kBlockK, r0,
+              bh);
+    }
+  }
+}
+
+__device__ __forceinline__ void bwd_init_bars(uint32_t bars) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int st = 0; st < kBwdStages; ++st) {
+      mbar_init(stage_full(bars, st), 1);
+      mbar_init(stage_free(bars, st), 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// 2^x in one MUFU.EX2, denormal results flushed to zero: P = 2^x is at
+// most 1 and is rounded to bf16 before its products, where exp2f's
+// range handling (a few more instructions a score, and predicates that
+// spilled at head_dim 128) buys nothing
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Turns of the dQ kernel's two consumer warpgroups at the tensor cores: a
+// warpgroup issues a tile's S and dP only in its turn and then hands the
+// turn to the other, so that one's softmax runs under the other's
+// products. Named barriers 2 and 3 of all 256 consumer threads:
+// warpgroup w syncs on 2 + w, the other arrives on it.
+__device__ __forceinline__ void turn_take(int wg) {
+  named_bar_sync(2 + wg, 256);
+}
+__device__ __forceinline__ void turn_give(int wg) {
+  named_bar_arrive(3 - wg, 256);
+}
+
+// a thread's 32 f32 accumulators of an m64n64 product (S, dP, S^T or
+// dP^T) packed to bf16 A fragments of the next product, columns 16 kk ..
+__device__ __forceinline__ void pack_a(const float (&x)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const bf16* __restrict__ o,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          bf16* __restrict__ dq, float* __restrict__ delta,
+                          int seq, float scale, int causal) {
+  using L = BwdTiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle atoms repeat every 1024 bytes: tiles start on that
+  const uint32_t qs = (smem_addr(smem_raw) + 1023) & ~1023u;  // 128 queries
+  const uint32_t dos = qs + L::OWN;
+  const uint32_t ring = dos + L::OWN;   // key tile j: K, V in stage j % 3
+  const uint32_t bars = ring + kBwdStages * L::STAGE;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // causal: longest CTAs first
+  const int q0 = qt * kBwdRows;
+  const int key_tiles = (seq + kBlockK - 1) / kBlockK;
+  const int n_k = causal ? min(2 * qt + 2, key_tiles) : key_tiles;
+  const long long rows0 = static_cast<long long>(bh) * seq;
+
+  bwd_init_bars(bars);
+  if (wg == 2) {
+    bwd_producer<D>(qs, &tm_q, &tm_do, q0, ring, &tm_k, &tm_v, 0, n_k, bars,
+                    bh);
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  // this warpgroup's rows start at r0w; this thread's: r0w + row, + 8
+  const int r0w = q0 + 64 * wg, row = 16 * warp + g;
+  // delta = rowsum(dO O) in f32 from O and dO as stored, the 4 threads of
+  // a quad (which hold the same rows) D / 4 columns each (D = 16: 2 of
+  // them 8 each); LSE in log2 units
   float delta_r[2], lse_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    delta_r[i] = __shfl_sync(0xffffffffu, dl, 2 * g + 16 * i);
-    const int r = q0 + w0 + g + 8 * i;
-    lse_r[i] = r < seq ? lse[r] * kLog2e : 0.f;
+    constexpr int kCols = D / 4 < 8 ? 8 : D / 4;
+    const int r = r0w + row + 8 * i;
+    float part = 0.f;
+    if (r < seq && t * kCols < D) {
+      const bf16* orow = o + (rows0 + r) * D + t * kCols;
+      const bf16* drow = dout + (rows0 + r) * D + t * kCols;
+#pragma unroll
+      for (int c = 0; c < kCols; c += 8)
+        part += dot8_bf16(*reinterpret_cast<const uint4*>(orow + c),
+                          *reinterpret_cast<const uint4*>(drow + c));
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    delta_r[i] = part;
+    if (t == 0 && r < seq) delta[rows0 + r] = part;
+    lse_r[i] = r < seq ? lse[rows0 + r] * kLog2e : 0.f;
   }
   const float sl2 = scale * kLog2e;
-  float acc[NO][4] = {};               // dQ, rows w0 .. w0 + 15
+  float acc[D / 2];                    // dQ, this thread's rows
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  // causal: the first warpgroup's rows see none of the CTA's last key
+  // tile, which it leaves (no later tile needs that stage)
+  const int j_end =
+      causal && (n_k - 1) * kBlockK > r0w + 63 ? n_k - 1 : n_k;
 
-  for (int j = 0; j < n_k; ++j) {
-    if (j + 1 < n_k) {
-      bf16* next = kvs + ((j + 1) & 1) * 2 * TILE;
-      cp_async_tile<D>(next, k, (j + 1) * kBlockK, seq);
-      cp_async_tile<D>(next + TILE, v, (j + 1) * kBlockK, seq);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();                // tile j has landed
-    __syncthreads();
-    const bf16* ks = kvs + (j & 1) * 2 * TILE;
-    const bf16* vs = ks + TILE;
-    float s[8][4] = {}, dp[8][4] = {};   // S, dP: 16 rows x 64 keys
+  // dP = dO V^T and S = Q K^T of key tile j, this warpgroup's 64 rows x
+  // 64 keys, into dp and s once the tile has landed; committed, not
+  // waited for
+  auto products = [&](int j, float (&s)[32], float (&dp)[32]) {
+    const int st = j % kBwdStages;
+    const uint32_t ks = ring + st * L::STAGE, vs = ks + L::STREAMED;
+    mbar_wait(stage_full(bars, st), (j / kBwdStages) & 1);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t a[4], b[4];
-      ldmatrix_x4(a, a_frag<LD>(qs, w0, kk * 16, lane));
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, L::kmajor(dos, kBwdRows, 64 * wg, kk),
+                   L::kmajor(vs, kBlockK, 0, kk), kk > 0);
 #pragma unroll
-      for (int nn = 0; nn < 4; ++nn) {
-        ldmatrix_x4(b, b_frag<LD>(ks, nn * 16, kk * 16, lane));
-        mma_bf16(s[2 * nn], a, b[0], b[1]);
-        mma_bf16(s[2 * nn + 1], a, b[2], b[3]);
-      }
-      ldmatrix_x4(a, a_frag<LD>(dos, w0, kk * 16, lane));
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn) {
-        ldmatrix_x4(b, b_frag<LD>(vs, nn * 16, kk * 16, lane));
-        mma_bf16(dp[2 * nn], a, b[0], b[1]);
-        mma_bf16(dp[2 * nn + 1], a, b[2], b[3]);
-      }
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, L::kmajor(qs, kBwdRows, 64 * wg, kk),
+                   L::kmajor(ks, kBlockK, 0, kk), kk > 0);
+    wgmma_commit();
+  };
+  // P and dS of tile j, in place in s
+  auto softmax = [&](int j, float (&s)[32], const float (&dp)[32]) {
     const int k0 = j * kBlockK;
-    const bool edge = (causal && j == qt) || k0 + kBlockK > seq ||
-                      q0 + kBlockQ > seq;
+    const bool edge = (causal && k0 + kBlockK - 1 > r0w) ||
+                      k0 + kBlockK > seq || r0w + 64 > seq;
 #pragma unroll
-    for (int jn = 0; jn < 8; ++jn) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        float p = exp2f(fmaf(s[jn][e], sl2, -lse_r[i]));
-        if (edge && masked(q0 + w0 + g + 8 * i, k0 + jn * 8 + 2 * t + (e & 1),
-                           seq, causal))
-          p = 0.f;
-        s[jn][e] = p * (dp[jn][e] - delta_r[i]);    // dS
-      }
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      float p = fast_exp2(fmaf(s[e], sl2, -lse_r[i]));
+      if (edge && masked(r0w + row + 8 * i,
+                         k0 + 8 * (e >> 2) + 2 * t + (e & 1), seq, causal))
+        p = 0.f;
+      s[e] = p * (dp[e] - delta_r[i]);           // dS
     }
-    uint32_t ds[4][4];                 // dS as A fragments, keys 16 kk ..
+  };
+  // dQ += dS K of tile j, all D columns: K read MN-major
+  auto add_dsk = [&](int j, const uint32_t (&ds)[4][4]) {
+    const uint32_t ks = ring + (j % kBwdStages) * L::STAGE;
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      ds[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      ds[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      ds[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      ds[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int nd = 0; nd < KD; ++nd) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, bt_frag<LD>(ks, kk * 16, nd * 16, lane));
-        mma_bf16(acc[2 * nd], ds[kk], b[0], b[1]);
-        mma_bf16(acc[2 * nd + 1], ds[kk], b[2], b[3]);
-      }
-    }
-    __syncthreads();                   // stage j & 1 is free for tile j + 2
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tb<D>(acc, ds[kk], L::mnmajor(ks, kBlockK, kk));
+    wgmma_commit();
+  };
+
+  mbar_wait(bars, 0);                  // Q and dO have landed
+  float s[32], dp[32];                 // S, dP of the tile in hand
+  if (wg == 1) turn_give(wg);          // the first turn is warpgroup 0's
+  if (j_end > 0) {
+    turn_take(wg);
+    products(0, s, dp);
+    turn_give(wg);
+    wgmma_wait<0>();
+    fence_operands(dp);
+    fence_operands(s);
   }
-  cp_async_wait<0>();
+  for (int j = 0; j < j_end; ++j) {
+    softmax(j, s, dp);                 // under dS K of tile j - 1
+    wgmma_wait<0>();                   // dS K of tile j - 1
+    fence_operands(acc);
+    if (j > 0) mbar_arrive(stage_free(bars, (j - 1) % kBwdStages));
+    uint32_t ds[4][4];                 // dS as A fragments, keys 16 kk ..
+    pack_a(s, ds);
+    // the products of tile j + 1 go to the tensor cores before dS K of
+    // tile j, so that tile j + 1's P and dS are formed under dS K
+    if (j + 1 < j_end) {
+      turn_take(wg);
+      products(j + 1, s, dp);
+      turn_give(wg);
+    }
+    add_dsk(j, ds);
+    wgmma_wait<1>();                   // S, dP of tile j + 1, if any
+    fence_operands(dp);
+    fence_operands(s);
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+  // the turn of the tile this warpgroup left, which the other takes
+  for (int j = j_end; j < n_k; ++j) {
+    turn_take(wg);
+    turn_give(wg);
+  }
+
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = q0 + w0 + g + 8 * i;
+    const int r = r0w + row + 8 * i;
     if (r >= seq) continue;
+    bf16* out = dq + (rows0 + r) * D + 2 * t;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(dq + static_cast<long long>(r) * D +
-                                   n * 8 + 2 * t) =
-          pack_bf16(scale * acc[n][2 * i], scale * acc[n][2 * i + 1]);
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(out + 8 * n) = pack_bf16(
+          scale * acc[4 * n + 2 * i], scale * acc[4 * n + 2 * i + 1]);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, 2)
-    flash_dkv_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv,
-                         int seq, float scale, int causal) {
-  static_assert(D <= 128, "bf16 head_dim 256 runs flash_dkv_wgmma_kernel");
-  constexpr int LD = D + 8, TILE = kBlockK * LD, KD = D / 16;
-  constexpr int NO = D / 8;
-  constexpr int kSub = D > 64 ? 32 : 64;   // queries per S^T block
-  constexpr int NS = kSub / 8;             // its n8 tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // this CTA's 64 keys
-  bf16* vs = ks + TILE;
-  bf16* qds = vs + TILE;   // stage st: Q at qds + 2 st TILE, dO after it
-  float* rows = reinterpret_cast<float*>(qds + 4 * TILE);  // stage st: LSE
-                                           // at rows + 128 st, delta after
-  const int lane = threadIdx.x & 31, w0 = (threadIdx.x >> 5) * 16;
-  const int g = lane >> 2, t = lane & 3;
-  const int kt = blockIdx.y, k0 = kt * kBlockK;   // causal: longest first
-  const long long base = static_cast<long long>(blockIdx.x) * seq * D;
-  q += base;
-  k += base;
-  v += base;
-  dout += base;
-  dk += base;
-  dv += base;
-  lse += static_cast<long long>(blockIdx.x) * seq;
-  delta += static_cast<long long>(blockIdx.x) * seq;
-  // causal: query tiles wholly above the diagonal are skipped
-  const int n_q = gridDim.y, q_first = causal ? kt : 0;
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int seq, float scale, int causal) {
+  using L = BwdTiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ks = (smem_addr(smem_raw) + 1023) & ~1023u;  // 128 keys
+  const uint32_t vs = ks + L::OWN;
+  const uint32_t ring = vs + L::OWN;   // query tile: Q, dO in a stage
+  const uint32_t bars = ring + kBwdStages * L::STAGE;
+  // stage st's LSE (log2 units) at rows + 128 st, its delta 64 on
+  float* rows = reinterpret_cast<float*>(
+      smem_raw + (bars + 64 - smem_addr(smem_raw)));
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int kt = blockIdx.y, k0 = kt * kBwdRows;   // causal: longest first
+  const long long rows0 = static_cast<long long>(bh) * seq;
+  // causal: query tiles wholly above the diagonal are skipped; query tile
+  // it of the walk is q_first + it, in stage it % kBwdStages
+  const int q_first = causal ? k0 / kBlockQ : 0;
+  const int n_it = (seq + kBlockQ - 1) / kBlockQ - q_first;
 
-  auto load_queries = [&](int stage, int qt) {
-    bf16* dst = qds + stage * 2 * TILE;
-    cp_async_tile<D>(dst, q, qt * kBlockQ, seq);
-    cp_async_tile<D>(dst + TILE, dout, qt * kBlockQ, seq);
-    cp_async_rows(rows + stage * 128, lse, qt * kBlockQ, seq);
-    cp_async_rows(rows + stage * 128 + 64, delta, qt * kBlockQ, seq);
-  };
-  cp_async_tile<D>(ks, k, k0, seq);
-  cp_async_tile<D>(vs, v, k0, seq);
-  load_queries(0, q_first);
-  cp_async_commit();
+  bwd_init_bars(bars);
+  if (wg == 2) {
+    bwd_producer<D>(ks, &tm_k, &tm_v, k0, ring, &tm_q, &tm_do,
+                    q_first * kBlockQ, n_it, bars, bh, rows, lse + rows0,
+                    delta + rows0, seq);
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  // this warpgroup's keys start at kw0; this thread's: kw0 + key, + 8
+  const int kw0 = k0 + 64 * wg, key = 16 * warp + g;
   const float sl2 = scale * kLog2e;
-  float dk_acc[NO][4] = {}, dv_acc[NO][4] = {};   // rows w0 .. w0 + 15
+  float dk_acc[D / 2], dv_acc[D / 2];  // this thread's key rows
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+  mbar_wait(bars, 0);                  // K and V have landed
 
-  for (int qt = q_first; qt < n_q; ++qt) {
-    const int stage = (qt - q_first) & 1;
-    if (qt + 1 < n_q) load_queries(stage ^ 1, qt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();                // tile qt has landed
-    __syncthreads();
-    const bf16* qs = qds + stage * 2 * TILE;
-    const bf16* dos = qs + TILE;
-    const float* lse_s = rows + stage * 128;
-    const float* delta_s = lse_s + 64;
-    const int q0 = qt * kBlockQ;
-    const bool edge = (causal && qt == kt) || q0 + kBlockQ > seq ||
-                      k0 + kBlockK > seq;
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kBwdStages;
+    const int q0 = (q_first + it) * kBlockQ;
+    if (causal && q0 + kBlockQ - 1 < kw0) {
+      // these queries see none of this warpgroup's keys
+      mbar_arrive(stage_free(bars, st));
+      continue;
+    }
+    // the LSE and delta of the tile's queries, S^T's columns
+    const float* lq = rows + st * 2 * kBlockQ;
+    const float* dl = lq + kBlockQ;
+    const uint32_t qs = ring + st * L::STAGE, dos = qs + L::STREAMED;
+    const uint32_t ka = opaque(ks), va = opaque(vs);
+    mbar_wait(stage_full(bars, st), (it / kBwdStages) & 1);  // Q, dO
+    // dP^T = V dO^T, then S^T = K Q^T, this warpgroup's 64 keys x 64
+    // queries
+    float s[32], dp[32];
+    wgmma_fence();
 #pragma unroll
-    for (int sub = 0; sub < kBlockQ; sub += kSub) {
-      // a block of queries that sees none of this warp's keys
-      if (causal && q0 + sub + kSub - 1 < k0 + w0) continue;
-      float s[NS][4] = {}, dp[NS][4] = {};   // S^T, dP^T: 16 keys x kSub
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, L::kmajor(va, kBwdRows, 64 * wg, kk),
+                   L::kmajor(dos, kBlockQ, 0, kk), kk > 0);
+    wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t a[4], b[4];
-        ldmatrix_x4(a, a_frag<LD>(ks, w0, kk * 16, lane));
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, L::kmajor(ka, kBwdRows, 64 * wg, kk),
+                   L::kmajor(qs, kBlockQ, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(dp);
+    // dP^T - delta while S^T runs: columns 8 n + 2 t, + 1 (registers
+    // 4 n + 0, 2 and 1, 3)
 #pragma unroll
-        for (int nn = 0; nn < NS / 2; ++nn) {
-          ldmatrix_x4(b, b_frag<LD>(qs, sub + nn * 16, kk * 16, lane));
-          mma_bf16(s[2 * nn], a, b[0], b[1]);
-          mma_bf16(s[2 * nn + 1], a, b[2], b[3]);
-        }
-        ldmatrix_x4(a, a_frag<LD>(vs, w0, kk * 16, lane));
+    for (int n = 0; n < 8; ++n) {
+      const float2 d = *reinterpret_cast<const float2*>(dl + 8 * n + 2 * t);
+      dp[4 * n] -= d.x;
+      dp[4 * n + 1] -= d.y;
+      dp[4 * n + 2] -= d.x;
+      dp[4 * n + 3] -= d.y;
+    }
+    wgmma_wait<0>();
+    fence_operands(s);
+
+    const bool edge = (causal && q0 < kw0 + 63) || q0 + kBlockQ > seq ||
+                      kw0 + 64 > seq;
+    uint32_t pf[4][4], dsf[4][4];      // A fragments, queries 16 kk ..
 #pragma unroll
-        for (int nn = 0; nn < NS / 2; ++nn) {
-          ldmatrix_x4(b, b_frag<LD>(dos, sub + nn * 16, kk * 16, lane));
-          mma_bf16(dp[2 * nn], a, b[0], b[1]);
-          mma_bf16(dp[2 * nn + 1], a, b[2], b[3]);
-        }
-      }
+    for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int jn = 0; jn < NS; ++jn) {
+      for (int h = 0; h < 2; ++h) {
+        const int n = 2 * kk + h;
+        const float2 l =
+            *reinterpret_cast<const float2*>(lq + 8 * n + 2 * t);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = sub + jn * 8 + 2 * t + (e & 1);   // query in tile
-          float p = exp2f(fmaf(s[jn][e], sl2, -lse_s[c] * kLog2e));
-          if (edge && masked(q0 + c, k0 + w0 + g + 8 * (e >> 1), seq, causal))
+        for (int r = 0; r < 4; ++r) {
+          const int e = 4 * n + r, c = 8 * n + 2 * t + (r & 1);
+          float p = fast_exp2(fmaf(s[e], sl2, r & 1 ? -l.y : -l.x));
+          if (edge && masked(q0 + c, kw0 + key + 8 * (r >> 1), seq, causal))
             p = 0.f;
-          dp[jn][e] = p * (dp[jn][e] - delta_s[c]);   // dS^T
-          s[jn][e] = p;                                 // P^T
+          dp[e] *= p;                            // dS^T
+          s[e] = p;                              // P^T
         }
       }
-      uint32_t pf[NS / 2][4], dsf[NS / 2][4];   // A fragments, queries 16 kk..
 #pragma unroll
-      for (int kk = 0; kk < NS / 2; ++kk) {
-        pf[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pf[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pf[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pf[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        dsf[kk][0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-        dsf[kk][1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-        dsf[kk][2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-        dsf[kk][3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < NS / 2; ++kk) {
-#pragma unroll
-        for (int nd = 0; nd < KD; ++nd) {
-          const int n0 = nd * 16;
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, bt_frag<LD>(dos, sub + kk * 16, n0, lane));
-          mma_bf16(dv_acc[2 * nd], pf[kk], b[0], b[1]);
-          mma_bf16(dv_acc[2 * nd + 1], pf[kk], b[2], b[3]);
-          ldmatrix_x4_trans(b, bt_frag<LD>(qs, sub + kk * 16, n0, lane));
-          mma_bf16(dk_acc[2 * nd], dsf[kk], b[0], b[1]);
-          mma_bf16(dk_acc[2 * nd + 1], dsf[kk], b[2], b[3]);
-        }
+      for (int r = 0; r < 4; ++r) {
+        pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        dsf[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
       }
     }
-    __syncthreads();                   // this stage is free for tile qt + 2
+    // dV += P^T dO and dK += dS^T Q, all D columns: dO, Q read MN-major
+    fence_operands(dv_acc);
+    fence_operands(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tb<D>(dv_acc, pf[kk], L::mnmajor(dos, kBlockQ, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tb<D>(dk_acc, dsf[kk], L::mnmajor(qs, kBlockQ, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dv_acc);
+    fence_operands(dk_acc);
+    mbar_arrive(stage_free(bars, st));   // Q, dO of this tile are read
   }
-  cp_async_wait<0>();
+
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int c = k0 + w0 + g + 8 * i;
+    const int c = kw0 + key + 8 * i;
     if (c >= seq) continue;
+    const long long at = (rows0 + c) * D + 2 * t;
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const long long at = static_cast<long long>(c) * D + n * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dk + at) =
-          pack_bf16(scale * dk_acc[n][2 * i], scale * dk_acc[n][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dv + at) =
-          pack_bf16(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * n) = pack_bf16(
+          scale * dk_acc[4 * n + 2 * i], scale * dk_acc[4 * n + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * n) =
+          pack_bf16(dv_acc[4 * n + 2 * i], dv_acc[4 * n + 2 * i + 1]);
     }
   }
 }
@@ -463,15 +671,16 @@ struct Bwd256Tiles : Tile256 {
 };
 
 __global__ void __launch_bounds__(kBwdWgThreads, 1)
-    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
-                          const __grid_constant__ CUtensorMap tm_k,
-                          const __grid_constant__ CUtensorMap tm_v,
-                          const __grid_constant__ CUtensorMap tm_do,
-                          const bf16* __restrict__ o,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          bf16* __restrict__ dq, float* __restrict__ delta,
-                          int seq, float scale, int causal) {
+    flash_dq_wgmma256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const bf16* __restrict__ o,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             bf16* __restrict__ dq,
+                             float* __restrict__ delta, int seq,
+                             float scale, int causal) {
   using L = Bwd256Tiles;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -594,11 +803,7 @@ __global__ void __launch_bounds__(kBwdWgThreads, 1)
       s[e] = p * (dp[e] - delta_r[i]);           // dS
     }
     uint32_t ds[4][4];                 // dS as A fragments, keys 16 kk ..
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        ds[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    pack_a(s, ds);
     // dQ += dS K, all 256 columns: K read MN-major
     fence_operands(acc);
     wgmma_fence();
@@ -630,14 +835,14 @@ __global__ void __launch_bounds__(kBwdWgThreads, 1)
 }
 
 __global__ void __launch_bounds__(kBwdWgThreads, 1)
-    flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
-                           const __grid_constant__ CUtensorMap tm_k,
-                           const __grid_constant__ CUtensorMap tm_v,
-                           const __grid_constant__ CUtensorMap tm_do,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv,
-                           int seq, float scale, int causal) {
+    flash_dkv_wgmma256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv,
+                              int seq, float scale, int causal) {
   using L = Bwd256Tiles;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ks = (smem_addr(smem_raw) + 1023) & ~1023u;   // 64 keys
@@ -1027,36 +1232,38 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// The storage type and head_dim pick the kernel: bf16 at head_dim 256 the
-// wgmma kernels on a (bh, tiles) grid of two warpgroups, other bf16 the
-// mma.sync kernels, f32 split TF32; the last two take launch_mma's grid.
+// The storage type and head_dim pick the kernel: bf16 the wgmma kernels
+// (head_dim 256 its own), f32 split TF32 on launch_mma's grid.
 template <typename T>
 constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 template <typename T, int D>
 constexpr bool kWgmma256 = kBf16<T> && D == 256;
+// threads of a bf16 backward CTA at head_dim D
+template <int D>
+constexpr int kWgmmaThreads = D == 256 ? kBwdWgThreads : kBwdThreads;
 
-// Launch a head_dim-256 wgmma kernel on a (bh, ceil(seq / rows)) grid
-// of kBwdWgThreads threads with `bytes` of dynamic shared memory, its
-// first four arguments the tensor maps of q, k, v and dO: boxes of `rows`
-// rows for q and dO (the CTA's own tile in dQ), of 64 for k and v; ->
-// the launch's error code.
-template <typename Kernel, typename... Args>
-int launch_wgmma256(Kernel kernel, const void* const (&src)[4], int rows,
-                    int bh, int seq, size_t bytes, cudaStream_t stream,
-                    Args... args) {
-  const int tiles = (seq + rows - 1) / rows;
+// Launch a bf16 wgmma backward kernel at head_dim D on a (bh, ceil(seq /
+// tile)) grid of kWgmmaThreads<D> threads with `bytes` of dynamic shared
+// memory, its first four arguments the tensor maps of q, k, v and dO:
+// boxes of `q_rows` rows for q and dO, of `kv_rows` for k and v; -> the
+// launch's error code.
+template <int D, typename Kernel, typename... Args>
+int launch_wgmma(Kernel kernel, const void* const (&src)[4], int q_rows,
+                 int kv_rows, int tile, int bh, int seq, size_t bytes,
+                 cudaStream_t stream, Args... args) {
+  const int tiles = (seq + tile - 1) / tile;
   if (tiles > 65535) return cudaErrorInvalidValue;
   CUtensorMap maps[4];
   for (int i = 0; i < 4; ++i) {
-    const cudaError_t err = rows_map(&maps[i], src[i], 256, seq, bh,
-                                     i == 0 || i == 3 ? rows : 64);
+    const cudaError_t err = rows_map(&maps[i], src[i], D, seq, bh,
+                                     i == 0 || i == 3 ? q_rows : kv_rows);
     if (err != cudaSuccess) return err;
   }
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(bh, tiles, 1), kBwdWgThreads, bytes, stream>>>(
+  kernel<<<dim3(bh, tiles, 1), kWgmmaThreads<D>, bytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], args...);
   return cudaGetLastError();
 }
@@ -1074,9 +1281,9 @@ struct DqLaunch {
   template <typename T, int D>
   static auto kernel() {
     if constexpr (kWgmma256<T, D>)
-      return flash_dq_wgmma_kernel;
+      return flash_dq_wgmma256_kernel;
     else if constexpr (kBf16<T>)
-      return flash_dq_mma_kernel<D>;
+      return flash_dq_wgmma_kernel<D>;
     else
       return flash_dq_tf32_kernel<D>;
   }
@@ -1086,17 +1293,19 @@ struct DqLaunch {
     if constexpr (kWgmma256<T, D>)
       return Bwd256Tiles::kDqSmem;
     else if constexpr (kBf16<T>)
-      return sizeof(T) * (2 * kBlockQ + 4 * kBlockK) * (D + 8);
+      return BwdTiles<D>::kDqSmem;
     else
       return DqTiles<D>::kDqSmem;
   }
 
   template <typename T, int D>
   int run() const {
-    if constexpr (kWgmma256<T, D>) {
+    if constexpr (kBf16<T>) {
+      // the CTA owns 128 queries (Q, dO) and streams 64-key tiles (K, V)
       const void* const src[4] = {q, k, v, dout};
-      return launch_wgmma256(kernel<T, D>(), src, kDqRows, bh, seq,
-                             smem<T, D>(), stream, static_cast<const T*>(o),
+      return launch_wgmma<D>(kernel<T, D>(), src, kDqRows, kBlockK, kDqRows,
+                             bh, seq, smem<T, D>(), stream,
+                             static_cast<const T*>(o),
                              static_cast<const T*>(dout), lse,
                              static_cast<T*>(dq), delta, seq, scale, causal);
     } else {
@@ -1121,9 +1330,9 @@ struct DkvLaunch {
   template <typename T, int D>
   static auto kernel() {
     if constexpr (kWgmma256<T, D>)
-      return flash_dkv_wgmma_kernel;
+      return flash_dkv_wgmma256_kernel;
     else if constexpr (kBf16<T>)
-      return flash_dkv_mma_kernel<D>;
+      return flash_dkv_wgmma_kernel<D>;
     else
       return flash_dkv_tf32_kernel<D>;
   }
@@ -1133,20 +1342,22 @@ struct DkvLaunch {
     if constexpr (kWgmma256<T, D>)
       return Bwd256Tiles::kDkvSmem;
     else if constexpr (kBf16<T>)
-      return sizeof(T) * (2 * kBlockK + 4 * kBlockQ) * (D + 8) +
-             sizeof(float) * 4 * kBlockQ;
+      return BwdTiles<D>::kDkvSmem;
     else
       return DkvTiles<D>::kDkvSmem;
   }
 
   template <typename T, int D>
   int run() const {
-    if constexpr (kWgmma256<T, D>) {
+    if constexpr (kBf16<T>) {
+      // the CTA owns 64 keys at head_dim 256, 128 below (K, V), and
+      // streams 64-query tiles (Q, dO)
+      constexpr int own = D == 256 ? kBlockK : kBwdRows;
       const void* const src[4] = {q, k, v, dout};
-      return launch_wgmma256(kernel<T, D>(), src, kBlockQ, bh, seq,
+      return launch_wgmma<D>(kernel<T, D>(), src, kBlockQ, own, own, bh, seq,
                              smem<T, D>(), stream, lse, delta,
-                             static_cast<T*>(dk),
-                             static_cast<T*>(dv), seq, scale, causal);
+                             static_cast<T*>(dk), static_cast<T*>(dv), seq,
+                             scale, causal);
     } else {
       return launch_mma(kernel<T, D>(), bh, seq, D / kOutCols<D>,
                         smem<T, D>(), stream, static_cast<const T*>(q),
@@ -1194,12 +1405,12 @@ struct InfoQuery {
 
   template <typename T, int D>
   int run() const {
-    const int threads = kWgmma256<T, D> ? kBwdWgThreads : kMmaThreads;
+    const int threads = kBf16<T> ? kWgmmaThreads<D> : kMmaThreads;
     return which == 0
                ? fill(DqLaunch::kernel<T, D>(), DqLaunch::smem<T, D>(),
-                      threads, !kWgmma256<T, D>)
+                      threads, !kBf16<T>)
                : fill(DkvLaunch::kernel<T, D>(), DkvLaunch::smem<T, D>(),
-                      threads, !kWgmma256<T, D>);
+                      threads, !kBf16<T>);
   }
 };
 

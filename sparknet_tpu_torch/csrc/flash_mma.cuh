@@ -1,11 +1,11 @@
-// Tensor-core building blocks of the bf16 flash-attention backward
-// (flash_bwd.cu): cp.async copies into bf16 shared-memory tiles, ldmatrix
-// fragment loads and the m16n8k16 bf16 mma with f32 accumulation. The
-// forward (flash_fwd.cu) takes smem_addr, pack_bf16 and kLog2e from here.
-//
-// Tiles: 64 rows of D bf16 with a row stride of D + 8 (16 bytes of pad),
+// mma.sync building blocks of the flash-attention kernels: cp.async
+// copies, ldmatrix fragment loads and the m16n8k16 bf16 mma with f32
+// accumulation, which the bf16 kernels past head_dim 256 (flash_wide.cuh)
+// run on bf16 shared-memory tiles whose row stride is padded by 16 bytes,
 // so the 8 rows an ldmatrix phase reads start on 8 distinct 16-byte bank
-// groups for every D in 16, 32, 64, 128: no bank conflicts.
+// groups; the launch of the f32 kernels (launch_mma). The bf16 kernels up
+// to head_dim 256 run on wgmma instead (flash_wgmma.cuh) and take
+// smem_addr, pack_bf16, dot8_bf16 and kLog2e from here.
 //
 // Fragments of mma.m16n8k16 (lane = 4 g + t, g in 0..7, t in 0..3):
 //   A (16x16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
@@ -33,9 +33,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 // columns (2 x 128 f32 a thread) would not fit in registers: the grid's z
 // axis splits the output columns in 128-wide halves, and each CTA
 // recomputes the score tiles (whose reduction runs over all of D) for its
-// half. The bf16 kernels run here up to D = 128 only, where this is D;
-// bf16 at 256 takes flash_bwd.cu's wgmma kernels, which split the columns
-// between two warpgroups of one CTA instead.
+// half. The bf16 wgmma kernels need no split: each warpgroup holds all
+// the columns up to D = 128, and half of them at 256.
 template <int D>
 constexpr int kOutCols = D > 128 ? 128 : D;
 
@@ -130,37 +129,6 @@ __device__ __forceinline__ const __nv_bfloat16* bt_frag(
     const __nv_bfloat16* tile, int k0, int n0, int lane) {
   return tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 +
          (lane >> 4) * 8;
-}
-
-// Rows [row0, row0 + 64) of a (seq, D) bf16 matrix into a tile of row
-// stride D + 8 by 16-byte cp.async copies; rows at or past seq are
-// zero-filled. Every thread of the CTA takes part; the caller commits.
-template <int D>
-__device__ __forceinline__ void cp_async_tile(__nv_bfloat16* dst,
-                                              const __nv_bfloat16* src,
-                                              int row0, int seq) {
-  constexpr int kChunks = D / 8;           // 16-byte chunks per row
-  static_assert(64 * kChunks % kMmaThreads == 0, "D a multiple of 16");
-#pragma unroll
-  for (int it = 0; it < 64 * kChunks / kMmaThreads; ++it) {
-    const int i = threadIdx.x + it * kMmaThreads;
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const int g = row0 + r;
-    const bool in = g < seq;
-    cp_async16(dst + r * (D + 8) + c,
-               src + (in ? static_cast<long long>(g) * D + c : 0),
-               in ? 16 : 0);
-  }
-}
-
-// 64 f32 values [row0, row0 + 64) of a per-row vector; past seq: zeros
-__device__ __forceinline__ void cp_async_rows(float* dst, const float* src,
-                                              int row0, int seq) {
-  if (threadIdx.x < 64) {
-    const int g = row0 + threadIdx.x;
-    const bool in = g < seq;
-    cp_async4(dst + threadIdx.x, src + (in ? g : 0), in ? 4 : 0);
-  }
 }
 
 // sum of the products of 8 bf16 pairs, in f32

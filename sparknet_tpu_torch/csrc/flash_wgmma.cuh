@@ -406,6 +406,14 @@ __device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// x, hidden from the compiler's loop-invariant code motion: descriptors
+// built from it inside a loop are rebuilt there (a few integer adds)
+// rather than all held in registers across the loop
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
 // -- named barriers ------------------------------------------------------
 
 // Barrier `id` (1-15; 0 is __syncthreads) of `count` threads: sync waits

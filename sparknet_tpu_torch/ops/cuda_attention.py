@@ -26,8 +26,8 @@ the products. For bfloat16 tensors every kernel runs its products on the
 tensor cores in bf16, with f32 sums, and rounds to bfloat16 what feeds a
 second product: P before O = P V in the forward (csrc/flash_fwd.cu,
 wgmma), P and dS before dV = P^T dO, dQ = dS K and dK = dS^T Q in the
-backward (csrc/flash_bwd.cu: mma.sync, and wgmma at head_dim 256), as the
-JAX kernels' default-precision dots do on the TPU. The plain versions keep them in
+backward (csrc/flash_bwd.cu, wgmma), as the JAX kernels'
+default-precision dots do on the TPU. The plain versions keep them in
 f32.
 
 A head_dim D <= 256 that the kernels were not built for (``HEAD_DIMS``)

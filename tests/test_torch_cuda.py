@@ -282,6 +282,9 @@ FLASH_CASES = [
     pytest.param((1, 2, 512, 128), id="D128-S512-eight-tiles"),
     pytest.param((2, 1, 77, 32), id="D32-ragged-S77"),
     pytest.param((1, 1, 1, 64), id="S1"),
+    # the bf16 backward's last 128-row CTA holds 64 rows: its second
+    # warpgroup's rows all lie past S
+    pytest.param((2, 2, 320, 128), id="D128-S320-half-last-tile"),
 ] + [
     # S = 1000 at every head_dim: the bf16 forward's last 128-row query
     # and key tiles are 104 rows, the rest of the TMA box zero-filled
@@ -370,15 +373,18 @@ def _flash_inputs(shape, dtype, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("s, d", [(512, 128), (512, 256), (1000, 128),
+                                  (1000, 64)],
+                         ids=["128", "256", "128-S1000", "64-S1000"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_flash_backward_is_deterministic_on_card(cuda, causal, dtype, d):
+def test_flash_backward_is_deterministic_on_card(cuda, causal, dtype, s, d):
     # two kernels and no atomics: each output element is summed by one
-    # thread in a fixed order, launch after launch (bf16 at head_dim 256:
-    # the wgmma kernels, each warpgroup its own 128 columns)
-    q, k, v, do = _flash_inputs((2, 4, 512, d), dtype, 33)
+    # thread in a fixed order, launch after launch (bf16: the wgmma
+    # kernels, each warpgroup its own rows, all D columns up to 128 and
+    # 128 of them at 256; S = 1000 ends in a ragged 128-row tile)
+    q, k, v, do = _flash_inputs((2, 4, s, d), dtype, 33)
     o, lse = ca.flash_attention_fwd(q, k, v, causal)
     runs = []
     for _ in range(2):

@@ -5,7 +5,10 @@ accumulate S and dP in f32; round P and dS to bf16 before the three
 second products (dV = P^T dO, dQ = scale dS K, dK = scale dS^T Q), which
 sum in f32; and round dQ, dK, dV to bf16 once. That is emulated here in
 plain PyTorch (f32 products of bf16 values are exact, so f32 matmuls
-stand for the tensor cores up to summation order) and held against the
+stand for the tensor cores up to summation order; BWD_CASES' "tiles64"
+cases also take the wgmma kernels' sum order up to head_dim 128: dQ
+over 64-key tiles, dK and dV over 64-query tiles, each into one f32
+chain) and held against the
 plain versions (ops/cuda_attention.py, f32 throughout, outputs rounded
 once) at the measure chip_smoke.py holds the kernels to: each output's
 worst 64-row tile, as a share of that tile's norm. Every reading must
@@ -83,6 +86,14 @@ SHAPES = [pytest.param((1, 2, 512, 128), id="S512-D128"),
           # the widest tiled head_dim: the wgmma backward's rounding points
           # are the mma.sync kernels' (P and dS to bf16 once)
           pytest.param((1, 1, 128, 256), id="S128-D256")]
+# the backward's cases: (shape, tile), the second products summed over
+# tiles of ``tile`` rows of S into one f32 chain as the wgmma kernels up
+# to head_dim 128 sum them (None: one product over all of S); S = 200 is
+# not a multiple of the kernels' 128-row CTAs
+BWD_CASES = [pytest.param(*p.values, None, id=p.id) for p in SHAPES] + [
+    pytest.param((1, 2, 512, 128), 64, id="S512-D128-tiles64"),
+    pytest.param((2, 3, 256, 64), 64, id="S256-D64-tiles64"),
+    pytest.param((1, 2, 200, 128), 64, id="S200-D128-tiles64")]
 # past head_dim 256: D = 320 (padded to 384, three ranks) and 512 (four)
 WIDE_SHAPES = [pytest.param((1, 2, 128, 320), id="S128-D320"),
                pytest.param((1, 1, 128, 512), id="S128-D512")]
@@ -110,8 +121,24 @@ def _planted(t):
     return last, late
 
 
-def _emulated_backward(q, k, v, o, lse, do, causal):
-    """dq, dk, dv with the bf16 kernels' rounding points."""
+def _tile_sum(a, b, tile, axis):
+    """a @ b (a: (..., m, s), b: (..., s, n)) as a kernel sums it over
+    ``tile``-row tiles of the shared axis s, each tile's product added
+    into one f32 accumulator chain in order from zero; ``tile`` None:
+    one product. ``axis`` -1 takes a's columns, -2 a's rows (a^T)."""
+    at = a if axis == -1 else a.transpose(-1, -2)
+    if tile is None:
+        return at @ b
+    acc = torch.zeros(*at.shape[:-1], b.shape[-1])
+    for j in range(0, b.shape[-2], tile):
+        acc = acc + at[..., j:j + tile] @ b[..., j:j + tile, :]
+    return acc
+
+
+def _emulated_backward(q, k, v, o, lse, do, causal, tile=None):
+    """dq, dk, dv with the bf16 kernels' rounding points; ``tile``: the
+    second products summed as the wgmma kernels up to head_dim 128 walk
+    them (_tile_sum: dQ over key tiles, dK and dV over query tiles)."""
     b, h, s, d = q.shape
     scale = ca.default_scale(q)
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
@@ -123,9 +150,9 @@ def _emulated_backward(q, k, v, o, lse, do, causal):
     ds = p * (dof @ vf.transpose(-1, -2) - delta)          # f32 dP
     pb = p.to(torch.bfloat16).float()
     dsb = ds.to(torch.bfloat16).float()
-    dq = scale * (dsb @ kf)
-    dk = scale * (dsb.transpose(-1, -2) @ qf)
-    dv = pb.transpose(-1, -2) @ dof
+    dq = scale * _tile_sum(dsb, kf, tile, -1)
+    dk = scale * _tile_sum(dsb, qf, tile, -2)
+    dv = _tile_sum(pb, dof, tile, -2)
     return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
 
 
@@ -306,14 +333,15 @@ def test_split_forward_rounding_fits_the_bf16_tile_limit(causal):
 
 @pytest.mark.parametrize("output", ["dq", "dk", "dv"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_tensor_core_rounding_fits_the_bf16_tile_limit(shape, causal, output):
+@pytest.mark.parametrize("shape, tile", BWD_CASES)
+def test_tensor_core_rounding_fits_the_bf16_tile_limit(shape, tile, causal,
+                                                       output):
     rs = np.random.RandomState(41)
     q, k, v, do = (torch.from_numpy(0.5 * rs.randn(*shape).astype(
         np.float32)).to(torch.bfloat16) for _ in range(4))
     o, lse = ca.flash_attention_fwd_plain(q, k, v, causal)
     got = dict(zip(("dq", "dk", "dv"),
-                   _emulated_backward(q, k, v, o, lse, do, causal)))
+                   _emulated_backward(q, k, v, o, lse, do, causal, tile)))
     rdq, rdelta = ca.flash_attention_dq_plain(q, k, v, o, lse, do, causal)
     rdk, rdv = ca.flash_attention_dkv_plain(q, k, v, do, lse, rdelta, causal)
     ref = {"dq": rdq, "dk": rdk, "dv": rdv}[output]
