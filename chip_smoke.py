@@ -1347,9 +1347,10 @@ def _flash_kernel_info(torch):
     size (1: none) and the clusters that fit on the card at once
     (cudaOccupancyMaxActiveClusters; the three kernels past head_dim
     256). Fails if any instantiation uses local memory (spills), or a
-    bf16 backward kernel up to head_dim 128 is not as it was built
-    (_bf16_bwd_design): 384 threads (a producer and two consumer
-    warpgroups) at 168 registers, its shared memory, one CTA an SM."""
+    backward kernel on wgmma (bf16 up to head_dim 128, _bf16_bwd_design;
+    f32 at 64 and 128, _f32_bwd_design) is not as it was built: 384
+    threads (a producer and two consumer warpgroups) at 168 registers,
+    its shared memory, one CTA an SM."""
     import ctypes
     from sparknet_tpu_torch.ops import cuda_attention as ca
     from sparknet_tpu_torch.ops import cuda_build
@@ -1383,11 +1384,16 @@ def _flash_kernel_info(torch):
                       f"{name} {dname} D={d} uses local memory: {r}")
                 check(out[4] == 1 or out[5] > 0,
                       f"{name} {dname} D={d}: no cluster of {out[4]} fits")
-                if dtype == torch.bfloat16 and name != "flash_attention" \
-                        and ca.built_head_dim(d) <= 128:
-                    want = _bf16_bwd_design(name, ca.built_head_dim(d))
+                built = ca.built_head_dim(d)
+                design = None if name == "flash_attention" else \
+                    _bf16_bwd_design if dtype == torch.bfloat16 \
+                    and built <= 128 else _f32_bwd_design \
+                    if dtype == torch.float32 and built in F32_WGMMA_DIMS \
+                    else None
+                if design is not None:
+                    want = design(name, built)
                     got = {key: r[key] for key in want}
-                    check(got == want, f"{name} bf16 D={d} reads {got}, "
+                    check(got == want, f"{name} {dname} D={d} reads {got}, "
                           f"built for {want}")
     return info
 
@@ -1405,6 +1411,45 @@ def _bf16_bwd_design(name, d):
             "smem_bytes": 2 * 128 * d * 2 + 3 * 2 * 64 * d * 2 + 64 + 1024
             + rows,
             "ctas_per_sm": 1}
+
+
+# the f32 backward's head_dims on wgmma (flash_dq_tf32_wgmma_kernel,
+# flash_dkv_tf32_wgmma_kernel); the others run split TF32 on mma.sync
+F32_WGMMA_DIMS = (64, 128)
+
+
+def _f32_bwd_design(name, d):
+    """What the runtime should say of the f32 dQ or dK/dV kernel on wgmma
+    (``name``) at a head_dim ``d`` of F32_WGMMA_DIMS (csrc/flash_bwd.cu,
+    Tf32WgTiles): 384 threads at launch_bounds(384, 1) leave 168
+    registers a thread (the consumers take 240 through setmaxnreg);
+    shared memory in dQ for six 64-row f32 tiles (Q, dO and their lo
+    parts, K, V), the 64 x 64 dS^T handoff hi and lo, 512 bytes of LSE
+    and delta, 64 of mbarriers and 1024 to align the tiles; in dK/dV
+    for K and V, two stages of a 32-query tile's Q, dO and their lo
+    parts, the 64 x 32 P^T and dS^T handoffs hi and lo, mbarriers and
+    alignment; one CTA an SM."""
+    tile = 64 * d * 4
+    smem = 6 * tile + 2 * 64 * 64 * 4 + 512 if name == "flash_attention_dq" \
+        else 2 * tile + 2 * 4 * 32 * d * 4 + 4 * 64 * 32 * 4
+    return {"registers": 168, "smem_bytes": smem + 64 + 1024,
+            "ctas_per_sm": 1}
+
+
+def _bwd_kernel_name(name, dtype, d):
+    """The CUDA kernel of a backward wrapper (``name``) at a storage
+    ``dtype`` and head_dim ``d`` up to 256 (csrc/flash_bwd.cu), or None
+    (the forward; past 256, csrc/flash_wide.cuh)."""
+    from sparknet_tpu_torch.ops import cuda_attention as ca
+    d = ca.built_head_dim(d)
+    if name == "flash_attention" or d > 256:
+        return None
+    which = "dq" if name == "flash_attention_dq" else "dkv"
+    if dtype == "bfloat16":
+        return f"flash_{which}_wgmma256_kernel" if d == 256 else \
+            f"flash_{which}_wgmma_kernel<{d}>"
+    return f"flash_{which}_tf32_wgmma_kernel<{d}>" if d in F32_WGMMA_DIMS \
+        else f"flash_{which}_tf32_kernel<{d}>"
 
 
 # head_dims past 256 (the wide kernels, one instantiation for every D)
@@ -1428,8 +1473,10 @@ FLASH_CASES = (
       for causal in (False, True)),
     ((4, 8, 4096, 128), "bfloat16", True, True),
     # S not a multiple of 128: the bf16 backward's last 128-row tile is
-    # 104 rows, its second warpgroup 40 of them
+    # 104 rows, its second warpgroup 40 of them; the f32 dQ's last 64-row
+    # tile 40 rows, the f32 dK/dV's last 32-query tile 8
     ((1, 4, 1000, 128), "bfloat16", True, False),
+    ((1, 4, 1000, 128), "float32", True, False),
     # head_dim 256 at the attention shape of the lm verb's d_model 2048, 8
     # heads (LM_D256): the card-filling row of the head_dim-256 kernels
     ((2, 8, 4096, 256), "bfloat16", True, True),
@@ -1747,13 +1794,18 @@ def phase_flash_kernels(torch, cases=FLASH_CASES):
                 r["tflops"] = flops / r["ms"] / 1e9
                 r["bound_share"] = r["bound_ms"] / r["ms"]
                 r["launches_phase6"] = launched[name]
+                kernel_name = _bwd_kernel_name(name, dname, d)
+                if kernel_name:
+                    r["kernel"] = kernel_name
                 if wide:
                     r["source"] = "sparknet_tpu_torch/csrc/flash_wide.cuh"
                 if "split_tf32" in readings:
                     r["split_tf32"] = readings["split_tf32"]
                 if "bitwise_repeat" in readings:
                     r["bitwise_repeat"] = True
-                print(f"[flash] {name} {what}: kernel {r['ms']:.4f} ms "
+                print(f"[flash] {name} {what}: "
+                      + (f"{kernel_name} " if kernel_name else "")
+                      + f"kernel {r['ms']:.4f} ms "
                       f"({r['tflops']:.1f} TFLOP/s), plain "
                       f"{r['plain_ms']:.4f} ms, library "
                       f"{r['library_ms']:.4f} ms ({r['library']}), bound "
@@ -6834,8 +6886,9 @@ def main(argv=None):
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                **{k: r[k] for k in ("tflops", "registers", "smem_bytes",
-                                     "ctas_per_sm", "bound_share")
+                **{k: r[k] for k in ("kernel", "tflops", "registers",
+                                     "smem_bytes", "ctas_per_sm",
+                                     "bound_share")
                    if k in r}})
     print("[details] " + json.dumps({
         "card": card, "cases": results, "flash_cases": flash,

@@ -3,7 +3,7 @@
 turns: baseline, this tree, this tree, baseline.
 
     python3 scripts/flash_ab.py --baseline <an older csrc/ dir>
-        [--cases bf16-256|bf16-128] [--sass] [--steps N]
+        [--cases bf16-256|bf16-128|f32] [--sass] [--steps N]
 
 The kernels are the forward (csrc/flash_fwd.cu) and the dQ and dK/dV
 kernels (csrc/flash_bwd.cu) of sparknet_tpu_torch, at the shapes of
@@ -15,17 +15,20 @@ with one case whose kernels the trees are meant to share
 call's noise floor while neither tree changes those kernels);
 ``--cases bf16-256`` keeps only the bf16 cases at head_dim 256 and 192
 and the shared case, ``--cases bf16-128`` the bf16 cases up to head_dim
+128 and the shared case, ``--cases f32`` the f32 cases up to head_dim
 128 and the shared case; ``--sass`` first prints the instructions
 (cuobjdump) in which the two trees' bf16 forward kernels up to head_dim
 128 differ, and counts the wgmma (HGMMA) and mma.sync (HMMA)
-instructions of this tree's bf16 backward kernels up to head_dim 128,
-which must be HGMMA only; ``--steps N`` last times the LM row's bf16
-train step and its tp 2 branch (chip_smoke.py phases 7 and 15, through
-the lm verb's setup) with the baseline's and this tree's flash_bwd in
+instructions of this tree's backward kernels on wgmma (bf16 up to
+head_dim 128, and f32 at 64 and 128, whose HGMMA must read TF32
+operands), which must be HGMMA only; ``--steps N`` last times the LM
+row's train step with the baseline's and this tree's flash_bwd in
 turns, N steps an arm, baseline, new, new, baseline, and prints each
-arm's median and its spread. The baseline's sources are built here with
-this tree's nvcc flags into _work/flash_ab/; this tree's kernels, and
-their one-pass TF32 control
+arm's median and its spread: bf16 on one device and its tp 2 branch
+(chip_smoke.py phases 7 and 15, through the lm verb's setup), or with
+``--cases f32`` f32 (the lm verb's default dtype) on one device. The
+baseline's sources are built here with this tree's nvcc flags into
+_work/flash_ab/; this tree's kernels, and their one-pass TF32 control
 (cuda_build.TF32_ONE_PASS), are the libraries of cuda_build
 (cuda_build.library builds them there if chip_smoke.py has not yet).
 All are called through their C entry points, whose signatures the
@@ -40,7 +43,8 @@ output's worst tile 5e-3; delta and LSE 2e-5); this tree's kernels must
 give bitwise the same outputs when launched twice, and at f32 the
 one-pass control must read over the O limit and over a dQ limit. Times:
 the median of 30 launches over CUDA events with the L2 flushed before
-each (chip_smoke.Timer), in the order baseline, new, new, baseline,
+each (chip_smoke.Timer), in the order baseline, new, new, baseline (and
+at f32 the one-pass control once, after them),
 with F.scaled_dot_product_attention and torch.autograd.grad through it
 (dq, dk, dv together) beside them, and each kernel's bound (FLOPs over
 165 TFLOP/s, split TF32's rate of f32-accurate products, for f32, or
@@ -85,15 +89,20 @@ CASE_SETS = {"all": lambda c: True,
              "bf16-256": lambda c: c == SAME_KERNEL_CASE
              or _bf16_at(c, (256,)),
              "bf16-128": lambda c: c == SAME_KERNEL_CASE
-             or _bf16_at(c, ca.HEAD_DIMS[:-1])}
+             or _bf16_at(c, ca.HEAD_DIMS[:-1]),
+             "f32": lambda c: c == SAME_KERNEL_CASE
+             or (c[1] == "float32" and ca.built_head_dim(c[0][-1]) <= 128)}
 # --sass: the bf16 forward's instantiations up to head_dim 128, whose
 # instructions a tree may mean to leave as they were
 SASS_KERNELS = tuple(
     f"_ZN14sparknet_flash22flash_fwd_wgmma_kernelILi{d}EEEv14CUtensorMap_st"
     "S1_S1_P13__nv_bfloat16Pfifi" for d in (16, 32, 64, 128))
-# --sass: the bf16 backward's instantiations up to head_dim 128, by the
-# start of their mangled names
+# --sass: the backward's instantiations on wgmma, by the start of their
+# mangled names: bf16 up to head_dim 128, and f32 (split TF32) at 64 and
+# 128, whose HGMMA must read TF32 operands
 SASS_BWD = re.compile(r"flash_(dq|dkv)_wgmma_kernelILi")
+SASS_BWD_TF32 = re.compile(r"flash_(dq|dkv)_tf32_wgmma_kernelILi")
+TF32_HEAD_DIMS = (64, 128)
 BRANCH = re.compile(r"\b(BRA|BRX|BSSY|CALL\.\S+|JMP|JMX)\b")
 KERNELS = (("fwd", "flash_attention", "O"), ("dq", "flash_attention_dq", "dQ"),
            ("dkv", "flash_attention_dkv", "dK"))
@@ -156,9 +165,11 @@ def sass_diff(baseline_so, new_so):
 
 
 def sass_products(so):
-    """Count the wgmma (HGMMA) and mma.sync (HMMA) instructions of every
-    bf16 backward instantiation up to head_dim 128 (SASS_BWD) in the
-    library ``so``; each must have HGMMA and no HMMA."""
+    """Count the wgmma (HGMMA, and of those the ones on TF32 operands)
+    and mma.sync (HMMA) instructions of every backward instantiation on
+    wgmma (SASS_BWD: bf16 up to head_dim 128; SASS_BWD_TF32: f32 at
+    TF32_HEAD_DIMS) in the library ``so``; each must have HGMMA and no
+    HMMA, and the f32 ones TF32 in every HGMMA."""
     tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
     out = subprocess.run([tool, "-sass", so], capture_output=True,
                          text=True, check=True).stdout
@@ -166,40 +177,52 @@ def sass_products(so):
     for line in out.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = m.group(1) if SASS_BWD.search(m.group(1)) else None
+            fn = m.group(1)
+            name = fn if SASS_BWD.search(fn) or SASS_BWD_TF32.search(fn) \
+                else None
             if name:
-                counts[name] = {"HGMMA": 0, "HMMA": 0}
+                counts[name] = {"HGMMA": 0, "HGMMA TF32": 0, "HMMA": 0}
         elif name:
-            for op in counts[name]:
+            for op in ("HGMMA", "HMMA"):
                 if re.search(rf"\b{op}\.", line):
                     counts[name][op] += 1
-    chip_smoke.check(len(counts) == 2 * (len(ca.HEAD_DIMS) - 1),
+                    if op == "HGMMA" and "TF32" in line:
+                        counts[name]["HGMMA TF32"] += 1
+    tf32 = {fn for fn in counts if SASS_BWD_TF32.search(fn)}
+    chip_smoke.check(len(counts) - len(tf32) == 2 * (len(ca.HEAD_DIMS) - 1)
+                     and len(tf32) == 2 * len(TF32_HEAD_DIMS),
                      f"cuobjdump found {sorted(counts)} in {so}")
     for fn, c in sorted(counts.items()):
-        print(f"[sass] {fn}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA")
+        print(f"[sass] {fn}: {c['HGMMA']} HGMMA ({c['HGMMA TF32']} on TF32 "
+              f"operands), {c['HMMA']} HMMA")
         chip_smoke.check(c["HGMMA"] > 0 and c["HMMA"] == 0,
                          f"{fn}: {c}, want wgmma products only")
+        if fn in tf32:
+            chip_smoke.check(c["HGMMA TF32"] == c["HGMMA"],
+                             f"{fn}: {c}, want TF32 operands in every HGMMA")
     return counts
 
 
-def time_steps(libs, steps):
-    """The LM row's bf16 train step on one device and its tp 2 branch
-    (chip_smoke._branch_setup, the lm verb's setup at LM_FULL), timed by
-    synchronisation: ``steps`` steps on one batch an arm, the baseline's
-    flash_bwd and this tree's in turns (baseline, new, new, baseline),
-    after two warm-up steps; -> {branch: {"baseline": [[ms]...], "new":
-    [[ms]...]}}."""
+def time_steps(libs, steps, dtype="bf16"):
+    """The LM row's train step (chip_smoke._branch_setup, the lm verb's
+    setup at LM_FULL) in ``dtype``: bf16 on one device and its tp 2
+    branch, f32 on one device; timed by synchronisation: ``steps`` steps
+    on one batch an arm, the baseline's flash_bwd and this tree's in
+    turns (baseline, new, new, baseline), after two warm-up steps; ->
+    {branch: {"baseline": [[ms]...], "new": [[ms]...]}}."""
     import statistics
     import time
     f = chip_smoke.LM_FULL
     full = ["--vocab", str(f["vocab"]), "--seq-len", str(f["seq_len"]),
             "--batch", str(f["batch"]), "--d-model", str(f["d_model"]),
             "--layers", str(f["layers"]), "--heads", str(f["heads"]),
-            "--dtype", "bf16"]
+            "--dtype", dtype]
+    branches = (("one device", []), ("tp 2", ["--tp", "2"])) \
+        if dtype == "bf16" else (("one device", []),)
     ours = cuda_build.library("flash_bwd")
     key = ("flash_bwd", ())
     out = {}
-    for label, flags in (("one device", []), ("tp 2", ["--tp", "2"])):
+    for label, flags in branches:
         run = chip_smoke._branch_setup(label, full + flags)
         solver, batch = run["solver"], next(run["stream"])
         for _ in range(2):
@@ -215,7 +238,7 @@ def time_steps(libs, steps):
                 float(solver.train_step(batch))   # the fetch synchronises
                 times.append((time.perf_counter() - t0) * 1e3)
             arms[arm].append(times)
-            print(f"[steps] {label} {arm}: median "
+            print(f"[steps] {dtype} {label} {arm}: median "
                   f"{statistics.median(times):.2f} ms, spread "
                   f"{min(times):.2f}-{max(times):.2f} ms over {steps} "
                   "steps")
@@ -264,12 +287,13 @@ def main():
     ap.add_argument("--sass", action="store_true",
                     help="first diff the SASS of the bf16 forward's "
                          "instantiations up to head_dim 128 in both trees "
-                         "and count the bf16 backward's wgmma and "
-                         "mma.sync instructions up to head_dim 128")
+                         "and count the wgmma and mma.sync instructions of "
+                         "the backward's instantiations on wgmma")
     ap.add_argument("--steps", type=int, default=0,
-                    help="last time the LM row's bf16 step and its tp 2 "
-                         "branch with each tree's flash_bwd, N steps an "
-                         "arm (default 0: not timed)")
+                    help="last time the LM row's step with each tree's "
+                         "flash_bwd, N steps an arm: bf16 on one device and "
+                         "tp 2, or f32 on one device with --cases f32 "
+                         "(default 0: not timed)")
     args = ap.parse_args()
     chip_smoke.check(torch.cuda.is_available(), "no CUDA card")
     card = chip_smoke.nvidia_smi()
@@ -359,6 +383,9 @@ def main():
             for key, name, label in KERNELS:
                 turns = [(arm, timer(calls[arm][key]))
                          for arm in ("baseline", "new", "new", "baseline")]
+                # the one-pass control's time: the kernels' work with a
+                # third of the tensor-core passes
+                control_ms = timer(calls["control"][key]) if f32 else None
                 old = [t for a, t in turns if a == "baseline"]
                 ms = [t for a, t in turns if a == "new"]
                 nbytes, flops = work_of[key]
@@ -374,7 +401,8 @@ def main():
                          bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops
                          else "operations", flops=flops, bytes=nbytes,
-                         errors=errors, control=control)
+                         errors=errors, control=control,
+                         control_ms=control_ms)
                 r["speedup"] = min(old) / max(ms)
                 r["tflops"] = flops / min(ms) / 1e9
                 r["bound_share"] = r["bound_ms"] / min(ms)
@@ -387,11 +415,14 @@ def main():
                       f"ms ({r['bound_by']}, {100 * r['bound_share']:.1f}% "
                       "of it)" + (f"; one-pass control {label} "
                                   f"{control[label][0]:.3e} of the largest "
-                                  "element" if control else "")
+                                  f"element, {control_ms:.4f} ms"
+                                  if control else "")
                       + f"; {card}")
             del q, k, v, do, o, lse, dq, delta, calls, ql, kl, vl, lib_out
             torch.cuda.empty_cache()
-    steps = time_steps(baseline, args.steps) if args.steps else {}
+    steps = time_steps(baseline, args.steps,
+                       "f32" if args.cases == "f32" else "bf16") \
+        if args.steps else {}
     print(card)
     print(json.dumps({"card": card, "rows": results, "steps": steps}))
     return 0

@@ -144,38 +144,82 @@
 //    1; dK/dV 199, 209 KB, 1; no spills. At the lm verb's d_model 2048
 //    shape, (2, 8, 4096, 256) causal, dQ and dK/dV take PERF.md's times.
 //
-// f32 storage (flash_dq_tf32_kernel, flash_dkv_tf32_kernel): every
-// product on the tensor cores in split TF32 (3xTF32, flash_tf32.cuh:
-// a b ~ a_hi b_lo + a_lo b_hi + a_hi b_hi, f32 accumulation), which keeps
-// the f32 limits (5e-4 of the largest element, 1e-4 of a 64-row tile;
-// the small LM's card-vs-CPU gradients within 1e-4). A CTA of 4 warps
-// owns a 64-row tile, a warp 16 rows of it, and streams its pair through
-// cp.async stages: f32 tiles of row stride D + 4 and mma.sync m16n8k8
-// fed by plain shared-memory loads (wgmma takes TF32 only with both
-// operands K-major, which dQ's K and dK/dV's Q and dO are not). S, dP, P and dS stay in f32
-// and enter the second products split, from the accumulators; nothing
-// is rounded between the products. Every tensor-core sum runs over at
-// most 64 columns of D or one streamed tile and is then added in f32
-// (the tensor core truncates its sums: flash_tf32.cuh). Streamed tiles:
-// 64 rows through two stages up to D = 64; from D = 128, dQ takes K and
-// V 32 rows through one stage (two CTAs an SM at D = 128) and dK/dV Q
-// and dO 16 rows through two; at D = 256 the output columns split over
-// the grid's z axis (kOutCols, flash_mma.cuh). P is exp(scale S - LSE) in
-// natural units, as the plain version computes it. Bound: operations.
-// At the LM's shape dQ does 206 and dK/dV 275 GFLOP: 1.25 and 1.67 ms at
-// 165 TFLOP/s of f32-accurate products (495 TFLOP/s of dense TF32 over 3
-// products); like the forward they are bound by instruction throughput
-// and latency before that. Registers a thread, shared memory and CTAs
-// per SM on the H100 (sparknet_flash_backward_info, chip_smoke.py phase
-// 6); no spills:
-//        D        16           32           64           128          256
-//        dQ       128 30 KB 4  128 54 KB 4  168 102 KB 2 225 99 KB 2  202 195 KB 1
-//        dK/dV    155 31 KB 3  164 55 KB 3  241 103 KB 2 250 99 KB 2  250 195 KB 1
-// At the LM's shape: dQ 3.65 ms (56.5 TFLOP/s, 34% of the bound) and
-// dK/dV 5.31-5.34 ms (51.7, 31%), against 10.37-10.41 and 12.58-12.67 for
-// the CUDA-core kernels they replaced in the same call, and 10.03 for
-// autograd through F.scaled_dot_product_attention's three gradients
-// (scripts/flash_ab.py; PERF.md).
+// f32 storage at head_dim 64 and 128 (flash_dq_tf32_wgmma_kernel<D>,
+// flash_dkv_tf32_wgmma_kernel<D>): every product on wgmma in split TF32
+// (3xTF32: a b ~ a_hi b_lo + a_lo b_hi + a_hi b_hi, f32 accumulation;
+// wgmma_tf32, flash_wgmma.cuh), which keeps the f32 limits (5e-4 of the
+// largest element, 1e-4 of a 64-row tile). TF32 wgmma takes both operands
+// K-major and has no transpose, and TMA does not transpose, so:
+//  - A always comes from registers, gathered by threads from the tile
+//    that TMA wrote and split there (flash_tf32.cuh's split_tf32): K and V
+//    as A of S^T = K Q^T and dP^T = V dO^T (one ldmatrix.x4 a k-step), and
+//    K^T, dO^T, Q^T as A of the second products, which run transposed:
+//    dQ^T = K^T dS^T, dV^T = dO^T P, dK^T = Q^T dS.
+//  - B comes from shared memory, K-major: Q and dO as TMA wrote them (3-D
+//    maps (D, S, B*H) of f32, 32-float column blocks in the 128-byte
+//    swizzle, rows_map<float>), and dS^T, P^T, dS^T as the threads write
+//    them from the accumulators. A TMA tile serves as its own hi (the
+//    tensor core reads a TF32 operand's top 19 bits: hi = x truncated) and
+//    its lo, x - trunc(x), goes to a tile of its own, written once a CTA
+//    by warps 1-3 of the producer warpgroup when the tile lands, then
+//    handed over through fence.proxy.async and an mbarrier; a handoff is
+//    split by the threads that write it.
+// A CTA of 384 threads: a producer warpgroup (24 registers after
+// setmaxnreg; one thread issues the copies) and two consumer warpgroups
+// (240), one CTA an SM.
+//  - dQ: the CTA owns 64 queries: Q, dO and their lo parts resident (128
+//    KB at D = 128), one 64-key slot each for K and V (64 KB) and the
+//    64 x 64 dS^T handoff, hi and lo (32 KB): 225.6 KB. Warpgroup 0 builds
+//    S^T and P^T, warpgroup 1 dP^T (m64n64k8, every K and V fragment
+//    gathered once a CTA) and, from P^T handed through the dS^T tile,
+//    dS^T; then each adds K^T dS^T into its 64 rows of dQ^T (D = 64: all
+//    rows, its 32 queries). V is released once dP^T is issued, K once
+//    both warpgroups hold their K^T fragments, so the next K and V load
+//    under the softmax and dQ^T. delta is computed first, in f32 from O
+//    and dO as stored, four threads a row.
+//  - dK/dV: the CTA owns 64 keys (K, V resident, 64 KB) and streams
+//    32-query tiles through two stages (Q, dO and their lo parts, 64 KB
+//    a stage) beside the 64 x 32 P^T and dS^T handoffs, hi and lo (32
+//    KB): 225.1 KB. Warpgroup 0 builds S^T, P^T and dV^T += dO^T P;
+//    warpgroup 1 dP^T, dS^T from warpgroup 0's P^T, and dK^T += Q^T dS;
+//    each owns all D rows of its output, a 64-row block at a time (one
+//    set of chunk registers). LSE and delta are read from device memory
+//    under the first product.
+//  - Sums: S^T and dP^T are one tensor-core sum over all of D (16 k-steps
+//    at D = 128, twice flash_tf32.cuh's kSumSteps: the tile error doubles,
+//    to ~2e-6 in tests/test_torch_flash_rounding.py's emulation at S 256,
+//    and reads 2.0-2.6e-06 on the card at (4, 8, 4096, 128)), the second
+//    products one sum a streamed tile (8 and 4 k-steps), added in f32.
+//    Two k-steps are committed as one group, at most two groups in flight.
+//  - Causal, determinism: tiles past the diagonal skipped, the longest
+//    CTAs first; every output element summed by one thread in a fixed
+//    order, no atomics.
+//  - 168 registers at launch, no spills, one CTA an SM (chip_smoke.py
+//    phase 6's _f32_bwd_design). At the LM's shape, (4, 8, 4096, 128)
+//    causal: PERF.md (scripts/flash_ab.py --cases f32).
+// f32 storage at head_dim 16, 32 and 256 (flash_dq_tf32_kernel,
+// flash_dkv_tf32_kernel): split TF32 on mma.sync m16n8k8 (flash_tf32.cuh),
+// the design above does not fit there: at 16 and 32 the transposed second
+// products have M = head_dim rows, below wgmma's 64, and at 256 f32 tiles
+// with their lo parts do not fit in shared memory. A CTA of 4 warps owns
+// a 64-row tile, a warp 16 rows of it, and streams its pair through
+// cp.async stages: f32 tiles of row stride D + 4 fed to mma.sync by plain
+// shared-memory loads. S, dP, P and dS stay in f32 and enter the second
+// products split, from the accumulators; nothing is rounded between the
+// products. Every tensor-core sum runs over at most 64 columns of D or one
+// streamed tile and is then added in f32 (the tensor core truncates its
+// sums: flash_tf32.cuh). Streamed tiles: 64 rows through two stages up to
+// D = 64 (the only case now: 16 and 32); at D = 256 16 rows through two,
+// the output columns split over the grid's z axis (kOutCols,
+// flash_mma.cuh). P is exp(scale S - LSE) in natural units, as the plain
+// version computes it. Bound: operations, 165 TFLOP/s of f32-accurate
+// products (495 TFLOP/s of dense TF32 over 3 products). Registers a
+// thread, shared memory and CTAs per SM on the H100
+// (sparknet_flash_backward_info, chip_smoke.py phase 6); no spills:
+//        D        16           32           256
+//        dQ       128 30 KB 4  128 54 KB 4  202 195 KB 1
+//        dK/dV    155 31 KB 3  164 55 KB 3  250 195 KB 1
+// At the lm verb's defaults, (8, 8, 256, 32) causal: PERF.md.
 // The storage type picks the kernel and nothing else does.
 
 #include <type_traits>
@@ -977,15 +1021,18 @@ __global__ void __launch_bounds__(kBwdWgThreads, 1)
   }
 }
 
-// f32 storage: split TF32 on the tensor cores (the note at the top).
+// f32 storage at head_dim 16, 32 and 256: split TF32 on mma.sync (the
+// note at the top).
 
-// Tiles of the f32 backward kernels at head_dim D (floats): the CTA's own
-// 64 rows, and ST-row streamed tiles through a ring of STAGES
-template <int D, int kStreamed, int kStages>
+// Tiles of the f32 mma.sync backward kernels at head_dim D (floats): the
+// CTA's own 64 rows, and streamed tiles through two stages: 64 rows at D
+// = 16 and 32, 16 at D = 256 (there, the output columns split over the
+// grid's z axis)
+template <int D>
 struct Tf32BwdTiles {
   static constexpr int DO = kOutCols<D>;           // output columns a CTA
-  static constexpr int ST = kStreamed;             // rows a streamed tile
-  static constexpr int STAGES = kStages;           // streamed tiles in flight
+  static constexpr int ST = D > 64 ? 16 : 64;      // rows a streamed tile
+  static constexpr int STAGES = 2;                 // streamed tiles in flight
   static constexpr int LD = D + 4;                 // row stride
   static constexpr int TILE = kBlockQ * LD;        // the CTA's own rows
   static constexpr int STILE = ST * LD;            // a streamed tile
@@ -994,16 +1041,6 @@ struct Tf32BwdTiles {
   static constexpr size_t kDkvSmem =
       sizeof(float) * (2 * TILE + STAGES * (2 * STILE + 2 * ST));
 };
-
-// From D = 128 each kernel keeps two CTAs on an SM: dQ streams K and V
-// 32 keys at a time through one stage, dK/dV Q and dO 16 queries at a
-// time through two (each ran faster at the LM's shape than the other
-// kernel's choice, and than 8 rows through two stages).
-template <int D>
-using DqTiles = Tf32BwdTiles<D, (D == 128 ? 32 : (D > 64 ? 16 : 64)),
-                             (D == 128 ? 1 : 2)>;
-template <int D>
-using DkvTiles = Tf32BwdTiles<D, (D > 64 ? 16 : 64), 2>;
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -1015,7 +1052,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                          const float* __restrict__ lse,
                          float* __restrict__ dq, float* __restrict__ delta,
                          int seq, float scale, int causal) {
-  using L = DqTiles<D>;
+  using L = Tf32BwdTiles<D>;
   constexpr int LD = L::LD, KT = L::ST, NT = KT / 8, NO = L::DO / 8;
   extern __shared__ float smem[];
   float* qs = smem;                    // this CTA's 64 queries
@@ -1136,7 +1173,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                           const float* __restrict__ delta,
                           float* __restrict__ dk, float* __restrict__ dv,
                           int seq, float scale, int causal) {
-  using L = DkvTiles<D>;
+  using L = Tf32BwdTiles<D>;
   constexpr int LD = L::LD, QT = L::ST, NS = QT / 8, NO = L::DO / 8;
   extern __shared__ float smem[];
   float* ks = smem;                    // this CTA's 64 keys
@@ -1232,38 +1269,608 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
+// f32 storage at head_dim 64 and 128: split TF32 on wgmma (the note at the
+// top).
+
+constexpr int kTf32Queries = 32;   // dK/dV's streamed query tile
+
+// Shared-memory geometry of the f32 wgmma backward (bytes): an f32 tile of
+// R rows x D columns is D / 32 column blocks of R rows x 128 bytes in the
+// 128-byte swizzle that TMA writes and wgmma reads (f32_at).
+template <int D>
+struct Tf32WgTiles {
+  static_assert(D == 64 || D == 128, "the f32 wgmma kernels: D 64, 128");
+  static constexpr int TILE = 64 * D * 4;              // 64 rows
+  static constexpr int QTILE = kTf32Queries * D * 4;   // a dK/dV query tile
+  static constexpr int HAND = 64 * 64 * 4;   // dQ's dS^T: 64 x 64
+  static constexpr int PT = 64 * kTf32Queries * 4;   // dK/dV's P^T or dS^T
+  // dQ: Q, its lo, dO, its lo, K, V, dS^T hi and lo; LSE and delta of the
+  // 64 queries; six mbarriers; 1024 bytes to align the tiles
+  static constexpr size_t kDqSmem = 6 * TILE + 2 * HAND + 512 + 64 + 1024;
+  // dK/dV: K, V; two stages of Q, its lo, dO, its lo; P^T and dS^T hi and
+  // lo; seven mbarriers; 1024 to align
+  static constexpr size_t kDkvSmem = 2 * TILE + 2 * 4 * QTILE + 4 * PT + 64 +
+                                     1024;
+};
+
+// byte offset of element (r, c) of an f32 tile of `rows` rows: column
+// block c / 32, row r, its 16-byte chunks XOR-permuted by r % 8
+__device__ __forceinline__ uint32_t f32_at(int rows, int r, int c) {
+  return (c >> 5) * rows * 128 + r * 128 +
+         ((((c >> 2) & 7) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// K-major descriptor of k-step kk (columns 8 kk .. 8 kk + 7) of an f32 tile
+// of `rows` rows, from row `row0` (a multiple of 8) on
+__device__ __forceinline__ uint64_t f32_kmajor(uint32_t tile, int rows,
+                                               int row0, int kk) {
+  return wgmma_desc(tile + (kk >> 2) * rows * 128 + row0 * 128 + (kk & 3) * 32,
+                    16, 1024, 128);
+}
+
+// rows row0 .. of a (D, seq, bh) f32 map whose box is `rows` rows of 32
+// floats, into the tile at `dst`, completing on `bar`
+template <int D>
+__device__ __forceinline__ void f32_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int rows, int row0,
+                                         int bh) {
+#pragma unroll
+  for (int c = 0; c < D / 32; ++c)
+    tma_load_3d(dst + c * rows * 128, map, bar, c * 32, row0, bh);
+}
+
+// The lo parts of a tile as TMA wrote it, which wgmma reads as its hi
+// parts (its top 19 bits, truncated): lo = x - trunc(x), exact, at the
+// same offsets in `dst`; thread i of `threads` takes every threads-th 16
+// bytes of `bytes`.
+__device__ __forceinline__ void split_lo(unsigned char* dst,
+                                         const unsigned char* src, int bytes,
+                                         int i, int threads) {
+  for (int at = 16 * i; at < bytes; at += 16 * threads) {
+    const float4 x = *reinterpret_cast<const float4*>(src + at);
+    float4 y;
+    y.x = x.x - __uint_as_float(__float_as_uint(x.x) & 0xffffe000u);
+    y.y = x.y - __uint_as_float(__float_as_uint(x.y) & 0xffffe000u);
+    y.z = x.z - __uint_as_float(__float_as_uint(x.z) & 0xffffe000u);
+    y.w = x.w - __uint_as_float(__float_as_uint(x.w) & 0xffffe000u);
+    *reinterpret_cast<float4*>(dst + at) = y;
+  }
+}
+
+__device__ __forceinline__ float f32_ld(const unsigned char* tile, int rows,
+                                        int r, int c) {
+  return *reinterpret_cast<const float*>(tile + f32_at(rows, r, c));
+}
+
+// The split A fragment of k-step kk for this warp's 16 rows m0 .. of an
+// operand stored [m][k] (K-major) in an f32 tile of `rows` rows, by one
+// ldmatrix.x4: its four 8 x 8 b16 matrices are the 8 x 4 f32 blocks
+// (rows m0, m0 + 8; columns 8 kk, 8 kk + 4), each row one 16-byte chunk
+// of the swizzle, and thread 4 g + t receives word t of row g of each:
+// a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
+__device__ __forceinline__ void frag_mk(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                        const unsigned char* tile, int rows,
+                                        int m0, int kk, int g, int t) {
+  const int lane = 4 * g + t, j = lane >> 3;
+  uint32_t r[4];
+  ldmatrix_x4(r, tile + f32_at(rows, m0 + (lane & 7) + 8 * (j & 1),
+                               8 * kk + 4 * (j >> 1)));
+  const float x[4] = {__uint_as_float(r[0]), __uint_as_float(r[1]),
+                      __uint_as_float(r[2]), __uint_as_float(r[3])};
+  split_tf32(x, hi, lo);
+}
+
+// ... of an operand stored [k][m] (its transpose: K^T, Q^T, dO^T)
+__device__ __forceinline__ void frag_km(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                        const unsigned char* tile, int rows,
+                                        int m0, int kk, int g, int t) {
+  const int r = 8 * kk + t, c = m0 + g;
+  const float x[4] = {f32_ld(tile, rows, r, c), f32_ld(tile, rows, r, c + 8),
+                      f32_ld(tile, rows, r + 4, c),
+                      f32_ld(tile, rows, r + 4, c + 8)};
+  split_tf32(x, hi, lo);
+}
+
+// d = A B over KSTEPS k-steps of 8 in split TF32: per k-step a_hi b_lo,
+// a_lo b_hi, then a_hi b_hi (a_hi b_hi alone in the one-pass control), A's
+// split fragments from frag(kk, hi, lo), B's hi and lo tiles through
+// desc(kk, false) and desc(kk, true); one tensor-core sum from zero. Two
+// k-steps are committed as one group and at most two groups are in
+// flight: the next group's fragments are gathered while the last runs
+// (one k-step a group ran slower at the LM's shape). The last group is
+// left in flight.
+template <int N, int KSTEPS, typename Frag, typename Desc>
+__device__ __forceinline__ void product_3xtf32(float (&d)[N / 2], Frag frag,
+                                               Desc desc) {
+  static_assert(KSTEPS % 2 == 0, "two k-steps a group");
+  uint32_t hi[2][2][4], lo[2][2][4];
+#pragma unroll
+  for (int k0 = 0; k0 < KSTEPS; k0 += 2) {
+    const int b = (k0 >> 1) & 1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) frag(k0 + i, hi[b][i], lo[b][i]);
+    fence_operands(d);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kk = k0 + i, acc = kk == 0 ? 0 : 1;
+#ifdef SPARKNET_FLASH_TF32_ONE_PASS
+      wgmma_tf32<N>(d, hi[b][i], desc(kk, false), acc);
+#else
+      wgmma_tf32<N>(d, hi[b][i], desc(kk, true), acc);
+      wgmma_tf32<N>(d, lo[b][i], desc(kk, false), 1);
+      wgmma_tf32<N>(d, hi[b][i], desc(kk, false), 1);
+#endif
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(d);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const float* __restrict__ o,
+                               const float* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               float* __restrict__ dq,
+                               float* __restrict__ delta, int seq,
+                               float scale, int causal) {
+  using L = Tf32WgTiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t qs = (raw + 1023) & ~1023u;   // the CTA's 64 queries
+  const uint32_t qlo = qs + L::TILE, dos = qlo + L::TILE;
+  const uint32_t dolo = dos + L::TILE;
+  const uint32_t ks = dolo + L::TILE, vs = ks + L::TILE;   // key tile j
+  // dS^T [query][key] hi and lo; P^T, handed from warpgroup 0 to 1, is
+  // written where its dS^T hi goes
+  const uint32_t dsh = vs + L::TILE, dsl = dsh + L::HAND;
+  const uint32_t rows_at = dsl + L::HAND;      // LSE, then delta: 64 each
+  // mbarriers: +0 Q and dO landed; +8 their lo parts written; +16 K full,
+  // +24 V full; +32 K free (both warpgroups arrive), +40 V free
+  // (warpgroup 1)
+  const uint32_t bars = rows_at + 512;
+  auto at = [&](uint32_t a) { return smem_raw + (a - raw); };
+  float* lse_s = reinterpret_cast<float*>(at(rows_at));
+  float* delta_s = lse_s + 64;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // causal: longest CTAs first
+  const int q0 = qt * 64;
+  const int key_tiles = (seq + 63) / 64;
+  const int n_k = causal ? min(qt + 1, key_tiles) : key_tiles;
+  const long long rows0 = static_cast<long long>(bh) * seq;
+
+  if (tid == 0) {
+    mbar_init(bars, 1);
+    mbar_init(bars + 8, 96);
+    mbar_init(bars + 16, 1);
+    mbar_init(bars + 24, 1);
+    mbar_init(bars + 32, 256);
+    mbar_init(bars + 40, 128);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wg == 2) {
+    // the producer: one thread loads Q and dO, then V and K of each key
+    // tile once the tile before is read; warps 1-3 write the lo parts of
+    // Q and dO
+    setmaxnreg_dec<24>();
+    const int p = tid - 256;
+    if (p == 0) {
+      mbar_expect_tx(bars, 2 * L::TILE);
+      f32_load<D>(qs, &tm_q, bars, 64, q0, bh);
+      f32_load<D>(dos, &tm_do, bars, 64, q0, bh);
+      for (int j = 0; j < n_k; ++j) {
+        if (j > 0) mbar_wait(bars + 40, (j - 1) & 1);
+        mbar_expect_tx(bars + 24, L::TILE);
+        f32_load<D>(vs, &tm_v, bars + 24, 64, j * 64, bh);
+        if (j > 0) mbar_wait(bars + 32, (j - 1) & 1);
+        mbar_expect_tx(bars + 16, L::TILE);
+        f32_load<D>(ks, &tm_k, bars + 16, 64, j * 64, bh);
+      }
+    } else if (p >= 32) {
+      mbar_wait(bars, 0);
+      split_lo(at(qlo), at(qs), L::TILE, p - 32, 96);
+      split_lo(at(dolo), at(dos), L::TILE, p - 32, 96);
+      fence_proxy_async();
+      mbar_arrive(bars + 8);
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  // delta = rowsum(dO O) of the 64 queries in f32 from O and dO as stored,
+  // 4 threads a row (D / 4 columns each, added by two shuffles); LSE
+  {
+    const int r = tid >> 2, gr = q0 + r, c0 = (tid & 3) * (D / 4);
+    float part = 0.f;
+    if (gr < seq) {
+      const float* orow = o + (rows0 + gr) * D + c0;
+      const float* drow = dout + (rows0 + gr) * D + c0;
+#pragma unroll
+      for (int c = 0; c < D / 4; c += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(orow + c);
+        const float4 y = *reinterpret_cast<const float4*>(drow + c);
+        part = fmaf(x.x, y.x, part);
+        part = fmaf(x.y, y.y, part);
+        part = fmaf(x.z, y.z, part);
+        part = fmaf(x.w, y.w, part);
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    if ((tid & 3) == 0) {
+      delta_s[r] = part;
+      if (gr < seq) delta[rows0 + gr] = part;
+    } else if ((tid & 3) == 1) {
+      lse_s[r] = gr < seq ? lse[rows0 + gr] : 0.f;
+    }
+  }
+  named_bar_sync(1, 256);
+  // warpgroup 0 builds S^T = K Q^T, warpgroup 1 dP^T = V dO^T, each for 64
+  // keys x all 64 queries: register 4 n + b (+ 2) is query 8 n + 2 t + b,
+  // whose LSE (warpgroup 0) or delta (1) this thread holds
+  float rq[16];
+#pragma unroll
+  for (int c = 0; c < 16; ++c)
+    rq[c] = (wg == 0 ? lse_s : delta_s)[8 * (c >> 1) + 2 * t + (c & 1)];
+  // dQ^T = K^T dS^T: a warpgroup owns 64 of its rows (d) at D = 128, all
+  // 64 at D = 64 (split by its 32 queries)
+  constexpr int QN = D == 128 ? 64 : 32;
+  const int m0 = D == 128 ? 64 * wg : 0, n0 = D == 128 ? 0 : 32 * wg;
+  float run[QN / 2], chunk[QN / 2];
+#pragma unroll
+  for (int e = 0; e < QN / 2; ++e) run[e] = 0.f;
+  const unsigned char* kp = at(ks);
+  const unsigned char* own = at(wg == 0 ? ks : vs);
+  unsigned char *hp = at(dsh), *lp = at(dsl);
+  const uint32_t first = wg == 0 ? qs : dos;   // B of S^T or dP^T
+  mbar_wait(bars + 8, 0);              // Q, dO and their lo parts
+
+  for (int j = 0; j < n_k; ++j) {
+    const int k0 = j * 64;
+    float x[32];                       // S^T or dP^T, then P^T or dS^T
+    mbar_wait(bars + (wg == 0 ? 16 : 24), j & 1);   // K or V of tile j
+    product_3xtf32<64, D / 8>(
+        x,
+        [&](int kk, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
+          frag_mk(hi, lo, own, 64, 16 * warp, kk, g, t);
+        },
+        [&](int kk, bool low) {
+          return f32_kmajor(first + (low ? L::TILE : 0), 64, 0, kk);
+        });
+    if (wg == 1) mbar_arrive(bars + 40);   // V is read (into fragments)
+    // K^T's fragments for dQ^T, gathered now: K is free for tile j + 1
+    uint32_t kth[8][4], ktl[8][4];
+    if (wg == 1) mbar_wait(bars + 16, j & 1);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      frag_km(kth[kk], ktl[kk], kp, 64, m0 + 16 * warp, kk, g, t);
+    mbar_arrive(bars + 32);            // K is read
+    wgmma_wait<0>();
+    fence_operands(x);
+    if (wg == 0) {
+      const bool edge = (causal && k0 + 63 > q0) || k0 + 64 > seq ||
+                        q0 + 64 > seq;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        float p = expf(fmaf(x[e], scale, -rq[2 * (e >> 2) + (e & 1)]));
+        if (edge && masked(q0 + 8 * (e >> 2) + 2 * t + (e & 1),
+                           k0 + 16 * warp + g + 8 * ((e >> 1) & 1), seq,
+                           causal))
+          p = 0.f;
+        x[e] = p;                      // P^T
+      }
+      // warpgroup 1's dQ^T of tile j - 1 has read the handoff (this
+      // warpgroup's was waited for)
+      if (j > 0) named_bar_sync(3, 256);
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        *reinterpret_cast<float*>(
+            hp + f32_at(64, 8 * (e >> 2) + 2 * t + (e & 1),
+                        16 * warp + g + 8 * ((e >> 1) & 1))) = x[e];
+      named_bar_arrive(2, 256);        // P^T for warpgroup 1
+    } else {
+      named_bar_sync(2, 256);          // P^T of tile j
+      uint32_t hi[32], lo[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const uint32_t a = f32_at(64, 8 * (e >> 2) + 2 * t + (e & 1),
+                                  16 * warp + g + 8 * ((e >> 1) & 1));
+        x[e] = *reinterpret_cast<const float*>(hp + a) *
+               (x[e] - rq[2 * (e >> 2) + (e & 1)]);   // dS^T
+      }
+      split_tf32(x, hi, lo);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const uint32_t a = f32_at(64, 8 * (e >> 2) + 2 * t + (e & 1),
+                                  16 * warp + g + 8 * ((e >> 1) & 1));
+        *reinterpret_cast<uint32_t*>(hp + a) = hi[e];
+        *reinterpret_cast<uint32_t*>(lp + a) = lo[e];
+      }
+      fence_proxy_async();
+    }
+    named_bar_sync(4, 256);            // dS^T of tile j is whole
+    // dQ^T += K^T dS^T over the tile's 64 keys: one tensor-core sum a
+    // tile, added in f32
+    product_3xtf32<QN, 8>(
+        chunk,
+        [&](int kk, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            hi[i] = kth[kk][i];
+            lo[i] = ktl[kk][i];
+          }
+        },
+        [&](int kk, bool low) {
+          return f32_kmajor(low ? dsl : dsh, 64, n0, kk);
+        });
+    wgmma_wait<0>();
+    fence_operands(chunk);
+#pragma unroll
+    for (int e = 0; e < QN / 2; ++e) run[e] += chunk[e];
+    if (wg == 1 && j + 1 < n_k) named_bar_arrive(3, 256);
+  }
+
+#pragma unroll
+  for (int e = 0; e < QN / 2; ++e) {
+    const int r = q0 + n0 + 8 * (e >> 2) + 2 * t + (e & 1);
+    if (r < seq)
+      dq[(rows0 + r) * D + m0 + 16 * warp + g + 8 * ((e >> 1) & 1)] =
+          scale * run[e];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const __grid_constant__ CUtensorMap tm_do,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                float* __restrict__ dk, float* __restrict__ dv,
+                                int seq, float scale, int causal) {
+  using L = Tf32WgTiles<D>;
+  constexpr int QT = kTf32Queries, MB = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ks = (raw + 1023) & ~1023u;   // the CTA's 64 keys
+  const uint32_t vs = ks + L::TILE;
+  // stage st: Q, its lo, dO, its lo of a query tile, from stage(st)
+  const uint32_t stages = vs + L::TILE;
+  auto stage = [&](int st) { return stages + st * 4 * L::QTILE; };
+  const uint32_t ph = stages + 2 * 4 * L::QTILE, pl = ph + L::PT;   // P^T
+  const uint32_t dsh = pl + L::PT, dsl = dsh + L::PT;               // dS^T
+  // mbarriers: +0 K and V landed; +8, +16 stage full; +24, +32 stage
+  // ready (its lo parts written); +40, +48 stage free
+  const uint32_t bars = dsl + L::PT;
+  auto at = [&](uint32_t a) { return smem_raw + (a - raw); };
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * 64;      // causal: key tile 0 walks the most
+  const long long rows0 = static_cast<long long>(bh) * seq;
+  // causal: query tiles wholly above the diagonal are skipped
+  const int q_first = causal ? k0 / QT : 0;
+  const int n_it = (seq + QT - 1) / QT - q_first;
+
+  if (tid == 0) {
+    mbar_init(bars, 1);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(bars + 8 + 8 * st, 1);
+      mbar_init(bars + 24 + 8 * st, 96);
+      mbar_init(bars + 40 + 8 * st, 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wg == 2) {
+    // the producer: one thread loads K and V, then each query tile's Q
+    // and dO into stage it % 2 once the tile before there is read; warps
+    // 1-3 write each tile's lo parts
+    setmaxnreg_dec<24>();
+    const int p = tid - 256;
+    auto load = [&](int it) {
+      const int st = it & 1, qb = (q_first + it) * QT;
+      const uint32_t full = bars + 8 + 8 * st, dst = stage(st);
+      mbar_expect_tx(full, 2 * L::QTILE);
+      f32_load<D>(dst, &tm_q, full, QT, qb, bh);
+      f32_load<D>(dst + 2 * L::QTILE, &tm_do, full, QT, qb, bh);
+    };
+    if (p == 0) {
+      mbar_expect_tx(bars, 2 * L::TILE);
+      f32_load<D>(ks, &tm_k, bars, 64, k0, bh);
+      f32_load<D>(vs, &tm_v, bars, 64, k0, bh);
+      for (int it = 0; it < n_it; ++it) {
+        if (it >= 2) mbar_wait(bars + 40 + 8 * (it & 1), ((it - 2) >> 1) & 1);
+        load(it);
+      }
+    } else if (p >= 32) {
+      const int i = p - 32;
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it & 1;
+        const uint32_t src = stage(st);
+        mbar_wait(bars + 8 + 8 * st, (it >> 1) & 1);
+        split_lo(at(src + L::QTILE), at(src), L::QTILE, i, 96);
+        split_lo(at(src + 3 * L::QTILE), at(src + 2 * L::QTILE), L::QTILE, i,
+                 96);
+        fence_proxy_async();
+        mbar_arrive(bars + 24 + 8 * st);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  // warpgroup 0 builds S^T = K Q^T, P^T, and dV^T += dO^T P; warpgroup 1
+  // dP^T = V dO^T, dS^T from warpgroup 0's P^T, and dK^T += Q^T dS. Both
+  // own all D rows of their output (MB blocks of 64) and the 64 keys.
+  float run[MB][32], chunk[32];
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) run[mb][e] = 0.f;
+  const unsigned char* own = at(wg == 0 ? ks : vs);
+  unsigned char *php = at(ph), *plp = at(pl), *dshp = at(dsh), *dslp = at(dsl);
+  mbar_wait(bars, 0);                  // K and V have landed
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1, qb0 = (q_first + it) * QT;
+    // this warpgroup's streamed operand of the first product: Q for S^T,
+    // dO for dP^T (its lo 1 tile on), and of the second: dO^T, Q^T
+    const uint32_t first = stage(st) + (wg == 0 ? 0 : 2 * L::QTILE);
+    const uint32_t second = stage(st) + (wg == 0 ? 2 * L::QTILE : 0);
+    // the LSE (warpgroup 0) or delta (1) of this thread's 8 queries, qb0 +
+    // 8 n + 2 t + b for registers 4 n + b (+ 2); read under the product
+    float rq[8];
+    {
+      const float* rows = (wg == 0 ? lse : delta) + rows0;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int r = qb0 + 8 * (c >> 1) + 2 * t + (c & 1);
+        rq[c] = r < seq ? rows[r] : 0.f;
+      }
+    }
+    mbar_wait(bars + 24 + 8 * st, (it >> 1) & 1);   // the stage is ready
+    float x[16];                       // S^T or dP^T: 64 keys x 32 queries
+    product_3xtf32<32, D / 8>(
+        x,
+        [&](int kk, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
+          frag_mk(hi, lo, own, 64, 16 * warp, kk, g, t);
+        },
+        [&](int kk, bool low) {
+          return f32_kmajor(first + (low ? L::QTILE : 0), QT, 0, kk);
+        });
+    wgmma_wait<0>();
+    fence_operands(x);
+    const bool edge = (causal && qb0 < k0 + 63) || qb0 + QT > seq ||
+                      k0 + 64 > seq;
+    // this thread's keys 16 warp + g (+ 8) and queries 8 n + 2 t (+ 1):
+    // registers 4 n + 0, 1 (2, 3), written and read as float2
+    uint32_t hand;                     // the handoff tile of this product
+    if (wg == 0) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        float p = expf(fmaf(x[e], scale, -rq[2 * (e >> 2) + (e & 1)]));
+        if (edge && masked(qb0 + 8 * (e >> 2) + 2 * t + (e & 1),
+                           k0 + 16 * warp + g + 8 * ((e >> 1) & 1), seq,
+                           causal))
+          p = 0.f;
+        x[e] = p;                      // P^T
+      }
+      if (it > 0) named_bar_sync(4, 256);   // warpgroup 1 has read P^T
+      hand = ph;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) x[e] -= rq[2 * (e >> 2) + (e & 1)];
+      named_bar_sync(5, 256);          // P^T of this tile
+#pragma unroll
+      for (int e = 0; e < 16; e += 2) {
+        const uint32_t a = f32_at(64, 16 * warp + g + 8 * ((e >> 1) & 1),
+                                  8 * (e >> 2) + 2 * t);
+        const float2 h = *reinterpret_cast<const float2*>(php + a);
+        const float2 l = *reinterpret_cast<const float2*>(plp + a);
+        x[e] *= h.x + l.x;             // dS^T = P^T (dP^T - delta)
+        x[e + 1] *= h.y + l.y;
+      }
+      if (it + 1 < n_it) named_bar_arrive(4, 256);
+      hand = dsh;
+    }
+    {
+      unsigned char *hp = wg == 0 ? php : dshp, *lp = wg == 0 ? plp : dslp;
+      uint32_t hi[16], lo[16];
+      split_tf32(x, hi, lo);
+#pragma unroll
+      for (int e = 0; e < 16; e += 2) {
+        const uint32_t a = f32_at(64, 16 * warp + g + 8 * ((e >> 1) & 1),
+                                  8 * (e >> 2) + 2 * t);
+        *reinterpret_cast<uint2*>(hp + a) = make_uint2(hi[e], hi[e + 1]);
+        *reinterpret_cast<uint2*>(lp + a) = make_uint2(lo[e], lo[e + 1]);
+      }
+    }
+    fence_proxy_async();
+    named_bar_sync(6 + wg, 128);       // this warpgroup's handoff is whole
+    if (wg == 0) named_bar_arrive(5, 256);   // P^T for warpgroup 1
+    // dV^T += dO^T P (warpgroup 0), dK^T += Q^T dS (1): one tensor-core
+    // sum a query tile for each 64-row block of D, added in f32 before
+    // the next block's (one set of chunk registers)
+    const unsigned char* sp = at(second);
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) {
+      product_3xtf32<64, QT / 8>(
+          chunk,
+          [&](int kk, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
+            frag_km(hi, lo, sp, QT, 64 * mb + 16 * warp, kk, g, t);
+          },
+          [&](int kk, bool low) {
+            return f32_kmajor(hand + (low ? L::PT : 0), 64, 0, kk);
+          });
+      if (mb == MB - 1) mbar_arrive(bars + 40 + 8 * st);   // stage read
+      wgmma_wait<0>();
+      fence_operands(chunk);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) run[mb][e] += chunk[e];
+    }
+  }
+
+  float* out = wg == 0 ? dv : dk;
+  const float f = wg == 0 ? 1.f : scale;
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int key = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+      if (key < seq)
+        out[(rows0 + key) * D + 64 * mb + 16 * warp + g + 8 * ((e >> 1) & 1)] =
+            f * run[mb][e];
+    }
+}
+
 // The storage type and head_dim pick the kernel: bf16 the wgmma kernels
-// (head_dim 256 its own), f32 split TF32 on launch_mma's grid.
+// (head_dim 256 its own); f32 at head_dim 64 and 128 split TF32 on wgmma,
+// at 16, 32 and 256 split TF32 on mma.sync (launch_mma's grid).
 template <typename T>
 constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 template <typename T, int D>
 constexpr bool kWgmma256 = kBf16<T> && D == 256;
-// threads of a bf16 backward CTA at head_dim D
-template <int D>
-constexpr int kWgmmaThreads = D == 256 ? kBwdWgThreads : kBwdThreads;
+template <typename T, int D>
+constexpr bool kTf32Wgmma = !kBf16<T> && (D == 64 || D == 128);
+// threads of a backward CTA of storage T at head_dim D
+template <typename T, int D>
+constexpr int kBwdThreadsOf = kWgmma256<T, D> ? kBwdWgThreads
+                              : kBf16<T> || kTf32Wgmma<T, D> ? kBwdThreads
+                                                             : kMmaThreads;
 
-// Launch a bf16 wgmma backward kernel at head_dim D on a (bh, ceil(seq /
-// tile)) grid of kWgmmaThreads<D> threads with `bytes` of dynamic shared
-// memory, its first four arguments the tensor maps of q, k, v and dO:
-// boxes of `q_rows` rows for q and dO, of `kv_rows` for k and v; -> the
-// launch's error code.
-template <int D, typename Kernel, typename... Args>
-int launch_wgmma(Kernel kernel, const void* const (&src)[4], int q_rows,
-                 int kv_rows, int tile, int bh, int seq, size_t bytes,
-                 cudaStream_t stream, Args... args) {
+// Launch a wgmma backward kernel of storage T at head_dim D on a (bh,
+// ceil(seq / tile)) grid of `threads` threads with `bytes` of dynamic
+// shared memory, its first four arguments the tensor maps of q, k, v and
+// dO: boxes of `q_rows` rows for q and dO, of `kv_rows` for k and v; ->
+// the launch's error code.
+template <typename T, int D, typename Kernel, typename... Args>
+int launch_wgmma(Kernel kernel, int threads, const void* const (&src)[4],
+                 int q_rows, int kv_rows, int tile, int bh, int seq,
+                 size_t bytes, cudaStream_t stream, Args... args) {
   const int tiles = (seq + tile - 1) / tile;
   if (tiles > 65535) return cudaErrorInvalidValue;
   CUtensorMap maps[4];
   for (int i = 0; i < 4; ++i) {
-    const cudaError_t err = rows_map(&maps[i], src[i], D, seq, bh,
-                                     i == 0 || i == 3 ? q_rows : kv_rows);
+    const cudaError_t err = rows_map<T>(&maps[i], src[i], D, seq, bh,
+                                        i == 0 || i == 3 ? q_rows : kv_rows);
     if (err != cudaSuccess) return err;
   }
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(bh, tiles, 1), kWgmmaThreads<D>, bytes, stream>>>(
+  kernel<<<dim3(bh, tiles, 1), threads, bytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], args...);
   return cudaGetLastError();
 }
@@ -1284,6 +1891,8 @@ struct DqLaunch {
       return flash_dq_wgmma256_kernel;
     else if constexpr (kBf16<T>)
       return flash_dq_wgmma_kernel<D>;
+    else if constexpr (kTf32Wgmma<T, D>)
+      return flash_dq_tf32_wgmma_kernel<D>;
     else
       return flash_dq_tf32_kernel<D>;
   }
@@ -1294,20 +1903,24 @@ struct DqLaunch {
       return Bwd256Tiles::kDqSmem;
     else if constexpr (kBf16<T>)
       return BwdTiles<D>::kDqSmem;
+    else if constexpr (kTf32Wgmma<T, D>)
+      return Tf32WgTiles<D>::kDqSmem;
     else
-      return DqTiles<D>::kDqSmem;
+      return Tf32BwdTiles<D>::kDqSmem;
   }
 
   template <typename T, int D>
   int run() const {
-    if constexpr (kBf16<T>) {
-      // the CTA owns 128 queries (Q, dO) and streams 64-key tiles (K, V)
+    if constexpr (kBf16<T> || kTf32Wgmma<T, D>) {
+      // the CTA owns 128 queries (bf16; f32: 64) and streams 64-key tiles
+      constexpr int own = kBf16<T> ? kDqRows : 64;
       const void* const src[4] = {q, k, v, dout};
-      return launch_wgmma<D>(kernel<T, D>(), src, kDqRows, kBlockK, kDqRows,
-                             bh, seq, smem<T, D>(), stream,
-                             static_cast<const T*>(o),
-                             static_cast<const T*>(dout), lse,
-                             static_cast<T*>(dq), delta, seq, scale, causal);
+      return launch_wgmma<T, D>(kernel<T, D>(), kBwdThreadsOf<T, D>, src, own,
+                                kBlockK, own, bh, seq, smem<T, D>(), stream,
+                                static_cast<const T*>(o),
+                                static_cast<const T*>(dout), lse,
+                                static_cast<T*>(dq), delta, seq, scale,
+                                causal);
     } else {
       return launch_mma(kernel<T, D>(), bh, seq, D / kOutCols<D>,
                         smem<T, D>(), stream, static_cast<const T*>(q),
@@ -1333,6 +1946,8 @@ struct DkvLaunch {
       return flash_dkv_wgmma256_kernel;
     else if constexpr (kBf16<T>)
       return flash_dkv_wgmma_kernel<D>;
+    else if constexpr (kTf32Wgmma<T, D>)
+      return flash_dkv_tf32_wgmma_kernel<D>;
     else
       return flash_dkv_tf32_kernel<D>;
   }
@@ -1343,21 +1958,24 @@ struct DkvLaunch {
       return Bwd256Tiles::kDkvSmem;
     else if constexpr (kBf16<T>)
       return BwdTiles<D>::kDkvSmem;
+    else if constexpr (kTf32Wgmma<T, D>)
+      return Tf32WgTiles<D>::kDkvSmem;
     else
-      return DkvTiles<D>::kDkvSmem;
+      return Tf32BwdTiles<D>::kDkvSmem;
   }
 
   template <typename T, int D>
   int run() const {
-    if constexpr (kBf16<T>) {
-      // the CTA owns 64 keys at head_dim 256, 128 below (K, V), and
-      // streams 64-query tiles (Q, dO)
-      constexpr int own = D == 256 ? kBlockK : kBwdRows;
+    if constexpr (kBf16<T> || kTf32Wgmma<T, D>) {
+      // the CTA owns 64 keys (bf16 below head_dim 256: 128) and streams
+      // 64-query tiles (f32: 32)
+      constexpr int own = kBf16<T> && D < 256 ? kBwdRows : kBlockK;
+      constexpr int streamed = kBf16<T> ? kBlockQ : kTf32Queries;
       const void* const src[4] = {q, k, v, dout};
-      return launch_wgmma<D>(kernel<T, D>(), src, kBlockQ, own, own, bh, seq,
-                             smem<T, D>(), stream, lse, delta,
-                             static_cast<T*>(dk), static_cast<T*>(dv), seq,
-                             scale, causal);
+      return launch_wgmma<T, D>(kernel<T, D>(), kBwdThreadsOf<T, D>, src,
+                                streamed, own, own, bh, seq, smem<T, D>(),
+                                stream, lse, delta, static_cast<T*>(dk),
+                                static_cast<T*>(dv), seq, scale, causal);
     } else {
       return launch_mma(kernel<T, D>(), bh, seq, D / kOutCols<D>,
                         smem<T, D>(), stream, static_cast<const T*>(q),
@@ -1405,12 +2023,13 @@ struct InfoQuery {
 
   template <typename T, int D>
   int run() const {
-    const int threads = kBf16<T> ? kWgmmaThreads<D> : kMmaThreads;
+    // the mma.sync kernels are launched with the largest carveout
+    constexpr bool mma = kBwdThreadsOf<T, D> == kMmaThreads;
     return which == 0
                ? fill(DqLaunch::kernel<T, D>(), DqLaunch::smem<T, D>(),
-                      threads, !kBf16<T>)
+                      kBwdThreadsOf<T, D>, mma)
                : fill(DkvLaunch::kernel<T, D>(), DkvLaunch::smem<T, D>(),
-                      threads, !kBf16<T>);
+                      kBwdThreadsOf<T, D>, mma);
   }
 };
 

@@ -1,8 +1,9 @@
 // Hopper building blocks of the bf16 flash-attention forward (flash_fwd.cu)
-// and of the bf16 backward at head_dim 256 (flash_bwd.cu): mbarriers, named
+// and of the backward kernels on wgmma (flash_bwd.cu): mbarriers, named
 // barriers, TMA tile loads through a tensor map, wgmma shared-memory
-// descriptors and the warpgroup products they use, and the 256-column
-// tiles of the head_dim-256 kernels (Tile256).
+// descriptors and the warpgroup products they use (bf16, and TF32 for the
+// f32 backward), and the 256-column tiles of the head_dim-256 kernels
+// (Tile256).
 //
 // Tiles in shared memory are what TMA writes with a swizzle of W bytes,
 // W = 2 * min(D, 64) (128 for D = 64 and 128, 64 for D = 32, 32 for
@@ -27,6 +28,7 @@
 #pragma once
 
 #include <cuda.h>              // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -406,6 +408,61 @@ __device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (+)= A B for one m64nNk8 step in TF32 (f32 accumulation): A (64 x 8,
+// this warp's 16 rows) from registers, a0 (g, t), a1 (g + 8, t), a2 (g,
+// t + 4), a3 (g + 8, t + 4) as in mma.m16n8k8 (flash_tf32.cuh); B from
+// shared memory K-major through its descriptor (TF32 takes no transpose);
+// d is overwritten when `accumulate` is 0. The tensor core reads a TF32
+// operand's top 19 bits.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
 // x, hidden from the compiler's loop-invariant code motion: descriptors
 // built from it inside a loop are rebuilt there (a few integer adds)
 // rather than all held in registers across the loop
@@ -522,31 +579,44 @@ inline cudaError_t encode_tiled(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// A 3-D map (D, seq, bh) over a contiguous (bh, seq, D) bf16 tensor, box
-// (min(D, 64), rows, 1) with the swizzle of that many bytes x 2: a load
-// never crosses into the next (b, h), and rows at or past seq read as
-// zeros.
+// A 3-D map (D, seq, bh) over a contiguous (bh, seq, D) tensor of T
+// (__nv_bfloat16 or float), box (W, rows, 1) with W = min(D, 128 bytes of
+// T) and the swizzle of W elements' bytes (128 for a bf16 D of 64 and up
+// and an f32 D of 32 and up): a load never crosses into the next (b, h),
+// and rows at or past seq read as zeros.
+template <typename T = __nv_bfloat16>
 inline cudaError_t rows_map(CUtensorMap* map, const void* base, int d,
                             int seq, int bh, int rows) {
-  EncodeTiled encode;
-  const cudaError_t err = encode_tiled(&encode);
+  // the driver call below wants a context current in this thread: in a
+  // thread whose first CUDA work this is (autograd's backward thread),
+  // the runtime has not bound its primary context yet, and cudaFree(0)
+  // binds it
+  cudaError_t err = cudaFree(nullptr);
   if (err != cudaSuccess) return err;
-  const int width = d < 64 ? d : 64;
+  EncodeTiled encode;
+  err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  constexpr int kBytes = static_cast<int>(sizeof(T));
+  const int width = d < 128 / kBytes ? d : 128 / kBytes;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(seq),
                               static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(seq) * d * 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * kBytes,
+                                 static_cast<cuuint64_t>(seq) * d * kBytes};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(width),
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
+  const int swizzle_bytes = width * kBytes;
   const CUtensorMapSwizzle swizzle =
-      width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                  : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                : CU_TENSOR_MAP_SWIZZLE_32B;
+      swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      map,
+      kBytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -374,8 +374,10 @@ def _flash_inputs(shape, dtype, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s, d", [(512, 128), (512, 256), (1000, 128),
-                                  (1000, 64)],
-                         ids=["128", "256", "128-S1000", "64-S1000"])
+                                  (1000, 64), (512, 64), (512, 32),
+                                  (1000, 32)],
+                         ids=["128", "256", "128-S1000", "64-S1000", "64",
+                              "32", "32-S1000"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
@@ -383,7 +385,9 @@ def test_flash_backward_is_deterministic_on_card(cuda, causal, dtype, s, d):
     # two kernels and no atomics: each output element is summed by one
     # thread in a fixed order, launch after launch (bf16: the wgmma
     # kernels, each warpgroup its own rows, all D columns up to 128 and
-    # 128 of them at 256; S = 1000 ends in a ragged 128-row tile)
+    # 128 of them at 256; f32 at D 64 and 128: the split-TF32 wgmma
+    # kernels, each warpgroup its own rows of dQ^T, dK^T or dV^T, one
+    # f32 add a streamed tile; S = 1000 ends in ragged tiles)
     q, k, v, do = _flash_inputs((2, 4, s, d), dtype, 33)
     o, lse = ca.flash_attention_fwd(q, k, v, causal)
     runs = []
@@ -415,13 +419,17 @@ def test_flash_forward_is_deterministic_on_card(cuda, causal, dtype, b, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s, d", [(512, 128), (512, 64), (512, 32),
+                                  (1000, 128), (1000, 64)],
+                         ids=["128", "64", "32", "128-S1000", "64-S1000"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_flash_f32_backward_keeps_its_limits_on_card(cuda, causal):
-    # f32 storage takes the split-TF32 kernels: f32-accurate products, so
-    # the readings stay within the old limits (5e-4 of the largest
-    # element, 1e-4 of a tile), a tile even within 1e-5, far under what
-    # bf16 or one-pass TF32 products would read (~3e-3 of a tile)
-    q, k, v, do = _flash_inputs((1, 2, 512, 128), torch.float32, 34)
+def test_flash_f32_backward_keeps_its_limits_on_card(cuda, causal, s, d):
+    # f32 storage takes the split-TF32 kernels (wgmma at D 64 and 128,
+    # mma.sync at 32): f32-accurate products, so the readings stay within
+    # the old limits (5e-4 of the largest element, 1e-4 of a tile), a
+    # tile even within 1e-5, far under what bf16 or one-pass TF32
+    # products would read (~3e-3 of a tile)
+    q, k, v, do = _flash_inputs((1, 2, s, d), torch.float32, 34)
     o, lse = ca.flash_attention_fwd(q, k, v, causal)
     dq, delta = ca.flash_attention_dq(q, k, v, o, lse, do, causal)
     dk, dv = ca.flash_attention_dkv(q, k, v, do, lse, delta, causal)

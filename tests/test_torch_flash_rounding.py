@@ -52,6 +52,19 @@ must read over the O limit; and against f64, dK and dV summed in one
 tensor-core accumulator over all of S must read measurably worse than
 the kernels' chunked sums.
 
+The f32 backward at head_dim 64 and 128 runs on wgmma
+(flash_dq_tf32_wgmma_kernel, flash_dkv_tf32_wgmma_kernel; the
+F32_BWD_CASES marked "wgmma"): both kernels build S^T = K Q^T and dP^T =
+V dO^T with K and V split in registers and Q and dO read as TMA wrote
+them, their hi the f32 value truncated to TF32 (the tensor core's read)
+and their lo x - hi truncated in turn; each is one tensor-core sum over
+all of D (16 k-steps at D = 128, past kSumSteps). The second products
+run transposed (dQ^T = K^T dS^T over 64-key tiles, dV^T = dO^T P and
+dK^T = Q^T dS over 32-query tiles), each tile one tensor-core sum added
+in f32, with dS^T, P, dS split as the threads write them. That emulation
+must keep the same f32 limits, and one TF32 pass of it must read over a
+dQ, dK or dV limit.
+
 Past head_dim 256 (csrc/flash_wide.cuh) the forward, dQ and dK/dV run
 on a thread-block cluster: D is zero-padded to a multiple of 128
 (ca.built_head_dim), each rank's 128-column slice gives a partial score
@@ -451,6 +464,15 @@ F32_LIMIT = {"O": 2e-5, "LSE": 2e-5, "delta": 2e-5, "dq": 5e-4, "dk": 5e-4,
 F32_TILE_LIMIT = 1e-4                  # chip_smoke.FLASH_TILE_LIMIT["float32"]
 F32_SHAPES = [pytest.param((1, 2, 256, 64), id="S256-D64"),
               pytest.param((1, 2, 256, 128), id="S256-D128")]
+# the backward's cases: (shape, design) of F32_SHAPES for the mma.sync
+# kernels (csrc/flash_bwd.cu's flash_dq_tf32_kernel, flash_dkv_tf32_kernel,
+# which run head_dim 16, 32 and 256) and for the wgmma kernels of head_dim
+# 64 and 128 (flash_dq_tf32_wgmma_kernel, flash_dkv_tf32_wgmma_kernel)
+F32_BWD_CASES = [
+    pytest.param(((1, 2, 256, 64), "mma.sync"), id="S256-D64"),
+    pytest.param(((1, 2, 256, 128), "mma.sync"), id="S256-D128"),
+    pytest.param(((1, 2, 256, 64), "wgmma"), id="S256-D64-wgmma"),
+    pytest.param(((1, 2, 256, 128), "wgmma"), id="S256-D128-wgmma")]
 # the forward's cases: past head_dim 256 too (WIDE_SHAPES)
 
 
@@ -484,14 +506,23 @@ def _rz(x):
 K_SUM_STEPS = 8            # csrc/flash_tf32.cuh's kSumSteps
 
 
-def _tc_sum(a, b, passes=3, chain=K_SUM_STEPS, acc=None):
+def _raw_split(x):
+    """hi, lo of an f32 tile that TMA wrote and wgmma reads as it is: hi
+    its truncated TF32 (the tensor core's read), lo = x - hi (exact)
+    truncated to TF32 in turn."""
+    hi = _tf32_truncated(x)
+    return hi, _tf32_truncated(x - hi)
+
+
+def _tc_sum(a, b, passes=3, chain=K_SUM_STEPS, acc=None, b_raw=False):
     """a @ b (a (..., M, K), b (..., K, N), f32) as the kernels' split
     TF32 mma computes it: per k-step of 8, the tensor core's products
     a_hi b_lo, a_lo b_hi, then a_hi b_hi, each mma truncating its f32
     result (passes=1: a_hi b_hi alone, one TF32 pass), summed on the
     tensor core over ``chain`` k-steps from zero (None: all of K in one
-    accumulator) and those sums added into ``acc`` in f32, in order."""
-    (ah, al), (bh, bl) = _split(a), _split(b)
+    accumulator) and those sums added into ``acc`` in f32, in order.
+    ``b_raw``: b split as a tile read as TMA wrote it (_raw_split)."""
+    (ah, al), (bh, bl) = _split(a), (_raw_split(b) if b_raw else _split(b))
     pairs = [(ah, bl), (al, bh), (ah, bh)] if passes == 3 else [(ah, bh)]
     kk = a.shape[-1] // 8
     terms = [torch.einsum("...mks,...ksn->k...mn",
@@ -508,10 +539,13 @@ def _tc_sum(a, b, passes=3, chain=K_SUM_STEPS, acc=None):
     return acc
 
 
-def _streamed(d):
+def _streamed(d, design="mma.sync"):
     """Rows of the streamed tiles at head_dim d: the forward's key tiles,
-    the dQ kernel's key tiles, the dK/dV kernel's query tiles
-    (Tf32FwdTiles, DqTiles, DkvTiles)."""
+    the dQ kernel's key tiles, the dK/dV kernel's query tiles: of the
+    mma.sync kernels (Tf32FwdTiles, DqTiles, DkvTiles), or of the
+    backward's wgmma kernels (Tf32WgTiles: 64 keys, 32 queries)."""
+    if design == "wgmma":
+        return {"fwd": 32 if d >= 64 else 64, "dq": 64, "dkv": 32}
     return {"fwd": 32 if d >= 64 else 64,
             "dq": 32 if d == 128 else (16 if d > 64 else 64),
             "dkv": 16 if d > 64 else 64}
@@ -629,15 +663,30 @@ def _split_tf32_wide_dkv(shape, causal):
 
 
 @functools.lru_cache(maxsize=None)
-def _split_tf32_backward(shape, causal, one_accumulator=False):
+def _split_tf32_backward(shape, causal, one_accumulator=False,
+                         design="mma.sync", passes=3):
     """dQ, delta, dK, dV as csrc/flash_bwd.cu's f32 kernels compute them
-    on _f32_inputs(shape) with the plain forward's O and LSE: S and dP
-    from split-TF32 sums over D (the dK/dV kernel's S^T and dP^T with K
-    and V as the first operand), P = exp(scale S - LSE) masked to 0,
-    delta = rowsum(dO O) in f32, dS = P (dP - delta), and the second
-    products from the unrounded P and dS, one tensor-core sum a streamed
-    tile (``one_accumulator``: over all of S at once); with the plain
-    versions' outputs as "ref"."""
+    on _f32_inputs(shape) with the plain forward's O and LSE, with the
+    plain versions' outputs as "ref".
+
+    ``design`` "mma.sync" (flash_dq_tf32_kernel, flash_dkv_tf32_kernel):
+    S and dP from split-TF32 sums over D (the dK/dV kernel's S^T and
+    dP^T with K and V as the first operand), sums of at most kSumSteps
+    k-steps added in f32, P = exp(scale S - LSE) masked to 0, delta =
+    rowsum(dO O) in f32, dS = P (dP - delta), and the second products
+    from the unrounded P and dS, one tensor-core sum a streamed tile
+    (``one_accumulator``: over all of S at once).
+
+    ``design`` "wgmma" (flash_dq_tf32_wgmma_kernel,
+    flash_dkv_tf32_wgmma_kernel): both kernels build S^T = K Q^T and
+    dP^T = V dO^T, K and V split in registers and Q and dO read as TMA
+    wrote them (their hi truncated, _raw_split), each one tensor-core
+    sum over all of D; and the second products transposed, dQ^T = K^T
+    dS^T a 64-key tile, dV^T = dO^T P and dK^T = Q^T dS a 32-query tile
+    at a time, each tile one tensor-core sum added in f32, K^T, dO^T and
+    Q^T split in registers and dS^T, P, dS as the threads write them.
+
+    ``passes`` 1: every product one TF32 pass (the one-pass control)."""
     q, k, v, do = (torch.from_numpy(a) for a in _f32_inputs(shape))
     o, lse = ca.flash_attention_fwd_plain(q, k, v, causal)
     b, h, s, d = shape
@@ -656,22 +705,32 @@ def _split_tf32_backward(shape, causal, one_accumulator=False):
         """a @ b_, the sum over S one streamed tile of ``rows`` at a
         time (all of S in one accumulator with one_accumulator)."""
         if one_accumulator:
-            return _tc_sum(a, b_, chain=None)
+            return _tc_sum(a, b_, passes, chain=None)
         acc = None
         for r0 in range(0, s, rows):
             acc = _tc_sum(a[..., r0:r0 + rows], b_[..., r0:r0 + rows, :],
-                          acc=acc)
+                          passes, acc=acc)
         return acc
-    _, ds = p_ds(_tc_sum(q, k.transpose(-1, -2)),
-                 _tc_sum(do, v.transpose(-1, -2)), lse, delta, future)
-    pt, dst = p_ds(_tc_sum(k, q.transpose(-1, -2)),
-                   _tc_sum(v, do.transpose(-1, -2)), lse.transpose(-1, -2),
-                   delta.transpose(-1, -2), future.t())
-    rows = _streamed(d)
-    out = {"dq": scale * tiled(ds, k, rows["dq"]),
-           "delta": delta.reshape(b * h, s),
-           "dk": scale * tiled(dst, q, rows["dkv"]),
-           "dv": tiled(pt, do, rows["dkv"])}
+
+    def t(x):
+        return x.transpose(-1, -2)
+    rows = _streamed(d, design)
+    if design == "wgmma":
+        st, dpt = (_tc_sum(x, t(y), passes, chain=d // 8, b_raw=True)
+                   for x, y in ((k, q), (v, do)))
+        pt, dst = p_ds(st, dpt, t(lse), t(delta), future.t())
+        out = {"dq": scale * t(tiled(t(k), dst, rows["dq"])),
+               "dk": scale * t(tiled(t(q), t(dst), rows["dkv"])),
+               "dv": t(tiled(t(do), t(pt), rows["dkv"]))}
+    else:
+        _, ds = p_ds(_tc_sum(q, t(k), passes), _tc_sum(do, t(v), passes),
+                     lse, delta, future)
+        pt, dst = p_ds(_tc_sum(k, t(q), passes), _tc_sum(v, t(do), passes),
+                       t(lse), t(delta), future.t())
+        out = {"dq": scale * tiled(ds, k, rows["dq"]),
+               "dk": scale * tiled(dst, q, rows["dkv"]),
+               "dv": tiled(pt, do, rows["dkv"])}
+    out["delta"] = delta.reshape(b * h, s)
     rdq, rdelta = ca.flash_attention_dq_plain(q, k, v, o, lse.reshape(
         b * h, s), do, causal)
     rdk, rdv = ca.flash_attention_dkv_plain(q, k, v, do, lse.reshape(
@@ -756,9 +815,10 @@ def test_split_tf32_forward_keeps_the_f32_limits(shape, causal):
 
 @pytest.mark.parametrize("output", ["dq", "dk", "dv"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("shape", F32_SHAPES)
-def test_split_tf32_backward_keeps_the_f32_limits(shape, causal, output):
-    got = _split_tf32_backward(shape, causal)
+@pytest.mark.parametrize("case", F32_BWD_CASES)
+def test_split_tf32_backward_keeps_the_f32_limits(case, causal, output):
+    shape, design = case
+    got = _split_tf32_backward(shape, causal, design=design)
     _check("delta", got["delta"], got["ref"]["delta"])
     _check(output, got[output], got["ref"][output])
     _check(output, got[output], torch.from_numpy(
@@ -810,3 +870,16 @@ def test_one_tf32_pass_reads_over_the_f32_o_limit(shape, causal):
     o, _ = _split_tf32_forward(q, k, v, causal, passes=1)
     ro, _ = ca.flash_attention_fwd_plain(q, k, v, causal)
     assert _rel(o, ro) > F32_LIMIT["O"], _rel(o, ro)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", F32_SHAPES)
+def test_one_tf32_pass_reads_over_the_f32_backward_limits(shape, causal):
+    # the one-pass control of the wgmma backward: every product one TF32
+    # pass (the raw tiles' truncated hi, the others' rounded one), which
+    # a dQ, dK or dV limit must reject, as chip_smoke.py's control must
+    got = _split_tf32_backward(shape, causal, design="wgmma", passes=1)
+    for output in ("dq", "dk", "dv"):
+        ref = got["ref"][output]
+        assert _rel(got[output], ref) > F32_LIMIT[output] \
+            or _worst_tile(got[output], ref) > F32_TILE_LIMIT, output
