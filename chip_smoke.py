@@ -1348,7 +1348,8 @@ def _flash_kernel_info(torch):
     (cudaOccupancyMaxActiveClusters; the three kernels past head_dim
     256). Fails if any instantiation uses local memory (spills), or a
     backward kernel on wgmma (bf16 up to head_dim 128, _bf16_bwd_design;
-    f32 at 64 and 128, _f32_bwd_design) is not as it was built: 384
+    f32 at 64 and 128, _f32_bwd_design) or the f32 forward on wgmma (32
+    to 128, _f32_fwd_design) is not as it was built: 384
     threads (a producer and two consumer warpgroups) at 168 registers,
     its shared memory, one CTA an SM."""
     import ctypes
@@ -1385,11 +1386,14 @@ def _flash_kernel_info(torch):
                 check(out[4] == 1 or out[5] > 0,
                       f"{name} {dname} D={d}: no cluster of {out[4]} fits")
                 built = ca.built_head_dim(d)
-                design = None if name == "flash_attention" else \
-                    _bf16_bwd_design if dtype == torch.bfloat16 \
-                    and built <= 128 else _f32_bwd_design \
-                    if dtype == torch.float32 and built in F32_WGMMA_DIMS \
-                    else None
+                f32 = dtype == torch.float32
+                if name == "flash_attention":
+                    design = _f32_fwd_design \
+                        if f32 and built in F32_FWD_WGMMA_DIMS else None
+                else:
+                    design = _bf16_bwd_design if not f32 and built <= 128 \
+                        else _f32_bwd_design \
+                        if f32 and built in F32_WGMMA_DIMS else None
                 if design is not None:
                     want = design(name, built)
                     got = {key: r[key] for key in want}
@@ -1436,14 +1440,40 @@ def _f32_bwd_design(name, d):
             "ctas_per_sm": 1}
 
 
-def _bwd_kernel_name(name, dtype, d):
-    """The CUDA kernel of a backward wrapper (``name``) at a storage
-    ``dtype`` and head_dim ``d`` up to 256 (csrc/flash_bwd.cu), or None
-    (the forward; past 256, csrc/flash_wide.cuh)."""
+# the f32 forward's head_dims on wgmma (flash_fwd_tf32_wgmma_kernel); 16
+# and 256 run split TF32 on mma.sync
+F32_FWD_WGMMA_DIMS = (32, 64, 128)
+
+
+def _f32_fwd_design(name, d):
+    """What the runtime should say of the f32 forward on wgmma at a
+    head_dim ``d`` of F32_FWD_WGMMA_DIMS (csrc/flash_fwd.cu,
+    Tf32WgFwdTiles; ``name`` is the forward's): 384 threads at
+    launch_bounds(384, 1) leave 168 registers a thread (the consumers
+    take 232 through setmaxnreg, the producer 40); shared memory for the
+    CTA's 128 queries, a 64-key tile of K, its lo and V as TMA lands them,
+    V^T hi and lo (d rows of 64 keys), 64 bytes of mbarriers and 1024 to
+    align the tiles; one CTA an SM."""
+    return {"registers": 168,
+            "smem_bytes": 128 * d * 4 + 3 * 64 * d * 4 + 2 * d * 64 * 4
+            + 64 + 1024,
+            "ctas_per_sm": 1}
+
+
+def _kernel_name(name, dtype, d):
+    """The CUDA kernel of a flash wrapper (``name``) at a storage
+    ``dtype`` and head_dim ``d`` up to 256 (csrc/flash_fwd.cu,
+    csrc/flash_bwd.cu), or None (past 256: csrc/flash_wide.cuh)."""
     from sparknet_tpu_torch.ops import cuda_attention as ca
     d = ca.built_head_dim(d)
-    if name == "flash_attention" or d > 256:
+    if d > 256:
         return None
+    if name == "flash_attention":
+        if dtype == "bfloat16":
+            return "flash_fwd_wgmma256_kernel" if d == 256 else \
+                f"flash_fwd_wgmma_kernel<{d}>"
+        return f"flash_fwd_tf32_wgmma_kernel<{d}>" \
+            if d in F32_FWD_WGMMA_DIMS else f"flash_fwd_tf32_kernel<{d}>"
     which = "dq" if name == "flash_attention_dq" else "dkv"
     if dtype == "bfloat16":
         return f"flash_{which}_wgmma256_kernel" if d == 256 else \
@@ -1483,7 +1513,11 @@ FLASH_CASES = (
     # f32, the lm verb's default dtype: the LM's full width, and the
     # verb's default widths (vocab 512, S 256, b 8, d 256, 8 heads)
     ((4, 8, 4096, 128), "float32", True, True),
-    ((8, 8, 256, 32), "float32", True, True))
+    ((8, 8, 256, 32), "float32", True, True),
+    # the attention of lm --d-model 2048 --heads 8 at the verb's default
+    # dtype: the f32 head_dim-256 kernels at a card-filling shape (no path
+    # of this script launches them there)
+    ((2, 8, 4096, 256), "float32", True, False))
 # the kernels line's launches for a flash row: the path that gives its
 # shape (the lm verb's bf16 run for the rest)
 FLASH_ROW_PATHS = {((4, 8, 4096, 128), "float32"): "lm step, f32",
@@ -1794,7 +1828,7 @@ def phase_flash_kernels(torch, cases=FLASH_CASES):
                 r["tflops"] = flops / r["ms"] / 1e9
                 r["bound_share"] = r["bound_ms"] / r["ms"]
                 r["launches_phase6"] = launched[name]
-                kernel_name = _bwd_kernel_name(name, dname, d)
+                kernel_name = _kernel_name(name, dname, d)
                 if kernel_name:
                     r["kernel"] = kernel_name
                 if wide:

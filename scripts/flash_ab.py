@@ -9,7 +9,8 @@ The kernels are the forward (csrc/flash_fwd.cu) and the dQ and dK/dV
 kernels (csrc/flash_bwd.cu) of sparknet_tpu_torch, at the shapes of
 chip_smoke.py phase 6's cases (f32 up to head_dim 256, bf16 at every
 tiled head_dim, and past 256 the wide kernels of csrc/flash_wide.cuh in
-both dtypes) and at phase 15's bf16 mesh-slot shapes (MESH_FLASH_CASES),
+both dtypes), at phase 15's bf16 mesh-slot shapes (MESH_FLASH_CASES) and
+at f32 head_dim 16 ((8, 8, 256, 16) causal),
 with one case whose kernels the trees are meant to share
 (SAME_KERNEL_CASE, the bf16 head_dim-256 LM row: its ratio is the
 call's noise floor while neither tree changes those kernels);
@@ -18,12 +19,13 @@ and the shared case, ``--cases bf16-128`` the bf16 cases up to head_dim
 128 and the shared case, ``--cases f32`` the f32 cases up to head_dim
 128 and the shared case; ``--sass`` first prints the instructions
 (cuobjdump) in which the two trees' bf16 forward kernels up to head_dim
-128 differ, and counts the wgmma (HGMMA) and mma.sync (HMMA)
-instructions of this tree's backward kernels on wgmma (bf16 up to
-head_dim 128, and f32 at 64 and 128, whose HGMMA must read TF32
-operands), which must be HGMMA only; ``--steps N`` last times the LM
-row's train step with the baseline's and this tree's flash_bwd in
-turns, N steps an arm, baseline, new, new, baseline, and prints each
+128 and f32 backward kernels on wgmma (64 and 128) differ, and counts
+the wgmma (HGMMA) and mma.sync (HMMA) instructions of this tree's
+kernels on wgmma (the backward's bf16 up to head_dim 128 and f32 at 64
+and 128, the f32 forward's at 32-128; the f32 ones' HGMMA must read
+TF32 operands), which must be HGMMA only; ``--steps N`` last times the
+LM row's train step with the baseline's and this tree's flash_fwd and
+flash_bwd in turns, N steps an arm, baseline, new, new, baseline, and prints each
 arm's median and its spread: bf16 on one device and its tp 2 branch
 (chip_smoke.py phases 7 and 15, through the lm verb's setup), or with
 ``--cases f32`` f32 (the lm verb's default dtype) on one device. The
@@ -78,7 +80,10 @@ SOURCES = ("flash_fwd", "flash_bwd")
 SAME_KERNEL_CASE = ((2, 8, 4096, 256), "bfloat16", True)
 CASES = [(shape, dtype, causal)
          for shape, dtype, causal, _ in chip_smoke.FLASH_CASES
-         + chip_smoke.MESH_FLASH_CASES]
+         + chip_smoke.MESH_FLASH_CASES] + [
+    # the lm verb's default widths with 16 heads: f32 head_dim 16, where
+    # the forward keeps its mma.sync kernel (the wgmma kernel lost there)
+    ((8, 8, 256, 16), "float32", True)]
 
 
 def _bf16_at(c, dims):
@@ -92,17 +97,23 @@ CASE_SETS = {"all": lambda c: True,
              or _bf16_at(c, ca.HEAD_DIMS[:-1]),
              "f32": lambda c: c == SAME_KERNEL_CASE
              or (c[1] == "float32" and ca.built_head_dim(c[0][-1]) <= 128)}
-# --sass: the bf16 forward's instantiations up to head_dim 128, whose
-# instructions a tree may mean to leave as they were
-SASS_KERNELS = tuple(
-    f"_ZN14sparknet_flash22flash_fwd_wgmma_kernelILi{d}EEEv14CUtensorMap_st"
-    "S1_S1_P13__nv_bfloat16Pfifi" for d in (16, 32, 64, 128))
-# --sass: the backward's instantiations on wgmma, by the start of their
-# mangled names: bf16 up to head_dim 128, and f32 (split TF32) at 64 and
-# 128, whose HGMMA must read TF32 operands
+# --sass: instantiations on wgmma, by the start of their mangled names:
+# the bf16 forward up to head_dim 128 and the backward's bf16 ones up to
+# 128, the f32 (split TF32) backward's at 64 and 128 and the f32
+# forward's at 32-128, whose HGMMA must read TF32 operands
+SASS_FWD = re.compile(r"flash_fwd_wgmma_kernelILi")
+SASS_FWD_TF32 = re.compile(r"flash_fwd_tf32_wgmma_kernelILi")
 SASS_BWD = re.compile(r"flash_(dq|dkv)_wgmma_kernelILi")
 SASS_BWD_TF32 = re.compile(r"flash_(dq|dkv)_tf32_wgmma_kernelILi")
 TF32_HEAD_DIMS = (64, 128)
+# --sass: {library: {kind: (its instantiations, TF32 operands wanted)}}
+# whose products are counted, and {library: kind} whose instructions a
+# tree may mean to leave as they were (diffed against the baseline's)
+SASS_PRODUCTS = {
+    "flash_fwd": {SASS_FWD_TF32: (len(chip_smoke.F32_FWD_WGMMA_DIMS), True)},
+    "flash_bwd": {SASS_BWD: (2 * (len(ca.HEAD_DIMS) - 1), False),
+                  SASS_BWD_TF32: (2 * len(TF32_HEAD_DIMS), True)}}
+SASS_SAME = {"flash_fwd": SASS_FWD, "flash_bwd": SASS_BWD_TF32}
 BRANCH = re.compile(r"\b(BRA|BRX|BSSY|CALL\.\S+|JMP|JMX)\b")
 KERNELS = (("fwd", "flash_attention", "O"), ("dq", "flash_attention_dq", "dQ"),
            ("dkv", "flash_attention_dkv", "dK"))
@@ -132,74 +143,81 @@ def build(csrc, out_dir):
     return wait
 
 
-def sass(so, function):
-    """The instructions of ``function`` in the library ``so`` as cuobjdump
-    prints them, without addresses and encodings; a branch's target,
-    which moves with any instruction before it, reads TARGET."""
+def sass_functions(so):
+    """{mangled name: its instructions} of every kernel in the library
+    ``so`` as cuobjdump prints them, without addresses and encodings; a
+    branch's target, which moves with any instruction before it, reads
+    TARGET."""
     tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
-    out = subprocess.run([tool, "-sass", "-fun", function, so],
-                         capture_output=True, text=True, check=True).stdout
-    lines = []
+    out = subprocess.run([tool, "-sass", so], capture_output=True,
+                         text=True, check=True).stdout
+    funcs, lines = {}, None
     for line in out.splitlines():
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        m = re.match(r"\s*Function : (\S+)", line)
         if m:
+            lines = funcs[m.group(1)] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        if m and lines is not None:
             text = m.group(1)
             lines.append(re.sub(r"0x[0-9a-f]+", "TARGET", text)
                          if BRANCH.search(text) else text)
-    chip_smoke.check(lines, f"cuobjdump found no {function} in {so}")
-    return lines
+    return funcs
 
 
-def sass_diff(baseline_so, new_so):
-    """Print, for each of SASS_KERNELS, the two trees' instruction counts
-    and every instruction one has and the other has not."""
-    for fn in SASS_KERNELS:
-        a, b = sass(baseline_so, fn), sass(new_so, fn)
+def sass_diff(baseline_so, new_so, kind):
+    """Print, for each instantiation whose name matches ``kind`` (the
+    same set in both libraries), the two trees' instruction counts and
+    every instruction one has and the other has not; -> the number of
+    instantiations that differ."""
+    a_all, b_all = sass_functions(baseline_so), sass_functions(new_so)
+    names = sorted(fn for fn in a_all if kind.search(fn))
+    chip_smoke.check(names and names == sorted(
+        fn for fn in b_all if kind.search(fn)),
+        f"{kind.pattern}: {names} in {baseline_so}, other names in {new_so}")
+    differ = 0
+    for fn in names:
+        a, b = a_all[fn], b_all[fn]
         diff = [line for line in difflib.unified_diff(a, b, lineterm="", n=0)
                 if line[:1] in "+-" and line[:3] not in ("+++", "---")]
+        differ += bool(diff)
         print(f"[sass] {fn}: {len(a)} instructions in the baseline, "
               f"{len(b)} here; {sum(x[0] == '-' for x in diff)} only in the "
               f"baseline, {sum(x[0] == '+' for x in diff)} only here")
         for line in diff:
             print(f"[sass]   {line}")
+    return differ
 
 
-def sass_products(so):
+def sass_products(so, kinds):
     """Count the wgmma (HGMMA, and of those the ones on TF32 operands)
-    and mma.sync (HMMA) instructions of every backward instantiation on
-    wgmma (SASS_BWD: bf16 up to head_dim 128; SASS_BWD_TF32: f32 at
-    TF32_HEAD_DIMS) in the library ``so``; each must have HGMMA and no
-    HMMA, and the f32 ones TF32 in every HGMMA."""
-    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
-    out = subprocess.run([tool, "-sass", so], capture_output=True,
-                         text=True, check=True).stdout
-    counts, name = {}, None
-    for line in out.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            fn = m.group(1)
-            name = fn if SASS_BWD.search(fn) or SASS_BWD_TF32.search(fn) \
-                else None
-            if name:
-                counts[name] = {"HGMMA": 0, "HGMMA TF32": 0, "HMMA": 0}
-        elif name:
-            for op in ("HGMMA", "HMMA"):
-                if re.search(rf"\b{op}\.", line):
-                    counts[name][op] += 1
-                    if op == "HGMMA" and "TF32" in line:
-                        counts[name]["HGMMA TF32"] += 1
-    tf32 = {fn for fn in counts if SASS_BWD_TF32.search(fn)}
-    chip_smoke.check(len(counts) - len(tf32) == 2 * (len(ca.HEAD_DIMS) - 1)
-                     and len(tf32) == 2 * len(TF32_HEAD_DIMS),
-                     f"cuobjdump found {sorted(counts)} in {so}")
-    for fn, c in sorted(counts.items()):
-        print(f"[sass] {fn}: {c['HGMMA']} HGMMA ({c['HGMMA TF32']} on TF32 "
-              f"operands), {c['HMMA']} HMMA")
-        chip_smoke.check(c["HGMMA"] > 0 and c["HMMA"] == 0,
-                         f"{fn}: {c}, want wgmma products only")
-        if fn in tf32:
-            chip_smoke.check(c["HGMMA TF32"] == c["HGMMA"],
-                             f"{fn}: {c}, want TF32 operands in every HGMMA")
+    and mma.sync (HMMA) instructions of every instantiation in the
+    library ``so`` whose name matches a kind of ``kinds`` ({kind: (its
+    instantiations, TF32 wanted)}); each must have HGMMA and no HMMA,
+    and those of a TF32 kind TF32 in every HGMMA."""
+    funcs = sass_functions(so)
+    counts = {}
+    for kind, (want, tf32) in kinds.items():
+        names = sorted(fn for fn in funcs if kind.search(fn))
+        chip_smoke.check(len(names) == want,
+                         f"cuobjdump found {names} in {so}, want {want} "
+                         f"of {kind.pattern}")
+        for fn in names:
+            c = counts[fn] = {"HGMMA": 0, "HGMMA TF32": 0, "HMMA": 0}
+            for text in funcs[fn]:
+                for op in ("HGMMA", "HMMA"):
+                    if re.search(rf"\b{op}\.", text):
+                        c[op] += 1
+                        if op == "HGMMA" and "TF32" in text:
+                            c["HGMMA TF32"] += 1
+            print(f"[sass] {fn}: {c['HGMMA']} HGMMA ({c['HGMMA TF32']} on "
+                  f"TF32 operands), {c['HMMA']} HMMA")
+            chip_smoke.check(c["HGMMA"] > 0 and c["HMMA"] == 0,
+                             f"{fn}: {c}, want wgmma products only")
+            if tf32:
+                chip_smoke.check(c["HGMMA TF32"] == c["HGMMA"],
+                                 f"{fn}: {c}, want TF32 operands in every "
+                                 "HGMMA")
     return counts
 
 
@@ -207,9 +225,9 @@ def time_steps(libs, steps, dtype="bf16"):
     """The LM row's train step (chip_smoke._branch_setup, the lm verb's
     setup at LM_FULL) in ``dtype``: bf16 on one device and its tp 2
     branch, f32 on one device; timed by synchronisation: ``steps`` steps
-    on one batch an arm, the baseline's flash_bwd and this tree's in
-    turns (baseline, new, new, baseline), after two warm-up steps; ->
-    {branch: {"baseline": [[ms]...], "new": [[ms]...]}}."""
+    on one batch an arm, the baseline's flash_fwd and flash_bwd and this
+    tree's in turns (baseline, new, new, baseline), after two warm-up
+    steps; -> {branch: {"baseline": [[ms]...], "new": [[ms]...]}}."""
     import statistics
     import time
     f = chip_smoke.LM_FULL
@@ -219,8 +237,7 @@ def time_steps(libs, steps, dtype="bf16"):
             "--dtype", dtype]
     branches = (("one device", []), ("tp 2", ["--tp", "2"])) \
         if dtype == "bf16" else (("one device", []),)
-    ours = cuda_build.library("flash_bwd")
-    key = ("flash_bwd", ())
+    ours = {name: cuda_build.library(name) for name in SOURCES}
     out = {}
     for label, flags in branches:
         run = chip_smoke._branch_setup(label, full + flags)
@@ -229,8 +246,9 @@ def time_steps(libs, steps, dtype="bf16"):
             float(solver.train_step(batch))
         arms = {"baseline": [], "new": []}
         for arm in ("baseline", "new", "new", "baseline"):
-            cuda_build._loaded[key] = libs["flash_bwd"] \
-                if arm == "baseline" else ours
+            for name in SOURCES:
+                cuda_build._loaded[name, ()] = libs[name] \
+                    if arm == "baseline" else ours[name]
             times = []
             for _ in range(steps):
                 torch.cuda.synchronize()
@@ -242,7 +260,8 @@ def time_steps(libs, steps, dtype="bf16"):
                   f"{statistics.median(times):.2f} ms, spread "
                   f"{min(times):.2f}-{max(times):.2f} ms over {steps} "
                   "steps")
-        cuda_build._loaded[key] = ours
+        for name in SOURCES:
+            cuda_build._loaded[name, ()] = ours[name]
         out[label] = arms
         del run, solver, batch
         torch.cuda.empty_cache()
@@ -286,12 +305,13 @@ def main():
                     help="the cases to time (default: all)")
     ap.add_argument("--sass", action="store_true",
                     help="first diff the SASS of the bf16 forward's "
-                         "instantiations up to head_dim 128 in both trees "
-                         "and count the wgmma and mma.sync instructions of "
-                         "the backward's instantiations on wgmma")
+                         "instantiations up to head_dim 128 and of the f32 "
+                         "backward's on wgmma in both trees, and count the "
+                         "wgmma and mma.sync instructions of the forward's "
+                         "and the backward's instantiations on wgmma")
     ap.add_argument("--steps", type=int, default=0,
                     help="last time the LM row's step with each tree's "
-                         "flash_bwd, N steps an arm: bf16 on one device and "
+                         "flash_fwd and flash_bwd, N steps an arm: bf16 on one device and "
                          "tp 2, or f32 on one device with --cases f32 "
                          "(default 0: not timed)")
     args = ap.parse_args()
@@ -306,10 +326,11 @@ def main():
     baseline = wait()
     arms = {"baseline": chip_smoke.flash_entry_points(baseline)}
     if args.sass:
-        sass_diff(os.path.join(REPO, "_work", "flash_ab", "baseline",
-                               "flash_fwd.so"),
-                  cuda_build.library_path("flash_fwd"))
-        sass_products(cuda_build.library_path("flash_bwd"))
+        for name in SOURCES:
+            sass_diff(os.path.join(REPO, "_work", "flash_ab", "baseline",
+                                   f"{name}.so"),
+                      cuda_build.library_path(name), SASS_SAME[name])
+            sass_products(cuda_build.library_path(name), SASS_PRODUCTS[name])
     arms.update((arm, chip_smoke.flash_entry_points(defines=d))
                 for arm, d in variants.items())
     timer = chip_smoke.Timer(torch)

@@ -1276,7 +1276,8 @@ constexpr int kTf32Queries = 32;   // dK/dV's streamed query tile
 
 // Shared-memory geometry of the f32 wgmma backward (bytes): an f32 tile of
 // R rows x D columns is D / 32 column blocks of R rows x 128 bytes in the
-// 128-byte swizzle that TMA writes and wgmma reads (f32_at).
+// 128-byte swizzle that TMA writes and wgmma reads (f32_at; the tiles'
+// helpers, shared with the forward, are in flash_tf32.cuh).
 template <int D>
 struct Tf32WgTiles {
   static_assert(D == 64 || D == 128, "the f32 wgmma kernels: D 64, 128");
@@ -1293,74 +1294,14 @@ struct Tf32WgTiles {
                                      1024;
 };
 
-// byte offset of element (r, c) of an f32 tile of `rows` rows: column
-// block c / 32, row r, its 16-byte chunks XOR-permuted by r % 8
-__device__ __forceinline__ uint32_t f32_at(int rows, int r, int c) {
-  return (c >> 5) * rows * 128 + r * 128 +
-         ((((c >> 2) & 7) ^ (r & 7)) << 4) + ((c & 3) << 2);
-}
-
-// K-major descriptor of k-step kk (columns 8 kk .. 8 kk + 7) of an f32 tile
-// of `rows` rows, from row `row0` (a multiple of 8) on
-__device__ __forceinline__ uint64_t f32_kmajor(uint32_t tile, int rows,
-                                               int row0, int kk) {
-  return wgmma_desc(tile + (kk >> 2) * rows * 128 + row0 * 128 + (kk & 3) * 32,
-                    16, 1024, 128);
-}
-
-// rows row0 .. of a (D, seq, bh) f32 map whose box is `rows` rows of 32
-// floats, into the tile at `dst`, completing on `bar`
-template <int D>
-__device__ __forceinline__ void f32_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int rows, int row0,
-                                         int bh) {
-#pragma unroll
-  for (int c = 0; c < D / 32; ++c)
-    tma_load_3d(dst + c * rows * 128, map, bar, c * 32, row0, bh);
-}
-
-// The lo parts of a tile as TMA wrote it, which wgmma reads as its hi
-// parts (its top 19 bits, truncated): lo = x - trunc(x), exact, at the
-// same offsets in `dst`; thread i of `threads` takes every threads-th 16
-// bytes of `bytes`.
-__device__ __forceinline__ void split_lo(unsigned char* dst,
-                                         const unsigned char* src, int bytes,
-                                         int i, int threads) {
-  for (int at = 16 * i; at < bytes; at += 16 * threads) {
-    const float4 x = *reinterpret_cast<const float4*>(src + at);
-    float4 y;
-    y.x = x.x - __uint_as_float(__float_as_uint(x.x) & 0xffffe000u);
-    y.y = x.y - __uint_as_float(__float_as_uint(x.y) & 0xffffe000u);
-    y.z = x.z - __uint_as_float(__float_as_uint(x.z) & 0xffffe000u);
-    y.w = x.w - __uint_as_float(__float_as_uint(x.w) & 0xffffe000u);
-    *reinterpret_cast<float4*>(dst + at) = y;
-  }
-}
-
 __device__ __forceinline__ float f32_ld(const unsigned char* tile, int rows,
                                         int r, int c) {
   return *reinterpret_cast<const float*>(tile + f32_at(rows, r, c));
 }
 
 // The split A fragment of k-step kk for this warp's 16 rows m0 .. of an
-// operand stored [m][k] (K-major) in an f32 tile of `rows` rows, by one
-// ldmatrix.x4: its four 8 x 8 b16 matrices are the 8 x 4 f32 blocks
-// (rows m0, m0 + 8; columns 8 kk, 8 kk + 4), each row one 16-byte chunk
-// of the swizzle, and thread 4 g + t receives word t of row g of each:
-// a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
-__device__ __forceinline__ void frag_mk(uint32_t (&hi)[4], uint32_t (&lo)[4],
-                                        const unsigned char* tile, int rows,
-                                        int m0, int kk, int g, int t) {
-  const int lane = 4 * g + t, j = lane >> 3;
-  uint32_t r[4];
-  ldmatrix_x4(r, tile + f32_at(rows, m0 + (lane & 7) + 8 * (j & 1),
-                               8 * kk + 4 * (j >> 1)));
-  const float x[4] = {__uint_as_float(r[0]), __uint_as_float(r[1]),
-                      __uint_as_float(r[2]), __uint_as_float(r[3])};
-  split_tf32(x, hi, lo);
-}
-
-// ... of an operand stored [k][m] (its transpose: K^T, Q^T, dO^T)
+// operand stored [k][m] in an f32 tile of `rows` rows (the transpose of
+// what frag_mk, flash_tf32.cuh, reads: K^T, Q^T, dO^T), by scalar loads
 __device__ __forceinline__ void frag_km(uint32_t (&hi)[4], uint32_t (&lo)[4],
                                         const unsigned char* tile, int rows,
                                         int m0, int kk, int g, int t) {
@@ -1369,43 +1310,6 @@ __device__ __forceinline__ void frag_km(uint32_t (&hi)[4], uint32_t (&lo)[4],
                       f32_ld(tile, rows, r + 4, c),
                       f32_ld(tile, rows, r + 4, c + 8)};
   split_tf32(x, hi, lo);
-}
-
-// d = A B over KSTEPS k-steps of 8 in split TF32: per k-step a_hi b_lo,
-// a_lo b_hi, then a_hi b_hi (a_hi b_hi alone in the one-pass control), A's
-// split fragments from frag(kk, hi, lo), B's hi and lo tiles through
-// desc(kk, false) and desc(kk, true); one tensor-core sum from zero. Two
-// k-steps are committed as one group and at most two groups are in
-// flight: the next group's fragments are gathered while the last runs
-// (one k-step a group ran slower at the LM's shape). The last group is
-// left in flight.
-template <int N, int KSTEPS, typename Frag, typename Desc>
-__device__ __forceinline__ void product_3xtf32(float (&d)[N / 2], Frag frag,
-                                               Desc desc) {
-  static_assert(KSTEPS % 2 == 0, "two k-steps a group");
-  uint32_t hi[2][2][4], lo[2][2][4];
-#pragma unroll
-  for (int k0 = 0; k0 < KSTEPS; k0 += 2) {
-    const int b = (k0 >> 1) & 1;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) frag(k0 + i, hi[b][i], lo[b][i]);
-    fence_operands(d);
-    wgmma_fence();
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int kk = k0 + i, acc = kk == 0 ? 0 : 1;
-#ifdef SPARKNET_FLASH_TF32_ONE_PASS
-      wgmma_tf32<N>(d, hi[b][i], desc(kk, false), acc);
-#else
-      wgmma_tf32<N>(d, hi[b][i], desc(kk, true), acc);
-      wgmma_tf32<N>(d, lo[b][i], desc(kk, false), 1);
-      wgmma_tf32<N>(d, hi[b][i], desc(kk, false), 1);
-#endif
-    }
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_operands(d);
-  }
 }
 
 template <int D>

@@ -97,44 +97,71 @@
 //    at the d_model 2048 LM's (2, 8, 4096, 256) causal: 0.27 ms, ~510
 //    TFLOP/s, level with it (PERF.md).
 //
-// f32 storage (flash_fwd_tf32_kernel): both products on the tensor cores
-// in split TF32 (3xTF32, flash_tf32.cuh): each f32 operand is split into
-// a TF32 hi and lo, and a b ~ a_hi b_lo + a_lo b_hi + a_hi b_hi with f32
-// accumulation, which keeps O within the f32 limits (2e-5 of the largest
-// element; one TF32 pass reads ~15x over it). A CTA of 4 warps owns 64
-// query rows of one (b, h), 16 a warp, as the bf16 backward's layout
-// (mma.sync m16n8k8 fed from shared memory; wgmma takes TF32 only with
-// both operands K-major, which P V's V is not).
-//  - Loads: Q lands once; K and V follow in KT-key tiles (64 at D <= 32,
-//    32 from D = 64) by cp.async, two stages deep (tile j + 1 in flight
-//    under tile j's products) but one at D = 128, where that lets three
-//    CTAs share an SM. f32 tiles of row stride D + 4, free of bank
-//    conflicts.
-//  - S = Q K^T in f32 accumulators, summed on the tensor cores 64
-//    columns of D at a time and added in f32 (the tensor core truncates
-//    its sums: flash_tf32.cuh), then scaled. Online softmax in registers
-//    as the bf16 kernel's (a row's scores in the 4 lanes of a quad), with
-//    expf in natural units as the plain version computes it; nothing is
-//    rounded between the products: P enters O += P V split, from S's
-//    accumulators, one tile's sum added to O in f32.
-//  - Head_dim 256: O's columns split in two 128-wide halves over the
-//    grid's z axis (each CTA computes S over all of D and reads its half
-//    of V).
-//  - Causal: key tiles past the diagonal are skipped; the query tile is
-//    the slow grid axis, last tile first.
+// f32 storage at head_dim 32, 64 and 128 (flash_fwd_tf32_wgmma_kernel<D>):
+// both products on wgmma in split TF32 (3xTF32, flash_tf32.cuh): each f32
+// operand is split into a TF32 hi and lo, and a b ~ a_hi b_lo + a_lo b_hi
+// + a_hi b_hi with f32 accumulation (wgmma_tf32, m64nNk8), which keeps O
+// within the f32 limits (2e-5 of the largest element; one TF32 pass reads
+// ~15x over it). TF32 wgmma takes both operands K-major and TMA does not
+// transpose: S = Q K^T fits as TMA writes Q and K, O += P V does not (V
+// [key][d] is MN-major there). A CTA of 384 threads owns 128 queries of
+// one (b, h) and walks the keys in tiles of 64:
+//  - The producer warpgroup (setmaxnreg 40): one thread loads Q once and
+//    K and V of each key tile by TMA (3-D maps of 32-float column blocks
+//    in the 128-byte swizzle, rows_map<float>: rows past S of a (b, h)
+//    read as zeros); all 128 threads write K's lo (x - trunc(x): the
+//    tensor core reads K's own tile as its truncated hi) and V^T [d][key]
+//    hi and lo from V's landing slot, the keys of each group of 8 in the
+//    order 0, 2, 4, 6, 1, 3, 5, 7, which is the k order in which P's A
+//    fragments come from S's accumulators (transpose_v: 4 x 4 blocks,
+//    reads and writes free of bank conflicts). Each written tile is
+//    handed over by fence.proxy.async and an mbarrier. K is reloaded once
+//    both consumers' S of the tile before is done, V as soon as the
+//    transpose has read its slot, V^T rewritten once both consumers' P V
+//    is done: one slot each, the next K and V land under this tile's
+//    softmax and P V.
+//  - Two consumer warpgroups (setmaxnreg 232), 64 queries each, all D
+//    columns of O: S = Q K^T as m64n64k8 over D / 8 k-steps, Q's A
+//    fragments gathered from its tile by ldmatrix and split in registers,
+//    K and its lo as B, one tensor-core sum over all of D; scaled after
+//    the product and the online softmax in natural units (expf, as the
+//    plain version computes it; a row's scores in the 4 lanes of a quad);
+//    O += P V as m64nDk8 over the tile's 8 k-steps, P split from S's
+//    accumulators into A fragments without a shuffle, V^T hi and lo as
+//    B: one tensor-core sum a key tile (the tensor core truncates its
+//    sums, flash_tf32.cuh), added in f32 to O scaled by alpha. Nothing is
+//    rounded between the products. Two k-steps a commit group, at most
+//    two in flight (product_3xtf32). Addresses and descriptors are
+//    rebuilt each tile from opaque values: held across the loop, they
+//    spilled.
+//  - Causal: key tiles past the diagonal are skipped, the first
+//    warpgroup leaves the CTA's last tile, the mask runs on the tiles
+//    that cross the diagonal or S; the query tile is the slow grid axis,
+//    last tile first. No atomics: each O element and LSE row is summed by
+//    one warpgroup in a fixed order, so two launches give the same bits.
+//  - Shared memory: Q 64 KB; K, its lo, V's slot, V^T hi and lo 32 KB
+//    each at D = 128: 230,464 bytes (115,776 at 64, 58,432 at 32), one
+//    CTA an SM; 168 registers a thread at launch (384 threads), no spills
+//    (chip_smoke.py phase 6's _f32_fwd_design).
 //  - Bound: operations. At the LM's (4, 8, 4096, 128) causal, 137 GFLOP:
 //    0.83 ms at 165 TFLOP/s of f32-accurate products (495 TFLOP/s of
-//    dense TF32 over the 3 products). Every mma also costs its loads and
-//    the split of its B fragment, so instruction throughput and latency
-//    bind it first.
-//  - Registers a thread, shared memory and CTAs per SM on the H100
-//    (sparknet_flash_forward_info, chip_smoke.py phase 6); no spills:
-//        D      16           32           64           128          256
-//               128 25 KB 4  128 45 KB 4  127 51 KB 4  167 66 KB 3  254 163 KB 1
-//    At the LM's shape: 2.78 ms, 49.5 TFLOP/s, 30% of the bound; the
-//    CUDA-core kernel it replaced took 5.91-6.15 ms in the same call and
-//    F.scaled_dot_product_attention 3.20 (scripts/flash_ab.py;
-//    PERF.md).
+//    dense TF32 over the 3 products). Measured 1.28-1.38 ms, 100-107
+//    TFLOP/s, 60-65% of it, 1.98-2.09x the split-TF32 mma.sync kernel
+//    that ran D = 128 before it, in the same calls, and 0.41x
+//    F.scaled_dot_product_attention's f32 time (scripts/flash_ab.py
+//    --cases f32; PERF.md).
+// f32 storage at head_dim 16 and 256 (flash_fwd_tf32_kernel): split TF32
+// on mma.sync m16n8k8 fed from shared memory. A CTA of 4 warps owns 64
+// query rows, 16 a warp; K and V in tiles of 64 keys (16) or 32 (256) by
+// cp.async through two stages, f32 tiles of row stride D + 4, free of
+// bank conflicts; S summed on the tensor cores 64 columns of D at a time
+// and added in f32, P V one tensor-core sum a key tile; at 256 O's
+// columns split in two 128-wide halves over the grid's z axis (each CTA
+// computes S over all of D). The wgmma kernel above does not fit at 256
+// (a 128-row f32 Q tile with its lo is 256 KB) and lost at 16: 0.0160 ms
+// against this kernel's 0.0144 at (8, 8, 256, 16) causal in one call
+// (PERF.md). Registers, shared memory, CTAs per SM (phase 6; no spills):
+// D = 16 128 / 25 KB / 4, D = 256 254 / 163 KB / 1.
 // The storage type picks the kernel and nothing else does.
 
 #include <algorithm>
@@ -605,15 +632,14 @@ __global__ void __launch_bounds__(kFwd256Threads, 1)
 
 // f32 storage: split TF32 on the tensor cores (the note at the top).
 
-// Tiles of the f32 forward at head_dim D (floats; flash_tf32.cuh)
+// Tiles of the f32 mma.sync forward at head_dim D, 16 or 256 (floats;
+// flash_tf32.cuh)
 template <int D>
 struct Tf32FwdTiles {
+  static_assert(D == 16 || D == 256, "f32 head_dim 32-128 runs wgmma");
   static constexpr int DO = D > 128 ? 128 : D;     // O columns of a CTA
-  // keys a tile, and K/V tiles in flight: at D = 128 one stage of 32
-  // keys lets three CTAs share an SM, which ran faster at the LM's shape
-  // than two stages and two CTAs, or one stage of 64 keys
-  static constexpr int KT = D >= 64 ? 32 : 64;
-  static constexpr int STAGES = D == 128 ? 1 : 2;
+  static constexpr int KT = D > 128 ? 32 : 64;     // keys a tile
+  static constexpr int STAGES = 2;                 // K/V tiles in flight
   static constexpr int LD = D + 4, LDV = DO + 4;   // row strides: Q, K; V
   static constexpr int STAGE = KT * (LD + LDV);    // K then V
   static constexpr size_t kSmem =
@@ -733,34 +759,292 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// bf16 storage takes the wgmma kernels (head_dim 256 its own), f32 the
-// split-TF32 one
+// f32 storage at head_dim 32-128: split TF32 on wgmma (the note at the
+// top).
+
+constexpr int kTf32FwdThreads = 384;   // a producer warpgroup, two consumer
+                                       // warpgroups
+
+// Shared memory of the f32 wgmma forward (bytes): f32 tiles in 32-float
+// column blocks of 128-byte rows in the 128-byte swizzle (f32_at).
+template <int D>
+struct Tf32WgFwdTiles {
+  static_assert(D >= 32 && D <= 128,
+                "f32 head_dim 16 and 256 run flash_fwd_tf32_kernel");
+  static constexpr int QTILE = 128 * D * 4;    // the CTA's 128 queries
+  static constexpr int KTILE = 64 * D * 4;     // a 64-key tile of K or V
+  static constexpr int VT = D * 64 * 4;        // V^T: D rows of 64 keys
+  // Q; K, its lo and V as TMA lands it; V^T hi and lo; seven mbarriers;
+  // 1024 bytes to align the tiles
+  static constexpr size_t kSmem = QTILE + 3 * KTILE + 2 * VT + 64 + 1024;
+};
+
+// V^T of a 64-key tile, hi and lo (split_tf32), from V [key][d] as TMA
+// wrote it, by the producer warpgroup's thread p of 128: V^T [d][key] is
+// the K-major B operand of O += P V, the keys of each group of 8 in the
+// order 0, 2, 4, 6, 1, 3, 5, 7, the k order in which P's A fragments
+// come from S's accumulators (frag_c_as_a). A thread moves 4 x 4 blocks:
+// keys 2 j + odd (j 0..3) of a group of 8 by 4 columns of d, 16 bytes
+// from each key's row and 16 to each of the 4 rows of V^T. A warp's lanes
+// run over (group, odd, column chunk), so its reads and its writes are
+// 4 wavefronts each, free of bank conflicts.
+template <int D>
+__device__ __forceinline__ void transpose_v(unsigned char* hi,
+                                            unsigned char* lo,
+                                            const unsigned char* v, int p) {
+  constexpr int DB = D / 32;                   // V's column blocks
+#pragma unroll
+  for (int n = 0; n < DB; ++n) {
+    const int it = p + 128 * n;
+    const int grp = it & 3, odd = (it >> 2) & 1, cc = (it >> 3) & 3;
+    const int par = (it >> 5) & 1, cb = (it >> 6) % DB, kb = (it >> 6) / DB;
+    const int c = 32 * cb + 4 * (2 * cc + par);   // the block's columns
+    const int key = 32 * kb + 8 * grp + odd;      // its keys: + 2 j
+    float x[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 r =
+          *reinterpret_cast<const float4*>(v + f32_at(64, key + 2 * j, c));
+      x[j][0] = r.x;
+      x[j][1] = r.y;
+      x[j][2] = r.z;
+      x[j][3] = r.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float y[4] = {x[0][i], x[1][i], x[2][i], x[3][i]};
+      uint32_t h[4], l[4];
+      split_tf32(y, h, l);
+      const uint32_t at = f32_at(D, c + i, 32 * kb + 8 * grp + 4 * odd);
+      *reinterpret_cast<uint4*>(hi + at) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTf32FwdThreads, 1)
+    flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                float* __restrict__ o,
+                                float* __restrict__ lse, int seq,
+                                float scale, int causal) {
+  using L = Tf32WgFwdTiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t qs = (raw + 1023) & ~1023u;   // the CTA's 128 queries
+  const uint32_t ks = qs + L::QTILE, klo = ks + L::KTILE;   // key tile j
+  const uint32_t vland = klo + L::KTILE;   // V of tile j as TMA wrote it
+  const uint32_t vth = vland + L::KTILE, vtl = vth + L::VT;   // V^T hi, lo
+  // mbarriers: +0 Q landed; +8 K landed, +16 V landed; +24 K's lo
+  // written, +32 V^T written (the producer's 128 threads arrive); +40 K
+  // read, +48 V^T read (the consumers' 256)
+  const uint32_t bars = vtl + L::VT;
+  auto at = [&](uint32_t a) { return smem_raw + (a - raw); };
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // causal: longest CTAs first
+  const int q0 = qt * 128;
+  const int key_tiles = (seq + 63) / 64;
+  // causal: key tiles wholly above the diagonal are skipped
+  const int n_k = causal ? min(key_tiles, 2 * qt + 2) : key_tiles;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_init(bars + 24, 128);
+    mbar_init(bars + 32, 128);
+    mbar_init(bars + 40, 256);
+    mbar_init(bars + 48, 256);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (wg == 2) {
+    // the producer: one thread loads Q, then K and V of each key tile (K
+    // once both consumers' S of the tile before is done, V once the
+    // transpose has read its slot); all 128 write K's lo and V^T
+    setmaxnreg_dec<40>();
+    const int p = tid - 256;
+    auto load = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                    int j) {
+      mbar_expect_tx(bar, L::KTILE);
+      f32_load<D>(dst, map, bar, 64, j * 64, bh);
+    };
+    if (p == 0) {
+      mbar_expect_tx(bars, L::QTILE);
+      f32_load<D>(qs, &tm_q, bars, 128, q0, bh);
+      load(ks, &tm_k, bars + 8, 0);
+      load(vland, &tm_v, bars + 16, 0);
+    }
+    for (int j = 0; j < n_k; ++j) {
+      // the tiles' addresses are rebuilt each tile from an opaque p, not
+      // held across the loop in 40 registers
+      const int i = static_cast<int>(opaque(p));
+      mbar_wait(bars + 8, j & 1);              // K of tile j has landed
+      split_lo(at(klo), at(ks), L::KTILE, i, 128);
+      fence_proxy_async();
+      mbar_arrive(bars + 24);
+      mbar_wait(bars + 16, j & 1);             // V of tile j has landed
+      if (j > 0) mbar_wait(bars + 48, (j - 1) & 1);   // V^T of j - 1 read
+      transpose_v<D>(at(vth), at(vtl), at(vland), i);
+      fence_proxy_async();
+      mbar_arrive(bars + 32);
+      named_bar_sync(1, 128);                  // V's slot is read
+      if (p == 0 && j + 1 < n_k) {
+        load(vland, &tm_v, bars + 16, j + 1);
+        mbar_wait(bars + 40, j & 1);           // K of tile j is read
+        load(ks, &tm_k, bars + 8, j + 1);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+
+  // this warpgroup's 64 queries start at r0w; this thread's rows: r0w +
+  // row, + 8. Causal: the first warpgroup's rows end before the CTA's
+  // last key tile, which it leaves (no later tile needs its slots)
+  const int r0w = q0 + 64 * wg, row = 16 * warp + g;
+  const int j_end = causal && (n_k - 1) * 64 > r0w + 63 ? n_k - 1 : n_k;
+  float acc[D / 2], chunk[D / 2];              // O, unnormalised; P V
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  mbar_wait(bars, 0);                          // Q has landed
+
+  for (int j = 0; j < j_end; ++j) {
+    // the tiles' addresses and descriptors are rebuilt each tile (a few
+    // integer adds), not held across the loop in registers
+    const unsigned char* qp = at(opaque(qs));
+    const uint32_t kt = opaque(ks), vt = opaque(vth);
+    // S = Q K^T (64 queries x 64 keys): Q gathered and split in
+    // registers, K as TMA wrote it and its lo; one tensor-core sum over D
+    float s[32];
+    mbar_wait(bars + 24, j & 1);               // K of tile j and its lo
+    product_3xtf32<64, D / 8>(
+        s,
+        [&](int kk, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
+          frag_mk(hi, lo, qp, 128, 64 * wg + 16 * warp, kk, g, t);
+        },
+        [&](int kk, bool low) {
+          return f32_kmajor(low ? kt + L::KTILE : kt, 64, 0, kk);
+        });
+    wgmma_wait<0>();
+    fence_operands(s);
+    mbar_arrive(bars + 40);                    // K of tile j is read
+
+    // the online softmax in natural units, S scaled after its product:
+    // register e is row + 8 ((e >> 1) & 1), key 8 (e >> 2) + 2 t + (e & 1)
+    const int k0 = j * 64;
+    const bool edge = (causal && k0 + 63 > r0w) || k0 + 64 > seq;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      float x = s[e] * scale;
+      if (edge) {
+        // a query row past seq is never stored: only keys are masked
+        const int c = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        if (c >= seq || (causal && c > r0w + row + 8 * i)) x = kNegInf;
+      }
+      s[e] = x;
+      mx[i] = fmaxf(mx[i], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      s[e] = expf(s[e] - m[i]);
+      sum[i] += s[e];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+
+    // O += P V: P split from S's accumulators as the A fragments of the 8
+    // k-steps, V^T hi and lo from the producer; one tensor-core sum a key
+    // tile, added to O in f32 after O's rescale
+    mbar_wait(bars + 32, j & 1);               // V^T of tile j
+    product_3xtf32<D, 8>(
+        chunk,
+        [&](int kk, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
+          const float c[4] = {s[4 * kk], s[4 * kk + 1], s[4 * kk + 2],
+                              s[4 * kk + 3]};
+          frag_c_as_a(hi, lo, c);
+        },
+        [&](int kk, bool low) {
+          return f32_kmajor(low ? vt + L::VT : vt, D, 0, kk);
+        });
+    wgmma_wait<0>();
+    fence_operands(chunk);
+    mbar_arrive(bars + 48);                    // V^T of tile j is read
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e)
+      acc[e] = acc[e] * alpha[(e >> 1) & 1] + chunk[e];
+  }
+
+  const long long r0 = static_cast<long long>(bh) * seq;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float lt = l[i] + __shfl_xor_sync(0xffffffffu, l[i], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int r = r0w + row + 8 * i;
+    if (r >= seq) continue;
+    const float lc = fmaxf(lt, 1e-30f);
+    float* orow = o + (r0 + r) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(acc[4 * n + 2 * i] / lc, acc[4 * n + 2 * i + 1] / lc);
+    if (t == 0) lse[r0 + r] = m[i] + logf(lc);
+  }
+}
+
+// bf16 storage takes the wgmma kernels (head_dim 256 its own); f32 at
+// head_dim 32-128 the split-TF32 wgmma kernel, at 16 and 256 the
+// split-TF32 mma.sync one
 template <typename T>
 constexpr bool kWgmma = std::is_same<T, bf16>::value;
 template <typename T, int D>
 constexpr bool kWgmma256 = kWgmma<T> && D == 256;
+template <typename T, int D>
+constexpr bool kTf32Wgmma = !kWgmma<T> && D >= 32 && D <= 128;
+// threads of a forward CTA of storage T at head_dim D
+template <typename T, int D>
+constexpr int kFwdThreadsOf = kWgmma256<T, D>    ? kFwd256Threads
+                              : kWgmma<T>        ? kWgThreads
+                              : kTf32Wgmma<T, D> ? kTf32FwdThreads
+                                                 : kMmaThreads;
 
-// The head_dim-256 bf16 forward on a (bh, ceil(seq / rows)) grid, rows
-// 128, or 64 in the split variant; -> the launch's error code.
-template <bool kSplit>
-int launch_fwd256(const void* const (&src)[3], bf16* o, float* lse, int bh,
-                  int seq, float scale, int causal, cudaStream_t stream) {
-  constexpr int rows = kSplit ? 64 : 128;
-  const int tiles = (seq + rows - 1) / rows;
+// Launch a forward kernel on TMA of storage T at head_dim D over a (bh,
+// ceil(seq / q_rows)) grid with `bytes` of dynamic shared memory, its
+// first arguments the tensor maps of q, k and v with boxes of q_rows and
+// kv_rows rows; -> the launch's error code.
+template <typename T, int D, typename Kernel>
+int launch_tma(Kernel fn, const void* const (&src)[3], int q_rows,
+               int kv_rows, size_t bytes, T* o, float* lse, int bh, int seq,
+               float scale, int causal, cudaStream_t stream) {
+  const int tiles = (seq + q_rows - 1) / q_rows;
   if (tiles > 65535) return cudaErrorInvalidValue;
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
-    const cudaError_t err =
-        rows_map(&maps[i], src[i], 256, seq, bh, i == 0 ? rows : kBlockK);
+    const cudaError_t err = rows_map<T>(&maps[i], src[i], D, seq, bh,
+                                        i == 0 ? q_rows : kv_rows);
     if (err != cudaSuccess) return err;
   }
-  const auto fn = flash_fwd_wgmma256_kernel<kSplit>;
-  const size_t bytes = Fwd256Tiles::smem(kSplit);
   const cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  fn<<<dim3(bh, tiles), kFwd256Threads, bytes, stream>>>(
+  fn<<<dim3(bh, tiles), kFwdThreadsOf<T, D>, bytes, stream>>>(
       maps[0], maps[1], maps[2], o, lse, seq, scale, causal);
   return cudaGetLastError();
 }
@@ -780,6 +1064,8 @@ struct ForwardLaunch {
       return flash_fwd_wgmma256_kernel<false>;
     else if constexpr (kWgmma<T>)
       return flash_fwd_wgmma_kernel<D>;
+    else if constexpr (kTf32Wgmma<T, D>)
+      return flash_fwd_tf32_wgmma_kernel<D>;
     else
       return flash_fwd_tf32_kernel<D>;
   }
@@ -790,12 +1076,16 @@ struct ForwardLaunch {
       return Fwd256Tiles::smem(false);
     else if constexpr (kWgmma<T>)
       return WgTiles<D>::kSmem;
+    else if constexpr (kTf32Wgmma<T, D>)
+      return Tf32WgFwdTiles<D>::kSmem;
     else
       return Tf32FwdTiles<D>::kSmem;
   }
 
   template <typename T, int D>
   int run() const {
+    const void* const src[3] = {q, k, v};
+    T* out = static_cast<T*>(o);
     if constexpr (kWgmma256<T, D>) {
       // fewer 128-row CTAs than the card has SMs: the split variant's
       // 64-row CTAs, twice as many
@@ -805,47 +1095,38 @@ struct ForwardLaunch {
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                      dev);
       if (err != cudaSuccess) return err;
-      const void* const src[3] = {q, k, v};
       const long long ctas = static_cast<long long>(bh) * ((seq + 127) / 128);
       return ctas < sms
-                 ? launch_fwd256<true>(src, static_cast<bf16*>(o), lse, bh,
-                                       seq, scale, causal, stream)
-                 : launch_fwd256<false>(src, static_cast<bf16*>(o), lse, bh,
-                                        seq, scale, causal, stream);
+                 ? launch_tma<T, D>(flash_fwd_wgmma256_kernel<true>, src, 64,
+                                    kBlockK, Fwd256Tiles::smem(true), out,
+                                    lse, bh, seq, scale, causal, stream)
+                 : launch_tma<T, D>(kernel<T, D>(), src, 128, kBlockK,
+                                    smem<T, D>(), out, lse, bh, seq, scale,
+                                    causal, stream);
     } else if constexpr (kWgmma<T>) {
-      const int tiles = (seq + kWgRows - 1) / kWgRows;
-      if (tiles > 65535) return cudaErrorInvalidValue;
-      CUtensorMap maps[3];
-      const void* src[3] = {q, k, v};
-      for (int i = 0; i < 3; ++i) {
-        const cudaError_t err = rows_map(&maps[i], src[i], D, seq, bh, 128);
-        if (err != cudaSuccess) return err;
-      }
-      const auto fn = kernel<T, D>();
-      const size_t bytes = smem<T, D>();
-      const cudaError_t err = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(bytes));
-      if (err != cudaSuccess) return err;
-      fn<<<dim3(bh, tiles), kWgThreads, bytes, stream>>>(
-          maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, seq, scale,
-          causal);
-      return cudaGetLastError();
+      return launch_tma<T, D>(kernel<T, D>(), src, kWgRows, kWgKeys,
+                              smem<T, D>(), out, lse, bh, seq, scale, causal,
+                              stream);
+    } else if constexpr (kTf32Wgmma<T, D>) {
+      // 128 queries a CTA, 64-key tiles
+      return launch_tma<T, D>(kernel<T, D>(), src, 128, 64, smem<T, D>(),
+                              out, lse, bh, seq, scale, causal, stream);
     } else {
       return launch_mma(kernel<T, D>(), bh, seq, D / Tf32FwdTiles<D>::DO,
                         smem<T, D>(), stream, static_cast<const float*>(q),
                         static_cast<const float*>(k),
-                        static_cast<const float*>(v), static_cast<float*>(o),
-                        lse, seq, scale, causal);
+                        static_cast<const float*>(v), out, lse, seq, scale,
+                        causal);
     }
   }
 };
 
-// What the runtime says of the forward kernel for (dtype, head_dim):
-// registers a thread, local memory a thread (spills), dynamic shared
-// memory and resident CTAs per SM, into out[0..3]; out[4] = 1, out[5] = 0
-// (no cluster). bf16 at head_dim 256: the 128-row kernel's, but registers
-// and local memory the larger of its and the split variant's.
+// What the runtime says of the forward kernel for (dtype, head_dim) at its
+// own thread count: registers a thread, local memory a thread (spills),
+// dynamic shared memory and resident CTAs per SM, into out[0..3]; out[4]
+// = 1, out[5] = 0 (no cluster). bf16 at head_dim 256: the 128-row
+// kernel's, but registers and local memory the larger of its and the
+// split variant's.
 struct ForwardInfo {
   int* out;
 
@@ -864,12 +1145,10 @@ struct ForwardInfo {
   int run() const {
     const auto fn = ForwardLaunch::kernel<T, D>();
     const size_t bytes = ForwardLaunch::smem<T, D>();
-    const int threads = kWgmma256<T, D> ? kFwd256Threads
-                        : kWgmma<T>     ? kWgThreads
-                                        : kMmaThreads;
+    constexpr int threads = kFwdThreadsOf<T, D>;
     cudaFuncAttributes attr;
     cudaError_t err = attributes(fn, bytes, &attr);
-    if (err == cudaSuccess && !kWgmma<T>)    // as launch_mma sets it
+    if (err == cudaSuccess && threads == kMmaThreads)   // as launch_mma sets
       err = cudaFuncSetAttribute(fn,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);

@@ -400,18 +400,23 @@ def test_flash_backward_is_deterministic_on_card(cuda, causal, dtype, s, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b, d", [(2, 128), (2, 256), (16, 256)],
-                         ids=["d128", "d256", "d256-b16"])
+@pytest.mark.parametrize("b, s, d", [
+    (2, 512, 128), (2, 512, 256), (16, 512, 256), (2, 512, 64),
+    (2, 512, 32), (2, 1000, 128), (2, 1000, 64), (2, 1000, 32)],
+    ids=["d128", "d256", "d256-b16", "d64", "d32", "d128-S1000",
+         "d64-S1000", "d32-S1000"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_flash_forward_is_deterministic_on_card(cuda, causal, dtype, b, d):
+def test_flash_forward_is_deterministic_on_card(cuda, causal, dtype, b, s,
+                                                d):
     # no atomics: each O element and LSE row is summed by one warpgroup
-    # (bf16) or warp (f32) in a fixed order over the key tiles, launch
-    # after launch (bf16 at head_dim 256: b 2 gives 32 CTAs of 128 rows,
-    # fewer than the card's SMs, so the split variant runs, whose
-    # warpgroups' halves combine in a fixed order; b 16 the 128-row CTAs)
-    q, k, v, _ = _flash_inputs((b, 4, 512, d), dtype, 35)
+    # in a fixed order over the key tiles (f32 at head_dim 256: one
+    # warp), launch after launch (bf16 at head_dim 256: b 2 gives 32 CTAs
+    # of 128 rows, fewer than the card's SMs, so the split variant runs,
+    # whose warpgroups' halves combine in a fixed order; b 16 the 128-row
+    # CTAs; S = 1000 ends in ragged tiles)
+    q, k, v, _ = _flash_inputs((b, 4, s, d), dtype, 35)
     first = ca.flash_attention_fwd(q, k, v, causal)
     second = ca.flash_attention_fwd(q, k, v, causal)
     for a, b in zip(first, second):
@@ -440,6 +445,25 @@ def test_flash_f32_backward_keeps_its_limits_on_card(cuda, causal, s, d):
         assert got.dtype == torch.float32
         assert _worst(got, ref) <= 5e-4
         assert _worst_tile(got, ref) <= 1e-5     # the limit is 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s, d", [(512, 128), (512, 64), (512, 32),
+                                  (1000, 128), (1000, 64)],
+                         ids=["128", "64", "32", "128-S1000", "64-S1000"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_f32_forward_keeps_its_limits_on_card(cuda, causal, s, d):
+    # f32 storage up to head_dim 128 takes the split-TF32 wgmma forward:
+    # f32-accurate products, so O and LSE stay within 2e-5 of the largest
+    # element and O's worst tile within 1e-5 (the limit is 1e-4), far
+    # under what one TF32 pass reads (~3e-4 of the largest element)
+    q, k, v, _ = _flash_inputs((1, 2, s, d), torch.float32, 36)
+    o, lse = ca.flash_attention_fwd(q, k, v, causal)
+    ro, rlse = ca.flash_attention_fwd_plain(q, k, v, causal)
+    assert o.dtype == torch.float32
+    assert _worst(o, ro) <= 2e-5
+    assert _worst(lse, rlse) <= 2e-5
+    assert _worst_tile(o, ro) <= 1e-5
 
 
 @pytest.mark.cuda

@@ -65,6 +65,16 @@ in f32, with dS^T, P, dS split as the threads write them. That emulation
 must keep the same f32 limits, and one TF32 pass of it must read over a
 dQ, dK or dV limit.
 
+The f32 forward at head_dim 32-128 runs on wgmma too
+(flash_fwd_tf32_wgmma_kernel; the F32_FWD_CASES marked "wgmma"): S = Q K^T with Q split in registers and K read as TMA
+wrote it (hi truncated), one tensor-core sum over all of D; key tiles of
+64; P V one tensor-core sum of the tile's 8 k-steps, P split from the
+accumulators and V^T split as the producer warpgroup writes it (hi
+rounded), added in f32 to O scaled by alpha. That emulation must keep
+the forward's f32 limits against the plain version and the Pallas
+kernel, with the planted faults above them, and one TF32 pass of it
+must read over the O limit.
+
 Past head_dim 256 (csrc/flash_wide.cuh) the forward, dQ and dK/dV run
 on a thread-block cluster: D is zero-padded to a multiple of 128
 (ca.built_head_dim), each rank's 128-column slice gives a partial score
@@ -473,7 +483,15 @@ F32_BWD_CASES = [
     pytest.param(((1, 2, 256, 128), "mma.sync"), id="S256-D128"),
     pytest.param(((1, 2, 256, 64), "wgmma"), id="S256-D64-wgmma"),
     pytest.param(((1, 2, 256, 128), "wgmma"), id="S256-D128-wgmma")]
-# the forward's cases: past head_dim 256 too (WIDE_SHAPES)
+# the forward's cases: (shape, design) of F32_SHAPES and WIDE_SHAPES for
+# the mma.sync kernel (csrc/flash_fwd.cu's flash_fwd_tf32_kernel, which
+# runs head_dim 16 and 256) and the cluster kernel past 256, and for the
+# wgmma kernel at head_dim 32-128 (flash_fwd_tf32_wgmma_kernel; 32 is the
+# lm verb's default)
+F32_FWD_CASES = [pytest.param((p.values[0], "mma.sync"), id=p.id)
+                 for p in F32_SHAPES + WIDE_SHAPES] + [
+    pytest.param(((1, 2, 256, d), "wgmma"), id=f"S256-D{d}-wgmma")
+    for d in (32, 64, 128)]
 
 
 def _tf32(x):
@@ -542,10 +560,11 @@ def _tc_sum(a, b, passes=3, chain=K_SUM_STEPS, acc=None, b_raw=False):
 def _streamed(d, design="mma.sync"):
     """Rows of the streamed tiles at head_dim d: the forward's key tiles,
     the dQ kernel's key tiles, the dK/dV kernel's query tiles: of the
-    mma.sync kernels (Tf32FwdTiles, DqTiles, DkvTiles), or of the
-    backward's wgmma kernels (Tf32WgTiles: 64 keys, 32 queries)."""
+    mma.sync kernels (Tf32FwdTiles, DqTiles, DkvTiles), or of the wgmma
+    kernels (Tf32WgFwdTiles: 64 keys; Tf32WgTiles: 64 keys, 32
+    queries)."""
     if design == "wgmma":
-        return {"fwd": 32 if d >= 64 else 64, "dq": 64, "dkv": 32}
+        return {"fwd": 64, "dq": 64, "dkv": 32}
     return {"fwd": 32 if d >= 64 else 64,
             "dq": 32 if d == 128 else (16 if d > 64 else 64),
             "dkv": 16 if d > 64 else 64}
@@ -561,15 +580,26 @@ def _f32_inputs(shape, seed=51):
     return [(0.5 * rs.randn(*shape)).astype(np.float32) for _ in range(4)]
 
 
-def _split_tf32_forward(q, k, v, causal, passes=3):
-    """O and LSE as csrc/flash_fwd.cu's f32 kernel computes them: S in
-    f32 from split-TF32 sums, scaled after them, key tiles of 64 (32
-    from D = 64) with the online softmax, O scaled by alpha and then
-    P V's k-steps added from the unrounded P. Past head_dim 256, as the
-    cluster kernel of csrc/flash_wide.cuh: Q scaled (in f32) before the
-    products, on the padded inputs, each rank's slice two sums of 8
-    k-steps added in f32 and the ranks' partials summed in rank order,
-    key tiles of 64 (P V one tensor-core sum of 8 k-steps a tile)."""
+def _split_tf32_forward(q, k, v, causal, passes=3, design="mma.sync"):
+    """O and LSE as csrc/flash_fwd.cu's f32 kernels compute them.
+
+    ``design`` "mma.sync" (flash_fwd_tf32_kernel): S in f32 from
+    split-TF32 sums of at most kSumSteps k-steps added in f32, scaled
+    after them, key tiles of 64 (32 from D = 64) with the online softmax,
+    O scaled by alpha and then P V's k-steps added from the unrounded P.
+
+    ``design`` "wgmma" (flash_fwd_tf32_wgmma_kernel): S = Q K^T with Q
+    split in registers and K read as TMA wrote it (its hi truncated,
+    _raw_split), one tensor-core sum over all of D, scaled after it; key
+    tiles of 64 with the online softmax; P V one tensor-core sum a tile
+    (8 k-steps) from P split in registers and V^T split as the producer
+    writes it (hi rounded, as _split), added to O scaled by alpha.
+
+    Past head_dim 256, as the cluster kernel of csrc/flash_wide.cuh: Q
+    scaled (in f32) before the products, on the padded inputs, each
+    rank's slice two sums of 8 k-steps added in f32 and the ranks'
+    partials summed in rank order, key tiles of 64 (P V one tensor-core
+    sum of 8 k-steps a tile)."""
     b, h, s, d = q.shape
     scale = ca.default_scale(q)
     wide = d > ca.HEAD_DIMS[-1]
@@ -577,7 +607,7 @@ def _split_tf32_forward(q, k, v, causal, passes=3):
         q, k, v = _padded(d, q, k, v)
         q = q * scale
         scores = _cluster_scores(lambda a, b_: _tc_sum(a, b_, passes))
-    tile = 64 if wide else _streamed(d)["fwd"]
+    tile = 64 if wide else _streamed(d, design)["fwd"]
     m = torch.full((b, h, s, 1), ca.NEG_INF)
     l = torch.zeros(b, h, s, 1)
     acc = torch.zeros(q.shape)
@@ -585,6 +615,8 @@ def _split_tf32_forward(q, k, v, causal, passes=3):
     for k0 in range(0, s, tile):
         kt = k[:, :, k0:k0 + tile]
         x = scores(q, kt) if wide else \
+            _tc_sum(q, kt.transpose(-1, -2), passes, chain=d // 8,
+                    b_raw=True) * scale if design == "wgmma" else \
             _tc_sum(q, kt.transpose(-1, -2), passes) * scale
         if causal:
             cols = torch.arange(k0, min(k0 + tile, s))[None, :]
@@ -801,10 +833,11 @@ def test_tf32_split_rebuilds_every_f32_input():
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("shape", F32_SHAPES + WIDE_SHAPES)
-def test_split_tf32_forward_keeps_the_f32_limits(shape, causal):
+@pytest.mark.parametrize("case", F32_FWD_CASES)
+def test_split_tf32_forward_keeps_the_f32_limits(case, causal):
+    shape, design = case
     q, k, v, _ = (torch.from_numpy(a) for a in _f32_inputs(shape))
-    o, lse = _split_tf32_forward(q, k, v, causal)
+    o, lse = _split_tf32_forward(q, k, v, causal, design=design)
     ro, rlse = ca.flash_attention_fwd_plain(q, k, v, causal)
     jax_ref = _pallas_reference(shape, causal)
     for ref_o, ref_lse in ((ro, rlse), (torch.from_numpy(jax_ref["O"]),
@@ -862,12 +895,13 @@ def test_one_tensor_core_accumulator_over_s_reads_worse(causal):
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("shape", F32_SHAPES + WIDE_SHAPES)
-def test_one_tf32_pass_reads_over_the_f32_o_limit(shape, causal):
+@pytest.mark.parametrize("case", F32_FWD_CASES)
+def test_one_tf32_pass_reads_over_the_f32_o_limit(case, causal):
     # the card's precision control (cuda_build.TF32_ONE_PASS): 10-bit
     # operands, which the f32 limit on O must reject
+    shape, design = case
     q, k, v, _ = (torch.from_numpy(a) for a in _f32_inputs(shape))
-    o, _ = _split_tf32_forward(q, k, v, causal, passes=1)
+    o, _ = _split_tf32_forward(q, k, v, causal, passes=1, design=design)
     ro, _ = ca.flash_attention_fwd_plain(q, k, v, causal)
     assert _rel(o, ro) > F32_LIMIT["O"], _rel(o, ro)
 
