@@ -61,11 +61,13 @@ Phases, each of which raises on failure (exit code not 0):
               the CPU on one thread (must pass), a zeroed LRN backward at
               each site and TF32 on (each must fail the same reading).
  6. flash   — registers, spills, shared memory, CTAs per SM, and for the
-              cluster kernels past head_dim 256 the cluster size and
-              co-resident clusters, of every flash kernel instantiation,
-              forward and backward (none may spill; the bf16 backward's
-              up to head_dim 128 must read its design's 168 registers,
-              shared memory and one CTA an SM); then the three
+              cluster kernels (past head_dim 256, and the f32 backward
+              at 256) the cluster size and co-resident clusters, of every
+              flash kernel instantiation, forward and backward (none may
+              spill; the backward's on wgmma, the f32 forward's on
+              wgmma and the f32 backward's clusters of two at head_dim
+              256 must read their designs' 168 registers, shared memory,
+              one CTA an SM and cluster size); then the three
               flash-attention kernels (forward, dQ, dK/dV) against their
               plain versions: f32 at (2, 4, 1024, 64), causal and not,
               bf16 at (2, 4, 1024, 128) full, (2, 4, 1024, 64) causal
@@ -113,6 +115,11 @@ Phases, each of which raises on failure (exit code not 0):
               kernels' share of the profiler window; the lm verb at its
               defaults (vocab 512, S 256, b 8, d 256, 4 layers, f32) for 2
               steps, each flash kernel 4 times a step at (8, 8, 256, 32);
+              the lm verb at d_model 2048, 8 heads (LM_D256: 2 layers,
+              b2, S 4096) for 2 steps in bf16 and at the verb's default
+              dtype, f32 (TF32 left off), each flash kernel 2 times a
+              step at (2, 8, 4096, 256) and the first loss within 1.5 of
+              ln 8192;
               and card against CPU for a small LM (2 layers, d
               256, 4 heads, S 256, batch 2, f32): the first step's
               gradients under the lm verb's Solver, and two Adam steps
@@ -334,8 +341,10 @@ Phases, each of which raises on failure (exit code not 0):
     verb's, phase 9's streaming verb's and phase 10's dp verb's beside
     them, phase 10's dp verb for one dp slot's LRN shapes,
     the lm verb's first run for the flash kernels, phase 7's f32 step for
-    their f32 row at the LM's width and the lm verb at its defaults for
-    the (8, 8, 256, 32) row, with the MoE LM's
+    their f32 row at the LM's width, the lm verb at its defaults for
+    the (8, 8, 256, 32) row and the lm verb at d_model 2048 for the
+    head_dim-256 rows (bf16, and f32 at the verb's default dtype), with
+    the MoE LM's
     verb and in-process launches beside them),
     with phase 12's launches an iteration under each remat policy beside
     them, and phase 13's R0 launches beside the serving kernels'; the
@@ -1348,10 +1357,11 @@ def _flash_kernel_info(torch):
     (cudaOccupancyMaxActiveClusters; the three kernels past head_dim
     256). Fails if any instantiation uses local memory (spills), or a
     backward kernel on wgmma (bf16 up to head_dim 128, _bf16_bwd_design;
-    f32 at 64 and 128, _f32_bwd_design) or the f32 forward on wgmma (32
-    to 128, _f32_fwd_design) is not as it was built: 384
-    threads (a producer and two consumer warpgroups) at 168 registers,
-    its shared memory, one CTA an SM."""
+    f32 at 64 and 128, _f32_bwd_design; f32 at 256 in clusters of two,
+    _f32_bwd256_design) or the f32 forward on wgmma (32 to 128,
+    _f32_fwd_design) is not as it was built: 384 threads (a producer and
+    two consumer warpgroups) at 168 registers, its shared memory, one
+    CTA an SM (and its cluster size)."""
     import ctypes
     from sparknet_tpu_torch.ops import cuda_attention as ca
     from sparknet_tpu_torch.ops import cuda_build
@@ -1393,7 +1403,9 @@ def _flash_kernel_info(torch):
                 else:
                     design = _bf16_bwd_design if not f32 and built <= 128 \
                         else _f32_bwd_design \
-                        if f32 and built in F32_WGMMA_DIMS else None
+                        if f32 and built in F32_WGMMA_DIMS \
+                        else _f32_bwd256_design if f32 and built == 256 \
+                        else None
                 if design is not None:
                     want = design(name, built)
                     got = {key: r[key] for key in want}
@@ -1440,6 +1452,29 @@ def _f32_bwd_design(name, d):
             "ctas_per_sm": 1}
 
 
+def _f32_bwd256_design(name, d=256):
+    """What the runtime should say of the f32 dQ or dK/dV kernel at
+    head_dim 256 (``name``; csrc/flash_bwd.cu, Tf32ClusterTiles), each
+    CTA of a cluster of two owning 128 columns: 384 threads at
+    launch_bounds(384, 1) leave 168 registers a thread; shared memory in
+    dQ for a 32-query tile's Q, dO and their lo parts, two stages of a
+    64-key tile's K and V, the 32 x 64 dS^T handoff hi and lo, four
+    exchange buffers of 8 f32 a warpgroup thread (P^T from warpgroup 0 to
+    1; the other rank's S^T and dP^T partials and dS^T), 256 bytes of
+    LSE and delta, 128 of mbarriers and 1024 to align the tiles; in dK/dV
+    for K and V, two stages of a 32-query tile's Q and dO, the lo parts
+    of one, the 64 x 32 P^T and dS^T handoffs hi and lo, four exchange
+    buffers (the other rank's partials, P^T and dS^T), mbarriers and
+    alignment; one CTA an SM, clusters of two."""
+    cols, xch = d // 2, 2 * 128 * 16
+    qtile, ktile, hand = 32 * cols * 4, 64 * cols * 4, 64 * 32 * 4
+    smem = 4 * qtile + 4 * ktile + 2 * hand + 4 * xch + 256 \
+        if name == "flash_attention_dq" \
+        else 2 * ktile + 6 * qtile + 4 * hand + 4 * xch
+    return {"registers": 168, "smem_bytes": smem + 128 + 1024,
+            "ctas_per_sm": 1, "cluster_size": 2}
+
+
 # the f32 forward's head_dims on wgmma (flash_fwd_tf32_wgmma_kernel); 16
 # and 256 run split TF32 on mma.sync
 F32_FWD_WGMMA_DIMS = (32, 64, 128)
@@ -1479,6 +1514,7 @@ def _kernel_name(name, dtype, d):
         return f"flash_{which}_wgmma256_kernel" if d == 256 else \
             f"flash_{which}_wgmma_kernel<{d}>"
     return f"flash_{which}_tf32_wgmma_kernel<{d}>" if d in F32_WGMMA_DIMS \
+        else f"flash_{which}_tf32_wgmma256_kernel" if d == 256 \
         else f"flash_{which}_tf32_kernel<{d}>"
 
 
@@ -1515,15 +1551,19 @@ FLASH_CASES = (
     ((4, 8, 4096, 128), "float32", True, True),
     ((8, 8, 256, 32), "float32", True, True),
     # the attention of lm --d-model 2048 --heads 8 at the verb's default
-    # dtype: the f32 head_dim-256 kernels at a card-filling shape (no path
-    # of this script launches them there)
-    ((2, 8, 4096, 256), "float32", True, False))
+    # dtype (phase 7's f32 LM_D256 run): the f32 head_dim-256 kernels at
+    # a card-filling shape
+    ((2, 8, 4096, 256), "float32", True, True))
 # the kernels line's launches for a flash row: the path that gives its
 # shape (the lm verb's bf16 run for the rest)
 FLASH_ROW_PATHS = {((4, 8, 4096, 128), "float32"): "lm step, f32",
                    ((8, 8, 256, 32), "float32"): "lm verb, defaults (f32)",
                    ((1, 4, 1024, 256), "bfloat16"): "lm verb, d_model 2048",
-                   ((2, 8, 4096, 256), "bfloat16"): "lm verb, d_model 2048"}
+                   ((2, 8, 4096, 256), "bfloat16"): "lm verb, d_model 2048",
+                   ((1, 4, 1024, 256), "float32"):
+                       "lm verb, d_model 2048, f32",
+                   ((2, 8, 4096, 256), "float32"):
+                       "lm verb, d_model 2048, f32"}
 
 
 def flash_entry_points(libs=None, defines=()):
@@ -1859,10 +1899,11 @@ FLASH_KERNELS = ("flash_attention", "flash_attention_dq",
                  "flash_attention_dkv")
 
 
-def _lm_in_process(args, tag, full_width=True, widths=None):
-    """The lm verb at full width (LM_FULL, or ``widths``), bf16 (or,
-    with full_width False, at the verb's own defaults), in this process
-    (no interpreter start): the launch counters zeroed first and the
+def _lm_in_process(args, tag, full_width=True, widths=None, dtype="bf16"):
+    """The lm verb at full width (LM_FULL, or ``widths``) in ``dtype``
+    (None: the verb's default, f32), bf16 by default (or, with
+    full_width False, at the verb's own defaults), in this process (no
+    interpreter start): the launch counters zeroed first and the
     variables its flags write put back after; -> (stdout, its launch
     counts)."""
     import io
@@ -1871,7 +1912,7 @@ def _lm_in_process(args, tag, full_width=True, widths=None):
     sizes = ["--vocab", str(f["vocab"]), "--seq-len", str(f["seq_len"]),
              "--batch", str(f["batch"]), "--d-model", str(f["d_model"]),
              "--layers", str(f["layers"]), "--heads", str(f["heads"]),
-             "--dtype", "bf16"] if full_width else []
+             *(["--dtype", dtype] if dtype else [])] if full_width else []
     argv = ["lm", *sizes, "--display", "1", *args]
     env = dict(os.environ)
     _zero_launches()
@@ -2035,14 +2076,22 @@ LM_D256 = dict(vocab=8192, seq_len=4096, batch=2, d_model=2048, layers=2,
                heads=8)
 
 
-def phase_lm_d256(steps=2):
-    """The lm verb at LM_D256, bf16, in process for ``steps`` steps: each
-    flash kernel ``layers`` times a step at (2, 8, 4096, 256) causal, and
-    the first loss finite and within 1.5 of ln(vocab)."""
+def phase_lm_d256(steps=2, dtype="bf16"):
+    """The lm verb at LM_D256 in process for ``steps`` steps, bf16 or, with
+    ``dtype`` None, at the verb's default dtype (f32, TF32 left off for
+    the library's products): each flash kernel ``layers`` times a step at
+    (2, 8, 4096, 256) causal, and the first loss finite and within 1.5 of
+    ln(vocab)."""
+    import torch
     f = LM_D256
-    out, launches = _lm_in_process(["--steps", str(steps)], "lm-d256",
-                                   widths=f)
+    out, launches = _lm_in_process(["--steps", str(steps)],
+                                   "lm-d256" if dtype else "lm-d256-f32",
+                                   widths=f, dtype=dtype)
     check(f"done: {steps} steps, " in out, f"lm verb: not {steps} steps")
+    if dtype is None:
+        check(not torch.backends.cuda.matmul.allow_tf32
+              and not torch.backends.cudnn.allow_tf32,
+              "the lm verb at its default dtype left TF32 on")
     for name in FLASH_KERNELS:
         check(launches[name] == f["layers"] * steps,
               f"lm at d_model 2048: {name} launched {launches[name]} times "
@@ -6807,11 +6856,13 @@ def main(argv=None):
                                    tmp) or (None, None)
     _flash_built()
     flash = section(6, phase_flash_kernels, torch)
-    lm_cli, lm_step, lm_step_f32, lm_default, lm_d256, lm_parity = section(
+    (lm_cli, lm_step, lm_step_f32, lm_default, lm_d256, lm_d256_f32,
+     lm_parity) = section(
         7, lambda: (phase_lm_cli(tmp), phase_lm_step(torch, card),
                     phase_lm_step(torch, card, dtype="f32"),
                     phase_lm_default_verb(), phase_lm_d256(),
-                    phase_lm_card_vs_cpu(torch, tmp))) or (None,) * 6
+                    phase_lm_d256(dtype=None),
+                    phase_lm_card_vs_cpu(torch, tmp))) or (None,) * 7
     local_sgd = section(8, phase_local_sgd_all, torch, card, tmp)
     records = section(9, phase_records_all, torch, card, tmp)
     feeds = section(10, lambda: phase_feeds_all(
@@ -6837,6 +6888,7 @@ def main(argv=None):
              "lm step, f32": lm_step_f32["launches"],
              "lm verb, defaults (f32)": lm_default["launches"],
              "lm verb, d_model 2048": lm_d256["launches"],
+             "lm verb, d_model 2048, f32": lm_d256_f32["launches"],
              "local-sgd caffenet": local_sgd["rounds"]["caffenet"][
                  "launches"],
              "train verb on records": records["cli"]["launches"],
@@ -6881,6 +6933,8 @@ def main(argv=None):
                         name],
                     "launches_lm_verb_d_model_2048": lm_d256["launches"][
                         name],
+                    "launches_lm_verb_d_model_2048_f32": lm_d256_f32[
+                        "launches"][name],
                     "launches_moe_lm_verb": zoo["moe_cli"]["launches"][name],
                     "launches_moe_lm_step": zoo["moe_step"]["launches"][
                         name],
@@ -6933,6 +6987,7 @@ def main(argv=None):
             "profile", "card_vs_cpu")}, **trained_cli},
         "lm": {"cli": lm_cli, "step": lm_step, "step_f32": lm_step_f32,
                "default_verb": lm_default, "d256_verb": lm_d256,
+               "d256_verb_f32": lm_d256_f32,
                "card_vs_cpu": lm_parity},
         "local_sgd": local_sgd, "records": records, "feeds": feeds,
         "zoo": zoo, "levers": levers, "fleet": fleet, "hosts": hosts,

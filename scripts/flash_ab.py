@@ -3,7 +3,7 @@
 turns: baseline, this tree, this tree, baseline.
 
     python3 scripts/flash_ab.py --baseline <an older csrc/ dir>
-        [--cases bf16-256|bf16-128|f32] [--sass] [--steps N]
+        [--cases bf16-256|bf16-128|f32|f32-256] [--sass] [--steps N]
 
 The kernels are the forward (csrc/flash_fwd.cu) and the dQ and dK/dV
 kernels (csrc/flash_bwd.cu) of sparknet_tpu_torch, at the shapes of
@@ -17,18 +17,22 @@ call's noise floor while neither tree changes those kernels);
 ``--cases bf16-256`` keeps only the bf16 cases at head_dim 256 and 192
 and the shared case, ``--cases bf16-128`` the bf16 cases up to head_dim
 128 and the shared case, ``--cases f32`` the f32 cases up to head_dim
-128 and the shared case; ``--sass`` first prints the instructions
-(cuobjdump) in which the two trees' bf16 forward kernels up to head_dim
-128 and f32 backward kernels on wgmma (64 and 128) differ, and counts
-the wgmma (HGMMA) and mma.sync (HMMA) instructions of this tree's
-kernels on wgmma (the backward's bf16 up to head_dim 128 and f32 at 64
-and 128, the f32 forward's at 32-128; the f32 ones' HGMMA must read
-TF32 operands), which must be HGMMA only; ``--steps N`` last times the
-LM row's train step with the baseline's and this tree's flash_fwd and
-flash_bwd in turns, N steps an arm, baseline, new, new, baseline, and prints each
-arm's median and its spread: bf16 on one device and its tp 2 branch
-(chip_smoke.py phases 7 and 15, through the lm verb's setup), or with
-``--cases f32`` f32 (the lm verb's default dtype) on one device. The
+128 and the shared case, ``--cases f32-256`` the f32 cases at head_dim
+256 and 192 and the shared case; ``--sass`` first prints the
+instructions (cuobjdump) in which the two trees' bf16 forward kernels up
+to head_dim 128 and f32 backward kernels on wgmma (64 and 128) differ,
+and counts the wgmma (HGMMA) and mma.sync (HMMA) instructions of this
+tree's kernels on wgmma (the backward's bf16 up to head_dim 128 and f32
+at 64, 128 and 256, the f32 forward's at 32-128; the f32 ones' HGMMA
+must read TF32 operands), which must be HGMMA only; ``--steps N`` last
+times a train step with the baseline's and this tree's flash_fwd and
+flash_bwd in turns, N steps an arm, baseline, new, new, baseline, and
+prints each arm's median and its spread: the LM row's, bf16 on one
+device and its tp 2 branch (chip_smoke.py phases 7 and 15, through the
+lm verb's setup), or with ``--cases f32`` f32 (the lm verb's default
+dtype) on one device; with ``--cases f32-256`` the f32 step of
+chip_smoke.LM_D256 (``lm --d-model 2048 --heads 8``, phase 7) on one
+device. The
 baseline's sources are built here with this tree's nvcc flags into
 _work/flash_ab/; this tree's kernels, and their one-pass TF32 control
 (cuda_build.TF32_ONE_PASS), are the libraries of cuda_build
@@ -96,15 +100,19 @@ CASE_SETS = {"all": lambda c: True,
              "bf16-128": lambda c: c == SAME_KERNEL_CASE
              or _bf16_at(c, ca.HEAD_DIMS[:-1]),
              "f32": lambda c: c == SAME_KERNEL_CASE
-             or (c[1] == "float32" and ca.built_head_dim(c[0][-1]) <= 128)}
+             or (c[1] == "float32" and ca.built_head_dim(c[0][-1]) <= 128),
+             "f32-256": lambda c: c == SAME_KERNEL_CASE
+             or (c[1] == "float32" and ca.built_head_dim(c[0][-1]) == 256)}
 # --sass: instantiations on wgmma, by the start of their mangled names:
 # the bf16 forward up to head_dim 128 and the backward's bf16 ones up to
-# 128, the f32 (split TF32) backward's at 64 and 128 and the f32
-# forward's at 32-128, whose HGMMA must read TF32 operands
+# 128, the f32 (split TF32) backward's at 64 and 128 and its cluster
+# kernels at 256, and the f32 forward's at 32-128, whose HGMMA must read
+# TF32 operands
 SASS_FWD = re.compile(r"flash_fwd_wgmma_kernelILi")
 SASS_FWD_TF32 = re.compile(r"flash_fwd_tf32_wgmma_kernelILi")
 SASS_BWD = re.compile(r"flash_(dq|dkv)_wgmma_kernelILi")
 SASS_BWD_TF32 = re.compile(r"flash_(dq|dkv)_tf32_wgmma_kernelILi")
+SASS_BWD_TF32_256 = re.compile(r"flash_(dq|dkv)_tf32_wgmma256_kernel")
 TF32_HEAD_DIMS = (64, 128)
 # --sass: {library: {kind: (its instantiations, TF32 operands wanted)}}
 # whose products are counted, and {library: kind} whose instructions a
@@ -112,7 +120,8 @@ TF32_HEAD_DIMS = (64, 128)
 SASS_PRODUCTS = {
     "flash_fwd": {SASS_FWD_TF32: (len(chip_smoke.F32_FWD_WGMMA_DIMS), True)},
     "flash_bwd": {SASS_BWD: (2 * (len(ca.HEAD_DIMS) - 1), False),
-                  SASS_BWD_TF32: (2 * len(TF32_HEAD_DIMS), True)}}
+                  SASS_BWD_TF32: (2 * len(TF32_HEAD_DIMS), True),
+                  SASS_BWD_TF32_256: (2, True)}}
 SASS_SAME = {"flash_fwd": SASS_FWD, "flash_bwd": SASS_BWD_TF32}
 BRANCH = re.compile(r"\b(BRA|BRX|BSSY|CALL\.\S+|JMP|JMX)\b")
 KERNELS = (("fwd", "flash_attention", "O"), ("dq", "flash_attention_dq", "dQ"),
@@ -221,16 +230,17 @@ def sass_products(so, kinds):
     return counts
 
 
-def time_steps(libs, steps, dtype="bf16"):
-    """The LM row's train step (chip_smoke._branch_setup, the lm verb's
-    setup at LM_FULL) in ``dtype``: bf16 on one device and its tp 2
-    branch, f32 on one device; timed by synchronisation: ``steps`` steps
-    on one batch an arm, the baseline's flash_fwd and flash_bwd and this
-    tree's in turns (baseline, new, new, baseline), after two warm-up
-    steps; -> {branch: {"baseline": [[ms]...], "new": [[ms]...]}}."""
+def time_steps(libs, steps, dtype="bf16", widths=None):
+    """A train step of the lm verb's setup (chip_smoke._branch_setup) at
+    ``widths`` (chip_smoke.LM_FULL, the LM row, by default) in
+    ``dtype``: bf16 on one device and its tp 2 branch, f32 on one
+    device; timed by synchronisation: ``steps`` steps on one batch an
+    arm, the baseline's flash_fwd and flash_bwd and this tree's in turns
+    (baseline, new, new, baseline), after two warm-up steps; ->
+    {branch: {"baseline": [[ms]...], "new": [[ms]...]}}."""
     import statistics
     import time
-    f = chip_smoke.LM_FULL
+    f = widths or chip_smoke.LM_FULL
     full = ["--vocab", str(f["vocab"]), "--seq-len", str(f["seq_len"]),
             "--batch", str(f["batch"]), "--d-model", str(f["d_model"]),
             "--layers", str(f["layers"]), "--heads", str(f["heads"]),
@@ -256,7 +266,8 @@ def time_steps(libs, steps, dtype="bf16"):
                 float(solver.train_step(batch))   # the fetch synchronises
                 times.append((time.perf_counter() - t0) * 1e3)
             arms[arm].append(times)
-            print(f"[steps] {dtype} {label} {arm}: median "
+            print(f"[steps] {dtype} d_model {f['d_model']} {label} {arm}: "
+                  f"median "
                   f"{statistics.median(times):.2f} ms, spread "
                   f"{min(times):.2f}-{max(times):.2f} ms over {steps} "
                   "steps")
@@ -311,9 +322,11 @@ def main():
                          "and the backward's instantiations on wgmma")
     ap.add_argument("--steps", type=int, default=0,
                     help="last time the LM row's step with each tree's "
-                         "flash_fwd and flash_bwd, N steps an arm: bf16 on one device and "
-                         "tp 2, or f32 on one device with --cases f32 "
-                         "(default 0: not timed)")
+                         "flash_fwd and flash_bwd, N steps an arm: bf16 on "
+                         "one device and tp 2, or f32 on one device with "
+                         "--cases f32; with --cases f32-256 the f32 step "
+                         "of lm --d-model 2048 --heads 8 (default 0: not "
+                         "timed)")
     args = ap.parse_args()
     chip_smoke.check(torch.cuda.is_available(), "no CUDA card")
     card = chip_smoke.nvidia_smi()
@@ -442,8 +455,9 @@ def main():
             del q, k, v, do, o, lse, dq, delta, calls, ql, kl, vl, lib_out
             torch.cuda.empty_cache()
     steps = time_steps(baseline, args.steps,
-                       "f32" if args.cases == "f32" else "bf16") \
-        if args.steps else {}
+                       "f32" if args.cases.startswith("f32") else "bf16",
+                       chip_smoke.LM_D256 if args.cases == "f32-256"
+                       else None) if args.steps else {}
     print(card)
     print(json.dumps({"card": card, "rows": results, "steps": steps}))
     return 0

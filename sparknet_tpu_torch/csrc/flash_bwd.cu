@@ -197,28 +197,75 @@
 //  - 168 registers at launch, no spills, one CTA an SM (chip_smoke.py
 //    phase 6's _f32_bwd_design). At the LM's shape, (4, 8, 4096, 128)
 //    causal: PERF.md (scripts/flash_ab.py --cases f32).
-// f32 storage at head_dim 16, 32 and 256 (flash_dq_tf32_kernel,
-// flash_dkv_tf32_kernel): split TF32 on mma.sync m16n8k8 (flash_tf32.cuh),
-// the design above does not fit there: at 16 and 32 the transposed second
-// products have M = head_dim rows, below wgmma's 64, and at 256 f32 tiles
-// with their lo parts do not fit in shared memory. A CTA of 4 warps owns
-// a 64-row tile, a warp 16 rows of it, and streams its pair through
-// cp.async stages: f32 tiles of row stride D + 4 fed to mma.sync by plain
+// f32 storage at head_dim 256, and 129-255 zero-padded to it
+// (flash_dq_tf32_wgmma256_kernel, flash_dkv_tf32_wgmma256_kernel): the
+// design above over a thread-block cluster of two CTAs ("ranks"), since
+// its f32 tiles with their lo parts (225 KB at head_dim 128) do not fit
+// one CTA at 256. Rank r owns the columns [128 r, 128 r + 128) of D: its
+// slices of Q, K, V, dO and of dQ (dK, dV), each CTA laid out as the
+// head_dim-128 kernels (384 threads, the same roles of the producer and
+// the two consumer warpgroups, every product wgmma m64nNk8 in split TF32).
+//  - Scores once: each rank builds its partial S^T = K_r Q_r^T and dP^T =
+//    V_r dO_r^T over its 128 columns (one tensor-core sum of 16 k-steps,
+//    as at head_dim 128). A tile's queries split between the ranks: rank
+//    r finishes queries [16 r, 16 r + 16) of each 32, which are the same
+//    8 of the 16 accumulator registers in every thread of either rank.
+//    So a thread sends the other half of its registers to the thread in
+//    the same place of the other rank (st.async into an exchange buffer
+//    there, 8 f32 a thread, completing on that rank's mbarrier), and
+//    adds the 8 it receives to its own half in rank order, in f32: every
+//    score is summed once, in a fixed order. It finishes P^T (warpgroup
+//    0) and dS^T (warpgroup 1) for its half and sends those back the same
+//    way, and each rank writes both halves, hi and lo, into its handoff
+//    tiles for the second products over its own 128 columns. Per tile a
+//    rank receives 4 KB of each of S^T and dP^T and 4 KB of dS^T (and
+//    P^T in dK/dV): no cluster barrier in the loop. An exchange buffer is
+//    refilled only after its reader has passed it on: the other rank's
+//    next write into it waits, through the data it needs, on what its
+//    reader sent after reading it (a tile's partials wait on the last
+//    tile's dS^T), so one buffer each and one mbarrier phase a tile
+//    suffice, armed by its reader before it sends what releases the next.
+//  - delta = rowsum(dO O): each rank of dQ reads the whole 256-column
+//    rows from device memory (8 threads a row, 32 columns each), the
+//    same sum in the same order on both ranks, and rank 0 writes it; a
+//    gather of per-rank partials would add an exchange to the start of
+//    every CTA for 32 KB of reads.
+//  - dQ: a cluster owns 32 queries (Q, dO and their lo parts, 64 KB a
+//    rank) and walks the key tiles of 64 through two stages of K and V
+//    (128 KB), with the 32 x 64 dS^T handoff hi and lo and four exchange
+//    buffers (the P^T handoff between its warpgroups is one of them):
+//    230,784 bytes. 64 queries, as at head_dim 128, would need 256 KB
+//    with one K and one V slot.
+//  - dK/dV: a cluster owns 64 keys (K, V: 64 KB a rank) and streams
+//    32-query tiles of Q and dO through two stages; the lo parts of the
+//    tile in hand are written once the tile before is through its first
+//    products, so one lo buffer serves both stages (214,144 bytes; one
+//    for each stage would need 246,912).
+//  - Launched with cudaLaunchKernelEx, a cluster dimension of 2 on a (2,
+//    bh, tiles) grid, the longest clusters first; a cluster launch the
+//    card refuses returns its error (no fallback). 168 registers at
+//    launch, no spills, one CTA an SM, 66 clusters co-resident
+//    (chip_smoke.py phase 6's _f32_bwd256_design). At (2, 8, 4096, 256)
+//    causal, lm --d-model 2048 --heads 8's attention: PERF.md
+//    (scripts/flash_ab.py --cases f32-256).
+// f32 storage at head_dim 16 and 32 (flash_dq_tf32_kernel,
+// flash_dkv_tf32_kernel): split TF32 on mma.sync m16n8k8 (flash_tf32.cuh):
+// the transposed second products of the designs above would have M =
+// head_dim rows, below wgmma's 64. A CTA of 4 warps owns a 64-row tile, a
+// warp 16 rows of it, and streams 64-row tiles through two cp.async
+// stages: f32 tiles of row stride D + 4 fed to mma.sync by plain
 // shared-memory loads. S, dP, P and dS stay in f32 and enter the second
 // products split, from the accumulators; nothing is rounded between the
 // products. Every tensor-core sum runs over at most 64 columns of D or one
 // streamed tile and is then added in f32 (the tensor core truncates its
-// sums: flash_tf32.cuh). Streamed tiles: 64 rows through two stages up to
-// D = 64 (the only case now: 16 and 32); at D = 256 16 rows through two,
-// the output columns split over the grid's z axis (kOutCols,
-// flash_mma.cuh). P is exp(scale S - LSE) in natural units, as the plain
-// version computes it. Bound: operations, 165 TFLOP/s of f32-accurate
-// products (495 TFLOP/s of dense TF32 over 3 products). Registers a
-// thread, shared memory and CTAs per SM on the H100
+// sums: flash_tf32.cuh). P is exp(scale S - LSE) in natural units, as the
+// plain version computes it. Bound: operations, 165 TFLOP/s of
+// f32-accurate products (495 TFLOP/s of dense TF32 over 3 products).
+// Registers a thread, shared memory and CTAs per SM on the H100
 // (sparknet_flash_backward_info, chip_smoke.py phase 6); no spills:
-//        D        16           32           256
-//        dQ       128 30 KB 4  128 54 KB 4  202 195 KB 1
-//        dK/dV    155 31 KB 3  164 55 KB 3  250 195 KB 1
+//        D        16           32
+//        dQ       128 30 KB 4  128 54 KB 4
+//        dK/dV    155 31 KB 3  164 55 KB 3
 // At the lm verb's defaults, (8, 8, 256, 32) causal: PERF.md.
 // The storage type picks the kernel and nothing else does.
 
@@ -1021,17 +1068,15 @@ __global__ void __launch_bounds__(kBwdWgThreads, 1)
   }
 }
 
-// f32 storage at head_dim 16, 32 and 256: split TF32 on mma.sync (the
-// note at the top).
+// f32 storage at head_dim 16 and 32: split TF32 on mma.sync (the note at
+// the top).
 
 // Tiles of the f32 mma.sync backward kernels at head_dim D (floats): the
-// CTA's own 64 rows, and streamed tiles through two stages: 64 rows at D
-// = 16 and 32, 16 at D = 256 (there, the output columns split over the
-// grid's z axis)
+// CTA's own 64 rows, and streamed tiles of 64 rows through two stages
 template <int D>
 struct Tf32BwdTiles {
-  static constexpr int DO = kOutCols<D>;           // output columns a CTA
-  static constexpr int ST = D > 64 ? 16 : 64;      // rows a streamed tile
+  static_assert(D <= 32, "f32 head_dim 64 and up runs the wgmma kernels");
+  static constexpr int ST = 64;                    // rows a streamed tile
   static constexpr int STAGES = 2;                 // streamed tiles in flight
   static constexpr int LD = D + 4;                 // row stride
   static constexpr int TILE = kBlockQ * LD;        // the CTA's own rows
@@ -1053,7 +1098,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                          float* __restrict__ dq, float* __restrict__ delta,
                          int seq, float scale, int causal) {
   using L = Tf32BwdTiles<D>;
-  constexpr int LD = L::LD, KT = L::ST, NT = KT / 8, NO = L::DO / 8;
+  constexpr int LD = L::LD, KT = L::ST, NT = KT / 8, NO = D / 8;
   extern __shared__ float smem[];
   float* qs = smem;                    // this CTA's 64 queries
   float* dos = qs + L::TILE;
@@ -1073,7 +1118,6 @@ __global__ void __launch_bounds__(kMmaThreads)
   delta += static_cast<long long>(blockIdx.x) * seq;
   const int tiles = (seq + KT - 1) / KT;
   const int n_k = causal ? min(tiles, (q0 + kBlockQ) / KT) : tiles;
-  const int col0 = blockIdx.z * L::DO;          // this CTA's columns of dQ
 
   auto load_kv = [&](int j) {
     float* dst = kvs + (j % L::STAGES) * 2 * L::STILE;
@@ -1108,7 +1152,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       }
     }
     dl = part + __shfl_xor_sync(0xffffffffu, part, 1);
-    if ((lane & 1) == 0 && r < seq && col0 == 0) delta[r] = dl;
+    if ((lane & 1) == 0 && r < seq) delta[r] = dl;
   }
   // this thread's rows of the score tiles: w0 + g and w0 + g + 8
   float delta_r[2], lse_r[2];
@@ -1147,7 +1191,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
     uint32_t dsh[NT][4], dsl[NT][4];   // dQ += dS K
     split_c_tiles(dsh, dsl, s);
-    mul_tiles<LD>(acc, dsh, dsl, ks, 0, col0, g, t);
+    mul_tiles<LD>(acc, dsh, dsl, ks, 0, 0, g, t);
     __syncthreads();                   // tile j's stage is free
   }
   cp_async_wait<0>();
@@ -1157,8 +1201,8 @@ __global__ void __launch_bounds__(kMmaThreads)
     if (r >= seq) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<float2*>(dq + static_cast<long long>(r) * D + col0 +
-                                 n * 8 + 2 * t) =
+      *reinterpret_cast<float2*>(dq + static_cast<long long>(r) * D + n * 8 +
+                                 2 * t) =
           make_float2(scale * acc[n][2 * i], scale * acc[n][2 * i + 1]);
   }
 }
@@ -1174,7 +1218,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                           float* __restrict__ dk, float* __restrict__ dv,
                           int seq, float scale, int causal) {
   using L = Tf32BwdTiles<D>;
-  constexpr int LD = L::LD, QT = L::ST, NS = QT / 8, NO = L::DO / 8;
+  constexpr int LD = L::LD, QT = L::ST, NS = QT / 8, NO = D / 8;
   extern __shared__ float smem[];
   float* ks = smem;                    // this CTA's 64 keys
   float* vs = ks + L::TILE;
@@ -1195,7 +1239,6 @@ __global__ void __launch_bounds__(kMmaThreads)
   delta += static_cast<long long>(blockIdx.x) * seq;
   // causal: query tiles wholly above the diagonal are skipped
   const int n_q = (seq + QT - 1) / QT, q_first = causal ? k0 / QT : 0;
-  const int col0 = blockIdx.z * L::DO;     // this CTA's columns of dK, dV
 
   auto load_queries = [&](int stage, int qt) {
     float* dst = qds + stage * 2 * L::STILE;
@@ -1246,9 +1289,9 @@ __global__ void __launch_bounds__(kMmaThreads)
       }
       uint32_t ph[NS][4], pl[NS][4], dh[NS][4], dl[NS][4];
       split_c_tiles(ph, pl, s);          // dV += P^T dO
-      mul_tiles<LD>(dv_acc, ph, pl, dos, 0, col0, g, t);
+      mul_tiles<LD>(dv_acc, ph, pl, dos, 0, 0, g, t);
       split_c_tiles(dh, dl, dp);         // dK += dS^T Q
-      mul_tiles<LD>(dk_acc, dh, dl, qs, 0, col0, g, t);
+      mul_tiles<LD>(dk_acc, dh, dl, qs, 0, 0, g, t);
     }
     __syncthreads();                   // tile qt's stage is free
   }
@@ -1259,8 +1302,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     if (c >= seq) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      const long long at =
-          static_cast<long long>(c) * D + col0 + n * 8 + 2 * t;
+      const long long at = static_cast<long long>(c) * D + n * 8 + 2 * t;
       *reinterpret_cast<float2*>(dk + at) =
           make_float2(scale * dk_acc[n][2 * i], scale * dk_acc[n][2 * i + 1]);
       *reinterpret_cast<float2*>(dv + at) =
@@ -1738,20 +1780,622 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     }
 }
 
+// f32 storage at head_dim 256 (and 129-255, zero-padded): split TF32 on
+// wgmma in clusters of two CTAs (the note at the top).
+
+constexpr int kTf32Ranks = 2;        // CTAs of a head_dim-256 cluster
+constexpr int kTf32DqQueries = 32;   // a head_dim-256 dQ cluster's queries
+
+// Shared-memory geometry of the f32 head_dim-256 backward (bytes): a
+// rank's tiles are those of the head_dim-128 kernels over its 128 columns
+// (f32_at), and the exchange buffers hold 8 f32 of each of a warpgroup's
+// 128 threads, 16 bytes a slot, thread w's slots at w and 128 + w.
+struct Tf32ClusterTiles {
+  static constexpr int W = 128;                  // columns of a rank
+  static constexpr int QTILE = 32 * W * 4;       // 32 rows: a query tile
+  static constexpr int KTILE = 64 * W * 4;       // 64 rows: a key tile
+  static constexpr int HAND = 64 * 32 * 4;       // a 64 x 32 handoff
+  static constexpr int XCH = 2 * 128 * 16;       // an exchange buffer
+  // dQ: Q, its lo, dO, its lo; two stages of K and V; dS^T hi and lo;
+  // P^T (warpgroup 0 to 1) and the received S^T and dP^T partials and
+  // dS^T; LSE and delta of the 32 queries; 13 mbarriers; 1024 to align
+  static constexpr size_t kDqSmem =
+      4 * QTILE + 4 * KTILE + 2 * HAND + 4 * XCH + 256 + 128 + 1024;
+  // dK/dV: K, V; two stages of Q and dO as TMA lands them; the lo parts
+  // of the tile in hand; P^T and dS^T hi and lo; the received S^T and
+  // dP^T partials, P^T and dS^T; 11 mbarriers; 1024 to align
+  static constexpr size_t kDkvSmem =
+      2 * KTILE + 6 * QTILE + 4 * HAND + 4 * XCH + 128 + 1024;
+};
+
+// 8 f32 of this thread (warpgroup thread w) into its slots of the
+// exchange buffer `buf` of rank `to`, completing on that rank's mbarrier
+// `bar`: the sender never waits
+__device__ __forceinline__ void xch_send(const float (&x)[8], uint32_t buf,
+                                         uint32_t bar, int to, int w) {
+  const uint32_t rb = mapa_u32(bar, to);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const uint32_t v[4] = {__float_as_uint(x[4 * u]),
+                           __float_as_uint(x[4 * u + 1]),
+                           __float_as_uint(x[4 * u + 2]),
+                           __float_as_uint(x[4 * u + 3])};
+    st_async(mapa_u32(buf + (u * 128 + w) * 16, to), v, rb);
+  }
+}
+
+// this thread's 8 f32 of an exchange buffer (its own shared memory)
+__device__ __forceinline__ void xch_read(float (&y)[8],
+                                         const unsigned char* buf, int w) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(buf + (u * 128 + w) * 16);
+    y[4 * u] = v.x;
+    y[4 * u + 1] = v.y;
+    y[4 * u + 2] = v.z;
+    y[4 * u + 3] = v.w;
+  }
+}
+
+// An m64n32 accumulator's two halves: its registers of queries 0-15
+// (0-7) or 16-31 (8-15) of the tile, h 0 or 1 (h at run time: selects,
+// no indexed registers)
+__device__ __forceinline__ void half_of(float (&y)[8], const float (&x)[16],
+                                        int h) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) y[i] = h == 0 ? x[i] : x[8 + i];
+}
+
+// The partial of this rank's half of an m64n32 score tile summed over
+// both ranks' columns: the other rank's partial, received in `buf`, and
+// this rank's, added in rank order (two terms: the same f32 sum either
+// way)
+__device__ __forceinline__ void summed_half(float (&s)[8],
+                                            const float (&x)[16],
+                                            const unsigned char* buf,
+                                            int rank, int w) {
+  float mine[8], theirs[8];
+  half_of(mine, x, rank);
+  xch_read(theirs, buf, w);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    s[i] = rank == 0 ? mine[i] + theirs[i] : theirs[i] + mine[i];
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dq_tf32_wgmma256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                  const __grid_constant__ CUtensorMap tm_k,
+                                  const __grid_constant__ CUtensorMap tm_v,
+                                  const __grid_constant__ CUtensorMap tm_do,
+                                  const float* __restrict__ o,
+                                  const float* __restrict__ dout,
+                                  const float* __restrict__ lse,
+                                  float* __restrict__ dq,
+                                  float* __restrict__ delta, int seq,
+                                  float scale, int causal) {
+  using L = Tf32ClusterTiles;
+  constexpr int D = 256;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t qs = (raw + 1023) & ~1023u;   // the cluster's 32 queries
+  const uint32_t qlo = qs + L::QTILE, dos = qlo + L::QTILE;
+  const uint32_t dolo = dos + L::QTILE;
+  // stage st of key tile j (st = j % 2): K at kv + 2 st KTILE, V after it
+  const uint32_t kv = dolo + L::QTILE;
+  // dS^T [query][key] hi and lo, the B operand of dQ^T = K^T dS^T
+  const uint32_t dsh = kv + 4 * L::KTILE, dsl = dsh + L::HAND;
+  // exchange buffers: P^T from warpgroup 0 to 1; received: the other
+  // rank's partial S^T and dP^T of this rank's half, its half of dS^T
+  const uint32_t pt = dsl + L::HAND, rs = pt + L::XCH, rp = rs + L::XCH;
+  const uint32_t rd = rp + L::XCH;
+  const uint32_t rows_at = rd + L::XCH;        // LSE, then delta: 32 each
+  // mbarriers: +0 Q and dO landed; +8 their lo parts written; +16 + 8 st
+  // K full, +32 + 8 st V full; +48 + 8 st K free (both warpgroups), +64
+  // + 8 st V free (warpgroup 1); +80, +88, +96 rs, rp, rd received
+  const uint32_t bars = rows_at + 256;
+  auto at = [&](uint32_t a) { return smem_raw + (a - raw); };
+  float* lse_s = reinterpret_cast<float*>(at(rows_at));
+  float* delta_s = lse_s + kTf32DqQueries;
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3, w = tid & 127;
+  const int bh = blockIdx.y, col0 = L::W * rank;   // this rank's columns
+  const int qt = gridDim.z - 1 - blockIdx.z;   // causal: longest first
+  const int q0 = qt * kTf32DqQueries;
+  const int key_tiles = (seq + 63) / 64;
+  const int n_k = causal ? min(q0 / 64 + 1, key_tiles) : key_tiles;
+  const long long rows0 = static_cast<long long>(bh) * seq;
+
+  if (tid == 0) {
+    mbar_init(bars, 1);
+    mbar_init(bars + 8, 96);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(bars + 16 + 8 * st, 1);
+      mbar_init(bars + 32 + 8 * st, 1);
+      mbar_init(bars + 48 + 8 * st, 256);
+      mbar_init(bars + 64 + 8 * st, 128);
+    }
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 80 + 8 * i, 1);
+    mbar_fence_init();
+    for (int i = 0; i < 3; ++i)                // key tile 0's exchanges
+      mbar_expect_tx(bars + 80 + 8 * i, L::XCH);
+  }
+  cluster_sync_any();                  // both ranks run, mbarriers set
+  if (wg == 2) {
+    // the producer: one thread loads this rank's columns of Q and dO,
+    // then V and K of each key tile into stage j % 2 once the tile
+    // before there is read; warps 1-3 write the lo parts of Q and dO
+    setmaxnreg_dec<24>();
+    const int p = tid - 256;
+    if (p == 0) {
+      mbar_expect_tx(bars, 2 * L::QTILE);
+      f32_load<L::W>(qs, &tm_q, bars, kTf32DqQueries, q0, bh, col0);
+      f32_load<L::W>(dos, &tm_do, bars, kTf32DqQueries, q0, bh, col0);
+      for (int j = 0; j < n_k; ++j) {
+        const int st = j & 1;
+        const uint32_t ks = kv + 2 * st * L::KTILE, vs = ks + L::KTILE;
+        const uint32_t free_par = ((j >> 1) - 1) & 1;
+        if (j >= 2) mbar_wait(bars + 64 + 8 * st, free_par);
+        mbar_expect_tx(bars + 32 + 8 * st, L::KTILE);
+        f32_load<L::W>(vs, &tm_v, bars + 32 + 8 * st, 64, j * 64, bh, col0);
+        if (j >= 2) mbar_wait(bars + 48 + 8 * st, free_par);
+        mbar_expect_tx(bars + 16 + 8 * st, L::KTILE);
+        f32_load<L::W>(ks, &tm_k, bars + 16 + 8 * st, 64, j * 64, bh, col0);
+      }
+    } else if (p >= 32) {
+      mbar_wait(bars, 0);
+      split_lo(at(qlo), at(qs), L::QTILE, p - 32, 96);
+      split_lo(at(dolo), at(dos), L::QTILE, p - 32, 96);
+      fence_proxy_async();
+      mbar_arrive(bars + 8);
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    // delta = rowsum(dO O) of the 32 queries over all 256 columns, in f32
+    // from O and dO as stored, 8 threads a row (both ranks read the whole
+    // rows: the same sum in the same order); LSE
+    {
+      const int r = tid >> 3, gr = q0 + r, c0 = (tid & 7) * (D / 8);
+      float part = 0.f;
+      if (gr < seq) {
+        const float* orow = o + (rows0 + gr) * D + c0;
+        const float* drow = dout + (rows0 + gr) * D + c0;
+#pragma unroll
+        for (int c = 0; c < D / 8; c += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(orow + c);
+          const float4 y = *reinterpret_cast<const float4*>(drow + c);
+          part = fmaf(x.x, y.x, part);
+          part = fmaf(x.y, y.y, part);
+          part = fmaf(x.z, y.z, part);
+          part = fmaf(x.w, y.w, part);
+        }
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      part += __shfl_xor_sync(0xffffffffu, part, 4);
+      if ((tid & 7) == 0) {
+        delta_s[r] = part;
+        if (gr < seq && rank == 0) delta[rows0 + gr] = part;
+      } else if ((tid & 7) == 1) {
+        lse_s[r] = gr < seq ? lse[rows0 + gr] : 0.f;
+      }
+    }
+    named_bar_sync(1, 256);
+    // warpgroup 0 builds the partial S^T = K Q^T over this rank's 128
+    // columns, warpgroup 1 dP^T = V dO^T, each for 64 keys x 32 queries;
+    // rank r finishes queries 16 r .. 16 r + 15 (registers 8 r .. 8 r +
+    // 7 of this thread: query 16 r + 8 (i >> 2) + 2 t + (i & 1) for its
+    // i-th), whose LSE (warpgroup 0) or delta (1) it holds
+    float rq[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      rq[c] = (wg == 0 ? lse_s : delta_s)[16 * rank + 8 * (c >> 1) + 2 * t +
+                                          (c & 1)];
+    // dQ^T = K^T dS^T: a warpgroup owns 64 of the rank's 128 rows (d)
+    const int m0 = 64 * wg;
+    float run[16], chunk[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) run[e] = 0.f;
+    const uint32_t first = wg == 0 ? qs : dos;   // B of S^T or dP^T
+    const uint32_t recv = wg == 0 ? rs : rp;
+    const uint32_t recv_bar = bars + (wg == 0 ? 80 : 88);
+    mbar_wait(bars + 8, 0);            // Q, dO and their lo parts
+
+    for (int j = 0; j < n_k; ++j) {
+      const int st = j & 1, k0 = j * 64;
+      const uint32_t par = (j >> 1) & 1;
+      const uint32_t ks = opaque(kv + 2 * st * L::KTILE);
+      const unsigned char* own = at(wg == 0 ? ks : ks + L::KTILE);
+      float x[16];                     // S^T or dP^T, this rank's part
+      mbar_wait(bars + (wg == 0 ? 16 : 32) + 8 * st, par);
+      product_3xtf32<32, L::W / 8>(
+          x,
+          [&](int kk, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
+            frag_mk(hi, lo, own, 64, 16 * warp, kk, g, t);
+          },
+          [&](int kk, bool low) {
+            return f32_kmajor(first + (low ? L::QTILE : 0), 32, 0, kk);
+          });
+      if (wg == 1) mbar_arrive(bars + 64 + 8 * st);   // V is read
+      // K^T's fragments for dQ^T, gathered now: K is free for tile j + 2
+      uint32_t kth[8][4], ktl[8][4];
+      if (wg == 1) mbar_wait(bars + 16 + 8 * st, par);
+      const unsigned char* kp = at(ks);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        frag_km(kth[kk], ktl[kk], kp, 64, m0 + 16 * warp, kk, g, t);
+      mbar_arrive(bars + 48 + 8 * st);   // K is read
+      wgmma_wait<0>();
+      fence_operands(x);
+      {  // the other rank's half of the partial, to it
+        float theirs[8];
+        half_of(theirs, x, rank ^ 1);
+        xch_send(theirs, recv, recv_bar, rank ^ 1, w);
+      }
+      mbar_wait_cluster(recv_bar, j & 1);
+      if (w == 0 && j + 1 < n_k) mbar_expect_tx(recv_bar, L::XCH);
+      float s[8];                      // this rank's half over all of D
+      summed_half(s, x, at(recv), rank, w);
+      const bool edge = (causal && k0 + 63 > q0) || k0 + 64 > seq ||
+                        q0 + kTf32DqQueries > seq;
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float p = expf(fmaf(s[i], scale, -rq[2 * (i >> 2) + (i & 1)]));
+          if (edge && masked(q0 + 16 * rank + 8 * (i >> 2) + 2 * t + (i & 1),
+                             k0 + 16 * warp + g + 8 * ((i >> 1) & 1), seq,
+                             causal))
+            p = 0.f;
+          s[i] = p;                    // P^T
+        }
+        // warpgroup 1 read tile j - 1's P^T before this rank's dS^T of
+        // j - 1 went out, which the other rank's partials of j waited for
+        {
+          unsigned char* b = at(pt);
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            *reinterpret_cast<float4*>(b + (u * 128 + w) * 16) =
+                make_float4(s[4 * u], s[4 * u + 1], s[4 * u + 2],
+                            s[4 * u + 3]);
+        }
+        named_bar_arrive(2, 256);      // P^T for warpgroup 1
+      } else {
+        named_bar_sync(2, 256);        // P^T of tile j
+        float p[8];
+        xch_read(p, at(pt), w);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          s[i] = p[i] * (s[i] - rq[2 * (i >> 2) + (i & 1)]);   // dS^T
+        xch_send(s, rd, bars + 96, rank ^ 1, w);
+        mbar_wait_cluster(bars + 96, j & 1);
+        if (w == 0 && j + 1 < n_k) mbar_expect_tx(bars + 96, L::XCH);
+        float theirs[8];
+        xch_read(theirs, at(rd), w);
+        // all 16 registers into dS^T, split hi and lo, a pair at a time
+        unsigned char *hp = at(dsh), *lp = at(dsl);
+#pragma unroll
+        for (int e = 0; e < 16; e += 2) {
+          const bool mine = (e < 8) == (rank == 0);
+          const float v[2] = {mine ? s[e & 7] : theirs[e & 7],
+                              mine ? s[(e & 7) + 1] : theirs[(e & 7) + 1]};
+          uint32_t hi[2], lo[2];
+          split_tf32(v, hi, lo);
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const uint32_t a = f32_at(kTf32DqQueries,
+                                      8 * (e >> 2) + 2 * t + b,
+                                      16 * warp + g + 8 * ((e >> 1) & 1));
+            *reinterpret_cast<uint32_t*>(hp + a) = hi[b];
+            *reinterpret_cast<uint32_t*>(lp + a) = lo[b];
+          }
+        }
+        fence_proxy_async();
+      }
+      named_bar_sync(3, 256);          // dS^T of tile j is whole
+      // dQ^T += K^T dS^T over the tile's 64 keys: one tensor-core sum a
+      // tile, added in f32
+      product_3xtf32<32, 8>(
+          chunk,
+          [&](int kk, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              hi[i] = kth[kk][i];
+              lo[i] = ktl[kk][i];
+            }
+          },
+          [&](int kk, bool low) {
+            return f32_kmajor(low ? dsl : dsh, kTf32DqQueries, 0, kk);
+          });
+      wgmma_wait<0>();
+      fence_operands(chunk);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) run[e] += chunk[e];
+    }
+
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int r = q0 + 8 * (e >> 2) + 2 * t + (e & 1);
+      if (r < seq)
+        dq[(rows0 + r) * D + col0 + m0 + 16 * warp + g +
+           8 * ((e >> 1) & 1)] = scale * run[e];
+    }
+  }
+  cluster_sync_any();                  // no rank exits under the other's
+                                       // exchanges
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dkv_tf32_wgmma256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                   const __grid_constant__ CUtensorMap tm_k,
+                                   const __grid_constant__ CUtensorMap tm_v,
+                                   const __grid_constant__ CUtensorMap tm_do,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ delta,
+                                   float* __restrict__ dk,
+                                   float* __restrict__ dv, int seq,
+                                   float scale, int causal) {
+  using L = Tf32ClusterTiles;
+  constexpr int D = 256, QT = kTf32Queries;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ks = (raw + 1023) & ~1023u;   // the cluster's 64 keys
+  const uint32_t vs = ks + L::KTILE;
+  // stage st: Q, then dO of a 32-query tile as TMA lands them
+  const uint32_t stages = vs + L::KTILE;
+  auto stage = [&](int st) { return stages + st * 2 * L::QTILE; };
+  // the lo parts of the tile in hand, written by the producer once the
+  // tile before is through its first products
+  const uint32_t qlo = stages + 4 * L::QTILE, dolo = qlo + L::QTILE;
+  const uint32_t ph = dolo + L::QTILE, pl = ph + L::HAND;   // P^T
+  const uint32_t dsh = pl + L::HAND, dsl = dsh + L::HAND;   // dS^T
+  // received: the other rank's partial S^T and dP^T of this rank's half,
+  // its half of P^T and of dS^T
+  const uint32_t rs = dsl + L::HAND, rp = rs + L::XCH;
+  const uint32_t rpf = rp + L::XCH, rdf = rpf + L::XCH;
+  // mbarriers: +0 K and V landed; +8, +16 stage full; +24 lo parts
+  // written; +32 lo parts read (the first products done); +40, +48 stage
+  // free; +56, +64, +72, +80 rs, rp, rpf, rdf received
+  const uint32_t bars = rdf + L::XCH;
+  auto at = [&](uint32_t a) { return smem_raw + (a - raw); };
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3, w = tid & 127;
+  const int bh = blockIdx.y, col0 = L::W * rank;   // this rank's columns
+  const int k0 = blockIdx.z * 64;      // causal: key tile 0 walks the most
+  const long long rows0 = static_cast<long long>(bh) * seq;
+
+  if (tid == 0) {
+    mbar_init(bars, 1);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(bars + 8 + 8 * st, 1);
+      mbar_init(bars + 40 + 8 * st, 256);
+    }
+    mbar_init(bars + 24, 96);
+    mbar_init(bars + 32, 256);
+    for (int i = 0; i < 4; ++i) mbar_init(bars + 56 + 8 * i, 1);
+    mbar_fence_init();
+    for (int i = 0; i < 4; ++i)        // query tile 0's exchanges
+      mbar_expect_tx(bars + 56 + 8 * i, L::XCH);
+  }
+  cluster_sync_any();                  // both ranks run, mbarriers set
+  if (wg == 2) {
+    // the producer: one thread loads this rank's columns of K and V,
+    // then Q and dO of each query tile into stage it % 2 once the tile
+    // before there is read; warps 1-3 write each tile's lo parts once
+    // the tile before has been through its first products
+    setmaxnreg_dec<24>();
+    const int p = tid - 256;
+    // causal: query tiles wholly above the diagonal are skipped (each
+    // role works out its walk: held across the kernel, it spilled)
+    const int q_first = causal ? k0 / QT : 0;
+    const int n_it = (seq + QT - 1) / QT - q_first;
+    if (p == 0) {
+      mbar_expect_tx(bars, 2 * L::KTILE);
+      f32_load<L::W>(ks, &tm_k, bars, 64, k0, bh, col0);
+      f32_load<L::W>(vs, &tm_v, bars, 64, k0, bh, col0);
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it & 1, qb = (q_first + it) * QT;
+        const uint32_t full = bars + 8 + 8 * st;
+        if (it >= 2) mbar_wait(bars + 40 + 8 * st, ((it >> 1) - 1) & 1);
+        mbar_expect_tx(full, 2 * L::QTILE);
+        f32_load<L::W>(stage(st), &tm_q, full, QT, qb, bh, col0);
+        f32_load<L::W>(stage(st) + L::QTILE, &tm_do, full, QT, qb, bh, col0);
+      }
+    } else if (p >= 32) {
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it & 1;
+        mbar_wait(bars + 8 + 8 * st, (it >> 1) & 1);
+        if (it > 0) mbar_wait(bars + 32, (it - 1) & 1);
+        split_lo(at(qlo), at(stage(st)), L::QTILE, p - 32, 96);
+        split_lo(at(dolo), at(stage(st) + L::QTILE), L::QTILE, p - 32, 96);
+        fence_proxy_async();
+        mbar_arrive(bars + 24);
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    // warpgroup 0 builds the partial S^T = K Q^T over this rank's 128
+    // columns, P^T, and dV^T += dO^T P; warpgroup 1 the partial dP^T = V
+    // dO^T, dS^T from P^T, and dK^T += Q^T dS. Rank r finishes the
+    // tile's queries 16 r .. 16 r + 15 (this thread's registers 8 r ..
+    // 8 r + 7). Both warpgroups own all of the rank's 128 rows of their
+    // output (two blocks of 64) and the 64 keys.
+    float run[2][32], chunk[32];
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) run[mb][e] = 0.f;
+    mbar_wait(bars, 0);                // K and V have landed
+
+    // the walk from the key tile's own queries when causal
+    for (int qb0 = causal ? k0 : 0, it = 0; qb0 < seq; qb0 += QT, ++it) {
+      const int st = it & 1;
+      const bool more = qb0 + QT < seq;   // a query tile after this one
+      // shared addresses are rebuilt where they are used, from an opaque
+      // base (held across the loop, they spilled)
+      auto rebase = [&](uint32_t a) { return opaque(ks) + (a - ks); };
+      // the LSE (warpgroup 0) or delta (1) of this thread's 4 queries of
+      // this rank's half; read under the product
+      float rq[4];
+      {
+        const float* rows = (wg == 0 ? lse : delta) + rows0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = qb0 + 16 * rank + 8 * (c >> 1) + 2 * t + (c & 1);
+          rq[c] = r < seq ? rows[r] : 0.f;
+        }
+      }
+      mbar_wait(bars + 24, it & 1);    // the tile and its lo parts
+      float x[16];                     // S^T or dP^T, this rank's part
+      {
+        // B of the first product: Q for S^T, dO for dP^T (hi as TMA
+        // wrote it, and its lo)
+        const unsigned char* own = at(rebase(wg == 0 ? ks : vs));
+        const uint32_t bhi = rebase(stage(st) + (wg == 0 ? 0 : L::QTILE));
+        const uint32_t blo = rebase(wg == 0 ? qlo : dolo);
+        product_3xtf32<32, L::W / 8>(
+            x,
+            [&](int kk, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
+              frag_mk(hi, lo, own, 64, 16 * warp, kk, g, t);
+            },
+            [&](int kk, bool low) {
+              return f32_kmajor(low ? blo : bhi, QT, 0, kk);
+            });
+      }
+      wgmma_wait<0>();
+      fence_operands(x);
+      mbar_arrive(bars + 32);          // the lo parts are read
+      float s[8];                      // this rank's half over all of D
+      {
+        const uint32_t recv = rebase(wg == 0 ? rs : rp);
+        const uint32_t recv_bar = rebase(bars + (wg == 0 ? 56 : 64));
+        float theirs[8];               // the other rank's half, to it
+        half_of(theirs, x, rank ^ 1);
+        xch_send(theirs, recv, recv_bar, rank ^ 1, w);
+        mbar_wait_cluster(recv_bar, it & 1);
+        if (w == 0 && more) mbar_expect_tx(recv_bar, L::XCH);
+        summed_half(s, x, at(recv), rank, w);
+      }
+      const bool edge = (causal && qb0 < k0 + 63) || qb0 + QT > seq ||
+                        k0 + 64 > seq;
+      // this thread's keys 16 warp + g (+ 8) and queries 8 n + 2 t (+ 1):
+      // registers 4 n + 0, 1 (2, 3), written and read as pairs
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float p = expf(fmaf(s[i], scale, -rq[2 * (i >> 2) + (i & 1)]));
+          if (edge &&
+              masked(qb0 + 16 * rank + 8 * (i >> 2) + 2 * t + (i & 1),
+                     k0 + 16 * warp + g + 8 * ((i >> 1) & 1), seq, causal))
+            p = 0.f;
+          s[i] = p;                    // P^T
+        }
+      } else {
+        named_bar_sync(5, 256);        // P^T of this tile, both halves
+        const unsigned char* hp = at(rebase(ph));
+#pragma unroll
+        for (int i = 0; i < 8; i += 2) {
+          const uint32_t a = f32_at(64, 16 * warp + g + 8 * ((i >> 1) & 1),
+                                    16 * rank + 8 * (i >> 2) + 2 * t);
+          const float2 h = *reinterpret_cast<const float2*>(hp + a);
+          const float2 l = *reinterpret_cast<const float2*>(hp + L::HAND +
+                                                            a);
+          s[i] = (h.x + l.x) * (s[i] - rq[2 * (i >> 2)]);   // dS^T
+          s[i + 1] = (h.y + l.y) * (s[i + 1] - rq[2 * (i >> 2) + 1]);
+        }
+        if (more) named_bar_arrive(4, 256);   // P^T is read
+      }
+      {
+        // the finished half to the other rank, and its half back: P^T
+        // (warpgroup 0) or dS^T (1)
+        const uint32_t fin = rebase(wg == 0 ? rpf : rdf);
+        const uint32_t fin_bar = rebase(bars + (wg == 0 ? 72 : 80));
+        xch_send(s, fin, fin_bar, rank ^ 1, w);
+        mbar_wait_cluster(fin_bar, it & 1);
+        if (w == 0 && more) mbar_expect_tx(fin_bar, L::XCH);
+        // warpgroup 1 has read tile it - 1's P^T
+        if (wg == 0 && it > 0) named_bar_sync(4, 256);
+        float theirs[8];
+        xch_read(theirs, at(fin), w);
+        // all 16 registers into the handoff, split hi and lo, a pair at
+        // a time
+        unsigned char* hp = at(rebase(wg == 0 ? ph : dsh));
+#pragma unroll
+        for (int e = 0; e < 16; e += 2) {
+          const bool mine = (e < 8) == (rank == 0);
+          const float v[2] = {mine ? s[e & 7] : theirs[e & 7],
+                              mine ? s[(e & 7) + 1] : theirs[(e & 7) + 1]};
+          uint32_t hi[2], lo[2];
+          split_tf32(v, hi, lo);
+          const uint32_t a = f32_at(64, 16 * warp + g + 8 * ((e >> 1) & 1),
+                                    8 * (e >> 2) + 2 * t);
+          *reinterpret_cast<uint2*>(hp + a) = make_uint2(hi[0], hi[1]);
+          *reinterpret_cast<uint2*>(hp + L::HAND + a) =
+              make_uint2(lo[0], lo[1]);
+        }
+      }
+      fence_proxy_async();
+      named_bar_sync(6 + wg, 128);     // this warpgroup's handoff is whole
+      if (wg == 0) named_bar_arrive(5, 256);   // P^T for warpgroup 1
+      // dV^T += dO^T P (warpgroup 0), dK^T += Q^T dS (1): one tensor-core
+      // sum a query tile for each 64-row block of the rank's columns,
+      // added in f32 before the next block's; A the stage's dO^T or Q^T
+      const unsigned char* sp =
+          at(rebase(stage(st) + (wg == 0 ? L::QTILE : 0)));
+      const uint32_t hand = rebase(wg == 0 ? ph : dsh);
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb) {
+        product_3xtf32<64, QT / 8>(
+            chunk,
+            [&](int kk, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
+              frag_km(hi, lo, sp, QT, 64 * mb + 16 * warp, kk, g, t);
+            },
+            [&](int kk, bool low) {
+              return f32_kmajor(hand + (low ? L::HAND : 0), 64, 0, kk);
+            });
+        if (mb == 1) mbar_arrive(bars + 40 + 8 * st);   // stage read
+        wgmma_wait<0>();
+        fence_operands(chunk);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) run[mb][e] += chunk[e];
+      }
+    }
+
+    float* out = wg == 0 ? dv : dk;
+    const float f = wg == 0 ? 1.f : scale;
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int key = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        if (key < seq)
+          out[(rows0 + key) * D + col0 + 64 * mb + 16 * warp + g +
+              8 * ((e >> 1) & 1)] = f * run[mb][e];
+      }
+  }
+  cluster_sync_any();                  // no rank exits under the other's
+                                       // exchanges
+}
+
 // The storage type and head_dim pick the kernel: bf16 the wgmma kernels
-// (head_dim 256 its own); f32 at head_dim 64 and 128 split TF32 on wgmma,
-// at 16, 32 and 256 split TF32 on mma.sync (launch_mma's grid).
+// (head_dim 256 its own); f32 split TF32 on wgmma at head_dim 64 and 128,
+// on wgmma in clusters of two at 256, and on mma.sync at 16 and 32
+// (launch_mma's grid).
 template <typename T>
 constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 template <typename T, int D>
 constexpr bool kWgmma256 = kBf16<T> && D == 256;
 template <typename T, int D>
 constexpr bool kTf32Wgmma = !kBf16<T> && (D == 64 || D == 128);
+template <typename T, int D>
+constexpr bool kTf32Cluster = !kBf16<T> && D == 256;
 // threads of a backward CTA of storage T at head_dim D
 template <typename T, int D>
-constexpr int kBwdThreadsOf = kWgmma256<T, D> ? kBwdWgThreads
-                              : kBf16<T> || kTf32Wgmma<T, D> ? kBwdThreads
-                                                             : kMmaThreads;
+constexpr int kBwdThreadsOf =
+    kWgmma256<T, D> ? kBwdWgThreads
+    : kBf16<T> || kTf32Wgmma<T, D> || kTf32Cluster<T, D> ? kBwdThreads
+                                                         : kMmaThreads;
 
 // Launch a wgmma backward kernel of storage T at head_dim D on a (bh,
 // ceil(seq / tile)) grid of `threads` threads with `bytes` of dynamic
@@ -1779,6 +2423,46 @@ int launch_wgmma(Kernel kernel, int threads, const void* const (&src)[4],
   return cudaGetLastError();
 }
 
+// Launch an f32 head_dim-256 kernel on a (2, bh, ceil(seq / tile)) grid of
+// clusters of two CTAs along x (kBwdThreads threads, `bytes` of dynamic
+// shared memory each), its first four arguments the tensor maps of q, k,
+// v and dO: boxes of `q_rows` rows for q and dO, of `kv_rows` for k and
+// v; -> the launch's error code (a refused cluster launch included:
+// nothing falls back).
+template <typename Kernel, typename... Args>
+int launch_tf32_cluster(Kernel kernel, const void* const (&src)[4],
+                        int q_rows, int kv_rows, int tile, int bh, int seq,
+                        size_t bytes, cudaStream_t stream, Args... args) {
+  const int tiles = (seq + tile - 1) / tile;
+  if (tiles > 65535 || bh > 65535) return cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = rows_map<float>(
+        &maps[i], src[i], 256, seq, bh, i == 0 || i == 3 ? q_rows : kv_rows);
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kTf32Ranks, bh, tiles);   // the tile axis slowest
+  cfg.blockDim = dim3(kBwdThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kTf32Ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], maps[2], maps[3],
+                           args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 struct DqLaunch {
   const void *q, *k, *v, *o, *dout;
   const float* lse;
@@ -1797,6 +2481,8 @@ struct DqLaunch {
       return flash_dq_wgmma_kernel<D>;
     else if constexpr (kTf32Wgmma<T, D>)
       return flash_dq_tf32_wgmma_kernel<D>;
+    else if constexpr (kTf32Cluster<T, D>)
+      return flash_dq_tf32_wgmma256_kernel;
     else
       return flash_dq_tf32_kernel<D>;
   }
@@ -1809,6 +2495,8 @@ struct DqLaunch {
       return BwdTiles<D>::kDqSmem;
     else if constexpr (kTf32Wgmma<T, D>)
       return Tf32WgTiles<D>::kDqSmem;
+    else if constexpr (kTf32Cluster<T, D>)
+      return Tf32ClusterTiles::kDqSmem;
     else
       return Tf32BwdTiles<D>::kDqSmem;
   }
@@ -1825,9 +2513,17 @@ struct DqLaunch {
                                 static_cast<const T*>(dout), lse,
                                 static_cast<T*>(dq), delta, seq, scale,
                                 causal);
+    } else if constexpr (kTf32Cluster<T, D>) {
+      // a cluster owns 32 queries and streams 64-key tiles
+      const void* const src[4] = {q, k, v, dout};
+      return launch_tf32_cluster(
+          kernel<T, D>(), src, kTf32DqQueries, kBlockK, kTf32DqQueries, bh,
+          seq, smem<T, D>(), stream, static_cast<const float*>(o),
+          static_cast<const float*>(dout), lse, static_cast<float*>(dq),
+          delta, seq, scale, causal);
     } else {
-      return launch_mma(kernel<T, D>(), bh, seq, D / kOutCols<D>,
-                        smem<T, D>(), stream, static_cast<const T*>(q),
+      return launch_mma(kernel<T, D>(), bh, seq, 1, smem<T, D>(), stream,
+                        static_cast<const T*>(q),
                         static_cast<const T*>(k), static_cast<const T*>(v),
                         static_cast<const T*>(o), static_cast<const T*>(dout),
                         lse, static_cast<T*>(dq), delta, seq, scale, causal);
@@ -1852,6 +2548,8 @@ struct DkvLaunch {
       return flash_dkv_wgmma_kernel<D>;
     else if constexpr (kTf32Wgmma<T, D>)
       return flash_dkv_tf32_wgmma_kernel<D>;
+    else if constexpr (kTf32Cluster<T, D>)
+      return flash_dkv_tf32_wgmma256_kernel;
     else
       return flash_dkv_tf32_kernel<D>;
   }
@@ -1864,6 +2562,8 @@ struct DkvLaunch {
       return BwdTiles<D>::kDkvSmem;
     else if constexpr (kTf32Wgmma<T, D>)
       return Tf32WgTiles<D>::kDkvSmem;
+    else if constexpr (kTf32Cluster<T, D>)
+      return Tf32ClusterTiles::kDkvSmem;
     else
       return Tf32BwdTiles<D>::kDkvSmem;
   }
@@ -1880,9 +2580,16 @@ struct DkvLaunch {
                                 streamed, own, own, bh, seq, smem<T, D>(),
                                 stream, lse, delta, static_cast<T*>(dk),
                                 static_cast<T*>(dv), seq, scale, causal);
+    } else if constexpr (kTf32Cluster<T, D>) {
+      // a cluster owns 64 keys and streams 32-query tiles
+      const void* const src[4] = {q, k, v, dout};
+      return launch_tf32_cluster(
+          kernel<T, D>(), src, kTf32Queries, kBlockK, kBlockK, bh, seq,
+          smem<T, D>(), stream, lse, delta, static_cast<float*>(dk),
+          static_cast<float*>(dv), seq, scale, causal);
     } else {
-      return launch_mma(kernel<T, D>(), bh, seq, D / kOutCols<D>,
-                        smem<T, D>(), stream, static_cast<const T*>(q),
+      return launch_mma(kernel<T, D>(), bh, seq, 1, smem<T, D>(), stream,
+                        static_cast<const T*>(q),
                         static_cast<const T*>(k), static_cast<const T*>(v),
                         static_cast<const T*>(dout), lse, delta,
                         static_cast<T*>(dk), static_cast<T*>(dv), seq, scale,
@@ -1893,8 +2600,9 @@ struct DkvLaunch {
 
 // What the runtime says of one backward kernel: registers a thread, local
 // memory a thread (spills), dynamic shared memory and resident CTAs per
-// SM at the kernel's own thread count, into out[0..3]; out[4] = 1,
-// out[5] = 0 (no cluster).
+// SM at the kernel's own thread count, into out[0..3]; out[4] the
+// cluster size, out[5] co-resident clusters (1 and 0 without a cluster:
+// all but the f32 head_dim-256 kernels, fill_info of flash_wide.cuh).
 struct InfoQuery {
   int which;                           // 0: dQ, 1: dK/dV
   int* out;
@@ -1927,6 +2635,12 @@ struct InfoQuery {
 
   template <typename T, int D>
   int run() const {
+    if constexpr (kTf32Cluster<T, D>)
+      return which == 0 ? fill_info(DqLaunch::kernel<T, D>(), kBwdThreads,
+                                    DqLaunch::smem<T, D>(), kTf32Ranks, out)
+                        : fill_info(DkvLaunch::kernel<T, D>(), kBwdThreads,
+                                    DkvLaunch::smem<T, D>(), kTf32Ranks,
+                                    out);
     // the mma.sync kernels are launched with the largest carveout
     constexpr bool mma = kBwdThreadsOf<T, D> == kMmaThreads;
     return which == 0

@@ -28,16 +28,6 @@ namespace sparknet_flash {
 constexpr int kMmaThreads = 128;   // 4 warps, each 16 rows of the CTA's 64
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Output columns an f32 backward CTA (flash_bwd.cu's split-TF32 kernels)
-// accumulates at head_dim D. At D = 256 the dK and dV accumulators of all
-// columns (2 x 128 f32 a thread) would not fit in registers: the grid's z
-// axis splits the output columns in 128-wide halves, and each CTA
-// recomputes the score tiles (whose reduction runs over all of D) for its
-// half. The bf16 wgmma kernels need no split: each warpgroup holds all
-// the columns up to D = 128, and half of them at 256.
-template <int D>
-constexpr int kOutCols = D > 128 ? 128 : D;
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -273,15 +273,16 @@ __device__ __forceinline__ uint64_t f32_kmajor(uint32_t tile, int rows,
                     16, 1024, 128);
 }
 
-// rows row0 .. of a (D, seq, bh) f32 map whose box is `rows` rows of 32
-// floats, into the tile at `dst`, completing on `bar`
+// rows row0 .. and D columns from col0 on of an f32 map (the tensor's
+// head_dim, seq, bh) whose box is `rows` rows of 32 floats, into the tile
+// at `dst`, completing on `bar`
 template <int D>
 __device__ __forceinline__ void f32_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int rows, int row0,
-                                         int bh) {
+                                         int bh, int col0 = 0) {
 #pragma unroll
   for (int c = 0; c < D / 32; ++c)
-    tma_load_3d(dst + c * rows * 128, map, bar, c * 32, row0, bh);
+    tma_load_3d(dst + c * rows * 128, map, bar, col0 + c * 32, row0, bh);
 }
 
 // The lo parts of a tile as TMA wrote it, which wgmma reads as its hi

@@ -165,14 +165,28 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
 
+// a barrier of every thread of the cluster that a warp need not reach
+// together (flash_bwd.cu's f32 head_dim-256 kernels, whose producer warp
+// has one thread loading while the others wait)
+__device__ __forceinline__ void cluster_sync_any() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the shared::cluster address of this CTA's shared address `a` in rank
+// `rank`'s shared memory
+__device__ __forceinline__ uint32_t mapa_u32(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(a), "r"(rank));
+  return r;
+}
+
 // the shared::cluster address of `p` (this CTA's shared memory) in rank
 // `rank`'s shared memory
 __device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(a)
-               : "r"(smem_addr(p)), "r"(rank));
-  return a;
+  return mapa_u32(smem_addr(p), rank);
 }
 
 // Asynchronous stores into a rank's shared memory that complete their

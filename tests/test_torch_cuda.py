@@ -425,12 +425,15 @@ def test_flash_forward_is_deterministic_on_card(cuda, causal, dtype, b, s,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s, d", [(512, 128), (512, 64), (512, 32),
-                                  (1000, 128), (1000, 64)],
-                         ids=["128", "64", "32", "128-S1000", "64-S1000"])
+                                  (1000, 128), (1000, 64), (512, 256),
+                                  (1000, 256)],
+                         ids=["128", "64", "32", "128-S1000", "64-S1000",
+                              "256", "256-S1000"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_flash_f32_backward_keeps_its_limits_on_card(cuda, causal, s, d):
-    # f32 storage takes the split-TF32 kernels (wgmma at D 64 and 128,
-    # mma.sync at 32): f32-accurate products, so the readings stay within
+    # f32 storage takes the split-TF32 kernels (wgmma at D 64 and 128, in
+    # clusters of two CTAs at 256, mma.sync at 32): f32-accurate
+    # products, so the readings stay within
     # the old limits (5e-4 of the largest element, 1e-4 of a tile), a
     # tile even within 1e-5, far under what bf16 or one-pass TF32
     # products would read (~3e-3 of a tile)
@@ -500,7 +503,8 @@ def test_flash_kernels_take_unbuilt_head_dims_on_card(cuda, d, causal, dtype):
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_flash_kernels_at_head_dim_256_on_card(cuda, causal, dtype, b):
     # the widest built head_dim (ROADMAP B0): the f32 kernels in split
-    # TF32 with the output columns split over the grid's z axis; bf16 on
+    # TF32 (the backward on wgmma in clusters of two CTAs, 128 columns
+    # each; the forward on mma.sync); bf16 on
     # wgmma, one CTA of two warpgroups owning all 256 columns of its rows
     # in every kernel (the forward: b 2 gives fewer 128-row CTAs than the
     # card has SMs, so its split variant runs, 64 rows a CTA; b 24 the

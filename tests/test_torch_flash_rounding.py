@@ -474,15 +474,23 @@ F32_LIMIT = {"O": 2e-5, "LSE": 2e-5, "delta": 2e-5, "dq": 5e-4, "dk": 5e-4,
 F32_TILE_LIMIT = 1e-4                  # chip_smoke.FLASH_TILE_LIMIT["float32"]
 F32_SHAPES = [pytest.param((1, 2, 256, 64), id="S256-D64"),
               pytest.param((1, 2, 256, 128), id="S256-D128")]
+# head_dim 256, where the f32 backward runs on wgmma in clusters of two
+# CTAs (flash_dq_tf32_wgmma256_kernel, flash_dkv_tf32_wgmma256_kernel):
+# S 256, and a ragged S of 200
+F32_CLUSTER_SHAPES = [pytest.param((1, 2, 256, 256), id="S256-D256"),
+                      pytest.param((1, 1, 200, 256), id="S200-D256")]
 # the backward's cases: (shape, design) of F32_SHAPES for the mma.sync
 # kernels (csrc/flash_bwd.cu's flash_dq_tf32_kernel, flash_dkv_tf32_kernel,
-# which run head_dim 16, 32 and 256) and for the wgmma kernels of head_dim
-# 64 and 128 (flash_dq_tf32_wgmma_kernel, flash_dkv_tf32_wgmma_kernel)
+# which run head_dim 16 and 32) and for the wgmma kernels of head_dim 64
+# and 128 (flash_dq_tf32_wgmma_kernel, flash_dkv_tf32_wgmma_kernel) and
+# of head_dim 256 in clusters of two (F32_CLUSTER_SHAPES)
 F32_BWD_CASES = [
     pytest.param(((1, 2, 256, 64), "mma.sync"), id="S256-D64"),
     pytest.param(((1, 2, 256, 128), "mma.sync"), id="S256-D128"),
     pytest.param(((1, 2, 256, 64), "wgmma"), id="S256-D64-wgmma"),
-    pytest.param(((1, 2, 256, 128), "wgmma"), id="S256-D128-wgmma")]
+    pytest.param(((1, 2, 256, 128), "wgmma"), id="S256-D128-wgmma"),
+    *(pytest.param((p.values[0], "wgmma"), id=f"{p.id}-wgmma")
+      for p in F32_CLUSTER_SHAPES)]
 # the forward's cases: (shape, design) of F32_SHAPES and WIDE_SHAPES for
 # the mma.sync kernel (csrc/flash_fwd.cu's flash_fwd_tf32_kernel, which
 # runs head_dim 16 and 256) and the cluster kernel past 256, and for the
@@ -713,7 +721,10 @@ def _split_tf32_backward(shape, causal, one_accumulator=False,
     flash_dkv_tf32_wgmma_kernel): both kernels build S^T = K Q^T and
     dP^T = V dO^T, K and V split in registers and Q and dO read as TMA
     wrote them (their hi truncated, _raw_split), each one tensor-core
-    sum over all of D; and the second products transposed, dQ^T = K^T
+    sum over all of D (at head_dim 256, flash_dq_tf32_wgmma256_kernel
+    and flash_dkv_tf32_wgmma256_kernel: one sum of 16 k-steps over each
+    cluster rank's 128 columns, the two partials added in rank order in
+    f32); and the second products transposed, dQ^T = K^T
     dS^T a 64-key tile, dV^T = dO^T P and dK^T = Q^T dS a 32-query tile
     at a time, each tile one tensor-core sum added in f32, K^T, dO^T and
     Q^T split in registers and dS^T, P, dS as the threads write them.
@@ -748,8 +759,13 @@ def _split_tf32_backward(shape, causal, one_accumulator=False,
         return x.transpose(-1, -2)
     rows = _streamed(d, design)
     if design == "wgmma":
-        st, dpt = (_tc_sum(x, t(y), passes, chain=d // 8, b_raw=True)
-                   for x, y in ((k, q), (v, do)))
+        def first(x, y):
+            w = min(d, ca.WIDE_CHUNK)      # the columns of a rank
+            parts = [_tc_sum(x[..., c:c + w], t(y[..., c:c + w]), passes,
+                             chain=w // 8, b_raw=True)
+                     for c in range(0, d, w)]
+            return parts[0] if len(parts) == 1 else _rank_sum(parts)
+        st, dpt = (first(x, y) for x, y in ((k, q), (v, do)))
         pt, dst = p_ds(st, dpt, t(lse), t(delta), future.t())
         out = {"dq": scale * t(tiled(t(k), dst, rows["dq"])),
                "dk": scale * t(tiled(t(q), t(dst), rows["dkv"])),
@@ -858,6 +874,18 @@ def test_split_tf32_backward_keeps_the_f32_limits(case, causal, output):
         _pallas_reference(shape, causal)[output]))
 
 
+@pytest.mark.parametrize("output", ["dq", "dk", "dv"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("shape", F32_CLUSTER_SHAPES)
+def test_split_tf32_cluster_backward_keeps_the_f32_limits_against_f64(
+        shape, causal, output):
+    # the head_dim-256 cluster kernels' emulation against softmax
+    # attention's gradients in f64, at the f32 limits
+    got = _split_tf32_backward(shape, causal, design="wgmma")
+    _check(output, got[output],
+           _f64_gradients(shape, causal)[output].float())
+
+
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("shape", WIDE_SHAPES)
 def test_split_tf32_wide_dq_keeps_the_f32_limits(shape, causal):
@@ -907,7 +935,7 @@ def test_one_tf32_pass_reads_over_the_f32_o_limit(case, causal):
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("shape", F32_SHAPES)
+@pytest.mark.parametrize("shape", F32_SHAPES + F32_CLUSTER_SHAPES)
 def test_one_tf32_pass_reads_over_the_f32_backward_limits(shape, causal):
     # the one-pass control of the wgmma backward: every product one TF32
     # pass (the raw tiles' truncated hi, the others' rounded one), which
