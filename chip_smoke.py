@@ -61,13 +61,14 @@ Phases, each of which raises on failure (exit code not 0):
               the CPU on one thread (must pass), a zeroed LRN backward at
               each site and TF32 on (each must fail the same reading).
  6. flash   — registers, spills, shared memory, CTAs per SM, and for the
-              cluster kernels (past head_dim 256, and the f32 backward
-              at 256) the cluster size and co-resident clusters, of every
-              flash kernel instantiation, forward and backward (none may
-              spill; the backward's on wgmma, the f32 forward's on
-              wgmma and the f32 backward's clusters of two at head_dim
-              256 must read their designs' 168 registers, shared memory,
-              one CTA an SM and cluster size); then the three
+              cluster kernels (past head_dim 256, and the f32 forward and
+              backward at 256) the cluster size and co-resident clusters,
+              of every flash kernel instantiation, forward and backward
+              (none may spill; the backward's on wgmma, the f32
+              forward's on wgmma and the f32 forward's and backward's
+              clusters of two at head_dim 256 must read their designs'
+              168 registers, shared memory, one CTA an SM and cluster
+              size); then the three
               flash-attention kernels (forward, dQ, dK/dV) against their
               plain versions: f32 at (2, 4, 1024, 64), causal and not,
               bf16 at (2, 4, 1024, 128) full, (2, 4, 1024, 64) causal
@@ -1359,9 +1360,10 @@ def _flash_kernel_info(torch):
     backward kernel on wgmma (bf16 up to head_dim 128, _bf16_bwd_design;
     f32 at 64 and 128, _f32_bwd_design; f32 at 256 in clusters of two,
     _f32_bwd256_design) or the f32 forward on wgmma (32 to 128,
-    _f32_fwd_design) is not as it was built: 384 threads (a producer and
-    two consumer warpgroups) at 168 registers, its shared memory, one
-    CTA an SM (and its cluster size)."""
+    _f32_fwd_design; 256 in clusters of two, _f32_fwd256_design) is not
+    as it was built: 384 threads (a producer and two consumer
+    warpgroups) at 168 registers, its shared memory, one CTA an SM (and
+    its cluster size)."""
     import ctypes
     from sparknet_tpu_torch.ops import cuda_attention as ca
     from sparknet_tpu_torch.ops import cuda_build
@@ -1399,7 +1401,9 @@ def _flash_kernel_info(torch):
                 f32 = dtype == torch.float32
                 if name == "flash_attention":
                     design = _f32_fwd_design \
-                        if f32 and built in F32_FWD_WGMMA_DIMS else None
+                        if f32 and built in F32_FWD_WGMMA_DIMS \
+                        else _f32_fwd256_design if f32 and built == 256 \
+                        else None
                 else:
                     design = _bf16_bwd_design if not f32 and built <= 128 \
                         else _f32_bwd_design \
@@ -1475,8 +1479,9 @@ def _f32_bwd256_design(name, d=256):
             "ctas_per_sm": 1, "cluster_size": 2}
 
 
-# the f32 forward's head_dims on wgmma (flash_fwd_tf32_wgmma_kernel); 16
-# and 256 run split TF32 on mma.sync
+# the f32 forward's head_dims on wgmma (flash_fwd_tf32_wgmma_kernel); 256
+# runs on wgmma in clusters of two (flash_fwd_tf32_wgmma256_kernel), 16
+# split TF32 on mma.sync
 F32_FWD_WGMMA_DIMS = (32, 64, 128)
 
 
@@ -1495,6 +1500,25 @@ def _f32_fwd_design(name, d):
             "ctas_per_sm": 1}
 
 
+def _f32_fwd256_design(name, d=256):
+    """What the runtime should say of the f32 forward at head_dim 256
+    (csrc/flash_fwd.cu, Tf32ClusterFwdTiles; ``name`` is the forward's),
+    each CTA of a cluster of two owning 128 columns: 384 threads at
+    launch_bounds(384, 1) leave 168 registers a thread (the consumers
+    take 232 through setmaxnreg, the producer 40); shared memory for the
+    cluster's 64 queries, a 64-key tile of K, its lo and V as TMA lands
+    them, V^T hi and lo (128 rows of 64 keys), the received partial
+    scores (16 f32 a thread of warpgroup 0), P (32 f32 a thread of
+    warpgroup 1), alpha and l (2 f32 a thread each), 128 bytes of
+    mbarriers and 1024 to align the tiles; one CTA an SM, clusters of
+    two."""
+    cols, threads = d // 2, 128
+    tile = 64 * cols * 4
+    smem = 6 * tile + (16 + 32 + 2 + 2) * threads * 4
+    return {"registers": 168, "smem_bytes": smem + 128 + 1024,
+            "ctas_per_sm": 1, "cluster_size": 2}
+
+
 def _kernel_name(name, dtype, d):
     """The CUDA kernel of a flash wrapper (``name``) at a storage
     ``dtype`` and head_dim ``d`` up to 256 (csrc/flash_fwd.cu,
@@ -1508,7 +1532,9 @@ def _kernel_name(name, dtype, d):
             return "flash_fwd_wgmma256_kernel" if d == 256 else \
                 f"flash_fwd_wgmma_kernel<{d}>"
         return f"flash_fwd_tf32_wgmma_kernel<{d}>" \
-            if d in F32_FWD_WGMMA_DIMS else f"flash_fwd_tf32_kernel<{d}>"
+            if d in F32_FWD_WGMMA_DIMS \
+            else "flash_fwd_tf32_wgmma256_kernel" if d == 256 \
+            else f"flash_fwd_tf32_kernel<{d}>"
     which = "dq" if name == "flash_attention_dq" else "dkv"
     if dtype == "bfloat16":
         return f"flash_{which}_wgmma256_kernel" if d == 256 else \

@@ -19,12 +19,13 @@ and the shared case, ``--cases bf16-128`` the bf16 cases up to head_dim
 128 and the shared case, ``--cases f32`` the f32 cases up to head_dim
 128 and the shared case, ``--cases f32-256`` the f32 cases at head_dim
 256 and 192 and the shared case; ``--sass`` first prints the
-instructions (cuobjdump) in which the two trees' bf16 forward kernels up
-to head_dim 128 and f32 backward kernels on wgmma (64 and 128) differ,
-and counts the wgmma (HGMMA) and mma.sync (HMMA) instructions of this
+instructions (cuobjdump) in which the two trees' flash kernels differ,
+for every kind of kernel that both trees build (SASS_SAME: all but the
+f32 forward at head_dim 256, whose kernel this tree replaces), and
+counts the wgmma (HGMMA) and mma.sync (HMMA) instructions of this
 tree's kernels on wgmma (the backward's bf16 up to head_dim 128 and f32
-at 64, 128 and 256, the f32 forward's at 32-128; the f32 ones' HGMMA
-must read TF32 operands), which must be HGMMA only; ``--steps N`` last
+at 64, 128 and 256, the f32 forward's at 32-128 and 256; the f32 ones'
+HGMMA must read TF32 operands), which must be HGMMA only; ``--steps N`` last
 times a train step with the baseline's and this tree's flash_fwd and
 flash_bwd in turns, N steps an arm, baseline, new, new, baseline, and
 prints each arm's median and its spread: the LM row's, bf16 on one
@@ -106,10 +107,11 @@ CASE_SETS = {"all": lambda c: True,
 # --sass: instantiations on wgmma, by the start of their mangled names:
 # the bf16 forward up to head_dim 128 and the backward's bf16 ones up to
 # 128, the f32 (split TF32) backward's at 64 and 128 and its cluster
-# kernels at 256, and the f32 forward's at 32-128, whose HGMMA must read
-# TF32 operands
+# kernels at 256, and the f32 forward's at 32-128 and its cluster kernel
+# at 256, whose HGMMA must read TF32 operands
 SASS_FWD = re.compile(r"flash_fwd_wgmma_kernelILi")
 SASS_FWD_TF32 = re.compile(r"flash_fwd_tf32_wgmma_kernelILi")
+SASS_FWD_TF32_256 = re.compile(r"flash_fwd_tf32_wgmma256_kernel")
 SASS_BWD = re.compile(r"flash_(dq|dkv)_wgmma_kernelILi")
 SASS_BWD_TF32 = re.compile(r"flash_(dq|dkv)_tf32_wgmma_kernelILi")
 SASS_BWD_TF32_256 = re.compile(r"flash_(dq|dkv)_tf32_wgmma256_kernel")
@@ -118,11 +120,19 @@ TF32_HEAD_DIMS = (64, 128)
 # whose products are counted, and {library: kind} whose instructions a
 # tree may mean to leave as they were (diffed against the baseline's)
 SASS_PRODUCTS = {
-    "flash_fwd": {SASS_FWD_TF32: (len(chip_smoke.F32_FWD_WGMMA_DIMS), True)},
+    "flash_fwd": {SASS_FWD_TF32: (len(chip_smoke.F32_FWD_WGMMA_DIMS), True),
+                  SASS_FWD_TF32_256: (1, True)},
     "flash_bwd": {SASS_BWD: (2 * (len(ca.HEAD_DIMS) - 1), False),
                   SASS_BWD_TF32: (2 * len(TF32_HEAD_DIMS), True),
                   SASS_BWD_TF32_256: (2, True)}}
-SASS_SAME = {"flash_fwd": SASS_FWD, "flash_bwd": SASS_BWD_TF32}
+SASS_SAME = {
+    "flash_fwd": (SASS_FWD, re.compile(r"flash_fwd_wgmma256_kernel"),
+                  SASS_FWD_TF32, re.compile(r"flash_fwd_tf32_kernelILi16E"),
+                  re.compile(r"flash_wide_fwd_kernel")),
+    "flash_bwd": (SASS_BWD, re.compile(r"flash_(dq|dkv)_wgmma256_kernel"),
+                  SASS_BWD_TF32, SASS_BWD_TF32_256,
+                  re.compile(r"flash_(dq|dkv)_tf32_kernelILi"),
+                  re.compile(r"flash_wide_(dq|dkv)_kernel"))}
 BRANCH = re.compile(r"\b(BRA|BRX|BSSY|CALL\.\S+|JMP|JMX)\b")
 KERNELS = (("fwd", "flash_attention", "O"), ("dq", "flash_attention_dq", "dQ"),
            ("dkv", "flash_attention_dkv", "dK"))
@@ -315,11 +325,10 @@ def main():
     ap.add_argument("--cases", choices=sorted(CASE_SETS), default="all",
                     help="the cases to time (default: all)")
     ap.add_argument("--sass", action="store_true",
-                    help="first diff the SASS of the bf16 forward's "
-                         "instantiations up to head_dim 128 and of the f32 "
-                         "backward's on wgmma in both trees, and count the "
-                         "wgmma and mma.sync instructions of the forward's "
-                         "and the backward's instantiations on wgmma")
+                    help="first diff the SASS of every flash kernel both "
+                         "trees build, and count the wgmma and mma.sync "
+                         "instructions of the forward's and the backward's "
+                         "instantiations on wgmma")
     ap.add_argument("--steps", type=int, default=0,
                     help="last time the LM row's step with each tree's "
                          "flash_fwd and flash_bwd, N steps an arm: bf16 on "
@@ -340,9 +349,12 @@ def main():
     arms = {"baseline": chip_smoke.flash_entry_points(baseline)}
     if args.sass:
         for name in SOURCES:
-            sass_diff(os.path.join(REPO, "_work", "flash_ab", "baseline",
-                                   f"{name}.so"),
-                      cuda_build.library_path(name), SASS_SAME[name])
+            for kind in SASS_SAME[name]:
+                differ = sass_diff(os.path.join(REPO, "_work", "flash_ab",
+                                                "baseline", f"{name}.so"),
+                                   cuda_build.library_path(name), kind)
+                print(f"[sass] {kind.pattern}: {differ} instantiations "
+                      "differ")
             sass_products(cuda_build.library_path(name), SASS_PRODUCTS[name])
     arms.update((arm, chip_smoke.flash_entry_points(defines=d))
                 for arm, d in variants.items())

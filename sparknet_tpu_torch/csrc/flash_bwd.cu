@@ -271,6 +271,7 @@
 
 #include <type_traits>
 
+#include "flash_cluster.cuh"
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 #include "flash_tf32.cuh"
@@ -1783,7 +1784,6 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 // f32 storage at head_dim 256 (and 129-255, zero-padded): split TF32 on
 // wgmma in clusters of two CTAs (the note at the top).
 
-constexpr int kTf32Ranks = 2;        // CTAs of a head_dim-256 cluster
 constexpr int kTf32DqQueries = 32;   // a head_dim-256 dQ cluster's queries
 
 // Shared-memory geometry of the f32 head_dim-256 backward (bytes): a
@@ -1807,61 +1807,6 @@ struct Tf32ClusterTiles {
   static constexpr size_t kDkvSmem =
       2 * KTILE + 6 * QTILE + 4 * HAND + 4 * XCH + 128 + 1024;
 };
-
-// 8 f32 of this thread (warpgroup thread w) into its slots of the
-// exchange buffer `buf` of rank `to`, completing on that rank's mbarrier
-// `bar`: the sender never waits
-__device__ __forceinline__ void xch_send(const float (&x)[8], uint32_t buf,
-                                         uint32_t bar, int to, int w) {
-  const uint32_t rb = mapa_u32(bar, to);
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const uint32_t v[4] = {__float_as_uint(x[4 * u]),
-                           __float_as_uint(x[4 * u + 1]),
-                           __float_as_uint(x[4 * u + 2]),
-                           __float_as_uint(x[4 * u + 3])};
-    st_async(mapa_u32(buf + (u * 128 + w) * 16, to), v, rb);
-  }
-}
-
-// this thread's 8 f32 of an exchange buffer (its own shared memory)
-__device__ __forceinline__ void xch_read(float (&y)[8],
-                                         const unsigned char* buf, int w) {
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const float4 v =
-        *reinterpret_cast<const float4*>(buf + (u * 128 + w) * 16);
-    y[4 * u] = v.x;
-    y[4 * u + 1] = v.y;
-    y[4 * u + 2] = v.z;
-    y[4 * u + 3] = v.w;
-  }
-}
-
-// An m64n32 accumulator's two halves: its registers of queries 0-15
-// (0-7) or 16-31 (8-15) of the tile, h 0 or 1 (h at run time: selects,
-// no indexed registers)
-__device__ __forceinline__ void half_of(float (&y)[8], const float (&x)[16],
-                                        int h) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) y[i] = h == 0 ? x[i] : x[8 + i];
-}
-
-// The partial of this rank's half of an m64n32 score tile summed over
-// both ranks' columns: the other rank's partial, received in `buf`, and
-// this rank's, added in rank order (two terms: the same f32 sum either
-// way)
-__device__ __forceinline__ void summed_half(float (&s)[8],
-                                            const float (&x)[16],
-                                            const unsigned char* buf,
-                                            int rank, int w) {
-  float mine[8], theirs[8];
-  half_of(mine, x, rank);
-  xch_read(theirs, buf, w);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    s[i] = rank == 0 ? mine[i] + theirs[i] : theirs[i] + mine[i];
-}
 
 __global__ void __launch_bounds__(kBwdThreads, 1)
     flash_dq_tf32_wgmma256_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -2035,8 +1980,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       }
       mbar_wait_cluster(recv_bar, j & 1);
       if (w == 0 && j + 1 < n_k) mbar_expect_tx(recv_bar, L::XCH);
-      float s[8];                      // this rank's half over all of D
-      summed_half(s, x, at(recv), rank, w);
+      float s[8], mine[8];             // this rank's half over all of D
+      half_of(mine, x, rank);
+      summed_half(s, mine, at(recv), rank, w);
       const bool edge = (causal && k0 + 63 > q0) || k0 + 64 > seq ||
                         q0 + kTf32DqQueries > seq;
       if (wg == 0) {
@@ -2275,7 +2221,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         xch_send(theirs, recv, recv_bar, rank ^ 1, w);
         mbar_wait_cluster(recv_bar, it & 1);
         if (w == 0 && more) mbar_expect_tx(recv_bar, L::XCH);
-        summed_half(s, x, at(recv), rank, w);
+        float mine[8];
+        half_of(mine, x, rank);
+        summed_half(s, mine, at(recv), rank, w);
       }
       const bool edge = (causal && qb0 < k0 + 63) || qb0 + QT > seq ||
                         k0 + 64 > seq;
@@ -2425,10 +2373,10 @@ int launch_wgmma(Kernel kernel, int threads, const void* const (&src)[4],
 
 // Launch an f32 head_dim-256 kernel on a (2, bh, ceil(seq / tile)) grid of
 // clusters of two CTAs along x (kBwdThreads threads, `bytes` of dynamic
-// shared memory each), its first four arguments the tensor maps of q, k,
-// v and dO: boxes of `q_rows` rows for q and dO, of `kv_rows` for k and
-// v; -> the launch's error code (a refused cluster launch included:
-// nothing falls back).
+// shared memory each; launch_cluster), its first four arguments the
+// tensor maps of q, k, v and dO: boxes of `q_rows` rows for q and dO, of
+// `kv_rows` for k and v; -> the launch's error code (a refused cluster
+// launch included: nothing falls back).
 template <typename Kernel, typename... Args>
 int launch_tf32_cluster(Kernel kernel, const void* const (&src)[4],
                         int q_rows, int kv_rows, int tile, int bh, int seq,
@@ -2441,26 +2389,10 @@ int launch_tf32_cluster(Kernel kernel, const void* const (&src)[4],
         &maps[i], src[i], 256, seq, bh, i == 0 || i == 3 ? q_rows : kv_rows);
     if (err != cudaSuccess) return err;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kTf32Ranks, bh, tiles);   // the tile axis slowest
-  cfg.blockDim = dim3(kBwdThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kTf32Ranks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], maps[2], maps[3],
-                           args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  // the tile axis slowest
+  return launch_cluster(kernel, dim3(kTf32Ranks, bh, tiles), kBwdThreads,
+                        bytes, stream, maps[0], maps[1], maps[2], maps[3],
+                        args...);
 }
 
 struct DqLaunch {
@@ -2522,7 +2454,7 @@ struct DqLaunch {
           static_cast<const float*>(dout), lse, static_cast<float*>(dq),
           delta, seq, scale, causal);
     } else {
-      return launch_mma(kernel<T, D>(), bh, seq, 1, smem<T, D>(), stream,
+      return launch_mma(kernel<T, D>(), bh, seq, smem<T, D>(), stream,
                         static_cast<const T*>(q),
                         static_cast<const T*>(k), static_cast<const T*>(v),
                         static_cast<const T*>(o), static_cast<const T*>(dout),
@@ -2588,7 +2520,7 @@ struct DkvLaunch {
           smem<T, D>(), stream, lse, delta, static_cast<float*>(dk),
           static_cast<float*>(dv), seq, scale, causal);
     } else {
-      return launch_mma(kernel<T, D>(), bh, seq, 1, smem<T, D>(), stream,
+      return launch_mma(kernel<T, D>(), bh, seq, smem<T, D>(), stream,
                         static_cast<const T*>(q),
                         static_cast<const T*>(k), static_cast<const T*>(v),
                         static_cast<const T*>(dout), lse, delta,

@@ -150,23 +150,74 @@
 //    that ran D = 128 before it, in the same calls, and 0.41x
 //    F.scaled_dot_product_attention's f32 time (scripts/flash_ab.py
 //    --cases f32; PERF.md).
-// f32 storage at head_dim 16 and 256 (flash_fwd_tf32_kernel): split TF32
-// on mma.sync m16n8k8 fed from shared memory. A CTA of 4 warps owns 64
-// query rows, 16 a warp; K and V in tiles of 64 keys (16) or 32 (256) by
-// cp.async through two stages, f32 tiles of row stride D + 4, free of
-// bank conflicts; S summed on the tensor cores 64 columns of D at a time
-// and added in f32, P V one tensor-core sum a key tile; at 256 O's
-// columns split in two 128-wide halves over the grid's z axis (each CTA
-// computes S over all of D). The wgmma kernel above does not fit at 256
-// (a 128-row f32 Q tile with its lo is 256 KB) and lost at 16: 0.0160 ms
-// against this kernel's 0.0144 at (8, 8, 256, 16) causal in one call
-// (PERF.md). Registers, shared memory, CTAs per SM (phase 6; no spills):
-// D = 16 128 / 25 KB / 4, D = 256 254 / 163 KB / 1.
+// f32 storage at head_dim 256, and 129-255 zero-padded to it
+// (flash_fwd_tf32_wgmma256_kernel): the design above over a thread-block
+// cluster of two CTAs ("ranks"), since its f32 tiles with their lo parts
+// (128 queries: 230,464 bytes at head_dim 128) do not fit one CTA at 256.
+// Rank r owns the columns [128 r, 128 r + 128) of Q, K, V and O, and a
+// cluster owns 64 queries (Q 32 KB a rank); S = Q K^T is built once a
+// tile and O is not split over the grid. Per rank, 384 threads:
+//  - The producer warpgroup (setmaxnreg 40): warps 0-1 load Q and K of
+//    each 64-key tile by TMA (K once warpgroup 0's S of the tile before
+//    is done) and write K's lo; warps 2-3 load V and write V^T hi and lo
+//    (transpose_v), as above over the rank's 128 columns.
+//  - Warpgroup 0 builds the partial S over the rank's columns, m64n64k8
+//    in split TF32, one tensor-core sum of 16 k-steps (Q split in
+//    registers, K as TMA wrote it and its lo). Rank r finishes rows g +
+//    8 r of each warp's 16, which are the same 16 of the 32 accumulator
+//    registers in every thread of either rank: a thread sends the other
+//    half to the thread in the same place of the other rank (st.async
+//    into an exchange buffer there, 16 f32 a thread, completing on that
+//    rank's mbarrier), adds the 16 it receives to its own half in rank
+//    order, in f32, scales and masks them, and runs the online softmax of
+//    its row (m, l, alpha; a row's 64 keys in the 4 lanes of a quad).
+//    It writes P and alpha of its row into the rank's P buffer and sends
+//    them to the same place of the other rank's: every score is built
+//    once, and both ranks use the same P bit for bit.
+//  - Warpgroup 1 holds O over the rank's 128 columns for all 64 queries
+//    (m64n128): a thread reads the 32 P values of its place in the
+//    buffer (the order of S's accumulators, so they are P's A fragments
+//    without a shuffle) and both alphas, and adds P V as one tensor-core
+//    sum of the tile's 8 k-steps (P split in registers, V^T hi and lo as
+//    B) to O scaled by alpha, in f32. Warpgroup 0 builds the next tile's
+//    S while warpgroup 1 adds this tile's P V. At the end warpgroup 0
+//    writes LSE of its rows and sends l to both ranks' warpgroup 1, which
+//    writes its 128 columns of O.
+//  - No cluster barrier in the loop: an exchange buffer is refilled only
+//    after its reader has passed it on (a tile's partial goes out once
+//    the other rank's P of the tile before has arrived, which it sent
+//    after reading the partial, and once warpgroup 1 has read that P);
+//    each mbarrier that counts received bytes is armed by its reader
+//    before it sends what lets the other rank send them.
+//  - Shared memory: Q, K, its lo, V's slot, V^T hi and lo, 32 KB each;
+//    the received partial 8 KB, P 16 KB, alpha and l 1 KB each: 224,384
+//    bytes, one CTA an SM. 168 registers a thread at launch (384
+//    threads), no spills, clusters of two, 66 co-resident
+//    (chip_smoke.py phase 6's _f32_fwd256_design).
+//  - Launched with cudaLaunchKernelEx (launch_cluster,
+//    flash_cluster.cuh), a cluster dimension of 2 on a (2, bh, tiles)
+//    grid, the tile axis slowest and the longest causal clusters first;
+//    a launch the card refuses returns its error (no fallback). At
+//    (2, 8, 4096, 256) causal, lm --d-model 2048 --heads 8's attention at
+//    the verb's default dtype (1,024 clusters): 2.08-2.15 ms, 39-40% of
+//    its bound, 2.72x the split-TF32 mma.sync kernel that ran head_dim
+//    256 before it (O's columns split over the grid, S built twice) and
+//    0.55x F.scaled_dot_product_attention's f32 time in one call
+//    (scripts/flash_ab.py --cases f32-256; PERF.md).
+// f32 storage at head_dim 16 (flash_fwd_tf32_kernel): split TF32 on
+// mma.sync m16n8k8 fed from shared memory. A CTA of 4 warps owns 64
+// query rows, 16 a warp; K and V in tiles of 64 keys by cp.async through
+// two stages, f32 tiles of row stride D + 4, free of bank conflicts; S
+// and P V each one tensor-core sum a key tile. The wgmma kernel above
+// lost at 16: 0.0160 ms against this kernel's 0.0144 at (8, 8, 256, 16)
+// causal in one call (PERF.md). 128 registers, 25 KB of shared memory,
+// 4 CTAs an SM (phase 6; no spills).
 // The storage type picks the kernel and nothing else does.
 
 #include <algorithm>
 #include <type_traits>
 
+#include "flash_cluster.cuh"
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 #include "flash_tf32.cuh"
@@ -632,16 +683,16 @@ __global__ void __launch_bounds__(kFwd256Threads, 1)
 
 // f32 storage: split TF32 on the tensor cores (the note at the top).
 
-// Tiles of the f32 mma.sync forward at head_dim D, 16 or 256 (floats;
+// Tiles of the f32 mma.sync forward, head_dim 16 alone (floats;
 // flash_tf32.cuh)
 template <int D>
 struct Tf32FwdTiles {
-  static_assert(D == 16 || D == 256, "f32 head_dim 32-128 runs wgmma");
-  static constexpr int DO = D > 128 ? 128 : D;     // O columns of a CTA
-  static constexpr int KT = D > 128 ? 32 : 64;     // keys a tile
+  static_assert(D == 16,
+                "f32 head_dim 32-128 runs wgmma, 256 its cluster kernel");
+  static constexpr int KT = 64;                    // keys a tile
   static constexpr int STAGES = 2;                 // K/V tiles in flight
-  static constexpr int LD = D + 4, LDV = DO + 4;   // row strides: Q, K; V
-  static constexpr int STAGE = KT * (LD + LDV);    // K then V
+  static constexpr int LD = D + 4;                 // row stride of a tile
+  static constexpr int STAGE = 2 * KT * LD;        // K then V
   static constexpr size_t kSmem =
       sizeof(float) * (kBlockQ * LD + STAGES * STAGE);
 };
@@ -654,8 +705,8 @@ __global__ void __launch_bounds__(kMmaThreads)
                           float* __restrict__ lse, int seq, float scale,
                           int causal) {
   using L = Tf32FwdTiles<D>;
-  constexpr int KT = L::KT, LD = L::LD, LDV = L::LDV;
-  constexpr int NT = KT / 8, NO = L::DO / 8;
+  constexpr int KT = L::KT, LD = L::LD;
+  constexpr int NT = KT / 8, NO = D / 8;
   extern __shared__ float smem[];
   float* qs = smem;                          // this CTA's 64 queries
   float* kv = qs + kBlockQ * LD;             // stage st: K, then V
@@ -663,7 +714,6 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int g = lane >> 2, t = lane & 3;
   const int qt = gridDim.y - 1 - blockIdx.y;   // causal: longest CTAs first
   const int q0 = qt * kBlockQ;
-  const int col0 = blockIdx.z * L::DO;         // this CTA's columns of O
   const long long base = static_cast<long long>(blockIdx.x) * seq * D;
   q += base;
   k += base;
@@ -677,7 +727,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   auto load_kv = [&](int j) {
     float* dst = kv + (j % L::STAGES) * L::STAGE;
     cp_async_f32<KT, D, LD>(dst, k, D, j * KT, 0, seq);
-    cp_async_f32<KT, L::DO, LDV>(dst + KT * LD, v, D, j * KT, col0, seq);
+    cp_async_f32<KT, D, LD>(dst + KT * LD, v, D, j * KT, 0, seq);
   };
   cp_async_f32<kBlockQ, D, LD>(qs, q, D, q0, 0, seq);
   for (int j = 0; j < L::STAGES - 1; ++j) {   // Q lands with tile 0
@@ -738,7 +788,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
     uint32_t ph[NT][4], pl[NT][4];           // O += P V
     split_c_tiles(ph, pl, s);
-    mul_tiles<LDV>(acc, ph, pl, vs, 0, 0, g, t);
+    mul_tiles<LD>(acc, ph, pl, vs, 0, 0, g, t);
     __syncthreads();                         // tile j's stage is free
   }
   cp_async_wait<0>();
@@ -750,12 +800,12 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int r = q0 + w0 + g + 8 * i;
     if (r >= seq) continue;
     const float lc = fmaxf(lt, 1e-30f);
-    float* orow = o + static_cast<long long>(r) * D + col0;
+    float* orow = o + static_cast<long long>(r) * D;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
           make_float2(acc[n][2 * i] / lc, acc[n][2 * i + 1] / lc);
-    if (t == 0 && col0 == 0) lse[r] = m[i] + logf(lc);
+    if (t == 0) lse[r] = m[i] + logf(lc);
   }
 }
 
@@ -770,7 +820,8 @@ constexpr int kTf32FwdThreads = 384;   // a producer warpgroup, two consumer
 template <int D>
 struct Tf32WgFwdTiles {
   static_assert(D >= 32 && D <= 128,
-                "f32 head_dim 16 and 256 run flash_fwd_tf32_kernel");
+                "f32 head_dim 16 runs flash_fwd_tf32_kernel, 256 "
+                "flash_fwd_tf32_wgmma256_kernel");
   static constexpr int QTILE = 128 * D * 4;    // the CTA's 128 queries
   static constexpr int KTILE = 64 * D * 4;     // a 64-key tile of K or V
   static constexpr int VT = D * 64 * 4;        // V^T: D rows of 64 keys
@@ -1008,26 +1059,328 @@ __global__ void __launch_bounds__(kTf32FwdThreads, 1)
   }
 }
 
-// bf16 storage takes the wgmma kernels (head_dim 256 its own); f32 at
-// head_dim 32-128 the split-TF32 wgmma kernel, at 16 and 256 the
-// split-TF32 mma.sync one
+// f32 storage at head_dim 256 (and 129-255, zero-padded): split TF32 on
+// wgmma in clusters of two CTAs (the note at the top).
+
+constexpr int kTf32ClusterQueries = 64;   // a head_dim-256 cluster's queries
+
+// Shared memory of the f32 head_dim-256 forward (bytes): a rank's tiles of
+// the head_dim-128 wgmma kernel over its 128 columns (f32_at), its
+// exchange buffers in the slot layout of flash_cluster.cuh.
+struct Tf32ClusterFwdTiles {
+  static constexpr int W = 128;                // columns of a rank
+  static constexpr int QTILE = 64 * W * 4;     // the cluster's 64 queries
+  static constexpr int KTILE = 64 * W * 4;     // a 64-key tile of K or V
+  static constexpr int VT = W * 64 * 4;        // V^T: 128 rows of 64 keys
+  static constexpr int XCH = 16 * 128 * 4;     // 16 f32 a consumer thread
+  static constexpr int PTILE = 32 * 128 * 4;   // 32 f32 a consumer thread
+  static constexpr int ROWS = 2 * 128 * 4;     // 2 f32 a consumer thread
+  // what a rank receives of a tile's P and alpha from the other: 16 P
+  // values and one alpha of each of its 128 threads of warpgroup 0
+  static constexpr int PMSG = 128 * (16 + 1) * 4;
+  // Q; K, its lo and V as TMA lands them; V^T hi and lo; the received
+  // partial scores; P, alpha and l of the 64 rows (alpha and l one a
+  // thread and row half); twelve mbarriers; 1024 bytes to align the tiles
+  static constexpr size_t kSmem =
+      QTILE + 3 * KTILE + 2 * VT + XCH + PTILE + 2 * ROWS + 128 + 1024;
+};
+
+__global__ void __launch_bounds__(kTf32FwdThreads, 1)
+    flash_fwd_tf32_wgmma256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                   const __grid_constant__ CUtensorMap tm_k,
+                                   const __grid_constant__ CUtensorMap tm_v,
+                                   float* __restrict__ o,
+                                   float* __restrict__ lse, int seq,
+                                   float scale, int causal) {
+  using L = Tf32ClusterFwdTiles;
+  constexpr int D = 256;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t qs = (raw + 1023) & ~1023u;   // the cluster's 64 queries
+  const uint32_t ks = qs + L::QTILE, klo = ks + L::KTILE;   // key tile j
+  const uint32_t vland = klo + L::KTILE;   // V of tile j as TMA wrote it
+  const uint32_t vth = vland + L::KTILE, vtl = vth + L::VT;   // V^T hi, lo
+  // the other rank's partial of this rank's half of S; P of both halves
+  // (warpgroup 0's to warpgroup 1, the other rank's half by st.async);
+  // alpha and, at the end, l of both halves
+  const uint32_t rs = vtl + L::VT, pt = rs + L::XCH;
+  const uint32_t al = pt + L::PTILE, ls = al + L::ROWS;
+  // mbarriers: +0 Q landed; +8 K landed, +16 V landed; +24 K's lo written
+  // (the K warps' 64), +32 V^T written (the V warps' 64); +40 K read
+  // (warpgroup 0), +48 V^T read (warpgroup 1); +56 the partial received;
+  // +64 this rank's half of P and alpha written (warpgroup 0), +72 the
+  // other rank's received, +80 P and alpha read (warpgroup 1); +88 l of
+  // both halves whole
+  const uint32_t bars = ls + L::ROWS;
+  auto at = [&](uint32_t a) { return smem_raw + (a - raw); };
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3, w = tid & 127;
+  const int bh = blockIdx.y, col0 = L::W * rank;   // this rank's columns
+  const int qt = gridDim.z - 1 - blockIdx.z;   // causal: longest first
+  const int q0 = qt * kTf32ClusterQueries;
+  const int key_tiles = (seq + 63) / 64;
+  // causal: key tiles wholly above the diagonal are skipped
+  const int n_k = causal ? min(key_tiles, qt + 1) : key_tiles;
+  const long long rows0 = static_cast<long long>(bh) * seq;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_init(bars + 24, 64);
+    mbar_init(bars + 32, 64);
+    for (int i = 0; i < 2; ++i) mbar_init(bars + 40 + 8 * i, 128);
+    mbar_init(bars + 56, 1);
+    mbar_init(bars + 64, 128);
+    mbar_init(bars + 72, 1);
+    mbar_init(bars + 80, 128);
+    mbar_init(bars + 88, 129);
+    mbar_fence_init();
+    // the received bytes of key tile 0 and of l, armed before any rank
+    // can send them
+    mbar_expect_tx(bars + 56, L::XCH);
+    mbar_expect_tx(bars + 72, L::PMSG);
+    mbar_expect_tx(bars + 88, L::ROWS / 2);
+  }
+  cluster_sync_any();                  // both ranks run, mbarriers set
+  if (wg == 2) {
+    // the producer: warps 0-1 load Q and K of each key tile (K once
+    // warpgroup 0's S of the tile before is done) and write K's lo;
+    // warps 2-3 load V of each key tile (once the transpose has read the
+    // tile before) and write V^T hi and lo
+    setmaxnreg_dec<40>();
+    const int p = (tid - 256) & 63;
+    if (tid < 320) {
+      if (p == 0) {
+        mbar_expect_tx(bars, L::QTILE);
+        f32_load<L::W>(qs, &tm_q, bars, 64, q0, bh, col0);
+        mbar_expect_tx(bars + 8, L::KTILE);
+        f32_load<L::W>(ks, &tm_k, bars + 8, 64, 0, bh, col0);
+      }
+      for (int j = 0; j < n_k; ++j) {
+        const int i = static_cast<int>(opaque(p));
+        mbar_wait(bars + 8, j & 1);            // K of tile j has landed
+        split_lo(at(klo), at(ks), L::KTILE, i, 64);
+        fence_proxy_async();
+        mbar_arrive(bars + 24);
+        if (p == 0 && j + 1 < n_k) {
+          mbar_wait(bars + 40, j & 1);         // K of tile j is read
+          mbar_expect_tx(bars + 8, L::KTILE);
+          f32_load<L::W>(ks, &tm_k, bars + 8, 64, (j + 1) * 64, bh, col0);
+        }
+      }
+    } else {
+      if (p == 0) {
+        mbar_expect_tx(bars + 16, L::KTILE);
+        f32_load<L::W>(vland, &tm_v, bars + 16, 64, 0, bh, col0);
+      }
+      for (int j = 0; j < n_k; ++j) {
+        const int i = static_cast<int>(opaque(p));
+        mbar_wait(bars + 16, j & 1);           // V of tile j has landed
+        if (j > 0) mbar_wait(bars + 48, (j - 1) & 1);   // V^T of j - 1 read
+        transpose_v<L::W>(at(vth), at(vtl), at(vland), i);
+        transpose_v<L::W>(at(vth), at(vtl), at(vland), i + 64);
+        fence_proxy_async();
+        mbar_arrive(bars + 32);
+        named_bar_sync(1, 64);                 // V's slot is read
+        if (p == 0 && j + 1 < n_k) {
+          mbar_expect_tx(bars + 16, L::KTILE);
+          f32_load<L::W>(vland, &tm_v, bars + 16, 64, (j + 1) * 64, bh,
+                         col0);
+        }
+      }
+    }
+  } else if (wg == 0) {
+    // warpgroup 0: the partial S = Q K^T over this rank's 128 columns
+    // (64 queries x 64 keys), its rows g + 8 rank of each warp's 16 (the
+    // registers of row_half_of(rank)) finished here, the others by the
+    // other rank: the half it finishes there sent to its twin thread,
+    // the half it finishes here received from it and added in rank
+    // order, scaled, masked and through the online softmax in natural
+    // units (expf, as the plain version); P and alpha of those rows
+    // written here and sent to the other rank, for both ranks' P V
+    setmaxnreg_inc<232>();
+    const int row = q0 + 16 * warp + g + 8 * rank;   // this thread's row
+    float m = kNegInf, l = 0.f;
+    mbar_wait(bars, 0);                        // Q has landed
+    for (int j = 0; j < n_k; ++j) {
+      // the tiles' addresses are rebuilt each tile from opaque values
+      const unsigned char* qp = at(opaque(qs));
+      const uint32_t kt = opaque(ks);
+      float s[32];
+      mbar_wait(bars + 24, j & 1);             // K of tile j and its lo
+      product_3xtf32<64, L::W / 8>(
+          s,
+          [&](int kk, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
+            frag_mk(hi, lo, qp, 64, 16 * warp, kk, g, t);
+          },
+          [&](int kk, bool low) {
+            return f32_kmajor(low ? kt + L::KTILE : kt, 64, 0, kk);
+          });
+      wgmma_wait<0>();
+      fence_operands(s);
+      mbar_arrive(bars + 40);                  // K of tile j is read
+      if (j > 0) {
+        // the other rank has read the partial of tile j - 1 (it sent
+        // P of j - 1 after) and warpgroup 1 this rank's P of j - 1: the
+        // buffers take tile j
+        mbar_wait_cluster(bars + 72, (j - 1) & 1);
+        mbar_wait(bars + 80, (j - 1) & 1);
+        if (w == 0) mbar_expect_tx(bars + 72, L::PMSG);
+      }
+      {  // the other rank's half of the partial, to it
+        float theirs[16];
+        row_half_of(theirs, s, rank ^ 1);
+        xch_send(theirs, rs, bars + 56, rank ^ 1, w);
+      }
+      float x[16], mine[16];                   // this row over all of D
+      row_half_of(mine, s, rank);
+      mbar_wait_cluster(bars + 56, j & 1);
+      if (w == 0 && j + 1 < n_k) mbar_expect_tx(bars + 56, L::XCH);
+      summed_half(x, mine, at(rs), rank, w);
+
+      // x[2 n + b]: key 8 n + 2 t + b of the tile
+      const int k0 = j * 64;
+      const bool edge = (causal && k0 + 63 > q0) || k0 + 64 > seq;
+      float mx = kNegInf;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        float y = x[e] * scale;
+        if (edge) {
+          // a query row past seq is never stored: only keys are masked
+          const int c = k0 + 8 * (e >> 1) + 2 * t + (e & 1);
+          if (c >= seq || (causal && c > row)) y = kNegInf;
+        }
+        x[e] = y;
+        mx = fmaxf(mx, y);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m, mx);
+      const float alpha = expf(m - m_new);
+      m = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        x[e] = expf(x[e] - m);
+        sum += x[e];
+      }
+      l = l * alpha + sum;
+
+      // P (registers 4 n + 2 rank + b of the tile's accumulator: words
+      // 2 rank + b of slot n) and alpha, here and in the other rank
+      const uint32_t ptw = opaque(pt) + w * 16 + 8 * rank;
+      const uint32_t alw = al + (rank * 128 + w) * 4;
+      const uint32_t rbar = mapa_u32(bars + 72, rank ^ 1);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const uint32_t v[2] = {__float_as_uint(x[2 * n]),
+                               __float_as_uint(x[2 * n + 1])};
+        *reinterpret_cast<float2*>(at(ptw + n * 128 * 16)) =
+            make_float2(x[2 * n], x[2 * n + 1]);
+        st_async(mapa_u32(ptw + n * 128 * 16, rank ^ 1), v, rbar);
+      }
+      *reinterpret_cast<float*>(at(alw)) = alpha;
+      {
+        const uint32_t v[1] = {__float_as_uint(alpha)};
+        st_async(mapa_u32(alw, rank ^ 1), v, rbar);
+      }
+      mbar_arrive(bars + 64);
+    }
+
+    // l of this row, and LSE; l to warpgroup 1 of both ranks
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float lc = fmaxf(l, 1e-30f);
+    if (t == 0 && row < seq) lse[rows0 + row] = m + logf(lc);
+    const uint32_t lsw = ls + (rank * 128 + w) * 4;
+    *reinterpret_cast<float*>(at(lsw)) = lc;
+    const uint32_t v[1] = {__float_as_uint(lc)};
+    st_async(mapa_u32(lsw, rank ^ 1), v, mapa_u32(bars + 88, rank ^ 1));
+    mbar_arrive(bars + 88);
+  } else {
+    // warpgroup 1: O += P V over this rank's 128 columns for all 64
+    // queries, P split from the 32 values of its twin thread of
+    // warpgroup 0 (the accumulator's order: P's A fragments without a
+    // shuffle), V^T hi and lo from the producer; one tensor-core sum a key
+    // tile, added in f32 to O scaled by alpha
+    setmaxnreg_inc<232>();
+    float acc[64], chunk[64];                  // O, unnormalised; P V
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+    for (int j = 0; j < n_k; ++j) {
+      const uint32_t vt = opaque(vth);
+      float p[32], alpha[2];
+      mbar_wait(bars + 64, j & 1);             // this rank's half of P
+      mbar_wait_cluster(bars + 72, j & 1);     // the other rank's
+      xch_read(p, at(opaque(pt)), w);
+      {
+        const float* a = reinterpret_cast<const float*>(at(al));
+        alpha[0] = a[w];
+        alpha[1] = a[128 + w];
+      }
+      mbar_arrive(bars + 80);                  // P and alpha are read
+      mbar_wait(bars + 32, j & 1);             // V^T of tile j
+      product_3xtf32<L::W, 8>(
+          chunk,
+          [&](int kk, uint32_t(&hi)[4], uint32_t(&lo)[4]) {
+            const float c[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                                p[4 * kk + 3]};
+            frag_c_as_a(hi, lo, c);
+          },
+          [&](int kk, bool low) {
+            return f32_kmajor(low ? vt + L::VT : vt, L::W, 0, kk);
+          });
+      wgmma_wait<0>();
+      fence_operands(chunk);
+      mbar_arrive(bars + 48);                  // V^T of tile j is read
+#pragma unroll
+      for (int e = 0; e < 64; ++e)
+        acc[e] = acc[e] * alpha[(e >> 1) & 1] + chunk[e];
+    }
+
+    mbar_wait_cluster(bars + 88, 0);           // l of both halves
+    const float* lsp = reinterpret_cast<const float*>(at(ls));
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = q0 + 16 * warp + g + 8 * i;
+      if (r >= seq) continue;
+      const float lc = lsp[i * 128 + w];
+      float* orow = o + (rows0 + r) * D + col0 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < L::W / 8; ++n)
+        *reinterpret_cast<float2*>(orow + 8 * n) =
+            make_float2(acc[4 * n + 2 * i] / lc, acc[4 * n + 2 * i + 1] / lc);
+    }
+  }
+  cluster_sync_any();                  // no rank exits under the other's
+                                       // exchanges
+}
+
+// bf16 storage takes the wgmma kernels (head_dim 256 its own); f32 the
+// split-TF32 wgmma kernel at head_dim 32-128, its cluster kernel at 256,
+// and the split-TF32 mma.sync kernel at 16
 template <typename T>
 constexpr bool kWgmma = std::is_same<T, bf16>::value;
 template <typename T, int D>
 constexpr bool kWgmma256 = kWgmma<T> && D == 256;
 template <typename T, int D>
 constexpr bool kTf32Wgmma = !kWgmma<T> && D >= 32 && D <= 128;
+template <typename T, int D>
+constexpr bool kTf32Cluster = !kWgmma<T> && D == 256;
 // threads of a forward CTA of storage T at head_dim D
 template <typename T, int D>
-constexpr int kFwdThreadsOf = kWgmma256<T, D>    ? kFwd256Threads
-                              : kWgmma<T>        ? kWgThreads
-                              : kTf32Wgmma<T, D> ? kTf32FwdThreads
-                                                 : kMmaThreads;
+constexpr int kFwdThreadsOf =
+    kWgmma256<T, D>                               ? kFwd256Threads
+    : kWgmma<T>                                   ? kWgThreads
+    : kTf32Wgmma<T, D> || kTf32Cluster<T, D>      ? kTf32FwdThreads
+                                                  : kMmaThreads;
 
 // Launch a forward kernel on TMA of storage T at head_dim D over a (bh,
-// ceil(seq / q_rows)) grid with `bytes` of dynamic shared memory, its
-// first arguments the tensor maps of q, k and v with boxes of q_rows and
-// kv_rows rows; -> the launch's error code.
+// ceil(seq / q_rows)) grid with `bytes` of dynamic shared memory (the f32
+// cluster kernel at 256: a (2, bh, ceil(seq / q_rows)) grid of clusters
+// of two CTAs along x, launch_cluster), its first arguments the tensor
+// maps of q, k and v with boxes of q_rows and kv_rows rows; -> the
+// launch's error code.
 template <typename T, int D, typename Kernel>
 int launch_tma(Kernel fn, const void* const (&src)[3], int q_rows,
                int kv_rows, size_t bytes, T* o, float* lse, int bh, int seq,
@@ -1039,6 +1392,13 @@ int launch_tma(Kernel fn, const void* const (&src)[3], int q_rows,
     const cudaError_t err = rows_map<T>(&maps[i], src[i], D, seq, bh,
                                         i == 0 ? q_rows : kv_rows);
     if (err != cudaSuccess) return err;
+  }
+  if constexpr (kTf32Cluster<T, D>) {
+    if (bh > 65535) return cudaErrorInvalidValue;
+    // the tile axis slowest
+    return launch_cluster(fn, dim3(kTf32Ranks, bh, tiles),
+                          kFwdThreadsOf<T, D>, bytes, stream, maps[0],
+                          maps[1], maps[2], o, lse, seq, scale, causal);
   }
   const cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1066,6 +1426,8 @@ struct ForwardLaunch {
       return flash_fwd_wgmma_kernel<D>;
     else if constexpr (kTf32Wgmma<T, D>)
       return flash_fwd_tf32_wgmma_kernel<D>;
+    else if constexpr (kTf32Cluster<T, D>)
+      return flash_fwd_tf32_wgmma256_kernel;
     else
       return flash_fwd_tf32_kernel<D>;
   }
@@ -1078,6 +1440,8 @@ struct ForwardLaunch {
       return WgTiles<D>::kSmem;
     else if constexpr (kTf32Wgmma<T, D>)
       return Tf32WgFwdTiles<D>::kSmem;
+    else if constexpr (kTf32Cluster<T, D>)
+      return Tf32ClusterFwdTiles::kSmem;
     else
       return Tf32FwdTiles<D>::kSmem;
   }
@@ -1107,13 +1471,14 @@ struct ForwardLaunch {
       return launch_tma<T, D>(kernel<T, D>(), src, kWgRows, kWgKeys,
                               smem<T, D>(), out, lse, bh, seq, scale, causal,
                               stream);
-    } else if constexpr (kTf32Wgmma<T, D>) {
-      // 128 queries a CTA, 64-key tiles
-      return launch_tma<T, D>(kernel<T, D>(), src, 128, 64, smem<T, D>(),
+    } else if constexpr (kTf32Wgmma<T, D> || kTf32Cluster<T, D>) {
+      // 128 queries a CTA (at 256: 64 a cluster), 64-key tiles
+      constexpr int rows = kTf32Cluster<T, D> ? kTf32ClusterQueries : 128;
+      return launch_tma<T, D>(kernel<T, D>(), src, rows, 64, smem<T, D>(),
                               out, lse, bh, seq, scale, causal, stream);
     } else {
-      return launch_mma(kernel<T, D>(), bh, seq, D / Tf32FwdTiles<D>::DO,
-                        smem<T, D>(), stream, static_cast<const float*>(q),
+      return launch_mma(kernel<T, D>(), bh, seq, smem<T, D>(), stream,
+                        static_cast<const float*>(q),
                         static_cast<const float*>(k),
                         static_cast<const float*>(v), out, lse, seq, scale,
                         causal);
@@ -1124,9 +1489,10 @@ struct ForwardLaunch {
 // What the runtime says of the forward kernel for (dtype, head_dim) at its
 // own thread count: registers a thread, local memory a thread (spills),
 // dynamic shared memory and resident CTAs per SM, into out[0..3]; out[4]
-// = 1, out[5] = 0 (no cluster). bf16 at head_dim 256: the 128-row
-// kernel's, but registers and local memory the larger of its and the
-// split variant's.
+// the cluster size, out[5] co-resident clusters (1 and 0 without a
+// cluster: all but the f32 head_dim-256 kernel, fill_info of
+// flash_wide.cuh). bf16 at head_dim 256: the 128-row kernel's, but
+// registers and local memory the larger of its and the split variant's.
 struct ForwardInfo {
   int* out;
 
@@ -1146,6 +1512,8 @@ struct ForwardInfo {
     const auto fn = ForwardLaunch::kernel<T, D>();
     const size_t bytes = ForwardLaunch::smem<T, D>();
     constexpr int threads = kFwdThreadsOf<T, D>;
+    if constexpr (kTf32Cluster<T, D>)
+      return fill_info(fn, threads, bytes, kTf32Ranks, out);
     cudaFuncAttributes attr;
     cudaError_t err = attributes(fn, bytes, &attr);
     if (err == cudaSuccess && threads == kMmaThreads)   // as launch_mma sets

@@ -137,11 +137,11 @@ __device__ __forceinline__ float dot8_bf16(uint4 a, uint4 b) {
 
 // Opt the kernel in to `bytes` of dynamic shared memory with the largest
 // shared-memory carveout (so two CTAs of ~105 KB fit on an SM), launch it
-// on a (bh, ceil(seq / 64), splits) grid of kMmaThreads threads, and
+// on a (bh, ceil(seq / 64)) grid of kMmaThreads threads, and
 // return the launch's error code. The tile index is the slow grid axis,
 // so every (b, h) starts its tile 0 before any starts tile 1.
 template <typename Kernel, typename... Args>
-int launch_mma(Kernel kernel, int bh, int seq, int splits, size_t bytes,
+int launch_mma(Kernel kernel, int bh, int seq, size_t bytes,
                cudaStream_t stream, Args... args) {
   const int tiles = (seq + 63) / 64;
   if (tiles > 65535) return cudaErrorInvalidValue;
@@ -153,8 +153,7 @@ int launch_mma(Kernel kernel, int bh, int seq, int splits, size_t bytes,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, tiles, splits);
-  kernel<<<grid, kMmaThreads, bytes, stream>>>(args...);
+  kernel<<<dim3(bh, tiles), kMmaThreads, bytes, stream>>>(args...);
   return cudaGetLastError();
 }
 

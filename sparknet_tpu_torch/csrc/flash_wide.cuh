@@ -166,8 +166,9 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 }
 
 // a barrier of every thread of the cluster that a warp need not reach
-// together (flash_bwd.cu's f32 head_dim-256 kernels, whose producer warp
-// has one thread loading while the others wait)
+// together (the f32 head_dim-256 kernels of flash_fwd.cu and
+// flash_bwd.cu, whose producer warps have one thread loading while the
+// others wait)
 __device__ __forceinline__ void cluster_sync_any() {
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");

@@ -411,11 +411,12 @@ def test_flash_backward_is_deterministic_on_card(cuda, causal, dtype, s, d):
 def test_flash_forward_is_deterministic_on_card(cuda, causal, dtype, b, s,
                                                 d):
     # no atomics: each O element and LSE row is summed by one warpgroup
-    # in a fixed order over the key tiles (f32 at head_dim 256: one
-    # warp), launch after launch (bf16 at head_dim 256: b 2 gives 32 CTAs
-    # of 128 rows, fewer than the card's SMs, so the split variant runs,
-    # whose warpgroups' halves combine in a fixed order; b 16 the 128-row
-    # CTAs; S = 1000 ends in ragged tiles)
+    # in a fixed order over the key tiles (f32 at head_dim 256: each
+    # score of a tile summed by one thread from the two ranks' partials,
+    # in rank order), launch after launch (bf16 at head_dim 256: b 2
+    # gives 32 CTAs of 128 rows, fewer than the card's SMs, so the split
+    # variant runs, whose warpgroups' halves combine in a fixed order; b
+    # 16 the 128-row CTAs; S = 1000 ends in ragged tiles)
     q, k, v, _ = _flash_inputs((b, 4, s, d), dtype, 35)
     first = ca.flash_attention_fwd(q, k, v, causal)
     second = ca.flash_attention_fwd(q, k, v, causal)
@@ -452,14 +453,17 @@ def test_flash_f32_backward_keeps_its_limits_on_card(cuda, causal, s, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s, d", [(512, 128), (512, 64), (512, 32),
-                                  (1000, 128), (1000, 64)],
-                         ids=["128", "64", "32", "128-S1000", "64-S1000"])
+                                  (1000, 128), (1000, 64), (512, 256),
+                                  (1000, 256), (512, 192)],
+                         ids=["128", "64", "32", "128-S1000", "64-S1000",
+                              "256", "256-S1000", "192"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_flash_f32_forward_keeps_its_limits_on_card(cuda, causal, s, d):
-    # f32 storage up to head_dim 128 takes the split-TF32 wgmma forward:
-    # f32-accurate products, so O and LSE stay within 2e-5 of the largest
-    # element and O's worst tile within 1e-5 (the limit is 1e-4), far
-    # under what one TF32 pass reads (~3e-4 of the largest element)
+    # f32 storage takes the split-TF32 wgmma forward (at head_dim 256,
+    # and 192 zero-padded to it, on clusters of two CTAs): f32-accurate
+    # products, so O and LSE stay within 2e-5 of the largest element and
+    # O's worst tile within 1e-5 (the limit is 1e-4), far under what one
+    # TF32 pass reads (~3e-4 of the largest element)
     q, k, v, _ = _flash_inputs((1, 2, s, d), torch.float32, 36)
     o, lse = ca.flash_attention_fwd(q, k, v, causal)
     ro, rlse = ca.flash_attention_fwd_plain(q, k, v, causal)

@@ -16,6 +16,11 @@ logits of every token are computed from their own params, and every
 token whose top-2 margin clears twice the two packages' logit
 difference must go to the same expert (the seed-free check of ROADMAP
 C12, tests/test_torch_mesh_parity.py), at most 2% of them inside it.
+
+A gradient clip is held to one device instead (ROADMAP C24): the JAX
+solver runs its updater inside shard_map, so Caffe's global-norm clip
+sees each slot's own expert rows there; the port clips the whole
+gradient by its global norm, as Caffe and the port's FSDP do.
 """
 
 import jax
@@ -33,6 +38,7 @@ from sparknet_tpu_torch.graph.compiler import CompiledNet as TNet
 from sparknet_tpu_torch.models import zoo as tzoo
 from sparknet_tpu_torch.parallel import ExpertParallelSolver, make_mesh
 from sparknet_tpu_torch.proto import Message as TMessage
+from sparknet_tpu_torch.solver import Solver
 from test_torch_mesh_parity import (LOSS_RTOL, STEPS, assert_params_match,
                                routing_agreement, start_together)
 
@@ -116,3 +122,53 @@ def test_indivisible_experts_are_refused():
                              net_param=tzoo.transformer_lm(
                                  **dict(LM, batch_size=3)),
                              device="cpu", log_fn=None)
+
+
+def test_clipped_step_matches_one_device():
+    # an ep 2 SGD step with clip_gradients set against one device's from
+    # the same weights: every token kept (capacity factor 4, the experts'
+    # count) and no aux loss (its routing statistics are each slot's own
+    # under ep), so the two compute the same gradient; the clip is active
+    # (the update's norm is lr * clip) and each expert slot's own norm,
+    # which the JAX solver would clip by, is not the global one
+    lm = dict(LM, moe_capacity_factor=4.0, moe_aux_weight=0.0,
+              moe_stats=False)
+    lr, clip = 0.1, 0.05
+
+    def sp():
+        return TMessage("SolverParameter", base_lr=lr, lr_policy="fixed",
+                        type="SGD", random_seed=3, display=0,
+                        clip_gradients=clip)
+    one = Solver(sp(), net_param=tzoo.transformer_lm(**lm), device="cpu",
+                 log_fn=None)
+    ts = ExpertParallelSolver(sp(), mesh=make_mesh({"data": 1, "expert": 2}),
+                              net_param=tzoo.transformer_lm(**lm),
+                              device="cpu", log_fn=None)
+    with torch.no_grad():
+        for name, blobs in one.params.items():
+            for a, b in zip(ts.params[name], blobs):
+                a.copy_(b)
+    w0 = {n: [p.detach().clone() for p in ps] for n, ps in one.params.items()}
+    b = next(lm_batch_stream(64, 4, 32, seed=1)[0])
+    np.testing.assert_allclose(float(ts.train_step(b)),
+                               float(one.train_step(b)), rtol=1e-6)
+    for name, blobs in one.params.items():
+        for a, p in zip(ts.params[name], blobs):
+            np.testing.assert_allclose(a.detach().numpy(),
+                                       p.detach().numpy(), rtol=0,
+                                       atol=1e-6)
+    step = torch.sqrt(sum(((p.detach() - w0[n][i]) ** 2).sum()
+                          for n, ps in one.params.items()
+                          for i, p in enumerate(ps)))
+    assert abs(float(step) / (lr * clip) - 1) < 1e-4
+
+    def sumsq(rows):
+        return float(sum((g.double() ** 2).sum() for g in rows))
+    grads = {n: [p.grad for p in ps] for n, ps in one.params.items()}
+    experts = {n: ps[1:] for n, ps in grads.items() if n.endswith("/moe")}
+    total = sumsq(g for gs in grads.values() for g in gs)
+    for e in range(2):
+        mine = total - sumsq(g[(1 - e) * 2:(2 - e) * 2]
+                             for gs in experts.values() for g in gs)
+        assert abs((total / mine) ** 0.5 - 1) > 1e-2
+

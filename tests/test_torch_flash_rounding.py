@@ -66,13 +66,19 @@ must keep the same f32 limits, and one TF32 pass of it must read over a
 dQ, dK or dV limit.
 
 The f32 forward at head_dim 32-128 runs on wgmma too
-(flash_fwd_tf32_wgmma_kernel; the F32_FWD_CASES marked "wgmma"): S = Q K^T with Q split in registers and K read as TMA
-wrote it (hi truncated), one tensor-core sum over all of D; key tiles of
-64; P V one tensor-core sum of the tile's 8 k-steps, P split from the
-accumulators and V^T split as the producer warpgroup writes it (hi
-rounded), added in f32 to O scaled by alpha. That emulation must keep
+(flash_fwd_tf32_wgmma_kernel; the F32_FWD_CASES marked "wgmma"): S = Q
+K^T with Q split in registers and K read as TMA wrote it (hi
+truncated), one tensor-core sum over all of D; key tiles of 64; P V one
+tensor-core sum of the tile's 8 k-steps, P split from the accumulators
+and V^T split as the producer warpgroup writes it (hi rounded), added in
+f32 to O scaled by alpha. At head_dim 256 (and 129-255, padded) the
+forward runs that design on a cluster of two CTAs
+(flash_fwd_tf32_wgmma256_kernel; the F32_FWD_CASES marked "cluster"):
+each rank's partial S over its 128 columns is one tensor-core sum of 16
+k-steps, the two partials are added in rank order, from zero, in f32,
+and each rank adds P V over its own columns. Those emulations must keep
 the forward's f32 limits against the plain version and the Pallas
-kernel, with the planted faults above them, and one TF32 pass of it
+kernel, with the planted faults above them, and one TF32 pass of them
 must read over the O limit.
 
 Past head_dim 256 (csrc/flash_wide.cuh) the forward, dQ and dK/dV run
@@ -493,13 +499,16 @@ F32_BWD_CASES = [
       for p in F32_CLUSTER_SHAPES)]
 # the forward's cases: (shape, design) of F32_SHAPES and WIDE_SHAPES for
 # the mma.sync kernel (csrc/flash_fwd.cu's flash_fwd_tf32_kernel, which
-# runs head_dim 16 and 256) and the cluster kernel past 256, and for the
-# wgmma kernel at head_dim 32-128 (flash_fwd_tf32_wgmma_kernel; 32 is the
-# lm verb's default)
+# runs head_dim 16) and the cluster kernel past 256, for the wgmma kernel
+# at head_dim 32-128 (flash_fwd_tf32_wgmma_kernel; 32 is the lm verb's
+# default), and of F32_CLUSTER_SHAPES for the head_dim-256 kernel on
+# clusters of two (flash_fwd_tf32_wgmma256_kernel)
 F32_FWD_CASES = [pytest.param((p.values[0], "mma.sync"), id=p.id)
                  for p in F32_SHAPES + WIDE_SHAPES] + [
     pytest.param(((1, 2, 256, d), "wgmma"), id=f"S256-D{d}-wgmma")
-    for d in (32, 64, 128)]
+    for d in (32, 64, 128)] + [
+    pytest.param((p.values[0], "cluster"), id=f"{p.id}-cluster")
+    for p in F32_CLUSTER_SHAPES]
 
 
 def _tf32(x):
@@ -569,9 +578,9 @@ def _streamed(d, design="mma.sync"):
     """Rows of the streamed tiles at head_dim d: the forward's key tiles,
     the dQ kernel's key tiles, the dK/dV kernel's query tiles: of the
     mma.sync kernels (Tf32FwdTiles, DqTiles, DkvTiles), or of the wgmma
-    kernels (Tf32WgFwdTiles: 64 keys; Tf32WgTiles: 64 keys, 32
-    queries)."""
-    if design == "wgmma":
+    kernels (Tf32WgFwdTiles and, on clusters, Tf32ClusterFwdTiles: 64
+    keys; Tf32WgTiles: 64 keys, 32 queries)."""
+    if design in ("wgmma", "cluster"):
         return {"fwd": 64, "dq": 64, "dkv": 32}
     return {"fwd": 32 if d >= 64 else 64,
             "dq": 32 if d == 128 else (16 if d > 64 else 64),
@@ -603,6 +612,12 @@ def _split_tf32_forward(q, k, v, causal, passes=3, design="mma.sync"):
     (8 k-steps) from P split in registers and V^T split as the producer
     writes it (hi rounded, as _split), added to O scaled by alpha.
 
+    ``design`` "cluster" (flash_fwd_tf32_wgmma256_kernel, head_dim 256 on
+    clusters of two): as "wgmma", but S from the two ranks' partials
+    over their 128 columns, each one tensor-core sum of 16 k-steps with
+    K's hi truncated (_raw_split), summed in rank order from zero in f32
+    (_rank_sum) and then scaled.
+
     Past head_dim 256, as the cluster kernel of csrc/flash_wide.cuh: Q
     scaled (in f32) before the products, on the padded inputs, each
     rank's slice two sums of 8 k-steps added in f32 and the ranks'
@@ -625,6 +640,9 @@ def _split_tf32_forward(q, k, v, causal, passes=3, design="mma.sync"):
         x = scores(q, kt) if wide else \
             _tc_sum(q, kt.transpose(-1, -2), passes, chain=d // 8,
                     b_raw=True) * scale if design == "wgmma" else \
+            _cluster_scores(lambda a, b_: _tc_sum(
+                a, b_, passes, chain=ca.WIDE_CHUNK // 8, b_raw=True))(
+                    q, kt) * scale if design == "cluster" else \
             _tc_sum(q, kt.transpose(-1, -2), passes) * scale
         if causal:
             cols = torch.arange(k0, min(k0 + tile, s))[None, :]
